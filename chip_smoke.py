@@ -1,0 +1,790 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``rag_llm_k8s_tpu_torch``).
+
+    python3 chip_smoke.py        # from the repository root, one CUDA card
+
+1. Set-up: prints the card (``nvidia-smi`` name and power limit), builds the
+   hand-written kernels from ``rag_llm_k8s_tpu_torch/ops/csrc`` (one ``nvcc``
+   per source, started together); a failed build is fatal.
+2. Kernel phases: each kernel against its plain PyTorch version on the card,
+   at the shapes the main path gives it, with its time (CUDA events, warm,
+   median), the plain version's time, one PyTorch library call computing the
+   same function (``library_ms``, a yardstick the port never calls) and the
+   least time the card could take (``bound_ms``, from this run's inputs).
+3. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
+   bf16 weights) through the kernels against the same forward through the
+   plain attention.
+4. Service phase: the port's RagService over the 8B decoder and a full
+   bge-m3 encoder; PDFs through ``/upload_pdf``, then synthetic chunks up to
+   65,536 vectors (the fused-path cap), then ``/generate`` and ``/query``
+   requests with default sampling and with greedy, one long question (host
+   path) and one >4096-token prompt (chunked prefill). The launch counters
+   are zeroed just before and read just after; every kernel must have run.
+   Then one greedy request is served through the decode kernel and again
+   through the plain decode attention, as a yardstick.
+
+Prints one line per phase, the card line and a ``kernels`` JSON line, and
+last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
+when there is no CUDA card, a kernel fails to build or launch, or anything
+disagrees.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # dense tensor-core bf16
+FP32_FLOPS = 67e12  # CUDA-core fp32
+# Attention (bf16 outputs, fp32 accumulation on both sides, randn inputs) is
+# held to the scale of what it is compared with, since a decode output over
+# ~4,000 keys is only ~0.02 in size: the error's RMS over the plain output's
+# RMS within 2**-7, and its largest element within 2**-6 of the plain output's
+# largest magnitude. Both sides round the softmax weights to bf16 before the
+# PV product at different running maxima, which alone leaves a relative RMS
+# error of ~3e-3 (a CPU emulation of the kernel's tiling), so 2**-7 is ~2.7x
+# that noise. Each phase also plants faults in the plain version's arguments
+# (a window edge or causal offset off by one key, another layer) and fails
+# unless the check rejects every one of them.
+ATTN_RMS_TOL = 2.0**-7
+ATTN_MAX_TOL = 2.0**-6
+KNN_RTOL = 1e-5  # fp32 distances (no TF32 on either side)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median per-call milliseconds over ``iters`` event-timed calls
+    (``fn(i)`` gets the iteration index)."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(i)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa(q, k, v, mask):
+    """One PyTorch call computing the same attention (yardstick only):
+    ``q [B, S, H, hd]``-style inputs as ``[B, heads, S, hd]`` views."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+# ---------------------------------------------------------------------------
+# kernel phases
+# ---------------------------------------------------------------------------
+
+
+def phase_knn(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import knn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    N_pad, D, n_valid, k = 65536, 1024, 65000, 5
+    emb = torch.randn(N_pad, D, device=dev, generator=g)
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    emb[n_valid:] = 0
+    norms = torch.full((1, N_pad), knn.BIG, device=dev)
+    norms[0, :n_valid] = (emb[:n_valid] ** 2).sum(1)
+    worst = 0.0
+    for Q in (1, 8):
+        q = torch.randn(Q, D, device=dev, generator=g)
+        q = q / q.norm(dim=1, keepdim=True)
+        kv, ki = knn.knn_topk(q, emb, norms, k=k)
+        pv, pi = knn.knn_topk_xla(q, emb, norms, k=k + 1)
+        torch.cuda.synchronize()
+        err = ((kv - pv[:, :k]).abs() / pv[:, :k].abs().clamp_min(1.0)).max().item()
+        worst = max(worst, (kv - pv[:, :k]).abs().max().item())
+        if err > KNN_RTOL:
+            fail(f"knn Q={Q}: distance rel err {err:.3g} > {KNN_RTOL}")
+        # ids must agree wherever the ranking has no near-tie in the top k+1
+        gaps = (pv[:, 1:] - pv[:, :-1]) / pv[:, 1:].abs().clamp_min(1.0)
+        clear = (gaps > KNN_RTOL).all(dim=1)
+        if not torch.equal(ki[clear], pi[clear, :k]):
+            fail(f"knn Q={Q}: ids differ from the plain version")
+        ms = time_ms(lambda i: knn.knn_topk(q, emb, norms, k=k))
+        plain_ms = time_ms(lambda i: knn.knn_topk_xla(q, emb, norms, k=k), iters=5)
+        valid = emb[:n_valid]
+        lib_ms = time_ms(lambda i: torch.topk(torch.cdist(q, valid), k, largest=False), iters=5)
+        nbytes = (Q * D + N_pad * D + N_pad) * 4 + Q * k * 8
+        b_ms, b_by = bound(nbytes, 2.0 * Q * N_pad * D, FP32_FLOPS)
+        print(f"phase knn Q={Q} N_pad={N_pad} D={D} k={k}: max_abs_err={worst:.3g} "
+              f"(rel tol {KNN_RTOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if Q == 1:
+            rows["knn_topk"] = dict(
+                shape=f"Q=1 N_pad={N_pad} D={D} k={k}", ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            )
+    rows["knn_topk"]["max_abs_err"] = worst
+
+
+def _attn_err(got, want):
+    """(max abs error, its limit, relative RMS error) of ``got`` against ``want``."""
+    d = got.float() - want.float()
+    w = want.float()
+    return d.abs().max().item(), ATTN_MAX_TOL * w.abs().max().item(), (d.norm() / w.norm()).item()
+
+
+def _attn_check(name, got, want):
+    """Fails unless ``got`` agrees with the plain output ``want``; returns
+    (max abs error, relative RMS error)."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite kernel output")
+    err, lim, rms = _attn_err(got, want)
+    if err > lim or rms > ATTN_RMS_TOL:
+        fail(f"{name}: max abs err {err:.3g} (limit {lim:.3g}), rel rms {rms:.3g} (tol {ATTN_RMS_TOL:.3g})")
+    return err, rms
+
+
+def _attn_faults(name, got, faulty):
+    """Each plain output in ``faulty`` comes from a wrong argument (a window
+    edge or causal offset off by one key, or another layer); the check must
+    reject ``got`` against every one. Returns the smallest relative RMS
+    error among them."""
+    least = math.inf
+    for fault, want in faulty.items():
+        err, lim, rms = _attn_err(got, want)
+        if err <= lim and rms <= ATTN_RMS_TOL:
+            fail(f"{name}: the check accepts a planted fault ({fault}: rel rms {rms:.3g})")
+        least = min(least, rms)
+    return least
+
+
+def _attn_line(err, rms, fault_rms):
+    return (f"max_abs_err={err:.3g} rel_rms={rms:.3g} (tol {ATTN_RMS_TOL:.3g}, max <= "
+            f"{ATTN_MAX_TOL:.3g} x max|plain|) planted faults rejected (least rel_rms {fault_rms:.3g})")
+
+
+def phase_flash(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    worst, worst_rms = 0.0, 0.0
+    # Llama prefill: B=1, S=4096, H=32, K=8, hd=128, causal, 100 left-pad slots;
+    # bge-m3: H=K=16, hd=64, bidirectional, right-padded rows (kv_len). The
+    # planted fault moves each window edge by one key (the bge-m3 row of
+    # length 1 keeps its key, so the fault does not rest on an empty row).
+    cases = [
+        ("llama", 1, 4096, 32, 8, 128, True, [100], [4096]),
+        ("bge-m3", 8, 512, 16, 16, 64, False, [0] * 8, [512, 300, 77, 1, 512, 400, 256, 9]),
+    ]
+    for tag, B, S, H, K, hd, causal, ks_l, kl_l in cases:
+        q = torch.randn(B, S, H, hd, device=dev, generator=g).to(bf)
+        k = torch.randn(B, S, K, hd, device=dev, generator=g).to(bf)
+        v = torch.randn(B, S, K, hd, device=dev, generator=g).to(bf)
+        ks = torch.tensor(ks_l, device=dev, dtype=torch.int32)
+        kl = torch.tensor(kl_l, device=dev, dtype=torch.int32)
+        got = A.flash_attention(q, k, v, ks, kl, causal=causal)
+        want = A.attention_xla(q, k, v, ks, kl, causal)
+        torch.cuda.synchronize()
+        err, rms = _attn_check(f"flash {tag}", got, want)
+        worst, worst_rms = max(worst, err), max(worst_rms, rms)
+        if causal and not (got[:, : ks_l[0]] == 0).all():
+            fail("flash: fully masked rows must be zero")
+        del want
+        if causal:
+            faulty = {"kv_start+1": A.attention_xla(q, k, v, ks + 1, kl, causal)}
+        else:
+            faulty = {"kv_len-1": A.attention_xla(q, k, v, ks, (kl - 1).clamp_min(1), causal)}
+        fault_rms = _attn_faults(f"flash {tag}", got, faulty)
+        del faulty
+        ms = time_ms(lambda i: A.flash_attention(q, k, v, ks, kl, causal=causal))
+        plain_ms = time_ms(lambda i: A.attention_xla(q, k, v, ks, kl, causal), iters=3, warmup=1)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, None, :] >= ks[:, None, None]) & (pos[None, None, :] < kl[:, None, None])
+        if causal:
+            mask = mask & (pos[None, None, :] <= pos[None, :, None])
+        qt, kt, vt, m4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+        lib_ms = time_ms(lambda i: sdpa(qt, kt, vt, m4), iters=5)
+        # (query, key) pairs computed on; every query row of a bidirectional
+        # case sees its whole window
+        pairs = mask.expand(B, S, S).sum().item()
+        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
+        b_ms, b_by = bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
+        print(f"phase flash {tag} B={B} S={S} H={H} K={K} hd={hd} causal={causal}: "
+              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if tag == "llama":
+            rows["flash_attention"] = dict(
+                shape=f"B=1 S=4096 H=32 K=8 hd=128 causal", ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            )
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    rows["flash_attention"].update(max_abs_err=worst, rel_rms=worst_rms)
+
+
+def _sharpen_edges(q, k_caches, layer, write_index, kv_start):
+    """Adds 9x the unit mean query direction of each (position, kv head) to
+    the keys that query row's mask turns on or off: ``write_index + t`` (the
+    last key it sees), ``write_index + t + 1`` (the first it must not) and,
+    for row 0, ``kv_start``. Each such key then carries ~1 % of its row's
+    softmax weight instead of ~0.07 %, so a mask off by one key moves the
+    output by tens of percent (the plain version's rel RMS change is 0.1-2
+    at these shapes), while the other ~4,000 random keys still set the
+    rounding noise."""
+    B, S, H, hd = q.shape
+    K = k_caches[0].shape[2]
+    u = q.float().reshape(B, S, K, H // K, hd).sum(3)
+    u = (9.0 * u / u.norm(dim=-1, keepdim=True)).transpose(1, 2)  # [B, K, S, hd]
+    for kc in k_caches:
+        lay = kc[layer].float()
+        lay[:, :, write_index:write_index + S] += u
+        lay[:, :, write_index + 1:write_index + S + 1] += u
+        lay[:, :, kv_start] += u[:, :, 0]
+        kc[layer] = lay.to(kc.dtype)
+
+
+def _cache_pair(L, B, K, T, hd, ks, kl, g):
+    """A random bf16 cache pair with NaN outside ``[ks, kl)`` and its
+    zero-filled twin. The kernel gets both and must agree with the plain
+    version on the twin either way: it never lets an out-of-window slot
+    into a product (the plain version would, 0 * NaN = NaN)."""
+    import torch
+
+    kc = torch.randn(L, B, K, T, hd, device="cuda", generator=g).to(torch.bfloat16)
+    vc = torch.randn(L, B, K, T, hd, device="cuda", generator=g).to(torch.bfloat16)
+    kz, vz = kc.clone(), vc.clone()
+    for c, z in ((kc, kz), (vc, vz)):
+        c[:, :, :, :ks] = float("nan")
+        c[:, :, :, kl:] = float("nan")
+        z[:, :, :, :ks] = 0
+        z[:, :, :, kl:] = 0
+    return kc, vc, kz, vz
+
+
+def phase_decode(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    L, B, K, T, H, hd = 32, 1, 8, 4352, 32, 128
+    ks_i, kl_i = 100, 4200
+    kc, vc, kz, vz = _cache_pair(L, B, K, T, hd, ks_i, kl_i, g)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+    kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+    layer = 17
+    _sharpen_edges(q, (kc, kz), layer, kl_i - 1, ks_i)  # the query sits at the frontier
+    want = A.decode_attention_xla(q, kz, vz, ks, kl, layer)
+    got = A.decode_attention(q, kc, vc, ks, kl, layer)
+    err, rms = map(max, zip(
+        _attn_check("decode", A.decode_attention(q, kz, vz, ks, kl, layer), want),
+        _attn_check("decode (NaN outside the window)", got, want),
+    ))
+    fault_rms = _attn_faults("decode", got, {
+        "kv_start+1": A.decode_attention_xla(q, kz, vz, ks + 1, kl, layer),
+        "kv_len-1": A.decode_attention_xla(q, kz, vz, ks, kl - 1, layer),
+        "layer-1": A.decode_attention_xla(q, kz, vz, ks, kl, layer - 1),
+    })
+    # each call reads another layer, as a decode step does: its window is
+    # not left in the 50 MB L2 by the previous call
+    ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=32)
+    plain_ms = time_ms(lambda i: A.decode_attention_xla(q, kz, vz, ks, kl, i % L), iters=8)
+    pos = torch.arange(T, device=dev)
+    mask = ((pos >= ks_i) & (pos < kl_i))[None, None, None, :]
+    qt = q.transpose(1, 2)
+    lib_ms = time_ms(lambda i: sdpa(qt, kz[i % L], vz[i % L], mask), iters=8)
+    live = kl_i - ks_i
+    nbytes = 2 * B * K * live * hd * 2 + 2 * q.numel() * 2
+    b_ms, b_by = bound(nbytes, 4.0 * B * H * hd * live, BF16_FLOPS)
+    print(f"phase decode L={L} B={B} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}): "
+          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    rows["decode_attention"] = dict(
+        shape=f"L=32 B=1 K=8 T={T} H=32 hd=128 live={live}", ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+    )
+
+
+def phase_chunk(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    L, B, K, H, hd = 32, 1, 8, 32, 128
+    worst, worst_rms = 0.0, 0.0
+    # the speculative verify (S = k + 1 = 16 near the 4096 bucket's frontier)
+    # and a long prompt's second chunk (S = 4096 at write_index 4096)
+    for tag, S, wi, T in (("verify", 16, 4100, 4352), ("long-prompt", 4096, 4096, 8448)):
+        ks_i, kl_i = 100, wi + S
+        Lc = L if S == 16 else 4  # the 4096-wide case needs fewer layers to stay cold
+        kc, vc, kz, vz = _cache_pair(Lc, B, K, T, hd, ks_i, kl_i, g)
+        q = torch.randn(B, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+        ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+        kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+        layer = Lc // 2 + 1
+        _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
+        want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
+        got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
+        err, rms = map(max, zip(
+            _attn_check(f"chunk {tag}", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wi), want),
+            _attn_check(f"chunk {tag} (NaN outside the window)", got, want),
+        ))
+        worst, worst_rms = max(worst, err), max(worst_rms, rms)
+        del want
+        faulty = {
+            "write_index+1": A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi + 1),
+            "write_index-1": A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi - 1),
+        }
+        if S == 16:
+            # window edges: on 1 of 4,096 long-prompt rows they move the
+            # whole output too little to plant there
+            faulty["kv_start+1"] = A.chunk_attention_xla(q, kz, vz, ks + 1, kl, layer, wi)
+            faulty["kv_len-1"] = A.chunk_attention_xla(q, kz, vz, ks, kl - 1, layer, wi)
+        fault_rms = _attn_faults(f"chunk {tag}", got, faulty)
+        del faulty
+        del got
+        ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
+        plain_ms = time_ms(lambda i: A.chunk_attention_xla(q, kz, vz, ks, kl, i % Lc, wi),
+                           iters=3 if S > 16 else 8, warmup=1)
+        pos = torch.arange(T, device=dev)
+        qpos = wi + torch.arange(S, device=dev)
+        mask = (pos[None, :] >= ks_i) & (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None])
+        qt, m4 = q.transpose(1, 2), mask[None, None]
+        lib_ms = time_ms(lambda i: sdpa(qt, kz[i % Lc], vz[i % Lc], m4), iters=5)
+        pairs = mask.sum().item()
+        nbytes = 2 * B * K * (kl_i - ks_i) * hd * 2 + 2 * q.numel() * 2
+        b_ms, b_by = bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
+        print(f"phase chunk {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd}: "
+              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if tag == "verify":
+            rows["chunk_prefill_attention"] = dict(
+                shape=f"S=16 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            )
+        del kc, vc, kz, vz, q
+        torch.cuda.empty_cache()
+    rows["chunk_prefill_attention"].update(max_abs_err=worst, rel_rms=worst_rms)
+
+
+# ---------------------------------------------------------------------------
+# model + service phases
+# ---------------------------------------------------------------------------
+
+
+class ByteTokenizer:
+    """Byte-level stand-in tokenizer (ids = byte + 3): no trained tokenizer
+    ships with the repository."""
+
+    def encode(self, text):
+        return [b + 3 for b in text.encode("utf-8")]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes((int(i) - 3) % 256 for i in ids if 3 <= int(i) < 259).decode("utf-8", "replace")
+
+
+def make_pdf(text: str) -> bytes:
+    content = f"BT /F1 12 Tf ({text}) Tj ET".encode()
+    return b"".join([
+        b"%PDF-1.4\n",
+        b"1 0 obj << /Type /Catalog /Pages 2 0 R >> endobj\n",
+        b"2 0 obj << /Type /Pages /Kids [3 0 R] /Count 1 >> endobj\n",
+        b"3 0 obj << /Type /Page /Parent 2 0 R /Contents 4 0 R "
+        b"/Resources << /Font << /F1 5 0 R >> >> >> endobj\n",
+        b"4 0 obj << /Length %d >> stream\n%s\nendstream endobj\n" % (len(content), content),
+        b"5 0 obj << /Type /Font /Subtype /Type1 /BaseFont /Helvetica >> endobj\n",
+        b"%%EOF",
+    ])
+
+
+WORDS = ("kernel tile memory cache token query chunk vector index decode prefill "
+         "attention bandwidth device stream warp block shared register latency").split()
+
+
+def words(rng, n):
+    return " ".join(WORDS[i] for i in rng.integers(0, len(WORDS), size=n))
+
+
+def _sdpa_attention(q, k, v, kv_start, kv_len, causal=True):
+    """The prefill attention as one SDPA call (yardstick); rows with no
+    visible key come back as zeros, as in the kernel."""
+    import torch
+
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    m = (pos[None, None, :] >= kv_start[:, None, None]) & (pos[None, None, :] < kv_len[:, None, None])
+    if causal:
+        m = m & (pos[None, None, :] <= pos[None, :, None])
+    o = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), m[:, None])
+    return torch.nan_to_num(o.transpose(1, 2), nan=0.0)
+
+
+def phase_model(model, cfg):
+    """Llama-3.1-8B prefill logits with the prefill attention through the
+    kernel, the plain version and SDPA (all bf16 on the card). Random
+    weights amplify bf16 rounding layer after layer, so the kernel passes
+    when its distance from the plain forward stays within twice SDPA's
+    distance from it (the bf16 noise floor), at depth 2 and at full depth."""
+    import torch
+    from torch import nn
+
+    from rag_llm_k8s_tpu_torch.models import llama as L
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S, npad = 1, 256, 40
+    tokens = torch.randint(3, 259, (B, S), device=dev, generator=g)
+    pad = torch.ones((B, S), dtype=torch.int64, device=dev)
+    pad[:, :npad] = 0
+    ks, _ = L.mask_window(pad)
+    pos = (torch.cumsum(pad, -1) - 1).clamp_min(0)
+    impls = {"kernel": A.flash_attention, "plain": A.attention_xla, "sdpa": _sdpa_attention}
+    layers = model.layers
+
+    def logits(depth, impl):
+        L.flash_attention = impl
+        model.layers = nn.ModuleList(list(layers)[:depth])
+        try:
+            cache = L.make_kv_cache(cfg, B, S, torch.bfloat16, dev)
+            with torch.inference_mode():
+                return model(tokens, pos, cache, ks, torch.full((B,), S, device=dev), 0)[0, npad:].float()
+        finally:
+            L.flash_attention = A.flash_attention
+            model.layers = layers
+
+    for depth in (2, cfg.num_layers):
+        out = {name: logits(depth, fn) for name, fn in impls.items()}
+        if not torch.isfinite(out["kernel"]).all():
+            fail("model: non-finite logits")
+        ref = out["plain"]
+
+        def rel(x):
+            return ((x - ref).norm() / ref.norm()).item()
+
+        def top1(x):
+            return (x.argmax(-1) == ref.argmax(-1)).float().mean().item()
+
+        print(f"phase model llama-3.1-8b prefill S={S} ({npad} pad) depth={depth}: logits vs plain "
+              f"rel_rms kernel={rel(out['kernel']):.4g} sdpa={rel(out['sdpa']):.4g} "
+              f"top1 kernel={top1(out['kernel']):.4f} sdpa={top1(out['sdpa']):.4f}", flush=True)
+        if rel(out["kernel"]) > max(2 * rel(out["sdpa"]), 1e-3):
+            fail("model: kernel forward strays past the bf16 noise floor")
+
+
+def phase_service(service_bits):
+    import numpy as np
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.engine import assemble_rag_tokens
+    from rag_llm_k8s_tpu_torch.ops import _build
+
+    svc, client, engine, store = service_bits
+    rng = np.random.default_rng(0)
+    dev = engine.device
+    dim = store.dim
+    _build.reset_launches()
+    t0 = time.monotonic()
+    # three PDFs of ~250 words each: one chunk apiece through the encoder
+    for i in range(3):
+        r = client.post("/upload_pdf", files={"file": (f"doc{i}.pdf", make_pdf(words(rng, 250)))})
+        if r.status_code != 200:
+            fail(f"upload_pdf: {r.status_code} {r.get_json()}")
+    n_pdf = store.ntotal
+    # synthetic chunks up to the fused-path cap: unit vectors + short rows
+    n_syn = 65536 - n_pdf
+    vecs = rng.standard_normal((n_syn, dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    meta = [{"filename": f"synthetic-{i // 16}.pdf", "chunk_id": i % 16, "text": words(rng, 30)}
+            for i in range(n_syn)]
+    store.add(list(vecs), meta)
+    toks, _ = store.token_snapshot()
+    print(f"phase service ingest: pdf_chunks={n_pdf} total_vectors={store.ntotal} "
+          f"sidecar={tuple(toks.shape)} s={time.monotonic() - t0:.1f}", flush=True)
+
+    greedy = SamplingConfig(do_sample=False)
+    default = engine.sampling
+    requests = [
+        ("/generate", "which kernel tiles the shared memory?", default),
+        ("/query", "how does the cache stream tokens?", default),
+        ("/generate", "what bounds the decode latency?", greedy),
+        ("/query", "where is the vector index kept?", greedy),
+    ]
+    served = []
+    for route, question, sampling in requests:
+        engine.sampling = sampling
+        before = dataclasses.replace(engine.stats)
+        launched = dict(_build.LAUNCHES)
+        r = client.post(route, json_body={"prompt": question})
+        body = r.get_json()
+        if r.status_code != 200 or not isinstance(body.get("generated_text"), str):
+            fail(f"{route}: {r.status_code} {body}")
+        if "Document '" not in body.get("context", "") or not all(
+            math.isfinite(v) for v in body["timings"].values()
+        ):
+            fail(f"{route}: malformed response {body}")
+        st = engine.stats
+        path = "speculative" if st.spec_verify_steps > before.spec_verify_steps else "vanilla"
+        served.append(path)
+        print(f"request {route} sampling={'greedy' if sampling is greedy else 'default'} "
+              f"path={path} decode_tokens={st.decode_tokens - before.decode_tokens} "
+              f"verify_steps={st.spec_verify_steps - before.spec_verify_steps} "
+              f"launches={json.dumps({n: c - launched[n] for n, c in _build.LAUNCHES.items()})} "
+              f"timings={json.dumps(body['timings'])}", flush=True)
+    engine.sampling = default
+    # both decode loops must have served a fused request
+    for mode, need in (("off", "vanilla"), ("prompt_lookup", "speculative")):
+        if need not in served:
+            ec = engine.engine_config
+            engine.engine_config = dataclasses.replace(ec, speculative=mode)
+            r = client.post("/query", json_body={"prompt": "what does the warp block share?"})
+            engine.engine_config = ec
+            if r.status_code != 200:
+                fail(f"forced {mode}: {r.status_code} {r.get_json()}")
+            print(f"request /query forced speculative={mode} "
+                  f"timings={json.dumps(r.get_json()['timings'])}", flush=True)
+    # host path: a question whose tail overflows the 128-token fused bucket
+    r = client.post("/generate", json_body={"prompt": words(rng, 40) + "?"})
+    if r.status_code != 200:
+        fail(f"long question: {r.status_code} {r.get_json()}")
+    print(f"request /generate long-question path=host timings={json.dumps(r.get_json()['timings'])}",
+          flush=True)
+    # chunked prefill: a prompt past the 4096 bucket
+    t = time.monotonic()
+    long_prompt = [engine.config.bos_token_id] + list(rng.integers(3, 259, size=5000))
+    out = engine.generate([long_prompt], max_new_tokens=32)[0]
+    print(f"request engine.generate prompt=5001 tokens (chunked prefill) new_tokens={len(out)} "
+          f"s={time.monotonic() - t:.2f}", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the main path: {json.dumps(launches)}", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+
+    # the device-assembled prompt is token-identical to the host mirror
+    question = "which kernel tiles the shared memory?"
+    _, packed, k_eff, _ = svc._retrieve(question, allow_device=True)
+    toks, lens = store.token_snapshot()
+    a_ids, b_ids = svc._a_ids(), svc._b_ids(question)
+    S = max(engine.engine_config.prompt_buckets)
+    b_pad = torch.zeros(engine.RAG_TAIL_BUCKET, dtype=torch.int64, device=dev)
+    b_pad[: len(b_ids)] = torch.tensor(b_ids, device=dev)
+    dev_tokens, dev_mask = assemble_rag_tokens(
+        torch.tensor(a_ids, device=dev), b_pad, len(b_ids), packed, toks, lens, S,
+        min(3, k_eff), engine.pad_id,
+    )
+    host = packed.cpu().numpy()
+    results = store.results_at(host[0, k_eff:].astype(np.int64), host[0, :k_eff])
+    _, want_ids = svc._piecewise_prompt(question, results)
+    m = dev_mask[0].bool()
+    if dev_tokens[0][m].tolist() != list(want_ids):
+        fail("device prompt assembly differs from the host mirror")
+    print(f"phase service prompt assembly: device == host ({len(want_ids)} tokens)", flush=True)
+    return launches
+
+
+def _decode_step_ms(engine, reps: int = 5):
+    """One decode forward (B=1, slot 4199 of a 4352-slot cache) issued on an
+    idle card: the median host time to issue it, and to its end."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.models import llama as L
+
+    dev = engine.device
+    cache = L.make_kv_cache(engine.config, 1, 4352, torch.bfloat16, dev)
+    tok = torch.full((1, 1), 7, dtype=torch.int64, device=dev)
+    pos = torch.full((1, 1), 4199, dtype=torch.int64, device=dev)
+    ks = torch.zeros(1, dtype=torch.int64, device=dev)
+    kl = torch.full((1,), 4200, dtype=torch.int64, device=dev)
+    issued, ended = [], []
+    with torch.inference_mode():
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.model(tok, pos, cache, ks, kl, 4199)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            if i:  # the first is a warm-up
+                issued.append((t1 - t0) * 1e3)
+                ended.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(issued), statistics.median(ended)
+
+
+def phase_plain_decode(service_bits):
+    """Yardstick, run after the main path's counters are read: one greedy
+    request on the vanilla decode loop through the decode kernel, then the
+    same request with the plain decode attention swapped into the model,
+    each timed by the service (``timings.generate_ms``); and one decode
+    forward each way, to show whether the host's launches or the card
+    set the step's time."""
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.models import llama as L
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    _, client, engine, _ = service_bits
+    ec, sampling = engine.engine_config, engine.sampling
+    engine.engine_config = dataclasses.replace(ec, speculative="off")
+    engine.sampling = SamplingConfig(do_sample=False)
+    got = {}
+    try:
+        for impl, fn in (("kernel", A.decode_attention), ("plain", A.decode_attention_xla)):
+            L.decode_attention = fn
+            steps = engine.stats.decode_tokens
+            r = client.post("/generate", json_body={"prompt": "which kernel tiles the shared memory?"})
+            if r.status_code != 200:
+                fail(f"decode yardstick ({impl}): {r.status_code} {r.get_json()}")
+            body = r.get_json()
+            got[impl] = (body["timings"]["generate_ms"], engine.stats.decode_tokens - steps,
+                         body["generated_text"])
+            issued, ended = _decode_step_ms(engine)
+            print(f"phase decode yardstick: one decode forward through the {impl} attention: "
+                  f"issued in {issued:.2f} ms, ended after {ended:.2f} ms (host clock)", flush=True)
+    finally:
+        L.decode_attention = A.decode_attention
+        engine.engine_config, engine.sampling = ec, sampling
+    (k_ms, k_n, k_txt), (p_ms, p_n, p_txt) = got["kernel"], got["plain"]
+    print(f"phase decode yardstick (greedy, vanilla decode): generate_ms kernel={k_ms:.1f} "
+          f"({k_n} decode tokens) plain={p_ms:.1f} ({p_n} decode tokens) "
+          f"kernel/plain={k_ms / p_ms:.3f} same_text={k_txt == p_txt}", flush=True)
+
+
+def build_service():
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import AppConfig, EncoderConfig, LlamaConfig
+    from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.index.store import VectorStore
+    from rag_llm_k8s_tpu_torch.models import convert
+    from rag_llm_k8s_tpu_torch.models.bge_m3 import build_encoder
+    from rag_llm_k8s_tpu_torch.models.llama import build_llama
+    from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
+
+    dev = torch.device("cuda")
+    cfg = AppConfig(model=LlamaConfig.llama_3_1_8b(), encoder=EncoderConfig.bge_m3())
+    t = time.monotonic()
+    model = convert.init_random_(
+        build_llama(cfg.model, cfg.dtypes, dev, fused=True),
+        torch.Generator(device=dev).manual_seed(0),
+    )
+    enc = convert.init_random_(
+        build_encoder(cfg.encoder, cfg.dtypes, dev), torch.Generator(device=dev).manual_seed(1)
+    )
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_enc = sum(p.numel() for p in enc.parameters())
+    print(f"phase build: llama-3.1-8b params={n_params} bge-m3 params={n_enc} "
+          f"device_mem_gb={torch.cuda.memory_allocated() / 1e9:.2f} s={time.monotonic() - t:.1f}",
+          flush=True)
+    engine = InferenceEngine(cfg.model, model, cfg.sampling, cfg.engine, cfg.dtypes, dev)
+    tok = ByteTokenizer()
+    encoder = EncoderRunner(cfg.encoder, enc, dev)
+    store = VectorStore(cfg.encoder.hidden_size, dev)
+    svc = RagService(cfg, engine, tok, encoder, tok, store)
+    svc.ready = True
+    return svc, create_app(svc).test_client(), engine, store
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from rag_llm_k8s_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
+        return 2
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+          f"count {torch.cuda.device_count()}", flush=True)
+    t = time.monotonic()
+    reports = _build.build()
+    for src, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {src}: {line.strip()}")
+    print(f"phase build kernels: {sorted(reports) or 'cached'} s={time.monotonic() - t:.1f}", flush=True)
+
+    rows = {}
+    phase_knn(rows)
+    phase_flash(rows)
+    phase_decode(rows)
+    phase_chunk(rows)
+    torch.cuda.empty_cache()
+
+    bits = build_service()
+    phase_model(bits[2].model, bits[2].config)
+    launches = phase_service(bits)
+    phase_plain_decode(bits)
+    print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+
+    sources = {"knn_topk": "rag_llm_k8s_tpu_torch/ops/csrc/knn.cu"}
+    replaces = {
+        "knn_topk": "rag_llm_k8s_tpu/ops/knn.py:87",
+        "flash_attention": "rag_llm_k8s_tpu/ops/attention.py:122",
+        "decode_attention": "rag_llm_k8s_tpu/ops/attention.py:276",
+        "chunk_prefill_attention": "rag_llm_k8s_tpu/ops/attention.py:428",
+    }
+    kernels = []
+    for kname in ("knn_topk", "flash_attention", "decode_attention", "chunk_prefill_attention"):
+        r = rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": sources.get(kname, "rag_llm_k8s_tpu_torch/ops/csrc/attention.cu"),
+            "replaces": replaces[kname], "launches": launches[kname],
+            "max_abs_err": r["max_abs_err"],
+            "tolerance": f"distance rel {KNN_RTOL}" if kname == "knn_topk" else
+            f"rel rms {ATTN_RMS_TOL}, max abs {ATTN_MAX_TOL} x max|plain|",
+            **({"rel_rms": r["rel_rms"]} if "rel_rms" in r else {}),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"],
+        })
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,489 @@
+"""The one-shot inference engine, counterpart of
+``rag_llm_k8s_tpu/engine/engine.py``'s ``InferenceEngine``.
+
+- Prompts pad LEFT to the next bucket (``EngineConfig.prompt_buckets``), so
+  every row writes the cache at the same index; prompts past the largest
+  bucket prefill through the cache in bucket-sized chunks.
+- Decode is the vanilla KV-cached loop, or for a batch-1 single-shot prompt
+  the prompt-lookup speculative loop: each iteration feeds the pending
+  token plus the ``k`` tokens that followed the latest earlier occurrence of
+  the trailing n-gram through ONE chunk-mode forward, then keeps the
+  longest accepted prefix plus one correction (greedy: token-identical to
+  the vanilla loop; sampled: rejection sampling, distribution-identical).
+  Under ``speculative="auto"`` an EMA of tokens per verify turns it off
+  while it does not pay, re-probing periodically.
+- ``generate_rag`` assembles the RAG prompt on the device from the fused
+  retrieve's packed top-k and the store's chunk-token sidecar.
+
+Cache lengths follow the JAX engine exactly: ``T = ceil((S + max_new) / 128)
+* 128`` on the vanilla path, with ``k`` more slots of slack on the
+  speculative path so the last verify's ``k + 1`` writes stay inside.
+
+The JAX engine runs each generate as one compiled program with an on-device
+while loop. Here PyTorch runs eagerly and the host drives the loop: each
+decode step or verify reads one small value back (the all-done flag, or the
+``k + 1`` verify tokens), one host sync per iteration. The speculative loop
+also keeps its token history on the host, so it fetches the assembled
+prompt once. CUDA graphs are the tool to remove these syncs later.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rag_llm_k8s_tpu_torch.core.config import (
+    DTypePolicy,
+    EngineConfig,
+    LlamaConfig,
+    SamplingConfig,
+)
+from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_llm_k8s_tpu_torch.engine.sampling import (
+    NEG_INF,
+    categorical,
+    prepared_logits,
+    sample_token,
+)
+from rag_llm_k8s_tpu_torch.models.llama import (
+    LlamaModel,
+    fuse_projections_,
+    make_kv_cache,
+    mask_window,
+)
+from rag_llm_k8s_tpu_torch.utils.buckets import bucket_len, next_pow2
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class EngineStats:
+    decode_tokens: int = 0
+    # speculative verify forwards and the tokens they emitted
+    spec_verify_steps: int = 0
+    spec_emitted_tokens: int = 0
+
+
+def _cache_len(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def assemble_rag_tokens(
+    a_ids: torch.Tensor,  # [LA] head
+    b_pad: torch.Tensor,  # [LB] tail, padded
+    b_len: int,
+    packed: torch.Tensor,  # [1, 2kk] fp32: dists ‖ ids
+    store_toks: torch.Tensor,  # [cap, Lc]
+    store_lens: torch.Tensor,  # [cap]
+    S: int,
+    n: int,
+    pad_id: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device-side RAG prompt: head ‖ the longest prefix of the top-``n``
+    chunk segments that fits ``S - LA - b_len`` (chunk 0 token-truncated if
+    it alone overflows) ‖ tail, packed against the right edge. Returns
+    ``(tokens [1, S], pad_mask [1, S])``; nothing is read back to the host."""
+    dev = store_toks.device
+    i64 = torch.int64
+    cap, Lc = store_toks.shape
+    LA, LB = a_ids.shape[0], b_pad.shape[0]
+    kk = packed.shape[1] // 2
+    idx = packed[0, kk : kk + n].to(i64)
+    safe = idx.clamp(0, cap - 1)
+    rows = store_toks[safe].to(i64)  # [n, Lc]
+    lens = store_lens[safe].to(i64)  # [n]
+    avail = max(S - LA - b_len, 0)
+    keep = torch.cumsum(lens, 0) <= avail
+    eff = torch.where(keep, lens, torch.zeros_like(lens))
+    # never drop ALL context: chunk 0 truncates to the budget instead
+    eff0 = torch.where(keep[0], lens[0], lens[0].clamp(max=avail))
+    eff = torch.cat([eff0[None], eff[1:]])
+    start = S - (LA + eff.sum() + b_len)
+    # one slack slot at S + Lc - 1 absorbs every masked-out lane
+    junk = S + Lc - 1
+    buf = torch.full((S + Lc,), pad_id, dtype=i64, device=dev)
+    buf[start + torch.arange(LA, device=dev)] = a_ids.to(i64)
+    off = start + LA + torch.cat([torch.zeros(1, dtype=i64, device=dev), torch.cumsum(eff, 0)[:-1]])
+    lane = torch.arange(Lc, device=dev)
+    for i in range(n):
+        valid = lane < eff[i]
+        tgt = torch.where(valid, off[i] + lane, torch.full_like(lane, junk))
+        buf[tgt] = torch.where(valid, rows[i], buf[tgt])
+    laneb = torch.arange(LB, device=dev)
+    validb = laneb < b_len
+    tgtb = torch.where(validb, S - b_len + laneb, torch.full_like(laneb, junk))
+    buf[tgtb] = torch.where(validb, b_pad.to(i64), buf[tgtb])
+    tokens = buf[:S][None, :]
+    pad_mask = (torch.arange(S, device=dev) >= start).to(i64)[None, :]
+    return tokens, pad_mask
+
+
+class InferenceEngine:
+    """Owns the model; ``generate`` and ``generate_rag`` are thread-safe
+    (calls serialize on one lock: one program runs on the card at a time)."""
+
+    _SPEC_EMA_DECAY = 0.7
+    _SPEC_REPROBE = 32
+    # single-fetch RAG prompt-tail bucket ("\n\nUser: {q}\n\nChatbot:")
+    RAG_TAIL_BUCKET = 128
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        model: LlamaModel,
+        sampling: SamplingConfig = SamplingConfig(),
+        engine_config: EngineConfig = EngineConfig(),
+        dtypes: DTypePolicy = DTypePolicy(),
+        device: DeviceLike = None,
+        pad_id: int = 0,
+    ):
+        if engine_config.speculative not in ("off", "prompt_lookup", "auto"):
+            raise ValueError(
+                f"speculative={engine_config.speculative!r}: expected "
+                "'off', 'prompt_lookup' or 'auto'"
+            )
+        self.device = resolve_device(device)
+        self.config = config
+        self.sampling = sampling
+        self.engine_config = engine_config
+        self.dtypes = dtypes
+        self.pad_id = pad_id
+        if engine_config.fuse_matmuls:
+            fuse_projections_(model)
+        self.model = model
+        self._spec_ema: Optional[float] = None
+        self._spec_skips = 0
+        self._lock = threading.Lock()
+        self._run_lock = threading.Lock()
+        self._rng_counter = 0
+        self._eos = torch.tensor(config.eos_token_ids, device=self.device)
+        self.stats = EngineStats()
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+    def _clamp_max_new(self, S: int, max_new: int) -> int:
+        """Keep S + max_new within the engine's cache budget."""
+        budget = self.engine_config.max_seq_len - S
+        return max(1, min(max_new, budget))
+
+    def _next_rng(self, seed: Optional[int]) -> torch.Generator:
+        """Fresh randomness per call unless the caller pins a seed."""
+        if seed is None:
+            with self._lock:
+                self._rng_counter += 1
+                seed = (self.sampling.seed * 1_000_003 + self._rng_counter) % (1 << 62)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
+    def _spec_applicable(self, n_prompts: int, chunk) -> bool:
+        """Speculation serves batch-1 single-shot prompts; "auto" skips it
+        while the measured acceptance stays below ``spec_min_accept``,
+        re-probing every ``_SPEC_REPROBE``-th eligible call."""
+        mode = self.engine_config.speculative
+        if mode not in ("prompt_lookup", "auto") or n_prompts != 1 or chunk is not None:
+            return False
+        if mode == "auto":
+            with self._lock:
+                ema, skips = self._spec_ema, self._spec_skips
+                low = ema is not None and ema < self.engine_config.spec_min_accept
+                if low:
+                    self._spec_skips += 1
+            if low and (skips + 1) % self._SPEC_REPROBE != 0:
+                return False
+        return True
+
+    def _spec_record(self, emitted: int, iters: int) -> None:
+        acc = emitted / max(iters, 1)
+        with self._lock:
+            self.stats.spec_verify_steps += iters
+            self.stats.spec_emitted_tokens += emitted
+            d = self._SPEC_EMA_DECAY
+            self._spec_ema = acc if self._spec_ema is None else d * self._spec_ema + (1 - d) * acc
+
+    def _isin_eos(self, tok: torch.Tensor) -> torch.Tensor:
+        return torch.isin(tok, self._eos)
+
+    def _prefill_inputs(self, pad_mask: torch.Tensor):
+        kv_start, _ = mask_window(pad_mask)
+        real_len = pad_mask.sum(dim=-1)
+        positions = (torch.cumsum(pad_mask, dim=-1) - 1).clamp_min(0)
+        return kv_start, real_len, positions
+
+    # ------------------------------------------------------------------
+    # the two decode loops
+    # ------------------------------------------------------------------
+    def _run_vanilla(
+        self, tokens: torch.Tensor, pad_mask: torch.Tensor, S: int, max_new: int,
+        chunk: Optional[int], gen: torch.Generator,
+    ) -> np.ndarray:
+        """Prefill (single-shot or chunked) then the KV-cached decode loop;
+        returns ``[B, max_new]`` token ids (EOS-padded after a row ends)."""
+        cfg, model, dev = self.config, self.model, self.device
+        B = tokens.shape[0]
+        T = _cache_len(S + max_new)
+        cache = make_kv_cache(cfg, B, T, self.dtypes.compute_dtype, dev)
+        kv_start, real_len, positions = self._prefill_inputs(pad_mask)
+
+        def full(n: int) -> torch.Tensor:
+            return torch.full((B,), n, dtype=torch.int64, device=dev)
+
+        if chunk is None:
+            logits = model(tokens, positions, cache, kv_start, full(S), 0, last_logit_only=True)
+        else:
+            for wi in range(0, S - chunk, chunk):
+                model(
+                    tokens[:, wi : wi + chunk], positions[:, wi : wi + chunk], cache,
+                    kv_start, full(wi + chunk), wi, chunked=True, last_logit_only=True,
+                )
+            wi = S - chunk
+            logits = model(
+                tokens[:, wi:], positions[:, wi:], cache, kv_start, full(S), wi,
+                chunked=True, last_logit_only=True,
+            )
+        tok = sample_token(logits[:, -1], self.sampling, gen)
+        done = self._isin_eos(tok)
+        out = torch.full((B, max_new), self.pad_id, dtype=torch.int64, device=dev)
+        out[:, 0] = tok
+        eos0 = self.config.eos_token_ids[0]
+        step = 1
+        # one host sync per step: the loop ends when every row has ended
+        while step < max_new and not bool(done.all()):
+            wi = S + step - 1
+            logits = model(
+                tok[:, None], (real_len + step - 1)[:, None], cache, kv_start,
+                full(wi + 1), wi,
+            )
+            nxt = sample_token(logits[:, 0], self.sampling, gen)
+            tok = torch.where(done, torch.full_like(nxt, eos0), nxt)
+            done = done | self._isin_eos(tok)
+            out[:, step] = tok
+            step += 1
+        return out.cpu().numpy()
+
+    def _run_spec(
+        self, tokens: torch.Tensor, pad_mask: torch.Tensor, S: int, max_new: int,
+        gen: torch.Generator,
+    ) -> Tuple[np.ndarray, int]:
+        """Batch-1 prompt-lookup speculative generate; returns ``([1, max_new]
+        token ids, verify forwards run)``."""
+        cfg, model, dev = self.config, self.model, self.device
+        sampling = self.sampling
+        sampled = sampling.do_sample and sampling.temperature > 0.0
+        n = max(1, self.engine_config.spec_ngram)
+        k = max(1, self.engine_config.spec_tokens)
+        # k extra slots: the LAST verify can start at slot S + max_new - 2
+        # and still writes k + 1 slots
+        T = _cache_len(S + max_new + k)
+        cache = make_kv_cache(cfg, 1, T, self.dtypes.compute_dtype, dev)
+        kv_start, real_len, positions = self._prefill_inputs(pad_mask)
+        logits = model(
+            tokens, positions, cache, kv_start, torch.full((1,), S, device=dev), 0,
+            last_logit_only=True,
+        )
+        tok0 = sample_token(logits[:, -1], sampling, gen)
+        # the ONE fetch of the assembled prompt: the history lives on the host
+        host = torch.cat([tokens[0], kv_start, real_len, tok0]).cpu().numpy()
+        ks, rl, t0 = int(host[S]), int(host[S + 1]), int(host[S + 2])
+        eos = np.asarray(cfg.eos_token_ids)
+        done = t0 in cfg.eos_token_ids
+        # out and hist carry k + 1 slack slots; hist mirrors cache slots:
+        # prompt at [0, S), emitted token j at S + j
+        out = np.full(max_new + k + 1, self.pad_id, np.int64)
+        out[0] = t0
+        hist = np.full(T + k + 1, self.pad_id, np.int64)
+        hist[:S] = host[:S]
+        hist[S] = t0
+        idx = np.arange(T + k + 1)
+        j_idx = np.arange(k + 1)
+        e, iters = 1, 0
+        while e < max_new and not done:
+            wi = S + e - 1  # slot of the pending token
+            # propose: the latest earlier occurrence of the trailing n-gram
+            # whose k-token continuation is already written
+            match = np.ones(T + k + 1, bool)
+            for j in range(n):
+                match &= np.roll(hist, j) == hist[wi - j]
+            match &= (idx >= ks + n - 1) & (idx + k <= wi)
+            hits = np.nonzero(match)[0]
+            src = int(hits[-1]) + 1 if hits.size else 0
+            props = hist[src : src + k]
+            fed = torch.from_numpy(np.concatenate([hist[wi : wi + 1], props])[None]).to(dev)
+            pos = torch.arange(rl - 1 + e, rl + e + k, device=dev)[None]
+            logits = model(
+                fed, pos, cache, kv_start, torch.full((1,), wi + k + 1, device=dev), wi,
+                chunked=True,
+            )[0]  # [k + 1, V]
+            if not sampled:
+                g = torch.argmax(logits, dim=-1).cpu().numpy()
+                m = int(np.cumprod(props == g[:k]).sum())
+            else:
+                # rejection sampling against the point-mass draft: accept x_j
+                # w.p. p_j(x_j); on rejection draw from p_j with x_j masked;
+                # on full acceptance draw the bonus from p_k
+                prepared = prepared_logits(logits, sampling)
+                probs = torch.softmax(prepared, dim=-1)
+                props_t = fed[0, 1:]
+                p_prop = probs[:k].gather(1, props_t[:, None])[:, 0]
+                u = torch.rand(k, generator=gen, device=dev)
+                res = prepared[:k].scatter(1, props_t[:, None], NEG_INF)
+                r = categorical(res, gen)
+                bonus = categorical(prepared[k], gen)
+                got = torch.cat([(u < p_prop).long(), r, bonus[None]]).cpu().numpy()
+                m = int(np.cumprod(got[:k]).sum())
+                corr = got[k + min(m, k - 1)] if m < k else got[2 * k]
+                g = np.concatenate([props, got[2 * k :]])
+                g[m] = corr
+            is_eos = np.isin(g, eos)
+            eos_pos = int(np.min(np.where(is_eos & (j_idx <= m), j_idx, k + 1)))
+            m_eff = min(m, eos_pos, max_new - e - 1)
+            out[e : e + m_eff + 1] = g[: m_eff + 1]
+            hist[wi + 1 : wi + m_eff + 2] = g[: m_eff + 1]
+            done = eos_pos <= m_eff
+            e += m_eff + 1
+            iters += 1
+        return out[None, :max_new], iters
+
+    # ------------------------------------------------------------------
+    # host-side API
+    # ------------------------------------------------------------------
+    def _trim(self, row) -> List[int]:
+        eos = set(self.config.eos_token_ids)
+        outl: List[int] = []
+        for t in row:
+            if int(t) in eos:
+                break
+            outl.append(int(t))
+        return outl
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompts: Sequence[Sequence[int]],
+        max_new_tokens: Optional[int] = None,
+        seed: Optional[int] = None,
+    ) -> List[List[int]]:
+        """Continuations for a batch of token-id prompts, one list per
+        prompt, cut at (and excluding) EOS. Batches beyond
+        ``max_batch_size`` run as sequential sub-batches."""
+        if not prompts:
+            return []
+        max_new = self.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if max_new <= 0:
+            return [[] for _ in prompts]
+        cap = self.engine_config.max_batch_size
+        gen = self._next_rng(seed)
+        out: List[List[int]] = []
+        for i in range(0, len(prompts), cap):
+            out.extend(self._generate_batch(prompts[i : i + cap], max_new, gen))
+        return out
+
+    def _generate_batch(
+        self, prompts: Sequence[Sequence[int]], max_new: int, gen: torch.Generator
+    ) -> List[List[int]]:
+        maxlen = max(len(p) for p in prompts)
+        largest = max(self.engine_config.prompt_buckets)
+        cap = self.engine_config.max_chunked_prompt
+        if maxlen > cap:
+            logger.warning(
+                "prompt of %d tokens exceeds max_chunked_prompt=%d; "
+                "left-truncating to the most recent %d tokens", maxlen, cap, cap,
+            )
+            maxlen = cap
+        if maxlen <= largest:
+            S = bucket_len(maxlen, self.engine_config.prompt_buckets)
+            chunk = None
+            max_new = self._clamp_max_new(S, max_new)
+        else:
+            # chunked prefill; decode keeps the room the largest bucket gets
+            chunk = largest
+            S = -(-maxlen // chunk) * chunk
+            budget = max(1, self.engine_config.max_seq_len - largest)
+            max_new = max(1, min(max_new, budget))
+        B = next_pow2(len(prompts))
+        tokens = np.full((B, S), self.pad_id, np.int64)
+        pad_mask = np.zeros((B, S), np.int64)
+        for i, p in enumerate(prompts):
+            p = list(p)[-maxlen:]
+            tokens[i, S - len(p):] = p
+            pad_mask[i, S - len(p):] = 1
+        # empty rows (batch padding) get one BOS so real_len >= 1
+        for i in range(len(prompts), B):
+            tokens[i, -1] = self.config.bos_token_id
+            pad_mask[i, -1] = 1
+        tok_t = torch.from_numpy(tokens).to(self.device)
+        mask_t = torch.from_numpy(pad_mask).to(self.device)
+        with self._run_lock:
+            spec = self._spec_applicable(len(prompts), chunk)
+            iters = 0
+            if spec:
+                out, iters = self._run_spec(tok_t, mask_t, S, max_new, gen)
+            else:
+                out = self._run_vanilla(tok_t, mask_t, S, max_new, chunk, gen)
+        results = [self._trim(out[i]) for i in range(len(prompts))]
+        if spec and iters > 0:
+            # tokens the verify forwards emitted: the answer plus its EOS,
+            # minus the prefill's token
+            emitted = len(results[0]) + (1 if len(results[0]) < max_new else 0) - 1
+            self._spec_record(max(emitted, 0), iters)
+        with self._lock:
+            self.stats.decode_tokens += sum(len(r) for r in results)
+        return results
+
+    @torch.inference_mode()
+    def generate_rag(
+        self,
+        a_ids: Sequence[int],
+        b_ids: Sequence[int],
+        packed: torch.Tensor,
+        store_toks: torch.Tensor,
+        store_lens: torch.Tensor,
+        n_chunks: int,
+        max_new_tokens: Optional[int] = None,
+        seed: Optional[int] = None,
+    ) -> List[int]:
+        """Single-fetch RAG generate: the packed retrieve output and the
+        chunk-token sidecar are device tensors, and the prompt is assembled
+        on the device (``assemble_rag_tokens``). Always serves at the
+        largest prompt bucket; the caller guards that head + tail fit it."""
+        S = max(self.engine_config.prompt_buckets)
+        max_new = self.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
+        max_new = self._clamp_max_new(S, max_new)
+        b = np.asarray(b_ids, np.int64)
+        LB = self.RAG_TAIL_BUCKET
+        if b.shape[0] > LB:
+            raise ValueError(
+                f"prompt tail of {b.shape[0]} tokens exceeds the fused bucket "
+                f"({LB}) — route this query through the host path"
+            )
+        b_pad = np.full((LB,), self.pad_id, np.int64)
+        b_pad[: b.shape[0]] = b
+        kk = int(packed.shape[1]) // 2
+        n = min(n_chunks, kk)
+        gen = self._next_rng(seed)
+        dev = self.device
+        tokens, pad_mask = assemble_rag_tokens(
+            torch.as_tensor(np.asarray(a_ids, np.int64), device=dev),
+            torch.from_numpy(b_pad).to(dev), int(b.shape[0]), packed, store_toks,
+            store_lens, S, n, self.pad_id,
+        )
+        with self._run_lock:
+            spec = self._spec_applicable(1, None)
+            iters = 0
+            if spec:
+                out, iters = self._run_spec(tokens, pad_mask, S, max_new, gen)
+            else:
+                out = self._run_vanilla(tokens, pad_mask, S, max_new, None, gen)
+        row = self._trim(out[0])
+        if spec and iters > 0:
+            emitted = len(row) + (1 if len(row) < max_new else 0) - 1
+            self._spec_record(max(emitted, 0), iters)
+        with self._lock:
+            self.stats.decode_tokens += len(row)
+        return row

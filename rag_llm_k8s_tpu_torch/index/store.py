@@ -1,0 +1,211 @@
+"""In-memory exact-kNN vector store with a device-resident snapshot,
+counterpart of ``rag_llm_k8s_tpu/index/store.py`` (persistence is not
+ported yet).
+
+- ``device_snapshot()``: a padded ``[N_pad, D]`` fp32 matrix on the device,
+  ``N_pad`` a power of two >= 512, plus ``[1, N_pad]`` squared norms whose
+  padded entries are ``BIG``, so padded rows never enter a top-k with
+  ``k <= ntotal``.
+- ``token_snapshot()``: the chunk-token sidecar ``(tokens [cap, Lc], lens
+  [cap])`` row-aligned with the vectors, the gather source of device-side
+  prompt assembly. Rows tokenize lazily through the attached token source.
+
+Mutation takes one lock; a snapshot is rebuilt on the next read after any
+add, and a pair already handed out is never modified.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_llm_k8s_tpu_torch.ops.knn import BIG, knn_topk
+from rag_llm_k8s_tpu_torch.utils.buckets import next_pow2
+
+
+@dataclass
+class SearchResult:
+    """One hit: metadata, squared-L2 distance, and the store row id."""
+
+    metadata: Dict
+    distance: float
+    row: int = -1
+
+
+def _content_hash(metadata: Dict) -> str:
+    """Dedup key: document identity + chunk text."""
+    h = hashlib.sha256()
+    h.update(str(metadata.get("filename", "")).encode())
+    h.update(str(metadata.get("chunk_id", "")).encode())
+    h.update(str(metadata.get("text", "")).encode())
+    return h.hexdigest()
+
+
+def _pad_bucket(n: int, minimum: int = 512) -> int:
+    return max(minimum, next_pow2(n))
+
+
+class VectorStore:
+    """Append-only exact-kNN store; thread-safe."""
+
+    def __init__(self, dim: int, device: DeviceLike = None):
+        self.dim = dim
+        self.device = resolve_device(device)
+        self._lock = threading.RLock()
+        self._vectors = np.zeros((0, dim), np.float32)
+        self._metadata: List[Dict] = []
+        self._hashes: set = set()
+        self.generation = 0
+        self._dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._token_fn = None
+        self._chunk_tokens: List[Optional[np.ndarray]] = []
+        self._tok_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._tok_build_lock = threading.Lock()
+
+    def add(self, vectors: Sequence[np.ndarray], metadata: Sequence[Dict], dedup: bool = True) -> int:
+        """Append vectors; content-hash duplicates are skipped. Returns how
+        many were added."""
+        if len(vectors) != len(metadata):
+            raise ValueError("vectors and metadata length mismatch")
+        with self._lock:
+            fresh_v, fresh_m, fresh_h = [], [], []
+            seen = set()
+            for v, m in zip(vectors, metadata):
+                v = np.asarray(v, np.float32).reshape(-1)
+                if v.shape[0] != self.dim:
+                    raise ValueError(f"vector dim {v.shape[0]} != index dim {self.dim}")
+                h = _content_hash(m)
+                if dedup and (h in self._hashes or h in seen):
+                    continue
+                seen.add(h)
+                fresh_v.append(v)
+                fresh_m.append(dict(m))
+                fresh_h.append(h)
+            if not fresh_v:
+                return 0
+            self._vectors = np.concatenate([self._vectors, np.stack(fresh_v)], axis=0)
+            self._metadata.extend(fresh_m)
+            self._hashes.update(fresh_h)
+            self._chunk_tokens.extend([None] * len(fresh_m))
+            self.generation += 1
+            self._dev = None
+            self._tok_dev = None
+        return len(fresh_v)
+
+    def device_snapshot(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(emb [N_pad, D] fp32, sq_norms [1, N_pad])`` on the device."""
+        with self._lock:
+            if self._dev is None:
+                n = len(self._metadata)
+                n_pad = _pad_bucket(max(n, 1))
+                emb = np.zeros((n_pad, self.dim), np.float32)
+                emb[:n] = self._vectors
+                norms = np.full((1, n_pad), BIG, np.float32)
+                norms[0, :n] = (self._vectors**2).sum(axis=1)
+                self._dev = (
+                    torch.from_numpy(emb).to(self.device),
+                    torch.from_numpy(norms).to(self.device),
+                )
+            return self._dev
+
+    def attach_token_source(self, fn) -> None:
+        """Set the chunk → LLM-token-ids callback behind the sidecar; a
+        different source (by ``cache_key``) drops the cached rows."""
+        with self._lock:
+            old = self._token_fn
+            if old is not None and getattr(old, "cache_key", old) != getattr(fn, "cache_key", fn):
+                self._chunk_tokens = [None] * len(self._metadata)
+                self._tok_dev = None
+            self._token_fn = fn
+
+    def token_snapshot(self, blocking: bool = True):
+        """``(tokens [cap, Lc] int32, lens [cap] int32)`` on the device, with
+        ``cap`` a power of two >= 512 and ``Lc`` one >= 128. With
+        ``blocking=False`` returns None instead of waiting on another
+        thread's build."""
+        if not self._tok_build_lock.acquire(blocking=blocking):
+            return None
+        try:
+            with self._lock:
+                if self._tok_dev is not None:
+                    return self._tok_dev
+                fn = self._token_fn
+                if fn is None:
+                    raise RuntimeError("no token source attached (attach_token_source)")
+                metas = list(self._metadata)
+                rows = list(self._chunk_tokens)
+            for i, r in enumerate(rows):
+                if r is None:
+                    rows[i] = np.asarray(fn(metas[i]), np.int32)
+            n = len(rows)
+            cap = _pad_bucket(max(n, 1))
+            lc = _pad_bucket(max((r.shape[0] for r in rows), default=1), minimum=128)
+            toks = np.zeros((cap, lc), np.int32)
+            lens = np.zeros((cap,), np.int32)
+            for i, r in enumerate(rows):
+                toks[i, : r.shape[0]] = r
+                lens[i] = r.shape[0]
+            built = (torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device))
+            with self._lock:
+                if self._token_fn is not fn or len(self._metadata) != n:
+                    return built  # changed mid-build: serve it, cache nothing
+                self._chunk_tokens = rows
+                self._tok_dev = built
+            return built
+        finally:
+            self._tok_build_lock.release()
+
+    def cached_token_row(self, row: int) -> Optional[np.ndarray]:
+        with self._lock:
+            if 0 <= row < len(self._chunk_tokens):
+                return self._chunk_tokens[row]
+            return None
+
+    def token_lengths(self, idxs) -> List[int]:
+        """Cached token-row lengths for the given row ids (0 when not yet
+        tokenized)."""
+        with self._lock:
+            out = []
+            for i in idxs:
+                i = int(i)
+                row = self._chunk_tokens[i] if 0 <= i < len(self._chunk_tokens) else None
+                out.append(0 if row is None else int(row.shape[0]))
+            return out
+
+    def search(self, query: np.ndarray, k: int = 5) -> List[SearchResult]:
+        """Exact kNN by squared L2."""
+        n = self.ntotal
+        if n == 0:
+            return []
+        emb, norms = self.device_snapshot()
+        q = torch.from_numpy(np.asarray(query, np.float32).reshape(1, self.dim)).to(self.device)
+        dists, idx = knn_topk(q, emb, norms, k=min(k, n))
+        return self.results_at(idx[0].cpu().numpy(), dists[0].cpu().numpy())
+
+    def results_at(self, idx, dists) -> List[SearchResult]:
+        """SearchResults for externally computed (ids, distances)."""
+        with self._lock:
+            return [
+                SearchResult(metadata=self._metadata[int(i)], distance=float(d), row=int(i))
+                for d, i in zip(dists, idx)
+            ]
+
+    @property
+    def ntotal(self) -> int:
+        return len(self._metadata)
+
+    def info(self) -> Dict:
+        with self._lock:
+            return {
+                "total_vectors": len(self._metadata),
+                "dimension": self.dim,
+                "total_chunks": len(self._metadata),
+                "sample_chunks": [dict(m) for m in self._metadata[:5]],
+                "generation": self.generation,
+            }

@@ -1,0 +1,126 @@
+"""Weights bridge: the JAX package's parameter trees → the port's models,
+and the port's own seeded random init at any width.
+
+The JAX trees arrive flattened as ``{"a/b/c": np.ndarray}`` (``flatten_tree``
+walks nested mappings, so a Flax param dict flattens without JAX). Its
+decoder layers are ``nn.scan``-stacked, so every per-layer leaf carries a
+leading ``[L, ...]`` axis, and its Dense kernels are ``[in, out]``; the port
+keeps one module per layer and PyTorch's ``[out, in]`` layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from rag_llm_k8s_tpu_torch.models.bge_m3 import BgeM3Encoder
+from rag_llm_k8s_tpu_torch.models.llama import LlamaModel
+
+INIT_STD = 0.02
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested mapping of array leaves → ``{"a/b/c": np.ndarray}``."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            flat.update(flatten_tree(val, path))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def llama_is_fused(flat: Mapping[str, np.ndarray]) -> bool:
+    return "layers/attn/wqkv/kernel" in flat
+
+
+def llama_state_dict(flat: Mapping[str, np.ndarray], num_layers: int) -> Dict[str, np.ndarray]:
+    """Flat JAX Llama params (unfused, or fused by ``fuse_llama_params``) →
+    the port's state dict, as numpy arrays."""
+    sd = {
+        "embed.weight": flat["embedding"],
+        "final_norm.weight": flat["final_norm/scale"],
+    }
+    if "lm_head" in flat:
+        sd["lm_head.weight"] = flat["lm_head"].T
+    for i in range(num_layers):
+        p = f"layers.{i}."
+        sd[p + "input_norm.weight"] = flat["layers/input_norm/scale"][i]
+        sd[p + "post_attn_norm.weight"] = flat["layers/post_attn_norm/scale"][i]
+        for group in ("attn", "mlp"):
+            prefix = f"layers/{group}/"
+            for path, leaf in flat.items():
+                if path.startswith(prefix) and path.endswith("/kernel"):
+                    name = path[len(prefix):-len("/kernel")]
+                    sd[f"{p}{group}.{name}.weight"] = leaf[i].T
+    return sd
+
+
+def encoder_state_dict(flat: Mapping[str, np.ndarray], num_layers: int) -> Dict[str, np.ndarray]:
+    """Flat JAX bge-m3 params (``init_encoder_params`` layout) → the port's
+    state dict."""
+    sd = {
+        "word_embeddings.weight": flat["word_embeddings"],
+        "position_embeddings.weight": flat["position_embeddings"],
+        "token_type_embeddings.weight": flat["token_type_embeddings"],
+        "embed_ln.weight": flat["embed_ln/scale"],
+        "embed_ln.bias": flat["embed_ln/bias"],
+    }
+    for i in range(num_layers):
+        p = f"layers.{i}."
+        for name in ("wq", "wk", "wv", "wo", "w_in", "w_out"):
+            sd[f"{p}{name}.weight"] = flat[f"layers/{name}/kernel"][i].T
+            sd[f"{p}{name}.bias"] = flat[f"layers/{name}/bias"][i]
+        for ln in ("attn_ln", "ffn_ln"):
+            sd[f"{p}{ln}.weight"] = flat[f"layers/{ln}/scale"][i]
+            sd[f"{p}{ln}.bias"] = flat[f"layers/{ln}/bias"][i]
+    return sd
+
+
+@torch.no_grad()
+def _load(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
+    params = dict(model.named_parameters())
+    missing = set(params) - set(sd)
+    extra = set(sd) - set(params)
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {sorted(missing)}, unexpected {sorted(extra)}")
+    for name, arr in sd.items():
+        p = params[name]
+        t = torch.tensor(np.asarray(arr))
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(p.shape)}")
+        p.copy_(t.to(dtype=p.dtype))
+
+
+def load_llama(model: LlamaModel, flat: Mapping[str, np.ndarray]) -> LlamaModel:
+    """Copy flat JAX Llama params into ``model`` (its fused flag must match)."""
+    if llama_is_fused(flat) != model.fused:
+        raise ValueError("fused layout of the params and the model differ")
+    _load(model, llama_state_dict(flat, model.config.num_layers))
+    return model
+
+
+def load_encoder(model: BgeM3Encoder, flat: Mapping[str, np.ndarray]) -> BgeM3Encoder:
+    _load(model, encoder_state_dict(flat, model.config.num_layers))
+    return model
+
+
+@torch.no_grad()
+def init_random_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Seeded random weights in place, for either model at any width:
+    norm weights 1 and biases 0, every other weight N(0, 0.02). The
+    generator must live on the model's device."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if "norm" in name or "_ln" in name:
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            p.normal_(0.0, INIT_STD, generator=generator)
+    return model
+
+

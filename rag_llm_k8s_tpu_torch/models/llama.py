@@ -1,0 +1,290 @@
+"""Llama-3.x decoder in PyTorch, counterpart of ``rag_llm_k8s_tpu/models/llama.py``.
+
+- One KV cache for the whole stack, head-major ``[L, B, kv_heads, T, hd]``,
+  written IN PLACE at ``write_index`` (the JAX package threads it through a
+  scan carry; here the forward mutates the tensors it is handed). Prompts
+  are left-padded, so every row appends at the same index and the valid keys
+  of row ``b`` are the window ``[kv_start[b], kv_len[b])``.
+- Three attention modes, chosen per call: prefill (``S > 1`` at slot 0,
+  attention over the fresh K/V), decode (``S == 1``) and chunk (``S > 1`` at
+  ``write_index``, offset causality over the cache; long-prompt chunks and
+  the speculative verify). Decode and chunk hand the kernels the whole
+  stacked cache plus ``layer``, so no per-layer copy is made.
+- bf16 storage and compute with RMSNorm statistics, RoPE phases and logits in
+  fp32; Llama-3.1 NTK-by-parts RoPE scaling.
+- Projections may be fused: q|k|v into ``wqkv`` and gate|up into
+  ``w_gateup`` (same bytes, fewer launches per decode step).
+
+Linear weights use PyTorch's ``[out, in]`` layout; ``models/convert.py``
+maps the JAX package's ``[in, out]`` kernels onto them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, LlamaConfig
+from rag_llm_k8s_tpu_torch.ops.attention import (
+    chunk_prefill_attention,
+    decode_attention,
+    flash_attention,
+)
+
+
+@dataclass
+class KVCache:
+    """``k, v: [L, B, kv_heads, T, head_dim]``, updated in place by the forward."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def make_kv_cache(
+    config: LlamaConfig, batch_size: int, max_seq_len: int,
+    dtype: torch.dtype, device: torch.device,
+) -> KVCache:
+    shape = (config.num_layers, batch_size, config.num_kv_heads, max_seq_len, config.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def rope_frequencies(config: LlamaConfig, device: torch.device) -> torch.Tensor:
+    """Per-pair inverse frequencies ``[head_dim // 2]`` in fp32, with the
+    Llama-3.1 wavelength-dependent rescaling when configured."""
+    hd = config.head_dim
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    freqs = 1.0 / torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32, device=device), exps)
+    s = config.rope_scaling
+    if s is None:
+        return freqs
+    low_wavelen = s.original_max_position_embeddings / s.low_freq_factor
+    high_wavelen = s.original_max_position_embeddings / s.high_freq_factor
+    wavelen = 2.0 * math.pi / freqs
+    smooth = (s.original_max_position_embeddings / wavelen - s.low_freq_factor) / (
+        s.high_freq_factor - s.low_freq_factor
+    )
+    smooth = smooth.clamp(0.0, 1.0)
+    scaled = (1.0 - smooth) * freqs / s.factor + smooth * freqs
+    return torch.where(
+        wavelen < high_wavelen, freqs,
+        torch.where(wavelen > low_wavelen, freqs / s.factor, scaled),
+    )
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freqs: torch.Tensor):
+    """``positions [B, S] -> cos, sin [B, S, head_dim // 2]`` (fp32)."""
+    phase = positions.float()[..., None] * inv_freqs[None, None, :]
+    return torch.cos(phase), torch.sin(phase)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate ``x [B, S, H, hd]`` by halves (dim ``i`` pairs with ``i + hd/2``)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def mask_window(pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[B, S]`` contiguous 0/1 pad mask → ``(kv_start, kv_len)`` ``[B]``."""
+    m = pad_mask.to(torch.int64)
+    start = torch.argmax(m, dim=-1)
+    return start, start + m.sum(dim=-1)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, dtypes: DTypePolicy):
+        super().__init__()
+        self.eps = eps
+        self.out_dtype = dtypes.compute_dtype
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtypes.param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (y * self.weight.float()).to(self.out_dtype)
+
+
+def _linear(i: int, o: int, dtypes: DTypePolicy) -> nn.Linear:
+    return nn.Linear(i, o, bias=False, dtype=dtypes.param_dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool):
+        super().__init__()
+        c = config
+        self.config, self.dtypes, self.fused = c, dtypes, fused
+        H, K, hd, D = c.num_heads, c.num_kv_heads, c.head_dim, c.hidden_size
+        if fused:
+            self.wqkv = _linear(D, (H + 2 * K) * hd, dtypes)
+        else:
+            self.wq = _linear(D, H * hd, dtypes)
+            self.wk = _linear(D, K * hd, dtypes)
+            self.wv = _linear(D, K * hd, dtypes)
+        self.wo = _linear(H * hd, D, dtypes)
+
+    def forward(
+        self, x: torch.Tensor, cache: KVCache, layer: int, kv_start: torch.Tensor,
+        kv_len: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+        write_index: int, chunked: bool,
+    ) -> torch.Tensor:
+        c = self.config
+        B, S, _ = x.shape
+        H, K, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        if self.fused:
+            q, k, v = self.wqkv(x).split([H * hd, K * hd, K * hd], dim=-1)
+        else:
+            q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
+        k = apply_rope(k.reshape(B, S, K, hd), cos, sin)
+        v = v.reshape(B, S, K, hd)
+
+        T = cache.k.shape[3]
+        if write_index < 0 or write_index + S > T:
+            raise ValueError(
+                f"cache write [{write_index}, {write_index + S}) outside the {T}-slot cache"
+            )
+        # in-place write into the one stacked cache
+        cache.k[layer, :, :, write_index : write_index + S] = k.transpose(1, 2)
+        cache.v[layer, :, :, write_index : write_index + S] = v.transpose(1, 2)
+        if S == 1:
+            out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
+        elif chunked:
+            out = chunk_prefill_attention(
+                q, cache.k, cache.v, kv_start, kv_len, layer, write_index
+            )
+        else:
+            if write_index != 0:
+                raise ValueError("multi-token calls at write_index > 0 must pass chunked=True")
+            # single-shot prefill: the fresh K/V are the populated prefix
+            out = flash_attention(q, k, v, kv_start, kv_len, causal=True)
+        out = out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd)
+        return self.wo(out)
+
+
+class MLP(nn.Module):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool):
+        super().__init__()
+        D, I = config.hidden_size, config.intermediate_size
+        self.fused = fused
+        if fused:
+            self.w_gateup = _linear(D, 2 * I, dtypes)
+        else:
+            self.w_gate = _linear(D, I, dtypes)
+            self.w_up = _linear(D, I, dtypes)
+        self.w_down = _linear(I, D, dtypes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            gate, up = self.w_gateup(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.w_gate(x), self.w_up(x)
+        return self.w_down(F.silu(gate) * up)
+
+
+class Block(nn.Module):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool):
+        super().__init__()
+        self.input_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
+        self.attn = Attention(config, dtypes, fused)
+        self.post_attn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
+        self.mlp = MLP(config, dtypes, fused)
+
+    def forward(self, h, cache, layer, kv_start, kv_len, cos, sin, write_index, chunked):
+        h = h + self.attn(
+            self.input_norm(h), cache, layer, kv_start, kv_len, cos, sin, write_index, chunked
+        )
+        return h + self.mlp(self.post_attn_norm(h))
+
+
+class LlamaModel(nn.Module):
+    """``(tokens [B,S], positions [B,S], cache, kv_start [B], kv_len [B],
+    write_index)`` → logits ``[B, S or 1, V]`` in the logits dtype.
+
+    - prefill: bucketed ``S``, ``write_index = 0``, ``kv_len = S``;
+    - decode: ``S = 1``, ``write_index = t``, ``kv_len = t + 1``;
+    - chunk: ``chunked=True``, ``write_index`` = slot of the first token.
+
+    The head projection runs in the compute dtype and is then cast to the
+    logits dtype (the JAX package accumulates it straight into fp32; with
+    bf16 weights the logits here carry bf16 rounding).
+    """
+
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), fused: bool = False):
+        super().__init__()
+        c = config
+        self.config, self.dtypes, self.fused = c, dtypes, fused
+        self.embed = nn.Embedding(c.vocab_size, c.hidden_size, dtype=dtypes.param_dtype)
+        self.layers = nn.ModuleList(Block(c, dtypes, fused) for _ in range(c.num_layers))
+        self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, dtypes)
+        if not c.tie_word_embeddings:
+            self.lm_head = _linear(c.hidden_size, c.vocab_size, dtypes)
+        self._inv_freqs: Optional[torch.Tensor] = None
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        positions: torch.Tensor,
+        cache: KVCache,
+        kv_start: torch.Tensor,
+        kv_len: torch.Tensor,
+        write_index: int,
+        chunked: bool = False,
+        last_logit_only: bool = False,
+    ) -> torch.Tensor:
+        c, dt = self.config, self.dtypes
+        h = self.embed(tokens).to(dt.compute_dtype)
+        if self._inv_freqs is None or self._inv_freqs.device != h.device:
+            self._inv_freqs = rope_frequencies(c, h.device)
+        cos, sin = rope_cos_sin(positions, self._inv_freqs)
+        for i, blk in enumerate(self.layers):
+            h = blk(h, cache, i, kv_start, kv_len, cos, sin, int(write_index), chunked)
+        h = self.final_norm(h)
+        if last_logit_only:
+            # only the last position is sampled: skip the [B, S, V] projection
+            h = h[:, -1:, :]
+        head = self.embed.weight if c.tie_word_embeddings else self.lm_head.weight
+        return F.linear(h, head.to(dt.compute_dtype)).to(dt.logits_dtype)
+
+
+def build_llama(
+    config: LlamaConfig, dtypes: DTypePolicy, device: torch.device, fused: bool = False
+) -> LlamaModel:
+    """An uninitialized model on ``device`` (no host-side init pass); fill it
+    with ``convert.load_llama`` or ``convert.init_random_``."""
+    with torch.device("meta"):
+        model = LlamaModel(config, dtypes, fused=fused)
+    return model.to_empty(device=device).requires_grad_(False).eval()
+
+
+@torch.no_grad()
+def fuse_projections_(model: LlamaModel) -> LlamaModel:
+    """Switch an unfused model to the fused layout in place: ``wq|wk|wv ->
+    wqkv`` and ``w_gate|w_up -> w_gateup`` (one concat along the output dim;
+    the source weights are released)."""
+    if model.fused:
+        return model
+    for blk in model.layers:
+        a, m = blk.attn, blk.mlp
+        w = torch.cat([a.wq.weight, a.wk.weight, a.wv.weight], dim=0)
+        a.wqkv = nn.Linear(w.shape[1], w.shape[0], bias=False, device="meta")
+        a.wqkv.weight = nn.Parameter(w, requires_grad=False)
+        del a.wq, a.wk, a.wv
+        a.fused = True
+        w = torch.cat([m.w_gate.weight, m.w_up.weight], dim=0)
+        m.w_gateup = nn.Linear(w.shape[1], w.shape[0], bias=False, device="meta")
+        m.w_gateup.weight = nn.Parameter(w, requires_grad=False)
+        del m.w_gate, m.w_up
+        m.fused = True
+    model.fused = True
+    return model

@@ -1,0 +1,460 @@
+"""HTTP serving app: a lean counterpart of ``rag_llm_k8s_tpu/server/app.py``.
+
+Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
+/generate`` (alias ``POST /query``), ``GET /index_info``, ``GET /healthz``.
+The WSGI plumbing is the standard library's, so the port needs no web
+framework; ``WsgiApp.test_client()`` drives it in-process.
+
+A solo query takes the single-fetch path: the query embedding and the kNN
+run on the device and their packed ``[1, 2k]`` result stays there; the
+prompt is assembled on the device from it and the store's chunk-token
+sidecar (``InferenceEngine.generate_rag``). Long questions, whose tail
+overflows the fused tail bucket, take the host path: piecewise (or budgeted)
+prompt assembly on the host, then ``InferenceEngine.generate``.
+
+The coalescing batch scheduler is not ported yet. The JAX service takes the
+fused path only under its ``BatchScheduler`` (``_fused_ok``); this one takes
+it whenever ``rag_fused`` holds and ``0 < ntotal <= rag_fused_max_vectors``,
+so a solo query routes the same way in both.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from rag_llm_k8s_tpu_torch.core.config import AppConfig
+from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
+from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+from rag_llm_k8s_tpu_torch.index.store import SearchResult, VectorStore
+from rag_llm_k8s_tpu_torch.ops.knn import knn_topk
+from rag_llm_k8s_tpu_torch.rag.chunking import split_text
+from rag_llm_k8s_tpu_torch.rag.pdf import extract_text
+from rag_llm_k8s_tpu_torch.rag.prompt import assemble_context, assemble_prompt, extract_answer
+from rag_llm_k8s_tpu_torch.utils.tokens import truncate_keep_eos
+
+logger = logging.getLogger(__name__)
+
+NO_RESULTS = "No relevant information found in the index."
+
+
+def make_segment_source(llm_tokenizer, max_bucket: int):
+    """The chunk → prompt-segment token source handed to the store's
+    sidecar: a closure over the tokenizer only (never a bound method, so the
+    store does not keep a service alive). ``cache_key`` lets the store keep
+    its rows across re-attaches with the same tokenizer."""
+
+    def segment_ids(metadata: Dict) -> List[int]:
+        seg = (
+            f"Document '{metadata.get('filename')}' "
+            f"(chunk {metadata.get('chunk_id')}): {metadata.get('text')}\n\n"
+        )
+        return llm_tokenizer.encode(seg)[:max_bucket]
+
+    segment_ids.cache_key = ("segment_ids_v1", id(llm_tokenizer), max_bucket)
+    return segment_ids
+
+
+class RagService:
+    """The retrieve-then-generate pipeline behind the routes."""
+
+    def __init__(
+        self,
+        config: AppConfig,
+        engine: InferenceEngine,
+        llm_tokenizer,
+        encoder: EncoderRunner,
+        encoder_tokenizer,
+        store: VectorStore,
+    ):
+        self.config = config
+        self.engine = engine
+        self.llm_tokenizer = llm_tokenizer
+        self.encoder = encoder
+        self.encoder_tokenizer = encoder_tokenizer
+        self.store = store
+        self.ready = False
+        if encoder.eos_id is None:
+            encoder.eos_id = getattr(encoder_tokenizer, "eos_id", None)
+        self._a_ids_cache: Optional[List[int]] = None
+        self._segment_source = make_segment_source(
+            llm_tokenizer, max(engine.engine_config.prompt_buckets)
+        )
+        if engine.engine_config.rag_fused:
+            store.attach_token_source(self._segment_source)
+
+    # -- ingest ---------------------------------------------------------
+    def embed_texts(self, texts: List[str]) -> np.ndarray:
+        limit = self.config.encoder.max_encode_len
+        eos = getattr(self.encoder_tokenizer, "eos_id", None)
+        return self.encoder.encode(
+            [truncate_keep_eos(self.encoder_tokenizer.encode(t), limit, eos) for t in texts]
+        )
+
+    def ingest_pdf_bytes(self, data: bytes, filename: str) -> int:
+        """Extract → chunk → batch-embed → index. Returns the chunk count."""
+        text = extract_text(data)
+        r = self.config.retrieval
+        chunks = split_text(text, r.chunk_size, r.chunk_overlap)
+        if not chunks:
+            return 0
+        vectors = self.embed_texts(chunks)
+        metadata = [{"filename": filename, "chunk_id": i, "text": c} for i, c in enumerate(chunks)]
+        added = self.store.add(list(vectors), metadata)
+        logger.info("ingested %s: %d chunks (%d new)", filename, len(chunks), added)
+        return len(chunks)
+
+    # -- prompt pieces --------------------------------------------------
+    def _a_ids(self) -> List[int]:
+        """BOS + "{system}\\n\\nContext: " — the fixed prompt head."""
+        if self._a_ids_cache is None:
+            ids = self.llm_tokenizer.encode(f"{self.config.system_message}\n\nContext: ")
+            bos = self.config.model.bos_token_id
+            if not ids or ids[0] != bos:
+                ids = [bos] + ids
+            self._a_ids_cache = ids
+        return self._a_ids_cache
+
+    def _b_ids(self, user_prompt: str) -> List[int]:
+        """"\\n\\nUser: {q}\\n\\nChatbot:" — the per-query prompt tail."""
+        return self.llm_tokenizer.encode(f"\n\nUser: {user_prompt}\n\nChatbot:")
+
+    def _fused_ok(self) -> bool:
+        ec = self.engine.engine_config
+        return ec.rag_fused and 0 < self.store.ntotal <= ec.rag_fused_max_vectors
+
+    @staticmethod
+    def _kept_chunks(seg_lens, avail: int):
+        """THE context-budget rule, identical to the device assembly: keep the
+        longest chunk prefix that fits; token-truncate the first chunk if it
+        alone overflows. Returns ``(n_kept, used_tokens, trunc_or_None)``."""
+        used = n_kept = 0
+        trunc = None
+        for j, L in enumerate(seg_lens):
+            if used + L <= avail:
+                used += L
+                n_kept += 1
+            else:
+                if j == 0:
+                    trunc = max(avail, 0)
+                    used = trunc
+                    n_kept = 1
+                break
+        return n_kept, used, trunc
+
+    def _piecewise_prompt(self, user_prompt: str, results):
+        """Host mirror of the device assembly: head ‖ kept chunk segments ‖
+        tail under the same budget rule. None when head + tail leave fewer
+        than 16 tokens of context room."""
+        a_ids = self._a_ids()
+        b_ids = self._b_ids(user_prompt)
+        avail = max(self.engine.engine_config.prompt_buckets) - len(a_ids) - len(b_ids)
+        if avail < 16:
+            return None
+        segs = []
+        for r in results[: self.config.retrieval.context_top_n]:
+            cached = self.store.cached_token_row(r.row)
+            segs.append(list(cached) if cached is not None else self._segment_source(r.metadata))
+        n_kept, _, trunc = self._kept_chunks([len(s) for s in segs], avail)
+        kept = segs[:n_kept]
+        if trunc is not None:
+            kept[0] = kept[0][:trunc]
+        ids = list(a_ids)
+        for s in kept:
+            ids.extend(s)
+        ids.extend(b_ids)
+        return assemble_context(results, n_kept), ids
+
+    def _budgeted_prompt(self, user_prompt: str, results):
+        """Whole-string prompt, shrinking the context (drop trailing chunks,
+        then trim the last chunk's words) until it fits the largest bucket;
+        an irreducible question goes through whole, to chunked prefill."""
+        budget = max(self.engine.engine_config.prompt_buckets)
+        bos = self.config.model.bos_token_id
+        used = [
+            SearchResult(metadata=dict(r.metadata), distance=r.distance)
+            for r in results[: self.config.retrieval.context_top_n]
+        ]
+        while True:
+            context = assemble_context(used, len(used))
+            ids = self.llm_tokenizer.encode(
+                assemble_prompt(user_prompt, context, self.config.system_message)
+            )
+            if not ids or ids[0] != bos:
+                ids = [bos] + ids
+            if len(ids) <= budget:
+                return context, ids
+            if len(used) > 1:
+                used.pop()
+                continue
+            words = used[0].metadata.get("text", "").split()
+            target = min(len(words) - 1, int(len(words) * budget / len(ids) * 0.9))
+            if target < 10:
+                return context, ids
+            used[0].metadata["text"] = " ".join(words[:target])
+
+    # -- retrieve -------------------------------------------------------
+    def _retrieve(self, text: str, allow_device: bool = False):
+        """Embed the query and rank it against the index on the device.
+        With ``allow_device`` on the single-fetch path, returns the packed
+        ``[1, 2k]`` device tensor unfetched:
+        ``("__device__", packed, k_eff, tokenize_ms)``; otherwise
+        ``(results, tokenize_ms)``."""
+        n = self.store.ntotal
+        if n == 0:
+            return [], 0.0
+        k_eff = min(self.config.retrieval.k, n)
+        emb, norms = self.store.device_snapshot()
+        t0 = time.monotonic()
+        tokens, mask = self.encoder.prepare_batch(self.encoder_tokenizer.encode(text))
+        tok_ms = (time.monotonic() - t0) * 1e3
+        with torch.inference_mode():
+            vec = self.encoder.embed(tokens, mask)
+            d, i = knn_topk(vec.float(), emb, norms, k=k_eff)
+            # one [1, 2k] tensor: fp32 carries row ids exactly up to 2^24
+            packed = torch.cat([d, i.float()], dim=1)
+        if allow_device and self._fused_ok():
+            return "__device__", packed, k_eff, tok_ms
+        host = packed.cpu().numpy()
+        return self.store.results_at(host[0, k_eff:].astype(np.int64), host[0, :k_eff]), tok_ms
+
+    # -- answer ---------------------------------------------------------
+    def answer(self, user_prompt: str) -> Dict:
+        timings: Dict[str, float] = {}
+        t_all = time.monotonic()
+        r = self._retrieve(user_prompt, allow_device=True)
+        if r[0] == "__device__":
+            timings["tokenize_ms"] = r[3]
+            timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - r[3]
+            resp = self._answer_fused(user_prompt, r, timings, t_all)
+            if resp is not None:
+                return resp
+            # head + tail did not fit the bucket: fetch the hits, host path
+            k_eff = r[2]
+            packed = r[1].cpu().numpy()
+            results = self.store.results_at(packed[0, k_eff:].astype(np.int64), packed[0, :k_eff])
+        else:
+            results, tok_ms = r
+            timings["tokenize_ms"] = tok_ms
+            timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - tok_ms
+        if not results:
+            return {"generated_text": NO_RESULTS}
+        pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
+        context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
+        t0 = time.monotonic()
+        out_ids = self.engine.generate([prompt_ids])[0]
+        completion = self.llm_tokenizer.decode(out_ids)
+        timings["generate_ms"] = (time.monotonic() - t0) * 1e3
+        timings["total_ms"] = (time.monotonic() - t_all) * 1e3
+        return {
+            "generated_text": extract_answer(completion),
+            "context": context,
+            "timings": {k: round(v, 2) for k, v in timings.items()},
+        }
+
+    def _answer_fused(self, user_prompt: str, fused_r, timings, t_all):
+        """Device-side prompt assembly + generate from the unfetched
+        retrieve output. None when head + tail leave fewer than 16 tokens of
+        room or the tail overflows the fused bucket (the host path serves)."""
+        _, packed_dev, k_eff, tokenize_ms = fused_r
+        t_b = time.monotonic()
+        a_ids, b_ids = self._a_ids(), self._b_ids(user_prompt)
+        S = max(self.engine.engine_config.prompt_buckets)
+        if len(a_ids) + len(b_ids) + 16 > S or len(b_ids) > self.engine.RAG_TAIL_BUCKET:
+            return None
+        snap = self.store.token_snapshot(blocking=False)
+        if snap is None:
+            return None
+        toks_dev, lens_dev = snap
+        timings["tokenize_ms"] = tokenize_ms + (time.monotonic() - t_b) * 1e3
+        n_ctx = min(self.config.retrieval.context_top_n, k_eff)
+        t0 = time.monotonic()
+        out_ids = self.engine.generate_rag(a_ids, b_ids, packed_dev, toks_dev, lens_dev, n_chunks=n_ctx)
+        completion = self.llm_tokenizer.decode(out_ids)
+        timings["generate_ms"] = (time.monotonic() - t0) * 1e3
+        # the ids for the response's context text: generation has synced
+        # the stream many times already, so this read adds no wait
+        packed = packed_dev.cpu().numpy()
+        results = self.store.results_at(packed[0, k_eff:].astype(np.int64), packed[0, :k_eff])
+        n_kept, _, _ = self._kept_chunks(
+            self.store.token_lengths(packed[0, k_eff : k_eff + n_ctx].astype(np.int64)),
+            S - len(a_ids) - len(b_ids),
+        )
+        timings["total_ms"] = (time.monotonic() - t_all) * 1e3
+        return {
+            "generated_text": extract_answer(completion),
+            "context": assemble_context(results, n_kept),
+            "timings": {k: round(v, 2) for k, v in timings.items()},
+        }
+
+
+# ---------------------------------------------------------------------------
+# WSGI
+# ---------------------------------------------------------------------------
+
+_REASONS = {200: "OK", 400: "BAD REQUEST", 404: "NOT FOUND", 405: "METHOD NOT ALLOWED",
+            500: "INTERNAL SERVER ERROR", 503: "SERVICE UNAVAILABLE"}
+
+
+def _parse_multipart(body: bytes, content_type: str) -> Dict[str, tuple]:
+    """``multipart/form-data`` → ``{field: (filename or None, bytes)}``."""
+    boundary = None
+    for param in content_type.split(";")[1:]:
+        key, _, val = param.strip().partition("=")
+        if key.lower() == "boundary":
+            boundary = val.strip('"')
+    if not boundary:
+        return {}
+    fields: Dict[str, tuple] = {}
+    for part in body.split(b"--" + boundary.encode())[1:]:
+        if part.startswith(b"--"):
+            break
+        head, _, data = part.partition(b"\r\n\r\n")
+        if data.endswith(b"\r\n"):
+            data = data[:-2]
+        name = filename = None
+        for line in head.decode("utf-8", "replace").split("\r\n"):
+            if line.lower().startswith("content-disposition:"):
+                for item in line.split(";")[1:]:
+                    key, _, val = item.strip().partition("=")
+                    if key == "name":
+                        name = val.strip('"')
+                    elif key == "filename":
+                        filename = val.strip('"')
+        if name is not None:
+            fields[name] = (filename, data)
+    return fields
+
+
+class Response:
+    def __init__(self, status: int, body: bytes):
+        self.status_code = status
+        self.data = body
+
+    def get_json(self):
+        return json.loads(self.data)
+
+
+class TestClient:
+    """In-process client: builds a WSGI environ, calls the app."""
+
+    __test__ = False  # not a pytest test class
+
+    def __init__(self, app):
+        self.app = app
+
+    def open(self, method: str, path: str, body: bytes = b"", content_type: str = "") -> Response:
+        environ = {
+            "REQUEST_METHOD": method, "PATH_INFO": path, "QUERY_STRING": "",
+            "CONTENT_TYPE": content_type, "CONTENT_LENGTH": str(len(body)),
+            "wsgi.input": io.BytesIO(body), "SERVER_NAME": "localhost",
+            "SERVER_PORT": "80", "wsgi.url_scheme": "http",
+        }
+        status = []
+        chunks = self.app(environ, lambda s, headers: status.append(s))
+        return Response(int(status[0].split()[0]), b"".join(chunks))
+
+    def get(self, path: str) -> Response:
+        return self.open("GET", path)
+
+    def post(self, path: str, json_body=None, files: Optional[Dict[str, tuple]] = None) -> Response:
+        """``json_body`` as a JSON request, or ``files={"file": (name, bytes)}``
+        as ``multipart/form-data``."""
+        if files is None:
+            return self.open("POST", path, json.dumps(json_body or {}).encode(), "application/json")
+        boundary = "----port-test-boundary"
+        parts = []
+        for field, (fname, data) in files.items():
+            parts.append(
+                f'--{boundary}\r\nContent-Disposition: form-data; name="{field}"; '
+                f'filename="{fname}"\r\nContent-Type: application/octet-stream\r\n\r\n'.encode()
+                + data + b"\r\n"
+            )
+        body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+        return self.open("POST", path, body, f"multipart/form-data; boundary={boundary}")
+
+
+class WsgiApp:
+    ROUTES = {
+        "/upload_pdf": ("POST", "upload_pdf"),
+        "/generate": ("POST", "generate"),
+        "/query": ("POST", "generate"),
+        "/index_info": ("GET", "index_info"),
+        "/healthz": ("GET", "healthz"),
+    }
+
+    def __init__(self, service: RagService):
+        self.service = service
+
+    def __call__(self, environ, start_response):
+        path, method = environ.get("PATH_INFO", "/"), environ.get("REQUEST_METHOD", "GET")
+        route = self.ROUTES.get(path)
+        if route is None:
+            status, payload = 404, {"error": "not found"}
+        elif route[0] != method:
+            status, payload = 405, {"error": "method not allowed"}
+        else:
+            length = int(environ.get("CONTENT_LENGTH") or 0)
+            body = environ["wsgi.input"].read(length) if length else b""
+            status, payload = getattr(self, f"ep_{route[1]}")(body, environ.get("CONTENT_TYPE", ""))
+        data = json.dumps(payload).encode()
+        start_response(
+            f"{status} {_REASONS.get(status, '')}",
+            [("Content-Type", "application/json"), ("Content-Length", str(len(data)))],
+        )
+        return [data]
+
+    def ep_upload_pdf(self, body: bytes, content_type: str):
+        files = _parse_multipart(body, content_type) if content_type.startswith("multipart/") else {}
+        if "file" not in files:
+            return 400, {"error": "No file part"}
+        filename, data = files["file"]
+        if not filename:
+            return 400, {"error": "No selected file"}
+        if not filename.endswith(".pdf"):
+            return 400, {"error": "Invalid file format"}
+        try:
+            n = self.service.ingest_pdf_bytes(data, filename)
+        except Exception as e:  # noqa: BLE001 — any failure → JSON error
+            logger.exception("upload_pdf failed")
+            return 500, {"error": str(e)}
+        return 200, {"message": f"PDF processed and indexed successfully. {n} chunks created."}
+
+    def ep_generate(self, body: bytes, content_type: str):
+        try:
+            data = json.loads(body or b"{}")
+        except ValueError:
+            data = {}
+        prompt = data.get("prompt", "") if isinstance(data, dict) else ""
+        try:
+            return 200, self.service.answer(prompt)
+        except Exception as e:  # noqa: BLE001 — any failure → JSON error
+            logger.exception("generate failed")
+            return 500, {"error": str(e)}
+
+    def ep_index_info(self, body: bytes, content_type: str):
+        return 200, self.service.store.info()
+
+    def ep_healthz(self, body: bytes, content_type: str):
+        svc = self.service
+        dev = svc.engine.device
+        payload = {
+            "status": "ok" if svc.ready else "warming",
+            "engine_mode": "one-shot",
+            "device_platform": dev.type,
+            "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        }
+        return (200 if svc.ready else 503), payload
+
+    def test_client(self) -> TestClient:
+        return TestClient(self)
+
+
+def create_app(service: RagService) -> WsgiApp:
+    return WsgiApp(service)
