@@ -7,7 +7,8 @@
    hand-written kernels from ``rag_llm_k8s_tpu_torch/ops/csrc`` (one ``nvcc``
    per source, started together); a failed build is fatal.
 2. Kernel phases: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, with its time (CUDA events, warm,
+   at the shapes its path gives it (the paged kernels at B = 8 over an arena
+   with NaN in every block no row owns), with its time (CUDA events, warm,
    median), the plain version's time, one PyTorch library call computing the
    same function (``library_ms``, a yardstick the port never calls) and the
    least time the card could take (``bound_ms``, from this run's inputs).
@@ -20,8 +21,15 @@
    requests with default sampling and with greedy, one long question (host
    path) and one >4096-token prompt (chunked prefill). The launch counters
    are zeroed just before and read just after; every kernel must have run.
-   Then one greedy request is served through the decode kernel and again
-   through the plain decode attention, as a yardstick.
+5. Continuous phases: 8 concurrent ``/generate`` requests from threads
+   through a ``ContinuousScheduler`` (paged arena, interleaved admission)
+   over the same model and store, counters zeroed before and read after
+   (kNN, flash, paged decode and paged chunk must all have run, and the
+   pool must drain to 0 blocks); the last greedy request alone must give
+   its text from the batch (then, as a yardstick, through the plain paged
+   attention); then a phase-separated continuous engine run.
+6. Yardstick: one greedy request through the decode kernel and again
+   through the plain decode attention.
 
 Prints one line per phase, the card line and a ``kernels`` JSON line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -55,6 +63,8 @@ FP32_FLOPS = 67e12  # CUDA-core fp32
 ATTN_RMS_TOL = 2.0**-7
 ATTN_MAX_TOL = 2.0**-6
 KNN_RTOL = 1e-5  # fp32 distances (no TF32 on either side)
+ONE_SHOT_KERNELS = ("knn_topk", "flash_attention", "decode_attention", "chunk_prefill_attention")
+CONTINUOUS_KERNELS = ("knn_topk", "flash_attention", "paged_decode_attention", "paged_chunk_attention")
 
 
 def fail(msg: str) -> None:
@@ -175,6 +185,51 @@ def _attn_faults(name, got, faulty):
         err, lim, rms = _attn_err(got, want)
         if err <= lim and rms <= ATTN_RMS_TOL:
             fail(f"{name}: the check accepts a planted fault ({fault}: rel rms {rms:.3g})")
+        least = min(least, rms)
+    return least
+
+
+def _rows_fail(got, want):
+    """Per-row ``_attn_err`` over the rows ``want`` is not all zero:
+    (max abs error, relative RMS error, whether any row breaks the
+    tolerance). Each row is held to its own scale, so a fault in a long,
+    small-valued row is not hidden by the short rows' larger outputs."""
+    worst_err = worst_rms = 0.0
+    broken = False
+    for b in range(want.shape[0]):
+        if not want[b].abs().max().item():
+            continue
+        err, lim, rms = _attn_err(got[b], want[b])
+        worst_err, worst_rms = max(worst_err, err), max(worst_rms, rms)
+        broken = broken or err > lim or rms > ATTN_RMS_TOL
+    return worst_err, worst_rms, broken
+
+
+def _paged_check(name, got, want):
+    """``_attn_check`` row by row; a row whose plain output is all zero
+    (``kv_len = 0``) must come out all zero."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite kernel output")
+    for b in range(want.shape[0]):
+        if not want[b].abs().max().item() and got[b].abs().max().item():
+            fail(f"{name}: row {b} has no visible key and must write zeros")
+    err, rms, broken = _rows_fail(got, want)
+    if broken:
+        fail(f"{name}: a row breaks the tolerance (max abs err {err:.3g}, rel rms {rms:.3g})")
+    return err, rms
+
+
+def _paged_faults(name, got, faulty):
+    """``_attn_faults`` row by row: each planted fault must break the
+    tolerance in at least one row. Returns the least, over the faults, of
+    the largest per-row relative RMS error."""
+    least = math.inf
+    for fault, want in faulty.items():
+        _, rms, broken = _rows_fail(got, want)
+        if not broken:
+            fail(f"{name}: the check accepts a planted fault ({fault}: largest row rel rms {rms:.3g})")
         least = min(least, rms)
     return least
 
@@ -396,6 +451,186 @@ def phase_chunk(rows):
     rows["chunk_prefill_attention"].update(max_abs_err=worst, rel_rms=worst_rms)
 
 
+def _paged_arena(L, K, bs, hd, B, MB, kv_len, layer, g):
+    """A random bf16 arena pair of B * MB + 1 blocks (block 0 the null
+    block), rows' tables filled from a shuffled permutation of the pool up to
+    each row's live blocks (null beyond), NaN in every unassigned block and
+    every frontier tail, and the zero-filled twin the plain version gets.
+    Only ``layer`` and ``layer - 1`` are filled; the other layers stay zero."""
+    import torch
+
+    dev = torch.device("cuda")
+    N = B * MB + 1
+    perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(11)) + 1
+    tables = torch.zeros((B, MB), dtype=torch.int32)
+    used, nxt = [], 0
+    for b, n in enumerate(kv_len):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[nxt:nxt + nb].to(torch.int32)
+        used.append(perm[nxt:nxt + nb])
+        nxt += nb
+    used = torch.cat(used).to(dev)
+    arenas, twins = [], []
+    for _ in range(2):
+        a = torch.zeros((L, N, K, bs, hd), dtype=torch.bfloat16, device=dev)
+        for lay in (layer - 1, layer):
+            a[lay] = torch.randn((N, K, bs, hd), device=dev, generator=g).to(torch.bfloat16)
+        twin = a.clone()
+        live = torch.zeros(N, dtype=torch.bool, device=dev)
+        live[used] = True
+        a[:, ~live] = float("nan")
+        twin[:, ~live] = 0
+        for b, n in enumerate(kv_len):
+            if n % bs:
+                blk = int(tables[b, n // bs])
+                a[:, blk, :, n % bs:] = float("nan")
+                twin[:, blk, :, n % bs:] = 0
+        arenas.append(a)
+        twins.append(twin)
+    return arenas, twins, tables.to(dev)
+
+
+def _sharpen_paged(q, k_arenas, layer, tables, write_index, kv_len, n_real):
+    """``_sharpen_edges`` for the arena: adds 9x the unit mean query
+    direction of each (row, real lane, kv head) to the keys its causal mask
+    turns on last (``write_index + t``) and off first (``+ 1``), inside the
+    row's window, so a mask or table off by one key moves the output far
+    past the bf16 noise."""
+    import torch
+
+    B, S, H, hd = q.shape
+    K, bs = k_arenas[0].shape[2], k_arenas[0].shape[3]
+    u = q.float().reshape(B, S, K, H // K, hd).sum(3)
+    u = 9.0 * u / u.norm(dim=-1, keepdim=True)  # [B, S, K, hd]
+    idx, vals = [], []
+    for b in range(B):
+        for t in range(n_real[b]):
+            for pos in (write_index[b] + t, write_index[b] + t + 1):
+                if pos < kv_len[b]:
+                    idx.append((int(tables[b, pos // bs]), pos % bs))
+                    vals.append(u[b, t])
+    if not idx:
+        return
+    phys = torch.tensor([i for i, _ in idx], device=q.device)
+    slot = torch.tensor([s for _, s in idx], device=q.device)
+    add = torch.stack(vals)  # [M, K, hd]
+    for a in k_arenas:
+        lay = a[layer].float().permute(0, 2, 1, 3).contiguous()  # [N, bs, K, hd]
+        lay.index_put_((phys, slot), add, accumulate=True)
+        a[layer] = lay.permute(0, 2, 1, 3).to(a.dtype)
+
+
+def _paged_bound(kv_len, K, hd, q_bytes, pairs, H):
+    """Each live key and value read once, q read and out written once."""
+    nbytes = 2 * sum(kv_len) * K * hd * 2 + 2 * q_bytes
+    return bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
+
+
+def phase_paged_decode(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    L, B, H, K, hd, bs, MB, layer = 32, 8, 32, 8, 128, 16, 272, 31
+    kv_l = [4351, 3100, 1800, 600, 17, 16, 1, 0]
+    (ka, va), (kz, vz), tables = _paged_arena(L, K, bs, hd, B, MB, kv_l, layer, g)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    # the query sits at each row's frontier: its last key is sharpened
+    _sharpen_paged(q, (ka, kz), layer, tables, [n - 1 for n in kv_l], kv_l, [1 if n else 0 for n in kv_l])
+    want = A.paged_decode_attention_xla(q, kz, vz, tables, kv_len, layer)
+    got = A.paged_decode_attention(q, ka, va, tables, kv_len, layer)
+    torch.cuda.synchronize()
+    err, rms = map(max, zip(
+        _paged_check("paged_decode", A.paged_decode_attention(q, kz, vz, tables, kv_len, layer), want),
+        _paged_check("paged_decode (NaN outside the live blocks)", got, want),
+    ))
+    short = kv_len.clone()
+    short[0] -= 1
+    swapped = tables.clone()
+    swapped[4, [0, 1]] = swapped[4, [1, 0]]
+    fault_rms = _paged_faults("paged_decode", got, {
+        "kv_len-1 (row 0)": A.paged_decode_attention_xla(q, kz, vz, tables, short, layer),
+        "table entries 0,1 of row 4 swapped": A.paged_decode_attention_xla(q, kz, vz, swapped, kv_len, layer),
+        "layer-1": A.paged_decode_attention_xla(q, kz, vz, tables, kv_len, layer - 1),
+    })
+    # alternate the two filled layers so one call's blocks are not left in L2
+    ms = time_ms(lambda i: A.paged_decode_attention(q, ka, va, tables, kv_len, layer - i % 2), iters=32)
+    plain_ms = time_ms(lambda i: A.paged_decode_attention_xla(q, kz, vz, tables, kv_len, layer - i % 2), iters=8)
+    b_ms, b_by = _paged_bound(kv_l, K, hd, q.numel() * 2, sum(kv_l), H)
+    print(f"phase paged_decode B={B} H={H} K={K} hd={hd} bs={bs} MB={MB} layer={layer} kv_len={kv_l}: "
+          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms=none (no single PyTorch call reads a paged arena) bound_ms={b_ms:.4f} ({b_by})",
+          flush=True)
+    rows["paged_decode_attention"] = dict(
+        shape=f"B=8 H=32 K=8 hd=128 bs=16 MB=272 live_keys={sum(kv_l)}", ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+    )
+    del ka, va, kz, vz
+    torch.cuda.empty_cache()
+
+
+def phase_paged_chunk(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    L, B, S, H, K, hd, bs, MB, layer = 32, 8, 64, 32, 8, 128, 16, 272, 31
+    # the mixed window: rows 0-3 decode (one real lane at the frontier),
+    # rows 4-6 prompt chunks of 64 at offsets 0, 1024 and 4032, row 7 a
+    # bystander
+    wi_l = [4350, 3000, 1799, 599, 0, 1024, 4032, 0]
+    n_real = [1, 1, 1, 1, 64, 64, 64, 0]
+    kv_l = [w + n for w, n in zip(wi_l, n_real)]
+    (ka, va), (kz, vz), tables = _paged_arena(L, K, bs, hd, B, MB, kv_l, layer, g)
+    q = torch.randn(B, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    wi = torch.tensor(wi_l, dtype=torch.int32, device=dev)
+    _sharpen_paged(q, (ka, kz), layer, tables, wi_l, kv_l, n_real)
+    want = A.paged_chunk_attention_xla(q, kz, vz, tables, kv_len, layer, wi)
+    got = A.paged_chunk_attention(q, ka, va, tables, kv_len, layer, wi)
+    torch.cuda.synchronize()
+    err, rms = map(max, zip(
+        _paged_check("paged_chunk", A.paged_chunk_attention(q, kz, vz, tables, kv_len, layer, wi), want),
+        _paged_check("paged_chunk (NaN outside the live blocks)", got, want),
+    ))
+    short = kv_len.clone()
+    short[0] -= 1
+    swapped = tables.clone()
+    swapped[5, [1, 64]] = swapped[5, [64, 1]]
+    faulty = {
+        "kv_len-1 (row 0)": A.paged_chunk_attention_xla(q, kz, vz, tables, short, layer, wi),
+        "table entries 1,64 of row 5 swapped": A.paged_chunk_attention_xla(q, kz, vz, swapped, kv_len, layer, wi),
+        "layer-1": A.paged_chunk_attention_xla(q, kz, vz, tables, kv_len, layer - 1, wi),
+    }
+    for d in (1, -1):
+        moved = wi.clone()
+        moved[5] += d
+        faulty[f"write_index{d:+d} (row 5)"] = A.paged_chunk_attention_xla(q, kz, vz, tables, kv_len, layer, moved)
+    fault_rms = _paged_faults("paged_chunk", got, faulty)
+    del faulty
+    ms = time_ms(lambda i: A.paged_chunk_attention(q, ka, va, tables, kv_len, layer - i % 2, wi), iters=16)
+    plain_ms = time_ms(lambda i: A.paged_chunk_attention_xla(q, kz, vz, tables, kv_len, layer - i % 2, wi),
+                       iters=5, warmup=1)
+    # (query position, key) pairs every lane computes on, junk lanes included
+    pairs = sum(min(w + t + 1, n) for w, n in zip(wi_l, kv_l) for t in range(S))
+    b_ms, b_by = _paged_bound(kv_l, K, hd, q.numel() * 2, pairs, H)
+    print(f"phase paged_chunk B={B} S={S} H={H} K={K} hd={hd} bs={bs} write_index={wi_l} kv_len={kv_l}: "
+          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms=none (no single PyTorch call reads a paged arena) bound_ms={b_ms:.4f} ({b_by})",
+          flush=True)
+    rows["paged_chunk_attention"] = dict(
+        shape=f"B=8 S=64 H=32 K=8 hd=128 bs=16 write_index={wi_l}", ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+    )
+    del ka, va, kz, vz
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # model + service phases
 # ---------------------------------------------------------------------------
@@ -588,10 +823,10 @@ def phase_service(service_bits):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    print(f"launches on the main path: {json.dumps(launches)}", flush=True)
-    missing = [k for k, v in launches.items() if v <= 0]
+    print(f"launches on the one-shot path: {json.dumps(launches)}", flush=True)
+    missing = [k for k in ONE_SHOT_KERNELS if launches[k] <= 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the one-shot path: {missing}")
 
     # the device-assembled prompt is token-identical to the host mirror
     question = "which kernel tiles the shared memory?"
@@ -613,6 +848,194 @@ def phase_service(service_bits):
         fail("device prompt assembly differs from the host mirror")
     print(f"phase service prompt assembly: device == host ({len(want_ids)} tokens)", flush=True)
     return launches
+
+
+CONT_QUESTIONS = [
+    "which kernel tiles the shared memory?",
+    "how does the cache stream tokens?",
+    "what bounds the decode latency?",
+    "where is the vector index kept?",
+    "what does the warp block share?",
+    "how is the prefill chunk scheduled?",
+    "which register holds the query?",
+    "what limits the device bandwidth?",
+]
+
+
+def phase_continuous_service(service_bits):
+    """8 concurrent /generate requests through a ContinuousScheduler over
+    the shared 8B model (interleaved admission, 64-token chunks): 6 with
+    default sampling, 2 greedy, the last greedy one submitted after the
+    others so that it is the last admission and decodes in plain windows,
+    as it does alone. Then that request alone: same text."""
+    import threading
+
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.server.app import RagService, build_scheduler, create_app
+
+    svc1, _, engine, store = service_bits
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True,
+                             kv_block_size=16, interleave_prefill=True, prefill_chunk_tokens=64)
+    t = time.monotonic()
+    sched = build_scheduler(engine, ec)
+    cont = sched.engine
+    svc = RagService(dataclasses.replace(svc1.config, engine=ec), engine, svc1.llm_tokenizer,
+                     svc1.encoder, svc1.encoder_tokenizer, store, scheduler=sched)
+    svc.ready = True
+    client = create_app(svc).test_client()
+    mode = client.get("/healthz").get_json()["engine_mode"]
+    arena_gb = 2 * cont.arena.k.numel() * cont.arena.k.element_size() / 1e9
+    print(f"phase continuous build: engine_mode={mode} pool_blocks={cont.kv_pool.usable_blocks()} "
+          f"(+1 null) arena_gb={arena_gb:.2f} shared_weights={cont.model is engine.model} "
+          f"s={time.monotonic() - t:.1f}", flush=True)
+    if mode != "continuous-interleaved" or cont.model is not engine.model:
+        fail(f"continuous service: engine_mode {mode!r}, weights shared {cont.model is engine.model}")
+
+    greedy = {6, 7}
+    results = [None] * len(CONT_QUESTIONS)
+
+    def ask(i):
+        body = {"prompt": CONT_QUESTIONS[i]}
+        if i in greedy:
+            body["sampling"] = {"do_sample": False}
+        r = client.post("/generate", json_body=body)
+        results[i] = (r.status_code, r.get_json())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    before = dataclasses.replace(cont.stats)
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(CONT_QUESTIONS))]
+    for th in threads[:-1]:
+        th.start()
+    time.sleep(1.0)  # the probe is the last admission
+    threads[-1].start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if any(th.is_alive() for th in threads):
+        fail("continuous service: a request did not finish within 900 s")
+    st = cont.stats
+    for i, (code, body) in enumerate(results):
+        if code != 200 or not isinstance(body.get("generated_text"), str) or "Document '" not in body.get(
+            "context", ""
+        ):
+            fail(f"continuous /generate {i}: {code} {body}")
+        print(f"request continuous /generate {i} sampling={'greedy' if i in greedy else 'default'} "
+              f"timings={json.dumps(body['timings'])}", flush=True)
+    dec = st.decode_tokens - before.decode_tokens
+    print(f"phase continuous_service: requests={len(results)} wall_s={wall:.2f} decode_tokens={dec} "
+          f"decode_tok_per_s={dec / wall:.1f} {_windows(st, before)} "
+          f"preemptions={st.preemptions - before.preemptions} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    print(f"launches on the continuous path: {json.dumps(launches)}", flush=True)
+    missing = [k for k in CONTINUOUS_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the continuous path: {missing}")
+    if cont.kv_pool.blocks_in_use():
+        fail(f"continuous service: {cont.kv_pool.blocks_in_use()} blocks still in use after the drain")
+    # the probe alone, through the kernels, then (yardstick, after the
+    # counters were read) through the plain paged attention
+    from rag_llm_k8s_tpu_torch.models import llama as L
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    solo = {}
+    try:
+        for impl in ("kernel", "plain"):
+            if impl == "plain":
+                L.paged_decode_attention = A.paged_decode_attention_xla
+                L.paged_chunk_attention = A.paged_chunk_attention_xla
+            before = dataclasses.replace(cont.stats)
+            launched = dict(_build.LAUNCHES)
+            r = client.post("/generate", json_body={"prompt": CONT_QUESTIONS[-1], "sampling": {"do_sample": False}})
+            torch.cuda.synchronize()
+            body = r.get_json()
+            if r.status_code != 200:
+                fail(f"continuous /generate alone ({impl}): {r.status_code} {body}")
+            solo[impl] = body
+            alone = {k: _build.LAUNCHES[k] - launched[k] for k in CONTINUOUS_KERNELS}
+            print(f"request continuous /generate alone through the {impl} paged attention (greedy, "
+                  f"request {len(results) - 1}'s question): same_text_as_in_the_batch="
+                  f"{body['generated_text'] == results[-1][1]['generated_text']} {_windows(cont.stats, before)} "
+                  f"launches={json.dumps(alone)} timings={json.dumps(body['timings'])}", flush=True)
+    finally:
+        L.paged_decode_attention = A.paged_decode_attention
+        L.paged_chunk_attention = A.paged_chunk_attention
+    if solo["kernel"]["generated_text"] != results[-1][1]["generated_text"]:
+        fail("continuous service: the greedy request alone differs from its text in the batch")
+    svc.shutdown()
+    cont.arena = None
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _windows(st, before):
+    """Windows run since ``before``, each kind with its mean host-clock time
+    from first launch to token fetch."""
+    out = []
+    for kind, n, s in (("decode", st.windows - st.mixed_windows - before.windows + before.mixed_windows,
+                        st.decode_window_s - before.decode_window_s),
+                       ("mixed", st.mixed_windows - before.mixed_windows,
+                        st.mixed_window_s - before.mixed_window_s)):
+        out.append(f"{kind}_windows={n} ms_per_{kind}_window={1e3 * s / max(n, 1):.1f}")
+    return " ".join(out)
+
+
+def phase_continuous_engine(service_bits):
+    """Phase-separated admission (interleave off): four prompts of mixed
+    length admitted as one group (two share a bucket and prefill together),
+    32 greedy tokens each, through the prefill written into the blocks, the
+    paged decode kernel and the block growth."""
+    import numpy as np
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+    from rag_llm_k8s_tpu_torch.ops import _build
+
+    engine = service_bits[2]
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True, kv_block_size=16,
+                             interleave_prefill=False)
+    cont = ContinuousEngine(engine.config, engine.model, SamplingConfig(do_sample=False), ec,
+                            engine.dtypes, engine.device, engine.pad_id)
+    rng = np.random.default_rng(3)
+    lens = [300, 450, 1500, 3000]
+    prompts = [[engine.config.bos_token_id] + [int(x) for x in rng.integers(3, 259, n - 1)] for n in lens]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    out = {}
+    for i, res in enumerate(cont.admit_many([(i, p, 32, None) for i, p in enumerate(prompts)])):
+        if isinstance(res, BaseException):
+            fail(f"continuous engine: admission {i} failed: {res!r}")
+        if res[1] is not None:
+            out[i] = res[1]
+    t_admit = time.monotonic() - t
+    while cont.has_active():
+        out.update(dict(cont.step()))
+    torch.cuda.synchronize()
+    s = time.monotonic() - t
+    launches = dict(_build.LAUNCHES)
+    vocab = engine.config.vocab_size
+    bad = [i for i in range(len(prompts))
+           if i not in out or not 0 < len(out[i]) <= 32 or not all(0 <= x < vocab for x in out[i])]
+    print(f"phase continuous_engine (phase-separated admission): prompt_lens={lens} "
+          f"new_tokens={[len(out.get(i, [])) for i in range(len(prompts))]} prefill_calls={cont.stats.prefill_calls} "
+          f"{_windows(cont.stats, type(cont.stats)())} "
+          f"admit_s={t_admit:.2f} s={s:.2f} launches={json.dumps(launches)}", flush=True)
+    if bad:
+        fail(f"continuous engine: malformed streams for prompts {bad}")
+    if launches["flash_attention"] <= 0 or launches["paged_decode_attention"] <= 0:
+        fail("continuous engine: admission prefill or paged decode never launched")
+    if cont.kv_pool.blocks_in_use():
+        fail(f"continuous engine: {cont.kv_pool.blocks_in_use()} blocks still in use")
+    cont.arena = None
+    torch.cuda.empty_cache()
 
 
 def _decode_step_ms(engine, reps: int = 5):
@@ -749,27 +1172,38 @@ def main() -> int:
     phase_flash(rows)
     phase_decode(rows)
     phase_chunk(rows)
+    phase_paged_decode(rows)
+    phase_paged_chunk(rows)
     torch.cuda.empty_cache()
 
     bits = build_service()
     phase_model(bits[2].model, bits[2].config)
     launches = phase_service(bits)
+    cont_launches = phase_continuous_service(bits)
+    phase_continuous_engine(bits)
     phase_plain_decode(bits)
     print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
-    sources = {"knn_topk": "rag_llm_k8s_tpu_torch/ops/csrc/knn.cu"}
+    csrc = "rag_llm_k8s_tpu_torch/ops/csrc/"
+    sources = {"knn_topk": csrc + "knn.cu", "paged_decode_attention": csrc + "paged_attention.cu",
+               "paged_chunk_attention": csrc + "paged_attention.cu"}
     replaces = {
         "knn_topk": "rag_llm_k8s_tpu/ops/knn.py:87",
         "flash_attention": "rag_llm_k8s_tpu/ops/attention.py:122",
         "decode_attention": "rag_llm_k8s_tpu/ops/attention.py:276",
         "chunk_prefill_attention": "rag_llm_k8s_tpu/ops/attention.py:428",
+        "paged_decode_attention": "rag_llm_k8s_tpu/ops/attention.py:1134",
+        "paged_chunk_attention": "rag_llm_k8s_tpu/ops/attention.py:1408",
     }
+    # launches: the one-shot path's counts for its kernels, the continuous
+    # path's for the paged ones
+    launches = {**launches, **{k: cont_launches[k] for k in ("paged_decode_attention", "paged_chunk_attention")}}
     kernels = []
-    for kname in ("knn_topk", "flash_attention", "decode_attention", "chunk_prefill_attention"):
+    for kname in replaces:
         r = rows[kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": sources.get(kname, "rag_llm_k8s_tpu_torch/ops/csrc/attention.cu"),
+            "source": sources.get(kname, csrc + "attention.cu"),
             "replaces": replaces[kname], "launches": launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": f"distance rel {KNN_RTOL}" if kname == "knn_topk" else

@@ -10,7 +10,9 @@ the JAX package:
     ops/     kNN and attention kernels with their plain PyTorch versions
     models/  Llama-3.1 decoder, bge-m3 encoder, weights bridge
     engine/  one-shot engine (bucketed/chunked prefill, decode, speculation),
+             paged continuous engine and its scheduler, KV block pool,
              sampling, batched embedding
+    sim/     the continuous scheduler's decision core (pure functions)
     index/   in-memory vector store with device snapshots
     rag/     chunking, PDF text, prompt assembly
     server/  the HTTP routes over WSGI

@@ -3,7 +3,8 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(mesh, prefix cache, tiering, continuous engine, observability) are not here.
+(mesh, prefix cache, tiering, speculative continuous decode, pool roles,
+observability) are not here.
 """
 
 from __future__ import annotations
@@ -168,6 +169,53 @@ class EngineConfig:
     rag_fused: bool = True
     # past this many live vectors solo queries take the host path
     rag_fused_max_vectors: int = 65536
+    # request scheduling: "coalesce" (the JAX package's default; its
+    # coalescing scheduler is not ported, so the port's service then
+    # serves each request through the one-shot engine) or "continuous"
+    # (requests join a running batch: engine/continuous.py)
+    batching: str = "coalesce"
+    # continuous engine: decode steps run per host sync (one token fetch
+    # per window)
+    decode_sync_steps: int = 1
+    # paged KV for the continuous engine: a [L, N, K, block, hd] block-pool
+    # arena with per-row block tables (engine/kv_pool.py)
+    kv_paged: bool = False
+    # tokens per physical block; must divide every prompt bucket and the
+    # slot length
+    kv_block_size: int = 16
+    # allocatable blocks (the reserved null block is added on top); 0 =
+    # max_batch_size * ceil(slot length / kv_block_size)
+    kv_pool_blocks: int = 0
+    # interleaved admission: prompts prefill in chunks of
+    # prefill_chunk_tokens inside the decode windows instead of one
+    # phase-separated prefill per admission group
+    interleave_prefill: bool = False
+    prefill_chunk_tokens: int = 64
+    # tokens per mixed window, decode lanes first; 0 = max_batch_size +
+    # prefill_chunk_tokens
+    window_token_budget: int = 0
+
+    def validate_interleave(self) -> None:
+        """Cross-field rules for interleaved admission, checked at
+        continuous-engine construction."""
+        if not self.interleave_prefill:
+            return
+        if not self.kv_paged:
+            raise ValueError(
+                "interleave_prefill=True requires kv_paged=True: chunked "
+                "admission writes through block tables"
+            )
+        if self.prefill_chunk_tokens < 1:
+            raise ValueError(
+                f"prefill_chunk_tokens={self.prefill_chunk_tokens}: a mixed "
+                "window must carry at least one prefill token per chunk"
+            )
+        if self.window_token_budget and self.window_token_budget < self.max_batch_size + 1:
+            raise ValueError(
+                f"window_token_budget={self.window_token_budget} cannot cover "
+                f"max_batch_size={self.max_batch_size} decode lanes plus one "
+                "prefill token (0 means max_batch_size + prefill_chunk_tokens)"
+            )
 
 
 SYSTEM_MESSAGE = (

@@ -1,0 +1,801 @@
+"""Continuous batching over the paged KV arena, counterpart of the paged path
+of ``rag_llm_k8s_tpu/engine/continuous.py``.
+
+Requests join a running batch of ``max_batch_size`` rows. Each row owns
+blocks of a ``[L, N, K, bs, hd]`` block-pool arena (``engine/kv_pool.py``)
+through a host-maintained ``[B, MB]`` block table; rows are right-padded, so
+row ``b``'s keys are the window ``[0, kv_len[b])`` and its next token writes
+at ``kv_len[b]``. Between device windows the scheduler admits waiting
+requests into free rows.
+
+- **Phase-separated admission** (``interleave_prefill=False``): a group of
+  same-bucket prompts prefills in one forward, written straight into the
+  rows' blocks through their tables (the attention runs over the fresh K/V,
+  ``flash_attention``); the first tokens come back in one fetch.
+- **Interleaved admission** (``interleave_prefill=True``): admission only
+  reserves a row; every window then feeds each active row one decode token
+  and the pending prompts ``prefill_chunk_tokens`` at a time through ONE
+  chunked forward (``paged_chunk_attention``). A prompt's final chunk
+  samples its first token.
+- **Decode windows** run ``decode_sync_steps`` single-token steps
+  (``paged_decode_attention``) and fetch the ``[k, B]`` token plane once.
+- Blocks are allocated as frontiers reach them. When the pool runs dry the
+  newest-admitted row is preempted: its blocks return, and the scheduler
+  resubmits it as prompt + emitted tokens (greedy streams are unchanged).
+
+Sampling is keyed by each row's ``(seed, position)`` alone
+(``sampling.sample_token_per_row``), so a request samples the same stream
+alone or in a batch, with interleaving on or off. The block table lives on
+the host and is uploaded (pinned, non-blocking) only when it changed; the
+one host sync per window is the token fetch. Inactive rows and lanes past a
+row's table write into the null block, never ``table[row, 0]``.
+
+Out of this port for now: the dense continuous cache, speculative verify
+windows, prefix registrations, tiering, migration, deadlines and faults.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, EngineConfig, LlamaConfig, SamplingConfig
+from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
+from rag_llm_k8s_tpu_torch.engine.sampling import sample_token_per_row
+from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, fuse_projections_, make_kv_arena
+from rag_llm_k8s_tpu_torch.sim import policy
+
+logger = logging.getLogger(__name__)
+
+_REQUEST_IDS = itertools.count(1)
+
+
+@dataclass
+class _Slot:
+    """Host view of one row."""
+
+    request_id: int = -1
+    tokens: List[int] = field(default_factory=list)
+    remaining: int = 0
+    active: bool = False
+    # upper bound of the row's frontier (drives block growth)
+    kv_ub: int = 0
+    admit_seq: int = 0
+    # reserved for an interleaved admission still prefilling
+    prefilling: bool = False
+
+
+@dataclass
+class ContinuousStats:
+    decode_tokens: int = 0
+    windows: int = 0  # device windows of every kind (prefill groups not counted)
+    mixed_windows: int = 0
+    prefill_calls: int = 0
+    preemptions: int = 0
+    # host clock from a window's first launch to its token fetch, summed
+    decode_window_s: float = 0.0
+    mixed_window_s: float = 0.0
+
+
+class ContinuousEngine:
+    """Owns the arena, the per-row device state and the block tables. Not
+    thread-safe: the scheduler thread makes every call."""
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        model: LlamaModel,
+        sampling: SamplingConfig = SamplingConfig(),
+        engine_config: EngineConfig = EngineConfig(),
+        dtypes: DTypePolicy = DTypePolicy(),
+        device: DeviceLike = None,
+        pad_id: int = 0,
+    ):
+        ec = engine_config
+        if not ec.kv_paged:
+            raise ValueError("the continuous engine serves the paged arena only: set kv_paged=True")
+        self.device = resolve_device(device)
+        self.config, self.sampling, self.engine_config, self.dtypes = config, sampling, ec, dtypes
+        self.pad_id = pad_id
+        self.B = ec.max_batch_size
+        self.sync_steps = max(1, ec.decode_sync_steps)
+        self.T = -(-ec.max_seq_len // 128) * 128
+        # only buckets that leave decode room fit a row
+        self.buckets = tuple(b for b in ec.prompt_buckets if b < self.T)
+        if not self.buckets:
+            raise ValueError(
+                f"no prompt bucket in {ec.prompt_buckets} fits max_seq_len={ec.max_seq_len} "
+                f"(row length {self.T})"
+            )
+        bs = int(ec.kv_block_size)
+        if bs < 1 or bs % 16:
+            raise ValueError(f"kv_block_size={bs} must be a positive multiple of 16")
+        if any(b % bs for b in self.buckets) or self.T % bs:
+            raise ValueError(
+                f"kv_block_size={bs} must divide every prompt bucket {self.buckets} and the row "
+                f"length {self.T}"
+            )
+        self.block_size = bs
+        self.MB = self.T // bs
+        usable = int(ec.kv_pool_blocks) or self.B * self.MB
+        if usable < self.MB:
+            raise ValueError(f"kv_pool_blocks={usable}: the pool must hold one full row ({self.MB} blocks)")
+        self.kv_pool = KVBlockPool(usable + 1, bs)  # + the null block
+        self.interleave_on = bool(ec.interleave_prefill)
+        if self.interleave_on:
+            ec.validate_interleave()
+            self.chunk_tokens = int(ec.prefill_chunk_tokens)
+            self.window_budget = int(ec.window_token_budget) or self.B + self.chunk_tokens
+        if ec.fuse_matmuls:
+            fuse_projections_(model)
+        self.model = model
+        self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device)
+        self._eos = torch.tensor(config.eos_token_ids, device=self.device)
+        self._seed_counter = 0
+        self.stats = ContinuousStats()
+        self._fresh_state()
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+    def _fresh_state(self) -> None:
+        B, dev = self.B, self.device
+        self._kv_len = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._last_tok = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._active = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._seeds = torch.zeros(B, dtype=torch.int64, device=dev)
+        # per-row sampling: greedy flag, temperature, top-p
+        self._greedy = torch.ones(B, dtype=torch.bool, device=dev)
+        self._temp = torch.ones(B, dtype=torch.float32, device=dev)
+        self._top_p = torch.ones(B, dtype=torch.float32, device=dev)
+        self._zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._row_greedy = [True] * B  # host mirror: skip the draw when all rows are greedy
+        self.slots = [_Slot() for _ in range(B)]
+        self._tables_host = np.zeros((B, self.MB), np.int32)
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._tables_dirty = True
+        self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
+        self._admit_seq = 0
+        self._preempted: List[Tuple[int, List[int]]] = []
+        # in-flight interleaved admissions, oldest first: rid -> record
+        self._chunk_admissions: "OrderedDict[int, dict]" = OrderedDict()
+
+    def reset(self) -> None:
+        """Drop every row and return every block (after a failed window).
+        The arena keeps its memory; no kernel reads past a frontier."""
+        self.kv_pool.reset()
+        self._fresh_state()
+
+    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without a host sync (pinned
+        staging, non-blocking copy)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def _device_tables(self) -> torch.Tensor:
+        """The device copy of the block tables, uploaded only when the host
+        tables changed."""
+        if self._tables_dirty or self._tables_dev is None:
+            self._tables_dev = self._h2d(self._tables_host)
+            self._tables_dirty = False
+        return self._tables_dev
+
+    def _row_seed(self, seed: Optional[int]) -> int:
+        """The request's own seed, or a fresh one per request."""
+        if seed is None:
+            self._seed_counter += 1
+            seed = self.sampling.seed * 1_000_003 + self._seed_counter
+        return int(seed) % (1 << 62)
+
+    def _set_row_sampling(self, row: int, seed: int, sampling: SamplingConfig) -> None:
+        greedy = not sampling.do_sample or sampling.temperature <= 0.0
+        self._seeds[row] = seed
+        self._greedy[row] = greedy
+        self._temp[row] = 1.0 if greedy else float(sampling.temperature)
+        self._top_p[row] = float(sampling.top_p)
+        self._row_greedy[row] = greedy
+
+    def _sample(self, logits: torch.Tensor, positions: torch.Tensor, rows=None) -> torch.Tensor:
+        """Per-row draws at ``positions`` for all rows, or for ``rows``."""
+        if rows is None:
+            all_greedy = all(self._row_greedy)
+            rows = slice(None)
+        else:
+            all_greedy = False
+        if all_greedy:
+            return torch.argmax(logits, dim=-1)
+        return sample_token_per_row(
+            logits, self._greedy[rows], self._temp[rows], self._top_p[rows],
+            self._seeds[rows], positions,
+        )
+
+    def _deactivate(self, rows: Sequence[int]) -> None:
+        for r in rows:
+            self._active[r] = False
+
+    # ------------------------------------------------------------------
+    # block bookkeeping (scheduler thread)
+    # ------------------------------------------------------------------
+    def _assign_row_blocks(self, row: int, ids: List[int], start_block: int = 0) -> None:
+        for j, b in enumerate(ids):
+            self._tables_host[row, start_block + j] = b
+        self._slot_blocks[row].extend(ids)
+        self._tables_dirty = True
+
+    def _release_row(self, row: int) -> None:
+        """Blocks back to the pool and the row's table nulled, before the
+        next window: a stale entry would let junk writes land in a block
+        another request may own next."""
+        if self._slot_blocks[row]:
+            self.kv_pool.free(self._slot_blocks[row])
+            self._slot_blocks[row] = []
+        if self._tables_host[row].any():
+            self._tables_host[row, :] = NULL_BLOCK
+            self._tables_dirty = True
+
+    def blocks_needed(self, prompt_len: int) -> int:
+        return policy.admission_blocks(prompt_len, self.block_size)
+
+    def admission_state(self, prompt_len: int) -> str:
+        """'ok' admissible now; 'wait' until decode frees blocks; 'never'
+        when the prompt alone outsizes the pool."""
+        verdict, want = policy.admission_verdict(
+            self.blocks_needed(prompt_len), self.kv_pool.usable_blocks(),
+            self.interleave_on, self.MB,
+        )
+        if verdict != "check" or self.kv_pool.can_alloc(want):
+            return "ok" if verdict == "check" else verdict
+        return "wait" if self.has_active() else "never"
+
+    def _ensure_decode_blocks(self, horizon: Optional[Dict[int, int]] = None) -> None:
+        """Grow every active row's table to cover the next window's writes
+        before the device call (an unmapped write would vanish into the null
+        block). Exhaustion preempts pending interleaved admissions first,
+        then the newest-admitted rows, until the rest fit."""
+        while True:
+            short = policy.grow_shortfall(
+                ((s.admit_seq, r, s.kv_ub, len(self._slot_blocks[r]))
+                 for r, s in enumerate(self.slots) if s.active),
+                self.sync_steps, horizon, self.block_size, self.MB,
+            )
+            ok = True
+            for _, row, missing, have in short:
+                try:
+                    ids = self.kv_pool.alloc(missing)
+                except PoolExhausted:
+                    ok = False
+                    break
+                self._assign_row_blocks(row, ids, start_block=have)
+            if ok:
+                return
+            if self._chunk_admissions:
+                rid, rec = self._chunk_admissions.popitem()
+                self._preempt_chunk_admission(rid, rec)
+                continue
+            _, victim = policy.preempt_victim(
+                (s.admit_seq, r) for r, s in enumerate(self.slots) if s.active
+            )
+            vslot = self.slots[victim]
+            logger.warning(
+                "kv pool exhausted mid-decode; preempting request %d (%d blocks back)",
+                vslot.request_id, len(self._slot_blocks[victim]),
+            )
+            self._preempted.append((vslot.request_id, list(vslot.tokens)))
+            self.stats.preemptions += 1
+            self._deactivate([victim])
+            self._release_row(victim)
+            self.slots[victim] = _Slot()
+
+    def _preempt_chunk_admission(self, rid: int, rec: dict) -> None:
+        """Cancel an interleaved admission under pool pressure: its blocks
+        return and the scheduler resubmits it with no emitted tokens."""
+        self._preempted.append((rid, []))
+        self.stats.preemptions += 1
+        self._release_row(rec["row"])
+        self.slots[rec["row"]] = _Slot()
+
+    def drain_preempted(self) -> List[Tuple[int, List[int]]]:
+        """``(request_id, emitted_tokens)`` preempted since the last call."""
+        out, self._preempted = self._preempted, []
+        return out
+
+    # ------------------------------------------------------------------
+    # operations (scheduler thread)
+    # ------------------------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if not s.active and not s.prefilling]
+
+    def has_active(self) -> bool:
+        return any(s.active or s.prefilling for s in self.slots)
+
+    def evict_requests(self, request_ids: Sequence[int]) -> List[int]:
+        """Retire the rows serving ``request_ids`` without a result (their
+        blocks return now); returns the freed rows."""
+        wanted = set(request_ids)
+        rows = [i for i, s in enumerate(self.slots) if s.active and s.request_id in wanted]
+        self._deactivate(rows)
+        for r in rows:
+            self._release_row(r)
+            self.slots[r] = _Slot()
+        for rid in [r for r in self._chunk_admissions if r in wanted]:
+            row = self._chunk_admissions.pop(rid)["row"]
+            self._release_row(row)
+            self.slots[row] = _Slot()
+            rows.append(row)
+        return rows
+
+    @torch.inference_mode()
+    def admit_many(self, items: Sequence[tuple]) -> List:
+        """Admit ``(request_id, prompt, max_new, seed[, sampling])`` items
+        into free rows; returns ``(row, finished)`` or the exception of the
+        item's prefill group, in input order. A prompt over the largest
+        bucket keeps its last tokens (with a warning); ``max_new`` is
+        clamped to the row's room past the bucket."""
+        free = self.free_slots()
+        if len(items) > len(free):
+            raise ValueError(f"admit_many: {len(items)} items for {len(free)} free rows")
+        prepared = []
+        for i, item in enumerate(items):
+            rid, prompt, max_new, seed = item[:4]
+            samp = item[4] if len(item) > 4 and item[4] is not None else self.sampling
+            S = policy.bucket_len(max(len(prompt), 1), self.buckets)
+            if len(prompt) > S:
+                logger.warning(
+                    "continuous-batch prompt of %d tokens exceeds the largest bucket %d; "
+                    "left-truncating", len(prompt), S,
+                )
+            prepared.append((i, rid, S, list(prompt)[-S:], policy.clamp_max_new(max_new, S, self.T),
+                             self._row_seed(seed), samp))
+        results: List = [None] * len(items)
+        free_iter = iter(free)
+        if self.interleave_on:
+            for entry in prepared:
+                row = next(free_iter)
+                self._queue_chunk_admission(entry, row)
+                results[entry[0]] = (row, None)
+            return results
+        for S, idx in policy.admission_chunks([(j, e[2]) for j, e in enumerate(prepared)], self.B):
+            chunk = [prepared[j] for j in idx]
+            rows = [next(free_iter) for _ in chunk]
+            try:
+                self._admit_chunk(S, chunk, rows, results)
+            except Exception as e:  # noqa: BLE001 — the group's items get the error
+                for entry in chunk:
+                    results[entry[0]] = e
+        return results
+
+    def _admit_chunk(self, S: int, chunk, rows: List[int], results: List) -> None:
+        """One right-padded prefill for a same-bucket group, written into the
+        rows' blocks, then one fetch of the first tokens. ``PoolExhausted``
+        returns the blocks taken so far and propagates (backpressure)."""
+        n = len(chunk)
+        taken: List[Tuple[int, List[int]]] = []
+        try:
+            for r, entry in enumerate(chunk):
+                taken.append((rows[r], self.kv_pool.alloc(self.blocks_needed(len(entry[3])))))
+        except PoolExhausted:
+            for _, ids in taken:
+                self.kv_pool.free(ids)
+            raise
+        for row, ids in taken:
+            self._assign_row_blocks(row, ids)
+        try:
+            host = np.full((n, S + 2), self.pad_id, np.int64)
+            for r, (_, _, _, p, _, seed, samp) in enumerate(chunk):
+                host[r, :len(p)] = p
+                host[r, S] = len(p)
+                host[r, S + 1] = rows[r]
+                self._set_row_sampling(rows[r], seed, samp)
+            dev_host = self._h2d(host)
+            tokens, lens, rows_t = dev_host[:, :S], dev_host[:, S], dev_host[:, S + 1]
+            positions = torch.arange(S, device=self.device)[None, :].expand(n, S)
+            zeros = self._zeros[:n]
+            logits = self.model(
+                tokens, positions, self.arena, zeros, lens, zeros,
+                block_tables=self._device_tables()[rows_t], logit_index=lens - 1,
+            )
+            tok0 = self._sample(logits[:, 0], lens, rows=rows_t)
+            self._kv_len[rows_t] = lens.to(torch.int32)
+            self._last_tok[rows_t] = tok0
+            self._active[rows_t] = True
+            tok0_h = tok0.cpu().tolist()  # the one fetch of the group
+        except BaseException:
+            self._deactivate(rows)
+            for row in rows:
+                self._release_row(row)
+                self.slots[row] = _Slot()
+            raise
+        self.stats.prefill_calls += 1
+        for r, (i, rid, _, p, max_new_c, _, _) in enumerate(chunk):
+            self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, results, i)
+
+    def _start_row(self, row: int, rid: int, p: List[int], tok0: int, max_new_c: int,
+                   results: Optional[List] = None, i: int = 0,
+                   admit_seq: Optional[int] = None) -> Optional[List[int]]:
+        """After a prompt's first token: the row decodes on, or the request
+        ends here (EOS or a budget of one) and the row is released. Returns
+        the finished tokens, or None."""
+        finished = None
+        if tok0 in self.config.eos_token_ids or max_new_c <= 1:
+            finished = [] if tok0 in self.config.eos_token_ids else [tok0]
+            self._deactivate([row])
+            self._release_row(row)
+            self.slots[row] = _Slot()
+        else:
+            if admit_seq is None:
+                self._admit_seq += 1
+                admit_seq = self._admit_seq
+            self.slots[row] = _Slot(
+                request_id=rid, tokens=[tok0], remaining=max_new_c - 1, active=True,
+                kv_ub=len(p), admit_seq=admit_seq,
+            )
+        self.stats.decode_tokens += 1 if tok0 not in self.config.eos_token_ids else 0
+        if results is not None:
+            results[i] = (row, finished)
+        return finished
+
+    def _queue_chunk_admission(self, entry, row: int) -> None:
+        """Reserve ``row`` for an interleaved admission: no device work
+        beyond staging the row's sampling state."""
+        _, rid, S, p, max_new_c, seed, samp = entry
+        self._set_row_sampling(row, seed, samp)
+        self._admit_seq += 1
+        self.slots[row] = _Slot(request_id=rid, prefilling=True, admit_seq=self._admit_seq)
+        self._chunk_admissions[rid] = {
+            "row": row, "prompt": p, "progress": 0, "max_new": max_new_c,
+            "admit_seq": self._admit_seq,
+        }
+
+    @torch.inference_mode()
+    def step(self) -> List[Tuple[int, List[int]]]:
+        """One device window and one token fetch; returns the requests that
+        finished as ``(request_id, tokens)`` (EOS excluded) and frees their
+        rows. A mixed window while interleaved admissions are pending,
+        ``decode_sync_steps`` decode steps otherwise."""
+        if self.interleave_on and self._chunk_admissions:
+            return self._step_mixed()
+        self._ensure_decode_blocks()
+        if not self.has_active():
+            return []
+        k, Tmax, dev = self.sync_steps, self.T, self.device
+        t0 = time.perf_counter()
+        tables = self._device_tables()
+        kv_len, last_tok, active = self._kv_len, self._last_tok, self._active
+        toks, eoss = [], []
+        for _ in range(k):
+            wi = torch.where(active, kv_len, self._zeros)
+            # inactive rows (EOS inside the window, or free) write into the
+            # null block, never table[row, 0]
+            tables_eff = torch.where(active[:, None], tables, torch.zeros((), dtype=tables.dtype, device=dev))
+            logits = self.model(
+                last_tok[:, None], wi[:, None].long(), self.arena, self._zeros, wi + 1, wi,
+                block_tables=tables_eff,
+            )
+            tok = self._sample(logits[:, 0], wi + 1)
+            hit_eos = torch.isin(tok, self._eos)
+            kv_len = torch.where(active, torch.clamp(wi + 1, max=Tmax - 1), kv_len)
+            last_tok = tok
+            active = active & ~hit_eos
+            toks.append(tok)
+            eoss.append(hit_eos)
+        self._kv_len, self._last_tok, self._active = kv_len, last_tok, active
+        host = torch.stack(toks + [e.long() for e in eoss]).cpu().numpy()  # the one fetch
+        tok_h, eos_h = host[:k], host[k:]
+        self.stats.decode_window_s += time.perf_counter() - t0
+        self.stats.windows += 1
+        for slot in self.slots:
+            if slot.active:
+                slot.kv_ub = min(slot.kv_ub + k, Tmax - 1)
+        done: List[Tuple[int, List[int]]] = []
+        retire = []
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            finished = False
+            for j in range(k):
+                if eos_h[j, i]:
+                    finished = True  # EOS itself is not emitted
+                    break
+                slot.tokens.append(int(tok_h[j, i]))
+                slot.remaining -= 1
+                self.stats.decode_tokens += 1
+                if slot.remaining <= 0:
+                    finished = True
+                    break
+            if finished:
+                done.append((slot.request_id, slot.tokens))
+                retire.append(i)
+        self._retire(retire)
+        return done
+
+    def _retire(self, rows: List[int]) -> None:
+        self._deactivate(rows)
+        for r in rows:
+            self._release_row(r)
+            self.slots[r] = _Slot()
+
+    def _step_mixed(self) -> List[Tuple[int, List[int]]]:
+        """One mixed window: every active row advances one decode token
+        (lane 0 fed from the device-resident last token) and a budgeted
+        slice of each pending admission prefills, oldest first, through one
+        chunked forward. A final chunk samples the prompt's first token
+        from its last real lane."""
+        C, Tmax, B = self.chunk_tokens, self.T, self.B
+        self._ensure_decode_blocks(horizon={})
+        n_dec = sum(1 for s in self.slots if s.active)
+        sched = []  # (rid, rec, offset, take, final)
+        for rid, off, take, final in policy.plan_mixed_window(
+            [(rid, len(rec["prompt"]), rec["progress"]) for rid, rec in self._chunk_admissions.items()],
+            self.window_budget, n_dec, C,
+        ):
+            rec = self._chunk_admissions[rid]
+            row = rec["row"]
+            need, have = self.kv_pool.blocks_for(off + take), len(self._slot_blocks[row])
+            if need > have:
+                try:
+                    ids = self.kv_pool.alloc(need - have)
+                except PoolExhausted:
+                    break  # the younger admissions idle this window
+                self._assign_row_blocks(row, ids, start_block=have)
+            sched.append((rid, rec, off, take, final))
+        if not sched and n_dec == 0:
+            # nothing decodes and the pool cannot stage the oldest
+            # admission: preempt the newest instead of spinning
+            if self._chunk_admissions:
+                self._preempt_chunk_admission(*self._chunk_admissions.popitem())
+            return []
+        # host-fed window inputs in one upload: fed lanes | n_fed | base | final
+        host = np.zeros((B, C + 3), np.int64)
+        host[:, :C] = self.pad_id
+        for rid, rec, off, take, final in sched:
+            row = rec["row"]
+            host[row, :take] = rec["prompt"][off:off + take]
+            host[row, C], host[row, C + 1], host[row, C + 2] = take, off, int(final)
+        t0 = time.perf_counter()
+        dh = self._h2d(host)
+        fed, n_fed, chunk_base, final_v = dh[:, :C], dh[:, C], dh[:, C + 1], dh[:, C + 2].bool()
+        kv_len, last_tok, active = self._kv_len.long(), self._last_tok, self._active
+        is_chunk = n_fed > 0
+        is_dec = active & ~is_chunk
+        n_eff = torch.where(is_dec, torch.ones_like(n_fed), n_fed)
+        part = n_eff > 0
+        base = torch.where(is_chunk, chunk_base, torch.where(active, kv_len, torch.zeros_like(kv_len)))
+        lanes = torch.arange(C, device=self.device)
+        fed_eff = torch.where(is_dec[:, None] & (lanes == 0)[None, :], last_tok[:, None], fed)
+        tables = self._device_tables()
+        tables_eff = torch.where(part[:, None], tables, torch.zeros((), dtype=tables.dtype, device=self.device))
+        logits = self.model(
+            fed_eff, base[:, None] + lanes[None, :], self.arena, self._zeros, base + n_eff, base,
+            chunked=True, block_tables=tables_eff, logit_index=(n_eff - 1).clamp(min=0),
+        )
+        tok = self._sample(logits[:, 0], base + n_eff)
+        hit_eos = torch.isin(tok, self._eos)
+        self._kv_len = torch.where(part, torch.clamp(base + n_eff, max=Tmax - 1), kv_len).to(torch.int32)
+        self._last_tok = torch.where(is_dec | final_v, tok, last_tok)
+        self._active = (active | final_v) & ~hit_eos
+        tok_h = torch.stack([tok, hit_eos.long()]).cpu().numpy()  # the one fetch
+        self.stats.mixed_window_s += time.perf_counter() - t0
+        self.stats.windows += 1
+        self.stats.mixed_windows += 1
+        for slot in self.slots:
+            if slot.active:
+                slot.kv_ub = min(slot.kv_ub + 1, Tmax - 1)
+        done: List[Tuple[int, List[int]]] = []
+        retire = []
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            finished = bool(tok_h[1, i])
+            if not finished:
+                slot.tokens.append(int(tok_h[0, i]))
+                slot.remaining -= 1
+                self.stats.decode_tokens += 1
+                finished = slot.remaining <= 0
+            if finished:
+                done.append((slot.request_id, slot.tokens))
+                retire.append(i)
+        self._retire(retire)
+        for rid, rec, off, take, final in sched:
+            rec["progress"] = off + take
+            if not final:
+                continue
+            del self._chunk_admissions[rid]
+            out = self._start_row(rec["row"], rid, rec["prompt"], int(tok_h[0, rec["row"]]),
+                                  rec["max_new"], admit_seq=rec["admit_seq"])
+            if out is not None:
+                done.append((rid, out))
+        return done
+
+
+class ContinuousScheduler:
+    """Thread-safe front of a :class:`ContinuousEngine`: ``submit`` blocks
+    its caller while one dispatcher thread owns the engine, admitting
+    queued requests between windows.
+
+    Pool pressure keeps a request queued until decode frees blocks; a
+    preempted request is resubmitted as prompt + emitted tokens. A failed
+    window fails every in-flight request with its error and resets the
+    engine: nothing retries on another device or another kernel."""
+
+    def __init__(self, engine: ContinuousEngine):
+        self.engine = engine
+        self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
+        self._stop = threading.Event()
+        # submit's stop-check + enqueue is atomic against the final drain
+        self._lifecycle_lock = threading.Lock()
+        self._worker = threading.Thread(target=self._run, daemon=True, name="continuous-scheduler")
+        self._worker.start()
+
+    def submit(
+        self,
+        prompt: Sequence[int],
+        max_new_tokens: Optional[int] = None,
+        seed: Optional[int] = None,
+        sampling: Optional[SamplingConfig] = None,
+        timeout: Optional[float] = None,
+    ) -> List[int]:
+        """Generate for one prompt (EOS excluded); ``sampling`` overrides
+        the engine's for this request only."""
+        max_new = self.engine.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if max_new <= 0:
+            return []
+        item = _Pending(next(_REQUEST_IDS), list(prompt), max_new, seed, sampling)
+        with self._lifecycle_lock:
+            if self._stop.is_set():
+                raise RuntimeError("scheduler is shut down")
+            self._queue.put(item)
+        if not item.done.wait(timeout):
+            raise TimeoutError("generation timed out")
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def shutdown(self, timeout: float = 30.0) -> None:
+        self._stop.set()
+        with self._lifecycle_lock:
+            self._queue.put(None)
+        self._worker.join(timeout)
+        if self._worker.is_alive():
+            logger.warning("continuous scheduler did not stop within %.0f s", timeout)
+
+    # ------------------------------------------------------------------
+    def _run(self) -> None:
+        waiting: Dict[int, _Pending] = {}
+        held: List[_Pending] = []
+        try:
+            self._run_loop(waiting, held)
+        finally:
+            # whatever stopped the loop, no caller may block forever
+            self._stop.set()
+            leftovers = list(waiting.values()) + held
+            with self._lifecycle_lock:
+                while True:
+                    try:
+                        it = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    if it is not None:
+                        leftovers.append(it)
+            for it in leftovers:
+                if not it.done.is_set():
+                    it.error = RuntimeError("scheduler is shut down")
+                    it.done.set()
+
+    def _next_nowait(self) -> Optional["_Pending"]:
+        try:
+            return self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _run_loop(self, waiting: Dict[int, "_Pending"], held: List["_Pending"]) -> None:
+        eng = self.engine
+        while not self._stop.is_set():
+            item = self._next_nowait() if eng.has_active() else self._queue.get()
+            while item is not None and not self._stop.is_set():
+                held[:] = [item]
+                state = eng.admission_state(len(item.prompt))
+                if state == "never":
+                    item.error = PoolExhausted(eng.blocks_needed(len(item.prompt)),
+                                               eng.kv_pool.usable_blocks())
+                    item.done.set()
+                    item = self._next_nowait()
+                    continue
+                free = eng.free_slots()
+                if state == "wait" or not free:
+                    self._safe_step(waiting)  # decode frees rows and blocks
+                    continue
+                # group admission: whatever else is queued, up to the free rows
+                batch = [item]
+                while len(batch) < len(free):
+                    nxt = self._next_nowait()
+                    if nxt is None:
+                        break
+                    batch.append(nxt)
+                held[:] = batch
+                try:
+                    admitted = eng.admit_many(
+                        [(b.request_id, b.prompt, b.max_new, b.seed, b.sampling) for b in batch]
+                    )
+                except Exception as e:  # noqa: BLE001 — the callers get the error
+                    admitted = [e] * len(batch)
+                requeued = False
+                for b, res in zip(batch, admitted):
+                    if isinstance(res, PoolExhausted):
+                        # the group outgrew the pool: backpressure, not failure
+                        self._queue.put(b)
+                        requeued = True
+                    elif isinstance(res, BaseException):
+                        b.error = res
+                        b.done.set()
+                    elif res[1] is not None:
+                        self._deliver(b, res[1])
+                    else:
+                        waiting[b.request_id] = b
+                held.clear()
+                # after backpressure a window runs before the retry: retrying
+                # at once would spin on the same verdict while nothing frees
+                item = None if requeued else self._next_nowait()
+            if item is not None:  # stopping with an item in hand
+                held[:] = [item]
+                return
+            if eng.has_active():
+                self._safe_step(waiting)
+
+    def _deliver(self, item: "_Pending", tokens: List[int]) -> None:
+        item.result = item.emitted + tokens
+        item.done.set()
+
+    def _safe_step(self, waiting: Dict[int, "_Pending"]) -> None:
+        """One window; a failure fails every in-flight request with its
+        error and resets the engine so later requests can be served."""
+        try:
+            for rid, tokens in self.engine.step():
+                item = waiting.pop(rid, None)
+                if item is not None:
+                    self._deliver(item, tokens)
+            self._resume_preempted(waiting)
+        except Exception as e:  # noqa: BLE001 — the dispatcher must outlive a failed window
+            logger.exception("continuous window failed; failing %d in-flight request(s)", len(waiting))
+            for item in waiting.values():
+                item.error = e
+                item.done.set()
+            waiting.clear()
+            self.engine.reset()
+
+    def _resume_preempted(self, waiting: Dict[int, "_Pending"]) -> None:
+        """Requeue preempted requests as prompt + emitted tokens (when that
+        still fits the largest bucket; otherwise they restart exactly)."""
+        for rid, toks in self.engine.drain_preempted():
+            it = waiting.pop(rid, None)
+            if it is None:
+                continue
+            if policy.resume_fits(len(it.prompt), len(toks), max(self.engine.buckets)):
+                it.emitted.extend(toks)
+                it.prompt = it.prompt + toks
+                it.max_new = max(1, it.max_new - len(toks))
+            self._queue.put(it)
+
+
+@dataclass
+class _Pending:
+    request_id: int
+    prompt: List[int]
+    max_new: int
+    seed: Optional[int] = None
+    sampling: Optional[SamplingConfig] = None
+    done: threading.Event = field(default_factory=threading.Event)
+    result: Optional[List[int]] = None
+    error: Optional[BaseException] = None
+    emitted: List[int] = field(default_factory=list)  # tokens before a preemption

@@ -3,9 +3,11 @@
 
 A categorical draw is ``argmax(logits + gumbel)``, which is how
 ``jax.random.categorical`` draws. The Gumbel noise comes from an explicit
-``torch.Generator`` or from the caller (the parity tests hand in the noise
-JAX drew and get the same token). Served sampled streams therefore differ
-from the JAX package's for the same seed: the two generators differ.
+``torch.Generator``, from the caller (the parity tests hand in the noise
+JAX drew and get the same token) or, for the continuous engine, from a
+counter-based hash of each row's ``(seed, position)``. Served sampled
+streams therefore differ from the JAX package's for the same seed: the
+generators differ.
 """
 
 from __future__ import annotations
@@ -74,3 +76,50 @@ def sample_token(
     if scaled is None:
         return torch.argmax(logits, dim=-1)
     return categorical(scaled, generator, gumbel)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche hash on int64 tensors holding values below 2**32.
+    The multipliers are odd and below 2**31, so no product overflows int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x68E31DA5) & _M32
+    return x ^ (x >> 16)
+
+
+def keyed_gumbel(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel noise ``[B, vocab]`` that is a pure function of each row's
+    ``(seed, position)`` and the token id: a counter-based hash in plain
+    tensor ops, so it runs where the logits are, with no generator state
+    and no host sync. ``seeds`` are non-negative ints below 2**62."""
+    s = seeds.to(torch.int64)
+    key = _mix32((s & _M32) ^ 0x3C6EF372)
+    key = _mix32(key ^ _mix32(((s >> 32) & _M32) ^ 0x1B873593))
+    key = _mix32(key ^ (positions.to(torch.int64) & _M32))
+    ids = _mix32(torch.arange(vocab, device=seeds.device, dtype=torch.int64) ^ 0x5BD1E995)
+    h = _mix32(_mix32(key[:, None] ^ ids[None, :]) ^ 0x27D4EB2F)
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_token_per_row(
+    logits: torch.Tensor,  # [B, V] fp32
+    greedy: torch.Tensor,  # [B] bool
+    temperature: torch.Tensor,  # [B] (1 on greedy rows)
+    top_p: torch.Tensor,  # [B]
+    seeds: torch.Tensor,  # [B] int
+    positions: torch.Tensor,  # [B] int: position of the token being drawn
+) -> torch.Tensor:
+    """One draw per row with the row's own sampling settings, keyed by its
+    ``(seed, position)`` only (counterpart of the JAX package's
+    ``sample_token_per_row``): a request samples the same stream alone or
+    beside others, whatever window shape produced its logits. Each row
+    computes what ``sample_token`` computes for its settings."""
+    scaled = logits / temperature[:, None]
+    scaled = torch.where((top_p < 1.0)[:, None], top_p_filter(scaled, top_p[:, None]), scaled)
+    drawn = categorical(scaled, gumbel=keyed_gumbel(seeds, positions, logits.shape[-1]))
+    return torch.where(greedy, torch.argmax(logits, dim=-1), drawn)

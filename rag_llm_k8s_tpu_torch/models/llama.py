@@ -5,13 +5,21 @@
   scan carry; here the forward mutates the tensors it is handed). Prompts
   are left-padded, so every row appends at the same index and the valid keys
   of row ``b`` are the window ``[kv_start[b], kv_len[b])``.
+- Or, for the continuous engine, the PAGED arena ``[L, N, kv_heads, bs,
+  hd]`` (``make_kv_arena``) with ``block_tables [B, MB]``: rows are
+  right-padded, ``write_index`` is a per-row ``[B]`` frontier, and token
+  ``t`` of row ``b`` is written at logical position ``write_index[b] + t``,
+  i.e. physical block ``block_tables[b, pos // bs]``, slot ``pos % bs``.
+  Positions past the table land in the null block 0, which no kernel reads.
 - Three attention modes, chosen per call: prefill (``S > 1`` at slot 0,
   attention over the fresh K/V), decode (``S == 1``) and chunk (``S > 1`` at
   ``write_index``, offset causality over the cache; long-prompt chunks and
   the speculative verify). Decode and chunk hand the kernels the whole
   stacked cache plus ``layer``, so no per-layer copy is made.
 - bf16 storage and compute with RMSNorm statistics, RoPE phases and logits in
-  fp32; Llama-3.1 NTK-by-parts RoPE scaling.
+  fp32 (the head projection accumulates in fp32, as the JAX package's
+  ``preferred_element_type=float32`` does); Llama-3.1 NTK-by-parts RoPE
+  scaling.
 - Projections may be fused: q|k|v into ``wqkv`` and gate|up into
   ``w_gateup`` (same bytes, fewer launches per decode step).
 
@@ -34,6 +42,8 @@ from rag_llm_k8s_tpu_torch.ops.attention import (
     chunk_prefill_attention,
     decode_attention,
     flash_attention,
+    paged_chunk_attention,
+    paged_decode_attention,
 )
 
 
@@ -54,6 +64,52 @@ def make_kv_cache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def make_kv_arena(
+    config: LlamaConfig, num_blocks: int, block_size: int,
+    dtype: torch.dtype, device: torch.device,
+) -> KVCache:
+    """The paged cache: ``[L, num_blocks, kv_heads, block_size, hd]`` block
+    pool (block 0 is the engine's reserved null block). Rows reach their
+    blocks through block tables, never by position."""
+    shape = (config.num_layers, num_blocks, config.num_kv_heads, block_size, config.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def write_paged(
+    cache: KVCache, layer: int, k: torch.Tensor, v: torch.Tensor,
+    block_tables: torch.Tensor, write_index: torch.Tensor,
+) -> None:
+    """Write ``k, v [B, S, K, hd]`` of token ``t`` of row ``b`` at logical
+    position ``write_index[b] + t`` through the row's block table, in
+    place. Positions past the table go to the null block 0 (never clipped
+    into the last logical block, which may hold valid KV)."""
+    B, S = k.shape[0], k.shape[1]
+    bs, MB = cache.k.shape[3], block_tables.shape[1]
+    pos = write_index.to(torch.int64)[:, None] + torch.arange(S, device=k.device)[None, :]
+    blk = pos // bs
+    phys = torch.gather(block_tables.to(torch.int64), 1, blk.clamp(max=MB - 1))
+    phys = torch.where(blk < MB, phys, torch.zeros_like(phys))
+    off = pos % bs
+    cache.k[layer][phys, :, off] = k.to(cache.k.dtype)
+    cache.v[layer][phys, :, off] = v.to(cache.v.dtype)
+
+
+def head_logits(h: torch.Tensor, head: torch.Tensor, logits_dtype: torch.dtype) -> torch.Tensor:
+    """``h [..., D] @ head [V, D]^T`` accumulated in fp32 and returned in
+    ``logits_dtype``, without an fp32 copy of the head weight on the card
+    (``torch.mm(..., out_dtype=)``). On the CPU the bf16 operands are
+    upcast: their products are exact in fp32, so both sum the same terms."""
+    if h.dtype == logits_dtype:
+        return F.linear(h, head.to(h.dtype))
+    if h.device.type == "cuda":
+        flat = torch.mm(h.reshape(-1, h.shape[-1]), head.t(), out_dtype=logits_dtype)
+        return flat.reshape(*h.shape[:-1], head.shape[0])
+    return F.linear(h.to(logits_dtype), head.to(logits_dtype))
 
 
 def rope_frequencies(config: LlamaConfig, device: torch.device) -> torch.Tensor:
@@ -136,7 +192,7 @@ class Attention(nn.Module):
     def forward(
         self, x: torch.Tensor, cache: KVCache, layer: int, kv_start: torch.Tensor,
         kv_len: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-        write_index: int, chunked: bool,
+        write_index, chunked: bool, block_tables: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         c = self.config
         B, S, _ = x.shape
@@ -149,6 +205,10 @@ class Attention(nn.Module):
         k = apply_rope(k.reshape(B, S, K, hd), cos, sin)
         v = v.reshape(B, S, K, hd)
 
+        if block_tables is not None:
+            out = self._attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index,
+                                     chunked, block_tables)
+            return self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd))
         T = cache.k.shape[3]
         if write_index < 0 or write_index + S > T:
             raise ValueError(
@@ -170,6 +230,21 @@ class Attention(nn.Module):
             out = flash_attention(q, k, v, kv_start, kv_len, causal=True)
         out = out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd)
         return self.wo(out)
+
+    @staticmethod
+    def _attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index, chunked, block_tables):
+        """Paged arena: write through the tables, then attend. Decode
+        (``S == 1``) and chunks read the arena; a whole-prompt prefill at
+        ``write_index`` 0 attends over the fresh K/V it just wrote."""
+        write_paged(cache, layer, k, v, block_tables, write_index)
+        kl = kv_len.to(torch.int32)
+        if chunked:
+            return paged_chunk_attention(
+                q, cache.k, cache.v, block_tables, kl, layer, write_index.to(torch.int32)
+            )
+        if q.shape[1] == 1:
+            return paged_decode_attention(q, cache.k, cache.v, block_tables, kl, layer)
+        return flash_attention(q, k, v, kv_start, kv_len, causal=True)
 
 
 class MLP(nn.Module):
@@ -200,9 +275,11 @@ class Block(nn.Module):
         self.post_attn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
         self.mlp = MLP(config, dtypes, fused)
 
-    def forward(self, h, cache, layer, kv_start, kv_len, cos, sin, write_index, chunked):
+    def forward(self, h, cache, layer, kv_start, kv_len, cos, sin, write_index, chunked,
+                block_tables=None):
         h = h + self.attn(
-            self.input_norm(h), cache, layer, kv_start, kv_len, cos, sin, write_index, chunked
+            self.input_norm(h), cache, layer, kv_start, kv_len, cos, sin, write_index, chunked,
+            block_tables,
         )
         return h + self.mlp(self.post_attn_norm(h))
 
@@ -215,9 +292,10 @@ class LlamaModel(nn.Module):
     - decode: ``S = 1``, ``write_index = t``, ``kv_len = t + 1``;
     - chunk: ``chunked=True``, ``write_index`` = slot of the first token.
 
-    The head projection runs in the compute dtype and is then cast to the
-    logits dtype (the JAX package accumulates it straight into fp32; with
-    bf16 weights the logits here carry bf16 rounding).
+    With ``block_tables`` the cache is the paged arena and ``write_index``
+    is a ``[B]`` tensor (see the module docstring); ``logit_index [B]``
+    projects only each row's own position (right-padded prompts). The
+    head projection accumulates in fp32 (``head_logits``).
     """
 
     def __init__(self, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), fused: bool = False):
@@ -241,20 +319,27 @@ class LlamaModel(nn.Module):
         write_index: int,
         chunked: bool = False,
         last_logit_only: bool = False,
+        block_tables: Optional[torch.Tensor] = None,
+        logit_index: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         c, dt = self.config, self.dtypes
         h = self.embed(tokens).to(dt.compute_dtype)
         if self._inv_freqs is None or self._inv_freqs.device != h.device:
             self._inv_freqs = rope_frequencies(c, h.device)
         cos, sin = rope_cos_sin(positions, self._inv_freqs)
+        wi = write_index if block_tables is not None else int(write_index)
         for i, blk in enumerate(self.layers):
-            h = blk(h, cache, i, kv_start, kv_len, cos, sin, int(write_index), chunked)
+            h = blk(h, cache, i, kv_start, kv_len, cos, sin, wi, chunked, block_tables)
         h = self.final_norm(h)
-        if last_logit_only:
+        if logit_index is not None:
+            # each row's own last real position (right-padded prompts)
+            idx = logit_index.to(torch.int64).clamp(0, h.shape[1] - 1)
+            h = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[2]))
+        elif last_logit_only:
             # only the last position is sampled: skip the [B, S, V] projection
             h = h[:, -1:, :]
         head = self.embed.weight if c.tie_word_embeddings else self.lm_head.weight
-        return F.linear(h, head.to(dt.compute_dtype)).to(dt.logits_dtype)
+        return head_logits(h, head, dt.logits_dtype)
 
 
 def build_llama(

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-KERNEL_SOURCES = ("knn", "attention")
+KERNEL_SOURCES = ("knn", "attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
     "decode_attention": 0,
     "chunk_prefill_attention": 0,
+    "paged_decode_attention": 0,
+    "paged_chunk_attention": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -57,9 +59,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library path for ``csrc/<name>.cu``, named by a hash of the
+    source and of every shared header in ``csrc/``."""
+    h = hashlib.sha256()
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:

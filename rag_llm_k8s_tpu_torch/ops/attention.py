@@ -1,7 +1,7 @@
-"""GQA attention for the Llama and bge-m3 forwards: three CUDA kernel
+"""GQA attention for the Llama and bge-m3 forwards: five CUDA kernel
 wrappers and their plain PyTorch versions.
 
-Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-4:
+Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-4, 7 and 9:
 
 - ``flash_attention``: fresh ``[B, S, K, hd]`` K/V, causal or not, per-row
   key window ``[kv_start, kv_len)`` (Llama prefill; bge-m3 with
@@ -10,14 +10,20 @@ Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-4:
   ``[L, B, K, T, hd]`` read at ``layer`` (no per-layer copy);
 - ``chunk_prefill_attention``: ``S`` queries written at ``write_index`` over
   the cache, offset causality ``t_k <= write_index + t`` (long-prompt chunks
-  and the speculative verify).
+  and the speculative verify);
+- ``paged_decode_attention`` and ``paged_chunk_attention``: the same over
+  the continuous engine's block-pool arena ``[L, N, K, bs, hd]``, where
+  logical key ``t`` of row ``b`` sits in physical block
+  ``block_tables[b, t // bs]``; rows are right-padded (window ``[0,
+  kv_len)``) and the chunk kernel takes a per-row ``write_index``.
 
 Query head ``h`` reads kv head ``h // G``; a query row with no visible key
 yields zeros. The plain versions are named after the JAX oracles they match
-(``attention_xla``, ``decode_attention_xla``, ``chunk_attention_xla``) and
-compute in fp32 with ``p`` cast to the V dtype before the PV product. Each
-wrapper takes its plain version only for CPU tensors; a CUDA tensor goes to
-the kernel in ``csrc/attention.cu`` or the wrapper raises.
+(``attention_xla``, ``decode_attention_xla``, ``chunk_attention_xla``,
+``paged_*_xla``) and compute in fp32 with ``p`` cast to the V dtype before
+the PV product. Each wrapper takes its plain version only for CPU tensors; a
+CUDA tensor goes to the kernel in ``csrc/attention.cu`` or
+``csrc/paged_attention.cu``, or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -120,6 +126,66 @@ def chunk_attention_xla(
     )
     ok = ok & (t_pos[None, None, :] <= q_pos[None, :, None])
     o = _softmax_pv(s, ok[:, None, None], vc, "bkgqt,bktd->bqkgd")
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _gather_paged_layer(
+    arena: torch.Tensor,  # [L, N, K, bs, hd]
+    block_tables: torch.Tensor,  # [B, MB]
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+) -> torch.Tensor:
+    """``[B, K, MB * bs, hd]`` logical view of one layer, gathered through
+    the tables, with slots at or past ``kv_len`` zeroed (they may hold
+    another request's data or NaN, and 0 * NaN = NaN)."""
+    g = arena[layer][block_tables.long()]  # [B, MB, K, bs, hd]
+    B, MB, K, bs, hd = g.shape
+    g = g.permute(0, 2, 1, 3, 4).reshape(B, K, MB * bs, hd)
+    ok = torch.arange(MB * bs, device=g.device)[None, :] < kv_len.to(g.device)[:, None]
+    return torch.where(ok[:, None, :, None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def paged_decode_attention_xla(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd]
+    v_arena: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+) -> torch.Tensor:
+    """Plain version of ``paged_decode_attention`` (JAX oracle
+    ``paged_decode_attention_xla``): gather each row's blocks, then the
+    dense decode math over ``[0, kv_len)``."""
+    k = _gather_paged_layer(k_arena, block_tables, kv_len, layer)[None]
+    v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)[None]
+    zero = torch.zeros_like(kv_len)
+    return decode_attention_xla(q, k, v, zero, kv_len, 0)
+
+
+def paged_chunk_attention_xla(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd]
+    v_arena: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+    write_index: torch.Tensor,  # [B]: logical slot of each row's query 0
+) -> torch.Tensor:
+    """Plain version of ``paged_chunk_attention`` (JAX oracle
+    ``paged_chunk_attention_xla``): per-row offset causality
+    ``t_k <= write_index[b] + t`` over ``[0, kv_len[b])``."""
+    B, S, H, hd = q.shape
+    k = _gather_paged_layer(k_arena, block_tables, kv_len, layer)
+    v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)
+    K, T = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd).float()
+    s = torch.einsum("bqkgd,bktd->bkgqt", qg, k.float()) * (hd**-0.5)
+    q_pos = write_index.to(q.device)[:, None] + torch.arange(S, device=q.device)[None, :]
+    t_pos = torch.arange(T, device=q.device)
+    ok = (t_pos[None, None, :] < kv_len.to(q.device)[:, None, None]) & (
+        t_pos[None, None, :] <= q_pos[:, :, None]
+    )
+    o = _softmax_pv(s, ok[:, None, None], v, "bkgqt,bktd->bqkgd")
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
@@ -267,4 +333,115 @@ def chunk_prefill_attention(
     )
     _build.check(lib, rc, "chunk_prefill_attention")
     _build.LAUNCHES["chunk_prefill_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paged arena ([L, N, K, bs, hd] block pool + [B, MB] block tables)
+# ---------------------------------------------------------------------------
+
+# logical blocks one decode split walks; the key range of a row is cut into
+# ceil(MB / PAGED_SPLIT_BLOCKS) splits, merged by a second pass
+PAGED_SPLIT_BLOCKS = 16
+
+
+def _paged_lib() -> ctypes.CDLL:
+    return _build.load("paged_attention", {
+        "paged_decode_attention_bf16": ([_VP] * 9 + [_I] * 11 + [_F, _VP], _I),
+        "paged_chunk_attention_bf16": ([_VP] * 7 + [_I] * 10 + [_F, _VP], _I),
+    })
+
+
+def _check_paged(what: str, q, k_arena, v_arena, block_tables, kv_len, layer: int):
+    L, N, K, bs, hd = k_arena.shape
+    B, S, H, _ = q.shape
+    dev = q.device
+    if tuple(v_arena.shape) != tuple(k_arena.shape) or q.shape[3] != hd:
+        raise ValueError(f"{what}: q{tuple(q.shape)} arena{tuple(k_arena.shape)} do not match")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(kv_len.shape) != (B,):
+        raise ValueError(
+            f"{what}: tables{tuple(block_tables.shape)} kv_len{tuple(kv_len.shape)} for B={B}"
+        )
+    for name, t in (("block_tables", block_tables), ("kv_len", kv_len)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous int32 on {dev}")
+    if not (k_arena.is_contiguous() and v_arena.is_contiguous() and q.is_contiguous()):
+        raise ValueError(f"{what}: q and the arenas must be contiguous")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    if bs % 16:
+        raise ValueError(f"{what}: block size {bs} must be a multiple of 16")
+    _check_heads(what, H, K, hd)
+    _check_bf16(what, dev, q=q, k_arena=k_arena, v_arena=v_arena)
+    return L, N, K, bs, hd, B, S, H, block_tables.shape[1]
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd]
+    v_arena: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int32
+    kv_len: torch.Tensor,  # [B] int32
+    layer: int,
+) -> torch.Tensor:
+    """One query per row over the row's live blocks ``[0, kv_len)`` of the
+    arena at ``layer``; a row with ``kv_len = 0`` gets zeros."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_xla(q, k_arena, v_arena, block_tables, kv_len, layer)
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention is single-token (got S={q.shape[1]})")
+    layer = int(layer)
+    L, N, K, bs, hd, B, _, H, MB = _check_paged(
+        "paged_decode_attention", q, k_arena, v_arena, block_tables, kv_len, layer
+    )
+    G = H // K
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"paged_decode_attention: the kernel takes H // K in (1, 2, 4, 8), got {G}")
+    dev = q.device
+    n_splits = -(-MB // PAGED_SPLIT_BLOCKS)
+    part_m = torch.empty((B, K, n_splits, G), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, K, n_splits, G, hd), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    lib = _paged_lib()
+    rc = lib.paged_decode_attention_bf16(
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), kv_len.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        L, N, B, K, bs, MB, H, hd, layer, PAGED_SPLIT_BLOCKS, n_splits, hd**-0.5, _stream(dev),
+    )
+    _build.check(lib, rc, "paged_decode_attention")
+    _build.LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd]
+    v_arena: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int32
+    kv_len: torch.Tensor,  # [B] int32
+    layer: int,
+    write_index: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """``S`` queries per row at logical slots ``write_index[b] + t`` over
+    the row's live blocks, offset-causal (``t_k <= write_index[b] + t``)."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_xla(q, k_arena, v_arena, block_tables, kv_len, layer, write_index)
+    layer = int(layer)
+    L, N, K, bs, hd, B, S, H, MB = _check_paged(
+        "paged_chunk_attention", q, k_arena, v_arena, block_tables, kv_len, layer
+    )
+    if tuple(write_index.shape) != (B,) or write_index.dtype != torch.int32 or write_index.device != q.device:
+        raise ValueError("paged_chunk_attention: write_index must be int32 [B] on q's device")
+    dev = q.device
+    out = torch.empty_like(q)
+    lib = _paged_lib()
+    rc = lib.paged_chunk_attention_bf16(
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), kv_len.data_ptr(), write_index.contiguous().data_ptr(),
+        L, N, B, K, bs, MB, S, H, hd, layer, hd**-0.5, _stream(dev),
+    )
+    _build.check(lib, rc, "paged_chunk_attention")
+    _build.LAUNCHES["paged_chunk_attention"] += 1
     return out

@@ -5,31 +5,43 @@ Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
 The WSGI plumbing is the standard library's, so the port needs no web
 framework; ``WsgiApp.test_client()`` drives it in-process.
 
-A solo query takes the single-fetch path: the query embedding and the kNN
-run on the device and their packed ``[1, 2k]`` result stays there; the
-prompt is assembled on the device from it and the store's chunk-token
-sidecar (``InferenceEngine.generate_rag``). Long questions, whose tail
-overflows the fused tail bucket, take the host path: piecewise (or budgeted)
-prompt assembly on the host, then ``InferenceEngine.generate``.
+Without a scheduler a query takes the single-fetch path: the query
+embedding and the kNN run on the device and their packed ``[1, 2k]`` result
+stays there; the prompt is assembled on the device from it and the store's
+chunk-token sidecar (``InferenceEngine.generate_rag``). Long questions, whose
+tail overflows the fused tail bucket, take the host path: piecewise (or
+budgeted) prompt assembly on the host, then ``InferenceEngine.generate``.
+
+With a ``ContinuousScheduler`` (``batching="continuous"``, built by
+``build_scheduler`` over the one-shot engine's model, one copy of the
+weights) every query takes the host path: retrieve, fetch the hits, assemble
+the prompt on the host and submit it to the scheduler, which serves
+concurrent requests in one running batch. A prompt longer than the
+scheduler's largest bucket goes to the one-shot engine's chunked prefill.
+Retrieval (query embedding + kNN) is serialised by one lock; HTTP threads
+only retrieve and submit.
 
 The coalescing batch scheduler is not ported yet. The JAX service takes the
 fused path only under its ``BatchScheduler`` (``_fused_ok``); this one takes
-it whenever ``rag_fused`` holds and ``0 < ntotal <= rag_fused_max_vectors``,
-so a solo query routes the same way in both.
+it whenever it has no scheduler, ``rag_fused`` holds and ``0 < ntotal <=
+rag_fused_max_vectors``, so a solo query routes the same way in both.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import logging
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from rag_llm_k8s_tpu_torch.core.config import AppConfig
+from rag_llm_k8s_tpu_torch.core.config import AppConfig, EngineConfig, SamplingConfig
+from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
 from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
 from rag_llm_k8s_tpu_torch.index.store import SearchResult, VectorStore
@@ -61,6 +73,30 @@ def make_segment_source(llm_tokenizer, max_bucket: int):
     return segment_ids
 
 
+def build_scheduler(
+    engine: InferenceEngine, engine_config: Optional[EngineConfig] = None
+) -> Optional[ContinuousScheduler]:
+    """The serving scheduler ``engine_config`` (default: the engine's own)
+    asks for: a ``ContinuousScheduler`` over a ``ContinuousEngine`` that
+    SHARES the one-shot engine's model (one copy of the weights) when
+    ``batching == "continuous"``, else None (requests go to the one-shot
+    engine)."""
+    ec = engine_config or engine.engine_config
+    if ec.batching != "continuous":
+        return None
+    cont = ContinuousEngine(
+        engine.config, engine.model, engine.sampling, ec, engine.dtypes, engine.device, engine.pad_id
+    )
+    return ContinuousScheduler(cont)
+
+
+def engine_mode(scheduler: Optional[ContinuousScheduler]) -> str:
+    """The serving mode ``/healthz`` reports."""
+    if scheduler is None:
+        return "one-shot"
+    return "continuous-interleaved" if scheduler.engine.interleave_on else "continuous"
+
+
 class RagService:
     """The retrieve-then-generate pipeline behind the routes."""
 
@@ -72,9 +108,13 @@ class RagService:
         encoder: EncoderRunner,
         encoder_tokenizer,
         store: VectorStore,
+        scheduler: Optional[ContinuousScheduler] = None,
     ):
         self.config = config
         self.engine = engine
+        self.scheduler = scheduler
+        # the query embedding and the kNN run one request at a time
+        self._retrieve_lock = threading.Lock()
         self.llm_tokenizer = llm_tokenizer
         self.encoder = encoder
         self.encoder_tokenizer = encoder_tokenizer
@@ -127,7 +167,14 @@ class RagService:
 
     def _fused_ok(self) -> bool:
         ec = self.engine.engine_config
-        return ec.rag_fused and 0 < self.store.ntotal <= ec.rag_fused_max_vectors
+        return (
+            ec.rag_fused and self.scheduler is None
+            and 0 < self.store.ntotal <= ec.rag_fused_max_vectors
+        )
+
+    def shutdown(self) -> None:
+        if self.scheduler is not None:
+            self.scheduler.shutdown()
 
     @staticmethod
     def _kept_chunks(seg_lens, avail: int):
@@ -209,23 +256,29 @@ class RagService:
         n = self.store.ntotal
         if n == 0:
             return [], 0.0
+        # never more neighbours than real rows: the kernel's fill entries
+        # past ntotal are never asked for
         k_eff = min(self.config.retrieval.k, n)
         emb, norms = self.store.device_snapshot()
         t0 = time.monotonic()
         tokens, mask = self.encoder.prepare_batch(self.encoder_tokenizer.encode(text))
         tok_ms = (time.monotonic() - t0) * 1e3
-        with torch.inference_mode():
+        with self._retrieve_lock, torch.inference_mode():
             vec = self.encoder.embed(tokens, mask)
             d, i = knn_topk(vec.float(), emb, norms, k=k_eff)
             # one [1, 2k] tensor: fp32 carries row ids exactly up to 2^24
             packed = torch.cat([d, i.float()], dim=1)
-        if allow_device and self._fused_ok():
-            return "__device__", packed, k_eff, tok_ms
-        host = packed.cpu().numpy()
+            if allow_device and self._fused_ok():
+                return "__device__", packed, k_eff, tok_ms
+            host = packed.cpu().numpy()
         return self.store.results_at(host[0, k_eff:].astype(np.int64), host[0, :k_eff]), tok_ms
 
     # -- answer ---------------------------------------------------------
-    def answer(self, user_prompt: str) -> Dict:
+    def answer(self, user_prompt: str, sampling: Optional[SamplingConfig] = None) -> Dict:
+        """Retrieve, assemble, generate. ``sampling`` overrides the engine's
+        settings for this request; only the continuous scheduler takes it."""
+        if sampling is not None and self.scheduler is None:
+            raise ValueError("per-request sampling needs batching='continuous'")
         timings: Dict[str, float] = {}
         t_all = time.monotonic()
         r = self._retrieve(user_prompt, allow_device=True)
@@ -248,7 +301,12 @@ class RagService:
         pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
         context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
         t0 = time.monotonic()
-        out_ids = self.engine.generate([prompt_ids])[0]
+        if self.scheduler is not None and len(prompt_ids) <= max(self.scheduler.engine.buckets):
+            out_ids = self.scheduler.submit(prompt_ids, sampling=sampling)
+        else:
+            # past the scheduler's largest bucket: the one-shot engine's
+            # chunked prefill serves it whole instead of truncating
+            out_ids = self.engine.generate([prompt_ids])[0]
         completion = self.llm_tokenizer.decode(out_ids)
         timings["generate_ms"] = (time.monotonic() - t0) * 1e3
         timings["total_ms"] = (time.monotonic() - t_all) * 1e3
@@ -431,9 +489,25 @@ class WsgiApp:
             data = json.loads(body or b"{}")
         except ValueError:
             data = {}
-        prompt = data.get("prompt", "") if isinstance(data, dict) else ""
+        if not isinstance(data, dict):
+            data = {}
+        prompt = data.get("prompt", "")
+        sampling = None
+        if "sampling" in data:
+            # optional per-request override, e.g. {"do_sample": false}
+            raw = data["sampling"]
+            types = {"do_sample": (bool,), "temperature": (int, float), "top_p": (int, float)}
+            if not isinstance(raw, dict) or not all(
+                k in types and isinstance(v, types[k]) and (k == "do_sample" or not isinstance(v, bool))
+                for k, v in raw.items()
+            ):
+                return 400, {"error": "sampling must be an object of do_sample (bool), "
+                                      "temperature and top_p (numbers)"}
+            if self.service.scheduler is None:
+                return 400, {"error": "per-request sampling needs batching='continuous'"}
+            sampling = dataclasses.replace(self.service.config.sampling, **raw)
         try:
-            return 200, self.service.answer(prompt)
+            return 200, self.service.answer(prompt, sampling)
         except Exception as e:  # noqa: BLE001 — any failure → JSON error
             logger.exception("generate failed")
             return 500, {"error": str(e)}
@@ -446,7 +520,7 @@ class WsgiApp:
         dev = svc.engine.device
         payload = {
             "status": "ok" if svc.ready else "warming",
-            "engine_mode": "one-shot",
+            "engine_mode": engine_mode(svc.scheduler),
             "device_platform": dev.type,
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         }

@@ -225,40 +225,22 @@ def test_default_device_is_the_card_or_an_error():
     assert not torch.backends.cudnn.allow_tf32
 
 
-PORT_MODULES = [
-    "rag_llm_k8s_tpu_torch",
-    "rag_llm_k8s_tpu_torch.core.config",
-    "rag_llm_k8s_tpu_torch.core.device",
-    "rag_llm_k8s_tpu_torch.utils.buckets",
-    "rag_llm_k8s_tpu_torch.utils.tokens",
-    "rag_llm_k8s_tpu_torch.ops._build",
-    "rag_llm_k8s_tpu_torch.ops.knn",
-    "rag_llm_k8s_tpu_torch.ops.attention",
-    "rag_llm_k8s_tpu_torch.models.llama",
-    "rag_llm_k8s_tpu_torch.models.bge_m3",
-    "rag_llm_k8s_tpu_torch.models.convert",
-    "rag_llm_k8s_tpu_torch.engine.sampling",
-    "rag_llm_k8s_tpu_torch.engine.engine",
-    "rag_llm_k8s_tpu_torch.engine.encoder",
-    "rag_llm_k8s_tpu_torch.index.store",
-    "rag_llm_k8s_tpu_torch.rag.chunking",
-    "rag_llm_k8s_tpu_torch.rag.pdf",
-    "rag_llm_k8s_tpu_torch.rag.prompt",
-    "rag_llm_k8s_tpu_torch.server.app",
-    "chip_smoke",
-]
-
-
 def test_port_imports_neither_jax_nor_the_jax_package():
+    # every module of the port, found by walking the package (so a module
+    # added later is covered), and chip_smoke.py
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
-        f"for m in {PORT_MODULES!r}:\n"
-        "    __import__(m)\n"
+        "import rag_llm_k8s_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for m in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'rag_llm_k8s_tpu' or m.startswith('rag_llm_k8s_tpu.')]\n"
         "assert not bad, bad\n"
-        "print('clean')\n"
+        "need = {'engine.continuous', 'engine.kv_pool', 'sim.policy', 'server.app', 'ops.attention'}\n"
+        "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
+        "print('clean', len(mods))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
