@@ -8,10 +8,13 @@
    per source, started together); a failed build is fatal.
 2. Kernel phases: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it (the paged kernels at B = 8 over an arena
-   with NaN in every block no row owns), with its time (CUDA events, warm,
+   with NaN in every block no row owns; the four int8-cache kernels with NaN
+   in every scale outside a window), with its time (CUDA events, warm,
    median), the plain version's time, one PyTorch library call computing the
-   same function (``library_ms``, a yardstick the port never calls) and the
-   least time the card could take (``bound_ms``, from this run's inputs).
+   same function (``library_ms``, a yardstick the port never calls; none
+   reads a paged arena or an int8 cache), the least time the card could take
+   (``bound_ms``, from this run's inputs) and, for an int8 kernel, its bf16
+   counterpart's time at the same shape.
 3. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
    bf16 weights) through the kernels against the same forward through the
    plain attention.
@@ -30,6 +33,13 @@
    attention); then a phase-separated continuous engine run.
 6. Yardstick: one greedy request through the decode kernel and again
    through the plain decode attention.
+7. int8 slice: ``quantize_llama`` of the same model (prefill logits against
+   the bf16 weights, one decode and one verify forward each way), then an int8 one-shot
+   service (``weight_quant="int8", kv_quant="int8"``) over the same store
+   (phase 4's requests plus a forced speculative one; the q8 cache kernels
+   must run and the bf16 ones must not), the int8 continuous burst at
+   ``kv_block_size=32`` (phase 5, without the plain yardstick) and an int8
+   phase-separated engine run.
 
 Prints one line per phase, the card line and a ``kernels`` JSON line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -65,6 +75,22 @@ ATTN_MAX_TOL = 2.0**-6
 KNN_RTOL = 1e-5  # fp32 distances (no TF32 on either side)
 ONE_SHOT_KERNELS = ("knn_topk", "flash_attention", "decode_attention", "chunk_prefill_attention")
 CONTINUOUS_KERNELS = ("knn_topk", "flash_attention", "paged_decode_attention", "paged_chunk_attention")
+BF16_CACHE_KERNELS = ("decode_attention", "chunk_prefill_attention", "paged_decode_attention",
+                      "paged_chunk_attention")
+# int8 weights and int8 KV: the cache kernels are the q8 ones, and the bf16
+# cache kernels must not launch at all (prefill still attends over the fresh
+# K/V through flash_attention and only writes int8)
+INT8 = dict(weight_quant="int8", kv_quant="int8")
+ONE_SHOT_Q8 = ("knn_topk", "flash_attention", "decode_attention_q8", "chunk_prefill_attention_q8")
+CONTINUOUS_Q8 = ("knn_topk", "flash_attention", "paged_decode_attention_q8", "paged_chunk_attention_q8")
+# int8 weights against bf16 weights, prefill logits of the random 8B model:
+# at depth 2 the JAX package's own bounds for quantized logits
+# (tests/test_quant.py: relative RMS error < 0.08, cosine > 0.995, there on
+# a 2-layer model). Random weights amplify any perturbation layer after
+# layer (bf16 rounding alone reaches ~6 % at full depth, PERF.md), so at
+# full depth the gate only asks that the int8 logits stay nearer the bf16
+# ones than the bf16 logits' own size (relative RMS error < 1).
+Q8_DEPTH2_RMS, Q8_DEPTH2_COS, Q8_FULL_RMS = 0.08, 0.995, 1.0
 
 
 def fail(msg: str) -> None:
@@ -632,6 +658,290 @@ def phase_paged_chunk(rows):
 
 
 # ---------------------------------------------------------------------------
+# int8 KV kernel phases
+# ---------------------------------------------------------------------------
+
+def q8_key_bytes(K, hd):
+    """Bytes one key of one layer costs in the int8 cache: K and V payload
+    plus their fp32 scales (2,112 at K = 8, hd = 128)."""
+    return 2 * K * hd + 2 * K * 4
+
+
+def _quantize(c):
+    """int8 payload and fp32 scales of a bf16 cache or arena, a layer at a time."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    q = torch.empty(c.shape, dtype=torch.int8, device=c.device)
+    s = torch.empty(c.shape[:-1], dtype=torch.float32, device=c.device)
+    for lay in range(c.shape[0]):
+        q[lay], s[lay] = A.quantize_kv(c[lay])
+    return q, s
+
+
+def _q8_pair(with_nan, twin, g):
+    """The int8 form of a bf16 cache or arena pair (``with_nan`` holds NaN
+    in every slot outside its windows and in every block no row owns,
+    ``twin`` zeros there): the plain version's payload and scales, quantized
+    from the twin, and the kernel's, where each such slot holds a NaN scale
+    and random int8 payload instead."""
+    import torch
+
+    q8, s = _quantize(twin)
+    bad = torch.isnan(with_nan[..., 0])
+    junk = torch.randint(-127, 128, q8.shape, dtype=torch.int8, device=q8.device, generator=g)
+    return (q8, s), (torch.where(bad[..., None], junk, q8), torch.where(bad, float("nan"), s))
+
+
+def _scale_rows(g, *vs):
+    """Each value row of each tensor in ``vs`` (one shape) times the same
+    random factor in [0.5, 1.5), so that the v-scales differ from the
+    k-scales row by row (a swapped pair must show); NaN stays NaN."""
+    import torch
+
+    f = torch.rand(vs[0].shape[:-1], device=vs[0].device, generator=g)[..., None] + 0.5
+    return [(v.float() * f).to(v.dtype) for v in vs]
+
+
+def phase_decode_q8(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    L, B, K, T, H, hd = 32, 1, 8, 4352, 32, 128
+    ks_i, kl_i = 100, 4200
+    kc, vc, kz, vz = _cache_pair(L, B, K, T, hd, ks_i, kl_i, g)
+    vc, vz = _scale_rows(g, vc, vz)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+    kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+    layer = 17
+    _sharpen_edges(q, (kc, kz), layer, kl_i - 1, ks_i)
+    (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+    (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+    want = A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, layer)
+    got = A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer)
+    err, rms = map(max, zip(
+        _attn_check("decode_q8", A.decode_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer), want),
+        _attn_check("decode_q8 (NaN scales outside the window)", got, want),
+    ))
+    fault_rms = _attn_faults("decode_q8", got, {
+        "kv_start+1": A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks + 1, kl, layer),
+        "kv_len-1": A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl - 1, layer),
+        "layer-1": A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, layer - 1),
+        "k/v scales swapped": A.decode_attention_xla_q8(q, k8, v8, vsz, ksz, ks, kl, layer),
+    })
+    ms = time_ms(lambda i: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % L), iters=32)
+    plain_ms = time_ms(lambda i: A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, i % L), iters=8)
+    bf16_ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=32)
+    live = kl_i - ks_i
+    b_ms, b_by = bound(B * live * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * B * H * hd * live, BF16_FLOPS)
+    print(f"phase decode_q8 L={L} B={B} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}): "
+          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
+          f"library_ms=none (no single PyTorch call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    rows["decode_attention_q8"] = dict(
+        shape=f"L=32 B=1 K=8 T={T} H=32 hd=128 live={live}", ms=ms, plain_ms=plain_ms, bf16_kernel_ms=bf16_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+    )
+    del kc, vc, kz, vz, k8, v8, k8x, v8x
+    torch.cuda.empty_cache()
+
+
+def phase_chunk_q8(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    L, B, K, H, hd = 32, 1, 8, 32, 128
+    worst, worst_rms = 0.0, 0.0
+    for tag, S, wi, T in (("verify", 16, 4100, 4352), ("long-prompt", 4096, 4096, 8448)):
+        ks_i, kl_i = 100, wi + S
+        Lc = L if S == 16 else 4
+        kc, vc, kz, vz = _cache_pair(Lc, B, K, T, hd, ks_i, kl_i, g)
+        vc, vz = _scale_rows(g, vc, vz)
+        q = torch.randn(B, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+        ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+        kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+        layer = Lc // 2 + 1
+        _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
+        (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+        (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+        plain = lambda *a, **kw: A.chunk_attention_xla_q8(q, *a, **kw)  # noqa: E731
+        want = plain(k8, v8, ksz, vsz, ks, kl, layer, wi)
+        got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wi)
+        err, rms = map(max, zip(
+            _attn_check(f"chunk_q8 {tag}", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi),
+                        want),
+            _attn_check(f"chunk_q8 {tag} (NaN scales outside the window)", got, want),
+        ))
+        worst, worst_rms = max(worst, err), max(worst_rms, rms)
+        del want
+        faulty = {
+            "write_index+1": plain(k8, v8, ksz, vsz, ks, kl, layer, wi + 1),
+            "write_index-1": plain(k8, v8, ksz, vsz, ks, kl, layer, wi - 1),
+            "k/v scales swapped": plain(k8, v8, vsz, ksz, ks, kl, layer, wi),
+        }
+        if S == 16:
+            faulty["kv_start+1"] = plain(k8, v8, ksz, vsz, ks + 1, kl, layer, wi)
+            faulty["kv_len-1"] = plain(k8, v8, ksz, vsz, ks, kl - 1, layer, wi)
+        fault_rms = _attn_faults(f"chunk_q8 {tag}", got, faulty)
+        del faulty, got
+        ms = time_ms(lambda i: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % Lc, wi), iters=16)
+        plain_ms = time_ms(lambda i: plain(k8, v8, ksz, vsz, ks, kl, i % Lc, wi),
+                           iters=3 if S > 16 else 8, warmup=1)
+        bf16_ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
+        qpos = wi + torch.arange(S, device=dev)
+        pos = torch.arange(T, device=dev)
+        pairs = ((pos[None, :] >= ks_i) & (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None])).sum().item()
+        b_ms, b_by = bound(B * (kl_i - ks_i) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * pairs,
+                           BF16_FLOPS)
+        print(f"phase chunk_q8 {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd}: "
+              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
+              f"library_ms=none (no single PyTorch call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
+        if tag == "verify":
+            rows["chunk_prefill_attention_q8"] = dict(
+                shape=f"S=16 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
+                bf16_kernel_ms=bf16_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            )
+        else:
+            rows["chunk_prefill_attention_q8"]["long_prompt"] = dict(
+                ms=ms, plain_ms=plain_ms, bf16_kernel_ms=bf16_ms, bound_ms=b_ms, bound_by=b_by)
+        del kc, vc, kz, vz, k8, v8, k8x, v8x, q
+        torch.cuda.empty_cache()
+    rows["chunk_prefill_attention_q8"].update(max_abs_err=worst, rel_rms=worst_rms)
+
+
+def _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g):
+    """``_paged_arena`` at ``bs`` with the value rows of its two filled
+    layers rescaled (``_scale_rows``); the keys stay bf16 until the caller
+    sharpens them, then ``_q8_arena`` quantizes."""
+    (ka, va), (kz, vz), tables = _paged_arena(L, K, bs, hd, B, MB, kv_l, layer, g)
+    for lay in (layer - 1, layer):
+        va[lay], vz[lay] = _scale_rows(g, va[lay], vz[lay])
+    return (ka, va), (kz, vz), tables
+
+
+def _q8_arena(ka, va, kz, vz, g):
+    (k8, ksz), (k8x, ksn) = _q8_pair(ka, kz, g)
+    (v8, vsz), (v8x, vsn) = _q8_pair(va, vz, g)
+    return (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn)
+
+
+def phase_paged_decode_q8(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    L, B, H, K, hd, bs, MB, layer = 32, 8, 32, 8, 128, 32, 136, 31
+    kv_l = [4351, 3100, 1800, 600, 17, 16, 1, 0]
+    (ka, va), (kz, vz), tables = _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    _sharpen_paged(q, (ka, kz), layer, tables, [n - 1 for n in kv_l], kv_l, [1 if n else 0 for n in kv_l])
+    (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
+    plain = A.paged_decode_attention_xla_q8
+    want = plain(q, k8, v8, ksz, vsz, tables, kv_len, layer)
+    got = A.paged_decode_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer)
+    torch.cuda.synchronize()
+    err, rms = map(max, zip(
+        _paged_check("paged_decode_q8", A.paged_decode_attention_q8(q, k8, v8, ksz, vsz, tables, kv_len, layer),
+                     want),
+        _paged_check("paged_decode_q8 (NaN scales outside the live blocks)", got, want),
+    ))
+    short = kv_len.clone()
+    short[0] -= 1
+    swapped = tables.clone()
+    swapped[3, [0, 18]] = swapped[3, [18, 0]]  # a full block and row 3's frontier block
+    fault_rms = _paged_faults("paged_decode_q8", got, {
+        "kv_len-1 (row 0)": plain(q, k8, v8, ksz, vsz, tables, short, layer),
+        "table entries 0,18 of row 3 swapped": plain(q, k8, v8, ksz, vsz, swapped, kv_len, layer),
+        "layer-1": plain(q, k8, v8, ksz, vsz, tables, kv_len, layer - 1),
+        "k/v scales swapped": plain(q, k8, v8, vsz, ksz, tables, kv_len, layer),
+    })
+    ms = time_ms(lambda i: A.paged_decode_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer - i % 2),
+                 iters=32)
+    plain_ms = time_ms(lambda i: plain(q, k8, v8, ksz, vsz, tables, kv_len, layer - i % 2), iters=8)
+    bf16_ms = time_ms(lambda i: A.paged_decode_attention(q, ka, va, tables, kv_len, layer - i % 2), iters=32)
+    b_ms, b_by = bound(sum(kv_l) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * sum(kv_l), BF16_FLOPS)
+    print(f"phase paged_decode_q8 B={B} H={H} K={K} hd={hd} bs={bs} MB={MB} layer={layer} kv_len={kv_l}: "
+          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
+          f"library_ms=none (no single PyTorch call reads an int8 arena) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    rows["paged_decode_attention_q8"] = dict(
+        shape=f"B=8 H=32 K=8 hd=128 bs=32 MB=136 live_keys={sum(kv_l)}", ms=ms, plain_ms=plain_ms,
+        bf16_kernel_ms=bf16_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+    )
+    del ka, va, kz, vz, k8, v8, k8x, v8x
+    torch.cuda.empty_cache()
+
+
+def phase_paged_chunk_q8(rows):
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    L, B, S, H, K, hd, bs, MB, layer = 32, 8, 64, 32, 8, 128, 32, 136, 31
+    wi_l = [4350, 3000, 1799, 599, 0, 1024, 4032, 0]
+    n_real = [1, 1, 1, 1, 64, 64, 64, 0]
+    kv_l = [w + n for w, n in zip(wi_l, n_real)]
+    (ka, va), (kz, vz), tables = _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g)
+    q = torch.randn(B, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    wi = torch.tensor(wi_l, dtype=torch.int32, device=dev)
+    _sharpen_paged(q, (ka, kz), layer, tables, wi_l, kv_l, n_real)
+    (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
+    plain = A.paged_chunk_attention_xla_q8
+    want = plain(q, k8, v8, ksz, vsz, tables, kv_len, layer, wi)
+    got = A.paged_chunk_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer, wi)
+    torch.cuda.synchronize()
+    err, rms = map(max, zip(
+        _paged_check("paged_chunk_q8",
+                     A.paged_chunk_attention_q8(q, k8, v8, ksz, vsz, tables, kv_len, layer, wi), want),
+        _paged_check("paged_chunk_q8 (NaN scales outside the live blocks)", got, want),
+    ))
+    short = kv_len.clone()
+    short[0] -= 1
+    swapped = tables.clone()
+    swapped[5, [1, 32]] = swapped[5, [32, 1]]  # block 32 holds row 5's chunk: causality tells them apart
+    faulty = {
+        "kv_len-1 (row 0)": plain(q, k8, v8, ksz, vsz, tables, short, layer, wi),
+        "table entries 1,32 of row 5 swapped": plain(q, k8, v8, ksz, vsz, swapped, kv_len, layer, wi),
+        "layer-1": plain(q, k8, v8, ksz, vsz, tables, kv_len, layer - 1, wi),
+        "k/v scales swapped": plain(q, k8, v8, vsz, ksz, tables, kv_len, layer, wi),
+    }
+    for d in (1, -1):
+        moved = wi.clone()
+        moved[5] += d
+        faulty[f"write_index{d:+d} (row 5)"] = plain(q, k8, v8, ksz, vsz, tables, kv_len, layer, moved)
+    fault_rms = _paged_faults("paged_chunk_q8", got, faulty)
+    del faulty
+    ms = time_ms(lambda i: A.paged_chunk_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer - i % 2, wi),
+                 iters=16)
+    plain_ms = time_ms(lambda i: plain(q, k8, v8, ksz, vsz, tables, kv_len, layer - i % 2, wi), iters=5, warmup=1)
+    bf16_ms = time_ms(lambda i: A.paged_chunk_attention(q, ka, va, tables, kv_len, layer - i % 2, wi), iters=16)
+    pairs = sum(min(w + t + 1, n) for w, n in zip(wi_l, kv_l) for t in range(S))
+    b_ms, b_by = bound(sum(kv_l) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
+    print(f"phase paged_chunk_q8 B={B} S={S} H={H} K={K} hd={hd} bs={bs} write_index={wi_l} kv_len={kv_l}: "
+          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
+          f"library_ms=none (no single PyTorch call reads an int8 arena) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    rows["paged_chunk_attention_q8"] = dict(
+        shape=f"B=8 S=64 H=32 K=8 hd=128 bs=32 write_index={wi_l}", ms=ms, plain_ms=plain_ms,
+        bf16_kernel_ms=bf16_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+    )
+    del ka, va, kz, vz, k8, v8, k8x, v8x
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # model + service phases
 # ---------------------------------------------------------------------------
 
@@ -736,7 +1046,24 @@ def phase_model(model, cfg):
             fail("model: kernel forward strays past the bf16 noise floor")
 
 
-def phase_service(service_bits):
+def _launch_check(path, launches, need, forbid):
+    print(f"launches on the {path}: {json.dumps(launches)}", flush=True)
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the {path}: {missing}")
+    stray = [k for k in forbid if launches[k]]
+    if stray:
+        fail(f"kernels launched on the {path} that it must not run: {stray}")
+
+
+def phase_service(service_bits, tag="bf16", ingest=True, need=ONE_SHOT_KERNELS, forbid=(),
+                  force_spec=False):
+    """The one-shot service: ingestion (once), then fused ``/generate`` and
+    ``/query`` with default and greedy sampling, both decode loops (the
+    speculative one forced when ``force_spec``), a long question (host path)
+    and a >4096-token prompt (chunked prefill). The launch counters are
+    zeroed before and read after: each kernel of ``need`` must have run and
+    none of ``forbid``."""
     import numpy as np
     import torch
 
@@ -745,27 +1072,28 @@ def phase_service(service_bits):
     from rag_llm_k8s_tpu_torch.ops import _build
 
     svc, client, engine, store = service_bits
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0 if ingest else 1)
     dev = engine.device
     dim = store.dim
     _build.reset_launches()
     t0 = time.monotonic()
-    # three PDFs of ~250 words each: one chunk apiece through the encoder
-    for i in range(3):
-        r = client.post("/upload_pdf", files={"file": (f"doc{i}.pdf", make_pdf(words(rng, 250)))})
-        if r.status_code != 200:
-            fail(f"upload_pdf: {r.status_code} {r.get_json()}")
-    n_pdf = store.ntotal
-    # synthetic chunks up to the fused-path cap: unit vectors + short rows
-    n_syn = 65536 - n_pdf
-    vecs = rng.standard_normal((n_syn, dim), dtype=np.float32)
-    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
-    meta = [{"filename": f"synthetic-{i // 16}.pdf", "chunk_id": i % 16, "text": words(rng, 30)}
-            for i in range(n_syn)]
-    store.add(list(vecs), meta)
-    toks, _ = store.token_snapshot()
-    print(f"phase service ingest: pdf_chunks={n_pdf} total_vectors={store.ntotal} "
-          f"sidecar={tuple(toks.shape)} s={time.monotonic() - t0:.1f}", flush=True)
+    if ingest:
+        # three PDFs of ~250 words each: one chunk apiece through the encoder
+        for i in range(3):
+            r = client.post("/upload_pdf", files={"file": (f"doc{i}.pdf", make_pdf(words(rng, 250)))})
+            if r.status_code != 200:
+                fail(f"upload_pdf: {r.status_code} {r.get_json()}")
+        n_pdf = store.ntotal
+        # synthetic chunks up to the fused-path cap: unit vectors + short rows
+        n_syn = 65536 - n_pdf
+        vecs = rng.standard_normal((n_syn, dim), dtype=np.float32)
+        vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+        meta = [{"filename": f"synthetic-{i // 16}.pdf", "chunk_id": i % 16, "text": words(rng, 30)}
+                for i in range(n_syn)]
+        store.add(list(vecs), meta)
+        toks, _ = store.token_snapshot()
+        print(f"phase service ingest: pdf_chunks={n_pdf} total_vectors={store.ntotal} "
+              f"sidecar={tuple(toks.shape)} s={time.monotonic() - t0:.1f}", flush=True)
 
     greedy = SamplingConfig(do_sample=False)
     default = engine.sampling
@@ -791,42 +1119,41 @@ def phase_service(service_bits):
         st = engine.stats
         path = "speculative" if st.spec_verify_steps > before.spec_verify_steps else "vanilla"
         served.append(path)
-        print(f"request {route} sampling={'greedy' if sampling is greedy else 'default'} "
+        print(f"request {tag} {route} sampling={'greedy' if sampling is greedy else 'default'} "
               f"path={path} decode_tokens={st.decode_tokens - before.decode_tokens} "
               f"verify_steps={st.spec_verify_steps - before.spec_verify_steps} "
               f"launches={json.dumps({n: c - launched[n] for n, c in _build.LAUNCHES.items()})} "
               f"timings={json.dumps(body['timings'])}", flush=True)
     engine.sampling = default
     # both decode loops must have served a fused request
-    for mode, need in (("off", "vanilla"), ("prompt_lookup", "speculative")):
-        if need not in served:
+    for mode, path in (("off", "vanilla"), ("prompt_lookup", "speculative")):
+        if path not in served or (force_spec and mode == "prompt_lookup"):
             ec = engine.engine_config
             engine.engine_config = dataclasses.replace(ec, speculative=mode)
+            steps = engine.stats.spec_verify_steps
             r = client.post("/query", json_body={"prompt": "what does the warp block share?"})
             engine.engine_config = ec
             if r.status_code != 200:
                 fail(f"forced {mode}: {r.status_code} {r.get_json()}")
-            print(f"request /query forced speculative={mode} "
+            print(f"request {tag} /query forced speculative={mode} "
+                  f"verify_steps={engine.stats.spec_verify_steps - steps} "
                   f"timings={json.dumps(r.get_json()['timings'])}", flush=True)
     # host path: a question whose tail overflows the 128-token fused bucket
     r = client.post("/generate", json_body={"prompt": words(rng, 40) + "?"})
     if r.status_code != 200:
         fail(f"long question: {r.status_code} {r.get_json()}")
-    print(f"request /generate long-question path=host timings={json.dumps(r.get_json()['timings'])}",
+    print(f"request {tag} /generate long-question path=host timings={json.dumps(r.get_json()['timings'])}",
           flush=True)
     # chunked prefill: a prompt past the 4096 bucket
     t = time.monotonic()
     long_prompt = [engine.config.bos_token_id] + list(rng.integers(3, 259, size=5000))
     out = engine.generate([long_prompt], max_new_tokens=32)[0]
-    print(f"request engine.generate prompt=5001 tokens (chunked prefill) new_tokens={len(out)} "
+    print(f"request {tag} engine.generate prompt=5001 tokens (chunked prefill) new_tokens={len(out)} "
           f"s={time.monotonic() - t:.2f}", flush=True)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    print(f"launches on the one-shot path: {json.dumps(launches)}", flush=True)
-    missing = [k for k in ONE_SHOT_KERNELS if launches[k] <= 0]
-    if missing:
-        fail(f"kernels never launched on the one-shot path: {missing}")
+    _launch_check(f"{tag} one-shot path", launches, need, forbid)
 
     # the device-assembled prompt is token-identical to the host mirror
     question = "which kernel tiles the shared memory?"
@@ -862,12 +1189,15 @@ CONT_QUESTIONS = [
 ]
 
 
-def phase_continuous_service(service_bits):
+def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTINUOUS_KERNELS, forbid=(),
+                             plain_yardstick=True):
     """8 concurrent /generate requests through a ContinuousScheduler over
-    the shared 8B model (interleaved admission, 64-token chunks): 6 with
-    default sampling, 2 greedy, the last greedy one submitted after the
-    others so that it is the last admission and decodes in plain windows,
-    as it does alone. Then that request alone: same text."""
+    the shared 8B model (interleaved admission, 64-token chunks, blocks of
+    ``block_size``): 6 with default sampling, 2 greedy, the last greedy one
+    submitted after the others so that it is the last admission and decodes
+    in plain windows, as it does alone. Then that request alone: same text
+    (and, with ``plain_yardstick``, again through the plain paged
+    attention)."""
     import threading
 
     import torch
@@ -877,7 +1207,7 @@ def phase_continuous_service(service_bits):
 
     svc1, _, engine, store = service_bits
     ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True,
-                             kv_block_size=16, interleave_prefill=True, prefill_chunk_tokens=64)
+                             kv_block_size=block_size, interleave_prefill=True, prefill_chunk_tokens=64)
     t = time.monotonic()
     sched = build_scheduler(engine, ec)
     cont = sched.engine
@@ -886,8 +1216,9 @@ def phase_continuous_service(service_bits):
     svc.ready = True
     client = create_app(svc).test_client()
     mode = client.get("/healthz").get_json()["engine_mode"]
-    arena_gb = 2 * cont.arena.k.numel() * cont.arena.k.element_size() / 1e9
-    print(f"phase continuous build: engine_mode={mode} pool_blocks={cont.kv_pool.usable_blocks()} "
+    planes = [cont.arena.k, cont.arena.v, cont.arena.k_scale, cont.arena.v_scale]
+    arena_gb = sum(t.numel() * t.element_size() for t in planes if t is not None) / 1e9
+    print(f"phase continuous {tag} build: engine_mode={mode} pool_blocks={cont.kv_pool.usable_blocks()} "
           f"(+1 null) arena_gb={arena_gb:.2f} shared_weights={cont.model is engine.model} "
           f"s={time.monotonic() - t:.1f}", flush=True)
     if mode != "continuous-interleaved" or cont.model is not engine.model:
@@ -926,17 +1257,14 @@ def phase_continuous_service(service_bits):
             "context", ""
         ):
             fail(f"continuous /generate {i}: {code} {body}")
-        print(f"request continuous /generate {i} sampling={'greedy' if i in greedy else 'default'} "
+        print(f"request {tag} continuous /generate {i} sampling={'greedy' if i in greedy else 'default'} "
               f"timings={json.dumps(body['timings'])}", flush=True)
     dec = st.decode_tokens - before.decode_tokens
-    print(f"phase continuous_service: requests={len(results)} wall_s={wall:.2f} decode_tokens={dec} "
+    print(f"phase continuous_service {tag}: requests={len(results)} wall_s={wall:.2f} decode_tokens={dec} "
           f"decode_tok_per_s={dec / wall:.1f} {_windows(st, before)} "
           f"preemptions={st.preemptions - before.preemptions} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
-    print(f"launches on the continuous path: {json.dumps(launches)}", flush=True)
-    missing = [k for k in CONTINUOUS_KERNELS if launches[k] <= 0]
-    if missing:
-        fail(f"kernels never launched on the continuous path: {missing}")
+    _launch_check(f"{tag} continuous path", launches, need, forbid)
     if cont.kv_pool.blocks_in_use():
         fail(f"continuous service: {cont.kv_pool.blocks_in_use()} blocks still in use after the drain")
     # the probe alone, through the kernels, then (yardstick, after the
@@ -946,7 +1274,7 @@ def phase_continuous_service(service_bits):
 
     solo = {}
     try:
-        for impl in ("kernel", "plain"):
+        for impl in ("kernel", "plain") if plain_yardstick else ("kernel",):
             if impl == "plain":
                 L.paged_decode_attention = A.paged_decode_attention_xla
                 L.paged_chunk_attention = A.paged_chunk_attention_xla
@@ -958,8 +1286,8 @@ def phase_continuous_service(service_bits):
             if r.status_code != 200:
                 fail(f"continuous /generate alone ({impl}): {r.status_code} {body}")
             solo[impl] = body
-            alone = {k: _build.LAUNCHES[k] - launched[k] for k in CONTINUOUS_KERNELS}
-            print(f"request continuous /generate alone through the {impl} paged attention (greedy, "
+            alone = {k: _build.LAUNCHES[k] - launched[k] for k in need}
+            print(f"request {tag} continuous /generate alone through the {impl} paged attention (greedy, "
                   f"request {len(results) - 1}'s question): same_text_as_in_the_batch="
                   f"{body['generated_text'] == results[-1][1]['generated_text']} {_windows(cont.stats, before)} "
                   f"launches={json.dumps(alone)} timings={json.dumps(body['timings'])}", flush=True)
@@ -986,7 +1314,8 @@ def _windows(st, before):
     return " ".join(out)
 
 
-def phase_continuous_engine(service_bits):
+def phase_continuous_engine(service_bits, tag="bf16", block_size=16, decode_kernel="paged_decode_attention",
+                            forbid=()):
     """Phase-separated admission (interleave off): four prompts of mixed
     length admitted as one group (two share a bucket and prefill together),
     32 greedy tokens each, through the prefill written into the blocks, the
@@ -999,8 +1328,8 @@ def phase_continuous_engine(service_bits):
     from rag_llm_k8s_tpu_torch.ops import _build
 
     engine = service_bits[2]
-    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True, kv_block_size=16,
-                             interleave_prefill=False)
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True,
+                             kv_block_size=block_size, interleave_prefill=False)
     cont = ContinuousEngine(engine.config, engine.model, SamplingConfig(do_sample=False), ec,
                             engine.dtypes, engine.device, engine.pad_id)
     rng = np.random.default_rng(3)
@@ -1024,39 +1353,44 @@ def phase_continuous_engine(service_bits):
     vocab = engine.config.vocab_size
     bad = [i for i in range(len(prompts))
            if i not in out or not 0 < len(out[i]) <= 32 or not all(0 <= x < vocab for x in out[i])]
-    print(f"phase continuous_engine (phase-separated admission): prompt_lens={lens} "
+    print(f"phase continuous_engine {tag} (phase-separated admission): prompt_lens={lens} "
           f"new_tokens={[len(out.get(i, [])) for i in range(len(prompts))]} prefill_calls={cont.stats.prefill_calls} "
           f"{_windows(cont.stats, type(cont.stats)())} "
           f"admit_s={t_admit:.2f} s={s:.2f} launches={json.dumps(launches)}", flush=True)
     if bad:
         fail(f"continuous engine: malformed streams for prompts {bad}")
-    if launches["flash_attention"] <= 0 or launches["paged_decode_attention"] <= 0:
+    if launches["flash_attention"] <= 0 or launches[decode_kernel] <= 0:
         fail("continuous engine: admission prefill or paged decode never launched")
+    if any(launches[k] for k in forbid):
+        fail(f"continuous engine: a kernel of {forbid} launched")
     if cont.kv_pool.blocks_in_use():
         fail(f"continuous engine: {cont.kv_pool.blocks_in_use()} blocks still in use")
     cont.arena = None
     torch.cuda.empty_cache()
 
 
-def _decode_step_ms(engine, reps: int = 5):
-    """One decode forward (B=1, slot 4199 of a 4352-slot cache) issued on an
-    idle card: the median host time to issue it, and to its end."""
+def _forward_ms(engine, reps: int = 5, model=None, kv_quant: str = "bf16", width: int = 1):
+    """One forward of ``model`` (default: the engine's; B=1) over ``width``
+    tokens at slot 4199 of a 4352-slot cache of ``kv_quant`` (a decode step
+    at width 1, a speculative verify at width 16), issued on an idle card:
+    the median host time to issue it, and to its end."""
     import torch
 
     from rag_llm_k8s_tpu_torch.models import llama as L
 
     dev = engine.device
-    cache = L.make_kv_cache(engine.config, 1, 4352, torch.bfloat16, dev)
-    tok = torch.full((1, 1), 7, dtype=torch.int64, device=dev)
-    pos = torch.full((1, 1), 4199, dtype=torch.int64, device=dev)
+    model = model or engine.model
+    cache = L.make_kv_cache(engine.config, 1, 4352, torch.bfloat16, dev, kv_quant)
+    tok = torch.full((1, width), 7, dtype=torch.int64, device=dev)
+    pos = 4199 + torch.arange(width, device=dev)[None]
     ks = torch.zeros(1, dtype=torch.int64, device=dev)
-    kl = torch.full((1,), 4200, dtype=torch.int64, device=dev)
+    kl = torch.full((1,), 4199 + width, dtype=torch.int64, device=dev)
     issued, ended = [], []
     with torch.inference_mode():
         for i in range(reps + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.model(tok, pos, cache, ks, kl, 4199)
+            model(tok, pos, cache, ks, kl, 4199, chunked=width > 1)
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             if i:  # the first is a warm-up
@@ -1091,7 +1425,7 @@ def phase_plain_decode(service_bits):
             body = r.get_json()
             got[impl] = (body["timings"]["generate_ms"], engine.stats.decode_tokens - steps,
                          body["generated_text"])
-            issued, ended = _decode_step_ms(engine)
+            issued, ended = _forward_ms(engine)
             print(f"phase decode yardstick: one decode forward through the {impl} attention: "
                   f"issued in {issued:.2f} ms, ended after {ended:.2f} ms (host clock)", flush=True)
     finally:
@@ -1101,6 +1435,75 @@ def phase_plain_decode(service_bits):
     print(f"phase decode yardstick (greedy, vanilla decode): generate_ms kernel={k_ms:.1f} "
           f"({k_n} decode tokens) plain={p_ms:.1f} ({p_n} decode tokens) "
           f"kernel/plain={k_ms / p_ms:.3f} same_text={k_txt == p_txt}", flush=True)
+
+
+def phase_model_q8(model, qmodel, cfg, engine):
+    """int8 weights against bf16 weights on the same random 8B model: the
+    logits of an S = 4096 prefill (100 left-pad slots) at depth 2 and at
+    full depth, gated as ``Q8_DEPTH2_*`` / ``Q8_FULL_RMS`` say; then one
+    decode forward and one 16-token verify forward each way (the int8 model
+    with an int8 and with a bf16 cache)."""
+    import torch
+    from torch import nn
+
+    from rag_llm_k8s_tpu_torch.models import llama as L
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, S, npad = 1, 4096, 100
+    tokens = torch.randint(3, 259, (B, S), device=dev, generator=g)
+    pad = torch.ones((B, S), dtype=torch.int64, device=dev)
+    pad[:, :npad] = 0
+    ks, _ = L.mask_window(pad)
+    pos = (torch.cumsum(pad, -1) - 1).clamp_min(0)
+
+    def logits(m, depth):
+        layers = m.layers
+        m.layers = nn.ModuleList(list(layers)[:depth])
+        try:
+            cache = L.make_kv_cache(cfg, B, S, torch.bfloat16, dev)
+            with torch.inference_mode():
+                return m(tokens, pos, cache, ks, torch.full((B,), S, device=dev), 0)[0, npad:].float()
+        finally:
+            m.layers = layers
+
+    for depth in (2, cfg.num_layers):
+        ref, got = logits(model, depth), logits(qmodel, depth)
+        if not torch.isfinite(got).all():
+            fail("model q8: non-finite logits")
+        rel = ((got - ref).norm() / ref.norm()).item()
+        cos = (got * ref).sum().item() / (got.norm() * ref.norm()).item()
+        top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"phase model_q8 llama-3.1-8b prefill S={S} ({npad} pad) depth={depth}: int8 vs bf16 weights "
+              f"rel_rms={rel:.4g} cosine={cos:.6f} top1={top1:.4f}", flush=True)
+        bad = rel >= Q8_DEPTH2_RMS or cos <= Q8_DEPTH2_COS if depth == 2 else rel >= Q8_FULL_RMS
+        if bad:
+            fail(f"model q8: int8 logits at depth {depth} stray from the bf16 ones (rel {rel:.3g}, cos {cos:.4g})")
+        del ref, got
+    for width, kind in ((1, "decode forward"), (16, "verify forward (16 tokens)")):
+        for name, m, kvq in (("bf16 weights, bf16 KV", model, "bf16"), ("int8 weights, int8 KV", qmodel, "int8"),
+                             ("int8 weights, bf16 KV", qmodel, "bf16")):
+            issued, ended = _forward_ms(engine, model=m, kv_quant=kvq, width=width)
+            print(f"phase model_q8 {kind} ({name}): issued in {issued:.2f} ms, ended after "
+                  f"{ended:.2f} ms (host clock)", flush=True)
+
+
+def build_q8_service(service_bits, qmodel):
+    """An int8 ``InferenceEngine`` (``weight_quant="int8", kv_quant="int8"``)
+    over the already-quantized model, behind its own ``RagService`` over the
+    same store, encoder and tokenizer."""
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
+
+    svc1, _, engine, store = service_bits
+    ec = dataclasses.replace(engine.engine_config, **INT8)
+    eng = InferenceEngine(engine.config, qmodel, engine.sampling, ec, engine.dtypes, engine.device)
+    if eng.model is not qmodel:
+        fail("int8 engine: the quantized model did not pass through")
+    svc = RagService(dataclasses.replace(svc1.config, engine=ec), eng, svc1.llm_tokenizer, svc1.encoder,
+                     svc1.encoder_tokenizer, store)
+    svc.ready = True
+    return svc, create_app(svc).test_client(), eng, store
 
 
 def build_service():
@@ -1174,19 +1577,44 @@ def main() -> int:
     phase_chunk(rows)
     phase_paged_decode(rows)
     phase_paged_chunk(rows)
+    phase_decode_q8(rows)
+    phase_chunk_q8(rows)
+    phase_paged_decode_q8(rows)
+    phase_paged_chunk_q8(rows)
     torch.cuda.empty_cache()
 
     bits = build_service()
     phase_model(bits[2].model, bits[2].config)
-    launches = phase_service(bits)
-    cont_launches = phase_continuous_service(bits)
+    launches = phase_service(bits, forbid=ONE_SHOT_Q8[2:])
+    cont_launches = phase_continuous_service(bits, forbid=CONTINUOUS_Q8[2:])
     phase_continuous_engine(bits)
     phase_plain_decode(bits)
+
+    # int8 weights and int8 KV: the same 8B model quantized, the same store
+    from rag_llm_k8s_tpu_torch.models.llama import quantize_llama
+
+    t = time.monotonic()
+    model = bits[2].model
+    qmodel = quantize_llama(model)
+    torch.cuda.synchronize()
+    q_gb = sum(p.numel() * p.element_size() for n, p in qmodel.named_parameters()
+               if n.endswith((".weight", ".scale")) and p.dtype in (torch.int8, torch.float32)) / 1e9
+    print(f"phase quantize llama-3.1-8b: int8 projections and head {q_gb:.2f} GB (embedding and norms shared) "
+          f"device_mem_gb={torch.cuda.memory_allocated() / 1e9:.2f} s={time.monotonic() - t:.1f}", flush=True)
+    phase_model_q8(model, qmodel, bits[2].config, bits[2])
+    qbits = build_q8_service(bits, qmodel)
+    q_launches = phase_service(qbits, tag="int8", ingest=False, need=ONE_SHOT_Q8, forbid=BF16_CACHE_KERNELS,
+                               force_spec=True)
+    q_cont = phase_continuous_service(qbits, tag="int8", block_size=32, need=CONTINUOUS_Q8,
+                                      forbid=BF16_CACHE_KERNELS, plain_yardstick=False)
+    phase_continuous_engine(qbits, tag="int8", block_size=32, decode_kernel="paged_decode_attention_q8",
+                            forbid=BF16_CACHE_KERNELS)
     print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
     csrc = "rag_llm_k8s_tpu_torch/ops/csrc/"
     sources = {"knn_topk": csrc + "knn.cu", "paged_decode_attention": csrc + "paged_attention.cu",
-               "paged_chunk_attention": csrc + "paged_attention.cu"}
+               "paged_chunk_attention": csrc + "paged_attention.cu",
+               **{k: csrc + "attention_q8.cu" for k in ONE_SHOT_Q8[2:] + CONTINUOUS_Q8[2:]}}
     replaces = {
         "knn_topk": "rag_llm_k8s_tpu/ops/knn.py:87",
         "flash_attention": "rag_llm_k8s_tpu/ops/attention.py:122",
@@ -1194,10 +1622,15 @@ def main() -> int:
         "chunk_prefill_attention": "rag_llm_k8s_tpu/ops/attention.py:428",
         "paged_decode_attention": "rag_llm_k8s_tpu/ops/attention.py:1134",
         "paged_chunk_attention": "rag_llm_k8s_tpu/ops/attention.py:1408",
+        "decode_attention_q8": "rag_llm_k8s_tpu/ops/attention.py:787",
+        "chunk_prefill_attention_q8": "rag_llm_k8s_tpu/ops/attention.py:948",
+        "paged_decode_attention_q8": "rag_llm_k8s_tpu/ops/attention.py:1265",
+        "paged_chunk_attention_q8": "rag_llm_k8s_tpu/ops/attention.py:1588",
     }
-    # launches: the one-shot path's counts for its kernels, the continuous
-    # path's for the paged ones
-    launches = {**launches, **{k: cont_launches[k] for k in ("paged_decode_attention", "paged_chunk_attention")}}
+    # launches: each kernel's count on the path that runs it (one-shot bf16,
+    # continuous bf16, one-shot int8, continuous int8)
+    launches = {**launches, **{k: cont_launches[k] for k in CONTINUOUS_KERNELS[2:]},
+                **{k: q_launches[k] for k in ONE_SHOT_Q8[2:]}, **{k: q_cont[k] for k in CONTINUOUS_Q8[2:]}}
     kernels = []
     for kname in replaces:
         r = rows[kname]
@@ -1211,7 +1644,7 @@ def main() -> int:
             **({"rel_rms": r["rel_rms"]} if "rel_rms" in r else {}),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"],
+            "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

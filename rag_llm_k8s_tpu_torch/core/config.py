@@ -157,6 +157,14 @@ class EngineConfig:
     # fuse q/k/v and gate/up projections into one matmul each at engine
     # construction (same bytes, fewer launches per decode step)
     fuse_matmuls: bool = True
+    # weight storage for serving: "bf16" or "int8" (per-output-channel
+    # weight-only quantization at engine construction, models/llama.py
+    # quantize_llama; an already-quantized model passes through)
+    weight_quant: str = "bf16"
+    # KV-cache storage: "bf16" or "int8" (one fp32 scale per (token, kv
+    # head) vector: 2,112 instead of 4,096 bytes per token and layer at
+    # Llama-3.1-8B width); both engines, dense cache and paged arena
+    kv_quant: str = "bf16"
     # batch-1 prompt-lookup speculation: "off" | "prompt_lookup" | "auto";
     # "auto" stops speculating while the acceptance EMA (tokens emitted per
     # verify forward) stays below spec_min_accept, re-probing periodically
@@ -181,7 +189,8 @@ class EngineConfig:
     # arena with per-row block tables (engine/kv_pool.py)
     kv_paged: bool = False
     # tokens per physical block; must divide every prompt bucket and the
-    # slot length
+    # slot length, and be a multiple of 16 (32 under kv_quant="int8", the
+    # JAX package's rule, kept so both packages accept the same configs)
     kv_block_size: int = 16
     # allocatable blocks (the reserved null block is added on top); 0 =
     # max_batch_size * ceil(slot length / kv_block_size)
@@ -194,6 +203,13 @@ class EngineConfig:
     # tokens per mixed window, decode lanes first; 0 = max_batch_size +
     # prefill_chunk_tokens
     window_token_budget: int = 0
+
+    def validate_quant(self) -> None:
+        """``weight_quant`` and ``kv_quant`` name a storage the engines
+        serve, checked at engine construction."""
+        for name in ("weight_quant", "kv_quant"):
+            if getattr(self, name) not in ("bf16", "int8"):
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected 'bf16' or 'int8'")
 
     def validate_interleave(self) -> None:
         """Cross-field rules for interleaved admission, checked at

@@ -30,6 +30,11 @@ the host and is uploaded (pinned, non-blocking) only when it changed; the
 one host sync per window is the token fetch. Inactive rows and lanes past a
 row's table write into the null block, never ``table[row, 0]``.
 
+Under ``kv_quant="int8"`` the arena holds int8 payloads plus fp32 scale
+planes (``[L, N, K, bs]``, zeros at construction) and the windows run the
+q8 paged kernels; ``weight_quant="int8"`` serves int8 weights (a model the
+one-shot engine already quantized is shared as it is).
+
 Out of this port for now: the dense continuous cache, speculative verify
 windows, prefix registrations, tiering, migration, deadlines and faults.
 """
@@ -50,9 +55,10 @@ import torch
 
 from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, EngineConfig, LlamaConfig, SamplingConfig
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_llm_k8s_tpu_torch.engine.engine import serving_model
 from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
 from rag_llm_k8s_tpu_torch.engine.sampling import sample_token_per_row
-from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, fuse_projections_, make_kv_arena
+from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena
 from rag_llm_k8s_tpu_torch.sim import policy
 
 logger = logging.getLogger(__name__)
@@ -104,6 +110,7 @@ class ContinuousEngine:
         ec = engine_config
         if not ec.kv_paged:
             raise ValueError("the continuous engine serves the paged arena only: set kv_paged=True")
+        ec.validate_quant()
         self.device = resolve_device(device)
         self.config, self.sampling, self.engine_config, self.dtypes = config, sampling, ec, dtypes
         self.pad_id = pad_id
@@ -118,8 +125,9 @@ class ContinuousEngine:
                 f"(row length {self.T})"
             )
         bs = int(ec.kv_block_size)
-        if bs < 1 or bs % 16:
-            raise ValueError(f"kv_block_size={bs} must be a positive multiple of 16")
+        tile = 32 if ec.kv_quant == "int8" else 16
+        if bs < 1 or bs % tile:
+            raise ValueError(f"kv_block_size={bs} must be a positive multiple of {tile} (kv_quant={ec.kv_quant!r})")
         if any(b % bs for b in self.buckets) or self.T % bs:
             raise ValueError(
                 f"kv_block_size={bs} must divide every prompt bucket {self.buckets} and the row "
@@ -136,10 +144,8 @@ class ContinuousEngine:
             ec.validate_interleave()
             self.chunk_tokens = int(ec.prefill_chunk_tokens)
             self.window_budget = int(ec.window_token_budget) or self.B + self.chunk_tokens
-        if ec.fuse_matmuls:
-            fuse_projections_(model)
-        self.model = model
-        self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device)
+        self.model = serving_model(model, ec)
+        self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device, ec.kv_quant)
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self._seed_counter = 0
         self.stats = ContinuousStats()

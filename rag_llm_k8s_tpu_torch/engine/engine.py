@@ -15,6 +15,10 @@
 - ``generate_rag`` assembles the RAG prompt on the device from the fused
   retrieve's packed top-k and the store's chunk-token sidecar.
 
+``EngineConfig.weight_quant="int8"`` serves a ``quantize_llama`` copy of the
+model (an already-quantized model passes through) and ``kv_quant="int8"``
+an int8 cache, whose decode and chunk forwards run the q8 kernels.
+
 Cache lengths follow the JAX engine exactly: ``T = ceil((S + max_new) / 128)
 * 128`` on the vanilla path, with ``k`` more slots of slack on the
   speculative path so the last verify's ``k + 1`` writes stay inside.
@@ -55,6 +59,7 @@ from rag_llm_k8s_tpu_torch.models.llama import (
     fuse_projections_,
     make_kv_cache,
     mask_window,
+    quantize_llama,
 )
 from rag_llm_k8s_tpu_torch.utils.buckets import bucket_len, next_pow2
 
@@ -67,6 +72,18 @@ class EngineStats:
     # speculative verify forwards and the tokens they emitted
     spec_verify_steps: int = 0
     spec_emitted_tokens: int = 0
+
+
+def serving_model(model: LlamaModel, engine_config: EngineConfig) -> LlamaModel:
+    """The model an engine serves under ``engine_config`` (JAX
+    ``maybe_fuse_params`` then ``maybe_quantize_params``): projections fused
+    in place when ``fuse_matmuls``, then an int8 copy when ``weight_quant ==
+    "int8"`` (a quantized model passes through; the caller's bf16 model is
+    left as it is)."""
+    engine_config.validate_quant()
+    if engine_config.fuse_matmuls:
+        fuse_projections_(model)
+    return quantize_llama(model) if engine_config.weight_quant == "int8" else model
 
 
 def _cache_len(n: int) -> int:
@@ -153,9 +170,7 @@ class InferenceEngine:
         self.engine_config = engine_config
         self.dtypes = dtypes
         self.pad_id = pad_id
-        if engine_config.fuse_matmuls:
-            fuse_projections_(model)
-        self.model = model
+        self.model = serving_model(model, engine_config)
         self._spec_ema: Optional[float] = None
         self._spec_skips = 0
         self._lock = threading.Lock()
@@ -228,7 +243,7 @@ class InferenceEngine:
         cfg, model, dev = self.config, self.model, self.device
         B = tokens.shape[0]
         T = _cache_len(S + max_new)
-        cache = make_kv_cache(cfg, B, T, self.dtypes.compute_dtype, dev)
+        cache = make_kv_cache(cfg, B, T, self.dtypes.compute_dtype, dev, self.engine_config.kv_quant)
         kv_start, real_len, positions = self._prefill_inputs(pad_mask)
 
         def full(n: int) -> torch.Tensor:
@@ -281,7 +296,7 @@ class InferenceEngine:
         # k extra slots: the LAST verify can start at slot S + max_new - 2
         # and still writes k + 1 slots
         T = _cache_len(S + max_new + k)
-        cache = make_kv_cache(cfg, 1, T, self.dtypes.compute_dtype, dev)
+        cache = make_kv_cache(cfg, 1, T, self.dtypes.compute_dtype, dev, self.engine_config.kv_quant)
         kv_start, real_len, positions = self._prefill_inputs(pad_mask)
         logits = model(
             tokens, positions, cache, kv_start, torch.full((1,), S, device=dev), 0,

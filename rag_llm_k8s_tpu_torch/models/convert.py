@@ -5,7 +5,10 @@ The JAX trees arrive flattened as ``{"a/b/c": np.ndarray}`` (``flatten_tree``
 walks nested mappings, so a Flax param dict flattens without JAX). Its
 decoder layers are ``nn.scan``-stacked, so every per-layer leaf carries a
 leading ``[L, ...]`` axis, and its Dense kernels are ``[in, out]``; the port
-keeps one module per layer and PyTorch's ``[out, in]`` layout.
+keeps one module per layer and PyTorch's ``[out, in]`` layout. A tree from
+``quantize_llama_params`` (``kernel_q``/``qscale`` per projection,
+``lm_head_q``/``lm_head_scale`` or ``embedding_q``/``embedding_scale``) maps
+onto the quantized layout: int8 ``weight [out, in]`` and fp32 ``scale [out]``.
 """
 
 from __future__ import annotations
@@ -34,18 +37,30 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def llama_is_fused(flat: Mapping[str, np.ndarray]) -> bool:
-    return "layers/attn/wqkv/kernel" in flat
+    return "layers/attn/wqkv/kernel" in flat or "layers/attn/wqkv/kernel_q" in flat
+
+
+def llama_is_quantized(flat: Mapping[str, np.ndarray]) -> bool:
+    return any(path.endswith("/kernel_q") for path in flat)
+
+
+# JAX leaf suffix of a per-layer projection -> (port parameter, transpose?)
+_PROJ_LEAVES = {"/kernel": ("weight", True), "/kernel_q": ("weight", True), "/qscale": ("scale", False)}
 
 
 def llama_state_dict(flat: Mapping[str, np.ndarray], num_layers: int) -> Dict[str, np.ndarray]:
-    """Flat JAX Llama params (unfused, or fused by ``fuse_llama_params``) →
-    the port's state dict, as numpy arrays."""
-    sd = {
-        "embed.weight": flat["embedding"],
-        "final_norm.weight": flat["final_norm/scale"],
-    }
+    """Flat JAX Llama params (unfused, or fused by ``fuse_llama_params``;
+    bf16 or quantized by ``quantize_llama_params``) → the port's state
+    dict, as numpy arrays."""
+    sd = {"final_norm.weight": flat["final_norm/scale"]}
+    if "embedding_q" in flat:  # tied and quantized
+        sd["embed.weight"], sd["embed.scale"] = flat["embedding_q"], flat["embedding_scale"]
+    else:
+        sd["embed.weight"] = flat["embedding"]
     if "lm_head" in flat:
         sd["lm_head.weight"] = flat["lm_head"].T
+    if "lm_head_q" in flat:
+        sd["lm_head.weight"], sd["lm_head.scale"] = flat["lm_head_q"].T, flat["lm_head_scale"]
     for i in range(num_layers):
         p = f"layers.{i}."
         sd[p + "input_norm.weight"] = flat["layers/input_norm/scale"][i]
@@ -53,9 +68,12 @@ def llama_state_dict(flat: Mapping[str, np.ndarray], num_layers: int) -> Dict[st
         for group in ("attn", "mlp"):
             prefix = f"layers/{group}/"
             for path, leaf in flat.items():
-                if path.startswith(prefix) and path.endswith("/kernel"):
-                    name = path[len(prefix):-len("/kernel")]
-                    sd[f"{p}{group}.{name}.weight"] = leaf[i].T
+                if not path.startswith(prefix):
+                    continue
+                for suffix, (param, transpose) in _PROJ_LEAVES.items():
+                    if path.endswith(suffix):
+                        name = path[len(prefix):-len(suffix)]
+                        sd[f"{p}{group}.{name}.{param}"] = leaf[i].T if transpose else leaf[i]
     return sd
 
 
@@ -96,9 +114,12 @@ def _load(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
 
 
 def load_llama(model: LlamaModel, flat: Mapping[str, np.ndarray]) -> LlamaModel:
-    """Copy flat JAX Llama params into ``model`` (its fused flag must match)."""
+    """Copy flat JAX Llama params into ``model`` (its fused and quantized
+    flags must match the tree's)."""
     if llama_is_fused(flat) != model.fused:
         raise ValueError("fused layout of the params and the model differ")
+    if llama_is_quantized(flat) != model.quantized:
+        raise ValueError("the params and the model differ in weight quantization")
     _load(model, llama_state_dict(flat, model.config.num_layers))
     return model
 

@@ -22,6 +22,13 @@
   scaling.
 - Projections may be fused: q|k|v into ``wqkv`` and gate|up into
   ``w_gateup`` (same bytes, fewer launches per decode step).
+- int8 serving (``EngineConfig.weight_quant`` / ``kv_quant``):
+  ``quantize_llama`` turns every projection into a ``QuantLinear`` (int8
+  weight, fp32 per-output-channel scale) and the head (untied ``lm_head``,
+  or the tied embedding) likewise; an int8 cache (``quant="int8"``) stores
+  each written K/V vector as int8 plus one fp32 scale
+  (``ops.attention.quantize_kv``). Prefill at slot 0 still attends over the
+  fresh K/V in the compute dtype: quantization touches only the cache.
 
 Linear weights use PyTorch's ``[out, in]`` layout; ``models/convert.py``
 maps the JAX package's ``[in, out]`` kernels onto them.
@@ -39,45 +46,80 @@ from torch import nn
 
 from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, LlamaConfig
 from rag_llm_k8s_tpu_torch.ops.attention import (
+    INV_127,
     chunk_prefill_attention,
+    chunk_prefill_attention_q8,
     decode_attention,
+    decode_attention_q8,
     flash_attention,
     paged_chunk_attention,
+    paged_chunk_attention_q8,
     paged_decode_attention,
+    paged_decode_attention_q8,
+    quantize_kv,
 )
 
 
 @dataclass
 class KVCache:
-    """``k, v: [L, B, kv_heads, T, head_dim]``, updated in place by the forward."""
+    """``k, v: [L, B, kv_heads, T, head_dim]`` (the arena: ``[L, N,
+    kv_heads, bs, head_dim]``), updated in place by the forward. An int8
+    cache holds int8 payloads in ``k``/``v`` and one fp32 scale per (token,
+    kv head) vector in ``k_scale``/``v_scale`` (the same shape without
+    ``head_dim``); ``None`` for a bf16 cache."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
-def make_kv_cache(
-    config: LlamaConfig, batch_size: int, max_seq_len: int,
-    dtype: torch.dtype, device: torch.device,
-) -> KVCache:
-    shape = (config.num_layers, batch_size, config.num_kv_heads, max_seq_len, config.head_dim)
+def _zeros_cache(shape, dtype: torch.dtype, device: torch.device, quant: str) -> KVCache:
+    if quant == "int8":
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
+    if quant != "bf16":
+        raise ValueError(f"kv_quant={quant!r}: expected 'bf16' or 'int8'")
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
 
 
+def make_kv_cache(
+    config: LlamaConfig, batch_size: int, max_seq_len: int,
+    dtype: torch.dtype, device: torch.device, quant: str = "bf16",
+) -> KVCache:
+    shape = (config.num_layers, batch_size, config.num_kv_heads, max_seq_len, config.head_dim)
+    return _zeros_cache(shape, dtype, device, quant)
+
+
 def make_kv_arena(
     config: LlamaConfig, num_blocks: int, block_size: int,
-    dtype: torch.dtype, device: torch.device,
+    dtype: torch.dtype, device: torch.device, quant: str = "bf16",
 ) -> KVCache:
     """The paged cache: ``[L, num_blocks, kv_heads, block_size, hd]`` block
     pool (block 0 is the engine's reserved null block). Rows reach their
     blocks through block tables, never by position."""
     shape = (config.num_layers, num_blocks, config.num_kv_heads, block_size, config.head_dim)
-    return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-    )
+    return _zeros_cache(shape, dtype, device, quant)
+
+
+def _cache_values(cache: KVCache, k: torch.Tensor, v: torch.Tensor):
+    """What the cache stores for fresh ``k, v [B, S, K, hd]``: the values in
+    the cache dtype, or int8 payloads and their ``[B, S, K]`` scales."""
+    if cache.quantized:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return kq, vq, ks, vs
+    return k.to(cache.k.dtype), v.to(cache.v.dtype), None, None
 
 
 def write_paged(
@@ -95,21 +137,33 @@ def write_paged(
     phys = torch.gather(block_tables.to(torch.int64), 1, blk.clamp(max=MB - 1))
     phys = torch.where(blk < MB, phys, torch.zeros_like(phys))
     off = pos % bs
-    cache.k[layer][phys, :, off] = k.to(cache.k.dtype)
-    cache.v[layer][phys, :, off] = v.to(cache.v.dtype)
+    kw, vw, ks, vs = _cache_values(cache, k, v)
+    cache.k[layer][phys, :, off] = kw
+    cache.v[layer][phys, :, off] = vw
+    if cache.quantized:
+        cache.k_scale[layer][phys, :, off] = ks
+        cache.v_scale[layer][phys, :, off] = vs
 
 
-def head_logits(h: torch.Tensor, head: torch.Tensor, logits_dtype: torch.dtype) -> torch.Tensor:
+def head_logits(
+    h: torch.Tensor, head: torch.Tensor, logits_dtype: torch.dtype,
+    scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """``h [..., D] @ head [V, D]^T`` accumulated in fp32 and returned in
     ``logits_dtype``, without an fp32 copy of the head weight on the card
     (``torch.mm(..., out_dtype=)``). On the CPU the bf16 operands are
-    upcast: their products are exact in fp32, so both sum the same terms."""
+    upcast: their products are exact in fp32, so both sum the same terms.
+    An int8 head is converted to ``h``'s dtype (exact; a transient copy)
+    and its fp32 per-row ``scale`` multiplies the fp32 logits."""
+    head = head.to(h.dtype)
     if h.dtype == logits_dtype:
-        return F.linear(h, head.to(h.dtype))
-    if h.device.type == "cuda":
+        out = F.linear(h, head)
+    elif h.device.type == "cuda":
         flat = torch.mm(h.reshape(-1, h.shape[-1]), head.t(), out_dtype=logits_dtype)
-        return flat.reshape(*h.shape[:-1], head.shape[0])
-    return F.linear(h.to(logits_dtype), head.to(logits_dtype))
+        out = flat.reshape(*h.shape[:-1], head.shape[0])
+    else:
+        out = F.linear(h.to(logits_dtype), head.to(logits_dtype))
+    return out if scale is None else out * scale.to(out.dtype)
 
 
 def rope_frequencies(config: LlamaConfig, device: torch.device) -> torch.Tensor:
@@ -171,23 +225,60 @@ class RMSNorm(nn.Module):
         return (y * self.weight.float()).to(self.out_dtype)
 
 
-def _linear(i: int, o: int, dtypes: DTypePolicy) -> nn.Linear:
+class QuantLinear(nn.Module):
+    """Weight-only int8 linear (JAX ``QuantDense``): ``x @ weight^T`` with
+    the int8 ``weight [out, in]`` converted to the compute dtype (exact),
+    times the fp32 per-output-channel ``scale [out]``, also converted to
+    the compute dtype. On the TPU, XLA fused the conversion into the
+    product; here it builds a transient compute-dtype copy of the weight on
+    every call, and the scale is one more elementwise launch."""
+
+    def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=torch.int8), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(out_features, dtype=torch.float32), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x, self.weight.to(dt)) * self.scale.to(dt)
+
+
+class QuantEmbedding(nn.Module):
+    """The tied int8 embedding (JAX ``embedding_q``/``embedding_scale``):
+    gathered int8 rows times their fp32 row scales, both in the compute
+    dtype. The same table and scales serve as the int8 head."""
+
+    def __init__(self, num: int, dim: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.zeros(num, dim, dtype=torch.int8), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(num, dtype=torch.float32), requires_grad=False)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self.weight[tokens].to(dt) * self.scale[tokens].to(dt)[..., None]
+
+
+def _linear(i: int, o: int, dtypes: DTypePolicy, quantized: bool = False) -> nn.Module:
+    if quantized:
+        return QuantLinear(i, o, dtypes.compute_dtype)
     return nn.Linear(i, o, bias=False, dtype=dtypes.param_dtype)
 
 
 class Attention(nn.Module):
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False):
         super().__init__()
         c = config
         self.config, self.dtypes, self.fused = c, dtypes, fused
         H, K, hd, D = c.num_heads, c.num_kv_heads, c.head_dim, c.hidden_size
         if fused:
-            self.wqkv = _linear(D, (H + 2 * K) * hd, dtypes)
+            self.wqkv = _linear(D, (H + 2 * K) * hd, dtypes, quantized)
         else:
-            self.wq = _linear(D, H * hd, dtypes)
-            self.wk = _linear(D, K * hd, dtypes)
-            self.wv = _linear(D, K * hd, dtypes)
-        self.wo = _linear(H * hd, D, dtypes)
+            self.wq = _linear(D, H * hd, dtypes, quantized)
+            self.wk = _linear(D, K * hd, dtypes, quantized)
+            self.wv = _linear(D, K * hd, dtypes, quantized)
+        self.wo = _linear(H * hd, D, dtypes, quantized)
 
     def forward(
         self, x: torch.Tensor, cache: KVCache, layer: int, kv_start: torch.Tensor,
@@ -215,14 +306,25 @@ class Attention(nn.Module):
                 f"cache write [{write_index}, {write_index + S}) outside the {T}-slot cache"
             )
         # in-place write into the one stacked cache
-        cache.k[layer, :, :, write_index : write_index + S] = k.transpose(1, 2)
-        cache.v[layer, :, :, write_index : write_index + S] = v.transpose(1, 2)
+        kw, vw, ks, vs = _cache_values(cache, k, v)
+        cache.k[layer, :, :, write_index : write_index + S] = kw.transpose(1, 2)
+        cache.v[layer, :, :, write_index : write_index + S] = vw.transpose(1, 2)
+        if cache.quantized:
+            cache.k_scale[layer, :, :, write_index : write_index + S] = ks.transpose(1, 2)
+            cache.v_scale[layer, :, :, write_index : write_index + S] = vs.transpose(1, 2)
+            planes = (cache.k, cache.v, cache.k_scale, cache.v_scale)
         if S == 1:
-            out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
+            if cache.quantized:
+                out = decode_attention_q8(q, *planes, kv_start, kv_len, layer)
+            else:
+                out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
         elif chunked:
-            out = chunk_prefill_attention(
-                q, cache.k, cache.v, kv_start, kv_len, layer, write_index
-            )
+            if cache.quantized:
+                out = chunk_prefill_attention_q8(q, *planes, kv_start, kv_len, layer, write_index)
+            else:
+                out = chunk_prefill_attention(
+                    q, cache.k, cache.v, kv_start, kv_len, layer, write_index
+                )
         else:
             if write_index != 0:
                 raise ValueError("multi-token calls at write_index > 0 must pass chunked=True")
@@ -238,26 +340,27 @@ class Attention(nn.Module):
         ``write_index`` 0 attends over the fresh K/V it just wrote."""
         write_paged(cache, layer, k, v, block_tables, write_index)
         kl = kv_len.to(torch.int32)
+        planes = (cache.k, cache.v) + ((cache.k_scale, cache.v_scale) if cache.quantized else ())
         if chunked:
-            return paged_chunk_attention(
-                q, cache.k, cache.v, block_tables, kl, layer, write_index.to(torch.int32)
-            )
+            fn = paged_chunk_attention_q8 if cache.quantized else paged_chunk_attention
+            return fn(q, *planes, block_tables, kl, layer, write_index.to(torch.int32))
         if q.shape[1] == 1:
-            return paged_decode_attention(q, cache.k, cache.v, block_tables, kl, layer)
+            fn = paged_decode_attention_q8 if cache.quantized else paged_decode_attention
+            return fn(q, *planes, block_tables, kl, layer)
         return flash_attention(q, k, v, kv_start, kv_len, causal=True)
 
 
 class MLP(nn.Module):
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False):
         super().__init__()
         D, I = config.hidden_size, config.intermediate_size
         self.fused = fused
         if fused:
-            self.w_gateup = _linear(D, 2 * I, dtypes)
+            self.w_gateup = _linear(D, 2 * I, dtypes, quantized)
         else:
-            self.w_gate = _linear(D, I, dtypes)
-            self.w_up = _linear(D, I, dtypes)
-        self.w_down = _linear(I, D, dtypes)
+            self.w_gate = _linear(D, I, dtypes, quantized)
+            self.w_up = _linear(D, I, dtypes, quantized)
+        self.w_down = _linear(I, D, dtypes, quantized)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
@@ -268,12 +371,12 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False):
         super().__init__()
         self.input_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
-        self.attn = Attention(config, dtypes, fused)
+        self.attn = Attention(config, dtypes, fused, quantized)
         self.post_attn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
-        self.mlp = MLP(config, dtypes, fused)
+        self.mlp = MLP(config, dtypes, fused, quantized)
 
     def forward(self, h, cache, layer, kv_start, kv_len, cos, sin, write_index, chunked,
                 block_tables=None):
@@ -295,18 +398,26 @@ class LlamaModel(nn.Module):
     With ``block_tables`` the cache is the paged arena and ``write_index``
     is a ``[B]`` tensor (see the module docstring); ``logit_index [B]``
     projects only each row's own position (right-padded prompts). The
-    head projection accumulates in fp32 (``head_logits``).
+    head projection accumulates in fp32 (``head_logits``). ``quantized``
+    builds the int8 layout (``QuantLinear`` projections and head; a tied
+    embedding becomes a ``QuantEmbedding``); ``quantize_llama`` fills it.
     """
 
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), fused: bool = False):
+    def __init__(
+        self, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), fused: bool = False,
+        quantized: bool = False,
+    ):
         super().__init__()
         c = config
-        self.config, self.dtypes, self.fused = c, dtypes, fused
-        self.embed = nn.Embedding(c.vocab_size, c.hidden_size, dtype=dtypes.param_dtype)
-        self.layers = nn.ModuleList(Block(c, dtypes, fused) for _ in range(c.num_layers))
+        self.config, self.dtypes, self.fused, self.quantized = c, dtypes, fused, quantized
+        if quantized and c.tie_word_embeddings:
+            self.embed = QuantEmbedding(c.vocab_size, c.hidden_size, dtypes.compute_dtype)
+        else:
+            self.embed = nn.Embedding(c.vocab_size, c.hidden_size, dtype=dtypes.param_dtype)
+        self.layers = nn.ModuleList(Block(c, dtypes, fused, quantized) for _ in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, dtypes)
         if not c.tie_word_embeddings:
-            self.lm_head = _linear(c.hidden_size, c.vocab_size, dtypes)
+            self.lm_head = _linear(c.hidden_size, c.vocab_size, dtypes, quantized)
         self._inv_freqs: Optional[torch.Tensor] = None
 
     def forward(
@@ -338,38 +449,98 @@ class LlamaModel(nn.Module):
         elif last_logit_only:
             # only the last position is sampled: skip the [B, S, V] projection
             h = h[:, -1:, :]
-        head = self.embed.weight if c.tie_word_embeddings else self.lm_head.weight
-        return head_logits(h, head, dt.logits_dtype)
+        head = self.embed if c.tie_word_embeddings else self.lm_head
+        return head_logits(h, head.weight, dt.logits_dtype, head.scale if self.quantized else None)
 
 
 def build_llama(
-    config: LlamaConfig, dtypes: DTypePolicy, device: torch.device, fused: bool = False
+    config: LlamaConfig, dtypes: DTypePolicy, device: torch.device, fused: bool = False,
+    quantized: bool = False,
 ) -> LlamaModel:
     """An uninitialized model on ``device`` (no host-side init pass); fill it
-    with ``convert.load_llama`` or ``convert.init_random_``."""
+    with ``convert.load_llama`` or ``convert.init_random_`` (bf16 layout)."""
     with torch.device("meta"):
-        model = LlamaModel(config, dtypes, fused=fused)
+        model = LlamaModel(config, dtypes, fused=fused, quantized=quantized)
     return model.to_empty(device=device).requires_grad_(False).eval()
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _concat_linears(*mods: nn.Module) -> nn.Module:
+    """One linear whose output rows are the ``mods``' rows in order; int8
+    linears keep their per-output-channel scales, which concatenate too."""
+    w = torch.cat([m.weight for m in mods], dim=0)
+    with torch.device("meta"):
+        if isinstance(mods[0], QuantLinear):
+            out = QuantLinear(w.shape[1], w.shape[0], mods[0].compute_dtype)
+            out.scale = _param(torch.cat([m.scale for m in mods]))
+        else:
+            out = nn.Linear(w.shape[1], w.shape[0], bias=False)
+    out.weight = _param(w)
+    return out
 
 
 @torch.no_grad()
 def fuse_projections_(model: LlamaModel) -> LlamaModel:
     """Switch an unfused model to the fused layout in place: ``wq|wk|wv ->
     wqkv`` and ``w_gate|w_up -> w_gateup`` (one concat along the output dim;
-    the source weights are released)."""
+    the source weights are released). bf16 or int8."""
     if model.fused:
         return model
     for blk in model.layers:
         a, m = blk.attn, blk.mlp
-        w = torch.cat([a.wq.weight, a.wk.weight, a.wv.weight], dim=0)
-        a.wqkv = nn.Linear(w.shape[1], w.shape[0], bias=False, device="meta")
-        a.wqkv.weight = nn.Parameter(w, requires_grad=False)
+        a.wqkv = _concat_linears(a.wq, a.wk, a.wv)
         del a.wq, a.wk, a.wv
         a.fused = True
-        w = torch.cat([m.w_gate.weight, m.w_up.weight], dim=0)
-        m.w_gateup = nn.Linear(w.shape[1], w.shape[0], bias=False, device="meta")
-        m.w_gateup.weight = nn.Parameter(w, requires_grad=False)
+        m.w_gateup = _concat_linears(m.w_gate, m.w_up)
         del m.w_gate, m.w_up
         m.fused = True
     model.fused = True
     return model
+
+
+def quantize_weight(w: torch.Tensor):
+    """Symmetric per-output-channel int8 of ``w [out, in]`` (JAX
+    ``_quantize_leaf``, as compiled: see ``ops.attention.INV_127``):
+    ``scale = max(amax over in / 127, 1e-8)``, ``w / scale`` rounded half
+    to even. Returns ``(int8 [out, in], fp32 [out])``."""
+    wf = w.float()
+    scale = (wf.abs().amax(dim=1) * INV_127).clamp_min(1e-8)
+    return torch.round(wf / scale[:, None]).to(torch.int8), scale
+
+
+@torch.no_grad()
+def quantize_llama(model: LlamaModel) -> LlamaModel:
+    """A new ``LlamaModel`` with int8 weights (JAX
+    ``quantize_llama_params``): every projection and the untied ``lm_head``
+    (or the tied embedding) become int8 with fp32 per-output-channel
+    scales; the norms and an untied embedding are the source's own modules,
+    shared, not copied. The source model is left as it is. A quantized
+    model passes through; either order with ``fuse_projections_`` gives the
+    same weights."""
+    if model.quantized:
+        return model
+    c = model.config
+    with torch.device("meta"):
+        qm = LlamaModel(c, model.dtypes, fused=model.fused, quantized=True)
+
+    def fill(dst: nn.Module, weight: torch.Tensor) -> None:
+        w, s = quantize_weight(weight)
+        dst.weight, dst.scale = _param(w), _param(s)
+
+    for qb, sb in zip(qm.layers, model.layers):
+        qb.input_norm, qb.post_attn_norm = sb.input_norm, sb.post_attn_norm
+        for group in ("attn", "mlp"):
+            for name, lin in getattr(qb, group).named_children():
+                fill(lin, getattr(getattr(sb, group), name).weight)
+    qm.final_norm = model.final_norm
+    if c.tie_word_embeddings:
+        fill(qm.embed, model.embed.weight)
+    else:
+        qm.embed = model.embed
+        fill(qm.lm_head, model.lm_head.weight)
+    if any(p.is_meta for p in qm.parameters()):
+        raise RuntimeError("quantize_llama left a parameter unfilled")
+    return qm.requires_grad_(False).eval()

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-KERNEL_SOURCES = ("knn", "attention", "paged_attention")
+KERNEL_SOURCES = ("knn", "attention", "paged_attention", "attention_q8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +37,10 @@ LAUNCHES: Dict[str, int] = {
     "chunk_prefill_attention": 0,
     "paged_decode_attention": 0,
     "paged_chunk_attention": 0,
+    "decode_attention_q8": 0,
+    "chunk_prefill_attention_q8": 0,
+    "paged_decode_attention_q8": 0,
+    "paged_chunk_attention_q8": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

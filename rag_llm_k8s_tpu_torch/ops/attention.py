@@ -1,7 +1,7 @@
-"""GQA attention for the Llama and bge-m3 forwards: five CUDA kernel
+"""GQA attention for the Llama and bge-m3 forwards: nine CUDA kernel
 wrappers and their plain PyTorch versions.
 
-Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-4, 7 and 9:
+Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-10:
 
 - ``flash_attention``: fresh ``[B, S, K, hd]`` K/V, causal or not, per-row
   key window ``[kv_start, kv_len)`` (Llama prefill; bge-m3 with
@@ -15,15 +15,23 @@ Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-4, 7 and 9:
   the continuous engine's block-pool arena ``[L, N, K, bs, hd]``, where
   logical key ``t`` of row ``b`` sits in physical block
   ``block_tables[b, t // bs]``; rows are right-padded (window ``[0,
-  kv_len)``) and the chunk kernel takes a per-row ``write_index``.
+  kv_len)``) and the chunk kernel takes a per-row ``write_index``;
+- ``*_q8``: the four cache kernels over an int8 cache or arena with one fp32
+  scale per (token, kv head) vector (``quantize_kv``), dequantized in the
+  epilogues: each score column times its k-scale, each probability times
+  its v-scale before the bf16 rounding for the PV product. Scales outside
+  a row's window are zeroed before they multiply anything (they may hold
+  NaN); the int8 payload is finite by construction.
 
 Query head ``h`` reads kv head ``h // G``; a query row with no visible key
 yields zeros. The plain versions are named after the JAX oracles they match
 (``attention_xla``, ``decode_attention_xla``, ``chunk_attention_xla``,
-``paged_*_xla``) and compute in fp32 with ``p`` cast to the V dtype before
-the PV product. Each wrapper takes its plain version only for CPU tensors; a
-CUDA tensor goes to the kernel in ``csrc/attention.cu`` or
-``csrc/paged_attention.cu``, or the wrapper raises.
+``paged_*_xla``, and their ``*_q8`` forms, which dequantize one layer and
+reuse the bf16 math) and compute in fp32 with ``p`` cast to the V dtype
+before the PV product. Each wrapper takes its plain version only for CPU
+tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``,
+``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the wrapper
+raises.
 """
 
 from __future__ import annotations
@@ -130,19 +138,20 @@ def chunk_attention_xla(
 
 
 def _gather_paged_layer(
-    arena: torch.Tensor,  # [L, N, K, bs, hd]
+    arena: torch.Tensor,  # [L, N, K, bs, hd], or [L, N, K, bs] scales
     block_tables: torch.Tensor,  # [B, MB]
     kv_len: torch.Tensor,  # [B]
     layer: int,
 ) -> torch.Tensor:
-    """``[B, K, MB * bs, hd]`` logical view of one layer, gathered through
+    """``[B, K, MB * bs(, hd)]`` logical view of one layer, gathered through
     the tables, with slots at or past ``kv_len`` zeroed (they may hold
     another request's data or NaN, and 0 * NaN = NaN)."""
-    g = arena[layer][block_tables.long()]  # [B, MB, K, bs, hd]
-    B, MB, K, bs, hd = g.shape
-    g = g.permute(0, 2, 1, 3, 4).reshape(B, K, MB * bs, hd)
+    g = arena[layer][block_tables.long()]  # [B, MB, K, bs(, hd)]
+    B, MB, K, bs = g.shape[:4]
+    g = g.transpose(1, 2).reshape(B, K, MB * bs, *g.shape[4:])
     ok = torch.arange(MB * bs, device=g.device)[None, :] < kv_len.to(g.device)[:, None]
-    return torch.where(ok[:, None, :, None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+    ok = ok[:, None, :, None] if g.dim() == 4 else ok[:, None, :]
+    return torch.where(ok, g, torch.zeros((), dtype=g.dtype, device=g.device))
 
 
 def paged_decode_attention_xla(
@@ -174,9 +183,14 @@ def paged_chunk_attention_xla(
     """Plain version of ``paged_chunk_attention`` (JAX oracle
     ``paged_chunk_attention_xla``): per-row offset causality
     ``t_k <= write_index[b] + t`` over ``[0, kv_len[b])``."""
-    B, S, H, hd = q.shape
     k = _gather_paged_layer(k_arena, block_tables, kv_len, layer)
     v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)
+    return _paged_chunk_on_views(q, k, v, kv_len, write_index)
+
+
+def _paged_chunk_on_views(q, k, v, kv_len, write_index) -> torch.Tensor:
+    """Offset-causal attention over gathered ``[B, K, T, hd]`` views."""
+    B, S, H, hd = q.shape
     K, T = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, K, H // K, hd).float()
     s = torch.einsum("bqkgd,bktd->bkgqt", qg, k.float()) * (hd**-0.5)
@@ -187,6 +201,91 @@ def paged_chunk_attention_xla(
     )
     o = _softmax_pv(s, ok[:, None, None], v, "bkgqt,bktd->bqkgd")
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV: quantization and the plain q8 versions
+# ---------------------------------------------------------------------------
+
+
+# 1/127 in fp32. The JAX package always runs its quantizers compiled, and
+# XLA turns the division by the constant 127 into a multiplication by this
+# reciprocal; copying the compiled arithmetic keeps the scales equal bit for
+# bit.
+INV_127 = 1.0 / 127.0
+
+
+def quantize_kv(x: torch.Tensor):
+    """``[..., hd] -> (int8 [..., hd], fp32 scale [...])``: one symmetric
+    scale per head vector, ``max(amax, 1e-8) / 127``, and ``x / scale``
+    rounded half to even (JAX ``quantize_kv``, as compiled)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) * INV_127
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def dequantize_layer_slice(
+    cache: torch.Tensor,  # [L, B, K, T, hd] int8
+    scale: torch.Tensor,  # [L, B, K, T] fp32
+    layer: int,
+    kv_start: torch.Tensor,  # [B]
+    kv_len: torch.Tensor,  # [B]
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """``[1, B, K, T, hd]`` dequantized view of one layer; scales outside
+    ``[kv_start, kv_len)`` are zeroed first (they may hold NaN)."""
+    T = cache.shape[3]
+    t = torch.arange(T, device=cache.device)
+    ok = (t[None, :] >= kv_start.to(cache.device)[:, None]) & (t[None, :] < kv_len.to(cache.device)[:, None])
+    s = torch.where(ok[:, None, :], scale[layer], torch.zeros((), dtype=scale.dtype, device=scale.device))
+    return (cache[layer].float() * s[..., None]).to(dtype)[None]
+
+
+def decode_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer) -> torch.Tensor:
+    """Plain version of ``decode_attention_q8`` (JAX oracle
+    ``decode_attention_xla_q8``): dequantize this layer, then the bf16 math."""
+    kd = dequantize_layer_slice(k_cache, k_scale, layer, kv_start, kv_len, q.dtype)
+    vd = dequantize_layer_slice(v_cache, v_scale, layer, kv_start, kv_len, q.dtype)
+    return decode_attention_xla(q, kd, vd, kv_start, kv_len, 0)
+
+
+def chunk_attention_xla_q8(
+    q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer, write_index
+) -> torch.Tensor:
+    """Plain version of ``chunk_prefill_attention_q8`` (JAX oracle
+    ``chunk_attention_xla_q8``)."""
+    kd = dequantize_layer_slice(k_cache, k_scale, layer, kv_start, kv_len, q.dtype)
+    vd = dequantize_layer_slice(v_cache, v_scale, layer, kv_start, kv_len, q.dtype)
+    return chunk_attention_xla(q, kd, vd, kv_start, kv_len, 0, write_index)
+
+
+def _dequant_paged_layer(k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, dtype):
+    """Gathered, dequantized ``[B, K, MB * bs, hd]`` K/V views of one layer
+    of an int8 arena, scales past each row's frontier zeroed."""
+    out = []
+    for arena, scale in ((k_arena, k_scale), (v_arena, v_scale)):
+        x = _gather_paged_layer(arena, block_tables, kv_len, layer)
+        s = _gather_paged_layer(scale, block_tables, kv_len, layer)
+        out.append((x.float() * s[..., None]).to(dtype))
+    return out
+
+
+def paged_decode_attention_xla_q8(
+    q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer
+) -> torch.Tensor:
+    """Plain version of ``paged_decode_attention_q8`` (JAX oracle
+    ``paged_decode_attention_xla_q8``)."""
+    kd, vd = _dequant_paged_layer(k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, q.dtype)
+    return decode_attention_xla(q, kd[None], vd[None], torch.zeros_like(kv_len), kv_len, 0)
+
+
+def paged_chunk_attention_xla_q8(
+    q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, write_index
+) -> torch.Tensor:
+    """Plain version of ``paged_chunk_attention_q8`` (JAX oracle
+    ``paged_chunk_attention_xla_q8``)."""
+    kd, vd = _dequant_paged_layer(k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, q.dtype)
+    return _paged_chunk_on_views(q, kd, vd, kv_len, write_index)
 
 
 # ---------------------------------------------------------------------------
@@ -352,28 +451,32 @@ def _paged_lib() -> ctypes.CDLL:
     })
 
 
+def _check_tables(what: str, q, block_tables, kv_len, bs: int) -> int:
+    """The ``[B, MB]`` tables and ``[B]`` frontiers of a paged call; returns MB."""
+    B = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(kv_len.shape) != (B,):
+        raise ValueError(f"{what}: tables{tuple(block_tables.shape)} kv_len{tuple(kv_len.shape)} for B={B}")
+    for name, t in (("block_tables", block_tables), ("kv_len", kv_len)):
+        if t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous int32 on {q.device}")
+    if bs % 16:
+        raise ValueError(f"{what}: block size {bs} must be a multiple of 16")
+    return block_tables.shape[1]
+
+
 def _check_paged(what: str, q, k_arena, v_arena, block_tables, kv_len, layer: int):
     L, N, K, bs, hd = k_arena.shape
     B, S, H, _ = q.shape
-    dev = q.device
     if tuple(v_arena.shape) != tuple(k_arena.shape) or q.shape[3] != hd:
         raise ValueError(f"{what}: q{tuple(q.shape)} arena{tuple(k_arena.shape)} do not match")
-    if block_tables.dim() != 2 or block_tables.shape[0] != B or tuple(kv_len.shape) != (B,):
-        raise ValueError(
-            f"{what}: tables{tuple(block_tables.shape)} kv_len{tuple(kv_len.shape)} for B={B}"
-        )
-    for name, t in (("block_tables", block_tables), ("kv_len", kv_len)):
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous int32 on {dev}")
+    MB = _check_tables(what, q, block_tables, kv_len, bs)
     if not (k_arena.is_contiguous() and v_arena.is_contiguous() and q.is_contiguous()):
         raise ValueError(f"{what}: q and the arenas must be contiguous")
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
-    if bs % 16:
-        raise ValueError(f"{what}: block size {bs} must be a multiple of 16")
     _check_heads(what, H, K, hd)
-    _check_bf16(what, dev, q=q, k_arena=k_arena, v_arena=v_arena)
-    return L, N, K, bs, hd, B, S, H, block_tables.shape[1]
+    _check_bf16(what, q.device, q=q, k_arena=k_arena, v_arena=v_arena)
+    return L, N, K, bs, hd, B, S, H, MB
 
 
 def paged_decode_attention(
@@ -444,4 +547,194 @@ def paged_chunk_attention(
     )
     _build.check(lib, rc, "paged_chunk_attention")
     _build.LAUNCHES["paged_chunk_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 cache and arena (csrc/attention_q8.cu)
+# ---------------------------------------------------------------------------
+
+# keys one split of the q8 decode kernels walks (16-key units, 4 warps);
+# a second pass merges the splits
+Q8_SPLIT_KEYS = 256
+
+
+def _q8_lib() -> ctypes.CDLL:
+    return _build.load("attention_q8", {
+        "decode_attention_q8": ([_VP] * 11 + [_I] * 9 + [_F, _VP], _I),
+        "chunk_attention_q8": ([_VP] * 8 + [_I] * 9 + [_F, _VP], _I),
+        "paged_decode_attention_q8": ([_VP] * 11 + [_I] * 11 + [_F, _VP], _I),
+        "paged_chunk_attention_q8": ([_VP] * 9 + [_I] * 10 + [_F, _VP], _I),
+    })
+
+
+def _check_q8(what: str, q, k, v, k_scale, v_scale, layer: int):
+    """The int8 payload pair, its fp32 scale planes and the bf16 query:
+    shapes, types, contiguity and 16-byte alignment. Returns the payload's
+    shape and the query's head count."""
+    dev = q.device
+    L, n, K, t, hd = k.shape
+    if tuple(v.shape) != tuple(k.shape) or q.shape[3] != hd:
+        raise ValueError(f"{what}: q{tuple(q.shape)} payload{tuple(k.shape)} v{tuple(v.shape)} do not match")
+    for name, x, dt in (("k", k, torch.int8), ("v", v, torch.int8),
+                        ("k_scale", k_scale, torch.float32), ("v_scale", v_scale, torch.float32)):
+        if x.device != dev or x.dtype != dt or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous, 16-byte aligned {dt} on {dev}")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(s.shape) != tuple(k.shape[:-1]):
+            raise ValueError(f"{what}: {name}{tuple(s.shape)} must be {tuple(k.shape[:-1])}")
+    if not q.is_contiguous():
+        raise ValueError(f"{what}: q must be contiguous")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    H = q.shape[2]
+    _check_heads(what, H, K, hd)
+    _check_bf16(what, dev, q=q)
+    return L, n, K, t, hd, H
+
+
+def _decode_parts(B: int, K: int, n_splits: int, G: int, hd: int, dev: torch.device):
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"the q8 decode kernels take H // K in (1, 2, 4, 8), got {G}")
+    part_m = torch.empty((B, K, n_splits, G), dtype=torch.float32, device=dev)
+    return part_m, torch.empty_like(part_m), torch.empty((B, K, n_splits, G, hd), dtype=torch.float32, device=dev)
+
+
+def decode_attention_q8(
+    q: torch.Tensor,  # [B, 1, H, hd] bf16
+    k_cache: torch.Tensor,  # [L, B, K, T, hd] int8
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, K, T] fp32
+    v_scale: torch.Tensor,
+    kv_start: torch.Tensor,  # [B]
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+) -> torch.Tensor:
+    """Single-token attention over the int8 cache at ``layer``, window
+    ``[kv_start, kv_len)``."""
+    if q.device.type == "cpu":
+        return decode_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer)
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_attention_q8 is single-token (got S={q.shape[1]})")
+    layer = int(layer)
+    L, B, K, T, hd, H = _check_q8("decode_attention_q8", q, k_cache, v_cache, k_scale, v_scale, layer)
+    if q.shape[0] != B or T % 16:
+        raise ValueError(f"decode_attention_q8: q{tuple(q.shape)} against a cache of B={B}, T={T} (T % 16 == 0)")
+    dev = q.device
+    ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    n_splits = -(-T // Q8_SPLIT_KEYS)
+    part_m, part_l, part_acc = _decode_parts(B, K, n_splits, H // K, hd, dev)
+    out = torch.empty_like(q)
+    lib = _q8_lib()
+    rc = lib.decode_attention_q8(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        part_acc.data_ptr(), L, B, K, T, H, hd, layer, Q8_SPLIT_KEYS // 16, n_splits, hd**-0.5, _stream(dev),
+    )
+    _build.check(lib, rc, "decode_attention_q8")
+    _build.LAUNCHES["decode_attention_q8"] += 1
+    return out
+
+
+def chunk_prefill_attention_q8(
+    q: torch.Tensor,  # [B, S, H, hd] bf16
+    k_cache: torch.Tensor,  # [L, B, K, T, hd] int8
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, K, T] fp32
+    v_scale: torch.Tensor,
+    kv_start: torch.Tensor,
+    kv_len: torch.Tensor,
+    layer: int,
+    write_index: int,
+) -> torch.Tensor:
+    """``S`` queries at cache slots ``write_index + t`` over the int8 cache
+    at ``layer``, offset-causal."""
+    if q.device.type == "cpu":
+        return chunk_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer, write_index)
+    layer, write_index = int(layer), int(write_index)
+    L, B, K, T, hd, H = _check_q8("chunk_prefill_attention_q8", q, k_cache, v_cache, k_scale, v_scale, layer)
+    if q.shape[0] != B:
+        raise ValueError(f"chunk_prefill_attention_q8: q{tuple(q.shape)} against a cache of B={B}")
+    S = q.shape[1]
+    dev = q.device
+    ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    out = torch.empty_like(q)
+    lib = _q8_lib()
+    rc = lib.chunk_attention_q8(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), L, B, K, T, S, H, hd, layer, write_index,
+        hd**-0.5, _stream(dev),
+    )
+    _build.check(lib, rc, "chunk_prefill_attention_q8")
+    _build.LAUNCHES["chunk_prefill_attention_q8"] += 1
+    return out
+
+
+def paged_decode_attention_q8(
+    q: torch.Tensor,  # [B, 1, H, hd] bf16
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd] int8
+    v_arena: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, N, K, bs] fp32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int32
+    kv_len: torch.Tensor,  # [B] int32
+    layer: int,
+) -> torch.Tensor:
+    """One query per row over the row's live blocks ``[0, kv_len)`` of the
+    int8 arena at ``layer``; a row with ``kv_len = 0`` gets zeros."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_xla_q8(q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer)
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention_q8 is single-token (got S={q.shape[1]})")
+    layer = int(layer)
+    L, N, K, bs, hd, H = _check_q8("paged_decode_attention_q8", q, k_arena, v_arena, k_scale, v_scale, layer)
+    MB = _check_tables("paged_decode_attention_q8", q, block_tables, kv_len, bs)
+    B, dev = q.shape[0], q.device
+    n_splits = -(-MB * bs // Q8_SPLIT_KEYS)
+    part_m, part_l, part_acc = _decode_parts(B, K, n_splits, H // K, hd, dev)
+    out = torch.empty_like(q)
+    lib = _q8_lib()
+    rc = lib.paged_decode_attention_q8(
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        part_acc.data_ptr(), L, N, B, K, bs, MB, H, hd, layer, Q8_SPLIT_KEYS // 16, n_splits,
+        hd**-0.5, _stream(dev),
+    )
+    _build.check(lib, rc, "paged_decode_attention_q8")
+    _build.LAUNCHES["paged_decode_attention_q8"] += 1
+    return out
+
+
+def paged_chunk_attention_q8(
+    q: torch.Tensor,  # [B, S, H, hd] bf16
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd] int8
+    v_arena: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, N, K, bs] fp32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int32
+    kv_len: torch.Tensor,  # [B] int32
+    layer: int,
+    write_index: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """``S`` queries per row at logical slots ``write_index[b] + t`` over
+    the row's live blocks of the int8 arena, offset-causal."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_xla_q8(
+            q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, write_index
+        )
+    layer = int(layer)
+    L, N, K, bs, hd, H = _check_q8("paged_chunk_attention_q8", q, k_arena, v_arena, k_scale, v_scale, layer)
+    MB = _check_tables("paged_chunk_attention_q8", q, block_tables, kv_len, bs)
+    B, S, dev = q.shape[0], q.shape[1], q.device
+    if tuple(write_index.shape) != (B,) or write_index.dtype != torch.int32 or write_index.device != dev:
+        raise ValueError("paged_chunk_attention_q8: write_index must be int32 [B] on q's device")
+    out = torch.empty_like(q)
+    lib = _q8_lib()
+    rc = lib.paged_chunk_attention_q8(
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(), write_index.contiguous().data_ptr(),
+        L, N, B, K, bs, MB, S, H, hd, layer, hd**-0.5, _stream(dev),
+    )
+    _build.check(lib, rc, "paged_chunk_attention_q8")
+    _build.LAUNCHES["paged_chunk_attention_q8"] += 1
     return out

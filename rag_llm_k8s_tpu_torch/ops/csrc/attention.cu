@@ -27,6 +27,7 @@ namespace {
 // key kp of row b at b*sb + kp*st + kvh*sh (strides in elements), window
 // [kv_start[b], min(kv_len[b], Tk)), one causal offset for every row.
 struct StridedKV {
+  static constexpr bool kInt8 = false;
   const bf16* k;
   long long k_sb, k_st, k_sh;
   const bf16* v;

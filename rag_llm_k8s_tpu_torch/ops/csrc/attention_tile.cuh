@@ -4,12 +4,22 @@
 // the routine is a template over a K/V addressing policy:
 //
 //   struct KV {
+//     static constexpr bool kInt8;  // payload type: bf16, or int8 + scales
 //     int start(int b) const;    // first valid key position of row b
 //     int len(int b) const;      // valid key frontier (exclusive)
 //     int offset(int b) const;   // logical position of row b's query 0
 //     const bf16* k_row(int b, int kvh, int kp) const;  // hd contiguous
-//     const bf16* v_row(int b, int kvh, int kp) const;
+//     const bf16* v_row(int b, int kvh, int kp) const;  // (int8_t* if kInt8)
+//     float k_scale(int b, int kvh, int kp) const;      // kInt8 only
+//     float v_scale(int b, int kvh, int kp) const;
 //   };
+//
+// An int8 payload (one fp32 scale per key or value row) is converted to bf16
+// as it enters shared memory, which is exact (|q| <= 127); the scales act in
+// the epilogues, as in the TPU q8 kernels: each score column is multiplied by
+// its k-scale, and each probability by its v-scale just before it is rounded
+// to bf16 for the PV product. Scales outside the window are zeroed before
+// they touch anything (they may be NaN).
 //
 // Semantics kept from the TPU kernels: fp32 running max, sum and accumulator;
 // the key window [start, len) per batch row plus (offset) causality
@@ -33,6 +43,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+#include <cstdint>
 
 namespace attn_tile {
 
@@ -65,13 +76,35 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <int HD>
+// 8 consecutive values of a key or value row as 8 bf16 (one 16-byte vector)
+__device__ __forceinline__ uint4 load8(const bf16* row) {
+  return *reinterpret_cast<const uint4*>(row);
+}
+
+__device__ __forceinline__ uint4 load8(const int8_t* row) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(row);
+  uint4 out;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned w = i < 2 ? raw.x : raw.y;
+    const int sh = 16 * (i % 2);
+    // sign-extend bytes sh/8 and sh/8 + 1 of the word
+    const float a = (float)((int)(w << (24 - sh)) >> 24);
+    const float b = (float)((int)(w << (16 - sh)) >> 24);
+    h[i] = __floats2bfloat162_rn(a, b);
+  }
+  return out;
+}
+
+template <int HD, bool Q8>
 constexpr size_t smem_bytes() {
   return (size_t)BM * HD * sizeof(bf16)        // Q tile
          + 2 * (size_t)BN * HD * sizeof(bf16)  // K and V tiles
          + (size_t)BM * BN * sizeof(float)     // scores
          + (size_t)BM * BN * sizeof(bf16)      // probabilities
-         + (size_t)BM * HD * sizeof(float);    // output accumulator
+         + (size_t)BM * HD * sizeof(float)     // output accumulator
+         + (Q8 ? 2 * (size_t)BN * sizeof(float) : 0);  // k- and v-scales
 }
 
 template <int HD, class KV>
@@ -83,6 +116,8 @@ __global__ void __launch_bounds__(NWARPS * 32) attn_kernel(QParams p, KV kv) {
   float* Ss = reinterpret_cast<float*>(Vs + BN * HD);
   bf16* Ps = reinterpret_cast<bf16*>(Ss + BM * BN);
   float* Os = reinterpret_cast<float*>(Ps + BM * BN);
+  float* KSs = Os + BM * HD;  // kInt8: the tile's k- and v-scales
+  float* VSs = KSs + BN;
 
   constexpr int VEC = 8;  // bf16 values per 16-byte load
   constexpr int RV = HD / VEC;
@@ -126,11 +161,20 @@ __global__ void __launch_bounds__(NWARPS * 32) attn_kernel(QParams p, KV kv) {
       const int n = x / RV, c = (x % RV) * VEC, kp = k0 + n;
       uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
       if (kp >= ks && kp < kl) {
-        kx = *reinterpret_cast<const uint4*>(kv.k_row(b, kvh, kp) + c);
-        vx = *reinterpret_cast<const uint4*>(kv.v_row(b, kvh, kp) + c);
+        kx = load8(kv.k_row(b, kvh, kp) + c);
+        vx = load8(kv.v_row(b, kvh, kp) + c);
       }
       *reinterpret_cast<uint4*>(Ks + n * HD + c) = kx;
       *reinterpret_cast<uint4*>(Vs + n * HD + c) = vx;
+    }
+    if constexpr (KV::kInt8) {
+      // scales outside the window are zero, never loaded
+      for (int n = tid; n < BN; n += blockDim.x) {
+        const int kp = k0 + n;
+        const bool in = kp >= ks && kp < kl;
+        KSs[n] = in ? kv.k_scale(b, kvh, kp) : 0.f;
+        VSs[n] = in ? kv.v_scale(b, kvh, kp) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -169,7 +213,9 @@ __global__ void __launch_bounds__(NWARPS * 32) attn_kernel(QParams p, KV kv) {
       for (int c2 = 0; c2 < 2; ++c2) {
         const int c = lane + 32 * c2, kp = k0 + c;
         const bool valid = row_ok && kp >= ks && kp < kl && (!p.causal || kp <= qpos);
-        const float s = valid ? Ss[rl * BN + c] * p.scale : NEG_INF;
+        float sc = Ss[rl * BN + c] * p.scale;
+        if constexpr (KV::kInt8) sc *= KSs[c];
+        const float s = valid ? sc : NEG_INF;
         sv[c2] = s;
         ok[c2] = valid;
         mx = fmaxf(mx, s);
@@ -182,7 +228,9 @@ __global__ void __launch_bounds__(NWARPS * 32) attn_kernel(QParams p, KV kv) {
       for (int c2 = 0; c2 < 2; ++c2) {
         const float pv = ok[c2] ? expf(sv[c2] - m_new) : 0.f;
         ps += pv;
-        Ps[rl * BN + lane + 32 * c2] = __float2bfloat16(pv);
+        float pw = pv;
+        if constexpr (KV::kInt8) pw *= VSs[lane + 32 * c2];  // V's dequantization
+        Ps[rl * BN + lane + 32 * c2] = __float2bfloat16(pw);
       }
       ps = warp_sum(ps);
       for (int d = lane; d < HD; d += 32) Os[rl * HD + d] *= alpha;
@@ -223,7 +271,7 @@ __global__ void __launch_bounds__(NWARPS * 32) attn_kernel(QParams p, KV kv) {
 
 template <int HD, class KV>
 int launch(const QParams& p, const KV& kv, int B, cudaStream_t s) {
-  const size_t smem = smem_bytes<HD>();
+  const size_t smem = smem_bytes<HD, KV::kInt8>();
   cudaError_t err = cudaFuncSetAttribute(
       attn_kernel<HD, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

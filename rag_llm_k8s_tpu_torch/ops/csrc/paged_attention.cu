@@ -42,6 +42,7 @@ namespace {
 // tables[b * MB + kp / bs] at slot kp % bs; window [0, min(kv_len, MB * bs)),
 // query 0 of row b at logical position write_index[b].
 struct PagedKV {
+  static constexpr bool kInt8 = false;
   const bf16* k;  // the layer's [N, K, bs, hd] planes
   const bf16* v;
   const int* tables;
