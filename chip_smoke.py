@@ -9,12 +9,16 @@
 2. Kernel phases: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it (the paged kernels at B = 8 over an arena
    with NaN in every block no row owns; the four int8-cache kernels with NaN
-   in every scale outside a window), with its time (CUDA events, warm,
-   median), the plain version's time, one PyTorch library call computing the
-   same function (``library_ms``, a yardstick the port never calls; none
-   reads a paged arena or an int8 cache), the least time the card could take
-   (``bound_ms``, from this run's inputs) and, for an int8 kernel, its bf16
-   counterpart's time at the same shape.
+   in every scale outside a window; the dense decode and chunk kernels also
+   at B = 2 with ragged windows, one of them empty, edges mid-tile and
+   mid-split), with its time, the plain version's time, one PyTorch library
+   call computing the same function (``library_ms``, a yardstick the port
+   never calls; none reads a paged arena or an int8 cache), all as device
+   time per call (``time_ms``: calls queued behind a spin kernel, so a
+   wrapper's host time is not counted; the dense decode and chunk phases
+   also print the host's time to launch one call), the least time the card
+   could take (``bound_ms``, from this run's inputs) and, for an int8
+   kernel, its bf16 counterpart's time at the same shape.
 3. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
    bf16 weights) through the kernels against the same forward through the
    plain attention.
@@ -60,6 +64,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 FP32_FLOPS = 67e12  # CUDA-core fp32
+# SM clock cycles per millisecond for the spin kernel of time_ms: at least
+# the H100's 1.98 GHz boost clock, so the spin lasts at least as long as asked
+SPIN_CYCLES_PER_MS = 2.0e6
 # Attention (bf16 outputs, fp32 accumulation on both sides, randn inputs) is
 # held to the scale of what it is compared with, since a decode output over
 # ~4,000 keys is only ~0.02 in size: the error's RMS over the plain output's
@@ -99,22 +106,43 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median per-call milliseconds over ``iters`` event-timed calls
-    (``fn(i)`` gets the iteration index)."""
+    """Device milliseconds per call of ``fn(i)`` (``i`` the iteration
+    index): ``iters`` calls queued behind a spin kernel that outlasts the
+    host's time to launch them, so the card runs them back to back and the
+    wrapper's host time is not counted; the mean between two events. (One
+    call between two events on an idle card would time the host's launch
+    of it for any kernel faster than its Python wrapper.)"""
     import torch
 
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
+    fn(0)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * (1.5 * iters * one_ms + 2.0)))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
     for i in range(iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
         fn(i)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def launch_us(fn, iters: int = 64) -> float:
+    """Host microseconds to launch one call of ``fn(i)`` (mean; the card is
+    not waited for)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -354,17 +382,34 @@ def _cache_pair(L, B, K, T, hd, ks, kl, g):
     zero-filled twin. The kernel gets both and must agree with the plain
     version on the twin either way: it never lets an out-of-window slot
     into a product (the plain version would, 0 * NaN = NaN)."""
+    return _ragged_cache_pair(L, B, K, T, hd, [ks] * B, [kl] * B, g)
+
+
+def _ragged_cache_pair(L, B, K, T, hd, ks_l, kl_l, g):
+    """``_cache_pair`` with a window per batch row: NaN outside row b's
+    ``[ks_l[b], kl_l[b])`` for the kernel, zeros for the plain version."""
     import torch
 
     kc = torch.randn(L, B, K, T, hd, device="cuda", generator=g).to(torch.bfloat16)
     vc = torch.randn(L, B, K, T, hd, device="cuda", generator=g).to(torch.bfloat16)
     kz, vz = kc.clone(), vc.clone()
-    for c, z in ((kc, kz), (vc, vz)):
-        c[:, :, :, :ks] = float("nan")
-        c[:, :, :, kl:] = float("nan")
-        z[:, :, :, :ks] = 0
-        z[:, :, :, kl:] = 0
+    for b, (ks, kl) in enumerate(zip(ks_l, kl_l)):
+        for c, z in ((kc, kz), (vc, vz)):
+            c[:, b, :, :ks] = float("nan")
+            c[:, b, :, kl:] = float("nan")
+            z[:, b, :, :ks] = 0
+            z[:, b, :, kl:] = 0
     return kc, vc, kz, vz
+
+
+def _sms():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _plan_line(plan):
+    return " ".join(f"{k}={v}" for k, v in plan.items())
 
 
 def phase_decode(rows):
@@ -395,7 +440,8 @@ def phase_decode(rows):
     })
     # each call reads another layer, as a decode step does: its window is
     # not left in the 50 MB L2 by the previous call
-    ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=32)
+    ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=64)
+    host_us = launch_us(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L))
     plain_ms = time_ms(lambda i: A.decode_attention_xla(q, kz, vz, ks, kl, i % L), iters=8)
     pos = torch.arange(T, device=dev)
     mask = ((pos >= ks_i) & (pos < kl_i))[None, None, None, :]
@@ -404,13 +450,41 @@ def phase_decode(rows):
     live = kl_i - ks_i
     nbytes = 2 * B * K * live * hd * 2 + 2 * q.numel() * 2
     b_ms, b_by = bound(nbytes, 4.0 * B * H * hd * live, BF16_FLOPS)
-    print(f"phase decode L={L} B={B} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}): "
+    print(f"phase decode L={L} B={B} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}) "
+          f"{_plan_line(A.decode_launch_plan(B, K, T, _sms()))}: "
           f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) host_us={host_us:.1f}", flush=True)
     rows["decode_attention"] = dict(
         shape=f"L=32 B=1 K=8 T={T} H=32 hd=128 live={live}", ms=ms, plain_ms=plain_ms,
         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
     )
+    del kc, vc, kz, vz
+
+    # B = 2, ragged: row 0's window starts and ends mid-tile and mid-split
+    # (16-key tiles, 256-key splits at this grid), row 1's is empty and must
+    # write zeros; checked row by row
+    B2, ks_l, kl_l = 2, [37, 2000], [3333, 2000]
+    kc, vc, kz, vz = _ragged_cache_pair(L, B2, K, T, hd, ks_l, kl_l, g)
+    q = torch.randn(B2, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (ks_l, kl_l))
+    _sharpen_edges(q, (kc, kz), layer, kl_l[0] - 1, ks_l[0])
+    want = A.decode_attention_xla(q, kz, vz, ks, kl, layer)
+    got = A.decode_attention(q, kc, vc, ks, kl, layer)
+    torch.cuda.synchronize()
+    e2, r2 = map(max, zip(
+        _paged_check("decode B=2", A.decode_attention(q, kz, vz, ks, kl, layer), want),
+        _paged_check("decode B=2 (NaN outside the windows)", got, want),
+    ))
+    first = lambda t, d: t + torch.tensor([d, 0], device=dev, dtype=torch.int32)  # noqa: E731
+    f2 = _paged_faults("decode B=2", got, {
+        "kv_start+1 (row 0)": A.decode_attention_xla(q, kz, vz, first(ks, 1), kl, layer),
+        "kv_len-1 (row 0)": A.decode_attention_xla(q, kz, vz, ks, first(kl, -1), layer),
+    })
+    print(f"phase decode B={B2} windows={list(zip(ks_l, kl_l))} {_plan_line(A.decode_launch_plan(B2, K, T, _sms()))}: "
+          f"{_attn_line(e2, r2, f2)} (row by row)", flush=True)
+    rows["decode_attention"].update(max_abs_err=max(err, e2), rel_rms=max(rms, r2))
+    del kc, vc, kz, vz
+    torch.cuda.empty_cache()
 
 
 def phase_chunk(rows):
@@ -453,7 +527,8 @@ def phase_chunk(rows):
         fault_rms = _attn_faults(f"chunk {tag}", got, faulty)
         del faulty
         del got
-        ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
+        ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=64 if S == 16 else 16)
+        host_us = launch_us(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
         plain_ms = time_ms(lambda i: A.chunk_attention_xla(q, kz, vz, ks, kl, i % Lc, wi),
                            iters=3 if S > 16 else 8, warmup=1)
         pos = torch.arange(T, device=dev)
@@ -464,17 +539,52 @@ def phase_chunk(rows):
         pairs = mask.sum().item()
         nbytes = 2 * B * K * (kl_i - ks_i) * hd * 2 + 2 * q.numel() * 2
         b_ms, b_by = bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
-        print(f"phase chunk {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd}: "
+        print(f"phase chunk {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} "
+              f"{_plan_line(A.chunk_launch_plan(B, S, H, K, T, _sms()))}: "
               f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) host_us={host_us:.1f}", flush=True)
         if tag == "verify":
             rows["chunk_prefill_attention"] = dict(
                 shape=f"S=16 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
             )
+        else:
+            rows["chunk_prefill_attention"]["long_prompt"] = dict(
+                shape=f"S=4096 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del kc, vc, kz, vz, q
         torch.cuda.empty_cache()
-    rows["chunk_prefill_attention"].update(max_abs_err=worst, rel_rms=worst_rms)
+
+    # B = 2, ragged, at the verify's width: row 0's window starts and ends
+    # mid-tile and mid-split (64-key tiles, 256-key splits at this grid),
+    # row 1's window is empty and every one of its queries must write zeros
+    S, wi, T, B2 = 16, 4100, 4352, 2
+    ks_l, kl_l = [100, 4116], [wi + S, 4116]
+    kc, vc, kz, vz = _ragged_cache_pair(L, B2, K, T, hd, ks_l, kl_l, g)
+    q = torch.randn(B2, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (ks_l, kl_l))
+    layer = L // 2 + 1
+    _sharpen_edges(q, (kc, kz), layer, wi, ks_l[0])
+    want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
+    got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
+    torch.cuda.synchronize()
+    e2, r2 = map(max, zip(
+        _paged_check("chunk B=2", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wi), want),
+        _paged_check("chunk B=2 (NaN outside the windows)", got, want),
+    ))
+    first = lambda t, d: t + torch.tensor([d, 0], device=dev, dtype=torch.int32)  # noqa: E731
+    f2 = _paged_faults("chunk B=2", got, {
+        "write_index+1": A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi + 1),
+        "write_index-1": A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi - 1),
+        "kv_start+1 (row 0)": A.chunk_attention_xla(q, kz, vz, first(ks, 1), kl, layer, wi),
+        "kv_len-1 (row 0)": A.chunk_attention_xla(q, kz, vz, ks, first(kl, -1), layer, wi),
+    })
+    print(f"phase chunk B={B2} S={S} write_index={wi} windows={list(zip(ks_l, kl_l))} "
+          f"{_plan_line(A.chunk_launch_plan(B2, S, H, K, T, _sms()))}: {_attn_line(e2, r2, f2)} (row by row)",
+          flush=True)
+    del kc, vc, kz, vz, q
+    torch.cuda.empty_cache()
+    rows["chunk_prefill_attention"].update(max_abs_err=max(worst, e2), rel_rms=max(worst_rms, r2))
 
 
 def _paged_arena(L, K, bs, hd, B, MB, kv_len, layer, g):
@@ -1612,7 +1722,9 @@ def main() -> int:
     print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
     csrc = "rag_llm_k8s_tpu_torch/ops/csrc/"
-    sources = {"knn_topk": csrc + "knn.cu", "paged_decode_attention": csrc + "paged_attention.cu",
+    sources = {"knn_topk": csrc + "knn.cu", "decode_attention": csrc + "attention_sm90.cu",
+               "chunk_prefill_attention": csrc + "attention_sm90.cu",
+               "paged_decode_attention": csrc + "paged_attention.cu",
                "paged_chunk_attention": csrc + "paged_attention.cu",
                **{k: csrc + "attention_q8.cu" for k in ONE_SHOT_Q8[2:] + CONTINUOUS_Q8[2:]}}
     replaces = {
@@ -1645,6 +1757,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
+            **({"long_prompt": r["long_prompt"]} if "long_prompt" in r else {}),
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -439,6 +439,9 @@ class LlamaModel(nn.Module):
             self._inv_freqs = rope_frequencies(c, h.device)
         cos, sin = rope_cos_sin(positions, self._inv_freqs)
         wi = write_index if block_tables is not None else int(write_index)
+        if block_tables is None:
+            # the cache kernels take int32 windows: convert once, not per layer
+            kv_start, kv_len = kv_start.to(torch.int32), kv_len.to(torch.int32)
         for i, blk in enumerate(self.layers):
             h = blk(h, cache, i, kv_start, kv_len, cos, sin, wi, chunked, block_tables)
         h = self.final_norm(h)

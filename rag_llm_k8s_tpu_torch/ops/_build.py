@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-KERNEL_SOURCES = ("knn", "attention", "paged_attention", "attention_q8")
+KERNEL_SOURCES = ("knn", "attention", "attention_sm90", "paged_attention", "attention_q8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

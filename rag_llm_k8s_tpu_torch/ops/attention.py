@@ -30,14 +30,23 @@ yields zeros. The plain versions are named after the JAX oracles they match
 reuse the bf16 math) and compute in fp32 with ``p`` cast to the V dtype
 before the PV product. Each wrapper takes its plain version only for CPU
 tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``,
+``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and chunk),
 ``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the wrapper
 raises.
+
+The dense bf16 cache kernels may cut each row's visible keys into splits
+and merge the partial ``(m, l, acc)`` in a second pass (split-KV, when the
+grid is small). ``attention_split_plan`` and ``split_bounds`` are the plan
+both kernels follow, and ``decode_attention_split_xla`` /
+``chunk_attention_split_xla`` compute the plain versions through the same
+splits (``attention_splits_plain`` and ``merge_splits``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -135,6 +144,161 @@ def chunk_attention_xla(
     ok = ok & (t_pos[None, None, :] <= q_pos[None, :, None])
     o = _softmax_pv(s, ok[:, None, None], vc, "bkgqt,bktd->bqkgd")
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# split-KV: the plan the dense cache kernels follow, and the plain
+# split-then-merge
+# ---------------------------------------------------------------------------
+
+CHUNK_TILE_KEYS = 64  # key tile of the chunk routine (csrc/attention_sm90.cuh CBN)
+DECODE_TILE_KEYS = 16  # key tile of the decode routine (DBN)
+
+
+def attention_split_plan(blocks: int, T: int, tile: int, n_sm: int) -> Tuple[int, int]:
+    """``(split_keys, n_splits)`` for a grid of ``blocks`` (row tile, batch
+    row, kv head) blocks over a ``T``-slot cache with key tile ``tile``.
+    When the grid already holds ``2 * n_sm`` blocks, one split takes every
+    key. Otherwise splits are a whole number of tiles, as long as still
+    gives ``blocks * n_splits >= 2 * n_sm`` (one tile at the shortest).
+    ``n_splits`` splits of ``split_keys`` cover any window of the cache cut
+    as ``split_bounds`` cuts it."""
+    n_tiles = max(1, -(-T // tile))
+    if blocks >= 2 * n_sm:
+        return n_tiles * tile, 1
+    per = max(1, n_tiles // -(-2 * n_sm // blocks))
+    return per * tile, -(-n_tiles // per)
+
+
+def split_bounds(lo: int, hi: int, split_keys: int, tile: int) -> List[Tuple[int, int]]:
+    """The kernels' splits of the visible keys ``[lo, hi)``: consecutive
+    ranges of ``split_keys`` from ``lo`` rounded down to ``tile``, clipped to
+    ``[lo, hi)``; none when the range is empty."""
+    lo = max(lo, 0)
+    if hi <= lo:
+        return []
+    lo_a = lo // tile * tile
+    n = -(-(hi - lo_a) // split_keys)
+    return [(max(lo, lo_a + i * split_keys), min(hi, lo_a + (i + 1) * split_keys)) for i in range(n)]
+
+
+def chunk_launch_plan(B: int, S: int, H: int, K: int, T: int, n_sm: int) -> dict:
+    """Grid of ``chunk_prefill_attention``'s kernel: query rows per block
+    (one warpgroup, 64, when the rows fit in it, else two), row tiles, the
+    split plan, and the blocks of the split pass."""
+    n_rows = S * (H // K)
+    block_rows = 64 if n_rows <= 64 else 128
+    row_tiles = -(-n_rows // block_rows)
+    split_keys, n_splits = attention_split_plan(row_tiles * B * K, T, CHUNK_TILE_KEYS, n_sm)
+    return dict(block_rows=block_rows, row_tiles=row_tiles, split_keys=split_keys,
+                n_splits=n_splits, blocks=row_tiles * B * K * n_splits)
+
+
+def decode_launch_plan(B: int, K: int, T: int, n_sm: int) -> dict:
+    """Grid of ``decode_attention``'s kernel: one warp per (split, kv head,
+    row)."""
+    split_keys, n_splits = attention_split_plan(B * K, T, DECODE_TILE_KEYS, n_sm)
+    return dict(split_keys=split_keys, n_splits=n_splits, blocks=B * K * n_splits)
+
+
+def attention_splits_plain(
+    s: torch.Tensor,  # [..., Q, T] scaled scores, fp32
+    ok: torch.Tensor,  # [..., Q, T] visible keys
+    v: torch.Tensor,  # [..., T, hd]
+    bounds: List[Tuple[int, int]],
+):
+    """Partial ``(m, l, acc)`` of each key split ``[a, b)`` in ``bounds``,
+    stacked on a leading split axis: ``m`` the max visible score
+    (``NEG_INF`` where a row sees none of the split's keys), ``l`` the sum
+    of ``exp(s - m)`` over visible keys, ``acc`` the same weights, cast to
+    v's dtype, times v, in fp32."""
+    ms, ls, accs = [], [], []
+    for a, b in bounds:
+        sk, okk = s[..., a:b], ok[..., a:b]
+        x = torch.where(okk, sk, torch.full_like(sk, NEG_INF))
+        m = x.amax(dim=-1)
+        p = torch.where(okk, torch.exp(x - m[..., None]), torch.zeros_like(x))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.matmul(p.to(v.dtype).float(), v[..., a:b, :].float()))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Merge split partials (leading axis): ``sum(acc_s e_s) / sum(l_s
+    e_s)`` with ``e_s = exp(m_s - max m)``; a split with no visible key
+    (``m = NEG_INF``, ``l = 0``, ``acc = 0``) adds nothing, and a row no
+    split sees gets zeros."""
+    e = torch.exp(m - m.amax(dim=0))
+    return (acc * e[..., None]).sum(dim=0) / (l * e).sum(dim=0).clamp_min(1e-30)[..., None]
+
+
+def decode_attention_split_xla(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_cache: torch.Tensor,  # [L, B, K, T, hd]
+    v_cache: torch.Tensor,
+    kv_start: torch.Tensor,
+    kv_len: torch.Tensor,
+    layer: int,
+    split_keys: int,
+    tile: int = DECODE_TILE_KEYS,
+) -> torch.Tensor:
+    """``decode_attention_xla`` computed the way the decode kernel cuts it:
+    each row's window into ``split_bounds``, one partial per split, merged."""
+    B, _, H, hd = q.shape
+    K, T = k_cache.shape[2], k_cache.shape[3]
+    G = H // K
+    out = torch.zeros((B, K, G, hd), dtype=torch.float32, device=q.device)
+    t = torch.arange(T, device=q.device)
+    for b in range(B):
+        lo, hi = int(kv_start[b]), min(int(kv_len[b]), T)
+        bounds = split_bounds(lo, hi, split_keys, tile)
+        if not bounds:
+            continue
+        s = torch.einsum("kgd,ktd->kgt", q[b, 0].reshape(K, G, hd).float(),
+                         k_cache[layer, b].float()) * (hd**-0.5)
+        ok = ((t >= lo) & (t < hi)).expand_as(s)
+        out[b] = merge_splits(*attention_splits_plain(s, ok, v_cache[layer, b], bounds))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def chunk_attention_split_xla(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_cache: torch.Tensor,  # [L, B, K, T, hd]
+    v_cache: torch.Tensor,
+    kv_start: torch.Tensor,
+    kv_len: torch.Tensor,
+    layer: int,
+    write_index: int,
+    split_keys: int,
+    block_rows: int = 64,
+    tile: int = CHUNK_TILE_KEYS,
+) -> torch.Tensor:
+    """``chunk_attention_xla`` computed the way the chunk kernel cuts it:
+    query rows (position, head in group) in tiles of ``block_rows``, each
+    tile's visible keys (clipped by causality at its last row) cut by
+    ``split_bounds``, one partial per split, merged."""
+    B, S, H, hd = q.shape
+    K, T = k_cache.shape[2], k_cache.shape[3]
+    G = H // K
+    n_rows = S * G
+    out = torch.zeros((B, K, n_rows, hd), dtype=torch.float32, device=q.device)
+    t = torch.arange(T, device=q.device)
+    pos = write_index + torch.arange(n_rows, device=q.device) // G  # each row's query position
+    for b in range(B):
+        lo, len_b = int(kv_start[b]), min(int(kv_len[b]), T)
+        qr = q[b].reshape(S, K, G, hd).transpose(0, 1).reshape(K, n_rows, hd).float()
+        s = torch.einsum("krd,ktd->krt", qr, k_cache[layer, b].float()) * (hd**-0.5)
+        ok = ((t >= lo) & (t < len_b))[None, :] & (t[None, :] <= pos[:, None])
+        for r0 in range(0, n_rows, block_rows):
+            r1 = min(r0 + block_rows, n_rows)
+            hi = min(len_b, write_index + (r1 - 1) // G + 1)
+            bounds = split_bounds(lo, hi, split_keys, tile)
+            if bounds:
+                out[b, :, r0:r1] = merge_splits(*attention_splits_plain(
+                    s[:, r0:r1], ok[r0:r1].expand(K, -1, -1), v_cache[layer, b], bounds))
+    out = out.reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def _gather_paged_layer(
@@ -298,9 +462,32 @@ def _lib() -> ctypes.CDLL:
         "flash_attention_bf16": (
             [_VP, _LL, _LL, _LL] * 3 + [_VP, _VP, _VP] + [_I] * 7 + [_F, _VP], _I,
         ),
-        "decode_attention_bf16": ([_VP] * 6 + [_I] * 7 + [_F, _VP], _I),
-        "chunk_attention_bf16": ([_VP] * 6 + [_I] * 9 + [_F, _VP], _I),
     })
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    return _build.load("attention_sm90", {
+        "chunk_attention_sm90": ([_VP] * 9 + [_I] * 12 + [_F, _VP], _I),
+        "decode_attention_sm90": ([_VP] * 9 + [_I] * 9 + [_F, _VP], _I),
+    })
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_parts(BK: int, n_splits: int, n_rows: int, hd: int, dev: torch.device):
+    """Scratch of the split pass, one fp32 allocation holding ``[BK,
+    n_splits, n_rows]`` m, then l, then ``[..., hd]`` acc, and the three
+    pointers (null when there is one split). The caller holds the tensor
+    until the launch is enqueued."""
+    if n_splits == 1:
+        return None, (None, None, None)
+    n = -(-BK * n_splits * n_rows // 4) * 4  # keeps l and acc 16-byte aligned
+    buf = torch.empty(n * (2 + hd), dtype=torch.float32, device=dev)
+    p = buf.data_ptr()
+    return buf, (p, p + 4 * n, p + 8 * n)
 
 
 def _check_bf16(what: str, dev: torch.device, **tensors: torch.Tensor) -> None:
@@ -317,6 +504,8 @@ def _window(t: Optional[torch.Tensor], B: int, fill: int, dev: torch.device) -> 
         return torch.full((B,), fill, dtype=torch.int32, device=dev)
     if tuple(t.shape) != (B,):
         raise ValueError(f"kv window must have shape ({B},), got {tuple(t.shape)}")
+    if t.dtype == torch.int32 and t.device == dev and t.is_contiguous():
+        return t
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
@@ -392,13 +581,19 @@ def decode_attention(
         raise ValueError(f"decode_attention is single-token (got S={q.shape[1]})")
     layer = int(layer)
     L, B, K, T, H, hd = _check_cache("decode_attention", q, k_cache, v_cache, layer)
+    G = H // K
+    if G > 16:
+        raise ValueError(f"decode_attention: the kernel takes H // K <= 16 (the rows of one mma tile), got {G}")
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    plan = decode_launch_plan(B, K, T, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
-    lib = _lib()
-    rc = lib.decode_attention_bf16(
+    lib = _sm90_lib()
+    rc = lib.decode_attention_sm90(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        ks.data_ptr(), kl.data_ptr(), L, B, K, T, H, hd, layer, hd**-0.5, _stream(dev),
+        ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, H, hd, layer,
+        plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
@@ -423,12 +618,14 @@ def chunk_prefill_attention(
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    plan = chunk_launch_plan(B, S, H, K, T, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
-    lib = _lib()
-    rc = lib.chunk_attention_bf16(
+    lib = _sm90_lib()
+    rc = lib.chunk_attention_sm90(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        ks.data_ptr(), kl.data_ptr(), L, B, K, T, S, H, hd, layer, write_index,
-        hd**-0.5, _stream(dev),
+        ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer, write_index,
+        plan["block_rows"], plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "chunk_prefill_attention")
     _build.LAUNCHES["chunk_prefill_attention"] += 1

@@ -1,0 +1,765 @@
+// Attention routines for Hopper (sm_90a) over a K/V addressing policy: the
+// chunk routine (S queries per row, wgmma tiles in registers) and the decode
+// routine (one query per row, split-KV on mma.sync), with the pass that
+// merges split-KV partials. attention_sm90.cu runs both over one layer of the
+// dense bf16 cache; the policy interface is the one of attention_tile.cuh:
+//
+//   struct KV {
+//     int start(int b) const;    // first valid key position of row b
+//     int len(int b) const;      // valid key frontier (exclusive)
+//     int offset(int b) const;   // logical position of row b's query 0
+//     const bf16* k_row(int b, int kvh, int kp) const;  // hd contiguous,
+//     const bf16* v_row(int b, int kvh, int kp) const;  // 16-byte aligned
+//   };
+//
+// Semantics kept from the TPU kernels: fp32 running max, sum and accumulator;
+// the key window [start, len) per batch row plus (offset) causality
+// t_k <= offset + t; K/V rows outside the window enter shared memory as
+// zeros (cp.async with a source size of 0 never reads them: slots past a
+// frontier may hold NaN, and 0 * NaN = NaN); p is rounded to bf16 before the
+// PV product; a query row with no visible key writes 0; query head h reads
+// kv head h / G directly. The running max lives in the log2 domain (scores
+// scaled by hd^-0.5 * log2 e), so each weight is one FFMA and one ex2.
+//
+// Split-KV. A (row tile, batch row, kv head) block may cover only a split of
+// its visible keys: the range [lo, hi) (hi clipped by causality at the
+// tile's last row) is cut into splits of split_keys from lo rounded down to
+// the key tile, so every split is tile-aligned and only the last is short.
+// A split block writes its partial (m, l, acc) in fp32 for every row of its
+// tile (m = NEG_INF, l = 0, acc = 0 for a row that sees none of its keys),
+// and merge_kernel combines the n_s splits of each row as
+// sum(acc_s 2^(m_s - m)) / sum(l_s 2^(m_s - m)). With one split the block
+// normalizes and writes the output itself and no merge runs.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace attn_sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float NEG_INF = -1e30f;
+
+struct Params {
+  const bf16* q;
+  long long q_sb, q_st, q_sh;  // q[b, t, h, :] at b*q_sb + t*q_st + h*q_sh
+  bf16* o;                     // [B, S, H, hd] contiguous
+  float* part_m;               // [B*K, n_splits, S*G]; null: no split, o is
+  float* part_l;               //   written directly
+  float* part_acc;             // [B*K, n_splits, S*G, hd]
+  int S, H, K, G, causal;
+  int split_keys, n_splits;
+  float scale_log2;            // hd^-0.5 * log2(e)
+};
+
+// ---------------------------------------------------------------------------
+// PTX helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; a row outside the window (in = false) is
+// zero-filled and its source never read
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// makes this thread's completed shared-memory writes visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps registers that an asynchronous wgmma reads or writes live, and
+// unread, until this point: call it after the wgmma_wait that retires it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (all >> 4), layout type 1 (128B swizzle).
+// Every 8-row group of such a tile starts on a 1024-byte boundary.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16
+         | static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32
+         | static_cast<uint64_t>(1) << 62;
+}
+
+// A tile of ROWS rows of hd bf16 values is stored as hd / 64 column blocks
+// of ROWS x 128 bytes, 16-byte chunk c of row r at chunk (c ^ r) % 8 of its
+// 128-byte line: the layout of a TMA 128B-swizzled box, which wgmma reads
+// through make_desc and ldmatrix reads without bank conflicts.
+template <int ROWS>
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x (MUFU; relative error ~2^-22, flushes to 0 far below the range)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> fp32. ss: A and B from shared memory, both
+// K-major; scale_d = 0 overwrites d. rs: A from registers (the m16n8k16
+// fragment layout, one 16-row slice per warp), B MN-major (transposed),
+// accumulating into d.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// split plan
+// ---------------------------------------------------------------------------
+
+// The visible keys [lo, hi) of a row tile, cut into n_s splits of split_keys
+// from lo_a (lo rounded down to the key tile)
+struct Span {
+  int lo, hi, lo_a, n_s;
+};
+
+template <class KV>
+__device__ __forceinline__ Span tile_span(const KV& kv, const Params& p, int b, int last_row, int tile) {
+  Span sp;
+  sp.lo = max(kv.start(b), 0);
+  sp.hi = kv.len(b);
+  if (p.causal) sp.hi = min(sp.hi, kv.offset(b) + last_row / p.G + 1);
+  sp.lo_a = (sp.lo / tile) * tile;
+  sp.n_s = sp.hi > sp.lo ? (sp.hi - sp.lo_a + p.split_keys - 1) / p.split_keys : 0;
+  return sp;
+}
+
+// ---------------------------------------------------------------------------
+// chunk routine: S queries per row, wgmma
+// ---------------------------------------------------------------------------
+//
+// One block of WG warpgroups per (tile of 64 * WG query rows, batch row, kv
+// head, split), where a query row is a (position, head-in-group) pair: a K/V
+// tile loaded once serves all G heads of its group and both warpgroups.
+// Each warpgroup owns 64 rows: S = Q K^T is one wgmma m64n64 chain with Q
+// and K from shared memory, the softmax runs on the accumulator fragments
+// (each row lives in the 4 threads of a quad), P is rounded to bf16 into
+// the A-operand registers of O += P V (wgmma m64n{hd}, V transposed from
+// shared memory), and O stays in registers. K/V tiles of 64 keys stream
+// through a cp.async ring of STAGES; the copy of tile i + STAGES - 1
+// is in flight while tile i is multiplied. Key tiles wholly outside the
+// window or above the causal diagonal are never visited; blocks are scheduled
+// latest row tile first, so the longest causal rows start first.
+
+constexpr int CBN = 64;  // keys per tile
+
+template <int HD, int WG, int STAGES>
+struct ChunkCfg {
+  static constexpr int BM = 64 * WG;
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int KV_BYTES = CBN * HD * 2;  // one K or V tile
+  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;  // + alignment
+};
+
+template <int HD, int WG, int STAGES, class KV>
+__global__ void __launch_bounds__(WG * 128, 1) chunk_kernel(Params p, KV kv) {
+  using C = ChunkCfg<HD, WG, STAGES>;
+  constexpr int NT = WG * 128;
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + C::Q_BYTES;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int n_rows = p.S * p.G;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * C::BM;
+  const int bk = blockIdx.y, b = bk / p.K, kvh = bk % p.K, split = blockIdx.z;
+  const Span sp = tile_span(kv, p, b, min(r0 + C::BM, n_rows) - 1, CBN);
+  if (split >= max(sp.n_s, 1)) return;
+  const int lo = sp.lo, len = kv.len(b), q_offset = kv.offset(b);
+  const int k_begin = sp.lo_a + split * p.split_keys;
+  const int k_end = min(sp.hi, k_begin + p.split_keys);
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + CBN - 1) / CBN : 0;
+
+  for (int x = tid; x < C::BM * CH; x += NT) {
+    const int r = x / CH, c = x % CH, rr = r0 + r;
+    const bool in = rr < n_rows;
+    const int t = in ? rr / p.G : 0, h = kvh * p.G + (in ? rr % p.G : 0);
+    cp_async16(q_s + tile_off<C::BM>(r, c), p.q + b * p.q_sb + t * p.q_st + h * p.q_sh + c * 8, in);
+  }
+  auto stage = [&](int i) { return kv_s + (i % STAGES) * 2 * C::KV_BYTES; };  // K, then V
+  // each thread copies chunk lc of rows lr, lr + NT / CH, ...
+  const int lc = tid % CH, lr = tid / CH;
+  auto load_kv = [&](int i) {
+    const int k0 = k_begin + i * CBN;
+    const uint32_t ks = stage(i), vs = ks + C::KV_BYTES;
+#pragma unroll
+    for (int n = lr; n < CBN; n += NT / CH) {
+      const int kp = k0 + n;
+      const bool in = kp >= lo && kp < len;
+      const int kr = in ? kp : lo;
+      const uint32_t off = tile_off<CBN>(n, lc);
+      cp_async16(ks + off, kv.k_row(b, kvh, kr) + lc * 8, in);
+      cp_async16(vs + off, kv.v_row(b, kvh, kr) + lc * 8, in);
+    }
+  };
+  constexpr int PF = STAGES - 1;  // tiles in flight ahead of the one multiplied
+#pragma unroll
+  for (int i = 0; i < PF; ++i) {  // Q travels with tile 0
+    if (i < n_kt) load_kv(i);
+    cp_async_commit();
+  }
+
+  // this thread's two rows of its warpgroup's 64: a and a + 8
+  const int wr0 = r0 + wg * 64;
+  const bool wg_live = wr0 < n_rows;
+  const int row_a = wr0 + warp * 16 + lane / 4;
+  const int qpos_a = q_offset + row_a / p.G, qpos_b = q_offset + (row_a + 8) / p.G;
+  const int wg_first = q_offset + wr0 / p.G;
+  const int wg_last = q_offset + (min(wr0 + 64, n_rows) - 1) / p.G;
+  const int kc = 2 * (lane % 4);  // this thread's first column in each 8-key group
+
+  float o[HD / 2], s[CBN / 2];
+  uint32_t pf[CBN / 16][4];  // P of a tile as the A operand of its PV product
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < CBN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < CBN / 16; ++i) pf[i][0] = pf[i][1] = pf[i][2] = pf[i][3] = 0u;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  // S = Q K^T over hd in steps of 16
+  auto mma_s = [&](uint32_t ks) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t koff = (kk % 4) * 32;  // 16 of the line's 64 columns
+      wgmma_ss_m64n64k16(
+          s, make_desc(q_s + (kk / 4) * (C::BM * 128) + wg * 8192 + koff, 16, 1024),
+          make_desc(ks + (kk / 4) * (CBN * 128) + koff, 16, 1024), kk > 0);
+    }
+  };
+  // O += P V over the tile's keys in steps of 16
+  auto mma_pv = [&](uint32_t vs) {
+#pragma unroll
+    for (int kk = 0; kk < CBN / 16; ++kk) {
+      const uint64_t dv = make_desc(vs + kk * 16 * 128, CBN * 128, 1024);
+      if constexpr (HD == 128) wgmma_rs_m64n128k16(o, pf[kk], dv);
+      else wgmma_rs_m64n64k16(o, pf[kk], dv);
+    }
+  };
+  // online softmax of the tile at k0 on the fragments: s[4j + e] is row a,
+  // key k0 + 8j + kc + e; s[4j + 2 + e] row a + 8. Leaves the weights in s
+  // and the rescale factors in al_a, al_b. A tile wholly inside the window
+  // and below the diagonal needs no mask; otherwise an invisible key's raw
+  // score becomes NEG_INF and its weight a select to 0.
+  auto softmax = [&](int k0, float& al_a, float& al_b) {
+    const bool masked = k0 < lo || k0 + CBN > len || (p.causal && k0 + CBN - 1 > wg_first);
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < CBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (masked) {
+          const int kp = k0 + 8 * j + kc + e;
+          const bool in = kp >= lo && kp < len;
+          if (!in || (p.causal && kp > qpos_a)) s[4 * j + e] = NEG_INF;
+          if (!in || (p.causal && kp > qpos_b)) s[4 * j + 2 + e] = NEG_INF;
+        }
+        mx_a = fmaxf(mx_a, s[4 * j + e]);
+        mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
+      }
+    }
+    mx_a = quad_max(mx_a);
+    mx_b = quad_max(mx_b);
+    const float mn_a = fmaxf(m_a, mx_a == NEG_INF ? NEG_INF : mx_a * p.scale_log2);
+    const float mn_b = fmaxf(m_b, mx_b == NEG_INF ? NEG_INF : mx_b * p.scale_log2);
+    al_a = ex2(m_a - mn_a);
+    al_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < CBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xa = s[4 * j + e], xb = s[4 * j + 2 + e];
+        float pa = ex2(fmaf(xa, p.scale_log2, -mn_a)), pb = ex2(fmaf(xb, p.scale_log2, -mn_b));
+        if (masked) {
+          pa = xa == NEG_INF ? 0.f : pa;
+          pb = xb == NEG_INF ? 0.f : pb;
+        }
+        s[4 * j + e] = pa;
+        s[4 * j + 2 + e] = pb;
+        sum_a += pa;
+        sum_b += pb;
+      }
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+  };
+  // rescales O to the new running max and rounds P to bf16 as the A
+  // operand (keys 16kk .. 16kk + 15 are the groups j = 2kk, 2kk + 1)
+  auto take_p = [&](float al_a, float al_b) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= al_a;
+      o[4 * j + 1] *= al_a;
+      o[4 * j + 2] *= al_b;
+      o[4 * j + 3] *= al_b;
+    }
+#pragma unroll
+    for (int kk = 0; kk < CBN / 16; ++kk) {
+      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  for (int i = 0; i < n_kt; ++i) {
+    cp_async_wait<PF - 1>();
+    fence_proxy_async();
+    __syncthreads();  // tile i has landed; every thread is done with tile i - 1
+    if (i + PF < n_kt) load_kv(i + PF);
+    cp_async_commit();
+    const int k0 = k_begin + i * CBN;
+    if (!wg_live || (p.causal && k0 > wg_last)) continue;  // nothing this warpgroup sees
+    float al_a, al_b;
+    wgmma_fence();
+    mma_s(stage(i));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(k0, al_a, al_b);
+    take_p(al_a, al_b);
+    wgmma_fence();
+    mma_pv(stage(i) + C::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+  }
+  cp_async_wait<0>();
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rr = row_a + 8 * half;
+    if (!wg_live || rr >= n_rows) continue;
+    const float m = half ? m_b : m_a, l = half ? l_b : l_a;
+    if (p.part_m == nullptr) {
+      const int t = rr / p.G, h = kvh * p.G + rr % p.G;
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      bf16* orow = p.o + ((long long)(b * p.S + t) * p.H + h) * HD + kc;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+    } else {
+      const long long ix = ((long long)bk * p.n_splits + split) * n_rows + rr;
+      if (lane % 4 == 0) {
+        p.part_m[ix] = m;
+        p.part_l[ix] = l;
+      }
+      float* arow = p.part_acc + ix * HD + kc;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode routine: one query per row, split-KV, mma.sync
+// ---------------------------------------------------------------------------
+//
+// One warp per (split, kv head, batch row). The G query heads of the kv
+// head are rows 0..G-1 of a 16-row m16n8k16 tile (G <= 16; at G = 4 three
+// quarters of its rows are zero, which costs nothing under the byte bound);
+// their A fragments are loaded once into registers. K/V tiles of 16 keys
+// (16-byte cp.async, zero-filled outside the window) stream through a ring
+// of DEC_STAGES; per tile, S = Q K^T is 2 x hd/16 mma with K's B fragments
+// from ldmatrix, the softmax runs on the fragments (quad shuffles, no
+// per-key warp reduction), and O += P V is hd/8 mma with V's B fragments
+// from ldmatrix.trans. O (16 x hd fp32) lives in registers.
+
+constexpr int DBN = 16;  // keys per tile
+constexpr int DEC_STAGES = 4;
+
+template <int HD, class KV>
+__global__ void __launch_bounds__(32) decode_kernel(Params p, KV kv) {
+  constexpr int CH = HD / 8;
+  constexpr int TILE = DBN * HD * 2;  // bytes of one K or V tile
+  __shared__ __align__(1024) unsigned char smem[DEC_STAGES * 2 * TILE];
+  const uint32_t s_base = smem_u32(smem);
+  const int lane = threadIdx.x, g = lane / 4, kc = 2 * (lane % 4);
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, bk = b * p.K + kvh;
+  const Span sp = tile_span(kv, p, b, 0, DBN);
+  if (split >= max(sp.n_s, 1)) return;
+  const int lo = sp.lo, len = kv.len(b);
+  const int k_begin = sp.lo_a + split * p.split_keys;
+  const int k_end = min(sp.hi, k_begin + p.split_keys);
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + DBN - 1) / DBN : 0;
+
+  // each lane copies chunk lc of rows lr, lr + 32 / CH, ...
+  const int lc = lane % CH, lr = lane / CH;
+  auto load_kv = [&](int i) {
+    const int k0 = k_begin + i * DBN;
+    const uint32_t ks = s_base + (i % DEC_STAGES) * 2 * TILE, vs = ks + TILE;
+#pragma unroll
+    for (int n = lr; n < DBN; n += 32 / CH) {
+      const int kp = k0 + n;
+      const bool in = kp >= lo && kp < len;
+      const int kr = in ? kp : lo;
+      const uint32_t off = tile_off<DBN>(n, lc);
+      cp_async16(ks + off, kv.k_row(b, kvh, kr) + lc * 8, in);
+      cp_async16(vs + off, kv.v_row(b, kvh, kr) + lc * 8, in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < DEC_STAGES - 1; ++i) {
+    if (i < n_kt) load_kv(i);
+    cp_async_commit();
+  }
+
+  // Q's A fragments: rows g and g + 8 are heads kvh * G + row (zero past G)
+  uint32_t qf[HD / 16][4];
+  {
+    const bf16* qa = p.q + b * p.q_sb + (long long)(kvh * p.G + g) * p.q_sh + kc;
+    const bf16* qb = qa + 8 * p.q_sh;
+    const bool ra = g < p.G, rb = g + 8 < p.G;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qf[kk][0] = ra ? *reinterpret_cast<const uint32_t*>(qa + 16 * kk) : 0u;
+      qf[kk][1] = rb ? *reinterpret_cast<const uint32_t*>(qb + 16 * kk) : 0u;
+      qf[kk][2] = ra ? *reinterpret_cast<const uint32_t*>(qa + 16 * kk + 8) : 0u;
+      qf[kk][3] = rb ? *reinterpret_cast<const uint32_t*>(qb + 16 * kk + 8) : 0u;
+    }
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  for (int i = 0; i < n_kt; ++i) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncwarp();  // tile i has landed; every lane is done with tile i - 1
+    if (i + DEC_STAGES - 1 < n_kt) load_kv(i + DEC_STAGES - 1);
+    cp_async_commit();
+    const int k0 = k_begin + i * DBN;
+    const uint32_t ks = s_base + (i % DEC_STAGES) * 2 * TILE, vs = ks + TILE;
+
+    // S = Q K^T: two 8-key groups j; ldmatrix.x4 gives both hd steps of a
+    // 32-wide slice (chunks 4kk2 .. 4kk2 + 3 of keys 8j .. 8j + 7)
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk2 = 0; kk2 < HD / 32; ++kk2) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t r[4];
+        ldmatrix_x4(r, ks + tile_off<DBN>(8 * j + lane % 8, 4 * kk2 + lane / 8));
+        mma_16816(s[j], qf[2 * kk2], r[0], r[1]);
+        mma_16816(s[j], qf[2 * kk2 + 1], r[2], r[3]);
+      }
+    }
+
+    // online softmax: s[j][e] is row g, key k0 + 8j + kc + e; s[j][2 + e] row g + 8
+    const bool masked = k0 < lo || k0 + DBN > len;
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (masked) {
+          const int kp = k0 + 8 * j + kc + e;
+          if (kp < lo || kp >= len) s[j][e] = s[j][2 + e] = NEG_INF;
+        }
+        mx_a = fmaxf(mx_a, s[j][e]);
+        mx_b = fmaxf(mx_b, s[j][2 + e]);
+      }
+    }
+    mx_a = quad_max(mx_a);
+    mx_b = quad_max(mx_b);
+    const float mn_a = fmaxf(m_a, mx_a == NEG_INF ? NEG_INF : mx_a * p.scale_log2);
+    const float mn_b = fmaxf(m_b, mx_b == NEG_INF ? NEG_INF : mx_b * p.scale_log2);
+    const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xa = s[j][e], xb = s[j][2 + e];
+        float pa = ex2(fmaf(xa, p.scale_log2, -mn_a)), pb = ex2(fmaf(xb, p.scale_log2, -mn_b));
+        if (masked) {
+          pa = xa == NEG_INF ? 0.f : pa;
+          pb = xb == NEG_INF ? 0.f : pb;
+        }
+        s[j][e] = pa;
+        s[j][2 + e] = pb;
+        sum_a += pa;
+        sum_b += pb;
+      }
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+    const uint32_t pf[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+
+    // O += P V: ldmatrix.x4.trans gives the B fragments of two 8-wide hd
+    // groups (chunks 2n2, 2n2 + 1; keys 0-7 and 8-15)
+#pragma unroll
+    for (int n2 = 0; n2 < HD / 16; ++n2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vs + tile_off<DBN>(lane % 8 + 8 * ((lane / 8) % 2), 2 * n2 + lane / 16));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* on = o[2 * n2 + h];
+        on[0] *= al_a;
+        on[1] *= al_a;
+        on[2] *= al_b;
+        on[3] *= al_b;
+        mma_16816(on, pf, r[2 * h], r[2 * h + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = g + 8 * half;
+    if (row >= p.G) continue;
+    const float m = half ? m_b : m_a, l = half ? l_b : l_a;
+    if (p.part_m == nullptr) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      bf16* orow = p.o + ((long long)b * p.H + kvh * p.G + row) * HD + kc;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    } else {
+      const long long ix = ((long long)bk * p.n_splits + split) * p.G + row;
+      if (lane % 4 == 0) {
+        p.part_m[ix] = m;
+        p.part_l[ix] = l;
+      }
+      float* arow = p.part_acc + ix * HD + kc;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(arow + 8 * n) = make_float2(o[n][2 * half], o[n][2 * half + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// merge of split-KV partials
+// ---------------------------------------------------------------------------
+
+// One thread per 4 output values of a query row; grid (ceil(S*G*hd/4 / 256),
+// B*K). block_rows and tile are the split pass's row tile and key tile, so
+// n_s is the split pass's own count; a row with no visible key writes 0.
+template <int HD, class KV>
+__global__ void __launch_bounds__(256) merge_kernel(Params p, KV kv, int block_rows, int tile) {
+  constexpr int D4 = HD / 4;
+  const int n_rows = p.S * p.G;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rows * D4) return;
+  const int bk = blockIdx.y, b = bk / p.K, kvh = bk % p.K;
+  const int row = i / D4, d = (i % D4) * 4;
+  const int n_s = tile_span(kv, p, b, min((row / block_rows + 1) * block_rows, n_rows) - 1, tile).n_s;
+  const long long ix0 = (long long)bk * p.n_splits * n_rows + row;
+  float mt = NEG_INF;
+#pragma unroll 4
+  for (int s = 0; s < n_s; ++s) mt = fmaxf(mt, p.part_m[ix0 + (long long)s * n_rows]);
+  float lt = 0.f;
+  float4 at = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s = 0; s < n_s; ++s) {
+    const long long ix = ix0 + (long long)s * n_rows;
+    const float e = ex2(p.part_m[ix] - mt);
+    const float4 a = *reinterpret_cast<const float4*>(p.part_acc + ix * HD + d);
+    lt += p.part_l[ix] * e;
+    at.x += a.x * e;
+    at.y += a.y * e;
+    at.z += a.z * e;
+    at.w += a.w * e;
+  }
+  const float inv = 1.f / fmaxf(lt, 1e-30f);
+  const int t = row / p.G, h = kvh * p.G + row % p.G;
+  uint2 out;
+  out.x = pack_bf16(at.x * inv, at.y * inv);
+  out.y = pack_bf16(at.z * inv, at.w * inv);
+  *reinterpret_cast<uint2*>(p.o + ((long long)(b * p.S + t) * p.H + h) * HD + d) = out;
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <int HD, class KV>
+int launch_merge(const Params& p, const KV& kv, int B, int block_rows, int tile, cudaStream_t st) {
+  const int n = p.S * p.G * (HD / 4);
+  merge_kernel<HD, KV><<<dim3((n + 255) / 256, B * p.K), 256, 0, st>>>(p, kv, block_rows, tile);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, int WG, int STAGES, class KV>
+int launch_chunk(const Params& p, const KV& kv, int B, cudaStream_t st) {
+  using C = ChunkCfg<HD, WG, STAGES>;
+  const auto kernel = chunk_kernel<HD, WG, STAGES, KV>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.S * p.G + C::BM - 1) / C::BM, B * p.K, p.n_splits);
+  kernel<<<grid, WG * 128, C::SMEM, st>>>(p, kv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
+  return launch_merge<HD>(p, kv, B, C::BM, CBN, st);
+}
+
+template <int HD, class KV>
+int launch_decode(const Params& p, const KV& kv, int B, cudaStream_t st) {
+  decode_kernel<HD, KV><<<dim3(p.n_splits, p.K, B), 32, 0, st>>>(p, kv);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
+  return launch_merge<HD>(p, kv, B, p.G, DBN, st);
+}
+
+// block_rows: 64 or 128 query rows per chunk block (one or two warpgroups)
+template <class KV>
+int chunk(const Params& p, const KV& kv, int B, int hd, int block_rows, void* stream) {
+  if (p.K < 1 || p.H != p.K * p.G || p.S < 1 || B < 1 || p.n_splits < 1 || p.split_keys < CBN ||
+      p.split_keys % CBN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one warpgroup: 3 stages (113 KB, two blocks an SM); two: 2 stages
+  // (97 KB at hd = 128; ~160 registers a thread keep one block an SM)
+  if (hd == 128 && block_rows == 64) return launch_chunk<128, 1, 3>(p, kv, B, st);
+  if (hd == 128 && block_rows == 128) return launch_chunk<128, 2, 2>(p, kv, B, st);
+  if (hd == 64 && block_rows == 64) return launch_chunk<64, 1, 3>(p, kv, B, st);
+  if (hd == 64 && block_rows == 128) return launch_chunk<64, 2, 2>(p, kv, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class KV>
+int decode(const Params& p, const KV& kv, int B, int hd, void* stream) {
+  if (p.K < 1 || p.H != p.K * p.G || p.G > 16 || p.S != 1 || B < 1 || p.n_splits < 1 ||
+      p.split_keys < DBN || p.split_keys % DBN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return launch_decode<128>(p, kv, B, st);
+  if (hd == 64) return launch_decode<64>(p, kv, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace attn_sm90
