@@ -306,6 +306,8 @@ def phase_flash(rows):
     # bge-m3: H=K=16, hd=64, bidirectional, right-padded rows (kv_len). The
     # planted fault moves each window edge by one key (the bge-m3 row of
     # length 1 keeps its key, so the fault does not rest on an empty row).
+    # Both kernel designs (chunk_design_plan: "chunk", "ws") are checked and
+    # timed at each shape; the plan's own design is the kernel's row.
     cases = [
         ("llama", 1, 4096, 32, 8, 128, True, [100], [4096]),
         ("bge-m3", 8, 512, 16, 16, 64, False, [0] * 8, [512, 300, 77, 1, 512, 400, 256, 9]),
@@ -316,21 +318,26 @@ def phase_flash(rows):
         v = torch.randn(B, S, K, hd, device=dev, generator=g).to(bf)
         ks = torch.tensor(ks_l, device=dev, dtype=torch.int32)
         kl = torch.tensor(kl_l, device=dev, dtype=torch.int32)
-        got = A.flash_attention(q, k, v, ks, kl, causal=causal)
+        plan = A.chunk_design_plan(B, S, H, K, S, hd, _sms())
         want = A.attention_xla(q, k, v, ks, kl, causal)
+        got = {d: A.flash_attention(q, k, v, ks, kl, causal=causal, design=d) for d in A.CHUNK_DESIGNS}
         torch.cuda.synchronize()
-        err, rms = _attn_check(f"flash {tag}", got, want)
-        worst, worst_rms = max(worst, err), max(worst_rms, rms)
-        if causal and not (got[:, : ks_l[0]] == 0).all():
-            fail("flash: fully masked rows must be zero")
+        for d, out in got.items():
+            err, rms = _attn_check(f"flash {tag} ({d})", out, want)
+            worst, worst_rms = max(worst, err), max(worst_rms, rms)
+            if causal and not (out[:, : ks_l[0]] == 0).all():
+                fail(f"flash ({d}): fully masked rows must be zero")
         del want
         if causal:
             faulty = {"kv_start+1": A.attention_xla(q, k, v, ks + 1, kl, causal)}
         else:
             faulty = {"kv_len-1": A.attention_xla(q, k, v, ks, (kl - 1).clamp_min(1), causal)}
-        fault_rms = _attn_faults(f"flash {tag}", got, faulty)
-        del faulty
-        ms = time_ms(lambda i: A.flash_attention(q, k, v, ks, kl, causal=causal))
+        fault_rms = min(_attn_faults(f"flash {tag} ({d})", out, faulty) for d, out in got.items())
+        del faulty, got
+        design_ms = {d: time_ms(lambda i: A.flash_attention(q, k, v, ks, kl, causal=causal, design=d))
+                     for d in A.CHUNK_DESIGNS}
+        ms = design_ms[plan["design"]]
+        host_us = launch_us(lambda i: A.flash_attention(q, k, v, ks, kl, causal=causal), iters=16)
         plain_ms = time_ms(lambda i: A.attention_xla(q, k, v, ks, kl, causal), iters=3, warmup=1)
         pos = torch.arange(S, device=dev)
         mask = (pos[None, None, :] >= ks[:, None, None]) & (pos[None, None, :] < kl[:, None, None])
@@ -343,17 +350,64 @@ def phase_flash(rows):
         pairs = mask.expand(B, S, S).sum().item()
         nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
         b_ms, b_by = bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
-        print(f"phase flash {tag} B={B} S={S} H={H} K={K} hd={hd} causal={causal}: "
-              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        print(f"phase flash {tag} B={B} S={S} H={H} K={K} hd={hd} causal={causal} {_plan_line(plan)}: "
+              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} "
+              f"({' '.join(f'{d}_ms={t:.4f}' for d, t in design_ms.items())}) plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) host_us={host_us:.1f}", flush=True)
+        row = dict(shape=f"B={B} S={S} H={H} K={K} hd={hd} causal={causal}", design=plan["design"],
+                   ms=ms, design_ms=design_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, host_us=host_us)
         if tag == "llama":
-            rows["flash_attention"] = dict(
-                shape=f"B=1 S=4096 H=32 K=8 hd=128 causal", ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-            )
-        del q, k, v, got
+            rows["flash_attention"] = row
+        else:
+            rows["flash_attention"]["bge_m3"] = row
+        del q, k, v
         torch.cuda.empty_cache()
-    rows["flash_attention"].update(max_abs_err=worst, rel_rms=worst_rms)
+
+    # B = 2, ragged, causal, at the Llama width: row 0's window starts
+    # mid-tile (left pad 37), row 1's starts at 300 and ends mid-tile at 777
+    # (its queries past 777 see [300, 777)); NaN in K/V outside each window
+    # for the kernels, zeros for the plain version. The value rows at the two
+    # edges the planted faults move are scaled by 8, so one key more or less
+    # moves its row's output far past the bf16 noise.
+    B2, S2, H, K, hd = 2, 1024, 32, 8, 128
+    ks_l, kl_l = [37, 300], [S2, 777]
+    q = torch.randn(B2, S2, H, hd, device=dev, generator=g).to(bf)
+    kz = torch.randn(B2, S2, K, hd, device=dev, generator=g).to(bf)
+    vz = torch.randn(B2, S2, K, hd, device=dev, generator=g).to(bf)
+    vz[0, ks_l[0]] *= 8
+    vz[1, kl_l[1] - 1] *= 8
+    kn, vn = kz.clone(), vz.clone()
+    for b, (a, e) in enumerate(zip(ks_l, kl_l)):
+        for nan_t, zero_t in ((kn, kz), (vn, vz)):
+            nan_t[b, :a] = float("nan")
+            nan_t[b, e:] = float("nan")
+            zero_t[b, :a] = 0
+            zero_t[b, e:] = 0
+    ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (ks_l, kl_l))
+    plan = A.chunk_design_plan(B2, S2, H, K, S2, hd, _sms())
+    want = A.attention_xla(q, kz, vz, ks, kl, True)
+    got = {d: A.flash_attention(q, kn, vn, ks, kl, causal=True, design=d) for d in A.CHUNK_DESIGNS}
+    torch.cuda.synchronize()
+    e2 = r2 = 0.0
+    for d, out in got.items():
+        err, rms = _paged_check(f"flash ragged ({d}, NaN outside the windows)", out, want)
+        e2, r2 = max(e2, err), max(r2, rms)
+        for b, a in enumerate(ks_l):
+            if not (out[b, :a] == 0).all():
+                fail(f"flash ragged ({d}): row {b}'s fully masked queries must be zero")
+    first = lambda t, dl, row: t + torch.tensor([dl if b == row else 0 for b in range(B2)],  # noqa: E731
+                                                device=dev, dtype=torch.int32)
+    faulty = {
+        "kv_start+1 (row 0)": A.attention_xla(q, kz, vz, first(ks, 1, 0), kl, True),
+        "kv_len-1 (row 1)": A.attention_xla(q, kz, vz, ks, first(kl, -1, 1), True),
+    }
+    f2 = min(_paged_faults(f"flash ragged ({d})", out, faulty) for d, out in got.items())
+    print(f"phase flash ragged B={B2} S={S2} H={H} K={K} hd={hd} causal=True windows={list(zip(ks_l, kl_l))} "
+          f"{_plan_line(plan)}: {_attn_line(e2, r2, f2)} (row by row, designs {list(got)})", flush=True)
+    rows["flash_attention"].update(max_abs_err=max(worst, e2), rel_rms=max(worst_rms, r2))
+    del q, kz, vz, kn, vn, got, faulty
+    torch.cuda.empty_cache()
 
 
 def _sharpen_edges(q, k_caches, layer, write_index, kv_start):
@@ -508,10 +562,15 @@ def phase_chunk(rows):
         layer = Lc // 2 + 1
         _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
         want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
+        plan = A.chunk_design_plan(B, S, H, K, T, hd, _sms())
+        # the long prompt's one-split plan takes either design: check and time both
+        designs = list(A.CHUNK_DESIGNS) if plan["n_splits"] == 1 else [plan["design"]]
         got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
         err, rms = map(max, zip(
             _attn_check(f"chunk {tag}", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wi), want),
-            _attn_check(f"chunk {tag} (NaN outside the window)", got, want),
+            *(_attn_check(f"chunk {tag} ({d}, NaN outside the window)",
+                          A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi, design=d), want)
+              for d in designs),
         ))
         worst, worst_rms = max(worst, err), max(worst_rms, rms)
         del want
@@ -527,7 +586,9 @@ def phase_chunk(rows):
         fault_rms = _attn_faults(f"chunk {tag}", got, faulty)
         del faulty
         del got
-        ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=64 if S == 16 else 16)
+        design_ms = {d: time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi, design=d),
+                                iters=64 if S == 16 else 16) for d in designs}
+        ms = design_ms[plan["design"]]
         host_us = launch_us(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
         plain_ms = time_ms(lambda i: A.chunk_attention_xla(q, kz, vz, ks, kl, i % Lc, wi),
                            iters=3 if S > 16 else 8, warmup=1)
@@ -539,9 +600,9 @@ def phase_chunk(rows):
         pairs = mask.sum().item()
         nbytes = 2 * B * K * (kl_i - ks_i) * hd * 2 + 2 * q.numel() * 2
         b_ms, b_by = bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
-        print(f"phase chunk {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} "
-              f"{_plan_line(A.chunk_launch_plan(B, S, H, K, T, _sms()))}: "
-              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        print(f"phase chunk {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} {_plan_line(plan)}: "
+              f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} "
+              f"({' '.join(f'{d}_ms={t:.4f}' for d, t in design_ms.items())}) plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) host_us={host_us:.1f}", flush=True)
         if tag == "verify":
             rows["chunk_prefill_attention"] = dict(
@@ -550,8 +611,8 @@ def phase_chunk(rows):
             )
         else:
             rows["chunk_prefill_attention"]["long_prompt"] = dict(
-                shape=f"S=4096 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                shape=f"S=4096 write_index={wi} T={T} H=32 K=8 hd=128", design=plan["design"], ms=ms,
+                design_ms=design_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         del kc, vc, kz, vz, q
         torch.cuda.empty_cache()
 
@@ -580,7 +641,7 @@ def phase_chunk(rows):
         "kv_len-1 (row 0)": A.chunk_attention_xla(q, kz, vz, ks, first(kl, -1), layer, wi),
     })
     print(f"phase chunk B={B2} S={S} write_index={wi} windows={list(zip(ks_l, kl_l))} "
-          f"{_plan_line(A.chunk_launch_plan(B2, S, H, K, T, _sms()))}: {_attn_line(e2, r2, f2)} (row by row)",
+          f"{_plan_line(A.chunk_design_plan(B2, S, H, K, T, hd, _sms()))}: {_attn_line(e2, r2, f2)} (row by row)",
           flush=True)
     del kc, vc, kz, vz, q
     torch.cuda.empty_cache()
@@ -755,7 +816,8 @@ def phase_paged_chunk(rows):
     # (query position, key) pairs every lane computes on, junk lanes included
     pairs = sum(min(w + t + 1, n) for w, n in zip(wi_l, kv_l) for t in range(S))
     b_ms, b_by = _paged_bound(kv_l, K, hd, q.numel() * 2, pairs, H)
-    print(f"phase paged_chunk B={B} S={S} H={H} K={K} hd={hd} bs={bs} write_index={wi_l} kv_len={kv_l}: "
+    print(f"phase paged_chunk B={B} S={S} H={H} K={K} hd={hd} bs={bs} write_index={wi_l} kv_len={kv_l} "
+          f"{_plan_line(A.chunk_launch_plan(B, S, H, K, MB * bs, _sms()))}: "
           f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms=none (no single PyTorch call reads a paged arena) bound_ms={b_ms:.4f} ({b_by})",
           flush=True)
@@ -1757,7 +1819,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
-            **({"long_prompt": r["long_prompt"]} if "long_prompt" in r else {}),
+            **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -29,17 +29,23 @@ yields zeros. The plain versions are named after the JAX oracles they match
 ``paged_*_xla``, and their ``*_q8`` forms, which dequantize one layer and
 reuse the bf16 math) and compute in fp32 with ``p`` cast to the V dtype
 before the PV product. Each wrapper takes its plain version only for CPU
-tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``,
-``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and chunk),
-``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the wrapper
-raises.
+tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``
+(fresh K/V), ``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and
+chunk), ``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the
+wrapper raises. Every bf16 kernel runs a routine of
+``csrc/attention_sm90.cuh``; the q8 chunk kernels still run
+``csrc/attention_tile.cuh``.
 
-The dense bf16 cache kernels may cut each row's visible keys into splits
-and merge the partial ``(m, l, acc)`` in a second pass (split-KV, when the
-grid is small). ``attention_split_plan`` and ``split_bounds`` are the plan
-both kernels follow, and ``decode_attention_split_xla`` /
-``chunk_attention_split_xla`` compute the plain versions through the same
-splits (``attention_splits_plain`` and ``merge_splits``).
+The bf16 chunk-shaped kernels (``flash_attention``,
+``chunk_prefill_attention``, ``paged_chunk_attention``) and the dense decode
+kernel may cut each row's visible keys into splits and merge the partial
+``(m, l, acc)`` in a second pass (split-KV, when the grid is small).
+``attention_split_plan`` and ``split_bounds`` are the plan they follow
+(``chunk_launch_plan``, ``chunk_design_plan``, ``decode_launch_plan``), and
+``decode_attention_split_xla``, ``chunk_attention_split_xla``,
+``flash_attention_split_xla`` and ``paged_chunk_attention_split_xla``
+compute the plain versions through the same splits
+(``attention_splits_plain`` and ``merge_splits``).
 """
 
 from __future__ import annotations
@@ -194,6 +200,37 @@ def chunk_launch_plan(B: int, S: int, H: int, K: int, T: int, n_sm: int) -> dict
                 n_splits=n_splits, blocks=row_tiles * B * K * n_splits)
 
 
+# The chunk-shaped bf16 kernels' designs (csrc/attention_sm90.cuh): the wgmma
+# chunk routine, or the warp-specialized routine (a TMA producer warp and two
+# consumer warpgroups; one split, 128-row tiles of whole positions)
+CHUNK_DESIGNS = {"chunk": 0, "ws": 1}
+WS_BLOCK_ROWS = 128
+# where the warp-specialized routine measured faster (H100, PERF.md §6):
+# the long hd = 128 rows (Llama prefill and long chunks); at bge-m3's 8 x 512,
+# hd = 64 the chunk routine is faster
+WS_HEAD_DIMS = (128,)
+
+
+def chunk_design_plan(B: int, S: int, H: int, K: int, T: int, hd: int, n_sm: int,
+                      design: Optional[str] = None) -> dict:
+    """``chunk_launch_plan`` plus the kernel design of ``flash_attention``
+    and ``chunk_prefill_attention``. The warp-specialized routine ("ws")
+    takes a shape whose chunk plan is one split and whose head group ``G``
+    divides 128; ``design=None`` picks it there for ``hd`` in
+    ``WS_HEAD_DIMS``, and the chunk routine elsewhere."""
+    plan = chunk_launch_plan(B, S, H, K, T, n_sm)
+    G = H // K
+    ws_ok = plan["n_splits"] == 1 and WS_BLOCK_ROWS % G == 0
+    design = design or ("ws" if ws_ok and hd in WS_HEAD_DIMS else "chunk")
+    if design not in CHUNK_DESIGNS or (design == "ws" and not ws_ok):
+        raise ValueError(f"design {design!r} does not take this shape ({plan})")
+    if design == "ws":
+        row_tiles = -(-S * G // WS_BLOCK_ROWS)
+        plan.update(block_rows=WS_BLOCK_ROWS, row_tiles=row_tiles, blocks=row_tiles * B * K)
+    plan["design"] = design
+    return plan
+
+
 def decode_launch_plan(B: int, K: int, T: int, n_sm: int) -> dict:
     """Grid of ``decode_attention``'s kernel: one warp per (split, kv head,
     row)."""
@@ -262,6 +299,55 @@ def decode_attention_split_xla(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _split_merge_row(
+    qr: torch.Tensor,  # [K, n_rows, hd] one batch row's query rows (position, head in group)
+    kk: torch.Tensor,  # [K, T, hd]
+    vv: torch.Tensor,  # [K, T, hd]
+    lo: int,
+    len_b: int,
+    pos: torch.Tensor,  # [n_rows] each query row's position
+    causal: bool,
+    split_keys: int,
+    block_rows: int,
+    tile: int,
+) -> torch.Tensor:
+    """One batch row cut the way the chunk routine cuts it: query rows in
+    tiles of ``block_rows``, each tile's visible keys ``[lo, hi)`` (``hi``
+    clipped by causality at its last row) cut by ``split_bounds``, one
+    partial per split, merged. ``[K, n_rows, hd]`` fp32; rows of a tile no
+    split covers are zero."""
+    K, n_rows, hd = qr.shape
+    T = kk.shape[1]
+    out = torch.zeros((K, n_rows, hd), dtype=torch.float32, device=qr.device)
+    t = torch.arange(T, device=qr.device)
+    s = torch.einsum("krd,ktd->krt", qr.float(), kk.float()) * (hd**-0.5)
+    ok = ((t >= lo) & (t < len_b))[None, :].expand(n_rows, T)
+    if causal:
+        ok = ok & (t[None, :] <= pos[:, None])
+    for r0 in range(0, n_rows, block_rows):
+        r1 = min(r0 + block_rows, n_rows)
+        hi = min(len_b, int(pos[r1 - 1]) + 1) if causal else len_b
+        bounds = split_bounds(lo, hi, split_keys, tile)
+        if bounds:
+            out[:, r0:r1] = merge_splits(*attention_splits_plain(
+                s[:, r0:r1], ok[r0:r1].expand(K, -1, -1), vv, bounds))
+    return out
+
+
+def _query_rows(q_b: torch.Tensor, K: int) -> torch.Tensor:
+    """``[S, H, hd] -> [K, S * G, hd]``: row ``t * G + g`` of kv head ``k``
+    is query head ``k * G + g`` at position ``t``."""
+    S, H, hd = q_b.shape
+    return q_b.reshape(S, K, H // K, hd).transpose(0, 1).reshape(K, S * (H // K), hd)
+
+
+def _from_query_rows(out: torch.Tensor, S: int, dtype: torch.dtype) -> torch.Tensor:
+    """``[B, K, S * G, hd] -> [B, S, H, hd]``, the inverse of ``_query_rows``."""
+    B, K, n_rows, hd = out.shape
+    G = n_rows // S
+    return out.reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4).reshape(B, S, K * G, hd).to(dtype)
+
+
 def chunk_attention_split_xla(
     q: torch.Tensor,  # [B, S, H, hd]
     k_cache: torch.Tensor,  # [L, B, K, T, hd]
@@ -274,31 +360,43 @@ def chunk_attention_split_xla(
     block_rows: int = 64,
     tile: int = CHUNK_TILE_KEYS,
 ) -> torch.Tensor:
-    """``chunk_attention_xla`` computed the way the chunk kernel cuts it:
-    query rows (position, head in group) in tiles of ``block_rows``, each
-    tile's visible keys (clipped by causality at its last row) cut by
-    ``split_bounds``, one partial per split, merged."""
+    """``chunk_attention_xla`` computed the way the chunk kernel cuts it
+    (``_split_merge_row`` for each batch row)."""
     B, S, H, hd = q.shape
     K, T = k_cache.shape[2], k_cache.shape[3]
-    G = H // K
-    n_rows = S * G
-    out = torch.zeros((B, K, n_rows, hd), dtype=torch.float32, device=q.device)
-    t = torch.arange(T, device=q.device)
-    pos = write_index + torch.arange(n_rows, device=q.device) // G  # each row's query position
-    for b in range(B):
-        lo, len_b = int(kv_start[b]), min(int(kv_len[b]), T)
-        qr = q[b].reshape(S, K, G, hd).transpose(0, 1).reshape(K, n_rows, hd).float()
-        s = torch.einsum("krd,ktd->krt", qr, k_cache[layer, b].float()) * (hd**-0.5)
-        ok = ((t >= lo) & (t < len_b))[None, :] & (t[None, :] <= pos[:, None])
-        for r0 in range(0, n_rows, block_rows):
-            r1 = min(r0 + block_rows, n_rows)
-            hi = min(len_b, write_index + (r1 - 1) // G + 1)
-            bounds = split_bounds(lo, hi, split_keys, tile)
-            if bounds:
-                out[b, :, r0:r1] = merge_splits(*attention_splits_plain(
-                    s[:, r0:r1], ok[r0:r1].expand(K, -1, -1), v_cache[layer, b], bounds))
-    out = out.reshape(B, K, S, G, hd).permute(0, 2, 1, 3, 4)
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    pos = write_index + torch.arange(S * (H // K), device=q.device) // (H // K)
+    out = torch.stack([
+        _split_merge_row(_query_rows(q[b], K), k_cache[layer, b], v_cache[layer, b], int(kv_start[b]),
+                         min(int(kv_len[b]), T), pos, True, split_keys, block_rows, tile)
+        for b in range(B)])
+    return _from_query_rows(out, S, q.dtype)
+
+
+def flash_attention_split_xla(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, Sk, K, hd]
+    v: torch.Tensor,
+    kv_start: Optional[torch.Tensor],
+    kv_len: Optional[torch.Tensor],
+    causal: bool,
+    split_keys: int,
+    block_rows: int = 128,
+    tile: int = CHUNK_TILE_KEYS,
+) -> torch.Tensor:
+    """``attention_xla`` computed the way ``flash_attention``'s kernels cut
+    it: query ``t`` at position ``t``, each batch row's window ``[kv_start,
+    min(kv_len, Sk))`` through ``_split_merge_row`` (the warp-specialized
+    routine is one split of 128-row tiles with 128-key tiles)."""
+    B, S, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    pos = torch.arange(S * (H // K), device=q.device) // (H // K)
+    out = torch.stack([
+        _split_merge_row(_query_rows(q[b], K), k[b].transpose(0, 1), v[b].transpose(0, 1),
+                         0 if kv_start is None else int(kv_start[b]),
+                         Sk if kv_len is None else min(int(kv_len[b]), Sk),
+                         pos, causal, split_keys, block_rows, tile)
+        for b in range(B)])
+    return _from_query_rows(out, S, q.dtype)
 
 
 def _gather_paged_layer(
@@ -365,6 +463,34 @@ def _paged_chunk_on_views(q, k, v, kv_len, write_index) -> torch.Tensor:
     )
     o = _softmax_pv(s, ok[:, None, None], v, "bkgqt,bktd->bqkgd")
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def paged_chunk_attention_split_xla(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd]
+    v_arena: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+    write_index: torch.Tensor,  # [B]
+    split_keys: int,
+    block_rows: int = 128,
+    tile: int = CHUNK_TILE_KEYS,
+) -> torch.Tensor:
+    """``paged_chunk_attention_xla`` computed the way its kernel cuts it:
+    each row's blocks gathered through the table (slots past ``kv_len``
+    zeroed), window ``[0, min(kv_len, MB * bs))``, query ``t`` at
+    ``write_index[b] + t``, through ``_split_merge_row``."""
+    B, S, H, _ = q.shape
+    K = k_arena.shape[2]
+    k = _gather_paged_layer(k_arena, block_tables, kv_len, layer)
+    v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)
+    rows = torch.arange(S * (H // K), device=q.device) // (H // K)
+    out = torch.stack([
+        _split_merge_row(_query_rows(q[b], K), k[b], v[b], 0, min(int(kv_len[b]), k.shape[2]),
+                         int(write_index[b]) + rows, True, split_keys, block_rows, tile)
+        for b in range(B)])
+    return _from_query_rows(out, S, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -459,15 +585,13 @@ def paged_chunk_attention_xla_q8(
 
 def _lib() -> ctypes.CDLL:
     return _build.load("attention", {
-        "flash_attention_bf16": (
-            [_VP, _LL, _LL, _LL] * 3 + [_VP, _VP, _VP] + [_I] * 7 + [_F, _VP], _I,
-        ),
+        "flash_attention_sm90": ([_VP, _LL, _LL, _LL] * 3 + [_VP] * 6 + [_I] * 11 + [_F, _VP], _I),
     })
 
 
 def _sm90_lib() -> ctypes.CDLL:
     return _build.load("attention_sm90", {
-        "chunk_attention_sm90": ([_VP] * 9 + [_I] * 12 + [_F, _VP], _I),
+        "chunk_attention_sm90": ([_VP] * 9 + [_I] * 13 + [_F, _VP], _I),
         "decode_attention_sm90": ([_VP] * 9 + [_I] * 9 + [_F, _VP], _I),
     })
 
@@ -525,8 +649,11 @@ def flash_attention(
     kv_start: Optional[torch.Tensor] = None,
     kv_len: Optional[torch.Tensor] = None,
     causal: bool = True,
+    design: Optional[str] = None,
 ) -> torch.Tensor:
-    """Attention over fresh K/V; returns ``[B, Sq, H, hd]`` in q's dtype."""
+    """Attention over fresh K/V; returns ``[B, Sq, H, hd]`` in q's dtype.
+    ``design`` ("chunk" or "ws") overrides ``chunk_design_plan``'s choice
+    of kernel by shape."""
     if q.device.type == "cpu":
         return attention_xla(q, k, v, kv_start, kv_len, causal)
     B, S, H, hd = q.shape
@@ -538,14 +665,17 @@ def flash_attention(
     _check_bf16("flash_attention", dev, q=q, k=k, v=v)
     ks = _window(kv_start, B, 0, dev)
     kl = _window(kv_len, B, Sk, dev)
+    plan = chunk_design_plan(B, S, H, K, Sk, hd, _sm_count(dev.index), design)
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
     lib = _lib()
-    rc = lib.flash_attention_bf16(
+    rc = lib.flash_attention_sm90(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
-        out.data_ptr(), ks.data_ptr(), kl.data_ptr(),
-        B, S, Sk, H, K, hd, int(causal), hd**-0.5, _stream(dev),
+        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), pm, pl, pa,
+        B, S, Sk, H, K, hd, int(causal), CHUNK_DESIGNS[plan["design"]], plan["block_rows"],
+        plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
@@ -608,9 +738,11 @@ def chunk_prefill_attention(
     kv_len: torch.Tensor,
     layer: int,
     write_index: int,
+    design: Optional[str] = None,
 ) -> torch.Tensor:
     """``S`` queries at cache slots ``write_index + t`` over the cache at
-    ``layer``, offset-causal."""
+    ``layer``, offset-causal. ``design`` ("chunk" or "ws") overrides
+    ``chunk_design_plan``'s choice of kernel by shape."""
     if q.device.type == "cpu":
         return chunk_attention_xla(q, k_cache, v_cache, kv_start, kv_len, layer, write_index)
     layer, write_index = int(layer), int(write_index)
@@ -618,14 +750,15 @@ def chunk_prefill_attention(
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
-    plan = chunk_launch_plan(B, S, H, K, T, _sm_count(dev.index))
+    plan = chunk_design_plan(B, S, H, K, T, hd, _sm_count(dev.index), design)
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _sm90_lib()
     rc = lib.chunk_attention_sm90(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer, write_index,
-        plan["block_rows"], plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
+        CHUNK_DESIGNS[plan["design"]], plan["block_rows"], plan["split_keys"], plan["n_splits"],
+        hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "chunk_prefill_attention")
     _build.LAUNCHES["chunk_prefill_attention"] += 1
@@ -644,7 +777,7 @@ PAGED_SPLIT_BLOCKS = 16
 def _paged_lib() -> ctypes.CDLL:
     return _build.load("paged_attention", {
         "paged_decode_attention_bf16": ([_VP] * 9 + [_I] * 11 + [_F, _VP], _I),
-        "paged_chunk_attention_bf16": ([_VP] * 7 + [_I] * 10 + [_F, _VP], _I),
+        "paged_chunk_attention_sm90": ([_VP] * 10 + [_I] * 13 + [_F, _VP], _I),
     })
 
 
@@ -735,12 +868,16 @@ def paged_chunk_attention(
     if tuple(write_index.shape) != (B,) or write_index.dtype != torch.int32 or write_index.device != q.device:
         raise ValueError("paged_chunk_attention: write_index must be int32 [B] on q's device")
     dev = q.device
+    # split plan from the host-known capacity MB * bs: no read of kv_len
+    plan = chunk_launch_plan(B, S, H, K, MB * bs, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _paged_lib()
-    rc = lib.paged_chunk_attention_bf16(
+    rc = lib.paged_chunk_attention_sm90(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), kv_len.data_ptr(), write_index.contiguous().data_ptr(),
-        L, N, B, K, bs, MB, S, H, hd, layer, hd**-0.5, _stream(dev),
+        block_tables.data_ptr(), kv_len.data_ptr(), write_index.contiguous().data_ptr(), pm, pl, pa,
+        L, N, B, K, bs, MB, S, H, hd, layer, plan["block_rows"], plan["split_keys"], plan["n_splits"],
+        hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "paged_chunk_attention")
     _build.LAUNCHES["paged_chunk_attention"] += 1

@@ -22,7 +22,10 @@
 // memory. At S = 16 a (row tile, kv head) grid holds only K = 8 blocks, so
 // the visible keys are cut into tile-aligned splits until the grid holds
 // 2 x the SM count, and a merge pass combines them: every SM streams its
-// share of the bytes. Decode: one warp per (split of ~128 keys, kv head,
+// share of the bytes. The S = 4096 chunk (one split) runs the
+// warp-specialized routine instead (a TMA producer warp, two consumer
+// warpgroups; tensor maps over the layer's [B, K, T, hd] planes), picked by
+// ops.attention.chunk_design_plan. Decode: one warp per (split of ~128 keys, kv head,
 // row) -- 272 warps at B = 1 -- with the G heads of a kv head as rows of an
 // m16n8k16 tile, so no warp reduces across lanes per key, and a 4-stage
 // ring of 16-byte copies keeps each warp's next 48 keys in flight.
@@ -51,6 +54,8 @@ struct DenseKV {
   }
   __device__ const bf16* k_row(int b, int kvh, int kp) const { return k + row(b, kvh, kp); }
   __device__ const bf16* v_row(int b, int kvh, int kp) const { return v + row(b, kvh, kp); }
+  // in the layer's tensor maps (dims hd, T, K, B) a key row is at (kp, kvh, b)
+  __device__ int3 tma_row(int b, int kvh, int kp) const { return make_int3(kp, kvh, b); }
 };
 
 attn_sm90::Params params(const void* q, void* o, void* part_m, void* part_l, void* part_acc,
@@ -74,15 +79,25 @@ DenseKV layer_kv(const void* k_cache, const void* v_cache, const int* kv_start, 
 
 // q, out [B, S, H, hd] contiguous. part_* are the split scratch
 // ([B*K, n_splits, S*H/K] and [..., hd], fp32), null when n_splits == 1.
+// design 0: the chunk routine; 1: the warp-specialized routine (one split).
 extern "C" int chunk_attention_sm90(
     const void* q, const void* k_cache, const void* v_cache, void* o,
     const int* kv_start, const int* kv_len, void* part_m, void* part_l, void* part_acc,
-    int L, int B, int K, int T, int S, int H, int hd, int layer, int write_index,
+    int L, int B, int K, int T, int S, int H, int hd, int layer, int write_index, int design,
     int block_rows, int split_keys, int n_splits, float scale, void* stream) {
-  if (layer < 0 || layer >= L || (n_splits > 1) != (part_m != nullptr)) return (int)cudaErrorInvalidValue;
-  return attn_sm90::chunk(params(q, o, part_m, part_l, part_acc, S, H, K, hd, 1, split_keys, n_splits, scale),
-                          layer_kv(k_cache, v_cache, kv_start, kv_len, B, K, T, hd, layer, write_index),
-                          B, hd, block_rows, stream);
+  if (layer < 0 || layer >= L || K < 1 || (n_splits > 1) != (part_m != nullptr)) return (int)cudaErrorInvalidValue;
+  const attn_sm90::Params p = params(q, o, part_m, part_l, part_acc, S, H, K, hd, 1, split_keys, n_splits, scale);
+  const DenseKV kv = layer_kv(k_cache, v_cache, kv_start, kv_len, B, K, T, hd, layer, write_index);
+  if (design == 0) return attn_sm90::chunk(p, kv, B, hd, block_rows, stream);
+  if (design != 1 || 128 % p.G) return (int)cudaErrorInvalidValue;
+  // Q: a box of G heads x 128 / G positions; K, V: WBN keys x 1 kv head of the layer
+  CUtensorMap tq, tk, tv;
+  const long long KT = (long long)K * T * hd;
+  int rc = attn_sm90::make_tma_4d(&tq, q, B, S, H, hd, (long long)S * H * hd, (long long)H * hd, hd, p.G, 128 / p.G);
+  if (rc == 0) rc = attn_sm90::make_tma_4d(&tk, kv.k, B, K, T, hd, KT, (long long)T * hd, hd, attn_sm90::WBN, 1);
+  if (rc == 0) rc = attn_sm90::make_tma_4d(&tv, kv.v, B, K, T, hd, KT, (long long)T * hd, hd, attn_sm90::WBN, 1);
+  if (rc != 0) return rc;
+  return attn_sm90::ws_chunk(p, kv, tq, tk, tv, B, hd, stream);
 }
 
 // q, out [B, 1, H, hd] contiguous; part_* as above with S = 1.

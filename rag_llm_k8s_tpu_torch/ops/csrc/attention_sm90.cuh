@@ -1,8 +1,12 @@
 // Attention routines for Hopper (sm_90a) over a K/V addressing policy: the
-// chunk routine (S queries per row, wgmma tiles in registers) and the decode
-// routine (one query per row, split-KV on mma.sync), with the pass that
-// merges split-KV partials. attention_sm90.cu runs both over one layer of the
-// dense bf16 cache; the policy interface is the one of attention_tile.cuh:
+// chunk routine (S queries per row, wgmma tiles in registers), its
+// warp-specialized form for long rows (TMA producer warp, two consumer
+// warpgroups, one split) and the decode routine (one query per
+// row, split-KV on mma.sync), with the pass that merges split-KV partials.
+// attention_sm90.cu runs chunk and decode over one layer of the dense bf16
+// cache, attention.cu the chunk and warp-specialized routines over fresh K/V,
+// paged_attention.cu the chunk routine over the paged arena. The policy
+// interface (the one of attention_tile.cuh):
 //
 //   struct KV {
 //     int start(int b) const;    // first valid key position of row b
@@ -33,6 +37,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime: no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -79,6 +84,54 @@ __device__ __forceinline__ void cp_async_wait() {
 // makes this thread's completed shared-memory writes visible to wgmma
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_zero16(uint32_t a) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" :: "r"(a), "r"(0) : "memory");
+}
+
+// mbarriers in shared memory, TMA tile loads that complete on them, a named
+// barrier (a subset of the block's threads) and register reallocation (warp
+// specialization)
+__device__ __forceinline__ void mbar_init(uint32_t a, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(a), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(a) : "memory");
+}
+// arrives and adds `bytes` to the phase's expected transaction count
+__device__ __forceinline__ void mbar_expect_tx(uint32_t a, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(a), "r"(bytes) : "memory");
+}
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory at dst, completing on the mbarrier at bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
@@ -183,6 +236,27 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -241,6 +315,164 @@ __device__ __forceinline__ Span tile_span(const KV& kv, const Params& p, int b, 
 }
 
 // ---------------------------------------------------------------------------
+// one warpgroup's 64 query rows on wgmma fragments
+// ---------------------------------------------------------------------------
+//
+// The m64nN accumulator of a warpgroup gives each thread two rows, a =
+// 16 * warp + lane / 4 and a + 8, and in each 8-column group j the columns
+// 8j + kc, 8j + kc + 1 (kc = 2 * (lane % 4)): x[4j + e] is row a, x[4j + 2 + e]
+// row a + 8. A row lives in the 4 threads of a quad.
+
+struct Rows {
+  float m_a = NEG_INF, m_b = NEG_INF;  // running max, log2 domain
+  float l_a = 0.f, l_b = 0.f;          // running sum (this thread's columns)
+  int qpos_a, qpos_b;                  // the rows' query positions
+};
+
+// Online softmax of the N-key tile at k0 on the score fragments s: leaves
+// the weights in s and the rescale factors of O in al_a, al_b. A tile wholly
+// inside the window and below the diagonal needs no mask (MASKED = false);
+// otherwise an invisible key's raw score becomes NEG_INF and its weight a
+// select to 0 (the raw score of a zero-filled key row is 0, never NaN). The
+// mask is a template parameter so the unmasked loop is straight-line code
+// whose ex2 latencies the compiler can interleave.
+template <int N, bool MASKED>
+__device__ __forceinline__ void online_softmax_tile(float (&s)[N / 2], Rows& r, int k0, int kc, int lo,
+                                                    int len, int causal, float scale_log2, float& al_a,
+                                                    float& al_b) {
+  float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if constexpr (MASKED) {
+        const int kp = k0 + 8 * j + kc + e;
+        const bool in = kp >= lo && kp < len;
+        if (!in || (causal && kp > r.qpos_a)) s[4 * j + e] = NEG_INF;
+        if (!in || (causal && kp > r.qpos_b)) s[4 * j + 2 + e] = NEG_INF;
+      }
+      mx_a = fmaxf(mx_a, s[4 * j + e]);
+      mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
+    }
+  }
+  mx_a = quad_max(mx_a);
+  mx_b = quad_max(mx_b);
+  const float mn_a = fmaxf(r.m_a, mx_a == NEG_INF ? NEG_INF : mx_a * scale_log2);
+  const float mn_b = fmaxf(r.m_b, mx_b == NEG_INF ? NEG_INF : mx_b * scale_log2);
+  al_a = ex2(r.m_a - mn_a);
+  al_b = ex2(r.m_b - mn_b);
+  r.m_a = mn_a;
+  r.m_b = mn_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float xa = s[4 * j + e], xb = s[4 * j + 2 + e];
+      float pa = ex2(fmaf(xa, scale_log2, -mn_a)), pb = ex2(fmaf(xb, scale_log2, -mn_b));
+      if constexpr (MASKED) {
+        pa = xa == NEG_INF ? 0.f : pa;
+        pb = xb == NEG_INF ? 0.f : pb;
+      }
+      s[4 * j + e] = pa;
+      s[4 * j + 2 + e] = pb;
+      sum_a += pa;
+      sum_b += pb;
+    }
+  }
+  r.l_a = r.l_a * al_a + sum_a;
+  r.l_b = r.l_b * al_b + sum_b;
+}
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], Rows& r, int k0, int kc, bool masked,
+                                               int lo, int len, int causal, float scale_log2,
+                                               float& al_a, float& al_b) {
+  if (masked) online_softmax_tile<N, true>(s, r, k0, kc, lo, len, causal, scale_log2, al_a, al_b);
+  else online_softmax_tile<N, false>(s, r, k0, kc, lo, len, causal, scale_log2, al_a, al_b);
+}
+
+// Rescales O to the new running max and rounds P to bf16 as the A operand
+// of the PV product (keys 16kk .. 16kk + 15 are the groups j = 2kk, 2kk + 1).
+template <int HD, int N>
+__device__ __forceinline__ void take_p(float (&o)[HD / 2], const float (&s)[N / 2], uint32_t (&pf)[N / 16][4],
+                                       float al_a, float al_b) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= al_a;
+    o[4 * j + 1] *= al_a;
+    o[4 * j + 2] *= al_b;
+    o[4 * j + 3] *= al_b;
+  }
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = Q K^T over hd in steps of 16 (Q rows q_rows * 128 bytes per column
+// block, this warpgroup's 64 at q_off; K a tile of N rows), then O += P V
+// over the tile's N keys (V read transposed).
+template <int HD, int N>
+__device__ __forceinline__ void mma_qk(float (&s)[N / 2], uint32_t q_s, int q_rows, int q_off, uint32_t ks) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t koff = (kk % 4) * 32;  // 16 of the line's 64 columns
+    const uint64_t da = make_desc(q_s + (kk / 4) * (q_rows * 128) + q_off + koff, 16, 1024);
+    const uint64_t db = make_desc(ks + (kk / 4) * (N * 128) + koff, 16, 1024);
+    if constexpr (N == 128) wgmma_ss_m64n128k16(s, da, db, kk > 0);
+    else wgmma_ss_m64n64k16(s, da, db, kk > 0);
+  }
+}
+template <int HD, int N>
+__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t (&pf)[N / 16][4], uint32_t vs) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint64_t dv = make_desc(vs + kk * 16 * 128, N * 128, 1024);
+    if constexpr (HD == 128) wgmma_rs_m64n128k16(o, pf[kk], dv);
+    else wgmma_rs_m64n64k16(o, pf[kk], dv);
+  }
+}
+
+// Writes this thread's two rows (row_a, row_a + 8 of the n_rows query rows
+// of (b, kvh)): normalized bf16 into o, or with split partials this split's
+// (m, l, acc) in fp32.
+template <int HD>
+__device__ __forceinline__ void store_rows(const Params& p, const float (&o)[HD / 2], Rows& r, int row_a,
+                                           int n_rows, int b, int kvh, int split, int lane) {
+  const int kc = 2 * (lane % 4), bk = b * p.K + kvh;
+  r.l_a = quad_sum(r.l_a);
+  r.l_b = quad_sum(r.l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rr = row_a + 8 * half;
+    if (rr >= n_rows) continue;
+    const float m = half ? r.m_b : r.m_a, l = half ? r.l_b : r.l_a;
+    if (p.part_m == nullptr) {
+      const int t = rr / p.G, h = kvh * p.G + rr % p.G;
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      bf16* orow = p.o + ((long long)(b * p.S + t) * p.H + h) * HD + kc;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+    } else {
+      const long long ix = ((long long)bk * p.n_splits + split) * n_rows + rr;
+      if (lane % 4 == 0) {
+        p.part_m[ix] = m;
+        p.part_l[ix] = l;
+      }
+      float* arow = p.part_acc + ix * HD + kc;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // chunk routine: S queries per row, wgmma
 // ---------------------------------------------------------------------------
 //
@@ -248,14 +480,15 @@ __device__ __forceinline__ Span tile_span(const KV& kv, const Params& p, int b, 
 // head, split), where a query row is a (position, head-in-group) pair: a K/V
 // tile loaded once serves all G heads of its group and both warpgroups.
 // Each warpgroup owns 64 rows: S = Q K^T is one wgmma m64n64 chain with Q
-// and K from shared memory, the softmax runs on the accumulator fragments
-// (each row lives in the 4 threads of a quad), P is rounded to bf16 into
-// the A-operand registers of O += P V (wgmma m64n{hd}, V transposed from
-// shared memory), and O stays in registers. K/V tiles of 64 keys stream
-// through a cp.async ring of STAGES; the copy of tile i + STAGES - 1
-// is in flight while tile i is multiplied. Key tiles wholly outside the
-// window or above the causal diagonal are never visited; blocks are scheduled
-// latest row tile first, so the longest causal rows start first.
+// and K from shared memory, the softmax runs on the accumulator fragments,
+// P is rounded to bf16 into the A-operand registers of O += P V (wgmma
+// m64n{hd}, V transposed from shared memory), and O stays in registers. K/V
+// tiles of 64 keys stream through a cp.async ring of STAGES; the copy of
+// tile i + STAGES - 1 is in flight while tile i is multiplied. Key tiles
+// wholly outside the window or above the causal diagonal are never visited;
+// blocks are scheduled latest row tile first, so the longest causal rows
+// start first. The addressing policy needs only k_row / v_row, so a key tile
+// may gather its rows from anywhere (the paged arena's blocks).
 
 constexpr int CBN = 64;  // keys per tile
 
@@ -316,14 +549,15 @@ __global__ void __launch_bounds__(WG * 128, 1) chunk_kernel(Params p, KV kv) {
     cp_async_commit();
   }
 
-  // this thread's two rows of its warpgroup's 64: a and a + 8
   const int wr0 = r0 + wg * 64;
   const bool wg_live = wr0 < n_rows;
   const int row_a = wr0 + warp * 16 + lane / 4;
-  const int qpos_a = q_offset + row_a / p.G, qpos_b = q_offset + (row_a + 8) / p.G;
+  Rows rs;
+  rs.qpos_a = q_offset + row_a / p.G;
+  rs.qpos_b = q_offset + (row_a + 8) / p.G;
   const int wg_first = q_offset + wr0 / p.G;
   const int wg_last = q_offset + (min(wr0 + 64, n_rows) - 1) / p.G;
-  const int kc = 2 * (lane % 4);  // this thread's first column in each 8-key group
+  const int kc = 2 * (lane % 4);
 
   float o[HD / 2], s[CBN / 2];
   uint32_t pf[CBN / 16][4];  // P of a tile as the A operand of its PV product
@@ -333,95 +567,6 @@ __global__ void __launch_bounds__(WG * 128, 1) chunk_kernel(Params p, KV kv) {
   for (int i = 0; i < CBN / 2; ++i) s[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < CBN / 16; ++i) pf[i][0] = pf[i][1] = pf[i][2] = pf[i][3] = 0u;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-
-  // S = Q K^T over hd in steps of 16
-  auto mma_s = [&](uint32_t ks) {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t koff = (kk % 4) * 32;  // 16 of the line's 64 columns
-      wgmma_ss_m64n64k16(
-          s, make_desc(q_s + (kk / 4) * (C::BM * 128) + wg * 8192 + koff, 16, 1024),
-          make_desc(ks + (kk / 4) * (CBN * 128) + koff, 16, 1024), kk > 0);
-    }
-  };
-  // O += P V over the tile's keys in steps of 16
-  auto mma_pv = [&](uint32_t vs) {
-#pragma unroll
-    for (int kk = 0; kk < CBN / 16; ++kk) {
-      const uint64_t dv = make_desc(vs + kk * 16 * 128, CBN * 128, 1024);
-      if constexpr (HD == 128) wgmma_rs_m64n128k16(o, pf[kk], dv);
-      else wgmma_rs_m64n64k16(o, pf[kk], dv);
-    }
-  };
-  // online softmax of the tile at k0 on the fragments: s[4j + e] is row a,
-  // key k0 + 8j + kc + e; s[4j + 2 + e] row a + 8. Leaves the weights in s
-  // and the rescale factors in al_a, al_b. A tile wholly inside the window
-  // and below the diagonal needs no mask; otherwise an invisible key's raw
-  // score becomes NEG_INF and its weight a select to 0.
-  auto softmax = [&](int k0, float& al_a, float& al_b) {
-    const bool masked = k0 < lo || k0 + CBN > len || (p.causal && k0 + CBN - 1 > wg_first);
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < CBN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (masked) {
-          const int kp = k0 + 8 * j + kc + e;
-          const bool in = kp >= lo && kp < len;
-          if (!in || (p.causal && kp > qpos_a)) s[4 * j + e] = NEG_INF;
-          if (!in || (p.causal && kp > qpos_b)) s[4 * j + 2 + e] = NEG_INF;
-        }
-        mx_a = fmaxf(mx_a, s[4 * j + e]);
-        mx_b = fmaxf(mx_b, s[4 * j + 2 + e]);
-      }
-    }
-    mx_a = quad_max(mx_a);
-    mx_b = quad_max(mx_b);
-    const float mn_a = fmaxf(m_a, mx_a == NEG_INF ? NEG_INF : mx_a * p.scale_log2);
-    const float mn_b = fmaxf(m_b, mx_b == NEG_INF ? NEG_INF : mx_b * p.scale_log2);
-    al_a = ex2(m_a - mn_a);
-    al_b = ex2(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < CBN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float xa = s[4 * j + e], xb = s[4 * j + 2 + e];
-        float pa = ex2(fmaf(xa, p.scale_log2, -mn_a)), pb = ex2(fmaf(xb, p.scale_log2, -mn_b));
-        if (masked) {
-          pa = xa == NEG_INF ? 0.f : pa;
-          pb = xb == NEG_INF ? 0.f : pb;
-        }
-        s[4 * j + e] = pa;
-        s[4 * j + 2 + e] = pb;
-        sum_a += pa;
-        sum_b += pb;
-      }
-    }
-    l_a = l_a * al_a + sum_a;
-    l_b = l_b * al_b + sum_b;
-  };
-  // rescales O to the new running max and rounds P to bf16 as the A
-  // operand (keys 16kk .. 16kk + 15 are the groups j = 2kk, 2kk + 1)
-  auto take_p = [&](float al_a, float al_b) {
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      o[4 * j] *= al_a;
-      o[4 * j + 1] *= al_a;
-      o[4 * j + 2] *= al_b;
-      o[4 * j + 3] *= al_b;
-    }
-#pragma unroll
-    for (int kk = 0; kk < CBN / 16; ++kk) {
-      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-  };
 
   for (int i = 0; i < n_kt; ++i) {
     cp_async_wait<PF - 1>();
@@ -431,50 +576,180 @@ __global__ void __launch_bounds__(WG * 128, 1) chunk_kernel(Params p, KV kv) {
     cp_async_commit();
     const int k0 = k_begin + i * CBN;
     if (!wg_live || (p.causal && k0 > wg_last)) continue;  // nothing this warpgroup sees
+    const bool masked = k0 < lo || k0 + CBN > len || (p.causal && k0 + CBN - 1 > wg_first);
     float al_a, al_b;
     wgmma_fence();
-    mma_s(stage(i));
+    mma_qk<HD, CBN>(s, q_s, C::BM, wg * 8192, stage(i));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    softmax(k0, al_a, al_b);
-    take_p(al_a, al_b);
+    online_softmax<CBN>(s, rs, k0, kc, masked, lo, len, p.causal, p.scale_log2, al_a, al_b);
+    take_p<HD, CBN>(o, s, pf, al_a, al_b);
     wgmma_fence();
-    mma_pv(stage(i) + C::KV_BYTES);
+    mma_pv<HD, CBN>(o, pf, stage(i) + C::KV_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pf);
   }
   cp_async_wait<0>();
+  if (wg_live) store_rows<HD>(p, o, rs, row_a, n_rows, b, kvh, split, lane);
+}
 
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int rr = row_a + 8 * half;
-    if (!wg_live || rr >= n_rows) continue;
-    const float m = half ? m_b : m_a, l = half ? l_b : l_a;
-    if (p.part_m == nullptr) {
-      const int t = rr / p.G, h = kvh * p.G + rr % p.G;
-      const float inv = 1.f / fmaxf(l, 1e-30f);
-      bf16* orow = p.o + ((long long)(b * p.S + t) * p.H + h) * HD + kc;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-            pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
-    } else {
-      const long long ix = ((long long)bk * p.n_splits + split) * n_rows + rr;
-      if (lane % 4 == 0) {
-        p.part_m[ix] = m;
-        p.part_l[ix] = l;
-      }
-      float* arow = p.part_acc + ix * HD + kc;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+// ---------------------------------------------------------------------------
+// warp-specialized chunk routine: a TMA producer warp and two consumer
+// warpgroups (one split)
+// ---------------------------------------------------------------------------
+//
+// For long rows that take one split (the causal Llama prefill, the bge-m3
+// encoder), laid out as FlashAttention-3 lays out its forward pass. One block
+// of three warpgroups per (tile of 128 query rows, batch row, kv head):
+//
+// - Warpgroup 0 gives its registers away (setmaxnreg 40), and one of its
+//   threads issues every copy as a TMA box load: Q once, then K and V tiles
+//   of WBN keys into a ring of ST stages. Each stage has a full mbarrier
+//   (completed by the copies' byte count) and an empty one (completed when
+//   the 256 consumer threads are done with the stage).
+// - Warpgroups 1 and 2 raise their budget (setmaxnreg 232) and each owns 64
+//   rows, with S, P and O in registers as in chunk_kernel. They never meet
+//   at a barrier: each waits only for its tile's copies, so one warpgroup's
+//   softmax runs while the other's products hold the tensor cores. (Making
+//   them take turns with named barriers, around S alone or around the pair
+//   PV_i-1 + S_i, and overlapping a warpgroup's softmax with its own PV
+//   product, all measured slower on the H100; PERF.md §6.)
+//
+// The tensor maps cover whole tensors, so TMA fills rows past a tensor's end
+// with zeros. Rows inside the tensor but outside the row's window
+// [start, len) may hold NaN: each consumer warpgroup zeroes them in a tile
+// the window edge cuts before its products read the tile (both warpgroups
+// write the same zeros). Heaviest row tile first, as chunk_kernel.
+//
+// The policy adds to start / len / offset the outer coordinates of a key
+// row in the K/V tensor maps:  int3 tma_row(int b, int kvh, int kp) const;
+// Q's map is [B, S, H, hd]: a row tile is BM / G positions x G heads.
+
+constexpr int WBN = 128;  // keys per tile
+constexpr int WS_THREADS = 384;
+constexpr int WS_PRODUCER_REGS = 40, WS_CONSUMER_REGS = 232;  // 40 + 2 x 232 = 3 x 168
+
+template <int HD, int ST>
+struct WsCfg {
+  static constexpr int BM = 128;
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int KV_BYTES = WBN * HD * 2;  // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + ST * 2 * KV_BYTES;  // q_full, full[ST], empty[ST]
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * ST) + 1024;  // + alignment
+};
+
+template <int HD, int ST, class KV>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    ws_kernel(Params p, KV kv, const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v) {
+  using C = WsCfg<HD, ST>;
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + C::Q_BYTES;
+  const uint32_t q_full = q_s + C::BAR_OFF;
+  auto full = [&](int i) { return q_full + 8 * (1 + i % ST); };
+  auto empty = [&](int i) { return q_full + 8 * (1 + ST + i % ST); };
+  auto stage = [&](int i) { return kv_s + (i % ST) * 2 * C::KV_BYTES; };  // K, then V
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n_rows = p.S * p.G;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * C::BM;
+  const int b = blockIdx.y / p.K, kvh = blockIdx.y % p.K;
+  const Span sp = tile_span(kv, p, b, min(r0 + C::BM, n_rows) - 1, WBN);
+  const int n_kt = sp.n_s > 0 ? (sp.hi - sp.lo_a + WBN - 1) / WBN : 0;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 256);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int cb = 0; cb < HD / 64; ++cb)
+        tma_load_4d(q_s + cb * C::BM * 128, &tm_q, q_full, cb * 64, kvh * p.G, r0 / p.G, b);
+      for (int i = 0; i < n_kt; ++i) {
+        if (i >= ST) mbar_wait(empty(i), (i / ST - 1) & 1);  // the stage's last use is done
+        mbar_expect_tx(full(i), 2 * C::KV_BYTES);
+        const int3 c = kv.tma_row(b, kvh, sp.lo_a + i * WBN);
+        for (int cb = 0; cb < HD / 64; ++cb) {
+          tma_load_4d(stage(i) + cb * WBN * 128, &tm_k, full(i), cb * 64, c.x, c.y, c.z);
+          tma_load_4d(stage(i) + C::KV_BYTES + cb * WBN * 128, &tm_v, full(i), cb * 64, c.x, c.y, c.z);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<WS_CONSUMER_REGS>();
+  const int w = wg - 1, ct = tid % 128, warp = ct / 32, lane = ct % 32;
+  const int lo = sp.lo, len = kv.len(b), q_offset = kv.offset(b);
+  const int wr0 = r0 + w * 64;
+  const bool wg_live = wr0 < n_rows;
+  const int row_a = wr0 + warp * 16 + lane / 4;
+  Rows rs;
+  rs.qpos_a = q_offset + row_a / p.G;
+  rs.qpos_b = q_offset + (row_a + 8) / p.G;
+  const int wg_first = q_offset + wr0 / p.G;
+  const int wg_last = q_offset + (min(wr0 + 64, n_rows) - 1) / p.G;
+  const int kc = 2 * (lane % 4);
+
+  float o[HD / 2], s[WBN / 2];
+  uint32_t pf[WBN / 16][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WBN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WBN / 16; ++i) pf[i][0] = pf[i][1] = pf[i][2] = pf[i][3] = 0u;
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int k0 = sp.lo_a + i * WBN;
+    const uint32_t ks = stage(i), vs = ks + C::KV_BYTES;
+    mbar_wait(full(i), (i / ST) & 1);
+    if (wg_live && !(p.causal && k0 > wg_last)) {  // some row of this warpgroup sees the tile
+      if (k0 < lo || k0 + WBN > len) {  // a window edge cuts it: zero the rows outside
+        for (int x = ct; x < WBN * CH; x += 128) {
+          const int r = x / CH, kp = k0 + r;
+          if (kp < lo || kp >= len) {
+            const uint32_t off = tile_off<WBN>(r, x % CH);
+            st_shared_zero16(ks + off);
+            st_shared_zero16(vs + off);
+          }
+        }
+        fence_proxy_async();
+        bar_sync(1 + w, 128);  // this warpgroup's 128 threads
+      }
+      const bool masked = k0 < lo || k0 + WBN > len || (p.causal && k0 + WBN - 1 > wg_first);
+      float al_a, al_b;
+      wgmma_fence();
+      mma_qk<HD, WBN>(s, q_s, C::BM, w * 8192, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      online_softmax<WBN>(s, rs, k0, kc, masked, lo, len, p.causal, p.scale_log2, al_a, al_b);
+      take_p<HD, WBN>(o, s, pf, al_a, al_b);
+      wgmma_fence();
+      mma_pv<HD, WBN>(o, pf, vs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pf);
+    }
+    mbar_arrive(empty(i));
+  }
+  if (wg_live) store_rows<HD>(p, o, rs, row_a, n_rows, b, kvh, 0, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -733,6 +1008,65 @@ int launch_decode(const Params& p, const KV& kv, int B, cudaStream_t st) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
   return launch_merge<HD>(p, kv, B, p.G, DBN, st);
+}
+
+template <int HD, int ST, class KV>
+int launch_ws(const Params& p, const KV& kv, const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, int B, cudaStream_t st) {
+  using C = WsCfg<HD, ST>;
+  const auto kernel = ws_kernel<HD, ST, KV>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((p.S * p.G + C::BM - 1) / C::BM, B * p.K), WS_THREADS, C::SMEM, st>>>(p, kv, tq, tk, tv);
+  return (int)cudaGetLastError();
+}
+
+// Tensor map for ws_kernel of a bf16 tensor [n0, n1, n2, hd] with element
+// strides s0, s1, s2 (multiples of 8) and a contiguous head dim: a box of 64
+// columns (one 128-byte swizzle line) x box1 rows of dim 2 x box2 rows of
+// dim 1, zero fill out of bounds. The encoder is looked up through
+// the runtime, so the library needs no -lcuda.
+inline int make_tma_4d(CUtensorMap* map, const void* base, long long n0, long long n1, long long n2, int hd,
+                       long long s0, long long s1, long long s2, unsigned box1, unsigned box2) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return static_cast<Encode>(nullptr);
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t d[4] = {(cuuint64_t)hd, (cuuint64_t)n2, (cuuint64_t)n1, (cuuint64_t)n0};
+  const cuuint64_t s[3] = {2ull * s2, 2ull * s1, 2ull * s0};
+  const cuuint32_t box[4] = {64, box1, box2, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, s, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The warp-specialized routine: one split, 128 query rows per block, G a
+// divisor of 128 (a row tile is whole positions); tq, tk, tv as ws_kernel.
+template <class KV>
+int ws_chunk(const Params& p, const KV& kv, const CUtensorMap& tq, const CUtensorMap& tk,
+             const CUtensorMap& tv, int B, int hd, void* stream) {
+  if (p.K < 1 || p.H != p.K * p.G || 128 % p.G || p.S < 1 || B < 1 || p.n_splits != 1 ||
+      p.part_m != nullptr || p.split_keys < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 2 stages at hd = 128 (160 KB), 4 at hd = 64 (144 KB); one block an SM
+  if (hd == 128) return launch_ws<128, 2>(p, kv, tq, tk, tv, B, st);
+  if (hd == 64) return launch_ws<64, 4>(p, kv, tq, tk, tv, B, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // block_rows: 64 or 128 query rows per chunk block (one or two warpgroups)

@@ -1,8 +1,8 @@
-// Blockwise online-softmax GQA attention for sm_90a: the device routine shared
-// by attention.cu (fresh K/V), paged_attention.cu (the block-pool arena) and
-// attention_q8.cu (the int8 chunk kernels). The dense bf16 cache kernels run
-// the Hopper routines of attention_sm90.cuh over the same policy interface. Where a key row lives is the only thing that differs, so
-// the routine is a template over a K/V addressing policy:
+// Blockwise online-softmax GQA attention for sm_90a: the device routine of
+// attention_q8.cu's two int8 chunk kernels (dense cache and paged arena).
+// Every bf16 attention kernel runs the Hopper routines of attention_sm90.cuh
+// over the same policy interface. Where a key row lives is the only thing
+// that differs, so the routine is a template over a K/V addressing policy:
 //
 //   struct KV {
 //     static constexpr bool kInt8;  // payload type: bf16, or int8 + scales

@@ -26,15 +26,23 @@
 // shuffles, the softmax rescales per unit, p is rounded to bf16 before the PV
 // product as on the TPU, and the four warps' states merge in shared memory.
 //
-// paged_chunk_attention. The templated routine of attention_tile.cuh with a
-// paged addressing policy: a 64-key tile gathers its rows through the table,
-// and the causal offset is the row's own write_index. The mixed window of the
-// continuous engine (B = 8, S = 64) carries up to 64 real lanes per row.
+// paged_chunk_attention. Bound by bytes at the continuous engine's mixed
+// window (B = 8, S = 64, H = 32, K = 8, hd = 128, bs = 16, MB = 272: rows 4 of
+// decode, 3 of prompt chunks and an empty one, ~21 us). The wgmma chunk
+// routine of attention_sm90.cuh (chunk_kernel) with a paged addressing
+// policy: a 64-key tile gathers its rows through the table (one row pointer
+// per copied row, cp.async with zero fill past the frontier), and the causal
+// offset is the row's own write_index. With B * K (row tile, row, kv head)
+// blocks the grid is small, so each row's visible keys are cut into
+// tile-aligned splits planned from the host-known capacity MB * bs (no read
+// of kv_len on the host) and merged by the routine's second pass. A lane
+// past kv_len (the junk lanes of a decode row) sees every key below kv_len,
+// as in the TPU kernel.
 
-#include "attention_tile.cuh"
+#include "attention_sm90.cuh"
 
-using attn_tile::bf16;
-using attn_tile::NEG_INF;
+using attn_sm90::bf16;
+using attn_sm90::NEG_INF;
 
 namespace {
 
@@ -42,7 +50,6 @@ namespace {
 // tables[b * MB + kp / bs] at slot kp % bs; window [0, min(kv_len, MB * bs)),
 // query 0 of row b at logical position write_index[b].
 struct PagedKV {
-  static constexpr bool kInt8 = false;
   const bf16* k;  // the layer's [N, K, bs, hd] planes
   const bf16* v;
   const int* tables;
@@ -96,7 +103,11 @@ __device__ __forceinline__ void unpack(const LaneVec<DPL>& x, float* f) {
   }
 }
 
-using attn_tile::warp_sum;
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
 
 template <int HD, int G>
 __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split(DecodeParams p) {
@@ -278,21 +289,26 @@ extern "C" int paged_decode_attention_bf16(
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int paged_chunk_attention_bf16(
+// q, out [B, S, H, hd] contiguous; part_* the split scratch ([B*K,
+// n_splits, S*H/K] and [..., hd], fp32), null when n_splits == 1.
+extern "C" int paged_chunk_attention_sm90(
     const void* q, const void* k_arena, const void* v_arena, void* o,
     const int* tables, const int* kv_len, const int* write_index,
+    void* part_m, void* part_l, void* part_acc,
     int L, int N, int B, int K, int bs, int MB, int S, int H, int hd, int layer,
-    float scale, void* stream) {
-  if (layer < 0 || layer >= L || K < 1 || bs < 1) return (int)cudaErrorInvalidValue;
+    int block_rows, int split_keys, int n_splits, float scale, void* stream) {
+  if (layer < 0 || layer >= L || K < 1 || bs < 1 || (n_splits > 1) != (part_m != nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long blk_stride = (long long)K * bs * hd;
   const long long layer_off = (long long)layer * N * blk_stride;
   const PagedKV kv{static_cast<const bf16*>(k_arena) + layer_off,
                    static_cast<const bf16*>(v_arena) + layer_off,
                    tables, kv_len, write_index, blk_stride, MB, bs, hd};
-  const attn_tile::QParams qp{static_cast<const bf16*>(q), (long long)S * H * hd,
-                              (long long)H * hd, hd, static_cast<bf16*>(o),
-                              S, H, K, H / K, 1, scale};
-  return attn_tile::dispatch(qp, kv, B, hd, stream);
+  const attn_sm90::Params p{static_cast<const bf16*>(q), (long long)S * H * hd, (long long)H * hd, hd,
+                            static_cast<bf16*>(o), static_cast<float*>(part_m), static_cast<float*>(part_l),
+                            static_cast<float*>(part_acc), S, H, K, H / K, 1, split_keys, n_splits,
+                            scale * 1.4426950408889634f};
+  return attn_sm90::chunk(p, kv, B, hd, block_rows, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {
