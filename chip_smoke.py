@@ -9,16 +9,18 @@
 2. Kernel phases: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it (the paged kernels at B = 8 over an arena
    with NaN in every block no row owns; the four int8-cache kernels with NaN
-   in every scale outside a window; the dense decode and chunk kernels also
-   at B = 2 with ragged windows, one of them empty, edges mid-tile and
-   mid-split), with its time, the plain version's time, one PyTorch library
-   call computing the same function (``library_ms``, a yardstick the port
-   never calls; none reads a paged arena or an int8 cache), all as device
-   time per call (``time_ms``: calls queued behind a spin kernel, so a
-   wrapper's host time is not counted; the dense decode and chunk phases
-   also print the host's time to launch one call), the least time the card
-   could take (``bound_ms``, from this run's inputs) and, for an int8
-   kernel, its bf16 counterpart's time at the same shape.
+   in every scale outside a window; the dense bf16 decode and chunk kernels
+   and the dense int8 chunk kernel also at B = 2 with ragged windows, edges
+   mid-tile and mid-split, an empty one for bf16; the q8 chunk kernels also
+   against their plain split-then-merge versions), with its time, the plain
+   version's time, one PyTorch library call computing the same function
+   (``library_ms``, a yardstick the port never calls; none reads a paged
+   arena or an int8 cache), all as device time per call (``time_ms``:
+   calls queued behind a spin kernel, so a wrapper's host time is not
+   counted; the dense decode and chunk phases also print the host's time to
+   launch one call), the least time the card could take (``bound_ms``, from
+   this run's inputs) and, for an int8 kernel, its bf16 counterpart's time
+   at the same shape.
 3. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
    bf16 weights) through the kernels against the same forward through the
    plain attention.
@@ -944,15 +946,19 @@ def phase_chunk_q8(rows):
         (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
         (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
         plain = lambda *a, **kw: A.chunk_attention_xla_q8(q, *a, **kw)  # noqa: E731
+        plan = A.chunk_launch_plan(B, S, H, K, T, _sms())
         want = plain(k8, v8, ksz, vsz, ks, kl, layer, wi)
+        split_want = A.chunk_attention_split_xla_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi, plan["split_keys"],
+                                                    plan["block_rows"])
         got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wi)
         err, rms = map(max, zip(
             _attn_check(f"chunk_q8 {tag}", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi),
                         want),
             _attn_check(f"chunk_q8 {tag} (NaN scales outside the window)", got, want),
+            _attn_check(f"chunk_q8 {tag} (against the split plain version)", got, split_want),
         ))
         worst, worst_rms = max(worst, err), max(worst_rms, rms)
-        del want
+        del want, split_want
         faulty = {
             "write_index+1": plain(k8, v8, ksz, vsz, ks, kl, layer, wi + 1),
             "write_index-1": plain(k8, v8, ksz, vsz, ks, kl, layer, wi - 1),
@@ -972,7 +978,7 @@ def phase_chunk_q8(rows):
         pairs = ((pos[None, :] >= ks_i) & (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None])).sum().item()
         b_ms, b_by = bound(B * (kl_i - ks_i) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * pairs,
                            BF16_FLOPS)
-        print(f"phase chunk_q8 {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd}: "
+        print(f"phase chunk_q8 {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} {_plan_line(plan)}: "
               f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
               f"library_ms=none (no single PyTorch call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by})",
               flush=True)
@@ -986,7 +992,44 @@ def phase_chunk_q8(rows):
                 ms=ms, plain_ms=plain_ms, bf16_kernel_ms=bf16_ms, bound_ms=b_ms, bound_by=b_by)
         del kc, vc, kz, vz, k8, v8, k8x, v8x, q
         torch.cuda.empty_cache()
-    rows["chunk_prefill_attention_q8"].update(max_abs_err=worst, rel_rms=worst_rms)
+
+    # B = 2, ragged, at the verify's width: row 0's window starts mid-tile,
+    # row 1's starts mid-tile and ends mid-tile inside the chunk (its queries
+    # t >= 9 see up to key 4108); NaN scales outside both; checked row by row
+    S, wi, T, B2 = 16, 4100, 4352, 2
+    ks_l, kl_l = [37, 2085], [wi + S, wi + 9]
+    kc, vc, kz, vz = _ragged_cache_pair(L, B2, K, T, hd, ks_l, kl_l, g)
+    vc, vz = _scale_rows(g, vc, vz)
+    q = torch.randn(B2, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (ks_l, kl_l))
+    layer = L // 2 + 1
+    _sharpen_edges(q, (kc, kz), layer, wi, ks_l[0])
+    (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+    (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+    plain = lambda *a, **kw: A.chunk_attention_xla_q8(q, *a, **kw)  # noqa: E731
+    plan = A.chunk_launch_plan(B2, S, H, K, T, _sms())
+    want = plain(k8, v8, ksz, vsz, ks, kl, layer, wi)
+    got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wi)
+    torch.cuda.synchronize()
+    e2, r2 = map(max, zip(
+        _paged_check("chunk_q8 B=2", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi), want),
+        _paged_check("chunk_q8 B=2 (NaN scales outside the windows)", got, want),
+        _paged_check("chunk_q8 B=2 (against the split plain version)", got, A.chunk_attention_split_xla_q8(
+            q, k8, v8, ksz, vsz, ks, kl, layer, wi, plan["split_keys"], plan["block_rows"])),
+    ))
+    row = lambda t, d, b: t + torch.tensor([d * (b == 0), d * (b == 1)], device=dev, dtype=torch.int32)  # noqa: E731
+    f2 = _paged_faults("chunk_q8 B=2", got, {
+        "write_index+1": plain(k8, v8, ksz, vsz, ks, kl, layer, wi + 1),
+        "write_index-1": plain(k8, v8, ksz, vsz, ks, kl, layer, wi - 1),
+        "kv_start+1 (row 0)": plain(k8, v8, ksz, vsz, row(ks, 1, 0), kl, layer, wi),
+        "kv_len-1 (row 1)": plain(k8, v8, ksz, vsz, ks, row(kl, -1, 1), layer, wi),
+        "k/v scales swapped": plain(k8, v8, vsz, ksz, ks, kl, layer, wi),
+    })
+    print(f"phase chunk_q8 B={B2} S={S} write_index={wi} windows={list(zip(ks_l, kl_l))} {_plan_line(plan)}: "
+          f"{_attn_line(e2, r2, f2)} (row by row)", flush=True)
+    del kc, vc, kz, vz, k8, v8, k8x, v8x, q
+    torch.cuda.empty_cache()
+    rows["chunk_prefill_attention_q8"].update(max_abs_err=max(worst, e2), rel_rms=max(worst_rms, r2))
 
 
 def _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g):
@@ -1072,6 +1115,7 @@ def phase_paged_chunk_q8(rows):
     _sharpen_paged(q, (ka, kz), layer, tables, wi_l, kv_l, n_real)
     (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
     plain = A.paged_chunk_attention_xla_q8
+    plan = A.chunk_launch_plan(B, S, H, K, MB * bs, _sms())
     want = plain(q, k8, v8, ksz, vsz, tables, kv_len, layer, wi)
     got = A.paged_chunk_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer, wi)
     torch.cuda.synchronize()
@@ -1079,6 +1123,8 @@ def phase_paged_chunk_q8(rows):
         _paged_check("paged_chunk_q8",
                      A.paged_chunk_attention_q8(q, k8, v8, ksz, vsz, tables, kv_len, layer, wi), want),
         _paged_check("paged_chunk_q8 (NaN scales outside the live blocks)", got, want),
+        _paged_check("paged_chunk_q8 (against the split plain version)", got, A.paged_chunk_attention_split_xla_q8(
+            q, k8, v8, ksz, vsz, tables, kv_len, layer, wi, plan["split_keys"], plan["block_rows"])),
     ))
     short = kv_len.clone()
     short[0] -= 1
@@ -1102,7 +1148,8 @@ def phase_paged_chunk_q8(rows):
     bf16_ms = time_ms(lambda i: A.paged_chunk_attention(q, ka, va, tables, kv_len, layer - i % 2, wi), iters=16)
     pairs = sum(min(w + t + 1, n) for w, n in zip(wi_l, kv_l) for t in range(S))
     b_ms, b_by = bound(sum(kv_l) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
-    print(f"phase paged_chunk_q8 B={B} S={S} H={H} K={K} hd={hd} bs={bs} write_index={wi_l} kv_len={kv_l}: "
+    print(f"phase paged_chunk_q8 B={B} S={S} H={H} K={K} hd={hd} bs={bs} write_index={wi_l} kv_len={kv_l} "
+          f"{_plan_line(plan)}: "
           f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
           f"library_ms=none (no single PyTorch call reads an int8 arena) bound_ms={b_ms:.4f} ({b_by})", flush=True)
     rows["paged_chunk_attention_q8"] = dict(
@@ -1738,7 +1785,8 @@ def main() -> int:
     reports = _build.build()
     for src, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # C7518: ptxas serialized a kernel's wgmma (a branch between a wgmma and its wait)
+            if "registers" in line or "spill" in line or "C7518" in line:
                 print(f"ptxas {src}: {line.strip()}")
     print(f"phase build kernels: {sorted(reports) or 'cached'} s={time.monotonic() - t:.1f}", flush=True)
 

@@ -32,20 +32,21 @@ before the PV product. Each wrapper takes its plain version only for CPU
 tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``
 (fresh K/V), ``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and
 chunk), ``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the
-wrapper raises. Every bf16 kernel runs a routine of
-``csrc/attention_sm90.cuh``; the q8 chunk kernels still run
-``csrc/attention_tile.cuh``.
+wrapper raises. Every attention kernel but the q8 decode ones runs a routine
+of ``csrc/attention_sm90.cuh``; the two q8 chunk kernels run its int8 form of
+the chunk routine.
 
-The bf16 chunk-shaped kernels (``flash_attention``,
-``chunk_prefill_attention``, ``paged_chunk_attention``) and the dense decode
+The chunk-shaped kernels (``flash_attention``, ``chunk_prefill_attention``,
+``paged_chunk_attention`` and their ``*_q8`` forms) and the dense decode
 kernel may cut each row's visible keys into splits and merge the partial
 ``(m, l, acc)`` in a second pass (split-KV, when the grid is small).
 ``attention_split_plan`` and ``split_bounds`` are the plan they follow
 (``chunk_launch_plan``, ``chunk_design_plan``, ``decode_launch_plan``), and
 ``decode_attention_split_xla``, ``chunk_attention_split_xla``,
-``flash_attention_split_xla`` and ``paged_chunk_attention_split_xla``
-compute the plain versions through the same splits
-(``attention_splits_plain`` and ``merge_splits``).
+``flash_attention_split_xla``, ``paged_chunk_attention_split_xla`` and the
+q8 forms ``chunk_attention_split_xla_q8`` and
+``paged_chunk_attention_split_xla_q8`` compute the plain versions through
+the same splits (``attention_splits_plain`` and ``merge_splits``).
 """
 
 from __future__ import annotations
@@ -243,12 +244,16 @@ def attention_splits_plain(
     ok: torch.Tensor,  # [..., Q, T] visible keys
     v: torch.Tensor,  # [..., T, hd]
     bounds: List[Tuple[int, int]],
+    v_scale: Optional[torch.Tensor] = None,  # [..., T] int8 V's scales (0 outside the window)
+    p_dtype: Optional[torch.dtype] = None,
 ):
     """Partial ``(m, l, acc)`` of each key split ``[a, b)`` in ``bounds``,
     stacked on a leading split axis: ``m`` the max visible score
     (``NEG_INF`` where a row sees none of the split's keys), ``l`` the sum
     of ``exp(s - m)`` over visible keys, ``acc`` the same weights, cast to
-    v's dtype, times v, in fp32."""
+    ``p_dtype`` (default v's dtype), times v, in fp32. With ``v_scale`` (an
+    int8 v) the weights are multiplied by it before the cast, and ``l``
+    takes them unscaled."""
     ms, ls, accs = [], [], []
     for a, b in bounds:
         sk, okk = s[..., a:b], ok[..., a:b]
@@ -257,7 +262,8 @@ def attention_splits_plain(
         p = torch.where(okk, torch.exp(x - m[..., None]), torch.zeros_like(x))
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.matmul(p.to(v.dtype).float(), v[..., a:b, :].float()))
+        pv = p if v_scale is None else p * v_scale[..., None, a:b]
+        accs.append(torch.matmul(pv.to(p_dtype or v.dtype).float(), v[..., a:b, :].float()))
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 
@@ -310,17 +316,23 @@ def _split_merge_row(
     split_keys: int,
     block_rows: int,
     tile: int,
+    k_scale: Optional[torch.Tensor] = None,  # [K, T] an int8 kk's scales, 0 outside [lo, len_b)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One batch row cut the way the chunk routine cuts it: query rows in
     tiles of ``block_rows``, each tile's visible keys ``[lo, hi)`` (``hi``
     clipped by causality at its last row) cut by ``split_bounds``, one
     partial per split, merged. ``[K, n_rows, hd]`` fp32; rows of a tile no
-    split covers are zero."""
+    split covers are zero. With scales (int8 kk and vv), each score column
+    is multiplied by its k-scale and the PV operand is ``p * v_scale``
+    rounded to q's dtype, as the q8 kernels do."""
     K, n_rows, hd = qr.shape
     T = kk.shape[1]
     out = torch.zeros((K, n_rows, hd), dtype=torch.float32, device=qr.device)
     t = torch.arange(T, device=qr.device)
     s = torch.einsum("krd,ktd->krt", qr.float(), kk.float()) * (hd**-0.5)
+    if k_scale is not None:
+        s = s * k_scale[:, None, :]
     ok = ((t >= lo) & (t < len_b))[None, :].expand(n_rows, T)
     if causal:
         ok = ok & (t[None, :] <= pos[:, None])
@@ -330,7 +342,8 @@ def _split_merge_row(
         bounds = split_bounds(lo, hi, split_keys, tile)
         if bounds:
             out[:, r0:r1] = merge_splits(*attention_splits_plain(
-                s[:, r0:r1], ok[r0:r1].expand(K, -1, -1), vv, bounds))
+                s[:, r0:r1], ok[r0:r1].expand(K, -1, -1), vv, bounds, v_scale,
+                None if v_scale is None else qr.dtype))
     return out
 
 
@@ -576,6 +589,75 @@ def paged_chunk_attention_xla_q8(
     ``paged_chunk_attention_xla_q8``)."""
     kd, vd = _dequant_paged_layer(k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, q.dtype)
     return _paged_chunk_on_views(q, kd, vd, kv_len, write_index)
+
+
+def _window_scales(scale: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``[K, T]`` scales of one row with those outside ``[lo, hi)`` set to 0
+    (they may hold NaN)."""
+    t = torch.arange(scale.shape[-1], device=scale.device)
+    return torch.where((t >= lo) & (t < hi), scale, torch.zeros((), dtype=scale.dtype, device=scale.device))
+
+
+def chunk_attention_split_xla_q8(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_cache: torch.Tensor,  # [L, B, K, T, hd] int8
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, K, T] fp32
+    v_scale: torch.Tensor,
+    kv_start: torch.Tensor,
+    kv_len: torch.Tensor,
+    layer: int,
+    write_index: int,
+    split_keys: int,
+    block_rows: int = 64,
+    tile: int = CHUNK_TILE_KEYS,
+) -> torch.Tensor:
+    """``chunk_attention_xla_q8`` computed the way the q8 chunk kernel cuts
+    it: the int8 payload as it is, each score column times its k-scale, the
+    PV operand ``p * v_scale`` in q's dtype, scales outside each row's window
+    zeroed, through ``_split_merge_row``."""
+    B, S, H, hd = q.shape
+    K, T = k_cache.shape[2], k_cache.shape[3]
+    pos = write_index + torch.arange(S * (H // K), device=q.device) // (H // K)
+    rows = []
+    for b in range(B):
+        lo, hi = int(kv_start[b]), min(int(kv_len[b]), T)
+        rows.append(_split_merge_row(
+            _query_rows(q[b], K), k_cache[layer, b], v_cache[layer, b], lo, hi, pos, True, split_keys,
+            block_rows, tile, _window_scales(k_scale[layer, b], lo, hi), _window_scales(v_scale[layer, b], lo, hi)))
+    return _from_query_rows(torch.stack(rows), S, q.dtype)
+
+
+def paged_chunk_attention_split_xla_q8(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd] int8
+    v_arena: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, N, K, bs] fp32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+    write_index: torch.Tensor,  # [B]
+    split_keys: int,
+    block_rows: int = 128,
+    tile: int = CHUNK_TILE_KEYS,
+) -> torch.Tensor:
+    """``paged_chunk_attention_xla_q8`` computed the way the q8 paged chunk
+    kernel cuts it: payload and scales gathered through the table (slots past
+    ``kv_len`` zeroed), then ``chunk_attention_split_xla_q8``'s arithmetic
+    per row with query ``t`` at ``write_index[b] + t``."""
+    B, S, H, _ = q.shape
+    K = k_arena.shape[2]
+    k = _gather_paged_layer(k_arena, block_tables, kv_len, layer)
+    v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)
+    ks = _gather_paged_layer(k_scale, block_tables, kv_len, layer)
+    vs = _gather_paged_layer(v_scale, block_tables, kv_len, layer)
+    rows = torch.arange(S * (H // K), device=q.device) // (H // K)
+    out = torch.stack([
+        _split_merge_row(_query_rows(q[b], K), k[b], v[b], 0, min(int(kv_len[b]), k.shape[2]),
+                         int(write_index[b]) + rows, True, split_keys, block_rows, tile, ks[b], vs[b])
+        for b in range(B)])
+    return _from_query_rows(out, S, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -896,9 +978,9 @@ Q8_SPLIT_KEYS = 256
 def _q8_lib() -> ctypes.CDLL:
     return _build.load("attention_q8", {
         "decode_attention_q8": ([_VP] * 11 + [_I] * 9 + [_F, _VP], _I),
-        "chunk_attention_q8": ([_VP] * 8 + [_I] * 9 + [_F, _VP], _I),
+        "chunk_attention_q8": ([_VP] * 11 + [_I] * 12 + [_F, _VP], _I),
         "paged_decode_attention_q8": ([_VP] * 11 + [_I] * 11 + [_F, _VP], _I),
-        "paged_chunk_attention_q8": ([_VP] * 9 + [_I] * 10 + [_F, _VP], _I),
+        "paged_chunk_attention_q8": ([_VP] * 12 + [_I] * 13 + [_F, _VP], _I),
     })
 
 
@@ -982,22 +1064,25 @@ def chunk_prefill_attention_q8(
     write_index: int,
 ) -> torch.Tensor:
     """``S`` queries at cache slots ``write_index + t`` over the int8 cache
-    at ``layer``, offset-causal."""
+    at ``layer``, offset-causal; split-KV as ``chunk_launch_plan`` plans it."""
     if q.device.type == "cpu":
         return chunk_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer, write_index)
     layer, write_index = int(layer), int(write_index)
     L, B, K, T, hd, H = _check_q8("chunk_prefill_attention_q8", q, k_cache, v_cache, k_scale, v_scale, layer)
-    if q.shape[0] != B:
-        raise ValueError(f"chunk_prefill_attention_q8: q{tuple(q.shape)} against a cache of B={B}")
+    if q.shape[0] != B or T % 4:
+        raise ValueError(f"chunk_prefill_attention_q8: q{tuple(q.shape)} against a cache of B={B}, T={T} "
+                         "(T % 4 == 0: the scales travel in 16-byte pieces)")
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    plan = chunk_launch_plan(B, S, H, K, T, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
     rc = lib.chunk_attention_q8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), L, B, K, T, S, H, hd, layer, write_index,
-        hd**-0.5, _stream(dev),
+        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer, write_index,
+        plan["block_rows"], plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "chunk_prefill_attention_q8")
     _build.LAUNCHES["chunk_prefill_attention_q8"] += 1
@@ -1051,7 +1136,8 @@ def paged_chunk_attention_q8(
     write_index: torch.Tensor,  # [B] int32
 ) -> torch.Tensor:
     """``S`` queries per row at logical slots ``write_index[b] + t`` over
-    the row's live blocks of the int8 arena, offset-causal."""
+    the row's live blocks of the int8 arena, offset-causal; split-KV planned
+    from the capacity ``MB * bs`` (no read of ``kv_len``)."""
     if q.device.type == "cpu":
         return paged_chunk_attention_xla_q8(
             q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, write_index
@@ -1062,12 +1148,15 @@ def paged_chunk_attention_q8(
     B, S, dev = q.shape[0], q.shape[1], q.device
     if tuple(write_index.shape) != (B,) or write_index.dtype != torch.int32 or write_index.device != dev:
         raise ValueError("paged_chunk_attention_q8: write_index must be int32 [B] on q's device")
+    plan = chunk_launch_plan(B, S, H, K, MB * bs, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
     rc = lib.paged_chunk_attention_q8(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         out.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(), write_index.contiguous().data_ptr(),
-        L, N, B, K, bs, MB, S, H, hd, layer, hd**-0.5, _stream(dev),
+        pm, pl, pa, L, N, B, K, bs, MB, S, H, hd, layer, plan["block_rows"], plan["split_keys"],
+        plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "paged_chunk_attention_q8")
     _build.LAUNCHES["paged_chunk_attention_q8"] += 1

@@ -36,15 +36,22 @@
 // reduce across the warp with shuffles, and the four warps' states merge in
 // shared memory.
 //
-// Chunk (dense and paged): the tile routine of attention_tile.cuh with an
-// int8 payload policy; the payload enters shared memory as bf16 and the
-// scales act on the score and probability tiles.
+// Chunk (dense and paged): the int8 chunk routine of attention_sm90.cuh
+// (chunk_q8_kernel), the wgmma chunk routine of the bf16 kernels with the
+// payload widened to bf16 in shared memory and the scales acting on the score
+// and probability fragments, with split-KV and the merge pass planned as for
+// the bf16 chunk kernels (ops.attention.chunk_launch_plan; the paged one from
+// the host-known capacity MB * bs). Bounds on an H100: the S = 16 verify at
+// T = 4352 reads ~8.5 MB per layer (2.5 us, bytes); the mixed window at
+// B = 8, S = 64 (15,000 live keys, every lane of a row computing) is bound by
+// operations (~16 us); the S = 4096 chunk at write_index 4096 does ~405 GFLOP
+// (0.41 ms, operations).
 
-#include "attention_tile.cuh"
+#include "attention_sm90.cuh"
 
-using attn_tile::bf16;
-using attn_tile::NEG_INF;
-using attn_tile::warp_sum;
+using attn_sm90::bf16;
+using attn_sm90::NEG_INF;
+using attn_sm90::warp_sum;
 
 namespace {
 
@@ -52,7 +59,6 @@ namespace {
 // index (b * K + kvh) * T + kp, payload at that index * hd; window
 // [max(kv_start, 0), min(kv_len, T)), query 0 at q_offset.
 struct DenseQ8 {
-  static constexpr bool kInt8 = true;
   const int8_t* k;
   const int8_t* v;
   const float* ks;
@@ -69,15 +75,14 @@ struct DenseQ8 {
   }
   __device__ const int8_t* k_row(int b, int kvh, int kp) const { return k + srow(b, kvh, kp) * hd; }
   __device__ const int8_t* v_row(int b, int kvh, int kp) const { return v + srow(b, kvh, kp) * hd; }
-  __device__ float k_scale(int b, int kvh, int kp) const { return ks[srow(b, kvh, kp)]; }
-  __device__ float v_scale(int b, int kvh, int kp) const { return vs[srow(b, kvh, kp)]; }
+  __device__ const float* k_scales(int b, int kvh, int kp) const { return ks + srow(b, kvh, kp); }
+  __device__ const float* v_scales(int b, int kvh, int kp) const { return vs + srow(b, kvh, kp); }
 };
 
 // One layer of the int8 arena: key kp of row b in physical block
 // tables[b * MB + kp / bs] at slot kp % bs, scale index (phys * K + kvh) * bs
 // + kp % bs; window [0, min(kv_len, MB * bs)), query 0 at write_index[b].
 struct PagedQ8 {
-  static constexpr bool kInt8 = true;
   const int8_t* k;
   const int8_t* v;
   const float* ks;
@@ -96,8 +101,8 @@ struct PagedQ8 {
   }
   __device__ const int8_t* k_row(int b, int kvh, int kp) const { return k + srow(b, kvh, kp) * hd; }
   __device__ const int8_t* v_row(int b, int kvh, int kp) const { return v + srow(b, kvh, kp) * hd; }
-  __device__ float k_scale(int b, int kvh, int kp) const { return ks[srow(b, kvh, kp)]; }
-  __device__ float v_scale(int b, int kvh, int kp) const { return vs[srow(b, kvh, kp)]; }
+  __device__ const float* k_scales(int b, int kvh, int kp) const { return ks + srow(b, kvh, kp); }
+  __device__ const float* v_scales(int b, int kvh, int kp) const { return vs + srow(b, kvh, kp); }
 };
 
 constexpr int UNIT = 16;  // keys a warp takes at a time (never across a block)
@@ -318,9 +323,12 @@ DecodeParams decode_params(const void* q, void* o, float* part_m, float* part_l,
                       K, H, split_units, n_splits, scale};
 }
 
-attn_tile::QParams chunk_q(const void* q, void* o, int S, int H, int K, int hd, float scale) {
-  return attn_tile::QParams{static_cast<const bf16*>(q), (long long)S * H * hd, (long long)H * hd, hd,
-                            static_cast<bf16*>(o), S, H, K, H / (K > 0 ? K : 1), 1, scale};
+attn_sm90::Params chunk_params(const void* q, void* o, void* part_m, void* part_l, void* part_acc,
+                               int S, int H, int K, int hd, int split_keys, int n_splits, float scale) {
+  return attn_sm90::Params{static_cast<const bf16*>(q), (long long)S * H * hd, (long long)H * hd, hd,
+                           static_cast<bf16*>(o), static_cast<float*>(part_m), static_cast<float*>(part_l),
+                           static_cast<float*>(part_acc), S, H, K, H / K, 1, split_keys, n_splits,
+                           scale * 1.4426950408889634f};
 }
 
 }  // namespace
@@ -346,19 +354,25 @@ extern "C" int decode_attention_q8(
                          kv, B, hd, stream);
 }
 
+// q, out [B, S, H, hd] contiguous; part_* the split scratch ([B*K,
+// n_splits, S*H/K] and [..., hd], fp32), null when n_splits == 1. T % 4 == 0
+// (the scales travel in 16-byte pieces).
 extern "C" int chunk_attention_q8(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
     const void* v_scale, void* o, const int* kv_start, const int* kv_len,
+    void* part_m, void* part_l, void* part_acc,
     int L, int B, int K, int T, int S, int H, int hd, int layer, int write_index,
-    float scale, void* stream) {
-  if (layer < 0 || layer >= L) return (int)cudaErrorInvalidValue;
+    int block_rows, int split_keys, int n_splits, float scale, void* stream) {
+  if (layer < 0 || layer >= L || K < 1 || T % 4 || (n_splits > 1) != (part_m != nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long s_off = (long long)layer * B * K * T;
   const DenseQ8 kv{static_cast<const int8_t*>(k_cache) + s_off * hd,
                    static_cast<const int8_t*>(v_cache) + s_off * hd,
                    static_cast<const float*>(k_scale) + s_off,
                    static_cast<const float*>(v_scale) + s_off,
                    kv_start, kv_len, K, T, hd, write_index};
-  return attn_tile::dispatch(chunk_q(q, o, S, H, K, hd, scale), kv, B, hd, stream);
+  return attn_sm90::chunk_q8(chunk_params(q, o, part_m, part_l, part_acc, S, H, K, hd, split_keys, n_splits, scale),
+                             kv, B, hd, block_rows, stream);
 }
 
 // The arena: payload [L, N, K, bs, hd] int8, scales [L, N, K, bs] fp32.
@@ -381,19 +395,23 @@ extern "C" int paged_decode_attention_q8(
                          kv, B, hd, stream);
 }
 
+// q, out and part_* as chunk_attention_q8; bs % 4 == 0.
 extern "C" int paged_chunk_attention_q8(
     const void* q, const void* k_arena, const void* v_arena, const void* k_scale,
     const void* v_scale, void* o, const int* tables, const int* kv_len, const int* write_index,
+    void* part_m, void* part_l, void* part_acc,
     int L, int N, int B, int K, int bs, int MB, int S, int H, int hd, int layer,
-    float scale, void* stream) {
-  if (layer < 0 || layer >= L || bs < 1) return (int)cudaErrorInvalidValue;
+    int block_rows, int split_keys, int n_splits, float scale, void* stream) {
+  if (layer < 0 || layer >= L || K < 1 || bs < 4 || bs % 4 || (n_splits > 1) != (part_m != nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long s_off = (long long)layer * N * K * bs;
   const PagedQ8 kv{static_cast<const int8_t*>(k_arena) + s_off * hd,
                    static_cast<const int8_t*>(v_arena) + s_off * hd,
                    static_cast<const float*>(k_scale) + s_off,
                    static_cast<const float*>(v_scale) + s_off,
                    tables, kv_len, write_index, K, MB, bs, hd};
-  return attn_tile::dispatch(chunk_q(q, o, S, H, K, hd, scale), kv, B, hd, stream);
+  return attn_sm90::chunk_q8(chunk_params(q, o, part_m, part_l, part_acc, S, H, K, hd, split_keys, n_splits, scale),
+                             kv, B, hd, block_rows, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -1,12 +1,13 @@
 // Attention routines for Hopper (sm_90a) over a K/V addressing policy: the
-// chunk routine (S queries per row, wgmma tiles in registers), its
-// warp-specialized form for long rows (TMA producer warp, two consumer
-// warpgroups, one split) and the decode routine (one query per
-// row, split-KV on mma.sync), with the pass that merges split-KV partials.
-// attention_sm90.cu runs chunk and decode over one layer of the dense bf16
-// cache, attention.cu the chunk and warp-specialized routines over fresh K/V,
-// paged_attention.cu the chunk routine over the paged arena. The policy
-// interface (the one of attention_tile.cuh):
+// chunk routine (S queries per row, wgmma tiles in registers), its form over
+// an int8 payload, its warp-specialized form for long rows (TMA producer
+// warp, two consumer warpgroups, one split) and the decode routine (one
+// query per row, split-KV on mma.sync), with the pass that merges split-KV
+// partials. attention_sm90.cu runs chunk and decode over one layer of the
+// dense bf16 cache, attention.cu the chunk and warp-specialized routines over
+// fresh K/V, paged_attention.cu the chunk routine over the paged arena,
+// attention_q8.cu the int8 chunk routine over the int8 cache and arena. The
+// policy interface (the int8 routine's is in its own section):
 //
 //   struct KV {
 //     int start(int b) const;    // first valid key position of row b
@@ -203,6 +204,11 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 // 2^x (MUFU; relative error ~2^-22, flushes to 0 far below the range)
@@ -588,6 +594,240 @@ __global__ void __launch_bounds__(WG * 128, 1) chunk_kernel(Params p, KV kv) {
     wgmma_fence();
     mma_pv<HD, CBN>(o, pf, stage(i) + C::KV_BYTES);
     wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+  }
+  cp_async_wait<0>();
+  if (wg_live) store_rows<HD>(p, o, rs, row_a, n_rows, b, kvh, split, lane);
+}
+
+// ---------------------------------------------------------------------------
+// chunk routine over an int8 payload
+// ---------------------------------------------------------------------------
+//
+// chunk_kernel over a cache whose K and V rows are int8 with one fp32 scale
+// per (key, kv head). The policy's rows are int8, and it adds the scales:
+//
+//   const int8_t* k_row(int b, int kvh, int kp) const;    // hd bytes, 16-byte
+//   const int8_t* v_row(int b, int kvh, int kp) const;    //   aligned
+//   const float* k_scales(int b, int kvh, int kp) const;  // key kp's scale; the
+//   const float* v_scales(int b, int kvh, int kp) const;  //   4 keys from a multiple
+//                                                         //   of 4 are contiguous
+//
+// The function of the TPU q8 kernels: K and V are converted exactly to bf16
+// (|x| <= 127), each score column is multiplied by its k-scale before the
+// running max, and the A operand of the PV product is bf16(p * v-scale) while
+// the running sum takes p. A scale outside the window (it may be NaN) is set
+// to 0 as its tile is converted, before it multiplies anything. Neither scale
+// is folded into the payload, which would round differently.
+//
+// cp.async carries each tile's int8 K and V (64 rows of hd bytes, rows
+// outside the window zero-filled) and its 64 k- and v-scales (16-byte pieces,
+// read whole when a piece holds a key of the window: a piece may straddle its
+// edge) into a ring of STAGES. wgmma has no bf16 x int8 form and reads B from
+// shared memory, so the block's threads widen a landed tile into the bf16
+// 128-byte-swizzled layout that mma_qk and mma_pv read, with the
+// window-selected scales beside it, in one of NB buffers. With two, tile
+// i + 1's K is converted while the tensor cores multiply tile i's S = Q K^T
+// and its V while they multiply O += P V. With one (a block of one
+// warpgroup: two blocks then fit an SM), a tile is converted between two
+// barriers before its products.
+
+// four int8 (one word) to four bf16 (two words, in order), exactly: byte x,
+// offset to x + 128, becomes the low mantissa byte of the fp32 2^23, the
+// offset is subtracted, and the upper half of the fp32 is the bf16 (an
+// integer of magnitude <= 128 has at most 8 significant bits)
+__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// Multiplies this thread's columns of an N-key tile (both rows) by their
+// per-key factors f[col] in shared memory.
+template <int N>
+__device__ __forceinline__ void scale_cols(float (&s)[N / 2], const float* f, int kc) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 x = *reinterpret_cast<const float2*>(f + 8 * j + kc);
+    s[4 * j] *= x.x;
+    s[4 * j + 1] *= x.y;
+    s[4 * j + 2] *= x.x;
+    s[4 * j + 3] *= x.y;
+  }
+}
+
+template <int HD, int WG, int STAGES, int NB>
+struct ChunkQ8Cfg {
+  static constexpr int BM = 64 * WG;
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int BF_BYTES = CBN * HD * 2;  // one converted K or V tile
+  static constexpr int SC_BYTES = CBN * 4;       // one tile's k- or v-scales
+  static constexpr int I8_BYTES = CBN * HD;      // one int8 K or V tile
+  static constexpr int STAGE_BYTES = 2 * I8_BYTES + 2 * SC_BYTES;
+  // Q, NB converted K/V pairs, their scales, then the int8 ring
+  static constexpr int BF_OFF = Q_BYTES;
+  static constexpr int SC_OFF = BF_OFF + NB * 2 * BF_BYTES;
+  static constexpr int RING_OFF = SC_OFF + NB * 2 * SC_BYTES;
+  static constexpr int SMEM = RING_OFF + STAGES * STAGE_BYTES + 1024;  // + alignment
+};
+
+template <int HD, int WG, int STAGES, int NB, class KV>
+__global__ void __launch_bounds__(WG * 128, 1) chunk_q8_kernel(Params p, KV kv) {
+  using C = ChunkQ8Cfg<HD, WG, STAGES, NB>;
+  constexpr int NT = WG * 128;
+  constexpr int CH = HD / 8;    // 16-byte chunks of a bf16 row
+  constexpr int CH8 = HD / 16;  // 16-byte chunks of an int8 row
+  constexpr int CV = 2 * CBN * CH8 / NT;  // int8 chunks each thread widens per tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const sm = smem_raw + (q_s - smem_u32(smem_raw));  // q_s as a pointer
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int n_rows = p.S * p.G;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * C::BM;
+  const int bk = blockIdx.y, b = bk / p.K, kvh = bk % p.K, split = blockIdx.z;
+  const Span sp = tile_span(kv, p, b, min(r0 + C::BM, n_rows) - 1, CBN);
+  if (split >= max(sp.n_s, 1)) return;
+  const int lo = sp.lo, len = kv.len(b), q_offset = kv.offset(b);
+  const int k_begin = sp.lo_a + split * p.split_keys;
+  const int k_end = min(sp.hi, k_begin + p.split_keys);
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + CBN - 1) / CBN : 0;
+
+  for (int x = tid; x < C::BM * CH; x += NT) {
+    const int r = x / CH, c = x % CH, rr = r0 + r;
+    const bool in = rr < n_rows;
+    const int t = in ? rr / p.G : 0, h = kvh * p.G + (in ? rr % p.G : 0);
+    cp_async16(q_s + tile_off<C::BM>(r, c), p.q + b * p.q_sb + t * p.q_st + h * p.q_sh + c * 8, in);
+  }
+  auto stage = [&](int i) { return C::RING_OFF + (i % STAGES) * C::STAGE_BYTES; };  // K, V, k-, v-scales
+  // each thread copies chunk lc of int8 rows lr, lr + NT / CH8, ...; warp 0
+  // also copies the 2 x 16 scale pieces
+  const int lc = tid % CH8, lr = tid / CH8;
+  auto load_kv = [&](int i) {
+    const int k0 = k_begin + i * CBN;
+    const uint32_t ks = q_s + stage(i), vs = ks + C::I8_BYTES;
+#pragma unroll
+    for (int n = lr; n < CBN; n += NT / CH8) {
+      const int kp = k0 + n;
+      const bool in = kp >= lo && kp < len;
+      const int kr = in ? kp : lo;
+      cp_async16(ks + n * HD + lc * 16, kv.k_row(b, kvh, kr) + lc * 16, in);
+      cp_async16(vs + n * HD + lc * 16, kv.v_row(b, kvh, kr) + lc * 16, in);
+    }
+    if (tid < 2 * CBN / 4) {
+      const int n = (tid % (CBN / 4)) * 4, kp = k0 + n;
+      const bool in = kp + 3 >= lo && kp < len;
+      const int kr = in ? kp : lo & ~3;
+      const float* src = tid < CBN / 4 ? kv.k_scales(b, kvh, kr) : kv.v_scales(b, kvh, kr);
+      cp_async16(vs + C::I8_BYTES + (tid / (CBN / 4)) * C::SC_BYTES + n * 4, src, in);
+    }
+  };
+  // widens tile i's int8 K (part 0; with the tile's scales, 0 outside the
+  // window) or V (part 1) into bf16 buffer c
+  auto convert = [&](int i, int c, int part) {
+    const int k0 = k_begin + i * CBN;
+    const unsigned char* src = sm + stage(i);
+    unsigned char* dst = sm + C::BF_OFF + c * 2 * C::BF_BYTES;
+#pragma unroll
+    for (int j = part * CV / 2; j < (part + 1) * CV / 2; ++j) {
+      const int x = tid + j * NT, half = x / (CBN * CH8), n = (x / CH8) % CBN, c8 = x % CH8;  // half 0: K, 1: V
+      const uint4 w = *reinterpret_cast<const uint4*>(src + half * C::I8_BYTES + n * HD + c8 * 16);
+      uint4 a, z;  // bf16 chunks 2 c8 and 2 c8 + 1 of row n
+      i8x4_to_bf16x4(w.x, a.x, a.y);
+      i8x4_to_bf16x4(w.y, a.z, a.w);
+      i8x4_to_bf16x4(w.z, z.x, z.y);
+      i8x4_to_bf16x4(w.w, z.z, z.w);
+      // an odd column block stores its second chunk first: the 8 threads of
+      // a 16-byte store phase then hit 8 different bank groups
+      const int sw = (c8 >> 2) & 1;
+      unsigned char* t = dst + half * C::BF_BYTES;
+      *reinterpret_cast<uint4*>(t + tile_off<CBN>(n, 2 * c8 + sw)) = sw ? z : a;
+      *reinterpret_cast<uint4*>(t + tile_off<CBN>(n, 2 * c8 + 1 - sw)) = sw ? a : z;
+    }
+    if (part == 0) {  // every thread writes one scale (two threads the same one when NT = 256)
+      const int x = tid % (2 * CBN), kp = k0 + x % CBN;
+      const float sc = reinterpret_cast<const float*>(src + 2 * C::I8_BYTES)[x];
+      reinterpret_cast<float*>(sm + C::SC_OFF + c * 2 * C::SC_BYTES)[x] = kp >= lo && kp < len ? sc : 0.f;
+    }
+  };
+  // tiles 0 .. AHEAD - 1 in flight (Q travels with tile 0); iteration i
+  // issues tile i + AHEAD into the stage of the last tile converted
+  constexpr int AHEAD = STAGES + NB - 2;
+#pragma unroll
+  for (int i = 0; i < AHEAD; ++i) {
+    if (i < n_kt) load_kv(i);
+    cp_async_commit();
+  }
+
+  const int wr0 = r0 + wg * 64;
+  const bool wg_live = wr0 < n_rows;
+  const int row_a = wr0 + warp * 16 + lane / 4;
+  Rows rs;
+  rs.qpos_a = q_offset + row_a / p.G;
+  rs.qpos_b = q_offset + (row_a + 8) / p.G;
+  const int wg_first = q_offset + wr0 / p.G;
+  const int kc = 2 * (lane % 4);
+
+  float o[HD / 2], s[CBN / 2];
+  uint32_t pf[CBN / 16][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < CBN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < CBN / 16; ++i) pf[i][0] = pf[i][1] = pf[i][2] = pf[i][3] = 0u;
+
+  if (NB == 2 && n_kt > 0) {
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();  // tile 0 has landed
+    convert(0, 0, 0);
+    convert(0, 0, 1);
+  }
+  for (int i = 0; i < n_kt; ++i) {
+    // NB = 2: tile i is converted and tile i + 1 has landed; NB = 1: tile i
+    // has landed. Either way every product of tile i - 1 is done.
+    cp_async_wait<STAGES - 2>();
+    if constexpr (NB == 2) fence_proxy_async();
+    __syncthreads();
+    if (i + AHEAD < n_kt) load_kv(i + AHEAD);
+    cp_async_commit();
+    if constexpr (NB == 1) {
+      convert(i, 0, 0);
+      convert(i, 0, 1);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // No branch may stand between a wgmma and its wait (ptxas would then
+    // serialize every wgmma), so a warpgroup multiplies every tile: a tile
+    // wholly above its diagonal, or a warpgroup past the last row, is masked
+    // to no effect. With NB = 2 the conversion of tile i + 1 runs during the
+    // products; after the last tile it widens whatever that stage holds into
+    // a buffer no product reads.
+    const int k0 = k_begin + i * CBN, c = NB == 2 ? i & 1 : 0;
+    const uint32_t kb = q_s + C::BF_OFF + c * 2 * C::BF_BYTES;
+    const float* ksc = reinterpret_cast<const float*>(sm + C::SC_OFF + c * 2 * C::SC_BYTES);
+    const bool masked = k0 < lo || k0 + CBN > len || (p.causal && k0 + CBN - 1 > wg_first);
+    float al_a, al_b;
+    wgmma_fence();
+    mma_qk<HD, CBN>(s, q_s, C::BM, wg * 8192, kb);
+    wgmma_commit();
+    if constexpr (NB == 2) convert(i + 1, c ^ 1, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    scale_cols<CBN>(s, ksc, kc);
+    online_softmax<CBN>(s, rs, k0, kc, masked, lo, len, p.causal, p.scale_log2, al_a, al_b);
+    scale_cols<CBN>(s, ksc + CBN, kc);  // p * v-scale; the sum took p
+    take_p<HD, CBN>(o, s, pf, al_a, al_b);
+    wgmma_fence();
+    mma_pv<HD, CBN>(o, pf, kb + C::BF_BYTES);
+    wgmma_commit();
+    if constexpr (NB == 2) convert(i + 1, c ^ 1, 1);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pf);
@@ -989,17 +1229,30 @@ int launch_merge(const Params& p, const KV& kv, int B, int block_rows, int tile,
   return (int)cudaGetLastError();
 }
 
+// a chunk-routine kernel of bm-row tiles (bm / 64 warpgroups) over the
+// (row tile, batch row x kv head, split) grid, then the merge pass
+template <int HD, class KV>
+int launch_chunk_grid(void (*kernel)(Params, KV), int bm, int smem, const Params& p, const KV& kv, int B,
+                      cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.S * p.G + bm - 1) / bm, B * p.K, p.n_splits);
+  kernel<<<grid, bm * 2, smem, st>>>(p, kv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
+  return launch_merge<HD>(p, kv, B, bm, CBN, st);
+}
+
 template <int HD, int WG, int STAGES, class KV>
 int launch_chunk(const Params& p, const KV& kv, int B, cudaStream_t st) {
   using C = ChunkCfg<HD, WG, STAGES>;
-  const auto kernel = chunk_kernel<HD, WG, STAGES, KV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S * p.G + C::BM - 1) / C::BM, B * p.K, p.n_splits);
-  kernel<<<grid, WG * 128, C::SMEM, st>>>(p, kv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
-  return launch_merge<HD>(p, kv, B, C::BM, CBN, st);
+  return launch_chunk_grid<HD>(chunk_kernel<HD, WG, STAGES, KV>, C::BM, C::SMEM, p, kv, B, st);
+}
+
+template <int HD, int WG, int STAGES, int NB, class KV>
+int launch_chunk_q8(const Params& p, const KV& kv, int B, cudaStream_t st) {
+  using C = ChunkQ8Cfg<HD, WG, STAGES, NB>;
+  return launch_chunk_grid<HD>(chunk_q8_kernel<HD, WG, STAGES, NB, KV>, C::BM, C::SMEM, p, kv, B, st);
 }
 
 template <int HD, class KV>
@@ -1069,12 +1322,16 @@ int ws_chunk(const Params& p, const KV& kv, const CUtensorMap& tq, const CUtenso
   return (int)cudaErrorInvalidValue;
 }
 
+// the shapes and split plan the chunk routines take
+inline bool chunk_params_ok(const Params& p, int B) {
+  return p.K >= 1 && p.H == p.K * p.G && p.S >= 1 && B >= 1 && p.n_splits >= 1 && p.split_keys >= CBN &&
+         p.split_keys % CBN == 0;
+}
+
 // block_rows: 64 or 128 query rows per chunk block (one or two warpgroups)
 template <class KV>
 int chunk(const Params& p, const KV& kv, int B, int hd, int block_rows, void* stream) {
-  if (p.K < 1 || p.H != p.K * p.G || p.S < 1 || B < 1 || p.n_splits < 1 || p.split_keys < CBN ||
-      p.split_keys % CBN)
-    return (int)cudaErrorInvalidValue;
+  if (!chunk_params_ok(p, B)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // one warpgroup: 3 stages (113 KB, two blocks an SM); two: 2 stages
   // (97 KB at hd = 128; ~160 registers a thread keep one block an SM)
@@ -1082,6 +1339,20 @@ int chunk(const Params& p, const KV& kv, int B, int hd, int block_rows, void* st
   if (hd == 128 && block_rows == 128) return launch_chunk<128, 2, 2>(p, kv, B, st);
   if (hd == 64 && block_rows == 64) return launch_chunk<64, 1, 3>(p, kv, B, st);
   if (hd == 64 && block_rows == 128) return launch_chunk<64, 2, 2>(p, kv, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// chunk over an int8 payload, 3 int8 stages: one warpgroup converts into one
+// buffer (99 KB at hd = 128, two blocks an SM), two into two (148 KB, one
+// block an SM)
+template <class KV>
+int chunk_q8(const Params& p, const KV& kv, int B, int hd, int block_rows, void* stream) {
+  if (!chunk_params_ok(p, B)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128 && block_rows == 64) return launch_chunk_q8<128, 1, 3, 1>(p, kv, B, st);
+  if (hd == 128 && block_rows == 128) return launch_chunk_q8<128, 2, 3, 2>(p, kv, B, st);
+  if (hd == 64 && block_rows == 64) return launch_chunk_q8<64, 1, 3, 1>(p, kv, B, st);
+  if (hd == 64 && block_rows == 128) return launch_chunk_q8<64, 2, 3, 2>(p, kv, B, st);
   return (int)cudaErrorInvalidValue;
 }
 

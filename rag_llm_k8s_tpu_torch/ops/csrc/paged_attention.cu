@@ -43,6 +43,7 @@
 
 using attn_sm90::bf16;
 using attn_sm90::NEG_INF;
+using attn_sm90::warp_sum;
 
 namespace {
 
@@ -101,12 +102,6 @@ __device__ __forceinline__ void unpack(const LaneVec<DPL>& x, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 template <int HD, int G>
