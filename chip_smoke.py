@@ -9,18 +9,18 @@
 2. Kernel phases: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it (the paged kernels at B = 8 over an arena
    with NaN in every block no row owns; the four int8-cache kernels with NaN
-   in every scale outside a window; the dense bf16 decode and chunk kernels
-   and the dense int8 chunk kernel also at B = 2 with ragged windows, edges
-   mid-tile and mid-split, an empty one for bf16; the q8 chunk kernels also
-   against their plain split-then-merge versions), with its time, the plain
-   version's time, one PyTorch library call computing the same function
-   (``library_ms``, a yardstick the port never calls; none reads a paged
-   arena or an int8 cache), all as device time per call (``time_ms``:
-   calls queued behind a spin kernel, so a wrapper's host time is not
-   counted; the dense decode and chunk phases also print the host's time to
-   launch one call), the least time the card could take (``bound_ms``, from
-   this run's inputs) and, for an int8 kernel, its bf16 counterpart's time
-   at the same shape.
+   in every scale outside a window; the dense decode and chunk kernels,
+   bf16 and int8, also at B = 2 with ragged windows, edges mid-tile and
+   mid-split, an empty one but for the int8 chunk; the four q8 kernels also
+   against their plain split-then-merge versions at the kernel's own plan),
+   with its time, the plain version's time, one PyTorch library call
+   computing the same function (``library_ms``, a yardstick the port never
+   calls; none reads a paged arena or an int8 cache), all as device time per
+   call (``time_ms``: calls queued behind a spin kernel, so a wrapper's host
+   time is not counted; the dense decode and chunk phases and the q8 decode
+   phases also print the host's time to launch one call), the least time
+   the card could take (``bound_ms``, from this run's inputs) and, for an
+   int8 kernel, its bf16 counterpart's time at the same shape.
 3. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
    bf16 weights) through the kernels against the same forward through the
    plain attention.
@@ -145,6 +145,27 @@ def launch_us(fn, iters: int = 64) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / iters * 1e6
+
+
+def device_us(fn, iters: int = 20) -> str:
+    """Device microseconds per call of each kernel ``fn(i)`` launches
+    (``torch.profiler``), as ``name=us`` pairs, the slowest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    times = []
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        total = e.cuda_time_total if total is None else total
+        if total > 0:  # a kernel's name without its template arguments
+            times.append((total / iters, e.key.split("<")[0].split("(")[0].split("::")[-1]))
+    return " ".join(f"{name}={us:.2f}" for us, name in sorted(times, reverse=True))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -517,7 +538,7 @@ def phase_decode(rows):
     del kc, vc, kz, vz
 
     # B = 2, ragged: row 0's window starts and ends mid-tile and mid-split
-    # (16-key tiles, 256-key splits at this grid), row 1's is empty and must
+    # (16-key tiles, 128-key splits at this grid), row 1's is empty and must
     # write zeros; checked row by row
     B2, ks_l, kl_l = 2, [37, 2000], [3333, 2000]
     kc, vc, kz, vz = _ragged_cache_pair(L, B2, K, T, hd, ks_l, kl_l, g)
@@ -896,11 +917,14 @@ def phase_decode_q8(rows):
     _sharpen_edges(q, (kc, kz), layer, kl_i - 1, ks_i)
     (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
     (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+    plan = A.decode_launch_plan(B, K, T, _sms())
     want = A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, layer)
     got = A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer)
     err, rms = map(max, zip(
         _attn_check("decode_q8", A.decode_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer), want),
         _attn_check("decode_q8 (NaN scales outside the window)", got, want),
+        _attn_check("decode_q8 (against the split plain version)", got, A.decode_attention_split_xla_q8(
+            q, k8, v8, ksz, vsz, ks, kl, layer, plan["split_keys"])),
     ))
     fault_rms = _attn_faults("decode_q8", got, {
         "kv_start+1": A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks + 1, kl, layer),
@@ -908,18 +932,55 @@ def phase_decode_q8(rows):
         "layer-1": A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, layer - 1),
         "k/v scales swapped": A.decode_attention_xla_q8(q, k8, v8, vsz, ksz, ks, kl, layer),
     })
-    ms = time_ms(lambda i: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % L), iters=32)
+    # each call reads another layer, as a decode step does
+    ms = time_ms(lambda i: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % L), iters=64)
+    host_us = launch_us(lambda i: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % L))
     plain_ms = time_ms(lambda i: A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, i % L), iters=8)
-    bf16_ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=32)
+    bf16_ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=64)
+    split_us = device_us(lambda i: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % L))
     live = kl_i - ks_i
     b_ms, b_by = bound(B * live * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * B * H * hd * live, BF16_FLOPS)
-    print(f"phase decode_q8 L={L} B={B} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}): "
+    print(f"phase decode_q8 L={L} B={B} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}) {_plan_line(plan)}: "
           f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
-          f"library_ms=none (no single PyTorch call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"library_ms=none (no single PyTorch call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by}) "
+          f"host_us={host_us:.1f} device_us: {split_us}", flush=True)
     rows["decode_attention_q8"] = dict(
         shape=f"L=32 B=1 K=8 T={T} H=32 hd=128 live={live}", ms=ms, plain_ms=plain_ms, bf16_kernel_ms=bf16_ms,
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, host_us=host_us,
     )
+    del kc, vc, kz, vz, k8, v8, k8x, v8x
+
+    # B = 2, ragged: row 0's window starts and ends mid-tile and mid-split
+    # (16-key tiles, 128-key splits at this grid), row 1's is empty and must
+    # write zeros; NaN scales outside both; checked row by row
+    B2, ks_l, kl_l = 2, [37, 2000], [3333, 2000]
+    kc, vc, kz, vz = _ragged_cache_pair(L, B2, K, T, hd, ks_l, kl_l, g)
+    vc, vz = _scale_rows(g, vc, vz)
+    q = torch.randn(B2, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (ks_l, kl_l))
+    _sharpen_edges(q, (kc, kz), layer, kl_l[0] - 1, ks_l[0])
+    (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+    (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+    plain = lambda *a, **kw: A.decode_attention_xla_q8(q, *a, **kw)  # noqa: E731
+    plan = A.decode_launch_plan(B2, K, T, _sms())
+    want = plain(k8, v8, ksz, vsz, ks, kl, layer)
+    got = A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer)
+    torch.cuda.synchronize()
+    e2, r2 = map(max, zip(
+        _paged_check("decode_q8 B=2", A.decode_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer), want),
+        _paged_check("decode_q8 B=2 (NaN scales outside the windows)", got, want),
+        _paged_check("decode_q8 B=2 (against the split plain version)", got, A.decode_attention_split_xla_q8(
+            q, k8, v8, ksz, vsz, ks, kl, layer, plan["split_keys"])),
+    ))
+    first = lambda t, d: t + torch.tensor([d, 0], device=dev, dtype=torch.int32)  # noqa: E731
+    f2 = _paged_faults("decode_q8 B=2", got, {
+        "kv_start+1 (row 0)": plain(k8, v8, ksz, vsz, first(ks, 1), kl, layer),
+        "kv_len-1 (row 0)": plain(k8, v8, ksz, vsz, ks, first(kl, -1), layer),
+        "k/v scales swapped": plain(k8, v8, vsz, ksz, ks, kl, layer),
+    })
+    print(f"phase decode_q8 B={B2} windows={list(zip(ks_l, kl_l))} {_plan_line(plan)}: "
+          f"{_attn_line(e2, r2, f2)} (row by row)", flush=True)
+    rows["decode_attention_q8"].update(max_abs_err=max(err, e2), rel_rms=max(rms, r2))
     del kc, vc, kz, vz, k8, v8, k8x, v8x
     torch.cuda.empty_cache()
 
@@ -1063,6 +1124,7 @@ def phase_paged_decode_q8(rows):
     _sharpen_paged(q, (ka, kz), layer, tables, [n - 1 for n in kv_l], kv_l, [1 if n else 0 for n in kv_l])
     (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
     plain = A.paged_decode_attention_xla_q8
+    plan = A.decode_launch_plan(B, K, MB * bs, _sms())
     want = plain(q, k8, v8, ksz, vsz, tables, kv_len, layer)
     got = A.paged_decode_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer)
     torch.cuda.synchronize()
@@ -1070,6 +1132,8 @@ def phase_paged_decode_q8(rows):
         _paged_check("paged_decode_q8", A.paged_decode_attention_q8(q, k8, v8, ksz, vsz, tables, kv_len, layer),
                      want),
         _paged_check("paged_decode_q8 (NaN scales outside the live blocks)", got, want),
+        _paged_check("paged_decode_q8 (against the split plain version)", got, A.paged_decode_attention_split_xla_q8(
+            q, k8, v8, ksz, vsz, tables, kv_len, layer, plan["split_keys"])),
     ))
     short = kv_len.clone()
     short[0] -= 1
@@ -1081,17 +1145,33 @@ def phase_paged_decode_q8(rows):
         "layer-1": plain(q, k8, v8, ksz, vsz, tables, kv_len, layer - 1),
         "k/v scales swapped": plain(q, k8, v8, vsz, ksz, tables, kv_len, layer),
     })
-    ms = time_ms(lambda i: A.paged_decode_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer - i % 2),
-                 iters=32)
+    call = lambda i: A.paged_decode_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, layer - i % 2)  # noqa: E731
+    ms = time_ms(call, iters=64)
+    host_us = launch_us(call)
     plain_ms = time_ms(lambda i: plain(q, k8, v8, ksz, vsz, tables, kv_len, layer - i % 2), iters=8)
     bf16_ms = time_ms(lambda i: A.paged_decode_attention(q, ka, va, tables, kv_len, layer - i % 2), iters=32)
+    split_us = device_us(call)
+    # the split cap (ops.attention.DECODE_SPLIT_TILES: a warp walks its
+    # tiles one after another) against longer and shorter splits; 64 tiles
+    # leaves the capacity plan uncut
+    cap, cap_ms = A.DECODE_SPLIT_TILES, {}
+    try:
+        for tiles in (64, 16, 8, 4):
+            A.DECODE_SPLIT_TILES = tiles
+            cap_ms[A.decode_launch_plan(B, K, MB * bs, _sms())["split_keys"] // 16] = time_ms(call, iters=32)
+    finally:
+        A.DECODE_SPLIT_TILES = cap
     b_ms, b_by = bound(sum(kv_l) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * sum(kv_l), BF16_FLOPS)
-    print(f"phase paged_decode_q8 B={B} H={H} K={K} hd={hd} bs={bs} MB={MB} layer={layer} kv_len={kv_l}: "
+    print(f"phase paged_decode_q8 B={B} H={H} K={K} hd={hd} bs={bs} MB={MB} layer={layer} kv_len={kv_l} "
+          f"{_plan_line(plan)}: "
           f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
-          f"library_ms=none (no single PyTorch call reads an int8 arena) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"library_ms=none (no single PyTorch call reads an int8 arena) bound_ms={b_ms:.4f} ({b_by}) "
+          f"host_us={host_us:.1f} device_us: {split_us} "
+          f"ms_by_split_tiles={' '.join(f'{t}:{v:.4f}' for t, v in cap_ms.items())}", flush=True)
     rows["paged_decode_attention_q8"] = dict(
         shape=f"B=8 H=32 K=8 hd=128 bs=32 MB=136 live_keys={sum(kv_l)}", ms=ms, plain_ms=plain_ms,
         bf16_kernel_ms=bf16_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+        host_us=host_us,
     )
     del ka, va, kz, vz, k8, v8, k8x, v8x
     torch.cuda.empty_cache()
@@ -1786,7 +1866,7 @@ def main() -> int:
     for src, log in reports.items():
         for line in log.splitlines():
             # C7518: ptxas serialized a kernel's wgmma (a branch between a wgmma and its wait)
-            if "registers" in line or "spill" in line or "C7518" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "C7518")):
                 print(f"ptxas {src}: {line.strip()}")
     print(f"phase build kernels: {sorted(reports) or 'cached'} s={time.monotonic() - t:.1f}", flush=True)
 
@@ -1832,11 +1912,14 @@ def main() -> int:
     print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
     csrc = "rag_llm_k8s_tpu_torch/ops/csrc/"
+    # each kernel's entry-point source, and the file of the routine it runs
+    # (attention_sm90.cuh for every attention kernel but the bf16 paged decode)
     sources = {"knn_topk": csrc + "knn.cu", "decode_attention": csrc + "attention_sm90.cu",
                "chunk_prefill_attention": csrc + "attention_sm90.cu",
                "paged_decode_attention": csrc + "paged_attention.cu",
                "paged_chunk_attention": csrc + "paged_attention.cu",
                **{k: csrc + "attention_q8.cu" for k in ONE_SHOT_Q8[2:] + CONTINUOUS_Q8[2:]}}
+    no_routine = ("knn_topk", "paged_decode_attention")
     replaces = {
         "knn_topk": "rag_llm_k8s_tpu/ops/knn.py:87",
         "flash_attention": "rag_llm_k8s_tpu/ops/attention.py:122",
@@ -1859,6 +1942,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": sources.get(kname, csrc + "attention.cu"),
+            **({} if kname in no_routine else {"routine": csrc + "attention_sm90.cuh"}),
             "replaces": replaces[kname], "launches": launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": f"distance rel {KNN_RTOL}" if kname == "knn_topk" else

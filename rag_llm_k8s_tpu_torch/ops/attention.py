@@ -32,19 +32,21 @@ before the PV product. Each wrapper takes its plain version only for CPU
 tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``
 (fresh K/V), ``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and
 chunk), ``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the
-wrapper raises. Every attention kernel but the q8 decode ones runs a routine
-of ``csrc/attention_sm90.cuh``; the two q8 chunk kernels run its int8 form of
-the chunk routine.
+wrapper raises. Every attention kernel but the bf16 paged decode runs a
+routine of ``csrc/attention_sm90.cuh``; the four q8 kernels run its int8
+forms of the chunk and decode routines.
 
 The chunk-shaped kernels (``flash_attention``, ``chunk_prefill_attention``,
-``paged_chunk_attention`` and their ``*_q8`` forms) and the dense decode
-kernel may cut each row's visible keys into splits and merge the partial
-``(m, l, acc)`` in a second pass (split-KV, when the grid is small).
-``attention_split_plan`` and ``split_bounds`` are the plan they follow
-(``chunk_launch_plan``, ``chunk_design_plan``, ``decode_launch_plan``), and
-``decode_attention_split_xla``, ``chunk_attention_split_xla``,
-``flash_attention_split_xla``, ``paged_chunk_attention_split_xla`` and the
-q8 forms ``chunk_attention_split_xla_q8`` and
+``paged_chunk_attention`` and their ``*_q8`` forms), the dense decode kernel
+and the two q8 decode kernels may cut each row's visible keys into splits
+and merge the partial ``(m, l, acc)`` in a second pass (split-KV, when the
+grid is small). ``attention_split_plan`` and ``split_bounds`` are the plan
+they follow (``chunk_launch_plan``, ``chunk_design_plan``,
+``decode_launch_plan``), and ``decode_attention_split_xla``,
+``chunk_attention_split_xla``, ``flash_attention_split_xla``,
+``paged_chunk_attention_split_xla`` and the q8 forms
+``decode_attention_split_xla_q8``, ``chunk_attention_split_xla_q8``,
+``paged_decode_attention_split_xla_q8`` and
 ``paged_chunk_attention_split_xla_q8`` compute the plain versions through
 the same splits (``attention_splits_plain`` and ``merge_splits``).
 """
@@ -160,6 +162,12 @@ def chunk_attention_xla(
 
 CHUNK_TILE_KEYS = 64  # key tile of the chunk routine (csrc/attention_sm90.cuh CBN)
 DECODE_TILE_KEYS = 16  # key tile of the decode routine (DBN)
+# A decode warp walks its split's tiles one after another, so the longest
+# split sets the kernel's time, while each split adds a partial to the merge
+# pass. On the H100 the int8 paged decode at B = 8 took 0.0532 ms with
+# 54-tile splits, 0.0322 with 16, 0.0287 with 8 and 0.0382 with 4
+# (chip_smoke.py phase_paged_decode_q8, PERF.md §6): splits are capped at 8.
+DECODE_SPLIT_TILES = 8
 
 
 def attention_split_plan(blocks: int, T: int, tile: int, n_sm: int) -> Tuple[int, int]:
@@ -233,9 +241,14 @@ def chunk_design_plan(B: int, S: int, H: int, K: int, T: int, hd: int, n_sm: int
 
 
 def decode_launch_plan(B: int, K: int, T: int, n_sm: int) -> dict:
-    """Grid of ``decode_attention``'s kernel: one warp per (split, kv head,
-    row)."""
+    """Grid of the decode kernels (``decode_attention`` and the two q8
+    ones; the paged one at ``T = MB * bs``): one warp per (split, kv head,
+    row), ``attention_split_plan``'s splits cut to at most
+    ``DECODE_SPLIT_TILES`` tiles."""
     split_keys, n_splits = attention_split_plan(B * K, T, DECODE_TILE_KEYS, n_sm)
+    if split_keys > DECODE_SPLIT_TILES * DECODE_TILE_KEYS:
+        split_keys = DECODE_SPLIT_TILES * DECODE_TILE_KEYS
+        n_splits = -(-T // split_keys)
     return dict(split_keys=split_keys, n_splits=n_splits, blocks=B * K * n_splits)
 
 
@@ -311,7 +324,7 @@ def _split_merge_row(
     vv: torch.Tensor,  # [K, T, hd]
     lo: int,
     len_b: int,
-    pos: torch.Tensor,  # [n_rows] each query row's position
+    pos: Optional[torch.Tensor],  # [n_rows] each query row's position (read only when causal)
     causal: bool,
     split_keys: int,
     block_rows: int,
@@ -660,6 +673,60 @@ def paged_chunk_attention_split_xla_q8(
     return _from_query_rows(out, S, q.dtype)
 
 
+def decode_attention_split_xla_q8(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_cache: torch.Tensor,  # [L, B, K, T, hd] int8
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, K, T] fp32
+    v_scale: torch.Tensor,
+    kv_start: torch.Tensor,
+    kv_len: torch.Tensor,
+    layer: int,
+    split_keys: int,
+    tile: int = DECODE_TILE_KEYS,
+) -> torch.Tensor:
+    """``decode_attention_xla_q8`` computed the way the q8 decode kernel
+    cuts it: the int8 payload as it is, each score column times its
+    k-scale, the PV operand ``p * v_scale`` in q's dtype, scales outside
+    each row's window zeroed, the window cut by ``split_bounds``, through
+    ``_split_merge_row`` (no causality; the G heads are one row tile)."""
+    B, _, H, _ = q.shape
+    K, T = k_cache.shape[2], k_cache.shape[3]
+    rows = []
+    for b in range(B):
+        lo, hi = max(int(kv_start[b]), 0), min(int(kv_len[b]), T)
+        rows.append(_split_merge_row(
+            _query_rows(q[b], K), k_cache[layer, b], v_cache[layer, b], lo, hi, None, False, split_keys, H // K,
+            tile, _window_scales(k_scale[layer, b], lo, hi), _window_scales(v_scale[layer, b], lo, hi)))
+    return _from_query_rows(torch.stack(rows), 1, q.dtype)
+
+
+def paged_decode_attention_split_xla_q8(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd] int8
+    v_arena: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, N, K, bs] fp32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+    split_keys: int,
+    tile: int = DECODE_TILE_KEYS,
+) -> torch.Tensor:
+    """``paged_decode_attention_xla_q8`` computed the way the q8 paged
+    decode kernel cuts it: payload and scales gathered through the table
+    (slots past ``kv_len`` zeroed), then ``decode_attention_split_xla_q8``'s
+    arithmetic over the window ``[0, min(kv_len, MB * bs))``."""
+    B, _, H, _ = q.shape
+    K = k_arena.shape[2]
+    k, v, ks, vs = (_gather_paged_layer(x, block_tables, kv_len, layer) for x in (k_arena, v_arena, k_scale, v_scale))
+    out = torch.stack([
+        _split_merge_row(_query_rows(q[b], K), k[b], v[b], 0, min(int(kv_len[b]), k.shape[2]), None, False,
+                         split_keys, H // K, tile, ks[b], vs[b])
+        for b in range(B)])
+    return _from_query_rows(out, 1, q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -718,6 +785,14 @@ def _window(t: Optional[torch.Tensor], B: int, fill: int, dev: torch.device) -> 
 def _check_heads(what: str, H: int, K: int, hd: int) -> None:
     if hd not in (64, 128) or K < 1 or H % K:
         raise ValueError(f"{what}: the kernel takes hd in (64, 128) and H % K == 0 (H={H}, K={K}, hd={hd})")
+
+
+def _check_decode_heads(what: str, H: int, K: int) -> int:
+    """The head group of a decode kernel: the ``G = H // K`` query heads of
+    a kv head are rows of one 16-row mma tile."""
+    if H // K > 16:
+        raise ValueError(f"{what}: the kernel takes H // K <= 16 (the rows of one mma tile), got {H // K}")
+    return H // K
 
 
 def _stream(dev: torch.device) -> int:
@@ -793,9 +868,7 @@ def decode_attention(
         raise ValueError(f"decode_attention is single-token (got S={q.shape[1]})")
     layer = int(layer)
     L, B, K, T, H, hd = _check_cache("decode_attention", q, k_cache, v_cache, layer)
-    G = H // K
-    if G > 16:
-        raise ValueError(f"decode_attention: the kernel takes H // K <= 16 (the rows of one mma tile), got {G}")
+    G = _check_decode_heads("decode_attention", H, K)
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
     plan = decode_launch_plan(B, K, T, _sm_count(dev.index))
@@ -970,11 +1043,6 @@ def paged_chunk_attention(
 # int8 cache and arena (csrc/attention_q8.cu)
 # ---------------------------------------------------------------------------
 
-# keys one split of the q8 decode kernels walks (16-key units, 4 warps);
-# a second pass merges the splits
-Q8_SPLIT_KEYS = 256
-
-
 def _q8_lib() -> ctypes.CDLL:
     return _build.load("attention_q8", {
         "decode_attention_q8": ([_VP] * 11 + [_I] * 9 + [_F, _VP], _I),
@@ -1009,13 +1077,6 @@ def _check_q8(what: str, q, k, v, k_scale, v_scale, layer: int):
     return L, n, K, t, hd, H
 
 
-def _decode_parts(B: int, K: int, n_splits: int, G: int, hd: int, dev: torch.device):
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"the q8 decode kernels take H // K in (1, 2, 4, 8), got {G}")
-    part_m = torch.empty((B, K, n_splits, G), dtype=torch.float32, device=dev)
-    return part_m, torch.empty_like(part_m), torch.empty((B, K, n_splits, G, hd), dtype=torch.float32, device=dev)
-
-
 def decode_attention_q8(
     q: torch.Tensor,  # [B, 1, H, hd] bf16
     k_cache: torch.Tensor,  # [L, B, K, T, hd] int8
@@ -1027,7 +1088,7 @@ def decode_attention_q8(
     layer: int,
 ) -> torch.Tensor:
     """Single-token attention over the int8 cache at ``layer``, window
-    ``[kv_start, kv_len)``."""
+    ``[kv_start, kv_len)``; split-KV as ``decode_launch_plan`` plans it."""
     if q.device.type == "cpu":
         return decode_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer)
     if q.shape[1] != 1:
@@ -1036,16 +1097,17 @@ def decode_attention_q8(
     L, B, K, T, hd, H = _check_q8("decode_attention_q8", q, k_cache, v_cache, k_scale, v_scale, layer)
     if q.shape[0] != B or T % 16:
         raise ValueError(f"decode_attention_q8: q{tuple(q.shape)} against a cache of B={B}, T={T} (T % 16 == 0)")
+    G = _check_decode_heads("decode_attention_q8", H, K)
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
-    n_splits = -(-T // Q8_SPLIT_KEYS)
-    part_m, part_l, part_acc = _decode_parts(B, K, n_splits, H // K, hd, dev)
+    plan = decode_launch_plan(B, K, T, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
     rc = lib.decode_attention_q8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), L, B, K, T, H, hd, layer, Q8_SPLIT_KEYS // 16, n_splits, hd**-0.5, _stream(dev),
+        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, H, hd, layer,
+        plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "decode_attention_q8")
     _build.LAUNCHES["decode_attention_q8"] += 1
@@ -1100,7 +1162,8 @@ def paged_decode_attention_q8(
     layer: int,
 ) -> torch.Tensor:
     """One query per row over the row's live blocks ``[0, kv_len)`` of the
-    int8 arena at ``layer``; a row with ``kv_len = 0`` gets zeros."""
+    int8 arena at ``layer``; a row with ``kv_len = 0`` gets zeros. Split-KV
+    planned from the capacity ``MB * bs`` (no read of ``kv_len``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_xla_q8(q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer)
     if q.shape[1] != 1:
@@ -1108,16 +1171,17 @@ def paged_decode_attention_q8(
     layer = int(layer)
     L, N, K, bs, hd, H = _check_q8("paged_decode_attention_q8", q, k_arena, v_arena, k_scale, v_scale, layer)
     MB = _check_tables("paged_decode_attention_q8", q, block_tables, kv_len, bs)
+    G = _check_decode_heads("paged_decode_attention_q8", H, K)
     B, dev = q.shape[0], q.device
-    n_splits = -(-MB * bs // Q8_SPLIT_KEYS)
-    part_m, part_l, part_acc = _decode_parts(B, K, n_splits, H // K, hd, dev)
+    # split plan from the host-known capacity MB * bs: no read of kv_len
+    plan = decode_launch_plan(B, K, MB * bs, _sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
     rc = lib.paged_decode_attention_q8(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), L, N, B, K, bs, MB, H, hd, layer, Q8_SPLIT_KEYS // 16, n_splits,
-        hd**-0.5, _stream(dev),
+        out.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(), pm, pl, pa,
+        L, N, B, K, bs, MB, H, hd, layer, plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "paged_decode_attention_q8")
     _build.LAUNCHES["paged_decode_attention_q8"] += 1

@@ -2,12 +2,13 @@
 // chunk routine (S queries per row, wgmma tiles in registers), its form over
 // an int8 payload, its warp-specialized form for long rows (TMA producer
 // warp, two consumer warpgroups, one split) and the decode routine (one
-// query per row, split-KV on mma.sync), with the pass that merges split-KV
-// partials. attention_sm90.cu runs chunk and decode over one layer of the
-// dense bf16 cache, attention.cu the chunk and warp-specialized routines over
-// fresh K/V, paged_attention.cu the chunk routine over the paged arena,
-// attention_q8.cu the int8 chunk routine over the int8 cache and arena. The
-// policy interface (the int8 routine's is in its own section):
+// query per row, split-KV on mma.sync) and its form over an int8 payload,
+// with the pass that merges split-KV partials. attention_sm90.cu runs chunk
+// and decode over one layer of the dense bf16 cache, attention.cu the chunk
+// and warp-specialized routines over fresh K/V, paged_attention.cu the chunk
+// routine over the paged arena, attention_q8.cu the int8 chunk and decode
+// routines over the int8 cache and arena. The policy interface (the int8
+// routines' is in the int8 chunk routine's section):
 //
 //   struct KV {
 //     int start(int b) const;    // first valid key position of row b
@@ -1178,6 +1179,271 @@ __global__ void __launch_bounds__(32) decode_kernel(Params p, KV kv) {
 }
 
 // ---------------------------------------------------------------------------
+// decode routine over an int8 payload: one query per row, split-KV, mma.sync
+// ---------------------------------------------------------------------------
+//
+// decode_kernel's function over the int8 cache and arena (the int8 policy of
+// the chunk routine, read a tile at a time: keys kp .. kp + 15 from a
+// multiple of 16 are contiguous rows, and their scales too). One warp per
+// (split, kv head, batch row), the G heads as rows of an m16n8k16 tile, S,
+// the softmax and O on the mma fragments, partials merged by merge_kernel.
+// The int8 tiles are never widened in shared memory: each fragment is
+// widened in registers (i8x4_to_bf16x4, exact) as ldmatrix hands it over.
+//
+// - S = Q K^T. ldmatrix gives lane (g, t) the word of bytes 4t .. 4t + 3 of
+//   key g's 16 hd values in each hd step, which is its B fragment (k rows
+//   2t, 2t + 1 and 2t + 8, 2t + 9) once the hd order inside a step is
+//   permuted so: Q's A fragments are loaded with the same permutation, so
+//   the dot products are unchanged (only their fp32 summation order).
+// - O += P V. V's B fragment needs one hd column of keys 2t, 2t + 1 (and
+//   + 8), which a row-major tile does not hold in one word; ldmatrix.trans
+//   over int8 pairs as b16 gives lane (g, t) keys 2t and 2t + 1 of hd 2g and
+//   2g + 1 in one word: its bytes (0, 2) are the B fragment of an mma whose
+//   column g is hd 2g, bytes (1, 3) that of an mma whose column g is hd
+//   2g + 1. O's fragments are kept in that column order and written back
+//   in hd order (lane t holds hd 4t .. 4t + 3 of each 16).
+// - Scales: each score column is multiplied by its k-scale before the
+//   running max, the sum takes p, and the PV operand is bf16(p * v-scale).
+//   A scale outside the window (it may be NaN) never multiplies anything:
+//   its score is selected to NEG_INF and its v-scale to 0. A 16-byte piece
+//   of four scales is read whole when it holds a key of the window.
+//
+// A 16-key int8 tile is half a bf16 one, so the ring has twice
+// decode_kernel's stages: DEC_Q8_STAGES - 1 tiles in flight per warp, 28 KB
+// at hd = 128 against decode_kernel's 24.
+
+constexpr int DEC_Q8_STAGES = 8;
+
+// byte offset of 16-byte chunk c of row r in a tile of int8 rows of HD
+// bytes, swizzled so that the 8 rows of an ldmatrix matrix (8 rows of one
+// chunk) hit 8 different bank groups
+template <int HD>
+__device__ __forceinline__ uint32_t i8_off(int r, int c) {
+  if constexpr (HD == 128) return r * 128 + ((c ^ (r & 7)) << 4);
+  else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// four int8 (one word) to the bf16 pairs of bytes (0, 2) and (1, 3), exactly
+__device__ __forceinline__ void i8x4_to_bf16x2_even_odd(uint32_t w, uint32_t& even, uint32_t& odd) {
+  i8x4_to_bf16x4(__byte_perm(w, 0u, 0x3120), even, odd);
+}
+
+template <int HD, class KV>
+__global__ void __launch_bounds__(32) decode_q8_kernel(Params p, KV kv) {
+  constexpr int CH8 = HD / 16;                   // 16-byte chunks of an int8 row
+  constexpr int TILE = DBN * HD;                 // bytes of one int8 K or V tile
+  constexpr int STAGE = 2 * TILE + 2 * DBN * 4;  // K, V, k-scales, v-scales
+  constexpr int ST = DEC_Q8_STAGES;
+  __shared__ __align__(128) unsigned char smem[ST * STAGE];
+  const uint32_t s_base = smem_u32(smem);
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4, kc = 2 * t;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, bk = b * p.K + kvh;
+  const Span sp = tile_span(kv, p, b, 0, DBN);
+  if (split >= max(sp.n_s, 1)) return;
+  const int lo = sp.lo, len = kv.len(b);
+  const int k_begin = sp.lo_a + split * p.split_keys;
+  const int k_end = min(sp.hi, k_begin + p.split_keys);
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + DBN - 1) / DBN : 0;
+
+  // Tile i's 16 rows from its first key's (a tile never crosses a block of
+  // the arena; rows outside the window are zero-filled and never read).
+  // Each lane copies chunks lane, lane + 32, ... of K and V; lanes 0-7 the
+  // four 16-byte pieces of k-scales and of v-scales.
+  auto load_kv = [&](int i) {
+    const int k0 = k_begin + i * DBN;
+    const uint32_t ks = s_base + (i % ST) * STAGE, vs = ks + TILE;
+    const int8_t* kr = kv.k_row(b, kvh, k0);
+    const int8_t* vr = kv.v_row(b, kvh, k0);
+#pragma unroll
+    for (int u = 0; u < DBN * CH8 / 32; ++u) {
+      const int x = lane + 32 * u, n = x / CH8, c = x % CH8, kp = k0 + n;
+      const bool in = kp >= lo && kp < len;
+      cp_async16(ks + i8_off<HD>(n, c), kr + n * HD + c * 16, in);
+      cp_async16(vs + i8_off<HD>(n, c), vr + n * HD + c * 16, in);
+    }
+    if (lane < 8) {
+      const int n = 4 * (lane % 4), kp = k0 + n;
+      const float* src = lane < 4 ? kv.k_scales(b, kvh, k0) : kv.v_scales(b, kvh, k0);
+      cp_async16(vs + TILE + (lane / 4) * (DBN * 4) + n * 4, src + n, kp + 3 >= lo && kp < len);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_kt) load_kv(i);
+    cp_async_commit();
+  }
+
+  // Q's A fragments, hd permuted inside each step of 16: lane t's values
+  // 4t .. 4t + 3 of rows g and g + 8 (heads kvh * G + row, zero past G)
+  uint32_t qf[HD / 16][4];
+  {
+    const bf16* qa = p.q + b * p.q_sb + (long long)(kvh * p.G + g) * p.q_sh + 4 * t;
+    const bf16* qb = qa + 8 * p.q_sh;
+    const bool ra = g < p.G, rb = g + 8 < p.G;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint2 xa = ra ? *reinterpret_cast<const uint2*>(qa + 16 * kk) : make_uint2(0u, 0u);
+      const uint2 xb = rb ? *reinterpret_cast<const uint2*>(qb + 16 * kk) : make_uint2(0u, 0u);
+      qf[kk][0] = xa.x;
+      qf[kk][1] = xb.x;
+      qf[kk][2] = xa.y;
+      qf[kk][3] = xb.y;
+    }
+  }
+
+  // o[2s] and o[2s + 1]: hd 16s + 2n and 16s + 2n + 1 at fragment column n
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  for (int i = 0; i < n_kt; ++i) {
+    cp_async_wait<ST - 2>();
+    __syncwarp();  // tile i has landed; every lane is done with tile i - 1
+    if (i + ST - 1 < n_kt) load_kv(i + ST - 1);
+    cp_async_commit();
+    const int k0 = k_begin + i * DBN;
+    const uint32_t ks = s_base + (i % ST) * STAGE, vs = ks + TILE;
+    const float* sc = reinterpret_cast<const float*>(smem + (i % ST) * STAGE + 2 * TILE);
+
+    // S = Q K^T: two 8-key groups j; ldmatrix.x4 gives the words of four hd
+    // steps (chunks 4q .. 4q + 3 of keys 8j .. 8j + 7)
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int q4 = 0; q4 < CH8 / 4; ++q4) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t r[4];
+        ldmatrix_x4(r, ks + i8_off<HD>(8 * j + lane % 8, 4 * q4 + lane / 8));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          uint32_t b0, b1;
+          i8x4_to_bf16x4(r[w], b0, b1);
+          mma_16816(s[j], qf[4 * q4 + w], b0, b1);
+        }
+      }
+    }
+
+    // k-scales on the score columns, then the online softmax: s[j][e] is
+    // row g, key k0 + 8j + kc + e; s[j][2 + e] row g + 8
+    const bool masked = k0 < lo || k0 + DBN > len;
+    float vsc[2][2];
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 kx = *reinterpret_cast<const float2*>(sc + 8 * j + kc);
+      const float2 vx = *reinterpret_cast<const float2*>(sc + DBN + 8 * j + kc);
+      const float ksc[2] = {kx.x, kx.y};
+      vsc[j][0] = vx.x;
+      vsc[j][1] = vx.y;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (masked) {
+          // a scale outside the window may be NaN: its score is selected
+          // to NEG_INF and its v-scale to 0
+          const int kp = k0 + 8 * j + kc + e;
+          const bool in = kp >= lo && kp < len;
+          vsc[j][e] = in ? vsc[j][e] : 0.f;
+          s[j][e] = in ? s[j][e] * ksc[e] : NEG_INF;
+          s[j][2 + e] = in ? s[j][2 + e] * ksc[e] : NEG_INF;
+        } else {
+          s[j][e] *= ksc[e];
+          s[j][2 + e] *= ksc[e];
+        }
+        mx_a = fmaxf(mx_a, s[j][e]);
+        mx_b = fmaxf(mx_b, s[j][2 + e]);
+      }
+    }
+    mx_a = quad_max(mx_a);
+    mx_b = quad_max(mx_b);
+    const float mn_a = fmaxf(m_a, mx_a == NEG_INF ? NEG_INF : mx_a * p.scale_log2);
+    const float mn_b = fmaxf(m_b, mx_b == NEG_INF ? NEG_INF : mx_b * p.scale_log2);
+    const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xa = s[j][e], xb = s[j][2 + e];
+        float pa = ex2(fmaf(xa, p.scale_log2, -mn_a)), pb = ex2(fmaf(xb, p.scale_log2, -mn_b));
+        if (masked) {
+          pa = xa == NEG_INF ? 0.f : pa;
+          pb = xb == NEG_INF ? 0.f : pb;
+        }
+        sum_a += pa;
+        sum_b += pb;
+        s[j][e] = pa * vsc[j][e];  // the PV operand; the sum took p
+        s[j][2 + e] = pb * vsc[j][e];
+      }
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+    const uint32_t pf[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+
+    // O += P V: ldmatrix.x4.trans gives two hd chunks 2m, 2m + 1 (keys 0-7
+    // and 8-15 of each), each word the B fragments of two mma
+#pragma unroll
+    for (int m = 0; m < CH8 / 2; ++m) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vs + i8_off<HD>(lane % 8 + 8 * ((lane / 8) % 2), 2 * m + lane / 16));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t e0, d0, e1, d1;
+        i8x4_to_bf16x2_even_odd(r[2 * h], e0, d0);
+        i8x4_to_bf16x2_even_odd(r[2 * h + 1], e1, d1);
+        float* oe = o[4 * m + 2 * h];
+        float* od = o[4 * m + 2 * h + 1];
+        oe[0] *= al_a;
+        oe[1] *= al_a;
+        oe[2] *= al_b;
+        oe[3] *= al_b;
+        od[0] *= al_a;
+        od[1] *= al_a;
+        od[2] *= al_b;
+        od[3] *= al_b;
+        mma_16816(oe, pf, e0, e1);
+        mma_16816(od, pf, d0, d1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = g + 8 * half;
+    if (row >= p.G) continue;
+    const float m = half ? m_b : m_a, l = half ? l_b : l_a;
+    // hd 16s + 4t .. 4t + 3 of this row: o[2s][x], o[2s + 1][x], o[2s][x + 1], o[2s + 1][x + 1]
+    const int x = 2 * half;
+    if (p.part_m == nullptr) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      bf16* orow = p.o + ((long long)b * p.H + kvh * p.G + row) * HD + 4 * t;
+#pragma unroll
+      for (int s = 0; s < HD / 16; ++s)
+        *reinterpret_cast<uint2*>(orow + 16 * s) =
+            make_uint2(pack_bf16(o[2 * s][x] * inv, o[2 * s + 1][x] * inv),
+                       pack_bf16(o[2 * s][x + 1] * inv, o[2 * s + 1][x + 1] * inv));
+    } else {
+      const long long ix = ((long long)bk * p.n_splits + split) * p.G + row;
+      if (t == 0) {
+        p.part_m[ix] = m;
+        p.part_l[ix] = l;
+      }
+      float* arow = p.part_acc + ix * HD + 4 * t;
+#pragma unroll
+      for (int s = 0; s < HD / 16; ++s)
+        *reinterpret_cast<float4*>(arow + 16 * s) =
+            make_float4(o[2 * s][x], o[2 * s + 1][x], o[2 * s][x + 1], o[2 * s + 1][x + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // merge of split-KV partials
 // ---------------------------------------------------------------------------
 
@@ -1258,6 +1524,14 @@ int launch_chunk_q8(const Params& p, const KV& kv, int B, cudaStream_t st) {
 template <int HD, class KV>
 int launch_decode(const Params& p, const KV& kv, int B, cudaStream_t st) {
   decode_kernel<HD, KV><<<dim3(p.n_splits, p.K, B), 32, 0, st>>>(p, kv);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
+  return launch_merge<HD>(p, kv, B, p.G, DBN, st);
+}
+
+template <int HD, class KV>
+int launch_decode_q8(const Params& p, const KV& kv, int B, cudaStream_t st) {
+  decode_q8_kernel<HD, KV><<<dim3(p.n_splits, p.K, B), 32, 0, st>>>(p, kv);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.part_m == nullptr) return (int)err;
   return launch_merge<HD>(p, kv, B, p.G, DBN, st);
@@ -1364,6 +1638,19 @@ int decode(const Params& p, const KV& kv, int B, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch_decode<128>(p, kv, B, st);
   if (hd == 64) return launch_decode<64>(p, kv, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// decode over an int8 payload: the shapes and split plan of decode, and no
+// causality
+template <class KV>
+int decode_q8(const Params& p, const KV& kv, int B, int hd, void* stream) {
+  if (p.K < 1 || p.H != p.K * p.G || p.G > 16 || p.S != 1 || p.causal || B < 1 || p.n_splits < 1 ||
+      p.split_keys < DBN || p.split_keys % DBN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return launch_decode_q8<128>(p, kv, B, st);
+  if (hd == 64) return launch_decode_q8<64>(p, kv, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
