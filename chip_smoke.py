@@ -11,8 +11,12 @@
    with NaN in every block no row owns; the four int8-cache kernels with NaN
    in every scale outside a window; the dense decode and chunk kernels,
    bf16 and int8, also at B = 2 with ragged windows, edges mid-tile and
-   mid-split, an empty one but for the int8 chunk; the four q8 kernels also
-   against their plain split-then-merge versions at the kernel's own plan),
+   mid-split, an empty one but for the int8 chunk; the four q8 kernels and
+   the bf16 paged decode also against their plain split-then-merge versions
+   at the kernel's own plan; the kNN at Q = 1, 8 and 9 against its plain
+   version and its plain two-pass version at the kernel's plan, with ties
+   planted across part boundaries and planted faults in the two-pass
+   version that the check must reject),
    with its time, the plain version's time, one PyTorch library call
    computing the same function (``library_ms``, a yardstick the port never
    calls; none reads a paged arena or an int8 cache), all as device time per
@@ -164,7 +168,8 @@ def device_us(fn, iters: int = 20) -> str:
         total = getattr(e, "device_time_total", None)
         total = e.cuda_time_total if total is None else total
         if total > 0:  # a kernel's name without its template arguments
-            times.append((total / iters, e.key.split("<")[0].split("(")[0].split("::")[-1]))
+            name = e.key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0].split("::")[-1].split()
+            times.append((total / iters, name[-1] if name else e.key))
     return " ".join(f"{name}={us:.2f}" for us, name in sorted(times, reverse=True))
 
 
@@ -186,6 +191,27 @@ def sdpa(q, k, v, mask):
 # ---------------------------------------------------------------------------
 
 
+def _knn_ok(got, want):
+    """Whether the kernel's ``(dists, ids)`` agree with a plain version's
+    ``want`` (computed for k + 1): distances within ``KNN_RTOL``, and ids
+    equal at every place of the top k that no near-tie makes ambiguous (two
+    distinct distances of the top k + 1 within ``KNN_RTOL``). An exact tie
+    is not ambiguous: both sides give the lowest id first (the planted ties
+    are exact small-integer arithmetic on both). Returns (ok, max abs error
+    of the distances)."""
+    import torch
+
+    (kv, ki), (pv, pi) = got, want
+    k = kv.shape[1]
+    err = ((kv - pv[:, :k]).abs() / pv[:, :k].abs().clamp_min(1.0)).max().item()
+    gap = (pv[:, 1:] - pv[:, :-1]) / pv[:, 1:].abs().clamp_min(1.0)
+    near = (gap > 0) & (gap <= KNN_RTOL)  # [Q, k]: places j and j + 1
+    ambiguous = near.clone()
+    ambiguous[:, 1:] |= near[:, :-1]
+    ids_ok = bool(((ki == pi[:, :k]) | ambiguous[:, :k]).all())
+    return err <= KNN_RTOL and ids_ok, (kv - pv[:, :k]).abs().max().item()
+
+
 def phase_knn(rows):
     import torch
 
@@ -193,43 +219,135 @@ def phase_knn(rows):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    N_pad, D, n_valid, k = 65536, 1024, 65000, 5
+    # the fused retrieve's store: 65,536 x 1024 fp32, 36 padded rows, so the
+    # last part holds real rows and padded ones
+    N_pad, D, n_valid = 65536, 1024, 65500
     emb = torch.randn(N_pad, D, device=dev, generator=g)
     emb = emb / emb.norm(dim=1, keepdim=True)
     emb[n_valid:] = 0
+    # planted ties: three small-integer vectors (every dot product exact),
+    # each on the two rows that straddle a part boundary and once more in
+    # the last part; their queries must get those rows, lowest id first
+    rpp = knn.knn_launch_plan(1, N_pad, _sms())["rows_per_part"]
+    last = (N_pad - 1) // rpp * rpp
+    planted = torch.randint(-1, 2, (3, D), device=dev, generator=g).float()
+    tie_rows = [[p * rpp - 1, p * rpp, last + 7 * j + 3] for j, p in enumerate((50, 100, 150))]
+    for j, r in enumerate(tie_rows):
+        emb[r] = planted[j]
     norms = torch.full((1, N_pad), knn.BIG, device=dev)
     norms[0, :n_valid] = (emb[:n_valid] ** 2).sum(1)
-    worst = 0.0
-    for Q in (1, 8):
+
+    def unit(Q):
         q = torch.randn(Q, D, device=dev, generator=g)
-        q = q / q.norm(dim=1, keepdim=True)
-        kv, ki = knn.knn_topk(q, emb, norms, k=k)
-        pv, pi = knn.knn_topk_xla(q, emb, norms, k=k + 1)
+        return q / q.norm(dim=1, keepdim=True)
+
+    # (Q, k, queries, the planted ones' places among them): the main path's
+    # Q = 1, a full chunk of 8 queries and two chunks (8 + 1), timed; and a
+    # chunk of 3 (the 8-query kernel with 5 queries masked), its last query
+    # planted, k = 3 (so the planted row in the last part counts)
+    cases = [(1, 5, unit(1), []), (8, 5, torch.cat([planted, unit(5)]), [0, 1, 2]),
+             (9, 8, torch.cat([unit(6), planted]), [6, 7, 8]), (3, 3, torch.cat([unit(2), planted[2:]]), [2])]
+    worst = 0.0
+    for Q, k, q, tie_q in cases:
+        plan = knn.knn_launch_plan(Q, N_pad, _sms())
+        got = knn.knn_topk(q, emb, norms, k=k)
         torch.cuda.synchronize()
-        err = ((kv - pv[:, :k]).abs() / pv[:, :k].abs().clamp_min(1.0)).max().item()
-        worst = max(worst, (kv - pv[:, :k]).abs().max().item())
-        if err > KNN_RTOL:
-            fail(f"knn Q={Q}: distance rel err {err:.3g} > {KNN_RTOL}")
-        # ids must agree wherever the ranking has no near-tie in the top k+1
-        gaps = (pv[:, 1:] - pv[:, :-1]) / pv[:, 1:].abs().clamp_min(1.0)
-        clear = (gaps > KNN_RTOL).all(dim=1)
-        if not torch.equal(ki[clear], pi[clear, :k]):
-            fail(f"knn Q={Q}: ids differ from the plain version")
+        plain = knn.knn_topk_xla(q, emb, norms, k=k + 1)
+        parts = knn.knn_part_lists(q, emb, norms, k + 1, plan)
+        for name, want in (("the plain version", plain),
+                           ("the split plain version at the kernel's plan", knn.knn_merge_lists(*parts, k + 1))):
+            ok, err = _knn_ok(got, want)
+            if not ok:
+                fail(f"knn Q={Q} k={k}: disagrees with {name} (distance err {err:.3g}, rel tol {KNN_RTOL})")
+            worst = max(worst, err)
+        ties = {j: tie_rows[[torch.equal(q[j], u) for u in planted].index(True)][:k] for j in tie_q}
+        for j, r in ties.items():
+            if got[1][j, :len(r)].tolist() != r or got[0][j, :len(r)].abs().max().item():
+                fail(f"knn Q={Q} k={k}: planted ties {r} came out {got[1][j, :len(r)].tolist()}")
+        if tie_q:
+            # planted faults in the split plain version: the check must reject
+            # each (the part holding a planted query's second tied row)
+            p = ties[tie_q[0]][1] // rpp
+            shifted = parts[1].clone()
+            shifted[:, p] = torch.where(shifted[:, p] >= 0, shifted[:, p] + 1, shifted[:, p])
+            for fault, want in ((f"ids of part {p} shifted by one", knn.knn_merge_lists(parts[0], shifted, k + 1)),
+                                ("the last part dropped",
+                                 knn.knn_merge_lists(parts[0][:, :-1], parts[1][:, :-1], k + 1))):
+                if _knn_ok(got, want)[0]:
+                    fail(f"knn Q={Q} k={k}: the check accepts a planted fault ({fault})")
+        del parts
+        if Q not in (1, 8, 9):
+            print(f"phase knn Q={Q} k={k} {_plan_line(plan)}: agrees (5 of the chunk's 8 queries masked), "
+                  f"planted tie held, planted faults rejected", flush=True)
+            continue
         ms = time_ms(lambda i: knn.knn_topk(q, emb, norms, k=k))
+        host_us = launch_us(lambda i: knn.knn_topk(q, emb, norms, k=k))
+        split_us = device_us(lambda i: knn.knn_topk(q, emb, norms, k=k))
         plain_ms = time_ms(lambda i: knn.knn_topk_xla(q, emb, norms, k=k), iters=5)
         valid = emb[:n_valid]
         lib_ms = time_ms(lambda i: torch.topk(torch.cdist(q, valid), k, largest=False), iters=5)
         nbytes = (Q * D + N_pad * D + N_pad) * 4 + Q * k * 8
         b_ms, b_by = bound(nbytes, 2.0 * Q * N_pad * D, FP32_FLOPS)
-        print(f"phase knn Q={Q} N_pad={N_pad} D={D} k={k}: max_abs_err={worst:.3g} "
-              f"(rel tol {KNN_RTOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        earlier = {1: " earlier_design_ms=0.1992 (the previous design, PERF.md §6)",
+                   8: " earlier_design_ms=0.4917 (the previous design, PERF.md §6)"}.get(Q, "")
+        print(f"phase knn Q={Q} N_pad={N_pad} n_valid={n_valid} D={D} k={k} {_plan_line(plan)}: "
+              f"max_abs_err={worst:.3g} (rel tol {KNN_RTOL}; against the plain and split plain versions, "
+              f"planted ties {'held' if tie_q else 'none'}, planted faults {'rejected' if tie_q else 'none'}) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"host_us={host_us:.1f} device_us: {split_us}{earlier}", flush=True)
+        row = dict(shape=f"Q={Q} N_pad={N_pad} D={D} k={k}", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, host_us=host_us)
         if Q == 1:
-            rows["knn_topk"] = dict(
-                shape=f"Q=1 N_pad={N_pad} D={D} k={k}", ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-            )
+            rows["knn_topk"] = row
+        else:
+            rows["knn_topk"][f"queries_{Q}"] = row
     rows["knn_topk"]["max_abs_err"] = worst
+    del emb
+    torch.cuda.empty_cache()
+    _knn_any_width(g)
+
+
+def _knn_any_width(g):
+    """The kernel at a width other than bge-m3's (D known at run time):
+    768 and 20, one query and a masked chunk of 3, against the plain and
+    split plain versions, a planted tie across a part boundary."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import knn
+
+    dev = torch.device("cuda")
+    N_pad, n_valid = 8192, 8100
+    for D in (768, 20):
+        emb = torch.randn(N_pad, D, device=dev, generator=g)
+        emb = emb / emb.norm(dim=1, keepdim=True)
+        emb[n_valid:] = 0
+        rpp = knn.knn_launch_plan(1, N_pad, _sms())["rows_per_part"]
+        planted = torch.randint(-1, 2, (D,), device=dev, generator=g).float()
+        tie = [3 * rpp - 1, 3 * rpp]
+        emb[tie] = planted
+        norms = torch.full((1, N_pad), knn.BIG, device=dev)
+        norms[0, :n_valid] = (emb[:n_valid] ** 2).sum(1)
+        for Q, k in ((1, 5), (3, 8)):
+            worst = 0.0
+            q = torch.randn(Q, D, device=dev, generator=g)
+            q = torch.cat([q[:-1] / q[:-1].norm(dim=1, keepdim=True), planted[None]])
+            got = knn.knn_topk(q, emb, norms, k=k)
+            torch.cuda.synchronize()
+            plan = knn.knn_launch_plan(Q, N_pad, _sms())
+            for name, want in (("the plain version", knn.knn_topk_xla(q, emb, norms, k=k + 1)),
+                               ("the split plain version at the kernel's plan",
+                                knn.knn_topk_split_xla(q, emb, norms, k + 1, plan))):
+                ok, err = _knn_ok(got, want)
+                if not ok:
+                    fail(f"knn D={D} Q={Q} k={k}: disagrees with {name} (distance err {err:.3g}, "
+                         f"rel tol {KNN_RTOL})")
+                worst = max(worst, err)
+            if got[1][-1, :2].tolist() != tie or got[0][-1, :2].abs().max().item():
+                fail(f"knn D={D} Q={Q} k={k}: planted ties {tie} came out {got[1][-1, :2].tolist()}")
+            ms = time_ms(lambda i: knn.knn_topk(q, emb, norms, k=k))
+            print(f"phase knn D={D} Q={Q} k={k} N_pad={N_pad} {_plan_line(plan)}: agrees with the plain and "
+                  f"split plain versions (rel tol {KNN_RTOL}), planted tie held, max_abs_err={worst:.3g} "
+                  f"ms={ms:.4f}", flush=True)
 
 
 def _attn_err(got, want):
@@ -760,12 +878,16 @@ def phase_paged_decode(rows):
     kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
     # the query sits at each row's frontier: its last key is sharpened
     _sharpen_paged(q, (ka, kz), layer, tables, [n - 1 for n in kv_l], kv_l, [1 if n else 0 for n in kv_l])
+    # split plan from the capacity MB * bs, as the wrapper plans it
+    plan = A.decode_launch_plan(B, K, MB * bs, _sms())
     want = A.paged_decode_attention_xla(q, kz, vz, tables, kv_len, layer)
     got = A.paged_decode_attention(q, ka, va, tables, kv_len, layer)
     torch.cuda.synchronize()
     err, rms = map(max, zip(
         _paged_check("paged_decode", A.paged_decode_attention(q, kz, vz, tables, kv_len, layer), want),
         _paged_check("paged_decode (NaN outside the live blocks)", got, want),
+        _paged_check("paged_decode (against the split plain version)", got, A.paged_decode_attention_split_xla(
+            q, kz, vz, tables, kv_len, layer, plan["split_keys"])),
     ))
     short = kv_len.clone()
     short[0] -= 1
@@ -777,16 +899,30 @@ def phase_paged_decode(rows):
         "layer-1": A.paged_decode_attention_xla(q, kz, vz, tables, kv_len, layer - 1),
     })
     # alternate the two filled layers so one call's blocks are not left in L2
-    ms = time_ms(lambda i: A.paged_decode_attention(q, ka, va, tables, kv_len, layer - i % 2), iters=32)
+    call = lambda i: A.paged_decode_attention(q, ka, va, tables, kv_len, layer - i % 2)  # noqa: E731
+    ms = time_ms(call, iters=64)
+    host_us = launch_us(call)
     plain_ms = time_ms(lambda i: A.paged_decode_attention_xla(q, kz, vz, tables, kv_len, layer - i % 2), iters=8)
+    split_us = device_us(call)
+    # the split cap (ops.attention.DECODE_SPLIT_TILES) against longer and
+    # shorter splits; 64 tiles leaves the capacity plan uncut
+    cap, cap_ms = A.DECODE_SPLIT_TILES, {}
+    try:
+        for tiles in (64, 16, 8, 4):
+            A.DECODE_SPLIT_TILES = tiles
+            cap_ms[A.decode_launch_plan(B, K, MB * bs, _sms())["split_keys"] // 16] = time_ms(call, iters=32)
+    finally:
+        A.DECODE_SPLIT_TILES = cap
     b_ms, b_by = _paged_bound(kv_l, K, hd, q.numel() * 2, sum(kv_l), H)
-    print(f"phase paged_decode B={B} H={H} K={K} hd={hd} bs={bs} MB={MB} layer={layer} kv_len={kv_l}: "
-          f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms=none (no single PyTorch call reads a paged arena) bound_ms={b_ms:.4f} ({b_by})",
-          flush=True)
+    print(f"phase paged_decode B={B} H={H} K={K} hd={hd} bs={bs} MB={MB} layer={layer} kv_len={kv_l} "
+          f"{_plan_line(plan)}: {_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms=none (no single PyTorch call reads a paged arena) bound_ms={b_ms:.4f} ({b_by}) "
+          f"host_us={host_us:.1f} device_us: {split_us} "
+          f"ms_by_split_tiles={' '.join(f'{t}:{v:.4f}' for t, v in cap_ms.items())} "
+          f"earlier_design_ms=0.0722 (the previous design, PERF.md §6)", flush=True)
     rows["paged_decode_attention"] = dict(
         shape=f"B=8 H=32 K=8 hd=128 bs=16 MB=272 live_keys={sum(kv_l)}", ms=ms, plain_ms=plain_ms,
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms, host_us=host_us,
     )
     del ka, va, kz, vz
     torch.cuda.empty_cache()
@@ -1913,13 +2049,13 @@ def main() -> int:
 
     csrc = "rag_llm_k8s_tpu_torch/ops/csrc/"
     # each kernel's entry-point source, and the file of the routine it runs
-    # (attention_sm90.cuh for every attention kernel but the bf16 paged decode)
+    # (attention_sm90.cuh for every attention kernel)
     sources = {"knn_topk": csrc + "knn.cu", "decode_attention": csrc + "attention_sm90.cu",
                "chunk_prefill_attention": csrc + "attention_sm90.cu",
                "paged_decode_attention": csrc + "paged_attention.cu",
                "paged_chunk_attention": csrc + "paged_attention.cu",
                **{k: csrc + "attention_q8.cu" for k in ONE_SHOT_Q8[2:] + CONTINUOUS_Q8[2:]}}
-    no_routine = ("knn_topk", "paged_decode_attention")
+    no_routine = ("knn_topk",)
     replaces = {
         "knn_topk": "rag_llm_k8s_tpu/ops/knn.py:87",
         "flash_attention": "rag_llm_k8s_tpu/ops/attention.py:122",
@@ -1951,7 +2087,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
-            **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us") if k in r},
+            **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us", "queries_8",
+                                 "queries_9") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

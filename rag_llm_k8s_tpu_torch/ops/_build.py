@@ -15,6 +15,7 @@ the path it drove went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +113,15 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the ``n_sm`` of
+    the kernels' launch plans."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

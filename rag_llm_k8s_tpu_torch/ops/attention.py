@@ -32,18 +32,16 @@ before the PV product. Each wrapper takes its plain version only for CPU
 tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``
 (fresh K/V), ``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and
 chunk), ``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the
-wrapper raises. Every attention kernel but the bf16 paged decode runs a
-routine of ``csrc/attention_sm90.cuh``; the four q8 kernels run its int8
-forms of the chunk and decode routines.
+wrapper raises. Every attention kernel runs a routine of
+``csrc/attention_sm90.cuh``; the four q8 kernels run its int8 forms of the
+chunk and decode routines.
 
-The chunk-shaped kernels (``flash_attention``, ``chunk_prefill_attention``,
-``paged_chunk_attention`` and their ``*_q8`` forms), the dense decode kernel
-and the two q8 decode kernels may cut each row's visible keys into splits
-and merge the partial ``(m, l, acc)`` in a second pass (split-KV, when the
-grid is small). ``attention_split_plan`` and ``split_bounds`` are the plan
-they follow (``chunk_launch_plan``, ``chunk_design_plan``,
-``decode_launch_plan``), and ``decode_attention_split_xla``,
-``chunk_attention_split_xla``, ``flash_attention_split_xla``,
+Every kernel may cut each row's visible keys into splits and merge the
+partial ``(m, l, acc)`` in a second pass (split-KV, when the grid is small).
+``attention_split_plan`` and ``split_bounds`` are the plan they follow
+(``chunk_launch_plan``, ``chunk_design_plan``, ``decode_launch_plan``), and
+``decode_attention_split_xla``, ``chunk_attention_split_xla``,
+``flash_attention_split_xla``, ``paged_decode_attention_split_xla``,
 ``paged_chunk_attention_split_xla`` and the q8 forms
 ``decode_attention_split_xla_q8``, ``chunk_attention_split_xla_q8``,
 ``paged_decode_attention_split_xla_q8`` and
@@ -54,7 +52,6 @@ the same splits (``attention_splits_plain`` and ``merge_splits``).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -166,7 +163,9 @@ DECODE_TILE_KEYS = 16  # key tile of the decode routine (DBN)
 # split sets the kernel's time, while each split adds a partial to the merge
 # pass. On the H100 the int8 paged decode at B = 8 took 0.0532 ms with
 # 54-tile splits, 0.0322 with 16, 0.0287 with 8 and 0.0382 with 4
-# (chip_smoke.py phase_paged_decode_q8, PERF.md §6): splits are capped at 8.
+# (chip_smoke.py phase_paged_decode_q8, PERF.md §6); the bf16 one, whose
+# tiles are twice the bytes, 0.0556, 0.0308, 0.0326 and 0.0417
+# (phase_paged_decode). Splits are capped at 8 for every decode kernel.
 DECODE_SPLIT_TILES = 8
 
 
@@ -241,8 +240,9 @@ def chunk_design_plan(B: int, S: int, H: int, K: int, T: int, hd: int, n_sm: int
 
 
 def decode_launch_plan(B: int, K: int, T: int, n_sm: int) -> dict:
-    """Grid of the decode kernels (``decode_attention`` and the two q8
-    ones; the paged one at ``T = MB * bs``): one warp per (split, kv head,
+    """Grid of the decode kernels (``decode_attention``,
+    ``paged_decode_attention`` and the two q8 ones; the paged ones at
+    ``T = MB * bs``): one warp per (split, kv head,
     row), ``attention_split_plan``'s splits cut to at most
     ``DECODE_SPLIT_TILES`` tiles."""
     split_keys, n_splits = attention_split_plan(B * K, T, DECODE_TILE_KEYS, n_sm)
@@ -457,6 +457,32 @@ def paged_decode_attention_xla(
     v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)[None]
     zero = torch.zeros_like(kv_len)
     return decode_attention_xla(q, k, v, zero, kv_len, 0)
+
+
+def paged_decode_attention_split_xla(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_arena: torch.Tensor,  # [L, N, K, bs, hd]
+    v_arena: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int
+    kv_len: torch.Tensor,  # [B]
+    layer: int,
+    split_keys: int,
+    tile: int = DECODE_TILE_KEYS,
+) -> torch.Tensor:
+    """``paged_decode_attention_xla`` computed the way the paged decode
+    kernel cuts it: each row's blocks gathered through the table (slots past
+    ``kv_len`` zeroed), the window ``[0, min(kv_len, MB * bs))`` cut by
+    ``split_bounds``, through ``_split_merge_row`` (no causality; the G
+    heads are one row tile)."""
+    B, _, H, _ = q.shape
+    K = k_arena.shape[2]
+    k = _gather_paged_layer(k_arena, block_tables, kv_len, layer)
+    v = _gather_paged_layer(v_arena, block_tables, kv_len, layer)
+    out = torch.stack([
+        _split_merge_row(_query_rows(q[b], K), k[b], v[b], 0, min(int(kv_len[b]), k.shape[2]), None, False,
+                         split_keys, H // K, tile)
+        for b in range(B)])
+    return _from_query_rows(out, 1, q.dtype)
 
 
 def paged_chunk_attention_xla(
@@ -745,11 +771,6 @@ def _sm90_lib() -> ctypes.CDLL:
     })
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _split_parts(BK: int, n_splits: int, n_rows: int, hd: int, dev: torch.device):
     """Scratch of the split pass, one fp32 allocation holding ``[BK,
     n_splits, n_rows]`` m, then l, then ``[..., hd]`` acc, and the three
@@ -822,7 +843,7 @@ def flash_attention(
     _check_bf16("flash_attention", dev, q=q, k=k, v=v)
     ks = _window(kv_start, B, 0, dev)
     kl = _window(kv_len, B, Sk, dev)
-    plan = chunk_design_plan(B, S, H, K, Sk, hd, _sm_count(dev.index), design)
+    plan = chunk_design_plan(B, S, H, K, Sk, hd, _build.sm_count(dev.index), design)
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
     lib = _lib()
@@ -871,7 +892,7 @@ def decode_attention(
     G = _check_decode_heads("decode_attention", H, K)
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
-    plan = decode_launch_plan(B, K, T, _sm_count(dev.index))
+    plan = decode_launch_plan(B, K, T, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
     lib = _sm90_lib()
@@ -905,7 +926,7 @@ def chunk_prefill_attention(
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
-    plan = chunk_design_plan(B, S, H, K, T, hd, _sm_count(dev.index), design)
+    plan = chunk_design_plan(B, S, H, K, T, hd, _build.sm_count(dev.index), design)
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _sm90_lib()
@@ -923,11 +944,6 @@ def chunk_prefill_attention(
 # ---------------------------------------------------------------------------
 # paged arena ([L, N, K, bs, hd] block pool + [B, MB] block tables)
 # ---------------------------------------------------------------------------
-
-# logical blocks one decode split walks; the key range of a row is cut into
-# ceil(MB / PAGED_SPLIT_BLOCKS) splits, merged by a second pass
-PAGED_SPLIT_BLOCKS = 16
-
 
 def _paged_lib() -> ctypes.CDLL:
     return _build.load("paged_attention", {
@@ -973,7 +989,8 @@ def paged_decode_attention(
     layer: int,
 ) -> torch.Tensor:
     """One query per row over the row's live blocks ``[0, kv_len)`` of the
-    arena at ``layer``; a row with ``kv_len = 0`` gets zeros."""
+    arena at ``layer``; a row with ``kv_len = 0`` gets zeros. Split-KV
+    planned from the capacity ``MB * bs`` (no read of ``kv_len``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_xla(q, k_arena, v_arena, block_tables, kv_len, layer)
     if q.shape[1] != 1:
@@ -982,21 +999,17 @@ def paged_decode_attention(
     L, N, K, bs, hd, B, _, H, MB = _check_paged(
         "paged_decode_attention", q, k_arena, v_arena, block_tables, kv_len, layer
     )
-    G = H // K
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"paged_decode_attention: the kernel takes H // K in (1, 2, 4, 8), got {G}")
+    G = _check_decode_heads("paged_decode_attention", H, K)
     dev = q.device
-    n_splits = -(-MB // PAGED_SPLIT_BLOCKS)
-    part_m = torch.empty((B, K, n_splits, G), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, K, n_splits, G, hd), dtype=torch.float32, device=dev)
+    # split plan from the host-known capacity MB * bs: no read of kv_len
+    plan = decode_launch_plan(B, K, MB * bs, _build.sm_count(dev.index))
+    parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
     lib = _paged_lib()
     rc = lib.paged_decode_attention_bf16(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), kv_len.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        L, N, B, K, bs, MB, H, hd, layer, PAGED_SPLIT_BLOCKS, n_splits, hd**-0.5, _stream(dev),
+        block_tables.data_ptr(), kv_len.data_ptr(), pm, pl, pa,
+        L, N, B, K, bs, MB, H, hd, layer, plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "paged_decode_attention")
     _build.LAUNCHES["paged_decode_attention"] += 1
@@ -1024,7 +1037,7 @@ def paged_chunk_attention(
         raise ValueError("paged_chunk_attention: write_index must be int32 [B] on q's device")
     dev = q.device
     # split plan from the host-known capacity MB * bs: no read of kv_len
-    plan = chunk_launch_plan(B, S, H, K, MB * bs, _sm_count(dev.index))
+    plan = chunk_launch_plan(B, S, H, K, MB * bs, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _paged_lib()
@@ -1100,7 +1113,7 @@ def decode_attention_q8(
     G = _check_decode_heads("decode_attention_q8", H, K)
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
-    plan = decode_launch_plan(B, K, T, _sm_count(dev.index))
+    plan = decode_launch_plan(B, K, T, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
@@ -1137,7 +1150,7 @@ def chunk_prefill_attention_q8(
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
-    plan = chunk_launch_plan(B, S, H, K, T, _sm_count(dev.index))
+    plan = chunk_launch_plan(B, S, H, K, T, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
@@ -1174,7 +1187,7 @@ def paged_decode_attention_q8(
     G = _check_decode_heads("paged_decode_attention_q8", H, K)
     B, dev = q.shape[0], q.device
     # split plan from the host-known capacity MB * bs: no read of kv_len
-    plan = decode_launch_plan(B, K, MB * bs, _sm_count(dev.index))
+    plan = decode_launch_plan(B, K, MB * bs, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], G, hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
@@ -1212,7 +1225,7 @@ def paged_chunk_attention_q8(
     B, S, dev = q.shape[0], q.shape[1], q.device
     if tuple(write_index.shape) != (B,) or write_index.dtype != torch.int32 or write_index.device != dev:
         raise ValueError("paged_chunk_attention_q8: write_index must be int32 [B] on q's device")
-    plan = chunk_launch_plan(B, S, H, K, MB * bs, _sm_count(dev.index))
+    plan = chunk_launch_plan(B, S, H, K, MB * bs, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()

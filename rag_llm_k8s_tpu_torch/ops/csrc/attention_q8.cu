@@ -173,8 +173,10 @@ extern "C" int paged_decode_attention_q8(
     void* part_m, void* part_l, void* part_acc,
     int L, int N, int B, int K, int bs, int MB, int H, int hd, int layer,
     int split_keys, int n_splits, float scale, void* stream) {
+  // the splits cover the capacity MB * bs (the merge pass reads n_splits
+  // partials of every row)
   if (layer < 0 || layer >= L || K < 1 || bs < attn_sm90::DBN || bs % attn_sm90::DBN ||
-      (n_splits > 1) != (part_m != nullptr))
+      (n_splits > 1) != (part_m != nullptr) || (long long)n_splits * split_keys < (long long)MB * bs)
     return (int)cudaErrorInvalidValue;
   const long long s_off = (long long)layer * N * K * bs;
   const PagedQ8 kv{static_cast<const int8_t*>(k_arena) + s_off * hd,

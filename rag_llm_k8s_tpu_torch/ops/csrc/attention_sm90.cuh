@@ -6,9 +6,9 @@
 // with the pass that merges split-KV partials. attention_sm90.cu runs chunk
 // and decode over one layer of the dense bf16 cache, attention.cu the chunk
 // and warp-specialized routines over fresh K/V, paged_attention.cu the chunk
-// routine over the paged arena, attention_q8.cu the int8 chunk and decode
-// routines over the int8 cache and arena. The policy interface (the int8
-// routines' is in the int8 chunk routine's section):
+// and decode routines over the paged arena, attention_q8.cu the int8 chunk
+// and decode routines over the int8 cache and arena. The policy interface
+// (the int8 routines' is in the int8 chunk routine's section):
 //
 //   struct KV {
 //     int start(int b) const;    // first valid key position of row b
@@ -17,6 +17,10 @@
 //     const bf16* k_row(int b, int kvh, int kp) const;  // hd contiguous,
 //     const bf16* v_row(int b, int kvh, int kp) const;  // 16-byte aligned
 //   };
+//
+// The decode routines address a 16-key tile from its first key: keys kp ..
+// kp + 15 from a multiple of 16 must be contiguous rows (a dense cache; an
+// arena whose block size is a multiple of 16).
 //
 // Semantics kept from the TPU kernels: fp32 running max, sum and accumulator;
 // the key window [start, len) per batch row plus (offset) causality
@@ -1025,19 +1029,25 @@ __global__ void __launch_bounds__(32) decode_kernel(Params p, KV kv) {
   const int k_end = min(sp.hi, k_begin + p.split_keys);
   const int n_kt = k_end > k_begin ? (k_end - k_begin + DBN - 1) / DBN : 0;
 
-  // each lane copies chunk lc of rows lr, lr + 32 / CH, ...
+  // Tile i's 16 rows from its first key's row (a tile starts on a multiple
+  // of 16 and never crosses a block of the arena; dense rows are
+  // contiguous): one table lookup per tile, not per key. A row outside the
+  // window is zero-filled, its source (the tile's first row) never read.
+  // Each lane copies chunk lc of rows lr, lr + 32 / CH, ...
   const int lc = lane % CH, lr = lane / CH;
   auto load_kv = [&](int i) {
     const int k0 = k_begin + i * DBN;
     const uint32_t ks = s_base + (i % DEC_STAGES) * 2 * TILE, vs = ks + TILE;
+    const bf16* kr = kv.k_row(b, kvh, k0) + lc * 8;
+    const bf16* vr = kv.v_row(b, kvh, k0) + lc * 8;
 #pragma unroll
     for (int n = lr; n < DBN; n += 32 / CH) {
       const int kp = k0 + n;
       const bool in = kp >= lo && kp < len;
-      const int kr = in ? kp : lo;
+      const int step = in ? n * HD : 0;
       const uint32_t off = tile_off<DBN>(n, lc);
-      cp_async16(ks + off, kv.k_row(b, kvh, kr) + lc * 8, in);
-      cp_async16(vs + off, kv.v_row(b, kvh, kr) + lc * 8, in);
+      cp_async16(ks + off, kr + step, in);
+      cp_async16(vs + off, vr + step, in);
     }
   };
 #pragma unroll
