@@ -25,25 +25,40 @@
    phases also print the host's time to launch one call), the least time
    the card could take (``bound_ms``, from this run's inputs) and, for an
    int8 kernel, its bf16 counterpart's time at the same shape.
-3. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
+3. Staged boot (``phase_staged_boot``): a directory staged in a temporary
+   folder (Llama-3.1-8B ``config.json`` at full width with 2 layers, 4 bf16
+   shards of seeded random values; bge-m3 at full size; the fixture
+   ``tokenizer.json`` files; two PDFs), booted with
+   ``server.main.build_service()`` from ``AppConfig.from_env`` in bf16 and in
+   int8 (every tensor against the staged one bit for bit, the int8 ones
+   against ``models.loader.quantize_np``), a second time from the
+   converted-parameter cache and the persisted index, and as ``python -m
+   rag_llm_k8s_tpu_torch.server.main`` over HTTP.
+4. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
    bf16 weights) through the kernels against the same forward through the
    plain attention.
-4. Service phase: the port's RagService over the 8B decoder and a full
-   bge-m3 encoder; PDFs through ``/upload_pdf``, then synthetic chunks up to
-   65,536 vectors (the fused-path cap), then ``/generate`` and ``/query``
-   requests with default sampling and with greedy, one long question (host
-   path) and one >4096-token prompt (chunked prefill). The launch counters
-   are zeroed just before and read just after; every kernel must have run.
-5. Continuous phases: 8 concurrent ``/generate`` requests from threads
+5. Service phase: the port's RagService over the 8B decoder and a full
+   bge-m3 encoder, built as ``server/main.py`` builds it (the fixture BPE
+   and Unigram tokenizers, the C++ merge loop, a ``BatchScheduler`` and the
+   retrieve coalescer); PDFs through ``/upload_pdf``, then synthetic chunks
+   up to 65,536 vectors (the fused-path cap), then ``/generate`` and
+   ``/query`` requests with default sampling and with greedy, one long
+   question (host path) and one >4096-token prompt (chunked prefill). The
+   launch counters are zeroed just before and read just after; every kernel
+   must have run. Then the latency leg (``phase_query_latency``): 24 fused
+   solo ``/query`` one at a time, p50 and p95 of ``total_ms`` and its parts,
+   and a burst of 8 that must run a kNN pass of 8 queries and a batched
+   ``engine.generate``.
+6. Continuous phases: 8 concurrent ``/generate`` requests from threads
    through a ``ContinuousScheduler`` (paged arena, interleaved admission)
    over the same model and store, counters zeroed before and read after
    (kNN, flash, paged decode and paged chunk must all have run, and the
    pool must drain to 0 blocks); the last greedy request alone must give
    its text from the batch (then, as a yardstick, through the plain paged
    attention); then a phase-separated continuous engine run.
-6. Yardstick: one greedy request through the decode kernel and again
+7. Yardstick: one greedy request through the decode kernel and again
    through the plain decode attention.
-7. int8 slice: ``quantize_llama`` of the same model (prefill logits against
+8. int8 slice: ``quantize_llama`` of the same model (prefill logits against
    the bf16 weights, one decode and one verify forward each way), then an int8 one-shot
    service (``weight_quant="int8", kv_quant="int8"``) over the same store
    (phase 4's requests plus a forced speculative one; the q8 cache kernels
@@ -51,8 +66,8 @@
    ``kv_block_size=32`` (phase 5, without the plain yardstick) and an int8
    phase-separated engine run.
 
-Prints one line per phase, the card line and a ``kernels`` JSON line, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
+Prints one line per phase and its seconds, the card line and a ``kernels``
+JSON line, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when there is no CUDA card, a kernel fails to build or launch, or anything
 disagrees.
 """
@@ -1381,15 +1396,21 @@ def phase_paged_chunk_q8(rows):
 # ---------------------------------------------------------------------------
 
 
-class ByteTokenizer:
-    """Byte-level stand-in tokenizer (ids = byte + 3): no trained tokenizer
-    ships with the repository."""
+TOKENIZER_FIXTURES = "tests/fixtures/tokenizers/"
+LLM_TOKENIZER = TOKENIZER_FIXTURES + "bpe_multi.json"  # byte-level BPE, the Llama side
+ENC_TOKENIZER = TOKENIZER_FIXTURES + "unigram_norm.json"  # Unigram, the bge-m3 side
 
-    def encode(self, text):
-        return [b + 3 for b in text.encode("utf-8")]
 
-    def decode(self, ids, skip_special_tokens=True):
-        return bytes((int(i) - 3) % 256 for i in ids if 3 <= int(i) < 259).decode("utf-8", "replace")
+def real_tokenizers():
+    """The port's tokenizers over the repository's ``tokenizer.json``
+    fixtures (no trained tokenizer ships with it): BPE for Llama, Unigram
+    for bge-m3. The BPE merge loop must be the C++ one."""
+    from rag_llm_k8s_tpu_torch.tokenizer import load_tokenizer
+
+    llm, enc = load_tokenizer(LLM_TOKENIZER), load_tokenizer(ENC_TOKENIZER)
+    if not llm.native:
+        fail("the native BPE merge loop (native/bpe.cpp) did not build or load")
+    return llm, enc
 
 
 def make_pdf(text: str) -> bytes:
@@ -1923,10 +1944,359 @@ def phase_model_q8(model, qmodel, cfg, engine):
                   f"{ended:.2f} ms (host clock)", flush=True)
 
 
+def _pct(values, q):
+    """The ``q``-th percentile (linear interpolation between order
+    statistics, numpy's default)."""
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+LATENCY_QUESTIONS = [
+    "which kernel tiles the shared memory?", "how does the cache stream tokens?",
+    "what bounds the decode latency?", "where is the vector index kept?",
+    "what does the warp block share?", "how is the prefill chunk scheduled?",
+    "which register holds the query?", "what limits the device bandwidth?",
+    "how many tokens does a chunk hold?", "what does the attention kernel read?",
+]
+
+
+def phase_query_latency(service_bits, n_solo: int = 24):
+    """The solo ``/query`` latency leg (``bench.py`` ``measure_query_e2e``):
+    ``n_solo`` fused requests one at a time through the service as
+    ``server/main.py`` builds it (real tokenizers, ``BatchScheduler``,
+    retrieve coalescer, full-depth bf16 8B, the 65,536-vector store,
+    default sampling), with p50 and p95 of ``total_ms`` and its parts. Then
+    a burst of 8 concurrent ``/query``: the kNN must run a pass of 8
+    queries and ``engine.generate`` a batch of more than one."""
+    import threading
+
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import _build
+
+    svc, client, engine, _ = service_bits
+    tok = svc.llm_tokenizer
+    fused, batches = [], []
+    real_rag, real_gen = engine.generate_rag, engine.generate
+    engine.generate_rag = lambda *a, **kw: fused.append(1) or real_rag(*a, **kw)
+    engine.generate = lambda prompts, *a, **kw: batches.append(len(prompts)) or real_gen(prompts, *a, **kw)
+    try:
+        native_before = tok.native_calls
+        keys = ("total_ms", "tokenize_ms", "embed_retrieve_ms", "generate_ms")
+        samples = {k: [] for k in keys}
+        for i in range(n_solo):
+            q = LATENCY_QUESTIONS[i % len(LATENCY_QUESTIONS)]
+            r = client.post("/query", json_body={"prompt": f"{q} ({i})"})
+            body = r.get_json()
+            if r.status_code != 200 or "Document '" not in body.get("context", ""):
+                fail(f"latency /query {i}: {r.status_code} {body}")
+            for k in keys:
+                samples[k].append(body["timings"][k])
+        if len(fused) != n_solo:
+            fail(f"latency: {len(fused)} of {n_solo} solo queries took the single-fetch path")
+        if tok.native_calls - native_before < n_solo:
+            fail("latency: the native BPE merge loop did not serve every request")
+        stats = {k: {"p50": _pct(v, 50), "p95": _pct(v, 95), "min": min(v), "max": max(v)}
+                 for k, v in samples.items()}
+        print(f"phase query_latency solo: requests={n_solo} fused={len(fused)} "
+              f"native_bpe_texts={tok.native_calls - native_before} ms {json.dumps(stats)}", flush=True)
+
+        # a cold burst of 8: one coalesced retrieve (a kNN pass of 8) and
+        # batched generates through the BatchScheduler
+        results = [None] * 8
+        fused.clear()
+        batches.clear()
+        start = threading.Barrier(8, timeout=60)  # the 8 arrive together
+
+        def ask(i):
+            start.wait()
+            r = client.post("/query", json_body={"prompt": LATENCY_QUESTIONS[i]})
+            results[i] = (r.status_code, r.get_json())
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        by_q = dict(_build.KNN_LAUNCHES_BY_QUERIES)
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200 or "Document '" not in res[1].get("context", ""):
+                fail(f"latency burst /query {i}: {res}")
+        print(f"phase query_latency burst: requests=8 wall_s={wall:.2f} knn_launches_by_queries="
+              f"{json.dumps(by_q)} generate_batches={batches} fused={len(fused)} total_ms="
+              f"{[r[1]['timings']['total_ms'] for r in results]} embed_retrieve_ms="
+              f"{[r[1]['timings']['embed_retrieve_ms'] for r in results]}", flush=True)
+        if not by_q.get(8):
+            fail("latency burst: the kNN never ran a pass of 8 queries")
+        if not batches or max(batches) < 2:
+            fail(f"latency burst: engine.generate never ran a batch of more than one ({batches})")
+        return stats
+    finally:
+        engine.generate_rag, engine.generate = real_rag, real_gen
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port, path, body=None, timeout=600):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _rss():
+    """(current, peak) host RSS of this process in GB."""
+    import resource
+
+    cur = 0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = int(line.split()[1]) * 1024
+    return cur / 1e9, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _expected_llama(model, st, quant):
+    """Yield ``(what, got, want)`` for every parameter of a booted (fused)
+    Llama against the staged tensors ``st``: bit for bit, with the int8
+    projections and head against the loader's ``quantize_np`` twin."""
+    import numpy as np
+    import torch
+
+    from rag_llm_k8s_tpu_torch.models.loader import quantize_np
+
+    dev = next(model.parameters()).device
+
+    def staged(name):
+        return st[name].to(dev)
+
+    def linear(mod, names):
+        if quant == "int8":
+            qs = [quantize_np(st[n]) for n in names]
+            yield (f"{names[0]} int8", mod.weight, torch.from_numpy(np.concatenate([q for q, _ in qs])).to(dev))
+            yield (f"{names[0]} scale", mod.scale, torch.from_numpy(np.concatenate([s for _, s in qs])).to(dev))
+        else:
+            yield (names[0], mod.weight, torch.cat([staged(n) for n in names]))
+
+    c = model.config
+    yield ("model.embed_tokens.weight", model.embed.weight, staged("model.embed_tokens.weight"))
+    yield ("model.norm.weight", model.final_norm.weight, staged("model.norm.weight"))
+    yield from linear(model.lm_head, ["lm_head.weight"])
+    for i, blk in enumerate(model.layers):
+        p = f"model.layers.{i}."
+        yield (p + "input_layernorm.weight", blk.input_norm.weight, staged(p + "input_layernorm.weight"))
+        yield (p + "post_attention_layernorm.weight", blk.post_attn_norm.weight,
+               staged(p + "post_attention_layernorm.weight"))
+        yield from linear(blk.attn.wqkv, [p + f"self_attn.{x}_proj.weight" for x in "qkv"])
+        yield from linear(blk.attn.wo, [p + "self_attn.o_proj.weight"])
+        yield from linear(blk.mlp.w_gateup, [p + "mlp.gate_proj.weight", p + "mlp.up_proj.weight"])
+        yield from linear(blk.mlp.w_down, [p + "mlp.down_proj.weight"])
+    if c.tie_word_embeddings:
+        fail("staged boot: the staged 8B config is untied")
+
+
+def _check_boot_weights(svc, model_dir, quant):
+    """Every loaded Llama and bge-m3 tensor against the staged files."""
+    import glob
+    import os
+
+    import torch
+
+    from rag_llm_k8s_tpu_torch.models.loader import _XLMR_LAYER_MAP, _XLMR_TOP_MAP
+    from rag_llm_k8s_tpu_torch.utils.safetensors_io import LazyStateDict
+
+    st = LazyStateDict(sorted(glob.glob(os.path.join(model_dir, "*.safetensors"))))
+    n = 0
+    for what, got, want in _expected_llama(svc.engine.model, st, quant):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"staged boot ({quant}): {what} differs from the staged tensor")
+        n += 1
+    est = LazyStateDict(sorted(glob.glob(os.path.join(model_dir, "bge-m3", "*.safetensors"))))
+    params = dict(svc.encoder.model.named_parameters())
+    names = dict(_XLMR_TOP_MAP)
+    for i in range(svc.encoder.config.num_layers):
+        for hf_mod, port_mod in _XLMR_LAYER_MAP.items():
+            for leaf in ("weight", "bias"):
+                names[f"encoder.layer.{i}.{hf_mod}.{leaf}"] = f"layers.{i}.{port_mod}.{leaf}"
+    for hf_name, port_name in names.items():
+        want = est[hf_name].to(params[port_name].device)
+        if not torch.equal(params[port_name], want):
+            fail(f"staged boot ({quant}): encoder {hf_name} differs from the staged tensor")
+        n += 1
+    return n
+
+
+def phase_staged_boot():
+    """Boot the port the way the product boots. Stage a directory (Llama-3.1-8B
+    ``config.json`` at full width with 2 layers, 4 bf16 shards of seeded
+    random values; bge-m3 at full size, bf16, under ``bge-m3/``; the fixture
+    ``tokenizer.json`` files; two PDFs), then: ``server.main.build_service()``
+    from ``AppConfig.from_env`` (every tensor checked bit for bit), ingest and
+    one ``/query``; the same under ``TPU_RAG_WEIGHT_QUANT=int8`` (every int8
+    weight and scale against ``loader.quantize_np`` of the staged tensor; host
+    RSS and device bytes printed); a second bf16 boot, which must restore the
+    converted-parameter cache and reopen the index with no re-embedding; and
+    ``python -m rag_llm_k8s_tpu_torch.server.main`` as a subprocess on a free
+    port: ``/healthz``, ``/index_info`` and three ``/generate`` over HTTP.
+    The directory is removed afterwards."""
+    import gc
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import AppConfig, EncoderConfig, LlamaConfig
+    from rag_llm_k8s_tpu_torch.server import main as server_main
+    from rag_llm_k8s_tpu_torch.server.app import create_app
+    from rag_llm_k8s_tpu_torch.utils import synth
+
+    root = tempfile.mkdtemp(prefix="staged_boot_")
+    try:
+        t = time.monotonic()
+        rss0, peak0 = _rss()
+        print(f"phase staged_boot before: host_rss_gb={rss0:.2f} host_peak_rss_gb={peak0:.2f}", flush=True)
+        cfg8 = dataclasses.replace(LlamaConfig.llama_3_1_8b(), num_layers=2)
+        synth.write_synth_checkpoint(root, cfg8, n_shards=4, seed=11, device="cuda")
+        synth.write_hf_config(root, cfg8)
+        shutil.copy(LLM_TOKENIZER, os.path.join(root, "tokenizer.json"))
+        enc_dir = os.path.join(root, "bge-m3")
+        synth.write_synth_encoder(enc_dir, EncoderConfig.bge_m3(), dtype=torch.bfloat16, seed=12, device="cuda")
+        shutil.copy(ENC_TOKENIZER, os.path.join(enc_dir, "tokenizer.json"))
+        pdf_dir = os.path.join(root, "pdfs")
+        os.makedirs(pdf_dir)
+        rng = np.random.default_rng(21)
+        for i in range(2):
+            with open(os.path.join(pdf_dir, f"staged{i}.pdf"), "wb") as f:
+                f.write(make_pdf(words(rng, 250)))
+        gb = sum(os.path.getsize(os.path.join(d, f)) for d in (root, enc_dir)
+                 for f in os.listdir(d) if f.endswith(".safetensors")) / 1e9
+        print(f"phase staged_boot stage: llama-3.1-8b width, 2 layers, 4 shards + bge-m3, "
+              f"{gb:.2f} GB of safetensors s={time.monotonic() - t:.1f}", flush=True)
+
+        env = {"MODEL_PATH": root, "TPU_RAG_PDF_DIR": pdf_dir}
+        boots = {}
+        for tag, extra in (("bf16", {}), ("int8", {"TPU_RAG_WEIGHT_QUANT": "int8", "TPU_RAG_KV_QUANT": "int8"}),
+                           ("bf16 again", {})):
+            t = time.monotonic()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            info = {}
+            svc = server_main.build_service(AppConfig.from_env({**env, **extra}), info=info)
+            boot_s = time.monotonic() - t
+            dev_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+            w_gb = sum(p.numel() * p.element_size() for p in svc.engine.model.parameters()) / 1e9
+            quant = "int8" if "int8" in tag else "bf16"
+            t = time.monotonic()
+            n_checked = _check_boot_weights(svc, root, quant)
+            check_s = time.monotonic() - t
+            if tag == "bf16 again":
+                if info.get("params_source") != "cache":
+                    fail(f"staged boot: the second boot did not restore the param cache ({info})")
+                if info["index_loaded_vectors"] != boots["bf16"]:
+                    fail(f"staged boot: the index reopened with {info['index_loaded_vectors']} vectors, "
+                         f"not {boots['bf16']}")
+                n_new = 0
+            else:
+                if info.get("params_source") != "converted":
+                    fail(f"staged boot ({tag}): expected a conversion, got {info}")
+                svc.ingest_directory()
+                n_new = svc.store.ntotal
+                boots[tag] = n_new
+            svc.ready = True
+            client = create_app(svc).test_client()
+            r = client.post("/query", json_body={"prompt": "which kernel tiles the shared memory?"})
+            if r.status_code != 200 or "Document '" not in r.get_json().get("context", ""):
+                fail(f"staged boot ({tag}): /query {r.status_code} {r.get_json()}")
+            cur, peak = _rss()
+            print(f"phase staged_boot {tag}: params={info['params_source']} boot_s={boot_s:.1f} "
+                  f"tensors_checked={n_checked} (bit for bit{', int8 vs quantize_np' if quant == 'int8' else ''}) "
+                  f"check_s={check_s:.1f} llama_weight_gb={w_gb:.3f} device_gb_added={dev_gb:.3f} "
+                  f"host_rss_gb={cur:.2f} host_peak_rss_gb={peak:.2f} index_vectors={svc.store.ntotal} "
+                  f"ingested={n_new} /query timings={json.dumps(r.get_json()['timings'])}", flush=True)
+            svc.shutdown()
+            del svc, client
+            gc.collect()  # the service's threads hold it in reference cycles
+            torch.cuda.empty_cache()
+
+        # the entry point itself, as a subprocess serving HTTP
+        port = _free_port()
+        t = time.monotonic()
+        # the server's output goes to a file: an undrained pipe could fill and block it
+        log_path = os.path.join(root, "server_main.log")
+        log = open(log_path, "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "rag_llm_k8s_tpu_torch.server.main"],
+            env={**os.environ, **env, "TPU_RAG_PORT": str(port), "TPU_RAG_LOG_LEVEL": "WARNING"},
+            stdout=log, stderr=subprocess.STDOUT,
+        )
+
+        def server_log():
+            with open(log_path) as f:
+                return f.read()[-4000:]
+
+        try:
+            ready = None
+            while time.monotonic() - t < 600:
+                if proc.poll() is not None:
+                    fail(f"server.main exited with {proc.returncode}:\n{server_log()}")
+                try:
+                    code, health = _http(port, "/healthz", timeout=5)
+                    if code == 200 and health.get("status") == "ok":
+                        ready = health
+                        break
+                except OSError:
+                    pass
+                time.sleep(1.0)
+            if ready is None:
+                fail(f"server.main: /healthz never reported ready within 600 s:\n{server_log()}")
+            ready_s = time.monotonic() - t
+            _, index = _http(port, "/index_info")
+            if index["total_vectors"] != boots["bf16"]:
+                fail(f"server.main: /index_info {index['total_vectors']} vectors, expected {boots['bf16']}")
+            timings = []
+            for q in LATENCY_QUESTIONS[:3]:
+                code, body = _http(port, "/generate", {"prompt": q})
+                if code != 200 or "Document '" not in body.get("context", ""):
+                    fail(f"server.main /generate: {code} {body}")
+                timings.append(body["timings"])
+            print(f"phase staged_boot server.main: pid={proc.pid} port={port} ready_s={ready_s:.1f} "
+                  f"healthz={json.dumps(ready)} index_vectors={index['total_vectors']} "
+                  f"generate_timings={json.dumps(timings)}", flush=True)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def build_q8_service(service_bits, qmodel):
     """An int8 ``InferenceEngine`` (``weight_quant="int8", kv_quant="int8"``)
-    over the already-quantized model, behind its own ``RagService`` over the
-    same store, encoder and tokenizer."""
+    over the already-quantized model, behind its own ``RagService`` (with a
+    ``BatchScheduler``) over the same store, encoder and tokenizers."""
+    from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
     from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
     from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
 
@@ -1936,7 +2306,7 @@ def build_q8_service(service_bits, qmodel):
     if eng.model is not qmodel:
         fail("int8 engine: the quantized model did not pass through")
     svc = RagService(dataclasses.replace(svc1.config, engine=ec), eng, svc1.llm_tokenizer, svc1.encoder,
-                     svc1.encoder_tokenizer, store)
+                     svc1.encoder_tokenizer, store, scheduler=BatchScheduler(eng, max_wait_ms=30.0))
     svc.ready = True
     return svc, create_app(svc).test_client(), eng, store
 
@@ -1945,6 +2315,7 @@ def build_service():
     import torch
 
     from rag_llm_k8s_tpu_torch.core.config import AppConfig, EncoderConfig, LlamaConfig
+    from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
     from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
     from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
     from rag_llm_k8s_tpu_torch.index.store import VectorStore
@@ -1970,12 +2341,27 @@ def build_service():
           f"device_mem_gb={torch.cuda.memory_allocated() / 1e9:.2f} s={time.monotonic() - t:.1f}",
           flush=True)
     engine = InferenceEngine(cfg.model, model, cfg.sampling, cfg.engine, cfg.dtypes, dev)
-    tok = ByteTokenizer()
+    llm_tok, enc_tok = real_tokenizers()
     encoder = EncoderRunner(cfg.encoder, enc, dev)
     store = VectorStore(cfg.encoder.hidden_size, dev)
-    svc = RagService(cfg, engine, tok, encoder, tok, store)
+    # the one-shot service as server/main.py builds it: the coalescing
+    # scheduler (so a solo query takes the single-fetch path) and the
+    # service's retrieve coalescer
+    svc = RagService(cfg, engine, llm_tok, encoder, enc_tok, store,
+                     scheduler=BatchScheduler(engine, max_wait_ms=30.0))
     svc.ready = True
     return svc, create_app(svc).test_client(), engine, store
+
+
+T_START = time.monotonic()
+
+
+def timed(fn, *args, **kwargs):
+    """Run one phase and print its seconds."""
+    t = time.monotonic()
+    out = fn(*args, **kwargs)
+    print(f"phase_seconds {fn.__name__}={time.monotonic() - t:.1f}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2007,24 +2393,26 @@ def main() -> int:
     print(f"phase build kernels: {sorted(reports) or 'cached'} s={time.monotonic() - t:.1f}", flush=True)
 
     rows = {}
-    phase_knn(rows)
-    phase_flash(rows)
-    phase_decode(rows)
-    phase_chunk(rows)
-    phase_paged_decode(rows)
-    phase_paged_chunk(rows)
-    phase_decode_q8(rows)
-    phase_chunk_q8(rows)
-    phase_paged_decode_q8(rows)
-    phase_paged_chunk_q8(rows)
+    timed(phase_knn, rows)
+    timed(phase_flash, rows)
+    timed(phase_decode, rows)
+    timed(phase_chunk, rows)
+    timed(phase_paged_decode, rows)
+    timed(phase_paged_chunk, rows)
+    timed(phase_decode_q8, rows)
+    timed(phase_chunk_q8, rows)
+    timed(phase_paged_decode_q8, rows)
+    timed(phase_paged_chunk_q8, rows)
     torch.cuda.empty_cache()
+    timed(phase_staged_boot)
 
-    bits = build_service()
-    phase_model(bits[2].model, bits[2].config)
-    launches = phase_service(bits, forbid=ONE_SHOT_Q8[2:])
-    cont_launches = phase_continuous_service(bits, forbid=CONTINUOUS_Q8[2:])
-    phase_continuous_engine(bits)
-    phase_plain_decode(bits)
+    bits = timed(build_service)
+    timed(phase_model, bits[2].model, bits[2].config)
+    launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
+    timed(phase_query_latency, bits)
+    cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
+    timed(phase_continuous_engine, bits)
+    timed(phase_plain_decode, bits)
 
     # int8 weights and int8 KV: the same 8B model quantized, the same store
     from rag_llm_k8s_tpu_torch.models.llama import quantize_llama
@@ -2037,14 +2425,18 @@ def main() -> int:
                if n.endswith((".weight", ".scale")) and p.dtype in (torch.int8, torch.float32)) / 1e9
     print(f"phase quantize llama-3.1-8b: int8 projections and head {q_gb:.2f} GB (embedding and norms shared) "
           f"device_mem_gb={torch.cuda.memory_allocated() / 1e9:.2f} s={time.monotonic() - t:.1f}", flush=True)
-    phase_model_q8(model, qmodel, bits[2].config, bits[2])
+    timed(phase_model_q8, model, qmodel, bits[2].config, bits[2])
     qbits = build_q8_service(bits, qmodel)
-    q_launches = phase_service(qbits, tag="int8", ingest=False, need=ONE_SHOT_Q8, forbid=BF16_CACHE_KERNELS,
-                               force_spec=True)
-    q_cont = phase_continuous_service(qbits, tag="int8", block_size=32, need=CONTINUOUS_Q8,
-                                      forbid=BF16_CACHE_KERNELS, plain_yardstick=False)
-    phase_continuous_engine(qbits, tag="int8", block_size=32, decode_kernel="paged_decode_attention_q8",
-                            forbid=BF16_CACHE_KERNELS)
+    q_launches = timed(phase_service, qbits, tag="int8", ingest=False, need=ONE_SHOT_Q8,
+                       forbid=BF16_CACHE_KERNELS, force_spec=True)
+    q_cont = timed(phase_continuous_service, qbits, tag="int8", block_size=32, need=CONTINUOUS_Q8,
+                   forbid=BF16_CACHE_KERNELS, plain_yardstick=False)
+    timed(phase_continuous_engine, qbits, tag="int8", block_size=32, decode_kernel="paged_decode_attention_q8",
+          forbid=BF16_CACHE_KERNELS)
+    if bits[0].llm_tokenizer.native_calls == 0:
+        fail("the native BPE merge loop never served a request")
+    print(f"native BPE merge loop: {bits[0].llm_tokenizer.native_calls} texts encoded", flush=True)
+    print(f"phase_seconds total={time.monotonic() - T_START:.1f}", flush=True)
     print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
     csrc = "rag_llm_k8s_tpu_torch/ops/csrc/"

@@ -1,16 +1,25 @@
-"""Typed configuration: the main-path subset of the JAX package's config tree.
+"""Typed configuration: the ported subset of the JAX package's config tree.
 
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
 (mesh, prefix cache, tiering, speculative continuous decode, pool roles,
-observability) are not here.
+observability, resilience) are not here.
+
+``AppConfig.from_env`` reads the JAX package's environment surface for the
+fields the port has, with the same validation messages. A key that turns on
+a feature the port lacks raises and names its ``ROADMAP.md`` item
+(``UNPORTED_KEYS``); any other ``TPU_RAG_*`` key the port does not read is
+logged as ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -128,6 +137,7 @@ class RetrievalConfig:
     chunk_overlap: int = 200
     k: int = 5
     context_top_n: int = 3
+    embed_dim: int = 1024
 
 
 @dataclass(frozen=True)
@@ -177,10 +187,9 @@ class EngineConfig:
     rag_fused: bool = True
     # past this many live vectors solo queries take the host path
     rag_fused_max_vectors: int = 65536
-    # request scheduling: "coalesce" (the JAX package's default; its
-    # coalescing scheduler is not ported, so the port's service then
-    # serves each request through the one-shot engine) or "continuous"
-    # (requests join a running batch: engine/continuous.py)
+    # request scheduling: "coalesce" (concurrent requests coalesce into
+    # batched one-shot generates: engine/batching.py BatchScheduler) or
+    # "continuous" (requests join a running batch: engine/continuous.py)
     batching: str = "coalesce"
     # continuous engine: decode steps run per host sync (one token fetch
     # per window)
@@ -212,25 +221,29 @@ class EngineConfig:
                 raise ValueError(f"{name}={getattr(self, name)!r}: expected 'bf16' or 'int8'")
 
     def validate_interleave(self) -> None:
-        """Cross-field rules for interleaved admission, checked at
+        """Cross-field rules for interleaved admission (the JAX package's,
+        with its messages), checked by ``AppConfig.from_env`` and at
         continuous-engine construction."""
         if not self.interleave_prefill:
             return
         if not self.kv_paged:
             raise ValueError(
-                "interleave_prefill=True requires kv_paged=True: chunked "
-                "admission writes through block tables"
+                "interleave_prefill=True requires kv_paged=True — chunked "
+                "prefill writes through block tables; set "
+                "TPU_RAG_KV_PAGED=1 or disable TPU_RAG_INTERLEAVE_PREFILL"
             )
         if self.prefill_chunk_tokens < 1:
             raise ValueError(
-                f"prefill_chunk_tokens={self.prefill_chunk_tokens}: a mixed "
-                "window must carry at least one prefill token per chunk"
+                f"prefill_chunk_tokens={self.prefill_chunk_tokens}: the "
+                "mixed window must carry at least one prefill token per "
+                "scheduled chunk"
             )
         if self.window_token_budget and self.window_token_budget < self.max_batch_size + 1:
             raise ValueError(
-                f"window_token_budget={self.window_token_budget} cannot cover "
-                f"max_batch_size={self.max_batch_size} decode lanes plus one "
-                "prefill token (0 means max_batch_size + prefill_chunk_tokens)"
+                f"window_token_budget={self.window_token_budget} cannot "
+                f"cover max_batch_size={self.max_batch_size} decode lanes "
+                "plus one prefill token — raise the budget or set 0 for "
+                "auto (max_batch_size + prefill_chunk_tokens)"
             )
 
 
@@ -244,6 +257,70 @@ SYSTEM_MESSAGE = (
 
 
 @dataclass(frozen=True)
+class ServerConfig:
+    """HTTP surface and storage paths (the reference's rag.py:18-20, 204)."""
+
+    host: str = "0.0.0.0"
+    port: int = 5001
+    model_path: str = "/models"
+    index_path: str = "/models/tpu_index"
+    pdf_dir: str = "/pdfs"
+    embedder_path: str = "/models/bge-m3"
+
+
+def _mesh_on(spec: str) -> bool:
+    """Whether a ``TPU_RAG_MESH`` spec asks for more than one device."""
+    try:
+        kv = dict(p.split("=", 1) for p in spec.split(","))
+        sizes = {k: int(v) for k, v in kv.items() if k in ("dp", "sp", "tp")}
+    except (ValueError, TypeError) as e:
+        raise ValueError(f"TPU_RAG_MESH={spec!r} is not of the form 'dp=N,sp=N,tp=N'") from e
+    return any(v > 1 for v in sizes.values())
+
+
+# keys that turn on a feature the port does not have: the test on the
+# value, and the ROADMAP.md item that ports it
+UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
+    "TPU_RAG_MESH": (_mesh_on, "Queue 1 item 10 (tensor and sequence parallelism; the port serves one card)"),
+    "TPU_RAG_SPEC_PAGED": (lambda v: v == "1", "Queue 1 item 7 (the paged speculative verify)"),
+    "TPU_RAG_PREFIX_CACHE": (lambda v: v == "1", "Queue 1 item 6 (prefix cache and KV tiering)"),
+    "TPU_RAG_KV_TIERING": (lambda v: v == "1", "Queue 1 item 6 (prefix cache and KV tiering)"),
+    "TPU_RAG_LOOKAHEAD": (lambda v: v == "1", "Queue 1 item 8 (lookahead, router, lifecycle)"),
+    "TPU_RAG_POOL_ROLE": (lambda v: v != "unified", "Queue 1 item 8 (lookahead, router, lifecycle)"),
+    "TPU_RAG_FLIGHT_WAL": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
+    "TPU_RAG_FLIGHT_WAL_RESTORE": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
+    "TPU_RAG_FAULTS": (lambda v: bool(v.strip()), "Queue 1 item 9 (resilience: fault arming)"),
+}
+
+# the keys from_env reads
+PORTED_KEYS = frozenset({
+    "TPU_RAG_INDEX_PATH", "TPU_RAG_PDF_DIR", "TPU_RAG_PORT", "TPU_RAG_MAX_NEW_TOKENS",
+    "TPU_RAG_BATCHING", "TPU_RAG_WEIGHT_QUANT", "TPU_RAG_KV_QUANT", "TPU_RAG_KV_PAGED",
+    "TPU_RAG_KV_BLOCK_SIZE", "TPU_RAG_KV_POOL_BLOCKS", "TPU_RAG_INTERLEAVE_PREFILL",
+    "TPU_RAG_PREFILL_CHUNK_TOKENS", "TPU_RAG_WINDOW_TOKEN_BUDGET", "TPU_RAG_DO_SAMPLE",
+    "TPU_RAG_SPECULATIVE", "TPU_RAG_SYNC_STEPS", "TPU_RAG_FUSED", "TPU_RAG_LOG_LEVEL",
+})
+
+
+def _flag(env: dict, key: str) -> Optional[bool]:
+    if key not in env:
+        return None
+    flag = env[key]
+    if flag not in ("0", "1"):
+        raise ValueError(f"{key}={flag!r}: expected '0' or '1'")
+    return flag == "1"
+
+
+def _int(env: dict, key: str, minimum: int, note: str = "") -> Optional[int]:
+    if key not in env:
+        return None
+    v = int(env[key])
+    if v < minimum:
+        raise ValueError(f"{key}={v}: expected >= {minimum}{note}")
+    return v
+
+
+@dataclass(frozen=True)
 class AppConfig:
     dtypes: DTypePolicy = field(default_factory=DTypePolicy)
     model: LlamaConfig = field(default_factory=LlamaConfig.llama_3_1_8b)
@@ -251,4 +328,77 @@ class AppConfig:
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    server: ServerConfig = field(default_factory=ServerConfig)
     system_message: str = SYSTEM_MESSAGE
+
+    @classmethod
+    def from_env(cls, env: Optional[dict] = None) -> "AppConfig":
+        """The config with the deployment's environment applied (JAX
+        ``AppConfig.from_env`` for the ported fields; see the module
+        docstring for the keys it refuses or ignores)."""
+        env = dict(os.environ if env is None else env)
+        for key, (turns_on, item) in UNPORTED_KEYS.items():
+            if key in env and turns_on(env[key]):
+                raise ValueError(f"{key}={env[key]!r} turns on a feature the PyTorch port does not "
+                                 f"have yet: ROADMAP.md {item}")
+        ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
+        if ignored:
+            logging.getLogger(__name__).warning(
+                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 6-10)",
+                ", ".join(ignored),
+            )
+        cfg = cls()
+        rep = dataclasses.replace
+        server = cfg.server
+        if "MODEL_PATH" in env:
+            mp = env["MODEL_PATH"]
+            server = rep(server, model_path=mp, index_path=os.path.join(mp, "tpu_index"),
+                         embedder_path=os.path.join(mp, "bge-m3"))
+        if "TPU_RAG_INDEX_PATH" in env:
+            server = rep(server, index_path=env["TPU_RAG_INDEX_PATH"])
+        if "TPU_RAG_PDF_DIR" in env:
+            server = rep(server, pdf_dir=env["TPU_RAG_PDF_DIR"])
+        if "TPU_RAG_PORT" in env:
+            server = rep(server, port=int(env["TPU_RAG_PORT"]))
+        sampling = cfg.sampling
+        if "TPU_RAG_MAX_NEW_TOKENS" in env:
+            sampling = rep(sampling, max_new_tokens=int(env["TPU_RAG_MAX_NEW_TOKENS"]))
+        engine = cfg.engine
+        if "TPU_RAG_BATCHING" in env:
+            mode = env["TPU_RAG_BATCHING"]
+            if mode not in ("continuous", "coalesce"):
+                raise ValueError(f"TPU_RAG_BATCHING={mode!r}: expected 'continuous' or 'coalesce'")
+            engine = rep(engine, batching=mode)
+        for key, name in (("TPU_RAG_WEIGHT_QUANT", "weight_quant"), ("TPU_RAG_KV_QUANT", "kv_quant")):
+            if key in env:
+                if env[key] not in ("bf16", "int8"):
+                    raise ValueError(f"{key}={env[key]!r}: expected 'bf16' or 'int8'")
+                engine = rep(engine, **{name: env[key]})
+        if (v := _flag(env, "TPU_RAG_KV_PAGED")) is not None:
+            engine = rep(engine, kv_paged=v)
+        if (v := _int(env, "TPU_RAG_KV_BLOCK_SIZE", 1)) is not None:
+            engine = rep(engine, kv_block_size=v)
+        if (v := _int(env, "TPU_RAG_KV_POOL_BLOCKS", 0, " (0 = dense parity)")) is not None:
+            engine = rep(engine, kv_pool_blocks=v)
+        if (v := _flag(env, "TPU_RAG_INTERLEAVE_PREFILL")) is not None:
+            engine = rep(engine, interleave_prefill=v)
+        if (v := _int(env, "TPU_RAG_PREFILL_CHUNK_TOKENS", 1)) is not None:
+            engine = rep(engine, prefill_chunk_tokens=v)
+        if (v := _int(env, "TPU_RAG_WINDOW_TOKEN_BUDGET", 0, " (0 = auto)")) is not None:
+            engine = rep(engine, window_token_budget=v)
+        if (v := _flag(env, "TPU_RAG_DO_SAMPLE")) is not None:
+            sampling = rep(sampling, do_sample=v)
+        if "TPU_RAG_SPECULATIVE" in env:
+            spec = env["TPU_RAG_SPECULATIVE"]
+            if spec not in ("off", "prompt_lookup", "auto"):
+                raise ValueError(
+                    f"TPU_RAG_SPECULATIVE={spec!r}: expected 'off', 'prompt_lookup' or 'auto'"
+                )
+            engine = rep(engine, speculative=spec)
+        if (v := _int(env, "TPU_RAG_SYNC_STEPS", 1)) is not None:
+            engine = rep(engine, decode_sync_steps=v)
+        if (v := _flag(env, "TPU_RAG_FUSED")) is not None:
+            engine = rep(engine, rag_fused=v)
+        engine.validate_interleave()  # cross-field rules, with the env applied
+        return rep(cfg, server=server, sampling=sampling, engine=engine)
+

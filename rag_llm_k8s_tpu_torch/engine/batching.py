@@ -1,0 +1,362 @@
+"""Coalesced request batching, the port's copy of
+``rag_llm_k8s_tpu/engine/batching.py``.
+
+Concurrent requests coalesce into batched generates: a dispatcher thread
+drains the queue, groups waiting requests up to the engine's batch cap, and
+runs them as ONE ``engine.generate`` call — decode cost is dominated by
+weight reads from HBM, so a batch of 8 costs barely more than a batch of 1.
+``Coalescer`` applies the same to any stage (the service's embed + kNN).
+
+Requests submit from any thread and block on their own event; results fan
+back out in submission order. Grouping respects ``max_new_tokens``/seed so
+every request in a batch shares one call. The metrics hooks
+(``wait_histogram``, ``join_timeout_counter``) are settable attributes that
+stay None here: the port has no metrics registry yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+
+logger = logging.getLogger(__name__)
+
+
+def _join_worker(worker: threading.Thread, counter, what: str, timeout: float = 5.0):
+    """Join a scheduler/coalescer worker, loudly: a worker that outlives the
+    join window (wedged in a device call) used to vanish in silence — the
+    drains still unblock every caller, but the leak should be visible on a
+    dashboard (``rag_scheduler_join_timeouts_total``) and in the logs."""
+    worker.join(timeout=timeout)
+    if worker.is_alive():
+        logger.warning(
+            "%s worker still alive after join(%gs); queued callers have "
+            "been failed fast but the worker thread may be wedged",
+            what, timeout,
+        )
+        if counter is not None:
+            counter.inc()
+
+
+@dataclass
+class _Pending:
+    prompt: List[int]
+    max_new: Optional[int]
+    seed: Optional[int]
+    done: threading.Event = field(default_factory=threading.Event)
+    result: Optional[List[int]] = None
+    error: Optional[BaseException] = None
+    t_enqueue: float = field(default_factory=time.monotonic)  # wait anchor
+
+
+@dataclass
+class _PendingItem:
+    value: object
+    done: threading.Event = field(default_factory=threading.Event)
+    result: object = None
+    error: Optional[BaseException] = None
+    t_enqueue: float = field(default_factory=time.monotonic)  # wait anchor
+
+
+class Coalescer:
+    """Generic blocking coalescer: concurrent ``submit(x)`` calls are grouped
+    and served by ONE ``batch_fn([x, ...])`` call on a worker thread.
+
+    This is the serving fix for the *retrieval* stage: without it, N
+    concurrent queries dispatch N separate fused embed+kNN device calls that
+    serialize on the device queue and pay a device→host fetch each. Coalesced, the first query runs while the rest
+    accumulate, and the entire remainder runs as one batched device call —
+    the same continuous-batching effect the decode path already gets from
+    :class:`BatchScheduler`, applied to embed+kNN.
+
+    ``max_wait_ms`` can stay tiny (even 0): while the worker is busy with one
+    batch, later arrivals queue up and form the next batch naturally.
+
+    ``pending_hint`` (optional, settable after construction): a callable
+    returning how many requests are currently in flight toward this stage.
+    When set, the drain loop stops waiting as soon as every in-flight
+    request has joined the batch — a solo query pays ~ the small
+    ``hint_grace_ms`` instead of the full window, while a burst still
+    coalesces fully. The grace exists because the hint counts only
+    requests that have ENTERED the serving pipeline: a cold burst's
+    stragglers may still be in HTTP parsing when the first request's
+    batch forms, and trusting a hint of 1 instantly would re-create the
+    batch-of-1 burst regression the window prevents. The window deadline
+    stays the upper bound (a hinted request that errors before submitting
+    just costs the old fixed wait).
+    """
+
+    def __init__(
+        self, batch_fn, max_batch: int, max_wait_ms: float = 2.0, pending_hint=None,
+        hint_grace_ms: float = 4.0,
+    ):
+        self.batch_fn = batch_fn
+        self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
+        self.pending_hint = pending_hint
+        self.hint_grace_ms = hint_grace_ms
+        # optional obs Histogram (settable after construction, like
+        # pending_hint): per-item enqueue→dispatch wait — the coalesce
+        # window's real cost per request on a dashboard
+        self.wait_histogram = None
+        # optional obs Counter — shutdown join timeouts (see _join_worker)
+        self.join_timeout_counter = None
+        self._queue: "queue.Queue[_PendingItem]" = queue.Queue()
+        self._stop = threading.Event()
+        self._lifecycle_lock = threading.Lock()
+        self._worker = threading.Thread(target=self._run, daemon=True, name="coalescer")
+        self._worker.start()
+
+    def submit(self, value, timeout: Optional[float] = None):
+        item = _PendingItem(value=value)
+        with self._lifecycle_lock:  # stop-check + enqueue must be atomic
+            if self._stop.is_set():
+                raise RuntimeError("coalescer is shut down")
+            self._queue.put(item)
+        if not item.done.wait(timeout):
+            raise TimeoutError("coalesced call timed out")
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def shutdown(self):
+        self._stop.set()
+        self._queue.put(None)
+        _join_worker(self._worker, self.join_timeout_counter, "coalescer")
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                first = self._queue.get()
+                if first is None:
+                    continue
+                batch = [first]
+                # absolute deadline: the window bounds the FIRST item's wait;
+                # a per-get timeout would reset on every arrival and stretch
+                # the worst case to (max_batch-1) x window under trickle load
+                now = time.monotonic()
+                deadline = now + self.max_wait_ms / 1e3
+                hint_from = now + min(self.hint_grace_ms, self.max_wait_ms) / 1e3
+                while len(batch) < self.max_batch:
+                    hint = self.pending_hint
+                    now = time.monotonic()
+                    if (
+                        hint is not None and now >= hint_from
+                        and len(batch) >= hint()
+                    ):
+                        # everything in flight toward this stage is already
+                        # aboard — waiting longer can only add latency. The
+                        # grace window has passed, so a cold burst's
+                        # stragglers have had time to register themselves.
+                        break
+                    # with a hint, sleep only until the grace boundary first
+                    # — a timeout there re-evaluates the hint, not the batch
+                    wait_until = (
+                        hint_from if hint is not None and now < hint_from
+                        else deadline
+                    )
+                    remaining = wait_until - now
+                    try:
+                        # past the deadline, still DRAIN whatever is already
+                        # queued (zero wait) — with max_wait_ms=0 this is
+                        # the whole contract: items that accumulated while
+                        # the worker was busy form one batch
+                        nxt = (
+                            self._queue.get(timeout=remaining)
+                            if remaining > 0 else self._queue.get_nowait()
+                        )
+                    except queue.Empty:
+                        if wait_until < deadline:
+                            continue  # grace elapsed; re-check the hint
+                        break
+                    if nxt is None:
+                        break
+                    batch.append(nxt)
+                hist = self.wait_histogram
+                if hist is not None:
+                    now = time.monotonic()
+                    for b in batch:
+                        hist.observe(now - b.t_enqueue)
+                try:
+                    results = self.batch_fn([b.value for b in batch])
+                    if len(results) != len(batch):
+                        raise RuntimeError(
+                            f"batch_fn returned {len(results)} results for "
+                            f"{len(batch)} items"
+                        )
+                    for b, r in zip(batch, results):
+                        b.result = r
+                except BaseException as e:  # noqa: BLE001 — deliver to all waiters
+                    for b in batch:
+                        b.error = e
+                finally:
+                    for b in batch:
+                        b.done.set()
+        finally:
+            # close the door, then fail everything still queued so no caller
+            # blocks forever on a dead worker (submits use timeout=None)
+            self._stop.set()
+            err = RuntimeError("coalescer is shut down")
+            with self._lifecycle_lock:
+                while True:
+                    try:
+                        queued = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    if queued is not None:
+                        queued.error = err
+                        queued.done.set()
+
+
+class BatchScheduler:
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        max_wait_ms: float = 5.0,
+        pending_hint=None,  # see Coalescer.pending_hint — same contract
+    ):
+        self.engine = engine
+        self.max_wait_ms = max_wait_ms
+        self.pending_hint = pending_hint
+        # optional obs Histogram — see Coalescer.wait_histogram
+        self.wait_histogram = None
+        # optional obs Counter — shutdown join timeouts (see _join_worker)
+        self.join_timeout_counter = None
+        # size of the batch currently inside engine.generate (0 between
+        # dispatches) — the rag_batch_occupancy gauge reads this; plain
+        # int assignment, so no lock needed for the scrape-time read
+        self.in_flight = 0
+        self._queue: "queue.Queue[_Pending]" = queue.Queue()
+        self._stop = threading.Event()
+        # serializes submit's stop-check+enqueue against shutdown's final
+        # drain — without it an item can land in the queue after the drain
+        # and block its (timeout=None) caller forever
+        self._lifecycle_lock = threading.Lock()
+        self._worker = threading.Thread(target=self._run, daemon=True, name="batch-scheduler")
+        self._worker.start()
+
+    # ------------------------------------------------------------------
+    def submit(
+        self,
+        prompt: List[int],
+        max_new_tokens: Optional[int] = None,
+        seed: Optional[int] = None,
+        timeout: Optional[float] = None,
+    ) -> List[int]:
+        """Blocking: enqueue and wait for this prompt's continuation. The
+        batch itself cannot be cancelled mid-generate, so a ``timeout``
+        surfaces as the caller's ``TimeoutError`` while the batch completes
+        for its other members. (The JAX scheduler's ``deadline``, ``info``
+        and ``tenant`` arguments serve the unported ``resilience/`` and
+        ``obs/``.)"""
+        item = _Pending(prompt=list(prompt), max_new=max_new_tokens, seed=seed)
+        with self._lifecycle_lock:  # stop-check + enqueue must be atomic
+            if self._stop.is_set():
+                raise RuntimeError("scheduler is shut down")
+            self._queue.put(item)
+        if not item.done.wait(timeout):
+            raise TimeoutError("generation timed out")
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def shutdown(self):
+        self._stop.set()
+        self._queue.put(None)  # wake the worker
+        _join_worker(self._worker, self.join_timeout_counter, "batch-scheduler")
+
+    # ------------------------------------------------------------------
+    def _run(self):
+        carry: Optional[_Pending] = None
+        try:
+            carry = self._run_loop()
+        finally:
+            # the worker is exiting for WHATEVER reason (shutdown() or an
+            # unguarded exception): close the door first, or submits racing
+            # this drain would enqueue after it and block forever
+            self._stop.set()
+            # fail everything still queued or carried so no caller blocks
+            # forever on a scheduler that has stopped (the server submits
+            # with timeout=None)
+            err = RuntimeError("scheduler is shut down")
+            leftovers = [carry] if carry is not None else []
+            with self._lifecycle_lock:
+                while True:
+                    try:
+                        queued = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    if queued is not None:
+                        leftovers.append(queued)
+            for it in leftovers:
+                it.error = err
+                it.done.set()
+
+    def _run_loop(self) -> Optional[_Pending]:
+        """Returns the un-acked in-hand item (if any) when stopping."""
+        carry: Optional[_Pending] = None
+        while not self._stop.is_set():
+            first = carry if carry is not None else self._queue.get()
+            carry = None
+            if first is None:
+                continue
+            batch = [first]
+            cap = self.engine.engine_config.max_batch_size
+            # drain compatible requests within the coalescing window — an
+            # ABSOLUTE deadline (a per-get timeout resets on every arrival:
+            # worst case (cap-1) x window under trickle load)
+            deadline = time.monotonic() + self.max_wait_ms / 1e3
+            while len(batch) < cap:
+                hint = self.pending_hint
+                if hint is not None and len(batch) >= hint():
+                    # every in-flight request is already aboard (solo query:
+                    # immediately) — don't burn the window waiting for nobody
+                    break
+                remaining = deadline - time.monotonic()
+                try:
+                    # past the deadline, still drain already-queued items
+                    # (zero wait) — they accumulated while this worker ran
+                    nxt = (
+                        self._queue.get(timeout=remaining)
+                        if remaining > 0 else self._queue.get_nowait()
+                    )
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    break
+                if nxt.max_new == first.max_new and nxt.seed == first.seed:
+                    batch.append(nxt)
+                else:
+                    # different executable: lead the NEXT round (a tail
+                    # re-queue would reorder it behind later arrivals and
+                    # could starve it under sustained mixed load)
+                    carry = nxt
+                    break
+            hist = self.wait_histogram
+            if hist is not None:
+                now = time.monotonic()
+                for b in batch:
+                    hist.observe(now - b.t_enqueue)
+            self.in_flight = len(batch)
+            try:
+                outs = self.engine.generate(
+                    [b.prompt for b in batch],
+                    max_new_tokens=first.max_new,
+                    seed=first.seed,
+                )
+                for b, out in zip(batch, outs):
+                    b.result = out
+            except BaseException as e:  # noqa: BLE001 — deliver to all waiters
+                for b in batch:
+                    b.error = e
+            finally:
+                self.in_flight = 0
+                for b in batch:
+                    b.done.set()
+        return carry

@@ -1,6 +1,5 @@
-"""In-memory exact-kNN vector store with a device-resident snapshot,
-counterpart of ``rag_llm_k8s_tpu/index/store.py`` (persistence is not
-ported yet).
+"""Exact-kNN vector store with a device-resident snapshot and an atomic
+on-disk snapshot, counterpart of ``rag_llm_k8s_tpu/index/store.py``.
 
 - ``device_snapshot()``: a padded ``[N_pad, D]`` fp32 matrix on the device,
   ``N_pad`` a power of two >= 512, plus ``[1, N_pad]`` squared norms whose
@@ -10,13 +9,27 @@ ported yet).
   [cap])`` row-aligned with the vectors, the gather source of device-side
   prompt assembly. Rows tokenize lazily through the attached token source.
 
+- ``save()`` / ``load()`` / ``open_or_create()``: the JAX package's on-disk
+  format, so a snapshot saved by either package loads in the other. The
+  vectors go to ``<path>.vectors.npy`` through the C++ codec
+  (``native/indexio.cpp``: CRC32-checked, fsynced, renamed into place), or
+  through a temporary ``.npy`` and a rename when the codec cannot be built;
+  the JSON metadata at ``<path>`` is written last and names the payload's
+  format. ``open_or_create`` rebuilds an empty store when the persisted
+  embedder fingerprint differs from the caller's.
+
 Mutation takes one lock; a snapshot is rebuilt on the next read after any
 add, and a pair already handed out is never modified.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import json
+import logging
+import os
+import tempfile
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -27,6 +40,93 @@ import torch
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.ops.knn import BIG, knn_topk
 from rag_llm_k8s_tpu_torch.utils.buckets import next_pow2
+
+logger = logging.getLogger(__name__)
+
+_FORMAT_VERSION = 1
+_INDEXIO_MAGIC = b"TPURIDX1"
+
+
+def _indexio():
+    """The C++ snapshot codec (``native/indexio.cpp``); None ⇒ the npy path."""
+    from rag_llm_k8s_tpu_torch.native.build import load_library
+
+    lib = load_library("indexio")
+    if lib is None:
+        return None
+    lib.indexio_write.restype = ctypes.c_int32
+    lib.indexio_write.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float),
+    ]
+    lib.indexio_read_header.restype = ctypes.c_int32
+    lib.indexio_read_header.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.indexio_read.restype = ctypes.c_int32
+    lib.indexio_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+    return lib
+
+
+def _save_vectors(vec_path: str, vectors: np.ndarray, generation: int) -> str:
+    """Persist the fp32 payload: the codec when it builds (checksummed,
+    fsynced, atomic), a temporary ``.npy`` and a rename otherwise. Returns
+    the format written (``"indexio"`` or ``"npy"``)."""
+    vectors = np.ascontiguousarray(vectors, np.float32)
+    lib = _indexio()
+    if lib is not None:
+        rc = lib.indexio_write(
+            vec_path.encode(), vectors.shape[1] if vectors.ndim == 2 else 0,
+            vectors.shape[0], generation,
+            vectors.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        )
+        if rc == 0:
+            return "indexio"
+        logger.warning("native index write failed (rc=%d); falling back to npy", rc)
+    dir_ = os.path.dirname(vec_path) or "."
+    fd, tmp = tempfile.mkstemp(dir=dir_, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.save(f, vectors)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, vec_path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return "npy"
+
+
+def _load_vectors(vec_path: str, dim: int) -> np.ndarray:
+    """Load the payload by its magic: the codec's (CRC-checked; corruption
+    raises), ``.npy`` otherwise."""
+    with open(vec_path, "rb") as f:
+        magic = f.read(8)
+    if magic != _INDEXIO_MAGIC:
+        return np.load(vec_path)
+    lib = _indexio()
+    if lib is None:
+        raise RuntimeError(
+            f"{vec_path} is a native-codec snapshot but no C++ toolchain is available to read it"
+        )
+    hdr = (ctypes.c_int64 * 4)()
+    rc = lib.indexio_read_header(vec_path.encode(), hdr)
+    if rc != 0:
+        raise ValueError(f"index payload header corrupt ({vec_path}, rc={rc})")
+    f_dim, count, payload = hdr[0], hdr[1], hdr[3]
+    if f_dim != dim:
+        raise ValueError(f"index payload dim {f_dim} != expected {dim}")
+    # the CRC covers the payload, not the header: an inconsistent header must
+    # fail here, before it sizes the read
+    if count < 0 or payload != count * dim * 4:
+        raise ValueError(
+            f"index payload header inconsistent ({vec_path}: count={count}, "
+            f"dim={dim}, payload_bytes={payload}) — snapshot is corrupt"
+        )
+    out = np.empty((count, dim), np.float32)
+    rc = lib.indexio_read(vec_path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), payload)
+    if rc != 0:
+        raise ValueError(f"index payload failed CRC/read ({vec_path}, rc={rc}) — snapshot is corrupt")
+    return out
 
 
 @dataclass
@@ -54,9 +154,13 @@ def _pad_bucket(n: int, minimum: int = 512) -> int:
 class VectorStore:
     """Append-only exact-kNN store; thread-safe."""
 
-    def __init__(self, dim: int, device: DeviceLike = None):
+    def __init__(self, dim: int, device: DeviceLike = None, path: Optional[str] = None,
+                 fingerprint: str = ""):
         self.dim = dim
         self.device = resolve_device(device)
+        self.path = path
+        # identifies the embedder that produced the stored vectors
+        self.fingerprint = fingerprint
         self._lock = threading.RLock()
         self._vectors = np.zeros((0, dim), np.float32)
         self._metadata: List[Dict] = []
@@ -209,3 +313,83 @@ class VectorStore:
                 "sample_chunks": [dict(m) for m in self._metadata[:5]],
                 "generation": self.generation,
             }
+
+    # -- persistence ------------------------------------------------------
+    def save(self, path: Optional[str] = None) -> str:
+        """Write the snapshot: the vectors to ``<path>.vectors.npy`` (the
+        codec, or ``.npy`` when it cannot be built), then the metadata JSON
+        to ``path``, each through a temporary file and a rename."""
+        path = path or self.path
+        if path is None:
+            raise ValueError("no path configured")
+        with self._lock:
+            meta = {
+                "format_version": _FORMAT_VERSION,
+                "dim": self.dim,
+                "count": len(self._metadata),
+                "generation": self.generation,
+                "fingerprint": self.fingerprint,
+                "metadata": self._metadata,
+                "hashes": sorted(self._hashes),
+            }
+            dir_ = os.path.dirname(path) or "."
+            os.makedirs(dir_, exist_ok=True)
+            meta["vector_format"] = _save_vectors(path + ".vectors.npy", self._vectors, self.generation)
+            fd, tmp = tempfile.mkstemp(dir=dir_, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "w") as f:
+                    json.dump(meta, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, path)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                raise
+            dfd = os.open(dir_, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        return path
+
+    @classmethod
+    def load(cls, path: str, dim: Optional[int] = None, device: DeviceLike = None) -> "VectorStore":
+        with open(path) as f:
+            meta = json.load(f)
+        if meta.get("format_version") != _FORMAT_VERSION:
+            raise ValueError(f"unsupported index format: {meta.get('format_version')}")
+        store = cls(meta["dim"], device, path=path)
+        vectors = _load_vectors(path + ".vectors.npy", meta["dim"])
+        count = meta["count"]
+        if vectors.shape[0] < count:
+            raise ValueError(f"index corrupt: metadata says {count} vectors, payload has {vectors.shape[0]}")
+        store._vectors = np.asarray(vectors[:count], np.float32)
+        store._metadata = list(meta["metadata"])
+        # token rows are not persisted: they re-derive from the metadata text
+        store._chunk_tokens = [None] * len(store._metadata)
+        store._hashes = set(meta.get("hashes", []))
+        store.generation = meta.get("generation", 0)
+        store.fingerprint = meta.get("fingerprint", "")
+        if dim is not None and store.dim != dim:
+            raise ValueError(f"index dim {store.dim} != expected {dim}")
+        return store
+
+    @classmethod
+    def open_or_create(cls, path: str, dim: int, fingerprint: Optional[str] = None,
+                       device: DeviceLike = None) -> "VectorStore":
+        """Load the snapshot at ``path`` if there is one, else an empty store
+        (written on its first save). A snapshot whose embedder fingerprint
+        differs from ``fingerprint`` is discarded: its vectors came from
+        another encoder."""
+        if os.path.exists(path):
+            store = cls.load(path, dim=dim, device=device)
+            if fingerprint is not None and store.fingerprint != fingerprint:
+                logger.warning(
+                    "index at %s was built by a different embedder "
+                    "(fingerprint %r != %r); rebuilding fresh",
+                    path, store.fingerprint, fingerprint,
+                )
+                return cls(dim, device, path=path, fingerprint=fingerprint)
+            return store
+        return cls(dim, device, path=path, fingerprint=fingerprint or "")

@@ -44,6 +44,10 @@ LAUNCHES: Dict[str, int] = {
     "paged_chunk_attention_q8": 0,
 }
 
+# knn_topk launches by query count (a pass of 8 is a coalesced burst's
+# retrieve, a pass of 1 a solo query's), counted with LAUNCHES["knn_topk"]
+KNN_LAUNCHES_BY_QUERIES: Dict[int, int] = {}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -51,6 +55,7 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    KNN_LAUNCHES_BY_QUERIES.clear()
 
 
 def _nvcc() -> str:

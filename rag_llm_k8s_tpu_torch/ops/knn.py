@@ -150,6 +150,7 @@ def knn_topk(
     )
     _build.check(lib, rc, "knn_topk")
     _build.LAUNCHES["knn_topk"] += 1
+    _build.KNN_LAUNCHES_BY_QUERIES[Q] = _build.KNN_LAUNCHES_BY_QUERIES.get(Q, 0) + 1
     return vals, idx
 
 

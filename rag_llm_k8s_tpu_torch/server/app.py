@@ -3,28 +3,35 @@
 Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
 /generate`` (alias ``POST /query``), ``GET /index_info``, ``GET /healthz``.
 The WSGI plumbing is the standard library's, so the port needs no web
-framework; ``WsgiApp.test_client()`` drives it in-process.
+framework: ``WsgiApp.test_client()`` drives it in-process, and
+``make_server`` serves it over HTTP on a threading ``wsgiref`` server (one
+thread per request, so concurrent requests can coalesce).
 
-Without a scheduler a query takes the single-fetch path: the query
-embedding and the kNN run on the device and their packed ``[1, 2k]`` result
-stays there; the prompt is assembled on the device from it and the store's
-chunk-token sidecar (``InferenceEngine.generate_rag``). Long questions, whose
-tail overflows the fused tail bucket, take the host path: piecewise (or
-budgeted) prompt assembly on the host, then ``InferenceEngine.generate``.
+Retrieval (query embedding + kNN) goes through a ``Coalescer``, as in the
+JAX service (which has one whenever it has an encoder): concurrent queries
+form one batch of up to 8, padded to 8 rows, run as one encoder forward and
+one ``knn_topk`` call with 8 queries (``_retrieve_many``). The service counts
+the requests in flight toward retrieval and toward generation and hands the
+counts to the coalescer and the scheduler as ``pending_hint``, so a solo
+query does not wait out their windows.
+
+Under a ``BatchScheduler`` (``batching="coalesce"``, the default; built by
+``server/main.py``) a solo query takes the single-fetch path (``_fused_ok``,
+exactly the JAX rule): the retrieve coalescer returns a singleton batch's
+packed ``[1, 2k]`` top-k unfetched, and the prompt is assembled on the
+device from it and the store's chunk-token sidecar
+(``InferenceEngine.generate_rag``). A burst, a long question whose tail
+overflows the fused tail bucket, or a store past ``rag_fused_max_vectors``
+takes the host path: the hits are fetched, the prompt is assembled on the
+host (piecewise, or budgeted) and submitted to the scheduler, which batches
+concurrent prompts into one ``engine.generate``.
 
 With a ``ContinuousScheduler`` (``batching="continuous"``, built by
 ``build_scheduler`` over the one-shot engine's model, one copy of the
-weights) every query takes the host path: retrieve, fetch the hits, assemble
-the prompt on the host and submit it to the scheduler, which serves
-concurrent requests in one running batch. A prompt longer than the
-scheduler's largest bucket goes to the one-shot engine's chunked prefill.
-Retrieval (query embedding + kNN) is serialised by one lock; HTTP threads
-only retrieve and submit.
-
-The coalescing batch scheduler is not ported yet. The JAX service takes the
-fused path only under its ``BatchScheduler`` (``_fused_ok``); this one takes
-it whenever it has no scheduler, ``rag_fused`` holds and ``0 < ntotal <=
-rag_fused_max_vectors``, so a solo query routes the same way in both.
+weights) every query takes the host path and its prompt joins the running
+batch; a prompt longer than the scheduler's largest bucket goes to the
+one-shot engine's chunked prefill. Without a scheduler every query takes
+the host path through the one-shot engine.
 """
 
 from __future__ import annotations
@@ -33,14 +40,18 @@ import dataclasses
 import io
 import json
 import logging
+import os
+import socketserver
 import threading
 import time
 from typing import Dict, List, Optional
+from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server as _wsgiref_make_server
 
 import numpy as np
 import torch
 
 from rag_llm_k8s_tpu_torch.core.config import AppConfig, EngineConfig, SamplingConfig
+from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler, Coalescer
 from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
 from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
@@ -76,11 +87,11 @@ def make_segment_source(llm_tokenizer, max_bucket: int):
 def build_scheduler(
     engine: InferenceEngine, engine_config: Optional[EngineConfig] = None
 ) -> Optional[ContinuousScheduler]:
-    """The serving scheduler ``engine_config`` (default: the engine's own)
+    """The continuous scheduler ``engine_config`` (default: the engine's own)
     asks for: a ``ContinuousScheduler`` over a ``ContinuousEngine`` that
     SHARES the one-shot engine's model (one copy of the weights) when
-    ``batching == "continuous"``, else None (requests go to the one-shot
-    engine)."""
+    ``batching == "continuous"``, else None (``server/main.py`` builds the
+    ``BatchScheduler`` of ``batching="coalesce"``)."""
     ec = engine_config or engine.engine_config
     if ec.batching != "continuous":
         return None
@@ -90,15 +101,20 @@ def build_scheduler(
     return ContinuousScheduler(cont)
 
 
-def engine_mode(scheduler: Optional[ContinuousScheduler]) -> str:
-    """The serving mode ``/healthz`` reports."""
+def engine_mode(scheduler) -> str:
+    """The serving mode ``/healthz`` reports (the JAX service's names)."""
     if scheduler is None:
         return "one-shot"
-    return "continuous-interleaved" if scheduler.engine.interleave_on else "continuous"
+    if isinstance(scheduler, ContinuousScheduler):
+        return "continuous-interleaved" if scheduler.engine.interleave_on else "continuous"
+    if isinstance(scheduler, BatchScheduler):
+        return "coalesce"
+    return type(scheduler).__name__
 
 
 class RagService:
-    """The retrieve-then-generate pipeline behind the routes."""
+    """The retrieve-then-generate pipeline behind the routes. ``scheduler``
+    is a ``BatchScheduler``, a ``ContinuousScheduler`` or None."""
 
     def __init__(
         self,
@@ -108,13 +124,11 @@ class RagService:
         encoder: EncoderRunner,
         encoder_tokenizer,
         store: VectorStore,
-        scheduler: Optional[ContinuousScheduler] = None,
+        scheduler=None,
     ):
         self.config = config
         self.engine = engine
         self.scheduler = scheduler
-        # the query embedding and the kNN run one request at a time
-        self._retrieve_lock = threading.Lock()
         self.llm_tokenizer = llm_tokenizer
         self.encoder = encoder
         self.encoder_tokenizer = encoder_tokenizer
@@ -128,6 +142,23 @@ class RagService:
         )
         if engine.engine_config.rag_fused:
             store.attach_token_source(self._segment_source)
+        # requests in flight toward each batching stage, fed to the
+        # coalescer and the scheduler as pending_hint: a stage stops waiting
+        # out its window once every request in flight toward it has joined
+        self._inflight_lock = threading.Lock()
+        self._inflight_retrieve = 0
+        self._inflight_generate = 0
+        # query batches > 1 pad to this many rows: one more shape, not a ladder
+        self._retrieve_cap = 8
+        # 25 ms: a cold burst's requests arrive within ms of each other; a
+        # solo query leaves after the hint's grace, not the window
+        self.retrieve_coalescer = Coalescer(
+            lambda items: self._retrieve_many(items, allow_device=True),
+            max_batch=self._retrieve_cap, max_wait_ms=25.0,
+            pending_hint=lambda: self._inflight_retrieve,
+        )
+        if scheduler is not None and getattr(scheduler, "pending_hint", False) is None:
+            scheduler.pending_hint = lambda: self._inflight_generate
 
     # -- ingest ---------------------------------------------------------
     def embed_texts(self, texts: List[str]) -> np.ndarray:
@@ -138,7 +169,8 @@ class RagService:
         )
 
     def ingest_pdf_bytes(self, data: bytes, filename: str) -> int:
-        """Extract → chunk → batch-embed → index. Returns the chunk count."""
+        """Extract → chunk → batch-embed → index (and save the snapshot when
+        the store has a path). Returns the chunk count."""
         text = extract_text(data)
         r = self.config.retrieval
         chunks = split_text(text, r.chunk_size, r.chunk_overlap)
@@ -147,8 +179,29 @@ class RagService:
         vectors = self.embed_texts(chunks)
         metadata = [{"filename": filename, "chunk_id": i, "text": c} for i, c in enumerate(chunks)]
         added = self.store.add(list(vectors), metadata)
+        if added and self.store.path:
+            self.store.save()
         logger.info("ingested %s: %d chunks (%d new)", filename, len(chunks), added)
         return len(chunks)
+
+    def ingest_directory(self, pdf_dir: Optional[str] = None) -> int:
+        """Boot-time ingest of every ``*.pdf`` in ``pdf_dir`` (default: the
+        config's), idempotent through the store's content-hash dedup; one
+        bad PDF is logged and skipped. Returns the number of PDF files."""
+        pdf_dir = pdf_dir or self.config.server.pdf_dir
+        if not os.path.isdir(pdf_dir):
+            logger.warning("No PDF directory at %s", pdf_dir)
+            return 0
+        files = [f for f in sorted(os.listdir(pdf_dir)) if f.endswith(".pdf")]
+        for fname in files:
+            try:
+                with open(os.path.join(pdf_dir, fname), "rb") as f:
+                    self.ingest_pdf_bytes(f.read(), fname)
+            except Exception:  # noqa: BLE001 — one bad PDF must not stop the boot
+                logger.exception("failed to ingest %s; skipping", fname)
+        if not files:
+            logger.warning("No PDF files found in %s", pdf_dir)
+        return len(files)
 
     # -- prompt pieces --------------------------------------------------
     def _a_ids(self) -> List[int]:
@@ -166,13 +219,51 @@ class RagService:
         return self.llm_tokenizer.encode(f"\n\nUser: {user_prompt}\n\nChatbot:")
 
     def _fused_ok(self) -> bool:
+        """Single-fetch path applicability: the JAX rule (no prefix cache
+        here), so only under a ``BatchScheduler``."""
         ec = self.engine.engine_config
         return (
-            ec.rag_fused and self.scheduler is None
+            ec.rag_fused
+            and isinstance(self.scheduler, BatchScheduler)
             and 0 < self.store.ntotal <= ec.rag_fused_max_vectors
         )
 
+    def _scheduler_prompt_cap(self) -> int:
+        """Longest prompt the scheduler takes without truncating: the
+        continuous engine's largest bucket; the coalescing scheduler hands
+        prompts to the chunk-capable one-shot engine, so it has no cap."""
+        if isinstance(self.scheduler, ContinuousScheduler):
+            return max(self.scheduler.engine.buckets)
+        return 1 << 62
+
+    def warmup(self) -> None:
+        """Build what the first request would otherwise build, then mark the
+        service ready: on the card the CUDA kernels (``ops._build``), the
+        C++ libraries (the tokenizer's merge loop is built when it loads; the
+        index codec here), then one request-shaped pass: an embedding, a
+        retrieve alone and a padded burst of them, the chunk-token sidecar,
+        and a short generate of a head + tail prompt."""
+        if self.engine.device.type == "cuda":
+            from rag_llm_k8s_tpu_torch.ops import _build
+
+            _build.build()
+        if self.store.path:
+            from rag_llm_k8s_tpu_torch.native.build import load_library
+
+            load_library("indexio")
+        self.embed_texts(["warmup"])
+        self._retrieve("warmup")
+        if self.store.ntotal:
+            self._retrieve_many(["warmup"] * self._retrieve_cap)
+            if self.engine.engine_config.rag_fused:
+                self.store.token_snapshot()
+        self.engine.generate([self._a_ids() + self._b_ids("warmup")], max_new_tokens=2)
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+        self.ready = True
+
     def shutdown(self) -> None:
+        self.retrieve_coalescer.shutdown()
         if self.scheduler is not None:
             self.scheduler.shutdown()
 
@@ -248,68 +339,128 @@ class RagService:
 
     # -- retrieve -------------------------------------------------------
     def _retrieve(self, text: str, allow_device: bool = False):
-        """Embed the query and rank it against the index on the device.
-        With ``allow_device`` on the single-fetch path, returns the packed
-        ``[1, 2k]`` device tensor unfetched:
-        ``("__device__", packed, k_eff, tokenize_ms)``; otherwise
-        ``(results, tokenize_ms)``."""
+        """One query through :meth:`_retrieve_many`."""
+        return self._retrieve_many([text], allow_device)[0]
+
+    def _retrieve_many(self, texts: List[str], allow_device: bool = False):
+        """Embed the queries and rank them against the index on the device:
+        one encoder forward and one ``knn_topk`` call per length bucket (in
+        practice one). A batch of more than one pads to ``_retrieve_cap``
+        rows (the padding rows repeat the first query), so bursts add one
+        shape, not a ladder. Returns ``[(results, tokenize_ms)]`` in input
+        order.
+
+        With ``allow_device``, a singleton batch on the single-fetch path
+        returns the packed ``[1, 2k]`` device tensor unfetched:
+        ``[("__device__", packed, k_eff, tokenize_ms)]``."""
         n = self.store.ntotal
         if n == 0:
-            return [], 0.0
+            return [([], 0.0)] * len(texts)
         # never more neighbours than real rows: the kernel's fill entries
         # past ntotal are never asked for
         k_eff = min(self.config.retrieval.k, n)
         emb, norms = self.store.device_snapshot()
-        t0 = time.monotonic()
-        tokens, mask = self.encoder.prepare_batch(self.encoder_tokenizer.encode(text))
-        tok_ms = (time.monotonic() - t0) * 1e3
-        with self._retrieve_lock, torch.inference_mode():
-            vec = self.encoder.embed(tokens, mask)
-            d, i = knn_topk(vec.float(), emb, norms, k=k_eff)
-            # one [1, 2k] tensor: fp32 carries row ids exactly up to 2^24
-            packed = torch.cat([d, i.float()], dim=1)
-            if allow_device and self._fused_ok():
-                return "__device__", packed, k_eff, tok_ms
-            host = packed.cpu().numpy()
-        return self.store.results_at(host[0, k_eff:].astype(np.int64), host[0, :k_eff]), tok_ms
+        prepped = []
+        for text in texts:
+            t0 = time.monotonic()
+            tokens, mask = self.encoder.prepare_batch(self.encoder_tokenizer.encode(text))
+            prepped.append((tokens, mask, (time.monotonic() - t0) * 1e3))
+
+        def rank(tokens: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+            with torch.inference_mode():
+                vec = self.encoder.embed(tokens, mask)
+                d, i = knn_topk(vec.float().contiguous(), emb, norms, k=k_eff)
+                # one [B, 2k] tensor: fp32 carries row ids exactly up to 2^24
+                return torch.cat([d, i.float()], dim=1)
+
+        if allow_device and len(texts) == 1 and self._fused_ok():
+            tokens, mask, tok_ms = prepped[0]
+            return [("__device__", rank(tokens, mask), k_eff, tok_ms)]
+
+        out: List = [None] * len(texts)
+        by_bucket: Dict[int, List[int]] = {}
+        for i, (tokens, _, _) in enumerate(prepped):
+            by_bucket.setdefault(tokens.shape[1], []).append(i)
+        for S, idxs in by_bucket.items():
+            for start in range(0, len(idxs), self._retrieve_cap):
+                group = idxs[start : start + self._retrieve_cap]
+                B_pad = 1 if len(group) == 1 else self._retrieve_cap
+                rows = group + [group[0]] * (B_pad - len(group))
+                tokens = np.concatenate([prepped[i][0] for i in rows])
+                mask = np.concatenate([prepped[i][1] for i in rows])
+                packed = rank(tokens, mask).cpu().numpy()  # one fetch
+                dists, idx = packed[:, :k_eff], packed[:, k_eff:].astype(np.int64)
+                for row, i in enumerate(group):
+                    out[i] = (self.store.results_at(idx[row], dists[row]), prepped[i][2])
+        return out
 
     # -- answer ---------------------------------------------------------
+    def _release(self, retrieve: bool = False, generate: bool = False) -> None:
+        with self._inflight_lock:
+            self._inflight_retrieve -= int(retrieve)
+            self._inflight_generate -= int(generate)
+
     def answer(self, user_prompt: str, sampling: Optional[SamplingConfig] = None) -> Dict:
         """Retrieve, assemble, generate. ``sampling`` overrides the engine's
         settings for this request; only the continuous scheduler takes it."""
-        if sampling is not None and self.scheduler is None:
+        if sampling is not None and not isinstance(self.scheduler, ContinuousScheduler):
             raise ValueError("per-request sampling needs batching='continuous'")
         timings: Dict[str, float] = {}
         t_all = time.monotonic()
-        r = self._retrieve(user_prompt, allow_device=True)
-        if r[0] == "__device__":
-            timings["tokenize_ms"] = r[3]
-            timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - r[3]
-            resp = self._answer_fused(user_prompt, r, timings, t_all)
-            if resp is not None:
-                return resp
-            # head + tail did not fit the bucket: fetch the hits, host path
-            k_eff = r[2]
-            packed = r[1].cpu().numpy()
-            results = self.store.results_at(packed[0, k_eff:].astype(np.int64), packed[0, :k_eff])
-        else:
-            results, tok_ms = r
-            timings["tokenize_ms"] = tok_ms
-            timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - tok_ms
-        if not results:
-            return {"generated_text": NO_RESULTS}
-        pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
-        context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
-        t0 = time.monotonic()
-        if self.scheduler is not None and len(prompt_ids) <= max(self.scheduler.engine.buckets):
-            out_ids = self.scheduler.submit(prompt_ids, sampling=sampling)
-        else:
-            # past the scheduler's largest bucket: the one-shot engine's
-            # chunked prefill serves it whole instead of truncating
-            out_ids = self.engine.generate([prompt_ids])[0]
-        completion = self.llm_tokenizer.decode(out_ids)
-        timings["generate_ms"] = (time.monotonic() - t0) * 1e3
-        timings["total_ms"] = (time.monotonic() - t_all) * 1e3
+        with self._inflight_lock:
+            self._inflight_retrieve += 1
+            self._inflight_generate += 1
+        in_retrieve = in_generate = True
+        try:
+            r = self.retrieve_coalescer.submit(user_prompt)
+            self._release(retrieve=True)
+            in_retrieve = False
+            if r[0] == "__device__":
+                timings["tokenize_ms"] = r[3]
+                timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - r[3]
+                # a fused request never reaches the scheduler: release its
+                # generate claim now, or the scheduler's hint would wait for it
+                self._release(generate=True)
+                in_generate = False
+                resp = self._answer_fused(user_prompt, r, timings, t_all)
+                if resp is not None:
+                    return resp
+                with self._inflight_lock:
+                    self._inflight_generate += 1
+                in_generate = True
+                # head + tail did not fit the bucket: fetch the hits, host path
+                k_eff = r[2]
+                packed = r[1].cpu().numpy()
+                results = self.store.results_at(packed[0, k_eff:].astype(np.int64), packed[0, :k_eff])
+            else:
+                results, tok_ms = r
+                timings["tokenize_ms"] = tok_ms
+                timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - tok_ms
+            if not results:
+                return {"generated_text": NO_RESULTS}
+            pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
+            context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
+            t0 = time.monotonic()
+            if self.scheduler is not None and len(prompt_ids) <= self._scheduler_prompt_cap():
+                if isinstance(self.scheduler, ContinuousScheduler):
+                    out_ids = self.scheduler.submit(prompt_ids, sampling=sampling)
+                else:
+                    out_ids = self.scheduler.submit(prompt_ids)
+            else:
+                # no scheduler, or past the continuous scheduler's largest
+                # bucket: the one-shot engine (chunked prefill) serves it whole
+                self._release(generate=True)
+                in_generate = False
+                out_ids = self.engine.generate([prompt_ids])[0]
+            if in_generate:
+                self._release(generate=True)
+                in_generate = False
+            completion = self.llm_tokenizer.decode(out_ids)
+            timings["generate_ms"] = (time.monotonic() - t0) * 1e3
+            timings["total_ms"] = (time.monotonic() - t_all) * 1e3
+        finally:
+            # error paths and the no-results return release their claims too
+            self._release(retrieve=in_retrieve, generate=in_generate)
         return {
             "generated_text": extract_answer(completion),
             "context": context,
@@ -503,7 +654,7 @@ class WsgiApp:
             ):
                 return 400, {"error": "sampling must be an object of do_sample (bool), "
                                       "temperature and top_p (numbers)"}
-            if self.service.scheduler is None:
+            if not isinstance(self.service.scheduler, ContinuousScheduler):
                 return 400, {"error": "per-request sampling needs batching='continuous'"}
             sampling = dataclasses.replace(self.service.config.sampling, **raw)
         try:
@@ -532,3 +683,23 @@ class WsgiApp:
 
 def create_app(service: RagService) -> WsgiApp:
     return WsgiApp(service)
+
+
+class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
+    """``wsgiref``'s server with one thread per request (it serves one at a
+    time otherwise, and then nothing ever coalesces)."""
+
+    daemon_threads = True
+
+
+class _QuietHandler(WSGIRequestHandler):
+    def log_message(self, format, *args):  # noqa: A002 — the base class's name
+        logger.debug("%s - %s", self.address_string(), format % args)
+
+
+def make_server(service: RagService, host: str, port: int) -> ThreadingWSGIServer:
+    """An HTTP server for ``service`` on ``host:port`` (port 0: any free
+    port, read it from ``server.server_port``); run ``serve_forever()``."""
+    return _wsgiref_make_server(host, port, create_app(service), server_class=ThreadingWSGIServer,
+                                handler_class=_QuietHandler)
+

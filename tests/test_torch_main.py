@@ -1,0 +1,328 @@
+"""The port's production boot (``server/main.py``) on a staged directory.
+
+A tiny directory is staged with the port's ``utils/synth.py`` (a 2-shard
+Llama checkpoint and ``config.json``, an XLM-R encoder under ``bge-m3/``),
+the fixture ``tokenizer.json`` files and two PDFs. ``build_service(config,
+device="cpu")`` boots from it; its greedy ``/generate`` answers equal those
+of a JAX ``RagService`` assembled by hand from the JAX loaders over the same
+directory (the JAX ``build_service`` cannot take a tiny encoder). Also:
+``AppConfig.from_env`` against the JAX one, the keys the port refuses, and
+the threaded WSGI server coalescing two concurrent requests."""
+
+import contextlib
+import dataclasses
+import json
+import os
+import shutil
+import threading
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from rag_llm_k8s_tpu.core.config import AppConfig as JAppConfig
+from rag_llm_k8s_tpu.core.config import DTypePolicy as JDTypes
+from rag_llm_k8s_tpu.core.config import EncoderConfig as JEncoderConfig
+from rag_llm_k8s_tpu.core.config import EngineConfig as JEngineConfig
+from rag_llm_k8s_tpu.core.config import RetrievalConfig as JRetrieval
+from rag_llm_k8s_tpu.core.config import SamplingConfig as JSampling
+from rag_llm_k8s_tpu.core.config import ServerConfig as JServerConfig
+from rag_llm_k8s_tpu.engine.batching import BatchScheduler as JBatchScheduler
+from rag_llm_k8s_tpu.engine.encoder import EncoderRunner as JEncoderRunner
+from rag_llm_k8s_tpu.engine.engine import InferenceEngine as JEngine
+from rag_llm_k8s_tpu.index.store import VectorStore as JStore
+from rag_llm_k8s_tpu.models import loader as jloader
+from rag_llm_k8s_tpu.server.app import RagService as JRagService
+from rag_llm_k8s_tpu.server.app import create_app as jcreate_app
+from rag_llm_k8s_tpu.tokenizer import load_tokenizer as jload_tokenizer
+from rag_llm_k8s_tpu_torch.core.config import (
+    AppConfig,
+    DTypePolicy,
+    EncoderConfig,
+    EngineConfig,
+    LlamaConfig,
+    RetrievalConfig,
+    SamplingConfig,
+    ServerConfig,
+)
+from rag_llm_k8s_tpu_torch.server import main as tmain
+from rag_llm_k8s_tpu_torch.server.app import create_app, make_server
+from rag_llm_k8s_tpu_torch.utils import synth
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "tokenizers")
+VOCAB = 512
+ENGINE = dict(prompt_buckets=(128, 512), max_batch_size=2, max_seq_len=640)
+QUESTIONS = ["what do kernels tile?", "how are chunks ranked?", "where is the prompt assembled?"]
+
+
+def _pdf(text):
+    content = f"BT /F1 12 Tf ({text}) Tj ET".encode()
+    return b"".join([
+        b"%PDF-1.4\n",
+        b"1 0 obj << /Type /Catalog /Pages 2 0 R >> endobj\n",
+        b"2 0 obj << /Type /Pages /Kids [3 0 R] /Count 1 >> endobj\n",
+        b"3 0 obj << /Type /Page /Parent 2 0 R /Contents 4 0 R "
+        b"/Resources << /Font << /F1 5 0 R >> >> >> endobj\n",
+        b"4 0 obj << /Length %d >> stream\n%s\nendstream endobj\n" % (len(content), content),
+        b"5 0 obj << /Type /Font /Subtype /Type1 /BaseFont /Helvetica >> endobj\n",
+        b"%%EOF",
+    ])
+
+
+@pytest.fixture(scope="module")
+def staged(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("staged"))
+    lc = LlamaConfig.tiny(VOCAB)
+    synth.write_synth_checkpoint(root, lc, n_shards=2, seed=3)
+    synth.write_hf_config(root, lc)
+    shutil.copy(os.path.join(FIXTURES, "bpe_multi.json"), os.path.join(root, "tokenizer.json"))
+    enc_dir = os.path.join(root, "bge-m3")
+    synth.write_synth_encoder(enc_dir, EncoderConfig.tiny(VOCAB), seed=4)
+    shutil.copy(os.path.join(FIXTURES, "unigram_norm.json"), os.path.join(enc_dir, "tokenizer.json"))
+    pdf_dir = os.path.join(root, "pdfs")
+    os.makedirs(pdf_dir)
+    for i, text in enumerate(["flash attention kernels tile queries and keys in shared memory",
+                              "retrieval ranks chunk embeddings by squared distance"]):
+        with open(os.path.join(pdf_dir, f"doc{i}.pdf"), "wb") as f:
+            f.write(_pdf(text))
+    return root
+
+
+def _port_config(root):
+    return AppConfig(
+        dtypes=DTypePolicy.fp32(), encoder=EncoderConfig.tiny(VOCAB), retrieval=RetrievalConfig(embed_dim=32),
+        sampling=SamplingConfig(do_sample=False, max_new_tokens=8), engine=EngineConfig(**ENGINE),
+        server=ServerConfig(model_path=root, index_path=os.path.join(root, "tpu_index"),
+                            pdf_dir=os.path.join(root, "pdfs"), embedder_path=os.path.join(root, "bge-m3"), port=0),
+    )
+
+
+@pytest.fixture(scope="module")
+def booted(staged):
+    info = {}
+    svc = tmain.build_service(_port_config(staged), device="cpu", info=info)
+    assert svc.ingest_directory() == 2
+    svc.warmup()
+    yield svc, info
+    svc.shutdown()
+
+
+@pytest.fixture(scope="module")
+def jax_service(staged):
+    jfp32 = JDTypes.fp32()
+    jl = jloader.config_from_hf_json(staged)
+    je = JEncoderConfig.tiny(VOCAB)
+    cfg = JAppConfig(model=jl, encoder=je, dtypes=jfp32, retrieval=JRetrieval(embed_dim=32),
+                     sampling=JSampling(do_sample=False, max_new_tokens=8), engine=JEngineConfig(**ENGINE),
+                     server=JServerConfig(pdf_dir=os.path.join(staged, "pdfs")))
+    engine = JEngine(jl, jloader.load_safetensors_params(staged, jl, jfp32), sampling=cfg.sampling,
+                     engine_config=cfg.engine, dtypes=jfp32)
+    enc_tok = jload_tokenizer(os.path.join(staged, "bge-m3"))
+    encoder = JEncoderRunner(je, jloader.load_encoder_safetensors(os.path.join(staged, "bge-m3"), je, jfp32),
+                             dtypes=jfp32, eos_id=enc_tok.eos_id)
+    svc = JRagService(cfg, engine, jload_tokenizer(staged), encoder, enc_tok, JStore(dim=32),
+                      scheduler=JBatchScheduler(engine, max_wait_ms=30.0))
+    svc.ingest_directory()
+    svc.ready = True
+    yield svc
+    svc.shutdown()
+
+
+def test_the_boot_converts_then_reuses_its_cache_and_index(staged, booted):
+    svc, info = booted
+    assert info == {"params_source": "converted", "index_loaded_vectors": 0}
+    assert svc.store.ntotal == 2 and os.path.exists(os.path.join(staged, "tpu_index"))
+    assert svc.llm_tokenizer.native and svc.ready
+    assert svc.config.model == LlamaConfig.tiny(VOCAB)  # from config.json
+    again = {}
+    svc2 = tmain.build_service(_port_config(staged), device="cpu", info=again)
+    try:
+        assert again == {"params_source": "cache", "index_loaded_vectors": 2}
+        for (n, p), (_, q) in zip(svc.engine.model.named_parameters(), svc2.engine.model.named_parameters()):
+            assert torch.equal(p, q), n
+    finally:
+        svc2.shutdown()
+
+
+def test_the_int8_boot_streams_the_jax_loaders_int8_weights(staged):
+    env = {"MODEL_PATH": staged, "TPU_RAG_WEIGHT_QUANT": "int8"}
+    cfg = dataclasses.replace(AppConfig.from_env(env), dtypes=DTypePolicy.fp32(),
+                              encoder=EncoderConfig.tiny(VOCAB), retrieval=RetrievalConfig(embed_dim=32),
+                              engine=dataclasses.replace(EngineConfig(**ENGINE), weight_quant="int8"))
+    info = {}
+    svc = tmain.build_service(cfg, device="cpu", info=info)
+    try:
+        assert info["params_source"] == "converted"
+        assert os.path.isdir(os.path.join(staged, "tpu_rag_param_cache_int8"))
+        jl = jloader.config_from_hf_json(staged)
+        jtree = jloader.load_safetensors_params(staged, jl, JDTypes.fp32(), quant="int8")
+        wqkv = svc.engine.model.layers[0].attn.wqkv  # fused by the engine: q | k | v rows
+        want = torch.cat([torch.from_numpy(np.asarray(jtree["layers"]["attn"][n]["kernel_q"][0]).T.copy())
+                          for n in ("wq", "wk", "wv")])
+        assert torch.equal(wqkv.weight, want)
+        want_s = torch.cat([torch.from_numpy(np.asarray(jtree["layers"]["attn"][n]["qscale"][0]).copy())
+                            for n in ("wq", "wk", "wv")])
+        assert torch.equal(wqkv.scale, want_s)
+    finally:
+        svc.shutdown()
+
+
+def test_greedy_answers_match_a_jax_service_over_the_same_directory(booted, jax_service):
+    svc, _ = booted
+    tc, jc = create_app(svc).test_client(), jcreate_app(jax_service).test_client()
+    assert tc.get("/index_info").get_json() == jc.get("/index_info").get_json()
+    fused = []
+    real = svc.engine.generate_rag
+    svc.engine.generate_rag = lambda *a, **kw: fused.append(1) or real(*a, **kw)
+    try:
+        for q in QUESTIONS:
+            got = tc.post("/generate", json_body={"prompt": q}).get_json()
+            want = jc.post("/generate", json={"prompt": q}).get_json()
+            assert got["generated_text"] == want["generated_text"]
+            assert got["context"] == want["context"] and "Document '" in got["context"]
+    finally:
+        svc.engine.generate_rag = real
+    assert len(fused) == len(QUESTIONS)  # solo queries take the single-fetch path
+
+
+@contextlib.contextmanager
+def _wide_windows(svc):
+    """Coalescing windows long enough for concurrent requests to meet on a
+    loaded machine: the retrieve coalescer holds each batch 2 s, and the
+    scheduler waits up to 2 s but leaves as soon as every request in flight
+    has joined (its hint). The service's own windows are 25 and 30 ms."""
+    co, sched = svc.retrieve_coalescer, svc.scheduler
+    saved = co.max_wait_ms, co.hint_grace_ms, sched.max_wait_ms
+    co.max_wait_ms = co.hint_grace_ms = sched.max_wait_ms = 2000.0
+    try:
+        yield
+    finally:
+        co.max_wait_ms, co.hint_grace_ms, sched.max_wait_ms = saved
+
+
+def test_a_coalesced_burst_answers_what_each_question_answers_alone(booted):
+    svc, _ = booted
+    client = create_app(svc).test_client()
+    alone = [client.post("/generate", json_body={"prompt": q}).get_json() for q in QUESTIONS]
+    sizes, retrieves = [], []
+    real_gen, real_many = svc.engine.generate, svc._retrieve_many
+    svc.engine.generate = lambda p, *a, **kw: sizes.append(len(p)) or real_gen(p, *a, **kw)
+    svc._retrieve_many = lambda t, *a, **kw: retrieves.append(len(t)) or real_many(t, *a, **kw)
+    got = [None] * len(QUESTIONS)
+    try:
+        def ask(i):
+            got[i] = client.post("/generate", json_body={"prompt": QUESTIONS[i]}).get_json()
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(QUESTIONS))]
+        with _wide_windows(svc):
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+    finally:
+        svc.engine.generate, svc._retrieve_many = real_gen, real_many
+    assert [g["generated_text"] for g in got] == [a["generated_text"] for a in alone]
+    assert [g["context"] for g in got] == [a["context"] for a in alone]
+    assert max(retrieves) > 1 and max(sizes) > 1  # one retrieve batch, batched generates
+
+
+def test_the_threaded_server_coalesces_two_concurrent_requests(booted):
+    svc, _ = booted
+    server = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    sizes = []
+    real = svc.engine.generate
+    gate = threading.Barrier(2, timeout=30)
+    svc.engine.generate = lambda p, *a, **kw: sizes.append(len(p)) or real(p, *a, **kw)
+    out = [None, None]
+
+    def post(i):
+        gate.wait()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_port}/generate",
+                                     data=json.dumps({"prompt": QUESTIONS[i]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out[i] = (r.status, json.loads(r.read()))
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        with _wide_windows(svc):
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.server_port}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        svc.engine.generate = real
+        server.shutdown()
+        server.server_close()
+    assert [o[0] for o in out] == [200, 200]
+    assert sizes == [2]  # both prompts in one coalesced engine.generate
+    assert health["status"] == "ok" and health["engine_mode"] == "coalesce"
+
+
+# the ported keys, each with a value that differs from its default
+PORTED_ENV = {
+    "MODEL_PATH": "/staged/models", "TPU_RAG_INDEX_PATH": "/idx/index", "TPU_RAG_PDF_DIR": "/docs",
+    "TPU_RAG_PORT": "6001", "TPU_RAG_MAX_NEW_TOKENS": "64", "TPU_RAG_BATCHING": "continuous",
+    "TPU_RAG_WEIGHT_QUANT": "int8", "TPU_RAG_KV_QUANT": "int8", "TPU_RAG_KV_PAGED": "1",
+    "TPU_RAG_KV_BLOCK_SIZE": "32", "TPU_RAG_KV_POOL_BLOCKS": "100", "TPU_RAG_INTERLEAVE_PREFILL": "1",
+    "TPU_RAG_PREFILL_CHUNK_TOKENS": "32", "TPU_RAG_WINDOW_TOKEN_BUDGET": "48", "TPU_RAG_DO_SAMPLE": "0",
+    "TPU_RAG_SPECULATIVE": "off", "TPU_RAG_SYNC_STEPS": "4", "TPU_RAG_FUSED": "0",
+}
+
+
+def _shared(port_cfg, jax_cfg):
+    """Every field the two configs share, section by section."""
+    out = {}
+    for section in ("server", "sampling", "engine", "retrieval"):
+        p, j = getattr(port_cfg, section), getattr(jax_cfg, section)
+        names = {f.name for f in dataclasses.fields(p)} & {f.name for f in dataclasses.fields(j)}
+        out[section] = {n: (getattr(p, n), getattr(j, n)) for n in sorted(names)}
+    return out
+
+
+@pytest.mark.parametrize("key", [None] + sorted(PORTED_ENV))
+def test_from_env_matches_the_jax_config_on_every_shared_field(key):
+    env = dict(PORTED_ENV) if key is None else {key: PORTED_ENV[key]}
+    if key in ("TPU_RAG_INTERLEAVE_PREFILL",):
+        env["TPU_RAG_KV_PAGED"] = "1"  # the cross-field rule both packages apply
+    for section, fields in _shared(AppConfig.from_env(env), JAppConfig.from_env(env)).items():
+        for name, (got, want) in fields.items():
+            assert got == want, (section, name)
+    assert AppConfig.from_env(env).system_message == JAppConfig.from_env(env).system_message
+
+
+@pytest.mark.parametrize("env", [
+    {"TPU_RAG_KV_BLOCK_SIZE": "0"}, {"TPU_RAG_BATCHING": "bogus"}, {"TPU_RAG_WEIGHT_QUANT": "int4"},
+    {"TPU_RAG_KV_PAGED": "yes"}, {"TPU_RAG_SYNC_STEPS": "0"}, {"TPU_RAG_SPECULATIVE": "always"},
+    {"TPU_RAG_INTERLEAVE_PREFILL": "1"},
+])
+def test_from_env_validation_messages_match(env):
+    with pytest.raises(ValueError) as want:
+        JAppConfig.from_env(env)
+    with pytest.raises(ValueError) as got:
+        AppConfig.from_env(env)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("env,item", [
+    ({"TPU_RAG_MESH": "tp=2"}, "item 10"), ({"TPU_RAG_SPEC_PAGED": "1"}, "item 7"),
+    ({"TPU_RAG_PREFIX_CACHE": "1"}, "item 6"), ({"TPU_RAG_KV_TIERING": "1"}, "item 6"),
+    ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"), ({"TPU_RAG_POOL_ROLE": "prefill"}, "item 8"),
+    ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"), ({"TPU_RAG_FAULTS": "embed:1"}, "item 9"),
+])
+def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
+    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+        AppConfig.from_env(env)
+
+
+def test_keys_that_leave_unported_features_off_are_accepted(caplog):
+    env = {"TPU_RAG_MESH": "tp=-1", "TPU_RAG_SPEC_PAGED": "0", "TPU_RAG_POOL_ROLE": "unified",
+           "TPU_RAG_SLO_TTFT_P95_S": "2"}
+    with caplog.at_level("WARNING"):
+        AppConfig.from_env(env)
+    assert "TPU_RAG_SLO_TTFT_P95_S" in caplog.text  # logged as ignored, not silently

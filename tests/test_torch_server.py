@@ -2,8 +2,9 @@
 (bridged by ``models/convert.py``), the same PDFs, the same questions —
 identical ``generated_text``, ``context`` and ``/index_info``.
 
-The JAX service runs under its ``BatchScheduler`` so a solo query takes its
-single-fetch path (device-side prompt assembly), the path the port serves.
+Both services run under their ``BatchScheduler``, as ``server/main.py``
+builds them, so a solo query takes the single-fetch path (device-side prompt
+assembly) in both.
 """
 
 import io
@@ -37,6 +38,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     LlamaConfig,
     SamplingConfig,
 )
+from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler as TBatchScheduler
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
 from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
 from rag_llm_k8s_tpu_torch.index.store import VectorStore
@@ -119,13 +121,14 @@ def clients():
     encoder = EncoderRunner(ec, enc, device="cpu", length_buckets=ENC_BUCKETS, max_batch=4)
     svc = RagService(
         AppConfig(model=lc, encoder=ec), engine, ByteTokenizer(), encoder, ByteTokenizer(),
-        VectorStore(dim=ec.hidden_size, device="cpu"),
+        VectorStore(dim=ec.hidden_size, device="cpu"), scheduler=TBatchScheduler(engine, max_wait_ms=5.0),
     )
     svc.ready = True
     try:
         yield jcreate_app(jsvc).test_client(), create_app(svc).test_client(), svc
     finally:
         jsvc.shutdown()
+        svc.shutdown()
 
 
 @pytest.fixture(scope="module")
@@ -227,18 +230,20 @@ def test_default_device_is_the_card_or_an_error():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     # every module of the port, found by walking the package (so a module
-    # added later is covered), and chip_smoke.py
+    # added later is covered), and chip_smoke.py; the card machine has none
+    # of jax, flax, regex, safetensors, tokenizers or ml_dtypes
     code = (
         "import importlib, pkgutil, sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for absent in ('jax', 'flax', 'regex', 'safetensors', 'tokenizers', 'ml_dtypes'):\n"
+        "    sys.modules[absent] = None\n"
         "import rag_llm_k8s_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'rag_llm_k8s_tpu' or m.startswith('rag_llm_k8s_tpu.')]\n"
         "assert not bad, bad\n"
-        "need = {'engine.continuous', 'engine.kv_pool', 'sim.policy', 'server.app', 'ops.attention'}\n"
+        "need = {'engine.continuous', 'engine.kv_pool', 'sim.policy', 'server.app', 'ops.attention',\n"
+        "        'tokenizer.bpe', 'tokenizer.unigram', 'models.loader', 'engine.batching', 'server.main'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )
