@@ -33,7 +33,8 @@
    int8 (every tensor against the staged one bit for bit, the int8 ones
    against ``models.loader.quantize_np``), a second time from the
    converted-parameter cache and the persisted index, and as ``python -m
-   rag_llm_k8s_tpu_torch.server.main`` over HTTP.
+   rag_llm_k8s_tpu_torch.server.main`` over HTTP, drained by SIGTERM with a
+   request in flight (answered 200, exit code 0).
 4. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
    bf16 weights) through the kernels against the same forward through the
    plain attention.
@@ -55,7 +56,12 @@
    (kNN, flash, paged decode and paged chunk must all have run, and the
    pool must drain to 0 blocks); the last greedy request alone must give
    its text from the batch (then, as a yardstick, through the plain paged
-   attention); then a phase-separated continuous engine run.
+   attention); then the resilience layer on the same model
+   (``phase_resilience``: a ``decode_step`` fault mid-burst resubmits every
+   request in flight with the tokens it had emitted, an ``insert`` fault,
+   retries used up, the breaker opened by real resets and healed, deadlines,
+   the admission gate's 429s, the drain, a ``generate`` fault on the one-shot
+   service); then a phase-separated continuous engine run.
 7. Yardstick: one greedy request through the decode kernel and again
    through the plain decode attention.
 8. int8 slice: ``quantize_llama`` of the same model (prefill logits against
@@ -1681,13 +1687,22 @@ def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTI
         fail(f"continuous service: engine_mode {mode!r}, weights shared {cont.model is engine.model}")
 
     greedy = {6, 7}
+    greedy_sampling = dataclasses.replace(svc.config.sampling, do_sample=False)
     results = [None] * len(CONT_QUESTIONS)
 
+    def answer_greedy(question):
+        # per-request sampling is the Python API (/generate reads no
+        # sampling field, as in the JAX service)
+        try:
+            return 200, svc.answer(question, sampling=greedy_sampling)
+        except Exception as e:  # noqa: BLE001 — reported as the route would
+            return 500, {"error": str(e)}
+
     def ask(i):
-        body = {"prompt": CONT_QUESTIONS[i]}
         if i in greedy:
-            body["sampling"] = {"do_sample": False}
-        r = client.post("/generate", json_body=body)
+            results[i] = answer_greedy(CONT_QUESTIONS[i])
+            return
+        r = client.post("/generate", json_body={"prompt": CONT_QUESTIONS[i]})
         results[i] = (r.status_code, r.get_json())
 
     torch.cuda.synchronize()
@@ -1736,11 +1751,10 @@ def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTI
                 L.paged_chunk_attention = A.paged_chunk_attention_xla
             before = dataclasses.replace(cont.stats)
             launched = dict(_build.LAUNCHES)
-            r = client.post("/generate", json_body={"prompt": CONT_QUESTIONS[-1], "sampling": {"do_sample": False}})
+            code, body = answer_greedy(CONT_QUESTIONS[-1])
             torch.cuda.synchronize()
-            body = r.get_json()
-            if r.status_code != 200:
-                fail(f"continuous /generate alone ({impl}): {r.status_code} {body}")
+            if code != 200:
+                fail(f"continuous /generate alone ({impl}): {code} {body}")
             solo[impl] = body
             alone = {k: _build.LAUNCHES[k] - launched[k] for k in need}
             print(f"request {tag} continuous /generate alone through the {impl} paged attention (greedy, "
@@ -1823,6 +1837,332 @@ def phase_continuous_engine(service_bits, tag="bf16", block_size=16, decode_kern
         fail(f"continuous engine: {cont.kv_pool.blocks_in_use()} blocks still in use")
     cont.arena = None
     torch.cuda.empty_cache()
+
+
+RES_QUESTIONS = CONT_QUESTIONS[:4]
+# case (a)'s fault comes at the first window where this many rows decode,
+# one of them with this many tokens emitted (the prompts prefill 64 tokens a
+# window, so the others are still prefilling or just decoding)
+FAULT_ROWS, FAULT_EMITTED = 2, 8
+
+
+def phase_resilience(service_bits, max_new: int = 48):
+    """The resilience layer on the full-width 8B service, through the HTTP
+    test client, one line per case: (a) a ``decode_step`` fault in the
+    middle of a burst of 4 greedy requests on the continuous service (every
+    request 200, one reset, every request in flight resubmitted with the
+    tokens it had emitted, no block left, ``complete.stream_fnv`` = the
+    delivered stream's hash; the whole streams against an unfaulted burst
+    printed, not gated: a resumed row's KV comes from a prefill); (b) an
+    ``insert`` fault on a phase-separated admission; (c) a second fault that
+    uses up the retries: 500, no block left; (d) real resets opening the
+    breaker: ``/healthz`` 503, ``?live=1`` 200, 503 ``breaker_open`` with
+    ``Retry-After``, 200 once the window has passed; (e) deadlines: 504 at
+    ``decode`` with the blocks back within one window, a header deadline,
+    400 for malformed values; (f) the admission gate at 2 running + 1
+    queued: 6 requests behind a barrier give 3 x 200 and 3 x 429; (g) the
+    drain: 202, the request in flight 200, new work 503 ``draining``,
+    ``/healthz`` draining, ``exit_fn`` called; (h) a ``generate`` fault on
+    the one-shot service: one 500, then 200. Each case gets its own
+    ``RagService`` (breaker, gate, drain) over the shared continuous
+    scheduler, greedy, ``max_new`` tokens."""
+    import threading
+
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import ResilienceConfig, SamplingConfig
+    from rag_llm_k8s_tpu_torch.obs import flight
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.resilience import faults
+    from rag_llm_k8s_tpu_torch.server.app import RagService, build_scheduler, create_app
+
+    svc1, client1, engine, store = service_bits
+    greedy = SamplingConfig(do_sample=False, max_new_tokens=max_new)
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True, kv_block_size=16,
+                             interleave_prefill=True, prefill_chunk_tokens=64)
+    base_res = ResilienceConfig()
+    sched = build_scheduler(engine, ec, base_res)
+    cont = sched.engine
+    cont.sampling = greedy  # /generate reads no sampling field: the engine's own is greedy here
+    made = []
+
+    def service(scheduler=sched, engine_config=ec, **res):
+        svc = RagService(dataclasses.replace(svc1.config, engine=engine_config,
+                                             resilience=dataclasses.replace(base_res, **res)),
+                         engine, svc1.llm_tokenizer, svc1.encoder, svc1.encoder_tokenizer, store, scheduler=scheduler)
+        svc.ready = True
+        made.append(svc)
+        return svc, create_app(svc).test_client()
+
+    def post(client, body, headers=None):
+        r = client.post("/generate", json_body=body, headers=headers)
+        return r.status_code, r.get_json(), r.headers.get("Retry-After")
+
+    def burst(client, questions, barrier=True):
+        out = [None] * len(questions)
+        start = threading.Barrier(len(questions), timeout=60)
+
+        def ask(i):
+            if barrier:
+                start.wait()
+            out[i] = post(client, {"prompt": questions[i]})
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(questions))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if any(th.is_alive() for th in threads):
+            fail("resilience: a request did not finish within 600 s")
+        return out
+
+    def no_blocks(case):
+        t = time.monotonic()
+        while cont.kv_pool.blocks_in_use() and time.monotonic() - t < 5.0:
+            time.sleep(0.01)
+        if cont.kv_pool.blocks_in_use():
+            fail(f"resilience ({case}): {cont.kv_pool.blocks_in_use()} blocks still in use")
+
+    # capture each delivered stream (ids) by request id
+    delivered = {}
+    real_deliver = sched._deliver
+
+    def deliver(item, tokens):
+        real_deliver(item, tokens)
+        delivered[item.request_id] = list(item.result)
+
+    sched._deliver = deliver
+    # arm a site at a given window of the continuous engine, or at the first
+    # window where plan["when"]() holds
+    plan = {"at": {}, "when": None, "snap": None, "t_fault": None, "t_resumed": None, "window": 0}
+    real_step = cont.step
+
+    def step():
+        plan["window"] += 1
+        site = plan["at"].pop(plan["window"], None)
+        if site is None and plan["when"] is not None and plan["when"]():
+            site, plan["when"] = "decode_step", None
+        if site is not None:
+            # what each row had emitted when the window failed
+            plan["snap"] = {s.request_id: list(s.tokens) for s in cont.slots if s.active}
+            plan["done_before"] = len(flight.recorder().snapshot(etype="complete"))
+            plan["fault_window"] = plan["window"]
+            plan["t_fault"] = time.monotonic()
+            faults.arm(site)
+        out = real_step()
+        if plan["t_fault"] is not None and plan["t_resumed"] is None:
+            plan["t_resumed"] = time.monotonic()
+        return out
+
+    cont.step = step
+    try:
+        # (a) a decode fault mid-burst
+        svc, client = service()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        clean = burst(client, RES_QUESTIONS)
+        clean_wall = time.monotonic() - t0
+        if any(c != 200 for c, _, _ in clean):
+            fail(f"resilience (a) unfaulted burst: {[(c, b) for c, b, _ in clean]}")
+        clean_ids = dict(delivered)
+        delivered.clear()
+        flight.recorder().clear()
+        _build.reset_launches()
+        plan.update(window=0, at={}, snap=None, t_fault=None, t_resumed=None, when=lambda: (
+            sum(1 for s in cont.slots if s.active) >= FAULT_ROWS
+            and max(len(s.tokens) for s in cont.slots if s.active) >= FAULT_EMITTED))
+        t0 = time.monotonic()
+        faulted = burst(client, RES_QUESTIONS)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        if any(c != 200 for c, _, _ in faulted):
+            fail(f"resilience (a): {[(c, b) for c, b, _ in faulted]}")
+        if plan["snap"] is None:
+            fail(f"resilience (a): in {plan['window']} windows never {FAULT_ROWS} rows decoded at once")
+        in_flight = len(RES_QUESTIONS) - plan["done_before"]
+        resets = flight.recorder().snapshot(etype="reset")
+        resub = [e for e in flight.recorder().snapshot(etype="resubmit") if e["outcome"] == "resubmitted"]
+        no_blocks("a")
+        rids = [b["request_id"] for _, b, _ in faulted]
+        bad_prefix = [r for r, toks in plan["snap"].items() if delivered.get(r, [])[:len(toks)] != toks]
+        bad_fnv = [r for r in rids if [e["stream_fnv"] for e in flight.recorder().snapshot(request_id=r, etype="complete")]
+                   != [flight.stream_hash(delivered[r])]]
+        same = sum(delivered[r] == clean_ids.get(c["request_id"]) for r, (_, c, _) in zip(rids, clean))
+        print(f"resilience (a) decode_step fault at window {plan['fault_window']} of a burst of 4: "
+              f"codes={[c for c, _, _ in faulted]} resets={len(resets)} in_flight={in_flight} "
+              f"decoding_rows={resets[0]['in_flight'] if resets else None} "
+              f"resubmitted={len(resub)} n_emitted={[e['n_emitted'] for e in resub]} "
+              f"blocks_in_use={cont.kv_pool.blocks_in_use()} "
+              f"fault_to_resumed_window_ms={1e3 * (plan['t_resumed'] - plan['t_fault']):.1f} "
+              f"total_ms={[b['timings']['total_ms'] for _, b, _ in faulted]} "
+              f"unfaulted_total_ms={[b['timings']['total_ms'] for _, b, _ in clean]} "
+              f"wall_s={wall:.2f} unfaulted_wall_s={clean_wall:.2f} "
+              f"streams_equal_to_unfaulted={same}/4 (printed, not gated) launches={json.dumps(launches)}",
+              flush=True)
+        if len(resets) != 1 or len(resub) != in_flight or in_flight < 2 or not plan["snap"]:
+            fail(f"resilience (a): {len(resets)} resets, {len(resub)} resubmitted of {in_flight} in flight, "
+                 f"{len(plan['snap'] or {})} decoding (want 1, all, >= 2, >= 1)")
+        if bad_prefix or bad_fnv:
+            fail(f"resilience (a): streams not continued from their emitted tokens {bad_prefix} "
+                 f"or stream_fnv mismatches {bad_fnv}")
+        _launch_check("resilience recovery path", launches, ("paged_decode_attention", "paged_chunk_attention"),
+                      ())
+
+        # (c) a second fault uses up the one retry
+        svc, client = service()
+        plan.update(window=0, at={}, t_fault=None)
+        faults.arm("decode_step", times=2)
+        code, body, _ = post(client, {"prompt": RES_QUESTIONS[0]})
+        no_blocks("c")
+        print(f"resilience (c) decode_step x2 with one retry: code={code} body={json.dumps(body)} "
+              f"blocks_in_use={cont.kv_pool.blocks_in_use()}", flush=True)
+        if code != 500 or body != {"error": "injected fault at site 'decode_step'"} or faults.armed():
+            fail(f"resilience (c): {code} {body}")
+
+        # (d) real resets inside a short window open the breaker
+        svc, client = service(breaker_window_s=10.0)
+        sched.retries = svc.breaker.threshold
+        plan.update(window=0, at={2: "decode_step", 4: "decode_step", 6: "decode_step"}, t_fault=None)
+        try:
+            code, body, _ = post(client, {"prompt": RES_QUESTIONS[1]})
+        finally:
+            sched.retries = base_res.inflight_retries
+            plan["at"] = {}
+        h = client.get("/healthz")
+        live = client.get("/healthz?live=1")
+        shed = post(client, {"prompt": RES_QUESTIONS[1]})
+        wait_s = svc.breaker.retry_after_s()
+        time.sleep(wait_s + 0.1)
+        h2 = client.get("/healthz")
+        after = post(client, {"prompt": RES_QUESTIONS[1]})
+        print(f"resilience (d) {svc.breaker.threshold} resets in {svc.breaker.window_s:.0f} s: request={code} "
+              f"healthz={h.status_code} {json.dumps({k: h.get_json()[k] for k in ('status', 'breaker_open', 'breaker_recent_resets')})} "
+              f"live={live.status_code} generate={shed[0]} {json.dumps(shed[1])} retry_after={shed[2]} "
+              f"waited_s={wait_s:.2f} then healthz={h2.status_code} generate={after[0]}", flush=True)
+        if (code != 200 or h.status_code != 503 or h.get_json()["breaker_open"] is not True or live.status_code != 200
+                or shed[0] != 503 or shed[1].get("reason") != "breaker_open" or not shed[2] or int(shed[2]) < 1
+                or h2.status_code != 200 or after[0] != 200):
+            fail("resilience (d): the breaker did not open and heal as it should")
+
+        # (e) deadlines: one unfaulted request's flight events place its
+        # decode; a deadline halfway through it runs out mid-decode
+        svc, client = service()
+        flight.recorder().clear()
+        code, body, _ = post(client, {"prompt": RES_QUESTIONS[2]})
+        evs = {e["type"]: e["t_ms"] for e in flight.recorder().timeline(body["request_id"])["events"]}
+        pre_ms = body["timings"]["total_ms"] - evs["complete"]  # before the scheduler: retrieve, assemble
+        dl_ms = round(pre_ms + (evs["admit"] + evs["complete"]) / 2)
+        t = time.monotonic()
+        code, body, _ = post(client, {"prompt": RES_QUESTIONS[2], "deadline_ms": dl_ms})
+        t504 = time.monotonic()
+        # the row is evicted before its error is delivered: its blocks are
+        # back by the time the 504 is (allow one window)
+        while cont.kv_pool.blocks_in_use() and time.monotonic() - t504 < 0.1:
+            time.sleep(0.001)
+        freed_ms = (time.monotonic() - t504) * 1e3
+        no_blocks("e")
+        hcode, hbody, _ = post(client, {"prompt": RES_QUESTIONS[2]}, headers={"x-request-deadline-ms": str(dl_ms)})
+        bad = [post(client, {"prompt": "x", "deadline_ms": v})[0] for v in (0, "x", "inf")]
+        print(f"resilience (e) deadline_ms={dl_ms} (an unfaulted request: first token at "
+              f"{pre_ms + evs['admit']:.0f} ms, done at {pre_ms + evs['complete']:.0f} ms): "
+              f"code={code} body={json.dumps(body)} answered_after_ms="
+              f"{(t504 - t) * 1e3:.0f} blocks_back_within_ms={freed_ms:.1f} header deadline: {hcode} "
+              f"{json.dumps(hbody)} malformed 0/'x'/'inf': {bad}", flush=True)
+        if ((code, body.get("stage")) != (504, "decode") or (hcode, hbody.get("stage")) != (504, "decode")
+                or bad != [400] * 3 or freed_ms > 100.0):
+            fail("resilience (e): deadlines not honoured")
+
+        # (f) the admission gate: 2 running + 1 queued
+        svc, client = service(admission_max_concurrency=2, admission_max_queue=1)
+        out = burst(client, CONT_QUESTIONS[:6])
+        codes = sorted(c for c, _, _ in out)
+        shed = [(b, ra) for c, b, ra in out if c == 429]
+        print(f"resilience (f) 6 requests at 2 running + 1 queued: codes={codes} "
+              f"shed={json.dumps(shed[:1])}", flush=True)
+        if codes != [200] * 3 + [429] * 3 or any(int(ra) < 1 or b.get("reason") != "queue_full" for b, ra in shed):
+            fail(f"resilience (f): {out}")
+
+        # (g) the drain
+        svc, client = service()
+        exits = []
+        svc.lifecycle.exit_fn = lambda: exits.append(time.monotonic())
+        inflight = []
+        th = threading.Thread(target=lambda: inflight.append(post(client, {"prompt": RES_QUESTIONS[3]})))
+        th.start()
+        t = time.monotonic()
+        while svc.admission.active == 0 and time.monotonic() - t < 30:
+            time.sleep(0.005)
+        d = client.post("/drain")
+        t_drain = time.monotonic()
+        new = post(client, {"prompt": RES_QUESTIONS[3]})
+        h = client.get("/healthz")
+        th.join(timeout=600)
+        drained = svc.lifecycle.wait_drained(60)
+        print(f"resilience (g) drain with one request in flight: drain={d.status_code} {json.dumps(d.get_json())} "
+              f"new={new[0]} {json.dumps(new[1])} healthz={h.status_code} {h.get_json()['status']} "
+              f"in_flight={inflight[0][0] if inflight else None} state={svc.lifecycle.state} "
+              f"drain_to_drained_s={(exits[0] - t_drain) if exits else float('nan'):.2f} exit_fn_calls={len(exits)}",
+              flush=True)
+        if (d.status_code != 202 or new[0] != 503 or new[1].get("reason") != "draining" or h.status_code != 503
+                or h.get_json()["status"] != "draining" or not inflight or inflight[0][0] != 200 or not drained
+                or len(exits) != 1):
+            fail("resilience (g): the drain did not run as it should")
+
+        # (b) an insert fault on a phase-separated admission
+        for s in made:
+            s.retrieve_coalescer.shutdown()
+        made.clear()
+        sched._deliver = real_deliver
+        cont.step = real_step
+        sched.shutdown()
+        cont.arena = None
+        torch.cuda.empty_cache()
+        ec_ps = dataclasses.replace(ec, interleave_prefill=False)
+        sched = build_scheduler(engine, ec_ps, base_res)
+        cont = sched.engine
+        cont.sampling = greedy
+        svc, client = service(scheduler=sched, engine_config=ec_ps)
+        flight.recorder().clear()
+        faults.arm("insert")
+        code, body, _ = post(client, {"prompt": RES_QUESTIONS[0]})
+        resub = flight.recorder().snapshot(etype="resubmit")
+        resets = flight.recorder().snapshot(etype="reset")
+        code2, body2, _ = post(client, {"prompt": RES_QUESTIONS[0]})
+        no_blocks("b")
+        print(f"resilience (b) insert fault on a phase-separated admission: code={code} resets={len(resets)} "
+              f"resubmits={[(e['outcome'], e['n_emitted']) for e in resub]} blocks_in_use="
+              f"{cont.kv_pool.blocks_in_use()} same_text_as_unfaulted="
+              f"{body.get('generated_text') == body2.get('generated_text')} (printed, not gated)", flush=True)
+        if code != 200 or len(resets) != 1 or [(e["outcome"], e["n_emitted"]) for e in resub] != [("resubmitted", 0)]:
+            fail(f"resilience (b): {code} {body}")
+        sched.shutdown()
+        cont.arena = None
+
+        # (h) a generate fault on the one-shot service (a long question takes
+        # the host path, through the BatchScheduler into engine.generate)
+        rng = __import__("numpy").random.default_rng(5)
+        q = words(rng, 40) + "?"
+        samp = engine.sampling
+        engine.sampling = dataclasses.replace(samp, max_new_tokens=max_new)
+        try:
+            faults.arm("generate")
+            first = post(client1, {"prompt": q})
+            second = post(client1, {"prompt": q})
+        finally:
+            engine.sampling = samp
+        print(f"resilience (h) generate fault on the one-shot service: first={first[0]} {json.dumps(first[1])} "
+              f"then={second[0]}", flush=True)
+        if first[:2] != (500, {"error": "injected fault at site 'generate'"}) or second[0] != 200:
+            fail("resilience (h): the one-shot service did not fail once and then serve")
+    finally:
+        faults.clear()
+        for s in made:
+            s.retrieve_coalescer.shutdown()
+        sched.shutdown()
+        cont.arena = None
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _forward_ms(engine, reps: int = 5, model=None, kv_quant: str = "bf16", width: int = 1):
@@ -2152,13 +2492,17 @@ def phase_staged_boot():
     RSS and device bytes printed); a second bf16 boot, which must restore the
     converted-parameter cache and reopen the index with no re-embedding; and
     ``python -m rag_llm_k8s_tpu_torch.server.main`` as a subprocess on a free
-    port: ``/healthz``, ``/index_info`` and three ``/generate`` over HTTP.
-    The directory is removed afterwards."""
+    port: ``/healthz``, ``/index_info`` and three ``/generate`` over HTTP,
+    then SIGTERM with a fourth ``/generate`` in flight: that request must get
+    200, the log must show the drain, and the process must exit with 0
+    within the drain deadline plus 10 s. The directory is removed
+    afterwards."""
     import gc
     import os
     import shutil
     import signal
     import tempfile
+    import threading
 
     import numpy as np
     import torch
@@ -2244,7 +2588,7 @@ def phase_staged_boot():
         log = open(log_path, "w")
         proc = subprocess.Popen(
             [sys.executable, "-m", "rag_llm_k8s_tpu_torch.server.main"],
-            env={**os.environ, **env, "TPU_RAG_PORT": str(port), "TPU_RAG_LOG_LEVEL": "WARNING"},
+            env={**os.environ, **env, "TPU_RAG_PORT": str(port), "TPU_RAG_LOG_LEVEL": "INFO"},
             stdout=log, stderr=subprocess.STDOUT,
         )
 
@@ -2280,6 +2624,42 @@ def phase_staged_boot():
             print(f"phase staged_boot server.main: pid={proc.pid} port={port} ready_s={ready_s:.1f} "
                   f"healthz={json.dumps(ready)} index_vectors={index['total_vectors']} "
                   f"generate_timings={json.dumps(timings)}", flush=True)
+
+            # SIGTERM with a /generate in flight: the request is answered,
+            # then the process drains and exits with 0
+            import urllib.error
+
+            inflight = []
+
+            def ask():
+                try:
+                    inflight.append(_http(port, "/generate", {"prompt": LATENCY_QUESTIONS[3]}, timeout=120))
+                except urllib.error.HTTPError as e:
+                    inflight.append((e.code, json.loads(e.read() or b"{}")))
+                except OSError as e:
+                    inflight.append((None, {"error": repr(e)}))
+
+            th = threading.Thread(target=ask)
+            th.start()
+            time.sleep(0.05)  # the request is admitted within ms and runs for hundreds
+            t_term = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            th.join(timeout=120)
+            limit = AppConfig().resilience.drain_deadline_s + 10.0
+            try:
+                rc = proc.wait(timeout=limit)
+            except subprocess.TimeoutExpired:
+                fail(f"server.main: still running {limit:.0f} s after SIGTERM:\n{server_log()}")
+            exit_s = time.monotonic() - t_term
+            logged = server_log()
+            began = [ln for ln in logged.splitlines() if "drain began (reason=sigterm" in ln]
+            n_in_flight = int(began[0].split("in_flight=")[1].split(",")[0]) if began else 0
+            print(f"phase staged_boot server.main SIGTERM: in_flight_request={inflight[0][0] if inflight else None} "
+                  f"exit_code={rc} exit_s={exit_s:.2f} drain_log={began[0].split(':')[-1] if began else None} "
+                  f"drained_log={'drained: exiting' in logged}", flush=True)
+            if not inflight or inflight[0][0] != 200 or rc != 0 or n_in_flight < 1 or "drained: exiting" not in logged:
+                fail(f"server.main SIGTERM drain: request {inflight}, exit code {rc}, "
+                     f"in flight at SIGTERM {n_in_flight}:\n{logged}")
         finally:
             proc.send_signal(signal.SIGTERM)
             try:
@@ -2411,6 +2791,7 @@ def main() -> int:
     launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
     timed(phase_query_latency, bits)
     cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
+    timed(phase_resilience, bits)
     timed(phase_continuous_engine, bits)
     timed(phase_plain_decode, bits)
 

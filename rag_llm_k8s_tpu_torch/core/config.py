@@ -4,7 +4,7 @@ Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
 (mesh, prefix cache, tiering, speculative continuous decode, pool roles,
-observability, resilience) are not here.
+observability) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -257,6 +257,40 @@ SYSTEM_MESSAGE = (
 
 
 @dataclass(frozen=True)
+class ResilienceConfig:
+    """Admission control, deadlines, reset recovery and drain
+    (``resilience/``), with the JAX package's defaults: concurrency ~2x the
+    batch cap, a queue a few seconds deep, a 120 s default deadline."""
+
+    # requests past the gate at once (env TPU_RAG_ADMISSION_MAX_CONCURRENCY)
+    admission_max_concurrency: int = 16
+    # the bounded wait line above it; request cap + queue + 1 is shed with
+    # 429 + Retry-After (env TPU_RAG_ADMISSION_MAX_QUEUE)
+    admission_max_queue: int = 64
+    # the Retry-After of queue_full sheds, seconds
+    # (env TPU_RAG_ADMISSION_RETRY_AFTER_S)
+    admission_retry_after_s: float = 1.0
+    # end-to-end deadline of a request that names none (body deadline_ms,
+    # header x-request-deadline-ms) (env TPU_RAG_DEADLINE_MS)
+    deadline_ms: int = 120_000
+    # this many engine resets inside breaker_window_s turn /healthz
+    # readiness off (env TPU_RAG_BREAKER_RESETS / TPU_RAG_BREAKER_WINDOW_S)
+    breaker_reset_threshold: int = 3
+    breaker_window_s: float = 300.0
+    # resubmissions per in-flight request after an engine reset (0: the
+    # first fault fails it), and the jittered backoff before they land
+    # (env TPU_RAG_INFLIGHT_RETRIES / TPU_RAG_RETRY_BACKOFF_MS)
+    inflight_retries: int = 1
+    retry_backoff_ms: float = 50.0
+    # how long in-flight work gets after SIGTERM / POST /drain; must fit the
+    # pod's terminationGracePeriodSeconds (env TPU_RAG_DRAIN_DEADLINE_S)
+    drain_deadline_s: float = 25.0
+    # the Retry-After of 503 reason="draining" sheds
+    # (env TPU_RAG_DRAIN_RETRY_AFTER_S)
+    drain_retry_after_s: float = 2.0
+
+
+@dataclass(frozen=True)
 class ServerConfig:
     """HTTP surface and storage paths (the reference's rag.py:18-20, 204)."""
 
@@ -289,7 +323,6 @@ UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "TPU_RAG_POOL_ROLE": (lambda v: v != "unified", "Queue 1 item 8 (lookahead, router, lifecycle)"),
     "TPU_RAG_FLIGHT_WAL": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
     "TPU_RAG_FLIGHT_WAL_RESTORE": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
-    "TPU_RAG_FAULTS": (lambda v: bool(v.strip()), "Queue 1 item 9 (resilience: fault arming)"),
 }
 
 # the keys from_env reads
@@ -299,7 +332,26 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_KV_BLOCK_SIZE", "TPU_RAG_KV_POOL_BLOCKS", "TPU_RAG_INTERLEAVE_PREFILL",
     "TPU_RAG_PREFILL_CHUNK_TOKENS", "TPU_RAG_WINDOW_TOKEN_BUDGET", "TPU_RAG_DO_SAMPLE",
     "TPU_RAG_SPECULATIVE", "TPU_RAG_SYNC_STEPS", "TPU_RAG_FUSED", "TPU_RAG_LOG_LEVEL",
+    "TPU_RAG_ADMISSION_MAX_CONCURRENCY", "TPU_RAG_ADMISSION_MAX_QUEUE", "TPU_RAG_ADMISSION_RETRY_AFTER_S",
+    "TPU_RAG_DEADLINE_MS", "TPU_RAG_BREAKER_RESETS", "TPU_RAG_BREAKER_WINDOW_S", "TPU_RAG_INFLIGHT_RETRIES",
+    "TPU_RAG_RETRY_BACKOFF_MS", "TPU_RAG_DRAIN_DEADLINE_S", "TPU_RAG_DRAIN_RETRY_AFTER_S",
+    # read by server/main.py (resilience.faults.arm_from_env) and /debug/faults
+    "TPU_RAG_FAULTS",
 })
+
+# (key, field, minimum, type) of ResilienceConfig, in the JAX from_env's order
+RESILIENCE_KEYS = (
+    ("TPU_RAG_ADMISSION_MAX_CONCURRENCY", "admission_max_concurrency", 1, int),
+    ("TPU_RAG_ADMISSION_MAX_QUEUE", "admission_max_queue", 0, int),
+    ("TPU_RAG_ADMISSION_RETRY_AFTER_S", "admission_retry_after_s", 0.0, float),
+    ("TPU_RAG_DEADLINE_MS", "deadline_ms", 1, int),
+    ("TPU_RAG_BREAKER_RESETS", "breaker_reset_threshold", 1, int),
+    ("TPU_RAG_BREAKER_WINDOW_S", "breaker_window_s", 1.0, float),
+    ("TPU_RAG_INFLIGHT_RETRIES", "inflight_retries", 0, int),
+    ("TPU_RAG_RETRY_BACKOFF_MS", "retry_backoff_ms", 0.0, float),
+    ("TPU_RAG_DRAIN_DEADLINE_S", "drain_deadline_s", 0.1, float),
+    ("TPU_RAG_DRAIN_RETRY_AFTER_S", "drain_retry_after_s", 0.0, float),
+)
 
 
 def _flag(env: dict, key: str) -> Optional[bool]:
@@ -329,6 +381,7 @@ class AppConfig:
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     system_message: str = SYSTEM_MESSAGE
 
     @classmethod
@@ -400,5 +453,18 @@ class AppConfig:
         if (v := _flag(env, "TPU_RAG_FUSED")) is not None:
             engine = rep(engine, rag_fused=v)
         engine.validate_interleave()  # cross-field rules, with the env applied
-        return rep(cfg, server=server, sampling=sampling, engine=engine)
+        if engine.batching == "continuous" and not engine.kv_paged:
+            paged = env.get("TPU_RAG_KV_PAGED", "unset")
+            raise ValueError(
+                f"TPU_RAG_BATCHING='continuous' with TPU_RAG_KV_PAGED={paged!r} turns on a feature the "
+                "PyTorch port does not have yet: ROADMAP.md Queue 1 item 7 (the dense continuous cache)"
+            )
+        resilience = cfg.resilience
+        for key, name, minimum, cast in RESILIENCE_KEYS:
+            if key in env:
+                v = cast(env[key])
+                if v < minimum:
+                    raise ValueError(f"{key}={v}: expected >= {minimum}")
+                resilience = rep(resilience, **{name: v})
+        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience)
 

@@ -248,13 +248,20 @@ class BatchScheduler:
         max_new_tokens: Optional[int] = None,
         seed: Optional[int] = None,
         timeout: Optional[float] = None,
+        deadline=None,  # Optional[resilience.Deadline]
+        info: Optional[dict] = None,  # accepted for scheduler-API parity; only
+        # the continuous scheduler has per-request engine facts to fill
+        tenant: Optional[str] = None,  # parity again: one-shot batches keep
+        # no per-request journal to stamp it on
     ) -> List[int]:
-        """Blocking: enqueue and wait for this prompt's continuation. The
-        batch itself cannot be cancelled mid-generate, so a ``timeout``
-        surfaces as the caller's ``TimeoutError`` while the batch completes
-        for its other members. (The JAX scheduler's ``deadline``, ``info``
-        and ``tenant`` arguments serve the unported ``resilience/`` and
-        ``obs/``.)"""
+        """Blocking: enqueue and wait for this prompt's continuation.
+
+        A ``deadline`` bounds the wait (the caller's remaining budget); the
+        batch itself cannot be cancelled mid-generate, so expiry surfaces as
+        the caller's ``TimeoutError`` while the batch completes for its
+        other members."""
+        if timeout is None and deadline is not None:
+            timeout = deadline.wait_timeout()
         item = _Pending(prompt=list(prompt), max_new=max_new_tokens, seed=seed)
         with self._lifecycle_lock:  # stop-check + enqueue must be atomic
             if self._stop.is_set():

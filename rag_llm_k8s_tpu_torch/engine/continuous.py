@@ -35,8 +35,20 @@ planes (``[L, N, K, bs]``, zeros at construction) and the windows run the
 q8 paged kernels; ``weight_quant="int8"`` serves int8 weights (a model the
 one-shot engine already quantized is shared as it is).
 
+Resilience (``resilience/``), as in the JAX scheduler: a failed window or
+a failed admission resets the engine (every row and block back) and the
+scheduler resubmits each in-flight request ``retries`` times (default 1)
+as its prompt plus the tokens it had emitted, so a transient fault is
+invisible to the caller; a request out of retries gets the error. Every
+reset feeds the service's circuit breaker. A request's ``Deadline`` is
+checked while it queues and between windows, and an expired row is evicted
+(its blocks return) within one window. The fault sites ``insert`` (inside a
+phase-separated admission) and ``decode_step`` (the top of ``step``) make
+both recoveries testable. Lifecycle events go to the flight recorder
+(``obs/flight.py``).
+
 Out of this port for now: the dense continuous cache, speculative verify
-windows, prefix registrations, tiering, migration, deadlines and faults.
+windows, prefix registrations, tiering and migration.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from __future__ import annotations
 import itertools
 import logging
 import queue
+import random
 import threading
 import time
 from collections import OrderedDict
@@ -59,11 +72,20 @@ from rag_llm_k8s_tpu_torch.engine.engine import serving_model
 from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
 from rag_llm_k8s_tpu_torch.engine.sampling import sample_token_per_row
 from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena
+from rag_llm_k8s_tpu_torch.obs import flight
+from rag_llm_k8s_tpu_torch.resilience import faults
+from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from rag_llm_k8s_tpu_torch.sim import policy
 
 logger = logging.getLogger(__name__)
 
+# process-global: the flight journal keys every lifecycle event on this id
 _REQUEST_IDS = itertools.count(1)
+
+
+class EngineStateLost(RuntimeError):
+    """A failure where a group's state joins the engine's rows: the engine
+    has been reset and every request that was in flight is gone."""
 
 
 @dataclass
@@ -109,7 +131,8 @@ class ContinuousEngine:
     ):
         ec = engine_config
         if not ec.kv_paged:
-            raise ValueError("the continuous engine serves the paged arena only: set kv_paged=True")
+            raise ValueError("the continuous engine serves the paged arena only: set kv_paged=True "
+                             "(the dense continuous cache is ROADMAP.md Queue 1 item 7)")
         ec.validate_quant()
         self.device = resolve_device(device)
         self.config, self.sampling, self.engine_config, self.dtypes = config, sampling, ec, dtypes
@@ -179,6 +202,7 @@ class ContinuousEngine:
     def reset(self) -> None:
         """Drop every row and return every block (after a failed window).
         The arena keeps its memory; no kernel reads past a frontier."""
+        flight.emit("reset", in_flight=sum(1 for s in self.slots if s.active))
         self.kv_pool.reset()
         self._fresh_state()
 
@@ -326,6 +350,7 @@ class ContinuousEngine:
     def has_active(self) -> bool:
         return any(s.active or s.prefilling for s in self.slots)
 
+    @torch.inference_mode()
     def evict_requests(self, request_ids: Sequence[int]) -> List[int]:
         """Retire the rows serving ``request_ids`` without a result (their
         blocks return now); returns the freed rows."""
@@ -333,9 +358,11 @@ class ContinuousEngine:
         rows = [i for i, s in enumerate(self.slots) if s.active and s.request_id in wanted]
         self._deactivate(rows)
         for r in rows:
+            flight.emit("evict", self.slots[r].request_id, n_tokens=len(self.slots[r].tokens))
             self._release_row(r)
             self.slots[r] = _Slot()
         for rid in [r for r in self._chunk_admissions if r in wanted]:
+            flight.emit("evict", rid, n_tokens=0)
             row = self._chunk_admissions.pop(rid)["row"]
             self._release_row(row)
             self.slots[row] = _Slot()
@@ -348,7 +375,8 @@ class ContinuousEngine:
         into free rows; returns ``(row, finished)`` or the exception of the
         item's prefill group, in input order. A prompt over the largest
         bucket keeps its last tokens (with a warning); ``max_new`` is
-        clamped to the row's room past the bucket."""
+        clamped to the row's room past the bucket. ``EngineStateLost`` (the
+        engine was reset) propagates out of the whole call."""
         free = self.free_slots()
         if len(items) > len(free):
             raise ValueError(f"admit_many: {len(items)} items for {len(free)} free rows")
@@ -377,6 +405,8 @@ class ContinuousEngine:
             rows = [next(free_iter) for _ in chunk]
             try:
                 self._admit_chunk(S, chunk, rows, results)
+            except EngineStateLost:
+                raise  # every row is gone: the callers must all recover
             except Exception as e:  # noqa: BLE001 — the group's items get the error
                 for entry in chunk:
                     results[entry[0]] = e
@@ -385,7 +415,10 @@ class ContinuousEngine:
     def _admit_chunk(self, S: int, chunk, rows: List[int], results: List) -> None:
         """One right-padded prefill for a same-bucket group, written into the
         rows' blocks, then one fetch of the first tokens. ``PoolExhausted``
-        returns the blocks taken so far and propagates (backpressure)."""
+        returns the blocks taken so far and propagates (backpressure); a
+        failed prefill releases the group's rows and propagates; a failure
+        where the group's state joins the engine's rows (the ``insert``
+        fault site) resets the engine and raises ``EngineStateLost``."""
         n = len(chunk)
         taken: List[Tuple[int, List[int]]] = []
         try:
@@ -413,26 +446,34 @@ class ContinuousEngine:
                 block_tables=self._device_tables()[rows_t], logit_index=lens - 1,
             )
             tok0 = self._sample(logits[:, 0], lens, rows=rows_t)
-            self._kv_len[rows_t] = lens.to(torch.int32)
-            self._last_tok[rows_t] = tok0
-            self._active[rows_t] = True
-            tok0_h = tok0.cpu().tolist()  # the one fetch of the group
         except BaseException:
             self._deactivate(rows)
             for row in rows:
                 self._release_row(row)
                 self.slots[row] = _Slot()
             raise
+        try:
+            # fault site "insert": a fault while the group's state joins the
+            # engine's rows leaves that state unknown, so the engine resets
+            faults.maybe_fail("insert")
+            self._kv_len[rows_t] = lens.to(torch.int32)
+            self._last_tok[rows_t] = tok0
+            self._active[rows_t] = True
+            tok0_h = tok0.cpu().tolist()  # the one fetch of the group
+        except Exception as e:  # noqa: BLE001 — every row's state is suspect
+            self.reset()
+            raise EngineStateLost("insert failed; engine state reset") from e
         self.stats.prefill_calls += 1
         for r, (i, rid, _, p, max_new_c, _, _) in enumerate(chunk):
-            self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, results, i)
+            self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, S, results, i)
 
-    def _start_row(self, row: int, rid: int, p: List[int], tok0: int, max_new_c: int,
+    def _start_row(self, row: int, rid: int, p: List[int], tok0: int, max_new_c: int, bucket: int,
                    results: Optional[List] = None, i: int = 0,
                    admit_seq: Optional[int] = None) -> Optional[List[int]]:
         """After a prompt's first token: the row decodes on, or the request
         ends here (EOS or a budget of one) and the row is released. Returns
         the finished tokens, or None."""
+        flight.emit("admit", rid, slot=row, prompt_len=len(p), bucket=bucket, tok0=tok0)
         finished = None
         if tok0 in self.config.eos_token_ids or max_new_c <= 1:
             finished = [] if tok0 in self.config.eos_token_ids else [tok0]
@@ -460,7 +501,7 @@ class ContinuousEngine:
         self._admit_seq += 1
         self.slots[row] = _Slot(request_id=rid, prefilling=True, admit_seq=self._admit_seq)
         self._chunk_admissions[rid] = {
-            "row": row, "prompt": p, "progress": 0, "max_new": max_new_c,
+            "row": row, "prompt": p, "progress": 0, "max_new": max_new_c, "bucket": S,
             "admit_seq": self._admit_seq,
         }
 
@@ -469,7 +510,9 @@ class ContinuousEngine:
         """One device window and one token fetch; returns the requests that
         finished as ``(request_id, tokens)`` (EOS excluded) and frees their
         rows. A mixed window while interleaved admissions are pending,
-        ``decode_sync_steps`` decode steps otherwise."""
+        ``decode_sync_steps`` decode steps otherwise. The ``decode_step``
+        fault site comes first."""
+        faults.maybe_fail("decode_step")
         if self.interleave_on and self._chunk_admissions:
             return self._step_mixed()
         self._ensure_decode_blocks()
@@ -619,7 +662,7 @@ class ContinuousEngine:
                 continue
             del self._chunk_admissions[rid]
             out = self._start_row(rec["row"], rid, rec["prompt"], int(tok_h[0, rec["row"]]),
-                                  rec["max_new"], admit_seq=rec["admit_seq"])
+                                  rec["max_new"], rec["bucket"], admit_seq=rec["admit_seq"])
             if out is not None:
                 done.append((rid, out))
         return done
@@ -631,12 +674,29 @@ class ContinuousScheduler:
     queued requests between windows.
 
     Pool pressure keeps a request queued until decode frees blocks; a
-    preempted request is resubmitted as prompt + emitted tokens. A failed
-    window fails every in-flight request with its error and resets the
-    engine: nothing retries on another device or another kernel."""
+    preempted request is resubmitted as prompt + emitted tokens. Resilience,
+    as in the JAX scheduler:
 
-    def __init__(self, engine: ContinuousEngine):
+    - **reset recovery**: a failed window, or a failed admission that reset
+      the engine (``EngineStateLost``), resubmits every in-flight request
+      after a jittered ``retry_backoff_s``, as its prompt plus the tokens it
+      had emitted, at most ``retries`` times per request; a request out of
+      retries (or past its deadline) gets the error;
+    - **breaker feed**: every reset is recorded on ``breaker`` (set by the
+      service), which turns readiness off after a storm of them;
+    - **deadlines**: a request whose ``Deadline`` expires while queued fails
+      with stage ``queue`` before any prefill; one that expires in flight is
+      evicted within one window (stage ``decode``); a caller whose own wait
+      runs out raises stage ``generate``.
+
+    Nothing retries on another device or another kernel."""
+
+    def __init__(self, engine: ContinuousEngine, retries: int = 1, retry_backoff_s: float = 0.05):
         self.engine = engine
+        self.retries = max(0, retries)
+        self.retry_backoff_s = max(0.0, retry_backoff_s)
+        # set by the service: engine resets feed the readiness breaker
+        self.breaker = None
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._stop = threading.Event()
         # submit's stop-check + enqueue is atomic against the final drain
@@ -651,18 +711,46 @@ class ContinuousScheduler:
         seed: Optional[int] = None,
         sampling: Optional[SamplingConfig] = None,
         timeout: Optional[float] = None,
+        deadline: Optional[Deadline] = None,
+        info: Optional[Dict] = None,
+        tenant: Optional[str] = None,
     ) -> List[int]:
         """Generate for one prompt (EOS excluded); ``sampling`` overrides
-        the engine's for this request only."""
+        the engine's for this request only. ``info`` receives the request's
+        id (the flight journal's key); ``tenant`` (edge-interned) is stamped
+        on its ``arrival`` and ``complete`` events."""
+        if self._stop.is_set():
+            raise RuntimeError("scheduler is shut down")
         max_new = self.engine.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
         if max_new <= 0:
             return []
-        item = _Pending(next(_REQUEST_IDS), list(prompt), max_new, seed, sampling)
+        rid = next(_REQUEST_IDS)
+        if info is not None:
+            info["request_id"] = rid
+        item = _Pending(rid, list(prompt), max_new, seed, sampling, deadline=deadline,
+                        retries_left=self.retries, tenant=tenant)
+        arr = {"prompt_len": len(item.prompt), "max_new": max_new}
+        if seed is not None:
+            arr["seed"] = seed
+        if deadline is not None:
+            arr["deadline_ms"] = deadline.budget_ms
+        if tenant is not None:
+            arr["tenant"] = tenant
+        if flight.arrival_ids():
+            arr["ids"] = list(item.prompt)
+        flight.emit("arrival", rid, **arr)
         with self._lifecycle_lock:
             if self._stop.is_set():
                 raise RuntimeError("scheduler is shut down")
             self._queue.put(item)
-        if not item.done.wait(timeout):
+        wait_t = timeout
+        if wait_t is None and deadline is not None:
+            # a small grace past the deadline: the worker evicts the row and
+            # delivers the stage-precise error within one window
+            wait_t = deadline.wait_timeout() + 0.25
+        if not item.done.wait(wait_t):
+            if deadline is not None and deadline.expired():
+                raise DeadlineExceeded("generate", deadline.budget_ms)
             raise TimeoutError("generation timed out")
         if item.error is not None:
             raise item.error
@@ -708,9 +796,15 @@ class ContinuousScheduler:
     def _run_loop(self, waiting: Dict[int, "_Pending"], held: List["_Pending"]) -> None:
         eng = self.engine
         while not self._stop.is_set():
+            # an expired in-flight request frees its row within one window
+            self._evict_expired(waiting)
             item = self._next_nowait() if eng.has_active() else self._queue.get()
             while item is not None and not self._stop.is_set():
                 held[:] = [item]
+                if self._expire_queued(item):
+                    # dead work never reaches the device
+                    item = self._next_nowait()
+                    continue
                 state = eng.admission_state(len(item.prompt))
                 if state == "never":
                     item.error = PoolExhausted(eng.blocks_needed(len(item.prompt)),
@@ -721,6 +815,7 @@ class ContinuousScheduler:
                 free = eng.free_slots()
                 if state == "wait" or not free:
                     self._safe_step(waiting)  # decode frees rows and blocks
+                    self._evict_expired(waiting)
                     continue
                 # group admission: whatever else is queued, up to the free rows
                 batch = [item]
@@ -728,12 +823,21 @@ class ContinuousScheduler:
                     nxt = self._next_nowait()
                     if nxt is None:
                         break
+                    if self._expire_queued(nxt):
+                        continue
                     batch.append(nxt)
                 held[:] = batch
                 try:
                     admitted = eng.admit_many(
                         [(b.request_id, b.prompt, b.max_new, b.seed, b.sampling) for b in batch]
                     )
+                except EngineStateLost as e:
+                    # the reset wiped every row: this batch and every
+                    # in-flight request restart from their prompts
+                    logger.warning("admission reset the engine; recovering %d request(s)",
+                                   len(waiting) + len(batch))
+                    self._handle_reset(e, waiting, extra=batch, emitted={})
+                    admitted = []
                 except Exception as e:  # noqa: BLE001 — the callers get the error
                     admitted = [e] * len(batch)
                 requeued = False
@@ -759,13 +863,39 @@ class ContinuousScheduler:
             if eng.has_active():
                 self._safe_step(waiting)
 
+    def _evict_expired(self, waiting: Dict[int, "_Pending"]) -> None:
+        """Evict in-flight requests whose deadline has passed: their rows
+        and blocks free now, and they get the stage-precise error."""
+        expired = [rid for rid, it in waiting.items() if it.deadline is not None and it.deadline.expired()]
+        if not expired:
+            return
+        self.engine.evict_requests(expired)
+        for rid in expired:
+            it = waiting.pop(rid)
+            it.error = DeadlineExceeded("decode", it.deadline.budget_ms)
+            it.done.set()
+
+    def _expire_queued(self, item: "_Pending") -> bool:
+        """Fail an item that expired while queued (stage ``queue``); True
+        when it had."""
+        if item.deadline is None or not item.deadline.expired():
+            return False
+        item.error = DeadlineExceeded("queue", item.deadline.budget_ms)
+        item.done.set()
+        return True
+
     def _deliver(self, item: "_Pending", tokens: List[int]) -> None:
+        """Complete one request: tokens emitted before a reset or a
+        preemption come first, so the client sees one stream."""
         item.result = item.emitted + tokens
+        extra = {"tenant": item.tenant} if item.tenant is not None else {}
+        flight.emit("complete", item.request_id, n_tokens=len(item.result),
+                    stream_fnv=flight.stream_hash(item.result), **extra)
         item.done.set()
 
     def _safe_step(self, waiting: Dict[int, "_Pending"]) -> None:
-        """One window; a failure fails every in-flight request with its
-        error and resets the engine so later requests can be served."""
+        """One window that cannot kill the dispatcher: a failure resets the
+        engine and resubmits the in-flight requests (``_handle_reset``)."""
         try:
             for rid, tokens in self.engine.step():
                 item = waiting.pop(rid, None)
@@ -773,24 +903,66 @@ class ContinuousScheduler:
                     self._deliver(item, tokens)
             self._resume_preempted(waiting)
         except Exception as e:  # noqa: BLE001 — the dispatcher must outlive a failed window
-            logger.exception("continuous window failed; failing %d in-flight request(s)", len(waiting))
-            for item in waiting.values():
-                item.error = e
-                item.done.set()
-            waiting.clear()
-            self.engine.reset()
+            logger.exception("continuous window failed; recovering %d in-flight request(s)", len(waiting))
+            # what each row had emitted, read before reset() wipes the slots
+            emitted = {s.request_id: list(s.tokens) for s in self.engine.slots if s.active}
+            try:
+                self.engine.reset()
+            except Exception:  # noqa: BLE001 — a failed reset must not kill the loop
+                logger.exception("engine reset failed after a window failure")
+            self._handle_reset(e, waiting, extra=[], emitted=emitted)
+
+    def _fold_emitted(self, it: "_Pending", toks: List[int]) -> None:
+        """Fold already-emitted tokens into a request about to resubmit,
+        when prompt + emitted still fits the largest bucket (past it the
+        admission would left-truncate the context; restarting is exact).
+        Shared by reset recovery and preemption resume."""
+        if policy.resume_fits(len(it.prompt), len(toks), max(self.engine.buckets)):
+            it.emitted.extend(toks)
+            it.prompt = it.prompt + toks
+            it.max_new = max(1, it.max_new - len(toks))
 
     def _resume_preempted(self, waiting: Dict[int, "_Pending"]) -> None:
-        """Requeue preempted requests as prompt + emitted tokens (when that
-        still fits the largest bucket; otherwise they restart exactly)."""
+        """Requeue preempted requests as prompt + emitted tokens. Preemption
+        is backpressure, not a fault: it burns no retry."""
         for rid, toks in self.engine.drain_preempted():
             it = waiting.pop(rid, None)
             if it is None:
                 continue
-            if policy.resume_fits(len(it.prompt), len(toks), max(self.engine.buckets)):
-                it.emitted.extend(toks)
-                it.prompt = it.prompt + toks
-                it.max_new = max(1, it.max_new - len(toks))
+            self._fold_emitted(it, toks)
+            flight.emit("resubmit", rid, outcome="preempt_resume", n_emitted=len(toks))
+            self._queue.put(it)
+
+    def _handle_reset(self, cause: BaseException, waiting: Dict[int, "_Pending"],
+                      extra: List["_Pending"], emitted: Dict[int, List[int]]) -> None:
+        """After an engine reset: resubmit what can still be served, as its
+        prompt plus the tokens in ``emitted`` (request id -> tokens produced
+        before the reset), and fail the rest with ``cause``."""
+        if self.breaker is not None:
+            self.breaker.record_reset()
+        items = list(waiting.values()) + list(extra)
+        waiting.clear()
+        retry = []
+        for it in items:
+            expired = it.deadline is not None and it.deadline.expired()
+            if it.retries_left > 0 and not expired and not self._stop.is_set():
+                retry.append(it)
+            else:
+                flight.emit("resubmit", it.request_id, outcome="gave_up")
+                it.error = cause
+                it.done.set()
+        if not retry:
+            return
+        logger.warning("engine reset (%s); resubmitting %d in-flight request(s)", cause, len(retry))
+        if self.retry_backoff_s > 0:
+            # jittered: a device that just faulted gets a beat before the
+            # resubmitted prefills land on it again
+            time.sleep(random.uniform(0.5, 1.0) * self.retry_backoff_s)
+        for it in retry:
+            toks = emitted.get(it.request_id, [])
+            self._fold_emitted(it, toks)
+            it.retries_left -= 1
+            flight.emit("resubmit", it.request_id, outcome="resubmitted", n_emitted=len(toks))
             self._queue.put(it)
 
 
@@ -804,4 +976,8 @@ class _Pending:
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[List[int]] = None
     error: Optional[BaseException] = None
-    emitted: List[int] = field(default_factory=list)  # tokens before a preemption
+    # tokens emitted before a reset or a preemption
+    emitted: List[int] = field(default_factory=list)
+    deadline: Optional[Deadline] = None
+    retries_left: int = 0  # reset-recovery resubmissions remaining
+    tenant: Optional[str] = None  # edge-interned (complete stamp)

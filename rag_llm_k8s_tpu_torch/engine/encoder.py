@@ -12,6 +12,7 @@ import torch
 from rag_llm_k8s_tpu_torch.core.config import EncoderConfig
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.models.bge_m3 import BgeM3Encoder
+from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.utils.buckets import bucket_len, next_pow2
 from rag_llm_k8s_tpu_torch.utils.tokens import truncate_keep_eos
 
@@ -56,9 +57,11 @@ class EncoderRunner:
         )
 
     def encode(self, token_lists: Sequence[Sequence[int]]) -> np.ndarray:
-        """Token-id sequences → ``[N, hidden]`` fp32 unit vectors."""
+        """Token-id sequences → ``[N, hidden]`` fp32 unit vectors (the
+        ``embed`` fault site comes first)."""
         if not token_lists:
             return np.zeros((0, self.config.hidden_size), np.float32)
+        faults.maybe_fail("embed")
         order = sorted(range(len(token_lists)), key=lambda i: len(token_lists[i]))
         pad = self.config.pad_token_id
         groups, embs = [], []

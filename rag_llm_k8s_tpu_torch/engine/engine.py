@@ -48,6 +48,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     SamplingConfig,
 )
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.engine.sampling import (
     NEG_INF,
     categorical,
@@ -386,9 +387,12 @@ class InferenceEngine:
     ) -> List[List[int]]:
         """Continuations for a batch of token-id prompts, one list per
         prompt, cut at (and excluding) EOS. Batches beyond
-        ``max_batch_size`` run as sequential sub-batches."""
+        ``max_batch_size`` run as sequential sub-batches. The ``generate``
+        fault site comes first; nothing inside the decode loop checks a
+        deadline (the JAX generate is one device call)."""
         if not prompts:
             return []
+        faults.maybe_fail("generate")
         max_new = self.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
         if max_new <= 0:
             return [[] for _ in prompts]

@@ -39,6 +39,7 @@ import torch
 
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.ops.knn import BIG, knn_topk
+from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.utils.buckets import next_pow2
 
 logger = logging.getLogger(__name__)
@@ -293,7 +294,9 @@ class VectorStore:
         return self.results_at(idx[0].cpu().numpy(), dists[0].cpu().numpy())
 
     def results_at(self, idx, dists) -> List[SearchResult]:
-        """SearchResults for externally computed (ids, distances)."""
+        """SearchResults for externally computed (ids, distances) (the
+        ``store_lookup`` fault site comes first)."""
+        faults.maybe_fail("store_lookup")
         with self._lock:
             return [
                 SearchResult(metadata=self._metadata[int(i)], distance=float(d), row=int(i))

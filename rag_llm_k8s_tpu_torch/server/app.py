@@ -1,7 +1,9 @@
 """HTTP serving app: a lean counterpart of ``rag_llm_k8s_tpu/server/app.py``.
 
 Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
-/generate`` (alias ``POST /query``), ``GET /index_info``, ``GET /healthz``.
+/generate`` (alias ``POST /query``), ``GET /index_info``, ``GET /healthz``
+(``?live=1``: the liveness form), ``POST /drain`` and ``GET|POST
+/debug/faults``.
 The WSGI plumbing is the standard library's, so the port needs no web
 framework: ``WsgiApp.test_client()`` drives it in-process, and
 ``make_server`` serves it over HTTP on a threading ``wsgiref`` server (one
@@ -32,6 +34,19 @@ weights) every query takes the host path and its prompt joins the running
 batch; a prompt longer than the scheduler's largest bucket goes to the
 one-shot engine's chunked prefill. Without a scheduler every query takes
 the host path through the one-shot engine.
+
+The resilience layer fronts every ``/generate`` as in the JAX service
+(``resilience/``, ``ResilienceConfig``): the request's deadline comes from
+the body's ``deadline_ms``, the ``x-request-deadline-ms`` header or the
+default (a malformed value is a 400); its tenant from ``tenant_id``,
+``x-tenant-id`` or ``"anon"``, interned through a ``TenantTracker``; then
+the admission gate (429 ``queue_full`` / ``fair_share`` / ``pool_exhausted``
+or 503 ``breaker_open`` / ``draining``, each with ``Retry-After``), and
+deadline checks after retrieval and assembly (504 with the stage). The
+circuit breaker over the continuous engine's resets turns readiness off;
+``POST /drain`` (and SIGTERM, ``server/main.py``) starts the lifecycle's
+drain. ``/debug/faults`` arms fault sites only when ``TPU_RAG_FAULTS`` is
+set.
 """
 
 from __future__ import annotations
@@ -40,31 +55,41 @@ import dataclasses
 import io
 import json
 import logging
+import math
 import os
 import socketserver
 import threading
 import time
 from typing import Dict, List, Optional
+from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server as _wsgiref_make_server
 
 import numpy as np
 import torch
 
-from rag_llm_k8s_tpu_torch.core.config import AppConfig, EngineConfig, SamplingConfig
+from rag_llm_k8s_tpu_torch.core.config import AppConfig, EngineConfig, ResilienceConfig, SamplingConfig
 from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler, Coalescer
 from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
 from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
 from rag_llm_k8s_tpu_torch.index.store import SearchResult, VectorStore
+from rag_llm_k8s_tpu_torch.obs.metrics import TenantTracker
 from rag_llm_k8s_tpu_torch.ops.knn import knn_topk
 from rag_llm_k8s_tpu_torch.rag.chunking import split_text
 from rag_llm_k8s_tpu_torch.rag.pdf import extract_text
 from rag_llm_k8s_tpu_torch.rag.prompt import assemble_context, assemble_prompt, extract_answer
+from rag_llm_k8s_tpu_torch.resilience import faults
+from rag_llm_k8s_tpu_torch.resilience.admission import AdmissionController, AdmissionRejected
+from rag_llm_k8s_tpu_torch.resilience.breaker import CircuitBreaker
+from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from rag_llm_k8s_tpu_torch.resilience.lifecycle import LifecycleCoordinator
 from rag_llm_k8s_tpu_torch.utils.tokens import truncate_keep_eos
 
 logger = logging.getLogger(__name__)
 
 NO_RESULTS = "No relevant information found in the index."
+# the tenant of a request that names none (the JAX obs/tenants.py default)
+DEFAULT_TENANT = "anon"
 
 
 def make_segment_source(llm_tokenizer, max_bucket: int):
@@ -85,20 +110,23 @@ def make_segment_source(llm_tokenizer, max_bucket: int):
 
 
 def build_scheduler(
-    engine: InferenceEngine, engine_config: Optional[EngineConfig] = None
+    engine: InferenceEngine, engine_config: Optional[EngineConfig] = None,
+    resilience: Optional[ResilienceConfig] = None,
 ) -> Optional[ContinuousScheduler]:
     """The continuous scheduler ``engine_config`` (default: the engine's own)
     asks for: a ``ContinuousScheduler`` over a ``ContinuousEngine`` that
     SHARES the one-shot engine's model (one copy of the weights) when
     ``batching == "continuous"``, else None (``server/main.py`` builds the
-    ``BatchScheduler`` of ``batching="coalesce"``)."""
+    ``BatchScheduler`` of ``batching="coalesce"``). ``resilience`` (default
+    ``ResilienceConfig()``) sets its reset-recovery retries and backoff."""
     ec = engine_config or engine.engine_config
     if ec.batching != "continuous":
         return None
+    res = resilience or ResilienceConfig()
     cont = ContinuousEngine(
         engine.config, engine.model, engine.sampling, ec, engine.dtypes, engine.device, engine.pad_id
     )
-    return ContinuousScheduler(cont)
+    return ContinuousScheduler(cont, retries=res.inflight_retries, retry_backoff_s=res.retry_backoff_ms / 1e3)
 
 
 def engine_mode(scheduler) -> str:
@@ -134,6 +162,24 @@ class RagService:
         self.encoder_tokenizer = encoder_tokenizer
         self.store = store
         self.ready = False
+        # the resilience layer: the readiness breaker over engine resets,
+        # the admission gate in front of both engine modes, the drain
+        # coordinator (server/main.py gives it an exit_fn), the tenant interner
+        res = config.resilience
+        self.breaker = CircuitBreaker(threshold=res.breaker_reset_threshold, window_s=res.breaker_window_s)
+        self.admission = AdmissionController(
+            max_concurrency=res.admission_max_concurrency, max_queue=res.admission_max_queue,
+            retry_after_s=res.admission_retry_after_s, breaker=self.breaker,
+        )
+        if isinstance(scheduler, ContinuousScheduler):
+            scheduler.breaker = self.breaker  # resets feed readiness
+            # a dry pool sheds would-be-queued requests with 429 pool_exhausted
+            pool = scheduler.engine.kv_pool
+            self.admission.saturation_hint = lambda: pool.available() == 0
+        self.lifecycle = LifecycleCoordinator(
+            admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
+        )
+        self.tenant_tracker = TenantTracker(top_k=8)
         if encoder.eos_id is None:
             encoder.eos_id = getattr(encoder_tokenizer, "eos_id", None)
         self._a_ids_cache: Optional[List[int]] = None
@@ -400,9 +446,21 @@ class RagService:
             self._inflight_retrieve -= int(retrieve)
             self._inflight_generate -= int(generate)
 
-    def answer(self, user_prompt: str, sampling: Optional[SamplingConfig] = None) -> Dict:
+    @staticmethod
+    def _deadline_check(deadline: Optional[Deadline], stage: str) -> None:
+        """One stage-boundary deadline check."""
+        if deadline is not None and deadline.expired():
+            raise DeadlineExceeded(stage, deadline.budget_ms)
+
+    def answer(
+        self, user_prompt: str, sampling: Optional[SamplingConfig] = None,
+        deadline: Optional[Deadline] = None, tenant: Optional[str] = None,
+    ) -> Dict:
         """Retrieve, assemble, generate. ``sampling`` overrides the engine's
-        settings for this request; only the continuous scheduler takes it."""
+        settings for this request; only the continuous scheduler takes it.
+        ``deadline`` is checked after retrieval and after assembly and
+        bounds the waits (``DeadlineExceeded`` names the stage); ``tenant``
+        rides to the scheduler."""
         if sampling is not None and not isinstance(self.scheduler, ContinuousScheduler):
             raise ValueError("per-request sampling needs batching='continuous'")
         timings: Dict[str, float] = {}
@@ -412,9 +470,15 @@ class RagService:
             self._inflight_generate += 1
         in_retrieve = in_generate = True
         try:
-            r = self.retrieve_coalescer.submit(user_prompt)
+            try:
+                r = self.retrieve_coalescer.submit(
+                    user_prompt, timeout=deadline.wait_timeout() if deadline is not None else None
+                )
+            except TimeoutError:
+                raise DeadlineExceeded("retrieve", deadline.budget_ms if deadline else None) from None
             self._release(retrieve=True)
             in_retrieve = False
+            self._deadline_check(deadline, "retrieve")
             if r[0] == "__device__":
                 timings["tokenize_ms"] = r[3]
                 timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - r[3]
@@ -440,12 +504,18 @@ class RagService:
                 return {"generated_text": NO_RESULTS}
             pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
             context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
+            self._deadline_check(deadline, "assemble")
             t0 = time.monotonic()
+            gen_info: Dict[str, int] = {}
             if self.scheduler is not None and len(prompt_ids) <= self._scheduler_prompt_cap():
-                if isinstance(self.scheduler, ContinuousScheduler):
-                    out_ids = self.scheduler.submit(prompt_ids, sampling=sampling)
-                else:
-                    out_ids = self.scheduler.submit(prompt_ids)
+                extra = {"sampling": sampling} if isinstance(self.scheduler, ContinuousScheduler) else {}
+                try:
+                    out_ids = self.scheduler.submit(prompt_ids, deadline=deadline, info=gen_info, tenant=tenant,
+                                                    **extra)
+                except TimeoutError as e:
+                    if isinstance(e, DeadlineExceeded) or deadline is None or not deadline.expired():
+                        raise
+                    raise DeadlineExceeded("generate", deadline.budget_ms) from None
             else:
                 # no scheduler, or past the continuous scheduler's largest
                 # bucket: the one-shot engine (chunked prefill) serves it whole
@@ -461,11 +531,15 @@ class RagService:
         finally:
             # error paths and the no-results return release their claims too
             self._release(retrieve=in_retrieve, generate=in_generate)
-        return {
+        resp = {
             "generated_text": extract_answer(completion),
             "context": context,
             "timings": {k: round(v, 2) for k, v in timings.items()},
         }
+        if "request_id" in gen_info:
+            # continuous serving: the id keying this request's flight events
+            resp["request_id"] = int(gen_info["request_id"])
+        return resp
 
     def _answer_fused(self, user_prompt: str, fused_r, timings, t_all):
         """Device-side prompt assembly + generate from the unfetched
@@ -507,8 +581,9 @@ class RagService:
 # WSGI
 # ---------------------------------------------------------------------------
 
-_REASONS = {200: "OK", 400: "BAD REQUEST", 404: "NOT FOUND", 405: "METHOD NOT ALLOWED",
-            500: "INTERNAL SERVER ERROR", 503: "SERVICE UNAVAILABLE"}
+_REASONS = {200: "OK", 202: "ACCEPTED", 400: "BAD REQUEST", 403: "FORBIDDEN", 404: "NOT FOUND",
+            405: "METHOD NOT ALLOWED", 429: "TOO MANY REQUESTS", 500: "INTERNAL SERVER ERROR",
+            503: "SERVICE UNAVAILABLE", 504: "GATEWAY TIMEOUT"}
 
 
 def _parse_multipart(body: bytes, content_type: str) -> Dict[str, tuple]:
@@ -541,10 +616,44 @@ def _parse_multipart(body: bytes, content_type: str) -> Dict[str, tuple]:
     return fields
 
 
+@dataclasses.dataclass
+class Request:
+    """What a route handler sees of one request: the body, its content
+    type, the headers (lower-case names) and the query arguments."""
+
+    method: str
+    body: bytes = b""
+    content_type: str = ""
+    headers: Dict[str, str] = dataclasses.field(default_factory=dict)
+    args: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def json(self) -> dict:
+        """The body as a JSON object, or ``{}`` (Flask's ``get_json(force=True,
+        silent=True) or {}``, kept to objects)."""
+        try:
+            data = json.loads(self.body or b"{}")
+        except ValueError:
+            return {}
+        return data if isinstance(data, dict) else {}
+
+    @classmethod
+    def from_environ(cls, environ) -> "Request":
+        length = int(environ.get("CONTENT_LENGTH") or 0)
+        headers = {k[5:].replace("_", "-").lower(): v for k, v in environ.items() if k.startswith("HTTP_")}
+        args = {k: v[0] for k, v in parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True).items()}
+        return cls(
+            method=environ.get("REQUEST_METHOD", "GET"),
+            body=environ["wsgi.input"].read(length) if length else b"",
+            content_type=environ.get("CONTENT_TYPE", ""),
+            headers=headers, args=args,
+        )
+
+
 class Response:
-    def __init__(self, status: int, body: bytes):
+    def __init__(self, status: int, body: bytes, headers: Optional[Dict[str, str]] = None):
         self.status_code = status
         self.data = body
+        self.headers = dict(headers or {})
 
     def get_json(self):
         return json.loads(self.data)
@@ -558,25 +667,32 @@ class TestClient:
     def __init__(self, app):
         self.app = app
 
-    def open(self, method: str, path: str, body: bytes = b"", content_type: str = "") -> Response:
+    def open(self, method: str, path: str, body: bytes = b"", content_type: str = "",
+             headers: Optional[Dict[str, str]] = None) -> Response:
+        """``path`` may carry a query string; ``headers`` are request headers."""
+        path, _, query = path.partition("?")
         environ = {
-            "REQUEST_METHOD": method, "PATH_INFO": path, "QUERY_STRING": "",
+            "REQUEST_METHOD": method, "PATH_INFO": path, "QUERY_STRING": query,
             "CONTENT_TYPE": content_type, "CONTENT_LENGTH": str(len(body)),
             "wsgi.input": io.BytesIO(body), "SERVER_NAME": "localhost",
             "SERVER_PORT": "80", "wsgi.url_scheme": "http",
         }
-        status = []
-        chunks = self.app(environ, lambda s, headers: status.append(s))
-        return Response(int(status[0].split()[0]), b"".join(chunks))
+        for name, value in (headers or {}).items():
+            environ["HTTP_" + name.upper().replace("-", "_")] = value
+        got = []
+        chunks = self.app(environ, lambda s, hdrs: got.append((s, hdrs)))
+        status, hdrs = got[0]
+        return Response(int(status.split()[0]), b"".join(chunks), dict(hdrs))
 
-    def get(self, path: str) -> Response:
-        return self.open("GET", path)
+    def get(self, path: str, headers: Optional[Dict[str, str]] = None) -> Response:
+        return self.open("GET", path, headers=headers)
 
-    def post(self, path: str, json_body=None, files: Optional[Dict[str, tuple]] = None) -> Response:
+    def post(self, path: str, json_body=None, files: Optional[Dict[str, tuple]] = None,
+             headers: Optional[Dict[str, str]] = None) -> Response:
         """``json_body`` as a JSON request, or ``files={"file": (name, bytes)}``
         as ``multipart/form-data``."""
         if files is None:
-            return self.open("POST", path, json.dumps(json_body or {}).encode(), "application/json")
+            return self.open("POST", path, json.dumps(json_body or {}).encode(), "application/json", headers)
         boundary = "----port-test-boundary"
         parts = []
         for field, (fname, data) in files.items():
@@ -586,16 +702,21 @@ class TestClient:
                 + data + b"\r\n"
             )
         body = b"".join(parts) + f"--{boundary}--\r\n".encode()
-        return self.open("POST", path, body, f"multipart/form-data; boundary={boundary}")
+        return self.open("POST", path, body, f"multipart/form-data; boundary={boundary}", headers)
 
 
 class WsgiApp:
+    """The routes over WSGI. A handler takes a :class:`Request` and returns
+    ``(status, payload)`` or ``(status, payload, extra_headers)``."""
+
     ROUTES = {
-        "/upload_pdf": ("POST", "upload_pdf"),
-        "/generate": ("POST", "generate"),
-        "/query": ("POST", "generate"),
-        "/index_info": ("GET", "index_info"),
-        "/healthz": ("GET", "healthz"),
+        "/upload_pdf": (("POST",), "upload_pdf"),
+        "/generate": (("POST",), "generate"),
+        "/query": (("POST",), "generate"),
+        "/index_info": (("GET",), "index_info"),
+        "/healthz": (("GET",), "healthz"),
+        "/drain": (("POST",), "drain"),
+        "/debug/faults": (("GET", "POST"), "debug_faults"),
     }
 
     def __init__(self, service: RagService):
@@ -604,23 +725,26 @@ class WsgiApp:
     def __call__(self, environ, start_response):
         path, method = environ.get("PATH_INFO", "/"), environ.get("REQUEST_METHOD", "GET")
         route = self.ROUTES.get(path)
+        extra: Dict[str, str] = {}
         if route is None:
             status, payload = 404, {"error": "not found"}
-        elif route[0] != method:
+        elif method not in route[0]:
             status, payload = 405, {"error": "method not allowed"}
         else:
-            length = int(environ.get("CONTENT_LENGTH") or 0)
-            body = environ["wsgi.input"].read(length) if length else b""
-            status, payload = getattr(self, f"ep_{route[1]}")(body, environ.get("CONTENT_TYPE", ""))
+            out = getattr(self, f"ep_{route[1]}")(Request.from_environ(environ))
+            status, payload = out[:2]
+            if len(out) > 2:
+                extra = out[2]
         data = json.dumps(payload).encode()
         start_response(
             f"{status} {_REASONS.get(status, '')}",
-            [("Content-Type", "application/json"), ("Content-Length", str(len(data)))],
+            [("Content-Type", "application/json"), ("Content-Length", str(len(data))), *extra.items()],
         )
         return [data]
 
-    def ep_upload_pdf(self, body: bytes, content_type: str):
-        files = _parse_multipart(body, content_type) if content_type.startswith("multipart/") else {}
+    def ep_upload_pdf(self, request: Request):
+        ct = request.content_type
+        files = _parse_multipart(request.body, ct) if ct.startswith("multipart/") else {}
         if "file" not in files:
             return 400, {"error": "No file part"}
         filename, data = files["file"]
@@ -635,47 +759,107 @@ class WsgiApp:
             return 500, {"error": str(e)}
         return 200, {"message": f"PDF processed and indexed successfully. {n} chunks created."}
 
-    def ep_generate(self, body: bytes, content_type: str):
+    def _request_deadline(self, data: dict, headers: Dict[str, str]):
+        """The request's deadline: the body's ``deadline_ms``, then the
+        ``x-request-deadline-ms`` header, then the config's default.
+        ``(Deadline, None)``, or ``(None, message)`` for a malformed value."""
+        raw = data.get("deadline_ms")
+        if raw is None:
+            raw = headers.get("x-request-deadline-ms")
+        if raw is None:
+            ms = float(self.service.config.resilience.deadline_ms)
+        else:
+            try:
+                ms = float(raw)
+            except (TypeError, ValueError):
+                return None, f"deadline_ms={raw!r} is not a number"
+            # inf overflows every wait downstream, and nan never compares
+            if not math.isfinite(ms) or ms <= 0:
+                return None, f"deadline_ms={ms:g}: expected a finite value > 0"
+        return Deadline(ms), None
+
+    def ep_generate(self, request: Request):
+        """The JAX ``ep_generate``: deadline, tenant, the admission gate,
+        then ``answer``. A ``sampling`` field is not read (per-request
+        sampling is the Python API, ``RagService.answer(sampling=)``)."""
+        svc = self.service
         try:
-            data = json.loads(body or b"{}")
-        except ValueError:
-            data = {}
-        if not isinstance(data, dict):
-            data = {}
-        prompt = data.get("prompt", "")
-        sampling = None
-        if "sampling" in data:
-            # optional per-request override, e.g. {"do_sample": false}
-            raw = data["sampling"]
-            types = {"do_sample": (bool,), "temperature": (int, float), "top_p": (int, float)}
-            if not isinstance(raw, dict) or not all(
-                k in types and isinstance(v, types[k]) and (k == "do_sample" or not isinstance(v, bool))
-                for k, v in raw.items()
-            ):
-                return 400, {"error": "sampling must be an object of do_sample (bool), "
-                                      "temperature and top_p (numbers)"}
-            if not isinstance(self.service.scheduler, ContinuousScheduler):
-                return 400, {"error": "per-request sampling needs batching='continuous'"}
-            sampling = dataclasses.replace(self.service.config.sampling, **raw)
-        try:
-            return 200, self.service.answer(prompt, sampling)
+            data = request.json()
+            prompt = data.get("prompt", "")
+            raw_tenant = data.get("tenant_id") or request.headers.get("x-tenant-id") or DEFAULT_TENANT
+            tenant = svc.tenant_tracker.intern(str(raw_tenant))
+            deadline, dl_err = self._request_deadline(data, request.headers)
+            if dl_err is not None:
+                return 400, {"error": dl_err}
+            with svc.admission.admit(deadline=deadline, tenant=tenant):
+                return 200, svc.answer(prompt, deadline=deadline, tenant=tenant)
+        except AdmissionRejected as e:
+            # 429: retry this pod later; 503: the breaker or a drain, go elsewhere
+            return e.status, {
+                "error": "server overloaded" if e.status == 429 else "server draining",
+                "reason": e.reason,
+                "retry_after_s": round(e.retry_after_s, 3),
+            }, {"Retry-After": str(max(1, int(e.retry_after_s + 0.5)))}
+        except DeadlineExceeded as e:
+            return 504, {"error": str(e), "stage": e.stage}
         except Exception as e:  # noqa: BLE001 — any failure → JSON error
             logger.exception("generate failed")
             return 500, {"error": str(e)}
 
-    def ep_index_info(self, body: bytes, content_type: str):
+    def ep_index_info(self, request: Request):
         return 200, self.service.store.info()
 
-    def ep_healthz(self, body: bytes, content_type: str):
+    def ep_healthz(self, request: Request):
+        """Readiness (503 while warming, while the breaker is open, or while
+        draining), or with ``?live=1`` liveness: 200 whenever the process
+        answers, so the pod is not restarted mid-drain or mid-reset."""
         svc = self.service
         dev = svc.engine.device
+        breaker_open = svc.breaker.open
+        lifecycle_draining = svc.lifecycle.draining
+        draining = (breaker_open and svc.ready) or lifecycle_draining
+        ready = svc.ready and not breaker_open and not lifecycle_draining
+        live = bool(request.args.get("live"))
         payload = {
-            "status": "ok" if svc.ready else "warming",
+            "status": ("alive" if live else "ok") if (ready or live) else ("draining" if draining else "warming"),
             "engine_mode": engine_mode(svc.scheduler),
             "device_platform": dev.type,
             "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+            "ready": ready,
+            "breaker_open": breaker_open,
+            "breaker_recent_resets": svc.breaker.recent_resets(),
+            "draining": lifecycle_draining,
         }
-        return (200 if svc.ready else 503), payload
+        return (200 if (ready or live) else 503), payload
+
+    def ep_drain(self, request: Request):
+        """Begin the graceful drain (the deployment's preStop hook): 202 when
+        this call started it, 200 when one was already running."""
+        lc = self.service.lifecycle
+        started = lc.begin_drain("http")
+        return (202 if started else 200), {
+            "state": lc.state, "started": started, "active": self.service.admission.active,
+            "deadline_s": lc.deadline_s,
+        }
+
+    def ep_debug_faults(self, request: Request):
+        """Fault arming, only when the process started with ``TPU_RAG_FAULTS``
+        set: GET the armed state, POST ``{"site": s, "times": n}`` to arm one
+        site, POST ``{"clear": true}`` to disarm everything."""
+        if not faults.endpoint_enabled():
+            return 403, {"error": "fault injection disabled (set TPU_RAG_FAULTS)"}
+        try:
+            if request.method == "POST":
+                data = request.json()
+                if data.get("clear"):
+                    faults.clear()
+                elif "site" in data:
+                    faults.arm(str(data["site"]), int(data.get("times", 1)))
+                else:
+                    return 400, {"error": "expected {'site': ..., 'times': N} or {'clear': true}"}
+            return 200, {"enabled": True, "armed": faults.armed(), "sites": list(faults.SITES)}
+        except (TypeError, ValueError) as e:  # unknown site, bad count
+            return 400, {"error": str(e)}
 
     def test_client(self) -> TestClient:
         return TestClient(self)
@@ -687,9 +871,28 @@ def create_app(service: RagService) -> WsgiApp:
 
 class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
     """``wsgiref``'s server with one thread per request (it serves one at a
-    time otherwise, and then nothing ever coalesces)."""
+    time otherwise, and then nothing ever coalesces). It counts the requests
+    whose response is not yet written, so a drain can wait for them."""
 
     daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._busy_lock = threading.Lock()
+        self._busy = 0
+
+    def process_request_thread(self, request, client_address):
+        with self._busy_lock:
+            self._busy += 1
+        try:
+            super().process_request_thread(request, client_address)
+        finally:
+            with self._busy_lock:
+                self._busy -= 1
+
+    def requests_in_flight(self) -> int:
+        with self._busy_lock:
+            return self._busy
 
 
 class _QuietHandler(WSGIRequestHandler):

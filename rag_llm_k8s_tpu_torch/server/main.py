@@ -18,17 +18,20 @@ Boot sequence (``build_service``, the JAX one's steps on one card):
    continuous scheduler under ``"continuous"``.
 
 ``main()`` then ingests the PDF directory, warms up in a background thread
-(``/healthz`` answers 503 until it is done) and serves on a threading WSGI
-server (``server.app.make_server``), one thread per request, so concurrent
-requests coalesce.
+(``/healthz`` answers 503 until it is done), arms the fault sites listed in
+``TPU_RAG_FAULTS`` (after the ingest, so the budget tests the serving path)
+and serves on a threading WSGI server (``server.app.make_server``), one
+thread per request, so concurrent requests coalesce. SIGTERM starts the
+graceful drain (``resilience/lifecycle.py``): new and queued requests get
+503 ``draining``, the ones in flight finish within ``drain_deadline_s``,
+then the process exits with 0.
 
 Run: ``python -m rag_llm_k8s_tpu_torch.server.main`` (environment keys:
 ``core.config.AppConfig.from_env``).
 
-Not ported yet (``ROADMAP.md`` Queue 1): the SIGTERM drain, the WAL restore
-and fault arming of the JAX entry point (items 8-9), its JSON logs and
-observability endpoints (item 9), and the device mesh (item 10: the port
-serves one card).
+Not ported yet (``ROADMAP.md`` Queue 1): the WAL restore of the JAX entry
+point (item 8), its JSON logs and observability endpoints (item 9b), and
+the device mesh (item 10: the port serves one card).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import hashlib
 import logging
 import os
 import threading
+import time
 from typing import Optional
 
 logger = logging.getLogger(__name__)
@@ -114,7 +118,7 @@ def build_service(config=None, device=None, info: Optional[dict] = None):
                 "batching='coalesce' (the default) serves the one-shot "
                 "speculative path"
             )
-        scheduler = build_scheduler(engine, config.engine)
+        scheduler = build_scheduler(engine, config.engine, config.resilience)
     else:
         # 30 ms: long enough to catch a cold burst fanning out of one
         # coalesced retrieval, short next to a full-context generate
@@ -124,7 +128,20 @@ def build_service(config=None, device=None, info: Optional[dict] = None):
     return RagService(config, engine, llm_tokenizer, encoder, enc_tokenizer, store, scheduler=scheduler)
 
 
+def arm_faults(env: Optional[dict] = None) -> dict:
+    """Arm the fault sites ``TPU_RAG_FAULTS`` lists (``site[:count],...``;
+    ``1`` only enables ``/debug/faults``); returns what is armed."""
+    from rag_llm_k8s_tpu_torch.resilience import faults
+
+    armed = faults.arm_from_env(env)
+    if armed:
+        logger.warning("fault injection armed from TPU_RAG_FAULTS: %s", armed)
+    return armed
+
+
 def main() -> None:
+    import signal
+
     from rag_llm_k8s_tpu_torch.server.app import make_server
 
     logging.basicConfig(level=os.environ.get("TPU_RAG_LOG_LEVEL", "INFO"))
@@ -141,9 +158,34 @@ def main() -> None:
             logger.exception("warmup failed; the service stays unready")
 
     threading.Thread(target=_warm, daemon=True, name="warmup").start()
+    arm_faults()
     cfg = service.config.server
     server = make_server(service, cfg.host, cfg.port)
+
+    def _exit_after_drain(grace_s: float = 2.0):
+        # the admission slot frees before the handler writes its response:
+        # give the last responses a moment to reach their sockets, then exit
+        # (os._exit: serve_forever is blocked in the main thread, and there
+        # is nothing left to flush)
+        t_end = time.monotonic() + grace_s
+        while server.requests_in_flight() and time.monotonic() < t_end:
+            time.sleep(0.01)
+        logger.info("drained: exiting")
+        os._exit(0)
+
+    # SIGTERM (every roll, reschedule and node drain) begins the graceful
+    # drain; the coordinator's watcher calls exit_fn once the requests in
+    # flight have finished or the drain deadline has passed
+    service.lifecycle.exit_fn = _exit_after_drain
+    signal.signal(signal.SIGTERM, lambda *_: service.lifecycle.begin_drain("sigterm"))
     logger.info("serving on %s:%d", cfg.host, server.server_port)
+    res = service.config.resilience
+    logger.info(
+        "resilience: admission %d concurrent + %d queued (429 beyond), default deadline %d ms, "
+        "breaker %d resets / %.0f s, %d in-flight retries, drain deadline %.1f s",
+        res.admission_max_concurrency, res.admission_max_queue, res.deadline_ms,
+        res.breaker_reset_threshold, res.breaker_window_s, res.inflight_retries, res.drain_deadline_s,
+    )
     try:
         server.serve_forever()
     finally:

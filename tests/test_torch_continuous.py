@@ -331,9 +331,12 @@ def test_scheduler_request_sampling_overrides_the_engine(weights):
 
 
 def test_a_failed_window_fails_its_requests_and_the_scheduler_serves_on(weights, monkeypatch):
+    """With no retries (``inflight_retries=0``, the JAX scheduler's
+    fail-on-first-fault setting) a failed window fails its requests; the
+    default of one retry is held in ``tests/test_torch_resilience.py``."""
     _, model = weights
     eng = port_engine(model, PAGED)
-    sched = ContinuousScheduler(eng)
+    sched = ContinuousScheduler(eng, retries=0)
     real = eng.step
     calls = []
 
@@ -451,13 +454,23 @@ def test_concurrent_generate_answers_what_each_question_answers_alone(services):
 
 
 def test_per_request_sampling_is_validated(services):
-    c1, c2, _ = services
-    ok = c2.post("/generate", json_body={"prompt": QUESTIONS[0], "sampling": {"do_sample": False}})
-    assert ok.status_code == 200
-    for bad in ({"do_sample": "no"}, {"temperature": True}, {"seed": 3}, [1]):
-        assert c2.post("/generate", json_body={"prompt": "x", "sampling": bad}).status_code == 400
-    # the one-shot service samples with the engine's settings only
-    assert c1.post("/generate", json_body={"prompt": "x", "sampling": {"do_sample": False}}).status_code == 400
+    """``/generate`` does not read a ``sampling`` field, as the JAX handler
+    does not: every body below gets the JAX service's 200 under both
+    batching modes (``tests/test_torch_resilience.py`` holds the codes
+    against the JAX test client). Per-request sampling is the Python API,
+    and only the continuous scheduler takes it."""
+    c1, c2, cont = services
+    bodies = [{"do_sample": False}, {"do_sample": "no"}, {"temperature": True}, {"seed": 3}, [1]]
+    for client in (c2, c1):
+        for sampling in bodies:
+            r = client.post("/generate", json_body={"prompt": QUESTIONS[0], "sampling": sampling})
+            assert r.status_code == 200, (sampling, r.get_json())
+    greedy = cont.answer(QUESTIONS[0], sampling=SamplingConfig(do_sample=False, max_new_tokens=10))
+    assert greedy["generated_text"] == c2.post("/generate", json_body={"prompt": QUESTIONS[0]}).get_json()[
+        "generated_text"]  # the service's own sampling is greedy
+    one_shot = c1.app.service
+    with pytest.raises(ValueError, match="per-request sampling needs batching='continuous'"):
+        one_shot.answer(QUESTIONS[0], sampling=SamplingConfig(do_sample=False))
 
 
 def test_the_service_never_asks_the_knn_for_more_rows_than_it_holds(services, monkeypatch):

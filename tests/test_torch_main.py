@@ -288,8 +288,10 @@ def _shared(port_cfg, jax_cfg):
 @pytest.mark.parametrize("key", [None] + sorted(PORTED_ENV))
 def test_from_env_matches_the_jax_config_on_every_shared_field(key):
     env = dict(PORTED_ENV) if key is None else {key: PORTED_ENV[key]}
-    if key in ("TPU_RAG_INTERLEAVE_PREFILL",):
-        env["TPU_RAG_KV_PAGED"] = "1"  # the cross-field rule both packages apply
+    if key in ("TPU_RAG_INTERLEAVE_PREFILL", "TPU_RAG_BATCHING"):
+        # the cross-field rule both packages apply; and continuous batching
+        # over the dense cache is not ported (ROADMAP.md Queue 1 item 7)
+        env["TPU_RAG_KV_PAGED"] = "1"
     for section, fields in _shared(AppConfig.from_env(env), JAppConfig.from_env(env)).items():
         for name, (got, want) in fields.items():
             assert got == want, (section, name)
@@ -300,6 +302,10 @@ def test_from_env_matches_the_jax_config_on_every_shared_field(key):
     {"TPU_RAG_KV_BLOCK_SIZE": "0"}, {"TPU_RAG_BATCHING": "bogus"}, {"TPU_RAG_WEIGHT_QUANT": "int4"},
     {"TPU_RAG_KV_PAGED": "yes"}, {"TPU_RAG_SYNC_STEPS": "0"}, {"TPU_RAG_SPECULATIVE": "always"},
     {"TPU_RAG_INTERLEAVE_PREFILL": "1"},
+    {"TPU_RAG_ADMISSION_MAX_CONCURRENCY": "0"}, {"TPU_RAG_ADMISSION_MAX_QUEUE": "-1"},
+    {"TPU_RAG_ADMISSION_RETRY_AFTER_S": "-0.5"}, {"TPU_RAG_DEADLINE_MS": "0"}, {"TPU_RAG_DEADLINE_MS": "soon"},
+    {"TPU_RAG_BREAKER_RESETS": "0"}, {"TPU_RAG_BREAKER_WINDOW_S": "0.5"}, {"TPU_RAG_INFLIGHT_RETRIES": "-1"},
+    {"TPU_RAG_RETRY_BACKOFF_MS": "-1"}, {"TPU_RAG_DRAIN_DEADLINE_S": "0"}, {"TPU_RAG_DRAIN_RETRY_AFTER_S": "-1"},
 ])
 def test_from_env_validation_messages_match(env):
     with pytest.raises(ValueError) as want:
@@ -313,11 +319,39 @@ def test_from_env_validation_messages_match(env):
     ({"TPU_RAG_MESH": "tp=2"}, "item 10"), ({"TPU_RAG_SPEC_PAGED": "1"}, "item 7"),
     ({"TPU_RAG_PREFIX_CACHE": "1"}, "item 6"), ({"TPU_RAG_KV_TIERING": "1"}, "item 6"),
     ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"), ({"TPU_RAG_POOL_ROLE": "prefill"}, "item 8"),
-    ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"), ({"TPU_RAG_FAULTS": "embed:1"}, "item 9"),
+    ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"), ({"TPU_RAG_BATCHING": "continuous"}, "item 7"),
+    ({"TPU_RAG_BATCHING": "continuous", "TPU_RAG_KV_PAGED": "0"}, "item 7"),
 ])
 def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         AppConfig.from_env(env)
+
+
+def test_tpu_rag_faults_is_read_and_arms_the_site(caplog):
+    from rag_llm_k8s_tpu_torch.resilience import faults
+
+    env = {"TPU_RAG_FAULTS": "embed:1"}
+    try:
+        with caplog.at_level("WARNING"):
+            AppConfig.from_env(env)
+        assert "ignoring" not in caplog.text  # a key from_env knows
+        assert tmain.arm_faults(env) == {"embed": 1}
+        with pytest.raises(faults.InjectedFault, match="embed"):
+            faults.maybe_fail("embed")
+        faults.maybe_fail("embed")  # one traversal, then disarmed
+        assert tmain.arm_faults({"TPU_RAG_FAULTS": "1"}) == {}  # enables the endpoint only
+    finally:
+        faults.clear()
+
+
+def test_from_env_reads_the_resilience_keys_like_jax():
+    env = {"TPU_RAG_ADMISSION_MAX_CONCURRENCY": "4", "TPU_RAG_ADMISSION_MAX_QUEUE": "0",
+           "TPU_RAG_ADMISSION_RETRY_AFTER_S": "2.5", "TPU_RAG_DEADLINE_MS": "3000", "TPU_RAG_BREAKER_RESETS": "2",
+           "TPU_RAG_BREAKER_WINDOW_S": "30", "TPU_RAG_INFLIGHT_RETRIES": "0", "TPU_RAG_RETRY_BACKOFF_MS": "0",
+           "TPU_RAG_DRAIN_DEADLINE_S": "12.5", "TPU_RAG_DRAIN_RETRY_AFTER_S": "0.5"}
+    for e in ({}, env):
+        assert dataclasses.asdict(AppConfig.from_env(e).resilience) == dataclasses.asdict(
+            JAppConfig.from_env(e).resilience)
 
 
 def test_keys_that_leave_unported_features_off_are_accepted(caplog):

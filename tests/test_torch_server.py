@@ -243,7 +243,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'rag_llm_k8s_tpu' or m.startswith('rag_llm_k8s_tpu.')]\n"
         "assert not bad, bad\n"
         "need = {'engine.continuous', 'engine.kv_pool', 'sim.policy', 'server.app', 'ops.attention',\n"
-        "        'tokenizer.bpe', 'tokenizer.unigram', 'models.loader', 'engine.batching', 'server.main'}\n"
+        "        'tokenizer.bpe', 'tokenizer.unigram', 'models.loader', 'engine.batching', 'server.main',\n"
+        "        'obs.flight', 'obs.metrics', 'resilience', 'resilience.faults', 'resilience.deadline',\n"
+        "        'resilience.breaker', 'resilience.admission', 'resilience.lifecycle'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )
