@@ -50,11 +50,19 @@
    solo ``/query`` one at a time, p50 and p95 of ``total_ms`` and its parts,
    and a burst of 8 that must run a kNN pass of 8 queries and a batched
    ``engine.generate``.
+   Then the observability surface (``phase_observability``): span trees
+   with a W3C ``traceparent`` against the timings, ``/metrics`` under the
+   exposition grammar with counts moved by exactly the requests answered,
+   the ``/debug`` gate, and ``POST /profile``: a ``torch.profiler`` trace of
+   one served request whose kernel events must match the launch counters
+   one for one (busy share, one decode forward, top ops and idle gaps
+   printed), and a capture window over two live requests.
 6. Continuous phases: 8 concurrent ``/generate`` requests from threads
    through a ``ContinuousScheduler`` (paged arena, interleaved admission)
    over the same model and store, counters zeroed before and read after
-   (kNN, flash, paged decode and paged chunk must all have run, and the
-   pool must drain to 0 blocks); the last greedy request alone must give
+   (kNN, flash, paged decode and paged chunk must all have run, the pool
+   must drain to 0 blocks, and the service's scrape must count one time to
+   first token per request and one ``device_fetch`` step per window); the last greedy request alone must give
    its text from the batch (then, as a yardstick, through the plain paged
    attention); then the resilience layer on the same model
    (``phase_resilience``: a ``decode_step`` fault mid-burst resubmits every
@@ -83,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1709,6 +1718,7 @@ def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTI
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     before = dataclasses.replace(cont.stats)
+    m0, _ = _scrape(client)
     t0 = time.monotonic()
     threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(CONT_QUESTIONS))]
     for th in threads[:-1]:
@@ -1738,6 +1748,19 @@ def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTI
     _launch_check(f"{tag} continuous path", launches, need, forbid)
     if cont.kv_pool.blocks_in_use():
         fail(f"continuous service: {cont.kv_pool.blocks_in_use()} blocks still in use after the drain")
+    # the burst in the service's own scrape
+    m1, scrape_ms = _scrape(client)
+    ttft = m1[("rag_time_to_first_token_seconds_count", "")] - m0[("rag_time_to_first_token_seconds_count", "")]
+    key = ("rag_continuous_step_seconds_count", '{phase="device_fetch"}')
+    fetches = m1[key] - m0[key]
+    in_use = m1[("rag_kv_pool_blocks_in_use", "")]
+    print(f"phase continuous_service {tag} metrics: ttft_count+={ttft:g} device_fetch_count+={fetches:g} "
+          f"windows+={st.windows - before.windows} kv_pool_blocks_in_use={in_use:g} "
+          f"ttft_sum_s+={m1[('rag_time_to_first_token_seconds_sum', '')] - m0[('rag_time_to_first_token_seconds_sum', '')]:.3f} "
+          f"scrape_ms={scrape_ms:.2f}", flush=True)
+    if ttft != len(results) or fetches != st.windows - before.windows or in_use != 0:
+        fail(f"continuous service metrics: TTFT count +{ttft} for {len(results)} requests, device_fetch "
+             f"+{fetches} for {st.windows - before.windows} windows, {in_use} blocks in use")
     # the probe alone, through the kernels, then (yardstick, after the
     # counters were read) through the plain paged attention
     from rag_llm_k8s_tpu_torch.models import llama as L
@@ -1858,7 +1881,8 @@ def phase_resilience(service_bits, max_new: int = 48):
     uses up the retries: 500, no block left; (d) real resets opening the
     breaker: ``/healthz`` 503, ``?live=1`` 200, 503 ``breaker_open`` with
     ``Retry-After``, 200 once the window has passed; (e) deadlines: 504 at
-    ``decode`` with the blocks back within one window, a header deadline,
+    ``decode`` with a decoding row evicted (it holds tokens) and its blocks
+    back within one window, a header deadline,
     400 for malformed values; (f) the admission gate at 2 running + 1
     queued: 6 requests behind a barrier give 3 x 200 and 3 x 429; (g) the
     drain: 202, the request in flight 200, new work 503 ``draining``,
@@ -1967,6 +1991,8 @@ def phase_resilience(service_bits, max_new: int = 48):
         clean_ids = dict(delivered)
         delivered.clear()
         flight.recorder().clear()
+        resubmitted = svc.metrics.get_family("rag_inflight_retries_total").labels(outcome="resubmitted")
+        resets0, resub0 = svc.metrics.counter("rag_engine_resets_total").value, resubmitted.value
         _build.reset_launches()
         plan.update(window=0, at={}, snap=None, t_fault=None, t_resumed=None, when=lambda: (
             sum(1 for s in cont.slots if s.active) >= FAULT_ROWS
@@ -1998,8 +2024,13 @@ def phase_resilience(service_bits, max_new: int = 48):
               f"total_ms={[b['timings']['total_ms'] for _, b, _ in faulted]} "
               f"unfaulted_total_ms={[b['timings']['total_ms'] for _, b, _ in clean]} "
               f"wall_s={wall:.2f} unfaulted_wall_s={clean_wall:.2f} "
-              f"streams_equal_to_unfaulted={same}/4 (printed, not gated) launches={json.dumps(launches)}",
+              f"streams_equal_to_unfaulted={same}/4 (printed, not gated) launches={json.dumps(launches)} "
+              f"rag_engine_resets_total+={svc.metrics.counter('rag_engine_resets_total').value - resets0:g} "
+              f"rag_inflight_retries_total{{outcome=resubmitted}}+={resubmitted.value - resub0:g}",
               flush=True)
+        if (svc.metrics.counter("rag_engine_resets_total").value - resets0 != 1
+                or resubmitted.value - resub0 != in_flight):
+            fail("resilience (a): the scrape's resets and resubmissions do not match the recovery")
         if len(resets) != 1 or len(resub) != in_flight or in_flight < 2 or not plan["snap"]:
             fail(f"resilience (a): {len(resets)} resets, {len(resub)} resubmitted of {in_flight} in flight, "
                  f"{len(plan['snap'] or {})} decoding (want 1, all, >= 2, >= 1)")
@@ -2045,14 +2076,27 @@ def phase_resilience(service_bits, max_new: int = 48):
                 or h2.status_code != 200 or after[0] != 200):
             fail("resilience (d): the breaker did not open and heal as it should")
 
-        # (e) deadlines: one unfaulted request's flight events place its
-        # decode; a deadline halfway through it runs out mid-decode
+        # (e) deadlines: two unfaulted runs of one request place its decode
+        # (flight events: ``admit`` carries the first token, then
+        # ``complete``); the deadline falls 30 % into the faster run's
+        # decode, so the next run may reach its first token ~25 % later or
+        # end ~34 % sooner and still expire mid-decode (one host ran the same
+        # request 27 % faster the second time). Each evicted row must hold
+        # tokens: an expiry before the first token would evict a prefilling
+        # row, which also answers 504 at stage "decode"
         svc, client = service()
+        placed = []
+        for _ in range(2):
+            flight.recorder().clear()
+            code, body, _ = post(client, {"prompt": RES_QUESTIONS[2]})
+            if code != 200:
+                fail(f"resilience (e): the unfaulted request: {code} {body}")
+            evs = {e["type"]: e["t_ms"] for e in flight.recorder().timeline(body["request_id"])["events"]}
+            pre_ms = body["timings"]["total_ms"] - evs["complete"]  # before the scheduler: retrieve, assemble
+            placed.append((pre_ms + evs["admit"], pre_ms + evs["complete"]))
+        first_ms, done_ms = min(placed, key=lambda r: r[1])
+        dl_ms = round(first_ms + 0.3 * (done_ms - first_ms))
         flight.recorder().clear()
-        code, body, _ = post(client, {"prompt": RES_QUESTIONS[2]})
-        evs = {e["type"]: e["t_ms"] for e in flight.recorder().timeline(body["request_id"])["events"]}
-        pre_ms = body["timings"]["total_ms"] - evs["complete"]  # before the scheduler: retrieve, assemble
-        dl_ms = round(pre_ms + (evs["admit"] + evs["complete"]) / 2)
         t = time.monotonic()
         code, body, _ = post(client, {"prompt": RES_QUESTIONS[2], "deadline_ms": dl_ms})
         t504 = time.monotonic()
@@ -2063,15 +2107,19 @@ def phase_resilience(service_bits, max_new: int = 48):
         freed_ms = (time.monotonic() - t504) * 1e3
         no_blocks("e")
         hcode, hbody, _ = post(client, {"prompt": RES_QUESTIONS[2]}, headers={"x-request-deadline-ms": str(dl_ms)})
+        no_blocks("e")  # the header request's eviction may trail its 504
+        evicted = [e["n_tokens"] for e in flight.recorder().snapshot(etype="evict")]
         bad = [post(client, {"prompt": "x", "deadline_ms": v})[0] for v in (0, "x", "inf")]
-        print(f"resilience (e) deadline_ms={dl_ms} (an unfaulted request: first token at "
-              f"{pre_ms + evs['admit']:.0f} ms, done at {pre_ms + evs['complete']:.0f} ms): "
+        print(f"resilience (e) deadline_ms={dl_ms} (two unfaulted runs: first token at "
+              f"{[round(f) for f, _ in placed]} ms, done at {[round(d) for _, d in placed]} ms): "
               f"code={code} body={json.dumps(body)} answered_after_ms="
               f"{(t504 - t) * 1e3:.0f} blocks_back_within_ms={freed_ms:.1f} header deadline: {hcode} "
-              f"{json.dumps(hbody)} malformed 0/'x'/'inf': {bad}", flush=True)
+              f"{json.dumps(hbody)} evicted_rows_tokens={evicted} malformed 0/'x'/'inf': {bad}", flush=True)
         if ((code, body.get("stage")) != (504, "decode") or (hcode, hbody.get("stage")) != (504, "decode")
                 or bad != [400] * 3 or freed_ms > 100.0):
             fail("resilience (e): deadlines not honoured")
+        if len(evicted) != 2 or min(evicted) < 1:
+            fail(f"resilience (e): evicted rows held {evicted} tokens; want two rows evicted mid-decode")
 
         # (f) the admission gate: 2 running + 1 queued
         svc, client = service(admission_max_concurrency=2, admission_max_queue=1)
@@ -2165,28 +2213,29 @@ def phase_resilience(service_bits, max_new: int = 48):
     return launches
 
 
-def _forward_ms(engine, reps: int = 5, model=None, kv_quant: str = "bf16", width: int = 1):
+def _forward_ms(engine, reps: int = 5, model=None, kv_quant: str = "bf16", width: int = 1,
+                cache_len: int = 4352, slot: int = 4199):
     """One forward of ``model`` (default: the engine's; B=1) over ``width``
-    tokens at slot 4199 of a 4352-slot cache of ``kv_quant`` (a decode step
-    at width 1, a speculative verify at width 16), issued on an idle card:
-    the median host time to issue it, and to its end."""
+    tokens at ``slot`` of a ``cache_len``-slot cache of ``kv_quant`` (a
+    decode step at width 1, a speculative verify at width 16), issued on an
+    idle card: the median host time to issue it, and to its end."""
     import torch
 
     from rag_llm_k8s_tpu_torch.models import llama as L
 
     dev = engine.device
     model = model or engine.model
-    cache = L.make_kv_cache(engine.config, 1, 4352, torch.bfloat16, dev, kv_quant)
+    cache = L.make_kv_cache(engine.config, 1, cache_len, torch.bfloat16, dev, kv_quant)
     tok = torch.full((1, width), 7, dtype=torch.int64, device=dev)
-    pos = 4199 + torch.arange(width, device=dev)[None]
+    pos = slot + torch.arange(width, device=dev)[None]
     ks = torch.zeros(1, dtype=torch.int64, device=dev)
-    kl = torch.full((1,), 4199 + width, dtype=torch.int64, device=dev)
+    kl = torch.full((1,), slot + width, dtype=torch.int64, device=dev)
     issued, ended = [], []
     with torch.inference_mode():
         for i in range(reps + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model(tok, pos, cache, ks, kl, 4199, chunked=width > 1)
+            model(tok, pos, cache, ks, kl, slot, chunked=width > 1)
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             if i:  # the first is a warm-up
@@ -2379,6 +2428,266 @@ def phase_query_latency(service_bits, n_solo: int = 24):
         return stats
     finally:
         engine.generate_rag, engine.generate = real_rag, real_gen
+
+
+# the exposition grammar of tests/test_obs.py (text format 0.0.4, the subset
+# the registry emits)
+_HELP_RE = re.compile(r"^# HELP [a-zA-Z_:][a-zA-Z0-9_:]* \S.*$")
+_TYPE_RE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)$")
+_SAMPLE_RE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"\\]*"(,[a-zA-Z_][a-zA-Z0-9_]*="[^"\\]*")*\})?'
+    r" (-?\d+(\.\d+)?([eE][+-]?\d+)?|\+Inf|NaN)$"
+)
+
+
+def _scrape(client):
+    """``/metrics`` parsed under the strict grammar: ``({(name, labels):
+    value}, ms)``."""
+    t = time.monotonic()
+    r = client.get("/metrics")
+    ms = (time.monotonic() - t) * 1e3
+    if r.status_code != 200 or not r.headers.get("Content-Type", "").startswith("text/plain"):
+        fail(f"/metrics: {r.status_code} {r.headers}")
+    samples = {}
+    for line in r.data.decode().splitlines():
+        if not line:
+            continue
+        if line.startswith("# HELP"):
+            ok = _HELP_RE.match(line)
+        elif line.startswith("# TYPE"):
+            ok = _TYPE_RE.match(line)
+        else:
+            ok = _SAMPLE_RE.match(line)
+            head, val = line.rsplit(" ", 1)
+            name, brace, labels = head.partition("{")
+            samples[(name, brace + labels)] = float(val)
+        if not ok:
+            fail(f"/metrics: a line outside the exposition grammar: {line!r}")
+    return samples, ms
+
+
+OBS_QUESTIONS = LATENCY_QUESTIONS[:4]
+
+
+def phase_observability(service_bits, max_new_profiled: int = 16):
+    """The observability surface of the one-shot service (``bits``), through
+    the HTTP test client, one line per case: (a) four solo fused ``/query``
+    with a ``traceparent`` and ``{"trace": true}`` (the response's trace id
+    is the header's; the tree is the fused path's ``retrieve`` [``tokenize``,
+    ``embed_knn``], ``generate``, ``detokenize``, as in the JAX service, and
+    sums to within 5 % of ``timings.total_ms``), one long question on the
+    host path (``assemble`` between ``retrieve`` and ``generate``), and a
+    malformed ``traceparent`` (200, a fresh id); (b) ``/metrics`` under the
+    strict grammar, counts moved by exactly the requests answered, the
+    engine counters by the engine's stats, the JSON snapshot equal to the
+    text; (c) ``/debug/traces`` 403 without the debug flag and the phase's
+    traces with it, newest last; (d) ``POST /profile`` blocking over one
+    fused request at ``max_new_profiled`` tokens: every kernel the launch
+    counters saw is in the trace's kernel events with the same count; the
+    card's busy share over the request, one decode forward's busy share and
+    host issue time (traced, and untraced at the same shape), the top device
+    ops and the longest idle gaps printed;
+    (e) the window mode: 200 at once, 409 for a second capture, two
+    requests inside the window, whose kernels the trace holds; ``seconds``
+    0 and 301 get 400."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rag_llm_k8s_tpu_torch.engine.engine import _cache_len
+    from rag_llm_k8s_tpu_torch.obs import logging as obs_logging
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.tools import trace_summary
+
+    svc, client, engine, _ = service_bits
+    s0, _ = _scrape(client)
+    st0 = dataclasses.replace(engine.stats)
+    rng_words = np.random.default_rng(7)
+
+    # (a) traces
+    sent, answered = [], 0
+    cases = [(q, True) for q in OBS_QUESTIONS] + [(words(rng_words, 40) + "?", False)]
+    for i, (q, fused) in enumerate(cases):
+        tid, caller = f"{0xabc0 + i:032x}", f"{0x5eed + i:016x}"
+        r = client.post("/query", json_body={"prompt": q, "trace": True},
+                        headers={"traceparent": f"00-{tid}-{caller}-01"})
+        body = r.get_json()
+        answered += r.status_code == 200
+        if r.status_code != 200 or r.headers.get("x-trace-id") != tid:
+            fail(f"observability (a) request {i}: {r.status_code} x-trace-id={r.headers.get('x-trace-id')}")
+        back = obs_logging.parse_traceparent(r.headers.get("traceparent"))
+        tree = body["trace"]
+        top = [sp["name"] for sp in tree["spans"]]
+        want = ["retrieve", "generate", "detokenize"] if fused else ["retrieve", "assemble", "generate",
+                                                                     "detokenize"]
+        inner = [sp["name"] for sp in tree["spans"][0].get("spans", [])]
+        total = body["timings"]["total_ms"]
+        span_sum = sum(sp["duration_ms"] for sp in tree["spans"])
+        print(f"observability (a) {'fused' if fused else 'host'} /query {i}: x-trace-id={tid} "
+              f"response span={back.span_id if back else None} spans={top} retrieve={inner} "
+              f"span_sum_ms={span_sum:.1f} total_ms={total} "
+              f"durations={[(sp['name'], sp['duration_ms']) for sp in tree['spans']]}", flush=True)
+        if (back is None or back.trace_id != tid or back.span_id == caller or tree.get("parent_span_id") != caller
+                or top != want or inner != ["tokenize", "embed_knn"] or abs(span_sum - total) > 0.05 * total):
+            fail(f"observability (a) request {i}: tree {top} / {inner}, spans {span_sum:.1f} ms of {total} ms")
+        sent.append(tid)
+    r = client.post("/query", json_body={"prompt": OBS_QUESTIONS[0]}, headers={"traceparent": "00-zzz-yyy-01"})
+    fresh = r.headers.get("x-trace-id", "")
+    answered += r.status_code == 200
+    print(f"observability (a) malformed traceparent: code={r.status_code} x-trace-id={fresh}", flush=True)
+    if r.status_code != 200 or not re.fullmatch(r"[0-9a-f]{32}", fresh) or fresh in sent:
+        fail(f"observability (a) malformed traceparent: {r.status_code} {fresh!r}")
+    sent.append(fresh)
+
+    # (b) /metrics: strict grammar, counts by the requests answered
+    s1, scrape_ms = _scrape(client)
+    st1 = engine.stats
+
+    def moved(name, labels=""):
+        return s1.get((name, labels), 0.0) - s0.get((name, labels), 0.0)
+
+    n_fused = len(OBS_QUESTIONS) + 1
+    want = {("rag_request_duration_seconds_count", ""): answered,
+            ("rag_http_requests_total", '{code="200",route="/query"}'): answered,
+            ("tpu_rag_query_single_fetch", ""): n_fused,
+            ("tpu_rag_engine_decode_tokens", ""): st1.decode_tokens - st0.decode_tokens,
+            ("tpu_rag_engine_generate_calls", ""): st1.generate_calls - st0.generate_calls,
+            ("tpu_rag_engine_prefill_tokens", ""): st1.prefill_tokens - st0.prefill_tokens}
+    for stage, n in (("retrieve", answered), ("generate", answered), ("detokenize", answered),
+                     ("assemble", answered - n_fused)):
+        want[("rag_stage_duration_seconds_count", f'{{stage="{stage}"}}')] = n
+    got = {k: moved(*k) for k in want}
+    snap = client.get("/metrics", headers={"Accept": "application/json"}).get_json()
+    s2, _ = _scrape(client)
+    by_name = {}
+    for (name, _), v in s2.items():
+        if not name.endswith("_bucket"):
+            by_name[name] = by_name.get(name, 0.0) + v
+    # the scrape's own gauges can move between the two reads; the rest may not
+    off = [k for k, v in snap.items()
+           if not math.isclose(by_name.get(k if k.startswith("rag_") else f"tpu_rag_{k}", math.nan), v,
+                               rel_tol=1e-6, abs_tol=1e-6)]
+    print(f"observability (b) /metrics: families={len({n for n, _ in s1})} samples={len(s1)} "
+          f"scrape_ms={scrape_ms:.2f} moved={json.dumps({f'{n}{lab}': v for (n, lab), v in got.items()})} "
+          f"compile_events={s1.get(('rag_compile_events_total', ''))} "
+          f"compile_seconds={s1.get(('rag_compile_seconds_total', ''))} json_mismatch={off}", flush=True)
+    if any(got[k] != v for k, v in want.items()) or off or not s1.get(("rag_compile_seconds_total", ""), 0) > 0:
+        fail(f"observability (b): moved {got}, want {want}; JSON/text mismatch {off}")
+
+    # (c) the debug gate
+    env_faults = os.environ.pop("TPU_RAG_FAULTS", None)
+    cfg = svc.config
+    try:
+        closed = client.get("/debug/traces").status_code
+        svc.config = dataclasses.replace(cfg, flight=dataclasses.replace(cfg.flight, debug_endpoints=True))
+        r = client.get(f"/debug/traces?limit={len(sent)}")
+        listed = [t["trace_id"] for t in r.get_json().get("traces", [])] if r.status_code == 200 else []
+    finally:
+        svc.config = cfg
+        if env_faults is not None:
+            os.environ["TPU_RAG_FAULTS"] = env_faults
+    print(f"observability (c) /debug/traces: without the flag {closed}, with TPU_RAG_DEBUG {r.status_code} "
+          f"listing {len(listed)} traces, newest last = sent order {listed == sent}", flush=True)
+    if closed != 403 or r.status_code != 200 or listed != sent:
+        fail(f"observability (c): {closed} / {r.status_code}, listed {listed} != sent {sent}")
+
+    # (d) POST /profile, blocking, over one fused request. Its last decode
+    # forward is also timed untraced on the same engine at the same shape,
+    # just before the capture and just after it (the fused path serves at
+    # the largest prompt bucket; the last of the request's decode steps
+    # writes slot S + max_new - 2): the trace's card time for that forward
+    # over the untraced host time is a decode step's busy share with no
+    # profiler recording ops (the model alone: the range also holds the
+    # step's few sampling kernels)
+    S = max(engine.engine_config.prompt_buckets)
+    shape = dict(cache_len=_cache_len(S + max_new_profiled), slot=S + max_new_profiled - 2)
+    untraced = {"before": _forward_ms(engine, **shape)}
+    tmp = tempfile.mkdtemp(prefix="profile_")
+    sampling = engine.sampling
+    engine.sampling = dataclasses.replace(sampling, max_new_tokens=max_new_profiled)
+    try:
+        torch.cuda.synchronize()
+        launched = dict(_build.LAUNCHES)
+        t = time.monotonic()
+        r = client.post("/profile", json_body={"prompt": OBS_QUESTIONS[1], "dir": tmp})
+        wall = time.monotonic() - t
+        counted = {k: _build.LAUNCHES[k] - launched[k] for k in launched}
+        body = r.get_json()
+        if r.status_code != 200:
+            fail(f"observability (d) /profile: {r.status_code} {body}")
+        path = body["trace_file"]
+        size_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            trace = json.load(f)
+        os.remove(path)
+    finally:
+        engine.sampling = sampling
+    ranges = trace_summary.events(trace, "user_annotation")
+    t_lo = min(e["ts"] for e in ranges if e["name"] == "retrieve")
+    t_hi = max(e["ts"] + e["dur"] for e in ranges if e["name"] == "detokenize")
+    summ = trace_summary.summarize(trace, t_lo, t_hi)
+    in_trace = summ["wrapper_launches"]
+    fwd = {n: trace_summary.forward(trace, n) for n in ("decode_forward", "verify_forward")}
+    print(f"observability (d) /profile blocking: wall_s={wall:.2f} trace_mb={size_mb:.1f} "
+          f"timings={json.dumps(body['timings'])} launches={json.dumps(counted)} "
+          f"in_trace={json.dumps(in_trace)}", flush=True)
+    print(f"observability (d) request trace: window_ms={summ['window_us'] / 1e3:.2f} kernels={summ['kernels']} "
+          f"busy_ms={summ['busy_us'] / 1e3:.2f} busy_share={summ['busy_share']:.4f} "
+          f"forwards={json.dumps(fwd)}", flush=True)
+    print(f"observability (d) top device ops: {json.dumps(summ['top_ops'])}", flush=True)
+    print(f"observability (d) longest idle gaps: {json.dumps(summ['gaps'])}", flush=True)
+    if counted != in_trace or not any(counted.values()):
+        fail(f"observability (d): launch counters {counted} != the trace's kernels {in_trace}")
+    untraced["after"] = _forward_ms(engine, **shape)
+    dec = fwd["decode_forward"]
+    if dec is not None and dec["kernels"]:
+        steps = sum(1 for e in ranges if e["name"] == "decode_forward")
+        print(f"observability (d) the last decode forward untraced ({json.dumps(shape)}; the trace's request "
+              f"ran {steps} decode steps): issued in / ended after "
+              + ", ".join(f"{k} the capture {i:.2f} / {e:.2f} ms" for k, (i, e) in untraced.items())
+              + f" (host clock); its card time in the trace {dec['busy_us'] / 1e3:.3f} ms in {dec['kernels']} "
+              f"kernels; untraced busy share "
+              + ", ".join(f"{k} {dec['busy_us'] / 1e3 / e:.4f}" for k, (_, e) in untraced.items()), flush=True)
+
+    # (e) POST /profile, a window over live traffic
+    bad = [client.post("/profile", json_body={"seconds": v, "dir": tmp}).status_code for v in (0, 301)]
+    t = time.monotonic()
+    r = client.post("/profile", json_body={"seconds": 3, "dir": tmp})
+    start_ms = (time.monotonic() - t) * 1e3
+    second = client.post("/profile", json_body={"seconds": 3, "dir": tmp})
+    blocking = client.post("/profile", json_body={"prompt": "x", "dir": tmp}).status_code
+    if r.status_code != 200:
+        fail(f"observability (e): {r.status_code} {r.get_json()}")
+    path, until = r.get_json()["trace_file"], second.get_json().get("until")
+    engine.sampling = dataclasses.replace(sampling, max_new_tokens=max_new_profiled)
+    try:
+        launched = dict(_build.LAUNCHES)
+        codes = [client.post("/query", json_body={"prompt": q}).status_code for q in OBS_QUESTIONS[2:4]]
+        torch.cuda.synchronize()
+        inside = time.time() < until - 0.2
+        counted = {k: _build.LAUNCHES[k] - launched[k] for k in launched}
+    finally:
+        engine.sampling = sampling
+    t = time.monotonic()
+    while not os.path.exists(path) and time.monotonic() - t < 120:
+        time.sleep(0.2)
+    if not os.path.exists(path):
+        fail("observability (e): the window's trace was never written")
+    time.sleep(0.5)  # the export writes the file whole; let it close
+    with open(path) as f:
+        in_window = trace_summary.wrapper_launches(trace_summary.events(json.load(f), "kernel"))
+    size_mb = os.path.getsize(path) / 1e6
+    os.remove(path)
+    print(f"observability (e) /profile window: start_ms={start_ms:.1f} second={second.status_code} "
+          f"until={until} blocking_during={blocking} bad_seconds={bad} requests={codes} inside={inside} "
+          f"trace_mb={size_mb:.1f} launches={json.dumps(counted)} in_trace={json.dumps(in_window)}", flush=True)
+    if (second.status_code != 409 or blocking != 409 or bad != [400, 400] or codes != [200, 200] or not inside
+            or in_window != counted):
+        fail(f"observability (e): 409s {second.status_code}/{blocking}, 400s {bad}, {codes}, inside {inside}, "
+             f"trace {in_window} != launches {counted}")
 
 
 def _free_port() -> int:
@@ -2790,6 +3099,7 @@ def main() -> int:
     timed(phase_model, bits[2].model, bits[2].config)
     launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
     timed(phase_query_latency, bits)
+    timed(phase_observability, bits)
     cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
     timed(phase_resilience, bits)
     timed(phase_continuous_engine, bits)

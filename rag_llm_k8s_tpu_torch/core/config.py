@@ -4,7 +4,7 @@ Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
 (mesh, prefix cache, tiering, speculative continuous decode, pool roles,
-observability) are not here.
+SLOs, goodput, shadow audits, tenants, the incident spool) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -291,6 +291,22 @@ class ResilienceConfig:
 
 
 @dataclass(frozen=True)
+class FlightConfig:
+    """The flight recorder's ring and the read-only debug surface: the
+    fields of the JAX package's ``FlightConfig`` whose consumers the port
+    has (the spool and the WAL are ``ROADMAP.md`` Queue 1 items 8-9c)."""
+
+    # ring capacity in events, the journal's memory bound
+    # (env TPU_RAG_FLIGHT_EVENTS)
+    capacity: int = 4096
+    # arm the READ-ONLY debug surface (/debug/traces, /debug/timeline)
+    # without arming fault injection: every /debug route is 403 unless the
+    # process started with TPU_RAG_DEBUG=1 or TPU_RAG_FAULTS set (the faults
+    # endpoint additionally requires TPU_RAG_FAULTS itself) (env TPU_RAG_DEBUG)
+    debug_endpoints: bool = False
+
+
+@dataclass(frozen=True)
 class ServerConfig:
     """HTTP surface and storage paths (the reference's rag.py:18-20, 204)."""
 
@@ -335,8 +351,10 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_ADMISSION_MAX_CONCURRENCY", "TPU_RAG_ADMISSION_MAX_QUEUE", "TPU_RAG_ADMISSION_RETRY_AFTER_S",
     "TPU_RAG_DEADLINE_MS", "TPU_RAG_BREAKER_RESETS", "TPU_RAG_BREAKER_WINDOW_S", "TPU_RAG_INFLIGHT_RETRIES",
     "TPU_RAG_RETRY_BACKOFF_MS", "TPU_RAG_DRAIN_DEADLINE_S", "TPU_RAG_DRAIN_RETRY_AFTER_S",
-    # read by server/main.py (resilience.faults.arm_from_env) and /debug/faults
-    "TPU_RAG_FAULTS",
+    "TPU_RAG_DEBUG", "TPU_RAG_FLIGHT_EVENTS",
+    # read by server/main.py (resilience.faults.arm_from_env, the JSON log
+    # formatter) and /debug/faults
+    "TPU_RAG_FAULTS", "TPU_RAG_JSON_LOGS",
 })
 
 # (key, field, minimum, type) of ResilienceConfig, in the JAX from_env's order
@@ -382,6 +400,7 @@ class AppConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    flight: FlightConfig = field(default_factory=FlightConfig)
     system_message: str = SYSTEM_MESSAGE
 
     @classmethod
@@ -466,5 +485,10 @@ class AppConfig:
                 if v < minimum:
                     raise ValueError(f"{key}={v}: expected >= {minimum}")
                 resilience = rep(resilience, **{name: v})
-        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience)
+        flight = cfg.flight
+        if (v := _flag(env, "TPU_RAG_DEBUG")) is not None:
+            flight = rep(flight, debug_endpoints=v)
+        if (v := _int(env, "TPU_RAG_FLIGHT_EVENTS", 1)) is not None:
+            flight = rep(flight, capacity=v)
+        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience, flight=flight)
 

@@ -10,8 +10,9 @@ weight reads from HBM, so a batch of 8 costs barely more than a batch of 1.
 Requests submit from any thread and block on their own event; results fan
 back out in submission order. Grouping respects ``max_new_tokens``/seed so
 every request in a batch shares one call. The metrics hooks
-(``wait_histogram``, ``join_timeout_counter``) are settable attributes that
-stay None here: the port has no metrics registry yet.
+(``wait_histogram``, ``join_timeout_counter``) are settable attributes;
+``RagService`` attaches its registry's ``rag_coalesce_wait_seconds`` children
+and ``rag_scheduler_join_timeouts_total``.
 """
 
 from __future__ import annotations

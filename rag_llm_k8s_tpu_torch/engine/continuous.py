@@ -47,6 +47,16 @@ phase-separated admission) and ``decode_step`` (the top of ``step``) make
 both recoveries testable. Lifecycle events go to the flight recorder
 (``obs/flight.py``).
 
+Metrics (``bind_metrics``, the JAX engine's and scheduler's families): exact
+time to first token (submit to the first token, once per request: a
+resubmission or a preemption resume does not observe it again), per-token
+latency per window (``mode="continuous"``: a decode window over its steps,
+a mixed window whole), the step-time split (``device_fetch`` from a window's
+first launch to its token fetch, ``host_drain`` the drain after it,
+``admit`` a phase-separated admission's prefill through its first-token
+fetch), pool occupancy gauges read from host state only, preemptions, resets,
+resubmission outcomes and deadline expiries.
+
 Out of this port for now: the dense continuous cache, speculative verify
 windows, prefix registrations, tiering and migration.
 """
@@ -59,6 +69,7 @@ import queue
 import random
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,11 +79,12 @@ import torch
 
 from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, EngineConfig, LlamaConfig, SamplingConfig
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
-from rag_llm_k8s_tpu_torch.engine.engine import serving_model
+from rag_llm_k8s_tpu_torch.engine.batching import _join_worker
+from rag_llm_k8s_tpu_torch.engine.engine import bind_compile_metrics, serving_model
 from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
 from rag_llm_k8s_tpu_torch.engine.sampling import sample_token_per_row
 from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena
-from rag_llm_k8s_tpu_torch.obs import flight
+from rag_llm_k8s_tpu_torch.obs import flight, metrics
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from rag_llm_k8s_tpu_torch.sim import policy
@@ -105,6 +117,10 @@ class _Slot:
 
 @dataclass
 class ContinuousStats:
+    # admissions (one per prefilled prompt, a resubmission's included) and
+    # the prompt tokens they prefilled, counted where the JAX engine counts
+    generate_calls: int = 0
+    prefill_tokens: int = 0
     decode_tokens: int = 0
     windows: int = 0  # device windows of every kind (prefill groups not counted)
     mixed_windows: int = 0
@@ -169,10 +185,74 @@ class ContinuousEngine:
             self.window_budget = int(ec.window_token_budget) or self.B + self.chunk_tokens
         self.model = serving_model(model, ec)
         self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device, ec.kv_quant)
+        # the arena's bytes from its shapes, once: a scrape never asks the
+        # allocator or the card
+        self.arena_device_bytes = float(sum(
+            t.numel() * t.element_size()
+            for t in (self.arena.k, self.arena.v, self.arena.k_scale, self.arena.v_scale) if t is not None
+        ))
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self._seed_counter = 0
         self.stats = ContinuousStats()
         self._fresh_state()
+        self.bind_metrics(metrics.MetricsRegistry())  # its own until a service binds it, as InferenceEngine
+
+    def bind_metrics(self, registry) -> None:
+        """Point this engine's metric handles at ``registry`` (JAX
+        ``ContinuousEngine.bind_metrics``). Every gauge reads host state, and
+        none holds the engine (a registry may outlive it; a probe of a
+        collected engine reads 0)."""
+        bind_compile_metrics(registry)
+        self._m_ttft = registry.histogram(
+            "rag_time_to_first_token_seconds",
+            "submit-to-first-token (queue + coalesce + prefill + fetch)",
+            buckets=metrics.REQUEST_BUCKETS,
+        )
+        self._m_itl = registry.labeled_histogram(
+            "rag_decode_inter_token_seconds",
+            "per-decoded-token latency (mode label: oneshot_est is call "
+            "duration over decode steps; continuous is exact per window)",
+            buckets=metrics.TOKEN_LATENCY_BUCKETS,
+        ).labels(mode="continuous")
+        step_fam = registry.labeled_histogram(
+            "rag_continuous_step_seconds",
+            "continuous-engine step-time breakdown (phase label: "
+            "device_fetch | host_drain | admit)",
+            buckets=metrics.LATENCY_BUCKETS,
+        )
+        self._m_step_device = step_fam.labels(phase="device_fetch")
+        self._m_step_drain = step_fam.labels(phase="host_drain")
+        self._m_step_admit = step_fam.labels(phase="admit")
+        pool, stats, nbytes, me = self.kv_pool, self.stats, self.arena_device_bytes, weakref.ref(self)
+        registry.labeled_gauge(
+            "rag_kv_pool_blocks_total",
+            "allocatable physical KV blocks (paged mode; 0 dense)",
+        ).labels_callback(lambda: float(pool.usable_blocks()))
+        registry.labeled_gauge(
+            "rag_kv_pool_blocks_in_use",
+            "physical KV blocks currently referenced (paged mode)",
+        ).labels_callback(lambda: float(pool.blocks_in_use()))
+        registry.labeled_gauge(
+            "rag_kv_pool_fragmentation",
+            "fraction of allocated KV token slots not holding live KV "
+            "(internal fragmentation — pad/tail waste of the block layout)",
+        ).labels_callback(lambda: pool.fragmentation(me().pool_used_tokens()))
+        registry.counter(
+            "rag_kv_pool_preemptions_total",
+            "rows preempted mid-decode by pool exhaustion (resubmitted by "
+            "the scheduler; callers see latency, not errors)",
+            fn=lambda: float(stats.preemptions),
+        )
+        registry.labeled_gauge(
+            "rag_kv_pool_device_bytes",
+            "paged KV arena bytes resident per device (head-sharded over "
+            "tp: ~arena_total/tp per chip; 0 under the dense cache)",
+        ).labels_callback(lambda: nbytes, device=str(self.device.index or 0))
+
+    def pool_used_tokens(self) -> int:
+        """Live tokens across the rows' blocks (host mirrors): the
+        numerator of the fragmentation gauge."""
+        return sum(s.kv_ub for s in self.slots if s.active)
 
     # ------------------------------------------------------------------
     # state
@@ -430,6 +510,7 @@ class ContinuousEngine:
             raise
         for row, ids in taken:
             self._assign_row_blocks(row, ids)
+        t_admit = time.perf_counter()
         try:
             host = np.full((n, S + 2), self.pad_id, np.int64)
             for r, (_, _, _, p, _, seed, samp) in enumerate(chunk):
@@ -463,6 +544,7 @@ class ContinuousEngine:
         except Exception as e:  # noqa: BLE001 — every row's state is suspect
             self.reset()
             raise EngineStateLost("insert failed; engine state reset") from e
+        self._m_step_admit.observe(time.perf_counter() - t_admit)
         self.stats.prefill_calls += 1
         for r, (i, rid, _, p, max_new_c, _, _) in enumerate(chunk):
             self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, S, results, i)
@@ -473,6 +555,8 @@ class ContinuousEngine:
         """After a prompt's first token: the row decodes on, or the request
         ends here (EOS or a budget of one) and the row is released. Returns
         the finished tokens, or None."""
+        self.stats.generate_calls += 1
+        self.stats.prefill_tokens += len(p)
         flight.emit("admit", rid, slot=row, prompt_len=len(p), bucket=bucket, tok0=tok0)
         finished = None
         if tok0 in self.config.eos_token_ids or max_new_c <= 1:
@@ -503,6 +587,10 @@ class ContinuousEngine:
         self._chunk_admissions[rid] = {
             "row": row, "prompt": p, "progress": 0, "max_new": max_new_c, "bucket": S,
             "admit_seq": self._admit_seq,
+            # the TTFT anchor: the scheduler sets the request's submit time
+            # (None for a resubmission or a resume, which observe no TTFT);
+            # an engine driven directly falls back to the queue time
+            "t_admit": time.monotonic(),
         }
 
     @torch.inference_mode()
@@ -542,7 +630,10 @@ class ContinuousEngine:
         self._kv_len, self._last_tok, self._active = kv_len, last_tok, active
         host = torch.stack(toks + [e.long() for e in eoss]).cpu().numpy()  # the one fetch
         tok_h, eos_h = host[:k], host[k:]
-        self.stats.decode_window_s += time.perf_counter() - t0
+        t_fetch = time.perf_counter()
+        self._m_itl.observe((t_fetch - t0) / k)
+        self._m_step_device.observe(t_fetch - t0)
+        self.stats.decode_window_s += t_fetch - t0
         self.stats.windows += 1
         for slot in self.slots:
             if slot.active:
@@ -567,6 +658,7 @@ class ContinuousEngine:
                 done.append((slot.request_id, slot.tokens))
                 retire.append(i)
         self._retire(retire)
+        self._m_step_drain.observe(time.perf_counter() - t_fetch)
         return done
 
     def _retire(self, rows: List[int]) -> None:
@@ -635,7 +727,10 @@ class ContinuousEngine:
         self._last_tok = torch.where(is_dec | final_v, tok, last_tok)
         self._active = (active | final_v) & ~hit_eos
         tok_h = torch.stack([tok, hit_eos.long()]).cpu().numpy()  # the one fetch
-        self.stats.mixed_window_s += time.perf_counter() - t0
+        t_fetch = time.perf_counter()
+        self._m_itl.observe(t_fetch - t0)
+        self._m_step_device.observe(t_fetch - t0)
+        self.stats.mixed_window_s += t_fetch - t0
         self.stats.windows += 1
         self.stats.mixed_windows += 1
         for slot in self.slots:
@@ -661,10 +756,14 @@ class ContinuousEngine:
             if not final:
                 continue
             del self._chunk_admissions[rid]
+            ts = rec.get("t_submit", rec["t_admit"])
+            if ts is not None:
+                self._m_ttft.observe(time.monotonic() - ts)
             out = self._start_row(rec["row"], rid, rec["prompt"], int(tok_h[0, rec["row"]]),
                                   rec["max_new"], rec["bucket"], admit_seq=rec["admit_seq"])
             if out is not None:
                 done.append((rid, out))
+        self._m_step_drain.observe(time.perf_counter() - t_fetch)
         return done
 
 
@@ -701,8 +800,34 @@ class ContinuousScheduler:
         self._stop = threading.Event()
         # submit's stop-check + enqueue is atomic against the final drain
         self._lifecycle_lock = threading.Lock()
+        self.bind_metrics(metrics.MetricsRegistry())  # its own until a service binds it
         self._worker = threading.Thread(target=self._run, daemon=True, name="continuous-scheduler")
         self._worker.start()
+
+    def bind_metrics(self, registry) -> None:
+        """Resilience accounting (JAX ``ContinuousScheduler.bind_metrics``;
+        the service rebinds, like the engines)."""
+        self._m_resets = registry.counter(
+            "rag_engine_resets_total",
+            "engine state resets (EngineStateLost / failed decode steps)",
+        )
+        self._m_retries = registry.labeled_counter(
+            "rag_inflight_retries_total",
+            "in-flight requests resubmitted after an engine reset "
+            "(outcome: resubmitted | succeeded | gave_up)",
+        )
+        for o in ("resubmitted", "succeeded", "gave_up"):
+            self._m_retries.labels(outcome=o)
+        dl_fam = registry.labeled_counter(
+            "rag_deadline_exceeded_total",
+            "requests failed by their end-to-end deadline (stage label)",
+        )
+        self._m_deadline_queue = dl_fam.labels(stage="queue")
+        self._m_deadline_decode = dl_fam.labels(stage="decode")
+        self._m_join_timeout = registry.counter(
+            "rag_scheduler_join_timeouts_total",
+            "scheduler shutdowns whose worker thread outlived join(timeout)",
+        )
 
     def submit(
         self,
@@ -750,6 +875,9 @@ class ContinuousScheduler:
             wait_t = deadline.wait_timeout() + 0.25
         if not item.done.wait(wait_t):
             if deadline is not None and deadline.expired():
+                # the worker's sweep evicts the row; this expiry is counted
+                # once, at the caller's stage "generate", not again there
+                item.abandoned = True
                 raise DeadlineExceeded("generate", deadline.budget_ms)
             raise TimeoutError("generation timed out")
         if item.error is not None:
@@ -760,9 +888,7 @@ class ContinuousScheduler:
         self._stop.set()
         with self._lifecycle_lock:
             self._queue.put(None)
-        self._worker.join(timeout)
-        if self._worker.is_alive():
-            logger.warning("continuous scheduler did not stop within %.0f s", timeout)
+        _join_worker(self._worker, self._m_join_timeout, "continuous-scheduler", timeout)
 
     # ------------------------------------------------------------------
     def _run(self) -> None:
@@ -846,10 +972,22 @@ class ContinuousScheduler:
                         # the group outgrew the pool: backpressure, not failure
                         self._queue.put(b)
                         requeued = True
-                    elif isinstance(res, BaseException):
+                        continue
+                    if isinstance(res, BaseException):
                         b.error = res
                         b.done.set()
-                    elif res[1] is not None:
+                        continue
+                    # the first token exists once a phase-separated admission
+                    # returns; an interleaved one samples it in a later
+                    # window, which observes TTFT from this submit time. A
+                    # resubmission or a resume observed its TTFT already
+                    first = not b.retried and not b.resumed
+                    chunk_rec = eng._chunk_admissions.get(b.request_id)
+                    if chunk_rec is not None:
+                        chunk_rec["t_submit"] = b.t_submit if first else None
+                    elif first:
+                        eng._m_ttft.observe(time.monotonic() - b.t_submit)
+                    if res[1] is not None:
                         self._deliver(b, res[1])
                     else:
                         waiting[b.request_id] = b
@@ -872,6 +1010,8 @@ class ContinuousScheduler:
         self.engine.evict_requests(expired)
         for rid in expired:
             it = waiting.pop(rid)
+            if not it.abandoned:  # the caller counted its own expiry
+                self._m_deadline_decode.inc()
             it.error = DeadlineExceeded("decode", it.deadline.budget_ms)
             it.done.set()
 
@@ -880,6 +1020,8 @@ class ContinuousScheduler:
         when it had."""
         if item.deadline is None or not item.deadline.expired():
             return False
+        if not item.abandoned:
+            self._m_deadline_queue.inc()
         item.error = DeadlineExceeded("queue", item.deadline.budget_ms)
         item.done.set()
         return True
@@ -887,6 +1029,8 @@ class ContinuousScheduler:
     def _deliver(self, item: "_Pending", tokens: List[int]) -> None:
         """Complete one request: tokens emitted before a reset or a
         preemption come first, so the client sees one stream."""
+        if item.retried:
+            self._m_retries.labels(outcome="succeeded").inc()
         item.result = item.emitted + tokens
         extra = {"tenant": item.tenant} if item.tenant is not None else {}
         flight.emit("complete", item.request_id, n_tokens=len(item.result),
@@ -930,6 +1074,7 @@ class ContinuousScheduler:
             if it is None:
                 continue
             self._fold_emitted(it, toks)
+            it.resumed = True
             flight.emit("resubmit", rid, outcome="preempt_resume", n_emitted=len(toks))
             self._queue.put(it)
 
@@ -938,6 +1083,7 @@ class ContinuousScheduler:
         """After an engine reset: resubmit what can still be served, as its
         prompt plus the tokens in ``emitted`` (request id -> tokens produced
         before the reset), and fail the rest with ``cause``."""
+        self._m_resets.inc()
         if self.breaker is not None:
             self.breaker.record_reset()
         items = list(waiting.values()) + list(extra)
@@ -948,6 +1094,7 @@ class ContinuousScheduler:
             if it.retries_left > 0 and not expired and not self._stop.is_set():
                 retry.append(it)
             else:
+                self._m_retries.labels(outcome="gave_up").inc()
                 flight.emit("resubmit", it.request_id, outcome="gave_up")
                 it.error = cause
                 it.done.set()
@@ -962,6 +1109,8 @@ class ContinuousScheduler:
             toks = emitted.get(it.request_id, [])
             self._fold_emitted(it, toks)
             it.retries_left -= 1
+            it.retried = True
+            self._m_retries.labels(outcome="resubmitted").inc()
             flight.emit("resubmit", it.request_id, outcome="resubmitted", n_emitted=len(toks))
             self._queue.put(it)
 
@@ -981,3 +1130,7 @@ class _Pending:
     deadline: Optional[Deadline] = None
     retries_left: int = 0  # reset-recovery resubmissions remaining
     tenant: Optional[str] = None  # edge-interned (complete stamp)
+    t_submit: float = field(default_factory=time.monotonic)  # the TTFT anchor
+    retried: bool = False  # resubmitted after a reset
+    resumed: bool = False  # requeued after a preemption
+    abandoned: bool = False  # the caller gave up (it counted the expiry)

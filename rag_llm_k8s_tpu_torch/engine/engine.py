@@ -28,18 +28,29 @@ while loop. Here PyTorch runs eagerly and the host drives the loop: each
 decode step or verify reads one small value back (the all-done flag, or the
 ``k + 1`` verify tokens), one host sync per iteration. The speculative loop
 also keeps its token history on the host, so it fetches the assembled
-prompt once. CUDA graphs are the tool to remove these syncs later.
+prompt once. CUDA graphs are the tool to remove these syncs later. Each
+decode step and each verify runs inside a ``record_function`` range
+(``decode_forward``, ``verify_forward``), so a ``torch.profiler`` trace
+shows one forward's host issue time and the kernels it launched.
+
+Metrics (``bind_metrics``, as the JAX engine's): ``rag_generate_duration_seconds``
+per call, ``rag_decode_inter_token_seconds{mode="oneshot_est"}`` (call
+duration over decode steps, prefill included: an estimate, as in JAX), and
+the compile counters, which here read the process's kernel-library builds
+and loads (``ops._build.COMPILES``).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from rag_llm_k8s_tpu_torch.core.config import (
     DTypePolicy,
@@ -48,6 +59,8 @@ from rag_llm_k8s_tpu_torch.core.config import (
     SamplingConfig,
 )
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
+from rag_llm_k8s_tpu_torch.obs import metrics
+from rag_llm_k8s_tpu_torch.ops import _build
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.engine.sampling import (
     NEG_INF,
@@ -69,10 +82,24 @@ logger = logging.getLogger(__name__)
 
 @dataclass
 class EngineStats:
+    # prompt tokens prefilled (batch padding rows count their one BOS, as
+    # in JAX; a fused request counts head + tail here and its chunks when
+    # the service knows them, ``record_prefill``)
+    prefill_tokens: int = 0
     decode_tokens: int = 0
+    generate_calls: int = 0
     # speculative verify forwards and the tokens they emitted
     spec_verify_steps: int = 0
     spec_emitted_tokens: int = 0
+
+
+def bind_compile_metrics(registry) -> None:
+    """The compile counters of the JAX engines, read from the process's
+    kernel-library builds and loads (both engines register the same two)."""
+    registry.counter("rag_compile_events_total", "AOT lowering/compile events",
+                     fn=lambda: _build.COMPILES["events"])
+    registry.counter("rag_compile_seconds_total", "seconds spent in AOT lowering/compile",
+                     fn=lambda: _build.COMPILES["seconds"])
 
 
 def serving_model(model: LlamaModel, engine_config: EngineConfig) -> LlamaModel:
@@ -179,6 +206,39 @@ class InferenceEngine:
         self._rng_counter = 0
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self.stats = EngineStats()
+        # the handles write into a registry of the engine's own until a
+        # service binds them to its registry (JAX binds the process default
+        # registry, which nothing in the port serves)
+        self.bind_metrics(metrics.MetricsRegistry())
+
+    # ------------------------------------------------------------------
+    # observability
+    # ------------------------------------------------------------------
+    def bind_metrics(self, registry) -> None:
+        """Point this engine's metric handles at ``registry`` (JAX
+        ``InferenceEngine.bind_metrics``)."""
+        bind_compile_metrics(registry)
+        self._m_generate = registry.histogram(
+            "rag_generate_duration_seconds",
+            "one generate call: prefill + decode + output fetch",
+            buckets=metrics.REQUEST_BUCKETS,
+        )
+        self._m_itl = registry.labeled_histogram(
+            "rag_decode_inter_token_seconds",
+            "per-decoded-token latency (mode label: oneshot_est is call "
+            "duration over decode steps; continuous is exact per window)",
+            buckets=metrics.TOKEN_LATENCY_BUCKETS,
+        ).labels(mode="oneshot_est")
+
+    def _observe_generate(self, seconds: float, decode_steps: int) -> None:
+        self._m_generate.observe(seconds)
+        self._m_itl.observe(seconds / max(decode_steps, 1))
+
+    def record_prefill(self, n_tokens: int) -> None:
+        """Prefill tokens of a device-assembled prompt that only the caller
+        knows (its chunk share, once the retrieved ids are fetched)."""
+        with self._lock:
+            self.stats.prefill_tokens += int(n_tokens)
 
     # ------------------------------------------------------------------
     # helpers
@@ -272,14 +332,15 @@ class InferenceEngine:
         # one host sync per step: the loop ends when every row has ended
         while step < max_new and not bool(done.all()):
             wi = S + step - 1
-            logits = model(
-                tok[:, None], (real_len + step - 1)[:, None], cache, kv_start,
-                full(wi + 1), wi,
-            )
-            nxt = sample_token(logits[:, 0], self.sampling, gen)
-            tok = torch.where(done, torch.full_like(nxt, eos0), nxt)
-            done = done | self._isin_eos(tok)
-            out[:, step] = tok
+            with record_function("decode_forward"):
+                logits = model(
+                    tok[:, None], (real_len + step - 1)[:, None], cache, kv_start,
+                    full(wi + 1), wi,
+                )
+                nxt = sample_token(logits[:, 0], self.sampling, gen)
+                tok = torch.where(done, torch.full_like(nxt, eos0), nxt)
+                done = done | self._isin_eos(tok)
+                out[:, step] = tok
             step += 1
         return out.cpu().numpy()
 
@@ -330,12 +391,13 @@ class InferenceEngine:
             hits = np.nonzero(match)[0]
             src = int(hits[-1]) + 1 if hits.size else 0
             props = hist[src : src + k]
-            fed = torch.from_numpy(np.concatenate([hist[wi : wi + 1], props])[None]).to(dev)
-            pos = torch.arange(rl - 1 + e, rl + e + k, device=dev)[None]
-            logits = model(
-                fed, pos, cache, kv_start, torch.full((1,), wi + k + 1, device=dev), wi,
-                chunked=True,
-            )[0]  # [k + 1, V]
+            with record_function("verify_forward"):
+                fed = torch.from_numpy(np.concatenate([hist[wi : wi + 1], props])[None]).to(dev)
+                pos = torch.arange(rl - 1 + e, rl + e + k, device=dev)[None]
+                logits = model(
+                    fed, pos, cache, kv_start, torch.full((1,), wi + k + 1, device=dev), wi,
+                    chunked=True,
+                )[0]  # [k + 1, V]
             if not sampled:
                 g = torch.argmax(logits, dim=-1).cpu().numpy()
                 m = int(np.cumprod(props == g[:k]).sum())
@@ -441,17 +503,22 @@ class InferenceEngine:
         with self._run_lock:
             spec = self._spec_applicable(len(prompts), chunk)
             iters = 0
+            t_call = time.perf_counter()
             if spec:
                 out, iters = self._run_spec(tok_t, mask_t, S, max_new, gen)
             else:
                 out = self._run_vanilla(tok_t, mask_t, S, max_new, chunk, gen)
+            call_s = time.perf_counter() - t_call
         results = [self._trim(out[i]) for i in range(len(prompts))]
         if spec and iters > 0:
             # tokens the verify forwards emitted: the answer plus its EOS,
             # minus the prefill's token
             emitted = len(results[0]) + (1 if len(results[0]) < max_new else 0) - 1
             self._spec_record(max(emitted, 0), iters)
+        self._observe_generate(call_s, max((len(r) for r in results), default=1))
         with self._lock:
+            self.stats.generate_calls += 1
+            self.stats.prefill_tokens += int(pad_mask.sum())
             self.stats.decode_tokens += sum(len(r) for r in results)
         return results
 
@@ -495,14 +562,21 @@ class InferenceEngine:
         with self._run_lock:
             spec = self._spec_applicable(1, None)
             iters = 0
+            t_call = time.perf_counter()
             if spec:
                 out, iters = self._run_spec(tokens, pad_mask, S, max_new, gen)
             else:
                 out = self._run_vanilla(tokens, pad_mask, S, max_new, None, gen)
+            call_s = time.perf_counter() - t_call
         row = self._trim(out[0])
         if spec and iters > 0:
             emitted = len(row) + (1 if len(row) < max_new else 0) - 1
             self._spec_record(max(emitted, 0), iters)
+        self._observe_generate(call_s, len(row))
         with self._lock:
+            self.stats.generate_calls += 1
             self.stats.decode_tokens += len(row)
+            # the prompt is assembled on the device: head + tail are the
+            # host-known share (the service adds the chunks, record_prefill)
+            self.stats.prefill_tokens += len(a_ids) + int(b.shape[0])
         return row

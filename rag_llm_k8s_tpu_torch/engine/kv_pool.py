@@ -73,6 +73,14 @@ class KVBlockPool:
         """Allocatable capacity (all but the null block)."""
         return self.num_blocks - 1
 
+    def fragmentation(self, used_tokens: int) -> float:
+        """Internal fragmentation: the fraction of allocated token slots not
+        holding live KV, ``1 - used / (in_use * block_size)``."""
+        in_use = self.blocks_in_use()
+        if in_use <= 0:
+            return 0.0
+        return max(0.0, min(1.0, 1.0 - float(used_tokens) / (in_use * self.block_size)))
+
     def can_alloc(self, n: int) -> bool:
         with self._lock:
             return n <= len(self._free)

@@ -6,6 +6,7 @@ Each ``<name>.cpp`` compiles with ``g++ -O2 -std=c++17 -shared -fPIC`` into
 named by a hash of its source as ``ops/_build.py`` names the CUDA kernels,
 so an edited source rebuilds and a stale library is never loaded. A failed
 build is logged and returns None; each caller says what it does then.
+Builds and first loads count into ``ops._build.COMPILES``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from typing import Dict, Optional
+
+from rag_llm_k8s_tpu_torch.ops._build import record_compile
 
 logger = logging.getLogger(__name__)
 
@@ -43,12 +47,14 @@ def build(name: str) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["g++", *CXX_FLAGS, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cpp")]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}.cpp:\n{proc.stderr}")
     os.replace(tmp, out)
+    record_compile(time.perf_counter() - t0)
     logger.info("built native library %s", out)
     return out
 
@@ -60,7 +66,10 @@ def load_library(name: str) -> Optional[ctypes.CDLL]:
         if name in _libs:
             return _libs[name]
         try:
-            lib = ctypes.CDLL(build(name))
+            path = build(name)
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(path)
+            record_compile(time.perf_counter() - t0)
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
             logger.warning("native %s unavailable (%s)", name, e)
             lib = None

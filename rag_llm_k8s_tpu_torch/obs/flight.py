@@ -243,6 +243,12 @@ class FlightRecorder:
             out.append(e)
         return {"schema_version": SCHEMA_VERSION, "request_id": request_id, "events": out}
 
+    @property
+    def events_emitted(self) -> int:
+        """Events ever emitted (keeps counting past the ring): the source of
+        ``rag_flight_events_total``."""
+        return self._next
+
     def clear(self) -> None:
         with self._lock:
             self._buf = [None] * self.capacity

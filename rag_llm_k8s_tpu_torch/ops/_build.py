@@ -10,6 +10,12 @@ no fallback: a CUDA tensor reaches its kernel or the caller gets the error.
 ``LAUNCHES`` counts, per kernel, the launches made through its wrapper. A
 run resets it with ``reset_launches()`` and reads it afterwards to show that
 the path it drove went through the kernels.
+
+``COMPILES`` tallies the library builds and first loads of this process (the
+CUDA kernels here and the C++ host libraries of ``native/build.py``): the
+port compiles nothing per shape, so these are its "first request is slow"
+cost, which the engines serve as ``rag_compile_events_total`` and
+``rag_compile_seconds_total``.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+import time
+from typing import Dict, Iterable, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -44,12 +51,39 @@ LAUNCHES: Dict[str, int] = {
     "paged_chunk_attention_q8": 0,
 }
 
+# wrapper -> (kernel templates, KV type): the one kernel of ``csrc/`` each
+# wrapper call issues besides an optional merge pass (the kNN's merge pass is
+# its one), as a device trace names it; ``tools/trace_summary.py`` matches
+# trace events to LAUNCHES with it
+KERNEL_NAMES: Dict[str, Tuple[Tuple[str, ...], str]] = {
+    "knn_topk": (("knn_merge_parts",), ""),
+    "flash_attention": (("chunk_kernel", "ws_kernel"), "StridedKV"),
+    "decode_attention": (("decode_kernel",), "DenseKV"),
+    "chunk_prefill_attention": (("chunk_kernel", "ws_kernel"), "DenseKV"),
+    "paged_decode_attention": (("decode_kernel",), "PagedKV"),
+    "paged_chunk_attention": (("chunk_kernel", "ws_kernel"), "PagedKV"),
+    "decode_attention_q8": (("decode_q8_kernel",), "DenseQ8"),
+    "chunk_prefill_attention_q8": (("chunk_q8_kernel",), "DenseQ8"),
+    "paged_decode_attention_q8": (("decode_q8_kernel",), "PagedQ8"),
+    "paged_chunk_attention_q8": (("chunk_q8_kernel",), "PagedQ8"),
+}
+
 # knn_topk launches by query count (a pass of 8 is a coalesced burst's
 # retrieve, a pass of 1 a solo query's), counted with LAUNCHES["knn_topk"]
 KNN_LAUNCHES_BY_QUERIES: Dict[int, int] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+# library builds and first loads in this process, and their wall seconds
+COMPILES: Dict[str, float] = {"events": 0, "seconds": 0.0}
+_compiles_lock = threading.Lock()
+
+
+def record_compile(seconds: float, events: int = 1) -> None:
+    with _compiles_lock:
+        COMPILES["events"] += events
+        COMPILES["seconds"] += seconds
 
 
 def reset_launches() -> None:
@@ -83,6 +117,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     and return ``{name: ptxas report}``; sources already built are skipped."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = _target(name)
@@ -100,6 +135,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, out)
         reports[name] = log
+    if reports:
+        record_compile(time.perf_counter() - t0, events=len(reports))
     return reports
 
 
@@ -110,6 +147,7 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(_target(name))
             for sym, (argtypes, restype) in signatures.items():
                 fn = getattr(lib, sym)
@@ -117,6 +155,7 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            record_compile(time.perf_counter() - t0)
         return lib
 
 

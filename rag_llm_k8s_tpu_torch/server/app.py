@@ -2,7 +2,8 @@
 
 Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
 /generate`` (alias ``POST /query``), ``GET /index_info``, ``GET /healthz``
-(``?live=1``: the liveness form), ``POST /drain`` and ``GET|POST
+(``?live=1``: the liveness form), ``POST /drain``, ``GET /metrics``, ``POST
+/profile``, ``GET /debug/traces``, ``GET /debug/timeline/<rid>`` and ``GET|POST
 /debug/faults``.
 The WSGI plumbing is the standard library's, so the port needs no web
 framework: ``WsgiApp.test_client()`` drives it in-process, and
@@ -47,6 +48,20 @@ circuit breaker over the continuous engine's resets turns readiness off;
 ``POST /drain`` (and SIGTERM, ``server/main.py``) starts the lifecycle's
 drain. ``/debug/faults`` arms fault sites only when ``TPU_RAG_FAULTS`` is
 set.
+
+Observability, as in the JAX service (``obs/``): each service owns a
+``MetricsRegistry`` (``GET /metrics``: Prometheus text 0.0.4, or the JSON
+snapshot under ``Accept: application/json``) that its engines, scheduler,
+coalescers and admission gate report into; every ``/generate`` is a span
+tree (``retrieve`` with its ``tokenize`` and ``embed_knn`` share,
+``assemble`` on the host path, ``generate``, ``detokenize``) kept in a ring of 128
+(``/debug/traces``, 403 unless ``TPU_RAG_FAULTS`` or ``TPU_RAG_DEBUG`` is
+set, as ``/debug/timeline``), adopting a valid W3C ``traceparent`` and
+answering ``x-trace-id`` and ``traceparent`` on every response; one access
+log line per request is written while its trace is current, so the JSON log
+formatter stamps its ids. ``POST /profile`` captures a ``torch.profiler``
+trace of one request, or of a window over live traffic, as a Chrome-trace
+file.
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ import logging
 import math
 import os
 import socketserver
+import tempfile
 import threading
 import time
 from typing import Dict, List, Optional
@@ -66,14 +82,18 @@ from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server as
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity
 
+from rag_llm_k8s_tpu_torch import __version__
 from rag_llm_k8s_tpu_torch.core.config import AppConfig, EngineConfig, ResilienceConfig, SamplingConfig
 from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler, Coalescer
 from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
 from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
 from rag_llm_k8s_tpu_torch.index.store import SearchResult, VectorStore
-from rag_llm_k8s_tpu_torch.obs.metrics import TenantTracker
+from rag_llm_k8s_tpu_torch.obs import flight, tracing
+from rag_llm_k8s_tpu_torch.obs import logging as obs_logging
+from rag_llm_k8s_tpu_torch.obs import metrics as obs_metrics
 from rag_llm_k8s_tpu_torch.ops.knn import knn_topk
 from rag_llm_k8s_tpu_torch.rag.chunking import split_text
 from rag_llm_k8s_tpu_torch.rag.pdf import extract_text
@@ -86,6 +106,9 @@ from rag_llm_k8s_tpu_torch.resilience.lifecycle import LifecycleCoordinator
 from rag_llm_k8s_tpu_torch.utils.tokens import truncate_keep_eos
 
 logger = logging.getLogger(__name__)
+# one line per answered or failed request, written inside the traced region,
+# so the JSON formatter (obs/logging.py) stamps it with the request's ids
+access_logger = logging.getLogger("rag_llm_k8s_tpu_torch.access")
 
 NO_RESULTS = "No relevant information found in the index."
 # the tenant of a request that names none (the JAX obs/tenants.py default)
@@ -140,6 +163,18 @@ def engine_mode(scheduler) -> str:
     return type(scheduler).__name__
 
 
+class _FanoutHistogram:
+    """One observation into several histogram children (the retrieve
+    coalescer's dispatch is the embed dispatch too)."""
+
+    def __init__(self, *hists):
+        self._hists = hists
+
+    def observe(self, value: float) -> None:
+        for h in self._hists:
+            h.observe(value)
+
+
 class RagService:
     """The retrieve-then-generate pipeline behind the routes. ``scheduler``
     is a ``BatchScheduler``, a ``ContinuousScheduler`` or None."""
@@ -162,6 +197,13 @@ class RagService:
         self.encoder_tokenizer = encoder_tokenizer
         self.store = store
         self.ready = False
+        # one registry per service: everything it and its engines report
+        # lands in one scrape, never the process default
+        self.metrics = obs_metrics.MetricsRegistry()
+        self.traces = tracing.TraceBuffer(128)
+        self.started_at = time.monotonic()
+        # the flight journal is process-wide: the service applies its size
+        flight.configure(capacity=config.flight.capacity)
         # the resilience layer: the readiness breaker over engine resets,
         # the admission gate in front of both engine modes, the drain
         # coordinator (server/main.py gives it an exit_fn), the tenant interner
@@ -179,7 +221,7 @@ class RagService:
         self.lifecycle = LifecycleCoordinator(
             admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
         )
-        self.tenant_tracker = TenantTracker(top_k=8)
+        self.tenant_tracker = obs_metrics.TenantTracker(top_k=8)
         if encoder.eos_id is None:
             encoder.eos_id = getattr(encoder_tokenizer, "eos_id", None)
         self._a_ids_cache: Optional[List[int]] = None
@@ -205,6 +247,207 @@ class RagService:
         )
         if scheduler is not None and getattr(scheduler, "pending_hint", False) is None:
             scheduler.pending_hint = lambda: self._inflight_generate
+        self._init_observability()
+
+    @property
+    def flight(self):
+        """The live process flight recorder (``flight.configure`` may have
+        rebuilt it since this service started)."""
+        return flight.recorder()
+
+    # -- observability ----------------------------------------------------
+    def _init_observability(self) -> None:
+        """Register this service's metric families (JAX
+        ``RagService._init_observability``, the families whose sources the
+        port has; README lists the others and the item that brings each),
+        attach the admission, coalescer and scheduler hooks, and rebind the
+        engines and the continuous scheduler to this registry. Every
+        callback reads host state, so a scrape never syncs the card."""
+        reg = self.metrics
+        self._m_request = reg.histogram(
+            "rag_request_duration_seconds",
+            "end-to-end /generate duration, server side",
+            buckets=obs_metrics.REQUEST_BUCKETS,
+        )
+        self._m_stage = reg.labeled_histogram(
+            "rag_stage_duration_seconds",
+            "per-stage serving duration (stage label)",
+        )
+        for st in ("retrieve", "assemble", "prefix_resolve", "generate", "detokenize"):
+            self._m_stage.labels(stage=st)
+        wait = reg.labeled_histogram(
+            "rag_coalesce_wait_seconds",
+            "enqueue-to-dispatch wait in the coalescing stages (stage label)",
+        )
+        for st in ("retrieve", "embed", "generate"):
+            wait.labels(stage=st)
+        # in every mode so dashboards stay uniform; only the continuous
+        # engine observes it
+        reg.histogram(
+            "rag_time_to_first_token_seconds",
+            "submit-to-first-token (queue + coalesce + prefill + fetch)",
+            buckets=obs_metrics.REQUEST_BUCKETS,
+        )
+        reg.gauge("rag_batch_occupancy", "requests currently occupying the serving batch/slots",
+                  fn=self._batch_occupancy)
+        reg.gauge("rag_admission_queue_depth", "requests queued toward the generate scheduler",
+                  fn=self._queue_depth)
+        # the legacy names (tpu_rag_*): engine stats summed over the serving
+        # engines, read at scrape time
+        reg.gauge("index_vectors", fn=lambda: self.store.ntotal)
+        for name in ("generate_calls", "prefill_tokens", "decode_tokens", "spec_verify_steps",
+                     "spec_emitted_tokens"):
+            reg.counter(f"engine_{name}", fn=lambda name=name: self._engine_stat(name))
+        self._m_http = reg.labeled_counter(
+            "rag_http_requests_total",
+            "served requests by route and status code",
+        )
+        rejected = reg.labeled_counter(
+            "rag_admission_rejected_total",
+            "requests shed at the admission gate (reason: queue_full | "
+            "breaker_open | pool_exhausted | fair_share | draining; "
+            "tenant: edge-interned, so the series count stays bounded "
+            "at reasons x (top-K tenants + __other__))",
+        )
+        for r in ("queue_full", "breaker_open", "pool_exhausted", "fair_share"):
+            rejected.labels(reason=r, tenant="__other__")
+        self.admission.reject_counter = rejected
+        self._m_deadline = reg.labeled_counter(
+            "rag_deadline_exceeded_total",
+            "requests failed by their end-to-end deadline (stage label)",
+        )
+        for st in ("queue", "retrieve", "assemble", "generate", "decode"):
+            self._m_deadline.labels(stage=st)
+        self.admission.deadline_counter = self._m_deadline
+        self._m_degraded = reg.labeled_counter(
+            "rag_degraded_responses_total",
+            "answers served through a quality-degrading fallback (reason: "
+            "prefix_cache | sidecar)",
+        )
+        for r in ("prefix_cache", "sidecar"):
+            self._m_degraded.labels(reason=r)
+        reg.counter(
+            "rag_engine_resets_total",
+            "engine state resets (EngineStateLost / failed decode steps)",
+        )
+        retries = reg.labeled_counter(
+            "rag_inflight_retries_total",
+            "in-flight requests resubmitted after an engine reset "
+            "(outcome: resubmitted | succeeded | gave_up)",
+        )
+        for o in ("resubmitted", "succeeded", "gave_up"):
+            retries.labels(outcome=o)
+        join_counter = reg.counter(
+            "rag_scheduler_join_timeouts_total",
+            "scheduler shutdowns whose worker thread outlived join(timeout)",
+        )
+        reg.gauge(
+            "rag_breaker_open",
+            "1 while the engine-reset circuit breaker holds readiness at "
+            "503 (Kubernetes is draining this pod)",
+            fn=lambda: float(self.breaker.open),
+        )
+        reg.gauge(
+            "rag_breaker_recent_resets",
+            "engine resets inside the breaker window right now",
+            fn=lambda: float(self.breaker.recent_resets()),
+        )
+        reg.counter(
+            "rag_flight_events_total",
+            "events appended to the flight journal (ring-bounded; the "
+            "counter keeps growing past the ring)",
+            fn=lambda: float(flight.recorder().events_emitted),
+        )
+        for e in self._engines().values():
+            e.bind_metrics(reg)
+        sched = self.scheduler
+        if isinstance(sched, ContinuousScheduler):
+            sched.bind_metrics(reg)  # resets, retries, deadline children, join timeouts
+        elif sched is not None:
+            sched.join_timeout_counter = join_counter
+            sched.wait_histogram = wait.labels(stage="generate")
+        # the retrieve dispatch is the embed dispatch: one wait, both views
+        self.retrieve_coalescer.wait_histogram = _FanoutHistogram(
+            wait.labels(stage="retrieve"), wait.labels(stage="embed"),
+        )
+        self.retrieve_coalescer.join_timeout_counter = join_counter
+
+    def _engines(self) -> Dict[int, object]:
+        """The serving engines, deduplicated (the one-shot engine is also the
+        ``BatchScheduler``'s)."""
+        engines = {id(self.engine): self.engine}
+        sched_engine = getattr(self.scheduler, "engine", None)
+        if sched_engine is not None:
+            engines[id(sched_engine)] = sched_engine
+        return engines
+
+    def _engine_stat(self, name: str) -> float:
+        return float(sum(getattr(e.stats, name, 0) for e in self._engines().values()))
+
+    def _batch_occupancy(self) -> float:
+        """Continuous serving: the active rows; coalesced: the batch inside
+        ``engine.generate``; no scheduler: the generate claims in flight."""
+        sched = self.scheduler
+        if isinstance(sched, ContinuousScheduler):
+            return float(sum(1 for s in sched.engine.slots if s.active))
+        if sched is not None:
+            return float(sched.in_flight)
+        return float(self._inflight_generate)
+
+    def _queue_depth(self) -> float:
+        """Requests waiting toward the device: the admission gate's line plus
+        the scheduler's queue behind it."""
+        q = getattr(self.scheduler, "_queue", None)
+        return (float(q.qsize()) if q is not None else 0.0) + float(self.admission.queue_depth())
+
+    def observe_http(self, route: str, code: int) -> None:
+        """One served request's outcome (once per ``/generate`` or ``/query``)."""
+        self._m_http.labels(route=route, code=str(int(code))).inc()
+
+    def _observe_request(self, timings: Dict[str, float]) -> None:
+        """Feed the request and stage histograms from one answered request's
+        timings, exactly once per request. The assemble and detokenize
+        stages have no public timings key: their span sites leave private
+        ``_*_s`` entries, popped here."""
+        if "total_ms" in timings:
+            self._m_request.observe(timings["total_ms"] / 1e3)
+        for key, stage in (("embed_retrieve_ms", "retrieve"), ("prefix_resolve_ms", "prefix_resolve"),
+                           ("generate_ms", "generate")):
+            if key in timings:
+                self._m_stage.labels(stage=stage).observe(timings[key] / 1e3)
+        for key, stage in (("_assemble_s", "assemble"), ("_detokenize_s", "detokenize")):
+            v = timings.pop(key, None)
+            if v is not None:
+                self._m_stage.labels(stage=stage).observe(v)
+
+    def _trace_retrieve(self, parent, t0: float, timings: Dict[str, float]) -> None:
+        """Attach the retrieve stage's interior to the live ``retrieve``
+        span: the work ran on the coalescer's thread, so the tokenize and
+        embed+kNN split is synthesized from the timings' own numbers (the
+        ``embed_knn`` child includes the coalesce wait)."""
+        tr = tracing.current_trace()
+        if tr is None or parent is None:
+            return
+        pidx = next((i for i, sp in enumerate(tr.spans) if sp is parent), None)
+        if pidx is None:
+            return
+        tok_s = timings.get("tokenize_ms", 0.0) / 1e3
+        tr.add_span("tokenize", t0, tok_s, parent=pidx)
+        tr.add_span("embed_knn", t0 + tok_s, timings.get("embed_retrieve_ms", 0.0) / 1e3, parent=pidx)
+
+    def _degrade(self, notes: List[str], reason: str) -> None:
+        """Count one quality-degrading fallback and note it for the response."""
+        self._m_degraded.labels(reason=reason).inc()
+        if reason not in notes:
+            notes.append(reason)
+
+    @staticmethod
+    def _finish(resp: Dict, notes: List[str]) -> Dict:
+        """Stamp the degraded-mode markers onto a response."""
+        if notes:
+            resp["degraded"] = True
+            resp["degraded_reasons"] = list(notes)
+        return resp
 
     # -- ingest ---------------------------------------------------------
     def embed_texts(self, texts: List[str]) -> np.ndarray:
@@ -217,6 +460,7 @@ class RagService:
     def ingest_pdf_bytes(self, data: bytes, filename: str) -> int:
         """Extract → chunk → batch-embed → index (and save the snapshot when
         the store has a path). Returns the chunk count."""
+        t0 = time.monotonic()
         text = extract_text(data)
         r = self.config.retrieval
         chunks = split_text(text, r.chunk_size, r.chunk_overlap)
@@ -227,6 +471,8 @@ class RagService:
         added = self.store.add(list(vectors), metadata)
         if added and self.store.path:
             self.store.save()
+        self.metrics.observe("ingest_seconds", time.monotonic() - t0)
+        self.metrics.inc("ingested_chunks", added)
         logger.info("ingested %s: %d chunks (%d new)", filename, len(chunks), added)
         return len(chunks)
 
@@ -446,10 +692,10 @@ class RagService:
             self._inflight_retrieve -= int(retrieve)
             self._inflight_generate -= int(generate)
 
-    @staticmethod
-    def _deadline_check(deadline: Optional[Deadline], stage: str) -> None:
-        """One stage-boundary deadline check."""
+    def _deadline_check(self, deadline: Optional[Deadline], stage: str) -> None:
+        """One stage-boundary deadline check: count and raise on expiry."""
         if deadline is not None and deadline.expired():
+            self._m_deadline.labels(stage=stage).inc()
             raise DeadlineExceeded(stage, deadline.budget_ms)
 
     def answer(
@@ -460,35 +706,40 @@ class RagService:
         settings for this request; only the continuous scheduler takes it.
         ``deadline`` is checked after retrieval and after assembly and
         bounds the waits (``DeadlineExceeded`` names the stage); ``tenant``
-        rides to the scheduler."""
+        rides to the scheduler. Each stage is a span of the current trace
+        (``obs/tracing.py``)."""
         if sampling is not None and not isinstance(self.scheduler, ContinuousScheduler):
             raise ValueError("per-request sampling needs batching='continuous'")
         timings: Dict[str, float] = {}
+        notes: List[str] = []  # degraded-path reasons (response + counter)
         t_all = time.monotonic()
         with self._inflight_lock:
             self._inflight_retrieve += 1
             self._inflight_generate += 1
         in_retrieve = in_generate = True
         try:
-            try:
-                r = self.retrieve_coalescer.submit(
-                    user_prompt, timeout=deadline.wait_timeout() if deadline is not None else None
-                )
-            except TimeoutError:
-                raise DeadlineExceeded("retrieve", deadline.budget_ms if deadline else None) from None
+            with tracing.span("retrieve") as retrieve_span:
+                try:
+                    r = self.retrieve_coalescer.submit(
+                        user_prompt, timeout=deadline.wait_timeout() if deadline is not None else None
+                    )
+                except TimeoutError:
+                    self._m_deadline.labels(stage="retrieve").inc()
+                    raise DeadlineExceeded("retrieve", deadline.budget_ms if deadline else None) from None
             self._release(retrieve=True)
             in_retrieve = False
             self._deadline_check(deadline, "retrieve")
             if r[0] == "__device__":
                 timings["tokenize_ms"] = r[3]
                 timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - r[3]
+                self._trace_retrieve(retrieve_span, t_all, timings)
                 # a fused request never reaches the scheduler: release its
                 # generate claim now, or the scheduler's hint would wait for it
                 self._release(generate=True)
                 in_generate = False
-                resp = self._answer_fused(user_prompt, r, timings, t_all)
+                resp = self._answer_fused(user_prompt, r, timings, t_all, notes)
                 if resp is not None:
-                    return resp
+                    return self._finish(resp, notes)
                 with self._inflight_lock:
                     self._inflight_generate += 1
                 in_generate = True
@@ -500,37 +751,54 @@ class RagService:
                 results, tok_ms = r
                 timings["tokenize_ms"] = tok_ms
                 timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - tok_ms
+                self._trace_retrieve(retrieve_span, t_all, timings)
             if not results:
-                return {"generated_text": NO_RESULTS}
-            pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
-            context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
+                return self._finish({"generated_text": NO_RESULTS}, notes)
+            t_as = time.monotonic()
+            with tracing.span("assemble"):
+                pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
+                context, prompt_ids = pw if pw is not None else self._budgeted_prompt(user_prompt, results)
+            timings["_assemble_s"] = time.monotonic() - t_as
             self._deadline_check(deadline, "assemble")
             t0 = time.monotonic()
             gen_info: Dict[str, int] = {}
-            if self.scheduler is not None and len(prompt_ids) <= self._scheduler_prompt_cap():
-                extra = {"sampling": sampling} if isinstance(self.scheduler, ContinuousScheduler) else {}
-                try:
-                    out_ids = self.scheduler.submit(prompt_ids, deadline=deadline, info=gen_info, tenant=tenant,
-                                                    **extra)
-                except TimeoutError as e:
-                    if isinstance(e, DeadlineExceeded) or deadline is None or not deadline.expired():
+            with tracing.span("generate"):
+                if self.scheduler is not None and len(prompt_ids) <= self._scheduler_prompt_cap():
+                    extra = {"sampling": sampling} if isinstance(self.scheduler, ContinuousScheduler) else {}
+                    try:
+                        out_ids = self.scheduler.submit(prompt_ids, deadline=deadline, info=gen_info,
+                                                        tenant=tenant, **extra)
+                    except DeadlineExceeded as e:
+                        # the worker counted its own stages (queue, decode)
+                        if e.stage == "generate":
+                            self._m_deadline.labels(stage="generate").inc()
                         raise
-                    raise DeadlineExceeded("generate", deadline.budget_ms) from None
-            else:
-                # no scheduler, or past the continuous scheduler's largest
-                # bucket: the one-shot engine (chunked prefill) serves it whole
-                self._release(generate=True)
-                in_generate = False
-                out_ids = self.engine.generate([prompt_ids])[0]
+                    except TimeoutError:
+                        if deadline is None or not deadline.expired():
+                            raise
+                        self._m_deadline.labels(stage="generate").inc()
+                        raise DeadlineExceeded("generate", deadline.budget_ms) from None
+                else:
+                    # no scheduler, or past the continuous scheduler's largest
+                    # bucket: the one-shot engine (chunked prefill) serves it whole
+                    self._release(generate=True)
+                    in_generate = False
+                    out_ids = self.engine.generate([prompt_ids])[0]
             if in_generate:
                 self._release(generate=True)
                 in_generate = False
-            completion = self.llm_tokenizer.decode(out_ids)
+            t_de = time.monotonic()
+            with tracing.span("detokenize"):
+                completion = self.llm_tokenizer.decode(out_ids)
+            timings["_detokenize_s"] = time.monotonic() - t_de
             timings["generate_ms"] = (time.monotonic() - t0) * 1e3
             timings["total_ms"] = (time.monotonic() - t_all) * 1e3
         finally:
             # error paths and the no-results return release their claims too
             self._release(retrieve=in_retrieve, generate=in_generate)
+        self.metrics.observe("query_seconds", timings["total_ms"] / 1e3)
+        self.metrics.inc("query_decode_tokens", len(out_ids))
+        self._observe_request(timings)
         resp = {
             "generated_text": extract_answer(completion),
             "context": context,
@@ -539,37 +807,55 @@ class RagService:
         if "request_id" in gen_info:
             # continuous serving: the id keying this request's flight events
             resp["request_id"] = int(gen_info["request_id"])
-        return resp
+        return self._finish(resp, notes)
 
-    def _answer_fused(self, user_prompt: str, fused_r, timings, t_all):
+    def _answer_fused(self, user_prompt: str, fused_r, timings, t_all, notes: List[str]):
         """Device-side prompt assembly + generate from the unfetched
         retrieve output. None when head + tail leave fewer than 16 tokens of
-        room or the tail overflows the fused bucket (the host path serves)."""
+        room, the tail overflows the fused bucket, or the chunk-token
+        sidecar is unavailable (the host path serves; a broken sidecar is
+        counted as a degraded response)."""
         _, packed_dev, k_eff, tokenize_ms = fused_r
         t_b = time.monotonic()
         a_ids, b_ids = self._a_ids(), self._b_ids(user_prompt)
         S = max(self.engine.engine_config.prompt_buckets)
         if len(a_ids) + len(b_ids) + 16 > S or len(b_ids) > self.engine.RAG_TAIL_BUCKET:
             return None
-        snap = self.store.token_snapshot(blocking=False)
+        try:
+            # non-blocking: a sidecar build in progress falls back, not stalls
+            snap = self.store.token_snapshot(blocking=False)
+        except Exception:  # noqa: BLE001 — a sidecar failure must not fail the request
+            logger.exception("chunk-token sidecar unavailable; host fallback")
+            self._degrade(notes, "sidecar")
+            return None
         if snap is None:
             return None
         toks_dev, lens_dev = snap
         timings["tokenize_ms"] = tokenize_ms + (time.monotonic() - t_b) * 1e3
         n_ctx = min(self.config.retrieval.context_top_n, k_eff)
         t0 = time.monotonic()
-        out_ids = self.engine.generate_rag(a_ids, b_ids, packed_dev, toks_dev, lens_dev, n_chunks=n_ctx)
-        completion = self.llm_tokenizer.decode(out_ids)
+        with tracing.span("generate"):
+            out_ids = self.engine.generate_rag(a_ids, b_ids, packed_dev, toks_dev, lens_dev, n_chunks=n_ctx)
+        t_de = time.monotonic()
+        with tracing.span("detokenize"):
+            completion = self.llm_tokenizer.decode(out_ids)
+        timings["_detokenize_s"] = time.monotonic() - t_de
         timings["generate_ms"] = (time.monotonic() - t0) * 1e3
         # the ids for the response's context text: generation has synced
         # the stream many times already, so this read adds no wait
         packed = packed_dev.cpu().numpy()
         results = self.store.results_at(packed[0, k_eff:].astype(np.int64), packed[0, :k_eff])
-        n_kept, _, _ = self._kept_chunks(
+        n_kept, used, _ = self._kept_chunks(
             self.store.token_lengths(packed[0, k_eff : k_eff + n_ctx].astype(np.int64)),
             S - len(a_ids) - len(b_ids),
         )
+        # the chunk share of the device-assembled prompt, known only now
+        self.engine.record_prefill(used)
         timings["total_ms"] = (time.monotonic() - t_all) * 1e3
+        self.metrics.observe("query_seconds", timings["total_ms"] / 1e3)
+        self.metrics.inc("query_decode_tokens", len(out_ids))
+        self.metrics.inc("query_single_fetch", 1)
+        self._observe_request(timings)
         return {
             "generated_text": extract_answer(completion),
             "context": assemble_context(results, n_kept),
@@ -582,8 +868,10 @@ class RagService:
 # ---------------------------------------------------------------------------
 
 _REASONS = {200: "OK", 202: "ACCEPTED", 400: "BAD REQUEST", 403: "FORBIDDEN", 404: "NOT FOUND",
-            405: "METHOD NOT ALLOWED", 429: "TOO MANY REQUESTS", 500: "INTERNAL SERVER ERROR",
+            405: "METHOD NOT ALLOWED", 409: "CONFLICT", 429: "TOO MANY REQUESTS", 500: "INTERNAL SERVER ERROR",
             503: "SERVICE UNAVAILABLE", 504: "GATEWAY TIMEOUT"}
+PROMETHEUS_TEXT = "text/plain; version=0.0.4; charset=utf-8"
+TIMELINE_PREFIX = "/debug/timeline/"
 
 
 def _parse_multipart(body: bytes, content_type: str) -> Dict[str, tuple]:
@@ -618,10 +906,11 @@ def _parse_multipart(body: bytes, content_type: str) -> Dict[str, tuple]:
 
 @dataclasses.dataclass
 class Request:
-    """What a route handler sees of one request: the body, its content
-    type, the headers (lower-case names) and the query arguments."""
+    """What a route handler sees of one request: the path, the body, its
+    content type, the headers (lower-case names) and the query arguments."""
 
     method: str
+    path: str = "/"
     body: bytes = b""
     content_type: str = ""
     headers: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -642,7 +931,7 @@ class Request:
         headers = {k[5:].replace("_", "-").lower(): v for k, v in environ.items() if k.startswith("HTTP_")}
         args = {k: v[0] for k, v in parse_qs(environ.get("QUERY_STRING", ""), keep_blank_values=True).items()}
         return cls(
-            method=environ.get("REQUEST_METHOD", "GET"),
+            method=environ.get("REQUEST_METHOD", "GET"), path=environ.get("PATH_INFO", "/"),
             body=environ["wsgi.input"].read(length) if length else b"",
             content_type=environ.get("CONTENT_TYPE", ""),
             headers=headers, args=args,
@@ -654,6 +943,13 @@ class Response:
         self.status_code = status
         self.data = body
         self.headers = dict(headers or {})
+
+    @property
+    def content_type(self) -> str:
+        return self.headers.get("Content-Type", "")
+
+    def get_data(self, as_text: bool = False):
+        return self.data.decode() if as_text else self.data
 
     def get_json(self):
         return json.loads(self.data)
@@ -707,7 +1003,9 @@ class TestClient:
 
 class WsgiApp:
     """The routes over WSGI. A handler takes a :class:`Request` and returns
-    ``(status, payload)`` or ``(status, payload, extra_headers)``."""
+    ``(status, payload)`` or ``(status, payload, extra_headers)``; a dict
+    payload is sent as JSON, a str as text of the ``Content-Type`` header it
+    names."""
 
     ROUTES = {
         "/upload_pdf": (("POST",), "upload_pdf"),
@@ -716,31 +1014,64 @@ class WsgiApp:
         "/index_info": (("GET",), "index_info"),
         "/healthz": (("GET",), "healthz"),
         "/drain": (("POST",), "drain"),
+        "/metrics": (("GET",), "metrics"),
+        "/profile": (("POST",), "profile"),
+        "/debug/traces": (("GET",), "debug_traces"),
         "/debug/faults": (("GET", "POST"), "debug_faults"),
     }
 
     def __init__(self, service: RagService):
         self.service = service
+        # one profile capture at a time, either mode: its end time (epoch
+        # seconds; inf for a blocking capture) while one runs
+        self._profile_lock = threading.Lock()
+        self._profile_until: Optional[float] = None
+
+    def _route(self, path: str):
+        """``(methods, endpoint, kwargs)`` for ``path``, or None: the exact
+        paths, and ``/debug/timeline/<rid>`` with a decimal ``rid``."""
+        route = self.ROUTES.get(path)
+        if route is not None:
+            return route + ({},)
+        rid = path[len(TIMELINE_PREFIX):]
+        if path.startswith(TIMELINE_PREFIX) and rid and all("0" <= c <= "9" for c in rid):
+            return ("GET",), "debug_timeline", {"rid": int(rid)}
+        return None
 
     def __call__(self, environ, start_response):
         path, method = environ.get("PATH_INFO", "/"), environ.get("REQUEST_METHOD", "GET")
-        route = self.ROUTES.get(path)
+        route = self._route(path)
         extra: Dict[str, str] = {}
         if route is None:
             status, payload = 404, {"error": "not found"}
         elif method not in route[0]:
             status, payload = 405, {"error": "method not allowed"}
         else:
-            out = getattr(self, f"ep_{route[1]}")(Request.from_environ(environ))
+            out = getattr(self, f"ep_{route[1]}")(Request.from_environ(environ), **route[2])
             status, payload = out[:2]
             if len(out) > 2:
-                extra = out[2]
-        data = json.dumps(payload).encode()
+                extra = dict(out[2])
+        if isinstance(payload, str):
+            data = payload.encode()
+            ctype = extra.pop("Content-Type", "text/plain")
+        else:
+            data = json.dumps(payload).encode()
+            ctype = "application/json"
         start_response(
             f"{status} {_REASONS.get(status, '')}",
-            [("Content-Type", "application/json"), ("Content-Length", str(len(data))), *extra.items()],
+            [("Content-Type", ctype), ("Content-Length", str(len(data))), *extra.items()],
         )
         return [data]
+
+    def _debug_enabled(self) -> bool:
+        """One armed state for every read-only ``/debug`` route: 403 unless
+        the process started with ``TPU_RAG_FAULTS`` set or ``TPU_RAG_DEBUG=1``
+        (``/debug/faults`` keeps its stricter gate)."""
+        return faults.endpoint_enabled() or self.service.config.flight.debug_endpoints
+
+    @staticmethod
+    def _debug_forbidden():
+        return 403, {"error": "debug endpoints disabled (set TPU_RAG_FAULTS or TPU_RAG_DEBUG)"}
 
     def ep_upload_pdf(self, request: Request):
         ct = request.content_type
@@ -779,32 +1110,75 @@ class WsgiApp:
         return Deadline(ms), None
 
     def ep_generate(self, request: Request):
-        """The JAX ``ep_generate``: deadline, tenant, the admission gate,
-        then ``answer``. A ``sampling`` field is not read (per-request
-        sampling is the Python API, ``RagService.answer(sampling=)``)."""
+        """The JAX ``ep_generate``: the trace (adopting a valid
+        ``traceparent``; a malformed one is no header), deadline, tenant,
+        the admission gate, then ``answer``. ``{"trace": true}`` returns the
+        span tree inline, ``{"timeline": true}`` the request's flight
+        timeline on continuous serving. Every response carries
+        ``x-trace-id`` and ``traceparent``. A ``sampling`` field is not read
+        (per-request sampling is the Python API,
+        ``RagService.answer(sampling=)``)."""
         svc = self.service
+        ctx = obs_logging.parse_traceparent(request.headers.get("traceparent"))
+        t0 = time.monotonic()
+        status = 200
+        headers: Dict[str, str] = {}
+        tr = tracing.start_trace(trace_id=ctx.trace_id if ctx else None,
+                                 parent_span_id=ctx.span_id if ctx else None)
+        trace_id, span_id = tr.trace_id, tr.span_id
         try:
             data = request.json()
             prompt = data.get("prompt", "")
             raw_tenant = data.get("tenant_id") or request.headers.get("x-tenant-id") or DEFAULT_TENANT
             tenant = svc.tenant_tracker.intern(str(raw_tenant))
+            tr.attrs["tenant"] = tenant
+            logger.debug("User query: %s", prompt)
+            tr.attrs["prompt"] = prompt[:80]
             deadline, dl_err = self._request_deadline(data, request.headers)
             if dl_err is not None:
-                return 400, {"error": dl_err}
-            with svc.admission.admit(deadline=deadline, tenant=tenant):
-                return 200, svc.answer(prompt, deadline=deadline, tenant=tenant)
+                status, payload = 400, {"error": dl_err}
+            else:
+                with svc.admission.admit(deadline=deadline, tenant=tenant):
+                    payload = svc.answer(prompt, deadline=deadline, tenant=tenant)
+                # the access line while the trace is current (the JSON
+                # formatter stamps trace_id/span_id from the contextvar)
+                access_logger.info("request served", extra={
+                    "route": request.path, "status": 200,
+                    "duration_ms": round((time.monotonic() - t0) * 1e3, 2),
+                })
+                tree = tracing.finish_trace(tr, svc.traces)
+                tr = None
+                if data.get("trace"):
+                    payload = dict(payload, trace=tree)
+                if data.get("timeline") and payload.get("request_id") is not None:
+                    payload = dict(payload, timeline=svc.flight.timeline(payload["request_id"]))
         except AdmissionRejected as e:
             # 429: retry this pod later; 503: the breaker or a drain, go elsewhere
-            return e.status, {
+            status, payload = e.status, {
                 "error": "server overloaded" if e.status == 429 else "server draining",
                 "reason": e.reason,
                 "retry_after_s": round(e.retry_after_s, 3),
-            }, {"Retry-After": str(max(1, int(e.retry_after_s + 0.5)))}
+            }
+            headers["Retry-After"] = str(max(1, int(e.retry_after_s + 0.5)))
         except DeadlineExceeded as e:
-            return 504, {"error": str(e), "stage": e.stage}
+            status, payload = 504, {"error": str(e), "stage": e.stage}
         except Exception as e:  # noqa: BLE001 — any failure → JSON error
+            status = 500
             logger.exception("generate failed")
-            return 500, {"error": str(e)}
+            payload = {"error": str(e)}
+        finally:
+            if tr is not None:  # a non-200 answer keeps its partial trace
+                tr.attrs["error"] = True
+                tr.attrs["status"] = status
+                access_logger.info("request failed", extra={
+                    "route": request.path, "status": status,
+                    "duration_ms": round((time.monotonic() - t0) * 1e3, 2),
+                })
+                tracing.finish_trace(tr, svc.traces)
+        headers["x-trace-id"] = trace_id
+        headers["traceparent"] = obs_logging.format_traceparent(trace_id, span_id)
+        svc.observe_http(request.path, status)
+        return status, payload, headers
 
     def ep_index_info(self, request: Request):
         return 200, self.service.store.info()
@@ -812,7 +1186,9 @@ class WsgiApp:
     def ep_healthz(self, request: Request):
         """Readiness (503 while warming, while the breaker is open, or while
         draining), or with ``?live=1`` liveness: 200 whenever the process
-        answers, so the pod is not restarted mid-drain or mid-reset."""
+        answers, so the pod is not restarted mid-drain or mid-reset. The
+        fleet fields follow the JAX body: uptime, the port's version, the
+        engine mode and the device platform and count."""
         svc = self.service
         dev = svc.engine.device
         breaker_open = svc.breaker.open
@@ -822,15 +1198,47 @@ class WsgiApp:
         live = bool(request.args.get("live"))
         payload = {
             "status": ("alive" if live else "ok") if (ready or live) else ("draining" if draining else "warming"),
+            "uptime_s": round(time.monotonic() - svc.started_at, 1),
+            "version": __version__,
             "engine_mode": engine_mode(svc.scheduler),
             "device_platform": dev.type,
-            "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+            "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
             "ready": ready,
             "breaker_open": breaker_open,
             "breaker_recent_resets": svc.breaker.recent_resets(),
             "draining": lifecycle_draining,
         }
         return (200 if (ready or live) else 503), payload
+
+    def ep_metrics(self, request: Request):
+        """One scrape of the service's registry: Prometheus text exposition
+        by default, the flat JSON snapshot under ``Accept:
+        application/json`` (the same values)."""
+        reg = self.service.metrics
+        if "application/json" in request.headers.get("accept", ""):
+            return 200, reg.snapshot()
+        return 200, reg.render_prometheus(), {"Content-Type": PROMETHEUS_TEXT}
+
+    def ep_debug_traces(self, request: Request):
+        """The newest request span trees from the ring (``?limit=N``)."""
+        if not self._debug_enabled():
+            return self._debug_forbidden()
+        try:
+            limit = int(request.args["limit"])
+        except (KeyError, ValueError):
+            limit = None
+        return 200, {"traces": self.service.traces.list(limit)}
+
+    def ep_debug_timeline(self, request: Request, rid: int):
+        """One request's flight-journal lifecycle, keyed by the ``request_id``
+        a continuous ``/generate`` response carries."""
+        if not self._debug_enabled():
+            return self._debug_forbidden()
+        tl = self.service.flight.timeline(rid)
+        if not tl["events"]:
+            return 404, {"error": f"no journaled events for request {rid} "
+                                  "(completed past the ring, or never admitted)"}
+        return 200, tl
 
     def ep_drain(self, request: Request):
         """Begin the graceful drain (the deployment's preStop hook): 202 when
@@ -861,8 +1269,131 @@ class WsgiApp:
         except (TypeError, ValueError) as e:  # unknown site, bad count
             return 400, {"error": str(e)}
 
+    def ep_profile(self, request: Request):
+        """Capture a ``torch.profiler`` trace: the CUDA activity of every
+        thread when the service runs on the card (kernels, runtime calls),
+        and the CPU ops and ``record_function`` ranges of the capturing
+        thread. Two modes, one capture at a time (409 with ``until`` while
+        one runs):
+
+        - ``{"seconds": N, "dir": str?}`` returns at once; a capture thread
+          owns the profiler (it is started and stopped on one thread) and
+          writes the trace after ``N`` seconds of live traffic,
+          ``0 < N <= 300`` or 400;
+        - ``{"prompt": str?, "dir": str?}`` traces one ``service.answer``
+          on the handler's thread (on the fused path that thread runs the
+          spans and the decode loop; the retrieve's kernels run on the
+          coalescer's) and returns when the trace is written.
+
+        The trace is a Chrome-trace JSON file under ``dir`` (default: the
+        system temp directory's ``tpu_rag_trace``), named in the response;
+        open it in ``chrome://tracing`` or Perfetto. A profiler that fails
+        to start answers 500."""
+        try:
+            data = request.json()
+            trace_dir = str(data.get("dir") or os.path.join(tempfile.gettempdir(), "tpu_rag_trace"))
+            if "seconds" in data:
+                seconds = float(data["seconds"])
+                if not 0 < seconds <= 300:
+                    return 400, {"error": "seconds must be in (0, 300]"}
+                with self._profile_lock:
+                    if self._profile_until is not None:
+                        return self._profile_busy()
+                    self._profile_until = time.time() + seconds
+                try:
+                    path = self._start_window_capture(trace_dir, seconds)
+                except BaseException:
+                    with self._profile_lock:
+                        self._profile_until = None
+                    raise
+                return 200, {
+                    "trace_dir": trace_dir, "trace_file": path, "seconds": seconds,
+                    "message": "background capture started around live traffic; the trace is "
+                               "written when the window closes (chrome://tracing or Perfetto)",
+                }
+            with self._profile_lock:
+                if self._profile_until is not None:
+                    return self._profile_busy()
+                self._profile_until = float("inf")  # blocking: the end is unknown
+            try:
+                path = _trace_path(trace_dir)
+                dev = self.service.engine.device
+                with _profiler(dev) as prof:
+                    result = self.service.answer(str(data.get("prompt", "What is this document about?")))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                prof.export_chrome_trace(path)
+            finally:
+                with self._profile_lock:
+                    self._profile_until = None
+            return 200, {
+                "trace_dir": trace_dir, "trace_file": path, "timings": result.get("timings"),
+                "message": "trace captured; open it in chrome://tracing or Perfetto",
+            }
+        except Exception as e:  # noqa: BLE001 — any failure → JSON error
+            logger.exception("profile failed")
+            return 500, {"error": str(e)}
+
+    def _profile_busy(self):
+        until = self._profile_until
+        return 409, {"error": "a profile capture is already running",
+                     "until": until if until != float("inf") else None}
+
+    def _start_window_capture(self, trace_dir: str, seconds: float) -> str:
+        """Start the profiler on a capture thread that stops it after
+        ``seconds`` and writes the trace; returns the trace's path once the
+        profiler runs, or raises what starting it raised."""
+        path = _trace_path(trace_dir)
+        dev = self.service.engine.device
+        started = threading.Event()
+        failed: List[BaseException] = []
+
+        def capture():
+            try:
+                prof = _profiler(dev)
+                prof.start()
+            except BaseException as e:  # noqa: BLE001 — re-raised in the handler
+                failed.append(e)
+                started.set()
+                return
+            started.set()
+            try:
+                time.sleep(seconds)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                prof.stop()
+                prof.export_chrome_trace(path)
+                logger.info("profile window written to %s", path)
+            except Exception:  # noqa: BLE001 — logged; the next capture may start
+                logger.exception("profile window capture failed")
+            finally:
+                with self._profile_lock:
+                    self._profile_until = None
+
+        threading.Thread(target=capture, daemon=True, name="profile-capture").start()
+        started.wait()
+        if failed:
+            raise failed[0]
+        return path
+
     def test_client(self) -> TestClient:
         return TestClient(self)
+
+
+def _profiler(device: torch.device):
+    """A ``torch.profiler``: CPU activity (the thread that starts it) and, on
+    the card, CUDA activity (every thread's kernels). Not the profiler's
+    every-thread CPU option: on torch 2.11 with CUDA it leaves each thread
+    that ran during the capture ~2x slower per op afterwards (an 8B decode
+    forward issued in ~35 ms instead of ~18 ms), which would slow the
+    serving workers for good."""
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    return torch.profiler.profile(activities=acts)
+
+
+def _trace_path(trace_dir: str) -> str:
+    os.makedirs(trace_dir, exist_ok=True)
+    return os.path.join(trace_dir, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-{time.monotonic_ns() % 10**9}.json")
 
 
 def create_app(service: RagService) -> WsgiApp:

@@ -24,14 +24,15 @@ and serves on a threading WSGI server (``server.app.make_server``), one
 thread per request, so concurrent requests coalesce. SIGTERM starts the
 graceful drain (``resilience/lifecycle.py``): new and queued requests get
 503 ``draining``, the ones in flight finish within ``drain_deadline_s``,
-then the process exits with 0.
+then the process exits with 0. ``TPU_RAG_JSON_LOGS=1`` makes every log line
+one JSON object carrying the request's trace and span ids
+(``obs/logging.py``), installed before anything logs.
 
 Run: ``python -m rag_llm_k8s_tpu_torch.server.main`` (environment keys:
 ``core.config.AppConfig.from_env``).
 
 Not ported yet (``ROADMAP.md`` Queue 1): the WAL restore of the JAX entry
-point (item 8), its JSON logs and observability endpoints (item 9b), and
-the device mesh (item 10: the port serves one card).
+point (item 8) and the device mesh (item 10: the port serves one card).
 """
 
 from __future__ import annotations
@@ -45,6 +46,20 @@ import time
 from typing import Optional
 
 logger = logging.getLogger(__name__)
+
+
+def configure_logging(env: Optional[dict] = None) -> None:
+    """The process's log format: trace-correlated JSON lines under
+    ``TPU_RAG_JSON_LOGS`` (``1``, ``true`` or ``yes``), else the plain
+    format; ``TPU_RAG_LOG_LEVEL`` sets the level either way."""
+    env = os.environ if env is None else env
+    level = env.get("TPU_RAG_LOG_LEVEL", "INFO")
+    if env.get("TPU_RAG_JSON_LOGS", "").lower() in ("1", "true", "yes"):
+        from rag_llm_k8s_tpu_torch.obs.logging import configure_json_logging
+
+        configure_json_logging(level)
+    else:
+        logging.basicConfig(level=level)
 
 
 def build_service(config=None, device=None, info: Optional[dict] = None):
@@ -144,7 +159,7 @@ def main() -> None:
 
     from rag_llm_k8s_tpu_torch.server.app import make_server
 
-    logging.basicConfig(level=os.environ.get("TPU_RAG_LOG_LEVEL", "INFO"))
+    configure_logging()
     service = build_service()
     service.ingest_directory()
     if service.store.ntotal == 0:

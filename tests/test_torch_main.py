@@ -272,13 +272,14 @@ PORTED_ENV = {
     "TPU_RAG_KV_BLOCK_SIZE": "32", "TPU_RAG_KV_POOL_BLOCKS": "100", "TPU_RAG_INTERLEAVE_PREFILL": "1",
     "TPU_RAG_PREFILL_CHUNK_TOKENS": "32", "TPU_RAG_WINDOW_TOKEN_BUDGET": "48", "TPU_RAG_DO_SAMPLE": "0",
     "TPU_RAG_SPECULATIVE": "off", "TPU_RAG_SYNC_STEPS": "4", "TPU_RAG_FUSED": "0",
+    "TPU_RAG_DEBUG": "1", "TPU_RAG_FLIGHT_EVENTS": "1024",
 }
 
 
 def _shared(port_cfg, jax_cfg):
     """Every field the two configs share, section by section."""
     out = {}
-    for section in ("server", "sampling", "engine", "retrieval"):
+    for section in ("server", "sampling", "engine", "retrieval", "flight"):
         p, j = getattr(port_cfg, section), getattr(jax_cfg, section)
         names = {f.name for f in dataclasses.fields(p)} & {f.name for f in dataclasses.fields(j)}
         out[section] = {n: (getattr(p, n), getattr(j, n)) for n in sorted(names)}
@@ -306,6 +307,7 @@ def test_from_env_matches_the_jax_config_on_every_shared_field(key):
     {"TPU_RAG_ADMISSION_RETRY_AFTER_S": "-0.5"}, {"TPU_RAG_DEADLINE_MS": "0"}, {"TPU_RAG_DEADLINE_MS": "soon"},
     {"TPU_RAG_BREAKER_RESETS": "0"}, {"TPU_RAG_BREAKER_WINDOW_S": "0.5"}, {"TPU_RAG_INFLIGHT_RETRIES": "-1"},
     {"TPU_RAG_RETRY_BACKOFF_MS": "-1"}, {"TPU_RAG_DRAIN_DEADLINE_S": "0"}, {"TPU_RAG_DRAIN_RETRY_AFTER_S": "-1"},
+    {"TPU_RAG_DEBUG": "yes"}, {"TPU_RAG_FLIGHT_EVENTS": "0"}, {"TPU_RAG_FLIGHT_EVENTS": "many"},
 ])
 def test_from_env_validation_messages_match(env):
     with pytest.raises(ValueError) as want:
@@ -360,3 +362,31 @@ def test_keys_that_leave_unported_features_off_are_accepted(caplog):
     with caplog.at_level("WARNING"):
         AppConfig.from_env(env)
     assert "TPU_RAG_SLO_TTFT_P95_S" in caplog.text  # logged as ignored, not silently
+
+
+def test_json_logs_make_a_request_line_one_object_with_its_trace_id(booted):
+    """``TPU_RAG_JSON_LOGS=1``: ``main()`` installs the JSON formatter before
+    anything logs; a request's access line is then one JSON object carrying
+    the trace id the response names."""
+    import io
+    import logging
+
+    svc, _ = booted
+    root = logging.getLogger()
+    saved = (list(root.handlers), root.level)
+    try:
+        tmain.configure_logging({"TPU_RAG_JSON_LOGS": "1", "TPU_RAG_LOG_LEVEL": "INFO"})
+        (handler,) = root.handlers
+        handler.setStream(buf := io.StringIO())
+        r = create_app(svc).test_client().post("/generate", json_body={"prompt": QUESTIONS[0]})
+    finally:
+        for h in list(root.handlers):
+            root.removeHandler(h)
+        for h in saved[0]:
+            root.addHandler(h)
+        root.setLevel(saved[1])
+    assert r.status_code == 200
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]  # every line one object
+    access = [d for d in lines if d["logger"] == "rag_llm_k8s_tpu_torch.access"]
+    assert len(access) == 1 and access[0]["trace_id"] == r.headers["x-trace-id"]
+    assert access[0]["status"] == 200 and access[0]["route"] == "/generate" and access[0]["span_id"]

@@ -244,8 +244,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "need = {'engine.continuous', 'engine.kv_pool', 'sim.policy', 'server.app', 'ops.attention',\n"
         "        'tokenizer.bpe', 'tokenizer.unigram', 'models.loader', 'engine.batching', 'server.main',\n"
-        "        'obs.flight', 'obs.metrics', 'resilience', 'resilience.faults', 'resilience.deadline',\n"
-        "        'resilience.breaker', 'resilience.admission', 'resilience.lifecycle'}\n"
+        "        'obs.flight', 'obs.metrics', 'obs.tracing', 'obs.logging', 'resilience', 'resilience.faults',\n"
+        "        'resilience.deadline', 'resilience.breaker', 'resilience.admission', 'resilience.lifecycle'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )
