@@ -57,6 +57,22 @@
    one served request whose kernel events must match the launch counters
    one for one (busy share, one decode forward, top ops and idle gaps
    printed), and a capture window over two live requests.
+   Then the KV prefix cache (``phase_prefix_cache``): (a) kernels 3-6 (bf16
+   and int8 cache) at the shapes only the prefixed path gives them (segment
+   buckets at offsets off every tile, the suffix buckets at a ~2,900-token
+   prefix, decode over that cache) against their plain versions, timed with
+   SDPA beside the bf16 ones; (b) a service with ``TPU_RAG_PREFIX_CACHE=1``
+   (``reuse="exact"``, the head pinned at warmup): one query as a miss and a
+   hit (the same tokens), the cached-prefix logits against a cold prefill's
+   (a planted fault must fall outside), the launch counters zeroed before
+   and read after (the dense decode and chunk kernels and no paged one;
+   under int8 KV the q8 pair and no bf16 cache kernel), and 12 prefixed
+   requests' ``total_ms`` beside the fused path's; (c) chunk reuse over a
+   shuffled chunk order (re-rotated chunks' layer-0 K against the cold
+   prefill's, the un-rotated fault rejected; ``rope_rerotate`` on the card
+   equal to the CPU); (d) tiering: warm demotion frees device memory, a cold
+   spill's swap-in restores the same bytes, a planted ``kv_swap_in`` fault
+   recomputes and leaks no host buffer.
 6. Continuous phases: 8 concurrent ``/generate`` requests from threads
    through a ``ContinuousScheduler`` (paged arena, interleaved admission)
    over the same model and store, counters zeroed before and read after
@@ -2629,7 +2645,11 @@ def phase_observability(service_bits, max_new_profiled: int = 16):
     t_lo = min(e["ts"] for e in ranges if e["name"] == "retrieve")
     t_hi = max(e["ts"] + e["dur"] for e in ranges if e["name"] == "detokenize")
     summ = trace_summary.summarize(trace, t_lo, t_hi)
-    in_trace = summ["wrapper_launches"]
+    # the launches are matched over every kernel of the capture, which holds
+    # this one request, as in (e): the kernels' device timestamps can end a
+    # few ms past the host's detokenize range (466 of 480 decode kernels
+    # inside it in one run)
+    in_trace = trace_summary.wrapper_launches(trace_summary.events(trace, "kernel"))
     fwd = {n: trace_summary.forward(trace, n) for n in ("decode_forward", "verify_forward")}
     print(f"observability (d) /profile blocking: wall_s={wall:.2f} trace_mb={size_mb:.1f} "
           f"timings={json.dumps(body['timings'])} launches={json.dumps(counted)} "
@@ -2688,6 +2708,500 @@ def phase_observability(service_bits, max_new_profiled: int = 16):
             or in_window != counted):
         fail(f"observability (e): 409s {second.status_code}/{blocking}, 400s {bad}, {codes}, inside {inside}, "
              f"trace {in_window} != launches {counted}")
+
+
+# ---------------------------------------------------------------------------
+# the KV prefix cache and tiering (phase_prefix_cache)
+# ---------------------------------------------------------------------------
+
+PREFIX_KERNELS = ("knn_topk", "flash_attention", "decode_attention", "chunk_prefill_attention")
+PREFIX_Q8 = ("knn_topk", "flash_attention", "decode_attention_q8", "chunk_prefill_attention_q8")
+PAGED_KERNELS = ("paged_decode_attention", "paged_chunk_attention", "paged_decode_attention_q8",
+                 "paged_chunk_attention_q8")
+PREFIX_P = 4096  # PrefixCacheConfig.max_prefix_tokens, the splice buffer's width
+PREFIX_TIMING_KEYS = ("prefix_resolve_ms", "prefix_reuse_frac", "prefill_tokens_skipped",
+                      "prefill_tokens_skipped_frac")
+# a planted fault in the prefixed logits (the prefix one token short) must
+# move them past this many times the bf16 noise floor that the gate allows
+PREFIX_NOISE_FACTOR = 4.0
+# re-rotated bf16 K (fp32 rotation of a bf16 value, rounded again) against K
+# rotated once at its position in bf16: a few bf16 roundings (2**-8 each)
+PREFIX_K0_TOL = 2.0**-6
+
+
+def _prefix_kernel_case(tag, S, wi, kl_i, T, q8, g, L=4):
+    """One dense-cache kernel at a prefixed-path shape: ``S`` queries (1:
+    decode) written at ``wi`` over the key window ``[0, kl_i)`` of a
+    ``T``-slot cache, NaN outside the window (NaN scales and random payload
+    under int8) for the kernel, zeros for the plain version; planted
+    faults must be rejected. Returns the row of numbers (times for bf16)."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    K, H, hd = 8, 32, 128
+    layer = L // 2 + 1
+    kc, vc, kz, vz = _cache_pair(L, 1, K, T, hd, 0, kl_i, g)
+    if q8:
+        vc, vz = _scale_rows(g, vc, vz)
+    q = torch.randn(1, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks = torch.zeros(1, device=dev, dtype=torch.int32)
+    kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+    _sharpen_edges(q, (kc, kz), layer, wi, 0)
+    if q8:
+        (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+        (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+        del kc, vc, kz, vz
+        if S == 1:
+            kern = lambda lay: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, lay)  # noqa: E731
+            plain = lambda lay, ks=ks, kl=kl, wi=wi: A.decode_attention_xla_q8(  # noqa: E731
+                q, k8, v8, ksz, vsz, ks, kl, lay)
+        else:
+            kern = lambda lay: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, lay, wi)  # noqa: E731
+            plain = lambda lay, ks=ks, kl=kl, wi=wi: A.chunk_attention_xla_q8(  # noqa: E731
+                q, k8, v8, ksz, vsz, ks, kl, lay, wi)
+    else:
+        if S == 1:
+            kern = lambda lay: A.decode_attention(q, kc, vc, ks, kl, lay)  # noqa: E731
+            plain = lambda lay, ks=ks, kl=kl, wi=wi: A.decode_attention_xla(q, kz, vz, ks, kl, lay)  # noqa: E731
+        else:
+            kern = lambda lay: A.chunk_prefill_attention(q, kc, vc, ks, kl, lay, wi)  # noqa: E731
+            plain = lambda lay, ks=ks, kl=kl, wi=wi: A.chunk_attention_xla(q, kz, vz, ks, kl, lay, wi)  # noqa: E731
+    name = ("decode_attention" if S == 1 else "chunk_prefill_attention") + ("_q8" if q8 else "")
+    got = kern(layer)
+    err, rms = _attn_check(f"{name} {tag}", got, plain(layer))
+    if S == 1:
+        faults = {"kv_len-1": plain(layer, kl=kl - 1), "layer-1": plain(layer - 1)}
+    else:
+        faults = {"write_index+1": plain(layer, wi=wi + 1), "write_index-1": plain(layer, wi=wi - 1)}
+    fault_rms = _attn_faults(f"{name} {tag}", got, faults)
+    del got, faults
+    row = dict(shape=f"S={S} write_index={wi} window=[0,{kl_i}) T={T} H=32 K=8 hd=128", max_abs_err=err,
+               rel_rms=rms)
+    line = f"phase prefix_cache (a) {name} {tag} {row['shape']}: {_attn_line(err, rms, fault_rms)}"
+    if not q8:
+        # the bf16 rows are timed: each call reads another layer
+        pos = torch.arange(T, device=dev)
+        qpos = wi + torch.arange(S, device=dev)
+        mask = (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None]) if S > 1 else (pos < kl_i)[None, :]
+        qt, m4 = q.transpose(1, 2), mask[None, None]
+        ms = time_ms(lambda i: kern(i % L), iters=32 if S <= 128 else 8)
+        plain_ms = time_ms(lambda i: plain(i % L), iters=3, warmup=1)
+        lib_ms = time_ms(lambda i: sdpa(qt, kz[i % L], vz[i % L], m4), iters=5)
+        b_ms, b_by = bound(2 * K * kl_i * hd * 2 + 2 * q.numel() * 2, 4.0 * H * hd * mask.sum().item(), BF16_FLOPS)
+        row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        line += f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
+    print(line, flush=True)
+    return name, row
+
+
+def phase_prefix_kernels(rows):
+    """(a) Kernels 3-6 at the shapes only the prefixed path gives them: the
+    segment builder (a segment bucket's queries at the head's or the
+    earlier chunks' length, an offset off every tile edge), the suffix
+    prefill (the suffix buckets at a ~2,900-token prefix) and decode over
+    that cache."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    cases = []
+    for Sb, ctx in ((64, 157), (256, 1110), (1024, 157), (2048, 2063)):
+        cases.append((f"segment Sb={Sb}", Sb, ctx, ctx + Sb - 13, -(-(PREFIX_P + Sb) // 128) * 128))
+    plen = 2900
+    for S_suf in (128, 512, 2048):
+        cases.append((f"suffix S_suf={S_suf}", S_suf, plen, plen + S_suf - 37,
+                      -(-(PREFIX_P + S_suf + 150) // 128) * 128))
+    T_dec = -(-(PREFIX_P + 128 + 150) // 128) * 128
+    cases.append((f"decode T={T_dec}", 1, plen + 91 + 74, plen + 91 + 75, T_dec))
+    for q8 in (False, True):
+        for tag, S, wi, kl_i, T in cases:
+            name, row = _prefix_kernel_case(tag, S, wi, kl_i, T, q8, g)
+            rows[name].setdefault("prefix_shapes", []).append(dict(case=tag, **row))
+            torch.cuda.empty_cache()
+
+
+def _prefix_service(service_bits, max_new=150, kv_quant="bf16", tiering=False, **pc):
+    """A one-shot service with the prefix cache on (``pc``:
+    ``PrefixCacheConfig`` fields; ``tiering``: ``KVTieringConfig`` on) over
+    the main service's model, store, encoder and tokenizers, greedy, warmed
+    (which pins and builds the head)."""
+    from rag_llm_k8s_tpu_torch.core.config import KVTieringConfig, PrefixCacheConfig, SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
+
+    svc1, _, engine, store = service_bits
+    ec = dataclasses.replace(engine.engine_config, kv_quant=kv_quant,
+                             prefix_cache=PrefixCacheConfig(enabled=True, **pc),
+                             kv_tiering=KVTieringConfig(enabled=tiering))
+    eng = InferenceEngine(engine.config, engine.model, SamplingConfig(do_sample=False, max_new_tokens=max_new),
+                          ec, engine.dtypes, engine.device)
+    svc = RagService(dataclasses.replace(svc1.config, engine=ec), eng, svc1.llm_tokenizer, svc1.encoder,
+                     svc1.encoder_tokenizer, store, scheduler=BatchScheduler(eng, max_wait_ms=30.0))
+    svc.warmup()
+    head = (f"head:{len(svc._a_ids())}",) + ((0, ()) if pc.get("reuse", "exact") == "exact" else ())
+    e = eng.prefix_cache._entries.get(head)
+    if e is None or not e.pinned:
+        fail(f"prefix cache: the head {head} is not built and pinned at warmup")
+    return svc, create_app(svc).test_client(), eng
+
+
+def _prefixed_ask(svc, client, q, what):
+    """One /generate that must take the prefixed path: 200, the timings
+    keys, no degraded note, ``query_prefix_cached`` up by one."""
+    before = svc.metrics.counter("query_prefix_cached").value
+    r = client.post("/generate", json_body={"prompt": q})
+    body = r.get_json()
+    if r.status_code != 200 or "Document '" not in body.get("context", ""):
+        fail(f"prefix_cache {what}: {r.status_code} {body}")
+    t = body["timings"]
+    if body.get("degraded") or any(k not in t for k in PREFIX_TIMING_KEYS) or not all(
+            math.isfinite(v) for v in t.values()):
+        fail(f"prefix_cache {what}: not served by the prefixed path: {body}")
+    if svc.metrics.counter("query_prefix_cached").value != before + 1:
+        fail(f"prefix_cache {what}: query_prefix_cached did not rise")
+    return t
+
+
+def _segments_of(svc, q):
+    results, _ = svc._retrieve(q)
+    return svc._prompt_segments(q, results), results
+
+
+def _logits_prefixed(eng, b_ids, cp):
+    import torch
+
+    with torch.inference_mode(), eng._run_lock:
+        logits, _, _ = eng.prefill_prefixed(b_ids, cp, 1)
+    return logits[0, -1].float()
+
+
+def _cold_prefill(eng, ids, plain=False):
+    """A cold prefill of ``ids``, left-padded to the largest bucket as the
+    engine pads it, through the kernels or (``plain``) the plain attention:
+    ``(last-token logits, cache, slot of the first token)``."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.models import llama as L
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = eng.device
+    S = max(eng.engine_config.prompt_buckets)
+    n = len(ids)
+    toks = torch.full((1, S), eng.pad_id, dtype=torch.int64, device=dev)
+    toks[0, S - n:] = torch.tensor(ids, device=dev)
+    ks = torch.full((1,), S - n, dtype=torch.int64, device=dev)
+    pos = (torch.arange(S, device=dev) - (S - n)).clamp_min(0)[None]
+    if plain:
+        L.flash_attention = A.attention_xla
+    try:
+        with torch.inference_mode():
+            cache = eng._new_cache(S)
+            logits = eng.model(toks, pos, cache, ks, torch.full((1,), S, device=dev), 0, last_logit_only=True)
+        return logits[0, -1].float(), cache, S - n
+    finally:
+        L.flash_attention = A.flash_attention
+
+
+def _logits_cold(eng, ids, plain=False):
+    return _cold_prefill(eng, ids, plain)[0]
+
+
+def _rel(x, ref):
+    return ((x - ref).norm() / ref.norm()).item()
+
+
+def _check_prefixed_logits(eng, cp, segments, b_ids, what):
+    """The cached-prefix prefill's last-token logits against a cold prefill
+    of the same prompt through the plain attention, within
+    ``PREFIX_NOISE_FACTOR`` times the kernels' own cold distance from it
+    (the bf16 noise floor; random weights amplify rounding layer after
+    layer, ``phase_model``). A planted fault, the prefix without its last
+    chunk, must fall outside; the prefix one token short is printed."""
+    ids = [t for _, seg in segments for t in seg] + list(b_ids)
+    ref = _logits_cold(eng, ids, plain=True)
+    floor = _rel(_logits_cold(eng, ids), ref)
+    lim = max(PREFIX_NOISE_FACTOR * floor, 1e-3)
+    got = _rel(_logits_prefixed(eng, b_ids, cp), ref)
+    no_last = _rel(_logits_prefixed(eng, b_ids, dataclasses.replace(cp, length=cp.length - len(segments[-1][1]))),
+                   ref)
+    short = _rel(_logits_prefixed(eng, b_ids, dataclasses.replace(cp, length=cp.length - 1)), ref)
+    print(f"phase prefix_cache {what}: last-token logits vs the cold plain prefill ({len(ids)} tokens) "
+          f"rel_rms={got:.4g} (cold kernels {floor:.4g}, limit {lim:.4g}); planted fault without the last "
+          f"chunk rel_rms={no_last:.4g}; the prefix one token short {short:.4g}", flush=True)
+    if not got <= lim:
+        fail(f"prefix_cache {what}: the cached-prefix logits stray past the noise floor")
+    if no_last <= lim:
+        fail(f"prefix_cache {what}: the check accepts a planted fault (the prefix without its last chunk)")
+    return got
+
+
+def phase_prefix_cache(service_bits, rows, fused_stats):
+    """The prefixed solo path on the card (``TPU_RAG_PREFIX_CACHE=1``): (a)
+    kernels 3-6 at its shapes; (b) a service with ``reuse="exact"`` (bf16,
+    then int8 KV): a miss and a hit with the same tokens, the logits against
+    a cold prefill, the launch counters (zeroed just before, read just
+    after), and 12 requests' latency beside the fused path's; (c) chunk
+    reuse over a shuffled chunk order, and ``rope_rerotate`` on the card
+    against the CPU; (d) tiering: warm (int8 in place), cold (host spill and
+    swap-in) and a planted ``kv_swap_in`` fault."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+    from rag_llm_k8s_tpu_torch.resilience import faults
+
+    timed(phase_prefix_kernels, rows)
+
+    # (b) the prefixed service, exact reuse, bf16
+    svc, client, eng = _prefix_service(service_bits)
+    cache = eng.prefix_cache
+    streams = []
+    real = eng.generate_prefixed
+    eng.generate_prefixed = lambda *a, **kw: streams.append(real(*a, **kw)) or streams[-1]
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        q = LATENCY_QUESTIONS[0]
+        miss = _prefixed_ask(svc, client, q, "(b) miss")
+        hit = _prefixed_ask(svc, client, q, "(b) hit")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        _launch_check("prefixed bf16 path", launches, PREFIX_KERNELS, PAGED_KERNELS + PREFIX_Q8[2:])
+        if streams[0] != streams[1] or len(streams[0]) == 0:
+            fail(f"prefix_cache (b): the miss and the hit gave different tokens ({streams[0][:8]} / "
+                 f"{streams[1][:8]})")
+        if not hit["prefill_tokens_skipped_frac"] > miss["prefill_tokens_skipped_frac"]:
+            fail(f"prefix_cache (b): the hit skipped no more prefill than the miss ({miss} / {hit})")
+        st = cache.counters()
+        print(f"phase prefix_cache (b) exact bf16: miss prefix_resolve_ms={miss['prefix_resolve_ms']} "
+              f"generate_ms={miss['generate_ms']} skipped_frac={miss['prefill_tokens_skipped_frac']} | hit "
+              f"prefix_resolve_ms={hit['prefix_resolve_ms']} generate_ms={hit['generate_ms']} "
+              f"skipped_frac={hit['prefill_tokens_skipped_frac']} tokens={len(streams[0])} (miss == hit) "
+              f"cache={json.dumps(st)}", flush=True)
+        (_, segments, b_ids), _ = _segments_of(svc, q)
+        print(f"phase prefix_cache (b) prompt: segments {[len(ids) for _, ids in segments]} (head first), "
+              f"suffix {len(b_ids)} tokens", flush=True)
+        cp = cache.prefix_for(segments)
+        _check_prefixed_logits(eng, cp, segments, b_ids, "(b) exact bf16")
+        del cp
+        # the prefill a hit saves, on the card's clock: a miss's resolve, a
+        # hit's, the suffix prefill over the prefix, and a cold prefill of
+        # the same prompt at the largest bucket (the fused path's), each
+        # between two syncs
+        (_, seg2, b2), _ = _segments_of(svc, f"{LATENCY_QUESTIONS[9]} (synced)")
+        synced = {}
+        for name, fn in (("miss_resolve", lambda: cache.prefix_for(seg2)),
+                         ("hit_resolve", lambda: cache.prefix_for(seg2)),
+                         ("suffix_prefill", lambda: _logits_prefixed(eng, b2, cache.prefix_for(seg2))),
+                         ("cold_prefill_4096", lambda: _logits_cold(eng, [t for _, x in seg2 for t in x] + b2))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            synced[name] = round((time.perf_counter() - t0) * 1e3, 2)
+        print(f"phase prefix_cache (b) synced ms: {json.dumps(synced)} (segments "
+              f"{[len(ids) for _, ids in seg2]}, suffix {len(b2)})", flush=True)
+        # latency with the fused leg's default sampling: 6 questions, each
+        # asked twice (a miss, then a memo hit)
+        eng.sampling = service_bits[2].sampling
+        samples = {"miss": [], "hit": []}
+        for i in range(1, 7):
+            for kind in ("miss", "hit"):
+                t = _prefixed_ask(svc, client, f"{LATENCY_QUESTIONS[i]} ({i})", f"(b) latency {i}")
+                samples[kind].append(t)
+        stats = {}
+        for kind, ts in (("all", samples["miss"] + samples["hit"]), ("miss", samples["miss"]),
+                         ("hit", samples["hit"])):
+            stats[kind] = {k: {"p50": _pct([t[k] for t in ts], 50), "p95": _pct([t[k] for t in ts], 95)}
+                           for k in ("total_ms", "prefix_resolve_ms", "generate_ms")}
+        print(f"phase prefix_cache (b) solo latency (default sampling, as the fused leg): prefixed requests=12 "
+              f"ms {json.dumps(stats)} | fused "
+              f"(phase_query_latency, this call) total_ms p50={fused_stats['total_ms']['p50']:.2f} "
+              f"p95={fused_stats['total_ms']['p95']:.2f} | cache_bytes={cache.counters()['prefix_cache_bytes']}",
+              flush=True)
+    finally:
+        eng.generate_prefixed = real
+        svc.shutdown()
+    del svc, client, eng, cache
+    torch.cuda.empty_cache()
+
+    # (b) int8 KV: the q8 pair serves, the bf16 cache kernels never launch
+    svc, client, eng = _prefix_service(service_bits, max_new=16, kv_quant="int8")
+    streams.clear()
+    real = eng.generate_prefixed
+    eng.generate_prefixed = lambda *a, **kw: streams.append(real(*a, **kw)) or streams[-1]
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        q = LATENCY_QUESTIONS[7]
+        miss = _prefixed_ask(svc, client, q, "(b) int8 miss")
+        hit = _prefixed_ask(svc, client, q, "(b) int8 hit")
+        torch.cuda.synchronize()
+        _launch_check("prefixed int8-KV path", dict(_build.LAUNCHES), PREFIX_Q8, PAGED_KERNELS + BF16_CACHE_KERNELS)
+        if streams[0] != streams[1]:
+            fail("prefix_cache (b) int8: the miss and the hit gave different tokens")
+        print(f"phase prefix_cache (b) exact int8-KV: miss prefix_resolve_ms={miss['prefix_resolve_ms']} hit "
+              f"prefix_resolve_ms={hit['prefix_resolve_ms']} skipped_frac={hit['prefill_tokens_skipped_frac']} "
+              f"cache={json.dumps(eng.prefix_cache.counters())}", flush=True)
+    finally:
+        eng.generate_prefixed = real
+        svc.shutdown()
+    del svc, client, eng
+    torch.cuda.empty_cache()
+
+    # (c) chunk reuse, tiering on (for (d)), every chunk hot enough to shift
+    svc, client, eng = _prefix_service(service_bits, max_new=16, tiering=True, reuse="chunk", chunk_hot_min=0.0)
+    cache = eng.prefix_cache
+    try:
+        q = LATENCY_QUESTIONS[8]
+        _prefixed_ask(svc, client, q, "(c) canonical")
+        (context, segments, b_ids), results = _segments_of(svc, q)
+        n_ctx = len(segments) - 1
+        if n_ctx < 2:
+            fail(f"prefix_cache (c): {n_ctx} chunk segment(s), no order to shuffle")
+        before = cache.chunk_reuse_counters()
+        # the same chunks retrieved in another order: the last one first
+        shuffled = [results[n_ctx - 1]] + list(results[: n_ctx - 1]) + list(results[n_ctx:])
+        timings, notes = {}, []
+        resp = svc._answer_prefixed(q, shuffled, timings, time.monotonic(), notes)
+        if resp is None or notes:
+            fail(f"prefix_cache (c): the shuffled request fell off the prefixed path ({notes})")
+        after = cache.chunk_reuse_counters()
+        moved = {k: after[k] - before[k] for k in after}
+        if moved["rerotated"] + moved["spliced"] <= 0:
+            fail(f"prefix_cache (c): no chunk was re-rotated or spliced ({moved})")
+        _, seg_shuf, _ = svc._prompt_segments(q, shuffled)
+        cp = cache.prefix_for(seg_shuf)
+        ids_shuf = [t for _, s in seg_shuf for t in s] + list(b_ids)
+        ref = _logits_cold(eng, ids_shuf, plain=True)
+        got = _rel(_logits_prefixed(eng, b_ids, cp), ref)
+        # layer 0's K depends on the token and its position only: the
+        # re-rotated blocks must give the cold prefill's, to bf16 rounding
+        _, cold, start = _cold_prefill(eng, ids_shuf)
+        plen = cp.length
+        k0_cold = cold.k[0, 0, :, start : start + plen].float()
+        k0 = _rel(cp.planes[0][0, 0, :, :plen].float(), k0_cold)
+        del cp, cold
+        # the planted fault: the same reuse with the re-rotation left out
+        # (canonical K at the shifted positions), in a cache of its own
+        from rag_llm_k8s_tpu_torch.engine.prefix_cache import PrefixCache
+
+        alt = PrefixCache(eng.engine_config.prefix_cache, eng)
+        alt.prefix_for(segments)
+        rotate = eng.rerotate_segment_kv
+        eng.rerotate_segment_kv = lambda planes, delta: planes
+        try:
+            k0_bad = _rel(alt.prefix_for(seg_shuf).planes[0][0, 0, :, :plen].float(), k0_cold)
+        finally:
+            eng.rerotate_segment_kv = rotate
+            alt.clear()
+        del k0_cold
+        print(f"phase prefix_cache (c) chunk reuse: outcomes {json.dumps(moved)} prefix_resolve_ms="
+              f"{timings['prefix_resolve_ms']:.2f} skipped_frac={timings['prefill_tokens_skipped_frac']:.4f}; "
+              f"layer-0 K of the {plen}-token shuffled prefix vs the cold prefill's rel_rms={k0:.4g} (limit "
+              f"{PREFIX_K0_TOL:.4g}; planted fault without the re-rotation {k0_bad:.4g}); last-token logits vs the "
+              f"cold plain prefill rel_rms={got:.4g} (limit {Q8_FULL_RMS})", flush=True)
+        if not k0 <= PREFIX_K0_TOL or k0_bad <= PREFIX_K0_TOL or not got < Q8_FULL_RMS:
+            fail("prefix_cache (c): the re-rotated chunks' K or the logits stray past their limits, or the "
+                 "check accepts the un-rotated fault")
+        # rope_rerotate on the card against the CPU: the same bits (fp64
+        # products and sums are IEEE on both; cos/sin come from the host)
+        ek = next(k for k, e in cache._entries.items() if not e.pinned and e.tier == "hot")
+        blk = cache._entries[ek].planes[0]
+        from rag_llm_k8s_tpu_torch.models.llama import rope_frequencies
+
+        invf = rope_frequencies(eng.config, blk.device)
+        on_card = A.rope_rerotate(blk, 417, invf)
+        on_cpu = A.rope_rerotate(blk.cpu(), 417, invf.cpu())
+        kq, ksc = A.quantize_kv(blk.float())
+        q_card = A.rope_rerotate_q8(kq, ksc, -417, invf)
+        q_cpu = A.rope_rerotate_q8(kq.cpu(), ksc.cpu(), -417, invf.cpu())
+        same = (torch.equal(on_card.cpu(), on_cpu) and torch.equal(q_card[0].cpu(), q_cpu[0])
+                and torch.equal(q_card[1].cpu(), q_cpu[1]))
+        t_rot = time_ms(lambda i: A.rope_rerotate(blk, 417 + i, invf), iters=5, warmup=1)
+        print(f"phase prefix_cache (c) rope_rerotate on the card {tuple(blk.shape)} bf16: equal to the CPU "
+              f"(bf16 and int8) {same}; ms={t_rot:.4f}", flush=True)
+        if not same:
+            fail("prefix_cache (c): rope_rerotate on the card differs from the CPU")
+        # no reference to an entry's planes may outlive its demotion below
+        del blk, on_card, on_cpu, kq, ksc, q_card, q_cpu
+
+        # (d) tiering on the same cache
+        cp_hot = cache.prefix_for(segments)
+        hot = _logits_prefixed(eng, b_ids, cp_hot)
+        del cp_hot
+        torch.cuda.synchronize()
+        mem0, st0 = torch.cuda.memory_allocated(), cache.tier_stats()
+        n_warm = cache.force_demote("warm")
+        torch.cuda.synchronize()
+        mem1, st1 = torch.cuda.memory_allocated(), cache.tier_stats()
+        dev0, dev1 = st0["tier_hot_bytes"] + st0["tier_warm_bytes"], st1["tier_hot_bytes"] + st1["tier_warm_bytes"]
+        if n_warm <= 0 or not dev1 < dev0 or not mem1 < mem0:
+            fail(f"prefix_cache (d) warm: {n_warm} demoted, device bytes {dev0} -> {dev1}, allocated {mem0} -> {mem1}")
+        with cache._lock:
+            for k in list(cache._assembled):
+                cache._pop_assembled(k)
+        _prefixed_ask(svc, client, q, "(d) warm")
+        warm = _logits_prefixed(eng, b_ids, cache.prefix_for(segments))
+        rel_warm = _rel(warm, hot)
+        print(f"phase prefix_cache (d) warm: {n_warm} entries demoted, cache device bytes {dev0} -> {dev1}, "
+              f"allocated {mem0} -> {mem1}; the next answer's logits vs hot rel_rms={rel_warm:.4g} "
+              f"(limit {Q8_FULL_RMS}) tiers {json.dumps(cache.tier_stats())}", flush=True)
+        if not rel_warm < Q8_FULL_RMS:
+            fail("prefix_cache (d) warm: the int8 round trip strays past the int8 limit")
+        # cold: host spill, then a swap-in that must restore the same bytes
+        with cache._lock:
+            for k in list(cache._assembled):
+                cache._pop_assembled(k)
+        snap = {k: tuple(p.clone() for p in e.planes) for k, e in cache._entries.items()
+                if not e.pinned and e.tier != "cold"}
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        n_cold = cache.force_demote("cold")
+        torch.cuda.synchronize()
+        mem3, st3 = torch.cuda.memory_allocated(), cache.tier_stats()
+        t0 = time.perf_counter()
+        cache.prefix_for(segments)
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        st4 = cache.tier_stats()
+        swapped = [k for k in snap if k in cache._entries and cache._entries[k].tier != "cold"
+                   and k[0] in {s for s, _ in segments}]
+        identical = all(all(torch.equal(a, b) for a, b in zip(cache._entries[k].planes, snap[k])) for k in swapped)
+        print(f"phase prefix_cache (d) cold: {n_cold} entries spilled ({st3['tier_cold_host_bytes']} host bytes), "
+              f"allocated {mem2} -> {mem3}; resolve with {st4['swap_ins_demand'] - st3['swap_ins_demand']} "
+              f"swap-ins ms={swap_ms:.2f}; {len(swapped)} swapped-in entries byte-identical {identical}", flush=True)
+        if n_cold <= 0 or not mem3 < mem2 or not swapped or not identical:
+            fail("prefix_cache (d) cold: the spill freed nothing or the swap-in changed the bytes")
+        del snap
+        # a planted kv_swap_in fault: recompute, no leaked host buffer
+        with cache._lock:
+            for k in list(cache._assembled):
+                cache._pop_assembled(k)
+        cache.force_demote("cold")
+        fb0 = cache.tier_stats()["swap_in_fallbacks"]
+        faults.arm("kv_swap_in")
+        try:
+            cp = cache.prefix_for(segments)
+        finally:
+            faults.clear()
+        st5 = cache.tier_stats()
+        cold_keys = {k for k, e in cache._entries.items() if e.tier == "cold"}
+        spilled = {m["key"] for m in cache.spill.manifest()}
+        leak = spilled != cold_keys or cache.entry_bytes != sum(e.nbytes for e in cache._entries.values())
+        print(f"phase prefix_cache (d) kv_swap_in fault: fallbacks {fb0} -> {st5['swap_in_fallbacks']}, "
+              f"recomputed {cp.computed_tokens} tokens, spill entries {len(spilled)} = cold entries "
+              f"{len(cold_keys)}, leak {leak}", flush=True)
+        if st5["swap_in_fallbacks"] != fb0 + 1 or cp.computed_tokens <= 0 or leak:
+            fail("prefix_cache (d): the planted kv_swap_in fault did not fall back cleanly")
+        del cp
+        _prefixed_ask(svc, client, q, "(d) after the fault")
+    finally:
+        svc.shutdown()
+    del svc, client, eng, cache
+    torch.cuda.empty_cache()
 
 
 def _free_port() -> int:
@@ -3098,8 +3612,9 @@ def main() -> int:
     bits = timed(build_service)
     timed(phase_model, bits[2].model, bits[2].config)
     launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
-    timed(phase_query_latency, bits)
+    fused_stats = timed(phase_query_latency, bits)
     timed(phase_observability, bits)
+    timed(phase_prefix_cache, bits, rows, fused_stats)
     cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
     timed(phase_resilience, bits)
     timed(phase_continuous_engine, bits)
@@ -3171,7 +3686,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
             **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us", "queries_8",
-                                 "queries_9") if k in r},
+                                 "queries_9", "prefix_shapes") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,10 @@ the JAX package:
     core/    config (same defaults), device resolution, numerics switches
     ops/     kNN and attention kernels with their plain PyTorch versions
     models/  Llama-3.1 decoder, bge-m3 encoder, weights bridge
-    engine/  one-shot engine (bucketed/chunked prefill, decode, speculation),
-             paged continuous engine and its scheduler, KV block pool,
-             sampling, batched embedding
+    engine/  one-shot engine (bucketed/chunked prefill, decode, speculation,
+             the prefixed generate), the KV prefix cache and its hotness
+             tiering, paged continuous engine and its scheduler, KV block
+             pool, sampling, batched embedding
     sim/     the continuous scheduler's decision core (pure functions)
     index/   in-memory vector store with device snapshots
     rag/     chunking, PDF text, prompt assembly

@@ -3,8 +3,8 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(mesh, prefix cache, tiering, speculative continuous decode, pool roles,
-SLOs, goodput, shadow audits, tenants, the incident spool) are not here.
+(mesh, speculative continuous decode, pool roles, SLOs, goodput, shadow
+audits, tenants, the incident spool) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -152,6 +152,91 @@ class SamplingConfig:
 
 
 @dataclass(frozen=True)
+class PrefixCacheConfig:
+    """Cross-request device-resident KV prefix cache
+    (``engine/prefix_cache.py``), the JAX package's fields and defaults.
+
+    The fixed prompt head and popular retrieved chunks keep their KV on the
+    card, keyed by segment and position slot; a request's matched prefix is
+    spliced into its fresh cache and prefill starts at the first non-shared
+    token (the per-query tail).
+    """
+
+    # master switch (env TPU_RAG_PREFIX_CACHE); off by default
+    enabled: bool = False
+    # device bytes of segment blocks AND assembled full-prefix buffers, MiB
+    # (env TPU_RAG_PREFIX_HBM_MB). 128 KiB a token at Llama-3.1-8B width in
+    # bf16, so one 4096-token assembled buffer fills the default budget;
+    # assembled buffers evict first, then least-recently-used blocks, never
+    # the pinned head
+    hbm_budget_mb: int = 512
+    # width (tokens) of the splice buffer every prefixed request carries,
+    # and the largest prefix the cache represents
+    max_prefix_tokens: int = 4096
+    # segment blocks pad to these lengths (one builder shape per bucket)
+    segment_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 1536, 2048)
+    # the un-cached prompt tail pads to these lengths
+    suffix_buckets: Tuple[int, ...] = (128, 512, 2048)
+    # "exact": a block is reused only under the same preceding segment chain
+    # (logits equal the cold path's); "slot": offset match alone; "chunk":
+    # one canonical block per chunk, spliced at any offset by a RoPE
+    # re-rotation of K plus a boundary re-prefill of its first
+    # boundary_tokens tokens (env TPU_RAG_PREFIX_REUSE)
+    reuse: str = "exact"
+    # chunk reuse's boundary-correction window, tokens (env
+    # TPU_RAG_PREFIX_BOUNDARY_TOKENS)
+    boundary_tokens: int = 16
+    # decayed hit score a chunk needs before it is spliced at a shifted
+    # position (env TPU_RAG_PREFIX_CHUNK_HOT_MIN)
+    chunk_hot_min: float = 2.0
+    # per-chunk canonical pool registrations the paged engine keeps (env
+    # TPU_RAG_PREFIX_CHUNK_POOL_REGS); parsed and validated, read by the
+    # continuous engine's prefix admission (ROADMAP.md Queue 1 item 8)
+    chunk_pool_regs: int = 32
+    # assembled prefix buffers memoized per (segment chain, length)
+    assembled_cache_entries: int = 8
+
+
+@dataclass(frozen=True)
+class KVTieringConfig:
+    """Hotness-aware KV tiering over the prefix cache's entries
+    (``engine/tiering.py``), the JAX package's fields and defaults: a
+    decayed hit score per chunk keeps it hot (native dtype), warm (int8 in
+    place, no re-prefill) or cold (spilled to host memory, swapped back on
+    its next use). Env ``TPU_RAG_KV_TIERING*``."""
+
+    # master switch (env TPU_RAG_KV_TIERING)
+    enabled: bool = False
+    # decayed-score demotion thresholds (env TPU_RAG_KV_TIERING_WARM_BELOW /
+    # TPU_RAG_KV_TIERING_COLD_BELOW); cold_below must not exceed warm_below
+    warm_below: float = 0.25
+    cold_below: float = 0.0625
+    # hit-score half-life, seconds (env TPU_RAG_KV_TIERING_HALF_LIFE_S)
+    half_life_s: float = 60.0
+    # host memory for cold-spilled KV, MiB (env TPU_RAG_KV_TIERING_HOST_MB);
+    # past it the oldest spills are dropped
+    host_spill_mb: int = 1024
+    # least seconds between resolve-path retier sweeps (env
+    # TPU_RAG_KV_TIERING_INTERVAL_S)
+    retier_interval_s: float = 5.0
+
+    def validate(self) -> None:
+        if self.cold_below > self.warm_below:
+            raise ValueError(
+                f"kv tiering: cold_below={self.cold_below} must not exceed "
+                f"warm_below={self.warm_below}"
+            )
+        if self.half_life_s <= 0:
+            raise ValueError(
+                f"kv tiering: half_life_s={self.half_life_s}: expected > 0"
+            )
+        if self.host_spill_mb < 1:
+            raise ValueError(
+                f"kv tiering: host_spill_mb={self.host_spill_mb}: expected >= 1"
+            )
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Serving-engine shape limits and the main-path switches."""
 
@@ -212,6 +297,11 @@ class EngineConfig:
     # tokens per mixed window, decode lanes first; 0 = max_batch_size +
     # prefill_chunk_tokens
     window_token_budget: int = 0
+    # cross-request KV prefix cache (see PrefixCacheConfig)
+    prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
+    # hotness-aware KV tiering over the cached chunks (see KVTieringConfig;
+    # needs prefix_cache.enabled to have anything to tier)
+    kv_tiering: KVTieringConfig = field(default_factory=KVTieringConfig)
 
     def validate_quant(self) -> None:
         """``weight_quant`` and ``kv_quant`` name a storage the engines
@@ -333,8 +423,6 @@ def _mesh_on(spec: str) -> bool:
 UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "TPU_RAG_MESH": (_mesh_on, "Queue 1 item 10 (tensor and sequence parallelism; the port serves one card)"),
     "TPU_RAG_SPEC_PAGED": (lambda v: v == "1", "Queue 1 item 7 (the paged speculative verify)"),
-    "TPU_RAG_PREFIX_CACHE": (lambda v: v == "1", "Queue 1 item 6 (prefix cache and KV tiering)"),
-    "TPU_RAG_KV_TIERING": (lambda v: v == "1", "Queue 1 item 6 (prefix cache and KV tiering)"),
     "TPU_RAG_LOOKAHEAD": (lambda v: v == "1", "Queue 1 item 8 (lookahead, router, lifecycle)"),
     "TPU_RAG_POOL_ROLE": (lambda v: v != "unified", "Queue 1 item 8 (lookahead, router, lifecycle)"),
     "TPU_RAG_FLIGHT_WAL": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
@@ -352,10 +440,24 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_DEADLINE_MS", "TPU_RAG_BREAKER_RESETS", "TPU_RAG_BREAKER_WINDOW_S", "TPU_RAG_INFLIGHT_RETRIES",
     "TPU_RAG_RETRY_BACKOFF_MS", "TPU_RAG_DRAIN_DEADLINE_S", "TPU_RAG_DRAIN_RETRY_AFTER_S",
     "TPU_RAG_DEBUG", "TPU_RAG_FLIGHT_EVENTS",
+    "TPU_RAG_PREFIX_CACHE", "TPU_RAG_PREFIX_HBM_MB", "TPU_RAG_PREFIX_REUSE", "TPU_RAG_PREFIX_BOUNDARY_TOKENS",
+    "TPU_RAG_PREFIX_CHUNK_HOT_MIN", "TPU_RAG_PREFIX_CHUNK_POOL_REGS",
+    "TPU_RAG_KV_TIERING", "TPU_RAG_KV_TIERING_WARM_BELOW", "TPU_RAG_KV_TIERING_COLD_BELOW",
+    "TPU_RAG_KV_TIERING_HALF_LIFE_S", "TPU_RAG_KV_TIERING_HOST_MB", "TPU_RAG_KV_TIERING_INTERVAL_S",
     # read by server/main.py (resilience.faults.arm_from_env, the JSON log
     # formatter) and /debug/faults
     "TPU_RAG_FAULTS", "TPU_RAG_JSON_LOGS",
 })
+
+# (key, field, type) of KVTieringConfig, in the JAX from_env's order; the
+# cross-field rules run once the env is applied (KVTieringConfig.validate)
+TIERING_KEYS = (
+    ("TPU_RAG_KV_TIERING_WARM_BELOW", "warm_below", float),
+    ("TPU_RAG_KV_TIERING_COLD_BELOW", "cold_below", float),
+    ("TPU_RAG_KV_TIERING_HALF_LIFE_S", "half_life_s", float),
+    ("TPU_RAG_KV_TIERING_HOST_MB", "host_spill_mb", int),
+    ("TPU_RAG_KV_TIERING_INTERVAL_S", "retier_interval_s", float),
+)
 
 # (key, field, minimum, type) of ResilienceConfig, in the JAX from_env's order
 RESILIENCE_KEYS = (
@@ -416,7 +518,7 @@ class AppConfig:
         ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
         if ignored:
             logging.getLogger(__name__).warning(
-                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 6-10)",
+                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 7-10)",
                 ", ".join(ignored),
             )
         cfg = cls()
@@ -471,6 +573,33 @@ class AppConfig:
             engine = rep(engine, decode_sync_steps=v)
         if (v := _flag(env, "TPU_RAG_FUSED")) is not None:
             engine = rep(engine, rag_fused=v)
+        pc = engine.prefix_cache
+        if (v := _flag(env, "TPU_RAG_PREFIX_CACHE")) is not None:
+            pc = rep(pc, enabled=v)
+        if (v := _int(env, "TPU_RAG_PREFIX_HBM_MB", 1)) is not None:
+            pc = rep(pc, hbm_budget_mb=v)
+        if "TPU_RAG_PREFIX_REUSE" in env:
+            policy = env["TPU_RAG_PREFIX_REUSE"]
+            if policy not in ("exact", "slot", "chunk"):
+                raise ValueError(f"TPU_RAG_PREFIX_REUSE={policy!r}: expected 'exact', 'slot' or 'chunk'")
+            pc = rep(pc, reuse=policy)
+        if (v := _int(env, "TPU_RAG_PREFIX_BOUNDARY_TOKENS", 0)) is not None:
+            pc = rep(pc, boundary_tokens=v)
+        if "TPU_RAG_PREFIX_CHUNK_HOT_MIN" in env:
+            hm = float(env["TPU_RAG_PREFIX_CHUNK_HOT_MIN"])
+            if hm < 0:
+                raise ValueError(f"TPU_RAG_PREFIX_CHUNK_HOT_MIN={hm}: expected >= 0")
+            pc = rep(pc, chunk_hot_min=hm)
+        if (v := _int(env, "TPU_RAG_PREFIX_CHUNK_POOL_REGS", 1)) is not None:
+            pc = rep(pc, chunk_pool_regs=v)
+        tiering = engine.kv_tiering
+        if (v := _flag(env, "TPU_RAG_KV_TIERING")) is not None:
+            tiering = rep(tiering, enabled=v)
+        for key, name, cast in TIERING_KEYS:
+            if key in env:
+                tiering = rep(tiering, **{name: cast(env[key])})
+        tiering.validate()  # cross-field rules once, with the env applied
+        engine = rep(engine, prefix_cache=pc, kv_tiering=tiering)
         engine.validate_interleave()  # cross-field rules, with the env applied
         if engine.batching == "continuous" and not engine.kv_paged:
             paged = env.get("TPU_RAG_KV_PAGED", "unset")

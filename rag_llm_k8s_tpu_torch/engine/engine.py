@@ -14,6 +14,13 @@
   while it does not pay, re-probing periodically.
 - ``generate_rag`` assembles the RAG prompt on the device from the fused
   retrieve's packed top-k and the store's chunk-token sidecar.
+- With ``EngineConfig.prefix_cache.enabled`` the engine owns a
+  ``PrefixCache`` (``engine/prefix_cache.py``) and gives it the segment
+  builder (``build_segment_kv``), the splice (``splice_prefix``), the RoPE
+  re-rotation (``rerotate_segment_kv``) and ``generate_prefixed``, which
+  splices a cached prefix into a fresh left-aligned batch-1 cache and
+  prefills only the right-padded per-query suffix at the prefix frontier,
+  then decodes with the vanilla loop (never speculative, as in JAX).
 
 ``EngineConfig.weight_quant="int8"`` serves a ``quantize_llama`` copy of the
 model (an already-quantized model passes through) and ``kv_quant="int8"``
@@ -74,6 +81,7 @@ from rag_llm_k8s_tpu_torch.models.llama import (
     make_kv_cache,
     mask_window,
     quantize_llama,
+    rerotate_prefix_planes,
 )
 from rag_llm_k8s_tpu_torch.utils.buckets import bucket_len, next_pow2
 
@@ -91,6 +99,9 @@ class EngineStats:
     # speculative verify forwards and the tokens they emitted
     spec_verify_steps: int = 0
     spec_emitted_tokens: int = 0
+    # prompt tokens whose prefill was skipped because their KV was spliced
+    # from the prefix cache (prefill_tokens counts only computed tokens)
+    prefill_tokens_skipped: int = 0
 
 
 def bind_compile_metrics(registry) -> None:
@@ -210,6 +221,14 @@ class InferenceEngine:
         # service binds them to its registry (JAX binds the process default
         # registry, which nothing in the port serves)
         self.bind_metrics(metrics.MetricsRegistry())
+        # the cross-request KV prefix cache; this engine builds, splices and
+        # generates for it
+        self.prefix_cache = None
+        self._prefix_zero: Optional[Tuple[torch.Tensor, ...]] = None
+        if engine_config.prefix_cache.enabled:
+            from rag_llm_k8s_tpu_torch.engine.prefix_cache import PrefixCache
+
+            self.prefix_cache = PrefixCache(engine_config.prefix_cache, self)
 
     # ------------------------------------------------------------------
     # observability
@@ -323,6 +342,17 @@ class InferenceEngine:
                 tokens[:, wi:], positions[:, wi:], cache, kv_start, full(S), wi,
                 chunked=True, last_logit_only=True,
             )
+        return self._decode_loop(cache, logits, kv_start, S, real_len, max_new, gen)
+
+    def _decode_loop(
+        self, cache, logits: torch.Tensor, kv_start: torch.Tensor, slot0: int, pos0, max_new: int,
+        gen: torch.Generator,
+    ) -> np.ndarray:
+        """Sample the prefill's first token from ``logits [B, 1, V]``, then
+        the KV-cached decode loop: step ``i`` feeds the last token at slot
+        ``slot0 + i - 1`` and position ``pos0 + i - 1``. Returns ``[B,
+        max_new]`` token ids (EOS-padded after a row ends)."""
+        B, dev = logits.shape[0], self.device
         tok = sample_token(logits[:, -1], self.sampling, gen)
         done = self._isin_eos(tok)
         out = torch.full((B, max_new), self.pad_id, dtype=torch.int64, device=dev)
@@ -331,11 +361,11 @@ class InferenceEngine:
         step = 1
         # one host sync per step: the loop ends when every row has ended
         while step < max_new and not bool(done.all()):
-            wi = S + step - 1
+            wi = slot0 + step - 1
             with record_function("decode_forward"):
-                logits = model(
-                    tok[:, None], (real_len + step - 1)[:, None], cache, kv_start,
-                    full(wi + 1), wi,
+                logits = self.model(
+                    tok[:, None], (pos0 + step - 1)[:, None], cache, kv_start,
+                    torch.full((B,), wi + 1, dtype=torch.int64, device=dev), wi,
                 )
                 nxt = sample_token(logits[:, 0], self.sampling, gen)
                 tok = torch.where(done, torch.full_like(nxt, eos0), nxt)
@@ -580,3 +610,175 @@ class InferenceEngine:
             # host-known share (the service adds the chunks, record_prefill)
             self.stats.prefill_tokens += len(a_ids) + int(b.shape[0])
         return row
+
+    # ------------------------------------------------------------------
+    # KV prefix cache (engine/prefix_cache.py drives these)
+    # ------------------------------------------------------------------
+    def _prefix_capacity(self) -> int:
+        return self.engine_config.prefix_cache.max_prefix_tokens
+
+    def _prefix_planes(self, cache) -> Tuple[torch.Tensor, ...]:
+        """A cache's planes in the prefix layout: ``(k, v)``, or ``(k, v,
+        k_scale, v_scale)`` under int8 KV."""
+        return (cache.k, cache.v) + ((cache.k_scale, cache.v_scale) if cache.quantized else ())
+
+    def _new_cache(self, T: int):
+        return make_kv_cache(
+            self.config, 1, T, self.dtypes.compute_dtype, self.device, self.engine_config.kv_quant
+        )
+
+    def prefix_buffer_zero(self) -> Tuple[torch.Tensor, ...]:
+        """The shared all-zeros ``[L, 1, K, P, hd]`` splice buffer (scales
+        ``[L, 1, K, P]`` under int8 KV) every prefix assembly starts from.
+        Never written: splices return new buffers. Built outside the lock;
+        two racing first builders waste one allocation, the first install
+        wins."""
+        with self._lock:
+            cached = self._prefix_zero
+        if cached is not None:
+            return cached
+        planes = self._prefix_planes(self._new_cache(self._prefix_capacity()))
+        with self._lock:
+            if self._prefix_zero is None:
+                self._prefix_zero = planes
+            return self._prefix_zero
+
+    @staticmethod
+    def splice_prefix(buf: Tuple, block: Tuple, offset: int) -> Tuple:
+        """A new buffer: ``buf`` with the segment block written at slot
+        ``offset`` (the slot axis is 3 in payloads and scales). As the JAX
+        package's ``dynamic_update_slice``, a block that would run past the
+        buffer's end is written ending at the end."""
+        out = []
+        for c, b in zip(buf, block):
+            start = max(0, min(int(offset), c.shape[3] - b.shape[3]))
+            n = c.clone()
+            n[:, :, :, start : start + b.shape[3]] = b.to(c.dtype)
+            out.append(n)
+        return tuple(out)
+
+    def rerotate_segment_kv(self, planes: Tuple, delta: int) -> Tuple:
+        """Position-shift a cached segment block by ``delta`` tokens (chunk
+        reuse): K re-rotated by the RoPE delta, V as it is; bf16 pairs and
+        the int8 4-tuple alike."""
+        return rerotate_prefix_planes(self.config, planes, delta)
+
+    @staticmethod
+    def slice_prefix_block(block: Tuple, width: int) -> Tuple:
+        """The first ``width`` slots of a segment block: the boundary
+        correction overwrites only its window, not the re-rotated tail."""
+        return tuple(p[:, :, :, :width] for p in block)
+
+    @torch.inference_mode()
+    def build_segment_kv(self, ids: Sequence[int], ctx_planes: Tuple, ctx_len: int) -> Tuple:
+        """Prefill one prompt segment with ``ctx_planes[:ctx_len]`` as its
+        left context (a chunked forward at offset ``ctx_len``) and return its
+        KV block padded to the segment bucket: the prefix cache's miss path.
+        The tokens count as prefilled."""
+        pc = self.engine_config.prefix_cache
+        n = len(ids)
+        Sb = bucket_len(max(n, 1), pc.segment_buckets)
+        T = _cache_len(self._prefix_capacity() + Sb)
+        dev = self.device
+        toks = np.full((1, Sb), self.pad_id, np.int64)
+        toks[0, :n] = list(ids)
+        with self._run_lock:
+            cache = self._new_cache(T)
+            for c, b in zip(self._prefix_planes(cache), ctx_planes):
+                c[:, :, :, : b.shape[3]] = b.to(c.dtype)  # its tail past ctx_len is overwritten below
+            positions = ctx_len + torch.arange(Sb, device=dev)[None, :]
+            self.model(
+                torch.from_numpy(toks).to(dev), positions, cache, torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.full((1,), ctx_len + n, dtype=torch.int64, device=dev), int(ctx_len),
+                chunked=True, last_logit_only=True,
+            )
+            block = tuple(c[:, :, :, ctx_len : ctx_len + Sb].clone() for c in self._prefix_planes(cache))
+        with self._lock:
+            self.stats.prefill_tokens += n
+        return block
+
+    def _prefixed_max_new(self, max_new_tokens: Optional[int]) -> int:
+        max_new = self.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
+        return max(1, min(max_new, self.engine_config.max_seq_len - max(self.engine_config.prompt_buckets)))
+
+    def prefill_prefixed(self, suffix_ids: Sequence[int], prefix, max_new: int):
+        """The prefixed prefill: ``prefix.planes`` spliced into a fresh
+        left-aligned batch-1 cache (slot == position) sized for ``max_new``
+        more tokens, and the suffix, right-padded to its bucket, prefilled
+        at positions ``plen + arange(S_suf)``. Returns ``(logits [1, 1, V]``
+        of the last real suffix token (``logit_index``), ``cache, total)``
+        with ``total = plen + len(suffix_ids)``. The caller holds the run
+        lock (or owns the card)."""
+        n_suf = len(suffix_ids)
+        S_suf = bucket_len(n_suf, self.engine_config.prefix_cache.suffix_buckets)
+        dev = self.device
+        plen = int(prefix.length)
+        total = plen + n_suf
+        cache = self._new_cache(_cache_len(self._prefix_capacity() + S_suf + max_new))
+        for c, b in zip(self._prefix_planes(cache), prefix.planes):
+            c[:, :, :, : b.shape[3]] = b.to(c.dtype)
+        toks = np.full((1, S_suf), self.pad_id, np.int64)
+        toks[0, :n_suf] = list(suffix_ids)
+        # the pad tokens' K/V land in [total, plen + S_suf), outside every
+        # window until the decode overwrites them in order
+        logits = self.model(
+            torch.from_numpy(toks).to(dev), plen + torch.arange(S_suf, device=dev)[None, :], cache,
+            torch.zeros(1, dtype=torch.int64, device=dev), torch.full((1,), total, dtype=torch.int64, device=dev),
+            plen, chunked=True, logit_index=torch.full((1,), n_suf - 1, dtype=torch.int64, device=dev),
+        )
+        return logits, cache, total
+
+    @torch.inference_mode()
+    def generate_prefixed(
+        self,
+        suffix_ids: Sequence[int],
+        prefix,  # CachedPrefix
+        max_new_tokens: Optional[int] = None,
+        seed: Optional[int] = None,
+    ) -> List[int]:
+        """Generate with a cached prefix (JAX ``generate_prefixed``):
+        ``prefill_prefixed``, its first token sampled from the last real
+        suffix token's logits, then the vanilla decode loop (never
+        speculative). Raises ValueError on an empty suffix or one past the
+        suffix ladder (the caller serves the cold path)."""
+        pc = self.engine_config.prefix_cache
+        if not suffix_ids:
+            # an empty suffix would sample tok0 from a PAD token's logits
+            raise ValueError("generate_prefixed needs a non-empty suffix")
+        n_suf = len(suffix_ids)
+        if n_suf > max(pc.suffix_buckets):
+            raise ValueError(
+                f"prefixed suffix of {n_suf} tokens exceeds the largest "
+                f"suffix bucket ({max(pc.suffix_buckets)})"
+            )
+        max_new = self._prefixed_max_new(max_new_tokens)
+        gen = self._next_rng(seed)
+        with self._run_lock:
+            t_call = time.perf_counter()
+            logits, cache, total = self.prefill_prefixed(suffix_ids, prefix, max_new)
+            pos0 = torch.full((1,), total, dtype=torch.int64, device=self.device)
+            kv_start = torch.zeros(1, dtype=torch.int64, device=self.device)
+            out = self._decode_loop(cache, logits, kv_start, total, pos0, max_new, gen)
+            call_s = time.perf_counter() - t_call
+        row = self._trim(out[0])
+        self._observe_generate(call_s, len(row))
+        with self._lock:
+            self.stats.generate_calls += 1
+            self.stats.prefill_tokens += n_suf
+            self.stats.prefill_tokens_skipped += int(prefix.reused_tokens)
+            self.stats.decode_tokens += len(row)
+        return row
+
+    def warm_prefixed(self, suffix_lens: Sequence[int] = (), max_new_tokens: Optional[int] = None) -> List[int]:
+        """The suffix buckets the prefixed generate serves at (JAX: the
+        executables it compiles ahead of traffic). Eager PyTorch compiles
+        nothing per shape, and the kernels this path launches are built by
+        ``ops._build.build`` at service warmup, so this only names them."""
+        if self.prefix_cache is None:
+            return []
+        pc = self.engine_config.prefix_cache
+        top = max(pc.suffix_buckets)
+        return sorted({
+            bucket_len(min(max(n, 1), top), pc.suffix_buckets)
+            for n in (suffix_lens or (self.RAG_TAIL_BUCKET,))
+        })

@@ -1,0 +1,1132 @@
+"""Cross-request device-resident KV prefix cache, counterpart of
+``rag_llm_k8s_tpu/engine/prefix_cache.py`` (the same policies, counters,
+tier moves and lock discipline).
+
+Every request re-prefills the same prompt head (BOS + system message +
+"\\n\\nContext: "), and popular queries re-prefill the same retrieved
+chunks. This module keeps those segments' KV on the card and splices it into
+each request's fresh cache, so prefill starts at the first non-shared token.
+
+- **Segment blocks** (``_Entry``): per-segment KV ``[L, 1, K, Sb, hd]`` (and
+  fp32 scale planes ``[L, 1, K, Sb]`` under int8 KV), padded to a segment
+  bucket ``Sb``, in an HBM-budgeted LRU. Under ``reuse="exact"`` a block is
+  keyed by its segment, its slot and the chain of segments before it (the
+  cached prefix then gives the cold path's logits); ``"slot"`` keys by
+  segment and slot; ``"chunk"`` keeps one canonical block per segment and
+  places it anywhere by re-rotating K (``rerotate_segment_kv``) and
+  re-prefilling its first ``boundary_tokens`` tokens.
+- **Assembled buffers**: the spliced ``[L, 1, K, P, hd]`` prefix a request
+  hands to ``InferenceEngine.generate_prefixed``, memoized per segment
+  chain.
+- **Miss path**: a missing segment is built by ``build_segment_kv`` over the
+  true left context and cached as it goes.
+- **Tiers** (``engine/tiering.py``, under ``KVTieringConfig``): hot, warm
+  (int8 in place) and cold (host spill, swapped back on use).
+
+Device tensors in entries and buffers are never written after they are
+built (splices return new buffers), so a resolve may read them outside the
+lock while another thread replaces an entry.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from rag_llm_k8s_tpu_torch.engine.tiering import (
+    HostSpillStore,
+    HotnessTracker,
+    dequantize_planes,
+    host_copy,
+    quantize_planes,
+)
+from rag_llm_k8s_tpu_torch.obs import flight
+from rag_llm_k8s_tpu_torch.resilience import faults
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class CachedPrefix:
+    """A resolved, device-resident prompt prefix ready to splice.
+
+    ``planes`` is the KV tuple ``(k, v)`` — or ``(k, v, k_scale, v_scale)``
+    under int8-KV — each ``[L, 1, K, P, hd]`` (scales ``[L, 1, K, P]``),
+    with real content in slots ``[0, length)`` and don't-care beyond (the
+    consumer's kv windows never reach it). Consumed by
+    ``InferenceEngine.generate_prefixed`` (the JAX package's continuous
+    engine also admits it; ROADMAP.md Queue 1 item 8 ports that).
+    """
+
+    planes: Tuple
+    length: int  # real prefix tokens covered
+    capacity: int  # P — the static splice-buffer width
+    reused_tokens: int  # tokens whose KV came from cache hits
+    computed_tokens: int  # tokens prefilled (cache misses) to build this
+    # stable identity of the prefix CONTENT (the segment-key chain + total
+    # length), set under exact-chain AND chunk reuse: the paged continuous
+    # engine keys its block-granular sharing on it — two requests with the
+    # same chain_key map the same physical pool blocks copy-free
+    # (ref-counted; ContinuousEngine._admit_prefixed_paged). None under
+    # "slot" reuse, whose approximate blocks are NOT content-identical.
+    # (Under "chunk" the shared blocks are whatever one resolve assembled
+    # for the chain — within the policy's pinned tolerance by contract.)
+    chain_key: Optional[Tuple] = None
+    # chunk-granular layout (reuse="chunk" only): one ChunkSpan per segment
+    # in prompt order — the paged engine's per-chunk block-table assembly
+    # reads these to splice registered pool blocks at arbitrary order
+    # (ContinuousEngine._chunk_splice_plan). None under exact/slot reuse.
+    chunks: Optional[Tuple] = None
+    # approximation fingerprint (obs/shadow.py APPROXIMATIONS): which
+    # lossy-by-contract mechanisms served THIS resolve — prefix_reuse
+    # (any cache hit), warm_tier (an int8-round-tripped entry spliced),
+    # splice / rerotate / boundary_fixup (chunk-granular shifted
+    # placements). Empty when every segment was built fresh. Memo
+    # re-serves carry the fingerprint recorded when the buffer was built
+    # (the content IS that content).
+    approx: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class ChunkSpan:
+    """One segment's placement inside a resolved chunk-reuse prefix: where
+    it sits (``off``/``length``), which cache entry supplied it (``stamp``
+    — the creation-stamp identity every install/release path checks),
+    whether its content is bit-faithful to the canonical computation
+    (``exact``: a canonical-position, canonical-chain hit or a fresh build
+    — only these are eligible for pool-side canonical registration), and
+    the boundary-correction window's token ids (``fixup_ids`` — what a
+    pool-side splice re-prefills at this span's offset)."""
+
+    key: str
+    off: int
+    length: int
+    stamp: int
+    exact: bool
+    fixup_ids: Tuple[int, ...]
+
+
+@dataclass
+class _Entry:
+    # device planes: the engine's NATIVE layout when tier is hot
+    # ((k, v) — or (k, v, k_scale, v_scale) under int8-KV), the int8
+    # quantized 4-tuple when warm on a bf16 engine, and None when cold
+    # (the payload lives in the host spill store)
+    planes: Optional[Tuple]
+    seg_len: int  # real tokens (<= bucket)
+    nbytes: int  # DEVICE bytes currently held (0 while cold)
+    pinned: bool = False
+    # consumptions since creation (every resolve that HITS this entry bumps
+    # it) — lookahead staging records the creation-time value so a stale
+    # speculation releases ONLY blocks nothing else touched in between
+    uses: int = 0
+    # creation stamp (monotonic per cache, set by _insert): staging records
+    # it so a stale release never drops a DIFFERENT entry rebuilt at the
+    # same key after the staged one was budget-evicted (a fresh rebuild
+    # also starts at uses=0 — the use counter alone can't tell them apart).
+    # Tier transitions mutate the entry IN PLACE and never touch the stamp:
+    # a demote-while-staged keeps the creation-stamp discipline.
+    stamp: int = 0
+    # hotness tier (engine/tiering.py): "hot" | "warm" | "cold"
+    tier: str = "hot"
+    # planes went through the int8 round trip (warm demotion on a non-int8
+    # engine): splices must dequantize first, and the bounded int8 drift
+    # applies to everything served from this entry until it is rebuilt
+    quantized: bool = False
+    # chunk-granular reuse (reuse="chunk"): the CANONICAL position this
+    # entry's KV was computed at — a hit at (canon_off, canon_chain) serves
+    # bit-identically; any other placement re-rotates K by the position
+    # delta and boundary-corrects. Unused under exact/slot reuse (their
+    # keys already pin the offset).
+    canon_off: int = 0
+    canon_chain: Tuple = ()
+
+
+def _planes_nbytes(planes: Tuple) -> int:
+    return int(sum(int(p.nbytes) for p in planes))
+
+
+#: warmth-manifest side table bound: segment keys whose token ids are kept
+#: for cross-restart rehydration (LRU; ids, not KV — a few KB per segment)
+_SEG_IDS_CAP = 256
+
+
+class PrefixCache:
+    """HBM-budgeted LRU of segment KV blocks + assembled prefix buffers.
+
+    Thread-safe; device work (build/splice) runs outside the lock — entries
+    and buffers are immutable device arrays, so concurrent readers never see
+    a partially written block.
+    """
+
+    def __init__(self, config, engine, tiering=None):
+        if config.reuse not in ("exact", "slot", "chunk"):
+            raise ValueError(
+                f"prefix_cache.reuse={config.reuse!r}: expected 'exact', "
+                "'slot' or 'chunk'"
+            )
+        self.config = config
+        self.engine = engine  # owning InferenceEngine (builds the blocks)
+        # hotness-aware tiering (engine/tiering.py, HA-RAG): taken from the
+        # explicit arg (tests) or the owning engine's config; None = every
+        # entry stays hot forever — the exact pre-tiering behavior
+        if tiering is None:
+            tiering = getattr(
+                getattr(engine, "engine_config", None), "kv_tiering", None
+            )
+        enabled = tiering is not None and getattr(tiering, "enabled", False)
+        self.tiering = tiering if enabled else None
+        if self.tiering is not None:
+            self.tiering.validate()
+            self.hotness = HotnessTracker(self.tiering.half_life_s)
+            self.spill = HostSpillStore(self.tiering.host_spill_mb)
+        else:
+            self.hotness = None
+            self.spill = None
+        # chunk-granular reuse hotness gate: shifted splices are allowed
+        # only for chunks whose decayed hit frequency clears
+        # config.chunk_hot_min — the tiering tracker when tiering is on
+        # (one signal for both decisions), else a cache-private tracker
+        # with the same decay grammar. None outside "chunk" mode.
+        if config.reuse == "chunk" and self.hotness is None:
+            self._chunk_hotness = HotnessTracker(300.0)
+        else:
+            self._chunk_hotness = self.hotness
+        # chunk-reuse outcome counters (rag_prefix_chunk_reuse_total):
+        # chain_exact = served bit-identically from the canonical position,
+        # spliced = reused at the canonical offset under a different chain,
+        # rerotated = position-shifted via RoPE re-rotation, recompute =
+        # built fresh (miss, cold chunk, or splice-fault fallback)
+        self._chunk_counts: Dict[str, int] = {
+            "chain_exact": 0, "spliced": 0, "rerotated": 0, "recompute": 0,
+            "splice_faults": 0, "boundary_tokens": 0,
+        }
+        # chunk spans recorded with each assembled-memo buffer (keys ⊆
+        # _assembled) so a memo hit still carries the per-chunk layout the
+        # paged engine's block-table assembly consumes
+        self._assembled_spans: Dict[tuple, Tuple] = {}
+        # approximation fingerprints per assembled buffer (keys ⊆
+        # _assembled): a memo re-serve is the SAME content the buffer was
+        # built with, so the shadow auditor attributes it identically
+        self._assembled_approx: Dict[tuple, Tuple[str, ...]] = {}
+        # anchored at construction: the first opportunistic sweep waits a
+        # full interval (a cache with nothing demotable yet should not pay
+        # a sweep on its very first resolve)
+        self._last_retier = time.monotonic()
+        # set by the service: called (outside the lock) after a retier
+        # sweep that moved anything, so pool-side registration tiers can
+        # follow the cache's hotness (ContinuousEngine.set_prefix_tier via
+        # run_on_engine)
+        self.on_retier = None
+        # tier-transition counters (read by tier_stats / rag_kv_tier_*)
+        self._tier_counts: Dict[str, int] = {
+            "swap_ins_lookahead": 0,
+            "swap_ins_demand": 0,
+            "swap_in_fallbacks": 0,
+            "demotes_warm": 0,
+            "demotes_cold": 0,
+            "promotes": 0,
+        }
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        self._assembled: "OrderedDict[tuple, Tuple[Tuple, int]]" = OrderedDict()
+        # warmth manifest source: the token ids behind each
+        # resolved segment key, LRU-bounded. KV planes cannot cross a
+        # process boundary, but (key, ids) can — a warm restart re-prefills
+        # the hottest segments from this table's persisted form so the
+        # cache does not come back empty (_SEG_IDS_CAP bounds the memory:
+        # ids are small next to the KV they describe, but not free)
+        self._seg_ids: "OrderedDict[str, List[int]]" = OrderedDict()
+        # consumptions per assembled buffer since creation (keys ⊆
+        # _assembled) — same stale-release discipline as _Entry.uses
+        self._assembled_uses: Dict[tuple, int] = {}
+        # creation stamps for assembled buffers (keys ⊆ _assembled) — same
+        # identity discipline as _Entry.stamp
+        self._assembled_stamp: Dict[tuple, int] = {}
+        self._creation_seq = 0  # feeds both stamp tables
+        self._pinned_keys: set = set()
+        self.entry_bytes = 0
+        self.assembled_bytes = 0
+        # counters (read by /metrics)
+        self.hits = 0
+        self.misses = 0
+        self.tokens_reused = 0
+        self.tokens_computed = 0
+
+    # -- keys -----------------------------------------------------------
+    def _entry_key(self, seg_key: str, offset: int, chain: Tuple[str, ...]):
+        if self.config.reuse == "slot":
+            return (seg_key, offset)
+        if self.config.reuse == "chunk":
+            # ONE canonical entry per segment: the entry itself records the
+            # position/chain it was computed at (canon_off/canon_chain) and
+            # any other placement re-rotates + boundary-corrects
+            return (seg_key,)
+        return (seg_key, offset, chain)
+
+    def chunk_reuse_counters(self) -> Dict[str, int]:
+        """Chunk-granular reuse outcome counters (the source of
+        ``rag_prefix_chunk_reuse_total``; all zero outside reuse="chunk")."""
+        with self._lock:
+            return dict(self._chunk_counts)
+
+    def pin(self, seg_key: str) -> None:
+        """Mark a segment key (e.g. the fixed prompt head) never-evicted."""
+        with self._lock:
+            self._pinned_keys.add(seg_key)
+            for k, e in self._entries.items():
+                if k[0] == seg_key:
+                    e.pinned = True
+
+    # -- warmth manifest --------------------------------------------------
+    def warmth_manifest(self, top_n: int = 8) -> List[Dict]:
+        """The hottest resolved segments as JSON-ready ``{key, ids,
+        tokens, score, spilled}`` records, hotness-ranked — what a
+        graceful drain persists (durably, next to the WAL) so the NEXT
+        incarnation can re-prefill the working set before traffic
+        arrives. Only segments whose ids are still in the bounded side
+        table qualify; ``spilled`` marks segments whose KV sat in the
+        host spill store (HA-RAG's argument: those are exactly the
+        chunks worth staging first)."""
+        tracker = (
+            self.hotness if self.hotness is not None
+            else self._chunk_hotness
+        )
+        with self._lock:
+            items = [(k, list(v)) for k, v in self._seg_ids.items()]
+            spilled_keys = set()
+            if self.spill is not None:
+                for rec in self.spill.manifest():
+                    ek = rec["key"]
+                    spilled_keys.add(ek[0] if isinstance(ek, tuple) else ek)
+        out = []
+        for key, ids in items:
+            score = float(tracker.score(key)) if tracker is not None else 0.0
+            out.append({
+                "key": key, "ids": ids, "tokens": len(ids),
+                "score": round(score, 6),
+                "spilled": key in spilled_keys,
+            })
+        out.sort(key=lambda r: (-r["score"], str(r["key"])))
+        return out[:max(0, int(top_n))]
+
+    # -- stats ----------------------------------------------------------
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "prefix_cache_hits": self.hits,
+                "prefix_cache_misses": self.misses,
+                "prefill_tokens_skipped": self.tokens_reused,
+                "prefix_cache_entries": len(self._entries),
+                # TOTAL device bytes held: segment blocks + the assembled
+                # full-prefix memo buffers (both count against the budget)
+                "prefix_cache_bytes": self.entry_bytes + self.assembled_bytes,
+            }
+
+    def bytes_by_device(self) -> Dict[int, int]:
+        """Resident cache bytes attributed per device id (segment blocks +
+        assembled buffers) — the per-device scrape view
+        (``rag_prefix_cache_device_bytes``, obs/devices.py). A plane sharded
+        over several devices splits its bytes evenly across them; planes
+        without a ``devices()`` API (CPU test doubles) attribute to device
+        0. Reads only host-side handles — no device sync."""
+        out: Dict[int, int] = {}
+
+        def _attribute(planes: Optional[Tuple]) -> None:
+            if planes is None:
+                return  # cold-tier entry: its bytes live in host RAM
+            for p in planes:
+                did = p.device.index if p.device.type == "cuda" else 0
+                out[did] = out.get(did, 0) + int(p.nbytes)
+
+        with self._lock:
+            entries = [e.planes for e in self._entries.values()]
+            buffers = [buf for buf, _ in self._assembled.values()]
+        for planes in entries:
+            _attribute(planes)
+        for planes in buffers:
+            _attribute(planes)
+        return out
+
+    # -- the one public resolve/populate entry point ---------------------
+    def prefix_for(self, segments: Sequence[Tuple[str, Sequence[int]]],
+                   _staged: Optional[Dict] = None,
+                   _trigger: str = "demand") -> Optional[CachedPrefix]:
+        """Resolve an ordered segment list ``[(key, token_ids), ...]`` into a
+        spliced prefix buffer, building (and caching) any missing blocks —
+        the miss path IS the populate path, so prefill work is never done
+        twice for a slot-matched segment. Returns None when the prefix can't
+        be represented (over the buffer capacity, or a single segment over
+        the largest segment bucket) — the caller falls back to cold prefill.
+
+        ``_staged`` (``stage()``'s bookkeeping dict) collects which entry
+        keys / assembled buffer this call CREATED, so a stale speculation
+        can release exactly them later. ``_trigger`` attributes any
+        cold-tier swap-ins this resolve performs: ``"lookahead"`` when the
+        resolve rides the lookahead prestage (the swap-in overlapped the
+        previous request's decode), ``"demand"`` when it sits on a serving
+        tail's critical path.
+        """
+        total = sum(len(ids) for _, ids in segments)
+        P = self.config.max_prefix_tokens
+        if total == 0 or total > P:
+            return None
+        max_seg = max(self.config.segment_buckets)
+        if any(len(ids) > max_seg for _, ids in segments):
+            return None
+
+        chain_full = tuple(k for k, _ in segments)
+        akey = (chain_full, total)
+        with self._lock:
+            for key, ids in segments:
+                self._seg_ids[key] = list(ids)
+                self._seg_ids.move_to_end(key)
+            while len(self._seg_ids) > _SEG_IDS_CAP:
+                self._seg_ids.popitem(last=False)
+            memo = self._assembled.get(akey)
+            if memo is not None:
+                self._assembled.move_to_end(akey)
+                self._assembled_uses[akey] = (
+                    self._assembled_uses.get(akey, 0) + 1
+                )
+                # touch member entries so the LRU order tracks real use
+                off, chain = 0, ()
+                for key, ids in segments:
+                    ek = self._entry_key(key, off, chain)
+                    e = self._entries.get(ek)
+                    if e is not None:
+                        self._entries.move_to_end(ek)
+                        e.uses += 1
+                    # a memo hit is the hottest possible signal — the
+                    # whole chain served without touching a block. The
+                    # chunk-private tracker (tiering off) must see it too,
+                    # or memo-dominated hot traffic would never clear the
+                    # chunk_hot_min gate for its own permutations.
+                    tracker = (
+                        self.hotness if self.hotness is not None
+                        else self._chunk_hotness
+                    )
+                    if tracker is not None:
+                        tracker.touch(key)
+                    off += len(ids)
+                    chain = chain + (key,)
+                self.hits += len(segments)
+                self.tokens_reused += total
+                if self.config.reuse == "chunk":
+                    # a memo hit re-serves the assembly AS IT WAS BUILT:
+                    # spans that were bit-faithful count chain_exact,
+                    # drifted (rerotated/corrected) spans count spliced —
+                    # the chain_exact/spliced ratio stays an honest bound
+                    # on drift exposure even for memo-dominated traffic
+                    memo_spans = self._assembled_spans.get(akey)
+                    if memo_spans is not None:
+                        for sp in memo_spans:
+                            self._chunk_counts[
+                                "chain_exact" if sp.exact else "spliced"
+                            ] += 1
+                    else:
+                        self._chunk_counts["chain_exact"] += len(segments)
+                if _staged is not None:
+                    _staged["chain_key"] = akey
+                    _staged["created"] = []
+                    _staged["memo_new"] = False
+                hit = CachedPrefix(
+                    memo[0], memo[1], P, total, 0,
+                    chain_key=(
+                        akey if self.config.reuse in ("exact", "chunk")
+                        else None
+                    ),
+                    chunks=self._assembled_spans.get(akey),
+                    # the memo re-serves the content AS BUILT — same
+                    # fingerprint (plus prefix_reuse: the whole chain
+                    # served from cache, whatever built it originally)
+                    approx=tuple(sorted(set(
+                        self._assembled_approx.get(akey, ())
+                    ) | {"prefix_reuse"})),
+                )
+            else:
+                hit = None
+        if hit is not None:
+            flight.emit(
+                "prefix_hit", segments=len(segments), tokens=total, memo=1,
+            )
+            # memo-dominated traffic must still converge: a service whose
+            # live mix is all memo hits would otherwise never demote idle
+            # entries nor fire the cache→pool tier mirror (interval-gated,
+            # so this is one dict-scan every retier_interval_s at most)
+            self.retier()
+            return hit
+
+        chunk_mode = self.config.reuse == "chunk"
+        Wcfg = int(getattr(self.config, "boundary_tokens", 0))
+        buf = self.engine.prefix_buffer_zero()
+        off = 0
+        chain: Tuple[str, ...] = ()
+        reused = computed = n_hit = n_miss = 0
+        created: List[tuple] = []  # (key, uses0, stamp) this resolve built
+        spans: List[ChunkSpan] = []
+        outcomes: Dict[str, int] = {}
+        fixup_tokens = 0
+        approx: set = set()  # this resolve's approximation fingerprint
+        for key, ids in segments:
+            seg_len = len(ids)
+            ek = self._entry_key(key, off, chain)
+            planes: Optional[Tuple] = None
+            quantized = False
+            swap = None  # (stamp, score) when a cold entry needs a swap-in
+            outcome = None  # chunk-mode reuse outcome for this segment
+            shifted = False  # takes the rotate/boundary-correct machinery
+            delta = 0
+            with self._lock:
+                e = self._entries.get(ek)
+                if e is not None and e.seg_len == seg_len:
+                    self._entries.move_to_end(ek)
+                    e.uses += 1
+                else:
+                    e = None  # slot/length mismatch: treat as a miss
+                score = None
+                if self.tiering is not None:
+                    score = self.hotness.touch(key)
+                elif chunk_mode:
+                    score = self._chunk_hotness.touch(key)
+                if chunk_mode and e is not None:
+                    if e.canon_off == off and e.canon_chain == chain:
+                        # canonical placement: bit-identical UNLESS the
+                        # entry went through the warm int8 round trip —
+                        # label that drift honestly (the serve path is
+                        # unchanged: dequantized splice under the warm
+                        # tier's tolerance contract, no rotation/fixup)
+                        outcome = (
+                            "chain_exact" if not e.quantized else "spliced"
+                        )
+                    elif score >= self.config.chunk_hot_min:
+                        delta = off - e.canon_off
+                        outcome = "rerotated" if delta else "spliced"
+                        shifted = True
+                    else:
+                        # cold/one-shot chunk: the drift budget is spent
+                        # only where the savings recur — rebuild at THIS
+                        # position (re-canonicalizing the entry)
+                        e = None
+                        outcome = "recompute"
+                if self.tiering is not None and e is not None:
+                    if e.tier == "cold":
+                        swap = (e.stamp, score)
+                    elif (
+                        e.tier == "warm"
+                        and score >= self.tiering.warm_below
+                    ):
+                        # promotion roughly doubles this entry's device
+                        # bytes — re-enforce the budget or a
+                        # hit-dominated steady state (no inserts) could
+                        # sit over it indefinitely
+                        self._promote_locked(e)
+                        self._enforce_budget_locked(keep=ek)
+                # SNAPSHOT while still locked: tier transitions mutate the
+                # entry in place, so planes/quantized must never be re-read
+                # after release — a concurrent demote could hand the splice
+                # a None or a half-transitioned tuple
+                if e is not None and e.tier != "cold":
+                    planes, quantized = e.planes, e.quantized
+            if e is not None and swap is not None:
+                # host→HBM swap-in OUTSIDE the lock (the transfer must not
+                # serialize concurrent resolves); None = the swap failed
+                # (or the host buffer is gone) and the entry was dropped —
+                # fall through to recompute-from-tokens below
+                res = self._swap_in(ek, swap[0], _trigger, swap[1])
+                if res is None:
+                    # the segment will be REBUILT from tokens below: it is
+                    # a recompute, not a shifted splice — clearing these
+                    # keeps the reused/computed accounting (and the
+                    # chunk_splice/boundary_fixup events) honest
+                    e = None
+                    shifted = False
+                    delta = 0
+                    if outcome is not None:
+                        outcome = "recompute"
+                else:
+                    planes, quantized = res
+            e_stamp = e.stamp if e is not None else 0
+            was_miss = False
+            if e is not None and shifted:
+                # the shifted-splice path can fault (fault site
+                # chunk_splice) or fail in the rotation op: both fall back
+                # to recompute-from-tokens — nothing was allocated yet, so
+                # the fallback leaks zero entries/blocks by construction
+                try:
+                    faults.maybe_fail("chunk_splice")
+                    seg_marks = {"splice"}  # fingerprint iff this succeeds
+                    if quantized and len(planes) == 4:
+                        planes = dequantize_planes(planes, buf[0].dtype)
+                        quantized = False
+                        seg_marks.add("warm_tier")
+                    if delta:
+                        planes = self.engine.rerotate_segment_kv(
+                            planes, delta
+                        )
+                        flight.emit("rerotate", tokens=seg_len, delta=delta)
+                        seg_marks.add("rerotate")
+                    approx |= seg_marks
+                except Exception:  # noqa: BLE001 — KeyboardInterrupt propagates
+                    logger.warning(
+                        "chunk splice failed for %r; recomputing", ek,
+                        exc_info=True,
+                    )
+                    with self._lock:
+                        self._chunk_counts["splice_faults"] += 1
+                    e = None
+                    outcome = "recompute"
+                    shifted = False
+                    planes, quantized = None, False
+            if e is None:
+                # build with the true left context (buf holds chain's KV):
+                # under "exact" reuse this makes the block bit-faithful to
+                # what a cold prefill would have computed at these slots
+                planes = self.engine.build_segment_kv(list(ids), buf, off)
+                e = _Entry(
+                    planes=planes, seg_len=seg_len,
+                    nbytes=_planes_nbytes(planes),
+                    pinned=key in self._pinned_keys,
+                    canon_off=off, canon_chain=chain,
+                )
+                self._insert(ek, e)
+                # staging identity is snapshotted HERE, at creation: uses
+                # is 0 by construction and stamp was just assigned under
+                # _insert's lock. Re-reading the entry at the end-of-resolve
+                # lock instead would let a concurrent hit (bumping uses
+                # between splices and that lock) erase the consumption
+                # evidence release_staged's uses-moved check depends on
+                created.append((ek, 0, e.stamp))
+                e_stamp = e.stamp
+                was_miss = True
+                n_miss += 1
+                computed += seg_len
+                if chunk_mode:
+                    outcome = "recompute"
+            else:
+                n_hit += 1
+            if quantized and len(planes) == 4:
+                # warm entry on a non-int8 engine: rebuild native-dtype
+                # planes for the splice from the LOCKED snapshot (the
+                # tuple itself is immutable). The int8 round trip is the
+                # warm tier's bounded drift.
+                planes = dequantize_planes(planes, buf[0].dtype)
+                approx.add("warm_tier")
+            if not was_miss:
+                approx.add("prefix_reuse")  # served (at least partly) cached
+            buf = self.engine.splice_prefix(buf, planes, off)
+            if shifted:
+                # bounded boundary correction: re-prefill the chunk's first
+                # W tokens with the TRUE left context — the slots where
+                # cross-chunk attention actually differs from the canonical
+                # computation. The corrected block overwrites exactly its
+                # window (the re-rotated tail stays).
+                W = min(Wcfg, seg_len)
+                if W > 0:
+                    fix = self.engine.build_segment_kv(ids[:W], buf, off)
+                    buf = self.engine.splice_prefix(
+                        buf, self.engine.slice_prefix_block(fix, W), off
+                    )
+                    flight.emit("boundary_fixup", tokens=W)
+                    approx.add("boundary_fixup")
+                    fixup_tokens += W
+                    computed += W
+                    reused += seg_len - W
+                else:
+                    reused += seg_len
+                flight.emit(
+                    "chunk_splice", tokens=seg_len, delta=delta,
+                )
+            elif not was_miss:
+                # exact/slot hit, or a chunk-mode canonical-position hit
+                reused += seg_len
+            if outcome is not None:
+                outcomes[outcome] = outcomes.get(outcome, 0) + 1
+            if chunk_mode:
+                spans.append(ChunkSpan(
+                    key=key, off=off, length=seg_len, stamp=e_stamp,
+                    exact=outcome in ("chain_exact", "recompute"),
+                    fixup_ids=tuple(int(t) for t in ids[:Wcfg]),
+                ))
+            off += seg_len
+            chain = chain + (key,)
+
+        buf_bytes = _planes_nbytes(buf)
+        with self._lock:
+            self.hits += n_hit
+            self.misses += n_miss
+            self.tokens_reused += reused
+            self.tokens_computed += computed
+            for k, v in outcomes.items():
+                self._chunk_counts[k] += v
+            self._chunk_counts["boundary_tokens"] += fixup_tokens
+            # two threads can resolve the same chain concurrently (both miss
+            # the memo check): drop the loser's bytes before re-assigning or
+            # assembled_bytes would over-count forever
+            prev = self._assembled.pop(akey, None)
+            if prev is not None:
+                self.assembled_bytes -= _planes_nbytes(prev[0])
+            self._assembled[akey] = (buf, off)
+            # a memo re-serve is THIS content: record the fingerprint so
+            # the shadow auditor attributes repeats identically
+            self._assembled_approx[akey] = tuple(sorted(approx))
+            if chunk_mode:
+                self._assembled_spans[akey] = tuple(spans)
+            self._assembled_uses[akey] = 0
+            self._creation_seq += 1
+            self._assembled_stamp[akey] = self._creation_seq
+            self.assembled_bytes += buf_bytes
+            if _staged is not None:
+                _staged["chain_key"] = akey
+                _staged["created"] = list(created)
+                _staged["memo_new"] = prev is None
+                _staged["memo_stamp"] = self._assembled_stamp[akey]
+            # assembled buffers are full-capacity (P-wide) planes — at 8B
+            # defaults ~512 MiB EACH — so they share the ONE HBM budget with
+            # the segment blocks and, being pure re-splice avoidance, evict
+            # FIRST (coldest chain first, then oldest; the buffer just
+            # added is kept so a repeat of this very query still skips its
+            # splices)
+            budget = int(self.config.hbm_budget_mb) * (1 << 20)
+            cap = max(1, int(self.config.assembled_cache_entries))
+            if (
+                len(self._assembled) > cap
+                or self.entry_bytes + self.assembled_bytes > budget
+            ):
+                # order computed only under pressure: ranking every memo's
+                # chain tier scores every member segment, too much for the
+                # common nothing-to-evict resolve
+                for k in self._assembled_evict_order():
+                    if (
+                        len(self._assembled) <= cap
+                        and self.entry_bytes + self.assembled_bytes <= budget
+                    ):
+                        break
+                    if k == akey:
+                        continue
+                    self._pop_assembled(k)
+        if n_hit:
+            flight.emit("prefix_hit", segments=n_hit, tokens=reused)
+        if n_miss:
+            flight.emit("prefix_miss", segments=n_miss, tokens=computed)
+        # opportunistic tier maintenance (interval-gated; no-op untiered):
+        # demotions ride the resolve path so a quiet cache still converges
+        # without a dedicated thread — the lookahead sweeper's stage()
+        # calls and live resolves both pass through here
+        self.retier()
+        return CachedPrefix(
+            buf, off, P, reused, computed,
+            chain_key=(
+                akey if self.config.reuse in ("exact", "chunk") else None
+            ),
+            chunks=tuple(spans) if chunk_mode else None,
+            approx=tuple(sorted(approx)),
+        )
+
+    # -- lookahead staging (rag/lookahead.py drives these) ---------------
+    def stage(self, segments: Sequence[Tuple[str, Sequence[int]]],
+              trigger: str = "lookahead"):
+        """Resolve-and-track: exactly ``prefix_for`` (the miss path IS the
+        populate path), but returns ``(CachedPrefix, staging_record)`` where
+        the record names every entry/assembled buffer this call CREATED —
+        the handle a superseded speculation passes to ``release_staged``.
+        Blocks another request consumed in the meantime are NOT released
+        (their ``uses`` moved past the recorded creation value).
+
+        ``trigger`` attributes the resolve's cold-tier swap-ins: staging is
+        the lookahead pipeline's prestage, so a swap-in here happened OFF
+        the critical path — overlapped with the previous request's decode —
+        and counts toward the swap-in hide rate."""
+        record: Dict = {}
+        cp = self.prefix_for(segments, _staged=record, _trigger=trigger)
+        if cp is None or not record:
+            return cp, None
+        return cp, record
+
+    def release_staged(self, record: Optional[Dict]) -> int:
+        """Release what a staging created and nothing else consumed since:
+        ref-count-correct stale-prefetch cancellation (a shared entry — the
+        pinned head, or a chunk a live request hit after staging — stays;
+        so does anything REBUILT at a staged key after the staged object
+        was budget-evicted, via the creation-stamp identity check).
+        Returns the number of device buffers dropped."""
+        if not record:
+            return 0
+        released = 0
+        with self._lock:
+            for ek, uses0, stamp0 in record.get("created", ()):
+                e = self._entries.get(ek)
+                if (
+                    e is None or e.pinned
+                    or e.stamp != stamp0  # a different entry owns this key now
+                    or e.uses > uses0  # consumed since staging
+                ):
+                    continue
+                self._entries.pop(ek)
+                self.entry_bytes -= e.nbytes
+                if self.spill is not None:
+                    # demote-while-prestaged: a staged entry that went cold
+                    # before the speculation died still releases its HOST
+                    # buffer (its device bytes were already spilled away)
+                    self.spill.drop(ek)
+                released += 1
+            akey = record.get("chain_key")
+            if record.get("memo_new") and akey in self._assembled:
+                if (
+                    self._assembled_stamp.get(akey) == record.get("memo_stamp")
+                    and self._assembled_uses.get(akey, 0) <= 0
+                    and self._pop_assembled(akey)
+                ):
+                    released += 1
+        return released
+
+    # -- hotness tiering (engine/tiering.py drives the representation) ----
+    def retier(self, force: bool = False) -> int:
+        """One tier-maintenance sweep: demote entries whose decayed hotness
+        fell under the thresholds (hot → warm int8 in place, any → cold
+        host spill). Interval-gated on the resolve path (``force=True``
+        ignores the gate — tests and service maintenance). Pinned entries
+        (the prompt head — reused by 100% of requests) never demote.
+        Returns the number of transitions performed.
+
+        Invariants preserved across every transition: the ``_Entry`` object
+        (and its creation stamp / use counter) is mutated in place, so the
+        staging discipline and LRU identity survive; ``entry_bytes``
+        tracks device bytes exactly (a cold entry holds zero)."""
+        if self.tiering is None:
+            return 0
+        now = time.monotonic()
+        cold: List[tuple] = []  # (ek, planes snapshot) to spill off-lock
+        with self._lock:
+            if (
+                not force
+                and now - self._last_retier < self.tiering.retier_interval_s
+            ):
+                return 0
+            self._last_retier = now
+            moved = 0
+            for ek, e in list(self._entries.items()):
+                if e.pinned:
+                    continue
+                if e.tier == "cold" and ek not in self.spill:
+                    # the host store's budget evicted its backing: this
+                    # entry can never swap in again (its next use is a
+                    # plain miss either way) — drop the stub, or cold
+                    # entries accrete one dict node per chunk ever cached
+                    self._entries.pop(ek)
+                    continue
+                score = self.hotness.score(ek[0])
+                if e.tier != "cold" and score < self.tiering.cold_below:
+                    cold.append((ek, e.planes))
+                elif e.tier == "hot" and score < self.tiering.warm_below:
+                    # quantization only DISPATCHES device work (async) —
+                    # cheap to hold the lock across, unlike a D2H copy
+                    self._demote_warm_locked(e)
+                    moved += 1
+            self.hotness.prune()
+        for ek, planes in cold:
+            # the device→host copy of a multi-MiB chunk must not serialize
+            # concurrent resolves (the rule _swap_in applies in the other
+            # direction): copy OUTSIDE the lock, install under a short
+            # re-acquire gated on plane IDENTITY — an entry rebuilt,
+            # promoted, or already spilled meanwhile is skipped and the
+            # next sweep re-judges it
+            host = tuple(host_copy(p) for p in planes)
+            with self._lock:
+                e = self._entries.get(ek)
+                if e is None or e.planes is not planes:
+                    continue
+                self._spill_host_locked(ek, e, host)
+                moved += 1
+        if moved:
+            flight.emit("retier", moved=moved)
+        if moved and self.on_retier is not None:
+            try:
+                self.on_retier()
+            except Exception:  # noqa: BLE001 — maintenance must not fail a resolve
+                logger.exception("prefix-cache retier callback failed")
+        return moved
+
+    def force_demote(self, tier: str, seg_key: Optional[str] = None) -> int:
+        """Demote entries (all, or just ``seg_key``'s) to ``tier``
+        regardless of hotness — the forced-demotion lever of the
+        quality-tolerance tests' setup hook. Pinned entries still never
+        demote. Returns the number of entries moved."""
+        if tier not in ("warm", "cold"):
+            raise ValueError(f"force_demote tier={tier!r}: expected warm|cold")
+        if self.tiering is None:
+            return 0
+        n = 0
+        with self._lock:
+            for ek, e in list(self._entries.items()):
+                if e.pinned or (seg_key is not None and ek[0] != seg_key):
+                    continue
+                if tier == "cold" and e.tier != "cold":
+                    self._demote_cold_locked(ek, e)
+                    n += 1
+                elif tier == "warm" and e.tier == "hot":
+                    self._demote_warm_locked(e)
+                    n += 1
+        return n
+
+    def _demote_warm_locked(self, e: _Entry) -> None:
+        """hot → warm: quantize the entry's planes to int8 IN PLACE (no
+        re-prefill — the bytes already in HBM convert; the old planes free
+        when their last reference drops). On an int8-KV engine the planes
+        are already int8, so warm is a tier label with no byte change."""
+        self._tier_counts["demotes_warm"] += 1
+        q = quantize_planes(e.planes)
+        e.tier = "warm"
+        if q is None:
+            return  # already int8 — label-only transition
+        self.entry_bytes -= e.nbytes
+        e.planes = q
+        e.quantized = True
+        e.nbytes = _planes_nbytes(q)
+        self.entry_bytes += e.nbytes
+
+    def _demote_cold_locked(self, ek, e: _Entry) -> None:
+        """(hot|warm) → cold: copy the planes to host RAM and drop the
+        device bytes. A hot entry spilled cold and swapped back is still
+        BYTE-EXACT — only the warm int8 round trip costs drift. The D2H
+        copy here runs UNDER the lock — acceptable for ``force_demote``
+        (a test/ops lever); the retier sweep copies outside it."""
+        self._spill_host_locked(
+            ek, e, tuple(host_copy(p) for p in e.planes)
+        )
+
+    def _spill_host_locked(self, ek, e: _Entry, host: Tuple) -> None:
+        """Install an already-host-copied spill and zero the entry's
+        device residency (lock held by the caller)."""
+        self.spill.put(ek, host, meta={"quantized": e.quantized})
+        self.entry_bytes -= e.nbytes
+        e.planes = None
+        e.nbytes = 0
+        e.tier = "cold"
+        self._tier_counts["demotes_cold"] += 1
+
+    def _promote_locked(self, e: _Entry) -> None:
+        """warm → hot for an entry whose hotness recovered: materialize the
+        native-dtype planes so hits stop paying the per-resolve dequant.
+        The int8 drift is retained (the original bits are gone — exactness
+        returns only when the entry is rebuilt); an int8-KV engine's warm
+        entries promote by label alone."""
+        self._tier_counts["promotes"] += 1
+        if not e.quantized:
+            e.tier = "hot"
+            return
+        native = dequantize_planes(e.planes, self._native_dtype())
+        self.entry_bytes -= e.nbytes
+        e.planes = native
+        e.quantized = False
+        e.nbytes = _planes_nbytes(native)
+        e.tier = "hot"
+        self.entry_bytes += e.nbytes
+
+    def _swap_in(self, ek, stamp: int, trigger: str, score: float):
+        """cold → resident, performed OUTSIDE the cache lock: the host→HBM
+        transfer of a multi-MiB chunk must not serialize every concurrent
+        resolve (memo hits included). The spill store guards itself, the
+        copy to the card runs unlocked, and the result installs under a short
+        re-acquire gated on the entry's creation STAMP — a concurrent
+        rebuild or a second swap-in wins and this call's staged planes are
+        simply dropped. Returns ``(planes, quantized)`` ready to splice, or
+        None when the swap could not happen — the entry and its host buffer
+        are dropped and the caller RECOMPUTES FROM TOKENS (the chaos
+        contract: a failed swap-in is a cache miss, never an error).
+        ``kv_swap_in`` is the fault site."""
+
+        def _drop_if_ours():
+            e = self._entries.get(ek)
+            if e is not None and e.stamp == stamp and e.tier == "cold":
+                self._entries.pop(ek)
+
+        item = self.spill.get(ek)
+        if item is None:
+            # the host store evicted it (budget): an ordinary miss
+            with self._lock:
+                _drop_if_ours()
+            return None
+        try:
+            faults.maybe_fail("kv_swap_in")
+            planes = self._device_planes(item[0])
+        except Exception:  # recompute-from-tokens fallback; KeyboardInterrupt
+            # / SystemExit must PROPAGATE (nothing here is torn: the entry
+            # is still cold and the spill intact — a later resolve retries)
+            with self._lock:
+                self._tier_counts["swap_in_fallbacks"] += 1
+                e = self._entries.get(ek)
+                if e is None or (e.stamp == stamp and e.tier == "cold"):
+                    # ours (or an orphan): the host buffer releases with
+                    # the entry. A DIFFERENT entry rebuilt at this key
+                    # meanwhile may own a NEW spill — leave it alone, or a
+                    # failed swap would silently turn that cached chunk
+                    # into a recompute (same stamp aliasing every other
+                    # release path guards against)
+                    if e is not None:
+                        self._entries.pop(ek)
+                    self.spill.drop(ek)
+            logger.warning(
+                "kv swap-in failed for %r; falling back to recompute",
+                ek, exc_info=True,
+            )
+            flight.emit("swap_in_fallback")
+            return None
+        with self._lock:
+            e = self._entries.get(ek)
+            if e is None or e.stamp != stamp:
+                return None  # rebuilt/evicted meanwhile: plain miss
+            if e.tier != "cold":
+                # a concurrent swap-in won: serve ITS installed planes
+                return (e.planes, e.quantized)
+            self.spill.drop(ek)
+            e.planes = planes
+            e.nbytes = _planes_nbytes(planes)
+            e.tier = "warm" if e.quantized else "hot"
+            self.entry_bytes += e.nbytes
+            key = (
+                "swap_ins_lookahead" if trigger == "lookahead"
+                else "swap_ins_demand"
+            )
+            self._tier_counts[key] += 1
+            flight.emit("swap_in", trigger=trigger)
+            if e.tier == "warm" and score >= self.tiering.warm_below:
+                # the hit that triggered this swap already re-heated the
+                # chunk: promote in the same install (rehit contract)
+                self._promote_locked(e)
+            self._enforce_budget_locked(keep=ek)
+            return (e.planes, e.quantized)
+
+    def _device_planes(self, host: Tuple) -> Tuple:
+        """Host planes back onto the engine's device."""
+        return tuple(p.to(self.engine.device) for p in host)
+
+    def _native_dtype(self):
+        """The engine's native KV payload dtype (what splices consume)."""
+        return self.engine.prefix_buffer_zero()[0].dtype
+
+    def chain_tier(self, chain_key) -> str:
+        """The hotness tier of a whole CHAIN (a pool registration's unit —
+        ``(segment-key tuple, total)``): as cold as its coldest member
+        segment. Pure hotness math, no entry lookups — usable from any
+        thread for pool-side retier decisions."""
+        if self.tiering is None or chain_key is None:
+            return "hot"
+        chain = chain_key[0] if isinstance(chain_key, tuple) else chain_key
+        worst = "hot"
+        for seg in chain:
+            s = self.hotness.score(seg)
+            if s < self.tiering.cold_below:
+                return "cold"
+            if s < self.tiering.warm_below:
+                worst = "warm"
+        return worst
+
+    def tier_stats(self) -> Dict[str, float]:
+        """Per-tier residency + transition counters — the source of the
+        ``rag_kv_tier_*`` families (obs)."""
+        out: Dict[str, float] = {
+            "tier_hot_entries": 0, "tier_warm_entries": 0,
+            "tier_cold_entries": 0, "tier_hot_bytes": 0,
+            "tier_warm_bytes": 0, "tier_cold_host_bytes": 0,
+            "tier_host_evictions": 0,
+        }
+        with self._lock:
+            for e in self._entries.values():
+                out[f"tier_{e.tier}_entries"] += 1
+                if e.tier != "cold":
+                    out[f"tier_{e.tier}_bytes"] += e.nbytes
+            out.update(self._tier_counts)
+        if self.spill is not None:
+            out["tier_cold_host_bytes"] = self.spill.bytes
+            out["tier_host_evictions"] = self.spill.evictions
+        return out
+
+    # -- LRU bookkeeping -------------------------------------------------
+    def _assembled_evict_order(self) -> List[tuple]:
+        """Assembled-memo eviction order (lock held by the caller):
+        COLDEST chain first — a memo whose coldest member segment demoted
+        is re-splice avoidance for a chain the tier policy already judged
+        idle, so its full-capacity buffer is the cheapest HBM to give back
+        (the open item carried since the tiering PR) — then LRU within a
+        tier. Untiered caches keep pure LRU (every chain reads "hot")."""
+        keys = list(self._assembled)  # OrderedDict: LRU-oldest first
+        if self.tiering is None:
+            return keys
+        rank = {"cold": 0, "warm": 1, "hot": 2}
+        order = {k: i for i, k in enumerate(keys)}
+        return sorted(
+            keys,
+            key=lambda k: (rank.get(self.chain_tier(k), 2), order[k]),
+        )
+
+    def _pop_assembled(self, key) -> bool:
+        """Drop one assembled buffer + its use/stamp side-table rows (the
+        one place all three stay consistent; lock held by the caller)."""
+        item = self._assembled.pop(key, None)
+        if item is None:
+            return False
+        self._assembled_uses.pop(key, None)
+        self._assembled_stamp.pop(key, None)
+        self._assembled_spans.pop(key, None)
+        self._assembled_approx.pop(key, None)
+        self.assembled_bytes -= _planes_nbytes(item[0])
+        return True
+
+    def _insert(self, key, entry: _Entry) -> None:
+        with self._lock:
+            self._creation_seq += 1
+            entry.stamp = self._creation_seq
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self.entry_bytes -= old.nbytes
+                if self.spill is not None:
+                    self.spill.drop(key)  # a cold old entry's host buffer
+            self._entries[key] = entry
+            self.entry_bytes += entry.nbytes
+            self._enforce_budget_locked(keep=key)
+
+    def _enforce_budget_locked(self, keep) -> None:
+        """Evict down to the HBM budget (lock held). Assembled buffers
+        (pure re-splice avoidance) evict before any segment block does — a
+        block eviction costs a real re-prefill — coldest chain first under
+        tiering (``_assembled_evict_order``); then blocks evict LRU-first. Pinned blocks (the head — reused by 100% of requests)
+        and ``keep`` (the entry just inserted / swapped in) are never
+        victims, and cold entries are skipped — they hold no device bytes
+        to reclaim."""
+        budget = int(self.config.hbm_budget_mb) * (1 << 20)
+        if self._assembled and self.entry_bytes + self.assembled_bytes > budget:
+            for k in self._assembled_evict_order():
+                if self.entry_bytes + self.assembled_bytes <= budget:
+                    break
+                self._pop_assembled(k)
+        for k in list(self._entries):
+            if self.entry_bytes <= budget:
+                break
+            e = self._entries[k]
+            if k == keep or e.pinned or e.tier == "cold":
+                continue
+            self._entries.pop(k)
+            self.entry_bytes -= e.nbytes
+            logger.debug("prefix cache evicted %r (%d bytes)", k, e.nbytes)
+
+    def clear(self) -> None:
+        """Drop every cached block and assembled buffer (frees the HBM) —
+        and every cold-spilled host buffer with them: a cleared cache must
+        leave ZERO host-spill bookkeeping behind (the reset contract the
+        tiering chaos tests pin)."""
+        with self._lock:
+            self._entries.clear()
+            self._assembled.clear()
+            self._assembled_uses.clear()
+            self._assembled_stamp.clear()
+            self._assembled_spans.clear()
+            self._assembled_approx.clear()
+            self.entry_bytes = 0
+            self.assembled_bytes = 0
+            if self.spill is not None:
+                self.spill.clear()

@@ -166,6 +166,8 @@ class VectorStore:
         self._vectors = np.zeros((0, dim), np.float32)
         self._metadata: List[Dict] = []
         self._hashes: set = set()
+        # each row's content hash, in row order (content_key)
+        self._row_hashes: List[str] = []
         self.generation = 0
         self._dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._token_fn = None
@@ -197,6 +199,7 @@ class VectorStore:
             self._vectors = np.concatenate([self._vectors, np.stack(fresh_v)], axis=0)
             self._metadata.extend(fresh_m)
             self._hashes.update(fresh_h)
+            self._row_hashes.extend(fresh_h)
             self._chunk_tokens.extend([None] * len(fresh_m))
             self.generation += 1
             self._dev = None
@@ -265,6 +268,15 @@ class VectorStore:
             return built
         finally:
             self._tok_build_lock.release()
+
+    def content_key(self, row: int) -> Optional[str]:
+        """The stable identity of one row's chunk: its content hash (document
+        and chunk text, never row order or embedding), so prefix-cache keys
+        survive a restart. None when ``row`` is out of range."""
+        with self._lock:
+            if 0 <= row < len(self._row_hashes):
+                return self._row_hashes[row]
+            return None
 
     def cached_token_row(self, row: int) -> Optional[np.ndarray]:
         with self._lock:
@@ -372,6 +384,7 @@ class VectorStore:
         # token rows are not persisted: they re-derive from the metadata text
         store._chunk_tokens = [None] * len(store._metadata)
         store._hashes = set(meta.get("hashes", []))
+        store._row_hashes = [_content_hash(m) for m in store._metadata]
         store.generation = meta.get("generation", 0)
         store.fingerprint = meta.get("fingerprint", "")
         if dim is not None and store.dim != dim:

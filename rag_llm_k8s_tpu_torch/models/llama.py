@@ -57,6 +57,8 @@ from rag_llm_k8s_tpu_torch.ops.attention import (
     paged_decode_attention,
     paged_decode_attention_q8,
     quantize_kv,
+    rope_rerotate,
+    rope_rerotate_q8,
 )
 
 
@@ -202,6 +204,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def rerotate_prefix_planes(config: LlamaConfig, planes: Tuple, delta: int) -> Tuple:
+    """Position-shift a cached segment-KV plane tuple by ``delta`` tokens
+    (JAX ``rerotate_prefix_planes``): K re-rotates by the closed-form RoPE
+    delta, V passes through. ``planes`` is ``(k, v)`` with payloads ``[L, 1,
+    K, S, hd]``, or the int8 ``(k, v, k_scale, v_scale)`` (scales ``[L, 1,
+    K, S]``; dequantize, rotate, requantize). ``delta == 0`` returns
+    ``planes`` itself, so a canonical-position hit stays bit-identical."""
+    if int(delta) == 0:
+        return planes
+    inv = rope_frequencies(config, planes[0].device)
+    if len(planes) == 4:
+        k_q, k_scale = rope_rerotate_q8(planes[0], planes[2], int(delta), inv)
+        return (k_q, planes[1], k_scale, planes[3])
+    return (rope_rerotate(planes[0], int(delta), inv), planes[1])
 
 
 def mask_window(pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

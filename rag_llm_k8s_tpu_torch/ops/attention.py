@@ -566,6 +566,76 @@ def quantize_kv(x: torch.Tensor):
     return torch.round(xf / scale[..., None]).to(torch.int8), scale
 
 
+# ---------------------------------------------------------------------------
+# RoPE re-rotation of cached K planes (chunk-granular prefix reuse)
+# ---------------------------------------------------------------------------
+#
+# K computed at position p and reused at p + delta differs only by a further
+# rotation of angle delta * inv_freq of each (i, i + hd/2) pair; V carries no
+# position. The JAX package computes these outside Pallas, so they are plain
+# PyTorch here. Both copy the compiled XLA arithmetic on the CPU, bit for
+# bit: the phases' cos and sin are the C library's cosf/sinf (what XLA calls
+# on the CPU), and each a*b - c*d is contracted to fma(a, b, -(c*d)).
+
+_LIBM: Optional[ctypes.CDLL] = None
+
+
+def _libm() -> ctypes.CDLL:
+    global _LIBM
+    if _LIBM is None:
+        import ctypes.util
+
+        lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+        for name in ("cosf", "sinf"):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = _F, [_F]
+        _LIBM = lib
+    return _LIBM
+
+
+def rope_delta_cos_sin(delta: int, inv_freqs: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cos, sin`` of the phases ``delta * inv_freqs`` (fp32 ``[hd/2]``),
+    computed on the host (``hd/2`` values) and placed on ``device``."""
+    phase = torch.tensor(float(delta), dtype=torch.float32) * inv_freqs.detach().to("cpu", torch.float32)
+    lib = _libm()
+    vals = phase.tolist()
+    c = torch.tensor([lib.cosf(x) for x in vals], dtype=torch.float32)
+    s = torch.tensor([lib.sinf(x) for x in vals], dtype=torch.float32)
+    return c.to(device), s.to(device)
+
+
+def _rotate(xf: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The pairwise-by-halves rotation of fp32 ``xf [..., hd]``, each half as
+    ``fma(x, c, -+(y * s))``: the product of two fp32 values is exact in
+    fp64, so one fp64 sum rounded to fp32 is the fused multiply-add."""
+    half = xf.shape[-1] // 2
+    x1, x2 = xf[..., :half], xf[..., half:]
+    cd = c.double()
+    return torch.cat([
+        (x1.double() * cd - (x2 * s).double()).float(),
+        (x2.double() * cd + (x1 * s).double()).float(),
+    ], dim=-1)
+
+
+def rope_rerotate(k: torch.Tensor, delta: int, inv_freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate cached K planes ``[..., hd]`` by a uniform position ``delta``
+    (JAX ``rope_rerotate``): fp32 math, returned in ``k``'s dtype."""
+    c, s = rope_delta_cos_sin(delta, inv_freqs, k.device)
+    return _rotate(k.float(), c, s).to(k.dtype)
+
+
+def rope_rerotate_q8(
+    k_q: torch.Tensor, k_scale: torch.Tensor, delta: int, inv_freqs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rope_rerotate`` over the int8 K layout (JAX ``rope_rerotate_q8``):
+    dequantize, rotate, requantize with each vector's scale recomputed as
+    ``quantize_kv`` does (the rotation changes its max-abs)."""
+    c, s = rope_delta_cos_sin(delta, inv_freqs, k_q.device)
+    rot = _rotate(k_q.float() * k_scale[..., None], c, s)
+    scale = rot.abs().amax(dim=-1).clamp_min(1e-8) * INV_127
+    return torch.round(rot / scale[..., None]).to(torch.int8), scale
+
+
 def dequantize_layer_slice(
     cache: torch.Tensor,  # [L, B, K, T, hd] int8
     scale: torch.Tensor,  # [L, B, K, T] fp32

@@ -29,6 +29,15 @@ takes the host path: the hits are fetched, the prompt is assembled on the
 host (piecewise, or budgeted) and submitted to the scheduler, which batches
 concurrent prompts into one ``engine.generate``.
 
+With the KV prefix cache on (``EngineConfig.prefix_cache``,
+``TPU_RAG_PREFIX_CACHE=1``) a solo query leaves the single-fetch path, as
+in the JAX service: its prompt is cut into the head and the kept chunk
+segments (``_prompt_segments``, keyed by the store's content hash), whose KV
+the engine's ``PrefixCache`` resolves (building and caching what it
+misses), and only the per-query tail prefills
+(``InferenceEngine.generate_prefixed``); a burst, or a prompt the prefixed
+path cannot take, goes on to the host path.
+
 With a ``ContinuousScheduler`` (``batching="continuous"``, built by
 ``build_scheduler`` over the one-shot engine's model, one copy of the
 weights) every query takes the host path and its prompt joins the running
@@ -222,6 +231,10 @@ class RagService:
             admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
         )
         self.tenant_tracker = obs_metrics.TenantTracker(top_k=8)
+        # tier moves flow cache -> pool registrations after a retier sweep
+        pcache = engine.prefix_cache
+        if pcache is not None and pcache.tiering is not None:
+            pcache.on_retier = self._pool_retier
         if encoder.eos_id is None:
             encoder.eos_id = getattr(encoder_tokenizer, "eos_id", None)
         self._a_ids_cache: Optional[List[int]] = None
@@ -247,6 +260,7 @@ class RagService:
         )
         if scheduler is not None and getattr(scheduler, "pending_hint", False) is None:
             scheduler.pending_hint = lambda: self._inflight_generate
+        self._prefix_memo: Dict[str, tuple] = {}
         self._init_observability()
 
     @property
@@ -298,6 +312,7 @@ class RagService:
         for name in ("generate_calls", "prefill_tokens", "decode_tokens", "spec_verify_steps",
                      "spec_emitted_tokens"):
             reg.counter(f"engine_{name}", fn=lambda name=name: self._engine_stat(name))
+        self._init_prefix_metrics(reg)
         self._m_http = reg.labeled_counter(
             "rag_http_requests_total",
             "served requests by route and status code",
@@ -371,6 +386,140 @@ class RagService:
             wait.labels(stage="retrieve"), wait.labels(stage="embed"),
         )
         self.retrieve_coalescer.join_timeout_counter = join_counter
+
+    def _init_prefix_metrics(self, reg) -> None:
+        """The prefix cache's and tiering's families (JAX
+        ``_init_observability``): callbacks over ``PrefixCache.counters``,
+        ``tier_stats`` and ``chunk_reuse_counters``, present in every mode
+        (zeros while the cache or tiering is off)."""
+        # prompt tokens whose prefill was skipped: computed (prefill_tokens)
+        # + skipped = the logical prompt total
+        reg.counter("prefill_tokens_skipped", fn=lambda: self._engine_stat("prefill_tokens_skipped"))
+        for name in ("prefix_cache_hits", "prefix_cache_misses"):
+            reg.counter(name, fn=lambda name=name: self._pcache_stat(name))
+        for name in ("prefix_cache_entries", "prefix_cache_bytes"):
+            reg.gauge(name, fn=lambda name=name: self._pcache_stat(name))
+        tier_entries = reg.labeled_gauge(
+            "rag_kv_tier_entries",
+            "cached chunk entries per hotness tier (hot bf16-native | "
+            "warm int8 | cold host-spilled)",
+        )
+        tier_bytes = reg.labeled_gauge(
+            "rag_kv_tier_bytes",
+            "bytes held per tier: hot/warm are device (HBM) bytes, cold "
+            "is host-spill RAM",
+        )
+        for t in ("hot", "warm", "cold"):
+            tier_entries.labels_callback(lambda t=t: self._pcache_tier_stats().get(f"tier_{t}_entries", 0.0), tier=t)
+            src = "tier_cold_host_bytes" if t == "cold" else f"tier_{t}_bytes"
+            tier_bytes.labels_callback(lambda src=src: self._pcache_tier_stats().get(src, 0.0), tier=t)
+        tier_tr = reg.labeled_counter(
+            "rag_kv_tier_transitions_total",
+            "tier transitions (change: demote_warm — in-place int8 "
+            "quantization; demote_cold — host spill; promote — back to "
+            "native residency)",
+        )
+        for change, key in (("demote_warm", "demotes_warm"), ("demote_cold", "demotes_cold"),
+                            ("promote", "promotes")):
+            tier_tr.labels_callback(lambda key=key: self._pcache_tier_stats().get(key, 0.0), change=change)
+        tier_swap = reg.labeled_counter(
+            "rag_kv_tier_swap_ins_total",
+            "cold-tier host→HBM swap-ins (trigger: lookahead — prefetched "
+            "off the critical path, overlapped with decode; demand — paid "
+            "on a serving tail)",
+        )
+        for trig, key in (("lookahead", "swap_ins_lookahead"), ("demand", "swap_ins_demand")):
+            tier_swap.labels_callback(lambda key=key: self._pcache_tier_stats().get(key, 0.0), trigger=trig)
+        reg.counter(
+            "rag_kv_tier_swap_in_fallbacks_total",
+            "failed host→HBM swap-ins that fell back to "
+            "recompute-from-tokens (the chunk rebuilt like any miss; its "
+            "host buffer released)",
+            fn=lambda: self._pcache_tier_stats().get("swap_in_fallbacks", 0.0),
+        )
+        reg.gauge(
+            "rag_kv_tier_host_spill_bytes",
+            "host RAM held by cold-spilled chunk KV (bounded by "
+            "TPU_RAG_KV_TIERING_HOST_MB; oldest spills evict past it)",
+            fn=lambda: self._pcache_tier_stats().get("tier_cold_host_bytes", 0.0),
+        )
+        chunk_reuse = reg.labeled_counter(
+            "rag_prefix_chunk_reuse_total",
+            "chunk-granular prefix-reuse outcomes per resolved segment "
+            "(chain_exact — bit-identical canonical content, incl. memo "
+            "re-serves of exact spans; spliced — drifted reuse at the "
+            "same offset or a memo re-serve of corrected content; "
+            "rerotated — position-shifted via RoPE re-rotation; "
+            "recompute — miss / cold chunk / splice-fault fallback)",
+        )
+        for oc in ("chain_exact", "spliced", "rerotated", "recompute"):
+            chunk_reuse.labels_callback(lambda oc=oc: self._pcache_chunk_counters().get(oc, 0.0), outcome=oc)
+        tier_pool = reg.labeled_gauge(
+            "rag_kv_tier_pool_blocks",
+            "paged-pool blocks by holder tier: hot/warm are registered "
+            "prefix chains (warm = reclaimable under pressure), rows are "
+            "live decode rows",
+        )
+        for t in ("hot", "warm", "rows"):
+            tier_pool.labels_callback(lambda t=t: float(self._pool_tier_occupancy().get(t, 0)), tier=t)
+
+    def _pool_tier_occupancy(self) -> Dict[str, int]:
+        """The paged pool's blocks by holder (JAX ``tier_occupancy``; empty
+        without a continuous scheduler). The port's pool holds no prefix
+        registrations until ROADMAP.md Queue 1 item 8, so hot and warm read
+        0, as a JAX pool with none, and every block in use is a row's."""
+        sched = self.scheduler
+        if not isinstance(sched, ContinuousScheduler):
+            return {}
+        return {"hot": 0, "warm": 0, "rows": sched.engine.kv_pool.blocks_in_use()}
+
+    def _pcache_stat(self, name: str) -> float:
+        return float(sum(
+            pc.counters().get(name, 0) for pc in self._pcaches()
+        ))
+
+    def _pcaches(self) -> List:
+        return [pc for e in self._engines().values() if (pc := getattr(e, "prefix_cache", None)) is not None]
+
+    def _summed(self, method: str) -> Dict[str, float]:
+        """One method's dicts (``tier_stats``, ``chunk_reuse_counters``)
+        summed over the serving engines' caches."""
+        out: Dict[str, float] = {}
+        for pc in self._pcaches():
+            for k, v in getattr(pc, method)().items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    def _memoized(self, method: str) -> Dict[str, float]:
+        """``_summed(method)``, kept for a quarter second: one scrape reads
+        it from ~13 callbacks, and each fresh read takes every cache's
+        resolve-path lock (JAX ``_pcache_tier_stats``; a benign race on
+        the memo)."""
+        now = time.monotonic()
+        cached = self._prefix_memo.get(method)
+        if cached is not None and now - cached[0] < 0.25:
+            return cached[1]
+        out = self._summed(method)
+        self._prefix_memo[method] = (now, out)
+        return out
+
+    def _pcache_tier_stats(self) -> Dict[str, float]:
+        return self._memoized("tier_stats")
+
+    def _pcache_chunk_counters(self) -> Dict[str, float]:
+        return self._memoized("chunk_reuse_counters")
+
+    def _pool_retier(self) -> None:
+        """Cache -> pool tier mirror (``PrefixCache.on_retier``): the JAX
+        service re-tags the paged pool's prefix registrations on the
+        scheduler thread. The port's schedulers hold no registrations and no
+        ``run_on_engine`` until ROADMAP.md Queue 1 items 7-8, so there is
+        nothing to mirror yet."""
+        sched = self.scheduler
+        if not hasattr(sched, "run_on_engine"):
+            return
+        chain_tier = self.engine.prefix_cache.chain_tier
+        sched.run_on_engine(lambda e: getattr(e, "retier_registrations", lambda _f: None)(chain_tier))
 
     def _engines(self) -> Dict[int, object]:
         """The serving engines, deduplicated (the one-shot engine is also the
@@ -511,11 +660,13 @@ class RagService:
         return self.llm_tokenizer.encode(f"\n\nUser: {user_prompt}\n\nChatbot:")
 
     def _fused_ok(self) -> bool:
-        """Single-fetch path applicability: the JAX rule (no prefix cache
-        here), so only under a ``BatchScheduler``."""
+        """Single-fetch path applicability, the JAX rule: only under a
+        ``BatchScheduler``, and never with the prefix cache on (its path
+        needs the retrieve results on the host to resolve segments)."""
         ec = self.engine.engine_config
         return (
             ec.rag_fused
+            and not self._prefix_enabled()
             and isinstance(self.scheduler, BatchScheduler)
             and 0 < self.store.ntotal <= ec.rag_fused_max_vectors
         )
@@ -550,6 +701,16 @@ class RagService:
             if self.engine.engine_config.rag_fused:
                 self.store.token_snapshot()
         self.engine.generate([self._a_ids() + self._b_ids("warmup")], max_new_tokens=2)
+        if self._prefix_enabled():
+            # build and PIN the head block (every request reuses it), so no
+            # request prefills the head
+            try:
+                head_key = f"head:{len(self._a_ids())}"
+                self.engine.prefix_cache.pin(head_key)
+                self.engine.prefix_cache.prefix_for([(head_key, self._a_ids())])
+                self.engine.warm_prefixed()
+            except Exception:  # noqa: BLE001 — warmup must not fail the boot
+                logger.exception("prefix-cache warmup failed")
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
         self.ready = True
@@ -578,28 +739,53 @@ class RagService:
                 break
         return n_kept, used, trunc
 
-    def _piecewise_prompt(self, user_prompt: str, results):
-        """Host mirror of the device assembly: head ‖ kept chunk segments ‖
-        tail under the same budget rule. None when head + tail leave fewer
-        than 16 tokens of context room."""
+    def _segment_ids(self, metadata: Dict) -> List[int]:
+        """One chunk's prompt segment as LLM token ids: the store's token
+        source and the host path's segment builder alike."""
+        return self._segment_source(metadata)
+
+    def _prompt_segments(self, user_prompt: str, results):
+        """THE prompt-segment layout (JAX ``_prompt_segments``): ``(context,
+        segments, b_ids)`` with ``segments = [(key, ids), ...]`` the head and
+        the kept chunk segments under the budget rule (``_kept_chunks``).
+        Host assembly and the prefix cache both cut prompts here, so cached
+        blocks line up across requests. Chunk keys are the store's content
+        hash (stable across restarts); a budget-truncated first chunk gets a
+        key of its own. None when head + tail leave fewer than 16 tokens of
+        context room."""
         a_ids = self._a_ids()
         b_ids = self._b_ids(user_prompt)
         avail = max(self.engine.engine_config.prompt_buckets) - len(a_ids) - len(b_ids)
         if avail < 16:
             return None
-        segs = []
+        segs: List[List[int]] = []
+        keys: List[str] = []
         for r in results[: self.config.retrieval.context_top_n]:
             cached = self.store.cached_token_row(r.row)
-            segs.append(list(cached) if cached is not None else self._segment_source(r.metadata))
+            segs.append(list(cached) if cached is not None else self._segment_ids(r.metadata))
+            ck = self.store.content_key(r.row)
+            keys.append(f"chunk:{ck}" if ck is not None
+                        else f"chunk:anon:{hash(tuple(segs[-1])) & 0xFFFFFFFFFFFF:012x}")
         n_kept, _, trunc = self._kept_chunks([len(s) for s in segs], avail)
-        kept = segs[:n_kept]
+        kept, kept_keys = segs[:n_kept], keys[:n_kept]
         if trunc is not None:
             kept[0] = kept[0][:trunc]
-        ids = list(a_ids)
-        for s in kept:
-            ids.extend(s)
+            kept_keys[0] = f"{kept_keys[0]}:t{trunc}"
+        segments = [(f"head:{len(a_ids)}", list(a_ids))]
+        segments.extend(zip(kept_keys, kept))
+        return assemble_context(results, n_kept), segments, b_ids
+
+    def _piecewise_prompt(self, user_prompt: str, results):
+        """Host mirror of the device assembly: head ‖ kept chunk segments ‖
+        tail (``_prompt_segments``). None when head + tail leave fewer than
+        16 tokens of context room."""
+        ps = self._prompt_segments(user_prompt, results)
+        if ps is None:
+            return None
+        context, segments, b_ids = ps
+        ids = [t for _, seg in segments for t in seg]
         ids.extend(b_ids)
-        return assemble_context(results, n_kept), ids
+        return context, ids
 
     def _budgeted_prompt(self, user_prompt: str, results):
         """Whole-string prompt, shrinking the context (drop trailing chunks,
@@ -754,6 +940,22 @@ class RagService:
                 self._trace_retrieve(retrieve_span, t_all, timings)
             if not results:
                 return self._finish({"generated_text": NO_RESULTS}, notes)
+            with self._inflight_lock:
+                # this request holds one generate claim; more means a burst,
+                # which keeps the batched path
+                solo = self._inflight_generate <= 1
+            if sampling is None and solo and self._prefix_enabled():
+                # the cached head and chunk KV is spliced and only the tail
+                # prefills; the batch-1 path bypasses the scheduler, so the
+                # generate claim is released (and taken back on fallback)
+                self._release(generate=True)
+                in_generate = False
+                resp = self._answer_prefixed(user_prompt, results, timings, t_all, notes)
+                if resp is not None:
+                    return self._finish(resp, notes)
+                with self._inflight_lock:
+                    self._inflight_generate += 1
+                in_generate = True
             t_as = time.monotonic()
             with tracing.span("assemble"):
                 pw = self._piecewise_prompt(user_prompt, results) if self.engine.engine_config.rag_fused else None
@@ -809,12 +1011,75 @@ class RagService:
             resp["request_id"] = int(gen_info["request_id"])
         return self._finish(resp, notes)
 
+    def _prefix_enabled(self) -> bool:
+        return self.engine.prefix_cache is not None
+
+    def _answer_prefixed(self, user_prompt: str, results, timings, t_all, notes: List[str]):
+        """The prefix-cache tail of ``answer`` (JAX ``_answer_prefixed``):
+        resolve the segments against the cache (misses build and cache as
+        they go), splice the prefix into a fresh cache and prefill only the
+        per-query tail. None when the prompt cannot take this path (no
+        context room, a prefix past the buffer, a tail past the suffix
+        ladder); a resolve failure is also a degraded response."""
+        cache = self.engine.prefix_cache
+        t_as = time.monotonic()
+        with tracing.span("assemble"):
+            ps = self._prompt_segments(user_prompt, results)
+        timings["_assemble_s"] = time.monotonic() - t_as
+        if ps is None:
+            return None
+        context, segments, b_ids = ps
+        if not b_ids:
+            return None
+        t_r = time.monotonic()
+        with tracing.span("prefix_resolve"):
+            try:
+                cp = cache.prefix_for(segments)
+            except Exception:  # noqa: BLE001 — cache trouble must not fail the request
+                logger.exception("prefix-cache resolve failed; host fallback")
+                self._degrade(notes, "prefix_cache")
+                return None
+        if cp is None:
+            return None
+        # a hit is a lookup, a miss the segment build: outside generate_ms
+        timings["prefix_resolve_ms"] = (time.monotonic() - t_r) * 1e3
+        t0 = time.monotonic()
+        with tracing.span("generate"):
+            try:
+                out_ids = self.engine.generate_prefixed(b_ids, cp)
+            except ValueError:
+                return None  # tail past the suffix ladder: the cold path serves
+        t_de = time.monotonic()
+        with tracing.span("detokenize"):
+            completion = self.llm_tokenizer.decode(out_ids)
+        timings["_detokenize_s"] = time.monotonic() - t_de
+        timings["generate_ms"] = (time.monotonic() - t0) * 1e3
+        timings["prefix_reuse_frac"] = cp.reused_tokens / max(cp.length + len(b_ids), 1)
+        timings["prefill_tokens_skipped"] = float(cp.reused_tokens)
+        # of the resolved tokens and the tail, the share whose prefill was
+        # skipped (chunk reuse's boundary windows count as computed)
+        timings["prefill_tokens_skipped_frac"] = cp.reused_tokens / max(
+            cp.reused_tokens + cp.computed_tokens + len(b_ids), 1
+        )
+        timings["total_ms"] = (time.monotonic() - t_all) * 1e3
+        self.metrics.observe("query_seconds", timings["total_ms"] / 1e3)
+        self.metrics.inc("query_decode_tokens", len(out_ids))
+        self.metrics.inc("query_prefix_cached", 1)
+        self._observe_request(timings)
+        return {
+            "generated_text": extract_answer(completion),
+            "context": context,
+            "timings": {k: round(v, 2) for k, v in timings.items()},
+        }
+
     def _answer_fused(self, user_prompt: str, fused_r, timings, t_all, notes: List[str]):
         """Device-side prompt assembly + generate from the unfetched
         retrieve output. None when head + tail leave fewer than 16 tokens of
         room, the tail overflows the fused bucket, or the chunk-token
         sidecar is unavailable (the host path serves; a broken sidecar is
         counted as a degraded response)."""
+        if self._prefix_enabled():
+            return None  # the prefixed path serves (answer() takes it next)
         _, packed_dev, k_eff, tokenize_ms = fused_r
         t_b = time.monotonic()
         a_ids, b_ids = self._a_ids(), self._b_ids(user_prompt)

@@ -273,6 +273,11 @@ PORTED_ENV = {
     "TPU_RAG_PREFILL_CHUNK_TOKENS": "32", "TPU_RAG_WINDOW_TOKEN_BUDGET": "48", "TPU_RAG_DO_SAMPLE": "0",
     "TPU_RAG_SPECULATIVE": "off", "TPU_RAG_SYNC_STEPS": "4", "TPU_RAG_FUSED": "0",
     "TPU_RAG_DEBUG": "1", "TPU_RAG_FLIGHT_EVENTS": "1024",
+    "TPU_RAG_PREFIX_CACHE": "1", "TPU_RAG_PREFIX_HBM_MB": "64", "TPU_RAG_PREFIX_REUSE": "chunk",
+    "TPU_RAG_PREFIX_BOUNDARY_TOKENS": "4", "TPU_RAG_PREFIX_CHUNK_HOT_MIN": "0.5",
+    "TPU_RAG_PREFIX_CHUNK_POOL_REGS": "4", "TPU_RAG_KV_TIERING": "1", "TPU_RAG_KV_TIERING_WARM_BELOW": "0.5",
+    "TPU_RAG_KV_TIERING_COLD_BELOW": "0.125", "TPU_RAG_KV_TIERING_HALF_LIFE_S": "30",
+    "TPU_RAG_KV_TIERING_HOST_MB": "16", "TPU_RAG_KV_TIERING_INTERVAL_S": "0.5",
 }
 
 
@@ -282,7 +287,9 @@ def _shared(port_cfg, jax_cfg):
     for section in ("server", "sampling", "engine", "retrieval", "flight"):
         p, j = getattr(port_cfg, section), getattr(jax_cfg, section)
         names = {f.name for f in dataclasses.fields(p)} & {f.name for f in dataclasses.fields(j)}
-        out[section] = {n: (getattr(p, n), getattr(j, n)) for n in sorted(names)}
+        # a nested config (the prefix cache's, tiering's) compares field by field
+        val = lambda x: dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x  # noqa: E731
+        out[section] = {n: (val(getattr(p, n)), val(getattr(j, n))) for n in sorted(names)}
     return out
 
 
@@ -319,7 +326,6 @@ def test_from_env_validation_messages_match(env):
 
 @pytest.mark.parametrize("env,item", [
     ({"TPU_RAG_MESH": "tp=2"}, "item 10"), ({"TPU_RAG_SPEC_PAGED": "1"}, "item 7"),
-    ({"TPU_RAG_PREFIX_CACHE": "1"}, "item 6"), ({"TPU_RAG_KV_TIERING": "1"}, "item 6"),
     ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"), ({"TPU_RAG_POOL_ROLE": "prefill"}, "item 8"),
     ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"), ({"TPU_RAG_BATCHING": "continuous"}, "item 7"),
     ({"TPU_RAG_BATCHING": "continuous", "TPU_RAG_KV_PAGED": "0"}, "item 7"),
@@ -327,6 +333,42 @@ def test_from_env_validation_messages_match(env):
 def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         AppConfig.from_env(env)
+
+
+# the prefix-cache and tiering keys (ROADMAP.md Queue 1 item 6): good values
+# parse to JAX's fields, bad ones raise JAX's message
+PREFIX_GOOD = [
+    {"TPU_RAG_PREFIX_CACHE": "1"}, {"TPU_RAG_PREFIX_CACHE": "0"}, {"TPU_RAG_PREFIX_HBM_MB": "64"},
+    {"TPU_RAG_PREFIX_REUSE": "chunk"}, {"TPU_RAG_PREFIX_REUSE": "slot"}, {"TPU_RAG_PREFIX_BOUNDARY_TOKENS": "0"},
+    {"TPU_RAG_PREFIX_CHUNK_HOT_MIN": "0.5"}, {"TPU_RAG_PREFIX_CHUNK_POOL_REGS": "4"},
+    {"TPU_RAG_KV_TIERING": "1", "TPU_RAG_KV_TIERING_WARM_BELOW": "0.5", "TPU_RAG_KV_TIERING_COLD_BELOW": "0.1",
+     "TPU_RAG_KV_TIERING_HALF_LIFE_S": "30", "TPU_RAG_KV_TIERING_HOST_MB": "16",
+     "TPU_RAG_KV_TIERING_INTERVAL_S": "0.5"},
+]
+PREFIX_BAD = [
+    {"TPU_RAG_PREFIX_CACHE": "yes"}, {"TPU_RAG_PREFIX_HBM_MB": "0"}, {"TPU_RAG_PREFIX_HBM_MB": "lots"},
+    {"TPU_RAG_PREFIX_REUSE": "fuzzy"}, {"TPU_RAG_PREFIX_BOUNDARY_TOKENS": "-1"},
+    {"TPU_RAG_PREFIX_CHUNK_HOT_MIN": "-1"}, {"TPU_RAG_PREFIX_CHUNK_POOL_REGS": "0"}, {"TPU_RAG_KV_TIERING": "on"},
+    {"TPU_RAG_KV_TIERING_WARM_BELOW": "0.01"}, {"TPU_RAG_KV_TIERING_HALF_LIFE_S": "0"},
+    {"TPU_RAG_KV_TIERING_HOST_MB": "0"}, {"TPU_RAG_KV_TIERING_INTERVAL_S": "soon"},
+]
+
+
+@pytest.mark.parametrize("env", PREFIX_GOOD)
+def test_a_prefix_cache_key_parses_as_jax_parses_it(env, caplog):
+    jcfg, tcfg = JAppConfig.from_env(env).engine, AppConfig.from_env(env).engine
+    for name in ("prefix_cache", "kv_tiering"):
+        assert dataclasses.asdict(getattr(tcfg, name)) == dataclasses.asdict(getattr(jcfg, name)), name
+    assert "ignoring" not in caplog.text  # keys from_env reads
+
+
+@pytest.mark.parametrize("env", PREFIX_BAD)
+def test_a_bad_prefix_cache_key_raises_the_jax_message(env):
+    with pytest.raises(ValueError) as want:
+        JAppConfig.from_env(env)
+    with pytest.raises(ValueError) as got:
+        AppConfig.from_env(env)
+    assert str(got.value) == str(want.value)
 
 
 def test_tpu_rag_faults_is_read_and_arms_the_site(caplog):

@@ -63,8 +63,6 @@ SIDES = {"jax": (jmetrics, jtracing), "port": (tmetrics, ttracing)}
 # the JAX service's families whose sources the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them (exposition names)
 WAITING = {
-    "6": ("tpu_rag_prefix_cache_*", "tpu_rag_prefill_tokens_skipped", "rag_prefix_chunk_reuse_total",
-          "rag_kv_tier_*"),
     "7": ("rag_spec_tokens_total", "rag_spec_acceptance_rate"),
     "8": ("rag_lookahead_*",),
     "9c": ("rag_incident_bundles_total", "rag_quality_*", "rag_goodput_*", "rag_cost_*", "rag_tenant_*",
@@ -314,6 +312,17 @@ def test_the_json_formatter_gives_the_jax_keys():
 _post = pairs_mod._post  # werkzeug's post on the JAX side, the port's on the other
 
 
+class _Dispatched:
+    """A coalescer's wait histogram that counts the items it dispatched."""
+
+    def __init__(self, inner):
+        self.inner, self.n = inner, 0
+
+    def observe(self, value):
+        self.n += 1
+        self.inner.observe(value)
+
+
 def _script(pair, mode):
     """The same requests to both services, in order; ``{name: {side:
     response}}``."""
@@ -338,7 +347,23 @@ def _script(pair, mode):
         for g, h in zip(gates, holds):
             h.__exit__(None, None, None)
             g.max_concurrency, g.max_queue = 16, 64
+    # the expired request leaves its query in the retrieve coalescer; were
+    # it still waiting there when the next request came, the two would be
+    # retrieved as one batch of 2 (the host path) on one side and apart on
+    # the other, depending on the load. So wait until each side has
+    # dispatched it: the next request then retrieves alone on both.
+    counters = []
+    for svc, _ in pair.values():
+        co = svc.retrieve_coalescer
+        counters.append((co, co.wait_histogram, _Dispatched(co.wait_histogram)))
+        co.wait_histogram = counters[-1][2]
     both("expired", {"prompt": "alpha", "deadline_ms": 0.001})
+    t_end = time.monotonic() + 60
+    while any(c.n < 1 for _, _, c in counters) and time.monotonic() < t_end:
+        time.sleep(0.005)
+    for co, hist, c in counters:
+        co.wait_histogram = hist
+        assert c.n == 1, "the expired request's query was not dispatched"
     # continuous: a decode_step fault (reset, resubmit: a 200); coalesce
     # serves no decode window, so its planted fault is a store lookup: a 500
     site = "decode_step" if mode == "continuous" else "store_lookup"
