@@ -16,7 +16,9 @@
    at the kernel's own plan; the kNN at Q = 1, 8 and 9 against its plain
    version and its plain two-pass version at the kernel's plan, with ties
    planted across part boundaries and planted faults in the two-pass
-   version that the check must reject),
+   version that the check must reject; ``phase_continuous_kernels``: kernels
+   3 and 5 at B = 8 with per-row windows, 9 and 10 at the verify's S = 8
+   with an inactive row),
    with its time, the plain version's time, one PyTorch library call
    computing the same function (``library_ms``, a yardstick the port never
    calls; none reads a paged arena or an int8 cache), all as device time per
@@ -85,7 +87,17 @@
    request in flight with the tokens it had emitted, an ``insert`` fault,
    retries used up, the breaker opened by real resets and healed, deadlines,
    the admission gate's 429s, the drain, a ``generate`` fault on the one-shot
-   service); then a phase-separated continuous engine run.
+   service); then a phase-separated continuous engine run. Then the rest
+   of the continuous engine: the dense continuous cache
+   (``phase_continuous_dense``: a service with ``TPU_RAG_KV_PAGED=0``, its
+   bytes and launches, and a dense engine teacher-forced along a paged
+   engine's greedy run, each draw's logits within the noise limit, a
+   differing pick only at a near-tie), the paged verify
+   (``phase_spec_paged``: bursts with the verify off, on with prompt
+   lookup, on with each row drafting its own spec-off stream, and that at
+   ``decode_sync_steps = 4``; the same teacher-forced check with the plain
+   stream as the drafts) and engine tasks (``phase_engine_tasks``: a
+   retier task and a raising task on the scheduler thread mid-burst).
 7. Yardstick: one greedy request through the decode kernel and again
    through the plain decode attention.
 8. int8 slice: ``quantize_llama`` of the same model (prefill logits against
@@ -94,7 +106,8 @@
    (phase 4's requests plus a forced speculative one; the q8 cache kernels
    must run and the bf16 ones must not), the int8 continuous burst at
    ``kv_block_size=32`` (phase 5, without the plain yardstick) and an int8
-   phase-separated engine run.
+   phase-separated engine run, then the dense continuous and verify phases
+   at 48 new tokens.
 
 Prints one line per phase and its seconds, the card line and a ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -1423,6 +1436,209 @@ def phase_paged_chunk_q8(rows):
 
 
 # ---------------------------------------------------------------------------
+# the continuous engine's new shapes (the dense decode and the verify)
+# ---------------------------------------------------------------------------
+
+# the dense continuous decode (kernels 3 and 5): B = 8 rows left-padded to
+# the 4,096 bucket (kv_start = 4096 - prompt length) at their own frontiers,
+# row 7 inactive and parked over [0, 1), as the engine parks it
+CONT_KS = [1196, 0, 850, 1203, 17, 400, 1100, 0]
+CONT_KL = [4340, 4097, 4200, 4351, 4150, 4120, 4301, 1]
+# the verify forward (kernels 9 and 10): S = K + 1 = 8 lanes at each row's
+# frontier, nd drafts a row (kv_len = write_index + 1 + nd), row 7 inactive
+# (its table all null, write_index 0, kv_len 1)
+VERIFY_WI = [4300, 3000, 2911, 2950, 3100, 17, 4344, 0]
+VERIFY_ND = [7, 0, 3, 7, 1, 5, 6, 0]
+
+
+def _sharpen_rows(q, k_caches, layer, ks_l, kl_l):
+    """``_sharpen_edges`` for per-row windows: each row's query direction
+    added to the keys its window turns on first and last (``kv_start[b]``,
+    ``kv_len[b] - 1``) and off first (``kv_start[b] - 1``, ``kv_len[b]``),
+    so a window off by one key in any row shows."""
+    B, _, H, hd = q.shape
+    K, T = k_caches[0].shape[2], k_caches[0].shape[3]
+    u = q.float().reshape(B, K, H // K, hd).sum(2)
+    u = 9.0 * u / u.norm(dim=-1, keepdim=True)  # [B, K, hd]
+    for kc in k_caches:
+        lay = kc[layer].float()
+        for b, (ks, kl) in enumerate(zip(ks_l, kl_l)):
+            for pos in (ks - 1, ks, kl - 1, kl):
+                if 0 <= pos < T:
+                    lay[b, :, pos] += u[b]
+        kc[layer] = lay.to(kc.dtype)
+
+
+def _cont_decode_case(q8, g):
+    """Kernel 3 (or 5) at the dense continuous decode's shape: B = 8 rows
+    with their own ``[kv_start, kv_len)`` (``CONT_KS``, ``CONT_KL``) over a
+    ``[L, 8, 8, 4352, 128]`` cache, NaN outside each row's window for the
+    kernel (NaN scales and random payload under int8), zeros for the plain
+    version, checked row by row; planted faults must be rejected. Returns
+    the kernel's name and its row of numbers."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    L, B, K, T, H, hd, layer = 4, 8, 8, 4352, 32, 128, 2
+    kc, vc, kz, vz = _ragged_cache_pair(L, B, K, T, hd, CONT_KS, CONT_KL, g)
+    if q8:
+        vc, vz = _scale_rows(g, vc, vz)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (CONT_KS, CONT_KL))
+    _sharpen_rows(q, (kc, kz), layer, CONT_KS, CONT_KL)
+    name = "decode_attention_q8" if q8 else "decode_attention"
+    if q8:
+        (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+        (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+        del kc, vc
+        kern = lambda lay: A.decode_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, lay)  # noqa: E731
+        plain = lambda lay, ks=ks, kl=kl: A.decode_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, lay)  # noqa: E731
+    else:
+        kern = lambda lay: A.decode_attention(q, kc, vc, ks, kl, lay)  # noqa: E731
+        plain = lambda lay, ks=ks, kl=kl: A.decode_attention_xla(q, kz, vz, ks, kl, lay)  # noqa: E731
+    got = kern(layer)
+    torch.cuda.synchronize()
+    err, rms = _paged_check(f"{name} dense continuous", got, plain(layer))
+    one = lambda t, b, d: t + torch.tensor([d if i == b else 0 for i in range(B)], device=dev,  # noqa: E731
+                                           dtype=torch.int32)
+    fault_rms = _paged_faults(f"{name} dense continuous", got, {
+        "kv_start+1 (row 0)": plain(layer, ks=one(ks, 0, 1)),
+        "kv_start-1 (row 5)": plain(layer, ks=one(ks, 5, -1)),
+        "kv_len-1 (row 3)": plain(layer, kl=one(kl, 3, -1)),
+        "kv_len+1 (row 4)": plain(layer, kl=one(kl, 4, 1)),
+        "layer-1": plain(layer - 1),
+    })
+    del got
+    ms = time_ms(lambda i: kern(i % L), iters=64)
+    host_us = launch_us(lambda i: kern(i % L))
+    plain_ms = time_ms(lambda i: plain(i % L), iters=8)
+    live = sum(b - a for a, b in zip(CONT_KS, CONT_KL))
+    key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
+    b_ms, b_by = bound(live * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * live, BF16_FLOPS)
+    row = dict(case="dense continuous decode", shape=f"B=8 T={T} H=32 K=8 hd=128 kv_start={CONT_KS} "
+               f"kv_len={CONT_KL}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err, rel_rms=rms, host_us=host_us, library_ms=None)
+    lib = "none (no single PyTorch call reads an int8 cache)"
+    if not q8:
+        pos = torch.arange(T, device=dev)
+        mask = ((pos[None, :] >= ks[:, None]) & (pos[None, :] < kl[:, None]))[:, None, None, :]
+        qt = q.transpose(1, 2)
+        row["library_ms"] = time_ms(lambda i: sdpa(qt, kz[i % L], vz[i % L], mask), iters=8)
+        lib = f"{row['library_ms']:.4f} (SDPA)"
+    print(f"phase continuous_kernels (a) {name} {row['shape']} "
+          f"{_plan_line(A.decode_launch_plan(B, K, T, _sms()))}: {_attn_line(err, rms, fault_rms)} (row by row) "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+          f"host_us={host_us:.1f}", flush=True)
+    return name, row
+
+
+def _verify_chunk_case(q8, g):
+    """Kernel 9 (or 10) at the verify forward's shape: B = 8 rows of S = 8
+    lanes at their frontiers (``VERIFY_WI``, ``VERIFY_ND``), kv_len = wi + 1
+    + nd, row 7 inactive (its table all null, reading slot 0 of the null
+    block, which the inactive rows' own writes keep finite), NaN in every
+    block no row owns and every frontier tail, checked row by row with
+    planted faults. bf16 blocks of 16, int8 blocks of 32."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    L, B, S, H, K, hd, layer = 4, 8, 8, 32, 8, 128, 3
+    bs = 32 if q8 else 16
+    MB = 4352 // bs
+    wi_l, nd_l = VERIFY_WI, VERIFY_ND
+    kv_l = [w + 1 + n for w, n in zip(wi_l, nd_l)]
+    (ka, va), (kz, vz), tables = _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g)
+    # row 7 is inactive: null table; its former block is no row's (NaN),
+    # and slot 0 of the null block holds finite junk, NaN past it
+    old = int(tables[7, 0])
+    tables[7] = 0
+    for a, z in ((ka, kz), (va, vz)):
+        for lay in (layer - 1, layer):
+            a[lay, 0], z[lay, 0] = float("nan"), 0
+            a[lay, 0, :, 0] = z[lay, 0, :, 0] = z[lay, old, :, 0]
+        a[:, old], z[:, old] = float("nan"), 0
+    q = torch.randn(B, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    wi = torch.tensor(wi_l, dtype=torch.int32, device=dev)
+    n_real = [n + 1 for n in nd_l[:7]] + [0]
+    _sharpen_paged(q, (ka, kz), layer, tables, wi_l, kv_l, n_real)
+    name = "paged_chunk_attention_q8" if q8 else "paged_chunk_attention"
+    if q8:
+        (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
+        kern = lambda lay: A.paged_chunk_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, lay, wi)  # noqa: E731
+        plain = lambda lay, t=tables, kl=kv_len, w=wi: A.paged_chunk_attention_xla_q8(  # noqa: E731
+            q, k8, v8, ksz, vsz, t, kl, lay, w)
+    else:
+        kern = lambda lay: A.paged_chunk_attention(q, ka, va, tables, kv_len, lay, wi)  # noqa: E731
+        plain = lambda lay, t=tables, kl=kv_len, w=wi: A.paged_chunk_attention_xla(  # noqa: E731
+            q, kz, vz, t, kl, lay, w)
+    got = kern(layer)
+    torch.cuda.synchronize()
+    err, rms = _paged_check(f"{name} verify", got, plain(layer))
+    short = kv_len.clone()
+    short[0] -= 1
+    # row 2's second block and its frontier block, whose keys the lanes'
+    # causal masks tell apart
+    last = (kv_l[2] - 1) // bs
+    swapped = tables.clone()
+    swapped[2, [1, last]] = swapped[2, [last, 1]]
+    faulty = {"kv_len-1 (row 0)": plain(layer, kl=short), "layer-1": plain(layer - 1),
+              f"table entries 1,{last} of row 2 swapped": plain(layer, t=swapped)}
+    for d in (1, -1):
+        moved = wi.clone()
+        moved[3] += d
+        faulty[f"write_index{d:+d} (row 3)"] = plain(layer, w=moved)
+    fault_rms = _paged_faults(f"{name} verify", got, faulty)
+    del got, faulty
+    ms = time_ms(lambda i: kern(layer - i % 2), iters=32)
+    host_us = launch_us(lambda i: kern(layer - i % 2))
+    plain_ms = time_ms(lambda i: plain(layer - i % 2), iters=5, warmup=1)
+    pairs = sum(min(w + t + 1, n) for w, n in zip(wi_l, kv_l) for t in range(S))
+    key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
+    b_ms, b_by = bound(sum(kv_l) * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
+    row = dict(case="verify S=8", shape=f"B=8 S=8 H=32 K=8 hd=128 bs={bs} write_index={wi_l} nd={nd_l}",
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+               host_us=host_us, library_ms=None)
+    lib = "none (no single PyTorch call reads an int8 arena)"
+    if not q8:
+        # the yardstick: SDPA over a dense copy of each row's blocks (the
+        # gather is outside the timing; the port never calls this)
+        T = MB * bs
+        dense = [a[lay][tables.long()].permute(0, 2, 1, 3, 4).reshape(B, K, T, hd)
+                 for a in (kz, vz) for lay in (layer, layer - 1)]
+        pos = torch.arange(T, device=dev)
+        qpos = wi[:, None] + torch.arange(S, device=dev)[None, :]
+        mask = ((pos[None, None, :] < kv_len[:, None, None]) & (pos[None, None, :] <= qpos[:, :, None]))[:, None]
+        qt = q.transpose(1, 2)
+        row["library_ms"] = time_ms(lambda i: sdpa(qt, dense[i % 2], dense[2 + i % 2], mask), iters=16)
+        lib = f"{row['library_ms']:.4f} (SDPA over a dense copy)"
+        del dense
+    print(f"phase continuous_kernels (a) {name} {row['shape']} kv_len={kv_l} "
+          f"{_plan_line(A.chunk_launch_plan(B, S, H, K, MB * bs, _sms()))}: {_attn_line(err, rms, fault_rms)} "
+          f"(row by row) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+          f"host_us={host_us:.1f}", flush=True)
+    return name, row
+
+
+def phase_continuous_kernels(rows):
+    """(a) of the dense continuous and verify phases: kernels 3 and 5 with
+    per-row windows, kernels 9 and 10 at S = 8, each against its plain
+    version (bf16 timed beside SDPA)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for case in (_cont_decode_case, _verify_chunk_case):
+        for q8 in (False, True):
+            name, row = case(q8, g)
+            rows[name].setdefault("continuous_shapes", []).append(row)
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # model + service phases
 # ---------------------------------------------------------------------------
 
@@ -1757,6 +1973,10 @@ def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTI
         print(f"request {tag} continuous /generate {i} sampling={'greedy' if i in greedy else 'default'} "
               f"timings={json.dumps(body['timings'])}", flush=True)
     dec = st.decode_tokens - before.decode_tokens
+    CONT_SUMMARY[tag] = {"requests": len(results), "wall_s": round(wall, 2), "decode_tok_per_s": round(dec / wall, 1),
+                         "ms_per_window": round(1e3 * (st.decode_window_s + st.mixed_window_s - before.decode_window_s
+                                                      - before.mixed_window_s) / max(st.windows - before.windows, 1), 1),
+                         "arena_gb": round(arena_gb, 2)}
     print(f"phase continuous_service {tag}: requests={len(results)} wall_s={wall:.2f} decode_tokens={dec} "
           f"decode_tok_per_s={dec / wall:.1f} {_windows(st, before)} "
           f"preemptions={st.preemptions - before.preemptions} "
@@ -1814,11 +2034,13 @@ def phase_continuous_service(service_bits, tag="bf16", block_size=16, need=CONTI
 def _windows(st, before):
     """Windows run since ``before``, each kind with its mean host-clock time
     from first launch to token fetch."""
+    n_verify = st.spec_verify_steps - before.spec_verify_steps
+    n_mixed = st.mixed_windows - before.mixed_windows
     out = []
-    for kind, n, s in (("decode", st.windows - st.mixed_windows - before.windows + before.mixed_windows,
+    for kind, n, s in (("decode", st.windows - before.windows - n_mixed - n_verify,
                         st.decode_window_s - before.decode_window_s),
-                       ("mixed", st.mixed_windows - before.mixed_windows,
-                        st.mixed_window_s - before.mixed_window_s)):
+                       ("mixed", n_mixed, st.mixed_window_s - before.mixed_window_s),
+                       ("verify", n_verify, st.verify_window_s - before.verify_window_s)):
         out.append(f"{kind}_windows={n} ms_per_{kind}_window={1e3 * s / max(n, 1):.1f}")
     return " ".join(out)
 
@@ -3204,6 +3426,564 @@ def phase_prefix_cache(service_bits, rows, fused_stats):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the dense continuous cache, the paged verify and engine tasks
+# ---------------------------------------------------------------------------
+
+# the paged continuous service's numbers, per tag, printed beside the dense ones
+CONT_SUMMARY = {}
+SPEC_K = 7  # EngineConfig.spec_paged_tokens' default
+# the engine-level identity checks: RAG-length prompts (two in the 4,096
+# bucket, one in the 2,048, one in the 4,096 again), each followed for
+# FOLLOW_TOKENS greedy tokens (int8: FOLLOW_TOKENS_Q8)
+FOLLOW_LENS = [2906, 3050, 1500, 2999]
+FOLLOW_TOKENS, FOLLOW_TOKENS_Q8 = 40, 24
+
+
+def _cont_service(service_bits, ec, max_new=None):
+    """A continuous service over the main service's model, store, encoder
+    and tokenizers: ``build_scheduler`` as ``server/main.py`` calls it, or,
+    with ``max_new``, the same engine with its token budget cut."""
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
+    from rag_llm_k8s_tpu_torch.server.app import RagService, build_scheduler, create_app
+
+    svc1, _, engine, store = service_bits
+    if max_new is None:
+        sched = build_scheduler(engine, ec)
+    else:
+        cont = ContinuousEngine(engine.config, engine.model, dataclasses.replace(engine.sampling,
+                                max_new_tokens=max_new), ec, engine.dtypes, engine.device, engine.pad_id)
+        sched = ContinuousScheduler(cont)
+    svc = RagService(dataclasses.replace(svc1.config, engine=ec), engine, svc1.llm_tokenizer, svc1.encoder,
+                     svc1.encoder_tokenizer, store, scheduler=sched)
+    svc.ready = True
+    return svc, create_app(svc).test_client(), sched.engine
+
+
+def _burst(svc, client, questions, greedy=False):
+    """The questions at once from threads (``/generate``, or greedy through
+    ``RagService.answer``); returns the bodies, wall seconds and the decode
+    tokens the continuous engine counted. Fails unless every one is a 200
+    with a context."""
+    import threading
+
+    import torch
+
+    sampling = dataclasses.replace(svc.config.sampling, do_sample=False) if greedy else None
+    out = [None] * len(questions)
+    eng = svc.scheduler.engine
+
+    def ask(i):
+        if greedy:
+            try:
+                out[i] = (200, svc.answer(questions[i], sampling=sampling))
+            except Exception as e:  # noqa: BLE001 — reported as the route would
+                out[i] = (500, {"error": str(e)})
+        else:
+            r = client.post("/generate", json_body={"prompt": questions[i]})
+            out[i] = (r.status_code, r.get_json())
+
+    dec0 = eng.stats.decode_tokens
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(questions))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if any(th.is_alive() for th in threads):
+        fail("a continuous burst did not finish within 900 s")
+    for i, (code, body) in enumerate(out):
+        if code != 200 or not isinstance(body.get("generated_text"), str) or "Document '" not in body.get(
+                "context", ""):
+            fail(f"continuous burst request {i}: {code} {body}")
+    return [b for _, b in out], wall, eng.stats.decode_tokens - dec0
+
+
+def _follow_prompts(engine):
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    return [[engine.config.bos_token_id] + [int(x) for x in rng.integers(3, 259, n - 1)] for n in FOLLOW_LENS]
+
+
+def _record_plain(cont, prompts, max_new):
+    """Greedy streams of ``prompts`` through a plain continuous engine at
+    ``decode_sync_steps = 1`` (each admitted alone, then decoded together),
+    with the logits of every draw kept on the card: ``(streams, logits)``,
+    ``logits[j][i]`` the fp32 ``[V]`` logits that drew token ``i`` of
+    request ``j``."""
+    row_of, logits, out = {}, [[] for _ in prompts], {}
+    real = cont._sample
+
+    def sample(lg, positions, rows=None):
+        tok = real(lg, positions, rows)
+        if rows is not None:
+            for k, r in enumerate(rows.tolist()):
+                logits[row_of[r]].append(lg[k].float().clone())
+        else:
+            for r, j in row_of.items():
+                if cont.slots[r].active and cont.slots[r].request_id == j:
+                    logits[j].append(lg[r].float().clone())
+        return tok
+
+    cont._sample = sample
+    try:
+        for j, p in enumerate(prompts):
+            row_of[cont.free_slots()[0]] = j
+            res = cont.admit_many([(j, p, max_new, None)])[0]
+            if isinstance(res, BaseException):
+                fail(f"recording a plain stream: admission {j} failed: {res!r}")
+            if res[1] is not None:
+                out[j] = res[1]
+        while cont.has_active():
+            out.update(dict(cont.step()))
+    finally:
+        del cont._sample
+    streams = [out[j] for j in range(len(prompts))]
+    return streams, [lg[:len(s)] for lg, s in zip(logits, streams)]
+
+
+class _Follow:
+    """Teacher-forces an engine's greedy rows along a recorded plain run
+    (``_record_plain``) through its real windows: every draw (a plain
+    step's, or each plane of a verify window) is held to the plain run's
+    logits at the same token within ``limit`` (relative RMS); where the
+    engine's own pick differs from the plain stream's token, the plain
+    logits' margin between the two must lie within twice the largest logit
+    difference there (a near-tie that the measured difference explains).
+    Then the plain token is fed on, so every token of every stream is
+    compared. With ``drafts``, verify windows get the plain stream's next
+    tokens as drafts: ``drafts(window, rows)`` names the rows that draft in
+    a window."""
+
+    def __init__(self, cont, streams, logits, limit, drafts=None):
+        self.cont, self.streams, self.logits, self.limit = cont, streams, logits, limit
+        self.rows, self.start, self.offered = {}, {}, {}
+        self.calls = self.window = self.compared = self.planes = self.planes_agreed = 0
+        self.worst, self.forks, self.routes = 0.0, [], []
+        real_sample, real_targets, real_step = cont._sample, cont._sample_targets, cont.step
+        real_worth = cont._verify_worthwhile
+
+        def step():
+            self.start = {r: len(cont.slots[r].tokens) for r in self.live_rows()}
+            self.calls = 0
+            self.offered = {}
+            out = real_step()
+            self.window += 1
+            return out
+
+        def sample(lg, positions, rows=None):
+            tok = real_sample(lg, positions, rows)
+            seen = [(k, r, 0) for k, r in enumerate(rows.tolist())] if rows is not None else [
+                (r, r, s + self.calls) for r, s in self.start.items()]
+            for k, r, i in seen:
+                g = self._see(r, i, lg[k], tok[k])
+                if g is not None:
+                    tok[k] = g
+            self.calls += rows is None
+            return tok
+
+        def targets(lg, positions):
+            t = real_targets(lg, positions)
+            for r, s in self.start.items():
+                nd = self.offered.get(r, 0)
+                for p in range(nd + 1):
+                    own = int(t[r, p])
+                    g = self._see(r, s + p, lg[r, p], own)
+                    if g is None:
+                        break
+                    if p < nd:
+                        self.planes += 1
+                        self.planes_agreed += own == g
+                    t[r, p] = g
+            return t
+
+        def worth(d):
+            ok = real_worth(d)
+            self.routes.append(ok)
+            return ok
+
+        cont.step, cont._sample, cont._sample_targets, cont._verify_worthwhile = step, sample, targets, worth
+        if drafts is not None:
+            def draft_for_slots():
+                out = {}
+                rows = self.live_rows()
+                chosen = drafts(self.window, sorted(rows))
+                for r in rows:
+                    s, j = cont.slots[r], self.rows[r]
+                    k = min(cont.spec_K, s.remaining - 1, cont.T - 2 - s.kv_ub)
+                    n = len(s.tokens)
+                    out[r] = list(self.streams[j][n:n + k]) if r in chosen and k >= 1 else []
+                self.offered = {r: len(d) for r, d in out.items()}
+                return out
+
+            cont._draft_for_slots = draft_for_slots
+
+    def live_rows(self):
+        return [r for r, j in self.rows.items() if self.cont.slots[r].active and self.cont.slots[r].request_id == j]
+
+    def _see(self, r, i, lg, tok):
+        """Row ``r``'s draw of token ``i``: the plain stream's token to feed
+        on, or None past the plain stream's end."""
+        j = self.rows.get(r)
+        if j is None or i >= len(self.streams[j]):
+            return None
+        ref = self.logits[j][i]
+        lg = lg.float()
+        rel = _rel(lg, ref)
+        self.worst = max(self.worst, rel)
+        self.compared += 1
+        if not rel <= self.limit:
+            fail(f"follow: request {j} token {i}: logits rel rms {rel:.4g} from the plain run (limit "
+                 f"{self.limit:.4g})")
+        want, got = self.streams[j][i], int(tok)
+        if got != want:
+            delta = (lg - ref).abs().max().item()
+            margin = (ref[want] - ref[got]).item()
+            self.forks.append((j, i, round(margin, 4), round(delta, 4)))
+            if margin > 2 * delta:
+                fail(f"follow: request {j} token {i}: drew {got} where the plain run drew {want} with a "
+                     f"margin {margin:.4g} past twice the logits' difference {delta:.4g}")
+        return want
+
+    def run(self, prompts, max_new):
+        """Admit ``prompts`` one at a time, then step to the end."""
+        out = {}
+        for j, p in enumerate(prompts):
+            self.rows[self.cont.free_slots()[0]] = j
+            res = self.cont.admit_many([(j, p, max_new, None)])[0]
+            if isinstance(res, BaseException):
+                fail(f"follow: admission {j} failed: {res!r}")
+            if res[1] is not None:
+                out[j] = res[1]
+        while self.cont.has_active():
+            out.update(dict(self.cont.step()))
+        for j, want in enumerate(self.streams):
+            if out[j][:len(want)] != want:
+                fail(f"follow: request {j}'s stream left the plain stream it was fed")
+
+    def line(self):
+        return (f"draws_compared={self.compared} worst_logits_rel_rms={self.worst:.4g} (limit {self.limit:.4g}) "
+                f"near_tie_forks(request, token, plain margin, max logit diff)={self.forks}")
+
+
+def _free(cont):
+    """Drop an engine's cache and return its memory to the card."""
+    import torch
+
+    cont.arena = cont.cache = None
+    torch.cuda.empty_cache()
+
+
+def _noise_limit(one_shot, ids, what):
+    """``PREFIX_NOISE_FACTOR`` times the kernels' cold-prefill distance from
+    the plain attention's (the bf16 noise floor at full depth) at ``ids``."""
+    floor = _rel(_logits_cold(one_shot, ids), _logits_cold(one_shot, ids, plain=True))
+    lim = max(PREFIX_NOISE_FACTOR * floor, 1e-3)
+    print(f"{what}: noise floor (cold prefill, kernels vs plain) rel_rms={floor:.4g}, limit {lim:.4g}", flush=True)
+    return lim
+
+
+def phase_continuous_dense(service_bits, tag="bf16", need=("knn_topk", "flash_attention", "decode_attention"),
+                           forbid=PAGED_KERNELS, max_new=None, follow_tokens=FOLLOW_TOKENS):
+    """(b) The dense continuous cache (``TPU_RAG_BATCHING=continuous``,
+    ``TPU_RAG_KV_PAGED=0``): the service's device bytes and
+    ``memory_allocated`` around its construction; 8 concurrent
+    ``/generate`` (default sampling), then 4 greedy requests, with the
+    launch counters zeroed before and read after (the dense decode and
+    flash ran, no paged kernel); tokens/s and window ms beside the paged
+    service's. Then the identity check: a dense engine at
+    ``decode_sync_steps = 4`` followed draw by draw against a plain paged
+    engine's greedy run of 4 RAG-length prompts (``_Follow``)."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+    from rag_llm_k8s_tpu_torch.ops import _build
+
+    engine = service_bits[2]
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=False)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t = time.monotonic()
+    svc, client, cont = _cont_service(service_bits, ec, max_new)
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    mode = client.get("/healthz").get_json()["engine_mode"]
+    cache_b = sum(p.numel() * p.element_size() for p in cont._cache_planes())
+    c = engine.config
+    elt = torch.finfo(engine.dtypes.compute_dtype).bits // 8
+    want_b = 2 * c.num_layers * cont.B * c.num_kv_heads * cont.T * (
+        c.head_dim + 4 if ec.kv_quant == "int8" else elt * c.head_dim)
+    print(f"phase continuous_dense {tag} build: engine_mode={mode} cache={list(cont.cache.k.shape)} "
+          f"{cont.cache.k.dtype} cache_bytes={cache_b} (expected {want_b}) memory_allocated {m0} -> {m1} "
+          f"(+{m1 - m0}) s={time.monotonic() - t:.1f}", flush=True)
+    if mode != "continuous" or cont.kv_pool is not None or cache_b != want_b or m1 - m0 < cache_b:
+        fail(f"dense continuous service: mode {mode!r}, cache bytes {cache_b} (want {want_b}), "
+             f"allocated +{m1 - m0}")
+    _build.reset_launches()
+    before = dataclasses.replace(cont.stats)
+    bodies, wall, dec = _burst(svc, client, CONT_QUESTIONS)
+    g_bodies, g_wall, g_dec = _burst(svc, client, CONT_QUESTIONS[4:], greedy=True)
+    launches = dict(_build.LAUNCHES)
+    st = cont.stats
+    n_win = st.windows - before.windows
+    paged = CONT_SUMMARY.get(tag, {})
+    print(f"phase continuous_dense {tag}: 8 requests (default sampling) wall_s={wall:.2f} decode_tokens={dec} "
+          f"decode_tok_per_s={dec / wall:.1f}; 4 greedy wall_s={g_wall:.2f} decode_tokens={g_dec} "
+          f"decode_tok_per_s={g_dec / g_wall:.1f}; {_windows(st, before)} "
+          f"prefill_calls={st.prefill_calls - before.prefill_calls} windows={n_win} device_cache_gb={cache_b / 1e9:.2f}"
+          f" | paged service (same call, interleaved admission): {json.dumps(paged)}", flush=True)
+    for i, b in enumerate(bodies + g_bodies):
+        print(f"request {tag} dense continuous {i} timings={json.dumps(b['timings'])}", flush=True)
+    _launch_check(f"{tag} dense continuous path", launches, need, forbid)
+    if cont.has_active():
+        fail("dense continuous service: rows still active after the bursts")
+    svc.shutdown()
+    _free(cont)
+
+    # the identity check, engine level
+    prompts = _follow_prompts(engine)
+    lim = _noise_limit(engine, prompts[0], f"phase continuous_dense {tag} follow")
+    greedy = SamplingConfig(do_sample=False)
+    bs = 32 if ec.kv_quant == "int8" else 16
+    plain = ContinuousEngine(engine.config, engine.model, greedy, dataclasses.replace(
+        ec, kv_paged=True, kv_block_size=bs, interleave_prefill=False, decode_sync_steps=1),
+        engine.dtypes, engine.device, engine.pad_id)
+    streams, logits = _record_plain(plain, prompts, follow_tokens)
+    _free(plain)
+    dense = ContinuousEngine(engine.config, engine.model, greedy, dataclasses.replace(ec, decode_sync_steps=4),
+                             engine.dtypes, engine.device, engine.pad_id)
+    f = _Follow(dense, streams, logits, lim)
+    f.run(prompts, follow_tokens)
+    shifted = min(_rel(logits[j][i + 1], logits[j][i]) for j in range(len(prompts))
+                  for i in range(len(logits[j]) - 1))
+    print(f"phase continuous_dense {tag} follow (decode_sync_steps=4, fed the paged engine's greedy run, "
+          f"{len(prompts)} prompts of {FOLLOW_LENS} tokens, {follow_tokens} tokens each): {f.line()}; planted "
+          f"fault (each draw against the next token's logits) least rel_rms={shifted:.4g}", flush=True)
+    if shifted <= lim:
+        fail("dense continuous follow: the check accepts logits one token off")
+    _free(dense)
+    return launches
+
+
+def _recorded_drafts(cont, recorded, every=None):
+    """A drafter for the paged verify over a service burst (it replaces
+    ``_draft_for_slots``): each row drafts the next tokens of the stream the
+    same request gave with the verify off (``recorded``: prompt ids ->
+    tokens), while its tokens still follow that stream. ``every(window,
+    rows)`` names the rows that draft in a window (default all). Prompt
+    lookup finds nothing to draft in the output of random weights, which
+    never repeats itself (``phase_spec_paged``'s first burst), so this is
+    how a burst drives the verify windows, their routing and acceptance."""
+    n_win = [0]
+    real_step = cont.step
+
+    def step():
+        n_win[0] += 1
+        return real_step()
+
+    def drafts():
+        out = {}
+        rows = [r for r, s in enumerate(cont.slots) if s.active]
+        chosen = rows if every is None else every(n_win[0], rows)
+        for r in rows:
+            s = cont.slots[r]
+            n = len(s.tokens)
+            want = recorded.get(tuple(s.history[:len(s.history) - n]), [])
+            k = min(cont.spec_K, s.remaining - 1, cont.T - 2 - s.kv_ub)
+            ok = r in chosen and k >= 1 and want[:n] == s.tokens
+            out[r] = list(want[n:n + k]) if ok else []
+        return out
+
+    cont.step, cont._draft_for_slots = step, drafts
+
+
+def phase_spec_paged(service_bits, tag="bf16", need=("knn_topk", "flash_attention", "paged_chunk_attention"),
+                     forbid=("decode_attention", "chunk_prefill_attention", "decode_attention_q8",
+                             "chunk_prefill_attention_q8", "paged_decode_attention_q8",
+                             "paged_chunk_attention_q8"),
+                     block_size=16, max_new=None, follow_tokens=FOLLOW_TOKENS):
+    """(c) The paged verify (``TPU_RAG_SPEC_PAGED=1``, K = 7, interleave
+    off, so that only verify windows launch ``paged_chunk_attention``), 8
+    concurrent greedy requests over RAG prompts in four bursts: the verify
+    off (each request's tokens kept), on with prompt lookup (the
+    deployment's drafter), on with each row drafting its own spec-off
+    stream (``_recorded_drafts``: the counters zeroed before and read
+    after, verify windows must run and accept), and that at
+    ``decode_sync_steps = 4`` with one row drafting in even windows and all
+    in odd ones, so that ``_verify_worthwhile`` answers both ways. Each
+    prints its drafted, accepted and emitted tokens and windows. Then the
+    identity checks, engine level, against a plain paged engine's greedy
+    run (``_Follow``): every row drafting the plain stream's next tokens
+    each window (each verify plane's logits against the plain step's, and
+    a plane the verify rejects only at a near-tie), and at
+    ``decode_sync_steps = 4`` with the same pattern of drafting rows."""
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+    from rag_llm_k8s_tpu_torch.ops import _build
+
+    engine = service_bits[2]
+    base = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True,
+                               kv_block_size=block_size, interleave_prefill=False)
+    spec = dataclasses.replace(base, spec_paged=True, spec_paged_tokens=SPEC_K)
+    one_or_all = lambda w, rows: rows if w % 2 else rows[:1]  # noqa: E731
+    recorded, texts, rates = {}, {}, {}
+    for label, ec, drafter in (("off", base, None), ("prompt lookup", spec, None),
+                               ("recorded drafts", spec, {}),
+                               ("recorded drafts, sync=4", dataclasses.replace(spec, decode_sync_steps=4),
+                                {"every": one_or_all})):
+        svc, client, cont = _cont_service(service_bits, ec, max_new)
+        sched = svc.scheduler
+        if label == "off":
+            real_submit = sched.submit
+
+            def submit(prompt, *a, **k):
+                out = real_submit(prompt, *a, **k)
+                recorded[tuple(prompt)] = list(out)
+                return out
+
+            sched.submit = submit
+        if drafter is not None:
+            _recorded_drafts(cont, recorded, **drafter)
+        routes = []
+        real_worth = cont._verify_worthwhile
+        cont._verify_worthwhile = lambda d: routes.append(real_worth(d)) or routes[-1]  # noqa: E731
+        _build.reset_launches()
+        before = dataclasses.replace(cont.stats)
+        bodies, wall, dec = _burst(svc, client, CONT_QUESTIONS, greedy=True)
+        launches = dict(_build.LAUNCHES)
+        texts[label] = [b["generated_text"] for b in bodies]
+        st = cont.stats
+        rates[label] = dec / wall
+        drafted = st.spec_drafted_tokens - before.spec_drafted_tokens
+        accepted = st.spec_accepted_tokens - before.spec_accepted_tokens
+        n_verify = st.spec_verify_steps - before.spec_verify_steps
+        print(f"phase spec_paged {tag} {label}: 8 greedy requests wall_s={wall:.2f} decode_tokens={dec} "
+              f"decode_tok_per_s={dec / wall:.1f} drafted_tokens={drafted} accepted_tokens={accepted} "
+              f"emitted_tokens={st.spec_emitted_tokens - before.spec_emitted_tokens} "
+              f"acceptance_rate={accepted / max(drafted, 1):.4f} "
+              f"drafted_rows={st.spec_drafted_rows - before.spec_drafted_rows} {_windows(st, before)} "
+              f"verify_worthwhile(True, False)=({sum(routes)}, {len(routes) - sum(routes)}) "
+              f"texts_as_with_the_verify_off={sum(a == b for a, b in zip(texts[label], texts['off']))}/8 "
+              f"launches={json.dumps(launches)}", flush=True)
+        if drafter is not None:
+            if n_verify <= 0 or accepted <= 0:
+                fail(f"spec_paged {tag} {label}: no verify window accepted a draft in the burst")
+            _launch_check(f"{tag} paged verify path ({label})", launches, need, forbid)
+        if "every" in (drafter or {}) and (sum(routes) == 0 or sum(routes) == len(routes)):
+            fail(f"spec_paged {tag} {label}: _verify_worthwhile did not answer both ways: {routes}")
+        if cont.kv_pool.blocks_in_use():
+            fail(f"spec_paged {tag} {label}: {cont.kv_pool.blocks_in_use()} blocks in use after the burst")
+        svc.shutdown()
+        _free(cont)
+    print(f"phase spec_paged {tag}: decode tokens/s {json.dumps({k: round(v, 1) for k, v in rates.items()})}",
+          flush=True)
+
+    # the identity checks, engine level
+    prompts = _follow_prompts(engine)
+    lim = _noise_limit(engine, prompts[0], f"phase spec_paged {tag} follow")
+    greedy = SamplingConfig(do_sample=False)
+    ec1 = dataclasses.replace(base, decode_sync_steps=1)
+    plain = ContinuousEngine(engine.config, engine.model, greedy, ec1, engine.dtypes, engine.device, engine.pad_id)
+    streams, logits = _record_plain(plain, prompts, follow_tokens)
+    _free(plain)
+    for sync, pattern in ((1, lambda w, rows: rows), (4, one_or_all)):
+        eng = ContinuousEngine(engine.config, engine.model, greedy, dataclasses.replace(
+            ec1, spec_paged=True, spec_paged_tokens=SPEC_K, decode_sync_steps=sync), engine.dtypes,
+            engine.device, engine.pad_id)
+        _build.reset_launches()
+        f = _Follow(eng, streams, logits, lim, drafts=pattern)
+        f.run(prompts, follow_tokens)
+        st = eng.stats
+        print(f"phase spec_paged {tag} follow (drafts: the plain stream, decode_sync_steps={sync}): {f.line()} "
+              f"verify_windows={st.spec_verify_steps} drafted={st.spec_drafted_tokens} "
+              f"draft_planes_the_verify_itself_accepted={f.planes_agreed}/{f.planes} "
+              f"verify_worthwhile(True, False)=({sum(f.routes)}, {len(f.routes) - sum(f.routes)}) "
+              f"launches={json.dumps(dict(_build.LAUNCHES))}", flush=True)
+        if st.spec_verify_steps <= 0 or f.planes <= 0:
+            fail(f"spec_paged {tag} follow: no verify window judged a draft")
+        if sync == 4 and (sum(f.routes) == 0 or sum(f.routes) == len(f.routes)):
+            fail(f"spec_paged {tag} follow: _verify_worthwhile did not answer both ways: {f.routes}")
+        if eng.kv_pool.blocks_in_use():
+            fail(f"spec_paged {tag} follow: blocks still in use")
+        _free(eng)
+
+
+def phase_engine_tasks(service_bits, n_requests=4, max_new=48):
+    """(d) Engine tasks on a dense continuous service with the prefix cache
+    and tiering on (``TPU_RAG_KV_TIERING=1``, a 0.5 s hotness half-life):
+    one solo request fills the cache, then during a burst a forced tier
+    sweep demotes its chunks, whose mirror queues a retier task on the
+    scheduler (``run_on_engine``), and a task that raises is queued beside
+    it. Both must run on the scheduler's thread while rows decode, and the
+    burst must finish."""
+    import threading
+
+    from rag_llm_k8s_tpu_torch.core.config import KVTieringConfig, PrefixCacheConfig
+
+    engine = service_bits[2]
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=False,
+                             prefix_cache=PrefixCacheConfig(enabled=True),
+                             kv_tiering=KVTieringConfig(enabled=True, half_life_s=0.5))
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
+    from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
+
+    svc1, _, _, store = service_bits
+    eng = InferenceEngine(engine.config, engine.model, dataclasses.replace(engine.sampling, max_new_tokens=max_new),
+                          ec, engine.dtypes, engine.device)
+    cont = ContinuousEngine(engine.config, engine.model, eng.sampling, ec, engine.dtypes, engine.device,
+                            engine.pad_id)
+    sched = ContinuousScheduler(cont)
+    svc = RagService(dataclasses.replace(svc1.config, engine=ec), eng, svc1.llm_tokenizer, svc1.encoder,
+                     svc1.encoder_tokenizer, store, scheduler=sched)
+    svc.ready = True
+    client = create_app(svc).test_client()
+    ran = []
+    real_run = sched.run_on_engine
+
+    def traced(fn):
+        def task(e):
+            ran.append((getattr(fn, "__name__", "task"), threading.current_thread().name, e.has_active()))
+            return fn(e)
+        return real_run(task)
+
+    sched.run_on_engine = traced
+    r = client.post("/generate", json_body={"prompt": CONT_QUESTIONS[0]})
+    entries = len(eng.prefix_cache._entries)
+    if r.status_code != 200 or entries == 0:
+        fail(f"engine tasks: the solo request ({r.status_code}) left {entries} prefix-cache entries")
+    time.sleep(2.5)  # five half-lives: the chunks' hotness falls under the thresholds
+    out = {}
+    # greedy (a per-request sampling) keeps every request on the continuous engine
+    th = threading.Thread(target=lambda: out.update(
+        r=_burst(svc, client, CONT_QUESTIONS[1:1 + n_requests], greedy=True)))
+    th.start()
+    t_end = time.monotonic() + 120
+    while not cont.has_active() and time.monotonic() < t_end:
+        time.sleep(0.01)
+    moved = eng.prefix_cache.retier(force=True)
+    sched.run_on_engine(lambda e: 1 / 0)
+    th.join(timeout=900)
+    if "r" not in out:
+        fail("engine tasks: the burst did not finish")
+    _, wall, dec = out["r"]
+    retier = [x for x in ran if x[0] == "_retier_task"]
+    print(f"phase engine_tasks: prefix entries={entries} tier moves={moved} tasks run (name, thread, rows "
+          f"active)={ran} burst of {n_requests} after the raising task: wall_s={wall:.2f} decode_tokens={dec}",
+          flush=True)
+    if not retier or any(x[1] != "continuous-scheduler" for x in ran):
+        fail(f"engine tasks: no retier task ran on the scheduler thread (moves {moved}, tasks {ran})")
+    if not all(x[2] for x in ran) or "<lambda>" not in [x[0] for x in ran]:
+        fail(f"engine tasks: the tasks did not run during the burst: {ran}")
+    svc.shutdown()
+    _free(cont)
+    del svc, eng
+
+
 def _free_port() -> int:
     import socket
 
@@ -3606,6 +4386,7 @@ def main() -> int:
     timed(phase_chunk_q8, rows)
     timed(phase_paged_decode_q8, rows)
     timed(phase_paged_chunk_q8, rows)
+    timed(phase_continuous_kernels, rows)
     torch.cuda.empty_cache()
     timed(phase_staged_boot)
 
@@ -3618,6 +4399,9 @@ def main() -> int:
     cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
     timed(phase_resilience, bits)
     timed(phase_continuous_engine, bits)
+    timed(phase_continuous_dense, bits)
+    timed(phase_spec_paged, bits)
+    timed(phase_engine_tasks, bits)
     timed(phase_plain_decode, bits)
 
     # int8 weights and int8 KV: the same 8B model quantized, the same store
@@ -3639,6 +4423,13 @@ def main() -> int:
                    forbid=BF16_CACHE_KERNELS, plain_yardstick=False)
     timed(phase_continuous_engine, qbits, tag="int8", block_size=32, decode_kernel="paged_decode_attention_q8",
           forbid=BF16_CACHE_KERNELS)
+    # the new int8 legs cut their budget to 48 tokens (the script's time limit)
+    timed(phase_continuous_dense, qbits, tag="int8", need=("knn_topk", "flash_attention", "decode_attention_q8"),
+          forbid=PAGED_KERNELS + ("decode_attention", "chunk_prefill_attention"), max_new=48,
+          follow_tokens=FOLLOW_TOKENS_Q8)
+    timed(phase_spec_paged, qbits, tag="int8", need=("knn_topk", "flash_attention", "paged_chunk_attention_q8"),
+          forbid=BF16_CACHE_KERNELS + ("decode_attention_q8", "chunk_prefill_attention_q8"), block_size=32,
+          max_new=48, follow_tokens=FOLLOW_TOKENS_Q8)
     if bits[0].llm_tokenizer.native_calls == 0:
         fail("the native BPE merge loop never served a request")
     print(f"native BPE merge loop: {bits[0].llm_tokenizer.native_calls} texts encoded", flush=True)
@@ -3686,7 +4477,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
             **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us", "queries_8",
-                                 "queries_9", "prefix_shapes") if k in r},
+                                 "queries_9", "prefix_shapes", "continuous_shapes") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(mesh, speculative continuous decode, pool roles, SLOs, goodput, shadow
-audits, tenants, the incident spool) are not here.
+(mesh, pool roles, SLOs, goodput, shadow audits, tenants, the incident
+spool) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -297,6 +297,25 @@ class EngineConfig:
     # tokens per mixed window, decode lanes first; 0 = max_batch_size +
     # prefill_chunk_tokens
     window_token_budget: int = 0
+    # speculative decoding in the paged continuous engine: each window may
+    # run ONE verify forward instead of decode_sync_steps plain steps. The
+    # host drafts up to spec_paged_tokens tokens per row by prompt lookup
+    # over the row's own history (assembled prompt + emitted: grounded
+    # answers quote their context, so the context is the draft corpus; no
+    # draft model), the forward feeds last token + drafts through the block
+    # tables, and each row accepts the longest draft prefix equal to the
+    # model's own (seed, position)-keyed targets, so greedy and seeded
+    # streams equal spec-off by construction. Requires kv_paged=True
+    # (checked at engine construction). The one-shot engine's
+    # `speculative` knob above is separate.
+    spec_paged: bool = False
+    # drafted tokens per verify window (K + 1 fed tokens per row); the
+    # per-row adaptive controller below shrinks K where acceptance is low
+    spec_paged_tokens: int = 7
+    # per-row adaptive draft length: each verify window folds the row's
+    # acceptance fraction (accepted / offered) into a decayed EMA; below
+    # this floor the row drafts 1 token, above it K scales with the EMA
+    spec_paged_min_accept: float = 0.3
     # cross-request KV prefix cache (see PrefixCacheConfig)
     prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
     # hotness-aware KV tiering over the cached chunks (see KVTieringConfig;
@@ -422,7 +441,6 @@ def _mesh_on(spec: str) -> bool:
 # value, and the ROADMAP.md item that ports it
 UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "TPU_RAG_MESH": (_mesh_on, "Queue 1 item 10 (tensor and sequence parallelism; the port serves one card)"),
-    "TPU_RAG_SPEC_PAGED": (lambda v: v == "1", "Queue 1 item 7 (the paged speculative verify)"),
     "TPU_RAG_LOOKAHEAD": (lambda v: v == "1", "Queue 1 item 8 (lookahead, router, lifecycle)"),
     "TPU_RAG_POOL_ROLE": (lambda v: v != "unified", "Queue 1 item 8 (lookahead, router, lifecycle)"),
     "TPU_RAG_FLIGHT_WAL": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
@@ -435,6 +453,7 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_BATCHING", "TPU_RAG_WEIGHT_QUANT", "TPU_RAG_KV_QUANT", "TPU_RAG_KV_PAGED",
     "TPU_RAG_KV_BLOCK_SIZE", "TPU_RAG_KV_POOL_BLOCKS", "TPU_RAG_INTERLEAVE_PREFILL",
     "TPU_RAG_PREFILL_CHUNK_TOKENS", "TPU_RAG_WINDOW_TOKEN_BUDGET", "TPU_RAG_DO_SAMPLE",
+    "TPU_RAG_SPEC_PAGED", "TPU_RAG_SPEC_PAGED_TOKENS", "TPU_RAG_SPEC_PAGED_MIN_ACCEPT",
     "TPU_RAG_SPECULATIVE", "TPU_RAG_SYNC_STEPS", "TPU_RAG_FUSED", "TPU_RAG_LOG_LEVEL",
     "TPU_RAG_ADMISSION_MAX_CONCURRENCY", "TPU_RAG_ADMISSION_MAX_QUEUE", "TPU_RAG_ADMISSION_RETRY_AFTER_S",
     "TPU_RAG_DEADLINE_MS", "TPU_RAG_BREAKER_RESETS", "TPU_RAG_BREAKER_WINDOW_S", "TPU_RAG_INFLIGHT_RETRIES",
@@ -518,7 +537,7 @@ class AppConfig:
         ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
         if ignored:
             logging.getLogger(__name__).warning(
-                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 7-10)",
+                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 8-10)",
                 ", ".join(ignored),
             )
         cfg = cls()
@@ -554,6 +573,17 @@ class AppConfig:
             engine = rep(engine, kv_block_size=v)
         if (v := _int(env, "TPU_RAG_KV_POOL_BLOCKS", 0, " (0 = dense parity)")) is not None:
             engine = rep(engine, kv_pool_blocks=v)
+        if (v := _flag(env, "TPU_RAG_SPEC_PAGED")) is not None:
+            engine = rep(engine, spec_paged=v)
+        if (v := _int(env, "TPU_RAG_SPEC_PAGED_TOKENS", 1)) is not None:
+            engine = rep(engine, spec_paged_tokens=v)
+        if "TPU_RAG_SPEC_PAGED_MIN_ACCEPT" in env:
+            ma = float(env["TPU_RAG_SPEC_PAGED_MIN_ACCEPT"])
+            if not 0.0 <= ma <= 1.0:
+                raise ValueError(
+                    f"TPU_RAG_SPEC_PAGED_MIN_ACCEPT={ma}: an acceptance-rate floor must lie in [0, 1]"
+                )
+            engine = rep(engine, spec_paged_min_accept=ma)
         if (v := _flag(env, "TPU_RAG_INTERLEAVE_PREFILL")) is not None:
             engine = rep(engine, interleave_prefill=v)
         if (v := _int(env, "TPU_RAG_PREFILL_CHUNK_TOKENS", 1)) is not None:
@@ -601,12 +631,6 @@ class AppConfig:
         tiering.validate()  # cross-field rules once, with the env applied
         engine = rep(engine, prefix_cache=pc, kv_tiering=tiering)
         engine.validate_interleave()  # cross-field rules, with the env applied
-        if engine.batching == "continuous" and not engine.kv_paged:
-            paged = env.get("TPU_RAG_KV_PAGED", "unset")
-            raise ValueError(
-                f"TPU_RAG_BATCHING='continuous' with TPU_RAG_KV_PAGED={paged!r} turns on a feature the "
-                "PyTorch port does not have yet: ROADMAP.md Queue 1 item 7 (the dense continuous cache)"
-            )
         resilience = cfg.resilience
         for key, name, minimum, cast in RESILIENCE_KEYS:
             if key in env:

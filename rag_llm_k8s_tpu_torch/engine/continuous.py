@@ -1,39 +1,60 @@
-"""Continuous batching over the paged KV arena, counterpart of the paged path
-of ``rag_llm_k8s_tpu/engine/continuous.py``.
+"""Continuous batching, counterpart of ``rag_llm_k8s_tpu/engine/continuous.py``.
 
-Requests join a running batch of ``max_batch_size`` rows. Each row owns
-blocks of a ``[L, N, K, bs, hd]`` block-pool arena (``engine/kv_pool.py``)
-through a host-maintained ``[B, MB]`` block table; rows are right-padded, so
-row ``b``'s keys are the window ``[0, kv_len[b])`` and its next token writes
-at ``kv_len[b]``. Between device windows the scheduler admits waiting
-requests into free rows.
+Requests join a running batch of ``max_batch_size`` rows; between device
+windows the scheduler admits waiting requests into free rows. Two caches:
 
-- **Phase-separated admission** (``interleave_prefill=False``): a group of
-  same-bucket prompts prefills in one forward, written straight into the
-  rows' blocks through their tables (the attention runs over the fresh K/V,
-  ``flash_attention``); the first tokens come back in one fetch.
-- **Interleaved admission** (``interleave_prefill=True``): admission only
-  reserves a row; every window then feeds each active row one decode token
-  and the pending prompts ``prefill_chunk_tokens`` at a time through ONE
-  chunked forward (``paged_chunk_attention``). A prompt's final chunk
-  samples its first token.
-- **Decode windows** run ``decode_sync_steps`` single-token steps
-  (``paged_decode_attention``) and fetch the ``[k, B]`` token plane once.
-- Blocks are allocated as frontiers reach them. When the pool runs dry the
+- **Paged** (``kv_paged=True``): each row owns blocks of a ``[L, N, K, bs,
+  hd]`` block-pool arena (``engine/kv_pool.py``) through a host-maintained
+  ``[B, MB]`` block table; rows are right-padded, so row ``b``'s keys are
+  the window ``[0, kv_len[b])`` and its next token writes at ``kv_len[b]``.
+  Blocks are allocated as frontiers reach them. When the pool runs dry the
   newest-admitted row is preempted: its blocks return, and the scheduler
   resubmits it as prompt + emitted tokens (greedy streams are unchanged).
+  Inactive rows and lanes past a row's table write into the null block,
+  never ``table[row, 0]``.
+- **Dense** (``kv_paged=False``, the JAX service's default under
+  ``TPU_RAG_BATCHING=continuous``): a ``[L, B, K, T, hd]`` cache, one row
+  per request, rows left-padded to their bucket, so row ``b``'s keys are
+  ``[kv_start[b], kv_len[b])``. A same-bucket group prefills in one forward
+  (``flash_attention``) into fresh row caches that are then copied into its
+  rows; decode writes each row's token at its own frontier, a ``[B]``
+  device index (``models.llama.write_row_frontier``), and attends with
+  ``decode_attention``. Rows hold a whole slot each, so admission never
+  waits on memory and nothing is preempted.
+
+Windows:
+
+- **Phase-separated admission** (``interleave_prefill=False``): a group of
+  same-bucket prompts prefills in one forward; the first tokens come back
+  in one fetch.
+- **Interleaved admission** (``interleave_prefill=True``, paged only):
+  admission only reserves a row; every window then feeds each active row
+  one decode token and the pending prompts ``prefill_chunk_tokens`` at a
+  time through ONE chunked forward (``paged_chunk_attention``). A prompt's
+  final chunk samples its first token.
+- **Decode windows** run ``decode_sync_steps`` single-token steps
+  (``paged_decode_attention``, or ``decode_attention`` dense) and fetch the
+  ``[k, B]`` token plane once.
+- **Verify windows** (``spec_paged=True``, paged only): the host drafts up
+  to ``spec_paged_tokens`` tokens per row by prompt lookup over the row's
+  own history (``engine/speculative.py``), and ONE forward feeds each row
+  its last token and drafts (``paged_chunk_attention``, ``K + 1`` lanes);
+  the targets (each plane's keyed draw) and the acceptance stay on the
+  card, and one fetch brings back up to ``K + 1`` tokens per row. A window
+  verifies when some row drafted and the acceptance EMAs say it retires at
+  least as many tokens as a plain window would.
 
 Sampling is keyed by each row's ``(seed, position)`` alone
 (``sampling.sample_token_per_row``), so a request samples the same stream
-alone or in a batch, with interleaving on or off. The block table lives on
-the host and is uploaded (pinned, non-blocking) only when it changed; the
-one host sync per window is the token fetch. Inactive rows and lanes past a
-row's table write into the null block, never ``table[row, 0]``.
+alone or in a batch, with interleaving or speculation on or off, over
+either cache. The block table lives on the host and is uploaded (pinned,
+non-blocking) only when it changed; the one host sync per window is the
+token fetch.
 
-Under ``kv_quant="int8"`` the arena holds int8 payloads plus fp32 scale
-planes (``[L, N, K, bs]``, zeros at construction) and the windows run the
-q8 paged kernels; ``weight_quant="int8"`` serves int8 weights (a model the
-one-shot engine already quantized is shared as it is).
+Under ``kv_quant="int8"`` the cache holds int8 payloads plus fp32 scale
+planes (zeros at construction) and the windows run the q8 kernels;
+``weight_quant="int8"`` serves int8 weights (a model the one-shot engine
+already quantized is shared as it is).
 
 Resilience (``resilience/``), as in the JAX scheduler: a failed window or
 a failed admission resets the engine (every row and block back) and the
@@ -43,22 +64,29 @@ invisible to the caller; a request out of retries gets the error. Every
 reset feeds the service's circuit breaker. A request's ``Deadline`` is
 checked while it queues and between windows, and an expired row is evicted
 (its blocks return) within one window. The fault sites ``insert`` (inside a
-phase-separated admission) and ``decode_step`` (the top of ``step``) make
-both recoveries testable. Lifecycle events go to the flight recorder
-(``obs/flight.py``).
+phase-separated admission, between the prefill and the rows' update) and
+``decode_step`` (the top of ``step``) make both recoveries testable.
+Lifecycle events go to the flight recorder (``obs/flight.py``).
+
+Engine tasks (``ContinuousScheduler.run_on_engine``): another thread hands
+the dispatcher a callable, which it runs between admissions and windows; a
+task that loses the engine's state recovers like a failed window.
 
 Metrics (``bind_metrics``, the JAX engine's and scheduler's families): exact
 time to first token (submit to the first token, once per request: a
 resubmission or a preemption resume does not observe it again), per-token
 latency per window (``mode="continuous"``: a decode window over its steps,
-a mixed window whole), the step-time split (``device_fetch`` from a window's
-first launch to its token fetch, ``host_drain`` the drain after it,
-``admit`` a phase-separated admission's prefill through its first-token
-fetch), pool occupancy gauges read from host state only, preemptions, resets,
-resubmission outcomes and deadline expiries.
+a mixed window whole, a verify window over the tokens it emitted per row),
+the step-time split (``device_fetch`` from a window's first launch to its
+token fetch, ``host_drain`` the drain after it, ``admit`` a phase-separated
+admission's prefill through its first-token fetch), pool occupancy gauges
+read from host state only (0 dense), preemptions, resets, resubmission
+outcomes and deadline expiries. The speculation counters are
+``ContinuousStats.spec_*``.
 
-Out of this port for now: the dense continuous cache, speculative verify
-windows, prefix registrations, tiering and migration.
+Out of this port for now (``ROADMAP.md`` Queue 1 item 8): prefix
+registrations in the pool (``admit_prefixed``), tiering of pool blocks, and
+migration between pool roles.
 """
 
 from __future__ import annotations
@@ -82,8 +110,9 @@ from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.engine.batching import _join_worker
 from rag_llm_k8s_tpu_torch.engine.engine import bind_compile_metrics, serving_model
 from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
-from rag_llm_k8s_tpu_torch.engine.sampling import sample_token_per_row
-from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena
+from rag_llm_k8s_tpu_torch.engine.sampling import accept_drafts, sample_targets_per_row, sample_token_per_row
+from rag_llm_k8s_tpu_torch.engine.speculative import adaptive_draft_len, fold_acceptance, prompt_lookup_draft
+from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena, make_kv_cache
 from rag_llm_k8s_tpu_torch.obs import flight, metrics
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
@@ -113,6 +142,11 @@ class _Slot:
     admit_seq: int = 0
     # reserved for an interleaved admission still prefilling
     prefilling: bool = False
+    # speculative verify (spec_paged): the row's draft corpus, the
+    # assembled prompt + every emitted token, and the decayed acceptance
+    # EMA that sets its draft length (None: no evidence yet)
+    history: List[int] = field(default_factory=list)
+    spec_ema: Optional[float] = None
 
 
 @dataclass
@@ -129,11 +163,20 @@ class ContinuousStats:
     # host clock from a window's first launch to its token fetch, summed
     decode_window_s: float = 0.0
     mixed_window_s: float = 0.0
+    verify_window_s: float = 0.0
+    # speculative verify windows (counted in ``windows`` too), the rows
+    # that offered drafts, and the drafted, accepted and emitted tokens
+    spec_verify_steps: int = 0
+    spec_drafted_rows: int = 0
+    spec_drafted_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    spec_emitted_tokens: int = 0
 
 
 class ContinuousEngine:
-    """Owns the arena, the per-row device state and the block tables. Not
-    thread-safe: the scheduler thread makes every call."""
+    """Owns the KV cache (the paged arena and its block tables, or the dense
+    row cache) and the per-row device state. Not thread-safe: the scheduler
+    thread makes every call."""
 
     def __init__(
         self,
@@ -146,10 +189,8 @@ class ContinuousEngine:
         pad_id: int = 0,
     ):
         ec = engine_config
-        if not ec.kv_paged:
-            raise ValueError("the continuous engine serves the paged arena only: set kv_paged=True "
-                             "(the dense continuous cache is ROADMAP.md Queue 1 item 7)")
         ec.validate_quant()
+        self.paged = bool(ec.kv_paged)
         self.device = resolve_device(device)
         self.config, self.sampling, self.engine_config, self.dtypes = config, sampling, ec, dtypes
         self.pad_id = pad_id
@@ -163,34 +204,65 @@ class ContinuousEngine:
                 f"no prompt bucket in {ec.prompt_buckets} fits max_seq_len={ec.max_seq_len} "
                 f"(row length {self.T})"
             )
-        bs = int(ec.kv_block_size)
-        tile = 32 if ec.kv_quant == "int8" else 16
-        if bs < 1 or bs % tile:
-            raise ValueError(f"kv_block_size={bs} must be a positive multiple of {tile} (kv_quant={ec.kv_quant!r})")
-        if any(b % bs for b in self.buckets) or self.T % bs:
-            raise ValueError(
-                f"kv_block_size={bs} must divide every prompt bucket {self.buckets} and the row "
-                f"length {self.T}"
-            )
-        self.block_size = bs
-        self.MB = self.T // bs
-        usable = int(ec.kv_pool_blocks) or self.B * self.MB
-        if usable < self.MB:
-            raise ValueError(f"kv_pool_blocks={usable}: the pool must hold one full row ({self.MB} blocks)")
-        self.kv_pool = KVBlockPool(usable + 1, bs)  # + the null block
+        self.kv_pool: Optional[KVBlockPool] = None
+        if self.paged:
+            bs = int(ec.kv_block_size)
+            tile = 32 if ec.kv_quant == "int8" else 16
+            if bs < 1 or bs % tile:
+                raise ValueError(
+                    f"kv_block_size={bs} must be a positive multiple of {tile} (kv_quant={ec.kv_quant!r})")
+            if any(b % bs for b in self.buckets) or self.T % bs:
+                raise ValueError(
+                    f"kv_block_size={bs} must divide every prompt bucket {self.buckets} and the row "
+                    f"length {self.T}"
+                )
+            self.block_size = bs
+            self.MB = self.T // bs
+            usable = int(ec.kv_pool_blocks) or self.B * self.MB
+            if usable < self.MB:
+                raise ValueError(f"kv_pool_blocks={usable}: the pool must hold one full row ({self.MB} blocks)")
+            self.kv_pool = KVBlockPool(usable + 1, bs)  # + the null block
+        # speculative verify windows (the JAX constructor's checks and messages)
+        self.spec_on = bool(ec.spec_paged)
+        # requests whose rows ever offered drafts to a verify window
+        # (pop_spec_seen); popped at delivery or discarded with the request
+        self._spec_rids: set = set()
+        if self.spec_on:
+            if not self.paged:
+                raise ValueError(
+                    "spec_paged=True requires kv_paged=True — the verify "
+                    "step writes drafted positions through block tables "
+                    "(the dense continuous path does not speculate)"
+                )
+            self.spec_K = int(ec.spec_paged_tokens)
+            if self.spec_K < 1:
+                raise ValueError(f"spec_paged_tokens={self.spec_K}: expected >= 1")
+            self.spec_ngram = max(1, int(ec.spec_ngram))
+            self.spec_min_accept = float(ec.spec_paged_min_accept)
+            if not 0.0 <= self.spec_min_accept <= 1.0:
+                raise ValueError(
+                    f"spec_paged_min_accept={self.spec_min_accept}: an "
+                    "acceptance-RATE floor must lie in [0, 1]"
+                )
         self.interleave_on = bool(ec.interleave_prefill)
         if self.interleave_on:
-            ec.validate_interleave()
+            ec.validate_interleave()  # requires kv_paged
             self.chunk_tokens = int(ec.prefill_chunk_tokens)
             self.window_budget = int(ec.window_token_budget) or self.B + self.chunk_tokens
         self.model = serving_model(model, ec)
-        self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device, ec.kv_quant)
-        # the arena's bytes from its shapes, once: a scrape never asks the
-        # allocator or the card
-        self.arena_device_bytes = float(sum(
-            t.numel() * t.element_size()
-            for t in (self.arena.k, self.arena.v, self.arena.k_scale, self.arena.v_scale) if t is not None
-        ))
+        # the paged arena, or the dense [L, B, K, T, hd] row cache
+        self.arena = self.cache = None
+        if self.paged:
+            self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device, ec.kv_quant)
+            # the arena's bytes from its shapes, once: a scrape never asks
+            # the allocator or the card
+            self.arena_device_bytes = float(sum(
+                t.numel() * t.element_size()
+                for t in (self.arena.k, self.arena.v, self.arena.k_scale, self.arena.v_scale) if t is not None
+            ))
+        else:
+            self.cache = make_kv_cache(config, self.B, self.T, dtypes.compute_dtype, self.device, ec.kv_quant)
+            self.arena_device_bytes = 0.0  # the pool gauge reads 0 under the dense cache, as in JAX
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self._seed_counter = 0
         self.stats = ContinuousStats()
@@ -224,19 +296,20 @@ class ContinuousEngine:
         self._m_step_drain = step_fam.labels(phase="host_drain")
         self._m_step_admit = step_fam.labels(phase="admit")
         pool, stats, nbytes, me = self.kv_pool, self.stats, self.arena_device_bytes, weakref.ref(self)
+        # the pool's families exist in both modes and read 0 under the dense cache
         registry.labeled_gauge(
             "rag_kv_pool_blocks_total",
             "allocatable physical KV blocks (paged mode; 0 dense)",
-        ).labels_callback(lambda: float(pool.usable_blocks()))
+        ).labels_callback(lambda: float(pool.usable_blocks()) if pool is not None else 0.0)
         registry.labeled_gauge(
             "rag_kv_pool_blocks_in_use",
             "physical KV blocks currently referenced (paged mode)",
-        ).labels_callback(lambda: float(pool.blocks_in_use()))
+        ).labels_callback(lambda: float(pool.blocks_in_use()) if pool is not None else 0.0)
         registry.labeled_gauge(
             "rag_kv_pool_fragmentation",
             "fraction of allocated KV token slots not holding live KV "
             "(internal fragmentation — pad/tail waste of the block layout)",
-        ).labels_callback(lambda: pool.fragmentation(me().pool_used_tokens()))
+        ).labels_callback(lambda: pool.fragmentation(me().pool_used_tokens()) if pool is not None else 0.0)
         registry.counter(
             "rag_kv_pool_preemptions_total",
             "rows preempted mid-decode by pool exhaustion (resubmitted by "
@@ -251,14 +324,33 @@ class ContinuousEngine:
 
     def pool_used_tokens(self) -> int:
         """Live tokens across the rows' blocks (host mirrors): the
-        numerator of the fragmentation gauge."""
+        numerator of the fragmentation gauge; 0 under the dense cache."""
+        if not self.paged:
+            return 0
         return sum(s.kv_ub for s in self.slots if s.active)
+
+    def pop_spec_seen(self, request_id: int) -> bool:
+        """True iff a verify window ever judged drafts for this request
+        (JAX ``pop_spec_seen``, the shadow auditor's fingerprint source).
+        Popping keeps the set bounded by the requests in flight."""
+        try:
+            self._spec_rids.remove(request_id)
+            return True
+        except KeyError:
+            return False
+
+    def discard_spec_seen(self, request_id: int) -> None:
+        """Forget a request that will never be delivered (gave up, deadline,
+        shutdown)."""
+        self._spec_rids.discard(request_id)
 
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
     def _fresh_state(self) -> None:
         B, dev = self.B, self.device
+        # dense rows are left-padded: row b's keys are [kv_start[b], kv_len[b])
+        self._kv_start = torch.zeros(B, dtype=torch.int32, device=dev)
         self._kv_len = torch.zeros(B, dtype=torch.int32, device=dev)
         self._last_tok = torch.zeros(B, dtype=torch.int64, device=dev)
         self._active = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -270,10 +362,11 @@ class ContinuousEngine:
         self._zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         self._row_greedy = [True] * B  # host mirror: skip the draw when all rows are greedy
         self.slots = [_Slot() for _ in range(B)]
-        self._tables_host = np.zeros((B, self.MB), np.int32)
-        self._tables_dev: Optional[torch.Tensor] = None
-        self._tables_dirty = True
-        self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
+        if self.paged:
+            self._tables_host = np.zeros((B, self.MB), np.int32)
+            self._tables_dev: Optional[torch.Tensor] = None
+            self._tables_dirty = True
+            self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
         self._admit_seq = 0
         self._preempted: List[Tuple[int, List[int]]] = []
         # in-flight interleaved admissions, oldest first: rid -> record
@@ -281,9 +374,11 @@ class ContinuousEngine:
 
     def reset(self) -> None:
         """Drop every row and return every block (after a failed window).
-        The arena keeps its memory; no kernel reads past a frontier."""
+        The cache keeps its memory; no kernel reads outside a row's window,
+        and an admission rewrites its row's slots before any read."""
         flight.emit("reset", in_flight=sum(1 for s in self.slots if s.active))
-        self.kv_pool.reset()
+        if self.paged:
+            self.kv_pool.reset()
         self._fresh_state()
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
@@ -331,6 +426,13 @@ class ContinuousEngine:
             self._seeds[rows], positions,
         )
 
+    def _sample_targets(self, logits: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """A verify window's targets ``[B, S]``: plane ``j`` of row ``b`` is
+        the draw ``_sample`` makes at ``positions[b, j]`` in a plain window."""
+        if all(self._row_greedy):
+            return torch.argmax(logits, dim=-1)
+        return sample_targets_per_row(logits, self._greedy, self._temp, self._top_p, self._seeds, positions)
+
     def _deactivate(self, rows: Sequence[int]) -> None:
         for r in rows:
             self._active[r] = False
@@ -347,7 +449,10 @@ class ContinuousEngine:
     def _release_row(self, row: int) -> None:
         """Blocks back to the pool and the row's table nulled, before the
         next window: a stale entry would let junk writes land in a block
-        another request may own next."""
+        another request may own next. Nothing to return under the dense
+        cache."""
+        if not self.paged:
+            return
         if self._slot_blocks[row]:
             self.kv_pool.free(self._slot_blocks[row])
             self._slot_blocks[row] = []
@@ -356,11 +461,17 @@ class ContinuousEngine:
             self._tables_dirty = True
 
     def blocks_needed(self, prompt_len: int) -> int:
+        """Admission-time block cost of a prompt (0 under the dense cache)."""
+        if not self.paged:
+            return 0
         return policy.admission_blocks(prompt_len, self.block_size)
 
     def admission_state(self, prompt_len: int) -> str:
         """'ok' admissible now; 'wait' until decode frees blocks; 'never'
-        when the prompt alone outsizes the pool."""
+        when the prompt alone outsizes the pool. Always 'ok' under the
+        dense cache, whose rows hold a whole slot each."""
+        if not self.paged:
+            return "ok"
         verdict, want = policy.admission_verdict(
             self.blocks_needed(prompt_len), self.kv_pool.usable_blocks(),
             self.interleave_on, self.MB,
@@ -417,7 +528,8 @@ class ContinuousEngine:
         self.slots[rec["row"]] = _Slot()
 
     def drain_preempted(self) -> List[Tuple[int, List[int]]]:
-        """``(request_id, emitted_tokens)`` preempted since the last call."""
+        """``(request_id, emitted_tokens)`` preempted since the last call
+        (never any under the dense cache)."""
         out, self._preempted = self._preempted, []
         return out
 
@@ -493,6 +605,65 @@ class ContinuousEngine:
         return results
 
     def _admit_chunk(self, S: int, chunk, rows: List[int], results: List) -> None:
+        """One batched prefill and one first-token fetch for a same-bucket
+        group, into the arena or the dense cache."""
+        if self.paged:
+            self._admit_chunk_paged(S, chunk, rows, results)
+        else:
+            self._admit_chunk_dense(S, chunk, rows, results)
+
+    def _admit_chunk_dense(self, S: int, chunk, rows: List[int], results: List) -> None:
+        """Dense admission (JAX ``_admit_chunk``): the group's prompts
+        left-padded to ``[n, S]`` (``kv_start = S - len(p)``), one prefill
+        through ``flash_attention`` into fresh ``[L, n, K, S, hd]`` row
+        caches, the first tokens drawn at position ``len(p)``, then a copy
+        into the engine's rows at slots ``[0, S)`` and one fetch. A failed
+        prefill propagates (the rows were not taken yet); a failure where
+        the group's state joins the engine's rows (the ``insert`` fault
+        site, between the prefill and the copy) resets the engine and
+        raises ``EngineStateLost``."""
+        n = len(chunk)
+        t_admit = time.perf_counter()
+        # left-padded tokens | kv_start | prompt length | row, in one upload
+        host = np.full((n, S + 3), self.pad_id, np.int64)
+        for r, (_, _, _, p, _, seed, samp) in enumerate(chunk):
+            host[r, S - len(p):S] = p
+            host[r, S], host[r, S + 1], host[r, S + 2] = S - len(p), len(p), rows[r]
+            self._set_row_sampling(rows[r], seed, samp)
+        dh = self._h2d(host)
+        tokens, starts, lens, rows_t = dh[:, :S], dh[:, S], dh[:, S + 1], dh[:, S + 2]
+        positions = (torch.arange(S, device=self.device)[None, :] - starts[:, None]).clamp(min=0)
+        row_cache = make_kv_cache(self.config, n, S, self.dtypes.compute_dtype, self.device,
+                                  self.engine_config.kv_quant)
+        logits = self.model(tokens, positions, row_cache, starts, torch.full_like(starts, S), 0,
+                            last_logit_only=True)
+        tok0 = self._sample(logits[:, -1], lens, rows=rows_t)
+        try:
+            # fault site "insert": a fault while the group's state joins the
+            # engine's rows leaves that state unknown, so the engine resets
+            faults.maybe_fail("insert")
+            for dst, src in zip(self._cache_planes(), self._cache_planes(row_cache)):
+                dst[:, rows_t, :, :S] = src
+            self._kv_start[rows_t] = starts.to(torch.int32)
+            self._kv_len[rows_t] = S
+            self._last_tok[rows_t] = tok0
+            self._active[rows_t] = True
+            tok0_h = tok0.cpu().tolist()  # the one fetch of the group
+        except Exception as e:  # noqa: BLE001 — every row's state is suspect
+            self.reset()
+            raise EngineStateLost("insert failed; engine state reset") from e
+        del row_cache
+        self._m_step_admit.observe(time.perf_counter() - t_admit)
+        self.stats.prefill_calls += 1
+        for r, (i, rid, _, p, max_new_c, _, _) in enumerate(chunk):
+            self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, S, results, i)
+
+    def _cache_planes(self, cache=None) -> Tuple[torch.Tensor, ...]:
+        """The dense cache's planes: ``(k, v)``, or with the int8 scales."""
+        c = self.cache if cache is None else cache
+        return (c.k, c.v) + ((c.k_scale, c.v_scale) if c.quantized else ())
+
+    def _admit_chunk_paged(self, S: int, chunk, rows: List[int], results: List) -> None:
         """One right-padded prefill for a same-bucket group, written into the
         rows' blocks, then one fetch of the first tokens. ``PoolExhausted``
         returns the blocks taken so far and propagates (backpressure); a
@@ -571,6 +742,7 @@ class ContinuousEngine:
             self.slots[row] = _Slot(
                 request_id=rid, tokens=[tok0], remaining=max_new_c - 1, active=True,
                 kv_ub=len(p), admit_seq=admit_seq,
+                history=(list(p) + [tok0]) if self.spec_on else [],
             )
         self.stats.decode_tokens += 1 if tok0 not in self.config.eos_token_ids else 0
         if results is not None:
@@ -597,30 +769,49 @@ class ContinuousEngine:
     def step(self) -> List[Tuple[int, List[int]]]:
         """One device window and one token fetch; returns the requests that
         finished as ``(request_id, tokens)`` (EOS excluded) and frees their
-        rows. A mixed window while interleaved admissions are pending,
-        ``decode_sync_steps`` decode steps otherwise. The ``decode_step``
-        fault site comes first."""
+        rows. The ``decode_step`` fault site comes first. Then, as the JAX
+        engine routes: a mixed window while interleaved admissions are
+        pending; under ``spec_paged`` a verify window when some row drafted
+        and verifying is expected to retire at least as many tokens as a
+        plain window (``_verify_worthwhile``); else ``decode_sync_steps``
+        plain decode steps."""
         faults.maybe_fail("decode_step")
         if self.interleave_on and self._chunk_admissions:
             return self._step_mixed()
-        self._ensure_decode_blocks()
+        if self.spec_on:
+            drafts = self._draft_for_slots()
+            if any(drafts.values()) and self._verify_worthwhile(drafts):
+                return self._step_verify(drafts)
+        if self.paged:
+            self._ensure_decode_blocks()
         if not self.has_active():
             return []
         k, Tmax, dev = self.sync_steps, self.T, self.device
         t0 = time.perf_counter()
-        tables = self._device_tables()
+        tables = self._device_tables() if self.paged else None
         kv_len, last_tok, active = self._kv_len, self._last_tok, self._active
         toks, eoss = [], []
         for _ in range(k):
             wi = torch.where(active, kv_len, self._zeros)
-            # inactive rows (EOS inside the window, or free) write into the
-            # null block, never table[row, 0]
-            tables_eff = torch.where(active[:, None], tables, torch.zeros((), dtype=tables.dtype, device=dev))
-            logits = self.model(
-                last_tok[:, None], wi[:, None].long(), self.arena, self._zeros, wi + 1, wi,
-                block_tables=tables_eff,
-            )
-            tok = self._sample(logits[:, 0], wi + 1)
+            if self.paged:
+                # inactive rows (EOS inside the window, or free) write into
+                # the null block, never table[row, 0]
+                tables_eff = torch.where(active[:, None], tables, torch.zeros((), dtype=tables.dtype, device=dev))
+                logits = self.model(
+                    last_tok[:, None], wi[:, None].long(), self.arena, self._zeros, wi + 1, wi,
+                    block_tables=tables_eff,
+                )
+                pos = wi
+            else:
+                # dense rows are left-padded: a token's position is its slot
+                # less the row's kv_start. An inactive row parks at slot 0 of
+                # its own row, over the one-key window [0, 1)
+                ks = torch.where(active, self._kv_start, self._zeros)
+                pos = (wi - ks).clamp(min=0)
+                logits = self.model(
+                    last_tok[:, None], pos[:, None].long(), self.cache, ks, wi + 1, wi, row_frontier=True,
+                )
+            tok = self._sample(logits[:, 0], pos + 1)
             hit_eos = torch.isin(tok, self._eos)
             kv_len = torch.where(active, torch.clamp(wi + 1, max=Tmax - 1), kv_len)
             last_tok = tok
@@ -649,6 +840,8 @@ class ContinuousEngine:
                     finished = True  # EOS itself is not emitted
                     break
                 slot.tokens.append(int(tok_h[j, i]))
+                if self.spec_on:
+                    slot.history.append(int(tok_h[j, i]))
                 slot.remaining -= 1
                 self.stats.decode_tokens += 1
                 if slot.remaining <= 0:
@@ -744,6 +937,8 @@ class ContinuousEngine:
             finished = bool(tok_h[1, i])
             if not finished:
                 slot.tokens.append(int(tok_h[0, i]))
+                if self.spec_on:
+                    slot.history.append(int(tok_h[0, i]))
                 slot.remaining -= 1
                 self.stats.decode_tokens += 1
                 finished = slot.remaining <= 0
@@ -763,6 +958,147 @@ class ContinuousEngine:
                                   rec["max_new"], rec["bucket"], admit_seq=rec["admit_seq"])
             if out is not None:
                 done.append((rid, out))
+        self._m_step_drain.observe(time.perf_counter() - t_fetch)
+        return done
+
+    # ------------------------------------------------------------------
+    # speculative verify windows (spec_paged)
+    # ------------------------------------------------------------------
+    def _draft_for_slots(self) -> Dict[int, List[int]]:
+        """This window's draft per active row (JAX ``_draft_for_slots``):
+        prompt lookup over the row's own history, length-capped by its
+        acceptance EMA, its remaining budget (tokens past it are discarded)
+        and the row's top (an accepted frontier past ``T`` cannot be
+        mapped). An empty list means a plain decode step for the row."""
+        out: Dict[int, List[int]] = {}
+        for row, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            k_row = adaptive_draft_len(slot.spec_ema, self.spec_K, self.spec_min_accept)
+            k_row = min(k_row, slot.remaining - 1, self.T - 2 - slot.kv_ub)
+            out[row] = prompt_lookup_draft(slot.history, self.spec_ngram, k_row) if k_row >= 1 else []
+        return out
+
+    def _verify_worthwhile(self, drafts: Dict[int, List[int]]) -> bool:
+        """Whether this window verifies instead of running the plain path
+        (JAX ``_verify_worthwhile``): a verify window retires ``1 +
+        accepted`` tokens per row in one forward, a plain window
+        ``decode_sync_steps`` per row. At ``k == 1`` any draft wins; at
+        ``k > 1`` the EMA-expected verify yield must reach ``k`` per active
+        row (a row with no EMA yet counts as accepting everything)."""
+        k = self.sync_steps
+        if k <= 1:
+            return True
+        n_active, expected = 0, 0.0
+        for row, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            n_active += 1
+            d = drafts.get(row)
+            ema = 1.0 if slot.spec_ema is None else slot.spec_ema
+            expected += 1.0 + (ema * len(d) if d else 0.0)
+        return expected >= n_active * k
+
+    def _step_verify(self, drafts: Dict[int, List[int]]) -> List[Tuple[int, List[int]]]:
+        """One verify window (JAX ``_step_verify`` and
+        ``_build_verify_paged``): each row's blocks grow for its own ``nd +
+        1`` writes (exhaustion preempts the newest rows, as a plain window
+        does), then ONE forward feeds ``[last_tok, drafts]`` at positions
+        ``wi + arange(K + 1)`` through ``paged_chunk_attention`` with
+        ``kv_len = wi + 1 + nd``; targets and acceptance stay on the card,
+        and one fetch brings ``(emitted [K + 1, B], n_emit, eos, m)``. The
+        host drains up to ``m + 1`` tokens per row.
+
+        Rejected lanes need no retraction: their writes land past the new
+        frontier, where no window reads before the next write. Lanes past a
+        row's own drafts write past its frontier or, past its table, into
+        the null block; inactive rows write into the null block."""
+        K, S, B, Tmax, dev = self.spec_K, self.spec_K + 1, self.B, self.T, self.device
+        self._ensure_decode_blocks({row: len(d) + 1 for row, d in drafts.items()})
+        if not self.has_active():
+            return []
+        # drafts | n_drafts in one upload
+        host = np.zeros((B, K + 1), np.int64)
+        for row, d in drafts.items():
+            if d and self.slots[row].active:
+                host[row, :len(d)] = d
+                host[row, K] = len(d)
+        n_active = sum(1 for s in self.slots if s.active)
+        drafted_total = int(host[:, K].sum())
+        drafted_rows = int((host[:, K] > 0).sum())
+        flight.emit("spec_draft", rows=drafted_rows, active=n_active, drafted=drafted_total)
+        t0 = time.perf_counter()
+        dh = self._h2d(host)
+        kv_len, last_tok, active = self._kv_len.long(), self._last_tok, self._active
+        wi = torch.where(active, kv_len, torch.zeros_like(kv_len))
+        nd = torch.where(active, dh[:, K], torch.zeros_like(kv_len))
+        d_t = dh[:, :K]
+        tables = self._device_tables()
+        tables_eff = torch.where(active[:, None], tables, torch.zeros((), dtype=tables.dtype, device=dev))
+        fed = torch.cat([last_tok[:, None], d_t], dim=1)
+        pos = wi[:, None] + torch.arange(S, device=dev)[None, :]
+        # the deepest real lane (j = nd) sees keys <= wi + nd; the junk
+        # lanes past it see that window too, and nobody samples them
+        logits = self.model(fed, pos, self.arena, self._zeros, wi + 1 + nd, wi, chunked=True,
+                            block_tables=tables_eff)
+        targets = self._sample_targets(logits, pos + 1)
+        m, emitted = accept_drafts(d_t, targets, nd)
+        is_eos = torch.isin(emitted, self._eos)
+        hit_eos = (is_eos & (torch.arange(S, device=dev)[None, :] <= m[:, None])).any(dim=1)
+        # last_tok's KV at wi and the accepted drafts' at wi+1..wi+m are
+        # valid; the correction (plane m) is the new last token, written
+        # next window: the same bookkeeping as m + 1 plain steps
+        self._kv_len = torch.where(active, torch.clamp(wi + m + 1, max=Tmax - 1), kv_len).to(torch.int32)
+        self._last_tok = torch.where(active, torch.gather(emitted, 1, m[:, None])[:, 0], last_tok)
+        n_emit = torch.where(active, m + 1, torch.zeros_like(m))
+        self._active = active & ~hit_eos
+        # the one fetch: emitted [S, B] | eos [S, B] | n_emit | m
+        out = torch.cat([emitted.t(), is_eos.t().long(), n_emit[None], m[None]]).cpu().numpy()
+        tok_h, eos_h, ne_h, acc_h = out[:S], out[S:2 * S], out[2 * S], out[2 * S + 1]
+        t_fetch = time.perf_counter()
+        emitted_total = int(ne_h.sum())
+        # per-row per-token latency, as a plain window's window / k
+        self._m_itl.observe((t_fetch - t0) * n_active / max(emitted_total, 1))
+        self._m_step_device.observe(t_fetch - t0)
+        st = self.stats
+        st.verify_window_s += t_fetch - t0
+        st.windows += 1
+        done: List[Tuple[int, List[int]]] = []
+        retire = []
+        accepted_total = 0
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            offered, acc = int(host[i, K]), int(acc_h[i])
+            accepted_total += acc
+            if offered:
+                self._spec_rids.add(slot.request_id)
+            slot.spec_ema = fold_acceptance(slot.spec_ema, offered, acc)
+            # the exact new frontier, not an upper bound
+            slot.kv_ub = min(slot.kv_ub + int(ne_h[i]), Tmax - 1)
+            finished = False
+            for j in range(int(ne_h[i])):
+                if eos_h[j, i]:
+                    finished = True  # EOS itself is not emitted
+                    break
+                slot.tokens.append(int(tok_h[j, i]))
+                slot.history.append(int(tok_h[j, i]))
+                slot.remaining -= 1
+                st.decode_tokens += 1
+                if slot.remaining <= 0:
+                    finished = True  # tokens past the budget are discarded
+                    break
+            if finished:
+                done.append((slot.request_id, slot.tokens))
+                retire.append(i)
+        st.spec_verify_steps += 1
+        st.spec_drafted_rows += drafted_rows
+        st.spec_drafted_tokens += drafted_total
+        st.spec_accepted_tokens += accepted_total
+        st.spec_emitted_tokens += emitted_total
+        flight.emit("spec_verify", drafted=drafted_total, accepted=accepted_total,
+                    rejected=drafted_total - accepted_total, emitted=emitted_total)
+        self._retire(retire)
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
         return done
 
@@ -884,6 +1220,22 @@ class ContinuousScheduler:
             raise item.error
         return item.result
 
+    def run_on_engine(self, fn) -> bool:
+        """Queue a host-side engine task, ``fn(engine)``, for the dispatcher
+        thread to run between admissions and windows (JAX
+        ``run_on_engine``): the engine is single-owner, so this is how
+        another thread (the prefix cache's retier mirror) touches it. Fire
+        and forget; a failure is contained like a failed window
+        (``_run_engine_task``). Returns False once the scheduler is
+        stopping."""
+        if not callable(fn):
+            raise TypeError("run_on_engine expects a callable(engine)")
+        with self._lifecycle_lock:
+            if self._stop.is_set():
+                return False
+            self._queue.put(fn)
+        return True
+
     def shutdown(self, timeout: float = 30.0) -> None:
         self._stop.set()
         with self._lifecycle_lock:
@@ -906,10 +1258,11 @@ class ContinuousScheduler:
                         it = self._queue.get_nowait()
                     except queue.Empty:
                         break
-                    if it is not None:
+                    if it is not None and not callable(it):  # a queued engine task is dropped
                         leftovers.append(it)
             for it in leftovers:
                 if not it.done.is_set():
+                    self.engine.discard_spec_seen(it.request_id)
                     it.error = RuntimeError("scheduler is shut down")
                     it.done.set()
 
@@ -926,6 +1279,11 @@ class ContinuousScheduler:
             self._evict_expired(waiting)
             item = self._next_nowait() if eng.has_active() else self._queue.get()
             while item is not None and not self._stop.is_set():
+                if callable(item):
+                    # an engine task runs in arrival order between admissions
+                    self._run_engine_task(item, waiting)
+                    item = self._next_nowait()
+                    continue
                 held[:] = [item]
                 if self._expire_queued(item):
                     # dead work never reaches the device
@@ -949,6 +1307,9 @@ class ContinuousScheduler:
                     nxt = self._next_nowait()
                     if nxt is None:
                         break
+                    if callable(nxt):
+                        self._run_engine_task(nxt, waiting)
+                        continue
                     if self._expire_queued(nxt):
                         continue
                     batch.append(nxt)
@@ -995,7 +1356,7 @@ class ContinuousScheduler:
                 # after backpressure a window runs before the retry: retrying
                 # at once would spin on the same verdict while nothing frees
                 item = None if requeued else self._next_nowait()
-            if item is not None:  # stopping with an item in hand
+            if item is not None and not callable(item):  # stopping with an item in hand
                 held[:] = [item]
                 return
             if eng.has_active():
@@ -1009,6 +1370,7 @@ class ContinuousScheduler:
             return
         self.engine.evict_requests(expired)
         for rid in expired:
+            self.engine.discard_spec_seen(rid)
             it = waiting.pop(rid)
             if not it.abandoned:  # the caller counted its own expiry
                 self._m_deadline_decode.inc()
@@ -1031,6 +1393,9 @@ class ContinuousScheduler:
         preemption come first, so the client sees one stream."""
         if item.retried:
             self._m_retries.labels(outcome="succeeded").inc()
+        # the verify-window fingerprint (read by the shadow auditor, ROADMAP.md
+        # item 9c); popping keeps the engine's set bounded
+        self.engine.pop_spec_seen(item.request_id)
         item.result = item.emitted + tokens
         extra = {"tenant": item.tenant} if item.tenant is not None else {}
         flight.emit("complete", item.request_id, n_tokens=len(item.result),
@@ -1078,6 +1443,19 @@ class ContinuousScheduler:
             flight.emit("resubmit", rid, outcome="preempt_resume", n_emitted=len(toks))
             self._queue.put(it)
 
+    def _run_engine_task(self, task, waiting: Dict[int, "_Pending"]) -> None:
+        """Run one queued engine task (JAX ``_run_engine_task``): an
+        ``EngineStateLost`` (the engine reset itself) recovers like a failed
+        window, resubmitting the requests in flight from their prompts; any
+        other failure is logged and the loop goes on."""
+        try:
+            task(self.engine)
+        except EngineStateLost as e:
+            logger.exception("engine task reset the engine; recovering %d in-flight request(s)", len(waiting))
+            self._handle_reset(e, waiting, extra=[], emitted={})
+        except Exception:  # noqa: BLE001 — a task must never kill the loop
+            logger.exception("engine task failed (engine state intact)")
+
     def _handle_reset(self, cause: BaseException, waiting: Dict[int, "_Pending"],
                       extra: List["_Pending"], emitted: Dict[int, List[int]]) -> None:
         """After an engine reset: resubmit what can still be served, as its
@@ -1095,6 +1473,7 @@ class ContinuousScheduler:
                 retry.append(it)
             else:
                 self._m_retries.labels(outcome="gave_up").inc()
+                self.engine.discard_spec_seen(it.request_id)
                 flight.emit("resubmit", it.request_id, outcome="gave_up")
                 it.error = cause
                 it.done.set()

@@ -123,3 +123,51 @@ def sample_token_per_row(
     scaled = torch.where((top_p < 1.0)[:, None], top_p_filter(scaled, top_p[:, None]), scaled)
     drawn = categorical(scaled, gumbel=keyed_gumbel(seeds, positions, logits.shape[-1]))
     return torch.where(greedy, torch.argmax(logits, dim=-1), drawn)
+
+
+# ---------------------------------------------------------------------------
+# the speculative verify's acceptance (paged draft-and-verify)
+# ---------------------------------------------------------------------------
+
+
+def sample_targets_per_row(
+    logits: torch.Tensor,  # [B, S, V] fp32: one plane per fed token
+    greedy: torch.Tensor,  # [B] bool
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    seeds: torch.Tensor,  # [B] int
+    positions: torch.Tensor,  # [B, S] int: position of the token plane j draws
+) -> torch.Tensor:
+    """The verify window's TARGET tokens ``[B, S]`` (JAX
+    ``sample_targets_per_row``): plane ``j`` of row ``b`` is the row's own
+    ``sample_token_per_row`` draw at ``positions[b, j]``, the same call a
+    plain window makes for that position, so a seeded verify stream equals
+    the plain stream by construction."""
+    B, S, V = logits.shape
+    flat = sample_token_per_row(
+        logits.reshape(B * S, V), greedy.repeat_interleave(S), temperature.repeat_interleave(S),
+        top_p.repeat_interleave(S), seeds.repeat_interleave(S), positions.reshape(B * S),
+    )
+    return flat.reshape(B, S)
+
+
+def accept_drafts(
+    drafts: torch.Tensor,  # [B, K] proposed continuations
+    targets: torch.Tensor,  # [B, K + 1] the model's own token per plane
+    n_drafts: torch.Tensor,  # [B] real drafts per row (<= K)
+):
+    """Per-row longest-prefix acceptance (JAX ``accept_drafts``): row ``b``
+    accepts drafts while they equal its targets (and stay within its own
+    ``n_drafts``), then emits the target at the first mismatch (the
+    correction, or on full acceptance the bonus target of the last plane).
+    Returns ``(m [B], emitted [B, K + 1])``: planes ``0..m`` are the row's
+    emitted tokens, the planes past ``m`` junk the host never reads. No
+    branch and no host sync."""
+    B, K = drafts.shape
+    j = torch.arange(K, device=drafts.device)[None, :]
+    ok = (drafts == targets[:, :K]) & (j < n_drafts[:, None])
+    m = torch.cumprod(ok.to(torch.int64), dim=1).sum(dim=1)  # [B] in [0, n_drafts]
+    jj = torch.arange(K + 1, device=drafts.device)[None, :]
+    ext = torch.cat([drafts, torch.zeros((B, 1), dtype=drafts.dtype, device=drafts.device)], dim=1)
+    corr = torch.gather(targets, 1, m[:, None])  # [B, 1]
+    return m, torch.where(jj == m[:, None], corr.to(ext.dtype), ext)

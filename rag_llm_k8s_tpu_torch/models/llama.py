@@ -5,7 +5,11 @@
   scan carry; here the forward mutates the tensors it is handed). Prompts
   are left-padded, so every row appends at the same index and the valid keys
   of row ``b`` are the window ``[kv_start[b], kv_len[b])``.
-- Or, for the continuous engine, the PAGED arena ``[L, N, kv_heads, bs,
+- The dense continuous engine keeps that cache (one row per request) and
+  decodes with ``row_frontier=True``: ``write_index`` is a ``[B]`` device
+  tensor and row ``b`` writes its token at its own slot
+  (``write_row_frontier``).
+- Or, for the paged continuous engine, the PAGED arena ``[L, N, kv_heads, bs,
   hd]`` (``make_kv_arena``) with ``block_tables [B, MB]``: rows are
   right-padded, ``write_index`` is a per-row ``[B]`` frontier, and token
   ``t`` of row ``b`` is written at logical position ``write_index[b] + t``,
@@ -145,6 +149,26 @@ def write_paged(
     if cache.quantized:
         cache.k_scale[layer][phys, :, off] = ks
         cache.v_scale[layer][phys, :, off] = vs
+
+
+def write_row_frontier(
+    cache: KVCache, layer: int, k: torch.Tensor, v: torch.Tensor, write_index: torch.Tensor,
+) -> None:
+    """The row-frontier write over the dense cache (JAX ``row_frontier``):
+    row ``b``'s one fresh token ``k, v [B, 1, K, hd]`` (and its scales under
+    int8) lands at slot ``write_index[b]`` of its own row, in place. The
+    index is a ``[B]`` device tensor and is never read on the host, so the
+    write needs no host sync (what capturing the decode step in a CUDA graph
+    needs). (JAX writes a masked full plane because an XLA scatter copies
+    the cache; the result is the same.)"""
+    rows = torch.arange(k.shape[0], device=k.device)
+    wi = write_index.to(torch.int64)
+    kw, vw, ks, vs = _cache_values(cache, k, v)
+    cache.k[layer][rows, :, wi] = kw[:, 0]
+    cache.v[layer][rows, :, wi] = vw[:, 0]
+    if cache.quantized:
+        cache.k_scale[layer][rows, :, wi] = ks[:, 0]
+        cache.v_scale[layer][rows, :, wi] = vs[:, 0]
 
 
 def head_logits(
@@ -302,6 +326,7 @@ class Attention(nn.Module):
         self, x: torch.Tensor, cache: KVCache, layer: int, kv_start: torch.Tensor,
         kv_len: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         write_index, chunked: bool, block_tables: Optional[torch.Tensor] = None,
+        row_frontier: bool = False,
     ) -> torch.Tensor:
         c = self.config
         B, S, _ = x.shape
@@ -317,6 +342,16 @@ class Attention(nn.Module):
         if block_tables is not None:
             out = self._attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index,
                                      chunked, block_tables)
+            return self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd))
+        if row_frontier:
+            # continuous decode over the dense cache: each row writes at its
+            # own frontier, then attends over its own [kv_start, kv_len)
+            write_row_frontier(cache, layer, k, v, write_index)
+            if cache.quantized:
+                out = decode_attention_q8(q, cache.k, cache.v, cache.k_scale, cache.v_scale, kv_start, kv_len,
+                                          layer)
+            else:
+                out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
             return self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd))
         T = cache.k.shape[3]
         if write_index < 0 or write_index + S > T:
@@ -397,10 +432,10 @@ class Block(nn.Module):
         self.mlp = MLP(config, dtypes, fused, quantized)
 
     def forward(self, h, cache, layer, kv_start, kv_len, cos, sin, write_index, chunked,
-                block_tables=None):
+                block_tables=None, row_frontier=False):
         h = h + self.attn(
             self.input_norm(h), cache, layer, kv_start, kv_len, cos, sin, write_index, chunked,
-            block_tables,
+            block_tables, row_frontier,
         )
         return h + self.mlp(self.post_attn_norm(h))
 
@@ -411,7 +446,10 @@ class LlamaModel(nn.Module):
 
     - prefill: bucketed ``S``, ``write_index = 0``, ``kv_len = S``;
     - decode: ``S = 1``, ``write_index = t``, ``kv_len = t + 1``;
-    - chunk: ``chunked=True``, ``write_index`` = slot of the first token.
+    - chunk: ``chunked=True``, ``write_index`` = slot of the first token;
+    - row-frontier decode (``row_frontier=True``, the dense continuous
+      engine): ``S = 1`` and ``write_index`` a ``[B]`` tensor, row ``b``
+      writing at its own slot (``write_row_frontier``).
 
     With ``block_tables`` the cache is the paged arena and ``write_index``
     is a ``[B]`` tensor (see the module docstring); ``logit_index [B]``
@@ -450,18 +488,21 @@ class LlamaModel(nn.Module):
         last_logit_only: bool = False,
         block_tables: Optional[torch.Tensor] = None,
         logit_index: Optional[torch.Tensor] = None,
+        row_frontier: bool = False,
     ) -> torch.Tensor:
         c, dt = self.config, self.dtypes
         h = self.embed(tokens).to(dt.compute_dtype)
         if self._inv_freqs is None or self._inv_freqs.device != h.device:
             self._inv_freqs = rope_frequencies(c, h.device)
         cos, sin = rope_cos_sin(positions, self._inv_freqs)
-        wi = write_index if block_tables is not None else int(write_index)
+        if row_frontier and (tokens.shape[1] != 1 or block_tables is not None):
+            raise ValueError("row_frontier=True is the dense cache's one-token decode")
+        wi = write_index if block_tables is not None or row_frontier else int(write_index)
         if block_tables is None:
             # the cache kernels take int32 windows: convert once, not per layer
             kv_start, kv_len = kv_start.to(torch.int32), kv_len.to(torch.int32)
         for i, blk in enumerate(self.layers):
-            h = blk(h, cache, i, kv_start, kv_len, cos, sin, wi, chunked, block_tables)
+            h = blk(h, cache, i, kv_start, kv_len, cos, sin, wi, chunked, block_tables, row_frontier)
         h = self.final_norm(h)
         if logit_index is not None:
             # each row's own last real position (right-padded prompts)

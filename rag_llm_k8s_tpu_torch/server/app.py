@@ -225,8 +225,10 @@ class RagService:
         if isinstance(scheduler, ContinuousScheduler):
             scheduler.breaker = self.breaker  # resets feed readiness
             # a dry pool sheds would-be-queued requests with 429 pool_exhausted
+            # (the dense cache has no pool)
             pool = scheduler.engine.kv_pool
-            self.admission.saturation_hint = lambda: pool.available() == 0
+            if pool is not None:
+                self.admission.saturation_hint = lambda: pool.available() == 0
         self.lifecycle = LifecycleCoordinator(
             admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
         )
@@ -312,6 +314,7 @@ class RagService:
         for name in ("generate_calls", "prefill_tokens", "decode_tokens", "spec_verify_steps",
                      "spec_emitted_tokens"):
             reg.counter(f"engine_{name}", fn=lambda name=name: self._engine_stat(name))
+        self._init_spec_metrics(reg)
         self._init_prefix_metrics(reg)
         self._m_http = reg.labeled_counter(
             "rag_http_requests_total",
@@ -386,6 +389,48 @@ class RagService:
             wait.labels(stage="retrieve"), wait.labels(stage="embed"),
         )
         self.retrieve_coalescer.join_timeout_counter = join_counter
+
+    def _init_spec_metrics(self, reg) -> None:
+        """The paged verify's families (JAX ``_init_observability``):
+        draft-token outcomes summed over the serving engines, in every mode
+        (zeros while speculation is off), and, where a continuous engine
+        has rows, the acceptance EMA averaged over the active rows of each
+        row bucket (bucketed, never one child per row)."""
+        spec_fam = reg.labeled_counter(
+            "rag_spec_tokens_total",
+            "draft tokens judged by paged verify steps (outcome: accepted "
+            "— emitted exactly as drafted; rejected — replaced by the "
+            "correction target)",
+        )
+        spec_fam.labels_callback(lambda: self._engine_stat("spec_accepted_tokens"), outcome="accepted")
+        spec_fam.labels_callback(
+            lambda: self._engine_stat("spec_drafted_tokens") - self._engine_stat("spec_accepted_tokens"),
+            outcome="rejected",
+        )
+        sched_eng = getattr(self.scheduler, "engine", None)
+        if int(getattr(sched_eng, "B", 0) or 0) <= 0:
+            # a labeled family with no children would show in the JSON
+            # snapshot and not in the text exposition
+            return
+        spec_rows = reg.labeled_gauge(
+            "rag_spec_acceptance_rate",
+            "decayed draft-acceptance rate (accepted/offered EMA) "
+            "averaged over the ACTIVE slots in each row bucket (row: "
+            "row_lt_8 | row_lt_64 | row_ge_64; 0 while the bucket has "
+            "no active rows or no evidence) — the adaptive-K "
+            "controller's input: rows below "
+            "TPU_RAG_SPEC_PAGED_MIN_ACCEPT degrade to K=1",
+        )
+
+        def bucket_mean(lo: int, hi: int, e=sched_eng) -> float:
+            # the engine replaces slots whole, so a scrape-thread read sees
+            # a consistent slot; a stale EMA is gauge-grade
+            vals = [float(s.spec_ema or 0.0) for s in e.slots[lo:hi] if s.active]
+            return sum(vals) / len(vals) if vals else 0.0
+
+        for name, lo, hi in (("row_lt_8", 0, 8), ("row_lt_64", 8, 64), ("row_ge_64", 64, 1 << 30)):
+            if lo < int(sched_eng.B):
+                spec_rows.labels_callback(lambda lo=lo, hi=hi: bucket_mean(lo, hi), row=name)
 
     def _init_prefix_metrics(self, reg) -> None:
         """The prefix cache's and tiering's families (JAX
@@ -465,11 +510,11 @@ class RagService:
 
     def _pool_tier_occupancy(self) -> Dict[str, int]:
         """The paged pool's blocks by holder (JAX ``tier_occupancy``; empty
-        without a continuous scheduler). The port's pool holds no prefix
+        without a paged continuous scheduler). The port's pool holds no prefix
         registrations until ROADMAP.md Queue 1 item 8, so hot and warm read
         0, as a JAX pool with none, and every block in use is a row's."""
         sched = self.scheduler
-        if not isinstance(sched, ContinuousScheduler):
+        if not isinstance(sched, ContinuousScheduler) or sched.engine.kv_pool is None:
             return {}
         return {"hot": 0, "warm": 0, "rows": sched.engine.kv_pool.blocks_in_use()}
 
@@ -510,16 +555,23 @@ class RagService:
         return self._memoized("chunk_reuse_counters")
 
     def _pool_retier(self) -> None:
-        """Cache -> pool tier mirror (``PrefixCache.on_retier``): the JAX
-        service re-tags the paged pool's prefix registrations on the
-        scheduler thread. The port's schedulers hold no registrations and no
-        ``run_on_engine`` until ROADMAP.md Queue 1 items 7-8, so there is
-        nothing to mirror yet."""
+        """Cache -> pool tier mirror (``PrefixCache.on_retier``, JAX
+        ``_pool_retier``): a task on the continuous scheduler's thread
+        re-tags the pool's prefix registrations. The port's pool holds no
+        registrations until ROADMAP.md Queue 1 item 8, so the task finds no
+        ``retier_registrations`` and changes nothing; the coalescing
+        scheduler takes no engine tasks."""
         sched = self.scheduler
         if not hasattr(sched, "run_on_engine"):
             return
         chain_tier = self.engine.prefix_cache.chain_tier
-        sched.run_on_engine(lambda e: getattr(e, "retier_registrations", lambda _f: None)(chain_tier))
+
+        def _retier_task(e):
+            retier = getattr(e, "retier_registrations", None)
+            if retier is not None:
+                retier(chain_tier)
+
+        sched.run_on_engine(_retier_task)
 
     def _engines(self) -> Dict[int, object]:
         """The serving engines, deduplicated (the one-shot engine is also the

@@ -272,6 +272,7 @@ PORTED_ENV = {
     "TPU_RAG_KV_BLOCK_SIZE": "32", "TPU_RAG_KV_POOL_BLOCKS": "100", "TPU_RAG_INTERLEAVE_PREFILL": "1",
     "TPU_RAG_PREFILL_CHUNK_TOKENS": "32", "TPU_RAG_WINDOW_TOKEN_BUDGET": "48", "TPU_RAG_DO_SAMPLE": "0",
     "TPU_RAG_SPECULATIVE": "off", "TPU_RAG_SYNC_STEPS": "4", "TPU_RAG_FUSED": "0",
+    "TPU_RAG_SPEC_PAGED": "1", "TPU_RAG_SPEC_PAGED_TOKENS": "5", "TPU_RAG_SPEC_PAGED_MIN_ACCEPT": "0.4",
     "TPU_RAG_DEBUG": "1", "TPU_RAG_FLIGHT_EVENTS": "1024",
     "TPU_RAG_PREFIX_CACHE": "1", "TPU_RAG_PREFIX_HBM_MB": "64", "TPU_RAG_PREFIX_REUSE": "chunk",
     "TPU_RAG_PREFIX_BOUNDARY_TOKENS": "4", "TPU_RAG_PREFIX_CHUNK_HOT_MIN": "0.5",
@@ -296,10 +297,8 @@ def _shared(port_cfg, jax_cfg):
 @pytest.mark.parametrize("key", [None] + sorted(PORTED_ENV))
 def test_from_env_matches_the_jax_config_on_every_shared_field(key):
     env = dict(PORTED_ENV) if key is None else {key: PORTED_ENV[key]}
-    if key in ("TPU_RAG_INTERLEAVE_PREFILL", "TPU_RAG_BATCHING"):
-        # the cross-field rule both packages apply; and continuous batching
-        # over the dense cache is not ported (ROADMAP.md Queue 1 item 7)
-        env["TPU_RAG_KV_PAGED"] = "1"
+    if key == "TPU_RAG_INTERLEAVE_PREFILL":
+        env["TPU_RAG_KV_PAGED"] = "1"  # the cross-field rule both packages apply
     for section, fields in _shared(AppConfig.from_env(env), JAppConfig.from_env(env)).items():
         for name, (got, want) in fields.items():
             assert got == want, (section, name)
@@ -325,14 +324,45 @@ def test_from_env_validation_messages_match(env):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"TPU_RAG_MESH": "tp=2"}, "item 10"), ({"TPU_RAG_SPEC_PAGED": "1"}, "item 7"),
+    ({"TPU_RAG_MESH": "tp=2"}, "item 10"),
     ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"), ({"TPU_RAG_POOL_ROLE": "prefill"}, "item 8"),
-    ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"), ({"TPU_RAG_BATCHING": "continuous"}, "item 7"),
-    ({"TPU_RAG_BATCHING": "continuous", "TPU_RAG_KV_PAGED": "0"}, "item 7"),
+    ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"),
 ])
 def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         AppConfig.from_env(env)
+
+
+# the keys of the paged speculative verify and the dense continuous cache
+# (ROADMAP.md Queue 1 item 7), alone and in the pairs that used to be
+# refused: good values parse to JAX's fields, bad ones raise JAX's message
+ITEM7_GOOD = [
+    {"TPU_RAG_SPEC_PAGED": "1"}, {"TPU_RAG_SPEC_PAGED": "0"},
+    {"TPU_RAG_SPEC_PAGED": "1", "TPU_RAG_SPEC_PAGED_TOKENS": "3", "TPU_RAG_SPEC_PAGED_MIN_ACCEPT": "0"},
+    {"TPU_RAG_BATCHING": "continuous"}, {"TPU_RAG_BATCHING": "continuous", "TPU_RAG_KV_PAGED": "0"},
+    {"TPU_RAG_BATCHING": "continuous", "TPU_RAG_KV_PAGED": "1", "TPU_RAG_SPEC_PAGED": "1"},
+]
+ITEM7_BAD = [
+    {"TPU_RAG_SPEC_PAGED": "yes"}, {"TPU_RAG_SPEC_PAGED_TOKENS": "0"}, {"TPU_RAG_SPEC_PAGED_TOKENS": "many"},
+    {"TPU_RAG_SPEC_PAGED_MIN_ACCEPT": "-0.1"}, {"TPU_RAG_SPEC_PAGED_MIN_ACCEPT": "1.01"},
+]
+
+
+@pytest.mark.parametrize("env", ITEM7_GOOD + ITEM7_BAD)
+def test_the_item_7_keys_parse_as_jax_parses_them(env, caplog):
+    try:
+        want = JAppConfig.from_env(env)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            AppConfig.from_env(env)
+        assert str(got.value) == str(e)
+        return
+    assert env not in ITEM7_BAD
+    got = AppConfig.from_env(env)
+    for section, fields in _shared(got, want).items():
+        for name, (g, w) in fields.items():
+            assert g == w, (section, name)
+    assert "ignoring" not in caplog.text  # keys from_env reads
 
 
 # the prefix-cache and tiering keys (ROADMAP.md Queue 1 item 6): good values

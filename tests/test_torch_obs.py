@@ -63,7 +63,6 @@ SIDES = {"jax": (jmetrics, jtracing), "port": (tmetrics, ttracing)}
 # the JAX service's families whose sources the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them (exposition names)
 WAITING = {
-    "7": ("rag_spec_tokens_total", "rag_spec_acceptance_rate"),
     "8": ("rag_lookahead_*",),
     "9c": ("rag_incident_bundles_total", "rag_quality_*", "rag_goodput_*", "rag_cost_*", "rag_tenant_*",
            "rag_slo_*", "rag_device_hbm_bytes_*", "rag_prefix_cache_device_bytes"),
@@ -452,6 +451,32 @@ def test_the_port_serves_the_jax_families_less_the_waiting_table(scripted, mode)
             "rag_compile_seconds_total"} <= tnames
     if mode == "continuous":
         assert {"rag_kv_pool_blocks_in_use", "rag_continuous_step_seconds"} <= tnames
+
+
+def test_the_paged_verify_s_counts_match_jax():
+    """Both services with ``spec_paged`` on (``TPU_RAG_SPEC_PAGED=1``,
+    K = 4): the same requests give the same draft-token outcomes
+    (``rag_spec_tokens_total``), verify windows and emitted tokens, and the
+    per-row-bucket acceptance gauge is served on both."""
+    pair = pairs_mod._make_pair("continuous", continuous=dict(spec_paged=True, spec_paged_tokens=4))
+    try:
+        for q in ("alpha beta gamma alpha beta", "zeta zeta zeta zeta", "gamma"):  # the second drafts
+            texts = {side: _post(side, client, "/generate", {"prompt": q}).get_json()["generated_text"]
+                     for side, (_, client) in pair.items()}
+            assert texts["port"] == texts["jax"], q
+        sc = _scrapes(pair)
+        (jf, js), (tf, ts) = sc["jax"], sc["port"]
+        names = ("rag_spec_tokens_total", "tpu_rag_engine_spec_verify_steps", "tpu_rag_engine_spec_emitted_tokens")
+        got = {k: v for k, v in ts.items() if k[0] in names}
+        assert got == {k: v for k, v in js.items() if k[0] in names}
+        assert got[("tpu_rag_engine_spec_verify_steps", "")] > 0
+        assert sum(v for k, v in got.items() if k[0] == "rag_spec_tokens_total") > 0, "nothing was drafted"
+        assert tf["rag_spec_acceptance_rate"] == jf["rag_spec_acceptance_rate"]
+        assert {k for k in ts if k[0] == "rag_spec_acceptance_rate"} == {
+            k for k in js if k[0] == "rag_spec_acceptance_rate"}
+    finally:
+        for svc, _ in pair.values():
+            svc.shutdown()
 
 
 @pytest.mark.parametrize("mode", ["coalesce", "continuous"])

@@ -609,10 +609,12 @@ class ByteTokenizer:
         return bytes((i - 3) % 256 for i in ids if i >= 3).decode("utf-8", "replace")
 
 
-def _make_pair(mode, resilience=None):
+def _make_pair(mode, resilience=None, continuous=None):
     """The JAX service and the port's on the same weights, one document
     store each, ``batching=mode`` (None: no scheduler); returns ``{"jax":
-    (svc, client), "port": ...}``. ``resilience``: ResilienceConfig fields."""
+    (svc, client), "port": ...}``. ``resilience``: ResilienceConfig fields;
+    ``continuous``: EngineConfig fields of both continuous engines."""
+    cont = dict(kv_paged=True, **(continuous or {}))
     jl, je = JLlamaConfig.tiny(VOCAB), JEncoderConfig.tiny(VOCAB)
     lc, ec = LlamaConfig.tiny(VOCAB), EncoderConfig.tiny(VOCAB)
     lparams = init_llama_params(jax.random.PRNGKey(0), jl, JFP32)
@@ -628,7 +630,7 @@ def _make_pair(mode, resilience=None):
     if mode == "continuous":
         jsched = jcontinuous.ContinuousScheduler(
             jcontinuous.ContinuousEngine(jl, lparams, sampling=JSampling(**greedy), dtypes=JFP32,
-                                         engine_config=JEngineConfig(**HTTP_ENGINE, kv_paged=True,
+                                         engine_config=JEngineConfig(**HTTP_ENGINE, **cont,
                                                                      attn_impl="xla")),
             retry_backoff_s=0.0)
     elif mode == "coalesce":
@@ -646,7 +648,7 @@ def _make_pair(mode, resilience=None):
                      resilience=ResilienceConfig(**res))
     if mode == "continuous":
         tsched = tapp.build_scheduler(
-            teng, dataclasses.replace(teng.engine_config, batching="continuous", kv_paged=True), tcfg.resilience)
+            teng, dataclasses.replace(teng.engine_config, batching="continuous", **cont), tcfg.resilience)
     elif mode == "coalesce":
         tsched = BatchScheduler(teng, max_wait_ms=30.0)
     else:
