@@ -3,7 +3,7 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(mesh, pool roles, SLOs, goodput, shadow audits, tenants, the incident
+(mesh, lookahead, SLOs, goodput, shadow audits, tenants, the incident
 spool) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
@@ -297,6 +297,18 @@ class EngineConfig:
     # tokens per mixed window, decode lanes first; 0 = max_batch_size +
     # prefill_chunk_tokens
     window_token_budget: int = 0
+    # disaggregated pool role: which half of the serving work this engine's
+    # pool runs. "unified" (default) is the single-pool scheduler. "prefill"
+    # runs admission only and hands each request's pool blocks to a
+    # decode-role engine once its first token is sampled (the same [L, N, K,
+    # bs, hd] arena layout on both sides, so the hand-off is one gather and
+    # one scatter of the owned blocks: ContinuousEngine.export_request /
+    # import_request). "decode" takes migrated requests and runs decode
+    # windows; its own admission path stays available as the fallback when a
+    # migration dies mid-flight (the scheduler re-prefills prompt + emitted
+    # there). Roles other than "unified" require kv_paged=True
+    # (validate_pool_role). Env: TPU_RAG_POOL_ROLE.
+    pool_role: str = "unified"  # "unified" | "prefill" | "decode"
     # speculative decoding in the paged continuous engine: each window may
     # run ONE verify forward instead of decode_sync_steps plain steps. The
     # host drafts up to spec_paged_tokens tokens per row by prompt lookup
@@ -355,6 +367,23 @@ class EngineConfig:
                 "auto (max_batch_size + prefill_chunk_tokens)"
             )
 
+    def validate_pool_role(self) -> None:
+        """Cross-field rules for disaggregated pool roles (the JAX package's,
+        with its messages), checked by ``AppConfig.from_env`` and at
+        continuous-engine construction."""
+        if self.pool_role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"pool_role={self.pool_role!r}: expected 'unified', "
+                "'prefill', or 'decode' (TPU_RAG_POOL_ROLE)"
+            )
+        if self.pool_role != "unified" and not self.kv_paged:
+            raise ValueError(
+                f"pool_role={self.pool_role!r} requires kv_paged=True — "
+                "the prefill→decode hand-off moves POOL BLOCKS between "
+                "same-layout arenas; set TPU_RAG_KV_PAGED=1 or run "
+                "TPU_RAG_POOL_ROLE=unified"
+            )
+
 
 SYSTEM_MESSAGE = (
     "You are a helpful assistant. Answer the user's question based ONLY on the "
@@ -401,10 +430,13 @@ class ResilienceConfig:
 
 @dataclass(frozen=True)
 class FlightConfig:
-    """The flight recorder's ring and the read-only debug surface: the
+    """The flight recorder (``obs/flight.py``): its ring, the durable WAL
+    with the warm restart it feeds, and the read-only debug surface; the
     fields of the JAX package's ``FlightConfig`` whose consumers the port
-    has (the spool and the WAL are ``ROADMAP.md`` Queue 1 items 8-9c)."""
+    has (the incident spool is ``ROADMAP.md`` Queue 1 item 9c)."""
 
+    # master switch for the in-process event journal (env TPU_RAG_FLIGHT)
+    enabled: bool = True
     # ring capacity in events, the journal's memory bound
     # (env TPU_RAG_FLIGHT_EVENTS)
     capacity: int = 4096
@@ -413,6 +445,68 @@ class FlightConfig:
     # process started with TPU_RAG_DEBUG=1 or TPU_RAG_FAULTS set (the faults
     # endpoint additionally requires TPU_RAG_FAULTS itself) (env TPU_RAG_DEBUG)
     debug_endpoints: bool = False
+    # record prompt token ids on each arrival event, so a journal resumes
+    # and replays with exact token streams; turn OFF when prompts are
+    # sensitive and lengths are enough (env TPU_RAG_FLIGHT_ARRIVAL_IDS)
+    arrival_ids: bool = True
+    # durable flight WAL (obs/flight.py FlightWAL): tee every journal event
+    # onto disk as fsynced JSON lines, so in-flight work survives SIGKILL and
+    # a warm restart (server/main.py) can resume it. OFF by default: the
+    # fsync per event only buys something where the directory survives the
+    # pod (env TPU_RAG_FLIGHT_WAL / TPU_RAG_FLIGHT_WAL_DIR)
+    wal: bool = False
+    wal_dir: str = "/tmp/tpu_rag_wal"
+    # WAL bounds: events per segment file before rotation, and segment files
+    # kept across incarnations (oldest pruned)
+    # (env TPU_RAG_FLIGHT_WAL_SEGMENT_EVENTS / TPU_RAG_FLIGHT_WAL_SEGMENTS)
+    wal_segment_events: int = 256
+    wal_segments: int = 64
+    # warm restart: scan the previous incarnation's WAL epoch on boot and
+    # resubmit its in-flight requests through the scheduler's fold path
+    # (env TPU_RAG_FLIGHT_WAL_RESTORE); cap on warmth-manifest entries
+    # re-staged into the prefix cache first, 0 skips rehydration
+    # (env TPU_RAG_FLIGHT_WAL_RESTORE_CHUNKS)
+    wal_restore: bool = True
+    wal_restore_chunks: int = 8
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """The prefix-affinity replica router (``server/router.py``), the JAX
+    package's fields, defaults and rules: prefill candidates score
+    ``affinity_weight * chunk_affinity + load_weight * free_capacity``
+    against each replica's bounded hot-chunk registry, with session
+    stickiness."""
+
+    # relative weight of chunk affinity in the prefill-candidate score (0
+    # disables affinity) (env TPU_RAG_ROUTER_AFFINITY_WEIGHT)
+    affinity_weight: float = 1.0
+    # relative weight of free capacity (free rows and blocks), the
+    # counterweight that keeps one hot replica from taking the whole fleet
+    # (env TPU_RAG_ROUTER_LOAD_WEIGHT)
+    load_weight: float = 0.5
+    # per-replica hot-chunk registry bound, LRU past it
+    # (env TPU_RAG_ROUTER_HOT_CHUNKS)
+    hot_chunks: int = 512
+    # a session re-routes to its previous replica within this window
+    # (env TPU_RAG_ROUTER_SESSION_TTL_S)
+    session_ttl_s: float = 600.0
+
+    def validate(self) -> None:
+        if self.affinity_weight < 0 or self.load_weight < 0:
+            raise ValueError(
+                f"RouterConfig weights must be >= 0 (affinity_weight="
+                f"{self.affinity_weight}, load_weight={self.load_weight})"
+            )
+        if self.hot_chunks < 1:
+            raise ValueError(
+                f"RouterConfig.hot_chunks={self.hot_chunks}: expected >= 1"
+            )
+        if self.session_ttl_s <= 0:
+            raise ValueError(
+                f"RouterConfig.session_ttl_s={self.session_ttl_s}: "
+                "expected > 0"
+            )
 
 
 @dataclass(frozen=True)
@@ -441,10 +535,7 @@ def _mesh_on(spec: str) -> bool:
 # value, and the ROADMAP.md item that ports it
 UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "TPU_RAG_MESH": (_mesh_on, "Queue 1 item 10 (tensor and sequence parallelism; the port serves one card)"),
-    "TPU_RAG_LOOKAHEAD": (lambda v: v == "1", "Queue 1 item 8 (lookahead, router, lifecycle)"),
-    "TPU_RAG_POOL_ROLE": (lambda v: v != "unified", "Queue 1 item 8 (lookahead, router, lifecycle)"),
-    "TPU_RAG_FLIGHT_WAL": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
-    "TPU_RAG_FLIGHT_WAL_RESTORE": (lambda v: v == "1", "Queue 1 items 8-9 (the WAL and warm restart)"),
+    "TPU_RAG_LOOKAHEAD": (lambda v: v == "1", "Queue 1 item 8 (lookahead and the continuous prefix half)"),
 }
 
 # the keys from_env reads
@@ -458,7 +549,11 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_ADMISSION_MAX_CONCURRENCY", "TPU_RAG_ADMISSION_MAX_QUEUE", "TPU_RAG_ADMISSION_RETRY_AFTER_S",
     "TPU_RAG_DEADLINE_MS", "TPU_RAG_BREAKER_RESETS", "TPU_RAG_BREAKER_WINDOW_S", "TPU_RAG_INFLIGHT_RETRIES",
     "TPU_RAG_RETRY_BACKOFF_MS", "TPU_RAG_DRAIN_DEADLINE_S", "TPU_RAG_DRAIN_RETRY_AFTER_S",
-    "TPU_RAG_DEBUG", "TPU_RAG_FLIGHT_EVENTS",
+    "TPU_RAG_DEBUG", "TPU_RAG_FLIGHT_EVENTS", "TPU_RAG_FLIGHT", "TPU_RAG_FLIGHT_ARRIVAL_IDS",
+    "TPU_RAG_FLIGHT_WAL", "TPU_RAG_FLIGHT_WAL_DIR", "TPU_RAG_FLIGHT_WAL_SEGMENT_EVENTS",
+    "TPU_RAG_FLIGHT_WAL_SEGMENTS", "TPU_RAG_FLIGHT_WAL_RESTORE", "TPU_RAG_FLIGHT_WAL_RESTORE_CHUNKS",
+    "TPU_RAG_POOL_ROLE", "TPU_RAG_ROUTER_AFFINITY_WEIGHT", "TPU_RAG_ROUTER_LOAD_WEIGHT",
+    "TPU_RAG_ROUTER_HOT_CHUNKS", "TPU_RAG_ROUTER_SESSION_TTL_S",
     "TPU_RAG_PREFIX_CACHE", "TPU_RAG_PREFIX_HBM_MB", "TPU_RAG_PREFIX_REUSE", "TPU_RAG_PREFIX_BOUNDARY_TOKENS",
     "TPU_RAG_PREFIX_CHUNK_HOT_MIN", "TPU_RAG_PREFIX_CHUNK_POOL_REGS",
     "TPU_RAG_KV_TIERING", "TPU_RAG_KV_TIERING_WARM_BELOW", "TPU_RAG_KV_TIERING_COLD_BELOW",
@@ -476,6 +571,23 @@ TIERING_KEYS = (
     ("TPU_RAG_KV_TIERING_HALF_LIFE_S", "half_life_s", float),
     ("TPU_RAG_KV_TIERING_HOST_MB", "host_spill_mb", int),
     ("TPU_RAG_KV_TIERING_INTERVAL_S", "retier_interval_s", float),
+)
+
+# (key, field, minimum, type) of FlightConfig's WAL bounds, in the JAX
+# from_env's order
+WAL_KEYS = (
+    ("TPU_RAG_FLIGHT_WAL_SEGMENT_EVENTS", "wal_segment_events", 1),
+    ("TPU_RAG_FLIGHT_WAL_SEGMENTS", "wal_segments", 2),
+    ("TPU_RAG_FLIGHT_WAL_RESTORE_CHUNKS", "wal_restore_chunks", 0),
+)
+
+# (key, field, type) of RouterConfig; its rules run once the env is applied
+# (RouterConfig.validate)
+ROUTER_KEYS = (
+    ("TPU_RAG_ROUTER_AFFINITY_WEIGHT", "affinity_weight", float),
+    ("TPU_RAG_ROUTER_LOAD_WEIGHT", "load_weight", float),
+    ("TPU_RAG_ROUTER_HOT_CHUNKS", "hot_chunks", int),
+    ("TPU_RAG_ROUTER_SESSION_TTL_S", "session_ttl_s", float),
 )
 
 # (key, field, minimum, type) of ResilienceConfig, in the JAX from_env's order
@@ -522,6 +634,7 @@ class AppConfig:
     server: ServerConfig = field(default_factory=ServerConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     flight: FlightConfig = field(default_factory=FlightConfig)
+    router: RouterConfig = field(default_factory=RouterConfig)
     system_message: str = SYSTEM_MESSAGE
 
     @classmethod
@@ -630,7 +743,13 @@ class AppConfig:
                 tiering = rep(tiering, **{name: cast(env[key])})
         tiering.validate()  # cross-field rules once, with the env applied
         engine = rep(engine, prefix_cache=pc, kv_tiering=tiering)
+        if "TPU_RAG_POOL_ROLE" in env:
+            role = env["TPU_RAG_POOL_ROLE"]
+            if role not in ("unified", "prefill", "decode"):
+                raise ValueError(f"TPU_RAG_POOL_ROLE={role!r}: expected 'unified', 'prefill', or 'decode'")
+            engine = rep(engine, pool_role=role)
         engine.validate_interleave()  # cross-field rules, with the env applied
+        engine.validate_pool_role()
         resilience = cfg.resilience
         for key, name, minimum, cast in RESILIENCE_KEYS:
             if key in env:
@@ -639,9 +758,25 @@ class AppConfig:
                     raise ValueError(f"{key}={v}: expected >= {minimum}")
                 resilience = rep(resilience, **{name: v})
         flight = cfg.flight
-        if (v := _flag(env, "TPU_RAG_DEBUG")) is not None:
-            flight = rep(flight, debug_endpoints=v)
+        for key, name in (("TPU_RAG_FLIGHT", "enabled"), ("TPU_RAG_DEBUG", "debug_endpoints"),
+                          ("TPU_RAG_FLIGHT_ARRIVAL_IDS", "arrival_ids")):
+            if (v := _flag(env, key)) is not None:
+                flight = rep(flight, **{name: v})
         if (v := _int(env, "TPU_RAG_FLIGHT_EVENTS", 1)) is not None:
             flight = rep(flight, capacity=v)
-        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience, flight=flight)
+        for key, name in (("TPU_RAG_FLIGHT_WAL", "wal"), ("TPU_RAG_FLIGHT_WAL_RESTORE", "wal_restore")):
+            if (v := _flag(env, key)) is not None:
+                flight = rep(flight, **{name: v})
+        if "TPU_RAG_FLIGHT_WAL_DIR" in env:
+            flight = rep(flight, wal_dir=env["TPU_RAG_FLIGHT_WAL_DIR"])
+        for key, name, minimum in WAL_KEYS:
+            if (v := _int(env, key, minimum)) is not None:
+                flight = rep(flight, **{name: v})
+        router = cfg.router
+        for key, name, cast in ROUTER_KEYS:
+            if key in env:
+                router = rep(router, **{name: cast(env[key])})
+        router.validate()
+        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience, flight=flight,
+                   router=router)
 

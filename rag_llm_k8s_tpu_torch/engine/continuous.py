@@ -84,9 +84,31 @@ read from host state only (0 dense), preemptions, resets, resubmission
 outcomes and deadline expiries. The speculation counters are
 ``ContinuousStats.spec_*``.
 
+Durable journal and warm restart: while a flight WAL is attached
+(``flight.wal_enabled()``), every window journals each live row's new
+tokens as one ``token_emit`` event (``_journal_emitted``), so a request's
+``token_emit`` events rebuild its emitted stream after the process dies;
+``ContinuousScheduler.submit(resume_emitted=...)`` folds such WAL-proven
+tokens back in (the preemption resume's fold), so the resumed stream is
+the uninterrupted one.
+
+Pool roles (``EngineConfig.pool_role``, paged only): a ``"prefill"``
+engine's scheduler exports each request once it is admitted
+(``ContinuousEngine.export_request``: the row's blocks gathered out of the
+arena, payload and int8 scale planes, its frontier, last token and
+sampling state, then the row released) and returns the packet in
+``info["migrate_packet"]``; a ``"decode"`` engine's scheduler lands it
+(``submit_migrated``, ``import_request``: fresh blocks, the planes
+scattered in, the row's state set), so the next draw at the frontier is
+the one the prefill engine would have made, and finishes the stream. A
+failed export keeps the request decoding where it is; a failed import
+(the ``migrate`` fault site) resets the decode engine, which re-prefills
+prompt plus emitted tokens. ``server/router.py`` pairs the two.
+
 Out of this port for now (``ROADMAP.md`` Queue 1 item 8): prefix
-registrations in the pool (``admit_prefixed``), tiering of pool blocks, and
-migration between pool roles.
+registrations in the pool (``admit_prefixed``, the continuous half of the
+prefix cache, which only lookahead's prestage reaches) and tiering of pool
+blocks.
 """
 
 from __future__ import annotations
@@ -147,6 +169,11 @@ class _Slot:
     # EMA that sets its draft length (None: no evidence yet)
     history: List[int] = field(default_factory=list)
     spec_ema: Optional[float] = None
+    # the prompt's token count (the admission bucket a migration reports)
+    prompt_len: int = 0
+    # flight-WAL watermark: how many of ``tokens`` are journaled as
+    # ``token_emit`` (``_journal_emitted`` journals only the delta past it)
+    wal_mark: int = 0
 
 
 @dataclass
@@ -191,6 +218,11 @@ class ContinuousEngine:
         ec = engine_config
         ec.validate_quant()
         self.paged = bool(ec.kv_paged)
+        # "prefill" engines admit and export, "decode" engines import and
+        # decode; role is policy, not capability (a failed export decodes
+        # locally)
+        ec.validate_pool_role()
+        self.pool_role = ec.pool_role
         self.device = resolve_device(device)
         self.config, self.sampling, self.engine_config, self.dtypes = config, sampling, ec, dtypes
         self.pad_id = pad_id
@@ -361,6 +393,8 @@ class ContinuousEngine:
         self._top_p = torch.ones(B, dtype=torch.float32, device=dev)
         self._zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         self._row_greedy = [True] * B  # host mirror: skip the draw when all rows are greedy
+        # host mirror of each row's (seed, sampling): what a migration packet carries
+        self._row_sampling: List[Tuple[int, SamplingConfig]] = [(0, self.sampling)] * B
         self.slots = [_Slot() for _ in range(B)]
         if self.paged:
             self._tables_host = np.zeros((B, self.MB), np.int32)
@@ -411,6 +445,7 @@ class ContinuousEngine:
         self._temp[row] = 1.0 if greedy else float(sampling.temperature)
         self._top_p[row] = float(sampling.top_p)
         self._row_greedy[row] = greedy
+        self._row_sampling[row] = (seed, sampling)
 
     def _sample(self, logits: torch.Tensor, positions: torch.Tensor, rows=None) -> torch.Tensor:
         """Per-row draws at ``positions`` for all rows, or for ``rows``."""
@@ -742,7 +777,7 @@ class ContinuousEngine:
             self.slots[row] = _Slot(
                 request_id=rid, tokens=[tok0], remaining=max_new_c - 1, active=True,
                 kv_ub=len(p), admit_seq=admit_seq,
-                history=(list(p) + [tok0]) if self.spec_on else [],
+                history=(list(p) + [tok0]) if self.spec_on else [], prompt_len=len(p),
             )
         self.stats.decode_tokens += 1 if tok0 not in self.config.eos_token_ids else 0
         if results is not None:
@@ -851,6 +886,7 @@ class ContinuousEngine:
                 done.append((slot.request_id, slot.tokens))
                 retire.append(i)
         self._retire(retire)
+        self._journal_emitted()
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
         return done
 
@@ -958,6 +994,7 @@ class ContinuousEngine:
                                   rec["max_new"], rec["bucket"], admit_seq=rec["admit_seq"])
             if out is not None:
                 done.append((rid, out))
+        self._journal_emitted()
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
         return done
 
@@ -1099,8 +1136,138 @@ class ContinuousEngine:
         flight.emit("spec_verify", drafted=drafted_total, accepted=accepted_total,
                     rejected=drafted_total - accepted_total, emitted=emitted_total)
         self._retire(retire)
+        self._journal_emitted()
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
         return done
+
+    def _journal_emitted(self) -> None:
+        """The flight-WAL watermark pass, after every window (JAX
+        ``_journal_emitted``): each live row's tokens past its watermark as
+        one ``token_emit`` event, so a request's ``token_emit`` events in seq
+        order rebuild its emitted stream, the state a warm restart resumes
+        from. A no-op without a WAL. Tokens after the last journaled window
+        are recomputed on resume."""
+        if not flight.wal_enabled():
+            return
+        for slot in self.slots:
+            if slot.active and len(slot.tokens) > slot.wal_mark:
+                flight.emit("token_emit", slot.request_id, toks=slot.tokens[slot.wal_mark:])
+                slot.wal_mark = len(slot.tokens)
+
+    # ------------------------------------------------------------------
+    # prefill -> decode migration (pool roles)
+    # ------------------------------------------------------------------
+    def _gather_planes(self, ids: List[int]) -> Tuple[torch.Tensor, ...]:
+        """The arena's planes (payload, and int8 scales) at blocks ``ids``,
+        copied into new tensors ``[L, len(ids), ...]``."""
+        idx = self._h2d(np.asarray(ids, np.int64))
+        return tuple(a.index_select(1, idx) for a in self._cache_planes(self.arena))
+
+    def _scatter_planes(self, ids: List[int], planes: Sequence[torch.Tensor]) -> None:
+        """Write ``planes`` into the arena's blocks ``ids``, in place."""
+        idx = self._h2d(np.asarray(ids, np.int64))
+        for dst, src in zip(self._cache_planes(self.arena), planes):
+            dst.index_copy_(1, idx, src.to(device=dst.device, dtype=dst.dtype))
+
+    @torch.inference_mode()
+    def export_request(self, request_id: int) -> Optional[dict]:
+        """Take a just-admitted request off this engine as a migration
+        packet (JAX ``export_request``): its blocks' planes gathered into new
+        tensors, its frontier, tokens, budget and sampling state (the seed
+        and the per-row sampling its keyed draw reads), then the row
+        released, so after an export this engine holds nothing of the
+        request. None for a request that is unknown, finished or still
+        prefilling in chunks (the scheduler then decodes it here). Nothing
+        is released before the gather returns, so a failed gather leaves
+        the engine intact. ``nb_pad`` (the admission bucket's block count)
+        is kept for parity with the JAX packet; nothing pads to it here."""
+        if not self.paged or request_id in self._chunk_admissions:
+            return None
+        row = next((i for i, s in enumerate(self.slots) if s.active and s.request_id == request_id), None)
+        if row is None:
+            return None
+        slot = self.slots[row]
+        ids = list(self._slot_blocks[row])
+        t0 = time.perf_counter()
+        planes = self._gather_planes(ids)
+        seed, samp = self._row_sampling[row]
+        packet = {
+            "request_id": request_id,
+            "planes": planes,
+            "n_blocks": len(ids),
+            "nb_pad": policy.bucket_len(max(slot.prompt_len, 1), self.buckets) // self.block_size,
+            "kv_len": slot.kv_ub,
+            "tokens": list(slot.tokens),
+            "remaining": slot.remaining,
+            "prompt_len": slot.prompt_len,
+            "seed": seed,
+            "sampling": samp,
+            "history": list(slot.history) if self.spec_on else [],
+        }
+        self._deactivate([row])
+        self._release_row(row)
+        self.slots[row] = _Slot()
+        flight.emit("migrate_begin", request_id, blocks=len(ids), kv_len=packet["kv_len"],
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
+        return packet
+
+    @torch.inference_mode()
+    def import_request(self, packet: dict) -> int:
+        """Land a migration packet in a free row (JAX ``import_request``):
+        allocate its blocks first (``PoolExhausted`` propagates before
+        anything is written, and the packet stays valid), then, past the
+        ``migrate`` fault site, scatter the planes in and set the row's
+        frontier, last token, active flag and sampling state, so its next
+        draw at ``kv_len`` is the one the exporting engine would have made.
+        A failure there resets this engine and raises ``EngineStateLost``
+        (the scheduler re-prefills prompt plus emitted tokens). With
+        ``spec_paged`` on, the row's draft corpus is the packet's history,
+        or its prompt and tokens when the exporter kept none. Returns the
+        row."""
+        if not self.paged:
+            raise ValueError("import_request requires kv_paged=True")
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("import_request without a free row")
+        mine = self._cache_planes(self.arena)
+        planes = packet["planes"]
+        if len(planes) != len(mine) or any(
+                p.shape[0] != a.shape[0] or p.shape[2:] != a.shape[2:] or p.shape[1] != packet["n_blocks"]
+                for p, a in zip(planes, mine)):
+            raise ValueError(
+                f"migration packet planes {[tuple(p.shape) for p in planes]} do not fit this engine's arena "
+                f"{[tuple(a.shape) for a in mine]}"
+            )
+        rid = packet["request_id"]
+        ids = self.kv_pool.alloc(packet["n_blocks"])  # PoolExhausted: backpressure
+        row = free[0]
+        t0 = time.perf_counter()
+        self._assign_row_blocks(row, ids)
+        tokens = list(packet["tokens"])
+        try:
+            # fault site "migrate": a fault while the packet lands leaves the
+            # arena and the row state unknown, so the engine resets
+            faults.maybe_fail("migrate")
+            self._scatter_planes(ids, planes)
+            self._set_row_sampling(row, packet["seed"], packet["sampling"])
+            self._kv_len[row] = int(packet["kv_len"])
+            self._last_tok[row] = int(tokens[-1])
+            self._active[row] = True
+        except Exception as e:  # noqa: BLE001 — every row's state is suspect
+            self.reset()
+            raise EngineStateLost("migrate import failed; engine state reset") from e
+        history = []
+        if self.spec_on:
+            history = list(packet["history"]) or list(packet.get("prompt", ())) + tokens
+        self._admit_seq += 1
+        self.slots[row] = _Slot(
+            request_id=rid, tokens=tokens, remaining=int(packet["remaining"]), active=True,
+            kv_ub=int(packet["kv_len"]), admit_seq=self._admit_seq, history=history,
+            prompt_len=int(packet["prompt_len"]),
+        )
+        flight.emit("migrate_done", rid, slot=row, blocks=len(ids), kv_len=int(packet["kv_len"]),
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
+        return row
 
 
 class ContinuousScheduler:
@@ -1123,6 +1290,12 @@ class ContinuousScheduler:
       with stage ``queue`` before any prefill; one that expires in flight is
       evicted within one window (stage ``decode``); a caller whose own wait
       runs out raises stage ``generate``.
+
+    - **pool roles**: on a ``"prefill"`` engine an admitted request leaves
+      as a migration packet (``info["migrate_packet"]``; a failed export
+      decodes it here); ``submit_migrated`` lands a packet on a
+      ``"decode"`` engine with admission's backpressure, and a failed
+      import re-prefills prompt plus emitted tokens here.
 
     Nothing retries on another device or another kernel."""
 
@@ -1175,19 +1348,24 @@ class ContinuousScheduler:
         deadline: Optional[Deadline] = None,
         info: Optional[Dict] = None,
         tenant: Optional[str] = None,
+        resume_emitted: Optional[Sequence[int]] = None,
     ) -> List[int]:
         """Generate for one prompt (EOS excluded); ``sampling`` overrides
         the engine's for this request only. ``info`` receives the request's
-        id (the flight journal's key); ``tenant`` (edge-interned) is stamped
-        on its ``arrival`` and ``complete`` events."""
+        id (the flight journal's key) and, on a prefill-role engine, the
+        migration packet (``"migrate_packet"``: the return value is then the
+        tokens so far, and the decode engine's ``submit_migrated`` finishes
+        the stream); ``tenant`` (edge-interned) is stamped on its
+        ``arrival`` and ``complete`` events. ``resume_emitted`` (a warm
+        restart) are tokens a dead incarnation's WAL proved emitted: they
+        fold in as a preemption resume's do, are journaled again in this
+        incarnation, and lead the returned stream."""
         if self._stop.is_set():
             raise RuntimeError("scheduler is shut down")
         max_new = self.engine.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
         if max_new <= 0:
             return []
         rid = next(_REQUEST_IDS)
-        if info is not None:
-            info["request_id"] = rid
         item = _Pending(rid, list(prompt), max_new, seed, sampling, deadline=deadline,
                         retries_left=self.retries, tenant=tenant)
         arr = {"prompt_len": len(item.prompt), "max_new": max_new}
@@ -1200,6 +1378,48 @@ class ContinuousScheduler:
         if flight.arrival_ids():
             arr["ids"] = list(item.prompt)
         flight.emit("arrival", rid, **arr)
+        if resume_emitted:
+            # the arrival recorded the original prompt; the token_emit
+            # journals the folded tokens into this incarnation's WAL, so a
+            # second crash still rebuilds the whole stream from one epoch
+            self._fold_emitted(item, list(resume_emitted))
+            if item.emitted:
+                item.resumed = True
+                flight.emit("token_emit", rid, toks=list(item.emitted))
+            flight.emit("resubmit", rid, outcome="restored", n_emitted=len(item.emitted))
+        return self._enqueue_and_wait(item, timeout, deadline, info)
+
+    def submit_migrated(
+        self,
+        packet: Dict,
+        timeout: Optional[float] = None,
+        deadline: Optional[Deadline] = None,
+        info: Optional[Dict] = None,
+        tenant: Optional[str] = None,
+    ) -> List[int]:
+        """Land a prefill-role engine's migration packet on this scheduler's
+        engine and block until the stream completes (JAX
+        ``submit_migrated``). The request keeps its id, so the journal shows
+        one lifecycle across both engines. Returns the whole stream: the
+        tokens the prefill side emitted and everything decoded here."""
+        if self._stop.is_set():
+            raise RuntimeError("scheduler is shut down")
+        rid = packet["request_id"]
+        item = _Pending(
+            rid,
+            # a reset here re-prefills prompt + emitted from these
+            list(packet.get("prompt", ())),
+            int(packet["remaining"]) + len(packet["tokens"]),
+            packet["seed"], packet["sampling"], deadline=deadline, retries_left=self.retries,
+            tenant=tenant if tenant is not None else packet.get("tenant"), migrate=packet,
+        )
+        item.emitted = list(packet.get("emitted", ()))
+        return self._enqueue_and_wait(item, timeout, deadline, info)
+
+    def _enqueue_and_wait(self, item: "_Pending", timeout: Optional[float], deadline: Optional[Deadline],
+                          info: Optional[Dict]) -> List[int]:
+        if info is not None:
+            info["request_id"] = item.request_id
         with self._lifecycle_lock:
             if self._stop.is_set():
                 raise RuntimeError("scheduler is shut down")
@@ -1218,6 +1438,8 @@ class ContinuousScheduler:
             raise TimeoutError("generation timed out")
         if item.error is not None:
             raise item.error
+        if info is not None and item.migrate is not None:
+            info["migrate_packet"] = item.migrate
         return item.result
 
     def run_on_engine(self, fn) -> bool:
@@ -1289,6 +1511,15 @@ class ContinuousScheduler:
                     # dead work never reaches the device
                     item = self._next_nowait()
                     continue
+                if item.migrate is not None:
+                    # a prefill-role peer's packet lands through its own
+                    # import path (no prefill, no bucketing)
+                    self._admit_migrated(item, waiting)
+                    if self._stop.is_set():
+                        return  # an item still waiting to land stays in held
+                    held.clear()
+                    item = self._next_nowait()
+                    continue
                 state = eng.admission_state(len(item.prompt))
                 if state == "never":
                     item.error = PoolExhausted(eng.blocks_needed(len(item.prompt)),
@@ -1312,6 +1543,11 @@ class ContinuousScheduler:
                         continue
                     if self._expire_queued(nxt):
                         continue
+                    if nxt.migrate is not None:
+                        # packets never batch with prefills: back in the
+                        # queue, and the draining stops here
+                        self._queue.put(nxt)
+                        break
                     batch.append(nxt)
                 held[:] = batch
                 try:
@@ -1350,6 +1586,10 @@ class ContinuousScheduler:
                         eng._m_ttft.observe(time.monotonic() - b.t_submit)
                     if res[1] is not None:
                         self._deliver(b, res[1])
+                    elif eng.pool_role == "prefill":
+                        # the hand-off: the request leaves as a packet, or
+                        # decodes here when the export fails
+                        self._export_or_keep(b, waiting)
                     else:
                         waiting[b.request_id] = b
                 held.clear()
@@ -1401,6 +1641,76 @@ class ContinuousScheduler:
         flight.emit("complete", item.request_id, n_tokens=len(item.result),
                     stream_fnv=flight.stream_hash(item.result), **extra)
         item.done.set()
+
+    def _export_or_keep(self, item: "_Pending", waiting: Dict[int, "_Pending"]) -> None:
+        """Prefill-role hand-off (JAX ``_export_or_keep``): take the
+        admitted request off the engine as a packet and hand it to the
+        submitter (the router forwards it to a decode-role engine). Any
+        failure keeps it decoding here. No ``complete`` fires here: the
+        engine that imports the packet finishes the stream."""
+        packet = None
+        try:
+            packet = self.engine.export_request(item.request_id)
+        except Exception:  # noqa: BLE001 — nothing was released: the engine is intact
+            logger.exception("migration export failed; serving request %d locally", item.request_id)
+        if packet is None:
+            waiting[item.request_id] = item
+            return
+        # what only the scheduler knows: the prompt a decode-side reset
+        # re-prefills from, and tokens emitted before a reset or a preemption
+        # here (the decode side delivers them first)
+        packet["prompt"] = list(item.prompt)
+        packet["emitted"] = list(item.emitted)
+        packet["tenant"] = item.tenant
+        self.engine.discard_spec_seen(item.request_id)
+        item.migrate = packet
+        item.result = item.emitted + list(packet["tokens"])
+        item.done.set()
+
+    def _admit_migrated(self, item: "_Pending", waiting: Dict[int, "_Pending"]) -> None:
+        """Land a packet with admission's backpressure (JAX
+        ``_admit_migrated``): while the engine has no free row or the pool
+        cannot take the packet's blocks, windows run (they retire rows and
+        free blocks) and the import retries. Only a packet the whole pool
+        could never hold fails. A failed import reset the engine: the
+        request re-prefills here as prompt plus the tokens the packet
+        carries, like every request the reset interrupted."""
+        eng = self.engine
+        pkt = item.migrate
+        need = int(pkt["n_blocks"])
+        while not self._stop.is_set():
+            usable = eng.kv_pool.usable_blocks() if eng.paged else 0
+            if need > usable:
+                item.error = PoolExhausted(need, usable)
+                item.done.set()
+                return
+            if self._expire_queued(item):
+                return
+            if (not eng.free_slots() or not eng.kv_pool.can_alloc(need)) and eng.has_active():
+                self._safe_step(waiting)
+                self._evict_expired(waiting)
+                continue
+            try:
+                eng.import_request(pkt)
+            except PoolExhausted as e:
+                if eng.has_active():
+                    self._safe_step(waiting)  # blocks free as rows retire
+                    self._evict_expired(waiting)
+                    continue
+                item.error = e
+                item.done.set()
+                return
+            except EngineStateLost as e:
+                item.migrate = None
+                self._handle_reset(e, waiting, extra=[item], emitted={item.request_id: list(pkt["tokens"])})
+                return
+            except Exception as e:  # noqa: BLE001 — the caller gets the error
+                item.error = e
+                item.done.set()
+                return
+            item.migrate = None  # landed: a later reset resubmits it by its prompt
+            waiting[item.request_id] = item
+            return
 
     def _safe_step(self, waiting: Dict[int, "_Pending"]) -> None:
         """One window that cannot kill the dispatcher: a failure resets the
@@ -1513,3 +1823,4 @@ class _Pending:
     retried: bool = False  # resubmitted after a reset
     resumed: bool = False  # requeued after a preemption
     abandoned: bool = False  # the caller gave up (it counted the expiry)
+    migrate: Optional[Dict] = None  # pool roles: the packet going out or coming in

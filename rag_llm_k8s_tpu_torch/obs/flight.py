@@ -4,21 +4,32 @@
   with :data:`SCHEMA_VERSION`, so a journal from either package reads the
   same. A typo'd event name raises instead of journaling nothing.
 - :class:`FlightRecorder` — a fixed-size ring of monotonic-stamped events:
-  one append under one small lock, no device work, no I/O.
+  one append under one small lock, no device work. With a WAL attached
+  (``configure(wal=...)``) every event is also appended to it.
 - ``timeline(rid)`` — one request's ordered event chain with inter-event
   deltas; events carry the scheduler's request id.
 - :func:`stream_hash` — FNV-1a over a token stream, the identity a
   ``complete`` event records of what the client received.
+- :class:`FlightWAL` — the durable tee: every event lands on disk as one
+  fsynced JSON line in a bounded, segment-rotated journal with one epoch
+  per process incarnation. The ring explains a live process; the WAL a
+  dead one: a warm restart (``server/app.py`` ``restore_from_wal``) scans
+  it (:func:`scan_wal`), finds the requests with an ``arrival`` and no
+  terminal event (``sim/replay.py``) and resumes them. Every other file
+  this module writes goes through :func:`durable_write` (tmp, fsync,
+  rename, directory fsync); :func:`export_journal` and
+  :func:`load_journal` write and read a journal bundle.
 
-Not here yet: the durable WAL tee (``FlightWAL``, ``scan_wal``,
-``durable_write``, ``export_journal``, ``load_journal``) and the incident
-spooler (``ROADMAP.md`` Queue 1 items 8 and 9c).
+Not here yet: the incident spooler (``ROADMAP.md`` Queue 1 item 9c).
 
 The module imports only the standard library.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import threading
 import time
 from typing import Dict, Iterable, List, Optional
@@ -27,12 +38,20 @@ __all__ = [
     "EVENTS",
     "SCHEMA_VERSION",
     "FlightRecorder",
+    "FlightWAL",
     "arrival_ids",
     "configure",
+    "durable_write",
     "emit",
+    "export_journal",
+    "load_journal",
     "recorder",
+    "scan_wal",
     "stream_hash",
+    "wal_enabled",
 ]
+
+logger = logging.getLogger(__name__)
 
 #: Journal schema version (the JAX package's): bumped whenever an event's
 #: attrs change meaning.
@@ -193,6 +212,9 @@ class FlightRecorder:
         self.enabled = bool(enabled)
         # whether ``arrival`` events carry the prompt token ids
         self.arrival_ids = bool(arrival_ids)
+        # the durable tee every emitted event is also appended to (None:
+        # the ring only)
+        self.wal: Optional["FlightWAL"] = None
         self._lock = threading.Lock()
         self._buf: List[Optional[tuple]] = [None] * self.capacity
         self._next = 0  # total events ever emitted (seq of the next event)
@@ -208,24 +230,18 @@ class FlightRecorder:
             seq = self._next
             self._next = seq + 1
             self._buf[seq % self.capacity] = (seq, t, etype, request_id, attrs)
+        wal = self.wal
+        if wal is not None:
+            wal.append(_as_dict(seq, t, etype, request_id, attrs))
 
     def snapshot(self, request_id: Optional[int] = None, etype: Optional[str] = None) -> List[Dict]:
         """The surviving events, oldest first, as JSON-ready dicts."""
         with self._lock:
             live = sorted((e for e in self._buf if e is not None), key=lambda e: e[0])
-        out = []
-        for seq, t, typ, rid, attrs in live:
-            if request_id is not None and rid != request_id:
-                continue
-            if etype is not None and typ != etype:
-                continue
-            d = {"seq": seq, "t": round(t, 6), "type": typ}
-            if rid is not None:
-                d["rid"] = rid
-            if attrs:
-                d.update(attrs)
-            out.append(d)
-        return out
+        return [
+            _as_dict(*e) for e in live
+            if (request_id is None or e[3] == request_id) and (etype is None or e[2] == etype)
+        ]
 
     def timeline(self, request_id: int) -> Dict:
         """One request's ordered event chain with inter-event deltas, times
@@ -255,6 +271,17 @@ class FlightRecorder:
             self._next = 0
 
 
+def _as_dict(seq: int, t: float, etype: str, request_id: Optional[int], attrs: Dict) -> Dict:
+    """One event as the JSON-ready dict a snapshot returns and the WAL
+    stores."""
+    d = {"seq": seq, "t": round(t, 6), "type": etype}
+    if request_id is not None:
+        d["rid"] = request_id
+    if attrs:
+        d.update(attrs)
+    return d
+
+
 # the process recorder: engines are built long before any service exists,
 # and the journal must see every layer's events in one causal order
 _RECORDER = FlightRecorder()
@@ -264,10 +291,15 @@ def recorder() -> FlightRecorder:
     return _RECORDER
 
 
+_UNSET = object()
+
+
 def configure(enabled: Optional[bool] = None, capacity: Optional[int] = None,
-              arrival_ids: Optional[bool] = None) -> FlightRecorder:
+              arrival_ids: Optional[bool] = None, wal=_UNSET) -> FlightRecorder:
     """Apply settings to the process recorder. A capacity change rebuilds
-    the ring (the journal starts fresh); an enabled-only change keeps it."""
+    the ring (the journal starts fresh, the WAL tee stays); an enabled-only
+    change keeps it. ``wal`` attaches (a :class:`FlightWAL`) or detaches
+    (None) the durable tee; omitted, the current tee stays."""
     global _RECORDER
     if capacity is not None and int(capacity) != _RECORDER.capacity:
         old = _RECORDER
@@ -276,10 +308,13 @@ def configure(enabled: Optional[bool] = None, capacity: Optional[int] = None,
             old.enabled if enabled is None else bool(enabled),
             old.arrival_ids if arrival_ids is None else bool(arrival_ids),
         )
+        _RECORDER.wal = old.wal
     elif enabled is not None:
         _RECORDER.enabled = bool(enabled)
     if arrival_ids is not None:
         _RECORDER.arrival_ids = bool(arrival_ids)
+    if wal is not _UNSET:
+        _RECORDER.wal = wal
     return _RECORDER
 
 
@@ -296,3 +331,224 @@ def arrival_ids() -> bool:
     the recorder is disabled)."""
     rec = _RECORDER
     return rec.enabled and rec.arrival_ids
+
+
+def wal_enabled() -> bool:
+    """Whether emitted events reach a durable WAL: the gate of the
+    continuous engine's per-window ``token_emit`` journaling, so that extra
+    emit (and its fsync) costs nothing without a WAL."""
+    rec = _RECORDER
+    return rec.enabled and rec.wal is not None
+
+
+# ---------------------------------------------------------------------------
+# journal export / ingest
+# ---------------------------------------------------------------------------
+
+
+def export_journal(path: str, events: Optional[List[Dict]] = None, meta: Optional[Dict] = None) -> Dict:
+    """Write the process journal (or ``events``) as a JSON bundle
+    ``{"schema_version", "journal", ...meta}`` through :func:`durable_write`;
+    returns the bundle."""
+    bundle: Dict = {
+        "schema_version": SCHEMA_VERSION,
+        "journal": _RECORDER.snapshot() if events is None else list(events),
+    }
+    for k, v in (meta or {}).items():
+        bundle.setdefault(k, v)
+    durable_write(path, bundle)
+    return bundle
+
+
+def load_journal(path: str) -> List[Dict]:
+    """Read a journal written by :func:`export_journal` (or a bare event
+    list) back to its events. A newer schema loads with a warning: the
+    replay parser (``sim/replay.py``) skips event types it does not know."""
+    with open(path) as f:
+        doc = json.load(f)
+    if isinstance(doc, list):
+        return doc
+    ver = doc.get("schema_version")
+    if ver is not None and int(ver) > SCHEMA_VERSION:
+        logger.warning(
+            "journal %s has schema_version %s (this build knows %s); unknown event types will be skipped",
+            path, ver, SCHEMA_VERSION,
+        )
+    journal = doc.get("journal")
+    if not isinstance(journal, list):
+        raise ValueError(f"{path}: no 'journal' event list in bundle")
+    return journal
+
+
+# ---------------------------------------------------------------------------
+# durable writes + the flight WAL
+# ---------------------------------------------------------------------------
+
+
+def _plain(o):
+    """JSON for the array scalars and arrays an event may carry (token ids
+    from a tokenizer's numpy output): their Python values."""
+    if hasattr(o, "tolist"):
+        return o.tolist()
+    raise TypeError(f"Object of type {type(o).__name__} is not JSON serializable")
+
+
+def durable_write(path: str, obj: Dict) -> None:
+    """The crash-consistent JSON write: tmp file, flush, fsync,
+    ``os.replace``, then an fsync of the directory, so a reader sees the old
+    content or the new, never a torn or empty file, even across SIGKILL or
+    power loss."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, separators=(",", ":"), default=_plain)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    # without the directory's fsync the data is durable but its name may not be
+    dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+class FlightWAL:
+    """Bounded, segment-rotated write-ahead journal of flight events, one
+    JSON line per event, fsynced per append, under
+    ``dir/wal_<epoch>_<seg>.jsonl``:
+
+    - **epoch**: one per process incarnation, ``max(existing) + 1`` at
+      construction, so a restart never appends into a dead incarnation's
+      segments and what was in flight when it died stays as it was.
+    - **segments**: a new file every ``segment_events`` appends; the oldest
+      files past ``max_segments`` (across all epochs) are pruned.
+    - **torn tails**: an append killed mid-write leaves a partial last
+      line; :func:`scan_wal` skips it, so a SIGKILL costs at most the event
+      being written.
+
+    An append takes one lock and one fsync: the durability the warm restart
+    rests on. A failed append is logged and counted in ``dropped``; it never
+    raises into the serving path."""
+
+    def __init__(self, dir: str, segment_events: int = 256, max_segments: int = 64):
+        if segment_events < 1:
+            raise ValueError(f"segment_events={segment_events}: expected >= 1")
+        if max_segments < 2:
+            raise ValueError(f"max_segments={max_segments}: expected >= 2")
+        self.dir = dir
+        self.segment_events = int(segment_events)
+        self.max_segments = int(max_segments)
+        os.makedirs(dir, exist_ok=True)
+        existing = _wal_segments(dir)
+        self.epoch = (max(e for e, _, _ in existing) + 1) if existing else 1
+        self._lock = threading.Lock()
+        self._seg = 0
+        self._file = None
+        self._seg_events = 0
+        self.appends = 0
+        self.dropped = 0
+        # seconds spent in fsync, summed (the durability's cost per window)
+        self.fsync_s = 0.0
+
+    def append(self, event: Dict) -> None:
+        """Durably append one event dict (one JSON line and an fsync)."""
+        try:
+            with self._lock:
+                if self._file is None or self._seg_events >= self.segment_events:
+                    self._rotate_locked()
+                self._file.write(json.dumps(event, separators=(",", ":"), default=_plain) + "\n")
+                self._file.flush()
+                t = time.perf_counter()
+                os.fsync(self._file.fileno())
+                self.fsync_s += time.perf_counter() - t
+                self._seg_events += 1
+                self.appends += 1
+        except Exception:  # noqa: BLE001 — a WAL fault must not break the emitting path
+            self.dropped += 1
+            logger.warning("flight WAL append failed (dir=%s)", self.dir, exc_info=True)
+
+    def _rotate_locked(self) -> None:
+        if self._file is not None:
+            try:
+                self._file.close()
+            except OSError:
+                pass
+        self._seg += 1
+        path = os.path.join(self.dir, f"wal_{self.epoch:08d}_{self._seg:06d}.jsonl")
+        # append mode: "a" never truncates evidence
+        self._file = open(path, "a")
+        self._seg_events = 0
+        self._prune_locked()
+
+    def _prune_locked(self) -> None:
+        segs = _wal_segments(self.dir)
+        while len(segs) > self.max_segments:
+            _, _, name = segs.pop(0)  # oldest: names sort by epoch, then segment
+            try:
+                os.remove(os.path.join(self.dir, name))
+            except OSError:
+                pass
+
+    def sync(self) -> None:
+        """Flush and fsync the open segment (the drain's persist step)."""
+        with self._lock:
+            if self._file is not None:
+                try:
+                    self._file.flush()
+                    os.fsync(self._file.fileno())
+                except OSError:
+                    pass
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None:
+                try:
+                    self._file.close()
+                except OSError:
+                    pass
+                self._file = None
+
+
+def _wal_segments(dir: str) -> List[tuple]:
+    """Sorted ``(epoch, seg, filename)`` of every WAL segment in ``dir``;
+    other names are ignored (the directory may be shared)."""
+    try:
+        names = os.listdir(dir)
+    except OSError:
+        return []
+    out = []
+    for n in names:
+        if not (n.startswith("wal_") and n.endswith(".jsonl")):
+            continue
+        parts = n[len("wal_"):-len(".jsonl")].split("_")
+        if len(parts) != 2 or not (parts[0].isdigit() and parts[1].isdigit()):
+            continue
+        out.append((int(parts[0]), int(parts[1]), n))
+    out.sort()
+    return out
+
+
+def scan_wal(dir: str) -> Dict[int, List[Dict]]:
+    """A WAL directory read back to ``{epoch: [events]}``, each epoch's
+    events in seq order. Unparseable lines (the torn tail a SIGKILL leaves)
+    and unreadable segments are skipped: a scan never fails a restart."""
+    epochs: Dict[int, List[Dict]] = {}
+    for epoch, _, name in _wal_segments(dir):
+        try:
+            with open(os.path.join(dir, name)) as f:
+                raw = f.read()
+        except OSError:
+            continue
+        for line in raw.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                ev = json.loads(line)
+            except ValueError:
+                continue  # a torn tail: skip it and keep scanning
+            if isinstance(ev, dict):
+                epochs.setdefault(epoch, []).append(ev)
+    for evs in epochs.values():
+        evs.sort(key=lambda e: e.get("seq", 0))
+    return epochs

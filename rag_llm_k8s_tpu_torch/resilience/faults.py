@@ -27,8 +27,9 @@ Three ways to arm:
 The site catalog (``SITES``) is closed on purpose: a typo'd site name is a
 programming error, not a silently-never-firing fault. The catalog is the
 JAX package's whole; the port's paths traverse ``store_lookup``, ``embed``,
-``insert``, ``decode_step`` and ``generate``, and the other sites sit on
-paths it has not ported yet (``ROADMAP.md`` Queue 1 items 6-8).
+``insert``, ``decode_step``, ``generate``, ``migrate`` and the prefix
+cache's ``kv_swap_in`` and ``chunk_splice``; ``lookahead_retrieve`` sits on
+a path it has not ported yet (``ROADMAP.md`` Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -36,8 +36,10 @@ collaborator is injected (``active_fn``, ``persist_fn``, ``exit_fn``,
 ``incident_hook``, ``clock``/``sleep``) so the whole machine is provable
 in-process without signals, sleeps, or a real exit.
 
-In the port the service passes no ``persist_fn`` yet: the WAL and the
-warmth manifest it would persist are ``ROADMAP.md`` Queue 1 items 6 and 8.
+The service passes ``persist_fn=RagService._persist_for_restart``: it
+fsyncs the flight WAL's tail and writes the prefix cache's warmth manifest
+beside it (``server/app.py``), what ``restore_from_wal`` reads on the next
+boot.
 
 Knobs: ``TPU_RAG_DRAIN_DEADLINE_S`` / ``TPU_RAG_DRAIN_RETRY_AFTER_S``
 (core/config.py::ResilienceConfig) — the deadline must fit inside the

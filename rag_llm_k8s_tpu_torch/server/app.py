@@ -58,6 +58,19 @@ circuit breaker over the continuous engine's resets turns readiness off;
 drain. ``/debug/faults`` arms fault sites only when ``TPU_RAG_FAULTS`` is
 set.
 
+The durable lifecycle, as in the JAX service: with ``TPU_RAG_FLIGHT_WAL=1``
+the service opens a ``FlightWAL`` in ``TPU_RAG_FLIGHT_WAL_DIR`` (ring only
+when the directory cannot be opened) and tees the flight journal into it;
+the drain's persist step (``_persist_for_restart``) fsyncs it and writes
+the prefix cache's warmth manifest beside it; on the next boot
+``restore_from_wal`` re-stages the manifest's chunks and resubmits every
+request the previous incarnation's epoch left in flight, with its
+WAL-proven tokens folded in. Under ``TPU_RAG_POOL_ROLE=prefill`` or
+``decode`` the continuous engine takes that role; the service answers
+``/generate`` as the JAX one does with the same setting (a prefill-role
+engine hands each admitted request off as a packet nobody lands here, so
+the answer is its first token: ``server/router.py`` pairs the roles).
+
 Observability, as in the JAX service (``obs/``): each service owns a
 ``MetricsRegistry`` (``GET /metrics``: Prometheus text 0.0.4, or the JSON
 snapshot under ``Accept: application/json``) that its engines, scheduler,
@@ -211,8 +224,18 @@ class RagService:
         self.metrics = obs_metrics.MetricsRegistry()
         self.traces = tracing.TraceBuffer(128)
         self.started_at = time.monotonic()
-        # the flight journal is process-wide: the service applies its size
-        flight.configure(capacity=config.flight.capacity)
+        # the flight journal is process-wide: the service applies its config
+        # and owns the durable WAL (ring only when its directory cannot be
+        # opened)
+        fl = config.flight
+        self.flight_wal: Optional[flight.FlightWAL] = None
+        if fl.wal:
+            try:
+                self.flight_wal = flight.FlightWAL(fl.wal_dir, segment_events=fl.wal_segment_events,
+                                                   max_segments=fl.wal_segments)
+            except OSError:
+                logger.exception("flight WAL unavailable at %s; running ring-only", fl.wal_dir)
+        flight.configure(enabled=fl.enabled, capacity=fl.capacity, arrival_ids=fl.arrival_ids, wal=self.flight_wal)
         # the resilience layer: the readiness breaker over engine resets,
         # the admission gate in front of both engine modes, the drain
         # coordinator (server/main.py gives it an exit_fn), the tenant interner
@@ -231,6 +254,7 @@ class RagService:
                 self.admission.saturation_hint = lambda: pool.available() == 0
         self.lifecycle = LifecycleCoordinator(
             admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
+            persist_fn=self._persist_for_restart,
         )
         self.tenant_tracker = obs_metrics.TenantTracker(top_k=8)
         # tier moves flow cache -> pool registrations after a retier sweep
@@ -771,6 +795,132 @@ class RagService:
         self.retrieve_coalescer.shutdown()
         if self.scheduler is not None:
             self.scheduler.shutdown()
+        wal = self.flight_wal
+        if wal is not None:
+            if flight.recorder().wal is wal:
+                flight.configure(wal=None)
+            wal.close()
+
+    # -- the durable lifecycle ----------------------------------------------
+    def _persist_for_restart(self) -> None:
+        """The drain's persist step (JAX ``_persist_for_restart``): fsync the
+        WAL's tail and write the warmth manifest beside it, what the next
+        incarnation needs to come back warm. A failed manifest write makes
+        the restart cold; it never blocks the exit."""
+        if self.flight_wal is not None:
+            self.flight_wal.sync()
+        try:
+            self._write_warmth_manifest()
+        except Exception:  # noqa: BLE001 — persist must not stall the exit
+            logger.exception("warmth manifest write failed")
+
+    def _write_warmth_manifest(self) -> Optional[str]:
+        """The prefix cache's hottest ``(key, ids)`` records, written
+        durably (``flight.durable_write``) into the WAL directory; the path,
+        or None with no WAL, no cache or rehydration off."""
+        fl = self.config.flight
+        cache = self.engine.prefix_cache
+        if self.flight_wal is None or fl.wal_restore_chunks <= 0 or cache is None:
+            return None
+        path = os.path.join(fl.wal_dir, "warmth_manifest.json")
+        flight.durable_write(path, {
+            "schema_version": flight.SCHEMA_VERSION, "ts": time.time(),
+            "entries": cache.warmth_manifest(top_n=fl.wal_restore_chunks),
+        })
+        return path
+
+    def _rehydrate_warmth(self, fl) -> int:
+        """Re-prefill the warmth manifest's segments, hottest first, at most
+        ``wal_restore_chunks``, through the prefix cache's own resolve
+        (``prefix_for``: its miss path is its populate path). Returns the
+        segments staged."""
+        cache = self.engine.prefix_cache
+        if fl.wal_restore_chunks <= 0 or cache is None:
+            return 0
+        try:
+            with open(os.path.join(fl.wal_dir, "warmth_manifest.json")) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            return 0  # no manifest: a first boot, or SIGKILL before any drain
+        staged = 0
+        for ent in doc.get("entries", ())[:fl.wal_restore_chunks]:
+            key, ids = ent.get("key"), ent.get("ids")
+            if not key or not ids:
+                continue
+            try:
+                got = cache.prefix_for([(str(key), [int(x) for x in ids])])
+            except Exception:  # noqa: BLE001 — warmth is opportunistic
+                logger.exception("warmth rehydrate failed (key=%s)", key)
+                break
+            if got is not None:
+                staged += 1
+                flight.emit("restore", phase="rehydrate", key=str(key), tokens=len(ids))
+        return staged
+
+    def restore_from_wal(self, wait: bool = False) -> Dict:
+        """The warm restart (JAX ``restore_from_wal``): re-stage the warmth
+        manifest, then resubmit every request the latest dead epoch of the
+        WAL left in flight, with the tokens its ``token_emit`` events prove
+        folded in (``ContinuousScheduler.submit(resume_emitted=...)``), so
+        the stream is the uninterrupted one. Their callers are gone;
+        completing them makes the journal whole and warms the cache for
+        their retries. Records with a synthetic prompt (the recorder kept
+        lengths only) are skipped, and so is every record under a
+        scheduler that cannot fold (``reason="no_scheduler"``). Returns
+        ``{"resumed", "skipped", "rehydrated", "results"}``; ``wait=True``
+        blocks for the resumed completions and keys their streams by the
+        original request id."""
+        fl = self.config.flight
+        summary: Dict = {"resumed": 0, "skipped": 0, "rehydrated": 0, "results": {}}
+        wal = self.flight_wal
+        if wal is None or not fl.wal_restore:
+            return summary
+        summary["rehydrated"] = self._rehydrate_warmth(fl)
+        epochs = flight.scan_wal(fl.wal_dir)
+        dead = [e for e in sorted(epochs) if e < wal.epoch]
+        if not dead:
+            return summary
+        # only the latest dead epoch: anything older and unfinished was
+        # restored into it (and journaled there again) or pruned
+        from rag_llm_k8s_tpu_torch.sim import replay
+
+        orig_epoch = dead[-1]
+        records = replay.extract_inflight(epochs[orig_epoch])["inflight"]
+        sched = self.scheduler
+        if records and not isinstance(sched, ContinuousScheduler):
+            for rec in records:
+                summary["skipped"] += 1
+                flight.emit("restore", phase="skip", orig_rid=rec["rid"], reason="no_scheduler")
+            return summary
+        threads = []
+        lock = threading.Lock()
+        for rec in records:
+            if rec["synthetic_prompt"]:
+                # a resume would continue a filler prompt, not the request
+                summary["skipped"] += 1
+                flight.emit("restore", phase="skip", orig_rid=rec["rid"], reason="synthetic_prompt")
+                continue
+            summary["resumed"] += 1
+            flight.emit("restore", phase="resume", orig_rid=rec["rid"], orig_epoch=orig_epoch,
+                        n_emitted=len(rec["emitted"]))
+
+            def _resume(rec=rec):
+                try:
+                    toks = sched.submit(rec["prompt"], max_new_tokens=rec["max_new"], seed=rec.get("seed"),
+                                        tenant=rec.get("tenant"), resume_emitted=rec["emitted"])
+                except Exception:  # noqa: BLE001 — one lost resume is not a failed boot
+                    logger.exception("WAL resume failed (orig_rid=%s)", rec["rid"])
+                    return
+                with lock:
+                    summary["results"][rec["rid"]] = toks
+
+            th = threading.Thread(target=_resume, daemon=True, name=f"wal-restore-{rec['rid']}")
+            th.start()
+            threads.append(th)
+        if wait:
+            for th in threads:
+                th.join()
+        return summary
 
     @staticmethod
     def _kept_chunks(seg_lens, avail: int):

@@ -18,21 +18,25 @@ Boot sequence (``build_service``, the JAX one's steps on one card):
    continuous scheduler under ``"continuous"``.
 
 ``main()`` then ingests the PDF directory, warms up in a background thread
-(``/healthz`` answers 503 until it is done), arms the fault sites listed in
+(``/healthz`` answers 503 until it is done) and then, with the flight WAL
+on (``TPU_RAG_FLIGHT_WAL=1``), runs the warm restart on the same thread
+(``RagService.restore_from_wal``: the warmth manifest's chunks re-staged,
+the previous incarnation's in-flight requests resumed), arms the fault sites listed in
 ``TPU_RAG_FAULTS`` (after the ingest, so the budget tests the serving path)
 and serves on a threading WSGI server (``server.app.make_server``), one
 thread per request, so concurrent requests coalesce. SIGTERM starts the
 graceful drain (``resilience/lifecycle.py``): new and queued requests get
 503 ``draining``, the ones in flight finish within ``drain_deadline_s``,
-then the process exits with 0. ``TPU_RAG_JSON_LOGS=1`` makes every log line
+the persist step fsyncs the WAL and writes the warmth manifest, then the
+process exits with 0. ``TPU_RAG_JSON_LOGS=1`` makes every log line
 one JSON object carrying the request's trace and span ids
 (``obs/logging.py``), installed before anything logs.
 
 Run: ``python -m rag_llm_k8s_tpu_torch.server.main`` (environment keys:
 ``core.config.AppConfig.from_env``).
 
-Not ported yet (``ROADMAP.md`` Queue 1): the WAL restore of the JAX entry
-point (item 8) and the device mesh (item 10: the port serves one card).
+Not ported yet (``ROADMAP.md`` Queue 1): the device mesh (item 10: the
+port serves one card).
 """
 
 from __future__ import annotations
@@ -165,14 +169,24 @@ def main() -> None:
     if service.store.ntotal == 0:
         logger.warning("No PDF files were processed. The index might be empty.")
 
-    def _warm():
+    def _warm_then_restore():
+        # the restore runs after warmup, so the resumed requests run on a
+        # built service (and this incarnation appends to its own epoch only)
         try:
             service.warmup()
             logger.info("warmup done: ready")
         except Exception:  # noqa: BLE001 — logged; /healthz stays 503
             logger.exception("warmup failed; the service stays unready")
+            return
+        try:
+            summary = service.restore_from_wal()
+            if summary["resumed"] or summary["skipped"] or summary["rehydrated"]:
+                logger.info("WAL restore: resumed=%d skipped=%d rehydrated=%d", summary["resumed"],
+                            summary["skipped"], summary["rehydrated"])
+        except Exception:  # noqa: BLE001 — a failed restore must not kill the boot
+            logger.exception("WAL restore failed; serving cold")
 
-    threading.Thread(target=_warm, daemon=True, name="warmup").start()
+    threading.Thread(target=_warm_then_restore, daemon=True, name="warmup").start()
     arm_faults()
     cfg = service.config.server
     server = make_server(service, cfg.host, cfg.port)

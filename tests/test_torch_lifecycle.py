@@ -5,8 +5,9 @@ an injected clock, sleep and in-flight count, the drain knobs of
 ``AppConfig.from_env``) on both packages' classes, and the HTTP drain
 contract (``POST /drain``, ``/healthz`` and ``?live=1``, the 503 for new
 work, the request in flight answered) of the port's app against the JAX
-test client. The WAL, the warm restart and the incident spool are not
-ported (``ROADMAP.md`` Queue 1 items 8 and 9c)."""
+test client. The WAL and the warm restart are held in
+``tests/test_torch_wal.py``; the incident spool is not ported
+(``ROADMAP.md`` Queue 1 item 9c)."""
 
 import threading
 import time

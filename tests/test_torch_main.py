@@ -279,13 +279,18 @@ PORTED_ENV = {
     "TPU_RAG_PREFIX_CHUNK_POOL_REGS": "4", "TPU_RAG_KV_TIERING": "1", "TPU_RAG_KV_TIERING_WARM_BELOW": "0.5",
     "TPU_RAG_KV_TIERING_COLD_BELOW": "0.125", "TPU_RAG_KV_TIERING_HALF_LIFE_S": "30",
     "TPU_RAG_KV_TIERING_HOST_MB": "16", "TPU_RAG_KV_TIERING_INTERVAL_S": "0.5",
+    "TPU_RAG_POOL_ROLE": "decode", "TPU_RAG_FLIGHT": "0", "TPU_RAG_FLIGHT_ARRIVAL_IDS": "0",
+    "TPU_RAG_FLIGHT_WAL": "1", "TPU_RAG_FLIGHT_WAL_DIR": "/pvc/wal", "TPU_RAG_FLIGHT_WAL_SEGMENT_EVENTS": "128",
+    "TPU_RAG_FLIGHT_WAL_SEGMENTS": "16", "TPU_RAG_FLIGHT_WAL_RESTORE": "0", "TPU_RAG_FLIGHT_WAL_RESTORE_CHUNKS": "3",
+    "TPU_RAG_ROUTER_AFFINITY_WEIGHT": "2.5", "TPU_RAG_ROUTER_LOAD_WEIGHT": "0.25", "TPU_RAG_ROUTER_HOT_CHUNKS": "64",
+    "TPU_RAG_ROUTER_SESSION_TTL_S": "30",
 }
 
 
 def _shared(port_cfg, jax_cfg):
     """Every field the two configs share, section by section."""
     out = {}
-    for section in ("server", "sampling", "engine", "retrieval", "flight"):
+    for section in ("server", "sampling", "engine", "retrieval", "flight", "router"):
         p, j = getattr(port_cfg, section), getattr(jax_cfg, section)
         names = {f.name for f in dataclasses.fields(p)} & {f.name for f in dataclasses.fields(j)}
         # a nested config (the prefix cache's, tiering's) compares field by field
@@ -297,8 +302,8 @@ def _shared(port_cfg, jax_cfg):
 @pytest.mark.parametrize("key", [None] + sorted(PORTED_ENV))
 def test_from_env_matches_the_jax_config_on_every_shared_field(key):
     env = dict(PORTED_ENV) if key is None else {key: PORTED_ENV[key]}
-    if key == "TPU_RAG_INTERLEAVE_PREFILL":
-        env["TPU_RAG_KV_PAGED"] = "1"  # the cross-field rule both packages apply
+    if key in ("TPU_RAG_INTERLEAVE_PREFILL", "TPU_RAG_POOL_ROLE"):
+        env["TPU_RAG_KV_PAGED"] = "1"  # the cross-field rules both packages apply
     for section, fields in _shared(AppConfig.from_env(env), JAppConfig.from_env(env)).items():
         for name, (got, want) in fields.items():
             assert got == want, (section, name)
@@ -325,12 +330,53 @@ def test_from_env_validation_messages_match(env):
 
 @pytest.mark.parametrize("env,item", [
     ({"TPU_RAG_MESH": "tp=2"}, "item 10"),
-    ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"), ({"TPU_RAG_POOL_ROLE": "prefill"}, "item 8"),
-    ({"TPU_RAG_FLIGHT_WAL": "1"}, "items 8-9"),
+    ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"),
 ])
 def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         AppConfig.from_env(env)
+
+
+# the pool-role, flight WAL and router keys (ROADMAP.md Queue 1 item 8):
+# good values parse to JAX's fields, bad ones raise JAX's message
+LIFECYCLE_GOOD = [
+    {"TPU_RAG_POOL_ROLE": "prefill", "TPU_RAG_KV_PAGED": "1"},
+    {"TPU_RAG_POOL_ROLE": "decode", "TPU_RAG_KV_PAGED": "1", "TPU_RAG_SPEC_PAGED": "1"},
+    {"TPU_RAG_POOL_ROLE": "unified"},
+    {"TPU_RAG_FLIGHT_WAL": "1", "TPU_RAG_FLIGHT_WAL_RESTORE": "1", "TPU_RAG_FLIGHT_WAL_DIR": "/pvc/wal"},
+    {"TPU_RAG_FLIGHT_WAL_SEGMENT_EVENTS": "1", "TPU_RAG_FLIGHT_WAL_SEGMENTS": "2",
+     "TPU_RAG_FLIGHT_WAL_RESTORE_CHUNKS": "0"},
+    {"TPU_RAG_FLIGHT": "0", "TPU_RAG_FLIGHT_ARRIVAL_IDS": "0"},
+    {"TPU_RAG_ROUTER_AFFINITY_WEIGHT": "0", "TPU_RAG_ROUTER_LOAD_WEIGHT": "3", "TPU_RAG_ROUTER_HOT_CHUNKS": "1",
+     "TPU_RAG_ROUTER_SESSION_TTL_S": "0.5"},
+]
+LIFECYCLE_BAD = [
+    {"TPU_RAG_POOL_ROLE": "both"}, {"TPU_RAG_POOL_ROLE": "prefill"}, {"TPU_RAG_POOL_ROLE": "decode",
+                                                                     "TPU_RAG_KV_PAGED": "0"},
+    {"TPU_RAG_FLIGHT_WAL": "yes"}, {"TPU_RAG_FLIGHT_WAL_RESTORE": "on"}, {"TPU_RAG_FLIGHT": "2"},
+    {"TPU_RAG_FLIGHT_ARRIVAL_IDS": "true"},
+    {"TPU_RAG_FLIGHT_WAL_SEGMENT_EVENTS": "0"}, {"TPU_RAG_FLIGHT_WAL_SEGMENTS": "1"},
+    {"TPU_RAG_FLIGHT_WAL_RESTORE_CHUNKS": "-1"}, {"TPU_RAG_FLIGHT_WAL_SEGMENTS": "many"},
+    {"TPU_RAG_ROUTER_AFFINITY_WEIGHT": "-1"}, {"TPU_RAG_ROUTER_LOAD_WEIGHT": "-0.5"},
+    {"TPU_RAG_ROUTER_HOT_CHUNKS": "0"}, {"TPU_RAG_ROUTER_SESSION_TTL_S": "0"}, {"TPU_RAG_ROUTER_HOT_CHUNKS": "x"},
+]
+
+
+@pytest.mark.parametrize("env", LIFECYCLE_GOOD + LIFECYCLE_BAD)
+def test_the_pool_role_wal_and_router_keys_parse_as_jax_parses_them(env, caplog):
+    try:
+        want = JAppConfig.from_env(env)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            AppConfig.from_env(env)
+        assert str(got.value) == str(e)
+        return
+    assert env not in LIFECYCLE_BAD
+    got = AppConfig.from_env(env)
+    for section, fields in _shared(got, want).items():
+        for name, (g, w) in fields.items():
+            assert g == w, (section, name)
+    assert "ignoring" not in caplog.text  # keys from_env reads
 
 
 # the keys of the paged speculative verify and the dense continuous cache
