@@ -2970,12 +2970,13 @@ PREFIX_NOISE_FACTOR = 4.0
 PREFIX_K0_TOL = 2.0**-6
 
 
-def _prefix_kernel_case(tag, S, wi, kl_i, T, q8, g, L=4):
+def _prefix_kernel_case(tag, S, wi, kl_i, T, q8, g, L=4, ks_i=0, phase="prefix_cache", time_q8=False):
     """One dense-cache kernel at a prefixed-path shape: ``S`` queries (1:
-    decode) written at ``wi`` over the key window ``[0, kl_i)`` of a
+    decode) written at ``wi`` over the key window ``[ks_i, kl_i)`` of a
     ``T``-slot cache, NaN outside the window (NaN scales and random payload
     under int8) for the kernel, zeros for the plain version; planted
-    faults must be rejected. Returns the row of numbers (times for bf16)."""
+    faults must be rejected. Returns the row of numbers (times for bf16,
+    and for int8 with ``time_q8``)."""
     import torch
 
     from rag_llm_k8s_tpu_torch.ops import attention as A
@@ -2983,13 +2984,13 @@ def _prefix_kernel_case(tag, S, wi, kl_i, T, q8, g, L=4):
     dev = torch.device("cuda")
     K, H, hd = 8, 32, 128
     layer = L // 2 + 1
-    kc, vc, kz, vz = _cache_pair(L, 1, K, T, hd, 0, kl_i, g)
+    kc, vc, kz, vz = _cache_pair(L, 1, K, T, hd, ks_i, kl_i, g)
     if q8:
         vc, vz = _scale_rows(g, vc, vz)
     q = torch.randn(1, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
-    ks = torch.zeros(1, device=dev, dtype=torch.int32)
+    ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
     kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
-    _sharpen_edges(q, (kc, kz), layer, wi, 0)
+    _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
     if q8:
         (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
         (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
@@ -3018,21 +3019,28 @@ def _prefix_kernel_case(tag, S, wi, kl_i, T, q8, g, L=4):
         faults = {"write_index+1": plain(layer, wi=wi + 1), "write_index-1": plain(layer, wi=wi - 1)}
     fault_rms = _attn_faults(f"{name} {tag}", got, faults)
     del got, faults
-    row = dict(shape=f"S={S} write_index={wi} window=[0,{kl_i}) T={T} H=32 K=8 hd=128", max_abs_err=err,
+    row = dict(shape=f"S={S} write_index={wi} window=[{ks_i},{kl_i}) T={T} H=32 K=8 hd=128", max_abs_err=err,
                rel_rms=rms)
-    line = f"phase prefix_cache (a) {name} {tag} {row['shape']}: {_attn_line(err, rms, fault_rms)}"
-    if not q8:
-        # the bf16 rows are timed: each call reads another layer
+    line = f"phase {phase} (a) {name} {tag} {row['shape']}: {_attn_line(err, rms, fault_rms)}"
+    if not q8 or time_q8:
+        # timed: each call reads another layer; SDPA (bf16 only) over the
+        # zero-filled twin
         pos = torch.arange(T, device=dev)
         qpos = wi + torch.arange(S, device=dev)
-        mask = (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None]) if S > 1 else (pos < kl_i)[None, :]
-        qt, m4 = q.transpose(1, 2), mask[None, None]
+        inside = (pos >= ks_i) & (pos < kl_i)
+        mask = inside[None, :] & (pos[None, :] <= qpos[:, None]) if S > 1 else inside[None, :]
         ms = time_ms(lambda i: kern(i % L), iters=32 if S <= 128 else 8)
         plain_ms = time_ms(lambda i: plain(i % L), iters=3, warmup=1)
-        lib_ms = time_ms(lambda i: sdpa(qt, kz[i % L], vz[i % L], m4), iters=5)
-        b_ms, b_by = bound(2 * K * kl_i * hd * 2 + 2 * q.numel() * 2, 4.0 * H * hd * mask.sum().item(), BF16_FLOPS)
+        key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
+        b_ms, b_by = bound((kl_i - ks_i) * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * mask.sum().item(),
+                           BF16_FLOPS)
+        lib_ms, lib = None, "none (no single PyTorch call reads an int8 cache)"
+        if not q8:
+            qt, m4 = q.transpose(1, 2), mask[None, None]
+            lib_ms = time_ms(lambda i: sdpa(qt, kz[i % L], vz[i % L], m4), iters=5)
+            lib = f"{lib_ms:.4f}"
         row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        line += f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
+        line += f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by})"
     print(line, flush=True)
     return name, row
 
@@ -3527,12 +3535,13 @@ def _follow_prompts(engine):
     return [[engine.config.bos_token_id] + [int(x) for x in rng.integers(3, 259, n - 1)] for n in FOLLOW_LENS]
 
 
-def _record_plain(cont, prompts, max_new):
+def _record_plain(cont, prompts, max_new, admit=None):
     """Greedy streams of ``prompts`` through a plain continuous engine at
     ``decode_sync_steps = 1`` (each admitted alone, then decoded together),
     with the logits of every draw kept on the card: ``(streams, logits)``,
     ``logits[j][i]`` the fp32 ``[V]`` logits that drew token ``i`` of
-    request ``j``."""
+    request ``j``. ``admit(j, prompt)`` replaces the admission (default
+    ``admit_many``), returning ``(row, finished)`` or an exception."""
     row_of, logits, out = {}, [[] for _ in prompts], {}
     real = cont._sample
 
@@ -3551,7 +3560,7 @@ def _record_plain(cont, prompts, max_new):
     try:
         for j, p in enumerate(prompts):
             row_of[cont.free_slots()[0]] = j
-            res = cont.admit_many([(j, p, max_new, None)])[0]
+            res = cont.admit_many([(j, p, max_new, None)])[0] if admit is None else admit(j, p)
             if isinstance(res, BaseException):
                 fail(f"recording a plain stream: admission {j} failed: {res!r}")
             if res[1] is not None:
@@ -4001,6 +4010,592 @@ def phase_engine_tasks(service_bits, n_requests=4, max_new=48):
     svc.shutdown()
     _free(cont)
     del svc, eng
+
+
+# ---------------------------------------------------------------------------
+# retrieval lookahead and the continuous half of the prefix cache
+# ---------------------------------------------------------------------------
+
+LOOKAHEAD_PLEN = 2900  # a RAG prompt's prefix (head and chunks), tokens
+# (case, S, write_index, real lanes) of kernels 9 and 10 on this path: the
+# suffix prefill over the row's table at two suffix buckets, and chunk
+# reuse's boundary window at a chunk's block-aligned offset
+LOOKAHEAD_PAGED = (("suffix C=128", 128, LOOKAHEAD_PLEN, 41), ("suffix C=512", 512, LOOKAHEAD_PLEN, 300),
+                   ("boundary W=16", 16, 1120, 16))
+# (C, suffix tokens) of kernel 4 over the dense admission's T_build cache
+LOOKAHEAD_DENSE = ((128, 41), (512, 300), (2048, 1100))
+# extra pool blocks of the HTTP leg's engines: eight prestaged chains of
+# ~181 blocks beside eight rows, so a burst's group never waits on them
+LOOKAHEAD_SPARE_BLOCKS = 1600
+SESSION_TURNS = {
+    "s1": ["which kernel tiles the shared memory?", "and how does the cache stream tokens?",
+           "what bounds the decode latency then?"],
+    "s2": ["where is the vector index kept?", "what does the warp block share?",
+           "how is the prefill chunk scheduled?"],
+}
+
+
+def _lookahead_paged_case(tag, S, wi, n, q8, g):
+    """Kernel 9 (or 10) at a prefixed admission's shape: B = 1, ``S``
+    lanes at logical ``wi``, ``n`` of them real (kv_len = wi + n; the pad
+    lanes see the same window), over a 4,352-slot row, NaN in every block
+    the row does not own and past its frontier; planted faults must be
+    rejected. bf16 blocks of 16, int8 blocks of 32."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    L, B, H, K, hd, layer = 4, 1, 32, 8, 128, 3
+    bs = 32 if q8 else 16
+    MB = 4352 // bs
+    kv_l = [wi + n]
+    (ka, va), (kz, vz), tables = _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g)
+    q = torch.randn(B, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    wi_t = torch.tensor([wi], dtype=torch.int32, device=dev)
+    _sharpen_paged(q, (ka, kz), layer, tables, [wi], kv_l, [n])
+    name = "paged_chunk_attention_q8" if q8 else "paged_chunk_attention"
+    if q8:
+        (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
+        kern = lambda lay: A.paged_chunk_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, lay, wi_t)  # noqa: E731
+        plain = lambda lay, t=tables, kl=kv_len, w=wi_t: A.paged_chunk_attention_xla_q8(  # noqa: E731
+            q, k8, v8, ksz, vsz, t, kl, lay, w)
+    else:
+        kern = lambda lay: A.paged_chunk_attention(q, ka, va, tables, kv_len, lay, wi_t)  # noqa: E731
+        plain = lambda lay, t=tables, kl=kv_len, w=wi_t: A.paged_chunk_attention_xla(  # noqa: E731
+            q, kz, vz, t, kl, lay, w)
+    got = kern(layer)
+    torch.cuda.synchronize()
+    err, rms = _paged_check(f"{name} lookahead {tag}", got, plain(layer))
+    last = (kv_l[0] - 1) // bs
+    swapped = tables.clone()
+    swapped[0, [1, last]] = swapped[0, [last, 1]]
+    faulty = {"kv_len-1": plain(layer, kl=kv_len - 1), "layer-1": plain(layer - 1),
+              f"table entries 1,{last} swapped": plain(layer, t=swapped),
+              "write_index+1": plain(layer, w=wi_t + 1), "write_index-1": plain(layer, w=wi_t - 1)}
+    fault_rms = _paged_faults(f"{name} lookahead {tag}", got, faulty)
+    del got, faulty
+    ms = time_ms(lambda i: kern(layer - i % 2), iters=32 if S <= 128 else 16)
+    plain_ms = time_ms(lambda i: plain(layer - i % 2), iters=3, warmup=1)
+    pairs = sum(min(wi + t + 1, kv_l[0]) for t in range(S))
+    key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
+    b_ms, b_by = bound(kv_l[0] * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
+    row = dict(case=tag, shape=f"B=1 S={S} H=32 K=8 hd=128 bs={bs} write_index={wi} kv_len={kv_l[0]}",
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
+               library_ms=None)
+    lib = "none (no single PyTorch call reads an int8 arena)"
+    if not q8:
+        # SDPA over a dense copy of the row's blocks (gathered outside the timing)
+        T = MB * bs
+        dense = [a[lay][tables.long()].permute(0, 2, 1, 3, 4).reshape(B, K, T, hd)
+                 for a in (kz, vz) for lay in (layer, layer - 1)]
+        pos = torch.arange(T, device=dev)
+        qpos = wi_t[:, None] + torch.arange(S, device=dev)[None, :]
+        mask = ((pos[None, None, :] < kv_len[:, None, None]) & (pos[None, None, :] <= qpos[:, :, None]))[:, None]
+        qt = q.transpose(1, 2)
+        row["library_ms"] = time_ms(lambda i: sdpa(qt, dense[i % 2], dense[2 + i % 2], mask), iters=8)
+        lib = f"{row['library_ms']:.4f} (SDPA over a dense copy)"
+        del dense
+    print(f"phase lookahead (a) {name} {tag} {row['shape']} "
+          f"{_plan_line(A.chunk_launch_plan(B, S, H, K, MB * bs, _sms()))}: {_attn_line(err, rms, fault_rms)} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return name, row
+
+
+def phase_lookahead_kernels(rows):
+    """(a) of ``phase_lookahead``: kernels 9 and 10 at a prefixed
+    admission's suffix prefill (B = 1, C = 128 and 512 lanes at logical
+    ``plen`` ~ 2,900) and at chunk reuse's 16-token boundary window, and
+    kernel 4 at the dense admission's ``T_build = ceil128(S + P + C)``
+    cache, each against its plain version (NaN outside the window for the
+    kernel) and timed beside its bound and SDPA (bf16)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    for q8 in (False, True):
+        for tag, S, wi, n in LOOKAHEAD_PAGED:
+            name, row = _lookahead_paged_case(tag, S, wi, n, q8, g)
+            rows[name].setdefault("lookahead_shapes", []).append(row)
+            torch.cuda.empty_cache()
+    S_b = 4096  # the continuous engine's largest bucket under the default ladder
+    for C, slen in LOOKAHEAD_DENSE:
+        start = S_b - (LOOKAHEAD_PLEN + slen)
+        T = -(-(S_b + PREFIX_P + C) // 128) * 128
+        name, row = _prefix_kernel_case(f"dense suffix C={C} T_build={T}", C, start + LOOKAHEAD_PLEN, S_b, T,
+                                        False, g, ks_i=start, phase="lookahead")
+        rows[name].setdefault("lookahead_shapes", []).append(dict(case=f"dense suffix C={C}", **row))
+        torch.cuda.empty_cache()
+
+
+def _wait_alive(sched, event, timeout):
+    """``event.wait(timeout)``, cut short when the scheduler's thread has
+    died (a ``fail()`` inside a window, where ``_Follow`` checks its draws)."""
+    t_end = time.monotonic() + timeout
+    while not event.wait(0.5):
+        if not sched._worker.is_alive() or time.monotonic() > t_end:
+            return event.is_set()
+    return True
+
+
+def _run_task(sched, fn, what, timeout=300.0):
+    """``fn(engine)`` as an engine task on the scheduler's thread; waits
+    for it and returns its value."""
+    import threading
+
+    box, done = {}, threading.Event()
+
+    def task(e):
+        try:
+            box["out"] = fn(e)
+        except BaseException as ex:  # a fail() in the task exits the scheduler thread too
+            box["error"] = ex
+            raise
+        finally:
+            done.set()
+
+    if not sched.run_on_engine(task) or not _wait_alive(sched, done, timeout):
+        fail(f"lookahead: the engine task ({what}) did not run")
+    if "error" in box:
+        fail(f"lookahead: the engine task ({what}) failed: {box['error']!r}")
+    return box.get("out")
+
+
+def _lookahead_engine(eng, bs, **kw):
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+
+    ec = dataclasses.replace(eng.engine_config, batching="continuous", kv_paged=True, kv_block_size=bs,
+                             interleave_prefill=False, decode_sync_steps=1, **kw)
+    return ContinuousEngine(eng.config, eng.model, SamplingConfig(do_sample=False), ec, eng.dtypes, eng.device,
+                            eng.pad_id)
+
+
+def _lookahead_admission(svc, eng, q, tag, bs, follow_tokens, need, forbid, dense=False):
+    """(b) of ``phase_lookahead``: one RAG prompt's prefix prestaged into a
+    paged engine's pool (an engine task, as the service's lookahead does
+    it), the scatter's card time against its bound, then ``admit_prefixed``
+    with the question as suffix (an engine task): the shared blocks mapped
+    without a copy (ref count 2), ``prefill_tokens_skipped`` = plen, every
+    draw followed against a cold plain admission of the whole prompt
+    (``_Follow``), the launch counters, and the pool back at its baseline
+    after the release. With ``dense``, the same admission over the dense
+    continuous cache, with its transient peak memory."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousScheduler
+    from rag_llm_k8s_tpu_torch.ops import _build
+
+    (_, segments, b_ids), _ = _segments_of(svc, q)
+    cp = eng.prefix_cache.prefix_for(segments)
+    full = [t for _, x in segments for t in x] + list(b_ids)
+    lim = _noise_limit(eng, full, f"phase lookahead (b) {tag} follow")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _logits_cold(eng, full)  # the prefill the admission skips, at the largest bucket
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    plain = _lookahead_engine(eng, bs)
+    streams, logits = _record_plain(plain, [full], follow_tokens)
+    _free(plain)
+    cont = _lookahead_engine(eng, bs)
+    sched = ContinuousScheduler(cont)
+    # request id 0: _Follow keys a row by its stream's index, and the
+    # scheduler's own ids start at 1
+    rid = 0
+    try:
+        base = cont.kv_pool.blocks_in_use()
+        made, gen = _run_task(sched, lambda e: (e.prestage_prefix(cp), e.prestage_gen(cp.chain_key)), "prestage")
+        if made != "registered":
+            fail(f"lookahead (b) {tag}: prestage_prefix returned {made!r}")
+        shared = list(cont._prefix_blocks[cp.chain_key][0])
+        nb = len(shared)
+        # the scatter alone, into scratch blocks, on the card's clock
+        scratch = cont.kv_pool.alloc(nb)
+        ids = np.zeros(cp.capacity // bs, np.int64)
+        ids[:nb] = scratch
+
+        def scatter(_):
+            with torch.inference_mode():
+                cont._scatter_prefix(cp.planes, ids)
+
+        sc_ms = time_ms(scatter, iters=10)
+        cont.kv_pool.free(scratch)
+        nbytes = sum(p[:, :, :, :nb * bs].numel() * p.element_size() for p in cp.planes)
+        sc_bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        f = _Follow(cont, streams, logits, lim)
+        outs, done = {}, threading.Event()
+        inner = cont.step
+
+        def step():  # the scheduler drives the windows; keep what they finish
+            r = inner()
+            outs.update(dict(r))
+            if rid in outs:
+                done.set()
+            return r
+
+        cont.step = step
+
+        def timed_admit(e, request_id, max_new):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            res = e.admit_prefixed(request_id, b_ids, cp, max_new)
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t_a) * 1e3
+
+        def admit(e):
+            # a first admission with a budget of one (its row retires at
+            # once) takes the shape's first-use costs, then the followed one
+            first_ms = timed_admit(e, rid + 1, 1)[1]
+            row = e.free_slots()[0]
+            f.rows[row] = 0
+            res, admit_ms = timed_admit(e, rid, follow_tokens)
+            if res[1] is not None:
+                outs[rid] = res[1]
+                done.set()
+            return ([e.kv_pool.refcount(b) for b in shared], e._slot_blocks[row][:nb] == shared,
+                    e.stats.prefill_tokens_skipped, (first_ms, admit_ms))
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        refs, mapped, skipped, admit_ms = _run_task(sched, admit, "admit_prefixed")
+        if not _wait_alive(sched, done, 600):
+            fail(f"lookahead (b) {tag}: the prefixed request did not finish")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(_build.LAUNCHES)
+        if outs[rid][:len(streams[0])] != streams[0]:
+            fail(f"lookahead (b) {tag}: the prefixed stream left the plain stream it was fed")
+        if refs != [2] * nb or not mapped or skipped != 2 * cp.length:
+            fail(f"lookahead (b) {tag}: shared blocks not mapped copy-free (refs {sorted(set(refs))}, mapped "
+                 f"{mapped}) or prefill_tokens_skipped {skipped} != 2 x plen {cp.length} (two admissions)")
+        _launch_check(f"{tag} paged prefixed admission", launches, need, forbid)
+        kept = _run_task(sched, lambda e: e.release_prestaged(cp.chain_key, only_unused=True, gen=gen), "only_unused")
+        freed = _run_task(sched, lambda e: e.release_prestaged(cp.chain_key, gen=gen), "release")
+        after = _run_task(sched, lambda e: e.kv_pool.blocks_in_use(), "read the pool")
+        print(f"phase lookahead (b) {tag}: prefix {cp.length} tokens ({[len(x) for _, x in segments]}), suffix "
+              f"{len(b_ids)}, prestaged {nb} blocks of {bs} (gen {gen}); scatter ms={sc_ms:.4f} bound_ms="
+              f"{sc_bound:.4f} (2 x {nbytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); admit_prefixed as an "
+              f"engine task: shared blocks ref count 2, mapped copy-free, prefill_tokens_skipped={skipped} "
+              f"(two admissions), admit_ms first={admit_ms[0]:.2f} then {admit_ms[1]:.2f} (synced) against a cold "
+              f"prefill of the whole prompt at the largest bucket {cold_ms:.2f}; "
+              f"{follow_tokens} tokens wall_s={wall:.2f}; follow {f.line()}; release only_unused={kept} "
+              f"(the admission used it), release={freed}; blocks_in_use {base} -> {after}", flush=True)
+        if kept is not False or freed is not True or after != base:
+            fail(f"lookahead (b) {tag}: the release left the pool at {after} blocks (baseline {base})")
+    finally:
+        sched.shutdown()
+        _free(cont)
+    if not dense:
+        return
+    # the dense continuous cache: the suffix prefilled into a T_build row cache
+    ecd = dataclasses.replace(eng.engine_config, batching="continuous", kv_paged=False, decode_sync_steps=1)
+    from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+
+    dcont = ContinuousEngine(eng.config, eng.model, SamplingConfig(do_sample=False), ecd, eng.dtypes, eng.device,
+                             eng.pad_id)
+    f = _Follow(dcont, streams, logits, lim)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    row = dcont.free_slots()[0]
+    f.rows[row] = 0
+    out = {}
+    res = dcont.admit_prefixed(rid, b_ids, cp, follow_tokens)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m0
+    if res[1] is not None:
+        out[rid] = res[1]
+    while dcont.has_active():
+        out.update(dict(dcont.step()))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if out[rid][:len(streams[0])] != streams[0]:
+        fail(f"lookahead (b) {tag} dense: the prefixed stream left the plain stream it was fed")
+    c = eng.config
+    S = max(dcont.buckets)
+    C = min(b for b in eng.engine_config.prefix_cache.suffix_buckets if b >= len(b_ids))
+    T_build = -(-(S + cp.capacity + C) // 128) * 128
+    slot_b = 2 * c.num_layers * c.num_kv_heads * c.head_dim * torch.finfo(eng.dtypes.compute_dtype).bits // 8
+    print(f"phase lookahead (b) {tag} dense: T_build={T_build} slots ({T_build * slot_b} bytes of build cache) "
+          f"transient peak over the engine's memory {peak} bytes; follow {f.line()}", flush=True)
+    _launch_check(f"{tag} dense prefixed admission", launches, ("chunk_prefill_attention", "decode_attention"),
+                  PAGED_KERNELS)
+    _free(dcont)
+
+
+def _lookahead_chunk_splice(svc, eng, q, follow_tokens, bs=16):
+    """(c) of ``phase_lookahead``: chunk-granular pool splice. One RAG
+    prompt's segments cut to whole blocks, admitted once (its exact spans
+    become per-chunk registrations), then with the chunks in reverse order:
+    the plan assembles, the admission gathers, re-rotates and re-prefills
+    each shifted chunk's boundary window into pool blocks (``chunk_splice``,
+    ``rerotate`` and ``boundary_fixup`` events), and every draw is followed
+    against the same admission through the splice buffer (a planted
+    ``chunk_splice`` fault declines the plan), within the cold-prefill noise
+    limit. A planted ``kv_swap_in`` fault declines a prestage; both faults
+    leak no block."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.obs import flight
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.resilience import faults
+
+    pc = dataclasses.replace(eng.engine_config.prefix_cache, reuse="chunk", chunk_hot_min=0.0)
+    ec = dataclasses.replace(eng.engine_config, prefix_cache=pc)
+    ceng = InferenceEngine(eng.config, eng.model, eng.sampling, ec, eng.dtypes, eng.device)
+    (_, segments, b_ids), _ = _segments_of(svc, q)
+    aligned = [(f"{k}:b{bs}", list(x[:len(x) // bs * bs])) for k, x in segments if len(x) >= bs]
+    order2 = [aligned[0]] + aligned[:0:-1]
+    cp1 = ceng.prefix_cache.prefix_for(aligned)
+    cont = _lookahead_engine(ceng, bs)
+    try:
+        cont.admit_prefixed(0, b_ids, cp1, 1)  # a budget of one: the registrations stay
+        if set(cont._chunk_regs) != {k for k, _ in aligned}:
+            fail(f"lookahead (c): chunk registrations {sorted(cont._chunk_regs)} for spans {[k for k, _ in aligned]}")
+        cp2 = ceng.prefix_cache.prefix_for(order2)
+        counts = ceng.prefix_cache.chunk_reuse_counters()
+        if cont._chunk_splice_plan(cp2) is None:
+            fail(f"lookahead (c): no chunk splice plan for the reversed chunks ({counts})")
+        held = cont.kv_pool.blocks_in_use()
+        faults.arm("chunk_splice", 1)
+        try:
+            ref_streams, ref_logits = _record_plain(cont, [None], follow_tokens,
+                                                    admit=lambda j, p: cont.admit_prefixed(j, b_ids, cp2,
+                                                                                           follow_tokens))
+        finally:
+            faults.clear()
+        cont.release_prestaged(cp2.chain_key)  # the fallback's chain registration: the splice must run next
+        fallback_left = cont.kv_pool.blocks_in_use() - held
+        full2 = [t for _, x in order2 for t in x] + list(b_ids)
+        lim = _noise_limit(ceng, full2, "phase lookahead (c) follow")
+        f = _Follow(cont, ref_streams, ref_logits, lim)
+        seq0 = flight.recorder().events_emitted
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        f.rows[cont.free_slots()[0]] = 0
+        res = cont.admit_prefixed(0, b_ids, cp2, follow_tokens)
+        torch.cuda.synchronize()
+        admit_ms = (time.perf_counter() - t0) * 1e3
+        out = {} if res[1] is None else {0: res[1]}
+        while cont.has_active():
+            out.update(dict(cont.step()))
+        launches = dict(_build.LAUNCHES)
+        if out[0][:len(ref_streams[0])] != ref_streams[0]:
+            fail("lookahead (c): the spliced stream left the splice buffer's stream it was fed")
+        kinds = [e["type"] for e in flight.recorder().snapshot() if e["seq"] >= seq0]
+        fired = {k: kinds.count(k) for k in ("chunk_splice", "rerotate", "boundary_fixup")}
+        if not all(fired.values()):
+            fail(f"lookahead (c): events {fired}")
+        _launch_check("bf16 chunk-splice admission", launches, ("paged_chunk_attention", "paged_decode_attention"),
+                      ("chunk_prefill_attention",))
+        cont.release_prestaged(cp1.chain_key)
+        free0 = cont.kv_pool.available()
+        faults.arm("kv_swap_in", 1)
+        try:
+            swap = cont.prestage_prefix(cp1)
+        finally:
+            faults.clear()
+        swap_leak = free0 - cont.kv_pool.available()
+        for key in list(cont._chunk_regs):
+            cont._drop_chunk_reg(key)
+        cont.retier_registrations(lambda k: "cold")
+        left = cont.kv_pool.blocks_in_use()
+        print(f"phase lookahead (c): spans {[len(x) for _, x in aligned]} reversed after the head; chunk reuse "
+              f"{json.dumps(counts)}; splice admission ms={admit_ms:.1f} events {fired}; follow (against the "
+              f"splice buffer, chunk_splice fault planted) {f.line()}; chunk_splice fault: fallback leaked "
+              f"{fallback_left} blocks; kv_swap_in fault: prestage={swap} leaked {swap_leak}; blocks after the "
+              f"drops {left}", flush=True)
+        if fallback_left or swap is not False or swap_leak or left:
+            fail("lookahead (c): a planted fault or the drops leaked blocks")
+    finally:
+        _free(cont)
+        ceng.prefix_cache.clear()
+
+
+def _held_burst(svc, client, questions):
+    """The questions at once over HTTP, with the scheduler held by an
+    engine task until every request is queued, so each burst admits the
+    same group (a different arrival order would change the windows'
+    shapes and so the bf16 rounding): the bodies and the wall seconds."""
+    import threading
+
+    sched = svc.scheduler
+    gate = threading.Event()
+    sched.run_on_engine(lambda e: gate.wait(120))
+    out = [None] * len(questions)
+
+    def ask(i):
+        r = client.post("/generate", json_body={"prompt": questions[i]})
+        out[i] = (r.status_code, r.get_json())
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(questions))]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        with sched._queue.mutex:
+            queued = sum(1 for it in sched._queue.queue if it is not None and not callable(it))
+        if queued >= len(questions) or not any(th.is_alive() for th in threads):
+            break
+        time.sleep(0.005)
+    gate.set()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.monotonic() - t0
+    for i, (code, body) in enumerate(out):
+        if code != 200 or "Document '" not in body.get("context", ""):
+            fail(f"lookahead (d) burst request {i}: {code} {body}")
+    return [b for _, b in out], wall, queued
+
+
+def _lookahead_http(service_bits, eng):
+    """(d) of ``phase_lookahead``: the service over HTTP with lookahead
+    off and on (the paged continuous scheduler, prefix cache on, the same
+    one-shot engine): alternating held bursts of 8 ``/generate`` whose
+    greedy streams must be byte-identical, the ``lookahead_hit`` share,
+    ``embed_retrieve_ms`` and ``rag_lookahead_launch_to_join_seconds``;
+    then two sessions of three turns with ``session_id``: the speculations
+    prestage (``rag_kv_tier_pool_blocks`` reads them), are superseded and
+    released, and the pool ends at its baseline."""
+    import threading
+
+    from rag_llm_k8s_tpu_torch.core.config import LookaheadConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousScheduler
+    from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
+
+    svc1, _, _, store = service_bits
+    made = {}
+    for on in (False, True):
+        cont = _lookahead_engine(eng, 16, kv_pool_blocks=8 * 272 + LOOKAHEAD_SPARE_BLOCKS)
+        cfg = dataclasses.replace(svc1.config, engine=cont.engine_config, lookahead=LookaheadConfig(enabled=on))
+        svc = RagService(cfg, eng, svc1.llm_tokenizer, svc1.encoder, svc1.encoder_tokenizer, store,
+                         scheduler=ContinuousScheduler(cont))
+        svc.ready = True
+        made[on] = (svc, create_app(svc).test_client())
+    try:
+        texts, lines = {}, []
+        for k, on in enumerate((True, False, True, False)):
+            svc, client = made[on]
+            bodies, wall, queued = _held_burst(svc, client, CONT_QUESTIONS)
+            got = [b["generated_text"] for b in bodies]
+            texts.setdefault("first", got)
+            if got != texts["first"]:
+                diff = [i for i, (a, b) in enumerate(zip(got, texts["first"])) if a != b]
+                fail(f"lookahead (d): burst {k} (lookahead {'on' if on else 'off'}) changed the greedy streams "
+                     f"of requests {diff}")
+            t = [b["timings"] for b in bodies]
+            hits = [x.get("lookahead_hit") for x in t]
+            lines.append(f"burst {k} lookahead={'on' if on else 'off'} queued={queued} wall_s={wall:.2f} "
+                         f"embed_retrieve_ms={[round(x['embed_retrieve_ms'], 1) for x in t]}"
+                         + (f" lookahead_hit={hits} hit_share={sum(h or 0 for h in hits) / len(hits):.3f}"
+                            if on else ""))
+        la = made[True][0].lookahead
+        hist = la._m_join_wait
+        _, h_sum, h_n = hist.snapshot()
+        print(f"phase lookahead (d) bursts of 8, greedy streams byte-identical on and off: {' | '.join(lines)}; "
+              f"rag_lookahead_launch_to_join_seconds count={h_n} mean_s={h_sum / max(h_n, 1):.4f} "
+              f"p50_s={hist.quantile(0.5)}; stats {json.dumps(la.stats())}", flush=True)
+        # two sessions of three turns, the sessions' turns at once
+        svc, client = made[True]
+        cont = svc.scheduler.engine
+        fam = svc.metrics.get_family("rag_kv_tier_pool_blocks")
+        seen, per_turn = 0.0, []
+        before = dict(la.stats())
+        for turn in range(3):
+            outs = {}
+
+            def ask(sid, q):
+                r = client.post("/generate", json_body={"prompt": q, "session_id": sid})
+                outs[sid] = r.status_code
+
+            ths = [threading.Thread(target=ask, args=(sid, qs[turn])) for sid, qs in SESSION_TURNS.items()]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=600)
+            if set(outs.values()) != {200}:
+                fail(f"lookahead (d) session turn {turn}: {outs}")
+            t_end = time.monotonic() + 30
+            hot = 0.0
+            while time.monotonic() < t_end:
+                hot = fam.labels(tier="hot").value
+                if hot > 0:
+                    break
+                time.sleep(0.05)
+            seen = max(seen, hot)
+            per_turn.append(hot)
+        after = la.stats()
+        la.shutdown()  # releases every speculation still staged
+        rows, regs = _run_task(svc.scheduler, lambda e: (e.tier_occupancy()["rows"], len(e._prefix_blocks)),
+                               "read the pool")
+        _run_task(svc.scheduler, lambda e: e.retier_registrations(lambda k: "cold"), "retier to cold")
+        left = _run_task(svc.scheduler, lambda e: e.kv_pool.blocks_in_use(), "read the pool")
+        spec = after["launched"] - before["launched"]
+        print(f"phase lookahead (d) sessions 2 x 3 turns: rag_kv_tier_pool_blocks{{tier=\"hot\"}} after each turn "
+              f"{per_turn}; launched {spec:.0f}, prestaged {after['prestaged'] - before['prestaged']:.0f}, "
+              f"released {after['prestage_released'] - before['prestage_released']:.0f}, waste by reason "
+              f"{json.dumps({r: c.value for r, c in la._m_wasted.items()})}; after shutdown rows={rows} "
+              f"registrations left by claimed futures={regs}; blocks_in_use after retier to cold {left}",
+              flush=True)
+        if seen <= 0 or la._m_wasted["superseded"].value < 1 or after["prestage_released"] <= before[
+                "prestage_released"]:
+            fail("lookahead (d) sessions: no speculation was prestaged, superseded and released")
+        if rows or left:
+            fail(f"lookahead (d) sessions: the pool did not return to its baseline (rows {rows}, left {left})")
+    finally:
+        for svc, _ in made.values():
+            svc.shutdown()
+            _free(svc.scheduler.engine)
+
+
+def phase_lookahead(service_bits):
+    """Retrieval lookahead and the continuous half of the prefix cache on
+    the bf16 8B model (full width and depth): (b) prestage and a sharing
+    ``admit_prefixed``, paged and dense; (c) chunk-granular pool splice;
+    (d) the paged continuous service over HTTP, lookahead off and on, and
+    two sessions. (a) runs with the kernel phases
+    (``phase_lookahead_kernels``), (e) on the int8 model
+    (``phase_lookahead_q8``)."""
+    import torch
+
+    svc, _, eng = _prefix_service(service_bits)
+    try:
+        q = LATENCY_QUESTIONS[2]
+        _lookahead_admission(svc, eng, q, "bf16", 16, FOLLOW_TOKENS, ("paged_chunk_attention", "paged_decode_attention"),
+                             ("chunk_prefill_attention", "paged_chunk_attention_q8"), dense=True)
+        _lookahead_chunk_splice(svc, eng, LATENCY_QUESTIONS[3], FOLLOW_TOKENS)
+        _lookahead_http(service_bits, eng)
+    finally:
+        svc.shutdown()
+    del svc, eng
+    torch.cuda.empty_cache()
+
+
+def phase_lookahead_q8(service_bits):
+    """(e) of ``phase_lookahead``: (b) on the int8 model with int8 KV,
+    blocks of 32 and 48 new tokens; the q8 kernels run, the bf16 cache
+    kernels never launch."""
+    import torch
+
+    svc, _, eng = _prefix_service(service_bits, max_new=48, kv_quant="int8")
+    try:
+        _lookahead_admission(svc, eng, LATENCY_QUESTIONS[4], "int8", 32, 48,
+                             ("paged_chunk_attention_q8", "paged_decode_attention_q8"),
+                             BF16_CACHE_KERNELS + ("chunk_prefill_attention_q8",))
+    finally:
+        svc.shutdown()
+    del svc, eng
+    torch.cuda.empty_cache()
 
 
 def _free_port() -> int:
@@ -5029,7 +5624,44 @@ def timed(fn, *args, **kwargs):
     return out
 
 
-def main() -> int:
+# the names ``--phases`` takes, in the order the bare command runs them; the
+# kernel phases run first, then the bf16 service phases over one model, then
+# the int8 ones over its quantized copy. "lookahead" also runs its kernels
+# with the kernel phases and its int8 leg with the int8 phases.
+KERNEL_PHASES = ("knn", "flash", "decode", "chunk", "paged_decode", "paged_chunk", "decode_q8", "chunk_q8",
+                 "paged_decode_q8", "paged_chunk_q8", "continuous_kernels")
+SERVICE_PHASES = ("model", "service", "query_latency", "observability", "prefix_cache", "continuous_service",
+                  "resilience", "continuous_engine", "continuous_dense", "spec_paged", "engine_tasks",
+                  "plain_decode", "disagg", "lookahead", "warm_restart")
+Q8_PHASES = ("model_q8", "service_q8", "continuous_service_q8", "continuous_engine_q8", "continuous_dense_q8",
+             "spec_paged_q8")
+PHASES = KERNEL_PHASES + ("staged_boot",) + SERVICE_PHASES + Q8_PHASES
+
+
+def _selected(names: str):
+    """The phases ``--phases`` names (all when empty), with what they
+    need: any service phase needs ``service`` (it fills the store), and
+    ``warm_restart`` boots the directory ``staged_boot`` stages."""
+    want = {n.strip() for n in names.split(",") if n.strip()} or set(PHASES)
+    unknown = sorted(want - set(PHASES))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {unknown}; phases: {', '.join(PHASES)}")
+    if want & (set(SERVICE_PHASES) | set(Q8_PHASES)) - {"warm_restart"}:
+        want.add("service")
+    if "warm_restart" in want:
+        want.add("staged_boot")
+    return want
+
+
+def main(argv=None) -> int:
+    import argparse
+    import collections
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch port.")
+    ap.add_argument("--phases", default="", help="comma-separated phase names to run (default: every phase, in "
+                    f"order): {', '.join(PHASES)}")
+    want = _selected(ap.parse_args(argv).phases)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5048,6 +5680,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()}", flush=True)
+    if want != set(PHASES):
+        print(f"phases: {[p for p in PHASES if p in want]}", flush=True)
     t = time.monotonic()
     reports = _build.build()
     for src, log in reports.items():
@@ -5057,18 +5691,12 @@ def main() -> int:
                 print(f"ptxas {src}: {line.strip()}")
     print(f"phase build kernels: {sorted(reports) or 'cached'} s={time.monotonic() - t:.1f}", flush=True)
 
-    rows = {}
-    timed(phase_knn, rows)
-    timed(phase_flash, rows)
-    timed(phase_decode, rows)
-    timed(phase_chunk, rows)
-    timed(phase_paged_decode, rows)
-    timed(phase_paged_chunk, rows)
-    timed(phase_decode_q8, rows)
-    timed(phase_chunk_q8, rows)
-    timed(phase_paged_decode_q8, rows)
-    timed(phase_paged_chunk_q8, rows)
-    timed(phase_continuous_kernels, rows)
+    rows = collections.defaultdict(dict)
+    for ph in KERNEL_PHASES:
+        if ph in want:
+            timed(globals()[f"phase_{ph}"], rows)
+    if "lookahead" in want:
+        timed(phase_lookahead_kernels, rows)
     torch.cuda.empty_cache()
     import atexit
     import shutil
@@ -5079,53 +5707,74 @@ def main() -> int:
     # the first ~32 kernels of its request (PERF.md §7)
     staged = tempfile.mkdtemp(prefix="staged_boot_")
     atexit.register(shutil.rmtree, staged, True)
-    timed(phase_staged_boot, staged)
+    if "staged_boot" in want:
+        timed(phase_staged_boot, staged)
 
-    bits = timed(build_service)
-    timed(phase_model, bits[2].model, bits[2].config)
-    launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
-    fused_stats = timed(phase_query_latency, bits)
-    timed(phase_observability, bits)
-    timed(phase_prefix_cache, bits, rows, fused_stats)
-    cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
-    timed(phase_resilience, bits)
-    timed(phase_continuous_engine, bits)
-    timed(phase_continuous_dense, bits)
-    timed(phase_spec_paged, bits)
-    timed(phase_engine_tasks, bits)
-    timed(phase_plain_decode, bits)
-    timed(phase_disagg, bits)
-    timed(phase_warm_restart, staged)
+    launches, cont_launches, q_launches, q_cont = {}, {}, {}, {}
+    bits = None
+    if "service" in want:
+        bits = timed(build_service)
+        if "model" in want:
+            timed(phase_model, bits[2].model, bits[2].config)
+        launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
+        fused_stats = {"total_ms": {"p50": 0.0, "p95": 0.0}}  # when the latency leg does not run
+        if "query_latency" in want:
+            # 12 solo requests, not 24: the script's time limit (PERF.md §6)
+            fused_stats = timed(phase_query_latency, bits, n_solo=12)
+        if "observability" in want:
+            timed(phase_observability, bits)
+        if "prefix_cache" in want:
+            timed(phase_prefix_cache, bits, rows, fused_stats)
+        if "continuous_service" in want:
+            cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
+        for ph in ("resilience", "continuous_engine", "continuous_dense", "spec_paged", "engine_tasks",
+                   "plain_decode", "disagg", "lookahead"):
+            if ph in want:
+                timed(globals()[f"phase_{ph}"], bits)
+    if "warm_restart" in want:
+        timed(phase_warm_restart, staged)
 
-    # int8 weights and int8 KV: the same 8B model quantized, the same store
-    from rag_llm_k8s_tpu_torch.models.llama import quantize_llama
+    if want & set(Q8_PHASES) or "lookahead" in want:
+        # int8 weights and int8 KV: the same 8B model quantized, the same store
+        from rag_llm_k8s_tpu_torch.models.llama import quantize_llama
 
-    t = time.monotonic()
-    model = bits[2].model
-    qmodel = quantize_llama(model)
-    torch.cuda.synchronize()
-    q_gb = sum(p.numel() * p.element_size() for n, p in qmodel.named_parameters()
-               if n.endswith((".weight", ".scale")) and p.dtype in (torch.int8, torch.float32)) / 1e9
-    print(f"phase quantize llama-3.1-8b: int8 projections and head {q_gb:.2f} GB (embedding and norms shared) "
-          f"device_mem_gb={torch.cuda.memory_allocated() / 1e9:.2f} s={time.monotonic() - t:.1f}", flush=True)
-    timed(phase_model_q8, model, qmodel, bits[2].config, bits[2])
-    qbits = build_q8_service(bits, qmodel)
-    q_launches = timed(phase_service, qbits, tag="int8", ingest=False, need=ONE_SHOT_Q8,
-                       forbid=BF16_CACHE_KERNELS, force_spec=True)
-    q_cont = timed(phase_continuous_service, qbits, tag="int8", block_size=32, need=CONTINUOUS_Q8,
-                   forbid=BF16_CACHE_KERNELS, plain_yardstick=False)
-    timed(phase_continuous_engine, qbits, tag="int8", block_size=32, decode_kernel="paged_decode_attention_q8",
-          forbid=BF16_CACHE_KERNELS)
-    # the new int8 legs cut their budget to 48 tokens (the script's time limit)
-    timed(phase_continuous_dense, qbits, tag="int8", need=("knn_topk", "flash_attention", "decode_attention_q8"),
-          forbid=PAGED_KERNELS + ("decode_attention", "chunk_prefill_attention"), max_new=48,
-          follow_tokens=FOLLOW_TOKENS_Q8)
-    timed(phase_spec_paged, qbits, tag="int8", need=("knn_topk", "flash_attention", "paged_chunk_attention_q8"),
-          forbid=BF16_CACHE_KERNELS + ("decode_attention_q8", "chunk_prefill_attention_q8"), block_size=32,
-          max_new=48, follow_tokens=FOLLOW_TOKENS_Q8)
-    if bits[0].llm_tokenizer.native_calls == 0:
-        fail("the native BPE merge loop never served a request")
-    print(f"native BPE merge loop: {bits[0].llm_tokenizer.native_calls} texts encoded", flush=True)
+        t = time.monotonic()
+        model = bits[2].model
+        qmodel = quantize_llama(model)
+        torch.cuda.synchronize()
+        q_gb = sum(p.numel() * p.element_size() for n, p in qmodel.named_parameters()
+                   if n.endswith((".weight", ".scale")) and p.dtype in (torch.int8, torch.float32)) / 1e9
+        print(f"phase quantize llama-3.1-8b: int8 projections and head {q_gb:.2f} GB (embedding and norms shared) "
+              f"device_mem_gb={torch.cuda.memory_allocated() / 1e9:.2f} s={time.monotonic() - t:.1f}", flush=True)
+        if "model_q8" in want:
+            timed(phase_model_q8, model, qmodel, bits[2].config, bits[2])
+        qbits = build_q8_service(bits, qmodel)
+        if "service_q8" in want:
+            q_launches = timed(phase_service, qbits, tag="int8", ingest=False, need=ONE_SHOT_Q8,
+                               forbid=BF16_CACHE_KERNELS, force_spec=True)
+        if "continuous_service_q8" in want:
+            q_cont = timed(phase_continuous_service, qbits, tag="int8", block_size=32, need=CONTINUOUS_Q8,
+                           forbid=BF16_CACHE_KERNELS, plain_yardstick=False)
+        if "continuous_engine_q8" in want:
+            timed(phase_continuous_engine, qbits, tag="int8", block_size=32,
+                  decode_kernel="paged_decode_attention_q8", forbid=BF16_CACHE_KERNELS)
+        # the int8 legs of the later slices cut their budget to 48 tokens (the script's time limit)
+        if "continuous_dense_q8" in want:
+            timed(phase_continuous_dense, qbits, tag="int8",
+                  need=("knn_topk", "flash_attention", "decode_attention_q8"),
+                  forbid=PAGED_KERNELS + ("decode_attention", "chunk_prefill_attention"), max_new=48,
+                  follow_tokens=FOLLOW_TOKENS_Q8)
+        if "spec_paged_q8" in want:
+            timed(phase_spec_paged, qbits, tag="int8",
+                  need=("knn_topk", "flash_attention", "paged_chunk_attention_q8"),
+                  forbid=BF16_CACHE_KERNELS + ("decode_attention_q8", "chunk_prefill_attention_q8"), block_size=32,
+                  max_new=48, follow_tokens=FOLLOW_TOKENS_Q8)
+        if "lookahead" in want:
+            timed(phase_lookahead_q8, qbits)
+    if bits is not None:
+        if bits[0].llm_tokenizer.native_calls == 0:
+            fail("the native BPE merge loop never served a request")
+        print(f"native BPE merge loop: {bits[0].llm_tokenizer.native_calls} texts encoded", flush=True)
     print(f"phase_seconds total={time.monotonic() - T_START:.1f}", flush=True)
     print(f"device_mem_peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
 
@@ -5151,17 +5800,20 @@ def main() -> int:
         "paged_chunk_attention_q8": "rag_llm_k8s_tpu/ops/attention.py:1588",
     }
     # launches: each kernel's count on the path that runs it (one-shot bf16,
-    # continuous bf16, one-shot int8, continuous int8)
-    launches = {**launches, **{k: cont_launches[k] for k in CONTINUOUS_KERNELS[2:]},
-                **{k: q_launches[k] for k in ONE_SHOT_Q8[2:]}, **{k: q_cont[k] for k in CONTINUOUS_Q8[2:]}}
+    # continuous bf16, one-shot int8, continuous int8); a path a --phases
+    # run left out reads null
+    launches = {**launches, **{k: cont_launches.get(k) for k in CONTINUOUS_KERNELS[2:]},
+                **{k: q_launches.get(k) for k in ONE_SHOT_Q8[2:]}, **{k: q_cont.get(k) for k in CONTINUOUS_Q8[2:]}}
     kernels = []
     for kname in replaces:
         r = rows[kname]
+        if "ms" not in r:
+            continue  # a kernel phase a --phases run left out
         kernels.append({
             "name": kname, "route": "cuda",
             "source": sources.get(kname, csrc + "attention.cu"),
             **({} if kname in no_routine else {"routine": csrc + "attention_sm90.cuh"}),
-            "replaces": replaces[kname], "launches": launches[kname],
+            "replaces": replaces[kname], "launches": launches.get(kname),
             "max_abs_err": r["max_abs_err"],
             "tolerance": f"distance rel {KNN_RTOL}" if kname == "knn_topk" else
             f"rel rms {ATTN_RMS_TOL}, max abs {ATTN_MAX_TOL} x max|plain|",
@@ -5170,7 +5822,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
             **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us", "queries_8",
-                                 "queries_9", "prefix_shapes", "continuous_shapes") if k in r},
+                                 "queries_9", "prefix_shapes", "continuous_shapes", "lookahead_shapes") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

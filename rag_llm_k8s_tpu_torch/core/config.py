@@ -3,8 +3,8 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(mesh, lookahead, SLOs, goodput, shadow audits, tenants, the incident
-spool) are not here.
+(mesh, SLOs, goodput, shadow audits, tenants, the incident spool) are not
+here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -190,8 +190,7 @@ class PrefixCacheConfig:
     # position (env TPU_RAG_PREFIX_CHUNK_HOT_MIN)
     chunk_hot_min: float = 2.0
     # per-chunk canonical pool registrations the paged engine keeps (env
-    # TPU_RAG_PREFIX_CHUNK_POOL_REGS); parsed and validated, read by the
-    # continuous engine's prefix admission (ROADMAP.md Queue 1 item 8)
+    # TPU_RAG_PREFIX_CHUNK_POOL_REGS)
     chunk_pool_regs: int = 32
     # assembled prefix buffers memoized per (segment chain, length)
     assembled_cache_entries: int = 8
@@ -510,6 +509,40 @@ class RouterConfig:
 
 
 @dataclass(frozen=True)
+class LookaheadConfig:
+    """The retrieval lookahead pipeline (``rag/lookahead.py``; JAX
+    ``LookaheadConfig``): a request's retrieval launches as its body is
+    parsed, before the admission gate can queue it, and the serving tail
+    joins the future; resolved retrievals pre-stage their chunk KV; sessions
+    speculate the next turn's retrieval while this turn decodes. Off by
+    default."""
+
+    # master switch (env TPU_RAG_LOOKAHEAD)
+    enabled: bool = False
+    # executor worker threads, each blocking in the retrieve coalescer
+    # (env TPU_RAG_LOOKAHEAD_WORKERS)
+    max_workers: int = 2
+    # launched-but-unresolved retrievals; launches past it are skipped, never
+    # queued (env TPU_RAG_LOOKAHEAD_INFLIGHT)
+    max_inflight: int = 8
+    # unconsumed futures and what they staged expire after this long
+    # (env TPU_RAG_LOOKAHEAD_TTL_S)
+    ttl_s: float = 30.0
+    # pre-stage a resolved retrieval's chunk KV (env TPU_RAG_LOOKAHEAD_PRESTAGE)
+    prestage_kv: bool = True
+    # speculate a session's next turn while this one decodes
+    # (env TPU_RAG_LOOKAHEAD_SESSIONS)
+    session_pipelining: bool = True
+    # trailing user turns that feed the speculative next-turn query
+    # (env TPU_RAG_LOOKAHEAD_SESSION_TURNS)
+    session_context_turns: int = 2
+    # LRU cap and idle TTL of tracked sessions
+    # (env TPU_RAG_LOOKAHEAD_SESSION_MAX, TPU_RAG_LOOKAHEAD_SESSION_TTL_S)
+    session_max: int = 256
+    session_ttl_s: float = 600.0
+
+
+@dataclass(frozen=True)
 class ServerConfig:
     """HTTP surface and storage paths (the reference's rag.py:18-20, 204)."""
 
@@ -535,7 +568,6 @@ def _mesh_on(spec: str) -> bool:
 # value, and the ROADMAP.md item that ports it
 UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
     "TPU_RAG_MESH": (_mesh_on, "Queue 1 item 10 (tensor and sequence parallelism; the port serves one card)"),
-    "TPU_RAG_LOOKAHEAD": (lambda v: v == "1", "Queue 1 item 8 (lookahead and the continuous prefix half)"),
 }
 
 # the keys from_env reads
@@ -558,6 +590,9 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_PREFIX_CHUNK_HOT_MIN", "TPU_RAG_PREFIX_CHUNK_POOL_REGS",
     "TPU_RAG_KV_TIERING", "TPU_RAG_KV_TIERING_WARM_BELOW", "TPU_RAG_KV_TIERING_COLD_BELOW",
     "TPU_RAG_KV_TIERING_HALF_LIFE_S", "TPU_RAG_KV_TIERING_HOST_MB", "TPU_RAG_KV_TIERING_INTERVAL_S",
+    "TPU_RAG_LOOKAHEAD", "TPU_RAG_LOOKAHEAD_PRESTAGE", "TPU_RAG_LOOKAHEAD_SESSIONS", "TPU_RAG_LOOKAHEAD_WORKERS",
+    "TPU_RAG_LOOKAHEAD_INFLIGHT", "TPU_RAG_LOOKAHEAD_TTL_S", "TPU_RAG_LOOKAHEAD_SESSION_TURNS",
+    "TPU_RAG_LOOKAHEAD_SESSION_MAX", "TPU_RAG_LOOKAHEAD_SESSION_TTL_S",
     # read by server/main.py (resilience.faults.arm_from_env, the JSON log
     # formatter) and /debug/faults
     "TPU_RAG_FAULTS", "TPU_RAG_JSON_LOGS",
@@ -588,6 +623,22 @@ ROUTER_KEYS = (
     ("TPU_RAG_ROUTER_LOAD_WEIGHT", "load_weight", float),
     ("TPU_RAG_ROUTER_HOT_CHUNKS", "hot_chunks", int),
     ("TPU_RAG_ROUTER_SESSION_TTL_S", "session_ttl_s", float),
+)
+
+# LookaheadConfig, in the JAX from_env's order: (key, field) of the flags,
+# then (key, field, minimum, type) of the numbers
+LOOKAHEAD_FLAGS = (
+    ("TPU_RAG_LOOKAHEAD", "enabled"),
+    ("TPU_RAG_LOOKAHEAD_PRESTAGE", "prestage_kv"),
+    ("TPU_RAG_LOOKAHEAD_SESSIONS", "session_pipelining"),
+)
+LOOKAHEAD_NUMBERS = (
+    ("TPU_RAG_LOOKAHEAD_WORKERS", "max_workers", 1, int),
+    ("TPU_RAG_LOOKAHEAD_INFLIGHT", "max_inflight", 1, int),
+    ("TPU_RAG_LOOKAHEAD_TTL_S", "ttl_s", 0.1, float),
+    ("TPU_RAG_LOOKAHEAD_SESSION_TURNS", "session_context_turns", 1, int),
+    ("TPU_RAG_LOOKAHEAD_SESSION_MAX", "session_max", 1, int),
+    ("TPU_RAG_LOOKAHEAD_SESSION_TTL_S", "session_ttl_s", 1.0, float),
 )
 
 # (key, field, minimum, type) of ResilienceConfig, in the JAX from_env's order
@@ -633,6 +684,7 @@ class AppConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    lookahead: LookaheadConfig = field(default_factory=LookaheadConfig)
     flight: FlightConfig = field(default_factory=FlightConfig)
     router: RouterConfig = field(default_factory=RouterConfig)
     system_message: str = SYSTEM_MESSAGE
@@ -650,7 +702,7 @@ class AppConfig:
         ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
         if ignored:
             logging.getLogger(__name__).warning(
-                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 8-10)",
+                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 9c-10)",
                 ", ".join(ignored),
             )
         cfg = cls()
@@ -757,6 +809,16 @@ class AppConfig:
                 if v < minimum:
                     raise ValueError(f"{key}={v}: expected >= {minimum}")
                 resilience = rep(resilience, **{name: v})
+        lookahead = cfg.lookahead
+        for key, name in LOOKAHEAD_FLAGS:
+            if (v := _flag(env, key)) is not None:
+                lookahead = rep(lookahead, **{name: v})
+        for key, name, minimum, cast in LOOKAHEAD_NUMBERS:
+            if key in env:
+                v = cast(env[key])
+                if v < minimum:
+                    raise ValueError(f"{key}={v}: expected >= {minimum}")
+                lookahead = rep(lookahead, **{name: v})
         flight = cfg.flight
         for key, name in (("TPU_RAG_FLIGHT", "enabled"), ("TPU_RAG_DEBUG", "debug_endpoints"),
                           ("TPU_RAG_FLIGHT_ARRIVAL_IDS", "arrival_ids")):
@@ -777,6 +839,6 @@ class AppConfig:
             if key in env:
                 router = rep(router, **{name: cast(env[key])})
         router.validate()
-        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience, flight=flight,
-                   router=router)
+        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience,
+                   lookahead=lookahead, flight=flight, router=router)
 

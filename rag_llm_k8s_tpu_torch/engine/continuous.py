@@ -105,10 +105,25 @@ failed export keeps the request decoding where it is; a failed import
 (the ``migrate`` fault site) resets the decode engine, which re-prefills
 prompt plus emitted tokens. ``server/router.py`` pairs the two.
 
-Out of this port for now (``ROADMAP.md`` Queue 1 item 8): prefix
-registrations in the pool (``admit_prefixed``, the continuous half of the
-prefix cache, which only lookahead's prestage reaches) and tiering of pool
-blocks.
+Prefix registrations (paged only; the continuous half of the KV prefix
+cache): a ``CachedPrefix`` chain's full blocks can be registered in the pool
+under its ``chain_key`` (one pool ref each), ahead of any admission
+(``prestage_prefix``, the lookahead pipeline's paged leg, run as an engine
+task) or at an admission's first sighting. ``admit_prefixed`` maps a
+registered chain into the row's table copy-free (the row takes its own
+ref), scatters the rest of the prefix from the descriptor's splice buffer,
+and prefills only the suffix as one paged chunk (``paged_chunk_attention``)
+at logical ``plen``; the dense cache prefills the suffix into a spliced
+``T_build`` row cache (``chunk_prefill_attention``) and copies it into the
+row. Under ``reuse="chunk"`` block-aligned exact spans also become per-chunk
+canonical registrations, from which a later admission assembles a permuted
+prefix: gather, RoPE re-rotation into fresh blocks, then a boundary
+re-prefill of each shifted chunk's first tokens straight into pool blocks.
+Registrations carry a hotness tier (the pool's tier ledger); pressure
+reclaims chunk registrations first, then non-hot chains, then every chain
+when nothing decodes. The service reaches this through lookahead's
+prestage, release and retier only; ``admit_prefixed`` has no caller in the
+scheduler, as in the JAX service.
 """
 
 from __future__ import annotations
@@ -134,7 +149,8 @@ from rag_llm_k8s_tpu_torch.engine.engine import bind_compile_metrics, serving_mo
 from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
 from rag_llm_k8s_tpu_torch.engine.sampling import accept_drafts, sample_targets_per_row, sample_token_per_row
 from rag_llm_k8s_tpu_torch.engine.speculative import adaptive_draft_len, fold_acceptance, prompt_lookup_draft
-from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena, make_kv_cache
+from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena, make_kv_cache, rope_frequencies
+from rag_llm_k8s_tpu_torch.ops.attention import rope_rerotate, rope_rerotate_q8
 from rag_llm_k8s_tpu_torch.obs import flight, metrics
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
@@ -171,6 +187,9 @@ class _Slot:
     spec_ema: Optional[float] = None
     # the prompt's token count (the admission bucket a migration reports)
     prompt_len: int = 0
+    # tokens the row serves from ref-shared prefix blocks (counted once, by
+    # their registration, in the fragmentation gauge)
+    shared_tokens: int = 0
     # flight-WAL watermark: how many of ``tokens`` are journaled as
     # ``token_emit`` (``_journal_emitted`` journals only the delta past it)
     wal_mark: int = 0
@@ -182,6 +201,8 @@ class ContinuousStats:
     # the prompt tokens they prefilled, counted where the JAX engine counts
     generate_calls: int = 0
     prefill_tokens: int = 0
+    # prompt tokens a prefixed admission took from a cached prefix
+    prefill_tokens_skipped: int = 0
     decode_tokens: int = 0
     windows: int = 0  # device windows of every kind (prefill groups not counted)
     mixed_windows: int = 0
@@ -298,6 +319,11 @@ class ContinuousEngine:
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self._seed_counter = 0
         self.stats = ContinuousStats()
+        # registration generations stay monotonic across resets, so a stale
+        # release can never match a registration made after one
+        self._reg_seq = 0
+        # chunk splices re-rotate K by phases the host computes from these
+        self._inv_freqs = rope_frequencies(config, torch.device("cpu"))
         self._fresh_state()
         self.bind_metrics(metrics.MetricsRegistry())  # its own until a service binds it, as InferenceEngine
 
@@ -355,11 +381,13 @@ class ContinuousEngine:
         ).labels_callback(lambda: nbytes, device=str(self.device.index or 0))
 
     def pool_used_tokens(self) -> int:
-        """Live tokens across the rows' blocks (host mirrors): the
-        numerator of the fragmentation gauge; 0 under the dense cache."""
+        """Live tokens across unique pool blocks (host mirrors): the
+        numerator of the fragmentation gauge; 0 under the dense cache.
+        Ref-shared prefix blocks count once, through their registration."""
         if not self.paged:
             return 0
-        return sum(s.kv_ub for s in self.slots if s.active)
+        rows = sum(max(s.kv_ub - s.shared_tokens, 0) for s in self.slots if s.active)
+        return rows + self._registered_tokens + self._chunk_reg_tokens
 
     def pop_spec_seen(self, request_id: int) -> bool:
         """True iff a verify window ever judged drafts for this request
@@ -401,6 +429,25 @@ class ContinuousEngine:
             self._tables_dev: Optional[torch.Tensor] = None
             self._tables_dirty = True
             self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
+            # chain registrations: chain_key -> (full block ids, covered
+            # tokens, prefix length); the pool holds one ref per block
+            self._prefix_blocks: Dict[object, Tuple[List[int], int, int]] = {}
+            # admissions that mapped each registration since it was made
+            # (release_prestaged(only_unused=True) keeps a used one)
+            self._prefix_uses: Dict[object, int] = {}
+            # each registration's generation (a deferred release presents
+            # the one it staged) and hotness tier
+            self._prefix_reg_gen: Dict[object, int] = {}
+            self._prefix_tier: Dict[object, str] = {}
+            # non-hot registered blocks and covered tokens: single ints the
+            # admission gate and the scrape read without a lock
+            self._reclaimable_blocks = 0
+            self._registered_tokens = 0
+            # chunk-granular canonical registrations (reuse="chunk"): seg_key
+            # -> (block ids, canonical offset, length, cache-entry stamp,
+            # counted); least-recently-planned first
+            self._chunk_regs: "OrderedDict[str, tuple]" = OrderedDict()
+            self._chunk_reg_tokens = 0
         self._admit_seq = 0
         self._preempted: List[Tuple[int, List[int]]] = []
         # in-flight interleaved admissions, oldest first: rid -> record
@@ -511,15 +558,36 @@ class ContinuousEngine:
             self.blocks_needed(prompt_len), self.kv_pool.usable_blocks(),
             self.interleave_on, self.MB,
         )
-        if verdict != "check" or self.kv_pool.can_alloc(want):
-            return "ok" if verdict == "check" else verdict
-        return "wait" if self.has_active() else "never"
+        if verdict != "check":
+            return verdict
+        if self.kv_pool.can_alloc(want):
+            return "ok"
+        if self._prefix_blocks or self._chunk_regs:
+            # chunk registrations first, then non-hot chains, even while
+            # rows decode: their KV is one re-stage away in the prefix cache
+            for key in list(self._chunk_regs):
+                self._drop_chunk_reg(key)
+                if self.kv_pool.can_alloc(want):
+                    return "ok"
+            for key in [k for k, t in list(self._prefix_tier.items()) if t != "hot"]:
+                self._drop_registration(key)
+                if self.kv_pool.can_alloc(want):
+                    return "ok"
+        if self._prefix_blocks and not self.has_active():
+            # nothing decodes: the hot chains are the only other holders
+            for key in list(self._prefix_blocks):
+                self._drop_registration(key)
+                if self.kv_pool.can_alloc(want):
+                    return "ok"
+        return "wait" if self.has_active() else ("ok" if self.kv_pool.can_alloc(want) else "never")
 
     def _ensure_decode_blocks(self, horizon: Optional[Dict[int, int]] = None) -> None:
         """Grow every active row's table to cover the next window's writes
         before the device call (an unmapped write would vanish into the null
-        block). Exhaustion preempts pending interleaved admissions first,
-        then the newest-admitted rows, until the rest fit."""
+        block). Exhaustion reclaims chunk registrations, then chain
+        registrations (non-hot, oldest first), then preempts pending
+        interleaved admissions, then the newest-admitted rows, until the
+        rest fit."""
         while True:
             short = policy.grow_shortfall(
                 ((s.admit_seq, r, s.kv_ub, len(self._slot_blocks[r]))
@@ -536,6 +604,13 @@ class ContinuousEngine:
                 self._assign_row_blocks(row, ids, start_block=have)
             if ok:
                 return
+            if self._chunk_regs:
+                self._drop_chunk_reg(next(iter(self._chunk_regs)))
+                continue
+            if self._prefix_blocks:
+                self._drop_registration(policy.reclaim_registration(
+                    self._prefix_blocks, self._prefix_tier, self._prefix_reg_gen))
+                continue
             if self._chunk_admissions:
                 rid, rec = self._chunk_admissions.popitem()
                 self._preempt_chunk_admission(rid, rec)
@@ -561,6 +636,26 @@ class ContinuousEngine:
         self.stats.preemptions += 1
         self._release_row(rec["row"])
         self.slots[rec["row"]] = _Slot()
+
+    def _alloc_chunk_blocks(self, n: int) -> Optional[List[int]]:
+        """Blocks for a scheduled prefill chunk, reclaiming registrations
+        in ``admission_state``'s order under pressure; None when the pool
+        really is full."""
+        while True:
+            try:
+                return self.kv_pool.alloc(n)
+            except PoolExhausted:
+                if self._chunk_regs:
+                    self._drop_chunk_reg(next(iter(self._chunk_regs)))
+                    continue
+                non_hot = [k for k, t in list(self._prefix_tier.items()) if t != "hot"]
+                if non_hot:
+                    self._drop_registration(non_hot[0])
+                    continue
+                if self._prefix_blocks and not self.has_active():
+                    self._drop_registration(next(iter(self._prefix_blocks)))
+                    continue
+                return None
 
     def drain_preempted(self) -> List[Tuple[int, List[int]]]:
         """``(request_id, emitted_tokens)`` preempted since the last call
@@ -914,9 +1009,8 @@ class ContinuousEngine:
             row = rec["row"]
             need, have = self.kv_pool.blocks_for(off + take), len(self._slot_blocks[row])
             if need > have:
-                try:
-                    ids = self.kv_pool.alloc(need - have)
-                except PoolExhausted:
+                ids = self._alloc_chunk_blocks(need - have)
+                if ids is None:
                     break  # the younger admissions idle this window
                 self._assign_row_blocks(row, ids, start_block=have)
             sched.append((rid, rec, off, take, final))
@@ -1269,6 +1363,504 @@ class ContinuousEngine:
                     duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
         return row
 
+    # ------------------------------------------------------------------
+    # prefixed admission and pool prefix registrations (scheduler thread)
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def admit_prefixed(
+        self,
+        request_id: int,
+        suffix: Sequence[int],
+        prefix,  # CachedPrefix (engine/prefix_cache.py)
+        max_new: int,
+        seed: Optional[int] = None,
+    ) -> Tuple[int, Optional[List[int]]]:
+        """Admit one request whose prompt head is a cached prefix (JAX
+        ``admit_prefixed``): the prefix KV comes from the descriptor (or a
+        pool registration), only the suffix prefills. Returns ``(row,
+        finished)`` as ``admit_many`` does per item. Raises ValueError when
+        the shapes do not fit a row (the caller falls back to a plain
+        admission); ``PoolExhausted`` (paged) before anything is written."""
+        free = self.free_slots()
+        assert free, "admit_prefixed() without a free slot"
+        if not suffix:
+            # the first token would be drawn from a pad token's logits
+            raise ValueError("admit_prefixed needs a non-empty suffix")
+        pc = self.engine_config.prefix_cache
+        if pc is None or prefix.capacity != pc.max_prefix_tokens:
+            raise ValueError("prefix descriptor does not match this engine's config")
+        total = prefix.length + len(suffix)
+        S = policy.bucket_len(max(total, 1), self.buckets)
+        if total > S:
+            raise ValueError(f"prefixed prompt of {total} tokens exceeds the largest continuous bucket {S}")
+        if len(suffix) > max(pc.suffix_buckets):
+            raise ValueError(
+                f"prefixed suffix of {len(suffix)} tokens exceeds the largest suffix bucket {max(pc.suffix_buckets)}"
+            )
+        C = policy.bucket_len(max(len(suffix), 1), pc.suffix_buckets)
+        max_new_c = policy.clamp_max_new(max_new, S, self.T)
+        seed = self._row_seed(seed)
+        toks = np.full((1, C), self.pad_id, np.int64)
+        toks[0, :len(suffix)] = list(suffix)
+        row = free[0]
+        if self.paged:
+            return self._admit_prefixed_paged(request_id, suffix, prefix, C, max_new_c, row, seed, toks)
+        return self._admit_prefixed_dense(request_id, suffix, prefix, S, C, max_new_c, row, seed, toks)
+
+    def _admit_prefixed_dense(self, request_id, suffix, prefix, S, C, max_new_c, row, seed, toks):
+        """Dense tail of ``admit_prefixed`` (JAX ``_build_prefill_prefixed``
+        and ``_insert``): the prefix planes spliced into a fresh ``[L, 1, K,
+        T_build]`` row cache at slot ``start = S - total`` (left padding, so
+        the row's tokens end at slot ``S``), the suffix prefilled as one chunk
+        at slot ``start + plen`` (``chunk_prefill_attention`` over ``[start,
+        S)``), then slots ``[0, S)`` copied into the engine's row. ``T_build
+        = ceil128(S + P + C)`` keeps the P-wide splice and the C-wide suffix
+        write inside the build cache wherever ``start`` lands."""
+        P = int(prefix.capacity)
+        plen, slen = int(prefix.length), len(suffix)
+        total = plen + slen
+        start = S - total
+        t_admit = time.perf_counter()
+        T_build = -(-(S + P + C) // 128) * 128
+        self._set_row_sampling(row, seed, self.sampling)
+        # tokens | kv_start | kv_len | logit index | draw position | row, in one upload
+        host = np.zeros((1, C + 5), np.int64)
+        host[0, :C] = toks[0]
+        host[0, C:] = (start, S, slen - 1, total, row)
+        dh = self._h2d(host)
+        cache = make_kv_cache(self.config, 1, T_build, self.dtypes.compute_dtype, self.device,
+                              self.engine_config.kv_quant)
+        for c, b in zip(self._cache_planes(cache), prefix.planes):
+            c[:, :, :, start:start + b.shape[3]] = b.to(c.dtype)
+        positions = plen + torch.arange(C, device=self.device)[None, :]
+        logits = self.model(dh[:, :C], positions, cache, dh[:, C], dh[:, C + 1], start + plen, chunked=True,
+                            logit_index=dh[:, C + 2])
+        tok0 = self._sample(logits[:, 0], dh[:, C + 3], rows=dh[:, C + 4])
+        try:
+            for dst, src in zip(self._cache_planes(), self._cache_planes(cache)):
+                dst[:, row, :, :S] = src[:, 0, :, :S]
+            self._kv_start[row] = start
+            self._kv_len[row] = S
+            self._last_tok[row] = tok0[0]
+            tok0_h = int(tok0.item())  # the one fetch
+        except BaseException as e:  # noqa: BLE001 — the row's state is half written
+            self.reset()
+            raise EngineStateLost("insert failed; engine state reset") from e
+        del cache
+        self._m_step_admit.observe(time.perf_counter() - t_admit)
+        return self._start_prefixed_row(row, request_id, suffix, plen, tok0_h, max_new_c, kv_ub=S)
+
+    def _start_prefixed_row(self, row: int, rid: int, suffix, plen: int, tok0: int, max_new_c: int, kv_ub: int,
+                            shared_tok: Optional[int] = None):
+        """After a prefixed admission's first token: the stats and the
+        ``admit`` event (JAX's), then the row decodes on or the request ends
+        here (EOS or a budget of one) and the row is released."""
+        total = plen + len(suffix)
+        st = self.stats
+        st.generate_calls += 1
+        st.prefill_tokens += len(suffix)
+        st.prefill_tokens_skipped += plen
+        extra = {} if shared_tok is None else {"shared": shared_tok}
+        flight.emit("admit", rid, slot=row, prompt_len=total, prefix_len=plen, tok0=tok0, **extra)
+        if tok0 in self.config.eos_token_ids or max_new_c <= 1:
+            out = [] if tok0 in self.config.eos_token_ids else [tok0]
+            st.decode_tokens += len(out)
+            self._deactivate([row])
+            self._release_row(row)
+            self.slots[row] = _Slot()
+            return row, out
+        self._active[row] = True
+        self._admit_seq += 1
+        self.slots[row] = _Slot(
+            request_id=rid, tokens=[tok0], remaining=max_new_c - 1, active=True, kv_ub=kv_ub,
+            admit_seq=self._admit_seq, prompt_len=total, shared_tokens=shared_tok or 0,
+            # the paged verify's draft corpus: a prefixed admission carries
+            # only the suffix's ids (the prefix is KV), so it starts there
+            history=(list(suffix) + [tok0]) if self.spec_on else [],
+        )
+        st.decode_tokens += 1
+        return row, None
+
+    def _admit_prefixed_paged(self, request_id, suffix, prefix, C, max_new_c, row, seed, toks):
+        """Paged tail of ``admit_prefixed`` (JAX ``_admit_prefixed_paged``):
+        the full blocks of a chain registered under the descriptor's
+        ``chain_key`` map into the row's table copy-free, pinned by the
+        row's own ref; under ``reuse="chunk"`` an unregistered chain may
+        assemble from per-chunk registrations (``_chunk_splice_plan``);
+        otherwise the prefix slabs the row does not share scatter from the
+        splice buffer. Then the suffix prefills as one paged chunk at
+        logical ``plen`` over the row's table. A first sighting registers
+        its full blocks (and, under chunk reuse, its exact spans) for the
+        next admission. A failure once the arena is being written resets
+        the engine (``EngineStateLost``)."""
+        t_admit = time.perf_counter()
+        bs = self.block_size
+        plen, slen = int(prefix.length), len(suffix)
+        total = plen + slen
+        P = int(prefix.capacity)
+        if P % bs:
+            raise ValueError(f"prefix capacity {P} not a multiple of kv_block_size {bs}")
+        key = getattr(prefix, "chain_key", None)
+        shared_ids: List[int] = []
+        if key is not None:
+            entry = self._prefix_blocks.get(key)
+            if entry is not None and entry[2] == plen:
+                shared_ids = list(entry[0])
+                self._prefix_uses[key] = self._prefix_uses.get(key, 0) + 1
+        plan = None if shared_ids else self._chunk_splice_plan(prefix)
+        covered = len(shared_ids)
+        priv = self.kv_pool.alloc(self.kv_pool.blocks_for(max(total, 1)) - covered)  # PoolExhausted: the caller's
+        if shared_ids:
+            self.kv_pool.ref(shared_ids)  # the row's own pin
+        ids_all = shared_ids + priv
+        self._assign_row_blocks(row, ids_all)
+        nbp = P // bs
+        scatter_ids = np.zeros((nbp,), np.int64)
+        if plan is None:
+            for j in range(covered, min(self.kv_pool.blocks_for(plen), nbp)):
+                scatter_ids[j] = ids_all[j]
+        self._set_row_sampling(row, seed, self.sampling)
+        try:
+            if plan is not None:
+                self._chunk_splice_into_row(row, ids_all, plan)
+            elif scatter_ids.any():
+                self._scatter_prefix(prefix.planes, scatter_ids)
+            tok0 = self._prefill_px_paged(row, toks, slen, plen)
+            self._kv_len[row] = total
+            self._last_tok[row] = tok0[0]
+            tok0_h = int(tok0.item())  # the one fetch
+        except BaseException as e:  # noqa: BLE001 — the arena is half written
+            self.reset()
+            raise EngineStateLost("prefixed insert failed; engine state reset") from e
+        full_n = plen // bs
+        shared_tok = covered * bs
+        chain_registered = key is not None and not shared_ids and full_n > 0
+        if chain_registered:
+            reg = ids_all[:full_n]
+            self.kv_pool.ref(reg)  # the registration's ref outlives the row
+            self._register_prefix(key, reg, plen)
+            shared_tok = full_n * bs
+        if plan is None and not shared_ids:
+            # only the admission that scattered the blocks may make them
+            # canonical chunk copies: on a chain hit they hold an earlier
+            # admission's content
+            self._register_chunks_from_scatter(prefix, ids_all, chain_registered=chain_registered)
+        self._m_step_admit.observe(time.perf_counter() - t_admit)
+        return self._start_prefixed_row(row, request_id, suffix, plen, tok0_h, max_new_c, kv_ub=total,
+                                        shared_tok=shared_tok)
+
+    def _prefix_slabs(self, plane: torch.Tensor, nbp: int) -> torch.Tensor:
+        """A splice-buffer plane ``[L, 1, K, P(, hd)]`` as ``nbp`` block
+        slabs ``[L, nbp, K, bs(, hd)]`` in the arena's layout."""
+        L, K, bs = plane.shape[0], plane.shape[2], self.block_size
+        x = plane[:, 0, :, :nbp * bs]
+        x = x.reshape((L, K, nbp, bs) + tuple(plane.shape[4:]))
+        return x.transpose(1, 2)
+
+    def _scatter_prefix(self, planes, scatter_ids: np.ndarray) -> None:
+        """JAX ``_build_prefix_scatter``: slab ``j`` of the splice buffer
+        into physical block ``scatter_ids[j]``, for every ``j`` with a block
+        (JAX writes the rest into the null block, which nothing reads)."""
+        sel = np.nonzero(scatter_ids)[0]
+        idx = self._h2d(np.stack([sel, scatter_ids[sel]]).astype(np.int64))
+        for dst, p in zip(self._cache_planes(self.arena), planes):
+            slabs = self._prefix_slabs(p, len(scatter_ids)).index_select(1, idx[0])
+            dst.index_copy_(1, idx[1], slabs.to(device=dst.device, dtype=dst.dtype))
+
+    def _prefill_px_paged(self, row: int, toks: np.ndarray, slen: int, plen: int) -> torch.Tensor:
+        """JAX ``_build_prefill_px_paged``: the right-padded suffix, B = 1,
+        as one chunk at logical ``plen + t`` over the row's table
+        (``paged_chunk_attention``, ``kv_len = plen + slen``), writing
+        straight into pool blocks; the first token drawn from the last real
+        lane. Pad lanes write past the row's frontier: into its own blocks,
+        or through null table entries into the null block."""
+        C = toks.shape[1]
+        total = plen + slen
+        host = np.zeros((1, C + 5), np.int64)
+        host[0, :C] = toks[0]
+        host[0, C:] = (total, plen, max(slen - 1, 0), total, row)
+        dh = self._h2d(host)
+        positions = plen + torch.arange(C, device=self.device)[None, :]
+        tables = self._device_tables()[row:row + 1]
+        logits = self.model(dh[:, :C], positions, self.arena, self._zeros[:1], dh[:, C], dh[:, C + 1],
+                            chunked=True, block_tables=tables, logit_index=dh[:, C + 2])
+        return self._sample(logits[:, 0], dh[:, C + 3], rows=dh[:, C + 4])
+
+    def prestage_prefix(self, prefix, tier: str = "hot"):
+        """Register a ``CachedPrefix``'s full blocks in the pool ahead of any
+        admission (JAX ``prestage_prefix``, lookahead's paged leg; scheduler
+        thread, through ``ContinuousScheduler.run_on_engine``): allocate
+        ``length // block_size`` blocks, scatter the prefix into them and
+        register them under the chain key, so the first admission with this
+        prompt head maps them copy-free. Takes blocks only while a full
+        row's growth stays free. Returns ``"registered"`` when this call made
+        the registration (the caller owns its release), ``"resident"`` when
+        one existed, False when nothing was staged. A ``"cold"`` tier
+        registers as warm (cold blocks are not in the pool). The
+        ``kv_swap_in`` fault site sits between the allocation and the
+        scatter: the blocks return and nothing is staged."""
+        if not self.paged:
+            return False
+        if tier == "cold":
+            tier = "warm"
+        if tier not in ("hot", "warm"):
+            raise ValueError(f"prestage tier={tier!r}: expected hot|warm|cold")
+        key = getattr(prefix, "chain_key", None)
+        if key is None:  # "slot" prefixes are not content-identical
+            return False
+        pc = self.engine_config.prefix_cache
+        if pc is None or prefix.capacity != pc.max_prefix_tokens:
+            return False
+        bs = self.block_size
+        P, plen = int(prefix.capacity), int(prefix.length)
+        full_n = plen // bs
+        if P % bs or full_n <= 0 or full_n > P // bs:
+            return False
+        entry = self._prefix_blocks.get(key)
+        if entry is not None and entry[2] == plen:
+            return "resident"
+        if not self.kv_pool.can_alloc(full_n + self.MB):
+            return False  # live traffic keeps a full row's growth
+        ids = self.kv_pool.alloc(full_n)
+        try:
+            faults.maybe_fail("kv_swap_in")
+        except faults.InjectedFault:
+            self.kv_pool.free(ids)
+            return False
+        scatter_ids = np.zeros((P // bs,), np.int64)
+        scatter_ids[:full_n] = ids
+        try:
+            with torch.inference_mode():
+                self._scatter_prefix(prefix.planes, scatter_ids)
+        except BaseException as e:  # noqa: BLE001 — the arena is half written
+            self.reset()  # the blocks return with everything else
+            raise EngineStateLost("prefix prestage failed; engine state reset") from e
+        # alloc()'s ref is the registration's (no row holds these yet)
+        self._register_prefix(key, ids, plen, tier=tier)
+        return "registered"
+
+    def prestage_gen(self, chain_key):
+        """The live registration's generation for ``chain_key`` (None when
+        none): a deferred release presents it back (``release_prestaged(gen=)``)."""
+        return self._prefix_reg_gen.get(chain_key)
+
+    def _register_prefix(self, key, ids, plen: int, tier: str = "hot") -> int:
+        """Register a chain's full blocks (the caller took the pool ref) and
+        return its generation; at most 8 registrations, oldest dropped."""
+        self._reg_seq += 1
+        cov = len(ids) * self.block_size
+        self._prefix_blocks[key] = (list(ids), cov, plen)
+        self._prefix_uses[key] = 0
+        self._prefix_reg_gen[key] = self._reg_seq
+        self._prefix_tier[key] = tier
+        self.kv_pool.account_tier(tier, len(ids))
+        if tier != "hot":
+            self._reclaimable_blocks += len(ids)
+        self._registered_tokens += cov
+        while len(self._prefix_blocks) > 8:
+            self._drop_registration(next(iter(self._prefix_blocks)))
+        return self._reg_seq
+
+    def _drop_registration(self, key) -> bool:
+        """The one place a chain registration dies: every side table, the
+        tier ledger and the counters, then its blocks' refs."""
+        entry = self._prefix_blocks.pop(key, None)
+        if entry is None:
+            return False
+        self._prefix_uses.pop(key, None)
+        self._prefix_reg_gen.pop(key, None)
+        ids, cov, _ = entry
+        tier = self._prefix_tier.pop(key, "hot")
+        self.kv_pool.account_tier(tier, -len(ids))
+        if tier != "hot":
+            self._reclaimable_blocks = max(0, self._reclaimable_blocks - len(ids))
+        self._registered_tokens -= cov
+        self.kv_pool.free(ids)
+        return True
+
+    def set_prefix_tier(self, chain_key, tier: str) -> bool:
+        """Move a registration between hotness tiers; ``"cold"`` drops it
+        (its KV lives on in the prefix cache's host spill). True when
+        anything changed."""
+        if not self.paged:
+            return False
+        entry = self._prefix_blocks.get(chain_key)
+        if entry is None:
+            return False
+        if tier == "cold":
+            return self._drop_registration(chain_key)
+        old = self._prefix_tier.get(chain_key, "hot")
+        if old == tier:
+            return False
+        n = len(entry[0])
+        self.kv_pool.account_tier(old, -n)
+        self.kv_pool.account_tier(tier, n)
+        self._prefix_tier[chain_key] = tier
+        if old == "hot" and tier != "hot":
+            self._reclaimable_blocks += n
+        elif old != "hot" and tier == "hot":
+            self._reclaimable_blocks = max(0, self._reclaimable_blocks - n)
+        return True
+
+    def retier_registrations(self, tier_fn) -> int:
+        """Re-tag every registration with ``tier_fn(chain_key)`` (the
+        service passes the prefix cache's ``chain_tier``); returns how many
+        changed."""
+        if not self.paged:
+            return 0
+        return sum(1 for key in list(self._prefix_blocks) if self.set_prefix_tier(key, tier_fn(key)))
+
+    def tier_occupancy(self) -> Dict[str, int]:
+        """The pool's tier ledger plus ``rows`` (empty dense); safe to read
+        from any thread."""
+        if not self.paged:
+            return {}
+        return self.kv_pool.tier_occupancy()
+
+    def reclaimable_blocks(self) -> int:
+        """Non-hot registered blocks a sweep can reclaim without touching a
+        row: the admission gate's hint (read without a lock)."""
+        if not self.paged:
+            return 0
+        return self._reclaimable_blocks
+
+    def release_prestaged(self, chain_key, only_unused: bool = False, gen=None) -> bool:
+        """Drop one chain registration (lookahead's stale-prefetch release):
+        rows still decoding over its blocks keep their own refs.
+        ``only_unused`` keeps a registration an admission has mapped since
+        it was made; ``gen`` keeps one re-created at this key since."""
+        if not self.paged:
+            return False
+        if gen is not None and self._prefix_reg_gen.get(chain_key) != gen:
+            return False
+        if only_unused and self._prefix_uses.get(chain_key, 0) > 0:
+            return False
+        return self._drop_registration(chain_key)
+
+    # -- chunk-granular registrations (reuse="chunk") ----------------------
+    def _chunk_splice_plan(self, prefix):
+        """``[(span, registration), ...]`` covering the whole prefix from
+        per-chunk registrations (every span block-aligned, every
+        registration stamp-matched to the entry the span was resolved from),
+        or None: all or nothing. The ``chunk_splice`` fault site declines
+        the plan before anything is allocated."""
+        chunks = getattr(prefix, "chunks", None)
+        if not chunks or not self._chunk_regs:
+            return None
+        bs = self.block_size
+        if sum(c.length for c in chunks) != int(prefix.length):
+            return None
+        plan = []
+        for c in chunks:
+            if c.off % bs or c.length % bs or c.length == 0:
+                return None
+            reg = self._chunk_regs.get(c.key)
+            if reg is None or reg[3] != c.stamp or reg[2] != c.length or reg[1] % bs or len(reg[0]) != c.length // bs:
+                return None
+            plan.append((c, reg))
+        try:
+            faults.maybe_fail("chunk_splice")
+        except faults.InjectedFault:
+            return None
+        for c, _ in plan:
+            self._chunk_regs.move_to_end(c.key)  # the cap evicts least recently planned
+        return plan
+
+    def _chunk_splice_into_row(self, row: int, ids_all: List[int], plan) -> None:
+        """JAX ``_build_chunk_splice`` then ``_build_boundary_px_paged``:
+        each span's source blocks gathered, K re-rotated by the span's
+        position delta (``rope_rerotate``, or ``rope_rerotate_q8`` with the
+        scales recomputed) and written into the row's destination blocks
+        with V as it is; then, in ascending offset order, each shifted or
+        inexact span's first ``W`` tokens re-prefilled at their offset
+        straight into pool blocks (``kv_len = off + W`` hides the right)."""
+        bs = self.block_size
+        for c, reg in plan:
+            src_ids, canon_off = reg[0], reg[1]
+            nb = len(src_ids)
+            delta = c.off - canon_off
+            self._splice_blocks(src_ids, ids_all[c.off // bs: c.off // bs + nb], delta)
+            if delta:
+                flight.emit("rerotate", tokens=c.length, delta=delta)
+            flight.emit("chunk_splice", tokens=c.length, delta=delta, pool=1)
+        for c, reg in plan:
+            delta = c.off - reg[1]
+            if (c.exact and delta == 0) or not c.fixup_ids:
+                continue  # canonical placement: the content is faithful
+            self._boundary_prefill(row, list(c.fixup_ids), c.off)
+            flight.emit("boundary_fixup", tokens=len(c.fixup_ids))
+
+    def _splice_blocks(self, src_ids: List[int], dst_ids: List[int], delta: int) -> None:
+        idx = self._h2d(np.asarray([src_ids, dst_ids], np.int64))
+        a = self.arena
+        ks, vs = a.k.index_select(1, idx[0]), a.v.index_select(1, idx[0])
+        if a.quantized:
+            rk, rks = rope_rerotate_q8(ks, a.k_scale.index_select(1, idx[0]), delta, self._inv_freqs)
+            a.k_scale.index_copy_(1, idx[1], rks)
+            a.v_scale.index_copy_(1, idx[1], a.v_scale.index_select(1, idx[0]))
+        else:
+            rk = rope_rerotate(ks, delta, self._inv_freqs)
+        a.k.index_copy_(1, idx[1], rk)
+        a.v.index_copy_(1, idx[1], vs)
+
+    def _boundary_prefill(self, row: int, toks: List[int], woff: int) -> None:
+        """A span's boundary window of ``W`` tokens at logical ``woff``, B =
+        1, through ``paged_chunk_attention``; exactly ``W`` positions are
+        written, so the re-rotated tail past the window stays."""
+        W = len(toks)
+        host = np.zeros((1, W + 2), np.int64)
+        host[0, :W] = toks
+        host[0, W:] = (woff + W, woff)
+        dh = self._h2d(host)
+        positions = woff + torch.arange(W, device=self.device)[None, :]
+        self.model(dh[:, :W], positions, self.arena, self._zeros[:1], dh[:, W], dh[:, W + 1], chunked=True,
+                   block_tables=self._device_tables()[row:row + 1], logit_index=self._zeros[:1])
+
+    def _register_chunks_from_scatter(self, prefix, ids_all: List[int], chain_registered: bool = False) -> None:
+        """After a buffer-scatter admission, each block-aligned exact span's
+        blocks become the chunk's canonical pool copy (one ref each; a
+        re-rotated copy never does, or drift would compound). Under a chain
+        registration they carry ``counted=False``: dropping them frees no
+        block while the chain lives, so they stay out of the tokens, the
+        reclaimable hint and the warm ledger. At most ``chunk_pool_regs``."""
+        chunks = getattr(prefix, "chunks", None)
+        if not chunks:
+            return
+        bs = self.block_size
+        pc = self.engine_config.prefix_cache
+        cap = max(1, int(getattr(pc, "chunk_pool_regs", 32) or 32))
+        full_tokens = (int(prefix.length) // bs) * bs
+        for c in chunks:
+            if not c.exact or c.length == 0 or c.off % bs or c.length % bs or c.off + c.length > full_tokens:
+                continue
+            old = self._chunk_regs.get(c.key)
+            if old is not None and old[3] == c.stamp:
+                continue  # this entry generation is registered already
+            span_ids = ids_all[c.off // bs: c.off // bs + c.length // bs]
+            self.kv_pool.ref(span_ids)
+            if old is not None:
+                self._drop_chunk_reg(c.key)
+            counted = not chain_registered
+            self._chunk_regs[c.key] = (list(span_ids), c.off, c.length, c.stamp, counted)
+            if counted:
+                self._chunk_reg_tokens += c.length
+                self._reclaimable_blocks += len(span_ids)
+                self.kv_pool.account_tier("warm", len(span_ids))
+            while len(self._chunk_regs) > cap:
+                self._drop_chunk_reg(next(iter(self._chunk_regs)))
+
+    def _drop_chunk_reg(self, key) -> bool:
+        """The one place a chunk registration dies."""
+        reg = self._chunk_regs.pop(key, None)
+        if reg is None:
+            return False
+        if reg[4]:
+            n = len(reg[0])
+            self._chunk_reg_tokens -= reg[2]
+            self._reclaimable_blocks = max(0, self._reclaimable_blocks - n)
+            self.kv_pool.account_tier("warm", -n)
+        self.kv_pool.free(reg[0])
+        return True
 
 class ContinuousScheduler:
     """Thread-safe front of a :class:`ContinuousEngine`: ``submit`` blocks

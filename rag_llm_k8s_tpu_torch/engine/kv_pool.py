@@ -56,6 +56,10 @@ class KVBlockPool:
         self._refs: Dict[int, int] = {}
         self.total_allocs = 0
         self.total_exhaustions = 0
+        # registered-prefix blocks per hotness tier (engine/tiering.py): the
+        # engine accounts a registration's blocks at register, drop and
+        # retier; the allocator itself ignores tiers
+        self._tier_blocks: Dict[str, int] = {"hot": 0, "warm": 0, "cold": 0}
 
     def blocks_for(self, tokens: int) -> int:
         """Blocks covering ``tokens`` logical positions."""
@@ -134,11 +138,31 @@ class KVBlockPool:
         with self._lock:
             return self._refs.get(block, 0)
 
+    def account_tier(self, tier: str, delta: int) -> None:
+        """Move ``delta`` registered blocks into ``tier``'s ledger (negative
+        = out), clamped at zero."""
+        if tier not in self._tier_blocks:
+            raise ValueError(f"unknown kv tier {tier!r}; tiers: {tuple(self._tier_blocks)}")
+        with self._lock:
+            self._tier_blocks[tier] = max(0, self._tier_blocks[tier] + delta)
+
+    def tier_occupancy(self) -> Dict[str, int]:
+        """Registered blocks per tier, and ``rows``: the blocks in use that
+        no registration accounts for."""
+        with self._lock:
+            out = dict(self._tier_blocks)
+            in_use = (self.num_blocks - 1) - len(self._free)
+            out["rows"] = max(0, in_use - sum(out.values()))
+            return out
+
     def reset(self) -> None:
-        """Every block back to the free list (engine reset)."""
+        """Every block back to the free list (engine reset); the tier
+        ledgers read zero, as the registrations died with the arena."""
         with self._lock:
             self._refs.clear()
             self._free = deque(range(1, self.num_blocks))
+            for t in self._tier_blocks:
+                self._tier_blocks[t] = 0
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -149,6 +173,8 @@ class KVBlockPool:
                 "kv_pool_blocks_free": len(self._free),
                 "kv_pool_allocs_total": self.total_allocs,
                 "kv_pool_exhaustions_total": self.total_exhaustions,
+                "kv_pool_tier_hot_blocks": self._tier_blocks["hot"],
+                "kv_pool_tier_warm_blocks": self._tier_blocks["warm"],
             }
 
     def __repr__(self) -> str:

@@ -58,8 +58,8 @@ class CachedPrefix:
     under int8-KV — each ``[L, 1, K, P, hd]`` (scales ``[L, 1, K, P]``),
     with real content in slots ``[0, length)`` and don't-care beyond (the
     consumer's kv windows never reach it). Consumed by
-    ``InferenceEngine.generate_prefixed`` (the JAX package's continuous
-    engine also admits it; ROADMAP.md Queue 1 item 8 ports that).
+    ``InferenceEngine.generate_prefixed`` and
+    ``ContinuousEngine.admit_prefixed`` / ``prestage_prefix``.
     """
 
     planes: Tuple

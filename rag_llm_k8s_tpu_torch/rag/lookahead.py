@@ -1,0 +1,559 @@
+"""Retrieval lookahead, the port's copy of ``rag_llm_k8s_tpu/rag/lookahead.py``:
+overlap the query embedding and kNN with decode, and pre-stage KV.
+
+- **Async retrieval executor**: a bounded worker pool whose workers submit
+  into the service's retrieve coalescer, so lookahead embeds batch with live
+  traffic's. The HTTP layer launches a request's retrieval the moment its
+  body is parsed, before the admission gate can queue it, and the serving
+  tail only joins the future (``claim``/``join``).
+- **KV pre-staging**: when a retrieval resolves, a service callback builds
+  the resolved chunks' segment KV into prefix-cache entries
+  (``PrefixCache.stage``) and, on a paged continuous engine, registers the
+  chain's full pool blocks (``ContinuousEngine.prestage_prefix``), so the
+  next admission with that prompt head shares them. A speculation that dies
+  unconsumed releases exactly what nothing else consumed
+  (``release_staged`` / ``release_prestaged``).
+- **Multi-turn pipelining**: a request with a ``session_id`` speculates the
+  next turn's retrieval from the conversation so far while this turn
+  decodes (``speculate``), gated by the service's headroom probe.
+
+Futures are keyed by the retrieval text and resolve through the same
+retrieval entry point the sequential path uses, so greedy streams are
+byte-identical with lookahead on or off.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+from rag_llm_k8s_tpu_torch.engine.batching import _join_worker
+from rag_llm_k8s_tpu_torch.obs import flight
+from rag_llm_k8s_tpu_torch.obs import metrics as obs_metrics
+from rag_llm_k8s_tpu_torch.resilience import faults
+
+logger = logging.getLogger(__name__)
+
+_WASTE_REASONS = ("superseded", "expired", "abandoned", "stale", "failed")
+_SKIP_REASONS = ("headroom", "inflight", "shutdown")
+
+
+class JoinTimeout(TimeoutError):
+    """``join``'s OWN wait expired (the caller's deadline ran out at the
+    join). Distinct from a worker-side error re-raised through ``join`` —
+    including a worker-side ``TimeoutError`` from a bounded coalescer
+    submit, which must take the inline-retrieval fallback path, not the
+    caller's deadline (504) path."""
+
+
+class RetrievalFuture:
+    """One launched-ahead retrieval: resolves on an executor worker; the
+    serving tail joins it. Carries the staging handle for whatever KV its
+    resolution pre-staged, so a superseded speculation can release it."""
+
+    __slots__ = (
+        "key", "trigger", "session_id", "done", "result", "error",
+        "t_launch", "index_gen", "staging", "claimed", "superseded",
+        "waiters",
+    )
+
+    def __init__(self, key: str, trigger: str, session_id: Optional[str],
+                 index_gen: int):
+        self.key = key
+        self.trigger = trigger  # "admission" | "session"
+        self.session_id = session_id
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self.t_launch = time.monotonic()
+        self.index_gen = index_gen  # store size at launch (stale detection)
+        self.staging = None  # opaque service handle (released when stale)
+        self.claimed = False
+        self.superseded = False
+        # HTTP requests launched/deduped onto this future pre-admission —
+        # each abandons on shed, and the future dies only when the LAST
+        # one lets go (a shed duplicate must not strand the others)
+        self.waiters = 0
+
+    def resolved(self) -> bool:
+        return self.done.is_set()
+
+
+class LookaheadExecutor:
+    """Bounded async retrieval pool + future registry + staging lifecycle.
+
+    Thread-safe. All callbacks are service-provided:
+
+    - ``retrieve_fn(text)`` — the blocking coalesced retrieval (the same
+      entry point the sequential path uses: results are identical by
+      construction);
+    - ``prestage_fn(text, result)`` — build the resolved chunks' prefix KV,
+      returning an opaque staging handle (or None);
+    - ``release_fn(handle)`` — release a stale staging handle;
+    - ``headroom_fn()`` — False while speculative work would pressure live
+      traffic (pool headroom / breaker / admission queue);
+    - ``index_gen_fn()`` — the store's live vector count: a future launched
+      against an older index is stale and never served;
+    - ``tier_stats_fn()`` — the prefix cache's tier counters (KV tiering,
+      engine/tiering.py): the prestage path IS the cold-tier swap-in's
+      prefetch trigger (``PrefixCache.stage(trigger="lookahead")`` performs
+      any host→HBM swap-in on the worker thread, overlapped with the
+      previous request's decode), and ``stats()`` folds those counters into
+      the swap-in hide rate.
+    """
+
+    def __init__(
+        self,
+        config,
+        retrieve_fn: Callable[[str], object],
+        prestage_fn: Optional[Callable[[str, object], object]] = None,
+        release_fn: Optional[Callable[[object], None]] = None,
+        headroom_fn: Optional[Callable[[], bool]] = None,
+        index_gen_fn: Optional[Callable[[], int]] = None,
+        registry=None,
+        tier_stats_fn: Optional[Callable[[], dict]] = None,
+    ):
+        self.config = config
+        self.retrieve_fn = retrieve_fn
+        self.prestage_fn = prestage_fn
+        self.release_fn = release_fn
+        self.headroom_fn = headroom_fn
+        self.index_gen_fn = index_gen_fn or (lambda: 0)
+        self.tier_stats_fn = tier_stats_fn
+        self._lock = threading.Lock()
+        self._futures: Dict[str, RetrievalFuture] = {}
+        self._session_spec: Dict[str, RetrievalFuture] = {}
+        self._inflight = 0  # launched, not yet resolved
+        self._queue: "queue.Queue[Optional[RetrievalFuture]]" = queue.Queue()
+        self._stop = threading.Event()
+        # optional obs Counter — shutdown join timeouts (engine.batching)
+        self.join_timeout_counter = None
+        self.bind_metrics(
+            registry if registry is not None else obs_metrics.default_registry()
+        )
+        self._workers = [
+            threading.Thread(
+                target=self._run, daemon=True, name=f"lookahead-{i}"
+            )
+            for i in range(max(1, int(config.max_workers)))
+        ]
+        for w in self._workers:
+            w.start()
+        # TTL enforcement must not depend on traffic: on a service that
+        # goes quiet, the last speculations' staged KV (prefix entries +
+        # registered pool blocks) must still expire on schedule — sweep()
+        # on launches alone would hold them until the next request
+        self._sweeper = threading.Thread(
+            target=self._sweep_loop, daemon=True, name="lookahead-sweep"
+        )
+        self._sweeper.start()
+
+    # -- observability ---------------------------------------------------
+    def bind_metrics(self, registry) -> None:
+        """Register the lookahead families (service rebinds, like engines)."""
+        launched = registry.labeled_counter(
+            "rag_lookahead_launched_total",
+            "retrievals launched ahead of need (trigger: admission — "
+            "pre-admission launch for an arrived request; session — "
+            "speculative next-turn launch)",
+        )
+        self._m_launched = {
+            t: launched.labels(trigger=t) for t in ("admission", "session")
+        }
+        joins = registry.labeled_counter(
+            "rag_lookahead_joins_total",
+            "serving-tail retrieve outcomes under lookahead (outcome: hit — "
+            "future already resolved at join; late — join waited on a "
+            "still-running future; miss — no future existed, retrieval ran "
+            "inline)",
+        )
+        self._m_joins = {
+            o: joins.labels(outcome=o) for o in ("hit", "late", "miss")
+        }
+        wasted = registry.labeled_counter(
+            "rag_lookahead_wasted_total",
+            "lookahead retrievals discarded unconsumed (reason: superseded "
+            "| expired | abandoned | stale | failed)",
+        )
+        self._m_wasted = {r: wasted.labels(reason=r) for r in _WASTE_REASONS}
+        skipped = registry.labeled_counter(
+            "rag_lookahead_skipped_total",
+            "lookahead launches refused before any work (reason: headroom "
+            "— pool/breaker/queue pressure; inflight — speculation bound; "
+            "shutdown)",
+        )
+        self._m_skipped = {r: skipped.labels(reason=r) for r in _SKIP_REASONS}
+        self._m_prestaged = registry.counter(
+            "rag_lookahead_prestaged_total",
+            "resolved lookahead retrievals whose chunk KV was pre-staged "
+            "into prefix-cache entries / pool blocks (under KV tiering "
+            "this includes cold-tier host→HBM swap-ins performed off the "
+            "critical path — the swap-in hide mechanism)",
+        )
+        self._m_prestage_released = registry.counter(
+            "rag_lookahead_prestage_released_total",
+            "stale pre-stagings released (every block nothing else "
+            "consumed returned to its pool/budget)",
+        )
+        self._m_join_wait = registry.histogram(
+            "rag_lookahead_launch_to_join_seconds",
+            "launch-to-join latency of consumed lookahead futures (the "
+            "retrieval time hidden off the critical path)",
+            buckets=obs_metrics.REQUEST_BUCKETS,
+        )
+        registry.gauge(
+            "rag_lookahead_inflight",
+            "lookahead retrievals launched and not yet resolved",
+            fn=lambda: float(self._inflight),
+        )
+
+    # -- launch / claim / join -------------------------------------------
+    def launch(
+        self, text: str, trigger: str = "admission",
+        session_id: Optional[str] = None,
+    ) -> Optional[RetrievalFuture]:
+        """Start (or dedupe onto) a lookahead retrieval for ``text``.
+
+        Non-blocking. Speculative (session) launches gate on the headroom
+        probe; every launch gates on the in-flight bound. Returns the
+        future, or None when the launch was skipped."""
+        fut, _ = self.launch_tracked(text, trigger, session_id)
+        return fut
+
+    def launch_tracked(
+        self, text: str, trigger: str = "admission",
+        session_id: Optional[str] = None,
+    ) -> Tuple[Optional[RetrievalFuture], bool]:
+        """``launch`` + whether THIS call created the future. Every
+        admission-trigger call (created or deduped) registers its request
+        as a WAITER on the returned future; a shed request passes the
+        future back to ``abandon``, and the future dies only when the last
+        waiter lets go — shedding request B must never strand request A on
+        an inline retrieval."""
+        if not text or self._stop.is_set():
+            if self._stop.is_set():
+                self._m_skipped["shutdown"].inc()
+            return None, False
+        self.sweep()
+        speculative = trigger == "session"
+        if speculative and self.headroom_fn is not None:
+            try:
+                ok = bool(self.headroom_fn())
+            except Exception:  # noqa: BLE001 — a broken probe must not launch
+                ok = False
+            if not ok:
+                self._m_skipped["headroom"].inc()
+                return None, False
+        stale_spec: Optional[RetrievalFuture] = None
+        created = False
+        with self._lock:
+            existing = self._futures.get(text)
+            if existing is not None and not existing.superseded:
+                # dedupe: one future per key
+                fut = existing
+                if not speculative:
+                    fut.waiters += 1  # this request abandons on shed
+                elif session_id is not None:
+                    # the session's speculation slot follows the dedupe —
+                    # its PREVIOUS speculation is replaced (and released)
+                    # exactly like one replaced by a fresh launch
+                    stale_spec = self._session_spec.get(session_id)
+                    self._session_spec[session_id] = fut
+            else:
+                if self._inflight >= int(self.config.max_inflight):
+                    self._m_skipped["inflight"].inc()
+                    return None, False
+                fut = RetrievalFuture(
+                    text, trigger, session_id, int(self.index_gen_fn())
+                )
+                if not speculative:
+                    fut.waiters = 1
+                self._futures[text] = fut
+                if speculative and session_id is not None:
+                    stale_spec = self._session_spec.get(session_id)
+                    self._session_spec[session_id] = fut
+                self._inflight += 1
+                created = True
+            replace_ok = (
+                stale_spec is not None and stale_spec is not fut
+                # never kill a future admission requests still count on —
+                # it dies via abandon/claim/TTL under its own rules
+                and stale_spec.waiters == 0
+            )
+        if replace_ok:
+            self._supersede(stale_spec, "superseded")
+        if not created:
+            return fut, False
+        self._m_launched.get(trigger, self._m_launched["admission"]).inc()
+        flight.emit("lookahead_launch", trigger=trigger)
+        self._queue.put(fut)
+        return fut, True
+
+    def claim(self, text: str) -> Optional[RetrievalFuture]:
+        """Take ownership of the future for ``text`` (the serving tail's
+        side of the pipeline). A claimed future's staging is consumed — the
+        claiming request's own prefix resolve bumps the use counters, so no
+        release path will touch it. Returns None (counting a miss happens
+        at the caller's discretion via ``note_miss``) when no live future
+        matches or the index moved since launch."""
+        with self._lock:
+            fut = self._futures.pop(text, None)
+            if fut is None:
+                return None
+            if fut.superseded:
+                return None
+            # claim under the SAME lock as the pop: a concurrent sweep
+            # either sees claimed (keeps its hands off the staging) or
+            # superseded the future first (we returned None above)
+            fut.claimed = True
+            if fut.session_id is not None:
+                spec = self._session_spec.get(fut.session_id)
+                if spec is fut:
+                    del self._session_spec[fut.session_id]
+        if fut.index_gen != int(self.index_gen_fn()):
+            # launched against an older index snapshot: results are stale
+            fut.claimed = False
+            self._supersede(fut, "stale")
+            return None
+        return fut
+
+    def join(self, fut: RetrievalFuture, timeout: Optional[float] = None):
+        """Block until the claimed future resolves; return its result.
+
+        Raises ``JoinTimeout`` when THIS wait expires (the caller's
+        deadline path) and re-raises the worker-side error as-is (the
+        caller falls back to inline retrieval — a failed speculation must
+        never fail the request)."""
+        hit = fut.resolved()
+        if not fut.done.wait(timeout):
+            raise JoinTimeout("lookahead retrieval did not resolve in time")
+        if fut.error is not None:
+            # failed joins stay out of the launch-to-join histogram — it
+            # measures retrieval time hidden off the critical path, and a
+            # ttl-sized error sample would skew the TTL-sizing signal
+            self._m_wasted["failed"].inc()
+            flight.emit("lookahead_waste", reason="failed")
+            raise fut.error
+        self._m_join_wait.observe(time.monotonic() - fut.t_launch)
+        self._m_joins["hit" if hit else "late"].inc()
+        flight.emit("lookahead_join", outcome="hit" if hit else "late")
+        return fut.result
+
+    def note_miss(self) -> None:
+        """The serving tail ran retrieval inline (no future existed)."""
+        self._m_joins["miss"].inc()
+        flight.emit("lookahead_join", outcome="miss")
+
+    def abandon(self, fut: Optional[RetrievalFuture]) -> None:
+        """A launched future whose request was shed (admission 429/503):
+        let go of it BY IDENTITY — never by key, which could alias a newer
+        future re-created at the same text. The future dies (its staging
+        released, the waste counted) only when the LAST pre-admission
+        waiter lets go: a shed duplicate must not strand the concurrent
+        requests still counting on it, and a session speculation a shed
+        request merely deduped onto survives for the turn it was launched
+        for (it expires by TTL like any other)."""
+        if fut is None:
+            return
+        with self._lock:
+            if fut.claimed or fut.superseded:
+                return
+            fut.waiters = max(0, fut.waiters - 1)
+            if fut.waiters > 0 or fut.trigger != "admission":
+                return
+        self._supersede(fut, "abandoned")
+
+    # -- session speculation ----------------------------------------------
+    def speculate(self, session_id: str, text: str) -> Optional[RetrievalFuture]:
+        """Launch the speculative next-turn retrieval for a session (called
+        while the current turn decodes). Replaces — and releases — the
+        session's previous speculation."""
+        if not self.config.session_pipelining:
+            return None
+        return self.launch(text, trigger="session", session_id=session_id)
+
+    # -- lifecycle ---------------------------------------------------------
+    def _supersede(self, fut: RetrievalFuture, reason: str) -> None:
+        """Mark a future dead and release its staging if it already
+        resolved; an unresolved future releases on the worker thread the
+        moment its (now pointless) retrieval completes. Idempotent: a
+        future dies (and counts as waste) exactly once — an expired
+        session speculation must not be counted again when its session's
+        next turn replaces the stale registry entry. A CLAIMED future is
+        never superseded: a sweep that snapshotted it right before a
+        concurrent ``claim`` must not release the staging the claiming
+        request is about to consume."""
+        with self._lock:
+            if fut.superseded or fut.claimed:
+                return
+            fut.superseded = True
+            if self._futures.get(fut.key) is fut:
+                del self._futures[fut.key]
+            if (
+                fut.session_id is not None
+                and self._session_spec.get(fut.session_id) is fut
+            ):
+                del self._session_spec[fut.session_id]
+        self._m_wasted[reason].inc()
+        flight.emit("lookahead_waste", reason=reason)
+        if fut.resolved():
+            self._release(fut)
+
+    def _release(self, fut: RetrievalFuture) -> None:
+        with self._lock:
+            # atomic take: the worker's end-of-run release and a concurrent
+            # supersede (sweep/abandon/replace) must not both see the handle
+            staging, fut.staging = fut.staging, None
+        if staging is None or self.release_fn is None:
+            return
+        try:
+            self.release_fn(staging)
+            self._m_prestage_released.inc()
+        except Exception:  # noqa: BLE001 — release must never propagate
+            logger.exception("lookahead staging release failed")
+
+    def _sweep_loop(self) -> None:
+        """Periodic TTL sweep (also run opportunistically on every launch):
+        half the TTL, clamped to [0.5s, 5s], so expiry lags the deadline by
+        a bounded slice even with zero traffic."""
+        interval = max(0.5, min(float(self.config.ttl_s) / 2.0, 5.0))
+        while not self._stop.wait(interval):
+            try:
+                self.sweep()
+            except Exception:  # noqa: BLE001 — the sweeper must survive
+                logger.exception("lookahead sweep failed")
+
+    def sweep(self, now: Optional[float] = None) -> int:
+        """Expire unconsumed futures older than the TTL (their staging is
+        released); opportunistically called on every launch. Returns the
+        number expired."""
+        now = time.monotonic() if now is None else now
+        ttl = float(self.config.ttl_s)
+        with self._lock:
+            expired = [
+                f for f in self._futures.values()
+                if not f.claimed and now - f.t_launch > ttl
+            ]
+        for f in expired:
+            self._supersede(f, "expired")
+        return len(expired)
+
+    def stats(self) -> Dict[str, float]:
+        """Live hit and waste accounting."""
+        hit = self._m_joins["hit"].value
+        late = self._m_joins["late"].value
+        miss = self._m_joins["miss"].value
+        joins = hit + late + miss
+        launched = sum(c.value for c in self._m_launched.values())
+        wasted = sum(c.value for c in self._m_wasted.values())
+        out = {
+            "launched": launched,
+            "joins": joins,
+            "hit_rate": (hit / joins) if joins else 0.0,
+            "overlap_rate": ((hit + late) / joins) if joins else 0.0,
+            "waste_rate": (wasted / launched) if launched else 0.0,
+            "prestaged": self._m_prestaged.value,
+            "prestage_released": self._m_prestage_released.value,
+        }
+        if self.tier_stats_fn is not None:
+            # KV-tiering swap-in hide rate: swap-ins the prestage path
+            # performed off the critical path (trigger="lookahead") over
+            # all swap-ins — 1.0 means every cold chunk was resident again
+            # before its request's serving tail needed it
+            try:
+                ts = self.tier_stats_fn() or {}
+            except Exception:  # noqa: BLE001 — stats must never fail a scrape
+                ts = {}
+            hidden = float(ts.get("swap_ins_lookahead", 0))
+            demand = float(ts.get("swap_ins_demand", 0))
+            out["swap_ins_hidden"] = hidden
+            out["swap_ins_demand"] = demand
+            out["swap_in_hide_rate"] = (
+                hidden / (hidden + demand) if (hidden + demand) else 1.0
+            )
+        return out
+
+    def shutdown(self) -> None:
+        """Stop the workers and release every outstanding staging."""
+        self._stop.set()
+        for _ in self._workers:
+            self._queue.put(None)
+        for w in self._workers:
+            _join_worker(w, self.join_timeout_counter, "lookahead")
+        self._sweeper.join(timeout=6.0)  # wakes from _stop within interval
+        with self._lock:
+            leftovers = list(self._futures.values())
+            self._futures.clear()
+            self._session_spec.clear()
+        # fail everything still QUEUED too: a claimed future is no longer
+        # in the registry — the queue is the only place to find it, and a
+        # request blocked in join() must fail fast, not stall out its
+        # whole deadline (the scheduler/coalescer shutdown invariant)
+        while True:
+            try:
+                queued = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if queued is not None and queued not in leftovers:
+                leftovers.append(queued)
+        for f in leftovers:
+            f.superseded = True
+            if not f.resolved():
+                f.error = RuntimeError("lookahead executor is shut down")
+                f.done.set()
+            self._release(f)
+
+    # -- worker ------------------------------------------------------------
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            fut = self._queue.get()
+            if fut is None:
+                return
+            try:
+                if fut.superseded:
+                    continue
+                try:
+                    faults.maybe_fail("lookahead_retrieve")
+                    fut.result = self.retrieve_fn(fut.key)
+                except BaseException as e:  # noqa: BLE001 — joiner falls back
+                    fut.error = e
+            finally:
+                with self._lock:
+                    self._inflight = max(0, self._inflight - 1)
+                # resolve BEFORE pre-staging: a joiner must unblock the
+                # moment results exist, not after the KV warm-up
+                fut.done.set()
+            if fut.error is not None:
+                if fut.superseded:
+                    self._release(fut)
+                continue
+            # The claimed/superseded reads here are deliberately lock-free
+            # racy: a claim() landing mid-prestage leaves the future in the
+            # SAME state as resolving before the claim — the claimer's own
+            # prefix resolve consumes the staged entries (same text, same
+            # chain: release_staged's use counters guard them) and a pool
+            # registration it doesn't beat to admission stays as the
+            # copy-free share, so a claimed future's staging is dropped by
+            # contract, never released (see claim()). Only supersession
+            # must release, and the post-attach re-check below covers a
+            # supersede racing the attach.
+            if (
+                self.prestage_fn is not None
+                and self.config.prestage_kv
+                and not fut.claimed
+                and not fut.superseded
+            ):
+                try:
+                    staging = self.prestage_fn(fut.key, fut.result)
+                except Exception:  # noqa: BLE001 — prestage is best-effort
+                    logger.exception("lookahead prestage failed")
+                    staging = None
+                if staging is not None:
+                    fut.staging = staging
+                    self._m_prestaged.inc()
+                    flight.emit("prestage", trigger=fut.trigger)
+            if fut.superseded:
+                self._release(fut)

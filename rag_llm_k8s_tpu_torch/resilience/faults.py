@@ -27,9 +27,9 @@ Three ways to arm:
 The site catalog (``SITES``) is closed on purpose: a typo'd site name is a
 programming error, not a silently-never-firing fault. The catalog is the
 JAX package's whole; the port's paths traverse ``store_lookup``, ``embed``,
-``insert``, ``decode_step``, ``generate``, ``migrate`` and the prefix
-cache's ``kv_swap_in`` and ``chunk_splice``; ``lookahead_retrieve`` sits on
-a path it has not ported yet (``ROADMAP.md`` Queue 1 item 8).
+``insert``, ``decode_step``, ``generate``, ``migrate``, the prefix
+cache's and the continuous engine's ``kv_swap_in`` and ``chunk_splice``,
+and the lookahead executor's ``lookahead_retrieve``.
 """
 
 from __future__ import annotations

@@ -58,6 +58,17 @@ circuit breaker over the continuous engine's resets turns readiness off;
 drain. ``/debug/faults`` arms fault sites only when ``TPU_RAG_FAULTS`` is
 set.
 
+Retrieval lookahead, as in the JAX service (``TPU_RAG_LOOKAHEAD=1``,
+``rag/lookahead.py``): ``/generate`` launches a request's retrieval into a
+bounded executor before the admission gate can queue it, and ``answer``
+joins the future (``timings["lookahead_hit"]``); a request with a
+``session_id`` speculates its session's next turn before generating. With
+the prefix cache on, a resolved retrieval pre-stages its chunk KV into the
+cache and, on a paged continuous engine, registers the chain's pool blocks
+(``ContinuousEngine.prestage_prefix``, an engine task); a speculation that
+dies unconsumed releases both. Greedy streams are the same with it on or
+off.
+
 The durable lifecycle, as in the JAX service: with ``TPU_RAG_FLIGHT_WAL=1``
 the service opens a ``FlightWAL`` in ``TPU_RAG_FLIGHT_WAL_DIR`` (ring only
 when the directory cannot be opened) and tees the flight journal into it;
@@ -98,7 +109,8 @@ import socketserver
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server as _wsgiref_make_server
 
@@ -117,6 +129,7 @@ from rag_llm_k8s_tpu_torch.obs import flight, tracing
 from rag_llm_k8s_tpu_torch.obs import logging as obs_logging
 from rag_llm_k8s_tpu_torch.obs import metrics as obs_metrics
 from rag_llm_k8s_tpu_torch.ops.knn import knn_topk
+from rag_llm_k8s_tpu_torch.rag import lookahead as lookahead_mod
 from rag_llm_k8s_tpu_torch.rag.chunking import split_text
 from rag_llm_k8s_tpu_torch.rag.pdf import extract_text
 from rag_llm_k8s_tpu_torch.rag.prompt import assemble_context, assemble_prompt, extract_answer
@@ -252,6 +265,10 @@ class RagService:
             pool = scheduler.engine.kv_pool
             if pool is not None:
                 self.admission.saturation_hint = lambda: pool.available() == 0
+                # non-hot registered blocks are reclaimable warmth: while
+                # there are any, a dry pool queues the request, not a 429
+                sched_eng = scheduler.engine
+                self.admission.reclaimable_hint = lambda: sched_eng.reclaimable_blocks() > 0
         self.lifecycle = LifecycleCoordinator(
             admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
             persist_fn=self._persist_for_restart,
@@ -288,6 +305,29 @@ class RagService:
             scheduler.pending_hint = lambda: self._inflight_generate
         self._prefix_memo: Dict[str, tuple] = {}
         self._init_observability()
+        # retrieval lookahead (TPU_RAG_LOOKAHEAD, off by default): a
+        # request's retrieval launches before the admission gate can queue
+        # it, and answer() joins the future
+        self.lookahead: Optional[lookahead_mod.LookaheadExecutor] = None
+        self._session_lock = threading.Lock()
+        self._sessions: "OrderedDict[str, Tuple[float, List[str]]]" = OrderedDict()
+        la_cfg = config.lookahead
+        if la_cfg.enabled:
+            def _la_retrieve(text: str):
+                # the entry point the sequential path uses, so the results
+                # and the greedy streams are the same; TTL-bounded, so a
+                # wedged coalescer cannot pin the bounded pool
+                return self.retrieve_coalescer.submit(text, timeout=float(la_cfg.ttl_s))
+
+            self.lookahead = lookahead_mod.LookaheadExecutor(
+                la_cfg, retrieve_fn=_la_retrieve, prestage_fn=self._lookahead_prestage,
+                release_fn=self._lookahead_release, headroom_fn=self._lookahead_headroom,
+                index_gen_fn=lambda: self.store.ntotal,
+                # the current counters, not the scrape's memo
+                tier_stats_fn=lambda: self._summed("tier_stats"),
+                registry=self.metrics,
+            )
+            self.lookahead.join_timeout_counter = self.retrieve_coalescer.join_timeout_counter
 
     @property
     def flight(self):
@@ -533,14 +573,14 @@ class RagService:
             tier_pool.labels_callback(lambda t=t: float(self._pool_tier_occupancy().get(t, 0)), tier=t)
 
     def _pool_tier_occupancy(self) -> Dict[str, int]:
-        """The paged pool's blocks by holder (JAX ``tier_occupancy``; empty
-        without a paged continuous scheduler). The port's pool holds no prefix
-        registrations until ROADMAP.md Queue 1 item 8, so hot and warm read
-        0, as a JAX pool with none, and every block in use is a row's."""
+        """The paged pool's blocks by holder (JAX ``tier_occupancy``):
+        registered prefix chains by tier (lookahead's prestage makes them)
+        and the rest, the live rows'; empty without a paged continuous
+        scheduler. The pool's ledger is safe to read from a scrape thread."""
         sched = self.scheduler
-        if not isinstance(sched, ContinuousScheduler) or sched.engine.kv_pool is None:
+        if not isinstance(sched, ContinuousScheduler):
             return {}
-        return {"hot": 0, "warm": 0, "rows": sched.engine.kv_pool.blocks_in_use()}
+        return sched.engine.tier_occupancy()
 
     def _pcache_stat(self, name: str) -> float:
         return float(sum(
@@ -581,19 +621,17 @@ class RagService:
     def _pool_retier(self) -> None:
         """Cache -> pool tier mirror (``PrefixCache.on_retier``, JAX
         ``_pool_retier``): a task on the continuous scheduler's thread
-        re-tags the pool's prefix registrations. The port's pool holds no
-        registrations until ROADMAP.md Queue 1 item 8, so the task finds no
-        ``retier_registrations`` and changes nothing; the coalescing
-        scheduler takes no engine tasks."""
+        re-tags each pool registration with its chain's tier
+        (``ContinuousEngine.retier_registrations``; a cold chain's
+        registration drops). The coalescing scheduler takes no engine
+        tasks."""
         sched = self.scheduler
         if not hasattr(sched, "run_on_engine"):
             return
         chain_tier = self.engine.prefix_cache.chain_tier
 
         def _retier_task(e):
-            retier = getattr(e, "retier_registrations", None)
-            if retier is not None:
-                retier(chain_tier)
+            e.retier_registrations(chain_tier)
 
         sched.run_on_engine(_retier_task)
 
@@ -792,6 +830,9 @@ class RagService:
         self.ready = True
 
     def shutdown(self) -> None:
+        if self.lookahead is not None:
+            # first: its workers submit into the retrieve coalescer
+            self.lookahead.shutdown()
         self.retrieve_coalescer.shutdown()
         if self.scheduler is not None:
             self.scheduler.shutdown()
@@ -1086,16 +1127,130 @@ class RagService:
             self._m_deadline.labels(stage=stage).inc()
             raise DeadlineExceeded(stage, deadline.budget_ms)
 
+    # -- retrieval lookahead (rag/lookahead.py callbacks) -------------------
+    def _lookahead_headroom(self) -> bool:
+        """False while speculative work would press on live traffic: the
+        breaker is open, requests queue at the admission gate, or a paged
+        pool lacks a full row's blocks (a read-only probe; the authoritative
+        gate is ``prestage_prefix``'s, on the scheduler thread)."""
+        if self.breaker.open:
+            return False
+        if self.admission.queue_depth() > 0:
+            return False
+        eng = getattr(self.scheduler, "engine", None)
+        pool = getattr(eng, "kv_pool", None)
+        if pool is not None and not pool.can_alloc(eng.MB):
+            return False
+        return True
+
+    def _lookahead_prestage(self, text: str, r):
+        """Executor-worker callback as a lookahead retrieval resolves: the
+        resolved chunks' segment KV built into prefix-cache entries
+        (``PrefixCache.stage``) and, on a paged continuous engine, the
+        chain's full pool blocks registered ahead of admission
+        (``prestage_prefix``, an engine task that records the registration's
+        generation when it made the registration). Returns the staging
+        handle a dead speculation releases, or None."""
+        if not self._prefix_enabled():
+            return None
+        if isinstance(r, tuple) and len(r) == 4 and r[0] == "__device__":
+            return None  # unfetched device handle: nothing to key on the host
+        results = r[0] if isinstance(r, tuple) else r
+        if not results or not self._lookahead_headroom():
+            return None
+        ps = self._prompt_segments(text, results)
+        if ps is None:
+            return None
+        cache = self.engine.prefix_cache
+        cp, record = cache.stage(ps[1])
+        if cp is None:
+            return None
+        handle = {"record": record, "chain_key": cp.chain_key, "pool": None}
+        sched = self.scheduler
+        if cp.chain_key is not None and isinstance(sched, ContinuousScheduler) and sched.engine.paged:
+            # only the task that made the registration may release it, and
+            # the generation keeps it from freeing one re-created since; a
+            # release task queued later runs after this one
+            tier = cache.chain_tier(cp.chain_key)
+
+            def _prestage_task(e, _h=handle, _cp=cp, _tier=tier):
+                if e.prestage_prefix(_cp, tier=_tier) == "registered":
+                    _h["pool"] = e.prestage_gen(_cp.chain_key)
+
+            sched.run_on_engine(_prestage_task)
+        return handle
+
+    def _lookahead_release(self, handle: Dict) -> None:
+        """Release what a dead speculation staged and nothing consumed: its
+        prefix-cache entries (``release_staged``) and its pool registration
+        (``release_prestaged`` with ``only_unused`` and the staged
+        generation, as an engine task after the prestage task)."""
+        cache = self.engine.prefix_cache
+        if cache is not None:
+            cache.release_staged(handle.get("record"))
+        ck = handle.get("chain_key")
+        sched = self.scheduler
+        if ck is not None and hasattr(sched, "run_on_engine"):
+            sched.run_on_engine(
+                lambda e: handle.get("pool") is not None
+                and e.release_prestaged(ck, only_unused=True, gen=handle["pool"])
+            )
+
+    def _session_note(self, session_id: str, prompt: str) -> str:
+        """Fold a turn's prompt into its session and return the speculative
+        next-turn query: the trailing ``session_context_turns`` turns joined.
+        Sessions are LRU-capped and idle-expired."""
+        lc = self.config.lookahead
+        now = time.monotonic()
+        with self._session_lock:
+            _, hist = self._sessions.pop(session_id, (now, []))
+            hist = (hist + [prompt])[-max(1, lc.session_context_turns):]
+            self._sessions[session_id] = (now, hist)
+            for k in list(self._sessions):
+                if k == session_id:
+                    continue
+                ts0, _ = self._sessions[k]
+                if len(self._sessions) > lc.session_max or now - ts0 > lc.session_ttl_s:
+                    del self._sessions[k]
+                else:
+                    break  # ordered by recency: the rest are fresher
+            return " ".join(hist)
+
+    def _join_lookahead(self, fut, deadline: Optional[Deadline], timings: Dict[str, float]):
+        """The serving tail's side of a claimed lookahead future: its
+        result, with the worker's tokenize time zeroed (the stage timing is
+        the join's wall clock). ``JoinTimeout`` (this request's deadline)
+        is a 504 on the retrieve stage; a worker-side failure returns None
+        and the request retrieves inline."""
+        was_hit = fut.resolved()
+        try:
+            with tracing.span("lookahead_join"):
+                r = self.lookahead.join(fut, timeout=deadline.wait_timeout() if deadline is not None else None)
+        except lookahead_mod.JoinTimeout:
+            self._m_deadline.labels(stage="retrieve").inc()
+            raise DeadlineExceeded("retrieve", deadline.budget_ms if deadline else None) from None
+        except Exception:  # noqa: BLE001 — a failed speculation must not fail the request
+            logger.warning("lookahead retrieval failed; retrieving inline", exc_info=True)
+            return None
+        timings["lookahead_hit"] = 1.0 if was_hit else 0.0
+        if r[0] == "__device__":
+            return (r[0], r[1], r[2], 0.0)
+        return (r[0], 0.0)
+
     def answer(
         self, user_prompt: str, sampling: Optional[SamplingConfig] = None,
         deadline: Optional[Deadline] = None, tenant: Optional[str] = None,
+        session_id: Optional[str] = None,
     ) -> Dict:
         """Retrieve, assemble, generate. ``sampling`` overrides the engine's
         settings for this request; only the continuous scheduler takes it.
         ``deadline`` is checked after retrieval and after assembly and
         bounds the waits (``DeadlineExceeded`` names the stage); ``tenant``
         rides to the scheduler. Each stage is a span of the current trace
-        (``obs/tracing.py``)."""
+        (``obs/tracing.py``). With lookahead on, the retrieval is the
+        future the HTTP layer launched, joined (else inline), and a
+        ``session_id`` speculates the session's next turn before
+        generation."""
         if sampling is not None and not isinstance(self.scheduler, ContinuousScheduler):
             raise ValueError("per-request sampling needs batching='continuous'")
         timings: Dict[str, float] = {}
@@ -1106,17 +1261,29 @@ class RagService:
             self._inflight_generate += 1
         in_retrieve = in_generate = True
         try:
+            la = self.lookahead
+            fut = la.claim(user_prompt) if la is not None else None
             with tracing.span("retrieve") as retrieve_span:
-                try:
-                    r = self.retrieve_coalescer.submit(
-                        user_prompt, timeout=deadline.wait_timeout() if deadline is not None else None
-                    )
-                except TimeoutError:
-                    self._m_deadline.labels(stage="retrieve").inc()
-                    raise DeadlineExceeded("retrieve", deadline.budget_ms if deadline else None) from None
+                r = self._join_lookahead(fut, deadline, timings) if fut is not None else None
+                if r is None:
+                    if la is not None:
+                        la.note_miss()
+                    try:
+                        r = self.retrieve_coalescer.submit(
+                            user_prompt, timeout=deadline.wait_timeout() if deadline is not None else None
+                        )
+                    except TimeoutError:
+                        self._m_deadline.labels(stage="retrieve").inc()
+                        raise DeadlineExceeded("retrieve", deadline.budget_ms if deadline else None) from None
             self._release(retrieve=True)
             in_retrieve = False
             self._deadline_check(deadline, "retrieve")
+            if session_id and la is not None:
+                # speculate the next turn now, so its retrieval and KV
+                # staging overlap this turn's generation
+                spec_text = self._session_note(session_id, user_prompt)
+                if spec_text:
+                    la.speculate(session_id, spec_text)
             if r[0] == "__device__":
                 timings["tokenize_ms"] = r[3]
                 timings["embed_retrieve_ms"] = (time.monotonic() - t_all) * 1e3 - r[3]
@@ -1582,7 +1749,10 @@ class WsgiApp:
         the admission gate, then ``answer``. ``{"trace": true}`` returns the
         span tree inline, ``{"timeline": true}`` the request's flight
         timeline on continuous serving. Every response carries
-        ``x-trace-id`` and ``traceparent``. A ``sampling`` field is not read
+        ``x-trace-id`` and ``traceparent``. With lookahead on, the
+        retrieval launches before the gate (``session_id`` keys the
+        session), and a shed or a queue-stage 504 abandons it. A
+        ``sampling`` field is not read
         (per-request sampling is the Python API,
         ``RagService.answer(sampling=)``)."""
         svc = self.service
@@ -1593,20 +1763,30 @@ class WsgiApp:
         tr = tracing.start_trace(trace_id=ctx.trace_id if ctx else None,
                                  parent_span_id=ctx.span_id if ctx else None)
         trace_id, span_id = tr.trace_id, tr.span_id
+        la = svc.lookahead
+        launched_fut = None
         try:
             data = request.json()
             prompt = data.get("prompt", "")
+            session_id = data.get("session_id")
+            if session_id is not None:
+                session_id = str(session_id)
             raw_tenant = data.get("tenant_id") or request.headers.get("x-tenant-id") or DEFAULT_TENANT
             tenant = svc.tenant_tracker.intern(str(raw_tenant))
             tr.attrs["tenant"] = tenant
             logger.debug("User query: %s", prompt)
             tr.attrs["prompt"] = prompt[:80]
             deadline, dl_err = self._request_deadline(data, request.headers)
+            if la is not None and prompt and dl_err is None:
+                # launch the retrieval before the admission gate can queue
+                # this request; keep the future itself, so a shed lets go of
+                # this one and never of a newer one at the same text
+                launched_fut, _ = la.launch_tracked(prompt, trigger="admission", session_id=session_id)
             if dl_err is not None:
                 status, payload = 400, {"error": dl_err}
             else:
                 with svc.admission.admit(deadline=deadline, tenant=tenant):
-                    payload = svc.answer(prompt, deadline=deadline, tenant=tenant)
+                    payload = svc.answer(prompt, deadline=deadline, tenant=tenant, session_id=session_id)
                 # the access line while the trace is current (the JSON
                 # formatter stamps trace_id/span_id from the contextvar)
                 access_logger.info("request served", extra={
@@ -1620,6 +1800,8 @@ class WsgiApp:
                 if data.get("timeline") and payload.get("request_id") is not None:
                     payload = dict(payload, timeline=svc.flight.timeline(payload["request_id"]))
         except AdmissionRejected as e:
+            if la is not None:
+                la.abandon(launched_fut)  # the last waiter to let go releases it
             # 429: retry this pod later; 503: the breaker or a drain, go elsewhere
             status, payload = e.status, {
                 "error": "server overloaded" if e.status == 429 else "server draining",
@@ -1628,6 +1810,10 @@ class WsgiApp:
             }
             headers["Retry-After"] = str(max(1, int(e.retry_after_s + 0.5)))
         except DeadlineExceeded as e:
+            if la is not None:
+                # a queue-stage expiry never claimed its future (abandon is a
+                # no-op on a claimed one)
+                la.abandon(launched_fut)
             status, payload = 504, {"error": str(e), "stage": e.stage}
         except Exception as e:  # noqa: BLE001 — any failure → JSON error
             status = 500

@@ -2,7 +2,8 @@
 own copy of ``rag_llm_k8s_tpu/sim/policy.py`` (the parts the paged
 continuous engine runs). Standard library only (and the port's stdlib-only
 ``utils.buckets``): block arithmetic,
-admission verdicts, prefill grouping, window growth, preemption order,
+admission verdicts, prefill grouping, window growth, the registration
+reclaim order, preemption order,
 the mixed-window budget split and the resubmission rule.
 """
 
@@ -88,6 +89,17 @@ def grow_shortfall(
             short.append((admit_seq, row, need_total - have, have))
     short.sort()
     return short
+
+
+def reclaim_registration(prefix_keys: Iterable, tier_of: Dict, gen_of: Dict):
+    """Growth-pressure registration victim: non-hot before hot (a warm
+    chain costs one re-scatter to bring back, a hot one a proven-shared
+    re-stage), the oldest registration generation first within a tier;
+    None when there is none."""
+    keys = list(prefix_keys)
+    if not keys:
+        return None
+    return min(keys, key=lambda k: (tier_of.get(k, "hot") == "hot", gen_of.get(k, 0)))
 
 
 def preempt_victim(active: Iterable[Tuple[int, int]]) -> Tuple[int, int]:

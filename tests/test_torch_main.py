@@ -290,7 +290,7 @@ PORTED_ENV = {
 def _shared(port_cfg, jax_cfg):
     """Every field the two configs share, section by section."""
     out = {}
-    for section in ("server", "sampling", "engine", "retrieval", "flight", "router"):
+    for section in ("server", "sampling", "engine", "retrieval", "flight", "router", "lookahead"):
         p, j = getattr(port_cfg, section), getattr(jax_cfg, section)
         names = {f.name for f in dataclasses.fields(p)} & {f.name for f in dataclasses.fields(j)}
         # a nested config (the prefix cache's, tiering's) compares field by field
@@ -330,11 +330,45 @@ def test_from_env_validation_messages_match(env):
 
 @pytest.mark.parametrize("env,item", [
     ({"TPU_RAG_MESH": "tp=2"}, "item 10"),
-    ({"TPU_RAG_LOOKAHEAD": "1"}, "item 8"),
 ])
 def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         AppConfig.from_env(env)
+
+
+# the lookahead keys (ROADMAP.md Queue 1 item 8): the deployment's values
+# (deploy/llm/deploy.yaml) and the rest parse to JAX's fields, bad ones raise
+# JAX's message
+LOOKAHEAD_GOOD = [
+    {"TPU_RAG_LOOKAHEAD": "1"},
+    {"TPU_RAG_LOOKAHEAD": "1", "TPU_RAG_LOOKAHEAD_WORKERS": "2", "TPU_RAG_LOOKAHEAD_INFLIGHT": "8",
+     "TPU_RAG_LOOKAHEAD_TTL_S": "30", "TPU_RAG_LOOKAHEAD_PRESTAGE": "1", "TPU_RAG_LOOKAHEAD_SESSIONS": "1",
+     "TPU_RAG_LOOKAHEAD_SESSION_TURNS": "2", "TPU_RAG_LOOKAHEAD_SESSION_MAX": "256",
+     "TPU_RAG_LOOKAHEAD_SESSION_TTL_S": "600"},
+    {"TPU_RAG_LOOKAHEAD": "0", "TPU_RAG_LOOKAHEAD_PRESTAGE": "0", "TPU_RAG_LOOKAHEAD_SESSIONS": "0",
+     "TPU_RAG_LOOKAHEAD_TTL_S": "0.1", "TPU_RAG_LOOKAHEAD_SESSION_TTL_S": "1"},
+]
+LOOKAHEAD_BAD = [
+    {"TPU_RAG_LOOKAHEAD": "yes"}, {"TPU_RAG_LOOKAHEAD_PRESTAGE": "2"}, {"TPU_RAG_LOOKAHEAD_WORKERS": "0"},
+    {"TPU_RAG_LOOKAHEAD_INFLIGHT": "0"}, {"TPU_RAG_LOOKAHEAD_TTL_S": "0.05"},
+    {"TPU_RAG_LOOKAHEAD_SESSION_TURNS": "0"}, {"TPU_RAG_LOOKAHEAD_SESSION_MAX": "many"},
+    {"TPU_RAG_LOOKAHEAD_SESSION_TTL_S": "0.5"},
+]
+
+
+@pytest.mark.parametrize("env", LOOKAHEAD_GOOD + LOOKAHEAD_BAD)
+def test_the_lookahead_keys_parse_as_jax_parses_them(env, caplog):
+    try:
+        want = JAppConfig.from_env(env)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            AppConfig.from_env(env)
+        assert str(got.value) == str(e)
+        return
+    assert env not in LOOKAHEAD_BAD
+    got = AppConfig.from_env(env)
+    assert dataclasses.asdict(got.lookahead) == dataclasses.asdict(want.lookahead)
+    assert "ignoring" not in caplog.text  # keys from_env reads
 
 
 # the pool-role, flight WAL and router keys (ROADMAP.md Queue 1 item 8):

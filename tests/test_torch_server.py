@@ -246,7 +246,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'tokenizer.bpe', 'tokenizer.unigram', 'models.loader', 'engine.batching', 'server.main',\n"
         "        'obs.flight', 'obs.metrics', 'obs.tracing', 'obs.logging', 'resilience', 'resilience.faults',\n"
         "        'resilience.deadline', 'resilience.breaker', 'resilience.admission', 'resilience.lifecycle',\n"
-        "        'server.router', 'sim.replay'}\n"
+        "        'server.router', 'sim.replay', 'rag.lookahead'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )
