@@ -96,7 +96,13 @@
    request in flight with the tokens it had emitted, an ``insert`` fault,
    retries used up, the breaker opened by real resets and healed, deadlines,
    the admission gate's 429s, the drain, a ``generate`` fault on the one-shot
-   service); then a phase-separated continuous engine run. Then the rest
+   service; the incident bundles its breaker flip, reset storm and 504s
+   spool); then a phase-separated continuous engine run. Between the two,
+   the goodput ledger (``phase_goodput``): 4 solo ``/query`` and bursts
+   through interleaved and phase-separated admission under two tenants,
+   each window kind's MFU and bandwidth use at the H100's peaks, the
+   requests' chip time against the scheduler's busy time, the ledger's own
+   cost per window, ``/slo``, and the device gauges against the allocator. Then the rest
    of the continuous engine: the dense continuous cache
    (``phase_continuous_dense``: a service with ``TPU_RAG_KV_PAGED=0``, its
    bytes and launches, and a dense engine teacher-forced along a paged
@@ -2146,7 +2152,15 @@ def phase_resilience(service_bits, max_new: int = 48):
     ``/healthz`` draining, ``exit_fn`` called; (h) a ``generate`` fault on
     the one-shot service: one 500, then 200. Each case gets its own
     ``RagService`` (breaker, gate, drain) over the shared continuous
-    scheduler, greedy, ``max_new`` tokens."""
+    scheduler, greedy, ``max_new`` tokens. The incident spool: every case's
+    service spools into one temporary directory, removed at the end; (d)
+    must spool a ``reset_storm`` and a ``breaker_open`` bundle and (e) one
+    ``deadline_exceeded`` bundle for its two 504s (the second inside the
+    cooldown is suppressed), each listed by ``/debug/incidents`` and loaded
+    through ``?id=`` with its journal, metrics snapshot, config fingerprint
+    and traces."""
+    import shutil
+    import tempfile
     import threading
 
     import torch
@@ -2166,9 +2180,12 @@ def phase_resilience(service_bits, max_new: int = 48):
     cont = sched.engine
     cont.sampling = greedy  # /generate reads no sampling field: the engine's own is greedy here
     made = []
+    spool = tempfile.mkdtemp(prefix="incidents_")
+    # the read-only /debug routes armed (TPU_RAG_DEBUG=1), the spool here
+    fl = dataclasses.replace(svc1.config.flight, spool_dir=spool, debug_endpoints=True)
 
     def service(scheduler=sched, engine_config=ec, **res):
-        svc = RagService(dataclasses.replace(svc1.config, engine=engine_config,
+        svc = RagService(dataclasses.replace(svc1.config, engine=engine_config, flight=fl,
                                              resilience=dataclasses.replace(base_res, **res)),
                          engine, svc1.llm_tokenizer, svc1.encoder, svc1.encoder_tokenizer, store, scheduler=scheduler)
         svc.ready = True
@@ -2196,6 +2213,27 @@ def phase_resilience(service_bits, max_new: int = 48):
         if any(th.is_alive() for th in threads):
             fail("resilience: a request did not finish within 600 s")
         return out
+
+    def bundles(svc, client, case, want):
+        """The case's service spooled ``want`` (trigger -> bundles) by its
+        own count, and ``/debug/incidents`` lists them, each loaded through
+        ``?id=`` (the directory also holds the earlier cases' bundles)."""
+        fam = svc.metrics.get_family("rag_incident_bundles_total")
+        got = {t: int(fam.labels(trigger=t).value) for t in want}
+        listed = client.get("/debug/incidents").get_json()["incidents"]
+        if not {t for t in want} <= {b["trigger"] for b in listed}:
+            fail(f"resilience ({case}): /debug/incidents lists {[b['trigger'] for b in listed]}")
+        for b in listed:
+            if b["trigger"] in want:
+                full = client.get(f"/debug/incidents?id={b['id']}").get_json()
+                keys = ("journal", "metrics", "config_fingerprint", "traces")
+                if not all(full.get(k) is not None for k in keys) or not full["config_fingerprint"].get("sha256"):
+                    fail(f"resilience ({case}): bundle {b['id']} lacks one of {keys}")
+                print(f"resilience ({case}) incident bundle {b['id']}: journal_events={len(full['journal'])} "
+                      f"metrics={len(full['metrics'])} traces={len(full['traces'])} "
+                      f"config_sha256={full['config_fingerprint']['sha256'][:12]}", flush=True)
+        if got != want:
+            fail(f"resilience ({case}): incident bundles {got}, want {want}")
 
     def no_blocks(case):
         t = time.monotonic()
@@ -2332,15 +2370,18 @@ def phase_resilience(service_bits, max_new: int = 48):
                 or shed[0] != 503 or shed[1].get("reason") != "breaker_open" or not shed[2] or int(shed[2]) < 1
                 or h2.status_code != 200 or after[0] != 200):
             fail("resilience (d): the breaker did not open and heal as it should")
+        bundles(svc, client, "d", {"reset_storm": 1, "breaker_open": 1})
 
         # (e) deadlines: two unfaulted runs of one request place its decode
         # (flight events: ``admit`` carries the first token, then
-        # ``complete``); the deadline falls 30 % into the faster run's
-        # decode, so the next run may reach its first token ~25 % later or
-        # end ~34 % sooner and still expire mid-decode (one host ran the same
-        # request 27 % faster the second time). Each evicted row must hold
-        # tokens: an expiry before the first token would evict a prefilling
-        # row, which also answers 504 at stage "decode"
+        # ``complete``); the deadline falls half way between the later run's
+        # first token and the earlier run's end, the span both runs were
+        # decoding in. Runs of one request differ by ~15-30 % on one host
+        # (first tokens 1,627 and 1,885 ms in one call; a deadline placed 30 %
+        # into the faster run's decode expired before a third run's first
+        # token). Each evicted row must hold tokens: an expiry before the
+        # first token would evict a prefilling row, which also answers 504 at
+        # stage "decode"
         svc, client = service()
         placed = []
         for _ in range(2):
@@ -2351,8 +2392,10 @@ def phase_resilience(service_bits, max_new: int = 48):
             evs = {e["type"]: e["t_ms"] for e in flight.recorder().timeline(body["request_id"])["events"]}
             pre_ms = body["timings"]["total_ms"] - evs["complete"]  # before the scheduler: retrieve, assemble
             placed.append((pre_ms + evs["admit"], pre_ms + evs["complete"]))
-        first_ms, done_ms = min(placed, key=lambda r: r[1])
-        dl_ms = round(first_ms + 0.3 * (done_ms - first_ms))
+        first_ms, done_ms = max(f for f, _ in placed), min(d for _, d in placed)
+        if done_ms <= first_ms:
+            fail(f"resilience (e): the two runs share no decoding span: {placed}")
+        dl_ms = round(first_ms + 0.5 * (done_ms - first_ms))
         flight.recorder().clear()
         t = time.monotonic()
         code, body, _ = post(client, {"prompt": RES_QUESTIONS[2], "deadline_ms": dl_ms})
@@ -2377,6 +2420,8 @@ def phase_resilience(service_bits, max_new: int = 48):
             fail("resilience (e): deadlines not honoured")
         if len(evicted) != 2 or min(evicted) < 1:
             fail(f"resilience (e): evicted rows held {evicted} tokens; want two rows evicted mid-decode")
+        # two 504s, one bundle: the header request's fell inside the cooldown
+        bundles(svc, client, "e", {"deadline_exceeded": 1})
 
         # (f) the admission gate: 2 running + 1 queued
         svc, client = service(admission_max_concurrency=2, admission_max_queue=1)
@@ -2467,7 +2512,254 @@ def phase_resilience(service_bits, max_new: int = 48):
         sched.shutdown()
         cont.arena = None
         torch.cuda.empty_cache()
+        shutil.rmtree(spool, ignore_errors=True)
     return launches
+
+
+GOODPUT_TENANTS = ("tenant-a", "tenant-b")
+GOODPUT_MAX_READING = 1.05  # no card exceeds its peak: a reading past this is wrong arithmetic
+GOODPUT_RECORDS = ("record_prefill", "record_prefill_px", "record_decode", "record_mixed", "record_verify",
+                   "record_preempt_stall")
+
+
+def _armed(svc):
+    """The service with its read-only ``/debug`` routes armed
+    (``TPU_RAG_DEBUG=1``)."""
+    svc.config = dataclasses.replace(svc.config, flight=dataclasses.replace(svc.config.flight,
+                                                                            debug_endpoints=True))
+    return svc
+
+
+def _kind_delta(before, after):
+    """Per window kind between two ledger states: windows, busy seconds and
+    the busy-weighted mean MFU and bandwidth use of the windows between."""
+    out = {}
+    for kind, ks in after["kinds"].items():
+        b = before["kinds"].get(kind, {})
+        busy = ks["busy_s"] - b.get("busy_s", 0.0)
+        n = int(ks["windows"] - b.get("windows", 0))
+        if n:
+            out[kind] = {"windows": n, "busy_s": busy,
+                         "mfu": (ks["mfu_w"] - b.get("mfu_w", 0.0)) / busy if busy > 0 else 0.0,
+                         "bw_util": (ks["bw_w"] - b.get("bw_w", 0.0)) / busy if busy > 0 else 0.0}
+    return out
+
+
+def _rounded(kinds):
+    return {k: {f: round(v, 6) if isinstance(v, float) else v for f, v in ks.items()} for k, ks in kinds.items()}
+
+
+def _timed_ledger(cont):
+    """Wrap the engine's ``record_*`` calls and its ``goodput_window``
+    journaling with ``perf_counter``: ``{"record": [s...], "journal": [s...]}``
+    per call. Returns the samples and an undo."""
+    led = cont.ledger
+    samples = {"record": [], "journal": []}
+    real = {n: getattr(led, n) for n in GOODPUT_RECORDS}
+    real_journal = cont._journal_window
+
+    def wrap(fn, into):
+        def timed_call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                samples[into].append(time.perf_counter() - t)
+        return timed_call
+
+    for n, fn in real.items():
+        setattr(led, n, wrap(fn, "record"))
+    cont._journal_window = wrap(real_journal, "journal")
+
+    def undo():
+        for n, fn in real.items():
+            setattr(led, n, fn)
+        cont._journal_window = real_journal
+
+    return samples, undo
+
+
+def _goodput_burst(svc, client, questions, tenants):
+    """The questions at once from threads, each under its tenant
+    (``tenant_id``); fails unless every one is a 200 with chip time."""
+    import threading
+
+    out = [None] * len(questions)
+
+    def ask(i):
+        r = client.post("/generate", json_body={"prompt": questions[i], "tenant_id": tenants[i % len(tenants)]})
+        out[i] = (r.status_code, r.get_json())
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(questions))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        fail("goodput: a burst request did not finish within 600 s")
+    for i, (code, body) in enumerate(out):
+        if code != 200 or body["timings"].get("chip_ms", 0.0) <= 0:
+            fail(f"goodput burst request {i}: {code} {body}")
+    return [b for _, b in out]
+
+
+def _check_windows(events, what):
+    """Every ``goodput_window`` event's categories sum to its ``dur_ms``."""
+    from rag_llm_k8s_tpu_torch.obs import goodput
+
+    bad = [e for e in events if abs(sum(e.get(c, 0.0) for c in goodput.WINDOW_CATEGORIES) - e["dur_ms"]) > 0.01]
+    if not events or bad:
+        fail(f"goodput ({what}): {len(bad)} of {len(events)} windows do not sum to their duration: {bad[:2]}")
+
+
+def _check_readings(kinds, want, what):
+    """MFU and bandwidth use of each kind in ``want`` present and <= 1.05."""
+    for kind in want:
+        k = kinds.get(kind)
+        if k is None or k["windows"] < 1:
+            fail(f"goodput ({what}): no {kind} windows ({kinds})")
+        if not 0.0 < k["bw_util"] <= GOODPUT_MAX_READING or not 0.0 < k["mfu"] <= GOODPUT_MAX_READING:
+            fail(f"goodput ({what}): {kind} reads MFU {k['mfu']} and bandwidth use {k['bw_util']}: past the "
+                 f"card's peak (or none)")
+
+
+def phase_goodput(service_bits, max_new: int = 48):
+    """The goodput ledger, SLOs, tenants and device gauges on the card, over
+    the one-shot service and continuous services on its model (no model is
+    loaded). The ledger reads the H100's peaks (989 dense bf16 TFLOP/s,
+    3,350 GB/s) and the host clock of each sync window.
+
+    (a) One-shot: 4 solo ``/query`` (the fused path) under two tenants: the
+    ``oneshot`` kind's MFU and bandwidth use (<= 1.05), each response's
+    ``chip_ms`` within 2% of its ``generate_ms``, the tenants' chip seconds
+    in the scrape. (b) Continuous, paged: a burst of 8 ``/generate`` at
+    ``max_new`` tokens under two tenants through interleaved admission, and
+    4 through phase-separated admission: the requests' chip time against
+    ``busy_seconds()`` (within 5%), every window's categories against its
+    duration, ``decode``, ``mixed`` and ``prefill`` MFU and bandwidth use
+    (<= 1.05), the tenants' chip seconds against the requests'. (c) The
+    ledger's own cost: its ``record_*`` calls and their journaling timed
+    with ``perf_counter`` per window, against the window's ms. (d) ``/slo``
+    on both services. (e) The device gauges with the service idle against
+    ``torch.cuda.memory_allocated(0)`` and ``total_memory``."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.obs import flight
+
+    svc1, client1, engine, _ = service_bits
+    _armed(svc1)
+    # (a) the one-shot service's fused path
+    led0 = engine.ledger.state()
+    chip0 = {t: svc1.metrics.get_family("rag_tenant_chip_seconds_total").labels(tenant=t).value
+             for t in GOODPUT_TENANTS}
+    off = []
+    for i in range(4):
+        tenant = GOODPUT_TENANTS[i % 2]
+        r = client1.post("/query", json_body={"prompt": f"{LATENCY_QUESTIONS[i]} (goodput {i})", "tenant_id": tenant})
+        body = r.get_json()
+        if r.status_code != 200 or "chip_ms" not in body.get("timings", {}):
+            fail(f"goodput /query {i}: {r.status_code} {body}")
+        t = body["timings"]
+        off.append(round(t["chip_ms"] / t["generate_ms"] - 1.0, 4))
+        print(f"request goodput one-shot /query {i} tenant={tenant} timings={json.dumps(t)}", flush=True)
+    report = client1.get("/debug/goodput").get_json()
+    kinds = _kind_delta(led0, engine.ledger.state())
+    tenants = client1.get("/debug/tenants").get_json()
+    chip = {t: round(svc1.metrics.get_family("rag_tenant_chip_seconds_total").labels(tenant=t).value - chip0[t], 4)
+            for t in GOODPUT_TENANTS}
+    print(f"phase goodput one-shot: oneshot_this_phase={json.dumps(_rounded(kinds).get('oneshot'))} "
+          f"oneshot_all_run={json.dumps(report['kinds'].get('oneshot'))} chip_ms_over_generate_ms_minus_1={off} "
+          f"tenant_chip_s={json.dumps(chip)} tracker={json.dumps(tenants['tracker']['counts'])} "
+          f"peaks_tflops_gbs={engine.ledger.roofline.peak_flops / 1e12:g}/{engine.ledger.roofline.peak_bytes / 1e9:g}",
+          flush=True)
+    _check_readings(kinds, ("oneshot",), "one-shot")
+    if max(abs(x) for x in off) > 0.02:
+        fail(f"goodput one-shot: chip_ms off generate_ms by {off}")
+    if min(chip.values()) <= 0 or not set(GOODPUT_TENANTS) <= set(tenants["tracker"]["counts"]):
+        fail(f"goodput one-shot: tenants' chip seconds {chip}, tracker {tenants['tracker']}")
+
+    # (b) continuous, paged: interleaved, then phase-separated admission
+    ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=True, kv_block_size=16,
+                             interleave_prefill=True, prefill_chunk_tokens=64)
+    cost = {"record": [], "journal": []}
+    windows_ms = []
+    for tag, cec, questions, want in (
+        ("interleaved", ec, CONT_QUESTIONS, ("decode", "mixed")),
+        ("phase-separated", dataclasses.replace(ec, interleave_prefill=False), CONT_QUESTIONS[:4],
+         ("decode", "prefill")),
+    ):
+        svc, client, cont = _cont_service(service_bits, cec, max_new=max_new)
+        _armed(svc)
+        sched = svc.scheduler
+        samples, undo = _timed_ledger(cont)
+        seq0 = flight.recorder().events_emitted
+        try:
+            bodies = _goodput_burst(svc, client, questions, GOODPUT_TENANTS)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        events = [e for e in flight.recorder().snapshot(etype="goodput_window") if e["seq"] >= seq0]
+        _check_windows(events, tag)
+        chip_s = sum(b["timings"]["chip_ms"] for b in bodies) / 1e3
+        busy = sched.busy_seconds()
+        attributed = cont.ledger.state()["attributed_s"]  # a fresh engine: these requests' alone
+        rep = client.get("/debug/goodput").get_json()
+        kinds = _kind_delta({"kinds": {}}, cont.ledger.state())
+        tchip = {t: svc.metrics.get_family("rag_tenant_chip_seconds_total").labels(tenant=t).value
+                 for t in GOODPUT_TENANTS}
+        slo = client.get("/slo?force=1").get_json()
+        print(f"phase goodput continuous {tag}: requests={len(bodies)} requests_chip_s={chip_s:.4f} "
+              f"ledger_attributed_s={attributed:.4f} busy_s={busy:.4f} ratio={chip_s / busy:.4f} "
+              f"windows={len(events)} kinds={json.dumps(_rounded(kinds))} "
+              f"categories_s={json.dumps({c: v['chip_s'] for c, v in rep['categories'].items()})} "
+              f"busy_frac={rep['busy_frac']} tenant_chip_s={json.dumps({t: round(v, 4) for t, v in tchip.items()})} "
+              f"record_us_per_window={1e6 * sum(samples['record']) / max(len(events), 1):.1f} "
+              f"journal_us_per_window={1e6 * sum(samples['journal']) / max(len(events), 1):.1f}", flush=True)
+        for e in slo["slos"]:
+            print(f"phase goodput continuous {tag} /slo: {e['name']} compliant={e['compliant']} "
+                  f"burn={json.dumps(e['burn_rate'])} events={json.dumps(e['window_events'])}", flush=True)
+        if abs(chip_s - busy) > 0.05 * busy:
+            fail(f"goodput continuous {tag}: attributed {chip_s:.4f} s against busy {busy:.4f} s")
+        _check_readings(kinds, want, f"continuous {tag}")
+        # each request's chip_ms is rounded to 1e-4 ms before its tenant's counter adds it
+        if abs(sum(tchip.values()) - attributed) > 1e-6 * len(bodies):
+            fail(f"goodput continuous {tag}: tenants' chip seconds {tchip} against the ledger's {attributed:.7f}")
+        if cont.kv_pool.blocks_in_use():
+            fail(f"goodput continuous {tag}: {cont.kv_pool.blocks_in_use()} blocks still in use")
+        cost["record"] += samples["record"]
+        cost["journal"] += samples["journal"]
+        windows_ms += [e["dur_ms"] for e in events if e["kind"] == "decode"]
+        svc.shutdown()
+        cont.arena = None
+        torch.cuda.empty_cache()
+
+    # (c) the ledger's own cost, per window, against a decode window's ms
+    n = max(len(cost["record"]), 1)
+    rec_us, jour_us = 1e6 * sum(cost["record"]) / n, 1e6 * sum(cost["journal"]) / n
+    dec_ms = statistics.median(windows_ms) if windows_ms else float("nan")
+    print(f"phase goodput ledger cost: windows={len(cost['record'])} record_us_per_window={rec_us:.1f} "
+          f"record_p99_us={1e6 * _pct(cost['record'], 99):.1f} journal_us_per_window={jour_us:.1f} "
+          f"decode_window_ms_median={dec_ms:.2f} share_of_a_decode_window="
+          f"{(rec_us + jour_us) / 1e3 / dec_ms:.5f} (the JAX package's contract: <= 0.02 at B = 8)", flush=True)
+
+    # (d) /slo on the one-shot service, after its requests
+    slo = client1.get("/slo?force=1").get_json()
+    for e in slo["slos"]:
+        print(f"phase goodput one-shot /slo: {e['name']} compliant={e['compliant']} "
+              f"burn={json.dumps(e['burn_rate'])} events={json.dumps(e['window_events'])} "
+              f"threshold_bucket_s={e.get('threshold_bucket_s')}", flush=True)
+
+    # (e) the device gauges with the service idle
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated(0)
+    m, _ = _scrape(client1)
+    a1 = torch.cuda.memory_allocated(0)
+    use, lim = m[("rag_device_hbm_bytes_in_use", '{device="0"}')], m[("rag_device_hbm_bytes_limit", '{device="0"}')]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase goodput devices: rag_device_hbm_bytes_in_use={use:.0f} memory_allocated_before={a0} "
+          f"after={a1} rag_device_hbm_bytes_limit={lim:.0f} total_memory={total}", flush=True)
+    if not (a0 == a1 == use) or lim != total:
+        fail("goodput: the device gauges disagree with the allocator")
 
 
 def _forward_ms(engine, reps: int = 5, model=None, kv_quant: str = "bf16", width: int = 1,
@@ -5572,9 +5864,13 @@ def build_q8_service(service_bits, qmodel):
 
 
 def build_service():
+    import atexit
+    import shutil
+    import tempfile
+
     import torch
 
-    from rag_llm_k8s_tpu_torch.core.config import AppConfig, EncoderConfig, LlamaConfig
+    from rag_llm_k8s_tpu_torch.core.config import AppConfig, EncoderConfig, FlightConfig, LlamaConfig
     from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
     from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
     from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
@@ -5585,7 +5881,11 @@ def build_service():
     from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
 
     dev = torch.device("cuda")
-    cfg = AppConfig(model=LlamaConfig.llama_3_1_8b(), encoder=EncoderConfig.bge_m3())
+    # incident bundles (a 504, a breaker flip) go to a directory of this run's own
+    spool = tempfile.mkdtemp(prefix="incidents_")
+    atexit.register(shutil.rmtree, spool, True)
+    cfg = AppConfig(model=LlamaConfig.llama_3_1_8b(), encoder=EncoderConfig.bge_m3(),
+                    flight=FlightConfig(spool_dir=spool))
     t = time.monotonic()
     model = convert.init_random_(
         build_llama(cfg.model, cfg.dtypes, dev, fused=True),
@@ -5631,7 +5931,7 @@ def timed(fn, *args, **kwargs):
 KERNEL_PHASES = ("knn", "flash", "decode", "chunk", "paged_decode", "paged_chunk", "decode_q8", "chunk_q8",
                  "paged_decode_q8", "paged_chunk_q8", "continuous_kernels")
 SERVICE_PHASES = ("model", "service", "query_latency", "observability", "prefix_cache", "continuous_service",
-                  "resilience", "continuous_engine", "continuous_dense", "spec_paged", "engine_tasks",
+                  "goodput", "resilience", "continuous_engine", "continuous_dense", "spec_paged", "engine_tasks",
                   "plain_decode", "disagg", "lookahead", "warm_restart")
 Q8_PHASES = ("model_q8", "service_q8", "continuous_service_q8", "continuous_engine_q8", "continuous_dense_q8",
              "spec_paged_q8")
@@ -5727,6 +6027,8 @@ def main(argv=None) -> int:
             timed(phase_prefix_cache, bits, rows, fused_stats)
         if "continuous_service" in want:
             cont_launches = timed(phase_continuous_service, bits, forbid=CONTINUOUS_Q8[2:])
+        if "goodput" in want:
+            timed(phase_goodput, bits)
         for ph in ("resilience", "continuous_engine", "continuous_dense", "spec_paged", "engine_tasks",
                    "plain_decode", "disagg", "lookahead"):
             if ph in want:

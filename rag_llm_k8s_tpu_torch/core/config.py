@@ -3,8 +3,7 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(mesh, SLOs, goodput, shadow audits, tenants, the incident spool) are not
-here.
+(the mesh, shadow audits) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -236,6 +235,39 @@ class KVTieringConfig:
 
 
 @dataclass(frozen=True)
+class GoodputConfig:
+    """The goodput ledger (``obs/goodput.py``): per-window chip-time
+    attribution, roofline MFU and bandwidth use, and cost per query. On by
+    default: the ledger is host-side dict math per device sync window, on
+    numbers the host already holds (no tensor, no launch, no sync)."""
+
+    # master switch for the step ledger (env TPU_RAG_GOODPUT)
+    enabled: bool = True
+    # chip rental price, USD per chip-hour: cost_usd in /generate timings,
+    # rag_cost_* metrics and /debug/goodput's cost-per-query percentiles; 0
+    # keeps chip-time attribution and omits dollar figures
+    # (env TPU_RAG_CHIP_HOUR_USD)
+    chip_hour_usd: float = 0.0
+    # roofline peaks for MFU and bandwidth use; 0 = the H100 SXM defaults in
+    # obs/goodput.py (989 dense bf16 TFLOP/s, 3,350 GB/s). Pin another
+    # card's data sheet for honest absolute readings; every RELATIVE read
+    # holds either way (env TPU_RAG_GOODPUT_PEAK_TFLOPS /
+    # TPU_RAG_GOODPUT_HBM_GBS)
+    peak_tflops: float = 0.0
+    hbm_gbs: float = 0.0
+
+    def validate(self) -> None:
+        if self.chip_hour_usd < 0:
+            raise ValueError(
+                f"goodput: chip_hour_usd={self.chip_hour_usd}: expected >= 0"
+            )
+        if self.peak_tflops < 0 or self.hbm_gbs < 0:
+            raise ValueError(
+                "goodput: peak_tflops/hbm_gbs must be >= 0 (0 = default)"
+            )
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Serving-engine shape limits and the main-path switches."""
 
@@ -332,6 +364,8 @@ class EngineConfig:
     # hotness-aware KV tiering over the cached chunks (see KVTieringConfig;
     # needs prefix_cache.enabled to have anything to tier)
     kv_tiering: KVTieringConfig = field(default_factory=KVTieringConfig)
+    # the goodput ledger both engines keep (see GoodputConfig)
+    goodput: GoodputConfig = field(default_factory=GoodputConfig)
 
     def validate_quant(self) -> None:
         """``weight_quant`` and ``kv_quant`` name a storage the engines
@@ -429,17 +463,24 @@ class ResilienceConfig:
 
 @dataclass(frozen=True)
 class FlightConfig:
-    """The flight recorder (``obs/flight.py``): its ring, the durable WAL
-    with the warm restart it feeds, and the read-only debug surface; the
-    fields of the JAX package's ``FlightConfig`` whose consumers the port
-    has (the incident spool is ``ROADMAP.md`` Queue 1 item 9c)."""
+    """The flight recorder (``obs/flight.py``): its ring, the incident
+    spool, the durable WAL with the warm restart it feeds, and the
+    read-only debug surface (the JAX package's ``FlightConfig``)."""
 
     # master switch for the in-process event journal (env TPU_RAG_FLIGHT)
     enabled: bool = True
     # ring capacity in events, the journal's memory bound
     # (env TPU_RAG_FLIGHT_EVENTS)
     capacity: int = 4096
-    # arm the READ-ONLY debug surface (/debug/traces, /debug/timeline)
+    # incident-bundle spool: directory, file cap (oldest pruned), and the
+    # per-trigger cooldown that keeps a reset storm from writing a bundle
+    # per reset (env TPU_RAG_FLIGHT_SPOOL / TPU_RAG_FLIGHT_SPOOL_MAX /
+    # TPU_RAG_FLIGHT_COOLDOWN_S)
+    spool_dir: str = "/tmp/tpu_rag_incidents"
+    spool_max: int = 16
+    cooldown_s: float = 30.0
+    # arm the READ-ONLY debug surface (/debug/traces, /debug/timeline,
+    # /debug/incidents, /debug/goodput, /debug/tenants)
     # without arming fault injection: every /debug route is 403 unless the
     # process started with TPU_RAG_DEBUG=1 or TPU_RAG_FAULTS set (the faults
     # endpoint additionally requires TPU_RAG_FAULTS itself) (env TPU_RAG_DEBUG)
@@ -543,6 +584,89 @@ class LookaheadConfig:
 
 
 @dataclass(frozen=True)
+class SloConfig:
+    """Burn-rate SLO objectives and thresholds (``obs/slo.py``
+    ``default_specs``). Parsing is safe by contract, as in the JAX
+    package: these knobs are read on the scrape and ``GET /slo`` path, so a
+    malformed or out-of-range env value falls back to the field's default
+    instead of raising (objectives must lie strictly inside (0, 1) and
+    thresholds above 0, or ``SloSpec`` would reject them at evaluation)."""
+
+    # fraction of requests that must be non-5xx
+    # (env TPU_RAG_SLO_AVAILABILITY_OBJECTIVE)
+    availability_objective: float = 0.999
+    # end-to-end request latency: objective fraction under request_p95_s
+    # (env TPU_RAG_SLO_REQUEST_P95_OBJECTIVE / TPU_RAG_SLO_REQUEST_P95_S)
+    request_p95_objective: float = 0.95
+    request_p95_s: float = 2.0
+    # time to first token, continuous serving
+    # (env TPU_RAG_SLO_TTFT_P95_OBJECTIVE / TPU_RAG_SLO_TTFT_P95_S)
+    ttft_p95_objective: float = 0.95
+    ttft_p95_s: float = 1.0
+    # answer quality over shadow audits (ROADMAP.md Queue 1 item 9c-ii):
+    # the objective fraction of audits whose logit error stays under the
+    # tolerance (env TPU_RAG_SLO_QUALITY_OBJECTIVE /
+    # TPU_RAG_SLO_QUALITY_LOGIT_ERR)
+    quality_objective: float = 0.99
+    quality_logit_err: float = 0.15
+
+    @classmethod
+    def from_env(cls, env: Optional[dict] = None) -> "SloConfig":
+        env = dict(os.environ if env is None else env)
+
+        def _f(var: str, dflt: float, lo: float, hi: float) -> float:
+            raw = env.get(var)
+            if raw is None:
+                return dflt
+            try:
+                v = float(raw)
+            except (TypeError, ValueError):
+                return dflt
+            return v if lo < v < hi else dflt
+
+        inf = float("inf")
+        return cls(
+            availability_objective=_f("TPU_RAG_SLO_AVAILABILITY_OBJECTIVE", 0.999, 0.0, 1.0),
+            request_p95_objective=_f("TPU_RAG_SLO_REQUEST_P95_OBJECTIVE", 0.95, 0.0, 1.0),
+            request_p95_s=_f("TPU_RAG_SLO_REQUEST_P95_S", 2.0, 0.0, inf),
+            ttft_p95_objective=_f("TPU_RAG_SLO_TTFT_P95_OBJECTIVE", 0.95, 0.0, 1.0),
+            ttft_p95_s=_f("TPU_RAG_SLO_TTFT_P95_S", 1.0, 0.0, inf),
+            quality_objective=_f("TPU_RAG_SLO_QUALITY_OBJECTIVE", 0.99, 0.0, 1.0),
+            quality_logit_err=_f("TPU_RAG_SLO_QUALITY_LOGIT_ERR", 0.15, 0.0, inf),
+        )
+
+
+@dataclass(frozen=True)
+class TenantConfig:
+    """Tenant attribution (``obs/metrics.py`` ``TenantTracker``,
+    ``obs/tenants.py``): the HTTP edge reads ``tenant_id`` (body field, then
+    the ``x-tenant-id`` header, default ``anon``) and interns it through a
+    top-K tracker before it becomes a label or an event attr, so the
+    ``rag_tenant_*`` families never hold more than ``top_k`` + 1 tenant
+    children. On by default."""
+
+    # master switch (env TPU_RAG_TENANTS)
+    enabled: bool = True
+    # tenants tracked by name; the rest ride __other__ (env TPU_RAG_TENANT_TOP_K)
+    top_k: int = 8
+
+    def validate(self) -> None:
+        if self.top_k < 1:
+            raise ValueError(f"TenantConfig.top_k={self.top_k}: expected >= 1")
+
+    @classmethod
+    def from_env(cls, env: Optional[dict] = None) -> "TenantConfig":
+        env = dict(os.environ if env is None else env)
+        out = cls()
+        if (v := _flag(env, "TPU_RAG_TENANTS")) is not None:
+            out = dataclasses.replace(out, enabled=v)
+        if "TPU_RAG_TENANT_TOP_K" in env:
+            out = dataclasses.replace(out, top_k=int(env["TPU_RAG_TENANT_TOP_K"]))
+        out.validate()
+        return out
+
+
+@dataclass(frozen=True)
 class ServerConfig:
     """HTTP surface and storage paths (the reference's rag.py:18-20, 204)."""
 
@@ -593,6 +717,11 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_LOOKAHEAD", "TPU_RAG_LOOKAHEAD_PRESTAGE", "TPU_RAG_LOOKAHEAD_SESSIONS", "TPU_RAG_LOOKAHEAD_WORKERS",
     "TPU_RAG_LOOKAHEAD_INFLIGHT", "TPU_RAG_LOOKAHEAD_TTL_S", "TPU_RAG_LOOKAHEAD_SESSION_TURNS",
     "TPU_RAG_LOOKAHEAD_SESSION_MAX", "TPU_RAG_LOOKAHEAD_SESSION_TTL_S",
+    "TPU_RAG_GOODPUT", "TPU_RAG_CHIP_HOUR_USD", "TPU_RAG_GOODPUT_PEAK_TFLOPS", "TPU_RAG_GOODPUT_HBM_GBS",
+    "TPU_RAG_SLO_AVAILABILITY_OBJECTIVE", "TPU_RAG_SLO_REQUEST_P95_OBJECTIVE", "TPU_RAG_SLO_REQUEST_P95_S",
+    "TPU_RAG_SLO_TTFT_P95_OBJECTIVE", "TPU_RAG_SLO_TTFT_P95_S", "TPU_RAG_SLO_QUALITY_OBJECTIVE",
+    "TPU_RAG_SLO_QUALITY_LOGIT_ERR", "TPU_RAG_TENANTS", "TPU_RAG_TENANT_TOP_K",
+    "TPU_RAG_FLIGHT_SPOOL", "TPU_RAG_FLIGHT_SPOOL_MAX", "TPU_RAG_FLIGHT_COOLDOWN_S",
     # read by server/main.py (resilience.faults.arm_from_env, the JSON log
     # formatter) and /debug/faults
     "TPU_RAG_FAULTS", "TPU_RAG_JSON_LOGS",
@@ -687,6 +816,8 @@ class AppConfig:
     lookahead: LookaheadConfig = field(default_factory=LookaheadConfig)
     flight: FlightConfig = field(default_factory=FlightConfig)
     router: RouterConfig = field(default_factory=RouterConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
+    tenants: TenantConfig = field(default_factory=TenantConfig)
     system_message: str = SYSTEM_MESSAGE
 
     @classmethod
@@ -702,7 +833,8 @@ class AppConfig:
         ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
         if ignored:
             logging.getLogger(__name__).warning(
-                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 items 9c-10)",
+                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 item 9c-ii, "
+                "Queue 3 item A)",
                 ", ".join(ignored),
             )
         cfg = cls()
@@ -795,6 +927,15 @@ class AppConfig:
                 tiering = rep(tiering, **{name: cast(env[key])})
         tiering.validate()  # cross-field rules once, with the env applied
         engine = rep(engine, prefix_cache=pc, kv_tiering=tiering)
+        goodput = engine.goodput
+        if (v := _flag(env, "TPU_RAG_GOODPUT")) is not None:
+            goodput = rep(goodput, enabled=v)
+        for key, name in (("TPU_RAG_CHIP_HOUR_USD", "chip_hour_usd"), ("TPU_RAG_GOODPUT_PEAK_TFLOPS", "peak_tflops"),
+                          ("TPU_RAG_GOODPUT_HBM_GBS", "hbm_gbs")):
+            if key in env:
+                goodput = rep(goodput, **{name: float(env[key])})
+        goodput.validate()  # range rules once, with the env applied
+        engine = rep(engine, goodput=goodput)
         if "TPU_RAG_POOL_ROLE" in env:
             role = env["TPU_RAG_POOL_ROLE"]
             if role not in ("unified", "prefill", "decode"):
@@ -826,6 +967,15 @@ class AppConfig:
                 flight = rep(flight, **{name: v})
         if (v := _int(env, "TPU_RAG_FLIGHT_EVENTS", 1)) is not None:
             flight = rep(flight, capacity=v)
+        if "TPU_RAG_FLIGHT_SPOOL" in env:
+            flight = rep(flight, spool_dir=env["TPU_RAG_FLIGHT_SPOOL"])
+        if (v := _int(env, "TPU_RAG_FLIGHT_SPOOL_MAX", 1)) is not None:
+            flight = rep(flight, spool_max=v)
+        if "TPU_RAG_FLIGHT_COOLDOWN_S" in env:
+            v = float(env["TPU_RAG_FLIGHT_COOLDOWN_S"])
+            if v < 0:
+                raise ValueError(f"TPU_RAG_FLIGHT_COOLDOWN_S={v}: expected >= 0")
+            flight = rep(flight, cooldown_s=v)
         for key, name in (("TPU_RAG_FLIGHT_WAL", "wal"), ("TPU_RAG_FLIGHT_WAL_RESTORE", "wal_restore")):
             if (v := _flag(env, key)) is not None:
                 flight = rep(flight, **{name: v})
@@ -840,5 +990,6 @@ class AppConfig:
                 router = rep(router, **{name: cast(env[key])})
         router.validate()
         return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience,
-                   lookahead=lookahead, flight=flight, router=router)
+                   lookahead=lookahead, flight=flight, router=router, slo=SloConfig.from_env(env),
+                   tenants=TenantConfig.from_env(env))
 

@@ -92,6 +92,20 @@ tokens as one ``token_emit`` event (``_journal_emitted``), so a request's
 tokens back in (the preemption resume's fold), so the resumed stream is
 the uninterrupted one.
 
+The goodput ledger (``ContinuousEngine.ledger``, ``obs/goodput.py``), as in
+the JAX engine: every sync window records once, after its own token fetch
+and on host numbers (tokens kept per request, the batch, the resident
+context), with the host wall time of the window: ``record_prefill`` per
+phase-separated admission group, ``record_prefill_px`` per prefixed
+admission, ``record_decode``, ``record_mixed`` and ``record_verify`` per
+window, and ``record_preempt_stall`` where pool pressure preempted every row
+or bounced an admission. Each record is journaled as a ``goodput_window``
+event. A preemption resume's or a reset resubmission's next admission is
+``preempt_rework`` (``mark_rework``), attributed once. The scheduler's
+``busy_seconds()`` (its wall time inside the engine's step, admissions and
+migrations) is what the requests' attributed chip time sums to; a delivered
+request's share rides ``info["goodput"]`` and its ``complete`` event.
+
 Pool roles (``EngineConfig.pool_role``, paged only): a ``"prefill"``
 engine's scheduler exports each request once it is admitted
 (``ContinuousEngine.export_request``: the row's blocks gathered out of the
@@ -151,7 +165,7 @@ from rag_llm_k8s_tpu_torch.engine.sampling import accept_drafts, sample_targets_
 from rag_llm_k8s_tpu_torch.engine.speculative import adaptive_draft_len, fold_acceptance, prompt_lookup_draft
 from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena, make_kv_cache, rope_frequencies
 from rag_llm_k8s_tpu_torch.ops.attention import rope_rerotate, rope_rerotate_q8
-from rag_llm_k8s_tpu_torch.obs import flight, metrics
+from rag_llm_k8s_tpu_torch.obs import flight, goodput, metrics
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from rag_llm_k8s_tpu_torch.sim import policy
@@ -160,6 +174,13 @@ logger = logging.getLogger(__name__)
 
 # process-global: the flight journal keys every lifecycle event on this id
 _REQUEST_IDS = itertools.count(1)
+
+
+def _tenant_attr(ledger, rid: int) -> Dict[str, str]:
+    """``{"tenant": ...}`` for an admit-time event when the edge stamped one
+    on this request (``GoodputLedger.note_tenant`` at submit), else {}."""
+    t = ledger.tenant_of(rid) if ledger is not None else None
+    return {"tenant": t} if t else {}
 
 
 class EngineStateLost(RuntimeError):
@@ -324,6 +345,19 @@ class ContinuousEngine:
         self._reg_seq = 0
         # chunk splices re-rotate K by phases the host computes from these
         self._inv_freqs = rope_frequencies(config, torch.device("cpu"))
+        # the goodput ledger: one record per device sync window, after the
+        # window's own fetch, on host numbers only; each returns the summary
+        # journaled as a goodput_window event (_journal_window)
+        self.ledger = goodput.ledger_for(config, ec)
+        # requests whose next admission re-feeds tokens computed once
+        # already (a preemption resume, a reset's resubmission): that
+        # admission's lanes are preempt_rework, attributed once
+        self._rework_rids: set = set()
+        # paged: request id -> blocks held at retirement (pop_blocks_allocated)
+        self._blocks_at_retire: Dict[int, int] = {}
+        # admit_many's entry stamp: its first group's ledger window absorbs
+        # the call's preparation
+        self._admit_lead: Optional[float] = None
         self._fresh_state()
         self.bind_metrics(metrics.MetricsRegistry())  # its own until a service binds it, as InferenceEngine
 
@@ -403,6 +437,42 @@ class ContinuousEngine:
         """Forget a request that will never be delivered (gave up, deadline,
         shutdown)."""
         self._spec_rids.discard(request_id)
+
+    # ------------------------------------------------------------------
+    # goodput ledger plumbing (scheduler thread)
+    # ------------------------------------------------------------------
+    def mark_rework(self, request_id: int) -> None:
+        """The request's next admission re-feeds tokens already computed
+        once (a preemption resume, a reset's resubmission): its lanes are
+        ``preempt_rework``, not fresh prefill. One admission consumes the
+        mark."""
+        if len(self._rework_rids) > 4096:  # stale marks of failed retries
+            self._rework_rids.clear()
+        self._rework_rids.add(request_id)
+
+    def _take_rework(self, rids) -> set:
+        taken = {r for r in rids if r in self._rework_rids}
+        self._rework_rids -= taken
+        return taken
+
+    def pop_request_goodput(self, request_id: int, tokens: float = 0.0) -> Optional[Dict[str, float]]:
+        """A delivered request's attribution (``chip_ms``, ``goodput_frac``,
+        ``cost_usd`` when priced, its speculation stats), or None with the
+        ledger off; ``tokens`` (the delivered count) feeds its tenant's
+        rollup."""
+        return self.ledger.pop_request(request_id, tokens=tokens)
+
+    def discard_request_goodput(self, request_id: int) -> None:
+        """Forget a request that will never be delivered (gave up, deadline,
+        shutdown): its chip time stays in the totals."""
+        self.ledger.discard_request(request_id)
+        self._rework_rids.discard(request_id)
+
+    @staticmethod
+    def _journal_window(summary) -> None:
+        """Journal one ledger window (None when the ledger is off)."""
+        if summary is not None:
+            flight.emit("goodput_window", **summary)
 
     # ------------------------------------------------------------------
     # state
@@ -527,6 +597,20 @@ class ContinuousEngine:
             self._tables_host[row, start_block + j] = b
         self._slot_blocks[row].extend(ids)
         self._tables_dirty = True
+
+    def _note_footprint(self, rid: int, row: int) -> None:
+        """The blocks a request held when its row retired (paged), for its
+        timings' ``kv_blocks_allocated`` (``pop_blocks_allocated``)."""
+        if not self.paged or rid < 0:
+            return
+        if len(self._blocks_at_retire) > 8192:  # engines driven directly never pop
+            self._blocks_at_retire.clear()
+        self._blocks_at_retire[rid] = len(self._slot_blocks[row])
+
+    def pop_blocks_allocated(self, request_id: int) -> Optional[int]:
+        """The blocks the request held at retirement (paged; None under the
+        dense cache): the scheduler puts it in ``info``."""
+        return self._blocks_at_retire.pop(request_id, None) if self.paged else None
 
     def _release_row(self, row: int) -> None:
         """Blocks back to the pool and the row's table nulled, before the
@@ -681,11 +765,13 @@ class ContinuousEngine:
         self._deactivate(rows)
         for r in rows:
             flight.emit("evict", self.slots[r].request_id, n_tokens=len(self.slots[r].tokens))
+            self._note_footprint(self.slots[r].request_id, r)
             self._release_row(r)
             self.slots[r] = _Slot()
         for rid in [r for r in self._chunk_admissions if r in wanted]:
             flight.emit("evict", rid, n_tokens=0)
             row = self._chunk_admissions.pop(rid)["row"]
+            self._note_footprint(rid, row)
             self._release_row(row)
             self.slots[row] = _Slot()
             rows.append(row)
@@ -702,6 +788,7 @@ class ContinuousEngine:
         free = self.free_slots()
         if len(items) > len(free):
             raise ValueError(f"admit_many: {len(items)} items for {len(free)} free rows")
+        self._admit_lead = time.perf_counter()
         prepared = []
         for i, item in enumerate(items):
             rid, prompt, max_new, seed = item[:4]
@@ -734,6 +821,18 @@ class ContinuousEngine:
                     results[entry[0]] = e
         return results
 
+    def _admit_chunk_t0(self) -> float:
+        """A group's ledger-window start: ``admit_many``'s entry stamp for
+        its first group (the preparation absorbed), now for the rest."""
+        lead, self._admit_lead = self._admit_lead, None
+        return lead if lead is not None else time.perf_counter()
+
+    def _record_prefill(self, t_led: float, S: int, chunk) -> None:
+        rows = {rid: len(p) for _, rid, _, p, _, _, _ in chunk}
+        self._journal_window(self.ledger.record_prefill(
+            time.perf_counter() - t_led, bucket=S, rows=rows, rework=self._take_rework(rows),
+        ))
+
     def _admit_chunk(self, S: int, chunk, rows: List[int], results: List) -> None:
         """One batched prefill and one first-token fetch for a same-bucket
         group, into the arena or the dense cache."""
@@ -753,6 +852,7 @@ class ContinuousEngine:
         site, between the prefill and the copy) resets the engine and
         raises ``EngineStateLost``."""
         n = len(chunk)
+        t_led = self._admit_chunk_t0()
         t_admit = time.perf_counter()
         # left-padded tokens | kv_start | prompt length | row, in one upload
         host = np.full((n, S + 3), self.pad_id, np.int64)
@@ -787,6 +887,7 @@ class ContinuousEngine:
         self.stats.prefill_calls += 1
         for r, (i, rid, _, p, max_new_c, _, _) in enumerate(chunk):
             self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, S, results, i)
+        self._record_prefill(t_led, S, chunk)
 
     def _cache_planes(self, cache=None) -> Tuple[torch.Tensor, ...]:
         """The dense cache's planes: ``(k, v)``, or with the int8 scales."""
@@ -801,6 +902,7 @@ class ContinuousEngine:
         where the group's state joins the engine's rows (the ``insert``
         fault site) resets the engine and raises ``EngineStateLost``."""
         n = len(chunk)
+        t_led = self._admit_chunk_t0()
         taken: List[Tuple[int, List[int]]] = []
         try:
             for r, entry in enumerate(chunk):
@@ -808,6 +910,11 @@ class ContinuousEngine:
         except PoolExhausted:
             for _, ids in taken:
                 self.kv_pool.free(ids)
+            # the bounced group cost scheduler time: its requests requeue,
+            # and the attempt is theirs (preempt_rework), or conservation
+            # frays under pool pressure
+            self._journal_window(self.ledger.record_preempt_stall(
+                time.perf_counter() - t_led, [c[1] for c in chunk], kind="prefill"))
             raise
         for row, ids in taken:
             self._assign_row_blocks(row, ids)
@@ -849,6 +956,7 @@ class ContinuousEngine:
         self.stats.prefill_calls += 1
         for r, (i, rid, _, p, max_new_c, _, _) in enumerate(chunk):
             self._start_row(rows[r], rid, p, tok0_h[r], max_new_c, S, results, i)
+        self._record_prefill(t_led, S, chunk)
 
     def _start_row(self, row: int, rid: int, p: List[int], tok0: int, max_new_c: int, bucket: int,
                    results: Optional[List] = None, i: int = 0,
@@ -858,11 +966,13 @@ class ContinuousEngine:
         the finished tokens, or None."""
         self.stats.generate_calls += 1
         self.stats.prefill_tokens += len(p)
-        flight.emit("admit", rid, slot=row, prompt_len=len(p), bucket=bucket, tok0=tok0)
+        flight.emit("admit", rid, slot=row, prompt_len=len(p), bucket=bucket, tok0=tok0,
+                    **_tenant_attr(self.ledger, rid))
         finished = None
         if tok0 in self.config.eos_token_ids or max_new_c <= 1:
             finished = [] if tok0 in self.config.eos_token_ids else [tok0]
             self._deactivate([row])
+            self._note_footprint(rid, row)
             self._release_row(row)
             self.slots[row] = _Slot()
         else:
@@ -912,11 +1022,21 @@ class ContinuousEngine:
             drafts = self._draft_for_slots()
             if any(drafts.values()) and self._verify_worthwhile(drafts):
                 return self._step_verify(drafts)
+        t_w = time.perf_counter()  # the ledger window: block growth included
         if self.paged:
             self._ensure_decode_blocks()
+            if not self.has_active():
+                # every row was preempted: the scheduler was busy all the
+                # same, and the stall is the preempted requests'
+                self._journal_window(self.ledger.record_preempt_stall(
+                    time.perf_counter() - t_w, [rid for rid, _ in self._preempted]))
+                return []
         if not self.has_active():
             return []
         k, Tmax, dev = self.sync_steps, self.T, self.device
+        # context resident at dispatch (host mirror): the window's KV reads
+        # in the roofline's bytes (0 under the dense cache, as in JAX)
+        ctx = sum(s.kv_ub for s in self.slots if s.active) if self.paged else 0
         t0 = time.perf_counter()
         tables = self._device_tables() if self.paged else None
         kv_len, last_tok, active = self._kv_len, self._last_tok, self._active
@@ -961,10 +1081,12 @@ class ContinuousEngine:
                 slot.kv_ub = min(slot.kv_ub + k, Tmax - 1)
         done: List[Tuple[int, List[int]]] = []
         retire = []
+        kept: Dict[int, int] = {}  # request id -> tokens this window kept
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
             finished = False
+            n_kept = 0
             for j in range(k):
                 if eos_h[j, i]:
                     finished = True  # EOS itself is not emitted
@@ -974,20 +1096,25 @@ class ContinuousEngine:
                     slot.history.append(int(tok_h[j, i]))
                 slot.remaining -= 1
                 self.stats.decode_tokens += 1
+                n_kept += 1
                 if slot.remaining <= 0:
                     finished = True
                     break
+            kept[slot.request_id] = n_kept
             if finished:
                 done.append((slot.request_id, slot.tokens))
                 retire.append(i)
         self._retire(retire)
-        self._journal_emitted()
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
+        self._journal_window(self.ledger.record_decode(
+            time.perf_counter() - t_w, batch=self.B, steps=k, kept=kept, ctx_tokens=ctx))
+        self._journal_emitted()
         return done
 
     def _retire(self, rows: List[int]) -> None:
         self._deactivate(rows)
         for r in rows:
+            self._note_footprint(self.slots[r].request_id, r)
             self._release_row(r)
             self.slots[r] = _Slot()
 
@@ -998,6 +1125,7 @@ class ContinuousEngine:
         chunked forward. A final chunk samples the prompt's first token
         from its last real lane."""
         C, Tmax, B = self.chunk_tokens, self.T, self.B
+        t_w = time.perf_counter()  # the ledger window: planning and growth included
         self._ensure_decode_blocks(horizon={})
         n_dec = sum(1 for s in self.slots if s.active)
         sched = []  # (rid, rec, offset, take, final)
@@ -1019,6 +1147,8 @@ class ContinuousEngine:
             # admission: preempt the newest instead of spinning
             if self._chunk_admissions:
                 self._preempt_chunk_admission(*self._chunk_admissions.popitem())
+            self._journal_window(self.ledger.record_preempt_stall(
+                time.perf_counter() - t_w, [r for r, _ in self._preempted], kind="prefill"))
             return []
         # host-fed window inputs in one upload: fed lanes | n_fed | base | final
         host = np.zeros((B, C + 3), np.int64)
@@ -1027,6 +1157,9 @@ class ContinuousEngine:
             row = rec["row"]
             host[row, :take] = rec["prompt"][off:off + take]
             host[row, C], host[row, C + 1], host[row, C + 2] = take, off, int(final)
+        # context resident at dispatch: the decode rows' frontiers plus each
+        # chunk's attended prefix, its own slice included
+        ctx = sum(s.kv_ub for s in self.slots if s.active) + sum(off + take for _, _, off, take, _ in sched)
         t0 = time.perf_counter()
         dh = self._h2d(host)
         fed, n_fed, chunk_base, final_v = dh[:, :C], dh[:, C], dh[:, C + 1], dh[:, C + 2].bool()
@@ -1061,23 +1194,28 @@ class ContinuousEngine:
                 slot.kv_ub = min(slot.kv_ub + 1, Tmax - 1)
         done: List[Tuple[int, List[int]]] = []
         retire = []
+        kept: Dict[int, int] = {}  # request id -> decode tokens kept
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
             finished = bool(tok_h[1, i])
+            kept[slot.request_id] = 0
             if not finished:
                 slot.tokens.append(int(tok_h[0, i]))
                 if self.spec_on:
                     slot.history.append(int(tok_h[0, i]))
                 slot.remaining -= 1
                 self.stats.decode_tokens += 1
+                kept[slot.request_id] = 1
                 finished = slot.remaining <= 0
             if finished:
                 done.append((slot.request_id, slot.tokens))
                 retire.append(i)
         self._retire(retire)
+        chunk_led: Dict[int, int] = {}  # request id -> prefill lanes fed
         for rid, rec, off, take, final in sched:
             rec["progress"] = off + take
+            chunk_led[rid] = take
             if not final:
                 continue
             del self._chunk_admissions[rid]
@@ -1088,8 +1226,11 @@ class ContinuousEngine:
                                   rec["max_new"], rec["bucket"], admit_seq=rec["admit_seq"])
             if out is not None:
                 done.append((rid, out))
-        self._journal_emitted()
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
+        self._journal_window(self.ledger.record_mixed(
+            time.perf_counter() - t_w, batch=self.B, lanes=C, decode_kept=kept, chunk_rows=chunk_led,
+            rework=self._take_rework(chunk_led), ctx_tokens=ctx))
+        self._journal_emitted()
         return done
 
     # ------------------------------------------------------------------
@@ -1145,8 +1286,11 @@ class ContinuousEngine:
         row's own drafts write past its frontier or, past its table, into
         the null block; inactive rows write into the null block."""
         K, S, B, Tmax, dev = self.spec_K, self.spec_K + 1, self.B, self.T, self.device
+        t_w = time.perf_counter()  # the ledger window: block growth included
         self._ensure_decode_blocks({row: len(d) + 1 for row, d in drafts.items()})
         if not self.has_active():
+            self._journal_window(self.ledger.record_preempt_stall(
+                time.perf_counter() - t_w, [rid for rid, _ in self._preempted]))
             return []
         # drafts | n_drafts in one upload
         host = np.zeros((B, K + 1), np.int64)
@@ -1197,6 +1341,8 @@ class ContinuousEngine:
         done: List[Tuple[int, List[int]]] = []
         retire = []
         accepted_total = 0
+        # request id -> (tokens kept, drafts offered, drafts accepted)
+        led_rows: Dict[int, Tuple[int, int, int]] = {}
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
@@ -1208,6 +1354,7 @@ class ContinuousEngine:
             # the exact new frontier, not an upper bound
             slot.kv_ub = min(slot.kv_ub + int(ne_h[i]), Tmax - 1)
             finished = False
+            n_kept = 0
             for j in range(int(ne_h[i])):
                 if eos_h[j, i]:
                     finished = True  # EOS itself is not emitted
@@ -1216,9 +1363,11 @@ class ContinuousEngine:
                 slot.history.append(int(tok_h[j, i]))
                 slot.remaining -= 1
                 st.decode_tokens += 1
+                n_kept += 1
                 if slot.remaining <= 0:
                     finished = True  # tokens past the budget are discarded
                     break
+            led_rows[slot.request_id] = (n_kept, offered, acc)
             if finished:
                 done.append((slot.request_id, slot.tokens))
                 retire.append(i)
@@ -1230,8 +1379,11 @@ class ContinuousEngine:
         flight.emit("spec_verify", drafted=drafted_total, accepted=accepted_total,
                     rejected=drafted_total - accepted_total, emitted=emitted_total)
         self._retire(retire)
-        self._journal_emitted()
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
+        self._journal_window(self.ledger.record_verify(
+            time.perf_counter() - t_w, batch=B, lanes_per_row=K + 1, rows=led_rows,
+            ctx_tokens=sum(s.kv_ub for s in self.slots if s.active)))
+        self._journal_emitted()
         return done
 
     def _journal_emitted(self) -> None:
@@ -1299,10 +1451,11 @@ class ContinuousEngine:
             "history": list(slot.history) if self.spec_on else [],
         }
         self._deactivate([row])
+        self._note_footprint(request_id, row)
         self._release_row(row)
         self.slots[row] = _Slot()
         flight.emit("migrate_begin", request_id, blocks=len(ids), kv_len=packet["kv_len"],
-                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3), **_tenant_attr(self.ledger, request_id))
         return packet
 
     @torch.inference_mode()
@@ -1360,7 +1513,7 @@ class ContinuousEngine:
             prompt_len=int(packet["prompt_len"]),
         )
         flight.emit("migrate_done", rid, slot=row, blocks=len(ids), kv_len=int(packet["kv_len"]),
-                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3), **_tenant_attr(self.ledger, rid))
         return row
 
     # ------------------------------------------------------------------
@@ -1448,24 +1601,31 @@ class ContinuousEngine:
             raise EngineStateLost("insert failed; engine state reset") from e
         del cache
         self._m_step_admit.observe(time.perf_counter() - t_admit)
-        return self._start_prefixed_row(row, request_id, suffix, plen, tok0_h, max_new_c, kv_ub=S)
+        return self._start_prefixed_row(row, request_id, suffix, plen, tok0_h, max_new_c, kv_ub=S,
+                                        t_admit=t_admit, bucket=C)
 
     def _start_prefixed_row(self, row: int, rid: int, suffix, plen: int, tok0: int, max_new_c: int, kv_ub: int,
-                            shared_tok: Optional[int] = None):
-        """After a prefixed admission's first token: the stats and the
-        ``admit`` event (JAX's), then the row decodes on or the request ends
-        here (EOS or a budget of one) and the row is released."""
+                            t_admit: float, bucket: int, shared_tok: Optional[int] = None):
+        """After a prefixed admission's first token: the stats, the
+        ``admit`` event and the ``prefill_px`` ledger window (JAX's), then
+        the row decodes on or the request ends here (EOS or a budget of
+        one) and the row is released."""
         total = plen + len(suffix)
         st = self.stats
         st.generate_calls += 1
         st.prefill_tokens += len(suffix)
         st.prefill_tokens_skipped += plen
         extra = {} if shared_tok is None else {"shared": shared_tok}
-        flight.emit("admit", rid, slot=row, prompt_len=total, prefix_len=plen, tok0=tok0, **extra)
+        flight.emit("admit", rid, slot=row, prompt_len=total, prefix_len=plen, tok0=tok0, **extra,
+                    **_tenant_attr(self.ledger, rid))
+        self._journal_window(self.ledger.record_prefill_px(
+            time.perf_counter() - t_admit, bucket=bucket, rid=rid, computed=len(suffix), skipped=plen,
+            rework=bool(self._take_rework((rid,)))))
         if tok0 in self.config.eos_token_ids or max_new_c <= 1:
             out = [] if tok0 in self.config.eos_token_ids else [tok0]
             st.decode_tokens += len(out)
             self._deactivate([row])
+            self._note_footprint(rid, row)
             self._release_row(row)
             self.slots[row] = _Slot()
             return row, out
@@ -1547,7 +1707,7 @@ class ContinuousEngine:
             self._register_chunks_from_scatter(prefix, ids_all, chain_registered=chain_registered)
         self._m_step_admit.observe(time.perf_counter() - t_admit)
         return self._start_prefixed_row(row, request_id, suffix, plen, tok0_h, max_new_c, kv_ub=total,
-                                        shared_tok=shared_tok)
+                                        t_admit=t_admit, bucket=C, shared_tok=shared_tok)
 
     def _prefix_slabs(self, plane: torch.Tensor, nbp: int) -> torch.Tensor:
         """A splice-buffer plane ``[L, 1, K, P(, hd)]`` as ``nbp`` block
@@ -1897,6 +2057,9 @@ class ContinuousScheduler:
         self.retry_backoff_s = max(0.0, retry_backoff_s)
         # set by the service: engine resets feed the readiness breaker
         self.breaker = None
+        # the dispatcher's wall time inside the engine's step, admissions and
+        # migrations: the goodput conservation anchor (busy_seconds)
+        self._busy_s = 0.0
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._stop = threading.Event()
         # submit's stop-check + enqueue is atomic against the final drain
@@ -1967,6 +2130,7 @@ class ContinuousScheduler:
             arr["deadline_ms"] = deadline.budget_ms
         if tenant is not None:
             arr["tenant"] = tenant
+            self.engine.ledger.note_tenant(rid, tenant)
         if flight.arrival_ids():
             arr["ids"] = list(item.prompt)
         flight.emit("arrival", rid, **arr)
@@ -2006,6 +2170,8 @@ class ContinuousScheduler:
             tenant=tenant if tenant is not None else packet.get("tenant"), migrate=packet,
         )
         item.emitted = list(packet.get("emitted", ()))
+        if item.tenant is not None:
+            self.engine.ledger.note_tenant(rid, item.tenant)
         return self._enqueue_and_wait(item, timeout, deadline, info)
 
     def _enqueue_and_wait(self, item: "_Pending", timeout: Optional[float], deadline: Optional[Deadline],
@@ -2030,9 +2196,22 @@ class ContinuousScheduler:
             raise TimeoutError("generation timed out")
         if item.error is not None:
             raise item.error
+        if info is not None and item.blocks_allocated is not None:
+            # paged: the row's block footprint, in the timings
+            info["kv_blocks_allocated"] = item.blocks_allocated
+        if info is not None and item.goodput is not None:
+            # the ledger's attribution (chip_ms, goodput_frac, cost_usd,
+            # speculation stats): the service folds it into the timings
+            info["goodput"] = item.goodput
         if info is not None and item.migrate is not None:
             info["migrate_packet"] = item.migrate
         return item.result
+
+    def busy_seconds(self) -> float:
+        """The dispatcher's wall time inside the engine's step, admissions,
+        exports and imports: the independent measurement the ledger's
+        per-request chip time sums to (gauge-grade across threads)."""
+        return self._busy_s
 
     def run_on_engine(self, fn) -> bool:
         """Queue a host-side engine task, ``fn(engine)``, for the dispatcher
@@ -2077,6 +2256,7 @@ class ContinuousScheduler:
             for it in leftovers:
                 if not it.done.is_set():
                     self.engine.discard_spec_seen(it.request_id)
+                    self.engine.discard_request_goodput(it.request_id)
                     it.error = RuntimeError("scheduler is shut down")
                     it.done.set()
 
@@ -2143,9 +2323,13 @@ class ContinuousScheduler:
                     batch.append(nxt)
                 held[:] = batch
                 try:
-                    admitted = eng.admit_many(
-                        [(b.request_id, b.prompt, b.max_new, b.seed, b.sampling) for b in batch]
-                    )
+                    t_busy = time.perf_counter()
+                    try:
+                        admitted = eng.admit_many(
+                            [(b.request_id, b.prompt, b.max_new, b.seed, b.sampling) for b in batch]
+                        )
+                    finally:
+                        self._busy_s += time.perf_counter() - t_busy
                 except EngineStateLost as e:
                     # the reset wiped every row: this batch and every
                     # in-flight request restart from their prompts
@@ -2203,6 +2387,7 @@ class ContinuousScheduler:
         self.engine.evict_requests(expired)
         for rid in expired:
             self.engine.discard_spec_seen(rid)
+            self.engine.discard_request_goodput(rid)  # never delivered
             it = waiting.pop(rid)
             if not it.abandoned:  # the caller counted its own expiry
                 self._m_deadline_decode.inc()
@@ -2226,10 +2411,20 @@ class ContinuousScheduler:
         if item.retried:
             self._m_retries.labels(outcome="succeeded").inc()
         # the verify-window fingerprint (read by the shadow auditor, ROADMAP.md
-        # item 9c); popping keeps the engine's set bounded
+        # Queue 1 item 9c-ii); popping keeps the engine's set bounded
         self.engine.pop_spec_seen(item.request_id)
         item.result = item.emitted + tokens
-        extra = {"tenant": item.tenant} if item.tenant is not None else {}
+        item.blocks_allocated = self.engine.pop_blocks_allocated(item.request_id)
+        item.goodput = self.engine.pop_request_goodput(item.request_id, tokens=len(item.result))
+        # the attribution rides the complete event, so a journal prices each
+        # request (and, with the tenant stamp, each tenant) on its own
+        extra = {}
+        if item.goodput is not None:
+            extra["chip_ms"] = item.goodput["chip_ms"]
+            if "cost_usd" in item.goodput:
+                extra["cost_usd"] = round(item.goodput["cost_usd"], 8)
+        if item.tenant is not None:
+            extra["tenant"] = item.tenant
         flight.emit("complete", item.request_id, n_tokens=len(item.result),
                     stream_fnv=flight.stream_hash(item.result), **extra)
         item.done.set()
@@ -2241,10 +2436,13 @@ class ContinuousScheduler:
         failure keeps it decoding here. No ``complete`` fires here: the
         engine that imports the packet finishes the stream."""
         packet = None
+        t_busy = time.perf_counter()
         try:
             packet = self.engine.export_request(item.request_id)
         except Exception:  # noqa: BLE001 — nothing was released: the engine is intact
             logger.exception("migration export failed; serving request %d locally", item.request_id)
+        finally:
+            self._busy_s += time.perf_counter() - t_busy
         if packet is None:
             waiting[item.request_id] = item
             return
@@ -2255,6 +2453,8 @@ class ContinuousScheduler:
         packet["emitted"] = list(item.emitted)
         packet["tenant"] = item.tenant
         self.engine.discard_spec_seen(item.request_id)
+        item.blocks_allocated = self.engine.pop_blocks_allocated(item.request_id)
+        item.goodput = self.engine.pop_request_goodput(item.request_id, tokens=len(packet["tokens"]))
         item.migrate = packet
         item.result = item.emitted + list(packet["tokens"])
         item.done.set()
@@ -2282,9 +2482,11 @@ class ContinuousScheduler:
                 self._safe_step(waiting)
                 self._evict_expired(waiting)
                 continue
+            t_busy = time.perf_counter()
             try:
                 eng.import_request(pkt)
             except PoolExhausted as e:
+                self._busy_s += time.perf_counter() - t_busy
                 if eng.has_active():
                     self._safe_step(waiting)  # blocks free as rows retire
                     self._evict_expired(waiting)
@@ -2293,13 +2495,16 @@ class ContinuousScheduler:
                 item.done.set()
                 return
             except EngineStateLost as e:
+                self._busy_s += time.perf_counter() - t_busy
                 item.migrate = None
                 self._handle_reset(e, waiting, extra=[item], emitted={item.request_id: list(pkt["tokens"])})
                 return
             except Exception as e:  # noqa: BLE001 — the caller gets the error
+                self._busy_s += time.perf_counter() - t_busy
                 item.error = e
                 item.done.set()
                 return
+            self._busy_s += time.perf_counter() - t_busy
             item.migrate = None  # landed: a later reset resubmits it by its prompt
             waiting[item.request_id] = item
             return
@@ -2308,7 +2513,12 @@ class ContinuousScheduler:
         """One window that cannot kill the dispatcher: a failure resets the
         engine and resubmits the in-flight requests (``_handle_reset``)."""
         try:
-            for rid, tokens in self.engine.step():
+            t_busy = time.perf_counter()
+            try:
+                done = self.engine.step()
+            finally:
+                self._busy_s += time.perf_counter() - t_busy
+            for rid, tokens in done:
                 item = waiting.pop(rid, None)
                 if item is not None:
                     self._deliver(item, tokens)
@@ -2342,6 +2552,9 @@ class ContinuousScheduler:
                 continue
             self._fold_emitted(it, toks)
             it.resumed = True
+            # its next admission re-feeds prompt + emitted, computed once
+            # already: that admission's lanes are preempt_rework
+            self.engine.mark_rework(rid)
             flight.emit("resubmit", rid, outcome="preempt_resume", n_emitted=len(toks))
             self._queue.put(it)
 
@@ -2376,6 +2589,7 @@ class ContinuousScheduler:
             else:
                 self._m_retries.labels(outcome="gave_up").inc()
                 self.engine.discard_spec_seen(it.request_id)
+                self.engine.discard_request_goodput(it.request_id)
                 flight.emit("resubmit", it.request_id, outcome="gave_up")
                 it.error = cause
                 it.done.set()
@@ -2391,6 +2605,9 @@ class ContinuousScheduler:
             self._fold_emitted(it, toks)
             it.retries_left -= 1
             it.retried = True
+            # the resubmission re-prefills the whole prompt (+ emitted):
+            # rework lanes in the ledger, not fresh prefill
+            self.engine.mark_rework(it.request_id)
             self._m_retries.labels(outcome="resubmitted").inc()
             flight.emit("resubmit", it.request_id, outcome="resubmitted", n_emitted=len(toks))
             self._queue.put(it)
@@ -2416,3 +2633,5 @@ class _Pending:
     resumed: bool = False  # requeued after a preemption
     abandoned: bool = False  # the caller gave up (it counted the expiry)
     migrate: Optional[Dict] = None  # pool roles: the packet going out or coming in
+    goodput: Optional[Dict] = None  # the ledger's attribution (chip_ms, cost, spec stats)
+    blocks_allocated: Optional[int] = None  # paged: the row's block footprint

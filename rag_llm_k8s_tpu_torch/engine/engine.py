@@ -45,6 +45,13 @@ per call, ``rag_decode_inter_token_seconds{mode="oneshot_est"}`` (call
 duration over decode steps, prefill included: an estimate, as in JAX), and
 the compile counters, which here read the process's kernel-library builds
 and loads (``ops._build.COMPILES``).
+
+The goodput ledger (``self.ledger``, ``obs/goodput.py``): each ``generate``,
+``generate_rag`` and ``generate_prefixed`` call is one ``oneshot`` window
+whose duration is the host clock around the call, ending in its own final
+fetch; the roofline splits it into prefill and decode shares. Each call
+journals a ``goodput_window`` event, and an ``info`` out-param receives the
+request's share (``chip_ms``, ``goodput_frac``, ``cost_usd`` when priced).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +73,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     SamplingConfig,
 )
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
-from rag_llm_k8s_tpu_torch.obs import metrics
+from rag_llm_k8s_tpu_torch.obs import flight, goodput, metrics
 from rag_llm_k8s_tpu_torch.ops import _build
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.engine.sampling import (
@@ -217,6 +224,10 @@ class InferenceEngine:
         self._rng_counter = 0
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self.stats = EngineStats()
+        # the goodput ledger: a generate call is one window whose measured
+        # host duration the roofline splits into prefill and decode shares
+        # ("oneshot" windows; the continuous engine measures each window)
+        self.ledger = goodput.ledger_for(config, engine_config)
         # the handles write into a registry of the engine's own until a
         # service binds them to its registry (JAX binds the process default
         # registry, which nothing in the port serves)
@@ -252,6 +263,38 @@ class InferenceEngine:
     def _observe_generate(self, seconds: float, decode_steps: int) -> None:
         self._m_generate.observe(seconds)
         self._m_itl.observe(seconds / max(decode_steps, 1))
+
+    def _record_oneshot(
+        self, call_s: float, bucket: int, batch: int, computed: int, decode_tokens: int,
+        decode_steps: int, skipped: int = 0, info: Optional[Dict] = None,
+    ) -> None:
+        """Fold one generate call into the goodput ledger, journal its
+        ``goodput_window`` event and, given an ``info`` out-param, leave the
+        per-request share there (``info["goodput"]``). A chunked
+        ``generate`` records once per sub-batch into one ``info``: the
+        shares accumulate."""
+        w = self.ledger.record_oneshot(
+            call_s, bucket=bucket, batch=batch, computed_tokens=computed,
+            decode_tokens=decode_tokens, decode_steps=decode_steps, skipped=skipped,
+        )
+        if w is None:
+            return
+        per_row = w.pop("chip_ms_per_row")
+        frac = w.pop("goodput_frac")
+        flight.emit("goodput_window", **w)
+        if info is None:
+            return
+        gp = {"chip_ms": per_row, "goodput_frac": frac}
+        if self.ledger.chip_hour_usd > 0:
+            gp["cost_usd"] = per_row / 1e3 / 3600.0 * self.ledger.chip_hour_usd
+        prev = info.get("goodput")
+        if prev and prev.get("chip_ms"):
+            chip = prev["chip_ms"] + gp["chip_ms"]
+            gp["goodput_frac"] = round((prev["chip_ms"] * prev.get("goodput_frac", 0.0) + gp["chip_ms"] * frac) / chip, 6)
+            gp["chip_ms"] = round(chip, 4)
+            if "cost_usd" in gp or "cost_usd" in prev:
+                gp["cost_usd"] = prev.get("cost_usd", 0.0) + gp.get("cost_usd", 0.0)
+        info["goodput"] = gp
 
     def record_prefill(self, n_tokens: int) -> None:
         """Prefill tokens of a device-assembled prompt that only the caller
@@ -476,12 +519,14 @@ class InferenceEngine:
         prompts: Sequence[Sequence[int]],
         max_new_tokens: Optional[int] = None,
         seed: Optional[int] = None,
+        info: Optional[Dict] = None,
     ) -> List[List[int]]:
         """Continuations for a batch of token-id prompts, one list per
         prompt, cut at (and excluding) EOS. Batches beyond
         ``max_batch_size`` run as sequential sub-batches. The ``generate``
         fault site comes first; nothing inside the decode loop checks a
-        deadline (the JAX generate is one device call)."""
+        deadline (the JAX generate is one device call). ``info`` (an
+        out-param) receives the call's goodput share."""
         if not prompts:
             return []
         faults.maybe_fail("generate")
@@ -492,11 +537,11 @@ class InferenceEngine:
         gen = self._next_rng(seed)
         out: List[List[int]] = []
         for i in range(0, len(prompts), cap):
-            out.extend(self._generate_batch(prompts[i : i + cap], max_new, gen))
+            out.extend(self._generate_batch(prompts[i : i + cap], max_new, gen, info))
         return out
 
     def _generate_batch(
-        self, prompts: Sequence[Sequence[int]], max_new: int, gen: torch.Generator
+        self, prompts: Sequence[Sequence[int]], max_new: int, gen: torch.Generator, info: Optional[Dict] = None,
     ) -> List[List[int]]:
         maxlen = max(len(p) for p in prompts)
         largest = max(self.engine_config.prompt_buckets)
@@ -540,16 +585,26 @@ class InferenceEngine:
                 out = self._run_vanilla(tok_t, mask_t, S, max_new, chunk, gen)
             call_s = time.perf_counter() - t_call
         results = [self._trim(out[i]) for i in range(len(prompts))]
+        spec_accept = None
         if spec and iters > 0:
             # tokens the verify forwards emitted: the answer plus its EOS,
             # minus the prefill's token
             emitted = len(results[0]) + (1 if len(results[0]) < max_new else 0) - 1
             self._spec_record(max(emitted, 0), iters)
-        self._observe_generate(call_s, max((len(r) for r in results), default=1))
+            spec_accept = round(max(emitted, 0) / iters, 4)
+        steps = max((len(r) for r in results), default=1)
+        self._observe_generate(call_s, steps)
+        n_decode = sum(len(r) for r in results)
         with self._lock:
             self.stats.generate_calls += 1
             self.stats.prefill_tokens += int(pad_mask.sum())
-            self.stats.decode_tokens += sum(len(r) for r in results)
+            self.stats.decode_tokens += n_decode
+        self._record_oneshot(call_s, bucket=S, batch=B, computed=int(pad_mask.sum()), decode_tokens=n_decode,
+                             decode_steps=steps, info=info)
+        if info is not None and spec_accept is not None and self.ledger.enabled:
+            # the per-call acceptance mean, gated on the ledger like every
+            # goodput key (TPU_RAG_GOODPUT=0: no goodput block at all)
+            info.setdefault("goodput", {})["spec_accept_len_mean"] = spec_accept
         return results
 
     @torch.inference_mode()
@@ -563,11 +618,13 @@ class InferenceEngine:
         n_chunks: int,
         max_new_tokens: Optional[int] = None,
         seed: Optional[int] = None,
+        info: Optional[Dict] = None,
     ) -> List[int]:
         """Single-fetch RAG generate: the packed retrieve output and the
         chunk-token sidecar are device tensors, and the prompt is assembled
         on the device (``assemble_rag_tokens``). Always serves at the
-        largest prompt bucket; the caller guards that head + tail fit it."""
+        largest prompt bucket; the caller guards that head + tail fit it.
+        ``info`` (an out-param) receives the call's goodput share."""
         S = max(self.engine_config.prompt_buckets)
         max_new = self.sampling.max_new_tokens if max_new_tokens is None else max_new_tokens
         max_new = self._clamp_max_new(S, max_new)
@@ -599,9 +656,11 @@ class InferenceEngine:
                 out = self._run_vanilla(tokens, pad_mask, S, max_new, None, gen)
             call_s = time.perf_counter() - t_call
         row = self._trim(out[0])
+        spec_accept = None
         if spec and iters > 0:
             emitted = len(row) + (1 if len(row) < max_new else 0) - 1
             self._spec_record(max(emitted, 0), iters)
+            spec_accept = round(max(emitted, 0) / iters, 4)
         self._observe_generate(call_s, len(row))
         with self._lock:
             self.stats.generate_calls += 1
@@ -609,6 +668,14 @@ class InferenceEngine:
             # the prompt is assembled on the device: head + tail are the
             # host-known share (the service adds the chunks, record_prefill)
             self.stats.prefill_tokens += len(a_ids) + int(b.shape[0])
+        # the assembled length is decided on the card (fetching it would
+        # add a round trip): head + tail plus n chunks at the sidecar's
+        # row width, clamped to the bucket — an estimate, as in JAX
+        self._record_oneshot(call_s, bucket=S, batch=1,
+                             computed=min(len(a_ids) + int(b.shape[0]) + n * int(store_toks.shape[1]), S),
+                             decode_tokens=len(row), decode_steps=max(len(row), 1), info=info)
+        if info is not None and spec_accept is not None and self.ledger.enabled:
+            info.setdefault("goodput", {})["spec_accept_len_mean"] = spec_accept
         return row
 
     # ------------------------------------------------------------------
@@ -735,6 +802,7 @@ class InferenceEngine:
         prefix,  # CachedPrefix
         max_new_tokens: Optional[int] = None,
         seed: Optional[int] = None,
+        info: Optional[Dict] = None,
     ) -> List[int]:
         """Generate with a cached prefix (JAX ``generate_prefixed``):
         ``prefill_prefixed``, its first token sampled from the last real
@@ -767,6 +835,9 @@ class InferenceEngine:
             self.stats.prefill_tokens += n_suf
             self.stats.prefill_tokens_skipped += int(prefix.reused_tokens)
             self.stats.decode_tokens += len(row)
+        S_suf = bucket_len(n_suf, pc.suffix_buckets)
+        self._record_oneshot(call_s, bucket=S_suf, batch=1, computed=n_suf, decode_tokens=len(row),
+                             decode_steps=max(len(row), 1), skipped=int(prefix.reused_tokens), info=info)
         return row
 
     def warm_prefixed(self, suffix_lens: Sequence[int] = (), max_new_tokens: Optional[int] = None) -> List[int]:

@@ -7,10 +7,17 @@
   buffer (``/debug/traces``), each span a ``torch.profiler`` range;
 - ``obs.logging`` — W3C ``traceparent`` parsing and trace-correlated JSON
   logs;
-- ``obs.flight`` — the flight recorder's event catalog and ring.
+- ``obs.flight`` — the flight recorder's event catalog and ring, the
+  durable WAL and the incident spool;
+- ``obs.goodput`` — the goodput ledger: per-window chip-time attribution
+  and the roofline at the H100's peaks;
+- ``obs.slo`` — SLO specs and multi-window burn rates over the registry;
+- ``obs.tenants`` — the per-tenant report over a journal;
+- ``obs.devices`` — per-device allocator and prefix-cache gauges;
+- ``obs.regression`` — the direction-aware bench comparator.
 
-The SLO engine, goodput ledger, shadow auditor, tenant reports and incident
-bundles are ``ROADMAP.md`` Queue 1 item 9c.
+The shadow auditor is ``ROADMAP.md`` Queue 1 item 9c-ii; the rest of ``sim/``
+item 9c-iii.
 """
 
 from rag_llm_k8s_tpu_torch.obs.metrics import MetricsRegistry, default_registry  # noqa: F401

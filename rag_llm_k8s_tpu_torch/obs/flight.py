@@ -19,27 +19,34 @@
   this module writes goes through :func:`durable_write` (tmp, fsync,
   rename, directory fsync); :func:`export_journal` and
   :func:`load_journal` write and read a journal bundle.
-
-Not here yet: the incident spooler (``ROADMAP.md`` Queue 1 item 9c).
+- :class:`IncidentSpooler` — a bounded on-disk spool of self-contained
+  incident bundles (journal, metrics snapshot, config fingerprint, traces),
+  written on a closed set of :data:`TRIGGERS` with a per-trigger cooldown;
+  :func:`config_fingerprint` gives a bundle its config identity.
 
 The module imports only the standard library.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import logging
 import os
 import threading
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 __all__ = [
     "EVENTS",
     "SCHEMA_VERSION",
     "FlightRecorder",
     "FlightWAL",
+    "IncidentSpooler",
+    "TRIGGERS",
     "arrival_ids",
+    "config_fingerprint",
     "configure",
     "durable_write",
     "emit",
@@ -552,3 +559,157 @@ def scan_wal(dir: str) -> Dict[int, List[Dict]]:
     for evs in epochs.values():
         evs.sort(key=lambda e: e.get("seq", 0))
     return epochs
+
+
+# ---------------------------------------------------------------------------
+# incident bundles
+# ---------------------------------------------------------------------------
+
+
+def config_fingerprint(config) -> Dict:
+    """A bundle's config identity: the full (dataclass) config rendered to
+    plain JSON types plus a stable sha256 digest — enough to tell "same
+    incident, different config" from "same config, new incident" without a
+    live pod."""
+    try:
+        raw = dataclasses.asdict(config)
+    except TypeError:
+        raw = {"repr": repr(config)}
+
+    def _plain(v):
+        if isinstance(v, dict):
+            return {str(k): _plain(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [_plain(x) for x in v]
+        if isinstance(v, (str, int, float, bool)) or v is None:
+            return v
+        return repr(v)
+
+    plain = _plain(raw)
+    digest = hashlib.sha256(
+        json.dumps(plain, sort_keys=True, separators=(",", ":")).encode()
+    ).hexdigest()
+    return {"sha256": digest, "config": plain}
+
+
+#: incident triggers the spooler accepts (closed, like the event catalog)
+TRIGGERS = (
+    "breaker_open", "reset_storm", "pool_exhausted_shed", "deadline_exceeded",
+    "quality_divergence", "drain_timeout",
+)
+
+
+class IncidentSpooler:
+    """Bounded on-disk spool of self-contained incident bundles.
+
+    ``trigger(name, context_fn)`` writes ``context_fn()`` + trigger
+    metadata as one JSON file (through :func:`durable_write`'s
+    tmp-fsync-rename — a bundle is never torn) and prunes the oldest
+    files past ``max_bundles``. Per-trigger
+    cooldown keeps a storm from writing a bundle per reset: the FIRST
+    occurrence captures the journal that explains the rest.
+
+    Thread-safe; ``clock`` is injectable so tests exercise the cooldown
+    without sleeping.
+    """
+
+    def __init__(self, spool_dir: str, max_bundles: int = 16,
+                 cooldown_s: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic):
+        if max_bundles < 1:
+            raise ValueError(f"max_bundles={max_bundles}: expected >= 1")
+        self.spool_dir = spool_dir
+        self.max_bundles = int(max_bundles)
+        self.cooldown_s = float(cooldown_s)
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._last: Dict[str, float] = {}  # trigger -> last write (clock)
+        self._seq = 0
+
+    # -- write -----------------------------------------------------------
+    def trigger(self, name: str, context_fn: Callable[[], Dict]
+                ) -> Optional[str]:
+        """Spool one bundle for ``name`` unless it fired inside the
+        cooldown. Returns the bundle id, or None when suppressed. A write
+        failure logs and returns None — incident capture must never take
+        the serving path down with it."""
+        if name not in TRIGGERS:
+            raise ValueError(
+                f"unknown incident trigger {name!r}; triggers: {TRIGGERS}"
+            )
+        now = self.clock()
+        with self._lock:
+            last = self._last.get(name)
+            if last is not None and now - last < self.cooldown_s:
+                return None
+            self._last[name] = now
+            self._seq += 1
+            seq = self._seq
+        try:
+            bundle = dict(context_fn())
+            bundle["schema_version"] = SCHEMA_VERSION
+            bundle["trigger"] = name
+            bundle["ts"] = time.time()
+            bid = f"{int(bundle['ts'] * 1e3):013d}_{seq:04d}_{name}"
+            bundle["id"] = bid
+            os.makedirs(self.spool_dir, exist_ok=True)
+            path = os.path.join(self.spool_dir, f"incident_{bid}.json")
+            durable_write(path, bundle)
+            self._prune()
+            return bid
+        except Exception:  # noqa: BLE001 — capture must not fail serving
+            logger.exception("incident bundle write failed (trigger=%s)", name)
+            with self._lock:
+                # a FAILED capture must not burn the cooldown: the next
+                # trigger retries (only un-stamp our own attempt — a
+                # concurrent success keeps its newer stamp)
+                if self._last.get(name) == now:
+                    del self._last[name]
+            return None
+
+    def _prune(self) -> None:
+        files = self._files()
+        while len(files) > self.max_bundles:
+            victim = files.pop(0)  # oldest (ids sort chronologically)
+            try:
+                os.remove(os.path.join(self.spool_dir, victim))
+            except OSError:
+                pass
+
+    def _files(self) -> List[str]:
+        try:
+            names = [
+                n for n in os.listdir(self.spool_dir)
+                if n.startswith("incident_") and n.endswith(".json")
+            ]
+        except OSError:
+            return []
+        return sorted(names)
+
+    # -- read ------------------------------------------------------------
+    def list(self) -> List[Dict]:
+        """Spooled bundles, oldest first: ``{id, trigger, ts, path}``."""
+        out = []
+        for n in self._files():
+            bid = n[len("incident_"):-len(".json")]
+            parts = bid.split("_", 2)
+            out.append({
+                "id": bid,
+                "trigger": parts[2] if len(parts) == 3 else "unknown",
+                "ts": int(parts[0]) / 1e3 if parts[0].isdigit() else 0.0,
+                "path": os.path.join(self.spool_dir, n),
+            })
+        return out
+
+    def load(self, bundle_id: str) -> Optional[Dict]:
+        """One bundle's full JSON (None when unknown). The id is validated
+        against the directory listing — it is never joined into a path
+        straight from the request."""
+        for entry in self.list():
+            if entry["id"] == bundle_id:
+                try:
+                    with open(entry["path"]) as f:
+                        return json.load(f)
+                except (OSError, ValueError):
+                    return None
+        return None

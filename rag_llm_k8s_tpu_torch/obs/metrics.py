@@ -18,10 +18,9 @@ counter names like ``query_decode_tokens``) renders with the ``tpu_rag_``
 prefix, so the scrape surface is the JAX service's. Rendering is the JAX
 module's byte for byte.
 
-:class:`TenantTracker` interns every tenant id at the HTTP edge before the
-admission gate's fair-share rule counts it. (The JAX tracker also binds and
-prunes the ``rag_tenant_*`` families, which arrive with ``ROADMAP.md`` Queue 1
-item 9c.)
+:class:`TenantTracker` interns every tenant id at the HTTP edge before any
+per-tenant structure sees it, and bounds the ``rag_tenant_*`` families bound
+to it at top-K + ``__other__`` children.
 """
 
 from __future__ import annotations
@@ -439,18 +438,28 @@ class MetricsRegistry:
 
 
 class TenantTracker:
-    """Cardinality-bounded tenant interner: top-K + ``__other__``.
+    """Cardinality-bounded tenant label interner: top-K + ``__other__``.
 
-    ``intern(tenant)`` counts the tenant in a bounded *space-saving*
-    frequency table (``capacity`` entries; a newcomer evicts the global
-    minimum and inherits its count as an overestimate bound) and returns the
-    tenant's own name only while it is in the current top-K by request
-    count; everything else maps to :data:`TenantTracker.OTHER`, so no
-    per-tenant structure holds more than K + 1 entries. (The JAX tracker
-    also prunes the ``rag_tenant_*`` families bound to it, ``ROADMAP.md``
-    Queue 1 item 9c.)
+    The registry's labeled families create a child per distinct label
+    value — fed raw tenant ids they would grow without bound. This tracker
+    is the one gate tenant ids pass through before they become label
+    values:
 
-    Thread-safe: the table and the tracked set live under one lock.
+    - ``intern(tenant)`` counts the tenant with a bounded *space-saving*
+      frequency table (capacity entries; a newcomer evicts the global
+      minimum and inherits its count as an overestimate bound) and returns
+      the tenant's own name only while it sits in the current top-K by
+      request count — everything else maps to :data:`TenantTracker.OTHER`.
+      A cold tenant that turns hot re-promotes the moment its count passes
+      the tracked minimum (its pre-promotion history stays in
+      ``__other__`` — attribution is forward-looking by design).
+    - Families registered via ``bind(family, label="tenant")`` are pruned
+      on every demotion AND on every ``prune()`` (the scrape path calls
+      it), so no request pattern can hold more than K+1 tenant children
+      per family: K tracked names plus the overflow bucket.
+
+    Thread-safe: the count table and tracked set live under one lock;
+    family pruning happens outside it (family locks are per-family).
     """
 
     OTHER = "__other__"
@@ -465,12 +474,21 @@ class TenantTracker:
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = {}
         self._tracked: set = set()
+        self._families: List[Tuple[_Family, str]] = []
+
+    def bind(self, family: _Family, label: str = "tenant") -> _Family:
+        """Register a family whose ``label`` children this tracker bounds."""
+        with self._lock:
+            self._families.append((family, label))
+        return family
 
     def intern(self, tenant: str) -> str:
-        """Count one request for ``tenant``; return its own name iff it is
-        tracked, else ``__other__`` (a client claiming ``__other__`` lands in
-        the overflow bucket and can never impersonate a tracked tenant)."""
+        """Count one request for ``tenant``; return the label value the
+        caller may use: the tenant's own name iff currently tracked, else
+        ``__other__`` (a client claiming ``__other__`` itself lands in the
+        overflow bucket — it can never impersonate a tracked series)."""
         name = str(tenant)
+        demoted = False
         with self._lock:
             if name == self.OTHER:
                 return self.OTHER
@@ -480,10 +498,14 @@ class TenantTracker:
             elif len(self._counts) < self.capacity:
                 self._counts[name] = 1
             else:
-                victim, floor = min(self._counts.items(), key=lambda kv: (kv[1], kv[0]))
+                victim, floor = min(
+                    self._counts.items(), key=lambda kv: (kv[1], kv[0])
+                )
                 del self._counts[victim]
                 self._counts[name] = floor + 1
-                self._tracked.discard(victim)
+                if victim in self._tracked:
+                    self._tracked.discard(victim)
+                    demoted = True
             if name not in self._tracked:
                 if len(self._tracked) < self.top_k:
                     self._tracked.add(name)
@@ -493,15 +515,46 @@ class TenantTracker:
                         key=lambda kv: (kv[1], kv[0]),
                     )
                     # strictly greater: ties keep the incumbent, so two
-                    # equal-rate tenants do not flap
+                    # equal-rate tenants don't flap the exposition
                     if self._counts[name] > low_c:
                         self._tracked.discard(low)
                         self._tracked.add(name)
-            return name if name in self._tracked else self.OTHER
+                        demoted = True
+            out = name if name in self._tracked else self.OTHER
+            keep = tuple(self._tracked) + (self.OTHER,)
+            fams = list(self._families) if demoted else ()
+        for fam, label in fams:
+            fam.prune_label(label, keep)
+        return out
 
     def tracked(self) -> Tuple[str, ...]:
         with self._lock:
             return tuple(sorted(self._tracked))
+
+    def prune(self) -> None:
+        """Re-assert the bound over every bound family — the scrape path
+        calls this so a demotion racing an in-flight ``labels()`` call is
+        healed by the next collection at the latest."""
+        with self._lock:
+            keep = tuple(self._tracked) + (self.OTHER,)
+            fams = list(self._families)
+        for fam, label in fams:
+            fam.prune_label(label, keep)
+
+    def snapshot(self) -> Dict[str, object]:
+        """Diagnostics for ``/debug/tenants``: who is tracked and with what
+        (overestimate-bounded) request counts."""
+        with self._lock:
+            tracked = sorted(self._tracked)
+            counts = {t: self._counts.get(t, 0) for t in tracked}
+            table = len(self._counts)
+        return {
+            "top_k": self.top_k,
+            "capacity": self.capacity,
+            "tracked": tracked,
+            "counts": counts,
+            "table_size": table,
+        }
 
 
 _DEFAULT = MetricsRegistry()

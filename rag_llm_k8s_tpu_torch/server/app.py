@@ -2,9 +2,10 @@
 
 Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
 /generate`` (alias ``POST /query``), ``GET /index_info``, ``GET /healthz``
-(``?live=1``: the liveness form), ``POST /drain``, ``GET /metrics``, ``POST
-/profile``, ``GET /debug/traces``, ``GET /debug/timeline/<rid>`` and ``GET|POST
-/debug/faults``.
+(``?live=1``: the liveness form), ``POST /drain``, ``GET /metrics``, ``GET
+/slo`` (``?force=1``), ``POST /profile``, ``GET /debug/traces``, ``GET
+/debug/timeline/<rid>``, ``GET /debug/incidents`` (``?id=``), ``GET
+/debug/goodput``, ``GET /debug/tenants`` and ``GET|POST /debug/faults``.
 The WSGI plumbing is the standard library's, so the port needs no web
 framework: ``WsgiApp.test_client()`` drives it in-process, and
 ``make_server`` serves it over HTTP on a threading ``wsgiref`` server (one
@@ -95,6 +96,19 @@ log line per request is written while its trace is current, so the JSON log
 formatter stamps its ids. ``POST /profile`` captures a ``torch.profiler``
 trace of one request, or of a window over live traffic, as a Chrome-trace
 file.
+
+Goodput, SLOs, tenants and incidents, as in the JAX service: both engines
+keep a goodput ledger (``obs/goodput.py``), merged for ``/debug/goodput``
+and the ``rag_goodput_*`` / ``rag_cost_*`` families, and a request's share
+lands in its timings (``chip_ms``, ``goodput_frac``, ``cost_usd`` when
+``TPU_RAG_CHIP_HOUR_USD`` is set). ``obs/slo.py`` windows the registry's
+families into burn rates (``/slo``, ``rag_slo_*``). The tenant families
+(``rag_tenant_*``) are bound to the tracker; ``/debug/tenants`` folds the
+journal through ``obs/tenants.py``. ``rag_device_*`` reads the allocator
+(``obs/devices.py``). The breaker's flip, a reset storm, a pool-exhaustion
+shed, a 504 and a drain timeout each spool an incident bundle
+(``record_incident``; ``/debug/incidents``). The ``/debug`` routes answer
+403 unless ``TPU_RAG_FAULTS`` or ``TPU_RAG_DEBUG=1`` is set.
 """
 
 from __future__ import annotations
@@ -125,9 +139,13 @@ from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine, Continuous
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
 from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
 from rag_llm_k8s_tpu_torch.index.store import SearchResult, VectorStore
+from rag_llm_k8s_tpu_torch.obs import devices as obs_devices
 from rag_llm_k8s_tpu_torch.obs import flight, tracing
+from rag_llm_k8s_tpu_torch.obs import goodput as obs_goodput
 from rag_llm_k8s_tpu_torch.obs import logging as obs_logging
 from rag_llm_k8s_tpu_torch.obs import metrics as obs_metrics
+from rag_llm_k8s_tpu_torch.obs import slo as obs_slo
+from rag_llm_k8s_tpu_torch.obs import tenants as obs_tenants
 from rag_llm_k8s_tpu_torch.ops.knn import knn_topk
 from rag_llm_k8s_tpu_torch.rag import lookahead as lookahead_mod
 from rag_llm_k8s_tpu_torch.rag.chunking import split_text
@@ -146,8 +164,8 @@ logger = logging.getLogger(__name__)
 access_logger = logging.getLogger("rag_llm_k8s_tpu_torch.access")
 
 NO_RESULTS = "No relevant information found in the index."
-# the tenant of a request that names none (the JAX obs/tenants.py default)
-DEFAULT_TENANT = "anon"
+# the tenant of a request that names none
+DEFAULT_TENANT = obs_tenants.DEFAULT_TENANT
 
 
 def make_segment_source(llm_tokenizer, max_bucket: int):
@@ -249,6 +267,10 @@ class RagService:
             except OSError:
                 logger.exception("flight WAL unavailable at %s; running ring-only", fl.wal_dir)
         flight.configure(enabled=fl.enabled, capacity=fl.capacity, arrival_ids=fl.arrival_ids, wal=self.flight_wal)
+        # the incident spool: a bundle per trigger (breaker flip, reset
+        # storm, pool-exhaustion shed, deadline expiry, drain timeout),
+        # cooldown-bounded (record_incident)
+        self.incidents = flight.IncidentSpooler(fl.spool_dir, fl.spool_max, fl.cooldown_s)
         # the resilience layer: the readiness breaker over engine resets,
         # the admission gate in front of both engine modes, the drain
         # coordinator (server/main.py gives it an exit_fn), the tenant interner
@@ -271,9 +293,13 @@ class RagService:
                 self.admission.reclaimable_hint = lambda: sched_eng.reclaimable_blocks() > 0
         self.lifecycle = LifecycleCoordinator(
             admission=self.admission, deadline_s=res.drain_deadline_s, retry_after_s=res.drain_retry_after_s,
-            persist_fn=self._persist_for_restart,
+            persist_fn=self._persist_for_restart, incident_hook=self.record_incident,
         )
-        self.tenant_tracker = obs_metrics.TenantTracker(top_k=8)
+        # tenant attribution: every request's tenant interns through this
+        # top-K tracker at the HTTP edge; the rag_tenant_* families bind to
+        # it, so each holds at most top_k + 1 tenant children
+        self.tenants_enabled = bool(config.tenants.enabled)
+        self.tenant_tracker = obs_metrics.TenantTracker(top_k=int(config.tenants.top_k))
         # tier moves flow cache -> pool registrations after a retier sweep
         pcache = engine.prefix_cache
         if pcache is not None and pcache.tiering is not None:
@@ -304,7 +330,15 @@ class RagService:
         if scheduler is not None and getattr(scheduler, "pending_hint", False) is None:
             scheduler.pending_hint = lambda: self._inflight_generate
         self._prefix_memo: Dict[str, tuple] = {}
+        # one merged ledger snapshot serves a scrape's ~20 goodput callbacks
+        self._goodput_memo: Optional[tuple] = None
         self._init_observability()
+        # incident triggers: the breaker's flip and a reset storm capture the
+        # journal that explains them; the pool-exhaustion shed fires from the
+        # admission gate, deadline expiry from the HTTP edge (ep_generate)
+        self.breaker.on_open = lambda: self.record_incident("breaker_open")
+        self.breaker.on_reset = self._maybe_reset_storm
+        self.admission.incident_hook = self.record_incident
         # retrieval lookahead (TPU_RAG_LOOKAHEAD, off by default): a
         # request's retrieval launches before the admission gate can queue
         # it, and answer() joins the future
@@ -440,6 +474,18 @@ class RagService:
             "counter keeps growing past the ring)",
             fn=lambda: float(flight.recorder().events_emitted),
         )
+        self._m_incidents = reg.labeled_counter(
+            "rag_incident_bundles_total",
+            "incident bundles written to the on-disk spool (trigger: "
+            "breaker_open | reset_storm | pool_exhausted_shed | "
+            "deadline_exceeded; cooldown-suppressed repeats not counted)",
+        )
+        for t in flight.TRIGGERS:
+            self._m_incidents.labels(trigger=t)
+        self._init_goodput_metrics(reg)
+        self._init_tenant_metrics(reg)
+        # per-device allocator occupancy and prefix-cache residency
+        obs_devices.register_device_gauges(reg, self._prefix_bytes_by_device, self.engine.device)
         for e in self._engines().values():
             e.bind_metrics(reg)
         sched = self.scheduler
@@ -453,6 +499,118 @@ class RagService:
             wait.labels(stage="retrieve"), wait.labels(stage="embed"),
         )
         self.retrieve_coalescer.join_timeout_counter = join_counter
+        # the SLO specs over the families above: rag_slo_* gauges in the same
+        # registry, and GET /slo
+        self.slo = obs_slo.SloEngine(reg, specs=obs_slo.default_specs(self.config.slo))
+
+    def _init_goodput_metrics(self, reg) -> None:
+        """The goodput ledger's families (JAX ``_init_observability``):
+        per-category chip time and shares, MFU and bandwidth use per window
+        kind, and cost, all callbacks over one memoized merge of the serving
+        engines' ledgers (``_goodput_stats``); present in every mode, zero
+        while the ledger is off."""
+        gp_chip = reg.labeled_counter(
+            "rag_goodput_chip_seconds_total",
+            "chip-seconds attributed per goodput category — the six WINDOW "
+            "categories only, each a true monotone counter summing to busy "
+            "time (idle = wall − busy can shrink while both engines run "
+            "concurrently, so it lives in rag_goodput_busy_frac and the "
+            "/debug/goodput report, never in a counter)",
+        )
+        gp_frac = reg.labeled_gauge(
+            "rag_goodput_window_frac",
+            "fraction of BUSY chip time per attribution category (the six "
+            "window categories sum to 1 while anything has run)",
+        )
+        for c in obs_goodput.WINDOW_CATEGORIES:
+            gp_chip.labels_callback(lambda c=c: self._goodput_stats().get(f"chip_s_{c}", 0.0), category=c)
+            gp_frac.labels_callback(lambda c=c: self._goodput_stats().get(f"frac_{c}", 0.0), category=c)
+        reg.gauge(
+            "rag_goodput_busy_frac",
+            "busy / wall chip time since the ledger started (1 - this is "
+            "the idle fraction the disaggregation router wants to shrink)",
+            fn=lambda: self._goodput_stats().get("busy_frac", 0.0),
+        )
+        gp_mfu = reg.labeled_gauge(
+            "rag_goodput_mfu",
+            "rolling model-FLOPs utilization per executable kind (useful "
+            "token lanes only — padding lanes execute but earn nothing; "
+            "peaks from TPU_RAG_GOODPUT_PEAK_TFLOPS or the generic default)",
+        )
+        gp_bw = reg.labeled_gauge(
+            "rag_goodput_bandwidth_util",
+            "rolling HBM-bandwidth utilization estimate per executable "
+            "kind (roofline bytes model over measured window time)",
+        )
+        for k in obs_goodput.KINDS:
+            gp_mfu.labels_callback(lambda k=k: self._goodput_stats().get(f"mfu_{k}", 0.0), kind=k)
+            gp_bw.labels_callback(lambda k=k: self._goodput_stats().get(f"bw_{k}", 0.0), kind=k)
+        reg.counter(
+            "rag_cost_usd_total",
+            "chip rental spend so far at TPU_RAG_CHIP_HOUR_USD over WALL "
+            "time (an idle chip still bills; 0 while no price is set)",
+            fn=lambda: self._goodput_stats().get("cost_usd_total", 0.0),
+        )
+        reg.gauge(
+            "rag_cost_tokens_per_usd",
+            "useful decode tokens per dollar of wall-clock chip rental "
+            "(the NinjaLLM tokens/s/$ gate's numerator; 0 while no price)",
+            fn=lambda: self._goodput_stats().get("tokens_per_usd", 0.0),
+        )
+
+    def _init_tenant_metrics(self, reg) -> None:
+        """The tenant families (JAX ``_init_observability``), each bound to
+        the tracker: a demotion prunes their children at once, and the
+        ``rag_tenant_tracked`` probe re-asserts the bound on every scrape.
+        Counters are pushed at the edge (the HTTP outcome, the completion
+        rollup, a shed)."""
+        self._m_tenant_http = reg.labeled_counter(
+            "rag_tenant_http_requests_total",
+            "served requests by tenant and status code (tenant values are "
+            "tracker-interned: top-K by request count, everything else "
+            "folds into __other__) — the per-tenant availability SLO's "
+            "good/total source",
+        )
+        self._m_tenant_req = reg.labeled_histogram(
+            "rag_tenant_request_seconds",
+            "end-to-end /generate duration per tracked tenant (the "
+            "per-tenant latency SLO's SLI source)",
+            buckets=obs_metrics.REQUEST_BUCKETS,
+        )
+        self._m_tenant_chip = reg.labeled_counter(
+            "rag_tenant_chip_seconds_total",
+            "chip-seconds attributed to completed requests per tenant — "
+            "the goodput ledger's per-request attribution rolled up by the "
+            "tenant that paid for it (sums to the ledger's attributed "
+            "total over the same requests)",
+        )
+        self._m_tenant_cost = reg.labeled_counter(
+            "rag_tenant_cost_usd_total",
+            "chip rental spend attributed per tenant at "
+            "TPU_RAG_CHIP_HOUR_USD (0 while no price is set)",
+        )
+        self._m_tenant_tokens = reg.labeled_counter(
+            "rag_tenant_tokens_total",
+            "delivered decode tokens per tenant",
+        )
+        self._m_tenant_sheds = reg.labeled_counter(
+            "rag_tenant_sheds_total",
+            "admission-gate sheds per tenant (the reason detail lives in "
+            "rag_admission_rejected_total; this family answers WHO was "
+            "shed)",
+        )
+        self.admission.tenant_shed_counter = self._m_tenant_sheds
+        for fam in (self._m_tenant_http, self._m_tenant_req, self._m_tenant_chip, self._m_tenant_cost,
+                    self._m_tenant_tokens, self._m_tenant_sheds):
+            self.tenant_tracker.bind(fam)
+        reg.gauge(
+            "rag_tenant_tracked",
+            "tenants currently holding tracked (non-__other__) label slots "
+            "(<= TPU_RAG_TENANT_TOP_K); reading it also re-asserts the "
+            "cardinality bound over every bound family and reconciles the "
+            "per-tenant SLO spec set",
+            fn=self._tenant_scrape_sync,
+        )
 
     def _init_spec_metrics(self, reg) -> None:
         """The paged verify's families (JAX ``_init_observability``):
@@ -663,9 +821,178 @@ class RagService:
         q = getattr(self.scheduler, "_queue", None)
         return (float(q.qsize()) if q is not None else 0.0) + float(self.admission.queue_depth())
 
-    def observe_http(self, route: str, code: int) -> None:
-        """One served request's outcome (once per ``/generate`` or ``/query``)."""
+    def observe_http(self, route: str, code: int, tenant: Optional[str] = None,
+                     duration_s: Optional[float] = None) -> None:
+        """One served request's outcome (once per ``/generate`` or
+        ``/query``); with ``tenant`` (edge-interned) also the per-tenant
+        outcome counter and, with ``duration_s``, latency histogram, the
+        families the per-tenant SLO specs window."""
         self._m_http.labels(route=route, code=str(int(code))).inc()
+        if tenant is not None:
+            self._m_tenant_http.labels(tenant=tenant, code=str(int(code))).inc()
+            if duration_s is not None:
+                self._m_tenant_req.labels(tenant=tenant).observe(duration_s)
+
+    # -- goodput ledger (obs/goodput.py) ---------------------------------
+    def _goodput_price(self) -> float:
+        """The chip-hour price: the highest of the serving engines' ledgers
+        (the source of every request's cost_usd), else the config's."""
+        prices = [e.ledger.chip_hour_usd for e in self._engines().values() if getattr(e, "ledger", None) is not None]
+        if prices and max(prices) > 0:
+            return max(prices)
+        return float(self.config.engine.goodput.chip_hour_usd or 0.0)
+
+    def _goodput_state(self) -> Dict:
+        """The serving engines' ledger states merged (the one-shot engine's
+        and the continuous one's each attribute their own windows)."""
+        return obs_goodput.merge_states(
+            e.ledger.state() for e in self._engines().values() if getattr(e, "ledger", None) is not None
+        )
+
+    def _goodput_stats(self) -> Dict[str, float]:
+        """The flat snapshot behind the goodput and cost callbacks, kept for
+        a quarter second so one scrape merges the ledgers once (a benign
+        race on the memo)."""
+        now = time.monotonic()
+        cached = self._goodput_memo
+        if cached is not None and now - cached[0] < 0.25:
+            return cached[1]
+        report = self.goodput_report()
+        out: Dict[str, float] = {"busy_frac": report["busy_frac"]}
+        for c, v in report["categories"].items():
+            out[f"chip_s_{c}"] = v["chip_s"]
+            if c != "idle":
+                out[f"frac_{c}"] = v["frac"]
+        for k, v in report["kinds"].items():
+            out[f"mfu_{k}"] = v["mfu"]
+            out[f"bw_{k}"] = v["bw_util"]
+        out["cost_usd_total"] = report["cost"]["wall_usd"]
+        out["tokens_per_usd"] = report["cost"]["tokens_per_usd"]
+        self._goodput_memo = (now, out)
+        return out
+
+    def goodput_report(self) -> Dict:
+        """The capacity picture ``GET /debug/goodput`` serves (the renderer
+        a journal's reconstruction goes through too)."""
+        return obs_goodput.render_report(self._goodput_state(), chip_hour_usd=self._goodput_price())
+
+    @staticmethod
+    def _fold_goodput(timings: Dict[str, float], gen_info: Dict) -> None:
+        """A request's attribution in its timings: ``chip_ms``,
+        ``goodput_frac``, ``cost_usd`` when priced, and its speculation
+        stats."""
+        gp = gen_info.get("goodput")
+        if not gp:
+            return
+        for key in ("chip_ms", "goodput_frac", "cost_usd", "spec_drafted", "spec_accepted",
+                    "spec_accept_len_mean"):
+            if key in gp:
+                timings[key] = float(gp[key])
+
+    @staticmethod
+    def _round_timings(timings: Dict[str, float]) -> Dict[str, float]:
+        """The response's rounded timings: cost_usd keeps 8 decimals (a
+        query costs micro-dollars), goodput_frac and the acceptance mean 4."""
+        digits = {"cost_usd": 8, "goodput_frac": 4, "spec_accept_len_mean": 4}
+        return {k: round(v, digits.get(k, 2)) for k, v in timings.items()}
+
+    # -- incident bundles (obs/flight.py) --------------------------------
+    def _maybe_reset_storm(self) -> None:
+        """The breaker's reset hook: a second reset inside its window is a
+        storm (one is routine recovery); the bundle catches the journal
+        while the storm's causes are still in the ring."""
+        if self.breaker.recent_resets() >= 2:
+            self.record_incident("reset_storm")
+
+    def record_incident(self, trigger: str) -> Optional[str]:
+        """Spool one self-contained bundle: the journal, the metrics
+        snapshot, the config fingerprint and the newest 32 traces. Returns
+        its id, or None inside the trigger's cooldown."""
+        def _ctx():
+            return {
+                "journal": self.flight.snapshot(),
+                "metrics": self.metrics.snapshot(),
+                "config_fingerprint": flight.config_fingerprint(self.config),
+                "traces": self.traces.list(32),
+                "meta": {"version": __version__, "engine_mode": engine_mode(self.scheduler)},
+            }
+
+        bid = self.incidents.trigger(trigger, _ctx)
+        if bid is not None:
+            self._m_incidents.labels(trigger=trigger).inc()
+        return bid
+
+    # -- tenant attribution (obs/tenants.py) -----------------------------
+    def _prefix_bytes_by_device(self) -> Dict[int, int]:
+        """``{device index: prefix-cache bytes}`` over the serving engines'
+        caches (empty with the cache off)."""
+        out: Dict[int, int] = {}
+        for pc in self._pcaches():
+            for did, nbytes in pc.bytes_by_device().items():
+                out[did] = out.get(did, 0) + nbytes
+        return out
+
+    def _tenant_scrape_sync(self) -> float:
+        """The ``rag_tenant_tracked`` probe: it re-asserts the cardinality
+        bound over the bound families (healing a demotion that raced a
+        ``labels()`` call) and reconciles the per-tenant SLO specs."""
+        trk = self.tenant_tracker
+        trk.prune()
+        tracked = trk.tracked()
+        slo = getattr(self, "slo", None)
+        if slo is not None:
+            slo.set_tenants(tracked)
+        return float(len(tracked))
+
+    def _tenant_complete(self, tenant: str, gen_info: Optional[Dict], n_tokens: int) -> None:
+        """Fold one completed request into its tenant's counters, from the
+        request's own attribution, so the tenants' chip seconds sum to the
+        ledger's attributed total over the same requests."""
+        try:
+            self._m_tenant_tokens.labels(tenant=tenant).inc(float(n_tokens))
+            gp = (gen_info or {}).get("goodput") or {}
+            chip_ms = float(gp.get("chip_ms", 0.0) or 0.0)
+            if chip_ms > 0:
+                self._m_tenant_chip.labels(tenant=tenant).inc(chip_ms / 1e3)
+            cost = float(gp.get("cost_usd", 0.0) or 0.0)
+            if cost > 0:
+                self._m_tenant_cost.labels(tenant=tenant).inc(cost)
+        except Exception:  # noqa: BLE001 — attribution must not fail serving
+            logger.exception("tenant rollup failed")
+
+    def _tenant_ledger_rollups(self) -> Dict[str, Dict[str, float]]:
+        """The engines' per-tenant ledger rollups merged (additive keys
+        sum; the goodput fraction is recomputed after the merge)."""
+        out: Dict[str, Dict[str, float]] = {}
+        for e in self._engines().values():
+            led = getattr(e, "ledger", None)
+            if led is None:
+                continue
+            for t, row in led.tenant_state().items():
+                dst = out.setdefault(t, {})
+                for k, v in row.items():
+                    if k != "goodput_frac":
+                        dst[k] = dst.get(k, 0.0) + float(v)
+        for row in out.values():
+            row["goodput_frac"] = round(min(1.0, row.get("useful_s", 0.0) / max(row.get("chip_s", 0.0), 1e-30)), 6)
+        return out
+
+    def tenant_report(self) -> Dict:
+        """The per-tenant picture ``GET /debug/tenants`` serves: the
+        journal folded through ``obs/tenants.py`` (the renderer a saved
+        journal goes through), plus the live-only tracker table, ledger
+        rollups and per-tenant SLO burn."""
+        report = obs_tenants.render_report(
+            obs_tenants.state_from_events(self.flight.snapshot()), chip_hour_usd=self._goodput_price(),
+        )
+        self.slo.set_tenants(self.tenant_tracker.tracked())
+        return {
+            "enabled": self.tenants_enabled,
+            "report": report,
+            "tracker": self.tenant_tracker.snapshot(),
+            "ledger": self._tenant_ledger_rollups(),
+            "slo": self.slo.evaluate().get("tenants", {}),
+        }
 
     def _observe_request(self, timings: Dict[str, float]) -> None:
         """Feed the request and stage histograms from one answered request's
@@ -1292,7 +1619,7 @@ class RagService:
                 # generate claim now, or the scheduler's hint would wait for it
                 self._release(generate=True)
                 in_generate = False
-                resp = self._answer_fused(user_prompt, r, timings, t_all, notes)
+                resp = self._answer_fused(user_prompt, r, timings, t_all, notes, tenant)
                 if resp is not None:
                     return self._finish(resp, notes)
                 with self._inflight_lock:
@@ -1319,7 +1646,7 @@ class RagService:
                 # generate claim is released (and taken back on fallback)
                 self._release(generate=True)
                 in_generate = False
-                resp = self._answer_prefixed(user_prompt, results, timings, t_all, notes)
+                resp = self._answer_prefixed(user_prompt, results, timings, t_all, notes, tenant)
                 if resp is not None:
                     return self._finish(resp, notes)
                 with self._inflight_lock:
@@ -1332,7 +1659,7 @@ class RagService:
             timings["_assemble_s"] = time.monotonic() - t_as
             self._deadline_check(deadline, "assemble")
             t0 = time.monotonic()
-            gen_info: Dict[str, int] = {}
+            gen_info: Dict = {}
             with tracing.span("generate"):
                 if self.scheduler is not None and len(prompt_ids) <= self._scheduler_prompt_cap():
                     extra = {"sampling": sampling} if isinstance(self.scheduler, ContinuousScheduler) else {}
@@ -1354,7 +1681,7 @@ class RagService:
                     # bucket: the one-shot engine (chunked prefill) serves it whole
                     self._release(generate=True)
                     in_generate = False
-                    out_ids = self.engine.generate([prompt_ids])[0]
+                    out_ids = self.engine.generate([prompt_ids], info=gen_info)[0]
             if in_generate:
                 self._release(generate=True)
                 in_generate = False
@@ -1363,6 +1690,10 @@ class RagService:
                 completion = self.llm_tokenizer.decode(out_ids)
             timings["_detokenize_s"] = time.monotonic() - t_de
             timings["generate_ms"] = (time.monotonic() - t0) * 1e3
+            if "kv_blocks_allocated" in gen_info:
+                # paged: the row's block footprint, beside the pool gauges
+                timings["kv_blocks_allocated"] = float(gen_info["kv_blocks_allocated"])
+            self._fold_goodput(timings, gen_info)
             timings["total_ms"] = (time.monotonic() - t_all) * 1e3
         finally:
             # error paths and the no-results return release their claims too
@@ -1370,10 +1701,12 @@ class RagService:
         self.metrics.observe("query_seconds", timings["total_ms"] / 1e3)
         self.metrics.inc("query_decode_tokens", len(out_ids))
         self._observe_request(timings)
+        if tenant is not None:
+            self._tenant_complete(tenant, gen_info, len(out_ids))
         resp = {
             "generated_text": extract_answer(completion),
             "context": context,
-            "timings": {k: round(v, 2) for k, v in timings.items()},
+            "timings": self._round_timings(timings),
         }
         if "request_id" in gen_info:
             # continuous serving: the id keying this request's flight events
@@ -1383,7 +1716,8 @@ class RagService:
     def _prefix_enabled(self) -> bool:
         return self.engine.prefix_cache is not None
 
-    def _answer_prefixed(self, user_prompt: str, results, timings, t_all, notes: List[str]):
+    def _answer_prefixed(self, user_prompt: str, results, timings, t_all, notes: List[str],
+                         tenant: Optional[str] = None):
         """The prefix-cache tail of ``answer`` (JAX ``_answer_prefixed``):
         resolve the segments against the cache (misses build and cache as
         they go), splice the prefix into a fresh cache and prefill only the
@@ -1413,9 +1747,10 @@ class RagService:
         # a hit is a lookup, a miss the segment build: outside generate_ms
         timings["prefix_resolve_ms"] = (time.monotonic() - t_r) * 1e3
         t0 = time.monotonic()
+        gen_info: Dict = {}
         with tracing.span("generate"):
             try:
-                out_ids = self.engine.generate_prefixed(b_ids, cp)
+                out_ids = self.engine.generate_prefixed(b_ids, cp, info=gen_info)
             except ValueError:
                 return None  # tail past the suffix ladder: the cold path serves
         t_de = time.monotonic()
@@ -1430,18 +1765,22 @@ class RagService:
         timings["prefill_tokens_skipped_frac"] = cp.reused_tokens / max(
             cp.reused_tokens + cp.computed_tokens + len(b_ids), 1
         )
+        self._fold_goodput(timings, gen_info)
         timings["total_ms"] = (time.monotonic() - t_all) * 1e3
         self.metrics.observe("query_seconds", timings["total_ms"] / 1e3)
         self.metrics.inc("query_decode_tokens", len(out_ids))
         self.metrics.inc("query_prefix_cached", 1)
         self._observe_request(timings)
+        if tenant is not None:
+            self._tenant_complete(tenant, gen_info, len(out_ids))
         return {
             "generated_text": extract_answer(completion),
             "context": context,
-            "timings": {k: round(v, 2) for k, v in timings.items()},
+            "timings": self._round_timings(timings),
         }
 
-    def _answer_fused(self, user_prompt: str, fused_r, timings, t_all, notes: List[str]):
+    def _answer_fused(self, user_prompt: str, fused_r, timings, t_all, notes: List[str],
+                      tenant: Optional[str] = None):
         """Device-side prompt assembly + generate from the unfetched
         retrieve output. None when head + tail leave fewer than 16 tokens of
         room, the tail overflows the fused bucket, or the chunk-token
@@ -1468,8 +1807,10 @@ class RagService:
         timings["tokenize_ms"] = tokenize_ms + (time.monotonic() - t_b) * 1e3
         n_ctx = min(self.config.retrieval.context_top_n, k_eff)
         t0 = time.monotonic()
+        gen_info: Dict = {}
         with tracing.span("generate"):
-            out_ids = self.engine.generate_rag(a_ids, b_ids, packed_dev, toks_dev, lens_dev, n_chunks=n_ctx)
+            out_ids = self.engine.generate_rag(a_ids, b_ids, packed_dev, toks_dev, lens_dev, n_chunks=n_ctx,
+                                               info=gen_info)
         t_de = time.monotonic()
         with tracing.span("detokenize"):
             completion = self.llm_tokenizer.decode(out_ids)
@@ -1485,15 +1826,18 @@ class RagService:
         )
         # the chunk share of the device-assembled prompt, known only now
         self.engine.record_prefill(used)
+        self._fold_goodput(timings, gen_info)
         timings["total_ms"] = (time.monotonic() - t_all) * 1e3
         self.metrics.observe("query_seconds", timings["total_ms"] / 1e3)
         self.metrics.inc("query_decode_tokens", len(out_ids))
         self.metrics.inc("query_single_fetch", 1)
         self._observe_request(timings)
+        if tenant is not None:
+            self._tenant_complete(tenant, gen_info, len(out_ids))
         return {
             "generated_text": extract_answer(completion),
             "context": assemble_context(results, n_kept),
-            "timings": {k: round(v, 2) for k, v in timings.items()},
+            "timings": self._round_timings(timings),
         }
 
 
@@ -1650,7 +1994,11 @@ class WsgiApp:
         "/drain": (("POST",), "drain"),
         "/metrics": (("GET",), "metrics"),
         "/profile": (("POST",), "profile"),
+        "/slo": (("GET",), "slo"),
         "/debug/traces": (("GET",), "debug_traces"),
+        "/debug/incidents": (("GET",), "debug_incidents"),
+        "/debug/goodput": (("GET",), "debug_goodput"),
+        "/debug/tenants": (("GET",), "debug_tenants"),
         "/debug/faults": (("GET", "POST"), "debug_faults"),
     }
 
@@ -1765,15 +2113,19 @@ class WsgiApp:
         trace_id, span_id = tr.trace_id, tr.span_id
         la = svc.lookahead
         launched_fut = None
+        tenant = None
         try:
             data = request.json()
             prompt = data.get("prompt", "")
             session_id = data.get("session_id")
             if session_id is not None:
                 session_id = str(session_id)
-            raw_tenant = data.get("tenant_id") or request.headers.get("x-tenant-id") or DEFAULT_TENANT
-            tenant = svc.tenant_tracker.intern(str(raw_tenant))
-            tr.attrs["tenant"] = tenant
+            if svc.tenants_enabled:
+                # the body's tenant_id, then x-tenant-id, then "anon", interned
+                # here, so everything downstream sees a tracked name or __other__
+                raw_tenant = data.get("tenant_id") or request.headers.get("x-tenant-id") or DEFAULT_TENANT
+                tenant = svc.tenant_tracker.intern(str(raw_tenant))
+                tr.attrs["tenant"] = tenant
             logger.debug("User query: %s", prompt)
             tr.attrs["prompt"] = prompt[:80]
             deadline, dl_err = self._request_deadline(data, request.headers)
@@ -1815,6 +2167,8 @@ class WsgiApp:
                 # no-op on a claimed one)
                 la.abandon(launched_fut)
             status, payload = 504, {"error": str(e), "stage": e.stage}
+            # the journal still holds what spent the request's budget
+            svc.record_incident("deadline_exceeded")
         except Exception as e:  # noqa: BLE001 — any failure → JSON error
             status = 500
             logger.exception("generate failed")
@@ -1830,7 +2184,7 @@ class WsgiApp:
                 tracing.finish_trace(tr, svc.traces)
         headers["x-trace-id"] = trace_id
         headers["traceparent"] = obs_logging.format_traceparent(trace_id, span_id)
-        svc.observe_http(request.path, status)
+        svc.observe_http(request.path, status, tenant=tenant, duration_s=time.monotonic() - t0)
         return status, payload, headers
 
     def ep_index_info(self, request: Request):
@@ -1881,6 +2235,54 @@ class WsgiApp:
         except (KeyError, ValueError):
             limit = None
         return 200, {"traces": self.service.traces.list(limit)}
+
+    def ep_slo(self, request: Request):
+        """Compliance and burn per SLO (``obs/slo.py``), from the families
+        ``/metrics`` serves; the tenant section covers the tracker's current
+        top-K. ``?force=1`` skips the evaluation cache."""
+        svc = self.service
+        try:
+            svc.slo.set_tenants(svc.tenant_tracker.tracked())
+            return 200, svc.slo.evaluate(force=bool(request.args.get("force")))
+        except Exception as e:  # noqa: BLE001
+            logger.exception("slo evaluation failed")
+            return 500, {"error": str(e)}
+
+    def ep_debug_incidents(self, request: Request):
+        """The incident spool: the bundles (``{id, trigger, ts, path}``), or
+        with ``?id=`` one bundle's whole JSON (404 for an unknown id)."""
+        if not self._debug_enabled():
+            return self._debug_forbidden()
+        spool = self.service.incidents
+        bid = request.args.get("id")
+        if bid:
+            bundle = spool.load(bid)
+            if bundle is None:
+                return 404, {"error": f"no incident bundle {bid!r}"}
+            return 200, bundle
+        return 200, {"incidents": spool.list()}
+
+    def ep_debug_goodput(self, request: Request):
+        """The goodput and cost report merged over the serving engines'
+        ledgers (``obs/goodput.py``)."""
+        if not self._debug_enabled():
+            return self._debug_forbidden()
+        try:
+            return 200, self.service.goodput_report()
+        except Exception as e:  # noqa: BLE001
+            logger.exception("goodput report failed")
+            return 500, {"error": str(e)}
+
+    def ep_debug_tenants(self, request: Request):
+        """The per-tenant report (``obs/tenants.py``) with the tracker table,
+        the ledger rollups and the per-tenant SLO burn."""
+        if not self._debug_enabled():
+            return self._debug_forbidden()
+        try:
+            return 200, self.service.tenant_report()
+        except Exception as e:  # noqa: BLE001
+            logger.exception("tenant report failed")
+            return 500, {"error": str(e)}
 
     def ep_debug_timeline(self, request: Request, rid: int):
         """One request's flight-journal lifecycle, keyed by the ``request_id``

@@ -33,7 +33,15 @@ one JSON object carrying the request's trace and span ids
 (``obs/logging.py``), installed before anything logs.
 
 Run: ``python -m rag_llm_k8s_tpu_torch.server.main`` (environment keys:
-``core.config.AppConfig.from_env``).
+``core.config.AppConfig.from_env``). Routes: ``/upload_pdf``, ``/generate``
+(``/query``), ``/index_info``, ``/healthz``, ``/drain``, ``/metrics``,
+``/slo``, ``/profile``, and, 403 unless ``TPU_RAG_DEBUG=1`` or
+``TPU_RAG_FAULTS`` is set, ``/debug/traces``, ``/debug/timeline/<rid>``,
+``/debug/incidents``, ``/debug/goodput``, ``/debug/tenants`` and
+``/debug/faults`` (the last only under ``TPU_RAG_FAULTS``). Incident bundles
+spool to ``TPU_RAG_FLIGHT_SPOOL`` (default ``/tmp/tpu_rag_incidents``; at
+most ``TPU_RAG_FLIGHT_SPOOL_MAX``, one per trigger per
+``TPU_RAG_FLIGHT_COOLDOWN_S``).
 
 Not ported yet (``ROADMAP.md`` Queue 1): the device mesh (item 10: the
 port serves one card).

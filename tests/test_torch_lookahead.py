@@ -25,6 +25,7 @@ wiring) against the JAX package's.
 
 import dataclasses
 import functools
+import tempfile
 import threading
 import time
 
@@ -37,6 +38,7 @@ from rag_llm_k8s_tpu.core.config import AppConfig as JAppConfig
 from rag_llm_k8s_tpu.core.config import DTypePolicy as JDTypes
 from rag_llm_k8s_tpu.core.config import EncoderConfig as JEncoderConfig
 from rag_llm_k8s_tpu.core.config import EngineConfig as JEngineConfig
+from rag_llm_k8s_tpu.core.config import FlightConfig as JFlightConfig
 from rag_llm_k8s_tpu.core.config import LlamaConfig as JLlamaConfig
 from rag_llm_k8s_tpu.core.config import LookaheadConfig as JLookaheadConfig
 from rag_llm_k8s_tpu.core.config import SamplingConfig as JSampling
@@ -56,6 +58,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     DTypePolicy,
     EncoderConfig,
     EngineConfig,
+    FlightConfig,
     LlamaConfig,
     LookaheadConfig,
     PrefixCacheConfig,
@@ -442,7 +445,8 @@ def _jax_service(weights, lookahead):
     lparams, eparams = weights
     jl, je = JLlamaConfig.tiny(VOCAB), JEncoderConfig.tiny(VOCAB)
     cfg = JAppConfig(model=jl, encoder=je, system_message=SYSTEM,
-                     lookahead=JLookaheadConfig(enabled=lookahead))
+                     lookahead=JLookaheadConfig(enabled=lookahead),
+                     flight=JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")))
     eng = JEngine(jl, lparams, sampling=JSampling(**GREEDY), engine_config=JEngineConfig(**ENGINE), dtypes=JFP32)
     enc = JEncoderRunner(je, eparams, dtypes=JFP32, length_buckets=(32, 64), max_batch=4)
     store = JStore(dim=je.hidden_size)
@@ -464,7 +468,8 @@ def _port_service(weights, lookahead, prefix_cache=None, continuous=None, ttl_s=
         ekw["prefix_cache"] = prefix_cache
     eng = InferenceEngine(lc, model, SamplingConfig(**GREEDY), EngineConfig(**ekw), FP32, "cpu")
     cfg = AppConfig(model=lc, encoder=ec, engine=eng.engine_config, system_message=SYSTEM,
-                    lookahead=LookaheadConfig(enabled=lookahead, ttl_s=ttl_s))
+                    lookahead=LookaheadConfig(enabled=lookahead, ttl_s=ttl_s),
+                    flight=FlightConfig(spool_dir=tempfile.mkdtemp(prefix="port_incidents_")))
     if continuous is not None:
         sched = tapp.build_scheduler(eng, dataclasses.replace(eng.engine_config, batching="continuous",
                                                               **continuous))

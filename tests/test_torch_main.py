@@ -510,10 +510,70 @@ def test_from_env_reads_the_resilience_keys_like_jax():
 
 def test_keys_that_leave_unported_features_off_are_accepted(caplog):
     env = {"TPU_RAG_MESH": "tp=-1", "TPU_RAG_SPEC_PAGED": "0", "TPU_RAG_POOL_ROLE": "unified",
-           "TPU_RAG_SLO_TTFT_P95_S": "2"}
+           "TPU_RAG_SLO_TTFT_P95_S": "2", "TPU_RAG_SHADOW": "0", "TPU_RAG_WARM_FULL_LADDER": "1"}
     with caplog.at_level("WARNING"):
         AppConfig.from_env(env)
-    assert "TPU_RAG_SLO_TTFT_P95_S" in caplog.text  # logged as ignored, not silently
+    # logged as ignored, not silently; an SLO key is read now
+    assert "TPU_RAG_SHADOW" in caplog.text and "TPU_RAG_WARM_FULL_LADDER" in caplog.text
+    assert "TPU_RAG_SLO_TTFT_P95_S" not in caplog.text
+
+
+def test_only_the_shadow_and_warm_ladder_keys_are_left_unread():
+    """Every ``TPU_RAG_*`` key the JAX config reads is read or refused by
+    the port's, but the shadow auditor's (ROADMAP.md Queue 1 item 9c-ii) and
+    ``TPU_RAG_WARM_FULL_LADDER`` (Queue 3 item A)."""
+    import re
+
+    from rag_llm_k8s_tpu.core import config as jconfig
+    from rag_llm_k8s_tpu_torch.core import config as tconfig
+
+    with open(jconfig.__file__, encoding="utf-8") as f:
+        keys = set(re.findall(r'"(TPU_RAG_[A-Z0-9_]+)"', f.read()))
+    left = sorted(k for k in keys if k not in tconfig.PORTED_KEYS and k not in tconfig.UNPORTED_KEYS)
+    assert left and all(k.startswith("TPU_RAG_SHADOW") or k == "TPU_RAG_WARM_FULL_LADDER" for k in left), left
+
+
+# the goodput, SLO, tenant and incident-spool keys (ROADMAP.md Queue 1 item
+# 9c-i): good values parse to JAX's fields; a malformed SLO value falls back
+# to its default, as in JAX; the other malformed values raise JAX's message
+OBS_GOOD = [
+    {"TPU_RAG_GOODPUT": "0"}, {"TPU_RAG_GOODPUT": "1", "TPU_RAG_CHIP_HOUR_USD": "3.0"},
+    {"TPU_RAG_GOODPUT_PEAK_TFLOPS": "197", "TPU_RAG_GOODPUT_HBM_GBS": "819"},
+    {"TPU_RAG_SLO_AVAILABILITY_OBJECTIVE": "0.99", "TPU_RAG_SLO_REQUEST_P95_OBJECTIVE": "0.9",
+     "TPU_RAG_SLO_REQUEST_P95_S": "3.5", "TPU_RAG_SLO_TTFT_P95_OBJECTIVE": "0.8", "TPU_RAG_SLO_TTFT_P95_S": "0.5",
+     "TPU_RAG_SLO_QUALITY_OBJECTIVE": "0.98", "TPU_RAG_SLO_QUALITY_LOGIT_ERR": "0.2"},
+    {"TPU_RAG_SLO_AVAILABILITY_OBJECTIVE": "7", "TPU_RAG_SLO_REQUEST_P95_S": "two seconds",
+     "TPU_RAG_SLO_TTFT_P95_S": "0", "TPU_RAG_SLO_QUALITY_OBJECTIVE": "", "TPU_RAG_SLO_QUALITY_LOGIT_ERR": "-1"},
+    {"TPU_RAG_TENANTS": "0", "TPU_RAG_TENANT_TOP_K": "3"},
+    {"TPU_RAG_FLIGHT_SPOOL": "/srv/incidents", "TPU_RAG_FLIGHT_SPOOL_MAX": "4", "TPU_RAG_FLIGHT_COOLDOWN_S": "0"},
+]
+OBS_BAD = [
+    {"TPU_RAG_GOODPUT": "yes"}, {"TPU_RAG_CHIP_HOUR_USD": "-1"}, {"TPU_RAG_GOODPUT_PEAK_TFLOPS": "-5"},
+    {"TPU_RAG_GOODPUT_HBM_GBS": "fast"}, {"TPU_RAG_TENANTS": "yes"}, {"TPU_RAG_TENANT_TOP_K": "0"},
+    {"TPU_RAG_TENANT_TOP_K": "many"}, {"TPU_RAG_FLIGHT_SPOOL_MAX": "0"}, {"TPU_RAG_FLIGHT_COOLDOWN_S": "-1"},
+]
+
+
+@pytest.mark.parametrize("env", OBS_GOOD)
+def test_the_item_9c_i_keys_parse_as_jax_parses_them(env, caplog):
+    with caplog.at_level("WARNING"):
+        got = AppConfig.from_env(env)
+    want = JAppConfig.from_env(env)
+    assert dataclasses.asdict(got.engine.goodput) == dataclasses.asdict(want.engine.goodput)
+    assert dataclasses.asdict(got.slo) == dataclasses.asdict(want.slo)
+    assert dataclasses.asdict(got.tenants) == dataclasses.asdict(want.tenants)
+    for name in ("spool_dir", "spool_max", "cooldown_s"):
+        assert getattr(got.flight, name) == getattr(want.flight, name), name
+    assert "ignoring" not in caplog.text  # keys from_env reads
+
+
+@pytest.mark.parametrize("env", OBS_BAD)
+def test_a_bad_item_9c_i_key_raises_the_jax_message(env):
+    with pytest.raises(ValueError) as want:
+        JAppConfig.from_env(env)
+    with pytest.raises(ValueError) as got:
+        AppConfig.from_env(env)
+    assert str(got.value) == str(want.value)
 
 
 def test_json_logs_make_a_request_line_one_object_with_its_trace_id(booted):

@@ -10,7 +10,8 @@
   requests (a traced one, a 400, a 429, a 504, a planted fault, a malformed
   ``traceparent``, a host-path question); the port serves JAX's families
   less the ``WAITING`` table, with equal ``# TYPE``/``# HELP`` lines, label
-  sets and bucket bounds, and equal counts wherever a count does not
+  sets (the per-device families over device 0, the one device the port
+  serves) and bucket bounds, and equal counts wherever a count does not
   measure time;
 - **the JAX tests as written**: ``tests/test_obs.py``'s exposition,
   healthz, profile, traced-generate and engine-instrumentation tests run
@@ -63,14 +64,14 @@ SIDES = {"jax": (jmetrics, jtracing), "port": (tmetrics, ttracing)}
 # the JAX service's families whose sources the port does not have yet, by
 # the ROADMAP.md Queue 1 item that brings them (exposition names)
 WAITING = {
-    "8": ("rag_lookahead_*",),
-    "9c": ("rag_incident_bundles_total", "rag_quality_*", "rag_goodput_*", "rag_cost_*", "rag_tenant_*",
-           "rag_slo_*", "rag_device_hbm_bytes_*", "rag_prefix_cache_device_bytes"),
+    "9c-ii": ("rag_quality_*",),
 }
 # counters whose values differ by design: the JAX engines count XLA
 # executables compiled, the port its kernel-library builds and loads; the
 # port journals a subset of the JAX flight catalog
 UNEQUAL_BY_DESIGN = ("rag_compile_events_total", "rag_flight_events_total")
+# the per-device families, labeled by device index
+DEVICE_FAMILIES = ("rag_device_hbm_bytes_in_use", "rag_device_hbm_bytes_limit", "rag_prefix_cache_device_bytes")
 VALID_TP = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
 LONG_QUESTION = "which of the documents says the most about " + "alpha beta gamma delta " * 5 + "?"
 
@@ -486,7 +487,10 @@ def test_type_help_labels_and_buckets_match(scripted, mode):
     (jf, js), (tf, ts) = sc["jax"], sc["port"]
     for name in tf:
         assert tf[name] == jf[name], name  # the # TYPE and # HELP lines
-    jkeys = {k for k in js if _family_of(k[0], tf) is not None}
+    # the JAX process here has 8 virtual CPU devices (tests/conftest.py);
+    # the port serves one device, so its per-device families have device 0's
+    jkeys = {k for k in js if _family_of(k[0], tf) is not None
+             and not (_family_of(k[0], tf) in DEVICE_FAMILIES and k[1] != '{device="0"}')}
     assert set(ts) == jkeys  # every series, every label set and bucket bound
 
 
@@ -627,15 +631,13 @@ def served(tmp_path_factory):
     svc.shutdown()
 
 
-# (class, test) of tests/test_obs.py that run unchanged on the port; its
-# TestTracedGenerate.test_span_tree_matches_timings also pins the goodput
-# ledger's timings keys (chip_ms, goodput_frac: ROADMAP.md Queue 1 item 9c),
-# so the span-tree half of it is test_the_span_trees_match above
+# (class, test) of tests/test_obs.py that run unchanged on the port
 SERVED_AS_WRITTEN = [
     ("TestExposition", "test_strict_line_format_and_required_families"),
     ("TestExposition", "test_histogram_bucket_monotonicity"),
     ("TestExposition", "test_json_snapshot_equivalent_to_exposition"),
     ("TestExposition", "test_legacy_prometheus_names_preserved"),
+    ("TestTracedGenerate", "test_span_tree_matches_timings"),
     ("TestTracedGenerate", "test_untraced_response_has_no_trace_key"),
     ("TestTracedGenerate", "test_debug_traces_ring"),
     ("TestHealthz", "test_fleet_segmentation_fields"),

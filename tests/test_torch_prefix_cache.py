@@ -537,8 +537,7 @@ def test_the_prefixed_path_serves_the_jax_answers_and_timings_keys(served, mode)
         assert by_side["port"].status_code == by_side["jax"].status_code == 200
         assert _body(by_side["port"]) == _body(by_side["jax"])
         tk, jk = (set(by_side[s].get_json()["timings"]) for s in ("port", "jax"))
-        # the JAX service's goodput keys (chip_ms, goodput_frac, ...) are ROADMAP.md Queue 1 item 9c
-        assert tk == {k for k in jk if k not in ("chip_ms", "goodput_frac", "cost_usd")}
+        assert tk == jk
         assert {"prefix_resolve_ms", "prefix_reuse_frac", "prefill_tokens_skipped",
                 "prefill_tokens_skipped_frac"} <= tk
     port_t = [g["port"].get_json()["timings"] for g in got]

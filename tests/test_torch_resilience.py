@@ -57,6 +57,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     DTypePolicy,
     EncoderConfig,
     EngineConfig,
+    FlightConfig,
     LlamaConfig,
     ResilienceConfig,
     SamplingConfig,
@@ -645,7 +646,8 @@ def _make_pair(mode, resilience=None, continuous=None):
     enc = convert.load_encoder(build_encoder(ec, FP32, CPU), convert.flatten_tree(eparams))
     teng = InferenceEngine(lc, model, SamplingConfig(**greedy), EngineConfig(**HTTP_ENGINE), FP32, "cpu")
     tcfg = AppConfig(model=lc, encoder=ec, engine=teng.engine_config, system_message=SYSTEM,
-                     resilience=ResilienceConfig(**res))
+                     resilience=ResilienceConfig(**res),
+                     flight=FlightConfig(spool_dir=tempfile.mkdtemp(prefix="port_incidents_")))
     if mode == "continuous":
         tsched = tapp.build_scheduler(
             teng, dataclasses.replace(teng.engine_config, batching="continuous", **cont), tcfg.resilience)
