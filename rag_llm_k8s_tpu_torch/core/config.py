@@ -3,7 +3,7 @@
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
 it names torch dtypes. Knobs that only the JAX package's other paths read
-(the mesh, shadow audits) are not here.
+(the mesh) are not here.
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
@@ -667,6 +667,55 @@ class TenantConfig:
 
 
 @dataclass(frozen=True)
+class ShadowConfig:
+    """The shadow quality auditor (``obs/shadow.py``): a sampled fraction of
+    completed requests re-runs on the exact path (no prefix reuse, no
+    speculation, the engine's own KV dtype) through
+    ``InferenceEngine.score_exact``, and the delivered stream is judged
+    against its argmax chain. On by default, as in the JAX package: one
+    headroom-gated chunked forward per sampled request on the one-shot
+    engine, never the continuous pool."""
+
+    # master switch (env TPU_RAG_SHADOW)
+    enabled: bool = True
+    # fraction of completed, audit-eligible requests re-run on the exact
+    # path (env TPU_RAG_SHADOW_SAMPLE_RATE)
+    sample_rate: float = 0.05
+    # bounded audit queue: a sampled request arriving while this many audits
+    # are pending is skipped, counted, never queued (env TPU_RAG_SHADOW_BACKLOG)
+    backlog: int = 8
+    # the second diverged audit inside this window spools a
+    # quality_divergence incident bundle (env TPU_RAG_SHADOW_BURST_WINDOW_S)
+    burst_window_s: float = 300.0
+
+    def validate(self) -> None:
+        if not 0.0 <= self.sample_rate <= 1.0:
+            raise ValueError(
+                f"ShadowConfig.sample_rate={self.sample_rate}: a sampling fraction must lie in [0, 1]"
+            )
+        if self.backlog < 1:
+            raise ValueError(f"ShadowConfig.backlog={self.backlog}: expected >= 1")
+        if self.burst_window_s <= 0:
+            raise ValueError(f"ShadowConfig.burst_window_s={self.burst_window_s}: expected > 0")
+
+    @classmethod
+    def from_env(cls, env: Optional[dict] = None) -> "ShadowConfig":
+        env = dict(os.environ if env is None else env)
+        out = cls()
+        rep = dataclasses.replace
+        if (v := _flag(env, "TPU_RAG_SHADOW")) is not None:
+            out = rep(out, enabled=v)
+        if "TPU_RAG_SHADOW_SAMPLE_RATE" in env:
+            out = rep(out, sample_rate=float(env["TPU_RAG_SHADOW_SAMPLE_RATE"]))
+        if "TPU_RAG_SHADOW_BACKLOG" in env:
+            out = rep(out, backlog=int(env["TPU_RAG_SHADOW_BACKLOG"]))
+        if "TPU_RAG_SHADOW_BURST_WINDOW_S" in env:
+            out = rep(out, burst_window_s=float(env["TPU_RAG_SHADOW_BURST_WINDOW_S"]))
+        out.validate()
+        return out
+
+
+@dataclass(frozen=True)
 class ServerConfig:
     """HTTP surface and storage paths (the reference's rag.py:18-20, 204)."""
 
@@ -722,6 +771,7 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_SLO_TTFT_P95_OBJECTIVE", "TPU_RAG_SLO_TTFT_P95_S", "TPU_RAG_SLO_QUALITY_OBJECTIVE",
     "TPU_RAG_SLO_QUALITY_LOGIT_ERR", "TPU_RAG_TENANTS", "TPU_RAG_TENANT_TOP_K",
     "TPU_RAG_FLIGHT_SPOOL", "TPU_RAG_FLIGHT_SPOOL_MAX", "TPU_RAG_FLIGHT_COOLDOWN_S",
+    "TPU_RAG_SHADOW", "TPU_RAG_SHADOW_SAMPLE_RATE", "TPU_RAG_SHADOW_BACKLOG", "TPU_RAG_SHADOW_BURST_WINDOW_S",
     # read by server/main.py (resilience.faults.arm_from_env, the JSON log
     # formatter) and /debug/faults
     "TPU_RAG_FAULTS", "TPU_RAG_JSON_LOGS",
@@ -818,6 +868,7 @@ class AppConfig:
     router: RouterConfig = field(default_factory=RouterConfig)
     slo: SloConfig = field(default_factory=SloConfig)
     tenants: TenantConfig = field(default_factory=TenantConfig)
+    shadow: ShadowConfig = field(default_factory=ShadowConfig)
     system_message: str = SYSTEM_MESSAGE
 
     @classmethod
@@ -833,8 +884,7 @@ class AppConfig:
         ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
         if ignored:
             logging.getLogger(__name__).warning(
-                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 1 item 9c-ii, "
-                "Queue 3 item A)",
+                "ignoring %s: the PyTorch port has no such feature yet (ROADMAP.md Queue 3 item A)",
                 ", ".join(ignored),
             )
         cfg = cls()
@@ -991,5 +1041,5 @@ class AppConfig:
         router.validate()
         return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience,
                    lookahead=lookahead, flight=flight, router=router, slo=SloConfig.from_env(env),
-                   tenants=TenantConfig.from_env(env))
+                   tenants=TenantConfig.from_env(env), shadow=ShadowConfig.from_env(env))
 

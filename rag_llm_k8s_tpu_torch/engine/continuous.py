@@ -159,7 +159,7 @@ import torch
 from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, EngineConfig, LlamaConfig, SamplingConfig
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.engine.batching import _join_worker
-from rag_llm_k8s_tpu_torch.engine.engine import bind_compile_metrics, serving_model
+from rag_llm_k8s_tpu_torch.engine.engine import bind_compile_metrics, serving_model, stamp_spec
 from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolExhausted
 from rag_llm_k8s_tpu_torch.engine.sampling import accept_drafts, sample_targets_per_row, sample_token_per_row
 from rag_llm_k8s_tpu_torch.engine.speculative import adaptive_draft_len, fold_acceptance, prompt_lookup_draft
@@ -686,6 +686,7 @@ class ContinuousEngine:
                     ok = False
                     break
                 self._assign_row_blocks(row, ids, start_block=have)
+                flight.emit("block_grow", self.slots[row].request_id, blocks=missing, total=have + missing)
             if ok:
                 return
             if self._chunk_regs:
@@ -709,6 +710,8 @@ class ContinuousEngine:
             )
             self._preempted.append((vslot.request_id, list(vslot.tokens)))
             self.stats.preemptions += 1
+            flight.emit("preempt", vslot.request_id, blocks=len(self._slot_blocks[victim]),
+                        n_tokens=len(vslot.tokens))
             self._deactivate([victim])
             self._release_row(victim)
             self.slots[victim] = _Slot()
@@ -718,6 +721,7 @@ class ContinuousEngine:
         return and the scheduler resubmits it with no emitted tokens."""
         self._preempted.append((rid, []))
         self.stats.preemptions += 1
+        flight.emit("preempt", rid, blocks=len(self._slot_blocks[rec["row"]]), n_tokens=0)
         self._release_row(rec["row"])
         self.slots[rec["row"]] = _Slot()
 
@@ -1034,6 +1038,7 @@ class ContinuousEngine:
         if not self.has_active():
             return []
         k, Tmax, dev = self.sync_steps, self.T, self.device
+        flight.emit("sync_window_open", steps=k, active=sum(1 for s in self.slots if s.active))
         # context resident at dispatch (host mirror): the window's KV reads
         # in the roofline's bytes (0 under the dense cache, as in JAX)
         ctx = sum(s.kv_ub for s in self.slots if s.active) if self.paged else 0
@@ -1103,13 +1108,22 @@ class ContinuousEngine:
             kept[slot.request_id] = n_kept
             if finished:
                 done.append((slot.request_id, slot.tokens))
+                self._emit_eos(slot)
                 retire.append(i)
         self._retire(retire)
         self._m_step_drain.observe(time.perf_counter() - t_fetch)
         self._journal_window(self.ledger.record_decode(
             time.perf_counter() - t_w, batch=self.B, steps=k, kept=kept, ctx_tokens=ctx))
         self._journal_emitted()
+        flight.emit("sync_window_close", steps=k, done=len(done),
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
         return done
+
+    @staticmethod
+    def _emit_eos(slot: "_Slot") -> None:
+        """A row's stream ended in this window: by its budget, or by EOS."""
+        flight.emit("eos", slot.request_id, reason="budget" if slot.remaining <= 0 else "eos",
+                    n_tokens=len(slot.tokens))
 
     def _retire(self, rows: List[int]) -> None:
         self._deactivate(rows)
@@ -1142,6 +1156,12 @@ class ContinuousEngine:
                     break  # the younger admissions idle this window
                 self._assign_row_blocks(row, ids, start_block=have)
             sched.append((rid, rec, off, take, final))
+        flight.emit("window_budget", budget=self.window_budget, decode_lanes=n_dec,
+                    chunk_tokens=sum(t for _, _, _, t, _ in sched), chunks=len(sched),
+                    queued=len(self._chunk_admissions))
+        for rid, rec, off, take, final in sched:
+            flight.emit("prefill_chunk_sched", rid, offset=off, tokens=take,
+                        remaining=len(rec["prompt"]) - off - take, final=int(final))
         if not sched and n_dec == 0:
             # nothing decodes and the pool cannot stage the oldest
             # admission: preempt the newest instead of spinning
@@ -1150,6 +1170,7 @@ class ContinuousEngine:
             self._journal_window(self.ledger.record_preempt_stall(
                 time.perf_counter() - t_w, [r for r, _ in self._preempted], kind="prefill"))
             return []
+        flight.emit("sync_window_open", steps=1, active=n_dec + len(sched))
         # host-fed window inputs in one upload: fed lanes | n_fed | base | final
         host = np.zeros((B, C + 3), np.int64)
         host[:, :C] = self.pad_id
@@ -1210,6 +1231,7 @@ class ContinuousEngine:
                 finished = slot.remaining <= 0
             if finished:
                 done.append((slot.request_id, slot.tokens))
+                self._emit_eos(slot)
                 retire.append(i)
         self._retire(retire)
         chunk_led: Dict[int, int] = {}  # request id -> prefill lanes fed
@@ -1231,6 +1253,8 @@ class ContinuousEngine:
             time.perf_counter() - t_w, batch=self.B, lanes=C, decode_kept=kept, chunk_rows=chunk_led,
             rework=self._take_rework(chunk_led), ctx_tokens=ctx))
         self._journal_emitted()
+        flight.emit("sync_window_close", steps=1, done=len(done),
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
         return done
 
     # ------------------------------------------------------------------
@@ -1302,6 +1326,7 @@ class ContinuousEngine:
         drafted_total = int(host[:, K].sum())
         drafted_rows = int((host[:, K] > 0).sum())
         flight.emit("spec_draft", rows=drafted_rows, active=n_active, drafted=drafted_total)
+        flight.emit("sync_window_open", steps=1, active=n_active, spec=1)
         t0 = time.perf_counter()
         dh = self._h2d(host)
         kv_len, last_tok, active = self._kv_len.long(), self._last_tok, self._active
@@ -1370,6 +1395,7 @@ class ContinuousEngine:
             led_rows[slot.request_id] = (n_kept, offered, acc)
             if finished:
                 done.append((slot.request_id, slot.tokens))
+                self._emit_eos(slot)
                 retire.append(i)
         st.spec_verify_steps += 1
         st.spec_drafted_rows += drafted_rows
@@ -1384,6 +1410,8 @@ class ContinuousEngine:
             time.perf_counter() - t_w, batch=B, lanes_per_row=K + 1, rows=led_rows,
             ctx_tokens=sum(s.kv_ub for s in self.slots if s.active)))
         self._journal_emitted()
+        flight.emit("sync_window_close", steps=1, done=len(done),
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 3))
         return done
 
     def _journal_emitted(self) -> None:
@@ -2203,6 +2231,10 @@ class ContinuousScheduler:
             # the ledger's attribution (chip_ms, goodput_frac, cost_usd,
             # speculation stats): the service folds it into the timings
             info["goodput"] = item.goodput
+        # verify windows judged drafts for this request: read from the
+        # engine's state (pop_spec_seen), not the goodput ledger, so turning
+        # the ledger off cannot erase the fingerprint
+        stamp_spec(info, item.spec_seen)
         if info is not None and item.migrate is not None:
             info["migrate_packet"] = item.migrate
         return item.result
@@ -2410,9 +2442,9 @@ class ContinuousScheduler:
         preemption come first, so the client sees one stream."""
         if item.retried:
             self._m_retries.labels(outcome="succeeded").inc()
-        # the verify-window fingerprint (read by the shadow auditor, ROADMAP.md
-        # Queue 1 item 9c-ii); popping keeps the engine's set bounded
-        self.engine.pop_spec_seen(item.request_id)
+        # the verify-window fingerprint the shadow auditor reads; popping
+        # keeps the engine's set bounded
+        item.spec_seen = self.engine.pop_spec_seen(item.request_id)
         item.result = item.emitted + tokens
         item.blocks_allocated = self.engine.pop_blocks_allocated(item.request_id)
         item.goodput = self.engine.pop_request_goodput(item.request_id, tokens=len(item.result))
@@ -2635,3 +2667,4 @@ class _Pending:
     migrate: Optional[Dict] = None  # pool roles: the packet going out or coming in
     goodput: Optional[Dict] = None  # the ledger's attribution (chip_ms, cost, spec stats)
     blocks_allocated: Optional[int] = None  # paged: the row's block footprint
+    spec_seen: bool = False  # verify windows judged drafts for this request

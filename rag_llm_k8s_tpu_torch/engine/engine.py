@@ -46,6 +46,12 @@ duration over decode steps, prefill included: an estimate, as in JAX), and
 the compile counters, which here read the process's kernel-library builds
 and loads (``ops._build.COMPILES``).
 
+``score_exact`` is the shadow auditor's exact path (``obs/shadow.py``):
+one teacher-forced chunked forward over a delivered request's prompt and
+stream through ``chunk_prefill_attention`` (``_q8`` under int8 KV), each
+chunk's logits reduced on the device to argmax, max and the delivered
+token's logit.
+
 The goodput ledger (``self.ledger``, ``obs/goodput.py``): each ``generate``,
 ``generate_rag`` and ``generate_prefixed`` call is one ``oneshot`` window
 whose duration is the host clock around the call, ending in its own final
@@ -130,6 +136,16 @@ def serving_model(model: LlamaModel, engine_config: EngineConfig) -> LlamaModel:
     if engine_config.fuse_matmuls:
         fuse_projections_(model)
     return quantize_llama(model) if engine_config.weight_quant == "int8" else model
+
+
+def stamp_spec(info: Optional[Dict], ran: bool) -> None:
+    """The approximation fingerprint (``obs/shadow.py``): when speculation
+    served the request, ``info["approx"]`` names ``spec_verify``, so its
+    audit is attributed to it."""
+    if info is not None and ran:
+        ap = info.setdefault("approx", [])
+        if "spec_verify" not in ap:
+            ap.append("spec_verify")
 
 
 def _cache_len(n: int) -> int:
@@ -605,6 +621,7 @@ class InferenceEngine:
             # the per-call acceptance mean, gated on the ledger like every
             # goodput key (TPU_RAG_GOODPUT=0: no goodput block at all)
             info.setdefault("goodput", {})["spec_accept_len_mean"] = spec_accept
+        stamp_spec(info, spec and iters > 0)
         return results
 
     @torch.inference_mode()
@@ -676,7 +693,74 @@ class InferenceEngine:
                              decode_tokens=len(row), decode_steps=max(len(row), 1), info=info)
         if info is not None and spec_accept is not None and self.ledger.enabled:
             info.setdefault("goodput", {})["spec_accept_len_mean"] = spec_accept
+        stamp_spec(info, spec and iters > 0)
         return row
+
+    # ------------------------------------------------------------------
+    # exact-path shadow scoring (obs/shadow.py drives this)
+    # ------------------------------------------------------------------
+    # the scorer's chunk width: it bounds the [1, C, V] logit plane (the
+    # scorer needs every position's logits, unlike a serving prefill);
+    # 256 x a 128k vocabulary is ~130 MB of fp32
+    _SCORE_CHUNK = 256
+
+    @torch.inference_mode()
+    def score_exact(self, prompt_ids: Sequence[int], emitted_ids: Sequence[int]) -> Dict[str, np.ndarray]:
+        """Teacher-forced exact-path scoring for the shadow auditor (JAX
+        ``score_exact``): one chunked forward over ``prompt + emitted``,
+        left-padded to a multiple of the chunk, into a fresh dense cache in
+        the engine's own KV dtype; no prefix reuse, no speculation. Each
+        chunk's ``[1, C, V]`` logits are reduced on the device to (argmax,
+        max logit, logit of the next delivered token) in one ``[S, 3]``
+        buffer, which the host fetches once at the end.
+
+        Returns arrays over the emitted positions: ``argmax`` (int64, the
+        exact path's greedy choice given the delivered prefix),
+        ``max_logit`` and ``chosen_logit`` (float64: the logit of that choice
+        and of the delivered token). Raises ValueError without a prompt or
+        an emitted token, or past ``max_chunked_prompt`` (the auditor counts
+        that as an ``oversize`` skip).
+
+        Safe beside a serving call on another thread: the scorer owns its
+        cache and its buffers, takes no engine lock, and records no stats
+        and no goodput window (JAX records none either)."""
+        x = [int(t) for t in prompt_ids] + [int(t) for t in emitted_ids]
+        W = len(emitted_ids)
+        if W == 0 or len(x) < 2:
+            raise ValueError("score_exact needs a prompt and >= 1 emitted token")
+        cap = self.engine_config.max_chunked_prompt
+        if len(x) > cap:
+            raise ValueError(f"score_exact sequence of {len(x)} tokens exceeds max_chunked_prompt={cap}")
+        chunk = min(self._SCORE_CHUNK, max(self.engine_config.prompt_buckets))
+        S = -(-len(x) // chunk) * chunk
+        off = S - len(x)
+        tokens = np.full((1, S), self.pad_id, np.int64)
+        tokens[0, off:] = x
+        mask = np.zeros((1, S), np.int64)
+        mask[0, off:] = 1
+        nxt = np.zeros((1, S), np.int64)
+        nxt[0, : S - 1] = tokens[0, 1:]
+        dev = self.device
+        tokens_t, mask_t, nxt_t = (torch.from_numpy(a).to(dev) for a in (tokens, mask, nxt))
+        cache = self._new_cache(_cache_len(S))
+        kv_start, _, positions = self._prefill_inputs(mask_t)
+        stats = torch.zeros((S, 3), dtype=torch.float32, device=dev)
+        for wi in range(0, S, chunk):
+            logits = self.model(
+                tokens_t[:, wi : wi + chunk], positions[:, wi : wi + chunk], cache, kv_start,
+                torch.full((1,), wi + chunk, dtype=torch.int64, device=dev), wi, chunked=True,
+            )
+            row = logits[0].float()  # [chunk, V]
+            chosen = row.gather(-1, nxt_t[0, wi : wi + chunk, None])[:, 0]
+            stats[wi : wi + chunk] = torch.stack([row.argmax(dim=-1).float(), row.amax(dim=-1), chosen], dim=-1)
+        host = stats.cpu().numpy()
+        lo = off + len(x) - W - 1  # the slot whose logits predict emitted[0]
+        sl = slice(lo, lo + W)
+        return {
+            "argmax": host[sl, 0].astype(np.int64),
+            "max_logit": host[sl, 1].astype(np.float64),
+            "chosen_logit": host[sl, 2].astype(np.float64),
+        }
 
     # ------------------------------------------------------------------
     # KV prefix cache (engine/prefix_cache.py drives these)

@@ -14,10 +14,9 @@
 - ``obs.slo`` — SLO specs and multi-window burn rates over the registry;
 - ``obs.tenants`` — the per-tenant report over a journal;
 - ``obs.devices`` — per-device allocator and prefix-cache gauges;
-- ``obs.regression`` — the direction-aware bench comparator.
-
-The shadow auditor is ``ROADMAP.md`` Queue 1 item 9c-ii; the rest of ``sim/``
-item 9c-iii.
+- ``obs.regression`` — the direction-aware bench comparator;
+- ``obs.shadow`` — the shadow quality auditor: sampled exact-path audits
+  of delivered streams (``GET /debug/quality``, ``rag_quality_*``).
 """
 
 from rag_llm_k8s_tpu_torch.obs.metrics import MetricsRegistry, default_registry  # noqa: F401

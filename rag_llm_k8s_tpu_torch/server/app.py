@@ -5,7 +5,8 @@ Routes (same JSON as the JAX service): ``POST /upload_pdf``, ``POST
 (``?live=1``: the liveness form), ``POST /drain``, ``GET /metrics``, ``GET
 /slo`` (``?force=1``), ``POST /profile``, ``GET /debug/traces``, ``GET
 /debug/timeline/<rid>``, ``GET /debug/incidents`` (``?id=``), ``GET
-/debug/goodput``, ``GET /debug/tenants`` and ``GET|POST /debug/faults``.
+/debug/goodput``, ``GET /debug/quality``, ``GET /debug/tenants`` and ``GET|POST
+/debug/faults``.
 The WSGI plumbing is the standard library's, so the port needs no web
 framework: ``WsgiApp.test_client()`` drives it in-process, and
 ``make_server`` serves it over HTTP on a threading ``wsgiref`` server (one
@@ -109,6 +110,15 @@ journal through ``obs/tenants.py``. ``rag_device_*`` reads the allocator
 shed, a 504 and a drain timeout each spool an incident bundle
 (``record_incident``; ``/debug/incidents``). The ``/debug`` routes answer
 403 unless ``TPU_RAG_FAULTS`` or ``TPU_RAG_DEBUG=1`` is set.
+
+The shadow quality auditor, as in the JAX service (``obs/shadow.py``, on by
+default at a 5 % sample, ``TPU_RAG_SHADOW*``): each delivered response is
+offered to a ``ShadowAuditor`` whose worker re-runs a sampled share on the
+exact path (``InferenceEngine.score_exact``) behind lookahead's headroom
+gate, judges the greedy stream against the exact argmax chain, journals a
+``shadow_audit`` event, feeds ``rag_quality_*`` (the quality SLO's source),
+and spools a ``quality_divergence`` bundle on the second divergence inside
+its burst window; ``GET /debug/quality`` serves the report.
 """
 
 from __future__ import annotations
@@ -144,6 +154,7 @@ from rag_llm_k8s_tpu_torch.obs import flight, tracing
 from rag_llm_k8s_tpu_torch.obs import goodput as obs_goodput
 from rag_llm_k8s_tpu_torch.obs import logging as obs_logging
 from rag_llm_k8s_tpu_torch.obs import metrics as obs_metrics
+from rag_llm_k8s_tpu_torch.obs import shadow as obs_shadow
 from rag_llm_k8s_tpu_torch.obs import slo as obs_slo
 from rag_llm_k8s_tpu_torch.obs import tenants as obs_tenants
 from rag_llm_k8s_tpu_torch.ops.knn import knn_topk
@@ -332,6 +343,20 @@ class RagService:
         self._prefix_memo: Dict[str, tuple] = {}
         # one merged ledger snapshot serves a scrape's ~20 goodput callbacks
         self._goodput_memo: Optional[tuple] = None
+        # the shadow quality auditor (obs/shadow.py, on by default): a
+        # sampled share of completed requests re-runs on the exact path (the
+        # one-shot engine's teacher-forced scorer: no reuse, no speculation,
+        # the engine's own KV dtype; the continuous pool is never touched),
+        # and each divergence is attributed to the approximations that
+        # served the request. Audits wait on lookahead's headroom gate.
+        self.shadow: Optional[obs_shadow.ShadowAuditor] = None
+        self._shadow_stats_memo: Optional[tuple] = None
+        sh_cfg = config.shadow
+        if sh_cfg.enabled:
+            self.shadow = obs_shadow.ShadowAuditor(
+                sh_cfg, score_fn=engine.score_exact, headroom_fn=self._lookahead_headroom,
+                on_result=self._on_shadow_result, on_burst=lambda: self.record_incident("quality_divergence"),
+            )
         self._init_observability()
         # incident triggers: the breaker's flip and a reset storm capture the
         # journal that explains them; the pool-exhaustion shed fires from the
@@ -482,6 +507,7 @@ class RagService:
         )
         for t in flight.TRIGGERS:
             self._m_incidents.labels(trigger=t)
+        self._init_quality_metrics(reg)
         self._init_goodput_metrics(reg)
         self._init_tenant_metrics(reg)
         # per-device allocator occupancy and prefix-cache residency
@@ -502,6 +528,64 @@ class RagService:
         # the SLO specs over the families above: rag_slo_* gauges in the same
         # registry, and GET /slo
         self.slo = obs_slo.SloEngine(reg, specs=obs_slo.default_specs(self.config.slo))
+
+    def _init_quality_metrics(self, reg) -> None:
+        """The shadow auditor's families (JAX ``_init_observability``):
+        audit outcomes, skips by reason, the divergence rate and the
+        attribution per approximation, callbacks over one memoized stats
+        snapshot (``_shadow_stats``), and the logit-error and
+        first-divergence histograms the result hook feeds. Present in every
+        mode, zero while the auditor is off."""
+        q_audits = reg.labeled_counter(
+            "rag_quality_audits_total",
+            "shadow audits by outcome (clean — delivered stream matches "
+            "the exact path's argmax chain; diverged — it doesn't; "
+            "skipped — selected but unjudgeable, see "
+            "rag_quality_skipped_total; failed — the audit itself crashed)",
+        )
+        for oc in ("clean", "diverged", "skipped", "failed"):
+            q_audits.labels_callback(lambda oc=oc: self._shadow_stats().get(f"audits_{oc}", 0.0), outcome=oc)
+        q_skip = reg.labeled_counter(
+            "rag_quality_skipped_total",
+            "sampler-selected audits that could not run (reason: sampled "
+            "— non-greedy stream has no deterministic exact reference; "
+            "empty | no_prompt | oversize — nothing comparable; backlog | "
+            "headroom — live traffic kept the device busy)",
+        )
+        for r in obs_shadow.SKIP_REASONS:
+            q_skip.labels_callback(lambda r=r: self._shadow_stats().get(f"skip_{r}", 0.0), reason=r)
+        reg.gauge(
+            "rag_quality_divergence_rate",
+            "diverged / (clean + diverged) over all judged shadow audits "
+            "— 0.0 is the byte-identity contracts holding on live traffic",
+            fn=lambda: self._shadow_stats().get("divergence_rate", 0.0),
+        )
+        q_attr = reg.labeled_counter(
+            "rag_quality_attribution_total",
+            "judged shadow audits per ACTIVE approximation in the "
+            "request's fingerprint (approximation: prefix_reuse | "
+            "warm_tier | splice | rerotate | boundary_fixup | spec_verify "
+            "| none; outcome: clean | diverged) — a diverging "
+            "approximation names itself here",
+        )
+        for a in obs_shadow.APPROXIMATIONS + ("none",):
+            for oc in ("clean", "diverged"):
+                q_attr.labels_callback(lambda a=a, oc=oc: self._shadow_stats().get(f"attr_{a}_{oc}", 0.0),
+                                       approximation=a, outcome=oc)
+        self._m_quality_err = reg.histogram(
+            "rag_quality_logit_err",
+            "per-audit minimal explaining logit perturbation (0.0 on "
+            "clean audits; the 0.15 bucket bound IS the pinned warm/"
+            "splice tolerance the quality_p99_logit_err SLO evaluates at)",
+            buckets=tuple(float(b) for b in obs_shadow.ERR_BUCKETS),
+        )
+        self._m_quality_first_div = reg.histogram(
+            "rag_quality_first_divergence_token",
+            "emitted position of the first exact-vs-delivered token "
+            "disagreement, per diverged shadow audit (early divergence = "
+            "prompt-side approximation; late = accumulated drift)",
+            buckets=tuple(float(b) for b in obs_shadow.POS_BUCKETS),
+        )
 
     def _init_goodput_metrics(self, reg) -> None:
         """The goodput ledger's families (JAX ``_init_observability``):
@@ -923,6 +1007,90 @@ class RagService:
         return bid
 
     # -- tenant attribution (obs/tenants.py) -----------------------------
+    # -- the shadow quality auditor (obs/shadow.py) --------------------------
+    def _shadow_stats(self) -> Dict[str, float]:
+        """The flat snapshot behind the rag_quality_* callbacks, memoized for
+        0.25 s so one scrape takes the auditor's lock once."""
+        if self.shadow is None:
+            return {}
+        now = time.monotonic()
+        cached = self._shadow_stats_memo
+        if cached is not None and now - cached[0] < 0.25:
+            return cached[1]
+        out = self.shadow.stats()
+        self._shadow_stats_memo = (now, out)
+        return out
+
+    def _on_shadow_result(self, request_id, ev: Dict) -> None:
+        """The auditor's result hook (its worker thread): journal the audit
+        as a ``shadow_audit`` event (what ``state_from_events`` rebuilds the
+        report from), feed the quality histograms (the quality SLO's
+        source), and journal a divergence as ``quality_divergence``."""
+        flight.emit("shadow_audit", request_id, **ev)
+        oc = ev.get("outcome")
+        if oc in ("clean", "diverged"):
+            self._m_quality_err.observe(float(ev.get("err", 0.0)))
+        if oc == "diverged":
+            self._m_quality_first_div.observe(float(ev.get("pos", 0)))
+            flight.emit("quality_divergence", request_id, pos=ev.get("pos"), err=ev.get("err"),
+                        approx=ev.get("approx") or [])
+
+    @staticmethod
+    def _approx_fingerprint(gen_info: Optional[Dict], cp=None) -> Tuple[str, ...]:
+        """A request's approximation fingerprint: the prefix cache's marks
+        for its resolve (``CachedPrefix.approx``) and what the engine stamped
+        into ``info`` (the continuous engine's verify windows)."""
+        ap = set()
+        if cp is not None:
+            ap.update(getattr(cp, "approx", ()) or ())
+        gi = gen_info or {}
+        ap.update(gi.get("approx", ()) or ())
+        if (gi.get("goodput") or {}).get("spec_drafted"):
+            ap.add("spec_verify")
+        return tuple(sorted(ap))
+
+    def _shadow_observe(self, served_by, out_ids, gen_info: Optional[Dict], prompt_ids=None, prompt_fn=None,
+                        cp=None, tenant: Optional[str] = None, sampling: Optional[SamplingConfig] = None) -> None:
+        """Offer one delivered response to the auditor (sampling, backlog
+        and headroom live there). A sampled stream (the request's own
+        ``sampling``, else the serving engine's) has no deterministic exact
+        reference, so it is ineligible, and counted only when the sampler
+        selects it. Never raises: an audit must not fail its response."""
+        sh = self.shadow
+        if sh is None:
+            return
+        try:
+            s = sampling if sampling is not None else getattr(served_by, "sampling", None)
+            eligible = not (s is not None and s.do_sample and s.temperature > 0.0)
+            sh.observe(
+                emitted=list(out_ids), approx=self._approx_fingerprint(gen_info, cp),
+                request_id=(gen_info or {}).get("request_id"), prompt_ids=prompt_ids, prompt_fn=prompt_fn,
+                eligible=eligible, tenant=tenant,
+            )
+        except Exception:  # noqa: BLE001 — auditing must not fail serving
+            logger.exception("shadow observe failed")
+
+    def quality_report(self) -> Dict:
+        """What ``GET /debug/quality`` serves: ``report`` is
+        ``render_report`` of the live state, the function that renders a
+        journal's ``shadow_audit`` events offline, and ``sampling`` the
+        auditor's own counts (seen, selected), which the journal does not
+        carry."""
+        sh = self.shadow
+        if sh is None:
+            return {"enabled": False, "report": obs_shadow.render_report(obs_shadow.new_state())}
+        stats = sh.stats()
+        return {
+            "enabled": True,
+            "report": obs_shadow.render_report(sh.state()),
+            "sampling": {
+                "sample_rate": sh.config.sample_rate,
+                "seen": int(stats.get("seen", 0)),
+                "selected": int(stats.get("selected", 0)),
+                "backlog_depth": int(stats.get("backlog_depth", 0)),
+            },
+        }
+
     def _prefix_bytes_by_device(self) -> Dict[int, int]:
         """``{device index: prefix-cache bytes}`` over the serving engines'
         caches (empty with the cache off)."""
@@ -1157,6 +1325,10 @@ class RagService:
         self.ready = True
 
     def shutdown(self) -> None:
+        if self.shadow is not None:
+            # first: the audit worker drives the one-shot engine, which
+            # must outlive any audit in flight
+            self.shadow.shutdown()
         if self.lookahead is not None:
             # first: its workers submit into the retrieve coalescer
             self.lookahead.shutdown()
@@ -1660,8 +1832,10 @@ class RagService:
             self._deadline_check(deadline, "assemble")
             t0 = time.monotonic()
             gen_info: Dict = {}
+            served_engine = self.engine  # whose sampling the audit judges by
             with tracing.span("generate"):
                 if self.scheduler is not None and len(prompt_ids) <= self._scheduler_prompt_cap():
+                    served_engine = getattr(self.scheduler, "engine", None) or self.engine
                     extra = {"sampling": sampling} if isinstance(self.scheduler, ContinuousScheduler) else {}
                     try:
                         out_ids = self.scheduler.submit(prompt_ids, deadline=deadline, info=gen_info,
@@ -1703,6 +1877,10 @@ class RagService:
         self._observe_request(timings)
         if tenant is not None:
             self._tenant_complete(tenant, gen_info, len(out_ids))
+        # the shadow audit (sampled): the delivered stream against the exact
+        # path over the token list that served it
+        self._shadow_observe(served_engine, out_ids, gen_info, prompt_ids=prompt_ids, tenant=tenant,
+                             sampling=sampling)
         resp = {
             "generated_text": extract_answer(completion),
             "context": context,
@@ -1773,6 +1951,10 @@ class RagService:
         self._observe_request(timings)
         if tenant is not None:
             self._tenant_complete(tenant, gen_info, len(out_ids))
+        # the shadow audit: the prompt as served is the segment chain and the
+        # tail; the resolve's CachedPrefix carries the fingerprint
+        self._shadow_observe(self.engine, out_ids, gen_info,
+                             prompt_ids=[t for _, seg in segments for t in seg] + list(b_ids), cp=cp, tenant=tenant)
         return {
             "generated_text": extract_answer(completion),
             "context": context,
@@ -1834,6 +2016,13 @@ class RagService:
         self._observe_request(timings)
         if tenant is not None:
             self._tenant_complete(tenant, gen_info, len(out_ids))
+        # the shadow audit: the prompt was assembled on the device, so its ids
+        # come from the host mirror, and only once the sampler selects the
+        # request (prompt_fn)
+        self._shadow_observe(
+            self.engine, out_ids, gen_info,
+            prompt_fn=lambda: (self._piecewise_prompt(user_prompt, results) or (None, None))[1], tenant=tenant,
+        )
         return {
             "generated_text": extract_answer(completion),
             "context": assemble_context(results, n_kept),
@@ -1998,6 +2187,7 @@ class WsgiApp:
         "/debug/traces": (("GET",), "debug_traces"),
         "/debug/incidents": (("GET",), "debug_incidents"),
         "/debug/goodput": (("GET",), "debug_goodput"),
+        "/debug/quality": (("GET",), "debug_quality"),
         "/debug/tenants": (("GET",), "debug_tenants"),
         "/debug/faults": (("GET", "POST"), "debug_faults"),
     }
@@ -2271,6 +2461,18 @@ class WsgiApp:
             return 200, self.service.goodput_report()
         except Exception as e:  # noqa: BLE001
             logger.exception("goodput report failed")
+            return 500, {"error": str(e)}
+
+    def ep_debug_quality(self, request: Request):
+        """The shadow auditor's quality report (``obs/shadow.py``): audit
+        outcomes, the divergence rate, the logit-error and first-divergence
+        distributions and the attribution per approximation."""
+        if not self._debug_enabled():
+            return self._debug_forbidden()
+        try:
+            return 200, self.service.quality_report()
+        except Exception as e:  # noqa: BLE001
+            logger.exception("quality report failed")
             return 500, {"error": str(e)}
 
     def ep_debug_tenants(self, request: Request):

@@ -37,8 +37,10 @@ Run: ``python -m rag_llm_k8s_tpu_torch.server.main`` (environment keys:
 (``/query``), ``/index_info``, ``/healthz``, ``/drain``, ``/metrics``,
 ``/slo``, ``/profile``, and, 403 unless ``TPU_RAG_DEBUG=1`` or
 ``TPU_RAG_FAULTS`` is set, ``/debug/traces``, ``/debug/timeline/<rid>``,
-``/debug/incidents``, ``/debug/goodput``, ``/debug/tenants`` and
-``/debug/faults`` (the last only under ``TPU_RAG_FAULTS``). Incident bundles
+``/debug/incidents``, ``/debug/goodput``, ``/debug/quality``,
+``/debug/tenants`` and ``/debug/faults`` (the last only under
+``TPU_RAG_FAULTS``). The shadow auditor runs by default
+(``TPU_RAG_SHADOW*``). Incident bundles
 spool to ``TPU_RAG_FLIGHT_SPOOL`` (default ``/tmp/tpu_rag_incidents``; at
 most ``TPU_RAG_FLIGHT_SPOOL_MAX``, one per trigger per
 ``TPU_RAG_FLIGHT_COOLDOWN_S``).

@@ -4,7 +4,8 @@ continuous engine runs). Standard library only (and the port's stdlib-only
 ``utils.buckets``): block arithmetic,
 admission verdicts, prefill grouping, window growth, the registration
 reclaim order, preemption order,
-the mixed-window budget split and the resubmission rule.
+the mixed-window budget split, the disaggregated pool split and the
+resubmission rule.
 """
 
 from __future__ import annotations
@@ -129,6 +130,28 @@ def plan_mixed_window(
         sched.append((rid, int(progress), take, progress + take >= prompt_len))
         remaining -= take
     return sched
+
+
+def pool_split(
+    prefill_chip_s: float, decode_chip_s: float, span_s: float, target_util: float = 0.6, min_each: int = 1,
+) -> Dict[str, float]:
+    """How many prefill-role and decode-role replicas a recorded load needs:
+    each side's chip seconds over the per-replica busy budget ``span_s *
+    target_util``, rounded up, at least ``min_each`` (an empty decode tier
+    strands every migration packet; an empty prefill tier admits nothing).
+    Also returns each tier's busy fraction at that count
+    (``prefill_util`` / ``decode_util``)."""
+    span = max(float(span_s), 1e-9)
+    budget = span * min(1.0, max(1e-6, float(target_util)))
+    floor = max(1, int(min_each))
+    n_pre = max(floor, int(-(-float(prefill_chip_s) // budget)))
+    n_dec = max(floor, int(-(-float(decode_chip_s) // budget)))
+    return {
+        "prefill": n_pre,
+        "decode": n_dec,
+        "prefill_util": round(float(prefill_chip_s) / (n_pre * span), 6),
+        "decode_util": round(float(decode_chip_s) / (n_dec * span), 6),
+    }
 
 
 def resume_fits(prompt_len: int, n_emitted: int, max_bucket: int) -> bool:

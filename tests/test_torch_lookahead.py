@@ -42,6 +42,7 @@ from rag_llm_k8s_tpu.core.config import FlightConfig as JFlightConfig
 from rag_llm_k8s_tpu.core.config import LlamaConfig as JLlamaConfig
 from rag_llm_k8s_tpu.core.config import LookaheadConfig as JLookaheadConfig
 from rag_llm_k8s_tpu.core.config import SamplingConfig as JSampling
+from rag_llm_k8s_tpu.core.config import ShadowConfig as JShadowConfig
 from rag_llm_k8s_tpu.engine.batching import BatchScheduler as JBatchScheduler
 from rag_llm_k8s_tpu.engine.encoder import EncoderRunner as JEncoderRunner
 from rag_llm_k8s_tpu.engine.engine import InferenceEngine as JEngine
@@ -63,6 +64,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     LookaheadConfig,
     PrefixCacheConfig,
     SamplingConfig,
+    ShadowConfig,
 )
 from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
 from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousScheduler
@@ -446,7 +448,8 @@ def _jax_service(weights, lookahead):
     jl, je = JLlamaConfig.tiny(VOCAB), JEncoderConfig.tiny(VOCAB)
     cfg = JAppConfig(model=jl, encoder=je, system_message=SYSTEM,
                      lookahead=JLookaheadConfig(enabled=lookahead),
-                     flight=JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")))
+                     flight=JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")),
+                     shadow=JShadowConfig(sample_rate=0.0))
     eng = JEngine(jl, lparams, sampling=JSampling(**GREEDY), engine_config=JEngineConfig(**ENGINE), dtypes=JFP32)
     enc = JEncoderRunner(je, eparams, dtypes=JFP32, length_buckets=(32, 64), max_batch=4)
     store = JStore(dim=je.hidden_size)
@@ -469,7 +472,8 @@ def _port_service(weights, lookahead, prefix_cache=None, continuous=None, ttl_s=
     eng = InferenceEngine(lc, model, SamplingConfig(**GREEDY), EngineConfig(**ekw), FP32, "cpu")
     cfg = AppConfig(model=lc, encoder=ec, engine=eng.engine_config, system_message=SYSTEM,
                     lookahead=LookaheadConfig(enabled=lookahead, ttl_s=ttl_s),
-                    flight=FlightConfig(spool_dir=tempfile.mkdtemp(prefix="port_incidents_")))
+                    flight=FlightConfig(spool_dir=tempfile.mkdtemp(prefix="port_incidents_")),
+                    shadow=ShadowConfig(sample_rate=0.0))
     if continuous is not None:
         sched = tapp.build_scheduler(eng, dataclasses.replace(eng.engine_config, batching="continuous",
                                                               **continuous))

@@ -513,15 +513,15 @@ def test_keys_that_leave_unported_features_off_are_accepted(caplog):
            "TPU_RAG_SLO_TTFT_P95_S": "2", "TPU_RAG_SHADOW": "0", "TPU_RAG_WARM_FULL_LADDER": "1"}
     with caplog.at_level("WARNING"):
         AppConfig.from_env(env)
-    # logged as ignored, not silently; an SLO key is read now
-    assert "TPU_RAG_SHADOW" in caplog.text and "TPU_RAG_WARM_FULL_LADDER" in caplog.text
-    assert "TPU_RAG_SLO_TTFT_P95_S" not in caplog.text
+    # logged as ignored, not silently; the SLO and shadow keys are read now
+    assert "TPU_RAG_WARM_FULL_LADDER" in caplog.text
+    assert "TPU_RAG_SLO_TTFT_P95_S" not in caplog.text and "TPU_RAG_SHADOW" not in caplog.text
 
 
 def test_only_the_shadow_and_warm_ladder_keys_are_left_unread():
     """Every ``TPU_RAG_*`` key the JAX config reads is read or refused by
-    the port's, but the shadow auditor's (ROADMAP.md Queue 1 item 9c-ii) and
-    ``TPU_RAG_WARM_FULL_LADDER`` (Queue 3 item A)."""
+    the port's, but ``TPU_RAG_WARM_FULL_LADDER`` (ROADMAP.md Queue 3 item
+    A); the shadow auditor's keys are read since it was ported."""
     import re
 
     from rag_llm_k8s_tpu.core import config as jconfig
@@ -530,7 +530,7 @@ def test_only_the_shadow_and_warm_ladder_keys_are_left_unread():
     with open(jconfig.__file__, encoding="utf-8") as f:
         keys = set(re.findall(r'"(TPU_RAG_[A-Z0-9_]+)"', f.read()))
     left = sorted(k for k in keys if k not in tconfig.PORTED_KEYS and k not in tconfig.UNPORTED_KEYS)
-    assert left and all(k.startswith("TPU_RAG_SHADOW") or k == "TPU_RAG_WARM_FULL_LADDER" for k in left), left
+    assert left == ["TPU_RAG_WARM_FULL_LADDER"], left
 
 
 # the goodput, SLO, tenant and incident-spool keys (ROADMAP.md Queue 1 item
@@ -569,6 +569,38 @@ def test_the_item_9c_i_keys_parse_as_jax_parses_them(env, caplog):
 
 @pytest.mark.parametrize("env", OBS_BAD)
 def test_a_bad_item_9c_i_key_raises_the_jax_message(env):
+    with pytest.raises(ValueError) as want:
+        JAppConfig.from_env(env)
+    with pytest.raises(ValueError) as got:
+        AppConfig.from_env(env)
+    assert str(got.value) == str(want.value)
+
+
+# the shadow auditor's keys (ROADMAP.md Queue 1 item 9c-ii): good values
+# parse to JAX's fields, bad ones raise JAX's message
+SHADOW_GOOD = [
+    {}, {"TPU_RAG_SHADOW": "0"}, {"TPU_RAG_SHADOW": "1", "TPU_RAG_SHADOW_SAMPLE_RATE": "1"},
+    {"TPU_RAG_SHADOW_SAMPLE_RATE": "0", "TPU_RAG_SHADOW_BACKLOG": "1", "TPU_RAG_SHADOW_BURST_WINDOW_S": "0.5"},
+    {"TPU_RAG_SHADOW_SAMPLE_RATE": "0.25", "TPU_RAG_SHADOW_BACKLOG": "32", "TPU_RAG_SHADOW_BURST_WINDOW_S": "60"},
+]
+SHADOW_BAD = [
+    {"TPU_RAG_SHADOW": "2"}, {"TPU_RAG_SHADOW": "yes"}, {"TPU_RAG_SHADOW_SAMPLE_RATE": "1.5"},
+    {"TPU_RAG_SHADOW_SAMPLE_RATE": "-0.1"}, {"TPU_RAG_SHADOW_SAMPLE_RATE": "often"}, {"TPU_RAG_SHADOW_BACKLOG": "0"},
+    {"TPU_RAG_SHADOW_BACKLOG": "2.5"}, {"TPU_RAG_SHADOW_BURST_WINDOW_S": "0"},
+    {"TPU_RAG_SHADOW_BURST_WINDOW_S": "-3"},
+]
+
+
+@pytest.mark.parametrize("env", SHADOW_GOOD)
+def test_the_shadow_keys_parse_as_jax_parses_them(env, caplog):
+    with caplog.at_level("WARNING"):
+        got = AppConfig.from_env(env)
+    assert dataclasses.asdict(got.shadow) == dataclasses.asdict(JAppConfig.from_env(env).shadow)
+    assert "ignoring" not in caplog.text  # keys from_env reads
+
+
+@pytest.mark.parametrize("env", SHADOW_BAD)
+def test_a_bad_shadow_key_raises_the_jax_message(env):
     with pytest.raises(ValueError) as want:
         JAppConfig.from_env(env)
     with pytest.raises(ValueError) as got:

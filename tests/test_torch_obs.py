@@ -62,10 +62,9 @@ from rag_llm_k8s_tpu_torch.tools import trace_summary
 SIDES = {"jax": (jmetrics, jtracing), "port": (tmetrics, ttracing)}
 
 # the JAX service's families whose sources the port does not have yet, by
-# the ROADMAP.md Queue 1 item that brings them (exposition names)
-WAITING = {
-    "9c-ii": ("rag_quality_*",),
-}
+# the ROADMAP.md Queue 1 item that brings them (exposition names): none
+# since the shadow auditor's rag_quality_* families
+WAITING = {}
 # counters whose values differ by design: the JAX engines count XLA
 # executables compiled, the port its kernel-library builds and loads; the
 # port journals a subset of the JAX flight catalog

@@ -466,13 +466,14 @@ def _make_prefix_pair(mode, batching="coalesce"):
                          kv_tiering=KVTieringConfig(**(tier or {})))
     jcfg = R.JAppConfig(model=jl, encoder=je, system_message=R.SYSTEM,
                         resilience=R.JResilienceConfig(retry_backoff_ms=0.0),
-                        flight=R.JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")))
+                        flight=R.JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")),
+                        shadow=R.JShadowConfig(sample_rate=0.0))
     jeng = R.JEngine(jl, lparams, sampling=R.JSampling(**greedy), engine_config=jec, dtypes=R.JFP32)
     model = R.convert.load_llama(R.build_llama(lc, R.FP32, CPU), R.convert.flatten_tree(lparams))
     enc = R.convert.load_encoder(R.build_encoder(ec, R.FP32, CPU), R.convert.flatten_tree(eparams))
     teng = InferenceEngine(lc, model, R.SamplingConfig(**greedy), tec, R.FP32, "cpu")
     tcfg = R.AppConfig(model=lc, encoder=ec, engine=tec, system_message=R.SYSTEM,
-                       resilience=R.ResilienceConfig(retry_backoff_ms=0.0))
+                       resilience=R.ResilienceConfig(retry_backoff_ms=0.0), shadow=R.ShadowConfig(sample_rate=0.0))
     if batching == "continuous":
         jsched = R.jcontinuous.ContinuousScheduler(
             R.jcontinuous.ContinuousEngine(jl, lparams, sampling=R.JSampling(**greedy), dtypes=R.JFP32,

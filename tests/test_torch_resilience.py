@@ -37,6 +37,7 @@ from rag_llm_k8s_tpu.core.config import FlightConfig as JFlightConfig
 from rag_llm_k8s_tpu.core.config import LlamaConfig as JLlamaConfig
 from rag_llm_k8s_tpu.core.config import ResilienceConfig as JResilienceConfig
 from rag_llm_k8s_tpu.core.config import SamplingConfig as JSampling
+from rag_llm_k8s_tpu.core.config import ShadowConfig as JShadowConfig
 from rag_llm_k8s_tpu.engine import continuous as jcontinuous
 from rag_llm_k8s_tpu.engine.batching import BatchScheduler as JBatchScheduler
 from rag_llm_k8s_tpu.engine.encoder import EncoderRunner as JEncoderRunner
@@ -61,6 +62,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     LlamaConfig,
     ResilienceConfig,
     SamplingConfig,
+    ShadowConfig,
 )
 from rag_llm_k8s_tpu_torch.engine import continuous as tcontinuous
 from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
@@ -610,11 +612,14 @@ class ByteTokenizer:
         return bytes((i - 3) % 256 for i in ids if i >= 3).decode("utf-8", "replace")
 
 
-def _make_pair(mode, resilience=None, continuous=None):
+def _make_pair(mode, resilience=None, continuous=None, shadow=None):
     """The JAX service and the port's on the same weights, one document
     store each, ``batching=mode`` (None: no scheduler); returns ``{"jax":
     (svc, client), "port": ...}``. ``resilience``: ResilienceConfig fields;
-    ``continuous``: EngineConfig fields of both continuous engines."""
+    ``continuous``: EngineConfig fields of both continuous engines;
+    ``shadow``: ShadowConfig fields of both auditors (default: present, with
+    a sample rate of 0, so no random draw audits a request on either side)."""
+    sh = dict(sample_rate=0.0) if shadow is None else shadow
     cont = dict(kv_paged=True, **(continuous or {}))
     jl, je = JLlamaConfig.tiny(VOCAB), JEncoderConfig.tiny(VOCAB)
     lc, ec = LlamaConfig.tiny(VOCAB), EncoderConfig.tiny(VOCAB)
@@ -625,7 +630,8 @@ def _make_pair(mode, resilience=None, continuous=None):
     # JAX
     # the JAX service's incident bundles go to a directory of the run's own
     jcfg = JAppConfig(model=jl, encoder=je, system_message=SYSTEM, resilience=JResilienceConfig(**res),
-                      flight=JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")))
+                      flight=JFlightConfig(spool_dir=tempfile.mkdtemp(prefix="jax_incidents_")),
+                      shadow=JShadowConfig(**sh))
     jeng = JEngine(jl, lparams, sampling=JSampling(**greedy), engine_config=JEngineConfig(**HTTP_ENGINE),
                    dtypes=JFP32)
     if mode == "continuous":
@@ -647,7 +653,8 @@ def _make_pair(mode, resilience=None, continuous=None):
     teng = InferenceEngine(lc, model, SamplingConfig(**greedy), EngineConfig(**HTTP_ENGINE), FP32, "cpu")
     tcfg = AppConfig(model=lc, encoder=ec, engine=teng.engine_config, system_message=SYSTEM,
                      resilience=ResilienceConfig(**res),
-                     flight=FlightConfig(spool_dir=tempfile.mkdtemp(prefix="port_incidents_")))
+                     flight=FlightConfig(spool_dir=tempfile.mkdtemp(prefix="port_incidents_")),
+                     shadow=ShadowConfig(**sh))
     if mode == "continuous":
         tsched = tapp.build_scheduler(
             teng, dataclasses.replace(teng.engine_config, batching="continuous", **cont), tcfg.resilience)

@@ -163,7 +163,7 @@ class TestSmoke:
             dec.shutdown()
         evs = [e for e in rec.snapshot(request_id=info["request_id"]) if e["seq"] >= n0]
         assert [e["type"] for e in evs] == ["arrival", "admit", "migrate_begin", "route_decision", "migrate_done",
-                                            "complete"]
+                                            "eos", "complete"]
         rd, beg, done = evs[3], evs[2], evs[4]
         assert (rd["mode"], rd["prefill"], rd["decode"], rd["candidates"]) == ("disagg", "prefill-0", "decode-0", 2)
         assert beg["blocks"] == done["blocks"] == 1 and beg["kv_len"] == done["kv_len"] == 4

@@ -22,6 +22,7 @@ from rag_llm_k8s_tpu.core.config import EncoderConfig as JEncoderConfig
 from rag_llm_k8s_tpu.core.config import EngineConfig as JEngineConfig
 from rag_llm_k8s_tpu.core.config import LlamaConfig as JLlamaConfig
 from rag_llm_k8s_tpu.core.config import SamplingConfig as JSampling
+from rag_llm_k8s_tpu.core.config import ShadowConfig as JShadowConfig
 from rag_llm_k8s_tpu.engine.batching import BatchScheduler
 from rag_llm_k8s_tpu.engine.encoder import EncoderRunner as JEncoderRunner
 from rag_llm_k8s_tpu.engine.engine import InferenceEngine as JEngine
@@ -37,6 +38,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
     EngineConfig,
     LlamaConfig,
     SamplingConfig,
+    ShadowConfig,
 )
 from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler as TBatchScheduler
 from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
@@ -106,8 +108,8 @@ def clients():
     )
     jencoder = JEncoderRunner(je, eparams, dtypes=jfp32, length_buckets=ENC_BUCKETS, max_batch=4)
     jsvc = JRagService(
-        JAppConfig(model=jl, encoder=je), jengine, ByteTokenizer(), jencoder, ByteTokenizer(),
-        JStore(dim=je.hidden_size), scheduler=BatchScheduler(jengine, max_wait_ms=5.0),
+        JAppConfig(model=jl, encoder=je, shadow=JShadowConfig(sample_rate=0.0)), jengine, ByteTokenizer(), jencoder,
+        ByteTokenizer(), JStore(dim=je.hidden_size), scheduler=BatchScheduler(jengine, max_wait_ms=5.0),
     )
     jsvc.ready = True
 
@@ -120,8 +122,9 @@ def clients():
     )
     encoder = EncoderRunner(ec, enc, device="cpu", length_buckets=ENC_BUCKETS, max_batch=4)
     svc = RagService(
-        AppConfig(model=lc, encoder=ec), engine, ByteTokenizer(), encoder, ByteTokenizer(),
-        VectorStore(dim=ec.hidden_size, device="cpu"), scheduler=TBatchScheduler(engine, max_wait_ms=5.0),
+        AppConfig(model=lc, encoder=ec, shadow=ShadowConfig(sample_rate=0.0)), engine, ByteTokenizer(), encoder,
+        ByteTokenizer(), VectorStore(dim=ec.hidden_size, device="cpu"),
+        scheduler=TBatchScheduler(engine, max_wait_ms=5.0),
     )
     svc.ready = True
     try:
@@ -247,7 +250,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'obs.flight', 'obs.metrics', 'obs.tracing', 'obs.logging', 'resilience', 'resilience.faults',\n"
         "        'resilience.deadline', 'resilience.breaker', 'resilience.admission', 'resilience.lifecycle',\n"
         "        'server.router', 'sim.replay', 'rag.lookahead', 'obs.goodput', 'obs.slo', 'obs.tenants',\n"
-        "        'obs.devices', 'obs.regression'}\n"
+        "        'obs.devices', 'obs.regression', 'obs.shadow', 'sim.simulator', 'sim.tracegen'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )

@@ -551,7 +551,8 @@ def _prefix_service(side, lparams, wal_dir):
         eng = R.JEngine(jl, lparams, sampling=R.JSampling(**greedy), dtypes=R.JFP32,
                         engine_config=R.JEngineConfig(**R.HTTP_ENGINE, prefix_cache=JPrefixCacheConfig(**pc)))
         cfg = R.JAppConfig(model=jl, encoder=je, system_message=R.SYSTEM, flight=JFlightConfig(
-            spool_dir=tempfile.mkdtemp(prefix="jax_incidents_"), wal=True, wal_dir=wal_dir))
+            spool_dir=tempfile.mkdtemp(prefix="jax_incidents_"), wal=True, wal_dir=wal_dir),
+            shadow=R.JShadowConfig(sample_rate=0.0))
         svc = R.JRagService(cfg, eng, R.ByteTokenizer(), R.JEncoderRunner(je, eparams, dtypes=R.JFP32,
                                                                           length_buckets=(32, 64), max_batch=4),
                             R.ByteTokenizer(), R.JStore(dim=je.hidden_size), scheduler=None)
@@ -562,7 +563,7 @@ def _prefix_service(side, lparams, wal_dir):
         eng = R.InferenceEngine(lc, model, R.SamplingConfig(**greedy),
                                 R.EngineConfig(**R.HTTP_ENGINE, prefix_cache=PrefixCacheConfig(**pc)), R.FP32, "cpu")
         cfg = R.AppConfig(model=lc, encoder=ec, engine=eng.engine_config, system_message=R.SYSTEM,
-                          flight=FlightConfig(wal=True, wal_dir=wal_dir))
+                          flight=FlightConfig(wal=True, wal_dir=wal_dir), shadow=R.ShadowConfig(sample_rate=0.0))
         svc = R.tapp.RagService(cfg, eng, R.ByteTokenizer(), R.EncoderRunner(ec, enc, device="cpu",
                                                                              length_buckets=(32, 64), max_batch=4),
                                 R.ByteTokenizer(), R.VectorStore(dim=ec.hidden_size, device="cpu"))
