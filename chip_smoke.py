@@ -18,7 +18,8 @@
    planted across part boundaries and planted faults in the two-pass
    version that the check must reject; ``phase_continuous_kernels``: kernels
    3 and 5 at B = 8 with per-row windows, 9 and 10 at the verify's S = 8
-   with an inactive row),
+   with an inactive row; ``phase_tp_kernels``: kernels 2-4 at the heads one
+   rank of a tp=2 and of a tp=8 mesh holds),
    with its time, the plain version's time, one PyTorch library call
    computing the same function (``library_ms``, a yardstick the port never
    calls; none reads a paged arena or an int8 cache), all as device time per
@@ -36,7 +37,17 @@
    against ``models.loader.quantize_np``), a second time from the
    converted-parameter cache and the persisted index, and as ``python -m
    rag_llm_k8s_tpu_torch.server.main`` over HTTP, drained by SIGTERM with a
-   request in flight (answered 200, exit code 0). After the continuous
+   request in flight (answered 200, exit code 0); then the same entry point
+   under ``TPU_RAG_MESH=tp=2`` (``phase_staged_boot_mesh``: it starts its
+   follower, both ranks load their shard into a cache of their own, the
+   mesh answers a ``/query`` and drains), and the mesh itself
+   (``phase_mesh_service``): a tp=2 world of two processes sharing the card
+   over gloo (``parallel.launch.spawn_world``), each holding its shard of
+   the same seeded Llama-3.1-8B at full depth, rank 0 serving three fused
+   ``/query`` with a shadow audit beside one; each stream followed draw by
+   draw through a tp=1 engine on the same weights (logits within 4x the
+   cold-prefill noise floor); kernels 2, 3 and 4 launched on each rank; an
+   sp=2 ring prefill at 4 layers against sp=1. After the continuous
    phases, the durable lifecycle on the same directory
    (``phase_warm_restart``): ``server.main`` with the
    flight WAL on and the continuous paged engine, SIGKILLed with 3 requests
@@ -46,8 +57,8 @@
    it; in this process each resumed continuation is held to an
    uninterrupted greedy run, and the windows are timed with a WAL and
    without.
-4. Model phase: a Llama-3.1-8B prefill (full width and depth, seeded random
-   bf16 weights) through the kernels against the same forward through the
+4. Model phase: a Llama-3.1-8B prefill (full width, ``SERVICE_LAYERS``
+   of its layers, seeded random bf16 weights) through the kernels against the same forward through the
    plain attention.
 5. Service phase: the port's RagService over the 8B decoder and a full
    bge-m3 encoder, built as ``server/main.py`` builds it (the fixture BPE
@@ -57,7 +68,7 @@
    ``/query`` requests with default sampling and with greedy, one long
    question (host path) and one >4096-token prompt (chunked prefill). The
    launch counters are zeroed just before and read just after; every kernel
-   must have run. Then the latency leg (``phase_query_latency``): 24 fused
+   must have run. Then the latency leg (``phase_query_latency``): 6 fused
    solo ``/query`` one at a time, p50 and p95 of ``total_ms`` and its parts,
    and a burst of 8 that must run a kNN pass of 8 queries and a batched
    ``engine.generate``.
@@ -205,7 +216,7 @@ CONTINUOUS_Q8 = ("knn_topk", "flash_attention", "paged_decode_attention_q8", "pa
 # (tests/test_quant.py: relative RMS error < 0.08, cosine > 0.995, there on
 # a 2-layer model). Random weights amplify any perturbation layer after
 # layer (bf16 rounding alone reaches ~6 % at full depth, PERF.md), so at
-# full depth the gate only asks that the int8 logits stay nearer the bf16
+# the service's depth the gate only asks that the int8 logits stay nearer the bf16
 # ones than the bf16 logits' own size (relative RMS error < 1).
 Q8_DEPTH2_RMS, Q8_DEPTH2_COS, Q8_FULL_RMS = 0.08, 0.995, 1.0
 
@@ -1748,7 +1759,7 @@ def phase_model(model, cfg):
     kernel, the plain version and SDPA (all bf16 on the card). Random
     weights amplify bf16 rounding layer after layer, so the kernel passes
     when its distance from the plain forward stays within twice SDPA's
-    distance from it (the bf16 noise floor), at depth 2 and at full depth."""
+    distance from it (the bf16 noise floor), at depth 2 and at the model's."""
     import torch
     from torch import nn
 
@@ -2865,7 +2876,7 @@ def phase_plain_decode(service_bits):
 def phase_model_q8(model, qmodel, cfg, engine):
     """int8 weights against bf16 weights on the same random 8B model: the
     logits of an S = 4096 prefill (100 left-pad slots) at depth 2 and at
-    full depth, gated as ``Q8_DEPTH2_*`` / ``Q8_FULL_RMS`` say; then one
+    the model's, gated as ``Q8_DEPTH2_*`` / ``Q8_FULL_RMS`` say; then one
     decode forward and one 16-token verify forward each way (the int8 model
     with an int8 and with a bf16 cache)."""
     import torch
@@ -3530,7 +3541,7 @@ def phase_prefix_cache(service_bits, rows, fused_stats):
     kernels 3-6 at its shapes; (b) a service with ``reuse="exact"`` (bf16,
     then int8 KV): a miss and a hit with the same tokens, the logits against
     a cold prefill, the launch counters (zeroed just before, read just
-    after), and 12 requests' latency beside the fused path's; (c) chunk
+    after), and 6 requests' latency beside the fused path's; (c) chunk
     reuse over a shuffled chunk order, and ``rope_rerotate`` on the card
     against the CPU; (d) tiering: warm (int8 in place), cold (host spill and
     swap-in) and a planted ``kv_swap_in`` fault."""
@@ -3591,11 +3602,12 @@ def phase_prefix_cache(service_bits, rows, fused_stats):
             synced[name] = round((time.perf_counter() - t0) * 1e3, 2)
         print(f"phase prefix_cache (b) synced ms: {json.dumps(synced)} (segments "
               f"{[len(ids) for _, ids in seg2]}, suffix {len(b2)})", flush=True)
-        # latency with the fused leg's default sampling: 6 questions, each
-        # asked twice (a miss, then a memo hit)
+        # latency with the fused leg's default sampling: 3 questions, each
+        # asked twice (a miss, then a memo hit; 6 questions until the mesh
+        # phases needed the script's time)
         eng.sampling = service_bits[2].sampling
         samples = {"miss": [], "hit": []}
-        for i in range(1, 7):
+        for i in range(1, 4):
             for kind in ("miss", "hit"):
                 t = _prefixed_ask(svc, client, f"{LATENCY_QUESTIONS[i]} ({i})", f"(b) latency {i}")
                 samples[kind].append(t)
@@ -3604,7 +3616,7 @@ def phase_prefix_cache(service_bits, rows, fused_stats):
                          ("hit", samples["hit"])):
             stats[kind] = {k: {"p50": _pct([t[k] for t in ts], 50), "p95": _pct([t[k] for t in ts], 95)}
                            for k in ("total_ms", "prefix_resolve_ms", "generate_ms")}
-        print(f"phase prefix_cache (b) solo latency (default sampling, as the fused leg): prefixed requests=12 "
+        print(f"phase prefix_cache (b) solo latency (default sampling, as the fused leg): prefixed requests={len(samples['miss']) + len(samples['hit'])} "
               f"ms {json.dumps(stats)} | fused "
               f"(phase_query_latency, this call) total_ms p50={fused_stats['total_ms']['p50']:.2f} "
               f"p95={fused_stats['total_ms']['p95']:.2f} | cache_bytes={cache.counters()['prefix_cache_bytes']}",
@@ -4048,7 +4060,8 @@ def _free(cont):
 
 def _noise_limit(one_shot, ids, what):
     """``PREFIX_NOISE_FACTOR`` times the kernels' cold-prefill distance from
-    the plain attention's (the bf16 noise floor at full depth) at ``ids``."""
+    the plain attention's (the bf16 noise floor at the model's depth) at
+    ``ids``."""
     floor = _rel(_logits_cold(one_shot, ids), _logits_cold(one_shot, ids, plain=True))
     lim = max(PREFIX_NOISE_FACTOR * floor, 1e-3)
     print(f"{what}: noise floor (cold prefill, kernels vs plain) rel_rms={floor:.4g}, limit {lim:.4g}", flush=True)
@@ -4901,7 +4914,7 @@ def _lookahead_http(service_bits, eng):
 
 def phase_lookahead(service_bits):
     """Retrieval lookahead and the continuous half of the prefix cache on
-    the bf16 8B model (full width and depth): (b) prestage and a sharing
+    the bf16 8B model (full width, ``SERVICE_LAYERS`` layers): (b) prestage and a sharing
     ``admit_prefixed``, paged and dense; (c) chunk-granular pool splice;
     (d) the paged continuous service over HTTP, lookahead off and on, and
     two sessions. (a) runs with the kernel phases
@@ -5235,6 +5248,539 @@ def phase_staged_boot(root=None):
 
 
 # ---------------------------------------------------------------------------
+# the mesh: tensor and sequence parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+# Llama-3.1-8B's heads on one rank of a tp=2 and of a tp=8 mesh (32 query
+# heads over 8 kv heads in all): (tp, H, K)
+TP_SHAPES = ((2, 16, 4), (8, 4, 1))
+TP_KERNELS = ("flash_attention", "decode_attention", "chunk_prefill_attention")
+
+
+def _tp_row(rows, kname, **row):
+    rows[kname].setdefault("tp_shapes", []).append(row)
+
+
+def phase_tp_kernels(rows):
+    """Kernels 2-4 at the head counts one rank of a tp mesh runs
+    (``TP_SHAPES``): the Llama prefill (flash, S = 4096, 100 left-pad
+    slots), the decode over the dense cache and the chunk kernel at the
+    verify's S = 16 and a long prompt's S = 4096, each held against its
+    plain version with NaN in K/V outside every window for the kernel and
+    zeros for the plain version, a planted off-by-one rejected; ms per call,
+    the plain version's, SDPA's, the bound and the plan (splits, design)."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf, hd, L = torch.bfloat16, 128, 32
+    for tp, H, K in TP_SHAPES:
+        # kernel 2: the Llama prefill
+        S, ks_i = 4096, 100
+        q = torch.randn(1, S, H, hd, device=dev, generator=g).to(bf)
+        kz = torch.randn(1, S, K, hd, device=dev, generator=g).to(bf)
+        vz = torch.randn(1, S, K, hd, device=dev, generator=g).to(bf)
+        kz[:, :ks_i] = 0
+        vz[:, :ks_i] = 0
+        kn, vn = kz.clone(), vz.clone()
+        kn[:, :ks_i] = float("nan")
+        vn[:, :ks_i] = float("nan")
+        ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+        kl = torch.tensor([S], device=dev, dtype=torch.int32)
+        plan = A.chunk_design_plan(1, S, H, K, S, hd, _sms())
+        want = A.attention_xla(q, kz, vz, ks, kl, True)
+        got = A.flash_attention(q, kn, vn, ks, kl, causal=True)
+        torch.cuda.synchronize()
+        err, rms = _attn_check(f"flash tp={tp}", got, want)
+        if not (got[:, :ks_i] == 0).all():
+            fail(f"flash tp={tp}: fully masked rows must be zero")
+        fault = _attn_faults(f"flash tp={tp}", got, {"kv_start+1": A.attention_xla(q, kz, vz, ks + 1, kl, True)})
+        del want
+        ms = time_ms(lambda i: A.flash_attention(q, kn, vn, ks, kl, causal=True))
+        plain_ms = time_ms(lambda i: A.attention_xla(q, kz, vz, ks, kl, True), iters=3, warmup=1)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] >= ks_i) & (pos[None, :] <= pos[:, None])
+        lib_ms = time_ms(lambda i: sdpa(q.transpose(1, 2), kz.transpose(1, 2), vz.transpose(1, 2), mask[None, None]),
+                         iters=5)
+        pairs = mask.sum().item()
+        b_ms, b_by = bound((q.numel() * 2 + kz.numel() + vz.numel()) * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
+        print(f"phase tp_kernels flash tp={tp} B=1 S={S} H={H} K={K} hd={hd} causal=True {_plan_line(plan)}: "
+              f"{_attn_line(err, rms, fault)} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        _tp_row(rows, "flash_attention", tp=tp, shape=f"B=1 S={S} H={H} K={K} hd={hd} causal=True",
+                n_splits=plan["n_splits"], design=plan["design"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms)
+        del q, kz, vz, kn, vn, got
+        torch.cuda.empty_cache()
+
+        # kernel 3: one query row over the dense bf16 cache
+        T, ks_i, kl_i, layer = 4352, 100, 4200, 17
+        kc, vc, kz, vz = _cache_pair(L, 1, K, T, hd, ks_i, kl_i, g)
+        q = torch.randn(1, 1, H, hd, device=dev, generator=g).to(bf)
+        ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+        kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+        _sharpen_edges(q, (kc, kz), layer, kl_i - 1, ks_i)
+        want = A.decode_attention_xla(q, kz, vz, ks, kl, layer)
+        got = A.decode_attention(q, kc, vc, ks, kl, layer)
+        err, rms = _attn_check(f"decode tp={tp} (NaN outside the window)", got, want)
+        fault = _attn_faults(f"decode tp={tp}", got, {
+            "kv_start+1": A.decode_attention_xla(q, kz, vz, ks + 1, kl, layer),
+            "kv_len-1": A.decode_attention_xla(q, kz, vz, ks, kl - 1, layer),
+        })
+        ms = time_ms(lambda i: A.decode_attention(q, kc, vc, ks, kl, i % L), iters=64)
+        plain_ms = time_ms(lambda i: A.decode_attention_xla(q, kz, vz, ks, kl, i % L), iters=8)
+        mask = ((torch.arange(T, device=dev) >= ks_i) & (torch.arange(T, device=dev) < kl_i))[None, None, None, :]
+        lib_ms = time_ms(lambda i: sdpa(q.transpose(1, 2), kz[i % L], vz[i % L], mask), iters=8)
+        live = kl_i - ks_i
+        b_ms, b_by = bound(2 * K * live * hd * 2 + 2 * q.numel() * 2, 4.0 * H * hd * live, BF16_FLOPS)
+        plan = A.decode_launch_plan(1, K, T, _sms())
+        print(f"phase tp_kernels decode tp={tp} L={L} K={K} T={T} H={H} hd={hd} window=[{ks_i},{kl_i}) "
+              f"{_plan_line(plan)}: {_attn_line(err, rms, fault)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        _tp_row(rows, "decode_attention", tp=tp, shape=f"L={L} B=1 K={K} T={T} H={H} hd={hd} live={live}",
+                n_splits=plan["n_splits"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, rel_rms=rms)
+        del kc, vc, kz, vz, q, got
+        torch.cuda.empty_cache()
+
+        # kernel 4: the verify (S = 16) and a long prompt's second chunk (S = 4096)
+        for tag, S, wi, T, Lc in (("verify", 16, 4100, 4352, L), ("long-prompt", 4096, 4096, 8448, 4)):
+            ks_i, kl_i = 100, wi + S
+            kc, vc, kz, vz = _cache_pair(Lc, 1, K, T, hd, ks_i, kl_i, g)
+            q = torch.randn(1, S, H, hd, device=dev, generator=g).to(bf)
+            ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+            kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+            layer = Lc // 2 + 1
+            _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
+            want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
+            got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
+            err, rms = _attn_check(f"chunk {tag} tp={tp} (NaN outside the window)", got, want)
+            del want
+            fault = _attn_faults(f"chunk {tag} tp={tp}", got, {
+                "write_index+1": A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi + 1)})
+            plan = A.chunk_design_plan(1, S, H, K, T, hd, _sms())
+            ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi),
+                         iters=64 if S == 16 else 16)
+            plain_ms = time_ms(lambda i: A.chunk_attention_xla(q, kz, vz, ks, kl, i % Lc, wi),
+                               iters=3 if S > 16 else 8, warmup=1)
+            pos = torch.arange(T, device=dev)
+            qpos = wi + torch.arange(S, device=dev)
+            mask = (pos[None, :] >= ks_i) & (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None])
+            lib_ms = time_ms(lambda i: sdpa(q.transpose(1, 2), kz[i % Lc], vz[i % Lc], mask[None, None]), iters=5)
+            pairs = mask.sum().item()
+            b_ms, b_by = bound(2 * K * (kl_i - ks_i) * hd * 2 + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
+            print(f"phase tp_kernels chunk {tag} tp={tp} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} "
+                  f"{_plan_line(plan)}: {_attn_line(err, rms, fault)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            _tp_row(rows, "chunk_prefill_attention", tp=tp,
+                    shape=f"S={S} write_index={wi} T={T} H={H} K={K} hd={hd}", n_splits=plan["n_splits"],
+                    design=plan["design"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=err, rel_rms=rms)
+            del kc, vc, kz, vz, q, got
+            torch.cuda.empty_cache()
+
+
+MESH_QUESTIONS = LATENCY_QUESTIONS[4:7]
+MESH_PDFS = 3
+MESH_MAX_NEW = 16
+MESH_RING_LAYERS = 4
+
+
+def _mesh_service_leader(ctx, cfg, engine):
+    """Rank 0 of ``phase_mesh_service``'s world: the fused service over the
+    tp=2 engine, ``MESH_QUESTIONS`` as ``/query``, a shadow audit on
+    another thread beside the second one; each run's prompt and each draw's
+    logits recorded for the tp=1 follow."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import rag_llm_k8s_tpu_torch.engine.engine as E
+    from rag_llm_k8s_tpu_torch.engine.batching import BatchScheduler
+    from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
+    from rag_llm_k8s_tpu_torch.index.store import VectorStore
+    from rag_llm_k8s_tpu_torch.models import convert
+    from rag_llm_k8s_tpu_torch.models.bge_m3 import build_encoder
+    from rag_llm_k8s_tpu_torch.server.app import RagService, create_app
+
+    dev = ctx.device
+    enc = convert.init_random_(build_encoder(cfg.encoder, cfg.dtypes, dev), torch.Generator(device=dev).manual_seed(1))
+    llm_tok, enc_tok = real_tokenizers()
+    svc = RagService(cfg, engine, llm_tok, EncoderRunner(cfg.encoder, enc, dev, mesh=ctx), enc_tok,
+                     VectorStore(cfg.encoder.hidden_size, dev), scheduler=BatchScheduler(engine, max_wait_ms=30.0))
+    svc.ready = True
+    client = create_app(svc).test_client()
+    out = {}
+    try:
+        rng = np.random.default_rng(31)
+        for i in range(MESH_PDFS):
+            r = client.post("/upload_pdf", files={"file": (f"mesh{i}.pdf", make_pdf(words(rng, 900)))})
+            if r.status_code != 200:
+                raise RuntimeError(f"mesh upload {i}: {r.status_code} {r.get_json()}")
+        runs, real_run, real_sample = [], engine._device_run, E.sample_token
+
+        def run(tokens, pad_mask, S, max_new, chunk, spec, gen):
+            runs.append({"tokens": tokens.cpu().numpy(), "pad_mask": pad_mask.cpu().numpy(), "S": S,
+                         "max_new": max_new, "spec": spec, "stream": [], "logits": []})
+            return real_run(tokens, pad_mask, S, max_new, chunk, spec, gen)
+
+        def sample(lg, *a, **kw):
+            tok = real_sample(lg, *a, **kw)
+            runs[-1]["logits"].append(lg[0].float().cpu().numpy())
+            runs[-1]["stream"].append(int(tok[0]))
+            return tok
+
+        engine._device_run, E.sample_token = run, sample
+        audit, answers, t0 = {}, [], time.monotonic()
+        single0 = svc.metrics.snapshot().get("query_single_fetch", 0)
+        try:
+            th = None
+            for i, q in enumerate(MESH_QUESTIONS):
+                if i == 1:
+                    first = runs[0]
+                    prompt = first["tokens"][0][first["pad_mask"][0] == 1].tolist()
+
+                    def audit_fn(p=prompt, e=list(first["stream"])):
+                        t = time.monotonic()
+                        audit["score"] = {k: v.tolist() for k, v in engine.score_exact(p, e).items()}
+                        audit["s"] = time.monotonic() - t
+
+                    th = threading.Thread(target=audit_fn)
+                    th.start()
+                t = time.monotonic()
+                r = client.post("/query", json_body={"prompt": q})
+                body = r.get_json()
+                if r.status_code != 200 or "Document '" not in body.get("context", ""):
+                    raise RuntimeError(f"mesh /query {i}: {r.status_code} {body}")
+                answers.append({"s": time.monotonic() - t, "timings": body["timings"]})
+            th.join(timeout=600)
+        finally:
+            E.sample_token = real_sample
+            del engine._device_run
+        out.update(runs=runs, answers=answers, audit=audit, wall_s=time.monotonic() - t0,
+                   single_fetch=svc.metrics.snapshot().get("query_single_fetch", 0) - single0,
+                   healthz=client.get("/healthz").get_json(), heartbeat=engine.commands.heartbeat())
+    finally:
+        svc.shutdown()  # stop: the follower leaves its command loop
+    return out
+
+
+def _mesh_ring(ctx):
+    """An sp=2 ring prefill of 4,096 tokens through Llama-3.1-8B at full
+    width and ``MESH_RING_LAYERS`` layers (each rank holds the whole model:
+    sp shards the sequence, not the weights), against the same model at
+    sp=1 through the kernels and through the plain attention."""
+    import numpy as np
+    import torch
+
+    import rag_llm_k8s_tpu_torch.models.llama as llama
+    from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, LlamaConfig, MeshConfig
+    from rag_llm_k8s_tpu_torch.core.mesh import make_mesh, single_device_mesh
+    from rag_llm_k8s_tpu_torch.models import convert
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev, dt = ctx.device, DTypePolicy()
+    sp = make_mesh(MeshConfig(dp=1, sp=2, tp=1), device=dev)
+    cfg = dataclasses.replace(LlamaConfig.llama_3_1_8b(), num_layers=MESH_RING_LAYERS)
+    S = 4096
+    toks = torch.from_numpy(np.random.default_rng(33).integers(3, 128000, (1, S))).to(dev)
+    pos = torch.arange(S, device=dev)[None]
+    ks, kl = torch.zeros(1, dtype=torch.int64, device=dev), torch.full((1,), S, device=dev)
+
+    def logits(model):
+        cache = llama.make_kv_cache(model.local, 1, S, torch.bfloat16, dev)
+        with torch.inference_mode():
+            return model(toks, pos, cache, ks, kl, 0, last_logit_only=True)[0, -1].float()
+
+    calls, real = [], llama.ring_attention_sharded
+    llama.ring_attention_sharded = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    try:
+        model = convert.init_random_sharded(cfg, dt, sp, torch.Generator(device=dev).manual_seed(5))
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        ring = logits(model)
+        torch.cuda.synchronize()
+        ring_s = time.monotonic() - t
+        staged = sp.staged_calls
+        model = convert.init_random_sharded(cfg, dt, single_device_mesh(dev), torch.Generator(device=dev).manual_seed(5))
+        ref = logits(model)
+        llama.flash_attention = A.attention_xla
+        plain = logits(model)
+    finally:
+        llama.ring_attention_sharded = real
+        llama.flash_attention = A.flash_attention
+    del model
+    torch.cuda.empty_cache()
+    return dict(ring_vs_kernels=_rel(ring, ref), plain_vs_kernels=_rel(plain, ref), ring_vs_plain=_rel(ring, plain),
+                ring_calls=len(calls), ring_s=ring_s, staged_calls=staged)
+
+
+def _mesh_rank(ctx, max_new):
+    """One rank of ``phase_mesh_service``'s tp=2 world: its shard of the
+    seeded Llama-3.1-8B (``build_service``'s weights), the one-shot engine
+    over the mesh, rank 0's service or a follower's command loop, then the
+    sp=2 ring prefill over the same two ranks."""
+    import tempfile
+
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import (AppConfig, EncoderConfig, EngineConfig, FlightConfig,
+                                                   LlamaConfig, SamplingConfig, ShadowConfig)
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.models import convert
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.parallel.commands import serve_commands
+
+    dev = ctx.device
+    # the vanilla decode loop (its draws are followed); kernel 4 runs in the audit
+    cfg = AppConfig(model=LlamaConfig.llama_3_1_8b(), encoder=EncoderConfig.bge_m3(),
+                    sampling=SamplingConfig(max_new_tokens=max_new, do_sample=False),
+                    engine=EngineConfig(speculative="off"), flight=FlightConfig(spool_dir=tempfile.mkdtemp()),
+                    shadow=ShadowConfig(sample_rate=0.0))
+    t = time.monotonic()
+    model = convert.init_random_sharded(cfg.model, cfg.dtypes, ctx, torch.Generator(device=dev).manual_seed(0),
+                                        fused_source=True)
+    torch.cuda.synchronize()
+    out = {"rank": ctx.rank, "build_s": time.monotonic() - t,
+           "weights_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9}
+    engine = InferenceEngine(cfg.model, model, cfg.sampling, cfg.engine, cfg.dtypes, dev, mesh=ctx)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    if ctx.leader:
+        out.update(_mesh_service_leader(ctx, cfg, engine))
+    else:
+        out["commands"] = serve_commands(ctx, engine)
+    torch.cuda.synchronize()
+    out.update(launches=dict(_build.LAUNCHES), staged_calls=ctx.staged_calls,
+               mem_gb=torch.cuda.memory_allocated(dev) / 1e9, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del engine, model
+    torch.cuda.empty_cache()
+    out["ring"] = _mesh_ring(ctx)
+    return out
+
+
+def _follow_oneshot(eng, run, limit, what):
+    """Teacher-forces the tp=1 one-shot engine along a recorded run's
+    stream through its real vanilla loop: every draw's logits within
+    ``limit`` (relative RMS) of the recorded ones, and where its own pick
+    differs from the stream's token, the recorded margin between the two
+    within twice the largest logit difference there (``_Follow``'s rule).
+    Returns ``(draws compared, worst rel RMS, forks, largest logit
+    difference)``."""
+    import torch
+
+    import rag_llm_k8s_tpu_torch.engine.engine as E
+
+    dev = eng.device
+    stream, ref = run["stream"], run["logits"]
+    st = {"i": 0, "worst": 0.0, "forks": [], "delta": 0.0}
+    real = E.sample_token
+
+    def sample(lg, *a, **kw):
+        i = st["i"]
+        if i >= len(stream):
+            return real(lg, *a, **kw)
+        got, want_l = lg[0].float(), torch.from_numpy(ref[i]).to(dev)
+        rel = _rel(got, want_l)
+        delta = (got - want_l).abs().max().item()
+        st["worst"], st["delta"] = max(st["worst"], rel), max(st["delta"], delta)
+        if not rel <= limit:
+            fail(f"{what}: token {i}: logits rel rms {rel:.4g} from the tp=2 run (limit {limit:.4g})")
+        own, want = int(got.argmax()), stream[i]
+        if own != want:
+            margin = (want_l[want] - want_l[own]).item()
+            st["forks"].append((i, round(margin, 4), round(delta, 4)))
+            if margin > 2 * delta:
+                fail(f"{what}: token {i}: tp=1 picks {own} where tp=2 drew {want} with a margin {margin:.4g} "
+                     f"past twice the logits' difference {delta:.4g}")
+        st["i"] += 1
+        return torch.tensor([want], device=dev)
+
+    E.sample_token = sample
+    try:
+        with torch.inference_mode(), eng._run_lock:
+            eng._run_vanilla(torch.from_numpy(run["tokens"]).to(dev), torch.from_numpy(run["pad_mask"]).to(dev),
+                             run["S"], run["max_new"], None, torch.Generator(device=dev))
+    finally:
+        E.sample_token = real
+    if st["i"] != len(stream):
+        fail(f"{what}: followed {st['i']} of {len(stream)} draws")
+    return st["i"], st["worst"], st["forks"], st["delta"]
+
+
+def phase_mesh_service(rows):
+    """A tp=2 world of two processes on the one card over gloo
+    (``parallel.launch.spawn_world``), at Llama-3.1-8B's full width and
+    depth: each rank draws ``build_service``'s seeded weights one tensor at
+    a time and keeps its shard. Rank 0 serves three fused ``/query``
+    through ``RagService`` (a shadow audit's ``score_exact`` on another
+    thread beside the second), rank 1 follows its command stream. Each
+    query's greedy stream is then followed draw by draw through a tp=1
+    engine on the same weights, built here after the world has ended
+    (``_follow_oneshot``, within
+    ``PREFIX_NOISE_FACTOR`` times the kernels' cold-prefill noise floor: a
+    bf16 all-reduce rounds differently, so the gate is on logits, not on
+    equal texts). Kernels 2, 3 and 4 must launch on each rank. Then an
+    sp=2 ring prefill against sp=1. Prints each rank's memory and staged
+    collectives."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import MeshConfig
+    from rag_llm_k8s_tpu_torch.parallel.launch import spawn_world
+
+    from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, EngineConfig, LlamaConfig, SamplingConfig
+    from rag_llm_k8s_tpu_torch.core.mesh import single_device_mesh
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.models import convert
+
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    res = spawn_world(_mesh_rank, MeshConfig(dp=1, sp=1, tp=2), backend="gloo", args=(MESH_MAX_NEW,),
+                      join_timeout_s=900)
+    world_s = time.monotonic() - t
+    # the tp=1 reference: the same seeded weights, whole, at full depth (the
+    # service phases' model is cut to SERVICE_LAYERS)
+    dev, cfg8, dt = torch.device("cuda"), LlamaConfig.llama_3_1_8b(), DTypePolicy()
+    ref = convert.init_random_sharded(cfg8, dt, single_device_mesh(dev), torch.Generator(device=dev).manual_seed(0),
+                                      fused_source=True)
+    eng = InferenceEngine(cfg8, ref, SamplingConfig(max_new_tokens=MESH_MAX_NEW, do_sample=False),
+                          EngineConfig(speculative="off"), dt, dev)
+    lead = res[0]
+    for r, out in enumerate(res):
+        missing = [k for k in TP_KERNELS if out["launches"].get(k, 0) < 1]
+        if missing:
+            fail(f"mesh_service: rank {r} never launched {missing} ({out['launches']})")
+        print(f"phase mesh_service rank {r}: weights_gb={out['weights_gb']:.3f} build_s={out['build_s']:.1f} "
+              f"mem_gb={out['mem_gb']:.2f} peak_gb={out['peak_gb']:.2f} staged_calls={out['staged_calls']} "
+              f"launches={json.dumps({k: out['launches'].get(k, 0) for k in TP_KERNELS})}"
+              f"{'' if r == 0 else ' commands=' + str(out['commands'])}", flush=True)
+    if lead["single_fetch"] != len(MESH_QUESTIONS):
+        fail(f"mesh_service: {lead['single_fetch']} of {len(MESH_QUESTIONS)} queries took the single-fetch path")
+    hz = lead["healthz"]
+    if not (hz.get("ready") and hz.get("followers_ready") and hz.get("mesh") == {"dp": 1, "sp": 1, "tp": 2}):
+        fail(f"mesh_service: /healthz {hz}")
+    runs = lead["runs"]
+    if len(runs) != len(MESH_QUESTIONS) or any(r["spec"] for r in runs):
+        fail(f"mesh_service: {len(runs)} device programs for {len(MESH_QUESTIONS)} queries")
+    deltas = []
+    for j, run in enumerate(runs):
+        ids = run["tokens"][0][run["pad_mask"][0] == 1].tolist()
+        limit = _noise_limit(eng, ids, f"mesh_service query {j}")
+        n, worst, forks, delta = _follow_oneshot(eng, run, limit, f"mesh_service query {j}")
+        deltas.append(delta)
+        print(f"phase mesh_service query {j}: prompt_tokens={len(ids)} emitted={len(run['stream'])} "
+              f"draws_compared={n} worst_logits_rel_rms={worst:.4g} (limit {limit:.4g}) "
+              f"near_tie_forks(token, tp=2 margin, max logit diff)={forks} "
+              f"request_s={lead['answers'][j]['s']:.2f} timings={json.dumps(lead['answers'][j]['timings'])}",
+              flush=True)
+    audit = lead["audit"]
+    if "score" not in audit:
+        fail("mesh_service: the shadow audit beside a query did not finish")
+    # the audit (chunked, teacher-forced) against the served stream: where
+    # its greedy pick differs, its own gap to the served token lies within
+    # twice the largest logit difference that query's follow measured
+    # between tp=2 and tp=1 (the _Follow rule)
+    sc = audit["score"]
+    agree = sum(a == b for a, b in zip(sc["argmax"], runs[0]["stream"]))
+    gaps = [m - c for a, b, m, c in zip(sc["argmax"], runs[0]["stream"], sc["max_logit"], sc["chosen_logit"])
+            if a != b]
+    if len(sc["argmax"]) != len(runs[0]["stream"]) or any(g > 2 * deltas[0] for g in gaps):
+        fail(f"mesh_service: the audit leaves the served stream past a near-tie: gaps {gaps} "
+             f"(limit {2 * deltas[0]:.4g})")
+    ring = lead["ring"]
+    lim = max(PREFIX_NOISE_FACTOR * ring["plain_vs_kernels"], 1e-3)
+    if ring["ring_calls"] != MESH_RING_LAYERS or not ring["ring_vs_kernels"] <= lim:
+        fail(f"mesh_service: sp=2 ring prefill {ring} (limit {lim:.4g})")
+    print(f"phase mesh_service audit: score_exact s={audit['s']:.2f} argmax agrees on {agree} of "
+          f"{len(runs[0]['stream'])} served tokens, gaps where not {[round(g, 4) for g in gaps]} (limit "
+          f"{2 * deltas[0]:.4g}); heartbeat={json.dumps(lead['heartbeat'])}", flush=True)
+    print(f"phase mesh_service sp=2 ring prefill (8B width, {MESH_RING_LAYERS} layers, S=4096): "
+          f"rel_rms vs sp=1 kernels={ring['ring_vs_kernels']:.4g} (limit {lim:.4g}; sp=1 plain vs kernels "
+          f"{ring['plain_vs_kernels']:.4g}) vs sp=1 plain={ring['ring_vs_plain']:.4g} ring_layers={ring['ring_calls']} "
+          f"prefill_s={ring['ring_s']:.2f} staged_calls={ring['staged_calls']}", flush=True)
+    print(f"phase mesh_service: world_s={world_s:.1f} queries_wall_s={lead['wall_s']:.1f}", flush=True)
+    for k in TP_KERNELS:
+        rows[k]["mesh_launches_per_rank"] = [out["launches"].get(k, 0) for out in res]
+    del eng, ref
+    torch.cuda.empty_cache()
+
+
+def phase_staged_boot_mesh(root):
+    """``python -m rag_llm_k8s_tpu_torch.server.main`` under
+    ``TPU_RAG_MESH=tp=2`` on ``phase_staged_boot``'s directory (8B width, 2
+    layers): it starts its follower, both ranks load their shard through the
+    streaming put into a cache of their own (never the tp=1 one), it
+    reaches ``/healthz`` with the follower ready, answers one ``/query``,
+    and SIGTERM drains it: the follower stops and the process exits 0."""
+    import os
+    import signal
+
+    from rag_llm_k8s_tpu_torch.core.config import AppConfig
+
+    env = {"MODEL_PATH": root, "TPU_RAG_PDF_DIR": os.path.join(root, "pdfs"), "TPU_RAG_SHADOW_SAMPLE_RATE": "0",
+           "TPU_RAG_MESH": "tp=2", "TPU_RAG_BATCHING": "coalesce", "TPU_RAG_FUSED": "1"}
+    port = _free_port()
+    log_path = os.path.join(root, "server_main_mesh.log")
+    t = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(SERVER_MAIN, env={**os.environ, **env, "TPU_RAG_PORT": str(port),
+                                                  "TPU_RAG_LOG_LEVEL": "INFO"}, stdout=log, stderr=subprocess.STDOUT)
+
+    def server_log():
+        with open(log_path) as f:
+            return f.read()[-6000:]
+
+    try:
+        ready = None
+        while time.monotonic() - t < 600:
+            if proc.poll() is not None:
+                fail(f"server.main (tp=2) exited with {proc.returncode}:\n{server_log()}")
+            try:
+                code, health = _http(port, "/healthz", timeout=5)
+                if code == 200 and health.get("status") == "ok":
+                    ready = health
+                    break
+            except OSError:
+                pass
+            time.sleep(1.0)
+        if ready is None or not ready.get("followers_ready") or ready.get("mesh", {}).get("tp") != 2:
+            fail(f"server.main (tp=2): /healthz never reported the mesh ready within 600 s ({ready}):\n"
+                 f"{server_log()}")
+        ready_s = time.monotonic() - t
+        cache = os.path.join(root, "tpu_rag_param_cache_mesh1x1x2")
+        files = sorted(os.listdir(cache)) if os.path.isdir(cache) else []
+        if files != ["params.rank0.safetensors", "params.rank1.safetensors"]:
+            fail(f"server.main (tp=2): per-rank param cache {cache} holds {files}")
+        t_q = time.monotonic()
+        code, body = _http(port, "/query", {"prompt": LATENCY_QUESTIONS[0]})
+        if code != 200 or "Document '" not in body.get("context", ""):
+            fail(f"server.main (tp=2) /query: {code} {body}")
+        query_s = time.monotonic() - t_q
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        limit = AppConfig().resilience.drain_deadline_s + 40.0
+        try:
+            rc = proc.wait(timeout=limit)
+        except subprocess.TimeoutExpired:
+            fail(f"server.main (tp=2): still running {limit:.0f} s after SIGTERM:\n{server_log()}")
+        logged = server_log()
+        stopped = "rank 1: stopped after" in logged
+        print(f"phase staged_boot_mesh server.main TPU_RAG_MESH=tp=2: ready_s={ready_s:.1f} "
+              f"healthz={json.dumps(ready)} param_cache={files} query_s={query_s:.2f} "
+              f"timings={json.dumps(body['timings'])} exit_code={rc} exit_s={time.monotonic() - t_term:.2f} "
+              f"follower_stopped={stopped}", flush=True)
+        if rc != 0 or not stopped:
+            fail(f"server.main (tp=2) SIGTERM: exit code {rc}, follower stopped {stopped}:\n{logged}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# ---------------------------------------------------------------------------
 # the durable lifecycle and the disaggregated tier
 # ---------------------------------------------------------------------------
 
@@ -5374,7 +5920,7 @@ def _route_events(n0, rids):
     return rd, host
 
 
-def phase_disagg(service_bits, max_new: int = 150, q8_max_new: int = 48, follow_tokens=FOLLOW_TOKENS):
+def phase_disagg(service_bits, max_new: int = 96, q8_max_new: int = 48, follow_tokens=FOLLOW_TOKENS):
     """(a) Pool roles (``TPU_RAG_POOL_ROLE=prefill`` / ``decode`` over paged
     arenas, phase-separated admission, as the deployment's two role tiers
     run): a prefill-role and a decode-role engine, each with its own
@@ -6052,7 +6598,7 @@ def phase_quality(service_bits, rows):
     over the one-shot greedy stream ``phase_service`` delivered, once through
     ``chunk_prefill_attention`` and once with its plain version swapped into
     the model: argmax chains equal but at near-ties, ``max_logit`` within 4x
-    the cold prefill's noise floor, the audit's launches exactly 32 x n
+    the cold prefill's noise floor, the audit's launches exactly layers x n
     chunk kernels and no other attention kernel, its ms and memory. (b)
     Forced audits of streams earlier phases delivered: one-shot greedy,
     prefix-cache hit, forced warm-tier hit, chunk reuse (where it spliced)
@@ -6120,9 +6666,10 @@ def phase_quality(service_bits, rows):
           f"argmax_agree={int(np.sum(np.asarray(k['argmax']) == np.asarray(p['argmax'])))}/{len(emitted)} "
           f"forks(pos, kernel, plain, margin)={forks} kernel_chain_is_the_stream="
           f"{[int(t) for t in k['argmax']] == list(emitted)}", flush=True)
-    if launches != {"chunk_prefill_attention": 32 * n_chunks}:
+    n_layers = engine.config.num_layers
+    if launches != {"chunk_prefill_attention": n_layers * n_chunks}:
         fail(f"quality (a): one audit of {n_chunks} chunks launched {launches}, not "
-             f"{{'chunk_prefill_attention': {32 * n_chunks}}}")
+             f"{{'chunk_prefill_attention': {n_layers * n_chunks}}}")
     if not rel <= lim:
         fail(f"quality (a): max_logit rel rms {rel:.4g} past the limit {lim:.4g}")
     if bad:
@@ -6169,7 +6716,7 @@ def phase_quality(service_bits, rows):
         print(line, flush=True)
         if "warm_tier" in ap and not ev.get("err", 0.0) <= QUALITY_TOL:
             fail(f"quality (b) {tag}: err {ev['err']} past the {QUALITY_TOL} tolerance")
-    # chunk reuse's drift at full depth on random weights is past the
+    # chunk reuse's drift at depth on random weights is past the
     # tolerance the reference pins on small models (PERF.md §6):
     # the audit measures it, and this run reports it
     print(f"phase quality (b): {len(picks)} audits in {secs:.2f} s; past the {QUALITY_TOL} tolerance: "
@@ -6237,7 +6784,7 @@ def phase_quality(service_bits, rows):
 def phase_quality_q8(qbits):
     """(f) One forced audit on the int8 service of the greedy stream its
     ``phase_service`` delivered: the scorer runs ``chunk_prefill_attention_q8``
-    32 x n times and no bf16 cache kernel."""
+    layers x n times and no bf16 cache kernel."""
     from rag_llm_k8s_tpu_torch.ops import _build
 
     svc, _, eng, _ = qbits
@@ -6252,7 +6799,7 @@ def phase_quality_q8(qbits):
     print(f"phase quality (f) int8 audit: prompt={len(s['prompt'])} emitted={len(s['emitted'])} chunks={n_chunks} "
           f"outcome={ev['outcome']} pos={ev.get('pos')} err={ev.get('err')} approx={ev.get('approx')} s={secs:.2f} "
           f"launches={json.dumps(launches)}", flush=True)
-    if launches != {"chunk_prefill_attention_q8": 32 * n_chunks}:
+    if launches != {"chunk_prefill_attention_q8": eng.config.num_layers * n_chunks}:
         fail(f"quality (f): the int8 audit launched {launches}")
     if ev["outcome"] not in ("clean", "diverged"):
         fail(f"quality (f): the int8 audit came back {ev}")
@@ -6348,6 +6895,13 @@ def build_q8_service(service_bits, qmodel):
     return svc, create_app(svc).test_client(), eng, store
 
 
+# The service phases' Llama-3.1-8B: full width, 16 of its 32 layers (the
+# whole depth until the mesh phases needed the script's time; a step's time
+# follows the depth: ~1,800 launches a decode forward at 32 layers).
+# phase_mesh_service runs the full depth.
+SERVICE_LAYERS = 16
+
+
 def build_service():
     import atexit
     import shutil
@@ -6372,8 +6926,9 @@ def build_service():
     # the shadow auditor present at sample_rate 0: no random draw audits a
     # request (phase_quality forces its audits); every service built from
     # this config inherits it
-    cfg = AppConfig(model=LlamaConfig.llama_3_1_8b(), encoder=EncoderConfig.bge_m3(),
-                    flight=FlightConfig(spool_dir=spool), shadow=ShadowConfig(sample_rate=0.0))
+    cfg = AppConfig(model=dataclasses.replace(LlamaConfig.llama_3_1_8b(), num_layers=SERVICE_LAYERS),
+                    encoder=EncoderConfig.bge_m3(), flight=FlightConfig(spool_dir=spool),
+                    shadow=ShadowConfig(sample_rate=0.0))
     _capture_deliveries()
     t = time.monotonic()
     model = convert.init_random_(
@@ -6467,13 +7022,13 @@ def _capture_deliveries():
 # the int8 ones over its quantized copy. "lookahead" also runs its kernels
 # with the kernel phases and its int8 leg with the int8 phases.
 KERNEL_PHASES = ("knn", "flash", "decode", "chunk", "paged_decode", "paged_chunk", "decode_q8", "chunk_q8",
-                 "paged_decode_q8", "paged_chunk_q8", "continuous_kernels")
+                 "paged_decode_q8", "paged_chunk_q8", "continuous_kernels", "tp_kernels")
 SERVICE_PHASES = ("model", "service", "query_latency", "observability", "prefix_cache", "continuous_service",
                   "goodput", "resilience", "continuous_engine", "continuous_dense", "spec_paged", "engine_tasks",
                   "plain_decode", "disagg", "lookahead", "quality", "replay", "warm_restart")
 Q8_PHASES = ("model_q8", "service_q8", "continuous_service_q8", "continuous_engine_q8", "continuous_dense_q8",
              "spec_paged_q8")
-PHASES = KERNEL_PHASES + ("staged_boot",) + SERVICE_PHASES + Q8_PHASES
+PHASES = KERNEL_PHASES + ("staged_boot", "staged_boot_mesh", "mesh_service") + SERVICE_PHASES + Q8_PHASES
 
 
 def _selected(names: str):
@@ -6483,7 +7038,8 @@ def _selected(names: str):
     audits the streams of ``prefix_cache``, ``spec_paged`` and
     ``service_q8`` (and runs its int8 audit after the last), ``replay``
     re-drives ``goodput``'s journal, and ``goodput`` reads the one-shot
-    requests of ``query_latency``."""
+    requests of ``query_latency``; ``staged_boot_mesh`` boots
+    ``staged_boot``'s directory too."""
     want = {n.strip() for n in names.split(",") if n.strip()} or set(PHASES)
     unknown = sorted(want - set(PHASES))
     if unknown:
@@ -6496,7 +7052,7 @@ def _selected(names: str):
         want.add("query_latency")
     if want & (set(SERVICE_PHASES) | set(Q8_PHASES)) - {"warm_restart"}:
         want.add("service")
-    if "warm_restart" in want:
+    if want & {"warm_restart", "staged_boot_mesh"}:
         want.add("staged_boot")
     return want
 
@@ -6557,6 +7113,10 @@ def main(argv=None) -> int:
     atexit.register(shutil.rmtree, staged, True)
     if "staged_boot" in want:
         timed(phase_staged_boot, staged)
+    if "staged_boot_mesh" in want:
+        timed(phase_staged_boot_mesh, staged)
+    if "mesh_service" in want:
+        timed(phase_mesh_service, rows)
 
     launches, cont_launches, q_launches, q_cont = {}, {}, {}, {}
     bits = None
@@ -6567,8 +7127,9 @@ def main(argv=None) -> int:
         launches = timed(phase_service, bits, forbid=ONE_SHOT_Q8[2:])
         fused_stats = {"total_ms": {"p50": 0.0, "p95": 0.0}}  # when the latency leg does not run
         if "query_latency" in want:
-            # 12 solo requests, not 24: the script's time limit (PERF.md §6)
-            fused_stats = timed(phase_query_latency, bits, n_solo=12)
+            # 6 solo requests, not 24 (12 until the mesh phases): the
+            # script's time limit (PERF.md §6)
+            fused_stats = timed(phase_query_latency, bits, n_solo=6)
         if "observability" in want:
             timed(phase_observability, bits)
         if "prefix_cache" in want:
@@ -6679,7 +7240,7 @@ def main(argv=None) -> int:
             "shape": r["shape"], **({"bf16_kernel_ms": r["bf16_kernel_ms"]} if "bf16_kernel_ms" in r else {}),
             **{k: r[k] for k in ("long_prompt", "bge_m3", "design", "design_ms", "host_us", "queries_8",
                                  "queries_9", "prefix_shapes", "continuous_shapes", "lookahead_shapes",
-                                 "shadow_shapes") if k in r},
+                                 "shadow_shapes", "tp_shapes", "mesh_launches_per_rank") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

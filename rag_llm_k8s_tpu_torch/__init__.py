@@ -6,7 +6,10 @@ the JAX package wrote in Pallas for the TPU is a hand-written CUDA kernel for
 Hopper (``ops/csrc``), built with ``nvcc`` at first use. The layout mirrors
 the JAX package:
 
-    core/    config (same defaults), device resolution, numerics switches
+    core/    config (same defaults), device resolution, numerics switches,
+             the device mesh over torch.distributed (one process per rank)
+    parallel/ tensor-parallel sharding rules, ring attention (sp), the
+             launcher of a world of ranks and rank 0's command stream
     ops/     kNN and attention kernels with their plain PyTorch versions
     models/  Llama-3.1 decoder, bge-m3 encoder, weights bridge
     engine/  one-shot engine (bucketed/chunked prefill, decode, speculation,

@@ -2,14 +2,15 @@
 
 Same fields and the same defaults as ``rag_llm_k8s_tpu/core/config.py``, so a
 deployment reads one table for both packages. Only ``DTypePolicy`` differs:
-it names torch dtypes. Knobs that only the JAX package's other paths read
-(the mesh) are not here.
+it names torch dtypes. ``MeshConfig`` is the JAX package's mesh shape; the
+port runs it as one process per rank (``core/mesh.py``).
 
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
 a feature the port lacks raises and names its ``ROADMAP.md`` item
-(``UNPORTED_KEYS``); any other ``TPU_RAG_*`` key the port does not read is
-logged as ignored.
+(``UNPORTED_KEYS``, and ``EngineConfig.validate_mesh`` for what a mesh of
+more than one device does not serve yet); any other ``TPU_RAG_*`` key the
+port does not read is logged as ignored.
 """
 
 from __future__ import annotations
@@ -48,6 +49,43 @@ class RopeScalingConfig:
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position_embeddings: int = 8192
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's shape (JAX ``MeshConfig``): ``dp`` (data parallel:
+    replicated serving), ``sp`` (sequence parallel: ring attention over long
+    prefills), ``tp`` (tensor parallel: sharded weights, the main axis for
+    Llama-3.1-8B over eight devices). ``tp = -1`` means "all remaining
+    devices". The port runs one process per rank (``core/mesh.py``), rank
+    ``r`` at the mesh coordinate of ``np.arange(world).reshape(dp, sp,
+    tp)``."""
+
+    dp: int = 1
+    sp: int = 1
+    tp: int = -1
+    axis_names: Tuple[str, str, str] = ("dp", "sp", "tp")
+
+    def resolved(self, n_devices: int) -> Tuple[int, int, int]:
+        dp, sp, tp = self.dp, self.sp, self.tp
+        if tp == -1:
+            known = dp * sp
+            if n_devices % known != 0:
+                raise ValueError(
+                    f"n_devices={n_devices} not divisible by dp*sp={known}"
+                )
+            tp = n_devices // known
+        if dp * sp * tp != n_devices:
+            raise ValueError(
+                f"mesh {dp}x{sp}x{tp} != n_devices={n_devices}"
+            )
+        return dp, sp, tp
+
+    def world(self, n_devices: int) -> int:
+        """The ranks this mesh runs on: ``dp * sp * tp``, with ``tp = -1``
+        filling ``n_devices`` (``resolved``)."""
+        dp, sp, tp = self.resolved(n_devices) if self.tp == -1 else (self.dp, self.sp, self.tp)
+        return dp * sp * tp
 
 
 @dataclass(frozen=True)
@@ -373,6 +411,40 @@ class EngineConfig:
         for name in ("weight_quant", "kv_quant"):
             if getattr(self, name) not in ("bf16", "int8"):
                 raise ValueError(f"{name}={getattr(self, name)!r}: expected 'bf16' or 'int8'")
+
+    def validate_tp_layout(self, tp: int, num_kv_heads: int) -> None:
+        """Paged KV on a ``tp > 1`` mesh serves from a HEAD-sharded arena:
+        each device holds ``num_kv_heads / tp`` heads of every physical
+        block, so the kv-head count must tile the axis (the JAX package's
+        rule and message; the arena that uses it is ROADMAP.md Queue 1 item
+        10b)."""
+        if not self.kv_paged or tp <= 1:
+            return
+        if num_kv_heads % tp:
+            raise ValueError(
+                f"kv_paged on a tp={tp} mesh shards the arena's kv-head "
+                f"axis: num_kv_heads={num_kv_heads} must be divisible by "
+                f"tp — choose a tp that divides the head count, or serve "
+                "this model dense on the mesh"
+            )
+
+    def validate_mesh(self, n_devices: int) -> None:
+        """A mesh of more than one device serves the one-shot engine with
+        the dense bf16 cache (``batching="coalesce"``); the continuous
+        engine, the paged arena, pool roles, int8 KV and the prefix cache on
+        a mesh are ROADMAP.md Queue 1 item 10b."""
+        if n_devices <= 1:
+            return
+        on = [name for name, bad in (
+            ("TPU_RAG_BATCHING=continuous", self.batching == "continuous"),
+            ("TPU_RAG_KV_PAGED=1", self.kv_paged),
+            (f"TPU_RAG_POOL_ROLE={self.pool_role}", self.pool_role != "unified"),
+            ("TPU_RAG_KV_QUANT=int8", self.kv_quant == "int8"),
+            ("TPU_RAG_PREFIX_CACHE=1", self.prefix_cache.enabled),
+        ) if bad]
+        if on:
+            raise ValueError(f"TPU_RAG_MESH: a {n_devices}-device mesh with {', '.join(on)} turns on a feature the "
+                             f"PyTorch port does not have yet: {MESH_10B}")
 
     def validate_interleave(self) -> None:
         """Cross-field rules for interleaved admission (the JAX package's,
@@ -727,25 +799,34 @@ class ServerConfig:
     embedder_path: str = "/models/bge-m3"
 
 
-def _mesh_on(spec: str) -> bool:
-    """Whether a ``TPU_RAG_MESH`` spec asks for more than one device."""
+def parse_mesh(spec: str, mesh: Optional["MeshConfig"] = None) -> "MeshConfig":
+    """A ``TPU_RAG_MESH`` spec (``"tp=8"``, ``"dp=2,tp=4"``) applied to
+    ``mesh`` (default ``MeshConfig()``), as the JAX ``from_env`` parses it."""
     try:
         kv = dict(p.split("=", 1) for p in spec.split(","))
-        sizes = {k: int(v) for k, v in kv.items() if k in ("dp", "sp", "tp")}
+        overrides = {k: int(v) for k, v in kv.items() if k in ("dp", "sp", "tp")}
     except (ValueError, TypeError) as e:
         raise ValueError(f"TPU_RAG_MESH={spec!r} is not of the form 'dp=N,sp=N,tp=N'") from e
-    return any(v > 1 for v in sizes.values())
+    return dataclasses.replace(mesh or MeshConfig(), **overrides)
 
 
-# keys that turn on a feature the port does not have: the test on the
-# value, and the ROADMAP.md item that ports it
-UNPORTED_KEYS: Dict[str, Tuple[Callable[[str], bool], str]] = {
-    "TPU_RAG_MESH": (_mesh_on, "Queue 1 item 10 (tensor and sequence parallelism; the port serves one card)"),
-}
+def _mesh_devices(mesh: "MeshConfig") -> int:
+    """The devices a mesh spec names outright (``tp = -1`` counts as one:
+    it is resolved against the cards at boot, ``server/main.py``)."""
+    return mesh.dp * mesh.sp * max(mesh.tp, 1)
+
+
+MESH_10B = "ROADMAP.md Queue 1 item 10b (the continuous engine, paged KV, pool roles, int8 KV and the prefix cache on a mesh)"
+
+# keys that turn on a feature the port does not have: the ROADMAP.md item
+# that ports it. A mesh of more than one device is ported for the one-shot
+# engine; the features item 10b ports raise beside it
+# (EngineConfig.validate_mesh, applied once the env is parsed)
+UNPORTED_KEYS: Dict[str, str] = {}
 
 # the keys from_env reads
 PORTED_KEYS = frozenset({
-    "TPU_RAG_INDEX_PATH", "TPU_RAG_PDF_DIR", "TPU_RAG_PORT", "TPU_RAG_MAX_NEW_TOKENS",
+    "TPU_RAG_MESH", "TPU_RAG_INDEX_PATH", "TPU_RAG_PDF_DIR", "TPU_RAG_PORT", "TPU_RAG_MAX_NEW_TOKENS",
     "TPU_RAG_BATCHING", "TPU_RAG_WEIGHT_QUANT", "TPU_RAG_KV_QUANT", "TPU_RAG_KV_PAGED",
     "TPU_RAG_KV_BLOCK_SIZE", "TPU_RAG_KV_POOL_BLOCKS", "TPU_RAG_INTERLEAVE_PREFILL",
     "TPU_RAG_PREFILL_CHUNK_TOKENS", "TPU_RAG_WINDOW_TOKEN_BUDGET", "TPU_RAG_DO_SAMPLE",
@@ -856,6 +937,7 @@ def _int(env: dict, key: str, minimum: int, note: str = "") -> Optional[int]:
 @dataclass(frozen=True)
 class AppConfig:
     dtypes: DTypePolicy = field(default_factory=DTypePolicy)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     model: LlamaConfig = field(default_factory=LlamaConfig.llama_3_1_8b)
     encoder: EncoderConfig = field(default_factory=EncoderConfig.bge_m3)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
@@ -877,8 +959,8 @@ class AppConfig:
         ``AppConfig.from_env`` for the ported fields; see the module
         docstring for the keys it refuses or ignores)."""
         env = dict(os.environ if env is None else env)
-        for key, (turns_on, item) in UNPORTED_KEYS.items():
-            if key in env and turns_on(env[key]):
+        for key, item in UNPORTED_KEYS.items():
+            if key in env:
                 raise ValueError(f"{key}={env[key]!r} turns on a feature the PyTorch port does not "
                                  f"have yet: ROADMAP.md {item}")
         ignored = sorted(k for k in env if k.startswith("TPU_RAG_") and k not in PORTED_KEYS)
@@ -900,6 +982,10 @@ class AppConfig:
             server = rep(server, pdf_dir=env["TPU_RAG_PDF_DIR"])
         if "TPU_RAG_PORT" in env:
             server = rep(server, port=int(env["TPU_RAG_PORT"]))
+        mesh = cfg.mesh
+        if "TPU_RAG_MESH" in env:
+            # e.g. "dp=2,tp=4" or "tp=8"
+            mesh = parse_mesh(env["TPU_RAG_MESH"], mesh)
         sampling = cfg.sampling
         if "TPU_RAG_MAX_NEW_TOKENS" in env:
             sampling = rep(sampling, max_new_tokens=int(env["TPU_RAG_MAX_NEW_TOKENS"]))
@@ -993,6 +1079,7 @@ class AppConfig:
             engine = rep(engine, pool_role=role)
         engine.validate_interleave()  # cross-field rules, with the env applied
         engine.validate_pool_role()
+        engine.validate_mesh(_mesh_devices(mesh))
         resilience = cfg.resilience
         for key, name, minimum, cast in RESILIENCE_KEYS:
             if key in env:
@@ -1039,7 +1126,7 @@ class AppConfig:
             if key in env:
                 router = rep(router, **{name: cast(env[key])})
         router.validate()
-        return rep(cfg, server=server, sampling=sampling, engine=engine, resilience=resilience,
+        return rep(cfg, mesh=mesh, server=server, sampling=sampling, engine=engine, resilience=resilience,
                    lookahead=lookahead, flight=flight, router=router, slo=SloConfig.from_env(env),
                    tenants=TenantConfig.from_env(env), shadow=ShadowConfig.from_env(env))
 

@@ -1,6 +1,7 @@
-"""Device resolution for the port (tp=1, one card).
+"""Device resolution for the port.
 
-Every entry point takes a ``device`` argument. ``None`` means the card: with
+Every entry point takes a ``device`` argument (on a mesh, each rank's device
+comes from ``core.mesh.rank_device``). ``None`` means the card: with
 no CUDA device it raises rather than carry on quietly on the CPU. Only an
 explicit ``"cpu"`` runs there, as the parity tests do.
 

@@ -13,6 +13,10 @@ every request in a batch shares one call. The metrics hooks
 (``wait_histogram``, ``join_timeout_counter``) are settable attributes;
 ``RagService`` attaches its registry's ``rag_coalesce_wait_seconds`` children
 and ``rag_scheduler_join_timeouts_total``.
+
+On a mesh both run on rank 0 only: a formed batch is one ``generate``
+call, which reaches the followers as one command per sub-batch of
+``max_batch_size`` (``engine/engine.py``, ``parallel/commands.py``).
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 """Batched embedding runner over the bge-m3 encoder, counterpart of
 ``rag_llm_k8s_tpu/engine/encoder.py``: right-padded, mask-aware batches in
-length buckets; one host fetch per ``encode`` call."""
+length buckets; one host fetch per ``encode`` call. On a mesh it runs on
+rank 0 alone: the JAX package keeps the encoder replicated on every device,
+so computing it once gives the same vectors; ``mesh`` is kept for that
+reading only."""
 
 from __future__ import annotations
 
@@ -26,10 +29,12 @@ class EncoderRunner:
         length_buckets: Sequence[int] = (64, 128, 256, 512, 1024, 1536, 2048, 3072, 4096, 8192),
         max_batch: int = 32,
         eos_id: Optional[int] = None,
+        mesh=None,
     ):
         self.config = config
         self.model = model
         self.device = resolve_device(device)
+        self.mesh = mesh
         # sequences clamped to the largest bucket keep a trailing EOS
         self.eos_id = eos_id
         self.length_buckets = tuple(

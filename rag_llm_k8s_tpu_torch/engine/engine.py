@@ -46,6 +46,18 @@ duration over decode steps, prefill included: an estimate, as in JAX), and
 the compile counters, which here read the process's kernel-library builds
 and loads (``ops._build.COMPILES``).
 
+On a mesh (``mesh``, a ``core.mesh.MeshContext`` of more than one rank;
+the JAX engine's ``mesh=``) the model is this rank's shard
+(``parallel.sharding``) and every rank runs the same device program: rank
+0 sends each one as a command (``parallel/commands.py``) before running it,
+under one lock, and the followers run ``run_command``. A command carries
+the prompt the program runs on (the assembled one for ``generate_rag``,
+fetched once), the token budget, the speculation switch and the sampler's
+generator state, so every rank draws the same token from the same gathered
+logits, and the per-step ``done`` check reads the same values everywhere.
+The rest of a call (trimming, stats, the goodput window) is rank 0's. A
+tp-sharded model keeps the unfused layout (JAX ``maybe_fuse_params``).
+
 ``score_exact`` is the shadow auditor's exact path (``obs/shadow.py``):
 one teacher-forced chunked forward over a delivered request's prompt and
 stream through ``chunk_prefill_attention`` (``_q8`` under int8 KV), each
@@ -81,6 +93,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.obs import flight, goodput, metrics
 from rag_llm_k8s_tpu_torch.ops import _build
+from rag_llm_k8s_tpu_torch.parallel.commands import CommandStream
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.engine.sampling import (
     NEG_INF,
@@ -131,9 +144,13 @@ def serving_model(model: LlamaModel, engine_config: EngineConfig) -> LlamaModel:
     ``maybe_fuse_params`` then ``maybe_quantize_params``): projections fused
     in place when ``fuse_matmuls``, then an int8 copy when ``weight_quant ==
     "int8"`` (a quantized model passes through; the caller's bf16 model is
-    left as it is)."""
+    left as it is). A tp-sharded model stays unfused, and a fused one is
+    refused: its shards would not be the fused weight's."""
     engine_config.validate_quant()
-    if engine_config.fuse_matmuls:
+    if getattr(model, "layout", None) is not None:
+        if model.fused:
+            raise ValueError("a fused q|k|v / gate|up model cannot serve over tp: load the unfused layout")
+    elif engine_config.fuse_matmuls:
         fuse_projections_(model)
     return quantize_llama(model) if engine_config.weight_quant == "int8" else model
 
@@ -220,6 +237,7 @@ class InferenceEngine:
         dtypes: DTypePolicy = DTypePolicy(),
         device: DeviceLike = None,
         pad_id: int = 0,
+        mesh=None,
     ):
         if engine_config.speculative not in ("off", "prompt_lookup", "auto"):
             raise ValueError(
@@ -232,11 +250,24 @@ class InferenceEngine:
         self.engine_config = engine_config
         self.dtypes = dtypes
         self.pad_id = pad_id
+        model_mesh = getattr(model, "mesh", None)
+        if mesh is not None and model_mesh is not mesh and mesh.world > 1:
+            raise ValueError("InferenceEngine(mesh=...): the model must be this rank's shard on that mesh")
+        self.mesh = model_mesh if mesh is None else mesh
+        if self.mesh is not None:
+            engine_config.validate_mesh(self.mesh.world)
         self.model = serving_model(model, engine_config)
         self._spec_ema: Optional[float] = None
         self._spec_skips = 0
         self._lock = threading.Lock()
-        self._run_lock = threading.Lock()
+        # rank 0 of a mesh sends each device program as a command before it
+        # runs it, both under the stream's lock (parallel/commands.py)
+        self.commands: Optional[CommandStream] = None
+        if self.mesh is not None and self.mesh.world > 1 and self.mesh.leader:
+            self.commands = CommandStream(self.mesh)
+            self._run_lock = self.commands.lock
+        else:
+            self._run_lock = threading.Lock()
         self._rng_counter = 0
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self.stats = EngineStats()
@@ -379,10 +410,10 @@ class InferenceEngine:
     ) -> np.ndarray:
         """Prefill (single-shot or chunked) then the KV-cached decode loop;
         returns ``[B, max_new]`` token ids (EOS-padded after a row ends)."""
-        cfg, model, dev = self.config, self.model, self.device
+        model, dev = self.model, self.device
         B = tokens.shape[0]
         T = _cache_len(S + max_new)
-        cache = make_kv_cache(cfg, B, T, self.dtypes.compute_dtype, dev, self.engine_config.kv_quant)
+        cache = self._new_cache(T, B)
         kv_start, real_len, positions = self._prefill_inputs(pad_mask)
 
         def full(n: int) -> torch.Tensor:
@@ -447,7 +478,7 @@ class InferenceEngine:
         # k extra slots: the LAST verify can start at slot S + max_new - 2
         # and still writes k + 1 slots
         T = _cache_len(S + max_new + k)
-        cache = make_kv_cache(cfg, 1, T, self.dtypes.compute_dtype, dev, self.engine_config.kv_quant)
+        cache = self._new_cache(T)
         kv_start, real_len, positions = self._prefill_inputs(pad_mask)
         logits = model(
             tokens, positions, cache, kv_start, torch.full((1,), S, device=dev), 0,
@@ -516,6 +547,43 @@ class InferenceEngine:
             e += m_eff + 1
             iters += 1
         return out[None, :max_new], iters
+
+    def _device_run(
+        self, tokens: torch.Tensor, pad_mask: torch.Tensor, S: int, max_new: int, chunk: Optional[int],
+        spec: bool, gen: torch.Generator,
+    ) -> Tuple[np.ndarray, int]:
+        """One generate's device program: ``(token ids [B, max_new], verify
+        forwards)``. The caller holds the run lock; on a mesh's rank 0 the
+        command goes to the followers first."""
+
+        def run():
+            if spec:
+                return self._run_spec(tokens, pad_mask, S, max_new, gen)
+            return self._run_vanilla(tokens, pad_mask, S, max_new, chunk, gen), 0
+
+        if self.commands is None:
+            return run()
+        return self.commands.call("run", run, tokens=tokens.cpu().numpy(), pad_mask=pad_mask.cpu().numpy(), S=S,
+                                  max_new=max_new, chunk=chunk, spec=spec, gen_state=gen.get_state())
+
+    @torch.inference_mode()
+    def run_command(self, name: str, payload: Dict) -> None:
+        """A follower's side of one command from rank 0: the same device
+        program on this rank's shard (``parallel.commands.serve_commands``)."""
+        dev = self.device
+        if name == "run":
+            gen = torch.Generator(device=dev)
+            gen.set_state(payload["gen_state"])
+            tokens = torch.from_numpy(payload["tokens"]).to(dev)
+            mask = torch.from_numpy(payload["pad_mask"]).to(dev)
+            with self._run_lock:
+                self._device_run(tokens, mask, payload["S"], payload["max_new"], payload["chunk"],
+                                 payload["spec"], gen)
+        elif name == "score":
+            with self._run_lock:
+                self._score_device(*(payload[k] for k in ("tokens", "mask", "nxt", "chunk")))
+        else:
+            raise ValueError(f"unknown engine command {name!r}")
 
     # ------------------------------------------------------------------
     # host-side API
@@ -593,12 +661,8 @@ class InferenceEngine:
         mask_t = torch.from_numpy(pad_mask).to(self.device)
         with self._run_lock:
             spec = self._spec_applicable(len(prompts), chunk)
-            iters = 0
             t_call = time.perf_counter()
-            if spec:
-                out, iters = self._run_spec(tok_t, mask_t, S, max_new, gen)
-            else:
-                out = self._run_vanilla(tok_t, mask_t, S, max_new, chunk, gen)
+            out, iters = self._device_run(tok_t, mask_t, S, max_new, chunk, spec, gen)
             call_s = time.perf_counter() - t_call
         results = [self._trim(out[i]) for i in range(len(prompts))]
         spec_accept = None
@@ -665,12 +729,8 @@ class InferenceEngine:
         )
         with self._run_lock:
             spec = self._spec_applicable(1, None)
-            iters = 0
             t_call = time.perf_counter()
-            if spec:
-                out, iters = self._run_spec(tokens, pad_mask, S, max_new, gen)
-            else:
-                out = self._run_vanilla(tokens, pad_mask, S, max_new, None, gen)
+            out, iters = self._device_run(tokens, pad_mask, S, max_new, None, spec, gen)
             call_s = time.perf_counter() - t_call
         row = self._trim(out[0])
         spec_accept = None
@@ -723,7 +783,9 @@ class InferenceEngine:
 
         Safe beside a serving call on another thread: the scorer owns its
         cache and its buffers, takes no engine lock, and records no stats
-        and no goodput window (JAX records none either)."""
+        and no goodput window (JAX records none either). On a mesh it is a
+        command like any generate, and takes the run lock: the auditor's
+        thread never issues collectives beside a request's."""
         x = [int(t) for t in prompt_ids] + [int(t) for t in emitted_ids]
         W = len(emitted_ids)
         if W == 0 or len(x) < 2:
@@ -740,7 +802,24 @@ class InferenceEngine:
         mask[0, off:] = 1
         nxt = np.zeros((1, S), np.int64)
         nxt[0, : S - 1] = tokens[0, 1:]
+        if self.commands is None:
+            host = self._score_device(tokens, mask, nxt, chunk)
+        else:
+            host = self.commands.call("score", lambda: self._score_device(tokens, mask, nxt, chunk),
+                                      tokens=tokens, mask=mask, nxt=nxt, chunk=chunk)
+        lo = off + len(x) - W - 1  # the slot whose logits predict emitted[0]
+        sl = slice(lo, lo + W)
+        return {
+            "argmax": host[sl, 0].astype(np.int64),
+            "max_logit": host[sl, 1].astype(np.float64),
+            "chosen_logit": host[sl, 2].astype(np.float64),
+        }
+
+    def _score_device(self, tokens: np.ndarray, mask: np.ndarray, nxt: np.ndarray, chunk: int) -> np.ndarray:
+        """``score_exact``'s device program: ``[S, 3]`` (argmax, max logit,
+        next token's logit) at every position."""
         dev = self.device
+        S = tokens.shape[1]
         tokens_t, mask_t, nxt_t = (torch.from_numpy(a).to(dev) for a in (tokens, mask, nxt))
         cache = self._new_cache(_cache_len(S))
         kv_start, _, positions = self._prefill_inputs(mask_t)
@@ -753,14 +832,7 @@ class InferenceEngine:
             row = logits[0].float()  # [chunk, V]
             chosen = row.gather(-1, nxt_t[0, wi : wi + chunk, None])[:, 0]
             stats[wi : wi + chunk] = torch.stack([row.argmax(dim=-1).float(), row.amax(dim=-1), chosen], dim=-1)
-        host = stats.cpu().numpy()
-        lo = off + len(x) - W - 1  # the slot whose logits predict emitted[0]
-        sl = slice(lo, lo + W)
-        return {
-            "argmax": host[sl, 0].astype(np.int64),
-            "max_logit": host[sl, 1].astype(np.float64),
-            "chosen_logit": host[sl, 2].astype(np.float64),
-        }
+        return stats.cpu().numpy()
 
     # ------------------------------------------------------------------
     # KV prefix cache (engine/prefix_cache.py drives these)
@@ -773,9 +845,10 @@ class InferenceEngine:
         k_scale, v_scale)`` under int8 KV."""
         return (cache.k, cache.v) + ((cache.k_scale, cache.v_scale) if cache.quantized else ())
 
-    def _new_cache(self, T: int):
+    def _new_cache(self, T: int, B: int = 1):
+        """A fresh ``[L, B, K, T, hd]`` cache at this rank's kv heads."""
         return make_kv_cache(
-            self.config, 1, T, self.dtypes.compute_dtype, self.device, self.engine_config.kv_quant
+            getattr(self.model, "local", self.config), B, T, self.dtypes.compute_dtype, self.device, self.engine_config.kv_quant
         )
 
     def prefix_buffer_zero(self) -> Tuple[torch.Tensor, ...]:

@@ -9,6 +9,10 @@ keeps one module per layer and PyTorch's ``[out, in]`` layout. A tree from
 ``quantize_llama_params`` (``kernel_q``/``qscale`` per projection,
 ``lm_head_q``/``lm_head_scale`` or ``embedding_q``/``embedding_scale``) maps
 onto the quantized layout: int8 ``weight [out, in]`` and fp32 ``scale [out]``.
+
+``init_random_sharded`` makes a rank's shard of ``init_random_``'s model on
+a mesh, drawing the same values one whole tensor at a time and keeping its
+slice (the streaming put), so no rank holds the whole model.
 """
 
 from __future__ import annotations
@@ -107,10 +111,17 @@ def _load(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)}, unexpected {sorted(extra)}")
     for name, arr in sd.items():
         p = params[name]
-        t = torch.tensor(np.asarray(arr))
+        t = arr.detach().cpu() if isinstance(arr, torch.Tensor) else torch.tensor(np.asarray(arr))
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(p.shape)}")
         p.copy_(t.to(dtype=p.dtype))
+
+
+def load_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Module:
+    """Copy a port-named state dict of numpy arrays or tensors into
+    ``model``, every parameter exactly once (shapes must match)."""
+    _load(model, sd)
+    return model
 
 
 def load_llama(model: LlamaModel, flat: Mapping[str, np.ndarray]) -> LlamaModel:
@@ -129,19 +140,65 @@ def load_encoder(model: BgeM3Encoder, flat: Mapping[str, np.ndarray]) -> BgeM3En
     return model
 
 
+def _init_param_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
+    leaf = name.rsplit(".", 1)[-1]
+    if "norm" in name or "_ln" in name:
+        p.fill_(1.0 if leaf == "weight" else 0.0)
+    elif leaf == "bias":
+        p.zero_()
+    else:
+        p.normal_(0.0, INIT_STD, generator=generator)
+
+
 @torch.no_grad()
 def init_random_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Seeded random weights in place, for either model at any width:
     norm weights 1 and biases 0, every other weight N(0, 0.02). The
     generator must live on the model's device."""
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if "norm" in name or "_ln" in name:
-            p.fill_(1.0 if leaf == "weight" else 0.0)
-        elif leaf == "bias":
-            p.zero_()
-        else:
-            p.normal_(0.0, INIT_STD, generator=generator)
+        _init_param_(name, p, generator)
+    return model
+
+
+def _unfused(name: str, t: torch.Tensor, config) -> list:
+    """A parameter of the fused layout as ``(name, tensor)`` parts of the
+    unfused one (``fuse_projections_`` in reverse)."""
+    if name.endswith("attn.wqkv.weight"):
+        H, K, hd = config.num_heads, config.num_kv_heads, config.head_dim
+        base = name[: -len("wqkv.weight")]
+        return list(zip((base + "wq.weight", base + "wk.weight", base + "wv.weight"),
+                        t.split([H * hd, K * hd, K * hd], dim=0)))
+    if name.endswith("mlp.w_gateup.weight"):
+        base = name[: -len("w_gateup.weight")]
+        return list(zip((base + "w_gate.weight", base + "w_up.weight"), t.chunk(2, dim=0)))
+    return [(name, t)]
+
+
+@torch.no_grad()
+def init_random_sharded(config, dtypes, mesh, generator: torch.Generator, fused_source: bool = False) -> LlamaModel:
+    """This rank's shard (unfused) of ``init_random_(build_llama(config,
+    dtypes, fused=fused_source), generator)``: the same draws in the same
+    order, each whole tensor drawn on ``mesh.device``, split when the
+    source layout is fused, sliced by the streaming put
+    (``parallel.sharding.make_streaming_put``) and dropped."""
+    from rag_llm_k8s_tpu_torch.models.llama import build_llama
+    from rag_llm_k8s_tpu_torch.parallel.sharding import make_streaming_put
+
+    with torch.device("meta"):
+        full = LlamaModel(config, dtypes, fused=fused_source)
+    model = build_llama(config, dtypes, mesh.device, mesh=mesh)
+    params = dict(model.named_parameters())
+    put = make_streaming_put(mesh, config) if mesh.tp > 1 else (lambda n, t: t)
+    done = set()
+    for name, p in full.named_parameters():
+        t = torch.empty(p.shape, dtype=p.dtype, device=mesh.device)
+        _init_param_(name, t, generator)
+        for part_name, part in _unfused(name, t, config):
+            params[part_name].copy_(put(part_name, part))
+            done.add(part_name)
+        del t
+    if done != set(params):
+        raise RuntimeError(f"init_random_sharded left {sorted(set(params) - done)[:3]} unfilled")
     return model
 
 

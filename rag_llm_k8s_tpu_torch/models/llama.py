@@ -33,6 +33,21 @@
   each written K/V vector as int8 plus one fp32 scale
   (``ops.attention.quantize_kv``). Prefill at slot 0 still attends over the
   fresh K/V in the compute dtype: quantization touches only the cache.
+- Tensor and sequence parallelism (``mesh``, a ``core.mesh.MeshContext``;
+  the JAX package's ``shard_map`` paths): each rank builds the modules at
+  its slice's shapes (``parallel.sharding.tp_layout``). wq, wk, wv, w_gate
+  and w_up are column-parallel (this rank's output features); wo and
+  w_down row-parallel (its input features), followed by an all-reduce over
+  tp in the compute dtype; the embedding is vocab-parallel (a masked lookup
+  plus an all-reduce) and the head vocab-sharded, its logits all-gathered,
+  so sampling reads the whole vocabulary on every rank. The attention
+  kernels run per rank on the local heads (H/tp query heads over K/tp kv
+  heads, and the cache holds K/tp heads); head counts that do not tile tp
+  leave attention replicated. With ``sp > 1`` a single-shot prefill whose
+  ``S`` divides over sp attends through ring attention
+  (``parallel/ring_attention.py``): every sp rank holds the whole q/k/v,
+  takes its ``S/sp`` slice, runs the ring and all-gathers the output. dp
+  replicates the computation.
 
 Linear weights use PyTorch's ``[out, in]`` layout; ``models/convert.py``
 maps the JAX package's ``[in, out]`` kernels onto them.
@@ -64,6 +79,8 @@ from rag_llm_k8s_tpu_torch.ops.attention import (
     rope_rerotate,
     rope_rerotate_q8,
 )
+from rag_llm_k8s_tpu_torch.parallel.ring_attention import ring_attention_sharded
+from rag_llm_k8s_tpu_torch.parallel.sharding import tp_layout
 
 
 @dataclass
@@ -309,10 +326,15 @@ def _linear(i: int, o: int, dtypes: DTypePolicy, quantized: bool = False) -> nn.
 
 
 class Attention(nn.Module):
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False):
+    """``config`` is this rank's slice (``tp_layout(...).local``); with
+    ``sharded`` the output of wo is a partial sum, all-reduced over tp."""
+
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False,
+                 mesh=None, sharded: bool = False):
         super().__init__()
         c = config
         self.config, self.dtypes, self.fused = c, dtypes, fused
+        self.mesh, self.sharded = mesh, sharded
         H, K, hd, D = c.num_heads, c.num_kv_heads, c.head_dim, c.hidden_size
         if fused:
             self.wqkv = _linear(D, (H + 2 * K) * hd, dtypes, quantized)
@@ -342,7 +364,7 @@ class Attention(nn.Module):
         if block_tables is not None:
             out = self._attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index,
                                      chunked, block_tables)
-            return self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd))
+            return self._out(out, B, S)
         if row_frontier:
             # continuous decode over the dense cache: each row writes at its
             # own frontier, then attends over its own [kv_start, kv_len)
@@ -352,7 +374,7 @@ class Attention(nn.Module):
                                           layer)
             else:
                 out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
-            return self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd))
+            return self._out(out, B, S)
         T = cache.k.shape[3]
         if write_index < 0 or write_index + S > T:
             raise ValueError(
@@ -381,10 +403,24 @@ class Attention(nn.Module):
         else:
             if write_index != 0:
                 raise ValueError("multi-token calls at write_index > 0 must pass chunked=True")
-            # single-shot prefill: the fresh K/V are the populated prefix
-            out = flash_attention(q, k, v, kv_start, kv_len, causal=True)
-        out = out.to(self.dtypes.compute_dtype).reshape(B, S, H * hd)
-        return self.wo(out)
+            mesh = self.mesh
+            if mesh is not None and mesh.sp > 1 and S % mesh.sp == 0:
+                # sequence parallelism: the prefill's attention as the ring
+                # over sp (JAX _attend_ring)
+                t = torch.arange(S, device=q.device)
+                valid = (t[None, :] >= kv_start[:, None]) & (t[None, :] < kv_len[:, None])
+                out = ring_attention_sharded(mesh, q, k, v, causal=True, kv_valid=valid).to(q.dtype)
+            else:
+                # single-shot prefill: the fresh K/V are the populated prefix
+                out = flash_attention(q, k, v, kv_start, kv_len, causal=True)
+        return self._out(out, B, S)
+
+    def _out(self, out: torch.Tensor, B: int, S: int) -> torch.Tensor:
+        """wo over the attention output; a row-parallel partial sum is
+        all-reduced over tp in the compute dtype."""
+        c = self.config
+        y = self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, c.num_heads * c.head_dim))
+        return self.mesh.all_reduce(y, "tp") if self.sharded else y
 
     @staticmethod
     def _attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index, chunked, block_tables):
@@ -404,10 +440,15 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False):
+    """``config`` is this rank's slice; with ``sharded`` the output of
+    w_down is a partial sum, all-reduced over tp."""
+
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False,
+                 mesh=None, sharded: bool = False):
         super().__init__()
         D, I = config.hidden_size, config.intermediate_size
         self.fused = fused
+        self.mesh, self.sharded = mesh, sharded
         if fused:
             self.w_gateup = _linear(D, 2 * I, dtypes, quantized)
         else:
@@ -420,16 +461,18 @@ class MLP(nn.Module):
             gate, up = self.w_gateup(x).chunk(2, dim=-1)
         else:
             gate, up = self.w_gate(x), self.w_up(x)
-        return self.w_down(F.silu(gate) * up)
+        y = self.w_down(F.silu(gate) * up)
+        return self.mesh.all_reduce(y, "tp") if self.sharded else y
 
 
 class Block(nn.Module):
-    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False):
+    def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False,
+                 mesh=None, layout=None):
         super().__init__()
         self.input_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
-        self.attn = Attention(config, dtypes, fused, quantized)
+        self.attn = Attention(config, dtypes, fused, quantized, mesh, layout is not None and layout.attn)
         self.post_attn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtypes)
-        self.mlp = MLP(config, dtypes, fused, quantized)
+        self.mlp = MLP(config, dtypes, fused, quantized, mesh, layout is not None and layout.mlp)
 
     def forward(self, h, cache, layer, kv_start, kv_len, cos, sin, write_index, chunked,
                 block_tables=None, row_frontier=False):
@@ -457,24 +500,52 @@ class LlamaModel(nn.Module):
     head projection accumulates in fp32 (``head_logits``). ``quantized``
     builds the int8 layout (``QuantLinear`` projections and head; a tied
     embedding becomes a ``QuantEmbedding``); ``quantize_llama`` fills it.
+
+    ``mesh`` (a ``core.mesh.MeshContext``) builds this rank's shard:
+    ``self.local`` is the config at the slice's shapes (its heads, kv
+    heads, MLP width and vocabulary), ``self.layout`` what is sharded; the
+    logits come back whole (``[..., V]``) on every rank.
     """
 
     def __init__(
         self, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), fused: bool = False,
-        quantized: bool = False,
+        quantized: bool = False, mesh=None,
     ):
         super().__init__()
         c = config
         self.config, self.dtypes, self.fused, self.quantized = c, dtypes, fused, quantized
+        self.mesh = mesh
+        tp = mesh.tp if mesh is not None else 1
+        self.layout = tp_layout(c, tp) if tp > 1 else None
+        lc = self.layout.local if self.layout is not None else c
+        self.local = lc
         if quantized and c.tie_word_embeddings:
-            self.embed = QuantEmbedding(c.vocab_size, c.hidden_size, dtypes.compute_dtype)
+            self.embed = QuantEmbedding(lc.vocab_size, c.hidden_size, dtypes.compute_dtype)
         else:
-            self.embed = nn.Embedding(c.vocab_size, c.hidden_size, dtype=dtypes.param_dtype)
-        self.layers = nn.ModuleList(Block(c, dtypes, fused, quantized) for _ in range(c.num_layers))
+            self.embed = nn.Embedding(lc.vocab_size, c.hidden_size, dtype=dtypes.param_dtype)
+        self.layers = nn.ModuleList(Block(lc, dtypes, fused, quantized, mesh, self.layout)
+                                    for _ in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps, dtypes)
         if not c.tie_word_embeddings:
-            self.lm_head = _linear(c.hidden_size, c.vocab_size, dtypes, quantized)
+            self.lm_head = _linear(c.hidden_size, lc.vocab_size, dtypes, quantized)
         self._inv_freqs: Optional[torch.Tensor] = None
+
+    @property
+    def vocab_sharded(self) -> bool:
+        return self.layout is not None and self.layout.vocab
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings; vocab-parallel, a masked lookup of this
+        rank's rows plus an all-reduce over tp (one term per token is not
+        zero, so the sum is exact)."""
+        if not self.vocab_sharded:
+            return self.embed(tokens)
+        V = self.local.vocab_size
+        idx = tokens - self.mesh.axis_index("tp") * V
+        own = (idx >= 0) & (idx < V)
+        e = self.embed(idx.clamp(0, V - 1))
+        e = torch.where(own[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+        return self.mesh.all_reduce(e.contiguous(), "tp")
 
     def forward(
         self,
@@ -491,7 +562,7 @@ class LlamaModel(nn.Module):
         row_frontier: bool = False,
     ) -> torch.Tensor:
         c, dt = self.config, self.dtypes
-        h = self.embed(tokens).to(dt.compute_dtype)
+        h = self._embed(tokens).to(dt.compute_dtype)
         if self._inv_freqs is None or self._inv_freqs.device != h.device:
             self._inv_freqs = rope_frequencies(c, h.device)
         cos, sin = rope_cos_sin(positions, self._inv_freqs)
@@ -512,17 +583,20 @@ class LlamaModel(nn.Module):
             # only the last position is sampled: skip the [B, S, V] projection
             h = h[:, -1:, :]
         head = self.embed if c.tie_word_embeddings else self.lm_head
-        return head_logits(h, head.weight, dt.logits_dtype, head.scale if self.quantized else None)
+        logits = head_logits(h, head.weight, dt.logits_dtype, head.scale if self.quantized else None)
+        # vocab-sharded head: every rank gets the whole vocabulary's logits
+        return self.mesh.all_gather(logits, dim=-1, axis="tp") if self.vocab_sharded else logits
 
 
 def build_llama(
     config: LlamaConfig, dtypes: DTypePolicy, device: torch.device, fused: bool = False,
-    quantized: bool = False,
+    quantized: bool = False, mesh=None,
 ) -> LlamaModel:
     """An uninitialized model on ``device`` (no host-side init pass); fill it
-    with ``convert.load_llama`` or ``convert.init_random_`` (bf16 layout)."""
+    with ``convert.load_llama`` or ``convert.init_random_`` (bf16 layout).
+    With ``mesh``, this rank's shard (``parallel.sharding``)."""
     with torch.device("meta"):
-        model = LlamaModel(config, dtypes, fused=fused, quantized=quantized)
+        model = LlamaModel(config, dtypes, fused=fused, quantized=quantized, mesh=mesh)
     return model.to_empty(device=device).requires_grad_(False).eval()
 
 
@@ -551,6 +625,9 @@ def fuse_projections_(model: LlamaModel) -> LlamaModel:
     the source weights are released). bf16 or int8."""
     if model.fused:
         return model
+    if model.layout is not None:
+        raise ValueError("fuse_projections_: a tp-sharded model keeps the unfused layout (its column shards "
+                         "of q|k|v and gate|up would not concatenate into the fused weight's shard)")
     for blk in model.layers:
         a, m = blk.attn, blk.mlp
         a.wqkv = _concat_linears(a.wq, a.wk, a.wv)
@@ -563,13 +640,18 @@ def fuse_projections_(model: LlamaModel) -> LlamaModel:
     return model
 
 
-def quantize_weight(w: torch.Tensor):
+def quantize_weight(w: torch.Tensor, amax_reduce=None):
     """Symmetric per-output-channel int8 of ``w [out, in]`` (JAX
     ``_quantize_leaf``, as compiled: see ``ops.attention.INV_127``):
     ``scale = max(amax over in / 127, 1e-8)``, ``w / scale`` rounded half
-    to even. Returns ``(int8 [out, in], fp32 [out])``."""
+    to even. Returns ``(int8 [out, in], fp32 [out])``. ``amax_reduce``
+    completes each row's amax over the other ranks' slices of its input
+    features (a row-parallel weight on a tp mesh)."""
     wf = w.float()
-    scale = (wf.abs().amax(dim=1) * INV_127).clamp_min(1e-8)
+    amax = wf.abs().amax(dim=1)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    scale = (amax * INV_127).clamp_min(1e-8)
     return torch.round(wf / scale[:, None]).to(torch.int8), scale
 
 
@@ -586,17 +668,24 @@ def quantize_llama(model: LlamaModel) -> LlamaModel:
         return model
     c = model.config
     with torch.device("meta"):
-        qm = LlamaModel(c, model.dtypes, fused=model.fused, quantized=True)
+        qm = LlamaModel(c, model.dtypes, fused=model.fused, quantized=True, mesh=model.mesh)
 
-    def fill(dst: nn.Module, weight: torch.Tensor) -> None:
-        w, s = quantize_weight(weight)
+    def fill(dst: nn.Module, weight: torch.Tensor, amax_reduce=None) -> None:
+        w, s = quantize_weight(weight, amax_reduce)
         dst.weight, dst.scale = _param(w), _param(s)
+
+    def row_max(amax: torch.Tensor) -> torch.Tensor:
+        return model.mesh.all_reduce(amax.contiguous(), "tp", op="max")
 
     for qb, sb in zip(qm.layers, model.layers):
         qb.input_norm, qb.post_attn_norm = sb.input_norm, sb.post_attn_norm
         for group in ("attn", "mlp"):
+            src = getattr(sb, group)
             for name, lin in getattr(qb, group).named_children():
-                fill(lin, getattr(getattr(sb, group), name).weight)
+                # a row-parallel weight's rows are split over tp: their
+                # per-output-channel amax is the max over every rank's slice
+                row_parallel = src.sharded and name in ("wo", "w_down")
+                fill(lin, getattr(src, name).weight, row_max if row_parallel else None)
     qm.final_norm = model.final_norm
     if c.tie_word_embeddings:
         fill(qm.embed, model.embed.weight)

@@ -28,6 +28,12 @@ The model comes back unfused; ``InferenceEngine`` fuses q|k|v and gate|up
 weights and fp32 scales equal the JAX loader's bit for bit, and bf16
 projection weights never exist on the card. (They differ from
 ``models.llama.quantize_weight``, which copies the compiled JAX quantizer.)
+
+On a mesh (``mesh``) each tensor goes through the streaming put
+(``parallel.sharding.make_streaming_put``): read, quantized when int8
+(whole, so a row-parallel weight's scales are its whole rows'), sliced to
+this rank's shard and cast on the host, then copied to the card, so no
+rank holds the whole model on its device.
 """
 
 from __future__ import annotations
@@ -142,8 +148,10 @@ def convert_hf_state_dict(
     dtypes: DTypePolicy = DTypePolicy(),
     device: DeviceLike = None,
     quant: str = "bf16",
+    mesh=None,
 ) -> LlamaModel:
-    """A flat HF Llama state dict → an unfused ``LlamaModel`` on ``device``.
+    """A flat HF Llama state dict → an unfused ``LlamaModel`` on ``device``
+    (this rank's shard of it with ``mesh``).
 
     ``state_dict`` is any mapping with ``keys()`` and ``__getitem__`` whose
     values are torch tensors or numpy arrays: a plain dict, or
@@ -167,20 +175,26 @@ def convert_hf_state_dict(
             expected.add(f"model.layers.{i}.{suffix}")
     _check_names(set(state_dict.keys()), expected, tied)
 
-    model = build_llama(config, dtypes, dev, fused=False, quantized=quant == "int8")
+    int8 = quant == "int8"
+    model = build_llama(config, dtypes, dev, fused=False, quantized=int8, mesh=mesh)
     fill = _Filler(model)
+    if mesh is not None and mesh.tp > 1:
+        from rag_llm_k8s_tpu_torch.parallel.sharding import make_streaming_put
+
+        put = make_streaming_put(mesh, config, dtypes.param_dtype, quantized=int8)
+    else:
+        put = lambda name, t: t  # noqa: E731
 
     def place(module: str, hf_name: str, quantized: bool) -> None:
         w = _as_tensor(state_dict[hf_name])
         if quantized:
             q, s = quantize_np(w)
             del w
-            fill.put(f"{module}.weight", q)
-            fill.put(f"{module}.scale", s)
+            for name, t in ((f"{module}.weight", q), (f"{module}.scale", s)):
+                fill.put(name, put(name, torch.from_numpy(t)))
         else:
-            fill.put(f"{module}.weight", w)
+            fill.put(f"{module}.weight", put(f"{module}.weight", w))
 
-    int8 = quant == "int8"
     for hf_name, module in _TOP_MAP.items():
         if hf_name == "lm_head.weight" and tied:
             continue
@@ -208,10 +222,12 @@ def load_safetensors_params(
     dtypes: DTypePolicy = DTypePolicy(),
     device: DeviceLike = None,
     quant: str = "bf16",
+    mesh=None,
 ) -> LlamaModel:
-    """Every ``*.safetensors`` shard under ``model_dir`` → ``LlamaModel``,
-    streamed tensor by tensor (see :func:`convert_hf_state_dict`)."""
-    return convert_hf_state_dict(LazyStateDict(_shards(model_dir)), config, dtypes, device, quant)
+    """Every ``*.safetensors`` shard under ``model_dir`` → ``LlamaModel``
+    (this rank's shard with ``mesh``), streamed tensor by tensor (see
+    :func:`convert_hf_state_dict`)."""
+    return convert_hf_state_dict(LazyStateDict(_shards(model_dir)), config, dtypes, device, quant, mesh)
 
 
 # ---------------------------------------------------------------------------

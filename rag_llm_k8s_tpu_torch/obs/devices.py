@@ -17,6 +17,12 @@ Neither read syncs the card: ``memory_stats`` reads the allocator's host
 counters and the device properties are cached. A service on the CPU (the
 tests) exports one ``device="0"`` child per family reading 0, as the JAX
 service's CPU device does, so the label sets match.
+
+On a mesh (rank 0's service, ``commands`` its command stream) the two HBM
+families report every rank's card: one child per ``(rank, device)``,
+labeled ``device`` and ``rank`` (several ranks may share one card), rank
+0's read live and each follower's from the stream's last heartbeat, which
+gathers them over the control group (``parallel/commands.py``).
 """
 
 from __future__ import annotations
@@ -56,12 +62,13 @@ def register_device_gauges(
     registry: obs_metrics.MetricsRegistry,
     prefix_bytes_fn: Optional[Callable[[], Dict[int, int]]] = None,
     device: Optional[torch.device] = None,
+    commands=None,
 ) -> int:
     """Register the per-device families on ``registry`` for the service
-    running on ``device``; returns the device count. ``prefix_bytes_fn``
+    running on ``device``; returns the children per family. ``prefix_bytes_fn``
     returns ``{device_index: bytes}`` for the prefix cache (None or empty
-    reads zeros, keeping the family present)."""
-    indices = local_devices(device)
+    reads zeros, keeping the family present). ``commands``: a mesh's
+    command stream (one HBM child per rank)."""
     use_fam = registry.labeled_gauge(
         "rag_device_hbm_bytes_in_use",
         "allocator bytes in use per device (0 on CPU/backends without "
@@ -74,9 +81,33 @@ def register_device_gauges(
         "rag_prefix_cache_device_bytes",
         "KV prefix-cache bytes resident per device",
     )
+    if commands is not None:
+        return _mesh_children(use_fam, lim_fam, commands)
+    indices = local_devices(device)
     fn = prefix_bytes_fn or (lambda: {})
     for i in indices:
         use_fam.labels_callback(lambda i=i: _memory_stat(device, i, "bytes_in_use"), device=str(i))
         lim_fam.labels_callback(lambda i=i: _memory_stat(device, i, "bytes_limit"), device=str(i))
         pc_fam.labels_callback(lambda i=i, fn=fn: float(fn().get(i, 0)), device=str(i))
     return len(indices)
+
+
+def _mesh_children(use_fam, lim_fam, commands) -> int:
+    """The HBM children over every rank of a mesh: rank 0's read live, the
+    followers' from the last heartbeat (0 before the first). The prefix
+    cache does not run on a mesh, so its family has no child."""
+    from rag_llm_k8s_tpu_torch.parallel.commands import device_stats
+
+    ctx = commands.ctx
+
+    def read(rank: int, key: str) -> float:
+        st = device_stats(ctx) if rank == 0 else commands.peer_stats.get(rank, {})
+        return float(st.get(key, 0))
+
+    cards = torch.cuda.device_count() if ctx.device.type == "cuda" else 1
+    for r in range(ctx.world):
+        # rank r runs on cuda:(r % device_count) (core.mesh.rank_device)
+        labels = dict(device=str(r % cards), rank=str(r))
+        use_fam.labels_callback(lambda r=r: read(r, "allocated"), **labels)
+        lim_fam.labels_callback(lambda r=r: read(r, "total"), **labels)
+    return ctx.world

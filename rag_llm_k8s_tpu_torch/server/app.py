@@ -12,6 +12,12 @@ framework: ``WsgiApp.test_client()`` drives it in-process, and
 ``make_server`` serves it over HTTP on a threading ``wsgiref`` server (one
 thread per request, so concurrent requests can coalesce).
 
+Over a mesh engine (``InferenceEngine(mesh=...)``) the service runs on rank
+0 alone: every engine call that reaches a collective (a generate, a fused
+generate, the shadow auditor's ``score_exact``) goes through the engine's
+command stream under one lock (``parallel/commands.py``), and ``/healthz``
+is not ready while a follower is missing (``peers_ready``).
+
 Retrieval (query embedding + kNN) goes through a ``Coalescer``, as in the
 JAX service (which has one whenever it has an encoder): concurrent queries
 form one batch of up to 8, padded to 8 rows, run as one encoder forward and
@@ -134,7 +140,7 @@ import tempfile
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs
 from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server as _wsgiref_make_server
 
@@ -261,6 +267,11 @@ class RagService:
         self.encoder_tokenizer = encoder_tokenizer
         self.store = store
         self.ready = False
+        # a mesh's followers: not ready while one is missing (server/main.py
+        # adds the processes' liveness)
+        self.peers_ready: Optional[Callable[[], bool]] = (
+            engine.commands.ready if getattr(engine, "commands", None) is not None else None
+        )
         # one registry per service: everything it and its engines report
         # lands in one scrape, never the process default
         self.metrics = obs_metrics.MetricsRegistry()
@@ -511,7 +522,8 @@ class RagService:
         self._init_goodput_metrics(reg)
         self._init_tenant_metrics(reg)
         # per-device allocator occupancy and prefix-cache residency
-        obs_devices.register_device_gauges(reg, self._prefix_bytes_by_device, self.engine.device)
+        obs_devices.register_device_gauges(reg, self._prefix_bytes_by_device, self.engine.device,
+                                           commands=getattr(self.engine, "commands", None))
         for e in self._engines().values():
             e.bind_metrics(reg)
         sched = self.scheduler
@@ -1335,6 +1347,10 @@ class RagService:
         self.retrieve_coalescer.shutdown()
         if self.scheduler is not None:
             self.scheduler.shutdown()
+        commands = getattr(self.engine, "commands", None)
+        if commands is not None:
+            # last: nothing above drives the engine any more
+            commands.stop()
         wal = self.flight_wal
         if wal is not None:
             if flight.recorder().wal is wal:
@@ -2391,7 +2407,8 @@ class WsgiApp:
         breaker_open = svc.breaker.open
         lifecycle_draining = svc.lifecycle.draining
         draining = (breaker_open and svc.ready) or lifecycle_draining
-        ready = svc.ready and not breaker_open and not lifecycle_draining
+        peers = svc.peers_ready() if svc.peers_ready is not None else True
+        ready = svc.ready and not breaker_open and not lifecycle_draining and peers
         live = bool(request.args.get("live"))
         payload = {
             "status": ("alive" if live else "ok") if (ready or live) else ("draining" if draining else "warming"),
@@ -2405,6 +2422,10 @@ class WsgiApp:
             "breaker_recent_resets": svc.breaker.recent_resets(),
             "draining": lifecycle_draining,
         }
+        mesh = getattr(svc.engine, "mesh", None)
+        if mesh is not None and mesh.world > 1:
+            payload["mesh"] = dict(mesh.shape)
+            payload["followers_ready"] = peers
         return (200 if (ready or live) else 503), payload
 
     def ep_metrics(self, request: Request):

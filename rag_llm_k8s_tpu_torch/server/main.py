@@ -45,8 +45,19 @@ spool to ``TPU_RAG_FLIGHT_SPOOL`` (default ``/tmp/tpu_rag_incidents``; at
 most ``TPU_RAG_FLIGHT_SPOOL_MAX``, one per trigger per
 ``TPU_RAG_FLIGHT_COOLDOWN_S``).
 
-Not ported yet (``ROADMAP.md`` Queue 1): the device mesh (item 10: the
-port serves one card).
+Mesh (``TPU_RAG_MESH``, default ``tp=-1``: every visible card): with more
+than one rank, ``main()`` starts ranks 1..world-1 itself (``spawn``
+processes, ``parallel/launch.py``), each on ``cuda:(r % device_count)``
+over nccl when every rank has a card of its own and gloo otherwise. Every
+rank loads only its shard through the streaming put, into a per-rank
+parameter cache keyed by the mesh's shape; rank 0 builds the service as
+above and drives the followers through the command stream
+(``parallel/commands.py``), whose heartbeat keeps them answering while the
+service is idle. ``/healthz`` is not ready while a follower is missing; a
+follower that exits makes rank 0 exit non-zero, and SIGTERM's drain ends
+the followers (``stop``) before rank 0 exits. A mesh serves the one-shot
+engine with the dense bf16 cache (``TPU_RAG_BATCHING=coalesce``); the rest
+is ``ROADMAP.md`` Queue 1 item 10b and raises at boot.
 """
 
 from __future__ import annotations
@@ -76,12 +87,50 @@ def configure_logging(env: Optional[dict] = None) -> None:
         logging.basicConfig(level=level)
 
 
-def build_service(config=None, device=None, info: Optional[dict] = None):
+# a follower's load may take longer than the groups' collective timeout:
+# the ranks meet after loading at a barrier with a timeout of its own
+LOAD_TIMEOUT_S = 1800.0
+# the command stream's heartbeat while idle: well inside the groups' timeout
+HEARTBEAT_S = 20.0
+
+
+def load_model(config, device, mesh=None, info: Optional[dict] = None):
+    """``(config, model)``: the Llama config (``config.json`` under
+    ``MODEL_PATH`` when present) and the model, or this rank's shard of it
+    on ``mesh``, through the converted-parameter cache
+    (``models.checkpoint.cache_location``: one directory per quant mode, so
+    toggling ``TPU_RAG_WEIGHT_QUANT`` swaps caches, and per mesh shape, one
+    file per rank)."""
+    from rag_llm_k8s_tpu_torch.models.checkpoint import cache_location, load_params_cached
+    from rag_llm_k8s_tpu_torch.models.llama import build_llama
+    from rag_llm_k8s_tpu_torch.models.loader import config_from_hf_json, load_safetensors_params
+
+    model_dir = config.server.model_path
+    model_cfg = config.model
+    if os.path.exists(os.path.join(model_dir, "config.json")):
+        model_cfg = config_from_hf_json(model_dir)
+        config = dataclasses.replace(config, model=model_cfg)
+    logger.info("loading Llama weights from %s", model_dir)
+    quant = config.engine.weight_quant
+    cache_dir, filename = cache_location(model_dir, quant, mesh)
+    model = load_params_cached(
+        model_dir,
+        lambda: load_safetensors_params(model_dir, model_cfg, config.dtypes, device, quant=quant, mesh=mesh),
+        abstract_params_fn=lambda: build_llama(model_cfg, config.dtypes, device, quantized=quant == "int8",
+                                               mesh=mesh),
+        cache_dir=cache_dir,
+        info=info,
+        filename=filename,
+    )
+    return config, model
+
+
+def build_service(config=None, device=None, info: Optional[dict] = None, mesh=None):
     """The ``RagService`` for ``config`` (default ``AppConfig.from_env()``)
-    on ``device`` (default: the card; with none it raises). ``info``
-    receives what the boot did: ``params_source`` (``"cache"`` or
-    ``"converted"``) and ``index_loaded_vectors`` (rows read from a
-    persisted snapshot)."""
+    on ``device`` (default: the card; with none it raises), or rank 0's
+    service over ``mesh`` (its device). ``info`` receives what the boot
+    did: ``params_source`` (``"cache"`` or ``"converted"``) and
+    ``index_loaded_vectors`` (rows read from a persisted snapshot)."""
     import torch
 
     from rag_llm_k8s_tpu_torch.core.config import AppConfig
@@ -90,44 +139,25 @@ def build_service(config=None, device=None, info: Optional[dict] = None):
     from rag_llm_k8s_tpu_torch.engine.encoder import EncoderRunner
     from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
     from rag_llm_k8s_tpu_torch.index.store import VectorStore
-    from rag_llm_k8s_tpu_torch.models.checkpoint import CACHE_SUBDIR, load_params_cached
-    from rag_llm_k8s_tpu_torch.models.llama import build_llama
-    from rag_llm_k8s_tpu_torch.models.loader import (
-        config_from_hf_json,
-        load_encoder_safetensors,
-        load_safetensors_params,
-    )
+    from rag_llm_k8s_tpu_torch.models.loader import load_encoder_safetensors
     from rag_llm_k8s_tpu_torch.server.app import RagService, build_scheduler
     from rag_llm_k8s_tpu_torch.tokenizer import load_tokenizer
 
     config = AppConfig.from_env() if config is None else config
     info = {} if info is None else info
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model_dir = config.server.model_path
+    config, model = load_model(config, dev, mesh, info)
     model_cfg = config.model
-    if os.path.exists(os.path.join(model_dir, "config.json")):
-        model_cfg = config_from_hf_json(model_dir)
-        config = dataclasses.replace(config, model=model_cfg)
-    logger.info("loading Llama weights from %s", model_dir)
-    quant = config.engine.weight_quant
-    # the cache holds whichever layout was converted: one directory per quant
-    # mode, so toggling TPU_RAG_WEIGHT_QUANT swaps caches
-    cache_dir = os.path.join(model_dir, CACHE_SUBDIR if quant == "bf16" else f"{CACHE_SUBDIR}_{quant}")
-    model = load_params_cached(
-        model_dir,
-        lambda: load_safetensors_params(model_dir, model_cfg, config.dtypes, dev, quant=quant),
-        abstract_params_fn=lambda: build_llama(model_cfg, config.dtypes, dev, quantized=quant == "int8"),
-        cache_dir=cache_dir,
-        info=info,
-    )
     llm_tokenizer = load_tokenizer(model_dir)
 
     logger.info("loading bge-m3 from %s", config.server.embedder_path)
     enc_model = load_encoder_safetensors(config.server.embedder_path, config.encoder, config.dtypes, dev)
     enc_tokenizer = load_tokenizer(config.server.embedder_path)
 
-    engine = InferenceEngine(model_cfg, model, config.sampling, config.engine, config.dtypes, dev)
-    encoder = EncoderRunner(config.encoder, enc_model, dev, eos_id=getattr(enc_tokenizer, "eos_id", None))
+    engine = InferenceEngine(model_cfg, model, config.sampling, config.engine, config.dtypes, dev, mesh=mesh)
+    encoder = EncoderRunner(config.encoder, enc_model, dev, eos_id=getattr(enc_tokenizer, "eos_id", None),
+                            mesh=mesh)
 
     # fingerprint the embedder with a probe embedding, so that a persisted
     # index built by other encoder weights is detected and rebuilt
@@ -157,6 +187,74 @@ def build_service(config=None, device=None, info: Optional[dict] = None):
     return RagService(config, engine, llm_tokenizer, encoder, enc_tokenizer, store, scheduler=scheduler)
 
 
+def build_follower(config, mesh):
+    """A follower rank's engine: its shard of the Llama weights and the
+    one-shot engine over ``mesh``; no tokenizer, encoder or store (rank 0
+    serves those)."""
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+
+    config, model = load_model(config, mesh.device, mesh)
+    return InferenceEngine(config.model, model, config.sampling, config.engine, config.dtypes, mesh.device,
+                           mesh=mesh)
+
+
+def _follower_main(mesh, config) -> int:
+    """A follower rank of ``server.main``: load, meet rank 0 at the barrier,
+    then run its commands until ``stop``. SIGTERM is left to rank 0's
+    drain, which sends ``stop``."""
+    import signal
+
+    configure_logging()
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    engine = build_follower(config, mesh)
+    mesh.barrier(LOAD_TIMEOUT_S)
+    from rag_llm_k8s_tpu_torch.parallel.commands import serve_commands
+
+    n = serve_commands(mesh, engine)
+    logger.info("rank %d: stopped after %d commands", mesh.rank, n)
+    return n
+
+
+def mesh_world(config, device=None) -> int:
+    """The ranks ``config.mesh`` asks for on this host's cards (``tp=-1``
+    takes every visible card; one on the CPU)."""
+    import torch
+
+    n = torch.cuda.device_count() if device is None and torch.cuda.is_available() else 1
+    return config.mesh.world(max(n, 1))
+
+
+def start_mesh(config, device=None):
+    """Rank 0 of a mesh: start the followers, join the world, and return
+    ``(mesh, followers)``. Every rank runs on ``device`` when given (the
+    CPU tests), else on its card. Raises for what a mesh does not serve
+    yet (``EngineConfig.validate_mesh``)."""
+    from rag_llm_k8s_tpu_torch.parallel.launch import free_port, join_mesh, pick_backend, start_ranks
+
+    world = mesh_world(config, device)
+    config.engine.validate_mesh(world)
+    backend, port = pick_backend(world, device), free_port()
+    logger.info("starting a %d-rank mesh %s over %s", world, config.mesh, backend)
+    followers = start_ranks(_follower_main, range(1, world), world, port, backend, config.mesh, device=device,
+                            args=(config,))
+    mesh = join_mesh(0, world, port, backend, config.mesh, device)
+    return mesh, followers
+
+
+def _watch_followers(followers, on_exit) -> None:
+    """Call ``on_exit(process)`` once a follower has exited (a thread)."""
+
+    def watch():
+        while True:
+            for p in followers:
+                if p.exitcode is not None:
+                    on_exit(p)
+                    return
+            time.sleep(0.5)
+
+    threading.Thread(target=watch, daemon=True, name="mesh-followers").start()
+
+
 def arm_faults(env: Optional[dict] = None) -> dict:
     """Arm the fault sites ``TPU_RAG_FAULTS`` lists (``site[:count],...``;
     ``1`` only enables ``/debug/faults``); returns what is armed."""
@@ -168,13 +266,38 @@ def arm_faults(env: Optional[dict] = None) -> dict:
     return armed
 
 
-def main() -> None:
+def main(config=None, device=None) -> None:
+    """Boot and serve: ``config`` defaults to ``AppConfig.from_env()`` and
+    ``device`` to the card (``"cpu"``: every rank on the CPU, as the tests
+    run it)."""
     import signal
 
+    from rag_llm_k8s_tpu_torch.core.config import AppConfig
     from rag_llm_k8s_tpu_torch.server.app import make_server
 
     configure_logging()
-    service = build_service()
+    cfg = AppConfig.from_env() if config is None else config
+    followers, mesh, stopping = [], None, threading.Event()
+    if mesh_world(cfg, device) > 1:
+        from rag_llm_k8s_tpu_torch.parallel.launch import stop_ranks
+
+        mesh, followers = start_mesh(cfg, device)
+
+        def _follower_gone(p):
+            if stopping.is_set():
+                return
+            logger.error("mesh follower %s exited with %s: exiting", p.name, p.exitcode)
+            stop_ranks(followers)
+            os._exit(3)
+
+        _watch_followers(followers, _follower_gone)
+    if mesh is not None:
+        service = build_service(cfg, mesh=mesh)
+        mesh.barrier(LOAD_TIMEOUT_S)  # every follower has loaded its shard
+        service.engine.commands.start_heartbeat(HEARTBEAT_S)
+        service.peers_ready = lambda: service.engine.commands.ready() and all(p.is_alive() for p in followers)
+    else:
+        service = build_service() if config is None and device is None else build_service(cfg, device=device)
     service.ingest_directory()
     if service.store.ntotal == 0:
         logger.warning("No PDF files were processed. The index might be empty.")
@@ -209,6 +332,16 @@ def main() -> None:
         t_end = time.monotonic() + grace_s
         while server.requests_in_flight() and time.monotonic() < t_end:
             time.sleep(0.01)
+        if followers:
+            # the followers leave their command loops, then exit
+            stopping.set()
+            try:
+                service.engine.commands.stop()
+            except Exception:  # noqa: BLE001 — a broken stream: the followers are stopped below
+                logger.exception("mesh stop command failed")
+            for p in followers:
+                p.join(timeout=30.0)
+            stop_ranks(followers)
         logger.info("drained: exiting")
         os._exit(0)
 

@@ -329,11 +329,13 @@ def test_from_env_validation_messages_match(env):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"TPU_RAG_MESH": "tp=2"}, "item 10"),
+    ({"TPU_RAG_MESH": "tp=2", "TPU_RAG_BATCHING": "continuous"}, "item 10b"),
 ])
 def test_a_key_that_turns_on_an_unported_feature_raises(env, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         AppConfig.from_env(env)
+    # the mesh alone, with the one-shot engine, is ported
+    assert AppConfig.from_env({"TPU_RAG_MESH": "tp=2", "TPU_RAG_BATCHING": "coalesce"}).mesh.tp == 2
 
 
 # the lookahead keys (ROADMAP.md Queue 1 item 8): the deployment's values

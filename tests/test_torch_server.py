@@ -250,7 +250,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'obs.flight', 'obs.metrics', 'obs.tracing', 'obs.logging', 'resilience', 'resilience.faults',\n"
         "        'resilience.deadline', 'resilience.breaker', 'resilience.admission', 'resilience.lifecycle',\n"
         "        'server.router', 'sim.replay', 'rag.lookahead', 'obs.goodput', 'obs.slo', 'obs.tenants',\n"
-        "        'obs.devices', 'obs.regression', 'obs.shadow', 'sim.simulator', 'sim.tracegen'}\n"
+        "        'obs.devices', 'obs.regression', 'obs.shadow', 'sim.simulator', 'sim.tracegen',\n"
+        "        'core.mesh', 'parallel.sharding', 'parallel.ring_attention', 'parallel.launch',\n"
+        "        'parallel.commands'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )
