@@ -19,7 +19,11 @@
    version that the check must reject; ``phase_continuous_kernels``: kernels
    3 and 5 at B = 8 with per-row windows, 9 and 10 at the verify's S = 8
    with an inactive row; ``phase_tp_kernels``: kernels 2-4 at the heads one
-   rank of a tp=2 and of a tp=8 mesh holds),
+   rank of a tp=2 and of a tp=8 mesh holds, and kernels 3 and 5-10 there at
+   the continuous shapes: the dense and paged decode at B = 8, the verify
+   at S = 8, the mixed window at S = 64, kernel 6 at S = 16; the paged
+   decodes held to the unsplit plain version and to the plain version of
+   their own split plan),
    with its time, the plain version's time, one PyTorch library call
    computing the same function (``library_ms``, a yardstick the port never
    calls; none reads a paged arena or an int8 cache), all as device time per
@@ -43,11 +47,17 @@
    mesh answers a ``/query`` and drains), and the mesh itself
    (``phase_mesh_service``): a tp=2 world of two processes sharing the card
    over gloo (``parallel.launch.spawn_world``), each holding its shard of
-   the same seeded Llama-3.1-8B at full depth, rank 0 serving three fused
-   ``/query`` with a shadow audit beside one; each stream followed draw by
-   draw through a tp=1 engine on the same weights (logits within 4x the
-   cold-prefill noise floor); kernels 2, 3 and 4 launched on each rank; an
-   sp=2 ring prefill at 4 layers against sp=1. After the continuous
+   the same seeded Llama-3.1-8B at ``SERVICE_LAYERS`` depth, rank 0 serving
+   three fused ``/query`` with a shadow audit beside one; each stream
+   followed draw by draw through a tp=1 engine on the same weights (logits
+   within 4x the cold-prefill noise floor); kernels 2, 3 and 4 launched on
+   each rank; then, in the same world, the continuous engine on the mesh:
+   a unified paged burst with interleaved admission, a decode-role engine's
+   paged verify, a prefill->decode migration through the ``Router``, a
+   chunk-reuse ``admit_prefixed`` and an int8-KV burst, each stream
+   followed at tp=1, kernels 7-10 launched on each rank, the ranks' state
+   digests equal and no block leaked; an sp=2 ring prefill at 4 layers
+   against sp=1. After the continuous
    phases, the durable lifecycle on the same directory
    (``phase_warm_restart``): ``server.main`` with the
    flight WAL on and the continuous paged engine, SIGKILLed with 3 requests
@@ -1507,6 +1517,10 @@ CONT_KL = [4340, 4097, 4200, 4351, 4150, 4120, 4301, 1]
 # (its table all null, write_index 0, kv_len 1)
 VERIFY_WI = [4300, 3000, 2911, 2950, 3100, 17, 4344, 0]
 VERIFY_ND = [7, 0, 3, 7, 1, 5, 6, 0]
+# a mixed window (kernels 9 and 10 at S = 64): decode rows feed one lane at
+# their frontier, chunk rows 64 prompt lanes at their progress, row 7 idle
+MIXED_WI = [4300, 3000, 1500, 1024, 3100, 17, 4200, 0]
+MIXED_ND = [0, 0, 63, 63, 0, 0, 63, 0]
 
 
 def _sharpen_rows(q, k_caches, layer, ks_l, kl_l):
@@ -1527,19 +1541,20 @@ def _sharpen_rows(q, k_caches, layer, ks_l, kl_l):
         kc[layer] = lay.to(kc.dtype)
 
 
-def _cont_decode_case(q8, g):
+def _cont_decode_case(q8, g, H=32, K=8, phase="continuous_kernels (a)"):
     """Kernel 3 (or 5) at the dense continuous decode's shape: B = 8 rows
     with their own ``[kv_start, kv_len)`` (``CONT_KS``, ``CONT_KL``) over a
-    ``[L, 8, 8, 4352, 128]`` cache, NaN outside each row's window for the
-    kernel (NaN scales and random payload under int8), zeros for the plain
-    version, checked row by row; planted faults must be rejected. Returns
-    the kernel's name and its row of numbers."""
+    ``[L, 8, K, 4352, 128]`` cache (``H`` query heads: 32 over 8, or one tp
+    rank's), NaN outside each row's window for the kernel (NaN scales and
+    random payload under int8), zeros for the plain version, checked row by
+    row; planted faults must be rejected. Returns the kernel's name and its
+    row of numbers."""
     import torch
 
     from rag_llm_k8s_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
-    L, B, K, T, H, hd, layer = 4, 8, 8, 4352, 32, 128, 2
+    L, B, T, hd, layer = 4, 8, 4352, 128, 2
     kc, vc, kz, vz = _ragged_cache_pair(L, B, K, T, hd, CONT_KS, CONT_KL, g)
     if q8:
         vc, vz = _scale_rows(g, vc, vz)
@@ -1575,7 +1590,7 @@ def _cont_decode_case(q8, g):
     live = sum(b - a for a, b in zip(CONT_KS, CONT_KL))
     key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
     b_ms, b_by = bound(live * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * live, BF16_FLOPS)
-    row = dict(case="dense continuous decode", shape=f"B=8 T={T} H=32 K=8 hd=128 kv_start={CONT_KS} "
+    row = dict(case="dense continuous decode", shape=f"B=8 T={T} H={H} K={K} hd=128 kv_start={CONT_KS} "
                f"kv_len={CONT_KL}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                max_abs_err=err, rel_rms=rms, host_us=host_us, library_ms=None)
     lib = "none (no single PyTorch call reads an int8 cache)"
@@ -1585,29 +1600,31 @@ def _cont_decode_case(q8, g):
         qt = q.transpose(1, 2)
         row["library_ms"] = time_ms(lambda i: sdpa(qt, kz[i % L], vz[i % L], mask), iters=8)
         lib = f"{row['library_ms']:.4f} (SDPA)"
-    print(f"phase continuous_kernels (a) {name} {row['shape']} "
+    print(f"phase {phase} {name} {row['shape']} "
           f"{_plan_line(A.decode_launch_plan(B, K, T, _sms()))}: {_attn_line(err, rms, fault_rms)} (row by row) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
           f"host_us={host_us:.1f}", flush=True)
     return name, row
 
 
-def _verify_chunk_case(q8, g):
+def _verify_chunk_case(q8, g, H=32, K=8, S=8, wi_l=VERIFY_WI, nd_l=VERIFY_ND, case="verify S=8",
+                       phase="continuous_kernels (a)"):
     """Kernel 9 (or 10) at the verify forward's shape: B = 8 rows of S = 8
     lanes at their frontiers (``VERIFY_WI``, ``VERIFY_ND``), kv_len = wi + 1
     + nd, row 7 inactive (its table all null, reading slot 0 of the null
     block, which the inactive rows' own writes keep finite), NaN in every
     block no row owns and every frontier tail, checked row by row with
-    planted faults. bf16 blocks of 16, int8 blocks of 32."""
+    planted faults. bf16 blocks of 16, int8 blocks of 32. ``H``/``K``: one
+    tp rank's heads; ``S``, ``wi_l``, ``nd_l``: the mixed window's lanes
+    (``MIXED_WI``, ``MIXED_ND``: decode rows feed one lane, chunk rows 64)."""
     import torch
 
     from rag_llm_k8s_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
-    L, B, S, H, K, hd, layer = 4, 8, 8, 32, 8, 128, 3
+    L, B, hd, layer = 4, 8, 128, 3
     bs = 32 if q8 else 16
     MB = 4352 // bs
-    wi_l, nd_l = VERIFY_WI, VERIFY_ND
     kv_l = [w + 1 + n for w, n in zip(wi_l, nd_l)]
     (ka, va), (kz, vz), tables = _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g)
     # row 7 is inactive: null table; its former block is no row's (NaN),
@@ -1658,7 +1675,7 @@ def _verify_chunk_case(q8, g):
     pairs = sum(min(w + t + 1, n) for w, n in zip(wi_l, kv_l) for t in range(S))
     key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
     b_ms, b_by = bound(sum(kv_l) * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
-    row = dict(case="verify S=8", shape=f"B=8 S=8 H=32 K=8 hd=128 bs={bs} write_index={wi_l} nd={nd_l}",
+    row = dict(case=case, shape=f"B=8 S={S} H={H} K={K} hd=128 bs={bs} write_index={wi_l} nd={nd_l}",
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms,
                host_us=host_us, library_ms=None)
     lib = "none (no single PyTorch call reads an int8 arena)"
@@ -1675,7 +1692,7 @@ def _verify_chunk_case(q8, g):
         row["library_ms"] = time_ms(lambda i: sdpa(qt, dense[i % 2], dense[2 + i % 2], mask), iters=16)
         lib = f"{row['library_ms']:.4f} (SDPA over a dense copy)"
         del dense
-    print(f"phase continuous_kernels (a) {name} {row['shape']} kv_len={kv_l} "
+    print(f"phase {phase} {name} {row['shape']} kv_len={kv_l} "
           f"{_plan_line(A.chunk_launch_plan(B, S, H, K, MB * bs, _sms()))}: {_attn_line(err, rms, fault_rms)} "
           f"(row by row) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
           f"host_us={host_us:.1f}", flush=True)
@@ -4079,6 +4096,8 @@ def phase_continuous_dense(service_bits, tag="bf16", need=("knn_topk", "flash_at
     service's. Then the identity check: a dense engine at
     ``decode_sync_steps = 4`` followed draw by draw against a plain paged
     engine's greedy run of 4 RAG-length prompts (``_Follow``)."""
+    import gc
+
     import torch
 
     from rag_llm_k8s_tpu_torch.core.config import SamplingConfig
@@ -4087,6 +4106,9 @@ def phase_continuous_dense(service_bits, tag="bf16", need=("knn_topk", "flash_at
 
     engine = service_bits[2]
     ec = dataclasses.replace(engine.engine_config, batching="continuous", kv_paged=False)
+    # an earlier phase's garbage freed during the build would hide cache
+    # bytes from the allocator's delta
+    gc.collect()
     torch.cuda.synchronize()
     m0 = torch.cuda.memory_allocated()
     t = time.monotonic()
@@ -5262,8 +5284,9 @@ def _tp_row(rows, kname, **row):
 
 
 def phase_tp_kernels(rows):
-    """Kernels 2-4 at the head counts one rank of a tp mesh runs
-    (``TP_SHAPES``): the Llama prefill (flash, S = 4096, 100 left-pad
+    """Kernels 2-10 at the head counts one rank of a tp mesh runs
+    (``TP_SHAPES``; kernels 3 and 5-10 at the continuous engine's shapes in
+    ``_tp_kernels_cont``): the Llama prefill (flash, S = 4096, 100 left-pad
     slots), the decode over the dense cache and the chunk kernel at the
     verify's S = 16 and a long prompt's S = 4096, each held against its
     plain version with NaN in K/V outside every window for the kernel and
@@ -5380,6 +5403,151 @@ def phase_tp_kernels(rows):
                     bound_by=b_by, max_abs_err=err, rel_rms=rms)
             del kc, vc, kz, vz, q, got
             torch.cuda.empty_cache()
+    _tp_kernels_cont(rows)
+
+
+# the paged decode at one tp rank's heads (kernels 7 and 8): B = 8 rows
+# (row 7 idle), as phase_paged_decode's
+TP_PAGED_KV = [4351, 3100, 1800, 600, 17, 16, 1, 0]
+
+
+def _tp_paged_decode_case(q8, g, H, K):
+    """Kernel 7 (or 8) at one tp rank's heads: B = 8 rows over a paged
+    arena (blocks of 16, or 32 under int8) with NaN in every block no row
+    owns and every frontier tail for the kernel, zeros for the plain
+    version, planted faults rejected; bf16 timed beside SDPA over a dense
+    copy of each row's blocks (the gather untimed)."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    L, B, hd, layer = 4, 8, 128, 3
+    bs = 32 if q8 else 16
+    MB = 4352 // bs
+    kv_l = TP_PAGED_KV
+    (ka, va), (kz, vz), tables = _paged_q8_case(L, B, K, hd, bs, MB, layer, kv_l, g)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    kv_len = torch.tensor(kv_l, dtype=torch.int32, device=dev)
+    _sharpen_paged(q, (ka, kz), layer, tables, [max(n - 1, 0) for n in kv_l], kv_l, [1 if n else 0 for n in kv_l])
+    name = "paged_decode_attention_q8" if q8 else "paged_decode_attention"
+    if q8:
+        (k8, ksz, v8, vsz), (k8x, ksn, v8x, vsn) = _q8_arena(ka, va, kz, vz, g)
+        kern = lambda lay: A.paged_decode_attention_q8(q, k8x, v8x, ksn, vsn, tables, kv_len, lay)  # noqa: E731
+        plain = lambda lay, t=tables, kl=kv_len: A.paged_decode_attention_xla_q8(  # noqa: E731
+            q, k8, v8, ksz, vsz, t, kl, lay)
+    else:
+        kern = lambda lay: A.paged_decode_attention(q, ka, va, tables, kv_len, lay)  # noqa: E731
+        plain = lambda lay, t=tables, kl=kv_len: A.paged_decode_attention_xla(q, kz, vz, t, kl, lay)  # noqa: E731
+    got = kern(layer)
+    torch.cuda.synchronize()
+    plan = A.decode_launch_plan(B, K, MB * bs, _sms())
+    split_fn = A.paged_decode_attention_split_xla_q8 if q8 else A.paged_decode_attention_split_xla
+    split = split_fn(q, *((k8, v8, ksz, vsz) if q8 else (kz, vz)), tables, kv_len, layer, plan["split_keys"])
+    # held to the unsplit plain version and to the plain version of its own
+    # plan (split, then merged)
+    err, rms = map(max, zip(_paged_check(f"{name} tp K={K}", got, plain(layer)),
+                            _paged_check(f"{name} tp K={K} (against its plan's plain version)", got, split)))
+    _, split_rms, _ = _rows_fail(split, plain(layer))
+    del split
+    short = kv_len.clone()
+    short[0] -= 1
+    # a full block and a row's frontier block: the keys a decode sees change
+    swapped = tables.clone()
+    srow, sent = (3, [0, 18]) if q8 else (4, [0, 1])
+    swapped[srow, sent] = swapped[srow, sent[::-1]]
+    fault_rms = _paged_faults(f"{name} tp K={K}", got, {
+        "kv_len-1 (row 0)": plain(layer, kl=short),
+        f"table entries {sent[0]},{sent[1]} of row {srow} swapped": plain(layer, t=swapped),
+        "layer-1": plain(layer - 1)})
+    del got
+    ms = time_ms(lambda i: kern(layer - i % 2), iters=64)
+    plain_ms = time_ms(lambda i: plain(layer - i % 2), iters=8)
+    live = sum(kv_l)
+    key_bytes = q8_key_bytes(K, hd) if q8 else 2 * K * hd * 2
+    b_ms, b_by = bound(live * key_bytes + 2 * q.numel() * 2, 4.0 * H * hd * live, BF16_FLOPS)
+    lib_ms = None
+    if not q8:
+        T = MB * bs
+        dense = [a[lay][tables.long()].permute(0, 2, 1, 3, 4).reshape(B, K, T, hd)
+                 for a in (kz, vz) for lay in (layer, layer - 1)]
+        mask = (torch.arange(T, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+        lib_ms = time_ms(lambda i: sdpa(qt, dense[i % 2], dense[2 + i % 2], mask), iters=16)
+        del dense
+    shape = f"B=8 H={H} K={K} hd=128 bs={bs} MB={MB} live_keys={live}"
+    print(f"phase tp_kernels {name} {shape} kv_len={kv_l} {_plan_line(plan)}: {_attn_line(err, rms, fault_rms)} "
+          f"(the plan's plain version from the unsplit one: worst row rel_rms={split_rms:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{'none (no single PyTorch call reads an int8 arena)' if q8 else f'{lib_ms:.4f} (SDPA over a dense copy)'} "
+          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return name, dict(case="paged decode B=8", shape=shape, n_splits=plan["n_splits"], ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms)
+
+
+def _tp_chunk_q8_case(g, tp, H, K):
+    """Kernel 6 at one tp rank's heads and the verify's S = 16 over the
+    dense int8 cache (NaN scales and payload outside the window for the
+    kernel), as kernel 4's verify row."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    L, S, wi, T, hd = 32, 16, 4100, 4352, 128
+    ks_i, kl_i, layer = 100, wi + S, 17
+    kc, vc, kz, vz = _cache_pair(L, 1, K, T, hd, ks_i, kl_i, g)
+    q = torch.randn(1, S, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    ks = torch.tensor([ks_i], device=dev, dtype=torch.int32)
+    kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
+    _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
+    (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
+    (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
+    del kc, vc
+    kern = lambda lay: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, lay, wi)  # noqa: E731
+    plain = lambda lay, w=wi: A.chunk_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, lay, w)  # noqa: E731
+    got = kern(layer)
+    torch.cuda.synchronize()
+    err, rms = _paged_check(f"chunk_q8 verify tp={tp}", got, plain(layer))
+    fault = _paged_faults(f"chunk_q8 verify tp={tp}", got, {"write_index+1": plain(layer, w=wi + 1),
+                                                            "layer-1": plain(layer - 1)})
+    ms = time_ms(lambda i: kern(i % L), iters=64)
+    plain_ms = time_ms(lambda i: plain(i % L), iters=8)
+    pairs = sum(min(wi + t + 1, kl_i) - ks_i for t in range(S))
+    b_ms, b_by = bound((kl_i - ks_i) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * pairs, BF16_FLOPS)
+    plan = A.chunk_design_plan(1, S, H, K, T, hd, _sms())
+    shape = f"S={S} write_index={wi} T={T} H={H} K={K} hd=128"
+    print(f"phase tp_kernels chunk_prefill_attention_q8 verify tp={tp} {shape} {_plan_line(plan)}: "
+          f"{_attn_line(err, rms, fault)} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch "
+          f"call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return dict(tp=tp, case="verify S=16", shape=shape, n_splits=plan["n_splits"], design=plan["design"], ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, rel_rms=rms)
+
+
+def _tp_kernels_cont(rows):
+    """Kernels 5-10 (and 3 at the continuous decode's B = 8) at the head
+    counts one rank of a tp mesh runs (``TP_SHAPES``), at the continuous
+    engine's shapes: the dense decode with per-row windows (3, 5), the
+    paged decode (7, 8), the verify at B = 8, S = 8 and the mixed window at
+    B = 8, S = 64 (9, 10), and kernel 6 at the verify's S = 16; each held
+    against its plain version with NaN outside every window for the kernel,
+    planted faults rejected; ms, the plain version's, SDPA's where a call
+    exists, the bound and the split plan."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(37)
+    for tp, H, K in TP_SHAPES:
+        cases = [lambda q8: _cont_decode_case(q8, g, H, K, phase="tp_kernels"),
+                 lambda q8: _tp_paged_decode_case(q8, g, H, K),
+                 lambda q8: _verify_chunk_case(q8, g, H, K, phase="tp_kernels"),
+                 lambda q8: _verify_chunk_case(q8, g, H, K, S=64, wi_l=MIXED_WI, nd_l=MIXED_ND, case="mixed S=64",
+                                               phase="tp_kernels")]
+        for case in cases:
+            for q8 in (False, True):
+                name, row = case(q8)
+                _tp_row(rows, name, tp=tp, **row)
+                torch.cuda.empty_cache()
+        _tp_row(rows, "chunk_prefill_attention_q8", **_tp_chunk_q8_case(g, tp, H, K))
+        torch.cuda.empty_cache()
 
 
 MESH_QUESTIONS = LATENCY_QUESTIONS[4:7]
@@ -5536,8 +5704,8 @@ def _mesh_rank(ctx, max_new):
 
     dev = ctx.device
     # the vanilla decode loop (its draws are followed); kernel 4 runs in the audit
-    cfg = AppConfig(model=LlamaConfig.llama_3_1_8b(), encoder=EncoderConfig.bge_m3(),
-                    sampling=SamplingConfig(max_new_tokens=max_new, do_sample=False),
+    cfg = AppConfig(model=dataclasses.replace(LlamaConfig.llama_3_1_8b(), num_layers=SERVICE_LAYERS),
+                    encoder=EncoderConfig.bge_m3(), sampling=SamplingConfig(max_new_tokens=max_new, do_sample=False),
                     engine=EngineConfig(speculative="off"), flight=FlightConfig(spool_dir=tempfile.mkdtemp()),
                     shadow=ShadowConfig(sample_rate=0.0))
     t = time.monotonic()
@@ -5552,11 +5720,13 @@ def _mesh_rank(ctx, max_new):
     if ctx.leader:
         out.update(_mesh_service_leader(ctx, cfg, engine))
     else:
-        out["commands"] = serve_commands(ctx, engine)
+        out["commands"] = serve_commands(ctx)
     torch.cuda.synchronize()
     out.update(launches=dict(_build.LAUNCHES), staged_calls=ctx.staged_calls,
                mem_gb=torch.cuda.memory_allocated(dev) / 1e9, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    del engine, model
+    del engine
+    out["cont"] = _mesh_continuous(ctx, cfg, model)
+    del model
     torch.cuda.empty_cache()
     out["ring"] = _mesh_ring(ctx)
     return out
@@ -5611,11 +5781,314 @@ def _follow_oneshot(eng, run, limit, what):
     return st["i"], st["worst"], st["forks"], st["delta"]
 
 
+# the continuous legs of the tp=2 world (phase_mesh_service): the engines'
+# shapes, prompts of RAG-chunk lengths, and the kernels each rank must launch
+MESH_CONT_LENS = [300, 150, 450, 200]
+MESH_CONT_MAX_NEW = 12
+MESH_CONT_EC = dict(speculative="off", prompt_buckets=(256, 512), max_seq_len=1024, max_batch_size=4,
+                    kv_paged=True, kv_block_size=16)
+MESH_CHUNK_PC = dict(enabled=True, max_prefix_tokens=512, segment_buckets=(64, 128), suffix_buckets=(32,),
+                     reuse="chunk", boundary_tokens=16, chunk_hot_min=0.0, hbm_budget_mb=256)
+MESH_CONT_KERNELS = ("paged_decode_attention", "paged_chunk_attention", "paged_decode_attention_q8",
+                     "paged_chunk_attention_q8")
+
+
+def _mesh_cont_prompts():
+    """The legs' prompts: four of RAG-chunk lengths, and the chunk leg's
+    head, two chunks and suffix."""
+    import numpy as np
+
+    rng = np.random.default_rng(43)
+
+    def ids(n):
+        return [int(x) for x in rng.integers(3, 259, n)]
+
+    plain = [[1] + ids(n - 1) for n in MESH_CONT_LENS]
+    return plain, dict(head=[1] + ids(63), a=ids(128), b=ids(128), suffix=ids(20))
+
+
+class _MeshRecorder:
+    """Rank 0's record of a tp=2 continuous engine's draws: the logits (fp16,
+    on the host) that drew each token of each request, keyed by request id,
+    taken from the engine's own sampler calls around ``admit_many``,
+    ``admit_prefixed`` and ``step`` (every leg runs one-step windows)."""
+
+    def __init__(self):
+        self.logits = {}
+
+    def _put(self, rid, lg):
+        self.logits.setdefault(rid, []).append(lg.half().cpu().numpy())
+
+    def attach(self, cont):
+        calls = []
+        real_sample, real_targets, real_step = cont._sample, cont._sample_targets, cont.step
+        real_admit, real_px = cont.admit_many, cont.admit_prefixed
+
+        def sample(lg, positions, rows=None):
+            calls.append((lg, None if rows is None else rows.tolist()))
+            return real_sample(lg, positions, rows)
+
+        def targets(lg, positions):
+            calls.append((lg, "verify"))
+            return real_targets(lg, positions)
+
+        def first_tokens(rid_of_row):
+            for lg, rows in calls:
+                if rows is not None and rows != "verify":
+                    for k, r in enumerate(rows):
+                        self._put(rid_of_row(r), lg[k])
+            calls.clear()
+
+        def admit_many(items):
+            calls.clear()
+            out = real_admit(items)
+            first_tokens(lambda r: cont.slots[r].request_id)
+            return out
+
+        def admit_prefixed(rid, *a, **kw):
+            calls.clear()
+            out = real_px(rid, *a, **kw)
+            first_tokens(lambda r: rid)
+            return out
+
+        def step():
+            pre = {r: (sl.request_id, len(sl.tokens)) for r, sl in enumerate(cont.slots) if sl.active}
+            pre.update({rec["row"]: (rid, 0) for rid, rec in cont._chunk_admissions.items()})
+            calls.clear()
+            done = dict(real_step())
+            window = [c for c in calls if c[1] is None or c[1] == "verify"]
+            for r, (rid, n0) in pre.items():
+                sl = cont.slots[r]
+                n1 = len(done[rid]) if rid in done else (len(sl.tokens) if sl.request_id == rid else n0)
+                for i in range(n1 - n0):
+                    lg, kind = window[-1]
+                    self._put(rid, lg[r, i] if kind == "verify" else lg[r])
+            calls.clear()
+            return list(done.items())
+
+        cont._sample, cont._sample_targets, cont.step = sample, targets, step
+        cont.admit_many, cont.admit_prefixed = admit_many, admit_prefixed
+
+
+def _leaked(e):
+    """Blocks held beyond the registrations' (0 once every row is gone)."""
+    held = {b for ids, _, _ in e._prefix_blocks.values() for b in ids}
+    held |= {b for reg in e._chunk_regs.values() for b in reg[0]}
+    return e.kv_pool.blocks_in_use() - len(held) + sum(len(b) for b in e._slot_blocks)
+
+
+def _drain_engine(e, reqs):
+    """Admit ``(rid, prompt)`` at once, step to the end: {rid: tokens}."""
+    out = {}
+    for (rid, _), res in zip(reqs, e.admit_many([(rid, p, MESH_CONT_MAX_NEW, None) for rid, p in reqs])):
+        if isinstance(res, BaseException):
+            raise RuntimeError(f"mesh continuous admission {rid}: {res!r}")
+        if res[1] is not None:
+            out[rid] = res[1]
+    while e.has_active():
+        out.update(dict(e.step()))
+    return out
+
+
+def _mesh_cont_lead(ctx, legs, one):
+    """Rank 0's legs over the tp=2 engines: a unified paged burst of 4 with
+    interleaved admission; a decode-role engine's paged verify; a
+    prefill->decode migration of 2 requests through the ``Router``; one
+    chunk-reuse ``admit_prefixed`` (after the scatter admission that
+    registers its chunks); an int8-KV burst of 4 with the paged verify.
+    After each: the cross-rank digest and the pools' leak check."""
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousScheduler
+    from rag_llm_k8s_tpu_torch.server.router import Replica, Router
+
+    plain, chunk = _mesh_cont_prompts()
+    rec = _MeshRecorder()
+    for e in legs.values():
+        rec.attach(e)
+    res = {}
+
+    def leg(name, engines, prompts, rids, streams, t0, **extra):
+        digests = [e.check_mesh() for e in engines]
+        leaked = [_leaked(e) for e in engines]
+        if any(leaked):
+            raise RuntimeError(f"mesh continuous {name}: blocks leaked {leaked}")
+        res[name] = dict(prompts=prompts, streams=streams, logits=[rec.logits[r] for r in rids], s=time.monotonic() - t0,
+                         digests=digests, windows=sum(e.stats.windows for e in engines),
+                         mixed=sum(e.stats.mixed_windows for e in engines),
+                         verify=sum(e.stats.spec_verify_steps for e in engines), **extra)
+
+    t0 = time.monotonic()
+    rids = [100 + j for j in range(len(plain))]
+    out = _drain_engine(legs["unified"], list(zip(rids, plain)))
+    leg("unified", [legs["unified"]], plain, rids, [out[r] for r in rids], t0)
+    # random weights never repeat themselves, so the verify legs draft the
+    # unified leg's streams (_recorded_drafts); rank 0's drafts travel in
+    # the verify windows' commands
+    recorded = {tuple(p): res["unified"]["streams"][j] for j, p in enumerate(plain)}
+    t0 = time.monotonic()
+    _recorded_drafts(legs["verify"], recorded)
+    rids = [200, 201]
+    out = _drain_engine(legs["verify"], list(zip(rids, plain[:2])))
+    leg("verify", [legs["verify"]], plain[:2], rids, [out[r] for r in rids], t0)
+    t0 = time.monotonic()
+    pre, dec = (ContinuousScheduler(legs[k], retry_backoff_s=0.0) for k in ("prefill", "decode"))
+    router = Router([Replica("tp-p0", pre), Replica("tp-d0", dec)])
+    streams, rids = [], []
+    try:
+        for p in plain[:2]:
+            info = {}
+            streams.append(router.submit(p, max_new_tokens=MESH_CONT_MAX_NEW, info=info))
+            rids.append(info["request_id"])
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+    leg("router", [legs["prefill"], legs["decode"]], plain[:2], rids, streams, t0,
+        migrated=legs["prefill"].stats.windows == 0 and legs["decode"].stats.decode_tokens > 0)
+    t0 = time.monotonic()
+    e = legs["chunk"]
+    cp1 = one.prefix_cache.prefix_for([("head", chunk["head"]), ("A", chunk["a"]), ("B", chunk["b"])])
+    first = e.admit_prefixed(400, chunk["suffix"], cp1, MESH_CONT_MAX_NEW)
+    while e.has_active():
+        e.step()
+    regs = sorted(e._chunk_regs)
+    cp2 = one.prefix_cache.prefix_for([("head", chunk["head"]), ("B", chunk["b"]), ("A", chunk["a"])])
+    row, fin = e.admit_prefixed(401, chunk["suffix"], cp2, MESH_CONT_MAX_NEW)
+    out = {401: fin} if fin is not None else {}
+    while e.has_active():
+        out.update(dict(e.step()))
+    leg("chunk", [e], [chunk["suffix"]], [401], [out[401]], t0, chunk_regs=regs,
+        counters=one.prefix_cache.chunk_reuse_counters(), first_row=first[0])
+    t0 = time.monotonic()
+    # drafts every other window: the plain windows between run kernel 8
+    _recorded_drafts(legs["int8"], recorded, every=lambda w, rows: rows if w % 2 else [])
+    rids = [500 + j for j in range(len(plain))]
+    out = _drain_engine(legs["int8"], list(zip(rids, plain)))
+    leg("int8", [legs["int8"]], plain, rids, [out[r] for r in rids], t0)
+    return res
+
+
+def _mesh_continuous(ctx, cfg, model):
+    """The continuous legs of ``phase_mesh_service``'s tp=2 world, on the
+    ranks' shards of its model: every rank builds the same engines in the
+    same order (paged unified interleaved, decode-role with the paged
+    verify, a prefill/decode pair, int8 KV with the verify, and a one-shot
+    engine with the chunk-reuse prefix cache beside a paged engine), rank 0
+    drives ``_mesh_cont_lead``, the followers serve its commands. Returns
+    each rank's arena bytes, launches of kernels 7-10, staged collectives
+    and commands, and rank 0's recorded streams."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import EngineConfig, PrefixCacheConfig, SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.parallel.commands import serve_commands, stream_for
+
+    dev, t = ctx.device, time.monotonic()
+    samp = SamplingConfig(max_new_tokens=MESH_CONT_MAX_NEW, do_sample=False)
+    base = EngineConfig(**MESH_CONT_EC)
+    pc = PrefixCacheConfig(**MESH_CHUNK_PC)
+
+    def cont(**kw):
+        return ContinuousEngine(cfg.model, model, samp, dataclasses.replace(base, **kw), cfg.dtypes, dev, mesh=ctx)
+
+    legs = {"unified": cont(interleave_prefill=True), "verify": cont(pool_role="decode", spec_paged=True),
+            "prefill": cont(pool_role="prefill"), "decode": cont(pool_role="decode"),
+            "int8": cont(kv_quant="int8", kv_block_size=32, spec_paged=True)}
+    one = InferenceEngine(cfg.model, model, samp, dataclasses.replace(base, kv_paged=False, prefix_cache=pc),
+                          cfg.dtypes, dev, mesh=ctx)
+    legs["chunk"] = cont(prefix_cache=pc)
+    torch.cuda.synchronize()
+    out = {"build_s": time.monotonic() - t, "arena_bytes": {k: e.arena_device_bytes for k, e in legs.items()}}
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    staged0, t = ctx.staged_calls, time.monotonic()
+    if ctx.leader:
+        stream = stream_for(ctx)
+        try:
+            out.update(legs_out=_mesh_cont_lead(ctx, legs, one))
+        finally:
+            out["commands"] = stream.sent
+            stream.stop()
+    else:
+        out["commands"] = serve_commands(ctx)
+        out["leaked"] = {k: _leaked(e) for k, e in legs.items()}
+    torch.cuda.synchronize()
+    out.update(s=time.monotonic() - t, staged_calls=ctx.staged_calls - staged0,
+               launches={k: _build.LAUNCHES.get(k, 0) for k in MESH_CONT_KERNELS})
+    for e in legs.values():
+        e.arena = e.cache = None
+    del legs, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def _follow_mesh_legs(legs_out, ref, eng, cfg):
+    """Each tp=2 leg's streams followed draw by draw through a tp=1
+    continuous engine over the same weights (``_Follow``), within
+    ``PREFIX_NOISE_FACTOR`` times the kernels' cold-prefill noise floor;
+    the chunk leg through the same chunk-reuse admissions at tp=1."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import EngineConfig, PrefixCacheConfig, SamplingConfig
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+
+    dev, dt = eng.device, eng.dtypes
+    samp = SamplingConfig(max_new_tokens=MESH_CONT_MAX_NEW, do_sample=False)
+    plain, chunk = _mesh_cont_prompts()
+    limit = _noise_limit(eng, plain[2], "mesh_service continuous legs")
+    worst = {}
+    for name, kw, drafts in (("unified", {}, None), ("verify", dict(spec_paged=True), lambda w, rows: rows),
+                             ("router", {}, None),
+                             ("int8", dict(kv_quant="int8", kv_block_size=32, spec_paged=True), lambda w, rows: rows)):
+        r = legs_out[name]
+        lgs = [[torch.from_numpy(x).to(dev).float() for x in lg] for lg in r["logits"]]
+        c1 = ContinuousEngine(cfg, ref, samp, EngineConfig(**{**MESH_CONT_EC, **kw}), dt, dev)
+        f = _Follow(c1, r["streams"], lgs, limit, drafts=drafts)
+        f.run(r["prompts"], MESH_CONT_MAX_NEW)
+        worst[name] = f.worst
+        print(f"phase mesh_service continuous {name}: requests={len(r['streams'])} s={r['s']:.2f} "
+              f"windows={r['windows']} mixed={r['mixed']} verify={r['verify']} digests={r['digests']} "
+              f"followed at tp=1: {f.line()}", flush=True)
+        _free(c1)
+    r = legs_out["chunk"]
+    pc = PrefixCacheConfig(**MESH_CHUNK_PC)
+    one = InferenceEngine(cfg, ref, samp, EngineConfig(**{**MESH_CONT_EC, "kv_paged": False, "prefix_cache": pc}),
+                          dt, dev)
+    c1 = ContinuousEngine(cfg, ref, samp, EngineConfig(**{**MESH_CONT_EC, "prefix_cache": pc}), dt, dev)
+    cp1 = one.prefix_cache.prefix_for([("head", chunk["head"]), ("A", chunk["a"]), ("B", chunk["b"])])
+    c1.admit_prefixed(400, chunk["suffix"], cp1, MESH_CONT_MAX_NEW)
+    while c1.has_active():
+        c1.step()
+    cp2 = one.prefix_cache.prefix_for([("head", chunk["head"]), ("B", chunk["b"]), ("A", chunk["a"])])
+    f = _Follow(c1, r["streams"], [[torch.from_numpy(x).to(dev).float() for x in r["logits"][0]]], limit)
+    f.rows[c1.free_slots()[0]] = 0
+    _, fin = c1.admit_prefixed(0, chunk["suffix"], cp2, MESH_CONT_MAX_NEW)
+    got = {0: fin} if fin is not None else {}
+    while c1.has_active():
+        got.update(dict(c1.step()))
+    if got[0][:len(r["streams"][0])] != r["streams"][0]:
+        fail("mesh_service continuous chunk: the tp=1 stream left the tp=2 one it was fed")
+    if sorted(c1._chunk_regs) != r["chunk_regs"] or one.prefix_cache.chunk_reuse_counters() != r["counters"]:
+        fail(f"mesh_service continuous chunk: tp=1 registrations {sorted(c1._chunk_regs)} counters "
+             f"{one.prefix_cache.chunk_reuse_counters()} against tp=2's {r['chunk_regs']} {r['counters']}")
+    worst["chunk"] = f.worst
+    print(f"phase mesh_service continuous chunk: chunk_regs={r['chunk_regs']} counters={json.dumps(r['counters'])} "
+          f"s={r['s']:.2f} digests={r['digests']} followed at tp=1 (the same two admissions): {f.line()}", flush=True)
+    _free(c1)
+    del one
+    torch.cuda.empty_cache()
+    return worst, limit
+
+
 def phase_mesh_service(rows):
     """A tp=2 world of two processes on the one card over gloo
     (``parallel.launch.spawn_world``), at Llama-3.1-8B's full width and
-    depth: each rank draws ``build_service``'s seeded weights one tensor at
-    a time and keeps its shard. Rank 0 serves three fused ``/query``
+    ``SERVICE_LAYERS`` depth: each rank draws ``build_service``'s seeded
+    weights one tensor at a time and keeps its shard. After the fused
+    service, the continuous legs on the same shards (``_mesh_continuous``):
+    kernels 7-10 on every rank, the cross-rank digests, no block leaked,
+    each stream followed at tp=1 (``_follow_mesh_legs``). Rank 0 serves three fused ``/query``
     through ``RagService`` (a shadow audit's ``score_exact`` on another
     thread beside the second), rank 1 follows its command stream. Each
     query's greedy stream is then followed draw by draw through a tp=1
@@ -5641,9 +6114,10 @@ def phase_mesh_service(rows):
     res = spawn_world(_mesh_rank, MeshConfig(dp=1, sp=1, tp=2), backend="gloo", args=(MESH_MAX_NEW,),
                       join_timeout_s=900)
     world_s = time.monotonic() - t
-    # the tp=1 reference: the same seeded weights, whole, at full depth (the
-    # service phases' model is cut to SERVICE_LAYERS)
-    dev, cfg8, dt = torch.device("cuda"), LlamaConfig.llama_3_1_8b(), DTypePolicy()
+    # the tp=1 reference: the same seeded weights, whole, at the service
+    # phases' depth
+    dev, dt = torch.device("cuda"), DTypePolicy()
+    cfg8 = dataclasses.replace(LlamaConfig.llama_3_1_8b(), num_layers=SERVICE_LAYERS)
     ref = convert.init_random_sharded(cfg8, dt, single_device_mesh(dev), torch.Generator(device=dev).manual_seed(0),
                                       fused_source=True)
     eng = InferenceEngine(cfg8, ref, SamplingConfig(max_new_tokens=MESH_MAX_NEW, do_sample=False),
@@ -5704,6 +6178,31 @@ def phase_mesh_service(rows):
     print(f"phase mesh_service: world_s={world_s:.1f} queries_wall_s={lead['wall_s']:.1f}", flush=True)
     for k in TP_KERNELS:
         rows[k]["mesh_launches_per_rank"] = [out["launches"].get(k, 0) for out in res]
+    # the continuous legs: kernels 7-10 on every rank, every pool whole, the
+    # digests equal, each stream followed at tp=1
+    legs_out = lead["cont"]["legs_out"]
+    for r, out in enumerate(res):
+        c = out["cont"]
+        missing = [k for k in MESH_CONT_KERNELS if c["launches"].get(k, 0) < 1]
+        if missing:
+            fail(f"mesh_service continuous: rank {r} never launched {missing} ({c['launches']})")
+        if any(c.get("leaked", {}).values()):
+            fail(f"mesh_service continuous: rank {r} leaked blocks {c['leaked']}")
+        print(f"phase mesh_service continuous rank {r}: arena_bytes={json.dumps(c['arena_bytes'])} "
+              f"build_s={c['build_s']:.1f} legs_s={c['s']:.1f} staged_calls={c['staged_calls']} "
+              f"{'commands_sent' if r == 0 else 'commands_served'}={c['commands']} "
+              f"launches={json.dumps(c['launches'])}", flush=True)
+    for name, r in legs_out.items():
+        if any(len(set(d)) != 1 for d in r["digests"]):
+            fail(f"mesh_service continuous {name}: the ranks' digests differ {r['digests']}")
+    if not legs_out["router"]["migrated"] or legs_out["verify"]["verify"] < 1 or legs_out["unified"]["mixed"] < 1:
+        fail(f"mesh_service continuous: a leg skipped its path (router migrated={legs_out['router']['migrated']}, "
+             f"verify windows={legs_out['verify']['verify']}, mixed windows={legs_out['unified']['mixed']})")
+    worst, limit = _follow_mesh_legs(legs_out, ref, eng, cfg8)
+    print(f"phase mesh_service continuous: worst_logits_rel_rms={json.dumps({k: round(v, 5) for k, v in worst.items()})} "
+          f"(limit {limit:.4g})", flush=True)
+    for k in MESH_CONT_KERNELS:
+        rows[k]["mesh_launches_per_rank"] = [out["cont"]["launches"].get(k, 0) for out in res]
     del eng, ref
     torch.cuda.empty_cache()
 
@@ -6198,7 +6697,7 @@ def phase_disagg(service_bits, max_new: int = 96, q8_max_new: int = 48, follow_t
 SERVER_MAIN = [sys.executable, "-m", "rag_llm_k8s_tpu_torch.server.main"]
 
 
-def phase_warm_restart(root, max_new: int = 512, follow_tokens: int = 24, min_emitted: int = 16):
+def phase_warm_restart(root, max_new: int = 128, follow_tokens: int = 24, min_emitted: int = 16):
     """(b) The durable lifecycle on the staged 2-layer checkpoint
     (``phase_staged_boot``'s directory), as ``python -m
     rag_llm_k8s_tpu_torch.server.main`` with ``TPU_RAG_BATCHING=continuous``,
@@ -6895,11 +7394,14 @@ def build_q8_service(service_bits, qmodel):
     return svc, create_app(svc).test_client(), eng, store
 
 
-# The service phases' Llama-3.1-8B: full width, 16 of its 32 layers (the
-# whole depth until the mesh phases needed the script's time; a step's time
-# follows the depth: ~1,800 launches a decode forward at 32 layers).
-# phase_mesh_service runs the full depth.
-SERVICE_LAYERS = 16
+# The service phases' Llama-3.1-8B, and phase_mesh_service's tp=2 world:
+# full width, 14 of its 32 layers (the script's time limit: a host-bound
+# step's time follows the depth, ~1,800 launches a decode forward at 32
+# layers). 16 layers until the continuous mesh legs, 32 before the mesh;
+# 14 is the least cut from 16 that keeps the whole run under ~850 s on the
+# slowest host measured, from each phase's time at 16 and 12 layers
+# (PERF.md §5).
+SERVICE_LAYERS = 14
 
 
 def build_service():

@@ -8,9 +8,11 @@ port runs it as one process per rank (``core/mesh.py``).
 ``AppConfig.from_env`` reads the JAX package's environment surface for the
 fields the port has, with the same validation messages. A key that turns on
 a feature the port lacks raises and names its ``ROADMAP.md`` item
-(``UNPORTED_KEYS``, and ``EngineConfig.validate_mesh`` for what a mesh of
-more than one device does not serve yet); any other ``TPU_RAG_*`` key the
-port does not read is logged as ignored.
+(``UNPORTED_KEYS``); any other ``TPU_RAG_*`` key the port does not read is
+logged as ignored. A mesh takes every engine feature, under the JAX
+package's own rules (``validate_tp_layout``, ``validate_pool_role``,
+``validate_interleave``); the continuous engine runs on the ``tp`` axis
+only and replicates over ``sp`` and ``dp``, as JAX's does.
 """
 
 from __future__ import annotations
@@ -416,8 +418,8 @@ class EngineConfig:
         """Paged KV on a ``tp > 1`` mesh serves from a HEAD-sharded arena:
         each device holds ``num_kv_heads / tp`` heads of every physical
         block, so the kv-head count must tile the axis (the JAX package's
-        rule and message; the arena that uses it is ROADMAP.md Queue 1 item
-        10b)."""
+        rule and message). The continuous engine calls it at construction,
+        as JAX's does."""
         if not self.kv_paged or tp <= 1:
             return
         if num_kv_heads % tp:
@@ -427,24 +429,6 @@ class EngineConfig:
                 f"tp — choose a tp that divides the head count, or serve "
                 "this model dense on the mesh"
             )
-
-    def validate_mesh(self, n_devices: int) -> None:
-        """A mesh of more than one device serves the one-shot engine with
-        the dense bf16 cache (``batching="coalesce"``); the continuous
-        engine, the paged arena, pool roles, int8 KV and the prefix cache on
-        a mesh are ROADMAP.md Queue 1 item 10b."""
-        if n_devices <= 1:
-            return
-        on = [name for name, bad in (
-            ("TPU_RAG_BATCHING=continuous", self.batching == "continuous"),
-            ("TPU_RAG_KV_PAGED=1", self.kv_paged),
-            (f"TPU_RAG_POOL_ROLE={self.pool_role}", self.pool_role != "unified"),
-            ("TPU_RAG_KV_QUANT=int8", self.kv_quant == "int8"),
-            ("TPU_RAG_PREFIX_CACHE=1", self.prefix_cache.enabled),
-        ) if bad]
-        if on:
-            raise ValueError(f"TPU_RAG_MESH: a {n_devices}-device mesh with {', '.join(on)} turns on a feature the "
-                             f"PyTorch port does not have yet: {MESH_10B}")
 
     def validate_interleave(self) -> None:
         """Cross-field rules for interleaved admission (the JAX package's,
@@ -810,18 +794,8 @@ def parse_mesh(spec: str, mesh: Optional["MeshConfig"] = None) -> "MeshConfig":
     return dataclasses.replace(mesh or MeshConfig(), **overrides)
 
 
-def _mesh_devices(mesh: "MeshConfig") -> int:
-    """The devices a mesh spec names outright (``tp = -1`` counts as one:
-    it is resolved against the cards at boot, ``server/main.py``)."""
-    return mesh.dp * mesh.sp * max(mesh.tp, 1)
-
-
-MESH_10B = "ROADMAP.md Queue 1 item 10b (the continuous engine, paged KV, pool roles, int8 KV and the prefix cache on a mesh)"
-
 # keys that turn on a feature the port does not have: the ROADMAP.md item
-# that ports it. A mesh of more than one device is ported for the one-shot
-# engine; the features item 10b ports raise beside it
-# (EngineConfig.validate_mesh, applied once the env is parsed)
+# that ports it (none: every key the JAX service reads is ported)
 UNPORTED_KEYS: Dict[str, str] = {}
 
 # the keys from_env reads
@@ -1079,7 +1053,6 @@ class AppConfig:
             engine = rep(engine, pool_role=role)
         engine.validate_interleave()  # cross-field rules, with the env applied
         engine.validate_pool_role()
-        engine.validate_mesh(_mesh_devices(mesh))
         resilience = cfg.resilience
         for key, name, minimum, cast in RESILIENCE_KEYS:
             if key in env:

@@ -138,10 +138,31 @@ reclaims chunk registrations first, then non-hot chains, then every chain
 when nothing decodes. The service reaches this through lookahead's
 prestage, release and retier only; ``admit_prefixed`` has no caller in the
 scheduler, as in the JAX service.
+
+On a tp mesh (``mesh``, the model being this rank's shard; JAX's
+``mesh=``) the dense cache is ``[L, B, K/tp, T, hd]`` and the arena ``[L,
+N, K/tp, bs, hd]`` (``ops.attention.paged_partition_specs``), with int8
+scale planes to match; each rank keeps one host allocator, so the block
+count is not rounded. Every call that changes the engine (``admit_many``,
+``step``, ``evict_requests``, ``reset``, ``export_request`` and
+``import_request``, ``admit_prefixed``, ``prestage_prefix``,
+``release_prestaged``, the tier moves, ``drain_preempted`` and the
+admission reclaim) is a mesh command (``parallel/commands.py``): rank 0
+runs the scheduler and sends each call, every rank runs the same host
+allocator, tables and slots on the same inputs, each its own shard. Rank 0
+decides what could differ and sends it: the window kind and a verify's
+drafts, each request's seed, a deadline's eviction, the tier of each
+registration, the armed fault sites and the clock. A migration packet's
+planes stay on their rank (``SharedPlanes``): rank 0's packet carries the
+host state and names them, and ``import_request`` on the twin engine of
+the same world scatters each rank's own slice. ``check_mesh`` gathers
+every rank's ``state_digest`` and raises on a difference. The followers
+keep no per-request bookkeeping (the ledger, the speculation marks).
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import logging
 import queue
@@ -164,8 +185,9 @@ from rag_llm_k8s_tpu_torch.engine.kv_pool import NULL_BLOCK, KVBlockPool, PoolEx
 from rag_llm_k8s_tpu_torch.engine.sampling import accept_drafts, sample_targets_per_row, sample_token_per_row
 from rag_llm_k8s_tpu_torch.engine.speculative import adaptive_draft_len, fold_acceptance, prompt_lookup_draft
 from rag_llm_k8s_tpu_torch.models.llama import LlamaModel, make_kv_arena, make_kv_cache, rope_frequencies
-from rag_llm_k8s_tpu_torch.ops.attention import rope_rerotate, rope_rerotate_q8
+from rag_llm_k8s_tpu_torch.ops.attention import kv_heads_per_rank, rope_rerotate, rope_rerotate_q8
 from rag_llm_k8s_tpu_torch.obs import flight, goodput, metrics
+from rag_llm_k8s_tpu_torch.parallel.commands import mesh_command, register_target, stream_for
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from rag_llm_k8s_tpu_torch.sim import policy
@@ -181,6 +203,14 @@ def _tenant_attr(ledger, rid: int) -> Dict[str, str]:
     on this request (``GoodputLedger.note_tenant`` at submit), else {}."""
     t = ledger.tenant_of(rid) if ledger is not None else None
     return {"tenant": t} if t else {}
+
+
+class SharedPlanes(list):
+    """A migration packet's planes on a mesh: every rank keeps its own head
+    slice under one id (``parallel/commands.py``), so the packet rank 0
+    hands on carries host state only and the KV never crosses ranks."""
+
+    _mesh_shared = True
 
 
 class EngineStateLost(RuntimeError):
@@ -256,9 +286,17 @@ class ContinuousEngine:
         dtypes: DTypePolicy = DTypePolicy(),
         device: DeviceLike = None,
         pad_id: int = 0,
+        mesh=None,
     ):
         ec = engine_config
         ec.validate_quant()
+        model_mesh = getattr(model, "mesh", None)
+        if mesh is not None and model_mesh is not mesh and mesh.world > 1:
+            raise ValueError("ContinuousEngine(mesh=...): the model must be this rank's shard on that mesh")
+        self.mesh = model_mesh if mesh is None else mesh
+        tp = self.mesh.tp if self.mesh is not None else 1
+        # the head-sharded arena needs the kv heads to tile tp (JAX's rule)
+        ec.validate_tp_layout(tp, config.num_kv_heads)
         self.paged = bool(ec.kv_paged)
         # "prefill" engines admit and export, "decode" engines import and
         # decode; role is policy, not capability (a failed export decodes
@@ -324,19 +362,31 @@ class ContinuousEngine:
             self.chunk_tokens = int(ec.prefill_chunk_tokens)
             self.window_budget = int(ec.window_token_budget) or self.B + self.chunk_tokens
         self.model = serving_model(model, ec)
-        # the paged arena, or the dense [L, B, K, T, hd] row cache
+        # this rank's slice of the config: its kv heads size the caches
+        self.local = getattr(self.model, "local", config)
+        # the paged arena, or the dense [L, B, K, T, hd] row cache; on a tp
+        # mesh each holds this rank's K/tp kv heads (paged_partition_specs)
         self.arena = self.cache = None
         if self.paged:
-            self.arena = make_kv_arena(config, usable + 1, bs, dtypes.compute_dtype, self.device, ec.kv_quant)
-            # the arena's bytes from its shapes, once: a scrape never asks
-            # the allocator or the card
+            if self.local.num_kv_heads != kv_heads_per_rank(config.num_kv_heads, tp):
+                raise ValueError(f"the model's shard holds {self.local.num_kv_heads} kv heads, the arena's split "
+                                 f"over tp={tp} {kv_heads_per_rank(config.num_kv_heads, tp)}")
+            self.arena = make_kv_arena(self.local, usable + 1, bs, dtypes.compute_dtype, self.device, ec.kv_quant)
+            # this rank's arena bytes from its shapes, once: a scrape never
+            # asks the allocator or the card
             self.arena_device_bytes = float(sum(
                 t.numel() * t.element_size()
                 for t in (self.arena.k, self.arena.v, self.arena.k_scale, self.arena.v_scale) if t is not None
             ))
         else:
-            self.cache = make_kv_cache(config, self.B, self.T, dtypes.compute_dtype, self.device, ec.kv_quant)
+            self.cache = make_kv_cache(self.local, self.B, self.T, dtypes.compute_dtype, self.device, ec.kv_quant)
             self.arena_device_bytes = 0.0  # the pool gauge reads 0 under the dense cache, as in JAX
+        # a mesh: rank 0 sends each call that changes the engine as a
+        # command every rank runs (its own stream shared with the mesh's
+        # other engines); the followers keep no per-request bookkeeping
+        self._commands = stream_for(self.mesh)
+        self._mesh_name = register_target(self.mesh, self, "continuous")
+        self._leader = self.mesh is None or self.mesh.leader
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self._seed_counter = 0
         self.stats = ContinuousStats()
@@ -349,6 +399,8 @@ class ContinuousEngine:
         # window's own fetch, on host numbers only; each returns the summary
         # journaled as a goodput_window event (_journal_window)
         self.ledger = goodput.ledger_for(config, ec)
+        if not self._leader:
+            self.ledger.enabled = False  # rank 0 attributes every window
         # requests whose next admission re-feeds tokens computed once
         # already (a preemption resume, a reset's resubmission): that
         # admission's lanes are preempt_rework, attributed once
@@ -408,11 +460,56 @@ class ContinuousEngine:
             "the scheduler; callers see latency, not errors)",
             fn=lambda: float(stats.preemptions),
         )
-        registry.labeled_gauge(
+        dev_fam = registry.labeled_gauge(
             "rag_kv_pool_device_bytes",
             "paged KV arena bytes resident per device (head-sharded over "
             "tp: ~arena_total/tp per chip; 0 under the dense cache)",
-        ).labels_callback(lambda: nbytes, device=str(self.device.index or 0))
+        )
+        stream, name = self._commands, self._mesh_name
+        if stream is None:
+            dev_fam.labels_callback(lambda: nbytes, device=str(self.device.index or 0))
+            return
+        # a mesh: one child per rank, the followers' from the last heartbeat
+        # (obs/devices.py reads the HBM families the same way)
+        for r in range(self.mesh.world):
+            dev_fam.labels_callback(
+                lambda r=r: nbytes if r == 0 else float(
+                    stream.peer_stats.get(r, {}).get("targets", {}).get(name, {}).get("arena_bytes", 0.0)),
+                device=str(r))
+
+    def mesh_stats(self) -> Dict[str, float]:
+        """This rank's arena bytes (the heartbeat gathers them)."""
+        return {"arena_bytes": self.arena_device_bytes}
+
+    def state_digest(self) -> str:
+        """A digest of this rank's host state that every rank of a mesh
+        must share: the slots, the block tables and the pool, the
+        registrations, the pending admissions, and the device frontiers."""
+        h = hashlib.sha256()
+        h.update(repr([(s.request_id, s.active, s.prefilling, s.kv_ub, len(s.tokens), s.remaining, s.admit_seq)
+                       for s in self.slots]).encode())
+        h.update(repr([(rid, r["row"], r["progress"]) for rid, r in self._chunk_admissions.items()]).encode())
+        h.update(self._kv_len.cpu().numpy().tobytes() + self._active.cpu().numpy().tobytes())
+        if self.paged:
+            h.update(self._tables_host.tobytes())
+            h.update(repr((self.kv_pool.blocks_in_use(), sorted(map(repr, self._prefix_blocks.items())),
+                           sorted(map(repr, self._prefix_tier.items())), list(self._chunk_regs))).encode())
+        return h.hexdigest()[:16]
+
+    def check_mesh(self) -> List[str]:
+        """Every rank's ``state_digest`` on rank 0 (one command and one
+        gather); raises ``parallel.commands.MeshDivergence`` when they
+        differ. Off a mesh, this engine's alone."""
+        if self._commands is None:
+            return [self.state_digest()]
+        return self._gather_digests()
+
+    @mesh_command
+    def _gather_digests(self) -> Optional[List[str]]:
+        if self._commands is not None:
+            return self._commands.gather_digests(self.state_digest, self._mesh_name)
+        self.mesh.gather_object(self.state_digest())
+        return None
 
     def pool_used_tokens(self) -> int:
         """Live tokens across unique pool blocks (host mirrors): the
@@ -523,6 +620,7 @@ class ContinuousEngine:
         # in-flight interleaved admissions, oldest first: rid -> record
         self._chunk_admissions: "OrderedDict[int, dict]" = OrderedDict()
 
+    @mesh_command
     def reset(self) -> None:
         """Drop every row and return every block (after a failed window).
         The cache keeps its memory; no kernel reads outside a row's window,
@@ -646,6 +744,12 @@ class ContinuousEngine:
             return verdict
         if self.kv_pool.can_alloc(want):
             return "ok"
+        return self._reclaim_for(want)
+
+    @mesh_command
+    def _reclaim_for(self, want: int) -> str:
+        """``admission_state``'s reclaim: registrations dropped until
+        ``want`` blocks fit, then the verdict."""
         if self._prefix_blocks or self._chunk_regs:
             # chunk registrations first, then non-hot chains, even while
             # rows decode: their KV is one re-stage away in the prefix cache
@@ -748,6 +852,10 @@ class ContinuousEngine:
     def drain_preempted(self) -> List[Tuple[int, List[int]]]:
         """``(request_id, emitted_tokens)`` preempted since the last call
         (never any under the dense cache)."""
+        return self._drain_preempted() if self._preempted else []
+
+    @mesh_command
+    def _drain_preempted(self) -> List[Tuple[int, List[int]]]:
         out, self._preempted = self._preempted, []
         return out
 
@@ -760,6 +868,7 @@ class ContinuousEngine:
     def has_active(self) -> bool:
         return any(s.active or s.prefilling for s in self.slots)
 
+    @mesh_command
     @torch.inference_mode()
     def evict_requests(self, request_ids: Sequence[int]) -> List[int]:
         """Retire the rows serving ``request_ids`` without a result (their
@@ -781,17 +890,23 @@ class ContinuousEngine:
             rows.append(row)
         return rows
 
-    @torch.inference_mode()
     def admit_many(self, items: Sequence[tuple]) -> List:
         """Admit ``(request_id, prompt, max_new, seed[, sampling])`` items
         into free rows; returns ``(row, finished)`` or the exception of the
         item's prefill group, in input order. A prompt over the largest
         bucket keeps its last tokens (with a warning); ``max_new`` is
         clamped to the row's room past the bucket. ``EngineStateLost`` (the
-        engine was reset) propagates out of the whole call."""
+        engine was reset) propagates out of the whole call. Each item's seed
+        is resolved here, before a mesh command carries it."""
         free = self.free_slots()
         if len(items) > len(free):
             raise ValueError(f"admit_many: {len(items)} items for {len(free)} free rows")
+        return self._admit_many([(it[0], it[1], it[2], self._row_seed(it[3])) + tuple(it[4:]) for it in items])
+
+    @mesh_command
+    @torch.inference_mode()
+    def _admit_many(self, items: Sequence[tuple]) -> List:
+        free = self.free_slots()
         self._admit_lead = time.perf_counter()
         prepared = []
         for i, item in enumerate(items):
@@ -867,7 +982,7 @@ class ContinuousEngine:
         dh = self._h2d(host)
         tokens, starts, lens, rows_t = dh[:, :S], dh[:, S], dh[:, S + 1], dh[:, S + 2]
         positions = (torch.arange(S, device=self.device)[None, :] - starts[:, None]).clamp(min=0)
-        row_cache = make_kv_cache(self.config, n, S, self.dtypes.compute_dtype, self.device,
+        row_cache = make_kv_cache(self.local, n, S, self.dtypes.compute_dtype, self.device,
                                   self.engine_config.kv_quant)
         logits = self.model(tokens, positions, row_cache, starts, torch.full_like(starts, S), 0,
                             last_logit_only=True)
@@ -1009,7 +1124,6 @@ class ContinuousEngine:
             "t_admit": time.monotonic(),
         }
 
-    @torch.inference_mode()
     def step(self) -> List[Tuple[int, List[int]]]:
         """One device window and one token fetch; returns the requests that
         finished as ``(request_id, tokens)`` (EOS excluded) and frees their
@@ -1018,14 +1132,24 @@ class ContinuousEngine:
         pending; under ``spec_paged`` a verify window when some row drafted
         and verifying is expected to retire at least as many tokens as a
         plain window (``_verify_worthwhile``); else ``decode_sync_steps``
-        plain decode steps."""
-        faults.maybe_fail("decode_step")
+        plain decode steps. The choice, and a verify window's drafts, are
+        made here, on rank 0 of a mesh, and travel in the command."""
         if self.interleave_on and self._chunk_admissions:
-            return self._step_mixed()
+            return self._step("mixed")
         if self.spec_on:
             drafts = self._draft_for_slots()
             if any(drafts.values()) and self._verify_worthwhile(drafts):
-                return self._step_verify(drafts)
+                return self._step("verify", drafts)
+        return self._step("decode")
+
+    @mesh_command
+    @torch.inference_mode()
+    def _step(self, window: str, drafts: Optional[Dict[int, List[int]]] = None) -> List[Tuple[int, List[int]]]:
+        faults.maybe_fail("decode_step")
+        if window == "mixed":
+            return self._step_mixed()
+        if window == "verify":
+            return self._step_verify(drafts)
         t_w = time.perf_counter()  # the ledger window: block growth included
         if self.paged:
             self._ensure_decode_blocks()
@@ -1373,7 +1497,7 @@ class ContinuousEngine:
                 continue
             offered, acc = int(host[i, K]), int(acc_h[i])
             accepted_total += acc
-            if offered:
+            if offered and self._leader:
                 self._spec_rids.add(slot.request_id)
             slot.spec_ema = fold_acceptance(slot.spec_ema, offered, acc)
             # the exact new frontier, not an upper bound
@@ -1443,6 +1567,7 @@ class ContinuousEngine:
         for dst, src in zip(self._cache_planes(self.arena), planes):
             dst.index_copy_(1, idx, src.to(device=dst.device, dtype=dst.dtype))
 
+    @mesh_command
     @torch.inference_mode()
     def export_request(self, request_id: int) -> Optional[dict]:
         """Take a just-admitted request off this engine as a migration
@@ -1464,6 +1589,9 @@ class ContinuousEngine:
         ids = list(self._slot_blocks[row])
         t0 = time.perf_counter()
         planes = self._gather_planes(ids)
+        if self._mesh_name is not None:
+            # each rank keeps its own head slice: rank 0's packet names it
+            planes = SharedPlanes(planes)
         seed, samp = self._row_sampling[row]
         packet = {
             "request_id": request_id,
@@ -1486,6 +1614,7 @@ class ContinuousEngine:
                     duration_ms=round((time.perf_counter() - t0) * 1e3, 3), **_tenant_attr(self.ledger, request_id))
         return packet
 
+    @mesh_command
     @torch.inference_mode()
     def import_request(self, packet: dict) -> int:
         """Land a migration packet in a free row (JAX ``import_request``):
@@ -1547,7 +1676,6 @@ class ContinuousEngine:
     # ------------------------------------------------------------------
     # prefixed admission and pool prefix registrations (scheduler thread)
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def admit_prefixed(
         self,
         request_id: int,
@@ -1561,7 +1689,13 @@ class ContinuousEngine:
         pool registration), only the suffix prefills. Returns ``(row,
         finished)`` as ``admit_many`` does per item. Raises ValueError when
         the shapes do not fit a row (the caller falls back to a plain
-        admission); ``PoolExhausted`` (paged) before anything is written."""
+        admission); ``PoolExhausted`` (paged) before anything is written.
+        The seed is resolved here, before a mesh command carries it."""
+        return self._admit_prefixed(request_id, list(suffix), prefix, max_new, self._row_seed(seed))
+
+    @mesh_command
+    @torch.inference_mode()
+    def _admit_prefixed(self, request_id: int, suffix: List[int], prefix, max_new: int, seed: int):
         free = self.free_slots()
         assert free, "admit_prefixed() without a free slot"
         if not suffix:
@@ -1580,7 +1714,6 @@ class ContinuousEngine:
             )
         C = policy.bucket_len(max(len(suffix), 1), pc.suffix_buckets)
         max_new_c = policy.clamp_max_new(max_new, S, self.T)
-        seed = self._row_seed(seed)
         toks = np.full((1, C), self.pad_id, np.int64)
         toks[0, :len(suffix)] = list(suffix)
         row = free[0]
@@ -1609,7 +1742,7 @@ class ContinuousEngine:
         host[0, :C] = toks[0]
         host[0, C:] = (start, S, slen - 1, total, row)
         dh = self._h2d(host)
-        cache = make_kv_cache(self.config, 1, T_build, self.dtypes.compute_dtype, self.device,
+        cache = make_kv_cache(self.local, 1, T_build, self.dtypes.compute_dtype, self.device,
                               self.engine_config.kv_quant)
         for c, b in zip(self._cache_planes(cache), prefix.planes):
             c[:, :, :, start:start + b.shape[3]] = b.to(c.dtype)
@@ -1774,6 +1907,7 @@ class ContinuousEngine:
                             chunked=True, block_tables=tables, logit_index=dh[:, C + 2])
         return self._sample(logits[:, 0], dh[:, C + 3], rows=dh[:, C + 4])
 
+    @mesh_command
     def prestage_prefix(self, prefix, tier: str = "hot"):
         """Register a ``CachedPrefix``'s full blocks in the pool ahead of any
         admission (JAX ``prestage_prefix``, lookahead's paged leg; scheduler
@@ -1866,6 +2000,7 @@ class ContinuousEngine:
         self.kv_pool.free(ids)
         return True
 
+    @mesh_command
     def set_prefix_tier(self, chain_key, tier: str) -> bool:
         """Move a registration between hotness tiers; ``"cold"`` drops it
         (its KV lives on in the prefix cache's host spill). True when
@@ -1894,9 +2029,14 @@ class ContinuousEngine:
         """Re-tag every registration with ``tier_fn(chain_key)`` (the
         service passes the prefix cache's ``chain_tier``); returns how many
         changed."""
-        if not self.paged:
+        if not self.paged or not self._prefix_blocks:
             return 0
-        return sum(1 for key in list(self._prefix_blocks) if self.set_prefix_tier(key, tier_fn(key)))
+        return self._apply_tiers([(key, tier_fn(key)) for key in list(self._prefix_blocks)])
+
+    @mesh_command
+    def _apply_tiers(self, moves: List[tuple]) -> int:
+        """``retier_registrations``'s moves, decided on rank 0."""
+        return sum(1 for key, tier in moves if self.set_prefix_tier(key, tier))
 
     def tier_occupancy(self) -> Dict[str, int]:
         """The pool's tier ledger plus ``rows`` (empty dense); safe to read
@@ -1912,6 +2052,7 @@ class ContinuousEngine:
             return 0
         return self._reclaimable_blocks
 
+    @mesh_command
     def release_prestaged(self, chain_key, only_unused: bool = False, gen=None) -> bool:
         """Drop one chain registration (lookahead's stale-prefetch release):
         rows still decoding over its blocks keep their own refs.

@@ -49,12 +49,13 @@ and loads (``ops._build.COMPILES``).
 On a mesh (``mesh``, a ``core.mesh.MeshContext`` of more than one rank;
 the JAX engine's ``mesh=``) the model is this rank's shard
 (``parallel.sharding``) and every rank runs the same device program: rank
-0 sends each one as a command (``parallel/commands.py``) before running it,
-under one lock, and the followers run ``run_command``. A command carries
-the prompt the program runs on (the assembled one for ``generate_rag``,
-fetched once), the token budget, the speculation switch and the sampler's
-generator state, so every rank draws the same token from the same gathered
-logits, and the per-step ``done`` check reads the same values everywhere.
+0 sends each one as a mesh command (``parallel/commands.py``,
+``_device_run``, ``_score_device``, ``_prefixed_device``) before running
+it, under one lock. A command carries the prompt the program runs on (the
+assembled one for ``generate_rag``, fetched once), the token budget, the
+speculation switch and the sampler's generator state, so every rank draws
+the same token from the same gathered logits, and the per-step ``done``
+check reads the same values everywhere.
 The rest of a call (trimming, stats, the goodput window) is rank 0's. A
 tp-sharded model keeps the unfused layout (JAX ``maybe_fuse_params``).
 
@@ -93,7 +94,7 @@ from rag_llm_k8s_tpu_torch.core.config import (
 from rag_llm_k8s_tpu_torch.core.device import DeviceLike, resolve_device
 from rag_llm_k8s_tpu_torch.obs import flight, goodput, metrics
 from rag_llm_k8s_tpu_torch.ops import _build
-from rag_llm_k8s_tpu_torch.parallel.commands import CommandStream
+from rag_llm_k8s_tpu_torch.parallel.commands import CommandStream, mesh_command, register_target, stream_for
 from rag_llm_k8s_tpu_torch.resilience import faults
 from rag_llm_k8s_tpu_torch.engine.sampling import (
     NEG_INF,
@@ -254,20 +255,16 @@ class InferenceEngine:
         if mesh is not None and model_mesh is not mesh and mesh.world > 1:
             raise ValueError("InferenceEngine(mesh=...): the model must be this rank's shard on that mesh")
         self.mesh = model_mesh if mesh is None else mesh
-        if self.mesh is not None:
-            engine_config.validate_mesh(self.mesh.world)
         self.model = serving_model(model, engine_config)
         self._spec_ema: Optional[float] = None
         self._spec_skips = 0
         self._lock = threading.Lock()
         # rank 0 of a mesh sends each device program as a command before it
-        # runs it, both under the stream's lock (parallel/commands.py)
-        self.commands: Optional[CommandStream] = None
-        if self.mesh is not None and self.mesh.world > 1 and self.mesh.leader:
-            self.commands = CommandStream(self.mesh)
-            self._run_lock = self.commands.lock
-        else:
-            self._run_lock = threading.Lock()
+        # runs it, both under the stream's lock (parallel/commands.py); the
+        # stream is the mesh's one, shared with its other engines
+        self.commands: Optional[CommandStream] = stream_for(self.mesh)
+        self._commands, self._mesh_name = self.commands, register_target(self.mesh, self, "oneshot")
+        self._run_lock = self.commands.lock if self.commands is not None else threading.RLock()
         self._rng_counter = 0
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self.stats = EngineStats()
@@ -548,42 +545,18 @@ class InferenceEngine:
             iters += 1
         return out[None, :max_new], iters
 
+    @mesh_command
+    @torch.inference_mode()
     def _device_run(
         self, tokens: torch.Tensor, pad_mask: torch.Tensor, S: int, max_new: int, chunk: Optional[int],
         spec: bool, gen: torch.Generator,
     ) -> Tuple[np.ndarray, int]:
         """One generate's device program: ``(token ids [B, max_new], verify
-        forwards)``. The caller holds the run lock; on a mesh's rank 0 the
-        command goes to the followers first."""
-
-        def run():
-            if spec:
-                return self._run_spec(tokens, pad_mask, S, max_new, gen)
-            return self._run_vanilla(tokens, pad_mask, S, max_new, chunk, gen), 0
-
-        if self.commands is None:
-            return run()
-        return self.commands.call("run", run, tokens=tokens.cpu().numpy(), pad_mask=pad_mask.cpu().numpy(), S=S,
-                                  max_new=max_new, chunk=chunk, spec=spec, gen_state=gen.get_state())
-
-    @torch.inference_mode()
-    def run_command(self, name: str, payload: Dict) -> None:
-        """A follower's side of one command from rank 0: the same device
-        program on this rank's shard (``parallel.commands.serve_commands``)."""
-        dev = self.device
-        if name == "run":
-            gen = torch.Generator(device=dev)
-            gen.set_state(payload["gen_state"])
-            tokens = torch.from_numpy(payload["tokens"]).to(dev)
-            mask = torch.from_numpy(payload["pad_mask"]).to(dev)
-            with self._run_lock:
-                self._device_run(tokens, mask, payload["S"], payload["max_new"], payload["chunk"],
-                                 payload["spec"], gen)
-        elif name == "score":
-            with self._run_lock:
-                self._score_device(*(payload[k] for k in ("tokens", "mask", "nxt", "chunk")))
-        else:
-            raise ValueError(f"unknown engine command {name!r}")
+        forwards)``. The caller holds the run lock; on a mesh every rank runs
+        it, from rank 0's prompt and generator state."""
+        if spec:
+            return self._run_spec(tokens, pad_mask, S, max_new, gen)
+        return self._run_vanilla(tokens, pad_mask, S, max_new, chunk, gen), 0
 
     # ------------------------------------------------------------------
     # host-side API
@@ -802,11 +775,7 @@ class InferenceEngine:
         mask[0, off:] = 1
         nxt = np.zeros((1, S), np.int64)
         nxt[0, : S - 1] = tokens[0, 1:]
-        if self.commands is None:
-            host = self._score_device(tokens, mask, nxt, chunk)
-        else:
-            host = self.commands.call("score", lambda: self._score_device(tokens, mask, nxt, chunk),
-                                      tokens=tokens, mask=mask, nxt=nxt, chunk=chunk)
+        host = self._score_device(tokens, mask, nxt, chunk)
         lo = off + len(x) - W - 1  # the slot whose logits predict emitted[0]
         sl = slice(lo, lo + W)
         return {
@@ -815,9 +784,12 @@ class InferenceEngine:
             "chosen_logit": host[sl, 2].astype(np.float64),
         }
 
+    @mesh_command
+    @torch.inference_mode()
     def _score_device(self, tokens: np.ndarray, mask: np.ndarray, nxt: np.ndarray, chunk: int) -> np.ndarray:
         """``score_exact``'s device program: ``[S, 3]`` (argmax, max logit,
-        next token's logit) at every position."""
+        next token's logit) at every position; on a mesh every rank runs it
+        under the stream's lock."""
         dev = self.device
         S = tokens.shape[1]
         tokens_t, mask_t, nxt_t = (torch.from_numpy(a).to(dev) for a in (tokens, mask, nxt))
@@ -978,13 +950,9 @@ class InferenceEngine:
             )
         max_new = self._prefixed_max_new(max_new_tokens)
         gen = self._next_rng(seed)
-        with self._run_lock:
-            t_call = time.perf_counter()
-            logits, cache, total = self.prefill_prefixed(suffix_ids, prefix, max_new)
-            pos0 = torch.full((1,), total, dtype=torch.int64, device=self.device)
-            kv_start = torch.zeros(1, dtype=torch.int64, device=self.device)
-            out = self._decode_loop(cache, logits, kv_start, total, pos0, max_new, gen)
-            call_s = time.perf_counter() - t_call
+        t_call = time.perf_counter()
+        out = self._prefixed_device(list(suffix_ids), prefix, max_new, gen)
+        call_s = time.perf_counter() - t_call
         row = self._trim(out[0])
         self._observe_generate(call_s, len(row))
         with self._lock:
@@ -996,6 +964,18 @@ class InferenceEngine:
         self._record_oneshot(call_s, bucket=S_suf, batch=1, computed=n_suf, decode_tokens=len(row),
                              decode_steps=max(len(row), 1), skipped=int(prefix.reused_tokens), info=info)
         return row
+
+    @mesh_command
+    @torch.inference_mode()
+    def _prefixed_device(self, suffix_ids: List[int], prefix, max_new: int, gen: torch.Generator) -> np.ndarray:
+        """``generate_prefixed``'s device program (every rank of a mesh runs
+        it, from rank 0's generator state): the prefixed prefill and the
+        vanilla decode loop; the token ids ``[1, max_new]``."""
+        with self._run_lock:
+            logits, cache, total = self.prefill_prefixed(suffix_ids, prefix, max_new)
+            pos0 = torch.full((1,), total, dtype=torch.int64, device=self.device)
+            kv_start = torch.zeros(1, dtype=torch.int64, device=self.device)
+            return self._decode_loop(cache, logits, kv_start, total, pos0, max_new, gen)
 
     def warm_prefixed(self, suffix_lens: Sequence[int] = (), max_new_tokens: Optional[int] = None) -> List[int]:
         """The suffix buckets the prefixed generate serves at (JAX: the

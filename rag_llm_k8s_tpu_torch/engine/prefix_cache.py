@@ -26,13 +26,22 @@ each request's fresh cache, so prefill starts at the first non-shared token.
 Device tensors in entries and buffers are never written after they are
 built (splices return new buffers), so a resolve may read them outside the
 lock while another thread replaces an entry.
+
+On a mesh (the owning engine's ``mesh``) every rank keeps its own cache of
+its K/tp heads of every segment, built by its shard's forward: each call
+that changes the cache (``prefix_for``, ``stage``, ``release_staged``,
+``retier``, ``force_demote``, ``pin``, ``clear``) is a mesh command
+(``parallel/commands.py``) that every rank runs in the same order, and
+every clock the cache reads (hotness decay, the sweep interval) is the
+command's, rank 0's, so the keys, the LRU order and every tier move are
+the same on every rank. A ``CachedPrefix`` a command returns is named on
+every rank by one id, so a later command can pass it on.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -45,6 +54,7 @@ from rag_llm_k8s_tpu_torch.engine.tiering import (
     quantize_planes,
 )
 from rag_llm_k8s_tpu_torch.obs import flight
+from rag_llm_k8s_tpu_torch.parallel.commands import mesh_command, now, register_target
 from rag_llm_k8s_tpu_torch.resilience import faults
 
 logger = logging.getLogger(__name__)
@@ -52,6 +62,9 @@ logger = logging.getLogger(__name__)
 
 @dataclass
 class CachedPrefix:
+    # every rank of a mesh keeps its own under one id (parallel/commands.py)
+    _mesh_shared = True
+
     """A resolved, device-resident prompt prefix ready to splice.
 
     ``planes`` is the KV tuple ``(k, v)`` — or ``(k, v, k_scale, v_scale)``
@@ -182,7 +195,7 @@ class PrefixCache:
         self.tiering = tiering if enabled else None
         if self.tiering is not None:
             self.tiering.validate()
-            self.hotness = HotnessTracker(self.tiering.half_life_s)
+            self.hotness = HotnessTracker(self.tiering.half_life_s, clock=now)
             self.spill = HostSpillStore(self.tiering.host_spill_mb)
         else:
             self.hotness = None
@@ -193,7 +206,7 @@ class PrefixCache:
         # (one signal for both decisions), else a cache-private tracker
         # with the same decay grammar. None outside "chunk" mode.
         if config.reuse == "chunk" and self.hotness is None:
-            self._chunk_hotness = HotnessTracker(300.0)
+            self._chunk_hotness = HotnessTracker(300.0, clock=now)
         else:
             self._chunk_hotness = self.hotness
         # chunk-reuse outcome counters (rag_prefix_chunk_reuse_total):
@@ -213,10 +226,12 @@ class PrefixCache:
         # _assembled): a memo re-serve is the SAME content the buffer was
         # built with, so the shadow auditor attributes it identically
         self._assembled_approx: Dict[tuple, Tuple[str, ...]] = {}
-        # anchored at construction: the first opportunistic sweep waits a
-        # full interval (a cache with nothing demotable yet should not pay
-        # a sweep on its very first resolve)
-        self._last_retier = time.monotonic()
+        # anchored at the first sweep's call: that sweep and the next
+        # opportunistic ones wait a full interval (a cache with nothing
+        # demotable yet should not pay a sweep on its very first resolve).
+        # The call runs inside a command on a mesh, so every rank anchors
+        # at rank 0's clock
+        self._last_retier: Optional[float] = None
         # set by the service: called (outside the lock) after a retier
         # sweep that moved anything, so pool-side registration tiers can
         # follow the cache's hotness (ContinuousEngine.set_prefix_tier via
@@ -256,6 +271,14 @@ class PrefixCache:
         self.misses = 0
         self.tokens_reused = 0
         self.tokens_computed = 0
+        # a mesh's rank 0 sends each change as a command (the engine's stream)
+        mesh = getattr(engine, "mesh", None)
+        self._commands = getattr(engine, "commands", None)
+        self._mesh_name = register_target(mesh, self, "prefix")
+
+    def mesh_stats(self) -> Dict[str, int]:
+        """This rank's cache bytes (the heartbeat gathers them)."""
+        return {"prefix_bytes": self.entry_bytes + self.assembled_bytes}
 
     # -- keys -----------------------------------------------------------
     def _entry_key(self, seg_key: str, offset: int, chain: Tuple[str, ...]):
@@ -274,6 +297,7 @@ class PrefixCache:
         with self._lock:
             return dict(self._chunk_counts)
 
+    @mesh_command
     def pin(self, seg_key: str) -> None:
         """Mark a segment key (e.g. the fixed prompt head) never-evicted."""
         with self._lock:
@@ -353,6 +377,7 @@ class PrefixCache:
         return out
 
     # -- the one public resolve/populate entry point ---------------------
+    @mesh_command
     def prefix_for(self, segments: Sequence[Tuple[str, Sequence[int]]],
                    _staged: Optional[Dict] = None,
                    _trigger: str = "demand") -> Optional[CachedPrefix]:
@@ -728,6 +753,7 @@ class PrefixCache:
         )
 
     # -- lookahead staging (rag/lookahead.py drives these) ---------------
+    @mesh_command
     def stage(self, segments: Sequence[Tuple[str, Sequence[int]]],
               trigger: str = "lookahead"):
         """Resolve-and-track: exactly ``prefix_for`` (the miss path IS the
@@ -747,6 +773,7 @@ class PrefixCache:
             return cp, None
         return cp, record
 
+    @mesh_command
     def release_staged(self, record: Optional[Dict]) -> int:
         """Release what a staging created and nothing else consumed since:
         ref-count-correct stale-prefetch cancellation (a shared entry — the
@@ -785,6 +812,7 @@ class PrefixCache:
         return released
 
     # -- hotness tiering (engine/tiering.py drives the representation) ----
+    @mesh_command
     def retier(self, force: bool = False) -> int:
         """One tier-maintenance sweep: demote entries whose decayed hotness
         fell under the thresholds (hot → warm int8 in place, any → cold
@@ -799,15 +827,17 @@ class PrefixCache:
         tracks device bytes exactly (a cold entry holds zero)."""
         if self.tiering is None:
             return 0
-        now = time.monotonic()
+        t_now = now()
         cold: List[tuple] = []  # (ek, planes snapshot) to spill off-lock
         with self._lock:
+            if self._last_retier is None:
+                self._last_retier = t_now
             if (
                 not force
-                and now - self._last_retier < self.tiering.retier_interval_s
+                and t_now - self._last_retier < self.tiering.retier_interval_s
             ):
                 return 0
-            self._last_retier = now
+            self._last_retier = t_now
             moved = 0
             for ek, e in list(self._entries.items()):
                 if e.pinned:
@@ -851,6 +881,7 @@ class PrefixCache:
                 logger.exception("prefix-cache retier callback failed")
         return moved
 
+    @mesh_command
     def force_demote(self, tier: str, seg_key: Optional[str] = None) -> int:
         """Demote entries (all, or just ``seg_key``'s) to ``tier``
         regardless of hotness — the forced-demotion lever of the
@@ -1114,6 +1145,7 @@ class PrefixCache:
             self.entry_bytes -= e.nbytes
             logger.debug("prefix cache evicted %r (%d bytes)", k, e.nbytes)
 
+    @mesh_command
     def clear(self) -> None:
         """Drop every cached block and assembled buffer (frees the HBM) —
         and every cold-spilled host buffer with them: a cleared cache must

@@ -22,7 +22,9 @@ On a mesh (rank 0's service, ``commands`` its command stream) the two HBM
 families report every rank's card: one child per ``(rank, device)``,
 labeled ``device`` and ``rank`` (several ranks may share one card), rank
 0's read live and each follower's from the stream's last heartbeat, which
-gathers them over the control group (``parallel/commands.py``).
+gathers them over the control group (``parallel/commands.py``). The
+prefix-cache family has the same children: each rank's cache holds its kv
+heads of every segment, and reports its bytes in the heartbeat.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def register_device_gauges(
         "KV prefix-cache bytes resident per device",
     )
     if commands is not None:
-        return _mesh_children(use_fam, lim_fam, commands)
+        return _mesh_children(use_fam, lim_fam, pc_fam, commands)
     indices = local_devices(device)
     fn = prefix_bytes_fn or (lambda: {})
     for i in indices:
@@ -92,16 +94,18 @@ def register_device_gauges(
     return len(indices)
 
 
-def _mesh_children(use_fam, lim_fam, commands) -> int:
-    """The HBM children over every rank of a mesh: rank 0's read live, the
-    followers' from the last heartbeat (0 before the first). The prefix
-    cache does not run on a mesh, so its family has no child."""
+def _mesh_children(use_fam, lim_fam, pc_fam, commands) -> int:
+    """The HBM and prefix-cache children over every rank of a mesh: rank
+    0's read live, the followers' from the last heartbeat (0 before the
+    first)."""
     from rag_llm_k8s_tpu_torch.parallel.commands import device_stats
 
     ctx = commands.ctx
 
     def read(rank: int, key: str) -> float:
         st = device_stats(ctx) if rank == 0 else commands.peer_stats.get(rank, {})
+        if key == "prefix_bytes":
+            return float(sum(t.get(key, 0) for t in st.get("targets", {}).values()))
         return float(st.get(key, 0))
 
     cards = torch.cuda.device_count() if ctx.device.type == "cuda" else 1
@@ -110,4 +114,5 @@ def _mesh_children(use_fam, lim_fam, commands) -> int:
         labels = dict(device=str(r % cards), rank=str(r))
         use_fam.labels_callback(lambda r=r: read(r, "allocated"), **labels)
         lim_fam.labels_callback(lambda r=r: read(r, "total"), **labels)
+        pc_fam.labels_callback(lambda r=r: read(r, "prefix_bytes"), **labels)
     return ctx.world

@@ -338,7 +338,7 @@ def _split_merge_row(
     partial per split, merged. ``[K, n_rows, hd]`` fp32; rows of a tile no
     split covers are zero. With scales (int8 kk and vv), each score column
     is multiplied by its k-scale and the PV operand is ``p * v_scale``
-    rounded to q's dtype, as the q8 kernels do."""
+    rounded to q's dtype, as the q8 chunk kernels do."""
     K, n_rows, hd = qr.shape
     T = kk.shape[1]
     out = torch.zeros((K, n_rows, hd), dtype=torch.float32, device=qr.device)
@@ -560,7 +560,9 @@ INV_127 = 1.0 / 127.0
 def quantize_kv(x: torch.Tensor):
     """``[..., hd] -> (int8 [..., hd], fp32 scale [...])``: one symmetric
     scale per head vector, ``max(amax, 1e-8) / 127``, and ``x / scale``
-    rounded half to even (JAX ``quantize_kv``, as compiled)."""
+    rounded half to even (JAX ``quantize_kv``, as compiled). A scale reads
+    one head's ``hd`` values only, so on a tp mesh each rank quantizes its
+    own kv heads with no collective."""
     xf = x.float()
     scale = xf.abs().amax(dim=-1).clamp_min(1e-8) * INV_127
     return torch.round(xf / scale[..., None]).to(torch.int8), scale
@@ -782,19 +784,12 @@ def decode_attention_split_xla_q8(
     tile: int = DECODE_TILE_KEYS,
 ) -> torch.Tensor:
     """``decode_attention_xla_q8`` computed the way the q8 decode kernel
-    cuts it: the int8 payload as it is, each score column times its
-    k-scale, the PV operand ``p * v_scale`` in q's dtype, scales outside
-    each row's window zeroed, the window cut by ``split_bounds``, through
-    ``_split_merge_row`` (no causality; the G heads are one row tile)."""
-    B, _, H, _ = q.shape
-    K, T = k_cache.shape[2], k_cache.shape[3]
-    rows = []
-    for b in range(B):
-        lo, hi = max(int(kv_start[b]), 0), min(int(kv_len[b]), T)
-        rows.append(_split_merge_row(
-            _query_rows(q[b], K), k_cache[layer, b], v_cache[layer, b], lo, hi, None, False, split_keys, H // K,
-            tile, _window_scales(k_scale[layer, b], lo, hi), _window_scales(v_scale[layer, b], lo, hi)))
-    return _from_query_rows(torch.stack(rows), 1, q.dtype)
+    cuts it: this layer dequantized to q's dtype as the plain version
+    dequantizes it (scales outside each row's window zeroed), then
+    ``decode_attention_split_xla``'s arithmetic."""
+    kd = dequantize_layer_slice(k_cache, k_scale, layer, kv_start, kv_len, q.dtype)
+    vd = dequantize_layer_slice(v_cache, v_scale, layer, kv_start, kv_len, q.dtype)
+    return decode_attention_split_xla(q, kd, vd, kv_start, kv_len, 0, split_keys, tile)
 
 
 def paged_decode_attention_split_xla_q8(
@@ -811,14 +806,15 @@ def paged_decode_attention_split_xla_q8(
 ) -> torch.Tensor:
     """``paged_decode_attention_xla_q8`` computed the way the q8 paged
     decode kernel cuts it: payload and scales gathered through the table
-    (slots past ``kv_len`` zeroed), then ``decode_attention_split_xla_q8``'s
-    arithmetic over the window ``[0, min(kv_len, MB * bs))``."""
+    (slots past ``kv_len`` zeroed) and dequantized to q's dtype, then
+    ``paged_decode_attention_split_xla``'s arithmetic over the window
+    ``[0, min(kv_len, MB * bs))``."""
     B, _, H, _ = q.shape
     K = k_arena.shape[2]
-    k, v, ks, vs = (_gather_paged_layer(x, block_tables, kv_len, layer) for x in (k_arena, v_arena, k_scale, v_scale))
+    kd, vd = _dequant_paged_layer(k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, q.dtype)
     out = torch.stack([
-        _split_merge_row(_query_rows(q[b], K), k[b], v[b], 0, min(int(kv_len[b]), k.shape[2]), None, False,
-                         split_keys, H // K, tile, ks[b], vs[b])
+        _split_merge_row(_query_rows(q[b], K), kd[b], vd[b], 0, min(int(kv_len[b]), kd.shape[2]), None, False,
+                         split_keys, H // K, tile)
         for b in range(B)])
     return _from_query_rows(out, 1, q.dtype)
 
@@ -1308,3 +1304,40 @@ def paged_chunk_attention_q8(
     _build.check(lib, rc, "paged_chunk_attention_q8")
     _build.LAUNCHES["paged_chunk_attention_q8"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the head-sharded layout of kernels 7-10 on a tp mesh
+# ---------------------------------------------------------------------------
+_HEADS = (None, None, "tp", None)  # q / output [B, S, H, hd]
+_ARENA = (None, None, "tp", None, None)  # arena planes [L, N, K, bs, hd]
+_SCALES = (None, None, "tp", None)  # scale planes [L, N, K, bs]
+_TABLES = (None, None)  # block tables [B, MB]
+_WHOLE = (None,)  # kv_len, layer, write_index
+
+
+def paged_partition_specs(mode: str, q8: bool = False):
+    """``(in_specs, out_spec)`` of the paged kernels on a tp mesh (JAX
+    ``paged_partition_specs``): each spec names, per axis of one argument,
+    the mesh axis it is split over (``"tp"``) or None. q and the output are
+    split by query heads, the arena planes and scales by kv heads (every
+    rank holds K/tp heads of every block), and the block tables,
+    ``kv_len``, ``layer`` and the chunk path's ``write_index`` are whole on
+    every rank (one host allocator per rank serves every shard). ``mode``:
+    ``"decode"`` (``q, k, v[, k_scale, v_scale], tables, kv_len, layer``)
+    or ``"chunk"`` (the same, then ``write_index``). The continuous engine
+    sizes its arena by it (``kv_heads_per_rank``)."""
+    planes = (_HEADS, _ARENA, _ARENA) + ((_SCALES, _SCALES) if q8 else ())
+    if mode == "decode":
+        return planes + (_TABLES, _WHOLE, _WHOLE), _HEADS
+    if mode == "chunk":
+        return planes + (_TABLES, _WHOLE, _WHOLE, _WHOLE), _HEADS
+    raise ValueError(f"paged_partition_specs: unknown mode {mode!r}")
+
+
+def kv_heads_per_rank(num_kv_heads: int, tp: int) -> int:
+    """The kv heads of the arena each rank holds under
+    ``paged_partition_specs``: the axis marked ``"tp"`` split evenly."""
+    if tp > 1 and num_kv_heads % tp:
+        raise ValueError(f"{num_kv_heads} kv heads do not split over tp={tp}")
+    return num_kv_heads // tp if tp > 1 else num_kv_heads

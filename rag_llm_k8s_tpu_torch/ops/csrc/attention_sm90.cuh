@@ -1198,7 +1198,8 @@ __global__ void __launch_bounds__(32) decode_kernel(Params p, KV kv) {
 // (split, kv head, batch row), the G heads as rows of an m16n8k16 tile, S,
 // the softmax and O on the mma fragments, partials merged by merge_kernel.
 // The int8 tiles are never widened in shared memory: each fragment is
-// widened in registers (i8x4_to_bf16x4, exact) as ldmatrix hands it over.
+// widened in registers as ldmatrix hands it over (i8x4_to_bf16x4_scaled:
+// exactly, then times its key's scale, rounded once to bf16).
 //
 // - S = Q K^T. ldmatrix gives lane (g, t) the word of bytes 4t .. 4t + 3 of
 //   key g's 16 hd values in each hd step, which is its B fragment (k rows
@@ -1212,11 +1213,18 @@ __global__ void __launch_bounds__(32) decode_kernel(Params p, KV kv) {
 //   column g is hd 2g, bytes (1, 3) that of an mma whose column g is hd
 //   2g + 1. O's fragments are kept in that column order and written back
 //   in hd order (lane t holds hd 4t .. 4t + 3 of each 16).
-// - Scales: each score column is multiplied by its k-scale before the
-//   running max, the sum takes p, and the PV operand is bf16(p * v-scale).
-//   A scale outside the window (it may be NaN) never multiplies anything:
-//   its score is selected to NEG_INF and its v-scale to 0. A 16-byte piece
-//   of four scales is read whole when it holds a key of the window.
+// - Scales: each widened K and V value is multiplied by its key's scale
+//   in fp32 and rounded once to bf16, which is the plain version's
+//   dequantized cache, and P is bf16(p): decode_kernel's arithmetic over
+//   that cache. (Scaling the scores instead, and the PV operand as
+//   bf16(p * v-scale), is more exact, but it moved one row of a tp rank's
+//   K = 1 paged decode past 2^-7 from the plain version on the H100,
+//   sharpened queries amplifying the plain version's own K rounding.)
+//   A key's K fragment word is one key (8j + g), its V pair keys kc and
+//   kc + 1. A scale outside the window (it may be NaN) reaches only its
+//   own key's score column, which is selected to NEG_INF, and its v-scale
+//   is selected to 0. A 16-byte piece of four scales is read whole when it
+//   holds a key of the window.
 //
 // A 16-key int8 tile is half a bf16 one, so the ring has twice
 // decode_kernel's stages: DEC_Q8_STAGES - 1 tiles in flight per warp, 28 KB
@@ -1233,9 +1241,16 @@ __device__ __forceinline__ uint32_t i8_off(int r, int c) {
   else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-// four int8 (one word) to the bf16 pairs of bytes (0, 2) and (1, 3), exactly
-__device__ __forceinline__ void i8x4_to_bf16x2_even_odd(uint32_t w, uint32_t& even, uint32_t& odd) {
-  i8x4_to_bf16x4(__byte_perm(w, 0u, 0x3120), even, odd);
+// four int8 (one word, bytes x0 .. x3) times their scales in fp32, each
+// rounded once to bf16: lo = (x0 s0, x1 s1), hi = (x2 s0, x3 s1)
+__device__ __forceinline__ void i8x4_to_bf16x4_scaled(uint32_t w, float s0, float s1, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = pack_bf16(f0 * s0, f1 * s1);
+  hi = pack_bf16(f2 * s0, f3 * s1);
 }
 
 template <int HD, class KV>
@@ -1317,8 +1332,10 @@ __global__ void __launch_bounds__(32) decode_q8_kernel(Params p, KV kv) {
     const float* sc = reinterpret_cast<const float*>(smem + (i % ST) * STAGE + 2 * TILE);
 
     // S = Q K^T: two 8-key groups j; ldmatrix.x4 gives the words of four hd
-    // steps (chunks 4q .. 4q + 3 of keys 8j .. 8j + 7)
+    // steps (chunks 4q .. 4q + 3 of keys 8j .. 8j + 7), each of key 8j + g,
+    // dequantized by its k-scale
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const float kg[2] = {sc[g], sc[8 + g]};
 #pragma unroll
     for (int q4 = 0; q4 < CH8 / 4; ++q4) {
 #pragma unroll
@@ -1328,22 +1345,20 @@ __global__ void __launch_bounds__(32) decode_q8_kernel(Params p, KV kv) {
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           uint32_t b0, b1;
-          i8x4_to_bf16x4(r[w], b0, b1);
+          i8x4_to_bf16x4_scaled(r[w], kg[j], kg[j], b0, b1);
           mma_16816(s[j], qf[4 * q4 + w], b0, b1);
         }
       }
     }
 
-    // k-scales on the score columns, then the online softmax: s[j][e] is
-    // row g, key k0 + 8j + kc + e; s[j][2 + e] row g + 8
+    // the online softmax: s[j][e] is row g, key k0 + 8j + kc + e; s[j][2 +
+    // e] row g + 8
     const bool masked = k0 < lo || k0 + DBN > len;
     float vsc[2][2];
     float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const float2 kx = *reinterpret_cast<const float2*>(sc + 8 * j + kc);
       const float2 vx = *reinterpret_cast<const float2*>(sc + DBN + 8 * j + kc);
-      const float ksc[2] = {kx.x, kx.y};
       vsc[j][0] = vx.x;
       vsc[j][1] = vx.y;
 #pragma unroll
@@ -1354,11 +1369,8 @@ __global__ void __launch_bounds__(32) decode_q8_kernel(Params p, KV kv) {
           const int kp = k0 + 8 * j + kc + e;
           const bool in = kp >= lo && kp < len;
           vsc[j][e] = in ? vsc[j][e] : 0.f;
-          s[j][e] = in ? s[j][e] * ksc[e] : NEG_INF;
-          s[j][2 + e] = in ? s[j][2 + e] * ksc[e] : NEG_INF;
-        } else {
-          s[j][e] *= ksc[e];
-          s[j][2 + e] *= ksc[e];
+          s[j][e] = in ? s[j][e] : NEG_INF;
+          s[j][2 + e] = in ? s[j][2 + e] : NEG_INF;
         }
         mx_a = fmaxf(mx_a, s[j][e]);
         mx_b = fmaxf(mx_b, s[j][2 + e]);
@@ -1384,8 +1396,8 @@ __global__ void __launch_bounds__(32) decode_q8_kernel(Params p, KV kv) {
         }
         sum_a += pa;
         sum_b += pb;
-        s[j][e] = pa * vsc[j][e];  // the PV operand; the sum took p
-        s[j][2 + e] = pb * vsc[j][e];
+        s[j][e] = pa;
+        s[j][2 + e] = pb;
       }
     }
     l_a = l_a * al_a + sum_a;
@@ -1394,16 +1406,18 @@ __global__ void __launch_bounds__(32) decode_q8_kernel(Params p, KV kv) {
                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
 
     // O += P V: ldmatrix.x4.trans gives two hd chunks 2m, 2m + 1 (keys 0-7
-    // and 8-15 of each), each word the B fragments of two mma
+    // and 8-15 of each), each word the B fragments of two mma; a fragment's
+    // pair is keys kc, kc + 1 (of 0-7, then of 8-15), scaled by vsc[j]
 #pragma unroll
     for (int m = 0; m < CH8 / 2; ++m) {
       uint32_t r[4];
       ldmatrix_x4_trans(r, vs + i8_off<HD>(lane % 8 + 8 * ((lane / 8) % 2), 2 * m + lane / 16));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        // bytes (0, 2) and (1, 3): the pairs of hd 2g and of hd 2g + 1
         uint32_t e0, d0, e1, d1;
-        i8x4_to_bf16x2_even_odd(r[2 * h], e0, d0);
-        i8x4_to_bf16x2_even_odd(r[2 * h + 1], e1, d1);
+        i8x4_to_bf16x4_scaled(__byte_perm(r[2 * h], 0u, 0x3120), vsc[0][0], vsc[0][1], e0, d0);
+        i8x4_to_bf16x4_scaled(__byte_perm(r[2 * h + 1], 0u, 0x3120), vsc[1][0], vsc[1][1], e1, d1);
         float* oe = o[4 * m + 2 * h];
         float* od = o[4 * m + 2 * h + 1];
         oe[0] *= al_a;

@@ -34,9 +34,10 @@ and the lookahead executor's ``lookahead_retrieve``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 __all__ = [
     "SITES",
@@ -47,6 +48,8 @@ __all__ = [
     "clear",
     "endpoint_enabled",
     "maybe_fail",
+    "scoped",
+    "charge",
 ]
 
 # Every call site that can be armed, with the failure it models:
@@ -127,8 +130,46 @@ def armed() -> Dict[str, int]:
         return dict(_armed)
 
 
+# a mesh command's own table (parallel/commands.py): while one is set on
+# this thread, maybe_fail consumes from it instead of the process's
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def scoped(table: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Run a block against a copy of ``table``: every rank of a mesh runs a
+    command against rank 0's snapshot, so a site fires at the same place on
+    each. Yields the copy, which holds what is left afterwards."""
+    prev = getattr(_scope, "table", None)
+    _scope.table = left = dict(table)
+    try:
+        yield left
+    finally:
+        _scope.table = prev
+
+
+def charge(table: Dict[str, int], left: Dict[str, int]) -> None:
+    """Take what a scoped run consumed (``table`` less ``left``) off the
+    process's table."""
+    with _lock:
+        for site, n in table.items():
+            used = n - left.get(site, 0)
+            if used > 0 and site in _armed:
+                rest = _armed[site] - used
+                if rest > 0:
+                    _armed[site] = rest
+                else:
+                    del _armed[site]
+
+
 def maybe_fail(site: str) -> None:
     """The injection point. Free when nothing is armed (one dict read)."""
+    left = getattr(_scope, "table", None)
+    if left is not None:
+        if left.get(site, 0) <= 0:
+            return
+        left[site] -= 1
+        raise InjectedFault(site)
     if not _armed:  # benign race: arming concurrently just delays one shot
         return
     with _lock:

@@ -13,10 +13,12 @@ framework: ``WsgiApp.test_client()`` drives it in-process, and
 thread per request, so concurrent requests can coalesce).
 
 Over a mesh engine (``InferenceEngine(mesh=...)``) the service runs on rank
-0 alone: every engine call that reaches a collective (a generate, a fused
-generate, the shadow auditor's ``score_exact``) goes through the engine's
-command stream under one lock (``parallel/commands.py``), and ``/healthz``
-is not ready while a follower is missing (``peers_ready``).
+0 alone: every engine call that reaches a collective or changes what the
+ranks hold (a generate, a fused generate, the shadow auditor's
+``score_exact``, each continuous-engine call of the scheduler, the
+lookahead's prestage and each prefix-cache resolve) goes through the mesh's
+one command stream under one lock (``parallel/commands.py``), and
+``/healthz`` is not ready while a follower is missing (``peers_ready``).
 
 Retrieval (query embedding + kNN) goes through a ``Coalescer``, as in the
 JAX service (which has one whenever it has an encoder): concurrent queries
@@ -211,13 +213,16 @@ def build_scheduler(
     SHARES the one-shot engine's model (one copy of the weights) when
     ``batching == "continuous"``, else None (``server/main.py`` builds the
     ``BatchScheduler`` of ``batching="coalesce"``). ``resilience`` (default
-    ``ResilienceConfig()``) sets its reset-recovery retries and backoff."""
+    ``ResilienceConfig()``) sets its reset-recovery retries and backoff. On
+    a mesh the continuous engine takes the one-shot engine's mesh and
+    stream; the followers build the same engine (``server.main``)."""
     ec = engine_config or engine.engine_config
     if ec.batching != "continuous":
         return None
     res = resilience or ResilienceConfig()
     cont = ContinuousEngine(
-        engine.config, engine.model, engine.sampling, ec, engine.dtypes, engine.device, engine.pad_id
+        engine.config, engine.model, engine.sampling, ec, engine.dtypes, engine.device, engine.pad_id,
+        mesh=engine.mesh,
     )
     return ContinuousScheduler(cont, retries=res.inflight_retries, retry_backoff_s=res.retry_backoff_ms / 1e3)
 

@@ -55,9 +55,13 @@ above and drives the followers through the command stream
 (``parallel/commands.py``), whose heartbeat keeps them answering while the
 service is idle. ``/healthz`` is not ready while a follower is missing; a
 follower that exits makes rank 0 exit non-zero, and SIGTERM's drain ends
-the followers (``stop``) before rank 0 exits. A mesh serves the one-shot
-engine with the dense bf16 cache (``TPU_RAG_BATCHING=coalesce``); the rest
-is ``ROADMAP.md`` Queue 1 item 10b and raises at boot.
+the followers (``stop``) before rank 0 exits. A mesh serves every engine
+feature: the followers build the same engines from the same config (the
+one-shot engine with its prefix cache, and under
+``TPU_RAG_BATCHING=continuous`` the continuous engine, paged or dense,
+int8 KV, any pool role) and run the commands addressed to each, so the
+prefill-tier and decode-tier deployments of ``deploy/llm/deploy.yaml``
+boot under ``TPU_RAG_MESH`` as the main one does.
 """
 
 from __future__ import annotations
@@ -188,14 +192,22 @@ def build_service(config=None, device=None, info: Optional[dict] = None, mesh=No
 
 
 def build_follower(config, mesh):
-    """A follower rank's engine: its shard of the Llama weights and the
-    one-shot engine over ``mesh``; no tokenizer, encoder or store (rank 0
-    serves those)."""
+    """A follower rank's engines: its shard of the Llama weights, the
+    one-shot engine over ``mesh`` and, under ``batching="continuous"``, the
+    continuous engine over the same model, built in rank 0's order
+    (``build_service``), so the command stream names them alike; no
+    tokenizer, encoder, store or scheduler (rank 0 serves and schedules)."""
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
     from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
 
     config, model = load_model(config, mesh.device, mesh)
-    return InferenceEngine(config.model, model, config.sampling, config.engine, config.dtypes, mesh.device,
-                           mesh=mesh)
+    engine = InferenceEngine(config.model, model, config.sampling, config.engine, config.dtypes, mesh.device,
+                             mesh=mesh)
+    cont = None
+    if config.engine.batching == "continuous":
+        cont = ContinuousEngine(engine.config, engine.model, engine.sampling, config.engine, engine.dtypes,
+                                engine.device, engine.pad_id, mesh=mesh)
+    return engine, cont
 
 
 def _follower_main(mesh, config) -> int:
@@ -206,12 +218,14 @@ def _follower_main(mesh, config) -> int:
 
     configure_logging()
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
-    engine = build_follower(config, mesh)
+    # held until the loop ends: the stream names its targets weakly
+    engines = build_follower(config, mesh)
     mesh.barrier(LOAD_TIMEOUT_S)
     from rag_llm_k8s_tpu_torch.parallel.commands import serve_commands
 
-    n = serve_commands(mesh, engine)
+    n = serve_commands(mesh)
     logger.info("rank %d: stopped after %d commands", mesh.rank, n)
+    del engines
     return n
 
 
@@ -227,12 +241,10 @@ def mesh_world(config, device=None) -> int:
 def start_mesh(config, device=None):
     """Rank 0 of a mesh: start the followers, join the world, and return
     ``(mesh, followers)``. Every rank runs on ``device`` when given (the
-    CPU tests), else on its card. Raises for what a mesh does not serve
-    yet (``EngineConfig.validate_mesh``)."""
+    CPU tests), else on its card."""
     from rag_llm_k8s_tpu_torch.parallel.launch import free_port, join_mesh, pick_backend, start_ranks
 
     world = mesh_world(config, device)
-    config.engine.validate_mesh(world)
     backend, port = pick_backend(world, device), free_port()
     logger.info("starting a %d-rank mesh %s over %s", world, config.mesh, backend)
     followers = start_ranks(_follower_main, range(1, world), world, port, backend, config.mesh, device=device,

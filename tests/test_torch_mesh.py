@@ -13,6 +13,7 @@ one. Tolerance: fp32 products within 1e-5 relative (RMS), collectives of
 integers exact.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -88,9 +89,30 @@ def test_a_tp_mesh_serves_the_one_shot_engine_with_coalesce_batching():
     {"TPU_RAG_PREFIX_CACHE": "1"},
 ])
 def test_what_item_10b_ports_still_raises_on_a_mesh(env):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 10b"):
-        AppConfig.from_env({"TPU_RAG_MESH": "dp=1,tp=2", **env})
+    """What raised on a mesh before item 10b was ported now parses on
+    ``dp=1,tp=2`` and builds rank 0's tp = 2 engines (the one-shot engine
+    and the continuous engine, whose cache holds K/tp kv heads); building
+    reaches no collective, so rank 0's mesh context stands alone."""
+    from rag_llm_k8s_tpu_torch.core.config import DTypePolicy
+    from rag_llm_k8s_tpu_torch.core.mesh import MeshContext
+    from rag_llm_k8s_tpu_torch.engine.continuous import ContinuousEngine
+    from rag_llm_k8s_tpu_torch.engine.engine import InferenceEngine
+    from rag_llm_k8s_tpu_torch.models.llama import build_llama
+
+    cfg = AppConfig.from_env({"TPU_RAG_MESH": "dp=1,tp=2", **env})
+    assert cfg.mesh.world(1) == 2
     AppConfig.from_env(env)  # one device: served
+    ctx = MeshContext(1, 1, 2, rank=0, device=torch.device("cpu"))
+    lc, fp32 = LlamaConfig.tiny(64), DTypePolicy.fp32()
+    model = build_llama(lc, fp32, "cpu", mesh=ctx)
+    ec = dataclasses.replace(cfg.engine, max_seq_len=256, prompt_buckets=(64, 128),
+                             prefix_cache=dataclasses.replace(cfg.engine.prefix_cache, max_prefix_tokens=64))
+    one = InferenceEngine(lc, model, cfg.sampling, ec, fp32, "cpu", mesh=ctx)
+    assert one.commands is not None and (one.prefix_cache is not None) == (env.get("TPU_RAG_PREFIX_CACHE") == "1")
+    cont = ContinuousEngine(lc, one.model, cfg.sampling, ec, fp32, "cpu", mesh=ctx)
+    assert cont._commands is one.commands  # one stream per mesh
+    planes = cont._cache_planes(cont.arena if cont.paged else None)
+    assert planes[0].shape[2] == lc.num_kv_heads // 2 and len(planes) == (4 if ec.kv_quant == "int8" else 2)
 
 
 def test_validate_tp_layout_is_jax_rule():

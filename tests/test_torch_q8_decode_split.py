@@ -4,8 +4,8 @@ kernels follow at the main-path shapes (``decode_launch_plan``, the paged one
 from the capacity ``MB * bs``, splits of at most ``DECODE_SPLIT_TILES``
 tiles), and the plain split-then-merge versions
 (``decode_attention_split_xla_q8``, ``paged_decode_attention_split_xla_q8``:
-each score column times its k-scale, the PV operand ``p * v_scale`` in q's
-dtype, per 16-key-tile-aligned split, merged) against the unsplit plain
+K and V dequantized to q's dtype as the plain versions dequantize them,
+the weights in q's dtype, per 16-key-tile-aligned split, merged) against the unsplit plain
 versions, the JAX package's Pallas kernels (interpret mode) and its XLA
 oracles, on the same numpy inputs.
 
@@ -15,9 +15,9 @@ split sizes give several splits per row; the paged rows' tables map onto a
 shuffled permutation of the pool. Tolerances, as ``tests/test_torch_q8_split.py``
 holds the q8 chunk kernels: fp32 queries to fp32 round-off, 1e-5 (1e-4
 against the paged Pallas kernel, whose block-wise softmax sums in another
-order); bf16 queries, where the port also rounds ``p * v_scale`` and the
-output to bf16, to 2e-2 (one bf16 step of an output below 4, plus the
-rounding of ``p * v_scale``); the JAX functions take the same bf16 queries
+order); bf16 queries, where the port also rounds the weights, the
+dequantized K and V and the output to bf16, to 2e-2 (one bf16 step of an
+output below 4, plus the rounding of the weights); the JAX functions take the same bf16 queries
 as fp32 values, since JAX's CPU backend has no bf16 x bf16 -> fp32 product.
 """
 

@@ -95,7 +95,7 @@ def _rank(ctx, flat):
         out["tokens"] = eng.generate(PROMPTS)
         eng.commands.stop()
     else:
-        serve_commands(ctx, eng)
+        serve_commands(ctx)
     out["ring_calls"] = len(calls)
     out["staged_calls"] = ctx.staged_calls
     return out

@@ -99,7 +99,7 @@ def _drive(ctx, engine, lead):
     runs = []
     real = engine._device_run
     engine._device_run = lambda *a: runs.append(real(*a)) or runs[-1]
-    serve_commands(ctx, engine)
+    serve_commands(ctx)
     return [r[0].tolist() for r in runs]
 
 
@@ -177,7 +177,7 @@ def _service_case(ctx, model):
 
     eng = _engine(TP_CFG, model, ctx, prompt_buckets=(256,))
     if not ctx.leader:
-        serve_commands(ctx, eng)
+        serve_commands(ctx)
         return None
     svc = _service(eng)
     try:
