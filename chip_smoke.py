@@ -32,6 +32,17 @@
    phases also print the host's time to launch one call), the least time
    the card could take (``bound_ms``, from this run's inputs) and, for an
    int8 kernel, its bf16 counterpart's time at the same shape.
+2b. Training (``phase_training``): one AdamW step of
+   ``engine.training.make_train_step`` at Llama-3.1-8B's width and 2 layers
+   (seeded random bf16 weights, a right-padded batch of 2 x 512 with two
+   real lengths) through the plain attention, held to the plain fp32 step
+   from the same weights (the loss, each parameter's gradient by relative
+   RMS, every gradient present, finite and nonzero), no kernel launched in
+   the step; the serving forward (the kernels; ``flash_attention`` must
+   launch): its logits held to the fp32 forward's within twice the bf16
+   training forward's distance (a planted bidirectional window must fall
+   outside), its loss to the training forward's; the step's card ms,
+   tokens/s and peak memory.
 3. Staged boot (``phase_staged_boot``): a directory staged in a temporary
    folder (Llama-3.1-8B ``config.json`` at full width with 2 layers, 4 bf16
    shards of seeded random values; bge-m3 at full size; the fixture
@@ -57,7 +68,10 @@
    chunk-reuse ``admit_prefixed`` and an int8-KV burst, each stream
    followed at tp=1, kernels 7-10 launched on each rank, the ranks' state
    digests equal and no block leaked; an sp=2 ring prefill at 4 layers
-   against sp=1. After the continuous
+   against sp=1; one bf16 training step at 8B width and 2 layers on the
+   tp=2 mesh and one on an sp=2 mesh of the same ranks (the differentiable
+   ring), each held to the one-rank step (loss and every gathered
+   gradient), no kernel launched. After the continuous
    phases, the durable lifecycle on the same directory
    (``phase_warm_restart``): ``server.main`` with the
    flight WAL on and the continuous paged engine, SIGKILLed with 3 requests
@@ -1822,6 +1836,197 @@ def phase_model(model, cfg):
               f"top1 kernel={top1(out['kernel']):.4f} sdpa={top1(out['sdpa']):.4f}", flush=True)
         if rel(out["kernel"]) > max(2 * rel(out["sdpa"]), 1e-3):
             fail("model: kernel forward strays past the bf16 noise floor")
+
+
+# ---------------------------------------------------------------------------
+# training (engine/training.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 2
+TRAIN_B, TRAIN_S = 2, 512
+TRAIN_LENS = (512, 300)  # right-padded rows of two real lengths
+TRAIN_SEED = 7
+# bf16 against fp32 (and a tp or sp world against one rank, both bf16): the
+# loss within this relative difference, and each parameter's gradient within
+# this relative RMS error. A bf16 value carries 2**-9 relative rounding, and
+# sums whose terms nearly cancel magnify it: the softmax's backward, p * (g -
+# sum(p * g)), under the near-uniform attention of random weights (wq, wk),
+# and a norm weight's gradient, a sum over tokens. On an NVIDIA H100 80GB
+# HBM3 at 700 W the worst gradients sat 0.0314 (wq) and 0.0288 (a norm
+# weight) from fp32, and 0.021-0.023 between a tp=2 or sp=2 world and one
+# rank (PERF.md section 6); the gate is twice the worst. A lost gradient sum is an error of order
+# 1: the tp=2 leg plants one (no sum at the column-parallel inputs) that the
+# gate must reject. The loss, a mean over 810 tokens of ~12.5 nats, moved by
+# 5e-5.
+TRAIN_LOSS_RTOL = 2.0**-10
+TRAIN_GRAD_RMS = 2.0**-4
+# The serving forward (flash_attention) against the training forward: the
+# loss of random weights on random targets sits near ln V whatever the
+# hidden states are, so the logits at the real positions are held to the
+# fp32 forward's, within this many times the bf16 training forward's own
+# relative RMS distance from it (the bf16 noise floor, as phase_model).
+TRAIN_NOISE_FACTOR = 2.0
+
+
+def _train_batch(dev, vocab):
+    """``TRAIN_B x TRAIN_S`` seeded tokens, right-padded to ``TRAIN_LENS``."""
+    import numpy as np
+    import torch
+
+    toks = np.random.default_rng(TRAIN_SEED).integers(3, vocab, (TRAIN_B, TRAIN_S))
+    mask = (np.arange(TRAIN_S)[None, :] < np.array(TRAIN_LENS)[:, None]).astype(np.int64)
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def _train_cfg():
+    from rag_llm_k8s_tpu_torch.core.config import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama_3_1_8b(), num_layers=TRAIN_LAYERS)
+
+
+def _grad_errors(grads, ref, what):
+    """Each parameter's gradient against the reference's, relative RMS;
+    fails on a missing, non-finite or all-zero gradient. Returns ``{name:
+    error}``."""
+    import torch
+
+    errs = {}
+    for name, want in ref.items():
+        got = grads.get(name)
+        if got is None:
+            fail(f"{what}: no gradient for {name}")
+        got = got.float()
+        if not bool(torch.isfinite(got).all()) or not bool(got.ne(0).any()):
+            fail(f"{what}: the gradient of {name} is not finite or all zero")
+        errs[name] = _rel(got, want.float())
+    return errs
+
+
+def _grads_within(errs, what):
+    """``errs`` within ``TRAIN_GRAD_RMS``; returns the worst as text."""
+    over = {n: round(e, 5) for n, e in errs.items() if e > TRAIN_GRAD_RMS}
+    if over:
+        fail(f"{what}: gradients past rel RMS {TRAIN_GRAD_RMS:.4g}: {over}")
+    n = max(errs, key=errs.get)
+    return f"{errs[n]:.4g} ({n}; limit {TRAIN_GRAD_RMS:.4g}) over {len(errs)} parameters"
+
+
+def _step_ms(step, model, opt, toks, mask, n=3):
+    """Mean card milliseconds of ``n`` more steps (CUDA events; a step ends
+    in the optimizer's update, and the loss is not read inside)."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        step(model, opt, toks, mask)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def phase_training(smi, device="cuda"):
+    """One AdamW step of ``engine.training.make_train_step`` at
+    Llama-3.1-8B's full width and ``TRAIN_LAYERS`` layers, seeded random
+    weights, on a right-padded batch: the bf16 step against the plain fp32
+    step from the same weights (the loss, and each parameter's gradient:
+    every one present, finite and nonzero), the step launching no kernel;
+    then the serving forward (the kernels: ``flash_attention`` must launch)
+    against the training forward: its logits at the real positions within
+    ``TRAIN_NOISE_FACTOR`` times the bf16 noise floor of the fp32 forward's
+    (a planted fault, the kernel's window bidirectional, must fall
+    outside), and its loss. Prints the step's card ms, tokens/s and peak
+    memory."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import DTypePolicy
+    from rag_llm_k8s_tpu_torch.engine.training import lm_logits, loss_terms, make_train_step
+    from rag_llm_k8s_tpu_torch.models import convert
+    from rag_llm_k8s_tpu_torch.models import llama as L
+    from rag_llm_k8s_tpu_torch.models.llama import build_llama
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.ops import attention as A
+
+    dev, cfg = torch.device(device), _train_cfg()
+    toks, mask = _train_batch(dev, cfg.vocab_size)
+    real_at = mask.bool()
+    bf16, fp32 = DTypePolicy(), DTypePolicy.fp32()
+    model = convert.init_random_(build_llama(cfg, bf16, dev, attn_impl="xla", trainable=True),
+                                 torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def forward(m):
+        """``(logits at the real positions, fp32; the loss)``, no grad."""
+        with torch.inference_mode():
+            logits = lm_logits(m, toks, mask)
+            total, weight = loss_terms(logits, toks, mask)
+            return logits[real_at].float(), float(total / weight)
+
+    # the serving forward first, at the step's weights: the kernels, no grad
+    _build.reset_launches()
+    serving, serving_loss = forward(model.set_attn_impl("kernels"))
+    served = dict(_build.LAUNCHES)
+    L.flash_attention = lambda *a, **kw: A.flash_attention(*a, **{**kw, "causal": False})
+    try:
+        fault, _ = forward(model)
+    finally:
+        L.flash_attention = A.flash_attention
+    plain, plain_loss = forward(model.set_attn_impl("xla"))
+    if served["flash_attention"] != TRAIN_LAYERS or sum(served.values()) != TRAIN_LAYERS:
+        fail(f"training: the serving forward's launches {served}")
+    # the plain fp32 forward and step from the same weights: its logits, loss and gradients
+    ref = build_llama(cfg, fp32, dev, attn_impl="xla", trainable=True)
+    with torch.no_grad():
+        for p, q in zip(ref.parameters(), model.parameters()):
+            p.copy_(q)
+    want, _ = forward(ref)
+    fwd = {"plain": _rel(plain, want), "serving": _rel(serving, want), "fault": _rel(fault, want),
+           "serving_vs_plain": _rel(serving, plain)}
+    fwd_lim = max(TRAIN_NOISE_FACTOR * fwd["plain"], 1e-3)
+    del serving, fault, plain, want
+    if not fwd["serving"] <= fwd_lim < fwd["fault"]:
+        fail(f"training: serving forward logits vs fp32 rel RMS {fwd} (limit {fwd_lim:.4g}; the planted "
+             f"fault must fall outside)")
+    init32, step32 = make_train_step(cfg, fp32, device=dev)
+    loss32 = float(step32(ref, init32(ref), toks, mask))
+    grads32 = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+    torch.cuda.empty_cache()
+    init16, step16 = make_train_step(cfg, bf16, device=dev)
+    opt = init16(model)
+    held = sum(g.numel() * g.element_size() for g in grads32.values())  # kept for the comparison
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t = time.monotonic()
+    loss16 = float(step16(model, opt, toks, mask))
+    first_s = time.monotonic() - t
+    grads16 = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    ms = _step_ms(step16, model, opt, toks, mask)
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    if launched:
+        fail(f"training: the train step launched kernels {launched}")
+    err_loss, err_serving = abs(loss16 - loss32) / abs(loss32), abs(serving_loss - plain_loss) / abs(plain_loss)
+    if not (err_loss <= TRAIN_LOSS_RTOL and err_serving <= TRAIN_LOSS_RTOL):
+        fail(f"training: loss bf16 {loss16} fp32 {loss32}; serving forward {serving_loss} against the training "
+             f"forward's {plain_loss} (rtol {TRAIN_LOSS_RTOL:.4g})")
+    worst = _grads_within(_grad_errors(grads16, grads32, "training bf16 vs fp32"), "training bf16 vs fp32")
+    real = int(mask.sum())
+    print(f"phase training llama-3.1-8b width, {TRAIN_LAYERS} layers ({n_params} params), B={TRAIN_B} "
+          f"S={TRAIN_S} real tokens {list(TRAIN_LENS)}: loss bf16={loss16:.6f} fp32={loss32:.6f} "
+          f"rel={err_loss:.3g} (rtol {TRAIN_LOSS_RTOL:.4g}); worst gradient rel RMS {worst}, all finite "
+          f"and nonzero; kernel launches in the step: 0", flush=True)
+    print(f"phase training serving forward (flash_attention x{served['flash_attention']}): logits at the "
+          f"{real} real positions vs the fp32 forward rel RMS serving={fwd['serving']:.4g} bf16 training "
+          f"forward={fwd['plain']:.4g} (limit {fwd_lim:.4g}) serving vs training={fwd['serving_vs_plain']:.4g} "
+          f"planted fault (bidirectional window)={fwd['fault']:.4g} rejected; loss serving={serving_loss:.6f} "
+          f"training={plain_loss:.6f} rel={err_serving:.3g} (rtol {TRAIN_LOSS_RTOL:.4g})", flush=True)
+    print(f"phase training step: card_ms={ms:.2f} (mean of 3 after the first, {first_s * 1e3:.0f} ms host) "
+          f"tokens_per_s={TRAIN_B * TRAIN_S / ms * 1e3:.0f} real_tokens_per_s={real / ms * 1e3:.0f} "
+          f"peak_mem_gb={peak_gb:.2f} (without the fp32 gradients held for the check) card: {smi}", flush=True)
+    del model, opt, grads16, grads32
+    torch.cuda.empty_cache()
 
 
 def _launch_check(path, launches, need, forbid):
@@ -5686,6 +5891,83 @@ def _mesh_ring(ctx):
                 ring_calls=len(calls), ring_s=ring_s, staged_calls=staged)
 
 
+def _mesh_train(ctx):
+    """One bf16 training step at Llama-3.1-8B's width and ``TRAIN_LAYERS``
+    layers on the world's tp=2 mesh, then on an sp=2 mesh of the same ranks
+    (the differentiable ring: each rank holds the whole model), each held to
+    the one-rank step on the same seeded weights and batch, which rank 0
+    takes first: the loss and every gathered gradient (``_grad_errors``)."""
+    import torch
+
+    from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, MeshConfig
+    from rag_llm_k8s_tpu_torch.core.mesh import make_mesh, single_device_mesh
+    from rag_llm_k8s_tpu_torch.engine.training import lm_loss, make_train_step
+    from rag_llm_k8s_tpu_torch.models import convert
+    from rag_llm_k8s_tpu_torch.ops import _build
+    from rag_llm_k8s_tpu_torch.parallel.sharding import llama_param_specs
+
+    dev, cfg, dt = ctx.device, _train_cfg(), DTypePolicy()
+    sp = make_mesh(MeshConfig(dp=1, sp=2, tp=1), device=dev)
+    toks, mask = _train_batch(dev, cfg.vocab_size)
+
+    def build(mesh):
+        return convert.init_random_sharded(cfg, dt, mesh, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                                           attn_impl="xla", trainable=True)
+
+    def step(mesh, model):
+        init_opt, train_step = make_train_step(cfg, dt, mesh=mesh)
+        staged, t = mesh.staged_calls, time.monotonic()
+        loss = float(train_step(model, init_opt(model), toks, mask))
+        return loss, {"s": time.monotonic() - t, "staged_calls": mesh.staged_calls - staged}
+
+    def errors(mesh, model, what):
+        """The gathered gradients against one rank's (rank 0; None elsewhere)."""
+        specs = llama_param_specs(cfg, mesh)
+        grads = {}
+        for n, p in model.named_parameters():
+            g = p.grad if specs[n] is None else mesh.all_gather(p.grad, specs[n], "tp")
+            if ctx.leader:
+                grads[n] = g
+        return _grad_errors(grads, ref_grads, what) if ctx.leader else None
+
+    t0 = time.monotonic()
+    if ctx.leader:
+        ref = build(single_device_mesh(dev))
+        ref_loss, ref_stats = step(ref.mesh, ref)
+        ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    out = {}
+    _build.reset_launches()
+    for name, mesh in (("tp=2", ctx), ("sp=2", sp)):
+        model = build(mesh)
+        if name == "tp=2":
+            # planted fault: no gradient sum at the column-parallel inputs
+            # (each rank keeps its partial gradient of h); the gate rejects it
+            real_in, mesh.region_in = mesh.region_in, (lambda x, axis="tp": x)
+            try:
+                lm_loss(model, toks, mask).backward()
+            finally:
+                mesh.region_in = real_in
+            fault = errors(mesh, model, "mesh training tp=2 planted fault")
+            model.zero_grad(set_to_none=True)
+        loss, stats = step(mesh, model)
+        errs = errors(mesh, model, f"mesh training {name}")
+        if ctx.leader:
+            stats.update(loss=loss, ref_loss=ref_loss, rel=abs(loss - ref_loss) / abs(ref_loss),
+                         worst=_grads_within(errs, f"mesh training {name}"))
+            if name == "tp=2":
+                stats["fault_worst"] = max(fault.values())
+        out[name] = stats
+        del model
+        torch.cuda.empty_cache()
+    out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    out["leg_s"] = time.monotonic() - t0
+    if ctx.leader:
+        out["ref_s"] = ref_stats["s"]
+        del ref, ref_grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_rank(ctx, max_new):
     """One rank of ``phase_mesh_service``'s tp=2 world: its shard of the
     seeded Llama-3.1-8B (``build_service``'s weights), the one-shot engine
@@ -5729,6 +6011,7 @@ def _mesh_rank(ctx, max_new):
     del model
     torch.cuda.empty_cache()
     out["ring"] = _mesh_ring(ctx)
+    out["train"] = _mesh_train(ctx)
     return out
 
 
@@ -6175,7 +6458,27 @@ def phase_mesh_service(rows):
           f"rel_rms vs sp=1 kernels={ring['ring_vs_kernels']:.4g} (limit {lim:.4g}; sp=1 plain vs kernels "
           f"{ring['plain_vs_kernels']:.4g}) vs sp=1 plain={ring['ring_vs_plain']:.4g} ring_layers={ring['ring_calls']} "
           f"prefill_s={ring['ring_s']:.2f} staged_calls={ring['staged_calls']}", flush=True)
-    print(f"phase mesh_service: world_s={world_s:.1f} queries_wall_s={lead['wall_s']:.1f}", flush=True)
+    print(f"phase mesh_service: world_s={world_s:.1f} queries_wall_s={lead['wall_s']:.1f} "
+          f"training_leg_s={lead['train']['leg_s']:.1f}", flush=True)
+    # the training steps: each held to the one-rank step (rank 0 checked the
+    # gradients in the world), no kernel launched
+    train = lead["train"]
+    for r, out in enumerate(res):
+        if out["train"]["launches"]:
+            fail(f"mesh_service training: rank {r} launched kernels {out['train']['launches']}")
+    if not train["tp=2"]["fault_worst"] > TRAIN_GRAD_RMS:
+        fail(f"mesh_service training: the planted fault (no gradient sum at the column-parallel inputs) passed "
+             f"the gate: worst rel RMS {train['tp=2']['fault_worst']:.4g}")
+    for name in ("tp=2", "sp=2"):
+        t = train[name]
+        if not t["rel"] <= TRAIN_LOSS_RTOL:
+            fail(f"mesh_service training {name}: loss {t['loss']} against one rank's {t['ref_loss']}")
+        print(f"phase mesh_service training {name} (8B width, {TRAIN_LAYERS} layers, bf16): loss={t['loss']:.6f} "
+              f"one rank={t['ref_loss']:.6f} rel={t['rel']:.3g} (rtol {TRAIN_LOSS_RTOL:.4g}) worst gradient "
+              f"rel RMS {t['worst']}; step_s={t['s']:.2f} "
+              f"(one rank {train['ref_s']:.2f}) staged_calls={t['staged_calls']} kernel launches 0"
+              + (f"; planted fault rejected: worst rel RMS {t['fault_worst']:.4g}" if "fault_worst" in t else ""),
+              flush=True)
     for k in TP_KERNELS:
         rows[k]["mesh_launches_per_rank"] = [out["launches"].get(k, 0) for out in res]
     # the continuous legs: kernels 7-10 on every rank, every pool whole, the
@@ -7520,8 +7823,10 @@ def _capture_deliveries():
 
 
 # the names ``--phases`` takes, in the order the bare command runs them; the
-# kernel phases run first, then the bf16 service phases over one model, then
-# the int8 ones over its quantized copy. "lookahead" also runs its kernels
+# kernel phases run first, then the training step (its memory freed before
+# the service model is built), the staged boots and the mesh world (whose
+# tp=2 and sp=2 training steps run with ``mesh_service``), then the bf16
+# service phases over one model, then the int8 ones over its quantized copy. "lookahead" also runs its kernels
 # with the kernel phases and its int8 leg with the int8 phases.
 KERNEL_PHASES = ("knn", "flash", "decode", "chunk", "paged_decode", "paged_chunk", "decode_q8", "chunk_q8",
                  "paged_decode_q8", "paged_chunk_q8", "continuous_kernels", "tp_kernels")
@@ -7530,7 +7835,7 @@ SERVICE_PHASES = ("model", "service", "query_latency", "observability", "prefix_
                   "plain_decode", "disagg", "lookahead", "quality", "replay", "warm_restart")
 Q8_PHASES = ("model_q8", "service_q8", "continuous_service_q8", "continuous_engine_q8", "continuous_dense_q8",
              "spec_paged_q8")
-PHASES = KERNEL_PHASES + ("staged_boot", "staged_boot_mesh", "mesh_service") + SERVICE_PHASES + Q8_PHASES
+PHASES = KERNEL_PHASES + ("training", "staged_boot", "staged_boot_mesh", "mesh_service") + SERVICE_PHASES + Q8_PHASES
 
 
 def _selected(names: str):
@@ -7604,6 +7909,8 @@ def main(argv=None) -> int:
     if "lookahead" in want:
         timed(phase_lookahead_kernels, rows)
     torch.cuda.empty_cache()
+    if "training" in want:
+        timed(phase_training, smi)
     import atexit
     import shutil
     import tempfile

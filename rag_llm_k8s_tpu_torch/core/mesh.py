@@ -15,7 +15,20 @@ rank with explicit collectives, so here:
   int8 scales of row-parallel weights), ``all_gather`` over tp (the
   vocab-sharded logits) and over sp (the ring's output), ``ring_shift`` over
   sp (``ppermute``, through ``dist.batch_isend_irecv``), and
-  ``broadcast_object`` / ``gather_object`` on the control group.
+  ``broadcast_object`` / ``gather_object`` on the control group;
+- the rules autograd follows through them, the transposes XLA derives from
+  JAX's shardings (training, ``engine/training.py``): ``region_in`` marks
+  the input of a column-parallel region (identity forward, gradient summed
+  over the axis: each rank's output shard gives only its part of the
+  input's gradient), ``reduce_out`` a row-parallel output (sum forward,
+  identity backward), ``gather_out`` a gathered output every rank reads
+  whole (backward takes this rank's slice: every rank computes the same
+  loss, so the gradient is not summed), ``split_in`` this rank's slice of a
+  replicated tensor (backward all-gathers the slices' gradients: the sum
+  over the axis of each rank's gradient, zero outside its slice), and
+  ``ring_shift`` one hop whose backward is one hop the other way. Without
+  a gradient to carry (serving) each is the plain collective, in place
+  where ``all_reduce`` is, and counts its staged calls as before.
 
 Backend: ``nccl`` when each rank has a card of its own, ``gloo`` otherwise
 (the CPU tests, several ranks sharing one card). gloo's collectives are
@@ -141,26 +154,71 @@ class MeshContext:
     def ring_shift(self, tensors: Sequence[torch.Tensor], axis: str = "sp") -> Tuple[torch.Tensor, ...]:
         """One hop around ``axis``'s ring (JAX ``ppermute`` with ``j -> j +
         1``): each tensor goes to the next rank and the previous rank's
-        arrives. Bool tensors travel as uint8."""
-        n = self.axis_size(axis)
-        if n == 1:
+        arrives. Bool tensors travel as uint8 and take no gradient; the
+        gradient of a float tensor travels one hop back."""
+        if self.axis_size(axis) == 1:
             return tuple(tensors)
+        if _needs_grad(*tensors):
+            return _RingShift.apply(self, axis, *tensors)
+        return self._shift(tensors, axis, 1)
+
+    def _shift(self, tensors: Sequence[torch.Tensor], axis: str, step: int) -> Tuple[torch.Tensor, ...]:
+        """Each tensor sent ``step`` ranks along ``axis``'s ring (+1 or -1)."""
+        n = self.axis_size(axis)
         ranks, i = self.group_ranks[axis], self.axis_index(axis)
-        nxt, prv = ranks[(i + 1) % n], ranks[(i - 1) % n]
+        dst, src = ranks[(i + step) % n], ranks[(i - step) % n]
         group = self.groups[axis]
         ops, recv = [], []
         for t in tensors:
-            src = t.contiguous()
-            if src.dtype == torch.bool:
-                src = src.to(torch.uint8)
+            buf = t.detach().contiguous()
+            if buf.dtype == torch.bool:
+                buf = buf.to(torch.uint8)
             if self.staged:
-                src = self._host(src)
-            r = torch.empty_like(src)
-            ops += [dist.P2POp(dist.isend, src, nxt, group), dist.P2POp(dist.irecv, r, prv, group)]
+                buf = self._host(buf)
+            r = torch.empty_like(buf)
+            ops += [dist.P2POp(dist.isend, buf, dst, group), dist.P2POp(dist.irecv, r, src, group)]
             recv.append(r)
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return tuple(r.to(device=t.device, dtype=t.dtype) for r, t in zip(recv, tensors))
+
+    # -- the collectives autograd passes through (training) -----------------
+    def region_in(self, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+        """The input of a column-parallel region: ``x`` forward, its
+        gradient all-reduced (sum) over ``axis`` backward."""
+        if self.axis_size(axis) == 1 or not _needs_grad(x):
+            return x
+        return _RegionIn.apply(x, self, axis)
+
+    def reduce_out(self, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+        """A row-parallel output: ``x`` summed over ``axis`` (in place
+        without a gradient to carry, as ``all_reduce``); the gradient passes
+        unchanged."""
+        if self.axis_size(axis) == 1:
+            return x
+        if not _needs_grad(x):
+            return self.all_reduce(x, axis)
+        return _ReduceOut.apply(x, self, axis)
+
+    def gather_out(self, x: torch.Tensor, dim: int, axis: str = "tp") -> torch.Tensor:
+        """``all_gather`` of ``x`` along ``dim``; backward takes this rank's
+        slice of the gradient."""
+        if self.axis_size(axis) == 1:
+            return x
+        if not _needs_grad(x):
+            return self.all_gather(x, dim, axis)
+        return _GatherOut.apply(x, self, dim, axis)
+
+    def split_in(self, tensors: Sequence[torch.Tensor], dim: int, axis: str = "sp") -> Tuple[torch.Tensor, ...]:
+        """This rank's equal slice along ``dim`` of each replicated tensor;
+        backward all-gathers the slices' gradients over ``axis``, so every
+        rank holds the whole gradient."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return tuple(tensors)
+        if _needs_grad(*tensors):
+            return _SplitIn.apply(self, dim, axis, *tensors)
+        return tuple(_own_slice(t, dim, n, self.axis_index(axis)) for t in tensors)
 
     def broadcast_object(self, obj=None):
         """Rank 0's ``obj`` on every rank (the control group)."""
@@ -183,6 +241,76 @@ class MeshContext:
         the control group: it names a rank that did not arrive)."""
         if self.world > 1:
             dist.monitored_barrier(group=self.groups["control"], timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _own_slice(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+class _RegionIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.axis), None, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.dim, ctx.n, ctx.i = dim, mesh.axis_size(axis), mesh.axis_index(axis)
+        return mesh.all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.dim, ctx.n, ctx.i), None, None, None
+
+
+class _SplitIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dim, axis, *tensors):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+        return tuple(_own_slice(t, dim, n, i).contiguous() for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # every gradient, in argument order, on every rank: the collectives match
+        return (None, None, None) + tuple(ctx.mesh.all_gather(g.contiguous(), ctx.dim, ctx.axis) for g in grads)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *tensors):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.floats = [t.is_floating_point() for t in tensors]
+        out = mesh._shift(tensors, axis, 1)
+        ctx.mark_non_differentiable(*[o for o, f in zip(out, ctx.floats) if not f])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # JAX's transpose of ppermute: the cotangents go one hop back
+        back = iter(ctx.mesh._shift([g for g, f in zip(grads, ctx.floats) if f], ctx.axis, -1))
+        return (None, None) + tuple(next(back) if f else None for f in ctx.floats)
 
 
 def axis_lines(dp: int, sp: int, tp: int) -> Dict[str, List[List[int]]]:

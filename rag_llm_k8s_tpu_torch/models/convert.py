@@ -175,18 +175,20 @@ def _unfused(name: str, t: torch.Tensor, config) -> list:
 
 
 @torch.no_grad()
-def init_random_sharded(config, dtypes, mesh, generator: torch.Generator, fused_source: bool = False) -> LlamaModel:
+def init_random_sharded(config, dtypes, mesh, generator: torch.Generator, fused_source: bool = False,
+                        **build) -> LlamaModel:
     """This rank's shard (unfused) of ``init_random_(build_llama(config,
     dtypes, fused=fused_source), generator)``: the same draws in the same
     order, each whole tensor drawn on ``mesh.device``, split when the
     source layout is fused, sliced by the streaming put
-    (``parallel.sharding.make_streaming_put``) and dropped."""
+    (``parallel.sharding.make_streaming_put``) and dropped. ``build``:
+    ``build_llama``'s ``attn_impl`` and ``trainable``."""
     from rag_llm_k8s_tpu_torch.models.llama import build_llama
     from rag_llm_k8s_tpu_torch.parallel.sharding import make_streaming_put
 
     with torch.device("meta"):
         full = LlamaModel(config, dtypes, fused=fused_source)
-    model = build_llama(config, dtypes, mesh.device, mesh=mesh)
+    model = build_llama(config, dtypes, mesh.device, mesh=mesh, **build)
     params = dict(model.named_parameters())
     put = make_streaming_put(mesh, config) if mesh.tp > 1 else (lambda n, t: t)
     done = set()

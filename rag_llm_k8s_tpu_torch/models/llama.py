@@ -48,6 +48,18 @@
   (``parallel/ring_attention.py``): every sp rank holds the whole q/k/v,
   takes its ``S/sp`` slice, runs the ring and all-gathers the output. dp
   replicates the computation.
+- The attention choice of the single-shot prefill (``attn_impl``, JAX's):
+  ``"kernels"`` (the default: ``flash_attention``) or ``"xla"``, its plain
+  version ``attention_xla`` (``ops/attention.py``), the differentiable
+  forward training runs (``engine/training.py``; the kernels have no
+  backward, and on a CUDA tensor that requires grad they raise). The ring
+  is plain either way, and the cache paths always take their kernels.
+  ``build_llama(..., trainable=True)`` gives the unfused layout with every
+  parameter taking a gradient; ``cache=None`` runs the forward without a
+  cache (a single-shot prefill over the fresh K/V: JAX's loss throws its
+  cache away, so nothing is written), and on a mesh the collectives carry
+  the gradient through (``core/mesh.py`` ``region_in`` / ``reduce_out`` /
+  ``gather_out``).
 
 Linear weights use PyTorch's ``[out, in]`` layout; ``models/convert.py``
 maps the JAX package's ``[in, out]`` kernels onto them.
@@ -66,6 +78,7 @@ from torch import nn
 from rag_llm_k8s_tpu_torch.core.config import DTypePolicy, LlamaConfig
 from rag_llm_k8s_tpu_torch.ops.attention import (
     INV_127,
+    attention_xla,
     chunk_prefill_attention,
     chunk_prefill_attention_q8,
     decode_attention,
@@ -81,6 +94,8 @@ from rag_llm_k8s_tpu_torch.ops.attention import (
 )
 from rag_llm_k8s_tpu_torch.parallel.ring_attention import ring_attention_sharded
 from rag_llm_k8s_tpu_torch.parallel.sharding import tp_layout
+
+ATTN_IMPLS = ("kernels", "xla")
 
 
 @dataclass
@@ -188,24 +203,50 @@ def write_row_frontier(
         cache.v_scale[layer][rows, :, wi] = vs[:, 0]
 
 
+def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated and returned in fp32: ``torch.mm(...,
+    out_dtype=)`` on the card, without an fp32 copy of either operand; on
+    the CPU, which lacks that form, the operands upcast (a product of two
+    bf16 values is exact in fp32, so both sum the same terms)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class HeadMatmul(torch.autograd.Function):
+    """``h [N, D] @ w [V, D]^T`` in fp32 (``_mm_fp32``) with a gradient,
+    which ``torch.mm(..., out_dtype=)`` lacks: the fp32 cotangent rounded
+    to the operands' dtype, each product accumulated in fp32 and rounded to
+    its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_fp32(h, w.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        gh = _mm_fp32(g, w).to(h.dtype) if ctx.needs_input_grad[0] else None
+        gw = _mm_fp32(g.t(), h).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gh, gw
+
+
 def head_logits(
     h: torch.Tensor, head: torch.Tensor, logits_dtype: torch.dtype,
     scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``h [..., D] @ head [V, D]^T`` accumulated in fp32 and returned in
-    ``logits_dtype``, without an fp32 copy of the head weight on the card
-    (``torch.mm(..., out_dtype=)``). On the CPU the bf16 operands are
-    upcast: their products are exact in fp32, so both sum the same terms.
-    An int8 head is converted to ``h``'s dtype (exact; a transient copy)
-    and its fp32 per-row ``scale`` multiplies the fp32 logits."""
+    """``h [..., D] @ head [V, D]^T`` accumulated in fp32 (``HeadMatmul``,
+    differentiable) and returned in ``logits_dtype``. An int8 head is
+    converted to ``h``'s dtype (exact; a transient copy) and its fp32
+    per-row ``scale`` multiplies the fp32 logits."""
     head = head.to(h.dtype)
     if h.dtype == logits_dtype:
         out = F.linear(h, head)
-    elif h.device.type == "cuda":
-        flat = torch.mm(h.reshape(-1, h.shape[-1]), head.t(), out_dtype=logits_dtype)
-        out = flat.reshape(*h.shape[:-1], head.shape[0])
     else:
-        out = F.linear(h.to(logits_dtype), head.to(logits_dtype))
+        flat = HeadMatmul.apply(h.reshape(-1, h.shape[-1]), head).to(logits_dtype)
+        out = flat.reshape(*h.shape[:-1], head.shape[0])
     return out if scale is None else out * scale.to(out.dtype)
 
 
@@ -327,7 +368,9 @@ def _linear(i: int, o: int, dtypes: DTypePolicy, quantized: bool = False) -> nn.
 
 class Attention(nn.Module):
     """``config`` is this rank's slice (``tp_layout(...).local``); with
-    ``sharded`` the output of wo is a partial sum, all-reduced over tp."""
+    ``sharded`` the output of wo is a partial sum, all-reduced over tp.
+    ``attn_impl``: the single-shot prefill's attention, ``"kernels"`` or
+    ``"xla"`` (``LlamaModel.set_attn_impl``)."""
 
     def __init__(self, config: LlamaConfig, dtypes: DTypePolicy, fused: bool, quantized: bool = False,
                  mesh=None, sharded: bool = False):
@@ -335,6 +378,7 @@ class Attention(nn.Module):
         c = config
         self.config, self.dtypes, self.fused = c, dtypes, fused
         self.mesh, self.sharded = mesh, sharded
+        self.attn_impl = "kernels"
         H, K, hd, D = c.num_heads, c.num_kv_heads, c.head_dim, c.hidden_size
         if fused:
             self.wqkv = _linear(D, (H + 2 * K) * hd, dtypes, quantized)
@@ -345,7 +389,7 @@ class Attention(nn.Module):
         self.wo = _linear(H * hd, D, dtypes, quantized)
 
     def forward(
-        self, x: torch.Tensor, cache: KVCache, layer: int, kv_start: torch.Tensor,
+        self, x: torch.Tensor, cache: Optional[KVCache], layer: int, kv_start: torch.Tensor,
         kv_len: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         write_index, chunked: bool, block_tables: Optional[torch.Tensor] = None,
         row_frontier: bool = False,
@@ -353,6 +397,8 @@ class Attention(nn.Module):
         c = self.config
         B, S, _ = x.shape
         H, K, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        if self.sharded:
+            x = self.mesh.region_in(x, "tp")
         if self.fused:
             q, k, v = self.wqkv(x).split([H * hd, K * hd, K * hd], dim=-1)
         else:
@@ -361,6 +407,11 @@ class Attention(nn.Module):
         k = apply_rope(k.reshape(B, S, K, hd), cos, sin)
         v = v.reshape(B, S, K, hd)
 
+        if cache is None:
+            # no cache (training): the single-shot prefill over the fresh K/V
+            if block_tables is not None or row_frontier or chunked or write_index != 0:
+                raise ValueError("cache=None is a single-shot prefill at write_index 0")
+            return self._out(self._prefill(q, k, v, kv_start, kv_len), B, S)
         if block_tables is not None:
             out = self._attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index,
                                      chunked, block_tables)
@@ -403,24 +454,27 @@ class Attention(nn.Module):
         else:
             if write_index != 0:
                 raise ValueError("multi-token calls at write_index > 0 must pass chunked=True")
-            mesh = self.mesh
-            if mesh is not None and mesh.sp > 1 and S % mesh.sp == 0:
-                # sequence parallelism: the prefill's attention as the ring
-                # over sp (JAX _attend_ring)
-                t = torch.arange(S, device=q.device)
-                valid = (t[None, :] >= kv_start[:, None]) & (t[None, :] < kv_len[:, None])
-                out = ring_attention_sharded(mesh, q, k, v, causal=True, kv_valid=valid).to(q.dtype)
-            else:
-                # single-shot prefill: the fresh K/V are the populated prefix
-                out = flash_attention(q, k, v, kv_start, kv_len, causal=True)
+            out = self._prefill(q, k, v, kv_start, kv_len)
         return self._out(out, B, S)
+
+    def _prefill(self, q, k, v, kv_start, kv_len) -> torch.Tensor:
+        """Single-shot prefill: the fresh K/V are the populated prefix."""
+        mesh, S = self.mesh, q.shape[1]
+        if mesh is not None and mesh.sp > 1 and S % mesh.sp == 0:
+            # sequence parallelism: the prefill's attention as the ring
+            # over sp (JAX _attend_ring)
+            t = torch.arange(S, device=q.device)
+            valid = (t[None, :] >= kv_start[:, None]) & (t[None, :] < kv_len[:, None])
+            return ring_attention_sharded(mesh, q, k, v, causal=True, kv_valid=valid).to(q.dtype)
+        attend = attention_xla if self.attn_impl == "xla" else flash_attention
+        return attend(q, k, v, kv_start, kv_len, causal=True)
 
     def _out(self, out: torch.Tensor, B: int, S: int) -> torch.Tensor:
         """wo over the attention output; a row-parallel partial sum is
         all-reduced over tp in the compute dtype."""
         c = self.config
         y = self.wo(out.to(self.dtypes.compute_dtype).reshape(B, S, c.num_heads * c.head_dim))
-        return self.mesh.all_reduce(y, "tp") if self.sharded else y
+        return self.mesh.reduce_out(y, "tp") if self.sharded else y
 
     @staticmethod
     def _attend_paged(q, k, v, cache, layer, kv_start, kv_len, write_index, chunked, block_tables):
@@ -457,12 +511,14 @@ class MLP(nn.Module):
         self.w_down = _linear(I, D, dtypes, quantized)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.sharded:
+            x = self.mesh.region_in(x, "tp")
         if self.fused:
             gate, up = self.w_gateup(x).chunk(2, dim=-1)
         else:
             gate, up = self.w_gate(x), self.w_up(x)
         y = self.w_down(F.silu(gate) * up)
-        return self.mesh.all_reduce(y, "tp") if self.sharded else y
+        return self.mesh.reduce_out(y, "tp") if self.sharded else y
 
 
 class Block(nn.Module):
@@ -505,11 +561,17 @@ class LlamaModel(nn.Module):
     ``self.local`` is the config at the slice's shapes (its heads, kv
     heads, MLP width and vocabulary), ``self.layout`` what is sharded; the
     logits come back whole (``[..., V]``) on every rank.
+
+    ``attn_impl`` (``ATTN_IMPLS``; ``set_attn_impl`` changes it): the
+    single-shot prefill's attention, ``flash_attention`` or its plain
+    version (``"xla"``, differentiable). ``cache``
+    may be None: a single-shot prefill at ``write_index`` 0 that writes
+    nothing (training).
     """
 
     def __init__(
         self, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), fused: bool = False,
-        quantized: bool = False, mesh=None,
+        quantized: bool = False, mesh=None, attn_impl: str = "kernels",
     ):
         super().__init__()
         c = config
@@ -529,10 +591,21 @@ class LlamaModel(nn.Module):
         if not c.tie_word_embeddings:
             self.lm_head = _linear(c.hidden_size, lc.vocab_size, dtypes, quantized)
         self._inv_freqs: Optional[torch.Tensor] = None
+        self.set_attn_impl(attn_impl)
 
     @property
     def vocab_sharded(self) -> bool:
         return self.layout is not None and self.layout.vocab
+
+    def set_attn_impl(self, attn_impl: str) -> "LlamaModel":
+        """Switch every layer's single-shot prefill attention between
+        ``flash_attention`` and its plain version (``ATTN_IMPLS``)."""
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl={attn_impl!r}: expected one of {ATTN_IMPLS}")
+        self.attn_impl = attn_impl
+        for blk in self.layers:
+            blk.attn.attn_impl = attn_impl
+        return self
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The token embeddings; vocab-parallel, a masked lookup of this
@@ -545,13 +618,13 @@ class LlamaModel(nn.Module):
         own = (idx >= 0) & (idx < V)
         e = self.embed(idx.clamp(0, V - 1))
         e = torch.where(own[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
-        return self.mesh.all_reduce(e.contiguous(), "tp")
+        return self.mesh.reduce_out(e.contiguous(), "tp")
 
     def forward(
         self,
         tokens: torch.Tensor,
         positions: torch.Tensor,
-        cache: KVCache,
+        cache: Optional[KVCache],
         kv_start: torch.Tensor,
         kv_len: torch.Tensor,
         write_index: int,
@@ -583,21 +656,28 @@ class LlamaModel(nn.Module):
             # only the last position is sampled: skip the [B, S, V] projection
             h = h[:, -1:, :]
         head = self.embed if c.tie_word_embeddings else self.lm_head
+        if self.vocab_sharded:
+            h = self.mesh.region_in(h, "tp")
         logits = head_logits(h, head.weight, dt.logits_dtype, head.scale if self.quantized else None)
         # vocab-sharded head: every rank gets the whole vocabulary's logits
-        return self.mesh.all_gather(logits, dim=-1, axis="tp") if self.vocab_sharded else logits
+        return self.mesh.gather_out(logits, dim=-1, axis="tp") if self.vocab_sharded else logits
 
 
 def build_llama(
     config: LlamaConfig, dtypes: DTypePolicy, device: torch.device, fused: bool = False,
-    quantized: bool = False, mesh=None,
+    quantized: bool = False, mesh=None, attn_impl: str = "kernels", trainable: bool = False,
 ) -> LlamaModel:
     """An uninitialized model on ``device`` (no host-side init pass); fill it
     with ``convert.load_llama`` or ``convert.init_random_`` (bf16 layout).
-    With ``mesh``, this rank's shard (``parallel.sharding``)."""
+    With ``mesh``, this rank's shard (``parallel.sharding``). ``trainable``:
+    every parameter takes a gradient, in the unfused unquantized layout
+    (JAX's canonical one); train it with ``attn_impl="xla"``."""
+    if trainable and (fused or quantized):
+        raise ValueError("a trainable model keeps the unfused, unquantized layout")
     with torch.device("meta"):
-        model = LlamaModel(config, dtypes, fused=fused, quantized=quantized, mesh=mesh)
-    return model.to_empty(device=device).requires_grad_(False).eval()
+        model = LlamaModel(config, dtypes, fused=fused, quantized=quantized, mesh=mesh, attn_impl=attn_impl)
+    model = model.to_empty(device=device)
+    return model.requires_grad_(True).train() if trainable else model.requires_grad_(False).eval()
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -668,7 +748,8 @@ def quantize_llama(model: LlamaModel) -> LlamaModel:
         return model
     c = model.config
     with torch.device("meta"):
-        qm = LlamaModel(c, model.dtypes, fused=model.fused, quantized=True, mesh=model.mesh)
+        qm = LlamaModel(c, model.dtypes, fused=model.fused, quantized=True, mesh=model.mesh,
+                        attn_impl=model.attn_impl)
 
     def fill(dst: nn.Module, weight: torch.Tensor, amax_reduce=None) -> None:
         w, s = quantize_weight(weight, amax_reduce)

@@ -168,6 +168,18 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise when autograd would record a kernel call: the kernels have no
+    backward, and the output of a ``ctypes`` launch has no ``grad_fn``, so
+    the gradient would stop there without a word. Train through the plain
+    versions (``models.llama`` ``attn_impl="xla"``)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward and an input requires grad; "
+                           "train through the plain version (attn_impl='xla')")
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a kernel's C entry point returns a CUDA error."""
     if rc != 0:

@@ -32,7 +32,9 @@ before the PV product. Each wrapper takes its plain version only for CPU
 tensors; a CUDA tensor goes to the kernel in ``csrc/attention.cu``
 (fresh K/V), ``csrc/attention_sm90.cu`` (the dense bf16 cache: decode and
 chunk), ``csrc/paged_attention.cu`` or ``csrc/attention_q8.cu``, or the
-wrapper raises. Every attention kernel runs a routine of
+wrapper raises. The kernels have no backward: with grad enabled, a wrapper
+given a non-CPU input that requires grad raises (``_build.check_no_grad``)
+instead of cutting the gradient; training runs the plain versions. Every attention kernel runs a routine of
 ``csrc/attention_sm90.cuh``; the four q8 kernels run its int8 forms of the
 chunk and decode routines.
 
@@ -900,6 +902,7 @@ def flash_attention(
     of kernel by shape."""
     if q.device.type == "cpu":
         return attention_xla(q, k, v, kv_start, kv_len, causal)
+    _build.check_no_grad("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     dev = q.device
@@ -951,6 +954,7 @@ def decode_attention(
     """Single-token attention over the stacked cache at ``layer``."""
     if q.device.type == "cpu":
         return decode_attention_xla(q, k_cache, v_cache, kv_start, kv_len, layer)
+    _build.check_no_grad("decode_attention", q, k_cache, v_cache)
     if q.shape[1] != 1:
         raise ValueError(f"decode_attention is single-token (got S={q.shape[1]})")
     layer = int(layer)
@@ -987,6 +991,7 @@ def chunk_prefill_attention(
     ``chunk_design_plan``'s choice of kernel by shape."""
     if q.device.type == "cpu":
         return chunk_attention_xla(q, k_cache, v_cache, kv_start, kv_len, layer, write_index)
+    _build.check_no_grad("chunk_prefill_attention", q, k_cache, v_cache)
     layer, write_index = int(layer), int(write_index)
     L, B, K, T, H, hd = _check_cache("chunk_prefill_attention", q, k_cache, v_cache, layer)
     S = q.shape[1]
@@ -1059,6 +1064,7 @@ def paged_decode_attention(
     planned from the capacity ``MB * bs`` (no read of ``kv_len``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_xla(q, k_arena, v_arena, block_tables, kv_len, layer)
+    _build.check_no_grad("paged_decode_attention", q, k_arena, v_arena)
     if q.shape[1] != 1:
         raise ValueError(f"paged_decode_attention is single-token (got S={q.shape[1]})")
     layer = int(layer)
@@ -1095,6 +1101,7 @@ def paged_chunk_attention(
     the row's live blocks, offset-causal (``t_k <= write_index[b] + t``)."""
     if q.device.type == "cpu":
         return paged_chunk_attention_xla(q, k_arena, v_arena, block_tables, kv_len, layer, write_index)
+    _build.check_no_grad("paged_chunk_attention", q, k_arena, v_arena)
     layer = int(layer)
     L, N, K, bs, hd, B, S, H, MB = _check_paged(
         "paged_chunk_attention", q, k_arena, v_arena, block_tables, kv_len, layer
@@ -1170,6 +1177,7 @@ def decode_attention_q8(
     ``[kv_start, kv_len)``; split-KV as ``decode_launch_plan`` plans it."""
     if q.device.type == "cpu":
         return decode_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer)
+    _build.check_no_grad("decode_attention_q8", q, k_cache, v_cache, k_scale, v_scale)
     if q.shape[1] != 1:
         raise ValueError(f"decode_attention_q8 is single-token (got S={q.shape[1]})")
     layer = int(layer)
@@ -1208,6 +1216,7 @@ def chunk_prefill_attention_q8(
     at ``layer``, offset-causal; split-KV as ``chunk_launch_plan`` plans it."""
     if q.device.type == "cpu":
         return chunk_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer, write_index)
+    _build.check_no_grad("chunk_prefill_attention_q8", q, k_cache, v_cache, k_scale, v_scale)
     layer, write_index = int(layer), int(write_index)
     L, B, K, T, hd, H = _check_q8("chunk_prefill_attention_q8", q, k_cache, v_cache, k_scale, v_scale, layer)
     if q.shape[0] != B or T % 4:
@@ -1245,6 +1254,7 @@ def paged_decode_attention_q8(
     planned from the capacity ``MB * bs`` (no read of ``kv_len``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_xla_q8(q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer)
+    _build.check_no_grad("paged_decode_attention_q8", q, k_arena, v_arena, k_scale, v_scale)
     if q.shape[1] != 1:
         raise ValueError(f"paged_decode_attention_q8 is single-token (got S={q.shape[1]})")
     layer = int(layer)
@@ -1285,6 +1295,7 @@ def paged_chunk_attention_q8(
         return paged_chunk_attention_xla_q8(
             q, k_arena, v_arena, k_scale, v_scale, block_tables, kv_len, layer, write_index
         )
+    _build.check_no_grad("paged_chunk_attention_q8", q, k_arena, v_arena, k_scale, v_scale)
     layer = int(layer)
     L, N, K, bs, hd, H = _check_q8("paged_chunk_attention_q8", q, k_arena, v_arena, k_scale, v_scale, layer)
     MB = _check_tables("paged_chunk_attention_q8", q, block_tables, kv_len, bs)

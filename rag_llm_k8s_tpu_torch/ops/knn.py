@@ -122,6 +122,7 @@ def knn_topk(
     the plain version for CPU tensors."""
     if queries.device.type == "cpu":
         return knn_topk_xla(queries, embeddings, sq_norms, k=k)
+    _build.check_no_grad("knn_topk", queries, embeddings, sq_norms)
     Q, D = queries.shape
     N = embeddings.shape[0]
     for name, t in (("queries", queries), ("embeddings", embeddings), ("sq_norms", sq_norms)):

@@ -1,5 +1,5 @@
 """Ring attention over the ``sp`` axis, counterpart of
-``rag_llm_k8s_tpu/parallel/ring_attention.py`` (forward only).
+``rag_llm_k8s_tpu/parallel/ring_attention.py``.
 
 Sequences shard over ``sp``: each rank holds one block of Q/K/V, and the K/V
 blocks rotate around the ring (``MeshContext.ring_shift``, JAX's
@@ -11,8 +11,12 @@ with it. Rows with no valid key come out as zeros. GQA: K/V may carry fewer
 heads; queries group over them.
 
 The JAX body is ``jnp.einsum``, not a Pallas kernel, so the block step here
-is plain PyTorch too. The gradient (training over long sequences) is
-ROADMAP.md Queue 1 item 11.
+is plain PyTorch too. It is differentiable, as JAX's is (training over long
+sequences, ``engine/training.py``): autograd runs back through the unrolled
+ring, each ``ring_shift``'s gradient one hop the other way; in
+``ring_attention_sharded`` the slice of the replicated q/k/v gathers the
+slices' gradients over sp, and the gathered output's gradient is this
+rank's slice (``core/mesh.py``).
 """
 
 from __future__ import annotations
@@ -111,5 +115,6 @@ def ring_attention_sharded(
         raise ValueError(f"ring_attention_sharded: S={S} does not divide over sp={n}")
     c = S // n
     sl = slice(ctx.axis_index("sp") * c, (ctx.axis_index("sp") + 1) * c)
-    out = ring_attention(q[:, sl], k[:, sl], v[:, sl], ctx, "sp", causal, kv_valid[:, sl])
-    return ctx.all_gather(out, dim=1, axis="sp")
+    ql, kl, vl = ctx.split_in((q, k, v), dim=1, axis="sp")
+    out = ring_attention(ql, kl, vl, ctx, "sp", causal, kv_valid[:, sl])
+    return ctx.gather_out(out, dim=1, axis="sp")

@@ -206,11 +206,13 @@ def shard_params(state_dict: Mapping, specs: Mapping[str, Optional[int]], ctx) -
     return {name: shard_tensor(arr, specs[name], ctx) for name, arr in state_dict.items()}
 
 
-def shard_llama_params(params, ctx, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), device=None):
+def shard_llama_params(params, ctx, config: LlamaConfig, dtypes: DTypePolicy = DTypePolicy(), device=None,
+                       **build):
     """One-call TP placement: the JAX package's flat (or nested) Llama
     parameter tree, unfused, bf16 or int8, as this rank's shard of the port
     model on ``device`` (default ``ctx.device``), through the weights bridge
-    (``models/convert.py``). The full tree stays on the host."""
+    (``models/convert.py``). The full tree stays on the host. ``build``:
+    ``build_llama``'s ``attn_impl`` and ``trainable``."""
     from rag_llm_k8s_tpu_torch.models import convert
     from rag_llm_k8s_tpu_torch.models.llama import build_llama
 
@@ -220,7 +222,8 @@ def shard_llama_params(params, ctx, config: LlamaConfig, dtypes: DTypePolicy = D
     quantized = convert.llama_is_quantized(flat)
     sd = convert.llama_state_dict(flat, config.num_layers)
     local = shard_params(sd, llama_param_specs(config, ctx, quantized), ctx)
-    model = build_llama(config, dtypes, device if device is not None else ctx.device, quantized=quantized, mesh=ctx)
+    model = build_llama(config, dtypes, device if device is not None else ctx.device, quantized=quantized, mesh=ctx,
+                        **build)
     convert.load_state_dict(model, local)
     return model
 

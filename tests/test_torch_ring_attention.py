@@ -8,7 +8,7 @@ causal and bidirectional, kv validity, GQA, ``test_prefill_logits_match_sp1``).
 One world of four ranks runs every case (an ``sp=4`` mesh and the
 launcher's ``sp=2 x tp=2`` one over the same ranks); the test functions
 assert them one by one. Tolerance: relative RMS error within 1e-5 (fp32),
-and fully masked rows exactly zero. The gradient is ROADMAP.md item 11.
+and fully masked rows exactly zero.
 """
 
 import dataclasses

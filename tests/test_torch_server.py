@@ -252,7 +252,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'server.router', 'sim.replay', 'rag.lookahead', 'obs.goodput', 'obs.slo', 'obs.tenants',\n"
         "        'obs.devices', 'obs.regression', 'obs.shadow', 'sim.simulator', 'sim.tracegen',\n"
         "        'core.mesh', 'parallel.sharding', 'parallel.ring_attention', 'parallel.launch',\n"
-        "        'parallel.commands', 'engine.engine', 'engine.prefix_cache', 'engine.tiering'}\n"
+        "        'parallel.commands', 'engine.engine', 'engine.prefix_cache', 'engine.tiering',\n"
+        "        'engine.training', 'parallel.dryrun'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "print('clean', len(mods))\n"
     )
