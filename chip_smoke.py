@@ -24,6 +24,12 @@
    at S = 8, the mixed window at S = 64, kernel 6 at S = 16; the paged
    decodes held to the unsplit plain version and to the plain version of
    their own split plan),
+   the dense chunk kernels, bf16 and int8 (kernels 4 and 6, here and at one
+   tp rank's heads), given their write slot as a ``[1]`` int32 tensor on the
+   card, as the one-shot loops give it, with a planted overwrite: the slot
+   moved on the card between two launches of the same tensor, and the second
+   launch held to the plain version at the new slot and rejected against the
+   old one),
    with its time, the plain version's time, one PyTorch library call
    computing the same function (``library_ms``, a yardstick the port never
    calls; none reads a paged arena or an int8 cache), all as device time per
@@ -87,14 +93,22 @@
 5. Service phase: the port's RagService over the 8B decoder and a full
    bge-m3 encoder, built as ``server/main.py`` builds it (the fixture BPE
    and Unigram tokenizers, the C++ merge loop, a ``BatchScheduler`` and the
-   retrieve coalescer); PDFs through ``/upload_pdf``, then synthetic chunks
+   retrieve coalescer) and warmed up as the boot does (JAX's warm set of
+   generate shapes; its seconds printed); PDFs through ``/upload_pdf``, then synthetic chunks
    up to 65,536 vectors (the fused-path cap), then ``/generate`` and
    ``/query`` requests with default sampling and with greedy, one long
    question (host path) and one >4096-token prompt (chunked prefill). The
    launch counters are zeroed just before and read just after; every kernel
-   must have run. Then the latency leg (``phase_query_latency``): 6 fused
+   must have run. The one-shot loops run with ``strict_sync`` (a host sync
+   inside a step raises), and each request prints the host's waits on the
+   card (``engine.loop_counts``: the lagged done reads and the final fetch;
+   none may fall on the step just issued) and the steps issued past the end
+   (at most ``DONE_LAG`` a call); then rows that end at different steps
+   (EOS ids from each row's own stream, ``_rows_end_apart``), where both
+   loops must run 1..``DONE_LAG`` steps past the end and give the same
+   ``out`` as at ``DONE_LAG = 0``. Then the latency leg (``phase_query_latency``): 6 fused
    solo ``/query`` one at a time, p50 and p95 of ``total_ms`` and its parts,
-   and a burst of 8 that must run a kNN pass of 8 queries and a batched
+   the same waits per request, and a burst of 8 that must run a kNN pass of 8 queries and a batched
    ``engine.generate``.
    Then the observability surface (``phase_observability``): span trees
    with a W3C ``traceparent`` against the timings, ``/metrics`` under the
@@ -573,6 +587,37 @@ def _attn_line(err, rms, fault_rms):
             f"{ATTN_MAX_TOL:.3g} x max|plain|) planted faults rejected (least rel_rms {fault_rms:.3g})")
 
 
+def _slot(wi):
+    """A chunk kernel's write slot as the one-shot loops hand it in: one
+    int32 in device memory, which the kernel reads there."""
+    import torch
+
+    return torch.tensor([wi], device="cuda", dtype=torch.int32)
+
+
+SLOT_SHIFT = 3  # the planted slot overwrite moves the slot this many keys back
+
+
+def _slot_overwrite(name, kern, plain, wt, wi, check=None):
+    """The planted slot overwrite: one launch at the device slot ``wt``,
+    then ``wt`` is overwritten on the card (a device op, no host call in
+    between) and the kernel launched again with the same tensor. The second
+    result must match the plain version at the new slot and be rejected
+    against the old one: a kernel or wrapper that kept a host copy of the
+    slot fails here. ``kern(wt)``, ``plain(int slot)``. Returns the
+    (max abs error, rel RMS) of the second launch."""
+    check = check or _attn_check
+    kern(wt)
+    wt.sub_(SLOT_SHIFT)
+    moved = kern(wt)
+    wt.add_(SLOT_SHIFT)
+    err, rms = check(f"{name} (slot overwritten on the card, {wi} -> {wi - SLOT_SHIFT})", moved,
+                     plain(wi - SLOT_SHIFT))
+    (_attn_faults if check is _attn_check else _paged_faults)(
+        f"{name} (slot overwritten on the card)", moved, {"the slot before the overwrite": plain(wi)})
+    return err, rms
+
+
 def phase_flash(rows):
     import torch
 
@@ -843,16 +888,21 @@ def phase_chunk(rows):
         kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
         layer = Lc // 2 + 1
         _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
-        want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
+        # the slot in device memory, as the one-shot loops hand it in
+        wt = _slot(wi)
+        want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wt)
         plan = A.chunk_design_plan(B, S, H, K, T, hd, _sms())
         # the long prompt's one-split plan takes either design: check and time both
         designs = list(A.CHUNK_DESIGNS) if plan["n_splits"] == 1 else [plan["design"]]
-        got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
+        got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wt)
         err, rms = map(max, zip(
-            _attn_check(f"chunk {tag}", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wi), want),
+            _attn_check(f"chunk {tag}", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wt), want),
             *(_attn_check(f"chunk {tag} ({d}, NaN outside the window)",
-                          A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi, design=d), want)
+                          A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wt, design=d), want)
               for d in designs),
+            *(_slot_overwrite(f"chunk {tag} ({d})", lambda w, d=d: A.chunk_prefill_attention(
+                q, kz, vz, ks, kl, layer, w, design=d), lambda w: A.chunk_attention_xla(
+                q, kz, vz, ks, kl, layer, w), wt, wi) for d in designs),
         ))
         worst, worst_rms = max(worst, err), max(worst_rms, rms)
         del want
@@ -868,10 +918,10 @@ def phase_chunk(rows):
         fault_rms = _attn_faults(f"chunk {tag}", got, faulty)
         del faulty
         del got
-        design_ms = {d: time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi, design=d),
+        design_ms = {d: time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wt, design=d),
                                 iters=64 if S == 16 else 16) for d in designs}
         ms = design_ms[plan["design"]]
-        host_us = launch_us(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
+        host_us = launch_us(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wt), iters=16)
         plain_ms = time_ms(lambda i: A.chunk_attention_xla(q, kz, vz, ks, kl, i % Lc, wi),
                            iters=3 if S > 16 else 8, warmup=1)
         pos = torch.arange(T, device=dev)
@@ -882,13 +932,13 @@ def phase_chunk(rows):
         pairs = mask.sum().item()
         nbytes = 2 * B * K * (kl_i - ks_i) * hd * 2 + 2 * q.numel() * 2
         b_ms, b_by = bound(nbytes, 4.0 * H * hd * pairs, BF16_FLOPS)
-        print(f"phase chunk {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} {_plan_line(plan)}: "
+        print(f"phase chunk {tag} S={S} write_index={wi} (device slot) T={T} H={H} K={K} hd={hd} {_plan_line(plan)}: "
               f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} "
               f"({' '.join(f'{d}_ms={t:.4f}' for d, t in design_ms.items())}) plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) host_us={host_us:.1f}", flush=True)
         if tag == "verify":
             rows["chunk_prefill_attention"] = dict(
-                shape=f"S=16 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
+                shape=f"S=16 write_index={wi} (device slot) T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
             )
         else:
@@ -908,12 +958,15 @@ def phase_chunk(rows):
     ks, kl = (torch.tensor(x, device=dev, dtype=torch.int32) for x in (ks_l, kl_l))
     layer = L // 2 + 1
     _sharpen_edges(q, (kc, kz), layer, wi, ks_l[0])
+    wt = _slot(wi)
     want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
-    got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
+    got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wt)
     torch.cuda.synchronize()
     e2, r2 = map(max, zip(
-        _paged_check("chunk B=2", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wi), want),
+        _paged_check("chunk B=2", A.chunk_prefill_attention(q, kz, vz, ks, kl, layer, wt), want),
         _paged_check("chunk B=2 (NaN outside the windows)", got, want),
+        _slot_overwrite("chunk B=2", lambda w: A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, w),
+                        lambda w: A.chunk_attention_xla(q, kz, vz, ks, kl, layer, w), wt, wi, _paged_check),
     ))
     first = lambda t, d: t + torch.tensor([d, 0], device=dev, dtype=torch.int32)  # noqa: E731
     f2 = _paged_faults("chunk B=2", got, {
@@ -1285,15 +1338,18 @@ def phase_chunk_q8(rows):
         (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
         plain = lambda *a, **kw: A.chunk_attention_xla_q8(q, *a, **kw)  # noqa: E731
         plan = A.chunk_launch_plan(B, S, H, K, T, _sms())
-        want = plain(k8, v8, ksz, vsz, ks, kl, layer, wi)
+        wt = _slot(wi)  # the slot in device memory, as the one-shot loops hand it in
+        want = plain(k8, v8, ksz, vsz, ks, kl, layer, wt)
         split_want = A.chunk_attention_split_xla_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi, plan["split_keys"],
                                                     plan["block_rows"])
-        got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wi)
+        got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wt)
         err, rms = map(max, zip(
-            _attn_check(f"chunk_q8 {tag}", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi),
+            _attn_check(f"chunk_q8 {tag}", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wt),
                         want),
             _attn_check(f"chunk_q8 {tag} (NaN scales outside the window)", got, want),
             _attn_check(f"chunk_q8 {tag} (against the split plain version)", got, split_want),
+            _slot_overwrite(f"chunk_q8 {tag}", lambda w: A.chunk_prefill_attention_q8(
+                q, k8x, v8x, ksn, vsn, ks, kl, layer, w), lambda w: plain(k8, v8, ksz, vsz, ks, kl, layer, w), wt, wi),
         ))
         worst, worst_rms = max(worst, err), max(worst_rms, rms)
         del want, split_want
@@ -1307,22 +1363,23 @@ def phase_chunk_q8(rows):
             faulty["kv_len-1"] = plain(k8, v8, ksz, vsz, ks, kl - 1, layer, wi)
         fault_rms = _attn_faults(f"chunk_q8 {tag}", got, faulty)
         del faulty, got
-        ms = time_ms(lambda i: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % Lc, wi), iters=16)
+        ms = time_ms(lambda i: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, i % Lc, wt), iters=16)
         plain_ms = time_ms(lambda i: plain(k8, v8, ksz, vsz, ks, kl, i % Lc, wi),
                            iters=3 if S > 16 else 8, warmup=1)
-        bf16_ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi), iters=16)
+        bf16_ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wt), iters=16)
         qpos = wi + torch.arange(S, device=dev)
         pos = torch.arange(T, device=dev)
         pairs = ((pos[None, :] >= ks_i) & (pos[None, :] < kl_i) & (pos[None, :] <= qpos[:, None])).sum().item()
         b_ms, b_by = bound(B * (kl_i - ks_i) * q8_key_bytes(K, hd) + 2 * q.numel() * 2, 4.0 * H * hd * pairs,
                            BF16_FLOPS)
-        print(f"phase chunk_q8 {tag} S={S} write_index={wi} T={T} H={H} K={K} hd={hd} {_plan_line(plan)}: "
+        print(f"phase chunk_q8 {tag} S={S} write_index={wi} (device slot) T={T} H={H} K={K} hd={hd} "
+              f"{_plan_line(plan)}: "
               f"{_attn_line(err, rms, fault_rms)} ms={ms:.4f} plain_ms={plain_ms:.4f} bf16_kernel_ms={bf16_ms:.4f} "
               f"library_ms=none (no single PyTorch call reads an int8 cache) bound_ms={b_ms:.4f} ({b_by})",
               flush=True)
         if tag == "verify":
             rows["chunk_prefill_attention_q8"] = dict(
-                shape=f"S=16 write_index={wi} T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
+                shape=f"S=16 write_index={wi} (device slot) T={T} H=32 K=8 hd=128", ms=ms, plain_ms=plain_ms,
                 bf16_kernel_ms=bf16_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
             )
         else:
@@ -1346,11 +1403,12 @@ def phase_chunk_q8(rows):
     (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
     plain = lambda *a, **kw: A.chunk_attention_xla_q8(q, *a, **kw)  # noqa: E731
     plan = A.chunk_launch_plan(B2, S, H, K, T, _sms())
+    wt = _slot(wi)
     want = plain(k8, v8, ksz, vsz, ks, kl, layer, wi)
-    got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wi)
+    got = A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, layer, wt)
     torch.cuda.synchronize()
     e2, r2 = map(max, zip(
-        _paged_check("chunk_q8 B=2", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wi), want),
+        _paged_check("chunk_q8 B=2", A.chunk_prefill_attention_q8(q, k8, v8, ksz, vsz, ks, kl, layer, wt), want),
         _paged_check("chunk_q8 B=2 (NaN scales outside the windows)", got, want),
         _paged_check("chunk_q8 B=2 (against the split plain version)", got, A.chunk_attention_split_xla_q8(
             q, k8, v8, ksz, vsz, ks, kl, layer, wi, plan["split_keys"], plan["block_rows"])),
@@ -2029,6 +2087,93 @@ def phase_training(smi, device="cuda"):
     torch.cuda.empty_cache()
 
 
+def _loop_delta(engine, before):
+    """The one-shot loops' counts since ``before`` (a copy of
+    ``engine.loop_counts``): calls, the host's waits on the card (the lagged
+    done reads and each call's final fetch), those on the step just issued,
+    the steps issued past the end, and the host ms spent in the lagged
+    reads and in the final fetches."""
+    lc = engine.loop_counts
+    d = {k: getattr(lc, k) - getattr(before, k) for k in ("calls", "waits", "newest", "overrun")}
+    d.update({f"{k[:-2]}_ms": round((getattr(lc, k) - getattr(before, k)) * 1e3, 3) for k in ("wait_s", "fetch_s")})
+    return d
+
+
+def _loop_check(what, d):
+    """No wait on the newest step, at most ``DONE_LAG`` steps past the end a
+    call."""
+    from rag_llm_k8s_tpu_torch.engine import engine as E
+
+    if d["newest"] or d["overrun"] > E.DONE_LAG * d["calls"]:
+        fail(f"{what}: the loops waited {d['newest']} time(s) on the step just issued, or ran {d['overrun']} "
+             f"steps past the end over {d['calls']} call(s) (at most {E.DONE_LAG} a call)")
+
+
+def _rows_end_apart(engine, tag):
+    """Rows that end at different steps, on the card. EOS ids are taken from
+    each row's own earlier stream (row b's token at step 2 + 3b, the
+    service's sampling, one seed), so the vanilla loop (B = 4) and the
+    speculative one (B = 1, a prompt that repeats) end before their budget
+    and issue steps past the end. Each runs at ``DONE_LAG`` and at 0 on the
+    same seed: the untrimmed ``out`` (and the verify count) must be equal,
+    the rows' tokens the earlier streams cut at their ends, and the lagged
+    run must have issued 1..``DONE_LAG`` steps past the end (0 at lag 0)."""
+    import numpy as np
+
+    from rag_llm_k8s_tpu_torch.engine import engine as E
+
+    rng = np.random.default_rng(7)
+    bos, max_new = engine.config.bos_token_id, 24
+
+    def make(eos, spec):
+        cfg = dataclasses.replace(engine.config, eos_token_ids=tuple(eos))
+        ec = dataclasses.replace(engine.engine_config, speculative="prompt_lookup" if spec else "off")
+        eng = E.InferenceEngine(cfg, engine.model, engine.sampling, ec, engine.dtypes, engine.device,
+                                pad_id=engine.pad_id)
+        eng.strict_sync = True
+        raw, real = [], eng._device_run
+
+        def run(*a, **kw):
+            raw.append(real(*a, **kw))
+            return raw[-1]
+
+        eng._device_run = run
+        return eng, raw
+
+    cases = {
+        "vanilla": ([[bos] + rng.integers(3, 259, size=200 + 37 * b).tolist() for b in range(4)], False),
+        "speculative": ([[bos] + rng.integers(3, 259, size=48).tolist() * 5], True),
+    }
+    for name, (prompts, spec) in cases.items():
+        streams = make(engine.config.eos_token_ids, spec)[0].generate(prompts, max_new_tokens=max_new, seed=11)
+        eos = sorted({s[min(2 + 3 * b, len(s) - 1)] for b, s in enumerate(streams)})
+        ends = [next((i for i, t in enumerate(s) if t in eos), len(s)) for s in streams]
+        if len(prompts) > 1 and len(set(ends)) < 2:
+            fail(f"{tag} rows ending apart ({name}): every row ends at step {ends[0]}")
+        got = {}
+        for lag in (E.DONE_LAG, 0):
+            saved, E.DONE_LAG = E.DONE_LAG, lag
+            try:
+                eng, raw = make(eos, spec)
+                toks = eng.generate(prompts, max_new_tokens=max_new, seed=11)
+            finally:
+                E.DONE_LAG = saved
+            got[lag] = (raw, toks, dict(eng.loop_counts.last), eng.stats.spec_verify_steps)
+        (raw2, toks2, last2, iters2), (raw0, toks0, last0, iters0) = got[E.DONE_LAG], got[0]
+        same = len(raw2) == len(raw0) and all(np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(raw2, raw0))
+        if not same or toks2 != toks0 or iters2 != iters0:
+            fail(f"{tag} rows ending apart ({name}): DONE_LAG {E.DONE_LAG} gave another out than 0 "
+                 f"({toks2} / {toks0}, verifies {iters2} / {iters0})")
+        if toks2 != [s[:e] for s, e in zip(streams, ends)]:
+            fail(f"{tag} rows ending apart ({name}): the tokens are not the streams cut at {ends}")
+        if not 0 < last2["overrun"] <= E.DONE_LAG or last0["overrun"] or last2["newest"]:
+            fail(f"{tag} rows ending apart ({name}): steps past the end {last2['overrun']} at DONE_LAG "
+                 f"{E.DONE_LAG} (1..{E.DONE_LAG} wanted), {last0['overrun']} at 0; newest waits {last2['newest']}")
+        print(f"request {tag} rows ending apart {name}: B={len(prompts)} eos={eos} ends={ends} "
+              f"verifies={iters2} loop at DONE_LAG={E.DONE_LAG} {json.dumps(last2)} at 0 {json.dumps(last0)}: "
+              f"out equal", flush=True)
+
+
 def _launch_check(path, launches, need, forbid):
     print(f"launches on the {path}: {json.dumps(launches)}", flush=True)
     missing = [k for k in need if launches[k] <= 0]
@@ -2087,9 +2232,12 @@ def phase_service(service_bits, tag="bf16", ingest=True, need=ONE_SHOT_KERNELS, 
         ("/query", "where is the vector index kept?", greedy),
     ]
     served = []
+    # any host sync inside a loop step raises (torch.cuda.set_sync_debug_mode)
+    engine.strict_sync = True
     for route, question, sampling in requests:
         engine.sampling = sampling
         before = dataclasses.replace(engine.stats)
+        loops = dataclasses.replace(engine.loop_counts)
         launched = dict(_build.LAUNCHES)
         r = client.post(route, json_body={"prompt": question})
         body = r.get_json()
@@ -2102,9 +2250,11 @@ def phase_service(service_bits, tag="bf16", ingest=True, need=ONE_SHOT_KERNELS, 
         st = engine.stats
         path = "speculative" if st.spec_verify_steps > before.spec_verify_steps else "vanilla"
         served.append(path)
+        waits = _loop_delta(engine, loops)
+        _loop_check(f"{tag} {route}", waits)
         print(f"request {tag} {route} sampling={'greedy' if sampling is greedy else 'default'} "
               f"path={path} decode_tokens={st.decode_tokens - before.decode_tokens} "
-              f"verify_steps={st.spec_verify_steps - before.spec_verify_steps} "
+              f"verify_steps={st.spec_verify_steps - before.spec_verify_steps} host_waits={json.dumps(waits)} "
               f"launches={json.dumps({n: c - launched[n] for n, c in _build.LAUNCHES.items()})} "
               f"timings={json.dumps(body['timings'])}", flush=True)
     engine.sampling = default
@@ -2114,12 +2264,15 @@ def phase_service(service_bits, tag="bf16", ingest=True, need=ONE_SHOT_KERNELS, 
             ec = engine.engine_config
             engine.engine_config = dataclasses.replace(ec, speculative=mode)
             steps = engine.stats.spec_verify_steps
+            loops = dataclasses.replace(engine.loop_counts)
             r = client.post("/query", json_body={"prompt": "what does the warp block share?"})
             engine.engine_config = ec
             if r.status_code != 200:
                 fail(f"forced {mode}: {r.status_code} {r.get_json()}")
+            waits = _loop_delta(engine, loops)
+            _loop_check(f"{tag} forced speculative={mode}", waits)
             print(f"request {tag} /query forced speculative={mode} "
-                  f"verify_steps={engine.stats.spec_verify_steps - steps} "
+                  f"verify_steps={engine.stats.spec_verify_steps - steps} host_waits={json.dumps(waits)} "
                   f"timings={json.dumps(r.get_json()['timings'])}", flush=True)
     # host path: a question whose tail overflows the 128-token fused bucket
     r = client.post("/generate", json_body={"prompt": words(rng, 40) + "?"})
@@ -2130,9 +2283,14 @@ def phase_service(service_bits, tag="bf16", ingest=True, need=ONE_SHOT_KERNELS, 
     # chunked prefill: a prompt past the 4096 bucket
     t = time.monotonic()
     long_prompt = [engine.config.bos_token_id] + list(rng.integers(3, 259, size=5000))
+    loops = dataclasses.replace(engine.loop_counts)
     out = engine.generate([long_prompt], max_new_tokens=32)[0]
+    waits = _loop_delta(engine, loops)
+    engine.strict_sync = False
+    _loop_check(f"{tag} chunked prefill", waits)
     print(f"request {tag} engine.generate prompt=5001 tokens (chunked prefill) new_tokens={len(out)} "
-          f"s={time.monotonic() - t:.2f}", flush=True)
+          f"host_waits={json.dumps(waits)} s={time.monotonic() - t:.2f}", flush=True)
+    _rows_end_apart(engine, tag)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
@@ -3194,10 +3352,15 @@ def phase_query_latency(service_bits, n_solo: int = 24):
         native_before = tok.native_calls
         keys = ("total_ms", "tokenize_ms", "embed_retrieve_ms", "generate_ms")
         samples = {k: [] for k in keys}
+        per_request = []
+        engine.strict_sync = True  # a host sync inside a loop step raises
         for i in range(n_solo):
             q = LATENCY_QUESTIONS[i % len(LATENCY_QUESTIONS)]
+            loops = dataclasses.replace(engine.loop_counts)
             r = client.post("/query", json_body={"prompt": f"{q} ({i})",
                                                  "tenant_id": GOODPUT_TENANTS[i % len(GOODPUT_TENANTS)]})
+            per_request.append(_loop_delta(engine, loops))
+            _loop_check(f"latency /query {i}", per_request[-1])
             body = r.get_json()
             if r.status_code != 200 or "Document '" not in body.get("context", "") or "chip_ms" not in body[
                     "timings"]:
@@ -3211,10 +3374,15 @@ def phase_query_latency(service_bits, n_solo: int = 24):
             fail(f"latency: {len(fused)} of {n_solo} solo queries took the single-fetch path")
         if tok.native_calls - native_before < n_solo:
             fail("latency: the native BPE merge loop did not serve every request")
+        engine.strict_sync = False
         stats = {k: {"p50": _pct(v, 50), "p95": _pct(v, 95), "min": min(v), "max": max(v)}
                  for k, v in samples.items()}
         print(f"phase query_latency solo: requests={n_solo} fused={len(fused)} "
-              f"native_bpe_texts={tok.native_calls - native_before} ms {json.dumps(stats)}", flush=True)
+              f"native_bpe_texts={tok.native_calls - native_before} ms {json.dumps(stats)} card={SMI[0]}",
+              flush=True)
+        print(f"phase query_latency solo host waits per request (lagged done reads + the final fetch; "
+              f"newest: waits on the step just issued; overrun: steps past the end): "
+              f"{json.dumps(per_request)}", flush=True)
 
         # a cold burst of 8: one coalesced retrieve (a kNN pass of 8) and
         # batched generates through the BatchScheduler
@@ -5582,14 +5750,15 @@ def phase_tp_kernels(rows):
             kl = torch.tensor([kl_i], device=dev, dtype=torch.int32)
             layer = Lc // 2 + 1
             _sharpen_edges(q, (kc, kz), layer, wi, ks_i)
+            wt = _slot(wi)
             want = A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi)
-            got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wi)
+            got = A.chunk_prefill_attention(q, kc, vc, ks, kl, layer, wt)
             err, rms = _attn_check(f"chunk {tag} tp={tp} (NaN outside the window)", got, want)
             del want
             fault = _attn_faults(f"chunk {tag} tp={tp}", got, {
                 "write_index+1": A.chunk_attention_xla(q, kz, vz, ks, kl, layer, wi + 1)})
             plan = A.chunk_design_plan(1, S, H, K, T, hd, _sms())
-            ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wi),
+            ms = time_ms(lambda i: A.chunk_prefill_attention(q, kc, vc, ks, kl, i % Lc, wt),
                          iters=64 if S == 16 else 16)
             plain_ms = time_ms(lambda i: A.chunk_attention_xla(q, kz, vz, ks, kl, i % Lc, wi),
                                iters=3 if S > 16 else 8, warmup=1)
@@ -5708,7 +5877,8 @@ def _tp_chunk_q8_case(g, tp, H, K):
     (k8, ksz), (k8x, ksn) = _q8_pair(kc, kz, g)
     (v8, vsz), (v8x, vsn) = _q8_pair(vc, vz, g)
     del kc, vc
-    kern = lambda lay: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, lay, wi)  # noqa: E731
+    wt = _slot(wi)
+    kern = lambda lay: A.chunk_prefill_attention_q8(q, k8x, v8x, ksn, vsn, ks, kl, lay, wt)  # noqa: E731
     plain = lambda lay, w=wi: A.chunk_attention_xla_q8(q, k8, v8, ksz, vsz, ks, kl, lay, w)  # noqa: E731
     got = kern(layer)
     torch.cuda.synchronize()
@@ -7758,11 +7928,21 @@ def build_service():
     # service's retrieve coalescer
     svc = RagService(cfg, engine, llm_tok, encoder, enc_tok, store,
                      scheduler=BatchScheduler(engine, max_wait_ms=30.0))
-    svc.ready = True
+    # the boot's warmup: JAX's warm set of generate shapes (batch 1 at every
+    # bucket, both loops under "auto", the coalescing ladder at the largest)
+    t = time.monotonic()
+    svc.warmup()
+    rep = svc.warm_report
+    print(f"phase build warmup: s={time.monotonic() - t:.1f} warm_shapes_s={rep['seconds']:.2f} "
+          f"shapes={len(rep['shapes'])} {rep['shapes']} card={SMI[0]}", flush=True)
+    if not svc.ready:
+        fail("the service did not come up ready from its warmup")
     return svc, create_app(svc).test_client(), engine, store
 
 
 T_START = time.monotonic()
+# the card's name and power limit (nvidia-smi), for the lines that keep a number
+SMI = [""]
 # the phase running now (``timed``), which names the streams it delivers,
 # and the step of it (``_prefixed_ask``'s ``what``)
 CURRENT_PHASE, CURRENT_STEP = [""], [""]
@@ -7889,6 +8069,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    SMI[0] = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()}", flush=True)
     if want != set(PHASES):

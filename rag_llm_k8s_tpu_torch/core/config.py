@@ -350,6 +350,11 @@ class EngineConfig:
     # continuous engine: decode steps run per host sync (one token fetch
     # per window)
     decode_sync_steps: int = 1
+    # warm every (batch, bucket) pair of the coalescing scheduler's padded
+    # batch ladder at boot, not only the largest bucket's (JAX's; here a
+    # warm shape is the first run of its shapes, not a compile). Env:
+    # TPU_RAG_WARM_FULL_LADDER=1.
+    warm_full_ladder: bool = False
     # paged KV for the continuous engine: a [L, N, K, block, hd] block-pool
     # arena with per-row block tables (engine/kv_pool.py)
     kv_paged: bool = False
@@ -803,7 +808,7 @@ PORTED_KEYS = frozenset({
     "TPU_RAG_MESH", "TPU_RAG_INDEX_PATH", "TPU_RAG_PDF_DIR", "TPU_RAG_PORT", "TPU_RAG_MAX_NEW_TOKENS",
     "TPU_RAG_BATCHING", "TPU_RAG_WEIGHT_QUANT", "TPU_RAG_KV_QUANT", "TPU_RAG_KV_PAGED",
     "TPU_RAG_KV_BLOCK_SIZE", "TPU_RAG_KV_POOL_BLOCKS", "TPU_RAG_INTERLEAVE_PREFILL",
-    "TPU_RAG_PREFILL_CHUNK_TOKENS", "TPU_RAG_WINDOW_TOKEN_BUDGET", "TPU_RAG_DO_SAMPLE",
+    "TPU_RAG_PREFILL_CHUNK_TOKENS", "TPU_RAG_WINDOW_TOKEN_BUDGET", "TPU_RAG_DO_SAMPLE", "TPU_RAG_WARM_FULL_LADDER",
     "TPU_RAG_SPEC_PAGED", "TPU_RAG_SPEC_PAGED_TOKENS", "TPU_RAG_SPEC_PAGED_MIN_ACCEPT",
     "TPU_RAG_SPECULATIVE", "TPU_RAG_SYNC_STEPS", "TPU_RAG_FUSED", "TPU_RAG_LOG_LEVEL",
     "TPU_RAG_ADMISSION_MAX_CONCURRENCY", "TPU_RAG_ADMISSION_MAX_QUEUE", "TPU_RAG_ADMISSION_RETRY_AFTER_S",
@@ -1008,6 +1013,8 @@ class AppConfig:
             engine = rep(engine, speculative=spec)
         if (v := _int(env, "TPU_RAG_SYNC_STEPS", 1)) is not None:
             engine = rep(engine, decode_sync_steps=v)
+        if (v := _flag(env, "TPU_RAG_WARM_FULL_LADDER")) is not None:
+            engine = rep(engine, warm_full_ladder=v)
         if (v := _flag(env, "TPU_RAG_FUSED")) is not None:
             engine = rep(engine, rag_fused=v)
         pc = engine.prefix_cache

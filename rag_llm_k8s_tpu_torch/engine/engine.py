@@ -31,12 +31,27 @@ Cache lengths follow the JAX engine exactly: ``T = ceil((S + max_new) / 128)
   speculative path so the last verify's ``k + 1`` writes stay inside.
 
 The JAX engine runs each generate as one compiled program with an on-device
-while loop. Here PyTorch runs eagerly and the host drives the loop: each
-decode step or verify reads one small value back (the all-done flag, or the
-``k + 1`` verify tokens), one host sync per iteration. The speculative loop
-also keeps its token history on the host, so it fetches the assembled
-prompt once. CUDA graphs are the tool to remove these syncs later. Each
-decode step and each verify runs inside a ``record_function`` range
+``lax.while_loop`` and one host fetch. Here PyTorch runs eagerly and the
+host issues the loop's steps, but the loop's state lives on the card as
+JAX's carry does: the vanilla loop's token, done flags, output and the
+step's slot and positions; the speculative loop's token history, output,
+emitted count, done flag and verify count, with the n-gram proposal, the
+acceptance (greedy, or the rejection draw) and the ``out``/``hist``
+scatters all on the card. The dense cache is written, and kernels 4 and 6
+read, at a device slot (``models/llama.py`` ``DeviceSlot``). The host never
+waits on the step it just issued: before issuing a step it reads the
+all-done flag of the step ``DONE_LAG`` behind the newest one, which a
+non-blocking copy into pinned memory carried back behind an event
+(``_DoneReader``), and stops once it says every row has ended (a finished
+state is a no-op: ``out`` and the speculative state stay as they are). So
+at most ``DONE_LAG`` steps run past the end, and the one fetch of ``out``
+(and the verify count) ends the call. The lag is fixed, not "whatever has
+finished", so every rank of a mesh stops at the same step. Sampled steps
+past the end draw from the generator; it is set back to where the last real
+step left it. ``loop_counts`` counts the host's waits per call (the lagged
+reads and the final fetch; none on the newest step) and the steps past the
+end. CUDA graphs are the tool to remove the remaining launch cost later.
+Each decode step and each verify runs inside a ``record_function`` range
 (``decode_forward``, ``verify_forward``), so a ``torch.profiler`` trace
 shows one forward's host issue time and the kernels it launched.
 
@@ -75,6 +90,7 @@ request's share (``chip_ms``, ``goodput_frac``, ``cost_usd`` when priced).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -103,6 +119,7 @@ from rag_llm_k8s_tpu_torch.engine.sampling import (
     sample_token,
 )
 from rag_llm_k8s_tpu_torch.models.llama import (
+    DeviceSlot,
     LlamaModel,
     fuse_projections_,
     make_kv_cache,
@@ -113,6 +130,71 @@ from rag_llm_k8s_tpu_torch.models.llama import (
 from rag_llm_k8s_tpu_torch.utils.buckets import bucket_len, next_pow2
 
 logger = logging.getLogger(__name__)
+
+# the host reads the all-done flag of the step DONE_LAG behind the newest
+# step it has issued: at most DONE_LAG steps run past the end, and none of
+# the host's waits falls on the step it just issued (0 reads the newest)
+DONE_LAG = 2
+
+
+class _DoneReader:
+    """The decode loops' lagged read of the all-done flag. ``record(j,
+    fin)`` after issuing step ``j``: on the card a non-blocking copy of the
+    device flag ``fin`` into pinned memory and an event behind it (a ring
+    of ``lag + 1`` events: step ``j``'s reuses the one of step ``j - lag -
+    1``, already waited on). ``ended()`` before issuing the next step:
+    waits on the event of step ``newest - lag`` (none while fewer steps are
+    issued) and returns its flag. On the CPU the flag is read as it is
+    (nothing is in flight). ``waits`` counts the reads, ``newest`` those of
+    the newest step, ``wait_s`` the host seconds spent in them."""
+
+    def __init__(self, device: torch.device, n: int, lag: int):
+        self.lag = max(int(lag), 0)
+        self.cuda = device.type == "cuda"
+        self.flags = torch.zeros(n, dtype=torch.bool, pin_memory=self.cuda)
+        self.events = [torch.cuda.Event() for _ in range(self.lag + 1)] if self.cuda else []
+        self.issued = -1
+        self.waits = 0
+        self.newest = 0
+        self.wait_s = 0.0
+
+    def record(self, j: int, fin: torch.Tensor) -> None:
+        if self.cuda:
+            self.flags[j : j + 1].copy_(fin.reshape(1), non_blocking=True)
+            self.events[j % (self.lag + 1)].record()
+        else:
+            self.flags[j : j + 1].copy_(fin.reshape(1))
+        self.issued = j
+
+    def ended(self) -> bool:
+        j = self.issued - self.lag
+        if j < 0:
+            return False
+        t = time.perf_counter()
+        if self.cuda:
+            self.events[j % (self.lag + 1)].synchronize()
+        self.wait_s += time.perf_counter() - t
+        self.waits += 1
+        self.newest += j == self.issued
+        return bool(self.flags[j])
+
+
+@dataclass
+class LoopCounts:
+    """The decode loops' host waits on the card and steps past the end, in
+    total and for the last call (``last``): ``waits`` the lagged done reads
+    plus the final fetch, ``newest`` the reads of the step just issued (0 at
+    ``DONE_LAG`` > 0), ``overrun`` the steps issued after every row had
+    ended; ``wait_s`` and ``fetch_s`` the host seconds spent in the lagged
+    reads and in the final fetch (in total only)."""
+
+    calls: int = 0
+    waits: int = 0
+    newest: int = 0
+    overrun: int = 0
+    wait_s: float = 0.0
+    fetch_s: float = 0.0
+    last: Optional[Dict[str, int]] = None
 
 
 @dataclass
@@ -168,6 +250,33 @@ def stamp_spec(info: Optional[Dict], ran: bool) -> None:
 
 def _cache_len(n: int) -> int:
     return -(-n // 128) * 128
+
+
+def _vanilla_steps(out: np.ndarray, eos_ids) -> int:
+    """The decode steps JAX's loop runs for the fetched ``out [B, max_new]``:
+    through the step whose token ended the last row, or all ``max_new - 1``
+    when a row never ends."""
+    hit = np.isin(out, np.asarray(eos_ids))
+    first = np.where(hit.any(axis=1), hit.argmax(axis=1), out.shape[1] - 1)
+    return int(first.max())
+
+
+class _SyncDebug:
+    """On the card, ``torch.cuda.set_sync_debug_mode("error")`` for the
+    block: any host sync inside raises. Nothing on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.on = device.type == "cuda"
+
+    def __enter__(self):
+        if self.on:
+            self.prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch.cuda.set_sync_debug_mode(self.prev)
+        return False
 
 
 def assemble_rag_tokens(
@@ -268,6 +377,11 @@ class InferenceEngine:
         self._rng_counter = 0
         self._eos = torch.tensor(config.eos_token_ids, device=self.device)
         self.stats = EngineStats()
+        self.loop_counts = LoopCounts()
+        # set on the card to make any host sync inside a loop step raise
+        # (torch.cuda.set_sync_debug_mode): the check that a step never
+        # waits on the card
+        self.strict_sync = False
         # the goodput ledger: a generate call is one window whose measured
         # host duration the roofline splits into prefill and decode shares
         # ("oneshot" windows; the continuous engine measures each window)
@@ -431,47 +545,94 @@ class InferenceEngine:
             )
         return self._decode_loop(cache, logits, kv_start, S, real_len, max_new, gen)
 
+    def _strict(self):
+        """The sync check around one step's issue (``strict_sync``), else
+        nothing."""
+        return _SyncDebug(self.device) if self.strict_sync else contextlib.nullcontext()
+
+    def _close_loop(self, reader: _DoneReader, issued: int, real: int, states: Dict[int, torch.Tensor],
+                    gen: torch.Generator, fetch_s: float) -> None:
+        """After the final fetch: count the call's waits (the lagged reads
+        and the fetch) and its steps past the end, and set a sampled loop's
+        generator back to where its last real step left it."""
+        if real + 1 in states:
+            gen.set_state(states[real + 1])
+        last = {"waits": reader.waits + 1, "newest": reader.newest, "overrun": issued - real, "steps": issued}
+        with self._lock:
+            lc = self.loop_counts
+            lc.calls += 1
+            lc.waits += last["waits"]
+            lc.newest += last["newest"]
+            lc.overrun += last["overrun"]
+            lc.wait_s += reader.wait_s
+            lc.fetch_s += fetch_s
+            lc.last = last
+
     def _decode_loop(
         self, cache, logits: torch.Tensor, kv_start: torch.Tensor, slot0: int, pos0, max_new: int,
         gen: torch.Generator,
     ) -> np.ndarray:
         """Sample the prefill's first token from ``logits [B, 1, V]``, then
-        the KV-cached decode loop: step ``i`` feeds the last token at slot
-        ``slot0 + i - 1`` and position ``pos0 + i - 1``. Returns ``[B,
-        max_new]`` token ids (EOS-padded after a row ends)."""
+        the KV-cached decode loop (JAX ``_make_gen``'s ``while_loop``): step
+        ``i`` feeds the last token at slot ``slot0 + i - 1`` and position
+        ``pos0 + i - 1``, both kept on the card and advanced there. Returns
+        ``[B, max_new]`` token ids (EOS-padded after a row ends, pad after
+        every row has)."""
         B, dev = logits.shape[0], self.device
+        sampled = self.sampling.do_sample and self.sampling.temperature > 0.0
         tok = sample_token(logits[:, -1], self.sampling, gen)
         done = self._isin_eos(tok)
         out = torch.full((B, max_new), self.pad_id, dtype=torch.int64, device=dev)
         out[:, 0] = tok
-        eos0 = self.config.eos_token_ids[0]
+        eos0 = torch.full_like(tok, self.config.eos_token_ids[0])
+        # the step's slot, its kv_len and the rows' positions, advanced by
+        # one add: [slot, kv_len x B, pos x B]; the cache write's int64 slot
+        # by another
+        at = torch.cat([torch.full((1 + B,), slot0, dtype=torch.int32, device=dev),
+                        torch.as_tensor(pos0, device=dev).to(torch.int32).reshape(B)])
+        at[1 : 1 + B] += 1
+        kv_len, pos = at[1 : 1 + B], at[1 + B :]
+        slot = DeviceSlot(at[:1], torch.full((1,), slot0, dtype=torch.int64, device=dev))
+        reader = _DoneReader(dev, max_new, DONE_LAG)
+        fin = done.all()
+        reader.record(0, fin)
+        states: Dict[int, torch.Tensor] = {}
         step = 1
-        # one host sync per step: the loop ends when every row has ended
-        while step < max_new and not bool(done.all()):
-            wi = slot0 + step - 1
-            with record_function("decode_forward"):
-                logits = self.model(
-                    tok[:, None], (pos0 + step - 1)[:, None], cache, kv_start,
-                    torch.full((B,), wi + 1, dtype=torch.int64, device=dev), wi,
-                )
+        while step < max_new and not reader.ended():
+            if sampled:
+                states[step] = gen.get_state()
+            with self._strict(), record_function("decode_forward"):
+                logits = self.model(tok[:, None], pos[:, None], cache, kv_start, kv_len, slot)
                 nxt = sample_token(logits[:, 0], self.sampling, gen)
-                tok = torch.where(done, torch.full_like(nxt, eos0), nxt)
+                tok = torch.where(done, eos0, nxt)
                 done = done | self._isin_eos(tok)
-                out[:, step] = tok
+                # a step issued after every row ended writes nothing (JAX's
+                # loop would not have run it)
+                out[:, step] = torch.where(fin, self.pad_id, tok)
+                at += 1
+                slot.slots.add_(1)
+                fin = done.all()
+                reader.record(step, fin)
             step += 1
-        return out.cpu().numpy()
+        t = time.perf_counter()
+        host = out.cpu().numpy()  # the one fetch
+        fetch_s = time.perf_counter() - t
+        self._close_loop(reader, step - 1, _vanilla_steps(host, self.config.eos_token_ids), states, gen, fetch_s)
+        return host
 
     def _run_spec(
         self, tokens: torch.Tensor, pad_mask: torch.Tensor, S: int, max_new: int,
         gen: torch.Generator,
     ) -> Tuple[np.ndarray, int]:
-        """Batch-1 prompt-lookup speculative generate; returns ``([1, max_new]
-        token ids, verify forwards run)``."""
-        cfg, model, dev = self.config, self.model, self.device
+        """Batch-1 prompt-lookup speculative generate (JAX
+        ``_make_gen_spec``'s ``while_loop``, its carry on the card); returns
+        ``([1, max_new] token ids, verify forwards run)``."""
+        model, dev = self.model, self.device
         sampling = self.sampling
         sampled = sampling.do_sample and sampling.temperature > 0.0
         n = max(1, self.engine_config.spec_ngram)
         k = max(1, self.engine_config.spec_tokens)
+        i64 = torch.int64
         # k extra slots: the LAST verify can start at slot S + max_new - 2
         # and still writes k + 1 slots
         T = _cache_len(S + max_new + k)
@@ -481,69 +642,83 @@ class InferenceEngine:
             tokens, positions, cache, kv_start, torch.full((1,), S, device=dev), 0,
             last_logit_only=True,
         )
-        tok0 = sample_token(logits[:, -1], sampling, gen)
-        # the ONE fetch of the assembled prompt: the history lives on the host
-        host = torch.cat([tokens[0], kv_start, real_len, tok0]).cpu().numpy()
-        ks, rl, t0 = int(host[S]), int(host[S + 1]), int(host[S + 2])
-        eos = np.asarray(cfg.eos_token_ids)
-        done = t0 in cfg.eos_token_ids
-        # out and hist carry k + 1 slack slots; hist mirrors cache slots:
-        # prompt at [0, S), emitted token j at S + j
-        out = np.full(max_new + k + 1, self.pad_id, np.int64)
-        out[0] = t0
-        hist = np.full(T + k + 1, self.pad_id, np.int64)
-        hist[:S] = host[:S]
-        hist[S] = t0
-        idx = np.arange(T + k + 1)
-        j_idx = np.arange(k + 1)
-        e, iters = 1, 0
-        while e < max_new and not done:
-            wi = S + e - 1  # slot of the pending token
-            # propose: the latest earlier occurrence of the trailing n-gram
-            # whose k-token continuation is already written
-            match = np.ones(T + k + 1, bool)
-            for j in range(n):
-                match &= np.roll(hist, j) == hist[wi - j]
-            match &= (idx >= ks + n - 1) & (idx + k <= wi)
-            hits = np.nonzero(match)[0]
-            src = int(hits[-1]) + 1 if hits.size else 0
-            props = hist[src : src + k]
-            with record_function("verify_forward"):
-                fed = torch.from_numpy(np.concatenate([hist[wi : wi + 1], props])[None]).to(dev)
-                pos = torch.arange(rl - 1 + e, rl + e + k, device=dev)[None]
+        tok0 = sample_token(logits[:, -1], sampling, gen)  # [1]
+        done = self._isin_eos(tok0)  # [1]
+        # out and hist carry k + 1 slack slots, so every scatter below has
+        # unique lanes; hist mirrors cache slots: prompt at [0, S), emitted
+        # token j at S + j
+        out = torch.full((max_new + k + 1,), self.pad_id, dtype=i64, device=dev)
+        out[:1] = tok0
+        hist = torch.full((T + k + 1,), self.pad_id, dtype=i64, device=dev)
+        hist[:S] = tokens[0].to(i64)
+        hist[S : S + 1] = tok0
+        idx = torch.arange(T + k + 1, device=dev)
+        j_idx = torch.arange(k + 1, device=dev)
+        lanes = j_idx[:k]
+        lo = kv_start.to(i64) + (n - 1)  # [1]: the earliest candidate n-gram end
+        e = torch.ones(1, dtype=i64, device=dev)  # tokens emitted
+        iters = torch.zeros(1, dtype=i64, device=dev)
+        fin = done | (e >= max_new)
+        reader = _DoneReader(dev, max_new, DONE_LAG)
+        reader.record(0, fin)
+        states: Dict[int, torch.Tensor] = {}
+        it = 0
+        while it + 1 < max_new and not reader.ended():
+            it += 1
+            if sampled:
+                states[it] = gen.get_state()
+            with self._strict(), record_function("verify_forward"):
+                live = ~fin
+                wi = S + e - 1  # [1]: slot of the pending token
+                # propose: the latest earlier occurrence of the trailing
+                # n-gram whose k-token continuation is already written
+                match = (idx >= lo) & (idx + k <= wi)
+                for j in range(n):
+                    match &= torch.roll(hist, j) == hist.index_select(0, wi - j)
+                c_star = torch.where(match, idx, -1).amax(dim=0, keepdim=True)
+                src = torch.where(c_star >= 0, c_star + 1, 0)
+                props = hist.index_select(0, src + lanes)  # [k]
+                fed = torch.cat([hist.index_select(0, wi), props])[None]  # [1, k + 1]
+                # the k-slack keeps wi + k + 1 inside the cache
+                slot = DeviceSlot(wi.to(torch.int32), wi + j_idx)
                 logits = model(
-                    fed, pos, cache, kv_start, torch.full((1,), wi + k + 1, device=dev), wi,
-                    chunked=True,
+                    fed, (real_len - 1 + e + j_idx)[None], cache, kv_start, wi + k + 1, slot, chunked=True,
                 )[0]  # [k + 1, V]
-            if not sampled:
-                g = torch.argmax(logits, dim=-1).cpu().numpy()
-                m = int(np.cumprod(props == g[:k]).sum())
-            else:
-                # rejection sampling against the point-mass draft: accept x_j
-                # w.p. p_j(x_j); on rejection draw from p_j with x_j masked;
-                # on full acceptance draw the bonus from p_k
-                prepared = prepared_logits(logits, sampling)
-                probs = torch.softmax(prepared, dim=-1)
-                props_t = fed[0, 1:]
-                p_prop = probs[:k].gather(1, props_t[:, None])[:, 0]
-                u = torch.rand(k, generator=gen, device=dev)
-                res = prepared[:k].scatter(1, props_t[:, None], NEG_INF)
-                r = categorical(res, gen)
-                bonus = categorical(prepared[k], gen)
-                got = torch.cat([(u < p_prop).long(), r, bonus[None]]).cpu().numpy()
-                m = int(np.cumprod(got[:k]).sum())
-                corr = got[k + min(m, k - 1)] if m < k else got[2 * k]
-                g = np.concatenate([props, got[2 * k :]])
-                g[m] = corr
-            is_eos = np.isin(g, eos)
-            eos_pos = int(np.min(np.where(is_eos & (j_idx <= m), j_idx, k + 1)))
-            m_eff = min(m, eos_pos, max_new - e - 1)
-            out[e : e + m_eff + 1] = g[: m_eff + 1]
-            hist[wi + 1 : wi + m_eff + 2] = g[: m_eff + 1]
-            done = eos_pos <= m_eff
-            e += m_eff + 1
-            iters += 1
-        return out[None, :max_new], iters
+                if not sampled:
+                    g = torch.argmax(logits, dim=-1)
+                    m = torch.cumprod((props == g[:k]).to(i64), 0).sum(0, keepdim=True)
+                else:
+                    # rejection sampling against the point-mass draft: accept
+                    # x_j w.p. p_j(x_j); on rejection draw from p_j with x_j
+                    # masked; on full acceptance draw the bonus from p_k
+                    prepared = prepared_logits(logits, sampling)
+                    probs = torch.softmax(prepared, dim=-1)
+                    p_prop = probs[:k].gather(1, props[:, None])[:, 0]
+                    u = torch.rand(k, generator=gen, device=dev)
+                    res = prepared[:k].scatter(1, props[:, None], NEG_INF)
+                    r = categorical(res, gen)
+                    bonus = categorical(prepared[k], gen)
+                    m = torch.cumprod((u < p_prop).to(i64), 0).sum(0, keepdim=True)
+                    corr = torch.where(m < k, r.index_select(0, m.clamp(max=k - 1)), bonus)
+                    g = torch.where(j_idx == m, corr, torch.cat([props, bonus[None]]))
+                is_eos = self._isin_eos(g)
+                eos_pos = torch.where(is_eos & (j_idx <= m), j_idx, k + 1).amin(dim=0, keepdim=True)
+                m_eff = torch.minimum(torch.minimum(m, eos_pos), max_new - e - 1)
+                emit = (j_idx <= m_eff) & live
+                o_idx, h_idx = e + j_idx, wi + 1 + j_idx
+                out[o_idx] = torch.where(emit, g, out[o_idx])
+                hist[h_idx] = torch.where(emit, g, hist[h_idx])
+                done = done | (live & (eos_pos <= m_eff))
+                e = e + torch.where(live, m_eff + 1, 0)
+                iters = iters + live.to(i64)
+                fin = done | (e >= max_new)
+                reader.record(it, fin)
+        t = time.perf_counter()
+        host = torch.cat([out[:max_new], iters]).cpu().numpy()  # the one fetch
+        fetch_s = time.perf_counter() - t
+        n_iters = int(host[max_new])
+        self._close_loop(reader, it, n_iters, states, gen, fetch_s)
+        return host[None, :max_new], n_iters
 
     @mesh_command
     @torch.inference_mode()
@@ -976,6 +1151,59 @@ class InferenceEngine:
             pos0 = torch.full((1,), total, dtype=torch.int64, device=self.device)
             kv_start = torch.zeros(1, dtype=torch.int64, device=self.device)
             return self._decode_loop(cache, logits, kv_start, total, pos0, max_new, gen)
+
+    # ------------------------------------------------------------------
+    # the boot's warm set (JAX ``warmup``: the executables it compiles)
+    # ------------------------------------------------------------------
+    _WARM_TOKENS = 2
+
+    def warmup(
+        self,
+        batch_sizes: Sequence[int] = (1,),
+        buckets: Optional[Sequence[int]] = None,
+    ) -> List[Tuple[int, int, object]]:
+        """Run once each shape JAX's ``warmup`` compiles for these batch
+        sizes and buckets, chosen from the static config, never from the
+        acceptance EMA: batch 1 takes the speculative loop under
+        ``prompt_lookup`` and ``auto``, and the vanilla one too under
+        ``auto`` (it can fall back); a padded batch the vanilla loop. Eager
+        PyTorch compiles nothing per shape; the first run of a shape is
+        what warming buys here (the allocator's blocks, the kernels'
+        first launches). Each runs ``_WARM_TOKENS`` tokens. Returns the
+        ``(batch, bucket, variant)`` shapes run, ``variant`` None (vanilla)
+        or ``"spec"``, as JAX keys its executables."""
+        buckets = buckets or self.engine_config.prompt_buckets
+        spec_mode = self.engine_config.speculative
+        shapes: List[Tuple[int, int, object]] = []
+        for b in batch_sizes:
+            for s in buckets:
+                mb = next_pow2(b)
+                if mb == 1 and spec_mode in ("prompt_lookup", "auto"):
+                    shapes.append((1, s, "spec"))
+                    if spec_mode == "auto":
+                        shapes.append((1, s, None))
+                else:
+                    shapes.append((mb, s, None))
+        for shape in shapes:
+            self.warm_shape(*shape)
+        return shapes
+
+    def warm_shape(self, B: int, S: int, variant=None) -> None:
+        """One run of the device program at batch ``B`` and bucket ``S``
+        (``variant``: None vanilla, ``"spec"`` speculative, or an int chunk
+        width: a chunked prefill of ``S`` tokens), on a prompt of ``S`` BOS
+        tokens, from a generator of its own: no stats, no EMA, no ledger
+        and no draw from the engine's seed counter change."""
+        spec, chunk = variant == "spec", variant if isinstance(variant, int) else None
+        if chunk is not None:
+            max_new = max(1, min(self._WARM_TOKENS, self.engine_config.max_seq_len - chunk))
+        else:
+            max_new = self._clamp_max_new(S, self._WARM_TOKENS)
+        tokens = torch.full((B, S), self.config.bos_token_id, dtype=torch.int64, device=self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        with self._run_lock:
+            self._device_run(tokens, torch.ones_like(tokens), S, max_new, chunk, spec, gen)
 
     def warm_prefixed(self, suffix_lens: Sequence[int] = (), max_new_tokens: Optional[int] = None) -> List[int]:
         """The suffix buckets the prefixed generate serves at (JAX: the

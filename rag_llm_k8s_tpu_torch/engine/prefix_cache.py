@@ -40,6 +40,7 @@ every rank by one id, so a later command can pass it on.
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import threading
 from collections import OrderedDict
@@ -279,6 +280,15 @@ class PrefixCache:
     def mesh_stats(self) -> Dict[str, int]:
         """This rank's cache bytes (the heartbeat gathers them)."""
         return {"prefix_bytes": self.entry_bytes + self.assembled_bytes}
+
+    def state_digest(self) -> str:
+        """A digest of what every rank of a mesh must hold alike: the
+        entries (key, tier, real length, pinned, int8 round trip) and the
+        assembled buffers' keys; the heartbeat compares it across ranks."""
+        with self._lock:
+            entries = sorted((repr(k), e.tier, e.seg_len, e.pinned, e.quantized) for k, e in self._entries.items())
+            assembled = sorted(map(repr, self._assembled))
+        return hashlib.sha256(repr((entries, assembled)).encode()).hexdigest()[:16]
 
     # -- keys -----------------------------------------------------------
     def _entry_key(self, seg_key: str, offset: int, chain: Tuple[str, ...]):

@@ -9,6 +9,14 @@
   decodes with ``row_frontier=True``: ``write_index`` is a ``[B]`` device
   tensor and row ``b`` writes its token at its own slot
   (``write_row_frontier``).
+- The one-shot decode and verify keep their slot on the card too
+  (JAX's traced scalar): a ``DeviceSlot`` ``write_index`` makes every row
+  write its ``S`` tokens at the slot's ``S`` slots, and the chunk kernels
+  read its ``[1]`` int32 slot. The engines' cache slack keeps it in range
+  (JAX's k-slack: its ``dynamic_update_slice`` never has to clamp). No host
+  read of the slot, so a step never waits on the card. An int
+  ``write_index`` (prefill, the chunked prefill's host loop) writes a slice
+  and is range-checked on the host.
 - Or, for the paged continuous engine, the PAGED arena ``[L, N, kv_heads, bs,
   hd]`` (``make_kv_arena``) with ``block_tables [B, MB]``: rows are
   right-padded, ``write_index`` is a per-row ``[B]`` frontier, and token
@@ -183,24 +191,41 @@ def write_paged(
         cache.v_scale[layer][phys, :, off] = vs
 
 
-def write_row_frontier(
-    cache: KVCache, layer: int, k: torch.Tensor, v: torch.Tensor, write_index: torch.Tensor,
-) -> None:
+def write_row_frontier(cache: KVCache, layer: int, k: torch.Tensor, v: torch.Tensor, write_index) -> None:
     """The row-frontier write over the dense cache (JAX ``row_frontier``):
-    row ``b``'s one fresh token ``k, v [B, 1, K, hd]`` (and its scales under
-    int8) lands at slot ``write_index[b]`` of its own row, in place. The
-    index is a ``[B]`` device tensor and is never read on the host, so the
-    write needs no host sync (what capturing the decode step in a CUDA graph
-    needs). (JAX writes a masked full plane because an XLA scatter copies
-    the cache; the result is the same.)"""
-    rows = torch.arange(k.shape[0], device=k.device)
-    wi = write_index.to(torch.int64)
+    row ``b``'s fresh tokens ``k, v [B, S, K, hd]`` (and their scales under
+    int8) land at slots ``write_index[b] + t`` of its own row, in place, as
+    ``write_paged`` does through the tables. ``write_index`` is a ``[B]``
+    device tensor, or a ``DeviceSlot`` whose slots every row shares (the
+    one-shot loops: one ``index_copy_`` a plane). It is never read on the
+    host, so the write needs no host sync (what capturing a step in a CUDA
+    graph needs). (JAX writes a masked full plane because an XLA scatter
+    copies the cache; the result is the same.)"""
     kw, vw, ks, vs = _cache_values(cache, k, v)
-    cache.k[layer][rows, :, wi] = kw[:, 0]
-    cache.v[layer][rows, :, wi] = vw[:, 0]
-    if cache.quantized:
-        cache.k_scale[layer][rows, :, wi] = ks[:, 0]
-        cache.v_scale[layer][rows, :, wi] = vs[:, 0]
+    planes = ((cache.k, kw), (cache.v, vw)) + (((cache.k_scale, ks), (cache.v_scale, vs)) if cache.quantized else ())
+    if isinstance(write_index, DeviceSlot):
+        for plane, x in planes:
+            plane[layer].index_copy_(2, write_index.slots, x.transpose(1, 2))
+        return
+    B, S = k.shape[0], k.shape[1]
+    wi = write_index.to(torch.int64)[:, None]
+    at = (torch.arange(B, device=k.device)[:, None], slice(None),
+          wi if S == 1 else wi + torch.arange(S, device=k.device))
+    for plane, x in planes:
+        plane[layer][at] = x
+
+
+@dataclass(frozen=True)
+class DeviceSlot:
+    """A one-shot forward's write slot held on the card: ``index`` the
+    ``[1]`` int32 slot of token 0 (the chunk kernels' ``write_index``),
+    ``slots`` the ``[S]`` int64 slots ``index + t`` that
+    ``write_row_frontier`` writes in every row (``index_copy_`` takes int64
+    only). The decode loop builds one and advances both in place each
+    step; a verify builds one from its device slot."""
+
+    index: torch.Tensor
+    slots: torch.Tensor
 
 
 def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -426,18 +451,25 @@ class Attention(nn.Module):
             else:
                 out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
             return self._out(out, B, S)
-        T = cache.k.shape[3]
-        if write_index < 0 or write_index + S > T:
-            raise ValueError(
-                f"cache write [{write_index}, {write_index + S}) outside the {T}-slot cache"
-            )
-        # in-place write into the one stacked cache
-        kw, vw, ks, vs = _cache_values(cache, k, v)
-        cache.k[layer, :, :, write_index : write_index + S] = kw.transpose(1, 2)
-        cache.v[layer, :, :, write_index : write_index + S] = vw.transpose(1, 2)
+        if isinstance(write_index, DeviceSlot):
+            # the slot lives on the card: written and read there
+            write_row_frontier(cache, layer, k, v, write_index)
+            wi = write_index.index
+        else:
+            T = cache.k.shape[3]
+            if write_index < 0 or write_index + S > T:
+                raise ValueError(
+                    f"cache write [{write_index}, {write_index + S}) outside the {T}-slot cache"
+                )
+            # in-place write into the one stacked cache
+            kw, vw, ks, vs = _cache_values(cache, k, v)
+            cache.k[layer, :, :, write_index : write_index + S] = kw.transpose(1, 2)
+            cache.v[layer, :, :, write_index : write_index + S] = vw.transpose(1, 2)
+            if cache.quantized:
+                cache.k_scale[layer, :, :, write_index : write_index + S] = ks.transpose(1, 2)
+                cache.v_scale[layer, :, :, write_index : write_index + S] = vs.transpose(1, 2)
+            wi = write_index
         if cache.quantized:
-            cache.k_scale[layer, :, :, write_index : write_index + S] = ks.transpose(1, 2)
-            cache.v_scale[layer, :, :, write_index : write_index + S] = vs.transpose(1, 2)
             planes = (cache.k, cache.v, cache.k_scale, cache.v_scale)
         if S == 1:
             if cache.quantized:
@@ -446,13 +478,11 @@ class Attention(nn.Module):
                 out = decode_attention(q, cache.k, cache.v, kv_start, kv_len, layer)
         elif chunked:
             if cache.quantized:
-                out = chunk_prefill_attention_q8(q, *planes, kv_start, kv_len, layer, write_index)
+                out = chunk_prefill_attention_q8(q, *planes, kv_start, kv_len, layer, wi)
             else:
-                out = chunk_prefill_attention(
-                    q, cache.k, cache.v, kv_start, kv_len, layer, write_index
-                )
+                out = chunk_prefill_attention(q, cache.k, cache.v, kv_start, kv_len, layer, wi)
         else:
-            if write_index != 0:
+            if isinstance(write_index, DeviceSlot) or write_index != 0:
                 raise ValueError("multi-token calls at write_index > 0 must pass chunked=True")
             out = self._prefill(q, k, v, kv_start, kv_len)
         return self._out(out, B, S)
@@ -546,6 +576,8 @@ class LlamaModel(nn.Module):
     - prefill: bucketed ``S``, ``write_index = 0``, ``kv_len = S``;
     - decode: ``S = 1``, ``write_index = t``, ``kv_len = t + 1``;
     - chunk: ``chunked=True``, ``write_index`` = slot of the first token;
+    - decode and chunk may take ``write_index`` as a ``DeviceSlot`` on the
+      card: the one-shot loops' slot, never read on the host;
     - row-frontier decode (``row_frontier=True``, the dense continuous
       engine): ``S = 1`` and ``write_index`` a ``[B]`` tensor, row ``b``
       writing at its own slot (``write_row_frontier``).
@@ -627,7 +659,7 @@ class LlamaModel(nn.Module):
         cache: Optional[KVCache],
         kv_start: torch.Tensor,
         kv_len: torch.Tensor,
-        write_index: int,
+        write_index,
         chunked: bool = False,
         last_logit_only: bool = False,
         block_tables: Optional[torch.Tensor] = None,
@@ -641,7 +673,10 @@ class LlamaModel(nn.Module):
         cos, sin = rope_cos_sin(positions, self._inv_freqs)
         if row_frontier and (tokens.shape[1] != 1 or block_tables is not None):
             raise ValueError("row_frontier=True is the dense cache's one-token decode")
-        wi = write_index if block_tables is not None or row_frontier else int(write_index)
+        if block_tables is not None or row_frontier or isinstance(write_index, DeviceSlot):
+            wi = write_index
+        else:
+            wi = int(write_index)
         if block_tables is None:
             # the cache kernels take int32 windows: convert once, not per layer
             kv_start, kv_len = kv_start.to(torch.int32), kv_len.to(torch.int32)

@@ -10,7 +10,9 @@ Counterpart of ``rag_llm_k8s_tpu/ops/attention.py`` kernels 2-10:
   ``[L, B, K, T, hd]`` read at ``layer`` (no per-layer copy);
 - ``chunk_prefill_attention``: ``S`` queries written at ``write_index`` over
   the cache, offset causality ``t_k <= write_index + t`` (long-prompt chunks
-  and the speculative verify);
+  and the speculative verify); the kernel reads ``write_index`` from device
+  memory (a one-element int32 tensor, as JAX's scalar prefetch), so a step
+  that keeps its slot on the card launches without a host read;
 - ``paged_decode_attention`` and ``paged_chunk_attention``: the same over
   the continuous engine's block-pool arena ``[L, N, K, bs, hd]``, where
   logical key ``t`` of row ``b`` sits in physical block
@@ -77,6 +79,15 @@ def _softmax_pv(s: torch.Tensor, ok: torch.Tensor, v: torch.Tensor, spec: str) -
     return torch.einsum(spec, p.to(v.dtype).float(), v.float())
 
 
+def slot_positions(write_index, n: int, device: torch.device) -> torch.Tensor:
+    """``write_index + arange(n)`` as int64 on ``device``: the cache slots of
+    ``n`` queries from their first slot, an int or a one-element int tensor
+    (``[]`` or ``[1]``, read where it lies, never on the host)."""
+    base = write_index.reshape(-1)[:1].to(device=device, dtype=torch.int64) if torch.is_tensor(write_index) \
+        else int(write_index)
+    return base + torch.arange(n, device=device)
+
+
 def attention_xla(
     q: torch.Tensor,  # [B, Sq, H, hd]
     k: torch.Tensor,  # [B, Sk, K, hd]
@@ -134,17 +145,18 @@ def chunk_attention_xla(
     kv_start: torch.Tensor,
     kv_len: torch.Tensor,
     layer: int,
-    write_index: int,
+    write_index,
 ) -> torch.Tensor:
     """Plain version of ``chunk_prefill_attention`` (JAX oracle
-    ``chunk_attention_xla``)."""
+    ``chunk_attention_xla``). ``write_index``: an int, or a one-element
+    int tensor (``[]`` or ``[1]``) that is never read on the host."""
     B, S, H, hd = q.shape
     K, T = k_cache.shape[2], k_cache.shape[3]
     G = H // K
     kc, vc = k_cache[layer], v_cache[layer]
     qg = q.reshape(B, S, K, G, hd).float()
     s = torch.einsum("bqkgd,bktd->bkgqt", qg, kc.float()) * (hd**-0.5)
-    q_pos = write_index + torch.arange(S, device=q.device)
+    q_pos = slot_positions(write_index, S, q.device)
     t_pos = torch.arange(T, device=q.device)
     ok = (t_pos[None, None, :] >= kv_start.to(q.device)[:, None, None]) & (
         t_pos[None, None, :] < kv_len.to(q.device)[:, None, None]
@@ -383,16 +395,17 @@ def chunk_attention_split_xla(
     kv_start: torch.Tensor,
     kv_len: torch.Tensor,
     layer: int,
-    write_index: int,
+    write_index,
     split_keys: int,
     block_rows: int = 64,
     tile: int = CHUNK_TILE_KEYS,
 ) -> torch.Tensor:
     """``chunk_attention_xla`` computed the way the chunk kernel cuts it
-    (``_split_merge_row`` for each batch row)."""
+    (``_split_merge_row`` for each batch row); ``write_index`` an int or a
+    one-element int tensor."""
     B, S, H, hd = q.shape
     K, T = k_cache.shape[2], k_cache.shape[3]
-    pos = write_index + torch.arange(S * (H // K), device=q.device) // (H // K)
+    pos = slot_positions(write_index, S, q.device).repeat_interleave(H // K)
     out = torch.stack([
         _split_merge_row(_query_rows(q[b], K), k_cache[layer, b], v_cache[layer, b], int(kv_start[b]),
                          min(int(kv_len[b]), T), pos, True, split_keys, block_rows, tile)
@@ -720,7 +733,7 @@ def chunk_attention_split_xla_q8(
     kv_start: torch.Tensor,
     kv_len: torch.Tensor,
     layer: int,
-    write_index: int,
+    write_index,
     split_keys: int,
     block_rows: int = 64,
     tile: int = CHUNK_TILE_KEYS,
@@ -728,10 +741,11 @@ def chunk_attention_split_xla_q8(
     """``chunk_attention_xla_q8`` computed the way the q8 chunk kernel cuts
     it: the int8 payload as it is, each score column times its k-scale, the
     PV operand ``p * v_scale`` in q's dtype, scales outside each row's window
-    zeroed, through ``_split_merge_row``."""
+    zeroed, through ``_split_merge_row``; ``write_index`` an int or a
+    one-element int tensor."""
     B, S, H, hd = q.shape
     K, T = k_cache.shape[2], k_cache.shape[3]
-    pos = write_index + torch.arange(S * (H // K), device=q.device) // (H // K)
+    pos = slot_positions(write_index, S, q.device).repeat_interleave(H // K)
     rows = []
     for b in range(B):
         lo, hi = int(kv_start[b]), min(int(kv_len[b]), T)
@@ -834,7 +848,7 @@ def _lib() -> ctypes.CDLL:
 
 def _sm90_lib() -> ctypes.CDLL:
     return _build.load("attention_sm90", {
-        "chunk_attention_sm90": ([_VP] * 9 + [_I] * 13 + [_F, _VP], _I),
+        "chunk_attention_sm90": ([_VP] * 10 + [_I] * 12 + [_F, _VP], _I),
         "decode_attention_sm90": ([_VP] * 9 + [_I] * 9 + [_F, _VP], _I),
     })
 
@@ -869,6 +883,20 @@ def _window(t: Optional[torch.Tensor], B: int, fill: int, dev: torch.device) -> 
     if t.dtype == torch.int32 and t.device == dev and t.is_contiguous():
         return t
     return t.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def _write_slot(what: str, write_index, dev: torch.device) -> torch.Tensor:
+    """The chunk kernels' write slot as one int32 in device memory: a
+    one-element int tensor (``[]`` or ``[1]``) on ``dev`` as it is (a
+    conversion stays on the card), a Python int filled in on the card. The
+    host never reads a tensor slot, so a step that hands one in does not
+    wait on the card."""
+    if not torch.is_tensor(write_index):
+        return torch.full((1,), int(write_index), dtype=torch.int32, device=dev)
+    if write_index.numel() != 1 or write_index.device != dev or write_index.is_floating_point():
+        raise ValueError(f"{what}: write_index must be an int or a one-element int tensor on {dev} "
+                         f"(got {tuple(write_index.shape)} {write_index.dtype} on {write_index.device})")
+    return write_index.reshape(1).to(torch.int32).contiguous()
 
 
 def _check_heads(what: str, H: int, K: int, hd: int) -> None:
@@ -983,27 +1011,31 @@ def chunk_prefill_attention(
     kv_start: torch.Tensor,
     kv_len: torch.Tensor,
     layer: int,
-    write_index: int,
+    write_index,
     design: Optional[str] = None,
 ) -> torch.Tensor:
     """``S`` queries at cache slots ``write_index + t`` over the cache at
-    ``layer``, offset-causal. ``design`` ("chunk" or "ws") overrides
-    ``chunk_design_plan``'s choice of kernel by shape."""
+    ``layer``, offset-causal. ``write_index``: a one-element int32 tensor
+    on q's device (``[]`` or ``[1]``, as JAX's scalar-prefetched index),
+    which the kernel reads from device memory, or an int. ``design``
+    ("chunk" or "ws") overrides ``chunk_design_plan``'s choice of kernel by
+    shape."""
     if q.device.type == "cpu":
         return chunk_attention_xla(q, k_cache, v_cache, kv_start, kv_len, layer, write_index)
     _build.check_no_grad("chunk_prefill_attention", q, k_cache, v_cache)
-    layer, write_index = int(layer), int(write_index)
+    layer = int(layer)
     L, B, K, T, H, hd = _check_cache("chunk_prefill_attention", q, k_cache, v_cache, layer)
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    wi = _write_slot("chunk_prefill_attention", write_index, dev)
     plan = chunk_design_plan(B, S, H, K, T, hd, _build.sm_count(dev.index), design)
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _sm90_lib()
     rc = lib.chunk_attention_sm90(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer, write_index,
+        ks.data_ptr(), kl.data_ptr(), wi.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer,
         CHUNK_DESIGNS[plan["design"]], plan["block_rows"], plan["split_keys"], plan["n_splits"],
         hd**-0.5, _stream(dev),
     )
@@ -1132,7 +1164,7 @@ def paged_chunk_attention(
 def _q8_lib() -> ctypes.CDLL:
     return _build.load("attention_q8", {
         "decode_attention_q8": ([_VP] * 11 + [_I] * 9 + [_F, _VP], _I),
-        "chunk_attention_q8": ([_VP] * 11 + [_I] * 12 + [_F, _VP], _I),
+        "chunk_attention_q8": ([_VP] * 12 + [_I] * 11 + [_F, _VP], _I),
         "paged_decode_attention_q8": ([_VP] * 11 + [_I] * 11 + [_F, _VP], _I),
         "paged_chunk_attention_q8": ([_VP] * 12 + [_I] * 13 + [_F, _VP], _I),
     })
@@ -1210,14 +1242,15 @@ def chunk_prefill_attention_q8(
     kv_start: torch.Tensor,
     kv_len: torch.Tensor,
     layer: int,
-    write_index: int,
+    write_index,
 ) -> torch.Tensor:
     """``S`` queries at cache slots ``write_index + t`` over the int8 cache
-    at ``layer``, offset-causal; split-KV as ``chunk_launch_plan`` plans it."""
+    at ``layer``, offset-causal; split-KV as ``chunk_launch_plan`` plans it.
+    ``write_index`` as ``chunk_prefill_attention`` takes it."""
     if q.device.type == "cpu":
         return chunk_attention_xla_q8(q, k_cache, v_cache, k_scale, v_scale, kv_start, kv_len, layer, write_index)
     _build.check_no_grad("chunk_prefill_attention_q8", q, k_cache, v_cache, k_scale, v_scale)
-    layer, write_index = int(layer), int(write_index)
+    layer = int(layer)
     L, B, K, T, hd, H = _check_q8("chunk_prefill_attention_q8", q, k_cache, v_cache, k_scale, v_scale, layer)
     if q.shape[0] != B or T % 4:
         raise ValueError(f"chunk_prefill_attention_q8: q{tuple(q.shape)} against a cache of B={B}, T={T} "
@@ -1225,13 +1258,14 @@ def chunk_prefill_attention_q8(
     S = q.shape[1]
     dev = q.device
     ks, kl = _window(kv_start, B, 0, dev), _window(kv_len, B, T, dev)
+    wi = _write_slot("chunk_prefill_attention_q8", write_index, dev)
     plan = chunk_launch_plan(B, S, H, K, T, _build.sm_count(dev.index))
     parts, (pm, pl, pa) = _split_parts(B * K, plan["n_splits"], S * (H // K), hd, dev)
     out = torch.empty_like(q)
     lib = _q8_lib()
     rc = lib.chunk_attention_q8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer, write_index,
+        out.data_ptr(), ks.data_ptr(), kl.data_ptr(), wi.data_ptr(), pm, pl, pa, L, B, K, T, S, H, hd, layer,
         plan["block_rows"], plan["split_keys"], plan["n_splits"], hd**-0.5, _stream(dev),
     )
     _build.check(lib, rc, "chunk_prefill_attention_q8")

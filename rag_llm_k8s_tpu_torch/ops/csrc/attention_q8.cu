@@ -63,7 +63,8 @@ namespace {
 
 // One layer of the dense int8 cache: key kp of row b, kv head kvh at scale
 // index (b * K + kvh) * T + kp, payload at that index * hd; window
-// [max(kv_start, 0), min(kv_len, T)), query 0 at q_offset.
+// [max(kv_start, 0), min(kv_len, T)), query 0 of every row at the slot
+// *write_index, read from device memory (null for decode).
 struct DenseQ8 {
   const int8_t* k;
   const int8_t* v;
@@ -71,11 +72,12 @@ struct DenseQ8 {
   const float* vs;
   const int* kv_start;
   const int* kv_len;
-  int K, T, hd, q_offset;
+  const int* write_index;
+  int K, T, hd;
 
   __device__ int start(int b) const { return max(kv_start[b], 0); }
   __device__ int len(int b) const { return min(kv_len[b], T); }
-  __device__ int offset(int) const { return q_offset; }
+  __device__ int offset(int) const { return *write_index; }
   __device__ long long srow(int b, int kvh, int kp) const {
     return ((long long)b * K + kvh) * T + kp;
   }
@@ -138,28 +140,29 @@ extern "C" int decode_attention_q8(
                    static_cast<const int8_t*>(v_cache) + s_off * hd,
                    static_cast<const float*>(k_scale) + s_off,
                    static_cast<const float*>(v_scale) + s_off,
-                   kv_start, kv_len, K, T, hd, 0};
+                   kv_start, kv_len, nullptr, K, T, hd};
   return attn_sm90::decode_q8(params(q, o, part_m, part_l, part_acc, 1, H, K, hd, 0, split_keys, n_splits, scale),
                               kv, B, hd, stream);
 }
 
-// q, out [B, S, H, hd] contiguous; part_* the split scratch ([B*K,
-// n_splits, S*H/K] and [..., hd], fp32), null when n_splits == 1. T % 4 == 0
-// (the scales travel in 16-byte pieces).
+// q, out [B, S, H, hd] contiguous; write_index one int32 in device memory
+// (the slot of query 0); part_* the split scratch ([B*K, n_splits, S*H/K]
+// and [..., hd], fp32), null when n_splits == 1. T % 4 == 0 (the scales
+// travel in 16-byte pieces).
 extern "C" int chunk_attention_q8(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-    const void* v_scale, void* o, const int* kv_start, const int* kv_len,
+    const void* v_scale, void* o, const int* kv_start, const int* kv_len, const int* write_index,
     void* part_m, void* part_l, void* part_acc,
-    int L, int B, int K, int T, int S, int H, int hd, int layer, int write_index,
+    int L, int B, int K, int T, int S, int H, int hd, int layer,
     int block_rows, int split_keys, int n_splits, float scale, void* stream) {
-  if (layer < 0 || layer >= L || K < 1 || T % 4 || (n_splits > 1) != (part_m != nullptr))
+  if (layer < 0 || layer >= L || K < 1 || T % 4 || write_index == nullptr || (n_splits > 1) != (part_m != nullptr))
     return (int)cudaErrorInvalidValue;
   const long long s_off = (long long)layer * B * K * T;
   const DenseQ8 kv{static_cast<const int8_t*>(k_cache) + s_off * hd,
                    static_cast<const int8_t*>(v_cache) + s_off * hd,
                    static_cast<const float*>(k_scale) + s_off,
                    static_cast<const float*>(v_scale) + s_off,
-                   kv_start, kv_len, K, T, hd, write_index};
+                   kv_start, kv_len, write_index, K, T, hd};
   return attn_sm90::chunk_q8(params(q, o, part_m, part_l, part_acc, S, H, K, hd, 1, split_keys, n_splits, scale),
                              kv, B, hd, block_rows, stream);
 }

@@ -38,17 +38,20 @@ namespace {
 
 // One layer of the contiguous [L, B, K, T, hd] cache: key kp of row b at
 // ((b * K + kvh) * T + kp) * hd, window [kv_start[b], min(kv_len[b], T)),
-// query 0 at write_index.
+// query 0 of every row at the slot *write_index, read from device memory
+// (null for decode, which has no causality), so a launch never carries the
+// slot by value.
 struct DenseKV {
   const bf16* k;
   const bf16* v;
   const int* kv_start;
   const int* kv_len;
-  int K, T, hd, q_offset;
+  const int* write_index;
+  int K, T, hd;
 
   __device__ int start(int b) const { return kv_start[b]; }
   __device__ int len(int b) const { return min(kv_len[b], T); }
-  __device__ int offset(int) const { return q_offset; }
+  __device__ int offset(int) const { return *write_index; }
   __device__ long long row(int b, int kvh, int kp) const {
     return (((long long)b * K + kvh) * T + kp) * hd;
   }
@@ -69,25 +72,28 @@ attn_sm90::Params params(const void* q, void* o, void* part_m, void* part_l, voi
 }
 
 DenseKV layer_kv(const void* k_cache, const void* v_cache, const int* kv_start, const int* kv_len,
-                 int B, int K, int T, int hd, int layer, int q_offset) {
+                 const int* write_index, int B, int K, int T, int hd, int layer) {
   const long long off = (long long)layer * B * K * T * hd;
   return DenseKV{static_cast<const bf16*>(k_cache) + off, static_cast<const bf16*>(v_cache) + off,
-                 kv_start, kv_len, K, T, hd, q_offset};
+                 kv_start, kv_len, write_index, K, T, hd};
 }
 
 }  // namespace
 
-// q, out [B, S, H, hd] contiguous. part_* are the split scratch
+// q, out [B, S, H, hd] contiguous. write_index: one int32 in device memory,
+// the slot of query 0 (JAX's scalar-prefetched write_index); the grid and
+// the splits do not depend on it. part_* are the split scratch
 // ([B*K, n_splits, S*H/K] and [..., hd], fp32), null when n_splits == 1.
 // design 0: the chunk routine; 1: the warp-specialized routine (one split).
 extern "C" int chunk_attention_sm90(
     const void* q, const void* k_cache, const void* v_cache, void* o,
-    const int* kv_start, const int* kv_len, void* part_m, void* part_l, void* part_acc,
-    int L, int B, int K, int T, int S, int H, int hd, int layer, int write_index, int design,
+    const int* kv_start, const int* kv_len, const int* write_index, void* part_m, void* part_l, void* part_acc,
+    int L, int B, int K, int T, int S, int H, int hd, int layer, int design,
     int block_rows, int split_keys, int n_splits, float scale, void* stream) {
-  if (layer < 0 || layer >= L || K < 1 || (n_splits > 1) != (part_m != nullptr)) return (int)cudaErrorInvalidValue;
+  if (layer < 0 || layer >= L || K < 1 || write_index == nullptr || (n_splits > 1) != (part_m != nullptr))
+    return (int)cudaErrorInvalidValue;
   const attn_sm90::Params p = params(q, o, part_m, part_l, part_acc, S, H, K, hd, 1, split_keys, n_splits, scale);
-  const DenseKV kv = layer_kv(k_cache, v_cache, kv_start, kv_len, B, K, T, hd, layer, write_index);
+  const DenseKV kv = layer_kv(k_cache, v_cache, kv_start, kv_len, write_index, B, K, T, hd, layer);
   if (design == 0) return attn_sm90::chunk(p, kv, B, hd, block_rows, stream);
   if (design != 1 || 128 % p.G) return (int)cudaErrorInvalidValue;
   // Q: a box of G heads x 128 / G positions; K, V: WBN keys x 1 kv head of the layer
@@ -108,7 +114,7 @@ extern "C" int decode_attention_sm90(
     float scale, void* stream) {
   if (layer < 0 || layer >= L || (n_splits > 1) != (part_m != nullptr)) return (int)cudaErrorInvalidValue;
   return attn_sm90::decode(params(q, o, part_m, part_l, part_acc, 1, H, K, hd, 0, split_keys, n_splits, scale),
-                           layer_kv(k_cache, v_cache, kv_start, kv_len, B, K, T, hd, layer, 0),
+                           layer_kv(k_cache, v_cache, kv_start, kv_len, nullptr, B, K, T, hd, layer),
                            B, hd, stream);
 }
 

@@ -14,9 +14,10 @@ collective on its own clock.
 
 ``CommandStream.lock`` serializes sending a command with running it on
 rank 0: two threads (a request and the shadow auditor) can never interleave
-their collectives. A heartbeat thread sends ``heartbeat`` while the stream
-is idle, so the followers' waiting broadcast never reaches the group's
-timeout, and gathers every rank's device memory (``peer_stats``, read by
+their collectives. A heartbeat thread sends ``heartbeat`` at a fixed
+interval, between two commands when the stream is busy, so the followers'
+waiting broadcast never reaches the group's timeout while it is idle, and
+gathers every rank's device memory (``peer_stats``, read by
 ``obs/devices.py``). A collective that fails marks the stream broken:
 ``ready()`` turns false and every later call raises.
 
@@ -48,7 +49,14 @@ sees another command than ``outcome`` next, and leaves its loop with
 ``MeshDivergence``: its process exits, and rank 0 follows it out.
 ``gather_digests`` is the cheap cross-rank check of host state (tables,
 frontiers, slots): a difference breaks the stream and raises, so a
-divergence fails instead of hanging.
+divergence fails instead of hanging. Every heartbeat, idle or serving,
+makes the same check: each rank's ``device_stats`` carries the ``state_digest()``
+of each live target that has one (a continuous engine's slots, tables and
+pool; a prefix cache's entries and tiers), and a target whose digest
+differs between ranks ends the world as ``MeshDivergence`` does: rank 0
+sends ``diverged``, each follower leaves its loop with ``MeshDivergence``
+(its process exits, and rank 0 follows it out), and rank 0's stream is
+broken.
 """
 
 from __future__ import annotations
@@ -265,9 +273,20 @@ def device_stats(ctx) -> Dict:
         idx = dev.index if dev.index is not None else torch.cuda.current_device()
         st = {"rank": ctx.rank, "device": idx, "allocated": int(torch.cuda.memory_allocated(idx)),
               "total": int(torch.cuda.get_device_properties(idx).total_memory)}
-    st["targets"] = {name: obj.mesh_stats() for name, obj in list(_targets(ctx).items())
-                     if hasattr(obj, "mesh_stats")}
+    live = list(_targets(ctx).items())
+    st["targets"] = {name: obj.mesh_stats() for name, obj in live if hasattr(obj, "mesh_stats")}
+    st["digests"] = {name: obj.state_digest() for name, obj in live if hasattr(obj, "state_digest")}
     return st
+
+
+def digest_mismatch(stats: List[Dict]) -> Optional[str]:
+    """The targets whose state digests differ between the ranks'
+    ``device_stats`` (a target not yet collected on every rank is left
+    out: its liveness may differ, its state may not), or None."""
+    names = set.intersection(*(set(s.get("digests", {})) for s in stats)) if stats else set()
+    bad = {n: {s["rank"]: s["digests"][n] for s in stats} for n in sorted(names)
+           if len({s["digests"][n] for s in stats}) > 1}
+    return f"the ranks' state digests differ: {bad}" if bad else None
 
 
 class CommandStream:
@@ -286,7 +305,10 @@ class CommandStream:
         # the next command
         self._frees: List[int] = []
         self._frees_lock = threading.Lock()
-        self._last = time.monotonic()
+        # when the last heartbeat ran, and the beat's interval once started:
+        # the next beat is due ``beat_s`` later, idle or serving
+        self._beat_at = time.monotonic()
+        self.beat_s: Optional[float] = None
         self._stop_beat = threading.Event()
         self._beat: Optional[threading.Thread] = None
 
@@ -302,7 +324,6 @@ class CommandStream:
             logger.error("command %s failed to reach the followers: %r", name, e)
             raise
         self.sent += 1
-        self._last = time.monotonic()
 
     def _note_free(self, ref: int) -> None:
         with self._frees_lock:
@@ -319,6 +340,10 @@ class CommandStream:
         command's clock and fault table, under the lock."""
         ctx = self.ctx
         with self.lock:
+            if self.beat_s is not None and time.monotonic() - self._beat_at >= self.beat_s:
+                # a busy stream beats between two calls, so its digests are
+                # compared however little the beat thread gets the lock
+                self.heartbeat()
             clock, table = time.monotonic(), faults.armed()
             self.send("call", target=target, method=fn.__name__, args=_to_wire(args), kwargs=_to_wire(kwargs),
                       clock=clock, faults=table, free=self._take_frees())
@@ -357,29 +382,43 @@ class CommandStream:
 
     def heartbeat(self) -> Dict[int, Dict]:
         """One ``heartbeat`` command: every rank's ``device_stats`` (the
-        last ones once the stream has stopped)."""
+        last ones once the stream has stopped). Targets whose state digests
+        differ end the world: ``diverged`` goes to the followers, the
+        stream breaks and ``MeshDivergence`` raises."""
         with self.lock:
             if self.stopped:
                 return self.peer_stats
             self.send("heartbeat")
+            self._beat_at = time.monotonic()
             try:
                 got = self.ctx.gather_object(device_stats(self.ctx))
             except Exception as e:
                 self.broken = f"heartbeat: {e!r}"
                 raise
+            bad = digest_mismatch(got)
+            if bad is not None:
+                try:
+                    self.send("diverged", reason=bad)
+                finally:
+                    self.broken = f"heartbeat: {bad}"
+                logger.error("mesh divergence at a heartbeat: %s", bad)
+                raise MeshDivergence(self.broken)
         self.peer_stats = {s["rank"]: s for s in got}
         return self.peer_stats
 
     def start_heartbeat(self, interval_s: float) -> None:
-        """Beat every ``interval_s`` of idleness (well inside the groups'
-        timeout)."""
+        """Beat every ``interval_s``, idle or serving: the beat thread keeps
+        an idle stream well inside the groups' timeout, and a call due a
+        beat runs it first (``invoke``), so a busy stream has its digests
+        compared as often."""
+        self.beat_s = interval_s
         self.heartbeat()
 
         def loop():
             while not self._stop_beat.wait(interval_s / 4):
                 if self.broken is not None or self.stopped:
                     return
-                if time.monotonic() - self._last < interval_s:
+                if time.monotonic() - self._beat_at < interval_s:
                     continue
                 try:
                     self.heartbeat()
@@ -447,6 +486,8 @@ def serve_commands(ctx) -> int:
         if name == "heartbeat":
             ctx.gather_object(device_stats(ctx))
             continue
+        if name == "diverged":
+            raise MeshDivergence(f"rank {ctx.rank}: rank 0's heartbeat found {payload['reason']}")
         if name == "outcome":
             ctx.gather_object(last)
             last = None

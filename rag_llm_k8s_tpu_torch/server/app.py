@@ -175,6 +175,7 @@ from rag_llm_k8s_tpu_torch.resilience.admission import AdmissionController, Admi
 from rag_llm_k8s_tpu_torch.resilience.breaker import CircuitBreaker
 from rag_llm_k8s_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from rag_llm_k8s_tpu_torch.resilience.lifecycle import LifecycleCoordinator
+from rag_llm_k8s_tpu_torch.utils.buckets import next_pow2
 from rag_llm_k8s_tpu_torch.utils.tokens import truncate_keep_eos
 
 logger = logging.getLogger(__name__)
@@ -272,6 +273,8 @@ class RagService:
         self.encoder_tokenizer = encoder_tokenizer
         self.store = store
         self.ready = False
+        # the boot's warm set and its seconds (warmup)
+        self.warm_report: Optional[Dict] = None
         # a mesh's followers: not ready while one is missing (server/main.py
         # adds the processes' liveness)
         self.peers_ready: Optional[Callable[[], bool]] = (
@@ -1305,13 +1308,41 @@ class RagService:
             return max(self.scheduler.engine.buckets)
         return 1 << 62
 
+    def warm_shapes(self) -> List[Tuple[int, int, object]]:
+        """JAX's warm set of the one-shot engine (``RagService.warmup``): with
+        no scheduler or the coalescing one, batch 1 at every bucket
+        (``InferenceEngine.warmup``: spec and vanilla under ``auto``), and
+        under the coalescing scheduler its padded batch ladder 2 ..
+        ``next_pow2(max_batch_size)`` at the largest bucket, or at every
+        bucket with ``warm_full_ladder`` (``TPU_RAG_WARM_FULL_LADDER=1``).
+        Under the continuous scheduler the one-shot engine serves only the
+        over-bucket prompts: one chunked prefill of twice the largest
+        bucket. Runs each shape once; returns the ``(batch, bucket,
+        variant)`` shapes run."""
+        ec = self.engine.engine_config
+        largest = max(ec.prompt_buckets)
+        if isinstance(self.scheduler, ContinuousScheduler):
+            self.engine.warm_shape(1, 2 * largest, largest)
+            return [(1, 2 * largest, largest)]
+        shapes = self.engine.warmup(batch_sizes=(1,), buckets=ec.prompt_buckets)
+        if isinstance(self.scheduler, BatchScheduler):
+            top, sizes, b = next_pow2(ec.max_batch_size), [], 2
+            while b <= top:
+                sizes.append(b)
+                b *= 2
+            if sizes:
+                warm_buckets = tuple(ec.prompt_buckets) if ec.warm_full_ladder else (largest,)
+                shapes += self.engine.warmup(batch_sizes=tuple(sizes), buckets=warm_buckets)
+        return shapes
+
     def warmup(self) -> None:
         """Build what the first request would otherwise build, then mark the
         service ready: on the card the CUDA kernels (``ops._build``), the
         C++ libraries (the tokenizer's merge loop is built when it loads; the
         index codec here), then one request-shaped pass: an embedding, a
         retrieve alone and a padded burst of them, the chunk-token sidecar,
-        and a short generate of a head + tail prompt."""
+        and JAX's warm set of generate shapes (``warm_shapes``; the list
+        and its seconds in ``warm_report``)."""
         if self.engine.device.type == "cuda":
             from rag_llm_k8s_tpu_torch.ops import _build
 
@@ -1326,7 +1357,11 @@ class RagService:
             self._retrieve_many(["warmup"] * self._retrieve_cap)
             if self.engine.engine_config.rag_fused:
                 self.store.token_snapshot()
-        self.engine.generate([self._a_ids() + self._b_ids("warmup")], max_new_tokens=2)
+        t_warm = time.perf_counter()
+        shapes = self.warm_shapes()
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+        self.warm_report = {"shapes": shapes, "seconds": time.perf_counter() - t_warm}
         if self._prefix_enabled():
             # build and PIN the head block (every request reuses it), so no
             # request prefills the head

@@ -94,7 +94,8 @@ def configure_logging(env: Optional[dict] = None) -> None:
 # a follower's load may take longer than the groups' collective timeout:
 # the ranks meet after loading at a barrier with a timeout of its own
 LOAD_TIMEOUT_S = 1800.0
-# the command stream's heartbeat while idle: well inside the groups' timeout
+# the command stream's heartbeat, idle or serving: well inside the groups'
+# timeout, and the longest a diverged world serves before it ends
 HEARTBEAT_S = 20.0
 
 

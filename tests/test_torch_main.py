@@ -518,16 +518,25 @@ def test_keys_that_leave_unported_features_off_are_accepted(caplog):
     env = {"TPU_RAG_MESH": "tp=-1", "TPU_RAG_SPEC_PAGED": "0", "TPU_RAG_POOL_ROLE": "unified",
            "TPU_RAG_SLO_TTFT_P95_S": "2", "TPU_RAG_SHADOW": "0", "TPU_RAG_WARM_FULL_LADDER": "1"}
     with caplog.at_level("WARNING"):
-        AppConfig.from_env(env)
-    # logged as ignored, not silently; the SLO and shadow keys are read now
-    assert "TPU_RAG_WARM_FULL_LADDER" in caplog.text
+        cfg = AppConfig.from_env(env)
+    # every one is read: none is logged as ignored (the warm ladder key
+    # since the port warms JAX's shape set)
+    assert "TPU_RAG_WARM_FULL_LADDER" not in caplog.text
     assert "TPU_RAG_SLO_TTFT_P95_S" not in caplog.text and "TPU_RAG_SHADOW" not in caplog.text
+    assert cfg.engine.warm_full_ladder is JAppConfig.from_env(env).engine.warm_full_ladder is True
+    for bad in ("yes", "2"):
+        msgs = []
+        for from_env in (JAppConfig.from_env, AppConfig.from_env):
+            with pytest.raises(ValueError) as err:
+                from_env({"TPU_RAG_WARM_FULL_LADDER": bad})
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1], msgs
 
 
 def test_only_the_shadow_and_warm_ladder_keys_are_left_unread():
     """Every ``TPU_RAG_*`` key the JAX config reads is read or refused by
-    the port's, but ``TPU_RAG_WARM_FULL_LADDER`` (ROADMAP.md Queue 3 item
-    A); the shadow auditor's keys are read since it was ported."""
+    the port's: the shadow auditor's keys since it was ported, and
+    ``TPU_RAG_WARM_FULL_LADDER`` since the port warms JAX's shape set."""
     import re
 
     from rag_llm_k8s_tpu.core import config as jconfig
@@ -536,7 +545,7 @@ def test_only_the_shadow_and_warm_ladder_keys_are_left_unread():
     with open(jconfig.__file__, encoding="utf-8") as f:
         keys = set(re.findall(r'"(TPU_RAG_[A-Z0-9_]+)"', f.read()))
     left = sorted(k for k in keys if k not in tconfig.PORTED_KEYS and k not in tconfig.UNPORTED_KEYS)
-    assert left == ["TPU_RAG_WARM_FULL_LADDER"], left
+    assert left == [], left
 
 
 # the goodput, SLO, tenant and incident-spool keys (ROADMAP.md Queue 1 item

@@ -323,8 +323,15 @@ def test_greedy_paged_speculation_audits_clean_with_its_fingerprint(weights, led
 # ---------------------------------------------------------------------------
 
 
+# the process recorder's event count when the pair was built: its journal
+# starts there (an earlier file in the same xdist worker may have journaled
+# audits of its own services into the same recorder)
+PAIR_SEQ = [0]
+
+
 @pytest.fixture(scope="module")
 def pair():
+    PAIR_SEQ[0] = tflight.recorder().events_emitted
     pr = pairs_mod._make_pair("coalesce", shadow=dict(sample_rate=1.0, burst_window_s=300.0))
     yield pr
     for svc, _ in pr.values():
@@ -387,7 +394,8 @@ def test_a_divergence_burst_spools_a_bundle_that_renders_the_live_report(pair, m
     assert live["audits"]["diverged"] == before["diverged"] + 2 and live["attribution"]["warm_tier"]["diverged"] == 2
     assert live["first_divergence_token"]["hist"]["le_1"] == 2
     # the journal the service wrote renders the live report
-    assert tshadow.render_report(tshadow.state_from_events(svc.flight.snapshot())) == live
+    journal = [e for e in svc.flight.snapshot() if e["seq"] >= PAIR_SEQ[0]]
+    assert tshadow.render_report(tshadow.state_from_events(journal)) == live
     # the histograms feed the quality SLO
     time.sleep(0.3)  # past the 0.25 s stats memo
     snap = svc.metrics.snapshot()
